@@ -1,0 +1,181 @@
+"""Inference engine for the hFT model on the port's layer kernels.
+
+Port of :mod:`nylon_amt_tpu.infer.engine`. ``forward(packed, spec, config)``
+reproduces the deterministic ``HFT.forward`` logits through the layer
+wrappers of :mod:`nylon_amt_tpu_torch.ops.layer_fused`: K2
+(``encoder_layer_with_stem``) for the stem and the first frequency-encoder
+layer, K3 (``encoder_layer``) for the other frequency-encoder layers and
+every stage-2 time layer, K4
+(``decoder_layer_zero``) and K5 (``decoder_layer``) for the stage-1 decoder.
+On CUDA tensors every layer launches its kernels; on CPU tensors the same
+code runs the plain versions.
+
+The 65-tap stem, the sqrt(hid) scale and the frequency position embedding
+run in K2 (``encoder_layer_with_stem``) with the first frequency layer, as
+in the JAX engine; the output heads are plain matmuls, as the JAX engine
+leaves them to XLA.
+
+Weights are packed once, by :func:`pack_params`, when a transcriber is
+built: under ``jit`` the JAX engine packs at trace time for free, eagerly it
+would cost a repack per forward.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from nylon_amt_tpu.config import Config
+from nylon_amt_tpu_torch.models.hft import HFT, supports
+from nylon_amt_tpu_torch.ops.layer_fused import (
+    CrossLayerParams,
+    EncoderLayerParams,
+    _matmul,
+    decoder_layer,
+    decoder_layer_zero,
+    encoder_layer,
+    encoder_layer_with_stem,
+    sqrt_hid,
+)
+from nylon_amt_tpu_torch.ops.precision import full_f32
+
+__all__ = ["PackedHFT", "forward", "pack_params", "supports"]
+
+_KEYS = ("onset", "offset", "mpe", "velocity")
+
+
+class PackedHFT(NamedTuple):
+    """The model's weights in the engine's layout and compute dtype."""
+
+    dtype: torch.dtype
+    k_eff: torch.Tensor                  # [n_proc, hid] f32 stem
+    b_eff: torch.Tensor                  # [hid] f32
+    pos_freq: torch.Tensor               # [n_bin, hid]
+    enc: list[EncoderLayerParams]
+    note_q: torch.Tensor                 # [n_note, hid]
+    dec_zero: CrossLayerParams
+    dec: list[CrossLayerParams]
+    heads_a: dict[str, tuple[torch.Tensor, torch.Tensor]]
+    pos_time: torch.Tensor | None        # [n_frame, hid]; None for cafreq
+    time: list[EncoderLayerParams]
+    heads_b: dict[str, tuple[torch.Tensor, torch.Tensor]]
+
+
+def _lin(lin, dt, *more):
+    """Linear weight(s) as ``[in, out]`` (concatenated along out) + bias."""
+    lins = (lin, *more)
+    w = torch.cat([m.weight.t() for m in lins], dim=1)
+    b = torch.cat([m.bias for m in lins])
+    return w.to(dt).contiguous(), b.to(dt).contiguous()
+
+
+def _ln_ffn(layer, dt) -> dict:
+    ln, ff = layer.layer_norm, layer.positionwise_feedforward
+    w1, b1 = _lin(ff.fc_1, dt)
+    w2, b2 = _lin(ff.fc_2, dt)
+    return dict(g=ln.weight.float().contiguous(),
+                b=ln.bias.float().contiguous(), w1=w1, b1=b1, w2=w2, b2=b2)
+
+
+def _pack_encoder(layer, dt) -> EncoderLayerParams:
+    sa = layer.self_attention
+    wqkv, bqkv = _lin(sa.fc_q, dt, sa.fc_k, sa.fc_v)
+    wo, bo = _lin(sa.fc_o, dt)
+    return EncoderLayerParams(wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo,
+                              **_ln_ffn(layer, dt))
+
+
+def _pack_cross(layer, dt) -> CrossLayerParams:
+    ca = layer.encoder_attention
+    wq, bq = _lin(ca.fc_q, dt)
+    wkv, bkv = _lin(ca.fc_k, dt, ca.fc_v)
+    wo, bo = _lin(ca.fc_o, dt)
+    hid = wq.shape[0]
+    if hasattr(layer, "self_attention"):
+        sa = layer.self_attention
+        wsqkv, bsqkv = _lin(sa.fc_q, dt, sa.fc_k, sa.fc_v)
+        wso, bso = _lin(sa.fc_o, dt)
+    else:                                  # layer zero: no self-attention
+        wsqkv = torch.zeros((hid, 0), dtype=dt, device=wq.device)
+        bsqkv = torch.zeros((0,), dtype=dt, device=wq.device)
+        wso = torch.zeros((hid, hid), dtype=dt, device=wq.device)
+        bso = torch.zeros((hid,), dtype=dt, device=wq.device)
+    return CrossLayerParams(wsqkv=wsqkv, bsqkv=bsqkv, wso=wso, bso=bso,
+                            wq=wq, bq=bq, wkv=wkv, bkv=bkv, wo=wo, bo=bo,
+                            **_ln_ffn(layer, dt))
+
+
+@torch.no_grad()
+def pack_params(model: HFT, dtype: torch.dtype) -> PackedHFT:
+    """Pack ``model``'s weights once, on the model's device."""
+    enc, dec = model.encoder_spec2midi, model.decoder_spec2midi
+    k_eff, b_eff = enc.stem_kernel(model.config)
+    heads = {s: {k: _lin(getattr(dec, f"fc_{k}_{t}"), dtype) for k in _KEYS}
+             for s, t in (("a", "freq"), ("b", "time"))
+             if s == "a" or dec.stage2}
+    return PackedHFT(
+        dtype=dtype, k_eff=k_eff, b_eff=b_eff,
+        pos_freq=enc.pos_embedding_freq.weight.to(dtype),
+        enc=[_pack_encoder(layer, dtype) for layer in enc.layers_freq],
+        note_q=dec.pos_embedding_freq.weight.to(dtype),
+        dec_zero=_pack_cross(dec.layer_zero_freq, dtype),
+        dec=[_pack_cross(layer, dtype) for layer in dec.layers_freq],
+        heads_a=heads["a"],
+        pos_time=dec.pos_embedding_time.weight.to(dtype) if dec.stage2
+        else None,
+        time=[_pack_encoder(layer, dtype) for layer in dec.layers_time]
+        if dec.stage2 else [],
+        heads_b=heads.get("b", {}))
+
+
+def _dense(x, head):
+    with full_f32():
+        return _matmul(x, *head)
+
+
+@torch.no_grad()
+def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
+    """``spec [B, n_bin, margin_b + n_frame + margin_f]`` -> dict of logits
+    with the keys and shapes of ``HFT.forward``."""
+    m = config.model
+    dt = packed.dtype
+    B = spec.shape[0]
+    n_frame = config.input.num_frame
+    n_note, hid = config.midi.num_note, m.hid_dim
+    scale = sqrt_hid(hid, dt)
+
+    # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
+    spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
+    h = encoder_layer_with_stem(spec_t, packed.k_eff, packed.b_eff,
+                                packed.pos_freq, packed.enc[0], m.enc_head,
+                                n_frame, dt)
+    for p in packed.enc[1:]:
+        h = encoder_layer(h, p, m.enc_head)
+    enc = h                                        # [B*n_frame, n_bin, hid]
+
+    # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
+    trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
+    trg = decoder_layer_zero(trg, enc, packed.dec_zero, m.dec_head)
+    for p in packed.dec:
+        trg = decoder_layer(trg, enc, p, m.dec_head)
+    out = {f"{k}_A": _dense(trg, packed.heads_a[k])
+           .reshape(B, n_frame, n_note, -1) for k in _KEYS}
+    if packed.pos_time is None:                    # stage-1-only decoder
+        return _squeeze(out)
+
+    # ---- stage 2: SAtime, K3 per layer --------------------------------------
+    t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
+    t = t.reshape(B * n_note, n_frame, hid) * scale + packed.pos_time
+    for p in packed.time:
+        t = encoder_layer(t, p, m.dec_head)
+    for k in _KEYS:
+        out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
+                         .reshape(B, n_note, n_frame, -1).transpose(1, 2))
+    return _squeeze(out)
+
+
+def _squeeze(out: dict) -> dict:
+    """Drop the unit class axis of the onset/offset/mpe heads."""
+    return {k: v if k.startswith("velocity") else v[..., 0]
+            for k, v in out.items()}
