@@ -22,14 +22,36 @@ non-zero and never prints the last line):
     ``HFT.forward`` per output key (the bf16 gate, and at most 8 / 64 bf16
     ulps from the plain bf16 forward for the stage-1 / stage-2 heads), the
     ms per forward and the device time per kernel;
-(f) the launch counts of run (d): every kernel of the path ran.
+(f) the launch counts of run (d): every kernel of the path ran;
+(g) K6, the dropout-mask kernel, bit for bit equal to its plain version on
+    every site shape of the batch-8 train step (packed and unpacked, f32
+    and bf16);
+(h) K7, K8 and K9 (the training layers) at the batch-8 paper bf16 shapes,
+    dropout 0.1 (and the embedding site for K7): the forward within 4 bf16
+    ulps of the plain bf16 twin and the bf16 gate against the plain f32
+    truth, at rate 0 equal to the inference kernels of (c); the backward's
+    input gradients under the bf16 gate (also scaled by the truth's largest
+    value) and within 12 bf16 ulps of the plain bf16 twin; the same
+    backward with its stage hook, every kernel fed the plain twin's own
+    inputs: each output within 4 bf16 ulps of the twin's same stage, each
+    weight gradient within 1e-4 of the twin's; each weight gradient of the
+    plain run within 2e-2 of the plain bf16 one's largest value and under
+    the gate, bit-identical from run to run; both times;
+(i) training through the CLI: a paper bf16 config (dropout 0.1, batch 8)
+    and seeded train and valid splits, ``train --epochs 1 --device cuda``,
+    finite losses, the launch counts per step, then ``transcribe`` of (d)'s
+    WAV with the trained checkpoint;
+(j) the batch-8 train step's time by CUDA events and a per-kernel profile.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths in IEEE f32, and the script wraps only its own f32
 references in ``full_f32``.
 
 Before the last line it prints the card's name and power limit and one JSON
-object with each kernel's launches, error and times. The last line is
+object with each kernel's launches (K1-K5 from (d), K6-K9 from (i)), error,
+times and bound (the larger of the bytes it must move over 3.35 TB/s and its
+operations over 989 TFLOP/s bf16, 67 TFLOP/s for K1's and the stem's f32 and
+f64 work: the H100 SXM's published rates). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,6 +81,23 @@ ULPS = 4           # kernel vs plain bf16: ulps of the output's largest value
 # on stage 1's output through three more layers, and amplifies every
 # difference as it amplifies the plain bf16 forward's own rounding (see (e))
 ULPS_FORWARD = {"A": 8, "B": 64}
+TRAIN_BATCH = 8    # windows per train step, bench.py's
+DROP_SEED = 987654  # dropout seed of (h)
+RATE = 0.1          # dropout rate of the paper recipe
+WGRAD_REL = 2e-2   # weight grad vs plain bf16, of max |plain bf16|
+# backward input grads vs the plain bf16 twin, chained through the ~10 bf16
+# roundings of the backward: read at 7.0-10.25 ulps on an H100 (each kernel
+# is <= 1 ulp from the twin on the twin's inputs); the plain bf16 twin itself
+# reads 16.45 ulps from the f32 truth
+CHAIN_ULPS = 12
+# weight grads of the backward kernels on the plain twin's own inputs: the
+# same bf16 operands summed in f32 in another order
+STAGE_WGRAD_REL = 1e-4
+# the kernels' outputs that the stage hook sees, per layer kind
+STAGES = {"enc": 16, "dec_zero": 18, "dec": 27}
+HBM_BPS = 3.35e12   # H100 SXM device memory, bytes/s
+BF16_FLOPS = 989e12  # dense bf16 tensor cores
+F32_FLOPS = 67e12    # f32 (and K1's f64 work) outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -122,14 +161,19 @@ def synth_audio(seconds: float, rng: np.random.Generator,
     return wav.astype(np.float32)
 
 
-def profile_forward(fwd, iters: int = 10) -> None:
-    """Device time per kernel over ``iters`` forwards, by torch.profiler,
-    and the device-busy share of the profiled window."""
+def profile_forward(fwd, iters: int = 10, phase: str = "e",
+                    what: str = "forward", top: int = 12) -> None:
+    """Device time per kernel over ``iters`` calls of ``fwd`` (forwards,
+    or train steps), by torch.profiler, and the device-busy share of the
+    profiled window."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    grad = torch.no_grad() if what == "forward" else contextlib.nullcontext()
+    with grad, profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fwd()
@@ -140,10 +184,63 @@ def profile_forward(fwd, iters: int = 10) -> None:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"(e) profile, {iters} forwards: {wall:.3f} ms wall per forward, "
-        f"{busy:.3f} ms device-busy ({busy / wall:.1%})")
-    for name, ms, calls in rows[:12]:
-        log(f"(e)   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} x{calls}")
+    log(f"({phase}) profile, {iters} {what}s: {wall:.3f} ms wall per "
+        f"{what}, {busy:.3f} ms device-busy ({busy / wall:.1%})")
+    for name, ms, calls in rows[:top]:
+        log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
+            f"x{calls}")
+
+
+def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0
+          ) -> dict:
+    """The least time the card could take: bytes over the memory rate, or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def layer_flops(kind: str, n: int, lq: int, lk: int, hid: int,
+                pf: int) -> int:
+    """Matrix-product FLOPs of one layer forward (enc, dec_zero, dec)."""
+    mq, mk = n * lq, n * lk
+    f = 2 * mq * hid * hid + 2 * 2 * mq * hid * pf          # O, FFN
+    if kind == "enc":
+        return f + 2 * mq * hid * 3 * hid + 4 * n * lq * lq * hid
+    f += 2 * mq * hid * hid + 2 * mk * hid * 2 * hid + 4 * n * lq * lk * hid
+    if kind == "dec":
+        f += 2 * mq * hid * 3 * hid + 2 * mq * hid * hid + 4 * n * lq * lq * hid
+    return f
+
+
+def sdpa_ms(n: int, lq: int, lk: int, heads: int, dev, backward: bool
+            ) -> float:
+    """Time of torch's scaled_dot_product_attention at one attention shape
+    (the library yardstick of a layer's attention piece; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def r(L):
+        return torch.randn((n, heads, L, 64), generator=g, device=dev,
+                           dtype=torch.bfloat16, requires_grad=backward)
+
+    q, k, v = r(lq), r(lk), r(lk)
+    do = torch.randn((n, heads, lq, 64), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+
+    def run():
+        o = F.scaled_dot_product_attention(q, k, v)
+        if backward:
+            torch.autograd.grad(o, (q, k, v), do)
+
+    return cuda_ms(run, iters=5)
 
 
 def card_line() -> str:
@@ -152,6 +249,388 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def check_masks(dev) -> dict:
+    """(g): the K6 kernel's masks against the plain version, bit for bit,
+    on every dropout site shape of the batch-8 paper train step."""
+    from nylon_amt_tpu_torch.ops import attention as att
+
+    n_f, n_t = TRAIN_BATCH * 128, TRAIN_BATCH * 88
+    sites = [  # shape, dtype: activations bf16, probabilities f32
+        ((n_f, 256, 256), torch.bfloat16), ((n_f, 256, 512), torch.bfloat16),
+        ((n_f, 256, 256), torch.float32),
+        ((n_t, 128, 256), torch.bfloat16), ((n_t, 128, 512), torch.bfloat16),
+        ((n_t, 128, 128), torch.float32),
+        ((n_f, 88, 256), torch.bfloat16), ((n_f, 88, 512), torch.bfloat16),
+        ((n_f, 88, 256), torch.float32), ((n_f, 88, 88), torch.float32)]
+    for i, (shape, dt) in enumerate(sites):
+        got = att.hash_keep_mask(DROP_SEED, 3 + i, 0, shape, RATE, dt, dev)
+        want = att.hash_keep_mask_plain(DROP_SEED, 3 + i, 0, shape, RATE, dt,
+                                        dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 mask {shape} {dt}: "
+                                 f"{(got != want).sum().item()} elements "
+                                 f"differ from the plain version")
+        log(f"(g) K6 mask {shape} {str(dt)[6:]} "
+            f"({'packed' if shape[2] % 256 == 0 else 'unpacked'}): equal to "
+            f"the plain version, keep share {(got != 0).float().mean():.5f}")
+    # the main path's launch: x * mask on the first frequency layer's input
+    x = torch.randn((n_f, 256, 256), device=dev).to(torch.bfloat16)
+    ms = cuda_ms(lambda: att.apply_keep_mask(x, DROP_SEED, 6, RATE), iters=10)
+    plain_ms = cuda_ms(lambda: x * att.hash_keep_mask_plain(
+        DROP_SEED, 6, 0, tuple(x.shape), RATE, x.dtype, dev), iters=3)
+    ops = 8 * x.numel()  # hash + select per element, packed (two per hash)
+    res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               **bound(2 * nbytes(x), f32_flops=ops), library_ms=None,
+               gate="bit-identical masks on every site shape")
+    log(f"(g) K6 x * mask at {tuple(x.shape)} bf16: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
+def _train_layers(model, dev) -> dict:
+    """The training layers of (h) with the paper model's weights and
+    seeded bf16 activations at the batch-8 shapes: name -> (kind, inputs,
+    f32 params, emb_drop)."""
+    from nylon_amt_tpu_torch.models import fused_train as ft
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    hid = model.config.model.hid_dim
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def det(p):
+        return type(p)(*(t.detach().contiguous() for t in p))
+
+    enc, dec = model.encoder_spec2midi, model.decoder_spec2midi
+    n_f, n_t = TRAIN_BATCH * 128, TRAIN_BATCH * 88
+    return {
+        "encoder_layer_train": ("enc", (act(n_f, 256, hid),),
+                                det(ft._pack_enc(enc.layers_freq[0])), True),
+        "encoder_layer_train/time": ("enc", (act(n_t, 128, hid),),
+                                     det(ft._pack_enc(dec.layers_time[0])),
+                                     True),
+        "decoder_layer_zero_train": (
+            "dec_zero", (act(n_f, 88, hid), act(n_f, 256, hid)),
+            det(ft._pack_dec(dec.layer_zero_freq, False)), False),
+        "decoder_layer_train": (
+            "dec", (act(n_f, 88, hid), act(n_f, 256, hid)),
+            det(ft._pack_dec(dec.layers_freq[0], True)), False)}
+
+
+def _layer_fns(kind: str, emb: bool, heads: int):
+    """(kernel fwd, plain fwd, kernel bwd, plain bwd) of a layer kind, as
+    functions of (inputs, params, rate[, dz[, stage hook | taps dict]])."""
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lt
+
+    if kind == "enc":
+        return (lambda xs, p, r: lt.encoder_layer_train_cuda(
+                    xs[0], p, DROP_SEED, heads, r, emb),
+                lambda xs, p, r: lt.encoder_layer_train_plain(
+                    xs[0], p, DROP_SEED, heads, r, emb),
+                lambda xs, p, r, dz, tap=None: lt.encoder_layer_train_bwd_cuda(
+                    xs[0], p, DROP_SEED, dz, heads, r, emb, tap=tap),
+                lambda xs, p, r, dz, taps=None: lt.encoder_layer_train_bwd_plain(
+                    xs[0], p, DROP_SEED, dz, heads, r, emb, taps))
+    fwd_plain = (lt.decoder_layer_train_plain if kind == "dec"
+                 else lt.decoder_layer_zero_train_plain)
+    bwd_plain = (lt.decoder_layer_train_bwd_plain if kind == "dec"
+                 else lt.decoder_layer_zero_train_bwd_plain)
+    return (lambda xs, p, r: lt.decoder_layer_train_cuda(
+                *xs, p, DROP_SEED, heads, r),
+            lambda xs, p, r: fwd_plain(*xs, p, DROP_SEED, heads, r),
+            lambda xs, p, r, dz, tap=None: lt.decoder_layer_train_bwd_cuda(
+                *xs, p, DROP_SEED, dz, heads, r, tap=tap),
+            lambda xs, p, r, dz, taps=None: bwd_plain(
+                *xs, p, DROP_SEED, dz, heads, r, taps))
+
+
+def _split_bwd(kind, out):
+    """(input gradients, weight-gradient params) of a backward result."""
+    return (list(out[:1]), out[1]) if kind == "enc" else (list(out[:2]),
+                                                          out[2])
+
+
+def check_train_layers(model, cfg, dev, k3k5) -> dict:
+    """(h): K7, K8, K9 forward and backward against their plain twins."""
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    m = cfg.model
+    hid, pf = m.hid_dim, m.pf_dim
+    results = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for name, (kind, xs, p, emb) in _train_layers(model, dev).items():
+        heads = m.enc_head if kind == "enc" else m.dec_head
+        k_fwd, p_fwd, k_bwd, p_bwd = _layer_fns(kind, emb, heads)
+        n, lq, _ = xs[0].shape
+        lk = xs[-1].shape[1]
+        xs32 = [x.float() for x in xs]
+        # forward at rate 0: the inference kernels of (c), bit for bit
+        p16 = lf.CrossLayerParams(**{
+            f: getattr(p, f) if hasattr(p, f) else torch.zeros(0, device=dev)
+            for f in lf.CrossLayerParams._fields}) if kind != "enc" else p
+        packed = type(p16)(*(t.float().contiguous() if f in ("g", "b") else
+                             t.to(torch.bfloat16).contiguous()
+                             for f, t in zip(p16._fields, p16)))
+        zero = k_fwd(xs, p, 0.0)
+        inf = k3k5[kind](*xs, packed, heads)
+        zero_ulps = ulp_distance(zero, inf)[1]
+        if not zero_ulps <= 1.0:
+            raise AssertionError(f"{name}: rate 0 is {zero_ulps:.2f} ulps "
+                                 f"from the inference kernels")
+        # forward with dropout
+        got = k_fwd(xs, p, RATE)
+        plain16 = p_fwd(xs, p, RATE)
+        with full_f32():
+            truth = p_fwd(xs32, p, RATE)
+        torch.cuda.synchronize()
+        fe_k, fe_p = bf16_gate(f"{name} fwd", got, plain16, truth)
+        err, ulps = ulp_distance(got, plain16)
+        if not ulps <= ULPS:
+            raise AssertionError(f"{name} fwd: {ulps:.2f} ulps from plain "
+                                 f"bf16 > {ULPS}")
+        del truth
+        # backward
+        dz = torch.randn(xs[0].shape, generator=g, device=dev).to(
+            torch.bfloat16)
+        kb = k_bwd(xs, p, RATE, dz)
+        kb2 = k_bwd(xs, p, RATE, dz)
+        k_in, k_w = _split_bwd(kind, kb)
+        k_in2, k_w2 = _split_bwd(kind, kb2)
+        if not all(torch.equal(a, b) for a, b in zip(list(k_w) + k_in,
+                                                     list(k_w2) + k_in2)):
+            raise AssertionError(f"{name} bwd: two runs differ")
+        del kb2, k_in2, k_w2
+        taps = {}
+        p_in, p_w = _split_bwd(kind, p_bwd(xs, p, RATE, dz, taps))
+        with full_f32():
+            t_in, t_w = _split_bwd(kind, p_bwd(xs32, p, RATE, dz.float()))
+        torch.cuda.synchronize()
+        in_gates = []
+        for i, (a, b, t) in enumerate(zip(k_in, p_in, t_in)):
+            e = bf16_gate(f"{name} bwd input grad {i}", a, b, t)
+            # the gate again, scaled by max |truth|: a zero or mis-wired
+            # gradient is ~1 from the truth here
+            top = t.float().abs().max().item()
+            e_k = (a.float() - t.float()).abs().max().item() / top
+            e_p = (b.float() - t.float()).abs().max().item() / top
+            u = ulp_distance(a, b)[1]
+            if not (e_k <= 2.0 * e_p + 1e-3 and u <= CHAIN_ULPS):
+                raise AssertionError(
+                    f"{name} bwd input grad {i}: err from f32 {e_k:.2e} of "
+                    f"max |truth| vs plain bf16 {e_p:.2e}; {u:.2f} ulps from "
+                    f"plain bf16 (<= {CHAIN_ULPS})")
+            in_gates.append((e, e_k, e_p, u))
+        w_worst = 0.0
+        for f, a, b, t in zip(p._fields, k_w, p_w, t_w):
+            top = b.abs().max().item()
+            rel = (a - b).abs().max().item() / top
+            scale = max(t.abs().max().item(), 1e-30)
+            e_k = (a - t).abs().max().item() / scale
+            e_p = (b - t).abs().max().item() / scale
+            if not (rel <= WGRAD_REL and e_k <= 2.0 * e_p + 1e-3):
+                raise AssertionError(
+                    f"{name} bwd d{f}: {rel:.2e} of max |plain bf16| (<= "
+                    f"{WGRAD_REL}), err from f32 {e_k:.2e} vs plain bf16 "
+                    f"{e_p:.2e}")
+            w_worst = max(w_worst, rel)
+        del t_in, t_w
+        # the same backward (the training path's wiring) with its stage
+        # hook: every kernel's output is recorded and replaced by the plain
+        # twin's same intermediate, so each kernel runs on the twin's inputs
+        seen = {}
+
+        def hook(stage, t):
+            want = taps[stage].reshape(t.shape).contiguous()
+            if want.dtype != t.dtype:
+                raise AssertionError(f"{name} stage {stage}: the twin's "
+                                     f"{want.dtype} for the kernel's "
+                                     f"{t.dtype}")
+            seen[stage] = (t, want)
+            return want
+
+        _, s_w = _split_bwd(kind, k_bwd(xs, p, RATE, dz, hook))
+        torch.cuda.synchronize()
+        if len(seen) != STAGES[kind]:
+            raise AssertionError(f"{name} bwd: the stage hook saw "
+                                 f"{sorted(seen)}, {STAGES[kind]} expected")
+        stage_ulps = {k: ulp_distance(a, b)[1] for k, (a, b) in seen.items()}
+        worst = max(stage_ulps, key=stage_ulps.get)
+        if not stage_ulps[worst] <= ULPS:
+            raise AssertionError(f"{name} bwd stage {worst}: "
+                                 f"{stage_ulps[worst]:.2f} ulps from the "
+                                 f"plain twin on its inputs > {ULPS}")
+        sw_worst = 0.0
+        for f, a, b in zip(p._fields, s_w, p_w):
+            rel = (a - b).abs().max().item() / b.abs().max().item()
+            if not rel <= STAGE_WGRAD_REL:
+                raise AssertionError(f"{name} bwd d{f} on the plain twin's "
+                                     f"inputs: {rel:.2e} of max |plain| > "
+                                     f"{STAGE_WGRAD_REL}")
+            sw_worst = max(sw_worst, rel)
+        bwd_err = max((a - b).abs().max().item() for a, b in zip(k_in, p_in))
+        del seen, s_w, taps, p_in, p_w
+        fwd_ms = cuda_ms(lambda: k_fwd(xs, p, RATE))
+        fwd_plain_ms = cuda_ms(lambda: p_fwd(xs, p, RATE), iters=2)
+        bwd_ms = cuda_ms(lambda: k_bwd(xs, p, RATE, dz), iters=3)
+        bwd_plain_ms = cuda_ms(lambda: p_bwd(xs, p, RATE, dz), iters=1)
+        flops = layer_flops(kind, n, lq, lk, hid, pf)
+        w_bytes = nbytes(*p)
+        io = nbytes(*xs)
+        chain = max(gate[3] for gate in in_gates)
+        results[name] = dict(
+            max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+            **bound(io + w_bytes + nbytes(got), flops), library_ms=None,
+            sdpa_piece_ms=sdpa_ms(n, lq, lk, heads, dev, backward=False),
+            gate=f"{ulps:.2f} bf16 ulps from plain bf16 <= {ULPS}; bf16 rel "
+                 f"err from plain f32 {fe_k:.5f} <= 2 x {fe_p:.5f} + 1e-3; "
+                 f"rate 0 {zero_ulps:.2f} ulps from the inference kernels")
+        results[name + "_bwd"] = dict(
+            max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+            **bound(2 * io + nbytes(dz) + 2 * w_bytes, 3 * flops),
+            library_ms=None,
+            sdpa_piece_ms=sdpa_ms(n, lq, lk, heads, dev, backward=True),
+            gate=f"input grads under the bf16 gate (also scaled by max "
+                 f"|truth|) and {chain:.2f} ulps from plain bf16 (<= "
+                 f"{CHAIN_ULPS}); every kernel of the backward on the plain "
+                 f"twin's inputs <= {stage_ulps[worst]:.2f} ulps (<= "
+                 f"{ULPS}), weight grads there <= {sw_worst:.2e} (<= "
+                 f"{STAGE_WGRAD_REL}); weight grads <= {w_worst:.2e} of max "
+                 f"|plain bf16| (<= {WGRAD_REL}) and under the gate; "
+                 f"bit-identical runs")
+        log(f"(h) {name} at {[tuple(x.shape) for x in xs]}, rate {RATE}: "
+            f"fwd {ulps:.2f} ulps from plain bf16, gate {fe_k:.5f} vs "
+            f"{fe_p:.5f}, rate 0 {zero_ulps:.2f} ulps from (c)'s kernels; "
+            f"bwd input grads (gate; of max |truth|; ulps) "
+            f"{[f'{e[0]:.5f}/{e[1]:.5f}; {ek:.2e}/{ep:.2e}; {u:.2f}' for e, ek, ep, u in in_gates]}, "
+            f"{len(stage_ulps)} stages <= {stage_ulps[worst]:.2f} ulps "
+            f"({worst}), their weight grads <= {sw_worst:.2e}; weight "
+            f"grads <= {w_worst:.2e}, deterministic")
+        log(f"(h) {name}: fwd kernel {fwd_ms:.3f} ms, plain "
+            f"{fwd_plain_ms:.3f} ms, bound {results[name]['bound_ms']:.3f} "
+            f"ms; bwd kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
+            f"bound {results[name + '_bwd']['bound_ms']:.3f} ms; SDPA on the "
+            f"attention piece fwd {results[name]['sdpa_piece_ms']:.3f} ms, "
+            f"fwd+bwd {results[name + '_bwd']['sdpa_piece_ms']:.3f} ms")
+        del xs, xs32, got, plain16, kb, k_in, k_w, dz
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
+    """(i): seeded train/valid splits (real log-mel features of the smoke's
+    audio, sparse random labels), ``train --epochs 1 --device cuda``, the
+    launch counts per step, and ``transcribe`` with the trained
+    checkpoint. Returns (launch counts of the training run, first train
+    batch)."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.data.corpus import assemble_split, SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    m, t = cfg.model, cfg.train
+    rng = np.random.default_rng(SEED + 4)
+    feats = feat.cpu().numpy()
+
+    def piece(lo, n):
+        labels = {"onset": (rng.random((n, 88)) > 0.98).astype(np.float32),
+                  "offset": (rng.random((n, 88)) > 0.98).astype(np.float32),
+                  "mpe": rng.random((n, 88)) > 0.9,
+                  "velocity": rng.integers(0, 128, (n, 88)).astype(np.int8)}
+        return feats[lo:lo + n], labels
+
+    # n_slice keeps one window start in n_slice: 768 train frames -> 48
+    # windows (6 steps of 8), 256 valid frames -> 16 windows
+    splits = {"train": [piece(0, 400), piece(1000, 368)],
+              "valid": [piece(3000, 256)]}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg.save(str(tmp / "config.json"))
+        for split, pieces in splits.items():
+            assemble_split(cfg, [f for f, _ in pieces],
+                           [lab for _, lab in pieces]).save(
+                str(tmp / "corpus"), split)
+        ds = WindowDataset(SplitArrays.load(str(tmp / "corpus"), "train"),
+                           cfg, n_slice=t.n_slice)
+        steps = ds.steps_per_epoch
+        first = next(ds.batches(t.batch_size))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["train", "--config", str(tmp / "config.json"),
+                       "--dataset", str(tmp / "corpus"), "--out",
+                       str(tmp / "run"), "--epochs", "1", "--n-slice",
+                       str(t.n_slice), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        if rc != 0:
+            raise AssertionError(f"train returned {rc}")
+        perf = json.loads((tmp / "run" / "performance.json").read_text())
+        losses = perf["loss_train"] + perf["loss_valid"]
+        if len(losses) != 2 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"performance.json losses {losses}")
+        per_step = {"hash_keep_mask": 4,     # emb_drop: 2 stages x fwd, bwd
+                    "encoder_layer_train": m.enc_layer + m.dec_layer,
+                    "encoder_layer_train_bwd": m.enc_layer + m.dec_layer,
+                    "decoder_layer_zero_train": 1,
+                    "decoder_layer_zero_train_bwd": 1,
+                    "decoder_layer_train": m.dec_layer - 1,
+                    "decoder_layer_train_bwd": m.dec_layer - 1}
+        want = {k: v * steps for k, v in per_step.items()}
+        got = {k: counts[k] for k in want}
+        if got != want or steps != 6:
+            raise AssertionError(f"launch counts of the training run {got}, "
+                                 f"expected {want} ({steps} steps)")
+        log(f"(i) cli train, paper bf16, dropout {m.dropout}, batch "
+            f"{t.batch_size}: {len(ds)} train windows = {steps} steps, 1 "
+            f"epoch in {wall:.2f} s wall (model init, validation and the "
+            f"checkpoint included); loss train {perf['loss_train'][0]:.5f}, "
+            f"valid {perf['loss_valid'][0]:.5f}; launches per step "
+            f"{per_step}")
+        save_wav(str(tmp / "piece.wav"), audio, SR)
+        ckpt = tmp / "run" / "checkpoints" / "model_000_000" / "model.dat"
+        rc = cli_main(["transcribe", "--checkpoint", str(ckpt), "--config",
+                       str(tmp / "config.json"), "--wav",
+                       str(tmp / "piece.wav"), "--out", str(tmp / "out"),
+                       "--batch-windows", str(BATCH), "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"transcribe with the trained checkpoint "
+                                 f"returned {rc}")
+        notes = json.loads((tmp / "out" / "piece.notes.json").read_text())
+        log(f"(i) transcribe with the trained checkpoint: {len(notes)} notes")
+    return counts, first
+
+
+def time_train_step(cfg, batch_np, dev, card: str) -> float:
+    """(j): the batch-8 paper bf16 train step by CUDA events, and the
+    device time per kernel over a few steps."""
+    from nylon_amt_tpu_torch.models import fused_train as ft
+    from nylon_amt_tpu_torch.train import step as st
+
+    state = st.create_train_state(cfg, SEED, dev)
+    batch = st.to_device(batch_np, dev)
+    gen = torch.Generator().manual_seed(SEED)
+    apply = ft.make_fused_apply(cfg)
+
+    def step():
+        st.train_step(cfg, state, batch, ft.draw_seeds(cfg, gen), apply)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"(j) batch-{cfg.train.batch_size} paper bf16 train step (dropout "
+        f"{cfg.model.dropout}): {ms:.3f} ms by CUDA events (mean of 10 after "
+        f"2), {cfg.train.batch_size / ms * 1e3:.1f} windows/s, peak device "
+        f"memory {peak:.2f} GiB; card {card}")
+    profile_forward(step, iters=3, phase="j", what="train step", top=16)
+    return ms
 
 
 def main() -> int:
@@ -222,8 +701,14 @@ def main() -> int:
     wav = torch.from_numpy(audio).to(dev)
     ms = cuda_ms(lambda: log_mel(wav, fe), iters=10)
     plain_ms = cuda_ms(lambda: log_mel_plain(wav, fe), iters=10)
+    n_freq, n_fft = fe.cos_w.shape
+    t_frames, n_mels = got.shape
     results["log_mel"] = dict(
         max_abs_err=k1["main"]["err64"], ms=ms, plain_ms=plain_ms,
+        **bound(nbytes(wav, got, *fe.kernel_bases),
+                f32_flops=2 * t_frames * n_fft * n_freq * 2
+                + 2 * t_frames * n_freq * n_mels),
+        library_ms=None,
         gate=f"atol {K1_ATOL} from float64 (main {k1['main']['err64']:.3e}, "
              f"quiet {k1['quiet']['err64']:.3e})")
     for label, r in k1.items():
@@ -296,6 +781,17 @@ def main() -> int:
                                    act(BATCH * n_frame, 256, hid)),
                           packed.dec[0], packed32.dec[0], m.dec_head),
     }
+    pf = m.pf_dim
+    n_proc = packed.k_eff.shape[0]
+    shapes = {  # layer kind, n, lq, lk; the stem's f32 FLOPs
+        "encoder_layer_with_stem": ("enc", BATCH * n_frame, 256, 256,
+                                    2 * BATCH * n_frame * 256 * n_proc * hid),
+        "encoder_layer": ("enc", BATCH * n_frame, 256, 256, 0),
+        "encoder_layer/time": ("enc", BATCH * 88, n_frame, n_frame, 0),
+        "decoder_layer_zero": ("dec_zero", BATCH * n_frame, 88, 256, 0),
+        "decoder_layer": ("dec", BATCH * n_frame, 88, 256, 0)}
+    shapes["encoder_layer_with_stem/windows"] = \
+        shapes["encoder_layer_with_stem"]
     for name, (fn, plain, plain32, make, p16, p32, heads) in checks.items():
         xs = make()
         got = fn(*xs, p16, heads)
@@ -311,14 +807,24 @@ def main() -> int:
                                  f"{ulps:.2f} ulps > {ULPS}")
         ms = cuda_ms(lambda: fn(*xs, p16, heads))
         plain_ms = cuda_ms(lambda: plain(*xs, p16, heads))
+        kind, n, lq, lk, stem_flops = shapes[name]
+        weights = [t for t in p16 if t.numel()]
+        if stem_flops:
+            weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
+        piece = sdpa_ms(n, lq, lk, heads, dev, backward=False)
         results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes(*xs, *weights, got),
+                    layer_flops(kind, n, lq, lk, hid, pf), stem_flops),
+            library_ms=None, sdpa_piece_ms=piece,
             gate=f"bf16 rel err from plain f32 {e_k:.5f} <= 2 x plain bf16 "
                  f"{e_p:.5f} + 1e-3; {ulps:.2f} bf16 ulps from plain bf16 "
                  f"<= {ULPS}")
         log(f"(c) {name} at {[tuple(x.shape) for x in xs]}: gate err {e_k:.5f} vs plain bf16 "
             f"{e_p:.5f}; vs plain bf16 max abs {err:.3e} = {ulps:.2f} ulps; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{results[name]['bound_ms']:.3f} ms ({results[name]['bound_by']}"
+            f"); SDPA on its attention piece {piece:.3f} ms")
         del xs, got, plain16
     # K2's stem kernel alone (its private entry: these launches count
     # nowhere), on the real windows
@@ -370,6 +876,7 @@ def main() -> int:
             "encoder_layer": n_batches * (m.enc_layer - 1 + m.dec_layer),
             "decoder_layer_zero": n_batches,
             "decoder_layer": n_batches * (m.dec_layer - 1)}
+    want.update({k: 0 for k in counts if k not in want})  # training
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     log(f"(f) launches in (d): {counts} ({n_batches} batches of {BATCH})")
@@ -388,13 +895,13 @@ def main() -> int:
             failed.append(str(e))
             e_k = e_p = float("nan")
         err, ulps = ulp_distance(got[k], plain16[k])
-        bound = ULPS_FORWARD[k[-1]]
-        if not ulps <= bound:
+        ulp_bound = ULPS_FORWARD[k[-1]]
+        if not ulps <= ulp_bound:
             failed.append(f"engine {k}: {ulps:.1f} ulps from plain bf16 > "
-                          f"{bound}")
+                          f"{ulp_bound}")
         log(f"(e) {k}: engine err {e_k:.5f} vs plain bf16 err {e_p:.5f}; "
             f"engine vs plain bf16 max abs {err:.4f} = {ulps:.1f} ulps "
-            f"(<= {bound}) of max |plain bf16| "
+            f"(<= {ulp_bound}) of max |plain bf16| "
             f"{plain16[k].float().abs().max().item():.3f}")
     if failed:
         raise AssertionError("; ".join(failed))
@@ -408,20 +915,53 @@ def main() -> int:
         f"audio-s/s); card {card}")
     profile_forward(lambda: engine.forward(packed, spec, cfg))
 
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise AssertionError("JAX was imported")
+    # (g) K6 -------------------------------------------------------------------
+    results["hash_keep_mask"] = check_masks(dev)
+
+    # (h) K7 / K8 / K9 ---------------------------------------------------------
+    k3k5 = {"enc": lf.encoder_layer, "dec_zero": lf.decoder_layer_zero,
+            "dec": lf.decoder_layer}
+    results.update(check_train_layers(model, cfg, dev, k3k5))
+    del model, model32, packed, packed32
+    torch.cuda.empty_cache()
+
+    # (i) training through the CLI ---------------------------------------------
+    train_counts, first_batch = train_through_cli(cfg, feat, audio, cli_main)
+
+    # (j) the train step's time ------------------------------------------------
+    time_train_step(cfg, first_batch, dev, card)
+
+    loaded = sorted(n for n in sys.modules if n.split(".")[0] in
+                    ("jax", "jaxlib", "flax", "nylon_amt_tpu"))
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: "
+                             f"{loaded[:5]}")
+    counts.update({k: train_counts[k] for k in (
+        "hash_keep_mask", "encoder_layer_train", "encoder_layer_train_bwd",
+        "decoder_layer_zero_train", "decoder_layer_zero_train_bwd",
+        "decoder_layer_train", "decoder_layer_train_bwd")})
+    train = "nylon_amt_tpu/ops/layer_fused_train.py"
     sources = {
-        "log_mel": ("log_mel.cu", "spectrogram_pallas.py:124"),
-        "encoder_layer_with_stem": ("stem_embed.cu", "layer_fused.py:376"),
-        "encoder_layer": ("layer_fused.cu", "layer_fused.py:301"),
-        "decoder_layer_zero": ("layer_fused.cu", "layer_fused.py:405"),
-        "decoder_layer": ("layer_fused.cu", "layer_fused.py:429")}
+        "log_mel": ("log_mel.cu", "nylon_amt_tpu/ops/spectrogram_pallas.py:124"),
+        "encoder_layer_with_stem": ("stem_embed.cu",
+                                    "nylon_amt_tpu/ops/layer_fused.py:376"),
+        "encoder_layer": ("layer_fused.cu", "nylon_amt_tpu/ops/layer_fused.py:301"),
+        "decoder_layer_zero": ("layer_fused.cu",
+                               "nylon_amt_tpu/ops/layer_fused.py:405"),
+        "decoder_layer": ("layer_fused.cu", "nylon_amt_tpu/ops/layer_fused.py:429"),
+        "hash_keep_mask": ("hash_mask.cu", "nylon_amt_tpu/ops/attention.py:55"),
+        "encoder_layer_train": ("layer_fused.cu", f"{train}:443"),
+        "encoder_layer_train_bwd": ("layer_fused_train.cu", f"{train}:472"),
+        "decoder_layer_zero_train": ("layer_fused.cu", f"{train}:759"),
+        "decoder_layer_zero_train_bwd": ("layer_fused_train.cu",
+                                         f"{train}:789"),
+        "decoder_layer_train": ("layer_fused.cu", f"{train}:759"),
+        "decoder_layer_train_bwd": ("layer_fused_train.cu", f"{train}:789")}
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"nylon_amt_tpu_torch/csrc/{src}",
-         "replaces": f"nylon_amt_tpu/ops/{tpu}", "launches": counts[name],
-         **results[name]}
+         "source": f"nylon_amt_tpu_torch/csrc/{src}", "replaces": tpu,
+         "launches": counts[name], **results[name]}
         for name, (src, tpu) in sources.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,18 @@
-"""Command-line interface of the PyTorch / CUDA port: ``transcribe``.
+"""Command-line interface of the PyTorch / CUDA port: ``train`` and
+``transcribe``.
 
-WAV -> posteriors -> note events -> MIDI (+ JSON), as
+``train`` runs the (epoch, div) training recipe on split arrays written by
+the corpus step (``<split>_feature.npy``, ... as ``data/corpus.py`` saves
+them), through the training layer kernels on ``--device cuda`` or their
+plain versions on ``--device cpu``:
+
+    python -m nylon_amt_tpu_torch.cli train --config config.json \
+        --dataset corpus/ --out run/ --device cuda
+
+and writes ``parameter.json``, ``performance.json`` and
+``checkpoints/model_EEE_DDD/model.dat`` (the reference's format).
+
+``transcribe``: WAV -> posteriors -> note events -> MIDI (+ JSON), as
 ``python -m nylon_amt_tpu.cli transcribe`` does:
 
     python -m nylon_amt_tpu_torch.cli transcribe --checkpoint model.dat \\
@@ -15,13 +27,14 @@ Writes ``<stem>.mid``, ``<stem>.notes.json`` and one
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
 import torch
 
-from nylon_amt_tpu.config import Config
-from nylon_amt_tpu.midi.smf import write_notes
+from nylon_amt_tpu_torch.config import Config
+from nylon_amt_tpu_torch.midi.smf import write_notes
 from nylon_amt_tpu_torch.infer.transcribe import Transcriber
 from nylon_amt_tpu_torch.models.hft import HFT
 
@@ -35,6 +48,36 @@ def load_model(path: str, config: Config, device: torch.device | str) -> HFT:
     model = HFT(config, device)
     model.load_state_dict(sd, strict=True)
     return model.eval()
+
+
+def cmd_train(args) -> int:
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.train.loop import Trainer
+
+    config = Config.load(args.config) if args.config else Config()
+    overrides = {f: getattr(args, f) for f in
+                 ("epochs", "batch_size", "lr", "n_slice", "seed",
+                  "keep_checkpoints") if getattr(args, f) is not None}
+    if overrides:
+        config = dataclasses.replace(
+            config, train=dataclasses.replace(config.train, **overrides))
+    t = config.train
+
+    def provider(split: str, div: int) -> WindowDataset:
+        n_div = {"train": t.n_div_train, "valid": t.n_div_valid,
+                 "test": t.n_div_test}[split]
+        arrays = SplitArrays.load(args.dataset, split,
+                                  shard=div if n_div > 1 else None)
+        return WindowDataset(arrays, config, n_slice=t.n_slice)
+
+    trainer = Trainer(config, args.out, device=args.device)
+    resume = ("auto" if args.resume_auto
+              else tuple(args.resume) if args.resume else None)
+    trainer.fit(provider, resume=resume)
+    print(f"training done; best valid loss {trainer.best_loss_valid:.5f} "
+          f"(epoch {trainer.best_epoch} div {trainer.best_div})")
+    return 0
 
 
 def cmd_transcribe(args) -> int:
@@ -77,6 +120,28 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nylon_amt_tpu_torch",
                                 description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="train the hFT model")
+    t.add_argument("--config", help="config JSON (default: Config())")
+    t.add_argument("--dataset", required=True,
+                   help="directory of split arrays (data/corpus.py)")
+    t.add_argument("--out", required=True)
+    t.add_argument("--epochs", type=int)
+    t.add_argument("--batch-size", type=int)
+    t.add_argument("--lr", type=float)
+    t.add_argument("--n-slice", type=int)
+    t.add_argument("--seed", type=int)
+    t.add_argument("--keep-checkpoints", type=int,
+                   help="retain only the best + newest K checkpoints")
+    resume_group = t.add_mutually_exclusive_group()
+    resume_group.add_argument("--resume", nargs=2, type=int,
+                              metavar=("EPOCH", "DIV"))
+    resume_group.add_argument("--resume-auto", action="store_true",
+                              help="resume from the newest checkpoint on "
+                              "disk")
+    t.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the kernels, cpu the plain "
+                   "versions")
+    t.set_defaults(fn=cmd_train)
     r = sub.add_parser("transcribe", help="WAV -> MIDI")
     r.add_argument("--config", help="config JSON (default: Config())")
     r.add_argument("--checkpoint", required=True,

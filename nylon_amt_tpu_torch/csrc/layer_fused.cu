@@ -30,14 +30,26 @@
 // two-pass LayerNorm statistics (eps from the caller), exp2 softmax with the
 // 1/l normalisation deferred to the f32 output, l summed from the unrounded
 // f32 probabilities, probabilities rounded to bf16 for the PV product.
+//
+// The training forward (K7-K9, ops/layer_fused_train.py) runs the same three
+// kernels with a dropout site (kDrop): the keep mask of hash_mask.cuh (K6)
+// multiplies the GEMM output after the bias [and ReLU], before the residual
+// and LayerNorm (sites ATTN_OUT, SA_OUT, FFN_MID, FFN_OUT), and the
+// attention probabilities after l is summed from the unmasked p (per-head
+// sites ATTN, SA). kTrain lets gemm_res_ln also write the pre-LN sum that
+// the backward kernels (layer_fused_train.cu) need. The inference
+// instantiations (kDrop = kTrain = false) are the code of the first slice.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "hash_mask.cuh"
 
 using namespace nvcuda;
 using nylon::bf16;
 using nylon::bf16_round;
+using nylon::DropSite;
+using nylon::keep_value;
 
 namespace {
 
@@ -88,10 +100,13 @@ struct GemmSmem {
 // 8 warps as 2 x 4, each owning a 64 x 32 piece of the 128 x 128 tile.
 // Capped at 128 registers so two blocks share an SM (16 warps to hide
 // latency): 23% less time than one block at 134 registers on the H100.
+// kDrop: then times the keep mask of `site` at (row, column).
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_bias_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                      const bf16* __restrict__ bias, bf16* __restrict__ out,
-                     int M, int N, int K, int relu, int n_tiles_n) {
+                     int M, int N, int K, int relu, int n_tiles_n,
+                     DropSite site) {
   __shared__ __align__(128) GemmSmem sm;
   const int m0 = (blockIdx.x / n_tiles_n) * kGemmBM;
   const int n0 = (blockIdx.x % n_tiles_n) * kGemmBN;
@@ -161,6 +176,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           float y = bf16_round(bf16_round(stage[r * 16 + c8 + e]) +
                                __bfloat162float(bb[e]));
           if (relu) y = fmaxf(y, 0.f);
+          if constexpr (kDrop)
+            y = bf16_round(y * keep_value(site, (uint32_t)gr, gc + e, N));
           o[e] = __float2bfloat16(y);
         }
         *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = ov;
@@ -182,13 +199,18 @@ constexpr size_t kLnSmem = kLnPipeBytes > kLnStageBytes ? kLnPipeBytes : kLnStag
 // out[M, N] = LN(res + (bf16(a @ w) + bias)) * gamma + beta, for N <= 256.
 // A block owns 64 full rows, so the LayerNorm statistics stay in the block.
 // 8 warps as 2 x 4, each owning a 32 x 64 piece of the 64 x 256 tile.
+// kDrop: the GEMM output is multiplied by the keep mask of `site` before the
+// residual. kTrain: the pre-LN sum goes to pre_out when it is not null, and
+// out may be null.
+template <bool kDrop, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
     gemm_res_ln_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                        const bf16* __restrict__ bias,
                        const bf16* __restrict__ res,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta, bf16* __restrict__ out,
-                       int M, int N, int K, float eps) {
+                       bf16* __restrict__ pre_out, int M, int N, int K,
+                       float eps, DropSite site) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* const sa0 = reinterpret_cast<bf16*>(smem);
   bf16* const sb0 = sa0 + 2 * kLnBM * kALd;
@@ -262,9 +284,14 @@ __global__ void __launch_bounds__(kThreads)
       const int c = lane + 32 * t;
       s[t] = 0.f;
       if (c < N) {
-        const float y = bf16_round(bf16_round(C[r * kLnCLd + c]) +
-                                   __bfloat162float(bias[c]));
+        float y = bf16_round(bf16_round(C[r * kLnCLd + c]) +
+                             __bfloat162float(bias[c]));
+        if constexpr (kDrop)
+          y = bf16_round(y * keep_value(site, (uint32_t)gr, c, N));
         s[t] = bf16_round(__bfloat162float(res[(size_t)gr * N + c]) + y);
+        if constexpr (kTrain)
+          if (pre_out != nullptr)
+            pre_out[(size_t)gr * N + c] = __float2bfloat16(s[t]);
         sum += s[t];
       }
     }
@@ -279,6 +306,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const float rstd = rsqrtf(nylon::warp_sum(sq) * inv_n + eps);
+    if constexpr (kTrain)
+      if (out == nullptr) continue;  // warp-uniform
 #pragma unroll
     for (int t = 0; t < kLnBN / 32; ++t) {
       const int c = lane + 32 * t;
@@ -324,13 +353,18 @@ __host__ __device__ constexpr size_t attn_smem_bytes(int lk_pad) {
 // unrounded f32 p, and accumulate bf16(p) V. Staging one score tile instead
 // of a whole [16, Lk] row block keeps a block at ~106 KB, so two blocks
 // share an SM.
-template <int D>
+//
+// kDrop: the probabilities that multiply V are p times the keep mask of
+// head h (key head_key(seed_mix, tag_base, h), row seq * lq + query, column
+// key); l stays the sum of the unmasked p, as in the TPU kernel.
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int lq,
                      int lk, long long q_row, long long q_seq,
                      long long kv_row, long long kv_seq, int o_row,
-                     float scale_log2e) {
+                     float scale_log2e, uint32_t seed_mix, int tag_base,
+                     DropSite site) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kvLd = D + 8;
   constexpr int oLd = D + 4;
@@ -411,7 +445,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
-  // Pass 2: p = exp2(s - m) (0 past lk), l += p in f32, O += bf16(p) V.
+  // Pass 2: p = exp2(s - m) (0 past lk), l += p in f32, O += bf16(p) V
+  // (with kDrop, bf16(p * keep) V).
+  DropSite hsite = site;
+  if constexpr (kDrop) hsite.key = nylon::head_key(seed_mix, tag_base, h);
+  const uint32_t mask_row = (uint32_t)seq * (uint32_t)lq +
+                            (uint32_t)(q0 + warp * 16 + r);
   float l = 0.f;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
 #pragma unroll
@@ -423,6 +462,7 @@ __global__ void __launch_bounds__(kThreads)
       float p = 0.f;
       if (j0 + c0 + e < lk) p = exp2f(Sw[r * kSLd + c0 + e] * scale_log2e - m);
       l += p;
+      if constexpr (kDrop) p *= keep_value(hsite, mask_row, j0 + c0 + e, lk);
       Pw[r * kPLd + c0 + e] = __float2bfloat16(p);
     }
     __syncwarp();
@@ -453,6 +493,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kDrop>
+int launch_gemm_res_ln_train(const void* a, const void* w, const void* bias,
+                             const void* res, const void* gamma,
+                             const void* beta, void* out, void* pre_out,
+                             int M, int N, int K, float eps, DropSite site,
+                             cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_res_ln_kernel<kDrop, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLnSmem);
+  if (e != cudaSuccess) return (int)e;
+  gemm_res_ln_kernel<kDrop, true><<<(M + kLnBM - 1) / kLnBM, kThreads,
+                                    kLnSmem, stream>>>(
+      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
+      (const float*)gamma, (const float*)beta, (bf16*)out, (bf16*)pre_out, M,
+      N, K, eps, site);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -463,9 +521,26 @@ int nylon_gemm_bias(const void* a, const void* w, const void* bias, void* out,
     return (int)cudaErrorInvalidValue;
   const int n_tiles_n = (N + kGemmBN - 1) / kGemmBN;
   const long long tiles = (long long)n_tiles_n * ((M + kGemmBM - 1) / kGemmBM);
-  gemm_bias_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+  gemm_bias_kernel<false><<<(unsigned)tiles, kThreads, 0,
+                             (cudaStream_t)stream>>>(
       (const bf16*)a, (const bf16*)w, (const bf16*)bias, (bf16*)out, M, N, K,
-      relu, n_tiles_n);
+      relu, n_tiles_n, DropSite{});
+  return (int)cudaGetLastError();
+}
+
+// nylon_gemm_bias, then times the keep mask of a dropout site.
+int nylon_gemm_bias_drop(const void* a, const void* w, const void* bias,
+                         void* out, int M, int N, int K, int relu,
+                         unsigned key, unsigned thresh, float scale, int half,
+                         void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || (half && 2 * half != N))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles_n = (N + kGemmBN - 1) / kGemmBN;
+  const long long tiles = (long long)n_tiles_n * ((M + kGemmBM - 1) / kGemmBM);
+  gemm_bias_kernel<true><<<(unsigned)tiles, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (bf16*)out, M, N, K,
+      relu, n_tiles_n, DropSite{key, thresh, scale, half, 0u});
   return (int)cudaGetLastError();
 }
 
@@ -475,14 +550,36 @@ int nylon_gemm_res_ln(const void* a, const void* w, const void* bias,
   if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      gemm_res_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kLnSmem);
+      gemm_res_ln_kernel<false, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLnSmem);
   if (e != cudaSuccess) return (int)e;
-  gemm_res_ln_kernel<<<(M + kLnBM - 1) / kLnBM, kThreads, kLnSmem,
-                       (cudaStream_t)stream>>>(
+  gemm_res_ln_kernel<false, false><<<(M + kLnBM - 1) / kLnBM, kThreads,
+                                     kLnSmem, (cudaStream_t)stream>>>(
       (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
-      (const float*)gamma, (const float*)beta, (bf16*)out, M, N, K, eps);
+      (const float*)gamma, (const float*)beta, (bf16*)out, nullptr, M, N, K,
+      eps, DropSite{});
   return (int)cudaGetLastError();
+}
+
+// Training variant of nylon_gemm_res_ln: an optional dropout site on the GEMM
+// output (active != 0), the pre-LN sum to pre_out (if not null), out may be
+// null.
+int nylon_gemm_res_ln_train(const void* a, const void* w, const void* bias,
+                            const void* res, const void* gamma,
+                            const void* beta, void* out, void* pre_out, int M,
+                            int N, int K, float eps, int active, unsigned key,
+                            unsigned thresh, float scale, int half,
+                            void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN ||
+      (half && 2 * half != N))
+    return (int)cudaErrorInvalidValue;
+  const DropSite site{key, thresh, scale, half, 0u};
+  return active ? launch_gemm_res_ln_train<true>(a, w, bias, res, gamma, beta,
+                                                 out, pre_out, M, N, K, eps,
+                                                 site, (cudaStream_t)stream)
+                : launch_gemm_res_ln_train<false>(
+                      a, w, bias, res, gamma, beta, out, pre_out, M, N, K,
+                      eps, site, (cudaStream_t)stream);
 }
 
 int nylon_attention(const void* q, const void* k, const void* v, void* o,
@@ -493,15 +590,42 @@ int nylon_attention(const void* q, const void* k, const void* v, void* o,
       n_heads <= 0 || n_heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<64, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)attn_smem_bytes<64>(kMaxLk));
   if (e != cudaSuccess) return (int)e;
   const int lk_pad = (lk + 15) & ~15;
   const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_kernel<64><<<grid, kThreads, attn_smem_bytes<64>(lk_pad),
-                         (cudaStream_t)stream>>>(
+  attention_kernel<64, false><<<grid, kThreads, attn_smem_bytes<64>(lk_pad),
+                                (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lq, lk, q_row,
-      q_seq, kv_row, kv_seq, n_heads * head_dim, scale_log2e);
+      q_seq, kv_row, kv_seq, n_heads * head_dim, scale_log2e, 0u, 0,
+      DropSite{});
+  return (int)cudaGetLastError();
+}
+
+// nylon_attention with dropout on the probabilities: head h takes the keep
+// mask of tag (tag_base + 8) * 64 + h; thresh/scale/half as for any site
+// whose rows are lk long.
+int nylon_attention_drop(const void* q, const void* k, const void* v, void* o,
+                         int n_seq, int lq, int lk, int n_heads, int head_dim,
+                         long long q_row, long long q_seq, long long kv_row,
+                         long long kv_seq, float scale_log2e,
+                         unsigned seed_mix, int tag_base, unsigned thresh,
+                         float scale, int half, void* stream) {
+  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxLk ||
+      n_heads <= 0 || n_heads > 65535 || (half && 2 * half != lk))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_kernel<64, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_smem_bytes<64>(kMaxLk));
+  if (e != cudaSuccess) return (int)e;
+  const int lk_pad = (lk + 15) & ~15;
+  const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
+  attention_kernel<64, true><<<grid, kThreads, attn_smem_bytes<64>(lk_pad),
+                               (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lq, lk, q_row,
+      q_seq, kv_row, kv_seq, n_heads * head_dim, scale_log2e, seed_mix,
+      tag_base, DropSite{0u, thresh, scale, half, 0u});
   return (int)cudaGetLastError();
 }
 

@@ -189,7 +189,7 @@ def _mpe2note_native(a_onset, a_offset, a_mpe, a_velocity, thred_onset,
     """ctypes bridge to native/decoder.cpp; None when lib unavailable."""
     import ctypes
 
-    from nylon_amt_tpu.native import load_decoder_library
+    from nylon_amt_tpu_torch.native import load_decoder_library
 
     lib = load_decoder_library()
     if lib is None:

@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from nylon_amt_tpu.config import Config
+from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.models.hft import HFT, supports
 from nylon_amt_tpu_torch.ops.layer_fused import (
     CrossLayerParams,

@@ -24,8 +24,8 @@ import math
 import numpy as np
 import torch
 
-from nylon_amt_tpu.config import Config
-from nylon_amt_tpu.midi.smf import write_notes
+from nylon_amt_tpu_torch.config import Config
+from nylon_amt_tpu_torch.midi.smf import write_notes
 from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.infer.decode import mpe2note
 from nylon_amt_tpu_torch.models.hft import HFT, supports

@@ -32,13 +32,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One counter per public wrapper: K1 log_mel, K2 encoder_layer_with_stem,
-# K3 encoder_layer, K4 decoder_layer_zero, K5 decoder_layer.
+# K3 encoder_layer, K4 decoder_layer_zero, K5 decoder_layer; K6
+# hash_keep_mask (its standalone kernel: the embedding-dropout site, or a
+# written mask), and the forward and backward of K7 encoder_layer_train, K8
+# decoder_layer_zero_train and K9 decoder_layer_train.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
-                            "decoder_layer": 0}
+                            "decoder_layer": 0, "hash_keep_mask": 0,
+                            "encoder_layer_train": 0,
+                            "encoder_layer_train_bwd": 0,
+                            "decoder_layer_zero_train": 0,
+                            "decoder_layer_zero_train_bwd": 0,
+                            "decoder_layer_train": 0,
+                            "decoder_layer_train_bwd": 0}
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_uint
+_SITE = [_U, _U, _F, _I]  # a dropout site: key, thresh, scale, half
 _SIGNATURES = {
     # wav, n, wc_t, ws_t, fb, out, n_frames, n_fft, hop, n_freq_pad, n_mels,
     # log_offset, stream
@@ -54,6 +64,31 @@ _SIGNATURES = {
     # kv_seq, scale_log2e, stream
     "nylon_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                         _F, _P],
+    # x, out, rows, d2, key, thresh, scale, half, base, dtype_bf16, stream
+    "nylon_hash_mask": [_P, _P, _L, _I, _U, _U, _F, _I, _U, _I, _P],
+    # a, w, bias, out, M, N, K, relu, site, stream
+    "nylon_gemm_bias_drop": [_P, _P, _P, _P, _I, _I, _I, _I, *_SITE, _P],
+    # a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, active,
+    # site, stream
+    "nylon_gemm_res_ln_train": [_P] * 8 + [_I, _I, _I, _F, _I, *_SITE, _P],
+    # q, k, v, o, n_seq, lq, lk, n_heads, head_dim, q_row, q_seq, kv_row,
+    # kv_seq, scale_log2e, seed_mix, tag_base, thresh, scale, half, stream
+    "nylon_attention_drop": [_P] * 4 + [_I] * 5 + [_L] * 4
+    + [_F, _U, _I, _U, _F, _I, _P],
+    # dy, s, gamma, da, dam, dg_part, db_part, M, N, rows_per_block,
+    # n_blocks, eps, active, site, stream
+    "nylon_ln_bwd": [_P] * 7 + [_I, _I, _I, _I, _F, _I, *_SITE, _P],
+    # dy, w, out, gate, addend, M, N, Kout, act1, site1, act2, site2, stream
+    "nylon_gemm_nt": [_P] * 5 + [_I, _I, _I, _I, *_SITE, _I, *_SITE, _P],
+    # a, dy, part, bias_part, M, Ka, N, rows_per_chunk, chunks, stream
+    "nylon_wgrad": [_P] * 4 + [_I] * 5 + [_P],
+    # parts, out, P, n, stream
+    "nylon_reduce_rows": [_P, _P, _I, _L, _P],
+    # q, k, v, dout, dq, dk, dv, stats, n_seq, lq, lk, n_heads, head_dim,
+    # q_row, kv_row, do_row, dq_row, dkv_row, scale, scale_log2e, active,
+    # seed_mix, tag_base, thresh, pscale, half, stream
+    "nylon_attention_bwd": [_P] * 8 + [_I] * 5 + [_L] * 5
+    + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

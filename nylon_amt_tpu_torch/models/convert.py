@@ -1,6 +1,6 @@
 """Carry weights from the JAX package's flax parameters to the port.
 
-``params_from_jax`` walks :func:`nylon_amt_tpu.train.importer.build_rules`
+``params_from_jax`` walks :func:`nylon_amt_tpu_torch.train.importer.build_rules`
 (the reference ``state_dict`` key table) with the same transforms as the
 importer: Linear kernels are transposed to torch's ``[out, in]``, the stem
 conv ``[C, k]`` becomes ``[C, 1, 1, k]``. With it, the tests run the JAX
@@ -14,8 +14,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from nylon_amt_tpu.config import Config
-from nylon_amt_tpu.train.importer import build_rules
+from nylon_amt_tpu_torch.config import Config
+from nylon_amt_tpu_torch.train.importer import build_rules
 
 
 def _leaves(tree: Mapping[str, Any], prefix: tuple = ()):

@@ -4,7 +4,7 @@ Port of :mod:`nylon_amt_tpu.models.hft` (reference
 ``hftt_code/model/model_spec2midi.py``). The module tree carries the
 reference's attribute names, so ``state_dict()`` keys are exactly the
 reference's (``encoder_spec2midi.*``, ``decoder_spec2midi.*``, the keys of
-:func:`nylon_amt_tpu.train.importer.build_rules`) and reference ``.dat``
+:func:`nylon_amt_tpu_torch.train.importer.build_rules`) and reference ``.dat``
 checkpoints load with ``strict=True``.
 
 :meth:`HFT.forward` is the plain twin of the whole model: the same dict of
@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nylon_amt_tpu.config import Config
+from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.ops.layer_fused import (
     _layer_norm, _matmul, fused_stem, sqrt_hid)
 from nylon_amt_tpu_torch.ops.precision import full_f32

@@ -251,6 +251,16 @@ def _attention(q, k, v, n, n_heads):
     return out
 
 
+def weight_shapes(hid: int, pf: int) -> dict[str, tuple[int, ...]]:
+    """The shape of every layer weight field the kernels take."""
+    return {"wqkv": (hid, 3 * hid), "bqkv": (3 * hid,),
+            "wsqkv": (hid, 3 * hid), "bsqkv": (3 * hid,),
+            "wso": (hid, hid), "bso": (hid,), "wq": (hid, hid),
+            "bq": (hid,), "wkv": (hid, 2 * hid), "bkv": (2 * hid,),
+            "wo": (hid, hid), "bo": (hid,), "g": (hid,), "b": (hid,),
+            "w1": (hid, pf), "b1": (pf,), "w2": (pf, hid), "b2": (hid,)}
+
+
 def _check_kernel_args(name, acts, p, fields, n_heads, lk):
     """Raise unless the kernels take these activations, weights and
     geometry."""
@@ -267,12 +277,7 @@ def _check_kernel_args(name, acts, p, fields, n_heads, lk):
             f"{name}: kernels need head_dim {KERNEL_HEAD_DIM}, hid <= "
             f"{KERNEL_MAX_HID}, pf % 32 == 0 and <= {KERNEL_MAX_KEYS} keys; "
             f"got hid {hid}, {n_heads} heads, pf {pf}, {lk} keys")
-    shapes = {"wqkv": (hid, 3 * hid), "bqkv": (3 * hid,),
-              "wsqkv": (hid, 3 * hid), "bsqkv": (3 * hid,),
-              "wso": (hid, hid), "bso": (hid,), "wq": (hid, hid),
-              "bq": (hid,), "wkv": (hid, 2 * hid), "bkv": (2 * hid,),
-              "wo": (hid, hid), "bo": (hid,), "g": (hid,), "b": (hid,),
-              "w1": (hid, pf), "b1": (pf,), "w2": (pf, hid), "b2": (hid,)}
+    shapes = weight_shapes(hid, pf)
     for f in fields:
         t = getattr(p, f)
         kernels.check_cuda(f"{name}: {f}", t,

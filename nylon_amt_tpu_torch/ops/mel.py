@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nylon_amt_tpu.config import FeatureConfig
+from nylon_amt_tpu_torch.config import FeatureConfig
 from nylon_amt_tpu_torch.ops.precision import full_f32
 from nylon_amt_tpu_torch.ops.spectrogram import kernel_bases, log_mel
 
