@@ -41,23 +41,38 @@ non-zero and never prints the last line):
     and seeded train and valid splits, ``train --epochs 1 --device cuda``,
     finite losses, the launch counts per step, then ``transcribe`` of (d)'s
     WAV with the trained checkpoint;
-(j) the batch-8 train step's time by CUDA events and a per-kernel profile.
+(j) the batch-8 train step's time by CUDA events and a per-kernel profile;
+(k) K13, the int8 (W8A8) layers: the row and column quantizers bit for bit
+    equal to their plain versions; each of the four wrappers at the
+    batch-32 shapes (the stem's on the real windows) with >= 99.9% of the
+    elements within 4 bf16 ulps of its plain q8 version and every element
+    within 0.08 of it, and no further from the exact bf16 layer than the
+    plain q8 version + 4 ulps; the int8 forward's
+    posteriors within 0.06 of the bf16 forward's; ``transcribe --int8
+    --list --tab --sheet --save-posteriors --device cuda`` on (d)'s WAV and
+    ``evaluate`` of its notes and posteriors, with the launch counts (every
+    K13 wrapper, no bf16 K2-K5); the kernels', plain versions', bf16
+    kernels' and ``torch._int_mm`` times, both forwards' times and a
+    profile of the int8 forward.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths in IEEE f32, and the script wraps only its own f32
 references in ``full_f32``.
 
 Before the last line it prints the card's name and power limit and one JSON
-object with each kernel's launches (K1-K5 from (d), K6-K9 from (i)), error,
-times and bound (the larger of the bytes it must move over 3.35 TB/s and its
-operations over 989 TFLOP/s bf16, 67 TFLOP/s for K1's and the stem's f32 and
-f64 work: the H100 SXM's published rates). The last line is
+object with each kernel's launches (K1-K5 from (d), K6-K9 from (i), K13
+from (k)), error, times and bound (the larger of the bytes it must move over
+3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s int8 for
+K13's products, 67 TFLOP/s for K1's and the stem's f32 and f64 work: the
+H100 SXM's published rates). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -95,8 +110,29 @@ CHAIN_ULPS = 12
 STAGE_WGRAD_REL = 1e-4
 # the kernels' outputs that the stage hook sees, per layer kind
 STAGES = {"enc": 16, "dec_zero": 18, "dec": 27}
+# K13 against its plain q8 version: the int8 sums are exact on both sides,
+# so only a code flipped at a rounding boundary (another f32 order in LN or
+# l, or another exp2) moves an element past 4 ulps
+Q8_SHARE = 0.999
+# and every element within 0.08 of the plain q8 version
+# (tests/test_engine_q8.py's budget). Against the exact bf16 layer the
+# kernel may be no further than the plain q8 version is + 4 ulps: that
+# distance is the W8A8 scheme's, not the kernel's (the plain q8 version
+# itself reads 0.094 on the decoder layer over 268 M elements, and 2.3-4.6
+# on the stem layer, whose exact bf16 layer is ill-conditioned on random
+# weights: PERF.md)
+Q8_BUDGET = 0.08
+# int8 forward vs bf16 forward, posteriors: the stage-1 (A) heads within
+# 0.06 (tests/test_engine_q8.py's budget); every head within 1.5 x the plain
+# q8 forward's own distance from the bf16 forward (stage 2 amplifies the
+# scheme's error: 0.10-0.14 in the B heads on random paper weights, and a
+# code flipped at a rounding boundary moves every later layer's codes, so
+# two int8 forwards are as far apart as int8 is from bf16)
+Q8_POST = 0.06
+Q8_FORWARD_REL = 1.5
 HBM_BPS = 3.35e12   # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12  # dense bf16 tensor cores
+INT8_OPS = 1979e12   # dense int8 tensor cores
 F32_FLOPS = 67e12    # f32 (and K1's f64 work) outside the tensor cores
 
 
@@ -166,8 +202,6 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
     """Device time per kernel over ``iters`` calls of ``fwd`` (forwards,
     or train steps), by torch.profiler, and the device-busy share of the
     profiled window."""
-    import contextlib
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,12 +225,13 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             f"x{calls}")
 
 
-def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0
-          ) -> dict:
+def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0,
+          int8_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or
     operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = (flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    t_ops = (flops / BF16_FLOPS + f32_flops / F32_FLOPS
+             + int8_ops / INT8_OPS) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -633,6 +668,309 @@ def time_train_step(cfg, batch_np, dev, card: str) -> float:
     return ms
 
 
+Q8_SOURCES = {  # K13 wrapper -> the TPU kernel's pallas_call line
+    "encoder_layer_with_stem_q8": "nylon_amt_tpu/ops/layer_fused_q8.py:329",
+    "encoder_layer_q8": "nylon_amt_tpu/ops/layer_fused_q8.py:297",
+    "decoder_layer_zero_q8": "nylon_amt_tpu/ops/layer_fused_q8.py:354",
+    "decoder_layer_q8": "nylon_amt_tpu/ops/layer_fused_q8.py:378"}
+
+
+def synth_notes(seconds: float) -> list[dict]:
+    """The notes that ``synth_audio`` plays (each sounds 1 s)."""
+    pitches = (48, 55, 60, 64, 67, 72, 76)
+    return [{"pitch": pitches[i % len(pitches)], "onset": float(start),
+             "offset": float(start + 1.0), "velocity": 80}
+            for i, start in enumerate(np.arange(0.0, seconds - 1.0, 0.25))]
+
+
+def int_mm_ms(gemms, dev) -> float:
+    """Time of ``torch._int_mm`` (s8 x s8 -> s32) on a layer's GEMM shapes
+    ``[(M, K, N), ...]``, one call each: the library yardstick of K13's
+    GEMMs (the port never calls it)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    ops = [(torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8),
+            torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)) for m, k, n in gemms]
+    return cuda_ms(lambda: [torch._int_mm(a, b) for a, b in ops], iters=5)
+
+
+def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
+               ) -> tuple[dict, dict]:
+    """(k): K13, the int8 (W8A8) layers: the quantizers on the card bit for
+    bit; each wrapper against its plain q8 version and the exact bf16
+    layer; the int8 forward against the bf16 forward; ``transcribe --int8
+    --list --tab --sheet --save-posteriors`` and ``evaluate`` through the
+    CLI with the launch counts; times, a profile and the ``torch._int_mm``
+    yardstick. Returns (launch counts of the CLI run, results)."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.data.lists import CorpusList
+    from nylon_amt_tpu_torch.infer import engine
+    from nylon_amt_tpu_torch.midi.smf import write_notes
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    m = cfg.model
+    hid, pf, n_frame = m.hid_dim, m.pf_dim, cfg.input.num_frame
+    packed8 = engine.pack_params(model, torch.bfloat16, precision="int8")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    # (1) the quantizers, bit for bit, at the layer's shapes: rows of the
+    # layer input, of the packed QKV (Q and K segments in one call) and of
+    # the FFN hidden; V's columns over each 256-key sequence
+    x = act(BATCH * n_frame * 256, 3 * hid)
+    rows = {"input": (x[:, :hid], 1), "Q/K of QKV": (x[:, :2 * hid], 2),
+            "FFN hidden": (x[:, :pf], 1)}
+    for what, (t, n_seg) in rows.items():
+        q, s = lq.quant_rows_cuda(t, n_seg)
+        for j, seg in enumerate(t.split(t.shape[1] // n_seg, dim=1)):
+            pq, ps = lq._quant_rows(seg)
+            width = seg.shape[1]
+            if not (torch.equal(q[:, j * width:(j + 1) * width], pq)
+                    and torch.equal(s[j], ps[:, 0])):
+                raise AssertionError(f"K13 row quantizer ({what}, segment "
+                                     f"{j}) differs from the plain version")
+    v = x[:, 2 * hid:]
+    vt, sv = lq.quant_cols_cuda(v, BATCH * n_frame)
+    pv, psv = lq._quant_cols(v.reshape(BATCH * n_frame, 256, hid))
+    if not (torch.equal(vt.transpose(1, 2), pv)
+            and torch.equal(sv, psv[:, 0])):
+        raise AssertionError("K13 column quantizer differs from the plain "
+                             "version")
+    q_ms = cuda_ms(lambda: lq.quant_rows_cuda(x[:, :hid]), iters=10)
+    log(f"(k) K13 quantizers bit-identical to the plain versions: rows "
+        f"[{x.shape[0]}, {hid}] / Q,K [{x.shape[0]}, 2 x {hid}] / "
+        f"[{x.shape[0]}, {pf}], V columns of {BATCH * n_frame} sequences; "
+        f"row quantizer {q_ms:.3f} ms at [{x.shape[0]}, {hid}]")
+    del x, v, q, s, pq, ps, vt, sv, pv, psv
+
+    # (2) each wrapper against its plain q8 version and the exact layer
+    def stem(fn):
+        return lambda s_, p, heads: fn(s_, packed.k_eff, packed.b_eff,
+                                       packed.pos_freq, p, heads, n_frame,
+                                       torch.bfloat16)
+
+    spec_t = spec.transpose(1, 2).contiguous()
+    n_f, n_t = BATCH * n_frame, BATCH * 88
+    k2 = (stem(lq.encoder_layer_with_stem_q8),
+          stem(lq.encoder_layer_with_stem_q8_plain),
+          stem(lf.encoder_layer_with_stem))
+    checks = {  # kernel, plain q8, exact bf16 kernel, inputs, p8, p16, heads
+        "encoder_layer_with_stem_q8": (
+            *k2, lambda: (torch.randn((BATCH, cfg.window_frames, 256),
+                                      generator=g, device=dev),),
+            packed8.enc[0], packed.enc[0], m.enc_head),
+        "encoder_layer_with_stem_q8/windows": (
+            *k2, lambda: (spec_t,), packed8.enc[0], packed.enc[0],
+            m.enc_head),
+        "encoder_layer_q8": (lq.encoder_layer_q8, lq.encoder_layer_q8_plain,
+                             lf.encoder_layer,
+                             lambda: (act(n_f, 256, hid),), packed8.enc[1],
+                             packed.enc[1], m.enc_head),
+        "encoder_layer_q8/time": (lq.encoder_layer_q8,
+                                  lq.encoder_layer_q8_plain, lf.encoder_layer,
+                                  lambda: (act(n_t, n_frame, hid),),
+                                  packed8.time[0], packed.time[0],
+                                  m.dec_head),
+        "decoder_layer_zero_q8": (lq.decoder_layer_zero_q8,
+                                  lq.decoder_layer_zero_q8_plain,
+                                  lf.decoder_layer_zero,
+                                  lambda: (act(n_f, 88, hid),
+                                           act(n_f, 256, hid)),
+                                  packed8.dec_zero, packed.dec_zero,
+                                  m.dec_head),
+        "decoder_layer_q8": (lq.decoder_layer_q8, lq.decoder_layer_q8_plain,
+                             lf.decoder_layer,
+                             lambda: (act(n_f, 88, hid), act(n_f, 256, hid)),
+                             packed8.dec[0], packed.dec[0], m.dec_head)}
+    n_proc = packed.k_eff.shape[0]
+    shapes = {  # kind, n, lq, lk, stem f32 FLOPs, GEMMs (M, K, N)
+        "encoder_layer_with_stem_q8": ("enc", n_f, 256, 256,
+                                       2 * n_f * 256 * n_proc * hid),
+        "encoder_layer_q8": ("enc", n_f, 256, 256, 0),
+        "encoder_layer_q8/time": ("enc", n_t, n_frame, n_frame, 0),
+        "decoder_layer_zero_q8": ("dec_zero", n_f, 88, 256, 0),
+        "decoder_layer_q8": ("dec", n_f, 88, 256, 0)}
+    shapes["encoder_layer_with_stem_q8/windows"] = \
+        shapes["encoder_layer_with_stem_q8"]
+    results, failed = {}, []
+    for name, (fn, plain, exact, make, p8, p16, heads) in checks.items():
+        xs = make()
+        got = fn(*xs, p8, heads)
+        want = plain(*xs, p8, heads)
+        ref = exact(*xs, p16, heads)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: non-finite output")
+        d = (got.float() - want.float()).abs()
+        ulp = bf16_ulp(want)
+        share = (d <= ULPS * ulp).float().mean().item()
+        err = d.max().item()
+        from_exact = (got.float() - ref.float()).abs().max().item()
+        plain_from_exact = (want.float() - ref.float()).abs().max().item()
+        exact_limit = plain_from_exact + ULPS * bf16_ulp(ref)
+        if not (share >= Q8_SHARE and err <= Q8_BUDGET
+                and from_exact <= exact_limit):
+            failed.append(
+                f"{name}: {share:.6f} of elements within {ULPS} bf16 ulps "
+                f"of the plain q8 version (>= {Q8_SHARE}), max {err:.4f} "
+                f"(<= {Q8_BUDGET}); {from_exact:.4f} from the exact bf16 "
+                f"layer (<= plain q8's {plain_from_exact:.4f} + {ULPS} "
+                f"ulps)")
+        del d, want, ref
+        ms = cuda_ms(lambda: fn(*xs, p8, heads))
+        plain_ms = cuda_ms(lambda: plain(*xs, p8, heads), iters=2)
+        exact_ms = cuda_ms(lambda: exact(*xs, p16, heads))
+        kind, n, lq_, lk, stem_flops = shapes[name]
+        gemms = [(n * lq_, hid, hid), (n * lq_, hid, pf), (n * lq_, pf, hid)]
+        gemms += ([(n * lq_, hid, 3 * hid)] if kind == "enc" else
+                  [(n * lq_, hid, hid), (n * lk, hid, 2 * hid)])
+        if kind == "dec":
+            gemms += [(n * lq_, hid, 3 * hid), (n * lq_, hid, hid)]
+        weights = [t for t in p8 if t.numel()]
+        if stem_flops:
+            weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
+        b = bound(nbytes(*xs, *weights, got), f32_flops=stem_flops,
+                  int8_ops=layer_flops(kind, n, lq_, lk, hid, pf))
+        results[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+            library_ms=int_mm_ms(gemms, dev), bf16_kernel_ms=exact_ms,
+            gate=f"{share:.6f} of elements within {ULPS} bf16 ulps of the "
+                 f"plain q8 version (>= {Q8_SHARE}), max {err:.4f} (<= "
+                 f"{Q8_BUDGET}); {from_exact:.4f} from the exact bf16 layer "
+                 f"(<= the plain q8 version's {plain_from_exact:.4f} + "
+                 f"{ULPS} ulps)")
+        log(f"(k) {name} at {[tuple(t.shape) for t in xs]}: "
+            f"{results[name]['gate']}; kernel {ms:.3f} ms, plain q8 "
+            f"{plain_ms:.3f} ms, bf16 kernels {exact_ms:.3f} ms, "
+            f"torch._int_mm on its GEMMs {results[name]['library_ms']:.3f} "
+            f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+        del xs, got
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    # (3) the int8 forward against the bf16 forward, posteriors; the plain
+    # q8 forward (the wrappers' plain versions on the card) shows how far
+    # the W8A8 scheme itself lands from the bf16 forward
+    def plain_q8_forward():
+        kept = {n: getattr(lq, n) for n in Q8_SOURCES}
+        try:
+            for n in Q8_SOURCES:
+                setattr(lq, n, getattr(lq, n + "_plain"))
+            return engine.forward(packed8, spec, cfg)
+        finally:
+            for n, fn in kept.items():
+                setattr(lq, n, fn)
+
+    out8 = engine.forward(packed8, spec, cfg)
+    out16 = engine.forward(packed, spec, cfg)
+    outp = plain_q8_forward()
+    worst, scheme, failed = {}, {}, []
+    for k in out16:
+        if k.startswith("velocity"):
+            continue
+        p16 = torch.sigmoid(out16[k].float())
+        worst[k] = (torch.sigmoid(out8[k].float()) - p16).abs().max().item()
+        scheme[k] = (torch.sigmoid(outp[k].float()) - p16).abs().max().item()
+        if not (worst[k] <= Q8_FORWARD_REL * scheme[k]
+                and (k.endswith("_B") or worst[k] <= Q8_POST)):
+            failed.append(f"{k}: {worst[k]:.4f} from the bf16 forward, the "
+                          f"plain q8 forward {scheme[k]:.4f}")
+    if failed:
+        raise AssertionError("int8 forward posteriors: " + "; ".join(failed))
+    vel = {f: (out8[f"velocity_{f}"].argmax(-1) == out16[f"velocity_{f}"]
+               .argmax(-1)).float().mean().item() for f in ("A", "B")}
+    audio_s = BATCH * n_frame * cfg.feature.hop_sample / SR
+    log(f"(k) batch-{BATCH} paper forward, int8 vs bf16, posteriors (plain "
+        f"q8 forward vs bf16 in brackets): "
+        + ", ".join(f"{k} {v:.4f} ({scheme[k]:.4f})" for k, v in worst.items())
+        + f"; A heads <= {Q8_POST}, all <= {Q8_FORWARD_REL} x the plain q8 "
+        f"forward's; velocity classes equal {vel['A']:.4f} / {vel['B']:.4f} "
+        f"(A/B)")
+    del outp, out8, out16
+    ms8 = cuda_ms(lambda: engine.forward(packed8, spec, cfg), iters=10)
+    ms16 = cuda_ms(lambda: engine.forward(packed, spec, cfg), iters=10)
+    log(f"(k) batch-{BATCH} paper forward: int8 {ms8:.3f} ms "
+        f"({audio_s / ms8 * 1e3:.1f} audio-s/s), bf16 {ms16:.3f} ms "
+        f"({audio_s / ms16 * 1e3:.1f} audio-s/s); card {card}")
+    profile_forward(lambda: engine.forward(packed8, spec, cfg), phase="k",
+                    what="int8 forward", top=14)
+
+    # (4) transcribe --int8 --list ... and evaluate, through the CLI
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg.save(str(tmp / "config.json"))
+        torch.save({"model_dict": {k: v.cpu() for k, v in
+                                   model.state_dict().items()}},
+                   tmp / "model.dat")
+        save_wav(str(tmp / "piece.wav"), audio, SR)
+        write_notes(str(tmp / "piece.mid"), synth_notes(AUDIO_SEC))
+        cl = CorpusList()
+        cl.add("test", "piece", str(tmp / "piece.wav"), str(tmp / "piece.mid"))
+        cl.save(str(tmp / "lists"))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["transcribe", "--checkpoint", str(tmp / "model.dat"),
+                       "--config", str(tmp / "config.json"), "--list",
+                       str(tmp / "lists"), "--split", "test", "--out",
+                       str(tmp / "out"), "--batch-windows", str(BATCH),
+                       "--int8", "--tab", "--sheet", "--save-posteriors",
+                       "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        if rc != 0:
+            raise AssertionError(f"transcribe --int8 returned {rc}")
+        for ext in (".mid", ".notes.json", ".alphatex", ".musicxml",
+                    ".post.npz"):
+            if not (tmp / "out" / f"piece{ext}").is_file():
+                raise AssertionError(f"transcribe --int8 wrote no piece{ext}")
+        post = np.load(tmp / "out" / "piece.post.npz")
+        if not all(np.isfinite(post[k]).all() for k in post.files):
+            raise AssertionError("non-finite posteriors in piece.post.npz")
+        scores = {}
+        for suffix in (".notes.json", ".post.npz"):
+            with contextlib.redirect_stdout(io.StringIO()):  # read below
+                rc = cli_main(["evaluate", "--config",
+                               str(tmp / "config.json"), "--list",
+                               str(tmp / "lists"), "--split", "test",
+                               "--est-dir", str(tmp / "out"), "--suffix",
+                               suffix, "--out",
+                               str(tmp / f"scores{suffix}.json")])
+            res = json.loads((tmp / f"scores{suffix}.json").read_text())
+            key = "mpe_posterior" if suffix == ".post.npz" else "note"
+            if rc != 0 or f"piece{suffix}" not in res[key]["per_file"]:
+                raise AssertionError(f"evaluate {suffix}: rc {rc}, {res}")
+            scores[key] = res[key]["mean"]
+        notes = json.loads((tmp / "out" / "piece.notes.json").read_text())
+    n_frames = 1 + int(AUDIO_SEC * SR) // cfg.feature.hop_sample
+    n_batches = math.ceil(math.ceil(n_frames / n_frame) / BATCH)
+    want = {"log_mel": 1, "encoder_layer_with_stem_q8": n_batches,
+            "encoder_layer_q8": n_batches * (m.enc_layer - 1 + m.dec_layer),
+            "decoder_layer_zero_q8": n_batches,
+            "decoder_layer_q8": n_batches * (m.dec_layer - 1)}
+    want.update({k: 0 for k in counts if k not in want})  # bf16 K2-K5 too
+    if counts != want:
+        raise AssertionError(f"launch counts of transcribe --int8 {counts}, "
+                             f"expected {want}")
+    ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+    f_note = scores["note"].get("F-measure", float("nan"))
+    f_mpe = scores["mpe_posterior"].get("F-measure", float("nan"))
+    log(f"(k) transcribe --int8 --list --tab --sheet --save-posteriors "
+        f"{AUDIO_SEC:.0f} s WAV -> {len(notes)} notes, all five artifacts; "
+        f"{wall:.2f} s wall; launches {ran} ({n_batches} batches of "
+        f"{BATCH}; bf16 K2-K5 0); evaluate: note F {f_note:.4f}, MPE "
+        f"posterior F {f_mpe:.4f} (random weights)")
+    return counts, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -922,7 +1260,7 @@ def main() -> int:
     k3k5 = {"enc": lf.encoder_layer, "dec_zero": lf.decoder_layer_zero,
             "dec": lf.decoder_layer}
     results.update(check_train_layers(model, cfg, dev, k3k5))
-    del model, model32, packed, packed32
+    del model32, packed32
     torch.cuda.empty_cache()
 
     # (i) training through the CLI ---------------------------------------------
@@ -930,6 +1268,11 @@ def main() -> int:
 
     # (j) the train step's time ------------------------------------------------
     time_train_step(cfg, first_batch, dev, card)
+
+    # (k) K13, the int8 layers -------------------------------------------------
+    q8_counts, q8_results = check_int8(cfg, model, packed, spec, audio, dev,
+                                       card, cli_main)
+    results.update(q8_results)
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))
@@ -956,7 +1299,10 @@ def main() -> int:
         "decoder_layer_zero_train_bwd": ("layer_fused_train.cu",
                                          f"{train}:789"),
         "decoder_layer_train": ("layer_fused.cu", f"{train}:759"),
-        "decoder_layer_train_bwd": ("layer_fused_train.cu", f"{train}:789")}
+        "decoder_layer_train_bwd": ("layer_fused_train.cu", f"{train}:789"),
+        **{name: ("layer_fused_q8.cu", tpu) for name, tpu in
+           Q8_SOURCES.items()}}
+    counts.update({k: q8_counts[k] for k in Q8_SOURCES})
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

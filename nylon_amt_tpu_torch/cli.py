@@ -1,5 +1,5 @@
-"""Command-line interface of the PyTorch / CUDA port: ``train`` and
-``transcribe``.
+"""Command-line interface of the PyTorch / CUDA port: ``train``,
+``transcribe`` and ``evaluate``.
 
 ``train`` runs the (epoch, div) training recipe on split arrays written by
 the corpus step (``<split>_feature.npy``, ... as ``data/corpus.py`` saves
@@ -21,7 +21,21 @@ and writes ``parameter.json``, ``performance.json`` and
 ``--checkpoint`` is a reference-format ``.dat`` (a ``torch.save`` dict with
 ``model_dict``) or a bare ``state_dict`` with the reference's key names.
 Writes ``<stem>.mid``, ``<stem>.notes.json`` and one
-``<stem>_{1st,2nd}.notes.json`` per head family.
+``<stem>_{1st,2nd}.notes.json`` per head family; ``--tab`` adds
+``<stem>.alphatex``, ``--sheet`` ``<stem>.musicxml`` and
+``--save-posteriors`` ``<stem>.post.npz``. ``--list DIR --split S``
+transcribes every WAV of a lists directory's split; ``--int8`` runs the
+W8A8 layers.
+
+``evaluate``: note-level and frame-level scores of transcriptions against
+reference MIDI, as JSON (the reference's EXE-EVALUATION-MAESTRO flow):
+
+    python -m nylon_amt_tpu_torch.cli evaluate --list lists/ --split test \
+        --est-dir out/ --out scores.json
+
+Each ``--pair REF.mid:EST`` (or each split entry with ``--list``) scores an
+estimate: a ``.notes.json`` or MIDI file by note and frame metrics, a
+``.post.npz`` by its thresholded MPE posteriors.
 """
 
 from __future__ import annotations
@@ -30,7 +44,9 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
+import numpy as np
 import torch
 
 from nylon_amt_tpu_torch.config import Config
@@ -84,12 +100,24 @@ def cmd_transcribe(args) -> int:
     config = Config.load(args.config) if args.config else Config()
     model = load_model(args.checkpoint, config, args.device)
     tr = Transcriber(config, model, args.device,
-                     batch_windows=args.batch_windows)
+                     batch_windows=args.batch_windows,
+                     precision="int8" if args.int8 else None)
+    wavs = list(args.wav or [])
+    if args.list:
+        # the EXE-EVALUATION-MAESTRO flow: every WAV of a split
+        from nylon_amt_tpu_torch.data.lists import CorpusList
+
+        wavs += [w for _, w, _ in CorpusList.load(args.list)
+                 .entries[args.split]]
+    if not wavs:
+        print("transcribe: no input (--wav or --list required)",
+              file=sys.stderr)
+        return 2
     # Head families, reference naming: stage-1 "A" heads -> _1st, stage-2
     # "B" heads -> _2nd; single mode emits only _1st.
     families = ([("1st", "A"), ("2nd", "B")] if args.mode == "combination"
                 else [("1st", "A")])
-    for wav in args.wav:
+    for wav in wavs:
         feature = tr.wav2feature(wav)
         if args.stride >= 0:
             post = tr.transcript_stride(feature, args.stride, mode=args.mode)
@@ -112,7 +140,84 @@ def cmd_transcribe(args) -> int:
         write_notes(os.path.join(out_dir, stem + ".mid"), notes)
         with open(os.path.join(out_dir, stem + ".notes.json"), "w") as f:
             json.dump(notes, f, indent=2)
+        if args.tab:
+            from nylon_amt_tpu_torch.infer.tab import write_alphatex
+
+            write_alphatex(notes, os.path.join(out_dir, stem + ".alphatex"),
+                           title=stem)
+        if args.sheet:
+            from nylon_amt_tpu_torch.infer.sheet import write_musicxml
+
+            write_musicxml(notes, os.path.join(out_dir, stem + ".musicxml"),
+                           title=stem)
+        if args.save_posteriors:
+            np.savez_compressed(os.path.join(out_dir, stem + ".post.npz"),
+                                **post)
         print(f"{wav}: {len(notes)} notes -> {out_dir}/{stem}.mid")
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from nylon_amt_tpu_torch.labels import midi2note
+    from nylon_amt_tpu_torch.metrics.harness import (
+        aggregate,
+        score_frames,
+        score_mpe_posteriors,
+        score_notes,
+    )
+
+    config = Config.load(args.config) if args.config else Config()
+    pairs = list(args.pair or [])
+    if args.list:
+        # every split entry's reference MIDI against the artifact that
+        # `transcribe --list` wrote for its WAV
+        from nylon_amt_tpu_torch.data.lists import CorpusList
+
+        for _, wav, midi in CorpusList.load(args.list).entries[args.split]:
+            stem = os.path.splitext(os.path.basename(wav))[0]
+            est = os.path.join(args.est_dir or ".", stem + args.suffix)
+            pairs.append(f"{midi}:{est}")
+    if not pairs:
+        print("evaluate: no input (--pair or --list required)",
+              file=sys.stderr)
+        return 2
+    fps, note_min = config.feature.frames_per_sec, config.midi.note_min
+    num_note = config.midi.num_note
+    per_file_notes, per_file_frames, per_file_mpe = {}, {}, {}
+    for pair in pairs:
+        ref_path, est_path = pair.split(":")
+        ref_notes = midi2note(config, ref_path)
+        name = os.path.basename(est_path)
+        if est_path.endswith(".npz"):
+            # frame scores of the thresholded MPE posteriors
+            post = np.load(est_path)
+            fam = "B" if "mpe_B" in post else "A"
+            per_file_mpe[name] = score_mpe_posteriors(
+                ref_notes, post[f"mpe_{fam}"], fps=fps, note_min=note_min,
+                num_note=num_note)
+            continue
+        if est_path.endswith(".json"):
+            with open(est_path) as f:
+                est_notes = json.load(f)
+        else:
+            est_notes = midi2note(config, est_path)
+        per_file_notes[name] = score_notes(ref_notes, est_notes)
+        per_file_frames[name] = score_frames(
+            ref_notes, est_notes, fps=fps, note_min=note_min,
+            num_note=num_note)
+
+    result = {"note": {"per_file": per_file_notes,
+                       "mean": aggregate(per_file_notes)},
+              "frame": {"per_file": per_file_frames,
+                        "mean": aggregate(per_file_frames)}}
+    if per_file_mpe:
+        result["mpe_posterior"] = {"per_file": per_file_mpe,
+                                   "mean": aggregate(per_file_mpe)}
+    text = json.dumps(result, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
     return 0
 
 
@@ -146,7 +251,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--config", help="config JSON (default: Config())")
     r.add_argument("--checkpoint", required=True,
                    help="reference .dat or state_dict file")
-    r.add_argument("--wav", nargs="+", required=True)
+    r.add_argument("--wav", nargs="+")
+    r.add_argument("--list", help="lists dir ({split}.tsv): transcribe "
+                   "every WAV of --split")
+    r.add_argument("--split", default="test",
+                   choices=["train", "valid", "test"])
     r.add_argument("--out", help="output directory (default: beside the WAV)")
     r.add_argument("--batch-windows", type=int, default=8)
     r.add_argument("--stride", type=int, default=-1,
@@ -159,10 +268,35 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--thred-mpe", type=float, default=0.5)
     r.add_argument("--mode-offset", default="shorter",
                    choices=["shorter", "longer", "offset"])
+    r.add_argument("--save-posteriors", action="store_true",
+                   help="also write <stem>.post.npz")
+    r.add_argument("--tab", action="store_true",
+                   help="also export guitar tablature (alphaTex)")
+    r.add_argument("--sheet", action="store_true",
+                   help="also export sheet music (MusicXML)")
+    r.add_argument("--int8", action="store_true",
+                   help="W8A8 layers: per-channel int8 weights, dynamic "
+                   "per-row int8 activations; an approximation of the "
+                   "default path (PERF.md has its error and speed)")
     r.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the kernels, cpu the plain "
                    "versions")
     r.set_defaults(fn=cmd_transcribe)
+    e = sub.add_parser("evaluate", help="score estimated vs reference notes")
+    e.add_argument("--config", help="config JSON (default: Config())")
+    e.add_argument("--pair", nargs="+",
+                   metavar="REF.mid:EST.{mid,json,post.npz}")
+    e.add_argument("--list", help="lists dir ({split}.tsv): score every "
+                   "file of --split against --est-dir artifacts")
+    e.add_argument("--split", default="test",
+                   choices=["train", "valid", "test"])
+    e.add_argument("--est-dir",
+                   help="directory of `transcribe` outputs (with --list)")
+    e.add_argument("--suffix", default=".notes.json",
+                   help="estimate filename suffix per WAV stem (e.g. "
+                   "'_1st.notes.json' for the A heads, '.post.npz')")
+    e.add_argument("--out", help="also write the JSON here")
+    e.set_defaults(fn=cmd_evaluate)
     return p
 
 

@@ -7,8 +7,12 @@ wrappers of :mod:`nylon_amt_tpu_torch.ops.layer_fused`: K2
 layer, K3 (``encoder_layer``) for the other frequency-encoder layers and
 every stage-2 time layer, K4
 (``decoder_layer_zero``) and K5 (``decoder_layer``) for the stage-1 decoder.
-On CUDA tensors every layer launches its kernels; on CPU tensors the same
-code runs the plain versions.
+With ``precision="int8"`` the same five places take the W8A8 twins of K13
+(:mod:`nylon_amt_tpu_torch.ops.layer_fused_q8`): per-channel int8 weights,
+quantized once at pack time from the compute-dtype weights, and dynamic
+per-row int8 activations; the stem, the output heads, LayerNorm and softmax
+keep the bf16 path's numerics. On CUDA tensors every layer launches its
+kernels; on CPU tensors the same code runs the plain versions.
 
 The 65-tap stem, the sqrt(hid) scale and the frequency position embedding
 run in K2 (``encoder_layer_with_stem``) with the first frequency layer, as
@@ -38,6 +42,7 @@ from nylon_amt_tpu_torch.ops.layer_fused import (
     encoder_layer_with_stem,
     sqrt_hid,
 )
+from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
 from nylon_amt_tpu_torch.ops.precision import full_f32
 
 __all__ = ["PackedHFT", "forward", "pack_params", "supports"]
@@ -46,7 +51,9 @@ _KEYS = ("onset", "offset", "mpe", "velocity")
 
 
 class PackedHFT(NamedTuple):
-    """The model's weights in the engine's layout and compute dtype."""
+    """The model's weights in the engine's layout and compute dtype; with
+    ``precision`` "int8", every layer's weights quantized
+    (``Q8EncoderLayerParams`` / ``Q8CrossLayerParams``)."""
 
     dtype: torch.dtype
     k_eff: torch.Tensor                  # [n_proc, hid] f32 stem
@@ -60,6 +67,7 @@ class PackedHFT(NamedTuple):
     pos_time: torch.Tensor | None        # [n_frame, hid]; None for cafreq
     time: list[EncoderLayerParams]
     heads_b: dict[str, tuple[torch.Tensor, torch.Tensor]]
+    precision: str | None = None
 
 
 def _lin(lin, dt, *more):
@@ -107,8 +115,23 @@ def _pack_cross(layer, dt) -> CrossLayerParams:
 
 
 @torch.no_grad()
-def pack_params(model: HFT, dtype: torch.dtype) -> PackedHFT:
-    """Pack ``model``'s weights once, on the model's device."""
+def pack_params(model: HFT, dtype: torch.dtype,
+                precision: str | None = None) -> PackedHFT:
+    """Pack ``model``'s weights once, on the model's device. Only
+    ``precision="int8"`` changes the path: the layer weights are then
+    quantized here, once, after the cast to ``dtype`` (as the JAX engine
+    packs with ``.astype(dt)`` first: quantizing the f32 master weights
+    would give other codes and scales)."""
+    q8 = precision == "int8"
+
+    def enc_pack(layer):
+        p = _pack_encoder(layer, dtype)
+        return lq.quantize_encoder_params(p) if q8 else p
+
+    def cross_pack(layer):
+        p = _pack_cross(layer, dtype)
+        return lq.quantize_cross_params(p) if q8 else p
+
     enc, dec = model.encoder_spec2midi, model.decoder_spec2midi
     k_eff, b_eff = enc.stem_kernel(model.config)
     heads = {s: {k: _lin(getattr(dec, f"fc_{k}_{t}"), dtype) for k in _KEYS}
@@ -117,16 +140,16 @@ def pack_params(model: HFT, dtype: torch.dtype) -> PackedHFT:
     return PackedHFT(
         dtype=dtype, k_eff=k_eff, b_eff=b_eff,
         pos_freq=enc.pos_embedding_freq.weight.to(dtype),
-        enc=[_pack_encoder(layer, dtype) for layer in enc.layers_freq],
+        enc=[enc_pack(layer) for layer in enc.layers_freq],
         note_q=dec.pos_embedding_freq.weight.to(dtype),
-        dec_zero=_pack_cross(dec.layer_zero_freq, dtype),
-        dec=[_pack_cross(layer, dtype) for layer in dec.layers_freq],
+        dec_zero=cross_pack(dec.layer_zero_freq),
+        dec=[cross_pack(layer) for layer in dec.layers_freq],
         heads_a=heads["a"],
         pos_time=dec.pos_embedding_time.weight.to(dtype) if dec.stage2
         else None,
-        time=[_pack_encoder(layer, dtype) for layer in dec.layers_time]
+        time=[enc_pack(layer) for layer in dec.layers_time]
         if dec.stage2 else [],
-        heads_b=heads.get("b", {}))
+        heads_b=heads.get("b", {}), precision="int8" if q8 else None)
 
 
 def _dense(x, head):
@@ -144,21 +167,27 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     n_frame = config.input.num_frame
     n_note, hid = config.midi.num_note, m.hid_dim
     scale = sqrt_hid(hid, dt)
+    if packed.precision == "int8":
+        stem_layer, enc_layer = lq.encoder_layer_with_stem_q8, \
+            lq.encoder_layer_q8
+        dec_zero, dec_layer = lq.decoder_layer_zero_q8, lq.decoder_layer_q8
+    else:
+        stem_layer, enc_layer = encoder_layer_with_stem, encoder_layer
+        dec_zero, dec_layer = decoder_layer_zero, decoder_layer
 
     # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
     spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
-    h = encoder_layer_with_stem(spec_t, packed.k_eff, packed.b_eff,
-                                packed.pos_freq, packed.enc[0], m.enc_head,
-                                n_frame, dt)
+    h = stem_layer(spec_t, packed.k_eff, packed.b_eff, packed.pos_freq,
+                   packed.enc[0], m.enc_head, n_frame, dt)
     for p in packed.enc[1:]:
-        h = encoder_layer(h, p, m.enc_head)
+        h = enc_layer(h, p, m.enc_head)
     enc = h                                        # [B*n_frame, n_bin, hid]
 
     # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
     trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
-    trg = decoder_layer_zero(trg, enc, packed.dec_zero, m.dec_head)
+    trg = dec_zero(trg, enc, packed.dec_zero, m.dec_head)
     for p in packed.dec:
-        trg = decoder_layer(trg, enc, p, m.dec_head)
+        trg = dec_layer(trg, enc, p, m.dec_head)
     out = {f"{k}_A": _dense(trg, packed.heads_a[k])
            .reshape(B, n_frame, n_note, -1) for k in _KEYS}
     if packed.pos_time is None:                    # stage-1-only decoder
@@ -168,7 +197,7 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
     t = t.reshape(B * n_note, n_frame, hid) * scale + packed.pos_time
     for p in packed.time:
-        t = encoder_layer(t, p, m.dec_head)
+        t = enc_layer(t, p, m.dec_head)
     for k in _KEYS:
         out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
                          .reshape(B, n_note, n_frame, -1).transpose(1, 2))

@@ -12,7 +12,8 @@ geometry and output shapes (``model/amt.py:66-176``):
 Windows run through :func:`nylon_amt_tpu_torch.infer.engine.forward` in
 fixed-size batches (the last one padded by repeating its last window). On a
 CUDA device every layer launches the port's kernels; on the CPU the same
-engine runs the plain versions. Onset/offset/mpe posteriors are sigmoids of
+engine runs the plain versions. ``precision="int8"`` runs the W8A8 layers
+(K13) instead of the bf16 ones. Onset/offset/mpe posteriors are sigmoids of
 the logits and velocity is the argmax over the 128 classes (int8); each
 batch's posteriors come back to the host in one copy.
 """
@@ -38,10 +39,13 @@ _POST_KEYS = ("onset", "offset", "mpe", "velocity")
 class Transcriber:
     """Feature extraction + windowed transcription on ``device`` (mirrors
     the reference ``AMT`` class, ``amt.py:9-31``). ``model`` is an
-    :class:`HFT` whose weights already live on ``device``."""
+    :class:`HFT` whose weights already live on ``device``. Only
+    ``precision="int8"`` changes the path: the engine's layers then run
+    W8A8 (weights quantized once, here)."""
 
     def __init__(self, config: Config, model: HFT,
-                 device: torch.device | str, batch_windows: int = 8):
+                 device: torch.device | str, batch_windows: int = 8,
+                 precision: str | None = None):
         if not supports(config):
             raise ValueError("nylon_amt_tpu_torch does not port this "
                              f"architecture: {config.model}")
@@ -57,7 +61,7 @@ class Transcriber:
         self.families = (("A", "B") if config.model.dec_alg == "cafreq_satime"
                          else ("A",))
         self.frontend = MelFrontend(config.feature, self.device)
-        self.packed = engine.pack_params(model, model.dtype)
+        self.packed = engine.pack_params(model, model.dtype, precision)
 
     # -- features ------------------------------------------------------------
 

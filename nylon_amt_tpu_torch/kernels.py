@@ -1,7 +1,8 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled on first use by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+(``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together, then
+linked into one shared library with a plain C interface, under
 ``build/cuda/<hash of the sources and flags>/`` at the root of the checkout,
 and loaded with :mod:`ctypes`. A missing ``nvcc`` or a failed build raises
 with the compiler's output: there is no fallback.
@@ -29,13 +30,14 @@ BUILD_ROOT = _PKG.parent / "build" / "cuda"
 LIB_NAME = "libnylon_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One counter per public wrapper: K1 log_mel, K2 encoder_layer_with_stem,
 # K3 encoder_layer, K4 decoder_layer_zero, K5 decoder_layer; K6
 # hash_keep_mask (its standalone kernel: the embedding-dropout site, or a
 # written mask), and the forward and backward of K7 encoder_layer_train, K8
-# decoder_layer_zero_train and K9 decoder_layer_train.
+# decoder_layer_zero_train and K9 decoder_layer_train; K13, the int8 (W8A8)
+# twins of K2-K5.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -44,7 +46,11 @@ launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "decoder_layer_zero_train": 0,
                             "decoder_layer_zero_train_bwd": 0,
                             "decoder_layer_train": 0,
-                            "decoder_layer_train_bwd": 0}
+                            "decoder_layer_train_bwd": 0,
+                            "encoder_layer_with_stem_q8": 0,
+                            "encoder_layer_q8": 0,
+                            "decoder_layer_zero_q8": 0,
+                            "decoder_layer_q8": 0}
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_uint
@@ -89,6 +95,19 @@ _SIGNATURES = {
     # seed_mix, tag_base, thresh, pscale, half, stream
     "nylon_attention_bwd": [_P] * 8 + [_I] * 5 + [_L] * 5
     + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
+    # x, ld_x, M, K, n_seg, q, s, stream
+    "nylon_q8_quant_rows": [_P, _L, _I, _I, _I, _P, _P, _P],
+    # x, ld_x, n_seq, L, hid, vt, sv, stream
+    "nylon_q8_quant_cols": [_P, _L, _I, _I, _I, _P, _P, _P],
+    # a, sa, w, sw, bias, out, M, N, K, relu, stream
+    "nylon_q8_gemm_bias": [_P] * 6 + [_I] * 4 + [_P],
+    # a, sa, w, sw, bias, res, gamma, beta, out, q_out, s_out, M, N, K, eps,
+    # stream
+    "nylon_q8_gemm_res_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
+    # q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, o, n_seq, lq, lk, n_heads,
+    # head_dim, scale_log2e, stream
+    "nylon_q8_attention": [_P, _L, _P, _P, _L, _P, _P, _I, _P, _P]
+    + [_I] * 5 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -123,8 +142,9 @@ def find_nvcc() -> str | None:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the library (if not built yet); returns its
-    path. ``build.log`` beside it keeps ``ptxas -v``'s register and shared
-    memory report."""
+    path. Each source compiles in its own ``nvcc`` process, all at once;
+    ``build.log`` beside the library keeps every ``ptxas -v`` register and
+    shared-memory report."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -135,16 +155,29 @@ def build() -> Path:
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
             "CUDA kernels of nylon_amt_tpu_torch cannot be built")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    tag = f"{os.getpid()}.tmp"
+    srcs = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    rc = next((proc.returncode for proc in procs if proc.returncode), 0)
+    if rc == 0:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+        rc = proc.returncode
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{log}")
+        raise RuntimeError(f"nvcc failed with exit code {rc}:\n{log}")
     os.replace(tmp, lib)
     return lib
 

@@ -38,7 +38,11 @@ def test_port_never_imports_jax():
     for name in ("ops.layer_fused", "ops.layer_fused_train", "ops.attention",
                  "models.fused_train", "train.step", "train.loop",
                  "train.checkpoint", "train.importer", "config", "midi.smf",
-                 "native.build", "data.corpus", "data.windows", "cli"):
+                 "native.build", "data.corpus", "data.windows", "cli",
+                 "ops.layer_fused_q8", "data.lists", "infer.tab",
+                 "infer.sheet", "labels", "labels.midi2note", "metrics",
+                 "metrics.transcription", "metrics.multipitch",
+                 "metrics.harness"):
         assert f"nylon_amt_tpu_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -81,6 +85,7 @@ def test_off_cpu_tensors_never_take_the_plain_path():
         "from nylon_amt_tpu_torch.ops import layer_fused as lf\n"
         "from nylon_amt_tpu_torch.ops import attention as att\n"
         "from nylon_amt_tpu_torch.ops import layer_fused_train as lt\n"
+        "from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq\n"
         "from nylon_amt_tpu_torch.ops.mel import MelFrontend\n"
         "from nylon_amt_tpu_torch.ops.spectrogram import log_mel\n"
         "res = {}\n"
@@ -121,11 +126,28 @@ def test_off_cpu_tensors_never_take_the_plain_path():
         "t(n, 88, hid), t(n, 256, hid), zf, 3, 4, 0.1),\n"
         "  'decoder_layer_train': lambda: lt.decoder_layer_train("
         "t(n, 88, hid), t(n, 256, hid), df, 3, 4, 0.1),\n"
+        "  'encoder_layer_with_stem_q8': lambda: lq.encoder_layer_with_stem_q8("
+        "t(n, 192, 256, dt=torch.float32), t(65, hid, dt=torch.float32),"
+        " t(hid, dt=torch.float32), t(256, hid), eq, 4, 128,"
+        " torch.bfloat16),\n"
+        "  'encoder_layer_q8': lambda: lq.encoder_layer_q8(t(n, 256, hid), eq,"
+        " 4),\n"
+        "  'decoder_layer_zero_q8': lambda: lq.decoder_layer_zero_q8("
+        "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
+        "  'decoder_layer_q8': lambda: lq.decoder_layer_q8("
+        "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
         "}\n"
+        "i8 = lambda *s: t(*s, dt=torch.int8)\n"
         "f32 = lambda *s: t(*s, dt=torch.float32)\n"
         "ef = lf.EncoderLayerParams(*(f32(*x.shape) for x in ep))\n"
         "df = lt.DecLayerParams(*(f32(*x.shape) for x in cp))\n"
         "zf = lt.DecZeroParams(*df[4:])\n"
+        "eq = lq.quantize_encoder_params(ef)\n"
+        "eq = eq._replace(**{f: i8(*getattr(eq, f).shape) for f in"
+        " eq._fields if f.startswith('w')})\n"
+        "cq = lq.quantize_cross_params(df)\n"
+        "cq = cq._replace(**{f: i8(*getattr(cq, f).shape) for f in"
+        " cq._fields if f.startswith('w')})\n"
         "for name, call in calls.items():\n"
         "    try:\n"
         "        call()\n"
