@@ -53,7 +53,23 @@ non-zero and never prints the last line):
     ``evaluate`` of its notes and posteriors, with the launch counts (every
     K13 wrapper, no bf16 K2-K5); the kernels', plain versions', bf16
     kernels' and ``torch._int_mm`` times, both forwards' times and a
-    profile of the int8 forward.
+    profile of the int8 forward;
+(l) K10, K11 and K12 (the per-site attention of ``csrc/mha.cu``) forward and
+    backward at every attention shape of the paper model, batch 8 and 32:
+    outputs within 4 bf16 ulps of the plain bf16 version and under the
+    bf16 gate, input gradients within 12 ulps and under the gate (also
+    scaled by max |truth|), bit-identical backward runs; K11's output equal
+    to K10's, its probabilities within 1e-5 of the plain f32 ones and its
+    rows summing to 1 +- 1e-5; K12's realized masks bit for bit the plain
+    ones; times beside SDPA's. A batch-32 ``return_attention`` forward
+    through the per-site path (10 K10 + 1 K11 launches, no K2-K5) within
+    8 / 64 ulps of the engine's forward on the same weights, with its
+    time and profile. Through the CLI, ``train --epochs 1`` then
+    ``transcribe`` with the checkpoint for ``--remat`` (dropout 0.1: K12
+    forward twice per site and step, backward once, no K7-K9), a
+    ``return_attention`` config at dropout 0 (K10's and K11's backward),
+    1FLT and 2FDT (BatchNorm statistics move): every launch count, finite
+    losses. The per-site train steps' times and profiles beside (j)'s.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths in IEEE f32, and the script wraps only its own f32
@@ -61,10 +77,12 @@ references in ``full_f32``.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with each kernel's launches (K1-K5 from (d), K6-K9 from (i), K13
-from (k)), error, times and bound (the larger of the bytes it must move over
-3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s int8 for
-K13's products, 67 TFLOP/s for K1's and the stem's f32 and f64 work: the
-H100 SXM's published rates). The last line is
+from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
+``return_attention`` training), error, times and bound (the larger of the
+bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
+1,979 TOP/s int8 for K13's products, 67 TFLOP/s for K1's and the stem's
+f32 and f64 work and K12's mask hashes: the H100 SXM's published rates).
+The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -557,18 +575,13 @@ def check_train_layers(model, cfg, dev, k3k5) -> dict:
     return results
 
 
-def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
-    """(i): seeded train/valid splits (real log-mel features of the smoke's
-    audio, sparse random labels), ``train --epochs 1 --device cuda``, the
-    launch counts per step, and ``transcribe`` with the trained
-    checkpoint. Returns (launch counts of the training run, first train
-    batch)."""
-    from nylon_amt_tpu_torch import kernels
-    from nylon_amt_tpu_torch.data.corpus import assemble_split, SplitArrays
-    from nylon_amt_tpu_torch.data.windows import WindowDataset
-    from nylon_amt_tpu_torch.utils.wavio import save_wav
+def write_corpus(cfg, feat, corpus: Path) -> None:
+    """Seeded train and valid splits under ``corpus``: real log-mel features
+    of the smoke's audio with sparse random labels. n_slice keeps one
+    window start in n_slice: 768 train frames -> 48 windows (6 steps of
+    8), 256 valid frames -> 16 windows (2 validation batches)."""
+    from nylon_amt_tpu_torch.data.corpus import assemble_split
 
-    m, t = cfg.model, cfg.train
     rng = np.random.default_rng(SEED + 4)
     feats = feat.cpu().numpy()
 
@@ -579,18 +592,29 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
                   "velocity": rng.integers(0, 128, (n, 88)).astype(np.int8)}
         return feats[lo:lo + n], labels
 
-    # n_slice keeps one window start in n_slice: 768 train frames -> 48
-    # windows (6 steps of 8), 256 valid frames -> 16 windows
     splits = {"train": [piece(0, 400), piece(1000, 368)],
               "valid": [piece(3000, 256)]}
+    for split, pieces in splits.items():
+        assemble_split(cfg, [f for f, _ in pieces],
+                       [lab for _, lab in pieces]).save(str(corpus), split)
+
+
+def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
+    """(i): seeded train/valid splits (:func:`write_corpus`), ``train
+    --epochs 1 --device cuda``, the launch counts per step, and
+    ``transcribe`` with the trained checkpoint. Returns (launch counts of
+    the training run, first train batch)."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    m, t = cfg.model, cfg.train
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         tmp = Path(tmp)
         cfg.save(str(tmp / "config.json"))
-        for split, pieces in splits.items():
-            assemble_split(cfg, [f for f, _ in pieces],
-                           [lab for _, lab in pieces]).save(
-                str(tmp / "corpus"), split)
+        write_corpus(cfg, feat, tmp / "corpus")
         ds = WindowDataset(SplitArrays.load(str(tmp / "corpus"), "train"),
                            cfg, n_slice=t.n_slice)
         steps = ds.steps_per_epoch
@@ -643,28 +667,30 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
     return counts, first
 
 
-def time_train_step(cfg, batch_np, dev, card: str) -> float:
+def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
+                    what: str = "") -> float:
     """(j): the batch-8 paper bf16 train step by CUDA events, and the
-    device time per kernel over a few steps."""
-    from nylon_amt_tpu_torch.models import fused_train as ft
+    device time per kernel over a few steps; the step's forward is the one
+    the trainer routes ``cfg`` to (``step.make_apply``: the fused layers,
+    or in (l) the per-site forward)."""
     from nylon_amt_tpu_torch.train import step as st
 
     state = st.create_train_state(cfg, SEED, dev)
     batch = st.to_device(batch_np, dev)
     gen = torch.Generator().manual_seed(SEED)
-    apply = ft.make_fused_apply(cfg)
+    apply, draw = st.make_apply(cfg)
 
     def step():
-        st.train_step(cfg, state, batch, ft.draw_seeds(cfg, gen), apply)
+        st.train_step(cfg, state, batch, draw(cfg, gen), apply)
 
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"(j) batch-{cfg.train.batch_size} paper bf16 train step (dropout "
-        f"{cfg.model.dropout}): {ms:.3f} ms by CUDA events (mean of 10 after "
-        f"2), {cfg.train.batch_size / ms * 1e3:.1f} windows/s, peak device "
-        f"memory {peak:.2f} GiB; card {card}")
-    profile_forward(step, iters=3, phase="j", what="train step", top=16)
+    log(f"({phase}) batch-{cfg.train.batch_size} paper bf16 {what}train step "
+        f"(dropout {cfg.model.dropout}): {ms:.3f} ms by CUDA events (mean of "
+        f"10 after 2), {cfg.train.batch_size / ms * 1e3:.1f} windows/s, peak "
+        f"device memory {peak:.2f} GiB; card {card}")
+    profile_forward(step, iters=3, phase=phase, what="train step", top=16)
     return ms
 
 
@@ -971,6 +997,450 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
     return counts, results
 
 
+# (l) the per-site attention -------------------------------------------------
+
+PROBS_ATOL = 1e-5  # K11 probabilities vs the plain f32 ones (same bf16 q/k)
+ROW_SUM_ATOL = 1e-5
+ATTN_SITES = {  # name: Lq, Lk, sequences per window (paper width)
+    "freq self": (256, 256, 128), "cross": (88, 256, 128),
+    "note self": (88, 88, 128), "time self": (128, 128, 88)}
+_ATT = "nylon_amt_tpu/ops/attention.py"
+MHA_SOURCES = {  # wrapper counter -> the TPU kernel's pallas_call line
+    "fused_mha": f"{_ATT}:258", "fused_mha_bwd": f"{_ATT}:286",
+    "fused_mha_with_probs": f"{_ATT}:258",
+    "fused_mha_with_probs_bwd": f"{_ATT}:286",
+    "fused_mha_dropout": f"{_ATT}:388", "fused_mha_dropout_bwd": f"{_ATT}:412"}
+# the shape each kernel's JSON row reports: the forwards of transcription
+# at batch 32 and the kernels of training at batch 8
+MHA_ROW_SHAPES = {"fused_mha": (BATCH, "freq self"),
+                  "fused_mha_bwd": (TRAIN_BATCH, "freq self"),
+                  "fused_mha_with_probs": (BATCH, "cross"),
+                  "fused_mha_with_probs_bwd": (TRAIN_BATCH, "cross"),
+                  "fused_mha_dropout": (TRAIN_BATCH, "freq self"),
+                  "fused_mha_dropout_bwd": (TRAIN_BATCH, "freq self")}
+
+
+def site_counts(m) -> tuple[int, int]:
+    """(attention sites, activation dropout sites) of a model config: the
+    embedding dropout of each stage, three sites per self-attention layer
+    (attention out, FFN mid, FFN out), four per decoder layer, one per
+    conv block."""
+    att, act = m.enc_layer, 3 * m.enc_layer + 1
+    if m.enc_alg == "cnnblock_safreq":
+        act += 4
+    if m.dec_alg != "linear_satime":
+        att += 1 + 2 * (m.dec_layer - 1)
+        act += 3 + 4 * (m.dec_layer - 1)
+    if m.dec_alg != "cafreq":
+        att += m.dec_layer
+        act += 3 * m.dec_layer + 1
+    return att, act
+
+
+def _realized_masks(att, n, lq, lk, heads, dev):
+    """The keep pattern K12 applies, read back from its output: with q = 0
+    every probability is 1 / Lk, and V one-hot over 64 keys at a time puts
+    key j's keep value in output column j mod 64 of each head."""
+    q = torch.zeros((n, lq, heads * 64), dtype=torch.bfloat16, device=dev)
+    keeps = torch.empty((heads, n, lq, lk), dtype=torch.bool, device=dev)
+    for t0 in range(0, lk, 64):
+        w = min(64, lk - t0)
+        v = torch.zeros((n, lk, heads * 64), dtype=torch.bfloat16, device=dev)
+        idx = torch.arange(w, device=dev)
+        for h in range(heads):
+            v[:, t0 + idx, h * 64 + idx] = 1.0
+        o = att.fused_mha_dropout(q, v, v, heads, 0.125, RATE, DROP_SEED)
+        o = o.float().reshape(n, lq, heads, 64)[..., :w] * lk
+        keeps[..., t0:t0 + w] = (o > 0.5).permute(2, 0, 1, 3)
+    return keeps
+
+
+def _bwd_only_ms(fn, q, k, v, do) -> float:
+    """Time of the backward alone: autograd.grad over one recorded forward
+    (the graph kept between calls)."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(qq, kk, vv)
+    out = out[0] if isinstance(out, tuple) else out
+    return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                                retain_graph=True))
+
+
+def check_attention_kernels(dev) -> dict:
+    """(l.1): K10, K11 and K12 forward and backward against their plain
+    versions at every per-site attention shape of the paper model, batch 8
+    and batch 32: the (c)/(h) bf16 gates, K11's probabilities, K12's
+    realized masks bit for bit, bit-identical backward runs; times beside
+    SDPA. Returns each kernel's JSON fields at its row shape."""
+    import torch.nn.functional as F
+
+    from nylon_amt_tpu_torch.ops import attention as att
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    heads, hid, scale = 4, 256, 0.125
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    mask = lambda h, shape: att.hash_keep_mask_plain(   # noqa: E731
+        DROP_SEED, h, 0, shape, RATE, torch.float32, dev)
+    fns = {"fused_mha": (lambda q, k, v: att.fused_mha(q, k, v, heads, scale),
+                         None),
+           "fused_mha_dropout": (lambda q, k, v: att.fused_mha_dropout(
+               q, k, v, heads, scale, RATE, DROP_SEED), mask)}
+    rows, worst = {}, {}
+    for B in (TRAIN_BATCH, BATCH):
+        for site, (lq, lk, per) in ATTN_SITES.items():
+            n = B * per
+            q, k, v, do = (torch.randn((n, L, hid), generator=g, device=dev)
+                           .to(torch.bfloat16) for L in (lq, lk, lk, lq))
+            f32 = [t.float() for t in (q, k, v, do)]
+            line, fields = [], {}
+
+            def grads(fn):
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                out = fn(qq, kk, vv)
+                out = out[0] if isinstance(out, tuple) else out
+                return torch.autograd.grad(out, (qq, kk, vv), do)
+
+            for name, (fn, msk) in fns.items():
+                got = fn(q, k, v)
+                plain16 = att.mha_plain(q, k, v, heads, scale, msk)
+                with full_f32():
+                    truth = att.mha_plain(*f32[:3], heads, scale, msk)
+                e_k, e_p = bf16_gate(f"{name} {site} B={B}", got, plain16,
+                                     truth)
+                err, ulps = ulp_distance(got, plain16)
+                if not ulps <= ULPS:
+                    raise AssertionError(f"{name} {site} B={B}: {ulps:.2f} "
+                                         f"ulps from plain bf16 > {ULPS}")
+                fields[name] = dict(max_abs_err=err, gate=(
+                    f"{ulps:.2f} bf16 ulps from plain bf16 <= {ULPS}; bf16 "
+                    f"rel err from plain f32 {e_k:.5f} <= 2 x {e_p:.5f} + "
+                    f"1e-3"))
+                line.append(f"{name} {ulps:.2f} ulps (gate {e_k:.4f}/"
+                            f"{e_p:.4f})")
+                if name == "fused_mha":
+                    k10 = got
+                del got, plain16, truth
+                # the backward: twice (bit-identical), against the plain
+                # bf16 twin and the f32 truth
+                kb, kb2 = grads(fn), grads(fn)
+                if not all(torch.equal(a, b) for a, b in zip(kb, kb2)):
+                    raise AssertionError(f"{name} bwd {site} B={B}: two runs "
+                                         f"differ")
+                pb = att.mha_bwd_plain(q, k, v, do, heads, scale, msk)
+                with full_f32():
+                    tb = att.mha_bwd_plain(*f32, heads, scale, msk)
+                us = []
+                for gname, a, b, t in zip(("dq", "dk", "dv"), kb, pb, tb):
+                    bf16_gate(f"{name} bwd {gname} {site} B={B}", a, b, t)
+                    top = t.abs().max().item()
+                    e_k = (a.float() - t).abs().max().item() / top
+                    e_p = (b.float() - t).abs().max().item() / top
+                    u = ulp_distance(a, b)[1]
+                    if not (e_k <= 2.0 * e_p + 1e-3 and u <= CHAIN_ULPS):
+                        raise AssertionError(
+                            f"{name} bwd {gname} {site} B={B}: err from f32 "
+                            f"{e_k:.2e} of max |truth| vs plain {e_p:.2e}; "
+                            f"{u:.2f} ulps (<= {CHAIN_ULPS})")
+                    us.append(u)
+                fields[name + "_bwd"] = dict(
+                    max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(kb, pb)),
+                    gate=(f"dq/dk/dv {max(us):.2f} bf16 ulps from plain bf16 "
+                          f"(<= {CHAIN_ULPS}), under the f32-truth gate and "
+                          f"the gate scaled by max |truth|; bit-identical "
+                          f"runs"))
+                line.append(f"{name}_bwd {max(us):.2f} ulps")
+                if name == "fused_mha":
+                    k10b, k10pb = kb, pb
+                del kb, kb2, pb, tb
+            # K11: K10's output bit for bit, its probabilities against the
+            # plain f32 ones, rows summing to 1; its own backward (the
+            # output cotangent only: K10's kernel) against the plain one
+            k11 = lambda a, b, c: att.fused_mha_with_probs(  # noqa: E731
+                a, b, c, heads, scale)
+            o11, probs = k11(q, k, v)
+            _, p_plain = att.mha_plain(q, k, v, heads, scale,
+                                       with_probs=True)
+            p_err = (probs - p_plain).abs().max().item()
+            r_err = (probs.sum(-1) - 1.0).abs().max().item()
+            worst["probs"] = max(worst.get("probs", 0.0), p_err)
+            k11b = grads(k11)
+            same_b = all(torch.equal(a, b) for a, b in zip(k11b, k10b))
+            if not (torch.equal(o11, k10) and p_err <= PROBS_ATOL
+                    and r_err <= ROW_SUM_ATOL and same_b):
+                raise AssertionError(
+                    f"fused_mha_with_probs {site} B={B}: output equal to "
+                    f"K10's {torch.equal(o11, k10)}, probs {p_err:.2e} from "
+                    f"plain f32 (<= {PROBS_ATOL}), rows sum to 1 +- "
+                    f"{r_err:.2e} (<= {ROW_SUM_ATOL}), backward equal to "
+                    f"K10's {same_b}")
+            fields["fused_mha_with_probs"] = dict(
+                max_abs_err=p_err, gate=(
+                    f"output bit-identical to K10's; probs {p_err:.2e} from "
+                    f"the plain f32 probs (<= {PROBS_ATOL}); rows sum to 1 "
+                    f"+- {r_err:.2e} (<= {ROW_SUM_ATOL})"))
+            fields["fused_mha_with_probs_bwd"] = dict(
+                max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(k11b, k10pb)),
+                gate=("dq/dk/dv from the output cotangent bit-identical to "
+                      "K10's backward (the same kernel), so within its "
+                      "gates"))
+            line.append(f"K11 probs {p_err:.2e}, rows {r_err:.2e}")
+            del o11, probs, p_plain
+            # K12's realized masks, bit for bit (batch 8)
+            if B == TRAIN_BATCH:
+                keeps = _realized_masks(att, n, lq, lk, heads, dev)
+                for h in range(heads):
+                    if not torch.equal(keeps[h], mask(h, (n, lq, lk)) != 0):
+                        raise AssertionError(f"K12 {site}: head {h}'s mask "
+                                             f"differs from the plain one")
+                line.append(f"K12 masks bit-identical "
+                            f"({'packed' if lk % 256 == 0 else 'unpacked'}, "
+                            f"keep {keeps.float().mean().item():.4f})")
+                del keeps
+            # times: kernels and SDPA here; plain versions at the row shapes
+            qh, kh, vh = (t.view(n, -1, heads, 64).transpose(1, 2)
+                          for t in (q, k, v))
+            sd = lambda *a, **kw: F.scaled_dot_product_attention(  # noqa
+                *a, **kw).transpose(1, 2).reshape(n, lq, hid)
+            ms = {"fused_mha": cuda_ms(lambda: fns["fused_mha"][0](q, k, v)),
+                  "fused_mha_with_probs": cuda_ms(
+                      lambda: att.fused_mha_with_probs(q, k, v, heads,
+                                                       scale)),
+                  "fused_mha_dropout": cuda_ms(
+                      lambda: fns["fused_mha_dropout"][0](q, k, v))}
+            ms["fused_mha_bwd"] = _bwd_only_ms(fns["fused_mha"][0], q, k, v,
+                                               do)
+            ms["fused_mha_with_probs_bwd"] = _bwd_only_ms(k11, q, k, v, do)
+            ms["fused_mha_dropout_bwd"] = _bwd_only_ms(
+                fns["fused_mha_dropout"][0], q, k, v, do)
+            lib = {"fused_mha": cuda_ms(lambda: sd(qh, kh, vh)),
+                   "fused_mha_dropout": cuda_ms(
+                       lambda: sd(qh, kh, vh, dropout_p=RATE)),
+                   "fused_mha_with_probs": None}
+            lib["fused_mha_bwd"] = _bwd_only_ms(
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    *(t.view(n, -1, heads, 64).transpose(1, 2)
+                      for t in (a, b, c))).transpose(1, 2).reshape(n, lq,
+                                                                   hid),
+                q, k, v, do)
+            # K11's backward from the output cotangent is K10's function
+            lib["fused_mha_with_probs_bwd"] = lib["fused_mha_bwd"]
+            lib["fused_mha_dropout_bwd"] = _bwd_only_ms(
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    *(t.view(n, -1, heads, 64).transpose(1, 2)
+                      for t in (a, b, c)), dropout_p=RATE)
+                .transpose(1, 2).reshape(n, lq, hid), q, k, v, do)
+            log(f"(l) [{n}, {lq}, {lk}] x {heads} heads ({site}, batch {B}): "
+                + "; ".join(line))
+            log(f"(l)   ms " + ", ".join(
+                f"{k_} {v_:.3f}" + (f" (SDPA {lib[k_]:.3f})"
+                                    if lib[k_] is not None else "")
+                for k_, v_ in ms.items()))
+            for name, (b_, s_) in MHA_ROW_SHAPES.items():
+                if (b_, s_) != (B, site):
+                    continue
+                msk = mask if "dropout" in name else None
+                if name.endswith("_bwd"):
+                    plain_ms = cuda_ms(lambda: att.mha_bwd_plain(
+                        q, k, v, do, heads, scale, msk), iters=1)
+                    nb = nbytes(q, k, v, do, q, k, v)       # dq, dk, dv
+                    products = 5
+                else:
+                    plain_ms = cuda_ms(lambda: att.mha_plain(
+                        q, k, v, heads, scale, msk,
+                        with_probs=name == "fused_mha_with_probs"), iters=1)
+                    nb = nbytes(q, k, v, q)
+                    if name == "fused_mha_with_probs":
+                        nb += n * heads * lq * lk * 4
+                    products = 2
+                flops = 2 * products * n * heads * lq * lk * 64
+                hash_ops = 8 * n * heads * lq * lk if msk else 0
+                rows[name] = dict(
+                    max_abs_err=fields[name]["max_abs_err"], ms=ms[name],
+                    plain_ms=plain_ms,
+                    **bound(nb, flops, f32_flops=hash_ops),
+                    library_ms=lib[name], shape=[n, lq, lk],
+                    gate=fields[name]["gate"])
+            del q, k, v, do, f32, qh, kh, vh, k10, k10b, k10pb, k11b
+            torch.cuda.empty_cache()
+    log(f"(l) K11 probabilities: max {worst['probs']:.2e} from the plain f32 "
+        f"ones over all shapes (<= {PROBS_ATOL})")
+    return rows
+
+
+def check_return_attention_forward(cfg, model, packed, spec, dev,
+                                   engine_ms: float) -> None:
+    """(l.2): a batch-32 paper forward of a ``return_attention`` config
+    through the per-site path (10 K10 + 1 K11 launches, no K2-K5) against
+    the engine's forward on the same weights, within (e)'s 8 / 64 ulps; the
+    attention map's shape and rows; its time beside the engine's."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.infer import engine
+    from nylon_amt_tpu_torch.models.hft import build_model
+
+    cfg_ra = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, return_attention=True))
+    model_ra = build_model(cfg_ra, dev)
+    model_ra.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = engine.forward(packed, spec, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = model_ra.per_site(spec)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launches.items() if v}
+    want = {"fused_mha": 10, "fused_mha_with_probs": 1}
+    if counts != want:
+        raise AssertionError(f"per-site forward launches {counts}, expected "
+                             f"{want}")
+    failed, line = [], []
+    for k, r in ref.items():
+        err, ulps = ulp_distance(out[k], r)
+        bound_ = ULPS_FORWARD[k[-1]]
+        if not ulps <= bound_:
+            failed.append(f"{k} {ulps:.1f} ulps > {bound_}")
+        line.append(f"{k} {ulps:.1f}")
+    attn = out["attention"]
+    rows = (attn.sum(-1) - 1.0).abs().max().item()
+    if (tuple(attn.shape) != (BATCH, cfg.input.num_frame, 4, 88, 256)
+            or not rows <= ROW_SUM_ATOL):
+        failed.append(f"attention {tuple(attn.shape)}, rows {rows:.2e}")
+    if failed:
+        raise AssertionError("per-site forward vs engine: "
+                             + "; ".join(failed))
+    del out, ref, attn
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model_ra.per_site(spec), iters=5)
+    audio_s = BATCH * cfg.input.num_frame * cfg.feature.hop_sample / SR
+    log(f"(l) batch-{BATCH} return_attention forward, per-site path: "
+        f"launches {counts}; vs the engine's forward (ulps of max |engine|, "
+        f"<= 8 / 64): " + ", ".join(line) + f"; attention map "
+        f"[{BATCH}, 128, 4, 88, 256], rows sum to 1 +- {rows:.2e}; "
+        f"{ms:.3f} ms ({audio_s / ms * 1e3:.1f} audio-s/s) against the "
+        f"engine's {engine_ms:.3f} ms")
+    profile_forward(lambda: model_ra.per_site(spec), iters=5, phase="l",
+                    what="forward", top=12)
+    del model_ra
+    torch.cuda.empty_cache()
+
+
+def per_site_through_cli(cfg, feat, audio, dev, card, cli_main
+                         ) -> tuple[dict, dict]:
+    """(l.3): ``cli train --epochs 1 --device cuda`` and ``cli transcribe``
+    with its checkpoint, for ``--remat`` (dropout 0.1), a
+    ``return_attention`` config at dropout 0 (K10's and K11's backward),
+    1FLT and 2FDT (dropout 0.1): the launch counts of each run, finite
+    losses, BatchNorm statistics that moved. Returns (the launch counts of
+    the remat and return_attention trainings, first train batch)."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    rep = dataclasses.replace
+    runs = {  # name: model overrides, extra CLI flags
+        "remat": ({}, ["--remat"]),
+        "return_attention": (dict(return_attention=True, dropout=0.0), []),
+        "1FLT": (dict(dec_alg="linear_satime"), []),
+        "2FDT": (dict(enc_alg="cnnblock_safreq"), [])}
+    n_frames = 1 + int(AUDIO_SEC * SR) // cfg.feature.hop_sample
+    n_batches = math.ceil(math.ceil(n_frames / cfg.input.num_frame) / BATCH)
+    train_k = ("encoder_layer_train", "decoder_layer_zero_train",
+               "decoder_layer_train")
+    main_counts = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        write_corpus(cfg, feat, tmp / "corpus")
+        ds = WindowDataset(SplitArrays.load(str(tmp / "corpus"), "train"),
+                           cfg, n_slice=cfg.train.n_slice)
+        steps = ds.steps_per_epoch
+        first = next(ds.batches(cfg.train.batch_size))
+        n_valid = 2                      # 16 valid windows, batch 8
+        save_wav(str(tmp / "piece.wav"), audio, SR)
+        for name, (over, extra) in runs.items():
+            c = rep(cfg, model=rep(cfg.model, **over))
+            c.save(str(tmp / f"{name}.json"))
+            m = rep(c.model, remat=bool(extra))
+            att, act = site_counts(m)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli_main(["train", "--config", str(tmp / f"{name}.json"),
+                           "--dataset", str(tmp / "corpus"), "--out",
+                           str(tmp / name), "--epochs", "1", "--n-slice",
+                           str(cfg.train.n_slice), "--device", "cuda",
+                           *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+            perf = json.loads((tmp / name / "performance.json").read_text())
+            losses = perf["loss_train"] + perf["loss_valid"]
+            if rc != 0 or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"(l) train {name}: rc {rc}, losses "
+                                     f"{losses}")
+            per_step = dict.fromkeys(MHA_SOURCES, 0)
+            if m.dropout > 0:
+                per_step.update(
+                    fused_mha_dropout=att * (2 if m.remat else 1),
+                    fused_mha_dropout_bwd=att,
+                    hash_keep_mask=act * (3 if m.remat else 2))
+            else:
+                per_step.update(fused_mha=att - 1, fused_mha_bwd=att - 1,
+                                fused_mha_with_probs=1,
+                                fused_mha_with_probs_bwd=1, hash_keep_mask=0)
+            want = {k: v * steps for k, v in per_step.items()}
+            if name != "remat":       # validation on the per-site path
+                want["fused_mha"] += n_valid * (
+                    att - (name == "return_attention"))
+                want["fused_mha_with_probs"] += n_valid * (
+                    name == "return_attention")
+            want.update({k: 0 for k in counts if k.startswith(train_k)})
+            got = {k: counts[k] for k in want}
+            if got != want or steps != 6:
+                raise AssertionError(f"(l) train {name}: launches {got}, "
+                                     f"expected {want} ({steps} steps)")
+            # the JSON line's launches: K12 from the remat training, K10
+            # and K11 from the return_attention one
+            main_counts.update({k: counts[k] for k in MHA_SOURCES
+                                if (name == "remat") == ("dropout" in k)
+                                and name in ("remat", "return_attention")})
+            ckpt = tmp / name / "checkpoints" / "model_000_000" / "model.dat"
+            moved = ""
+            if m.enc_alg == "cnnblock_safreq":
+                sd = torch.load(ckpt, weights_only=True)["model_dict"]
+                rv = sd["encoder_spec2midi.conv_1.1.running_var"]
+                if torch.equal(rv, torch.ones_like(rv)) or sd[
+                        "encoder_spec2midi.conv_1.1.num_batches_tracked"] \
+                        != steps:
+                    raise AssertionError("(l) 2FDT: BatchNorm statistics "
+                                         "did not move")
+                moved = (f"; BatchNorm running_var of conv_1.1 now "
+                         f"{rv.mean().item():.4f} (mean), {steps} batches")
+            kernels.reset_launches()
+            rc = cli_main(["transcribe", "--checkpoint", str(ckpt),
+                           "--config", str(tmp / f"{name}.json"), "--wav",
+                           str(tmp / "piece.wav"), "--out",
+                           str(tmp / f"{name}_out"), "--batch-windows",
+                           str(BATCH), "--device", "cuda"])
+            torch.cuda.synchronize()
+            t_counts = {k: v for k, v in kernels.launches.items() if v}
+            notes = json.loads((tmp / f"{name}_out" / "piece.notes.json")
+                               .read_text())
+            per_site = name != "remat"
+            if rc != 0 or (t_counts.get("fused_mha", 0) != n_batches * (
+                    att - (name == "return_attention")) if per_site else
+                    t_counts.get("encoder_layer_with_stem") != n_batches):
+                raise AssertionError(f"(l) transcribe {name}: rc {rc}, "
+                                     f"launches {t_counts}")
+            log(f"(l) cli train {name} (paper bf16, dropout {m.dropout}, "
+                f"{steps} steps of {cfg.train.batch_size}): {wall:.2f} s "
+                f"wall, loss train {perf['loss_train'][0]:.5f}, valid "
+                f"{perf['loss_valid'][0]:.5f}; launches per step "
+                f"{per_step}, K7-K9 0{moved}; transcribe with its "
+                f"checkpoint: {len(notes)} notes, launches {t_counts}")
+    return main_counts, first
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1267,12 +1737,27 @@ def main() -> int:
     train_counts, first_batch = train_through_cli(cfg, feat, audio, cli_main)
 
     # (j) the train step's time ------------------------------------------------
-    time_train_step(cfg, first_batch, dev, card)
+    fused_step_ms = time_train_step(cfg, first_batch, dev, card)
 
     # (k) K13, the int8 layers -------------------------------------------------
     q8_counts, q8_results = check_int8(cfg, model, packed, spec, audio, dev,
                                        card, cli_main)
     results.update(q8_results)
+
+    # (l) K10 / K11 / K12, the per-site attention ---------------------------
+    results.update(check_attention_kernels(dev))
+    check_return_attention_forward(cfg, model, packed, spec, dev, fwd_ms)
+    mha_counts, _ = per_site_through_cli(cfg, feat, audio, dev, card,
+                                         cli_main)
+    rep = dataclasses.replace
+    for name, over in (("--remat", dict(remat=True)),
+                       ("1FLT", dict(dec_alg="linear_satime")),
+                       ("2FDT", dict(enc_alg="cnnblock_safreq"))):
+        ms = time_train_step(rep(cfg, model=rep(cfg.model, **over)),
+                             first_batch, dev, card, phase="l",
+                             what=f"{name} per-site ")
+        log(f"(l) {name} per-site train step {ms:.3f} ms against (j)'s fused "
+            f"step {fused_step_ms:.3f} ms ({ms / fused_step_ms:.2f}x)")
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))
@@ -1301,8 +1786,10 @@ def main() -> int:
         "decoder_layer_train": ("layer_fused.cu", f"{train}:759"),
         "decoder_layer_train_bwd": ("layer_fused_train.cu", f"{train}:789"),
         **{name: ("layer_fused_q8.cu", tpu) for name, tpu in
-           Q8_SOURCES.items()}}
+           Q8_SOURCES.items()},
+        **{name: ("mha.cu", tpu) for name, tpu in MHA_SOURCES.items()}}
     counts.update({k: q8_counts[k] for k in Q8_SOURCES})
+    counts.update(mha_counts)
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

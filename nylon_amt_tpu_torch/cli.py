@@ -4,7 +4,9 @@
 ``train`` runs the (epoch, div) training recipe on split arrays written by
 the corpus step (``<split>_feature.npy``, ... as ``data/corpus.py`` saves
 them), through the training layer kernels on ``--device cuda`` or their
-plain versions on ``--device cpu``:
+plain versions on ``--device cpu`` (with ``--remat``, a
+``return_attention`` config or an ablation model, through the per-site
+attention kernels):
 
     python -m nylon_amt_tpu_torch.cli train --config config.json \
         --dataset corpus/ --out run/ --device cuda
@@ -52,16 +54,16 @@ import torch
 from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.midi.smf import write_notes
 from nylon_amt_tpu_torch.infer.transcribe import Transcriber
-from nylon_amt_tpu_torch.models.hft import HFT
+from nylon_amt_tpu_torch.models.hft import build_model
 
 
-def load_model(path: str, config: Config, device: torch.device | str) -> HFT:
-    """Reference ``.dat`` / bare ``state_dict`` -> :class:`HFT` on
-    ``device`` (strict key match)."""
+def load_model(path: str, config: Config, device: torch.device | str):
+    """Reference ``.dat`` / bare ``state_dict`` -> the config's model
+    (:func:`build_model`) on ``device`` (strict key match)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj["model_dict"] if isinstance(obj, dict) and "model_dict" in obj \
         else obj
-    model = HFT(config, device)
+    model = build_model(config, device)
     model.load_state_dict(sd, strict=True)
     return model.eval()
 
@@ -78,6 +80,9 @@ def cmd_train(args) -> int:
     if overrides:
         config = dataclasses.replace(
             config, train=dataclasses.replace(config.train, **overrides))
+    if args.remat:
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, remat=True))
     t = config.train
 
     def provider(split: str, div: int) -> WindowDataset:
@@ -237,6 +242,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--seed", type=int)
     t.add_argument("--keep-checkpoints", type=int,
                    help="retain only the best + newest K checkpoints")
+    t.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder/decoder activations in the "
+                   "backward pass (gradient checkpointing); trains through "
+                   "the per-site attention kernels")
     resume_group = t.add_mutually_exclusive_group()
     resume_group.add_argument("--resume", nargs=2, type=int,
                               metavar=("EPOCH", "DIV"))

@@ -58,11 +58,13 @@ __device__ __forceinline__ float keep_value(const DropSite& s, uint32_t row,
   return x >= s.thresh ? s.scale : 0.f;
 }
 
-// The key of the per-head probability mask of attention head h: tag
-// (tag_base + 8) * 64 + h (ops/layer_fused_train.py::_head_tag).
-__device__ __forceinline__ uint32_t head_key(uint32_t seed_mix, int tag_base,
-                                             int h) {
-  return seed_mix ^ ((uint32_t)((tag_base + 8) * 64 + h) * 0x85EBCA6Bu);
+// The key of tag `tag` under a seed whose mix (seed * 0x9E3779B9) is
+// seed_mix. The attention kernels give head h the tag head_tag0 + h: head_tag0
+// is (tag_base + 8) * 64 in the training layers K7-K9
+// (ops/layer_fused_train.py::_head_tag) and 0 in fused_mha_dropout (K12),
+// whose TPU kernel hashes head h with the raw tag h.
+__device__ __forceinline__ uint32_t tag_key(uint32_t seed_mix, int tag) {
+  return seed_mix ^ ((uint32_t)tag * 0x85EBCA6Bu);
 }
 
 }  // namespace nylon

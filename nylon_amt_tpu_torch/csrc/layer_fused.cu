@@ -15,9 +15,9 @@
 //
 //  * gemm_bias_kernel: out = bf16(A @ W) + bias [, ReLU], a tiled bf16 WMMA
 //    GEMM with an f32 accumulator (QKV, cross Q and K/V, FFN up);
-//  * attention_kernel: one block per (sequence, head, 128-query tile). K and V
-//    of the whole sequence (L <= 256, D = 64) sit in shared memory, so the
-//    softmax is exact (row max first), with no online-softmax rescaling;
+//  * the attention kernel of mha.cu (nylon_attention): one block per
+//    (sequence, head, 128-query tile), K and V of the whole sequence (L <=
+//    256, D = 64) in shared memory, an exact softmax;
 //  * gemm_res_ln_kernel: out = LN(res + (bf16(A @ W) + bias)), a GEMM whose
 //    block owns full 256-wide rows so the shared post-LayerNorm runs in its
 //    epilogue (O projection, FFN down).
@@ -36,9 +36,10 @@
 // multiplies the GEMM output after the bias [and ReLU], before the residual
 // and LayerNorm (sites ATTN_OUT, SA_OUT, FFN_MID, FFN_OUT), and the
 // attention probabilities after l is summed from the unmasked p (per-head
-// sites ATTN, SA). kTrain lets gemm_res_ln also write the pre-LN sum that
-// the backward kernels (layer_fused_train.cu) need. The inference
-// instantiations (kDrop = kTrain = false) are the code of the first slice.
+// sites ATTN, SA: nylon_attention_drop of mha.cu). kTrain lets gemm_res_ln
+// also write the pre-LN sum that the backward kernels (layer_fused_train.cu)
+// need. The inference instantiations (kDrop = kTrain = false) are the code
+// of the first slice.
 
 #include <mma.h>
 
@@ -318,181 +319,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// -------------------------------------------------------------- attention ----
-
-constexpr int kAttnRows = 128;  // queries per block: 16 per warp
-constexpr int kMaxLk = 256;
-constexpr int kSLd = 16 + 4;    // f32 row of a staged 16 x 16 score tile
-constexpr int kPLd = 16 + 8;    // bf16 row of a 16 x 16 probability tile
-
-// Per-warp shared-memory region, reused phase by phase: the warp's Q tile
-// [16][D+8] bf16; then one score tile [16][kSLd] f32 followed by one
-// probability tile [16][kPLd] bf16; then the output [16][D+4] f32.
-template <int D>
-__host__ __device__ constexpr int attn_region_floats() {
-  constexpr int q = 16 * (D + 8) / 2;
-  constexpr int sp = 16 * kSLd + 16 * kPLd / 2;
-  constexpr int o = 16 * (D + 4);
-  return q > sp ? (q > o ? q : o) : (sp > o ? sp : o);
-}
-
-template <int D>
-__host__ __device__ constexpr size_t attn_smem_bytes(int lk_pad) {
-  return (size_t)2 * lk_pad * (D + 8) * sizeof(bf16) +
-         (size_t)(kThreads / 32) * attn_region_floats<D>() * sizeof(float);
-}
-
-// o[seq, q, h*D:(h+1)*D] = softmax(q_h k_h^T * scale) v_h for one
-// (sequence, head, query tile). q/k/v are strided views (row and sequence
-// strides in elements) so packed QKV and K/V projections are read in place.
-//
-// K and V of the whole sequence sit in shared memory; each warp owns 16
-// query rows and walks the keys in 16-key tiles twice: first for the exact
-// row max of the scaled scores, then recomputing each score tile (the same
-// MMAs, so the same values) to take p = exp2(s - max), sum l from the
-// unrounded f32 p, and accumulate bf16(p) V. Staging one score tile instead
-// of a whole [16, Lk] row block keeps a block at ~106 KB, so two blocks
-// share an SM.
-//
-// kDrop: the probabilities that multiply V are p times the keep mask of
-// head h (key head_key(seed_mix, tag_base, h), row seq * lq + query, column
-// key); l stays the sum of the unmasked p, as in the TPU kernel.
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int lq,
-                     int lk, long long q_row, long long q_seq,
-                     long long kv_row, long long kv_seq, int o_row,
-                     float scale_log2e, uint32_t seed_mix, int tag_base,
-                     DropSite site) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kvLd = D + 8;
-  constexpr int oLd = D + 4;
-  constexpr int region = attn_region_floats<D>();
-  const int lk_pad = (lk + 15) & ~15;
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);
-  bf16* const Vs = Ks + lk_pad * kvLd;
-  float* const regions = reinterpret_cast<float*>(Vs + lk_pad * kvLd);
-
-  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kAttnRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // K and V of the whole sequence, zero rows past lk.
-  const bf16* kb = k + seq * kv_seq + h * D;
-  const bf16* vb = v + seq * kv_seq + h * D;
-  for (int c = threadIdx.x; c < lk_pad * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    uint4 kv = zero, vv = zero;
-    if (r < lk) {
-      kv = *reinterpret_cast<const uint4*>(kb + r * kv_row + c8);
-      vv = *reinterpret_cast<const uint4*>(vb + r * kv_row + c8);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * kvLd + c8) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * kvLd + c8) = vv;
-  }
-  // Each warp's 16 query rows go to the head of its own region.
-  const bf16* qb = q + seq * q_seq + h * D;
-  for (int c = threadIdx.x; c < kAttnRows * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    const int gq = q0 + r;
-    uint4 qv = zero;
-    if (gq < lq) qv = *reinterpret_cast<const uint4*>(qb + gq * q_row + c8);
-    bf16* qw = reinterpret_cast<bf16*>(regions + (r / 16) * region);
-    *reinterpret_cast<uint4*>(qw + (r % 16) * kvLd + c8) = qv;
-  }
-  __syncthreads();
-  // From here on every warp works alone: no block-wide barrier follows.
-  if (q0 + warp * 16 >= lq) return;
-
-  float* const Sw = regions + warp * region;                 // score tile
-  bf16* const Pw = reinterpret_cast<bf16*>(Sw + 16 * kSLd);   // prob. tile
-  float* const Ow = Sw;                                      // output
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], reinterpret_cast<const bf16*>(Sw) + kk * 16,
-                           kvLd);
-  __syncwarp();
-
-  // Stage the f32 score tile S[:, j0 : j0 + 16] = Q K^T in Sw.
-  auto score_tile = [&](int j0) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-    wmma::fill_fragment(sacc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + j0 * kvLd + kk * 16, kvLd);
-      wmma::mma_sync(sacc, qf[kk], kf, sacc);
-    }
-    wmma::store_matrix_sync(Sw, sacc, kSLd, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // Lanes 2r and 2r+1 own row r of a tile, 8 columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const float neg_inf = __int_as_float(0xff800000u);
-
-  // Pass 1: the exact row max of the scaled scores.
-  float m = neg_inf;
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    score_tile(j0);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (j0 + c0 + e < lk) m = fmaxf(m, Sw[r * kSLd + c0 + e] * scale_log2e);
-    __syncwarp();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // Pass 2: p = exp2(s - m) (0 past lk), l += p in f32, O += bf16(p) V
-  // (with kDrop, bf16(p * keep) V).
-  DropSite hsite = site;
-  if constexpr (kDrop) hsite.key = nylon::head_key(seed_mix, tag_base, h);
-  const uint32_t mask_row = (uint32_t)seq * (uint32_t)lq +
-                            (uint32_t)(q0 + warp * 16 + r);
-  float l = 0.f;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(oacc[dj], 0.f);
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    score_tile(j0);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float p = 0.f;
-      if (j0 + c0 + e < lk) p = exp2f(Sw[r * kSLd + c0 + e] * scale_log2e - m);
-      l += p;
-      if constexpr (kDrop) p *= keep_value(hsite, mask_row, j0 + c0 + e, lk);
-      Pw[r * kPLd + c0 + e] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-    wmma::load_matrix_sync(pf, Pw, kPLd);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, Vs + j0 * kvLd + dj * 16, kvLd);
-      wmma::mma_sync(oacc[dj], pf, vf, oacc[dj]);
-    }
-    __syncwarp();
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj)
-    wmma::store_matrix_sync(Ow + dj * 16, oacc[dj], oLd, wmma::mem_row_major);
-  __syncwarp();
-
-  bf16* ob = o + ((long long)seq * lq) * o_row + h * D;
-  for (int rr = 0; rr < 16; ++rr) {
-    const float lr = __shfl_sync(0xffffffffu, l, 2 * rr);
-    const int gq = q0 + warp * 16 + rr;
-    if (gq >= lq) break;  // warp-uniform
-    for (int c = lane; c < D; c += 32)
-      ob[(long long)gq * o_row + c] = __float2bfloat16(Ow[rr * oLd + c] / lr);
-  }
-}
-
 template <bool kDrop>
 int launch_gemm_res_ln_train(const void* a, const void* w, const void* bias,
                              const void* res, const void* gamma,
@@ -580,53 +406,6 @@ int nylon_gemm_res_ln_train(const void* a, const void* w, const void* bias,
                 : launch_gemm_res_ln_train<false>(
                       a, w, bias, res, gamma, beta, out, pre_out, M, N, K,
                       eps, site, (cudaStream_t)stream);
-}
-
-int nylon_attention(const void* q, const void* k, const void* v, void* o,
-                    int n_seq, int lq, int lk, int n_heads, int head_dim,
-                    long long q_row, long long q_seq, long long kv_row,
-                    long long kv_seq, float scale_log2e, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxLk ||
-      n_heads <= 0 || n_heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<64, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_smem_bytes<64>(kMaxLk));
-  if (e != cudaSuccess) return (int)e;
-  const int lk_pad = (lk + 15) & ~15;
-  const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_kernel<64, false><<<grid, kThreads, attn_smem_bytes<64>(lk_pad),
-                                (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lq, lk, q_row,
-      q_seq, kv_row, kv_seq, n_heads * head_dim, scale_log2e, 0u, 0,
-      DropSite{});
-  return (int)cudaGetLastError();
-}
-
-// nylon_attention with dropout on the probabilities: head h takes the keep
-// mask of tag (tag_base + 8) * 64 + h; thresh/scale/half as for any site
-// whose rows are lk long.
-int nylon_attention_drop(const void* q, const void* k, const void* v, void* o,
-                         int n_seq, int lq, int lk, int n_heads, int head_dim,
-                         long long q_row, long long q_seq, long long kv_row,
-                         long long kv_seq, float scale_log2e,
-                         unsigned seed_mix, int tag_base, unsigned thresh,
-                         float scale, int half, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxLk ||
-      n_heads <= 0 || n_heads > 65535 || (half && 2 * half != lk))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<64, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_smem_bytes<64>(kMaxLk));
-  if (e != cudaSuccess) return (int)e;
-  const int lk_pad = (lk + 15) & ~15;
-  const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_kernel<64, true><<<grid, kThreads, attn_smem_bytes<64>(lk_pad),
-                               (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lq, lk, q_row,
-      q_seq, kv_row, kv_seq, n_heads * head_dim, scale_log2e, seed_mix,
-      tag_base, DropSite{0u, thresh, scale, half, 0u});
-  return (int)cudaGetLastError();
 }
 
 const char* nylon_error_string(int code) {

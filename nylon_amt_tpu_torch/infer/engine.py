@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from nylon_amt_tpu_torch.config import Config
-from nylon_amt_tpu_torch.models.hft import HFT, supports
+from nylon_amt_tpu_torch.models.hft import HFT, is_main
 from nylon_amt_tpu_torch.ops.layer_fused import (
     CrossLayerParams,
     EncoderLayerParams,
@@ -48,6 +48,13 @@ from nylon_amt_tpu_torch.ops.precision import full_f32
 __all__ = ["PackedHFT", "forward", "pack_params", "supports"]
 
 _KEYS = ("onset", "offset", "mpe", "velocity")
+
+
+def supports(config: Config) -> bool:
+    """The engine covers the main architecture without the attention map
+    (JAX's ``engine.supports``); the other configurations run the module's
+    per-site forward (:meth:`HFT.per_site`)."""
+    return is_main(config) and not config.model.return_attention
 
 
 class PackedHFT(NamedTuple):

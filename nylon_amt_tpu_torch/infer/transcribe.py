@@ -9,13 +9,17 @@ geometry and output shapes (``model/amt.py:66-176``):
 * stride mode: hop ``num_frame / 2``, keep the centred
   ``[n_offset, n_offset + num_frame / 2)`` slice of every window.
 
-Windows run through :func:`nylon_amt_tpu_torch.infer.engine.forward` in
-fixed-size batches (the last one padded by repeating its last window). On a
-CUDA device every layer launches the port's kernels; on the CPU the same
-engine runs the plain versions. ``precision="int8"`` runs the W8A8 layers
-(K13) instead of the bf16 ones. Onset/offset/mpe posteriors are sigmoids of
-the logits and velocity is the argmax over the 128 classes (int8); each
-batch's posteriors come back to the host in one copy.
+Windows run in fixed-size batches (the last one padded by repeating its
+last window) through :func:`nylon_amt_tpu_torch.infer.engine.forward` where
+``engine.supports(config)`` holds, and through the model's deterministic
+per-site forward (:meth:`HFT.per_site`: the ``return_attention`` and
+ablation configurations) elsewhere, as the JAX transcriber routes them. On
+a CUDA device every layer launches the port's kernels; on the CPU the same
+code runs the plain versions. ``precision="int8"`` runs the W8A8 layers
+(K13) instead of the bf16 ones, and needs the engine. Onset/offset/mpe
+posteriors are sigmoids of the logits and velocity is the argmax over the
+128 classes (int8); each batch's posteriors come back to the host in one
+copy.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.midi.smf import write_notes
 from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.infer.decode import mpe2note
-from nylon_amt_tpu_torch.models.hft import HFT, supports
+from nylon_amt_tpu_torch.models.hft import ported
 from nylon_amt_tpu_torch.ops.mel import MelFrontend
 from nylon_amt_tpu_torch.utils.wavio import load_mono
 
@@ -38,17 +42,19 @@ _POST_KEYS = ("onset", "offset", "mpe", "velocity")
 
 class Transcriber:
     """Feature extraction + windowed transcription on ``device`` (mirrors
-    the reference ``AMT`` class, ``amt.py:9-31``). ``model`` is an
-    :class:`HFT` whose weights already live on ``device``. Only
-    ``precision="int8"`` changes the path: the engine's layers then run
-    W8A8 (weights quantized once, here)."""
+    the reference ``AMT`` class, ``amt.py:9-31``). ``model`` (of
+    :func:`~nylon_amt_tpu_torch.models.hft.build_model`) has its weights on
+    ``device``. ``precision="int8"`` runs the engine's layers W8A8
+    (weights quantized once, here)."""
 
-    def __init__(self, config: Config, model: HFT,
-                 device: torch.device | str, batch_windows: int = 8,
-                 precision: str | None = None):
-        if not supports(config):
+    def __init__(self, config: Config, model, device: torch.device | str,
+                 batch_windows: int = 8, precision: str | None = None):
+        if not ported(config):
             raise ValueError("nylon_amt_tpu_torch does not port this "
                              f"architecture: {config.model}")
+        if precision == "int8" and not engine.supports(config):
+            raise ValueError("precision='int8' requires the fused-layer "
+                             "engine (engine.supports(config) must hold)")
         self.config = config
         self.device = torch.device(device)
         if self.device.type != "cpu" and model.dtype != torch.bfloat16:
@@ -58,10 +64,11 @@ class Transcriber:
         self.model = model
         self.batch_windows = batch_windows
         # Stage-1-only models ("cafreq" decoder) emit only A heads.
-        self.families = (("A", "B") if config.model.dec_alg == "cafreq_satime"
-                         else ("A",))
+        self.families = (("A",) if config.model.dec_alg == "cafreq"
+                         else ("A", "B"))
         self.frontend = MelFrontend(config.feature, self.device)
-        self.packed = engine.pack_params(model, model.dtype, precision)
+        self.packed = (engine.pack_params(model, model.dtype, precision)
+                       if engine.supports(config) else None)
 
     # -- features ------------------------------------------------------------
 
@@ -76,7 +83,11 @@ class Transcriber:
         """windows ``[N, n_bins, window_frames]`` -> posteriors stacked as
         one float32 tensor ``[n_keys, N, num_frame, num_note]`` (velocity
         classes as exact small integers), in :meth:`_post_keys` order."""
-        out = engine.forward(self.packed, windows, self.config)
+        if self.packed is None:
+            with torch.no_grad():
+                out = self.model.per_site(windows)
+        else:
+            out = engine.forward(self.packed, windows, self.config)
         posts = []
         for fam in self.families:
             for key in _POST_KEYS[:3]:

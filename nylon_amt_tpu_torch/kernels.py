@@ -36,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K3 encoder_layer, K4 decoder_layer_zero, K5 decoder_layer; K6
 # hash_keep_mask (its standalone kernel: the embedding-dropout site, or a
 # written mask), and the forward and backward of K7 encoder_layer_train, K8
-# decoder_layer_zero_train and K9 decoder_layer_train; K13, the int8 (W8A8)
-# twins of K2-K5.
+# decoder_layer_zero_train and K9 decoder_layer_train; K10 fused_mha, K11
+# fused_mha_with_probs and K12 fused_mha_dropout, forward and backward (the
+# per-site attention); K13, the int8 (W8A8) twins of K2-K5.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -47,6 +48,11 @@ launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "decoder_layer_zero_train_bwd": 0,
                             "decoder_layer_train": 0,
                             "decoder_layer_train_bwd": 0,
+                            "fused_mha": 0, "fused_mha_bwd": 0,
+                            "fused_mha_with_probs": 0,
+                            "fused_mha_with_probs_bwd": 0,
+                            "fused_mha_dropout": 0,
+                            "fused_mha_dropout_bwd": 0,
                             "encoder_layer_with_stem_q8": 0,
                             "encoder_layer_q8": 0,
                             "decoder_layer_zero_q8": 0,
@@ -70,6 +76,9 @@ _SIGNATURES = {
     # kv_seq, scale_log2e, stream
     "nylon_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                         _F, _P],
+    # q, k, v, o, probs, n_seq, lq, lk, n_heads, head_dim, q_row, q_seq,
+    # kv_row, kv_seq, scale_log2e, stream
+    "nylon_attention_probs": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _P],
     # x, out, rows, d2, key, thresh, scale, half, base, dtype_bf16, stream
     "nylon_hash_mask": [_P, _P, _L, _I, _U, _U, _F, _I, _U, _I, _P],
     # a, w, bias, out, M, N, K, relu, site, stream
@@ -78,7 +87,7 @@ _SIGNATURES = {
     # site, stream
     "nylon_gemm_res_ln_train": [_P] * 8 + [_I, _I, _I, _F, _I, *_SITE, _P],
     # q, k, v, o, n_seq, lq, lk, n_heads, head_dim, q_row, q_seq, kv_row,
-    # kv_seq, scale_log2e, seed_mix, tag_base, thresh, scale, half, stream
+    # kv_seq, scale_log2e, seed_mix, head_tag0, thresh, scale, half, stream
     "nylon_attention_drop": [_P] * 4 + [_I] * 5 + [_L] * 4
     + [_F, _U, _I, _U, _F, _I, _P],
     # dy, s, gamma, da, dam, dg_part, db_part, M, N, rows_per_block,
@@ -92,7 +101,7 @@ _SIGNATURES = {
     "nylon_reduce_rows": [_P, _P, _I, _L, _P],
     # q, k, v, dout, dq, dk, dv, stats, n_seq, lq, lk, n_heads, head_dim,
     # q_row, kv_row, do_row, dq_row, dkv_row, scale, scale_log2e, active,
-    # seed_mix, tag_base, thresh, pscale, half, stream
+    # seed_mix, head_tag0, thresh, pscale, half, stream
     "nylon_attention_bwd": [_P] * 8 + [_I] * 5 + [_L] * 5
     + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
     # x, ld_x, M, K, n_seg, q, s, stream

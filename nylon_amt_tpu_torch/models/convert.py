@@ -1,10 +1,13 @@
 """Carry weights from the JAX package's flax parameters to the port.
 
 ``params_from_jax`` walks :func:`nylon_amt_tpu_torch.train.importer.build_rules`
-(the reference ``state_dict`` key table) with the same transforms as the
-importer: Linear kernels are transposed to torch's ``[out, in]``, the stem
-conv ``[C, k]`` becomes ``[C, 1, 1, k]``. With it, the tests run the JAX
-package and the port on identical weights.
+(the reference ``state_dict`` key table) with the importer's transforms
+(``nylon_amt_tpu/train/importer.py:162-176``): Linear kernels are
+transposed to torch's ``[out, in]``, the stem conv ``[C, k]`` becomes ``[C,
+1, 1, k]``, a conv block's HWIO kernel becomes OIHW, the BatchNorm running
+statistics come from the ``batch_stats`` collection, and
+``num_batches_tracked`` (which flax does not keep) starts at 0. With it,
+the tests run the JAX package and the port on identical weights.
 """
 
 from __future__ import annotations
@@ -26,30 +29,40 @@ def _leaves(tree: Mapping[str, Any], prefix: tuple = ()):
             yield prefix + (k,)
 
 
-def params_from_jax(params: Mapping[str, Any], config: Config
+def params_from_jax(params: Mapping[str, Any], config: Config,
+                    batch_stats: Mapping[str, Any] | None = None
                     ) -> dict[str, torch.Tensor]:
-    """Nested flax params (numpy or array-likes) -> reference-named float32
-    ``state_dict``. Raises ``KeyError`` for a leaf the rules do not cover
-    (an architecture the port does not carry, such as the tab head)."""
+    """Nested flax params (numpy or array-likes), and the ``batch_stats``
+    of a BatchNorm model, -> reference-named float32 ``state_dict``. Raises
+    ``KeyError`` for a leaf the rules do not cover (an architecture the
+    port does not carry, such as the tab head)."""
     m = config.model
     rules = build_rules(m.enc_layer, m.dec_layer, m.enc_alg, m.dec_alg)
+    trees = {"params": params, "batch_stats": batch_stats or {}}
     sd: dict[str, torch.Tensor] = {}
-    used = set()
+    used = {name: set() for name in trees}
     for key, (path, tf) in rules.items():
-        node = params
+        if tf == "skip":
+            sd[key] = torch.tensor(0, dtype=torch.int64)
+            continue
+        tree = "batch_stats" if tf == "batch_stat" else "params"
+        node = trees[tree]
         for p in path:
             node = node[p]
-        used.add(path)
+        used[tree].add(path)
         arr = np.asarray(node, dtype=np.float32)
         if tf == "T":
             arr = arr.T
         elif tf == "conv":
             arr = arr.reshape(arr.shape[0], 1, 1, arr.shape[1])
-        elif tf != "=":
+        elif tf == "conv2d":
+            arr = arr.transpose(3, 2, 0, 1)       # flax HWIO -> torch OIHW
+        elif tf not in ("=", "batch_stat"):
             raise KeyError(f"{key}: transform {tf!r} is not ported")
         sd[key] = torch.from_numpy(np.array(arr, order="C", copy=True))
-    uncovered = set(_leaves(params)) - used
-    if uncovered:
-        raise KeyError(f"params leaves the reference rules do not cover: "
-                       f"{sorted('/'.join(p) for p in uncovered)[:5]}")
+    for name, tree in trees.items():
+        uncovered = set(_leaves(tree)) - used[name]
+        if uncovered:
+            raise KeyError(f"{name} leaves the reference rules do not cover: "
+                           f"{sorted('/'.join(p) for p in uncovered)[:5]}")
     return sd

@@ -30,7 +30,6 @@ import torch
 from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.models.hft import DTYPES, HFT
-from nylon_amt_tpu_torch.models.hft import supports as _hft_supports
 from nylon_amt_tpu_torch.ops.layer_fused import (
     EncoderLayerParams,
     fused_stem,
@@ -48,9 +47,11 @@ _KEYS = ("onset", "offset", "mpe", "velocity")
 
 
 def supports(config: Config) -> bool:
-    """The main architecture (as :func:`models.hft.supports`), without
-    rematerialisation."""
-    return _hft_supports(config) and not config.model.remat
+    """The main architecture without the attention map (as
+    :func:`engine.supports`) and without rematerialisation (JAX's
+    ``fused_train.supports``); the trainer runs the module's per-site
+    forward otherwise."""
+    return engine.supports(config) and not config.model.remat
 
 
 def seed_slots(config: Config) -> list[int]:

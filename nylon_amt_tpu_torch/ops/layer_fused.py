@@ -16,8 +16,9 @@ Port of :mod:`nylon_amt_tpu.ops.layer_fused`, with the same signatures on
 
 One LayerNorm (g, b) is shared by every residual of a layer, as in the
 reference. A CPU tensor takes the plain version; any other device launches
-the hand-written kernels of ``csrc/layer_fused.cu`` (a bf16 GEMM, an
-attention kernel and a GEMM with a residual + LayerNorm epilogue, in turn)
+the hand-written kernels of ``csrc/layer_fused.cu`` (a bf16 GEMM, the
+attention kernel of ``csrc/mha.cu`` and a GEMM with a residual + LayerNorm
+epilogue, in turn)
 or raises. The plain versions mirror ``layer_fused.py``'s ``_matmul``,
 ``_layer_norm``, ``_mha_block``, ``_self_block``, ``_cross_tail`` and, for
 the stem, ``models/hft.py::fused_stem``.
@@ -37,7 +38,7 @@ from nylon_amt_tpu_torch.ops.precision import full_f32
 _LN_EPS = 1e-5  # torch nn.LayerNorm default, the reference's eps
 _LOG2E = 1.4426950408889634
 
-# What the CUDA kernels take (csrc/layer_fused.cu).
+# What the CUDA kernels take (csrc/layer_fused.cu, csrc/mha.cu).
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_HID = 256   # the LayerNorm epilogue owns a full row
 KERNEL_MAX_KEYS = 256  # K and V of a sequence sit in shared memory

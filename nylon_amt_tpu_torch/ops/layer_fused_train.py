@@ -24,7 +24,8 @@ bodies (``_enc_train_fwd_body``, ``_enc_train_bwd_kernel``,
 ``_self_prologue_fwd``, ``_dec_train_bwd_kernel``) transcribed op for op,
 with the same bf16 cast points and f32 weight gradients. On a CUDA device
 they launch the hand-written kernels of ``csrc/layer_fused.cu`` (forward,
-with a dropout site) and ``csrc/layer_fused_train.cu`` (backward), or raise.
+with a dropout site), ``csrc/layer_fused_train.cu`` (backward) and
+``csrc/mha.cu`` (the attention step of both), or raise.
 
 Weights arrive in float32 (so their gradients are float32) and are cast to
 the compute dtype (the activations' dtype): the plain versions on use, as
@@ -42,8 +43,11 @@ import torch
 from nylon_amt_tpu_torch import kernels
 from nylon_amt_tpu_torch.ops import layer_fused as lf
 from nylon_amt_tpu_torch.ops.attention import (
+    _mm,
     apply_keep_mask,
     hash_keep_mask_plain,
+    mha_bwd_plain,
+    mha_plain,
     seed_mix,
     site_constants,
     site_key,
@@ -136,11 +140,6 @@ def _ln_bwd(dy, xhat, inv, g):
     return (dxhat - m1 - xhat * m2) * inv, dgamma, dbeta
 
 
-def _mm(a, b):
-    """f32 product of (possibly bf16) operands: exact products, f32 sums."""
-    return torch.matmul(a.float(), b.float())
-
-
 def _flat(t):
     return t.reshape(-1, t.shape[-1])
 
@@ -150,65 +149,41 @@ def _wgrad(a, dy):
     return _mm(_flat(a).t(), _flat(dy)), dy.float().sum((0, 1))
 
 
-def _heads_fwd_cross(q, kv, n_heads, scale, active, dt, drop,
+def _head_masks(active, drop, tag_base):
+    """Head h's keep mask of a layer's probability site (None at rate 0)."""
+    if not active:
+        return None
+    return lambda h, shape: drop(_head_tag(tag_base, h), shape)
+
+
+def _heads_fwd_cross(q, kv, n_heads, scale, active, drop,
                      tag_base=_SITE_ATTN):
     """Per-head attention, dropout on the normalised weights (``l`` from the
     unmasked ``p``). ``q [n, Lq, hid]``, ``kv [n, Lk, 2 hid]``."""
     hid = q.shape[-1]
-    d = hid // n_heads
-    k, v = kv[..., :hid], kv[..., hid:]
-    outs = []
-    for h in range(n_heads):
-        sl = slice(h * d, (h + 1) * d)
-        s = _mm(q[..., sl], k[..., sl].transpose(-1, -2)) * (scale * _LOG2E)
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
-        l = p.sum(-1, keepdim=True)
-        pd = p * drop(_head_tag(tag_base, h), tuple(p.shape)) if active else p
-        o = _mm(pd.to(dt), v[..., sl])
-        outs.append((o / l).to(dt))
-    return torch.cat(outs, dim=-1)
+    return mha_plain(q, kv[..., :hid], kv[..., hid:], n_heads, scale,
+                     _head_masks(active, drop, tag_base))
 
 
-def _heads_fwd(qkv, n_heads, scale, active, dt, drop, tag_base=_SITE_ATTN):
+def _heads_fwd(qkv, n_heads, scale, active, drop, tag_base=_SITE_ATTN):
     hid = qkv.shape[-1] // 3
     return _heads_fwd_cross(qkv[..., :hid], qkv[..., hid:], n_heads, scale,
-                            active, dt, drop, tag_base)
+                            active, drop, tag_base)
 
 
-def _heads_bwd_cross(q, kv, do, n_heads, scale, active, dt, drop,
+def _heads_bwd_cross(q, kv, do, n_heads, scale, active, drop,
                      tag_base=_SITE_ATTN):
     """Attention backward with regenerated masks; returns ``(dq, dkv)``."""
     hid = q.shape[-1]
-    d = hid // n_heads
-    k, v = kv[..., :hid], kv[..., hid:]
-    dqs, dks, dvs = [], [], []
-    for h in range(n_heads):
-        sl = slice(h * d, (h + 1) * d)
-        qh, kh, vh, doh = q[..., sl], k[..., sl], v[..., sl], do[..., sl]
-        s = _mm(qh, kh.transpose(-1, -2)) * (scale * _LOG2E)
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
-        l = p.sum(-1, keepdim=True)
-        a = p / l
-        mk = drop(_head_tag(tag_base, h), tuple(a.shape)) if active else None
-        ad = a * mk if active else a
-        dv = _mm(ad.to(dt).transpose(-1, -2), doh)
-        da = _mm(doh, vh.transpose(-1, -2))
-        if active:
-            da = da * mk
-        row = (da * a).sum(-1, keepdim=True)
-        ds = (a * (da - row)).to(dt)
-        dq = _mm(ds, kh) * scale
-        dk = _mm(ds.transpose(-1, -2), qh) * scale
-        dqs.append(dq.to(dt))
-        dks.append(dk.to(dt))
-        dvs.append(dv.to(dt))
-    return torch.cat(dqs, dim=-1), torch.cat(dks + dvs, dim=-1)
+    dq, dk, dv = mha_bwd_plain(q, kv[..., :hid], kv[..., hid:], do, n_heads,
+                               scale, _head_masks(active, drop, tag_base))
+    return dq, torch.cat([dk, dv], dim=-1)
 
 
-def _heads_bwd(qkv, do, n_heads, scale, active, dt, drop, tag_base=_SITE_ATTN):
+def _heads_bwd(qkv, do, n_heads, scale, active, drop, tag_base=_SITE_ATTN):
     hid = qkv.shape[-1] // 3
     dq, dkv = _heads_bwd_cross(qkv[..., :hid], qkv[..., hid:], do, n_heads,
-                               scale, active, dt, drop, tag_base)
+                               scale, active, drop, tag_base)
     return torch.cat([dq, dkv], dim=-1)
 
 
@@ -221,7 +196,7 @@ def _enc_fwd_body(x, p, seed, n_heads, rate, emb_drop):
     if active and emb_drop:
         x = x * drop(_SITE_EMB, tuple(x.shape), dt)
     qkv = _matmul(x, c(p.wqkv), c(p.bqkv))
-    heads = _heads_fwd(qkv, n_heads, scale, active, dt, drop)
+    heads = _heads_fwd(qkv, n_heads, scale, active, drop)
     attn = _matmul(heads, c(p.wo), c(p.bo))
     if active:
         attn = attn * drop(_SITE_ATTN_OUT, tuple(attn.shape), dt)
@@ -258,7 +233,7 @@ def _enc_bwd_body(x, p, seed, dz, n_heads, rate, emb_drop, taps=None):
 
     # ---- recompute forward (masks identical by construction) ----
     qkv = _matmul(x, c(p.wqkv), c(p.bqkv))
-    heads = _heads_fwd(qkv, n_heads, scale, active, dt, drop)
+    heads = _heads_fwd(qkv, n_heads, scale, active, drop)
     attn_pre = _matmul(heads, c(p.wo), c(p.bo))
     if active:
         m2 = drop(_SITE_ATTN_OUT, tuple(attn_pre.shape), dt)
@@ -299,7 +274,7 @@ def _enc_bwd_body(x, p, seed, dz, n_heads, rate, emb_drop, taps=None):
     dattn = da1 * m2 if active else da1
     dwo, dbo = _wgrad(heads, dattn)
     dheads = _mm(dattn, c(p.wo).t()).to(dt)
-    dqkv = _heads_bwd(qkv, dheads, n_heads, scale, active, dt, drop)
+    dqkv = _heads_bwd(qkv, dheads, n_heads, scale, active, drop)
     dwqkv, dbqkv = _wgrad(x, dqkv)
     dx = da1 + _mm(dqkv, c(p.wqkv).t()).to(dt)
     if active and emb_drop:
@@ -314,7 +289,7 @@ def _cross_tail_fwd_body(trg, enc, p, n_heads, scale, active, drop):
     c = lambda w: w.to(dt)
     q = _matmul(trg, c(p.wq), c(p.bq))
     kv = _matmul(enc, c(p.wkv), c(p.bkv))
-    heads = _heads_fwd_cross(q, kv, n_heads, scale, active, dt, drop)
+    heads = _heads_fwd_cross(q, kv, n_heads, scale, active, drop)
     attn = _matmul(heads, c(p.wo), c(p.bo))
     if active:
         attn = attn * drop(_SITE_ATTN_OUT, tuple(attn.shape), dt)
@@ -335,7 +310,7 @@ def _self_prologue(trg, p, n_heads, scale, active, drop):
     dt = trg.dtype
     c = lambda w: w.to(dt)
     qkv = _matmul(trg, c(p.wsqkv), c(p.bsqkv))
-    sheads = _heads_fwd(qkv, n_heads, scale, active, dt, drop,
+    sheads = _heads_fwd(qkv, n_heads, scale, active, drop,
                         tag_base=_SITE_SA)
     sa_pre = _matmul(sheads, c(p.wso), c(p.bso))
     msa = drop(_SITE_SA_OUT, tuple(sa_pre.shape), dt) if active else None
@@ -353,7 +328,7 @@ def _cross_tail_bwd_body(trg, enc, dz, p, n_heads, scale, active, drop,
     gf = p.g.float()
     q = _matmul(trg, c(p.wq), c(p.bq))
     kv = _matmul(enc, c(p.wkv), c(p.bkv))
-    heads = _heads_fwd_cross(q, kv, n_heads, scale, active, dt, drop)
+    heads = _heads_fwd_cross(q, kv, n_heads, scale, active, drop)
     attn_pre = _matmul(heads, c(p.wo), c(p.bo))
     if active:
         m2 = drop(_SITE_ATTN_OUT, tuple(attn_pre.shape), dt)
@@ -389,7 +364,7 @@ def _cross_tail_bwd_body(trg, enc, dz, p, n_heads, scale, active, drop,
     dattn = da1 * m2 if active else da1
     dwo, dbo = _wgrad(heads, dattn)
     dheads = _mm(dattn, c(p.wo).t()).to(dt)
-    dq, dkv = _heads_bwd_cross(q, kv, dheads, n_heads, scale, active, dt,
+    dq, dkv = _heads_bwd_cross(q, kv, dheads, n_heads, scale, active,
                                drop)
     dwq, dbq = _wgrad(trg, dq)
     dwkv, dbkv = _wgrad(enc, dkv)
@@ -472,7 +447,7 @@ def decoder_layer_train_bwd_plain(trg, enc, p: DecLayerParams, seed: int, dz,
         dsa = da0 * msa if active else da0
         dwso, dbso = _wgrad(sheads, dsa)
         dsheads = _mm(dsa, c(p.wso).t()).to(dt)
-        dqkv = _heads_bwd(qkv, dsheads, n_heads, scale, active, dt, drop,
+        dqkv = _heads_bwd(qkv, dsheads, n_heads, scale, active, drop,
                           tag_base=_SITE_SA)
         dwsqkv, dbsqkv = _wgrad(trg, dqkv)
         dtrg = da0 + _mm(dqkv, c(p.wsqkv).t()).to(dt)
@@ -546,7 +521,7 @@ def _attention(q, k, v, n, n_heads, seed, rate, tag_base):
                  v.data_ptr(), out.data_ptr(), n, lq, lk, n_heads,
                  hid // n_heads, q.stride(0), lq * q.stride(0), k.stride(0),
                  lk * k.stride(0), _scale(hid, n_heads) * _LOG2E,
-                 seed_mix(seed), tag_base, thresh, keep, half,
+                 seed_mix(seed), _head_tag(tag_base, 0), thresh, keep, half,
                  kernels.stream_of(q))
     return out
 
@@ -576,8 +551,8 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
                  dv.data_ptr(), stats.data_ptr(), n, lq, lk, n_heads,
                  hid // n_heads, q.stride(0), k.stride(0), do.stride(0),
                  dq.stride(0), dk.stride(0), scale, scale * _LOG2E,
-                 int(active), seed_mix(seed), tag_base, thresh, keep, half,
-                 kernels.stream_of(q))
+                 int(active), seed_mix(seed), _head_tag(tag_base, 0), thresh,
+                 keep, half, kernels.stream_of(q))
 
 
 class _LnGrads:

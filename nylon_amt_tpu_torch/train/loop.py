@@ -7,11 +7,14 @@ shard -> validate -> checkpoint + best tracking -> append
 Host batches come from :class:`~nylon_amt_tpu_torch.data.windows.
 WindowDataset` (pad-to-batch with a ``valid`` mask, shuffled by a numpy
 generator seeded with ``train.seed``) and go to the device one by one; the
-per-step losses stay on the device and are fetched once per epoch. Each
-step's dropout seeds are drawn from a ``torch.Generator`` seeded with
-``train.seed`` (:func:`~nylon_amt_tpu_torch.models.fused_train.
-draw_seeds`); both generators' states travel in the checkpoints, so a
-resumed run continues the same streams.
+per-step losses stay on the device and are fetched once per epoch. The
+training forward is the fused layer kernels' or the module's per-site one
+(:func:`~nylon_amt_tpu_torch.train.step.make_apply`); each step's dropout
+seeds are drawn for it from a ``torch.Generator`` seeded with
+``train.seed``; both generators' states travel in the checkpoints, so a
+resumed run continues the same streams. BatchNorm running statistics (the
+``cnnblock_safreq`` encoder) are buffers of the model and travel in its
+``.dat``.
 
 Not ported: the preemption guard (SIGTERM/SIGUSR1 checkpoint), the
 prefetch thread, the device-resident epoch scan, meshes and multi-host
@@ -32,7 +35,7 @@ import torch
 
 from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.data.windows import WindowDataset
-from nylon_amt_tpu_torch.models import fused_train
+from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.train.checkpoint import (CheckpointManager,
                                                   rng_state_to_json)
 from nylon_amt_tpu_torch.train.plateau import ReduceLROnPlateau
@@ -40,6 +43,7 @@ from nylon_amt_tpu_torch.train.step import (
     TrainState,
     create_train_state,
     eval_step,
+    make_apply,
     pack_for_eval,
     set_learning_rate,
     to_device,
@@ -61,7 +65,7 @@ class Trainer:
         self.device = torch.device(device)
         os.makedirs(out_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(out_dir, "checkpoints"))
-        self.apply_fn = fused_train.make_fused_apply(config)
+        self.apply_fn, self.draw_seeds = make_apply(config)
         self.scheduler = ReduceLROnPlateau(
             lr=config.train.lr, factor=config.train.plateau_factor,
             patience=config.train.plateau_patience)
@@ -80,7 +84,7 @@ class Trainer:
         losses = []
         for batch in ds.batches(cfg.train.batch_size, shuffle=True, rng=rng,
                                 pad_to_batch=True):
-            seeds = fused_train.draw_seeds(cfg, seed_gen)
+            seeds = self.draw_seeds(cfg, seed_gen)
             metrics = train_step(cfg, state, to_device(batch, self.device),
                                  seeds, self.apply_fn)
             losses.append(metrics["loss"])
@@ -91,7 +95,8 @@ class Trainer:
     def valid_epoch(self, state: TrainState,
                     ds: WindowDataset) -> tuple[float, int]:
         cfg = self.config
-        packed = pack_for_eval(cfg, state)
+        packed = (pack_for_eval(cfg, state) if engine.supports(cfg)
+                  else None)
         losses = [eval_step(cfg, state, to_device(batch, self.device),
                             packed)["loss"]
                   for batch in ds.batches(cfg.train.batch_size, shuffle=False,

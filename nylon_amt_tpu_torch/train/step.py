@@ -8,12 +8,16 @@ logits (sigmoid-BCE-with-logits, the JAX package's documented divergence
 from the reference's BCELoss on sigmoids). A batch may carry a ``valid``
 row mask: masked rows add nothing and the mean divides by the valid count.
 
-The train step runs the model through the training layer kernels
-(:mod:`nylon_amt_tpu_torch.models.fused_train`), then Adam (torch's, with
-the optax defaults the JAX package uses: b1 0.9, b2 0.999, eps 1e-8) with
-optional global-norm clipping. The eval step runs the inference engine of
-the first slice on freshly packed weights, as the JAX eval step runs its
-engine.
+The train step runs the model's training forward, chosen as the JAX step
+chooses it (:func:`make_apply`): the training layer kernels
+(:mod:`nylon_amt_tpu_torch.models.fused_train`) when they cover the
+configuration, else the module's per-site forward (:meth:`HFT.per_site`:
+K10-K12 attention, K6 dropout, ``remat``, the attention map, the ablation
+models and their BatchNorm). Then Adam (torch's, with the optax defaults
+the JAX package uses: b1 0.9, b2 0.999, eps 1e-8) with optional
+global-norm clipping. The eval step runs the inference engine on freshly
+packed weights where it covers the configuration, as the JAX eval step
+runs its engine, and the deterministic per-site forward elsewhere.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch.nn.functional as F
 from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.models import fused_train
-from nylon_amt_tpu_torch.models.hft import DTYPES, HFT
+from nylon_amt_tpu_torch.models.hft import (
+    DTYPES, Model, build_model, draw_site_seeds)
 from nylon_amt_tpu_torch.models.init import reference_initialize
 
 
@@ -36,7 +41,7 @@ from nylon_amt_tpu_torch.models.init import reference_initialize
 class TrainState:
     """The model (float32 parameters), its optimizer and the step count."""
 
-    model: HFT
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -75,8 +80,18 @@ def _sigmoid_bce(logits, labels):
             - (1.0 - labels) * F.logsigmoid(-logits))
 
 
-def loss_fn(config: Config, apply_fn: Callable, model: HFT, batch: dict,
-            seeds: Mapping[int, int] | None = None,
+def make_apply(config: Config) -> tuple[Callable, Callable]:
+    """``(apply, draw_seeds)`` of the training forward, routed as the JAX
+    step routes it (``train/step.py:204-208``): the fused layer kernels
+    when ``fused_train.supports(config)``, the per-site forward otherwise.
+    ``draw_seeds(config, generator)`` gives one step's dropout seeds."""
+    if fused_train.supports(config):
+        return fused_train.make_fused_apply(config), fused_train.draw_seeds
+    return Model.per_site, draw_site_seeds
+
+
+def loss_fn(config: Config, apply_fn: Callable, model, batch: dict,
+            seeds: Mapping | None = None,
             denom: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """``(loss, metrics)`` of ``apply_fn(model, batch["spec"], seeds)``
     against the batch's targets; ``seeds`` None runs without dropout."""
@@ -134,19 +149,20 @@ def create_train_state(config: Config, seed: int,
                        device: torch.device | str) -> TrainState:
     """A fresh model by the reference's init recipe (from a CPU generator
     seeded with ``seed``) and its optimizer."""
-    model = HFT(config, device)
+    model = build_model(config, device)
     reference_initialize(model, torch.Generator().manual_seed(seed))
     model.train()
     return TrainState(model, make_optimizer(config, model.parameters()))
 
 
 def train_step(config: Config, state: TrainState, batch: dict,
-               seeds: Mapping[int, int] | None,
-               apply_fn: Callable | None = None) -> dict:
+               seeds: Mapping | None, apply_fn: Callable | None = None
+               ) -> dict:
     """One optimizer step on ``batch`` (tensors on the model's device);
     updates ``state`` in place and returns the metrics (device scalars,
-    detached). ``seeds`` None trains without dropout."""
-    apply_fn = apply_fn or fused_train.make_fused_apply(config)
+    detached). ``seeds`` (of :func:`make_apply`'s ``draw_seeds``) None
+    trains without dropout."""
+    apply_fn = apply_fn or make_apply(config)[0]
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(config, apply_fn, state.model, batch, seeds)
     loss.backward()
@@ -166,9 +182,14 @@ def pack_for_eval(config: Config, state: TrainState) -> engine.PackedHFT:
 @torch.no_grad()
 def eval_step(config: Config, state: TrainState, batch: dict,
               packed: engine.PackedHFT | None = None) -> dict:
-    """Validation losses of ``batch`` through the inference engine (the
-    kernels of the first slice on CUDA, their plain versions on the CPU),
-    on ``packed`` or on freshly packed weights."""
+    """Validation losses of ``batch``: through the inference engine (the
+    layer kernels on CUDA, their plain versions on the CPU), on ``packed``
+    or on freshly packed weights, where ``engine.supports(config)``; else
+    through the deterministic per-site forward (BatchNorm on its running
+    statistics), as the JAX eval step falls back to ``model.apply``."""
+    if not engine.supports(config):
+        _, metrics = loss_fn(config, Model.per_site, state.model, batch)
+        return metrics
     packed = packed or pack_for_eval(config, state)
 
     def engine_apply(model, spec, seeds=None):

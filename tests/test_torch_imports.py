@@ -42,7 +42,8 @@ def test_port_never_imports_jax():
                  "ops.layer_fused_q8", "data.lists", "infer.tab",
                  "infer.sheet", "labels", "labels.midi2note", "metrics",
                  "metrics.transcription", "metrics.multipitch",
-                 "metrics.harness"):
+                 "metrics.harness", "models.hft", "models.ablation",
+                 "models.convert", "models.init"):
         assert f"nylon_amt_tpu_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -136,6 +137,13 @@ def test_off_cpu_tensors_never_take_the_plain_path():
         "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
         "  'decoder_layer_q8': lambda: lq.decoder_layer_q8("
         "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
+        "  'fused_mha': lambda: att.fused_mha(t(n, 88, hid), t(n, 256, hid),"
+        " t(n, 256, hid), 4, 0.125),\n"
+        "  'fused_mha_with_probs': lambda: att.fused_mha_with_probs("
+        "t(n, 88, hid), t(n, 256, hid), t(n, 256, hid), 4, 0.125),\n"
+        "  'fused_mha_dropout': lambda: att.fused_mha_dropout("
+        "t(n, 88, hid), t(n, 256, hid), t(n, 256, hid), 4, 0.125, 0.1, 7),\n"
+        "  'dropout': lambda: att.dropout(t(n, 88, hid), 7, 1, 0.1),\n"
         "}\n"
         "i8 = lambda *s: t(*s, dt=torch.int8)\n"
         "f32 = lambda *s: t(*s, dt=torch.float32)\n"
@@ -158,6 +166,7 @@ def test_off_cpu_tensors_never_take_the_plain_path():
         "print(json.dumps(res))\n"))
     launches = out.pop("launches")
     assert "encoder_layer_train_bwd" in launches
+    assert "fused_mha_dropout_bwd" in launches
     assert set(launches.values()) == {0}
     assert set(out.values()) == {"raised"}, out
 

@@ -22,7 +22,9 @@ from nylon_amt_tpu.models.init import torch_fans
 from nylon_amt_tpu.train.importer import build_rules
 from nylon_amt_tpu_torch.infer import engine as tengine
 from nylon_amt_tpu_torch.models.convert import params_from_jax
-from nylon_amt_tpu_torch.models.hft import HFT, stem_effective_kernel, supports
+from nylon_amt_tpu_torch.models import fused_train
+from nylon_amt_tpu_torch.models.hft import HFT, ported, stem_effective_kernel
+from nylon_amt_tpu_torch.models.hft import build_model as t_build_model
 from nylon_amt_tpu_torch.models.init import reference_initialize
 
 
@@ -179,11 +181,23 @@ def test_stem_effective_kernel_matches_jax():
     dict(tab_head=True), dict(enc_alg="cnnblock_safreq"),
     dict(dec_alg="linear_satime"), dict(return_attention=True)])
 def test_supports_rejects_what_is_not_ported(model_kw):
+    """The tab head is not ported: nothing builds it. The ablation models
+    and the attention map are: ``build_model`` builds them, while the
+    engine and the fused training layers leave them to the per-site path,
+    as the JAX package's ``supports`` do."""
     cfg = small_config(**model_kw)
-    assert not supports(cfg)
     assert not tengine.supports(cfg)
-    with pytest.raises(ValueError):
-        HFT(cfg, "cpu")
+    assert not fused_train.supports(cfg)
+    if model_kw.get("tab_head"):
+        assert not ported(cfg)
+        with pytest.raises(ValueError):
+            t_build_model(cfg, "cpu")
+        with pytest.raises(ValueError):
+            HFT(cfg, "cpu")
+        return
+    assert ported(cfg)
+    model = t_build_model(cfg, "cpu")
+    assert isinstance(model, HFT) == ("return_attention" in model_kw)
 
 
 def test_reference_initialize_follows_the_reference_recipe():
