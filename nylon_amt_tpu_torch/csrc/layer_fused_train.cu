@@ -290,21 +290,22 @@ constexpr int kWgRows = 32;              // rows per pipeline stage
 constexpr int kWgLd = 128 + 8;
 
 // rows x 128 tile of a row-major [*, width] matrix at (r0, c0); rows at or
-// past r_end are zero-filled.
+// past r_end and columns at or past width (a multiple of 8) are zero-filled.
 __device__ __forceinline__ void load_cols128(bf16* dst, const bf16* a,
                                              int width, int r0, int r_end,
                                              int c0) {
   for (int c = threadIdx.x; c < kWgRows * 16; c += kThreads) {
     const int r = c / 16, col = (c % 16) * 8;
-    const bool ok = r0 + r < r_end;
-    const bf16* src = a + (size_t)(ok ? r0 + r : 0) * width + c0 + col;
+    const bool ok = r0 + r < r_end && c0 + col < width;
+    const bf16* src = a + (ok ? (size_t)(r0 + r) * width + c0 + col : 0);
     nylon::cp_async16(dst + r * kWgLd + col, src, ok);
   }
 }
 
 // part[chunk][Ka][N] = a[rows, Ka]^T @ dy[rows, N] over the chunk's rows;
 // blocks of the first Ka tile also write bias_part[chunk][N] = column sums
-// of dy over those rows. 8 warps as 2 x 4, each owning 64 x 32 of the tile.
+// of dy over those rows. 8 warps as 2 x 4, each owning 64 x 32 of the tile;
+// a tile past Ka or N (multiples of 16) is zero-filled there and not stored.
 __global__ void __launch_bounds__(kThreads, 2)
     wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ dy,
                  float* __restrict__ part, float* __restrict__ bias_part,
@@ -375,11 +376,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          dst + (size_t)(k0 + wm * 64 + i * 16) * N + n0 + wn * 32 + j * 16,
-          acc[i][j], N, wmma::mem_row_major);
-  if (bias && threadIdx.x < kWgBN)
+    for (int j = 0; j < 2; ++j) {
+      const int row = k0 + wm * 64 + i * 16, col = n0 + wn * 32 + j * 16;
+      if (row < Ka && col < N)  // warp-uniform
+        wmma::store_matrix_sync(dst + (size_t)row * N + col, acc[i][j], N,
+                                wmma::mem_row_major);
+    }
+  if (bias && threadIdx.x < kWgBN && n0 + threadIdx.x < N)
     bias_part[(size_t)chunk * N + n0 + threadIdx.x] = bsum;
 }
 
@@ -443,15 +446,16 @@ int nylon_gemm_nt(const void* dy, const void* w, void* out, const void* gate,
 }
 
 // part[chunks, Ka, N] and bias_part[chunks, N] for dW = a^T dy, a [M, Ka],
-// dy [M, N], rows split into chunks of rows_per_chunk (a multiple of 32).
+// dy [M, N], rows split into chunks of rows_per_chunk (a multiple of 32);
+// Ka and N multiples of 16.
 int nylon_wgrad(const void* a, const void* dy, void* part, void* bias_part,
                 int M, int Ka, int N, int rows_per_chunk, int chunks,
                 void* stream) {
-  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % kWgBK || N % kWgBN ||
+  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 16 || N % 16 ||
       rows_per_chunk <= 0 || rows_per_chunk % kWgRows || chunks <= 0 ||
       chunks > 65535 || (long long)rows_per_chunk * chunks < M)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kWgBN, Ka / kWgBK, chunks);
+  const dim3 grid((N + kWgBN - 1) / kWgBN, (Ka + kWgBK - 1) / kWgBK, chunks);
   wgrad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const bf16*)a, (const bf16*)dy, (float*)part, (float*)bias_part, M, Ka,
       N, rows_per_chunk);

@@ -9,288 +9,564 @@
 // layer_fused_train.cu) run the same attention step through the same entry
 // points; only the keep mask's tag differs (head_tag0 below).
 //
-// The attention sites of the hFT model are short (256 bins, 88 notes, 128
-// frames, head_dim 64) and numerous (one sequence per frame or per note), so
-// one block owns one (sequence, head, 128-row tile), K and V (or Q and dO)
-// of the whole sequence sit in shared memory, and the softmax is exact: the
-// row max first, no online rescaling. Scores and probabilities never reach
-// device memory, except the probabilities that K11 returns.
+// The sites. The hFT model's attention sequences are short (256 bins, 88
+// notes, 128 frames; head_dim 64 in the paper model, 32 in the reduced
+// default) and numerous (one per frame or per note), and every site has
+// Lq, Lk <= 256. So one block owns one (sequence, head): it stages Q, K and
+// V (and dO in the backward) of the whole head in shared memory once, by
+// cp.async in two commit groups (what the score product needs, then the
+// rest, which lands while that product runs), and no other block reads
+// them. Each kernel is instantiated for D in {32, 64} and a key tier of
+// 96, 128 or 256 (the sites' 88, 128 and 256 keys): every register array
+// and every loop over keys has a compile-time size, K and V rows past Lk
+// are zeros, and a site with Lk == tier skips the column mask.
 //
-// What bounds them: a site does Lq * Lk / (Lq + Lk) FLOP per byte of q, k, v
-// and o (128 at 256 x 256, 65 at 88 x 256), under the H100's ~295 FLOP/B
-// ridge, so the least time is the bytes'. This version is far from it: it
-// recomputes the score tiles in every pass (two in the forward, three with
-// the probabilities, four in the backward's query kernel) with `wmma` bf16
-// tiles; register-resident softmax, wgmma tiles and fewer passes are later
-// work.
+// What bounds them on this card: a site does Lq * Lk / (Lq + Lk) FLOP per
+// byte of q, k, v and o (128 at 256 x 256, 65 at 88 x 256), under the
+// H100's ~295 FLOP/B ridge, so the least time is the bytes'. What keeps
+// the kernels above it is instruction rate and latency, not bytes:
+// mma.sync on 16-row warp tiles (wgmma, with its 64-row warpgroup tiles
+// and operands in its swizzled shared-memory layout, is not used yet), the
+// exp2 / hash / IEEE-division work per score, every warp reading all of K
+// and V through ldmatrix, and occupancy (the forward's 110 KB at D = 64
+// holds two 4-warp blocks per SM; the backward's 169 KB one 8-warp block).
+// A persistent forward (one block per SM, the next item's loads in flight
+// in a second buffer) measured slower than two resident blocks per SM: the
+// loads were not what stalled it.
 //
-//  * attention_kernel (forward): each warp owns 16 query rows and walks the
-//    keys in 16-key tiles: pass 1 the row max m of the scaled scores, pass 2
-//    p = exp2(s - m), l += p (unrounded f32), O += bf16(p [* keep]) V, then
-//    O / l; with kProbs a third pass writes the normalised f32 p / l.
-//  * attn_bwd_dq_kernel / attn_bwd_dkv_kernel (backward): the first owns
-//    query rows (recomputes s, p, l, the mask, row = sum(da * a), ds; writes
-//    dq and the row statistics), the second owns key rows (recomputes a and
-//    ds from the statistics; dk and dv summed over all queries in one block,
-//    so no float atomics and the same bits from run to run).
+// Scores live in registers. A warp owns 16 query rows and computes their
+// whole [16, tier] score block with mma.sync.m16n8k16 into accumulator
+// registers (256 keys: 32 n8 tiles, 128 f32 registers a thread). The
+// accumulator layout of two n8 tiles is the A-fragment layout of one k16
+// step, so bf16(p [* keep]) goes from those registers straight into the
+// next product. No score, probability or ds tile is staged in shared
+// memory; only outputs pass through a warp's staging tile for 16-byte
+// stores.
 //
-// Numerics follow the TPU kernels: f32 scores times scale * log2(e), exp2,
-// l summed from the unrounded p, bf16(p) (times the keep mask under
-// dropout) into the PV product, the 1/l normalisation deferred to the f32
-// output; the backward casts ds and a (or a * keep) to bf16 before their
-// products and scales dq/dk in f32 before the cast.
+//  * attn_fwd_kernel (4 warps, a warp walks query tiles): ONE QK^T product
+//    per query tile, the exact row max from the registers, p = exp2(s - m)
+//    in place, l summed from the unrounded f32 p, O = bf16(p [* keep]) V,
+//    then O / l. K11 writes the normalised f32 p / l from the same
+//    registers (one product where the wmma version took three). 2
+//    products per head.
+//  * attn_bwd_kernel (8 warps), one kernel, no statistics in device
+//    memory. Phase 1, query-major (16 query rows a warp): S = Q K^T once
+//    -> m, l, a = p / l in f32 registers; dP = dO V^T streamed 16 keys at a
+//    time for row = sum(da * a) (da = dP [* keep]); dP again for ds =
+//    bf16(a * (da - row)) and dQ += ds K; (m, l, row) and the keep bits go
+//    to shared memory. Phase 2, key-major (16 keys a warp, after a block
+//    barrier): S^T = K Q^T and dP^T = V dO^T per 16-query chunk, a^T from
+//    the shared statistics, dV += bf16(a [* keep])^T dO and dK += bf16(ds)^T
+//    Q in registers. 8 QK^T-sized products per head, where the two wmma
+//    kernels took 11 (5 is the minimum: keeping dP beside a would take 128
+//    registers more, and ds in the key-major phase would need a transpose
+//    and a sum of dQ across warps). The block owns every query and every
+//    key, so dq, dk and dv are summed inside it in a fixed order: no float
+//    atomics, no scratch, the same bits from run to run.
+//
+// Numerics follow the TPU kernels: f32 scores times scale * log2(e)
+// (rounded: __fmul_rn keeps the product out of an FMA), exp2 with the
+// exact row max (ex2.approx.ftz: subnormal p flushed), l summed from the
+// unrounded p, bf16(p) (times the keep mask under dropout) into the PV
+// product, the 1/l normalisation deferred to the f32 output; the
+// backward's a = p / l by IEEE division and row = sum(da * a) from the
+// unrounded f32 a, ds and a (or a * keep) cast to bf16 before their
+// products, dq/dk scaled in f32 before the cast.
 //
 // Dropout (kDrop): head h takes the keep mask of hash_mask.cuh (K6) with tag
-// head_tag0 + h, row seq * Lq + query and column key. K12's TPU kernel
-// hashes head h with the raw tag h (head_tag0 = 0); K7-K9 use the tag
-// (tag_base + 8) * 64 + h (ops/layer_fused_train.py::_head_tag).
+// head_tag0 + h, row seq * Lq + query and column key, drawn per element
+// from its (row, column) in the fragment. K12's TPU kernel hashes head h
+// with the raw tag h (head_tag0 = 0); K7-K9 use the tag (tag_base + 8) * 64
+// + h (ops/layer_fused_train.py::_head_tag). At Lk = 256 the draws are
+// packed (half = 128): columns j and j + 128 come from one hash, and a
+// query-major thread holds both (n8 tiles i and i + 16), so the forward
+// and the backward's phase 1 hash once a pair. Phase 1 keeps its keep bits
+// in registers for its two dP passes and writes them, row-major, to shared
+// memory for phase 2, whose threads hold keys as rows.
 
-#include <mma.h>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hash_mask.cuh"
 
-using namespace nvcuda;
 using nylon::bf16;
 using nylon::DropSite;
+using nylon::hash_mix;
 using nylon::keep_value;
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps in every kernel of this file
-constexpr int kAttnRows = 128;  // query (or key) rows per block: 16 per warp
-constexpr int kMaxL = 256;      // K/V (or Q/dO) of a sequence in shared memory
-constexpr int kSLd = 16 + 4;    // f32 row of a staged 16 x 16 tile
-constexpr int kPLd = 16 + 8;    // bf16 row of a 16 x 16 tile
+constexpr int kFwdWarps = 4;  // 4 warps a forward block: 2+ blocks per SM
+constexpr int kBwdWarps = 8;  // 8 warps a backward block: one block per SM
+constexpr int kMaxL = 256;    // Q, K, V (and dO) of a head in shared memory
 
-// ---------------------------------------------------------------- forward ----
+// ------------------------------------------------------------- mma.sync ----
 
-// Per-warp shared-memory region, reused phase by phase: the warp's Q tile
-// [16][D+8] bf16; then one score tile [16][kSLd] f32 followed by one
-// probability tile [16][kPLd] bf16; then the output [16][D+4] f32.
-template <int D>
-__host__ __device__ constexpr int attn_region_floats() {
-  constexpr int q = 16 * (D + 8) / 2;
-  constexpr int sp = 16 * kSLd + 16 * kPLd / 2;
-  constexpr int o = 16 * (D + 4);
-  return q > sp ? (q > o ? q : o) : (sp > o ? sp : o);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-__host__ __device__ constexpr size_t attn_smem_bytes(int lk_pad) {
-  return (size_t)2 * lk_pad * (D + 8) * sizeof(bf16) +
-         (size_t)(kThreads / 32) * attn_region_floats<D>() * sizeof(float);
+// Four 8 x 8 bf16 matrices; lane l gives the address of one row.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
-// o[seq, q, h*D:(h+1)*D] = softmax(q_h k_h^T * scale) v_h for one
-// (sequence, head, query tile). q/k/v are strided views (row and sequence
-// strides in elements) so packed QKV and K/V projections are read in place.
-//
-// K and V of the whole sequence sit in shared memory; each warp owns 16
-// query rows and walks the keys in 16-key tiles twice: first for the exact
-// row max of the scaled scores, then recomputing each score tile (the same
-// MMAs, so the same values) to take p = exp2(s - max), sum l from the
-// unrounded f32 p, and accumulate bf16(p) V. Staging one score tile instead
-// of a whole [16, Lk] row block keeps a block at ~106 KB, so two blocks
-// share an SM.
-//
-// kDrop: the probabilities that multiply V are p times the keep mask of
-// head h (tag head_tag0 + h, row seq * lq + query, column key); l stays the
-// sum of the unmasked p, as in the TPU kernel.
-//
-// kProbs (fused_mha_with_probs, K11): a third pass recomputes each score
-// tile once l is known and writes the normalised f32 probabilities p / l to
-// probs[seq, h, query, key] (gridDim.y heads), 32 contiguous bytes per lane.
-template <int D, bool kDrop, bool kProbs>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ probs, int lq, int lk,
-                     long long q_row, long long q_seq, long long kv_row,
-                     long long kv_seq, int o_row, float scale_log2e,
-                     uint32_t seed_mix, int head_tag0, DropSite site) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kvLd = D + 8;
-  constexpr int oLd = D + 4;
-  constexpr int region = attn_region_floats<D>();
-  const int lk_pad = (lk + 15) & ~15;
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);
-  bf16* const Vs = Ks + lk_pad * kvLd;
-  float* const regions = reinterpret_cast<float*>(Vs + lk_pad * kvLd);
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
 
-  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kAttnRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+// c += a (16 x 16, row-major) b (16 x 8, column-major); f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  // K and V of the whole sequence, zero rows past lk.
-  const bf16* kb = k + seq * kv_seq + h * D;
-  const bf16* vb = v + seq * kv_seq + h * D;
-  for (int c = threadIdx.x; c < lk_pad * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    uint4 kv = zero, vv = zero;
-    if (r < lk) {
-      kv = *reinterpret_cast<const uint4*>(kb + r * kv_row + c8);
-      vv = *reinterpret_cast<const uint4*>(vb + r * kv_row + c8);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * kvLd + c8) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * kvLd + c8) = vv;
-  }
-  // Each warp's 16 query rows go to the head of its own region.
-  const bf16* qb = q + seq * q_seq + h * D;
-  for (int c = threadIdx.x; c < kAttnRows * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    const int gq = q0 + r;
-    uint4 qv = zero;
-    if (gq < lq) qv = *reinterpret_cast<const uint4*>(qb + gq * q_row + c8);
-    bf16* qw = reinterpret_cast<bf16*>(regions + (r / 16) * region);
-    *reinterpret_cast<uint4*>(qw + (r % 16) * kvLd + c8) = qv;
-  }
-  __syncthreads();
-  // From here on every warp works alone: no block-wide barrier follows.
-  if (q0 + warp * 16 >= lq) return;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-  float* const Sw = regions + warp * region;                 // score tile
-  bf16* const Pw = reinterpret_cast<bf16*>(Sw + 16 * kSLd);   // prob. tile
-  float* const Ow = Sw;                                      // output
+// Lane addresses of ldmatrix x4 over a row-major tile with row length ld:
+// the A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 16);
+template <int ld>
+__device__ __forceinline__ const bf16* a_addr(const bf16* s, int r0, int c0,
+                                              int lane) {
+  return s + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
+}
+// the B fragments of two n8 tiles (rows n0 .. n0 + 15 of an [n][k] tile,
+// columns k0 .. k0 + 15): r[0], r[1] for rows n0 .. n0 + 7, r[2], r[3] for
+// the next 8;
+template <int ld>
+__device__ __forceinline__ const bf16* bn_addr(const bf16* s, int n0, int k0,
+                                               int lane) {
+  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+// with .trans, the B fragments of two n8 tiles of a [k][n] tile (rows k0 ..
+// k0 + 15, columns n0 .. n0 + 15).
+template <int ld>
+__device__ __forceinline__ const bf16* bt_addr(const bf16* s, int k0, int n0,
+                                               int lane) {
+  return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+         (lane >> 4) * 8;
+}
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
+// The A fragment of a k16 step from the accumulators of two n8 tiles.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x with subnormal results flushed to zero (one MUFU.EX2).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The [16, kKeys] score block of a warp's 16 query rows: s = Q K^T, the A
+// fragments of Q in qa, K [kKeys][D+8] in shared memory. Then s <- s *
+// scale_log2e (rounded: __fmul_rn keeps the product out of an FMA), -inf
+// past lk, and (m0, m1) the exact max of rows g and g + 8. Every loop has
+// a compile-time trip count, so the compiler interleaves the whole block.
+template <int D, int kKeys>
+__device__ __forceinline__ void score_block(float (&s)[kKeys / 8][4],
+                                            const uint32_t (&qa)[D / 16][4],
+                                            const bf16* Ks, float sl2e,
+                                            int lk, int lane, float& m0,
+                                            float& m1) {
+  constexpr int NT = kKeys / 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], reinterpret_cast<const bf16*>(Sw) + kk * 16,
-                           kvLd);
-  __syncwarp();
-
-  // Stage the f32 score tile S[:, j0 : j0 + 16] = Q K^T in Sw.
-  auto score_tile = [&](int j0) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-    wmma::fill_fragment(sacc, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + j0 * kvLd + kk * 16, kvLd);
-      wmma::mma_sync(sacc, qf[kk], kf, sacc);
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, bn_addr<D + 8>(Ks, np * 16, kk * 16, lane));
+      mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
     }
-    wmma::store_matrix_sync(Sw, sacc, kSLd, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // Lanes 2r and 2r+1 own row r of a tile, 8 columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
   const float neg_inf = __int_as_float(0xff800000u);
-
-  // Pass 1: the exact row max of the scaled scores.
-  float m = neg_inf;
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    score_tile(j0);
+  const int t = lane & 3;
+  m0 = m1 = neg_inf;
+  if (lk == kKeys) {  // every column is a key: no mask (the common sites)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (j0 + c0 + e < lk) m = fmaxf(m, Sw[r * kSLd + c0 + e] * scale_log2e);
-    __syncwarp();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // Pass 2: p = exp2(s - m) (0 past lk), l += p in f32, O += bf16(p) V
-  // (with kDrop, bf16(p * keep) V).
-  DropSite hsite = site;
-  if constexpr (kDrop) hsite.key = nylon::tag_key(seed_mix, head_tag0 + h);
-  const uint32_t mask_row = (uint32_t)seq * (uint32_t)lq +
-                            (uint32_t)(q0 + warp * 16 + r);
-  float l = 0.f;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(oacc[dj], 0.f);
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    score_tile(j0);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float p = 0.f;
-      if (j0 + c0 + e < lk) p = exp2f(Sw[r * kSLd + c0 + e] * scale_log2e - m);
-      l += p;
-      if constexpr (kDrop) p *= keep_value(hsite, mask_row, j0 + c0 + e, lk);
-      Pw[r * kPLd + c0 + e] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-    wmma::load_matrix_sync(pf, Pw, kPLd);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, Vs + j0 * kvLd + dj * 16, kvLd);
-      wmma::mma_sync(oacc[dj], pf, vf, oacc[dj]);
-    }
-    __syncwarp();
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj)
-    wmma::store_matrix_sync(Ow + dj * 16, oacc[dj], oLd, wmma::mem_row_major);
-  __syncwarp();
-
-  bf16* ob = o + ((long long)seq * lq) * o_row + h * D;
-  for (int rr = 0; rr < 16; ++rr) {
-    const float lr = __shfl_sync(0xffffffffu, l, 2 * rr);
-    const int gq = q0 + warp * 16 + rr;
-    if (gq >= lq) break;  // warp-uniform
-    for (int c = lane; c < D; c += 32)
-      ob[(long long)gq * o_row + c] = __float2bfloat16(Ow[rr * oLd + c] / lr);
-  }
-
-  if constexpr (kProbs) {
-    // Pass 3: the normalised probabilities, row r's 8 columns per lane.
-    __syncwarp();  // Ow (read above) and Sw share the region
-    const int gq = q0 + warp * 16 + r;
-    float* pr = probs + (((size_t)seq * gridDim.y + h) * lq + gq) * lk;
-    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-      score_tile(j0);
-      float pv[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        pv[e] = exp2f(Sw[r * kSLd + c0 + e] * scale_log2e - m) / l;
-      const int j = j0 + c0;
-      if (gq < lq) {
-        if (j + 8 <= lk && lk % 4 == 0) {
-          *reinterpret_cast<float4*>(pr + j) =
-              make_float4(pv[0], pv[1], pv[2], pv[3]);
-          *reinterpret_cast<float4*>(pr + j + 4) =
-              make_float4(pv[4], pv[5], pv[6], pv[7]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (j + e < lk) pr[j + e] = pv[e];
-        }
+      for (int r = 0; r < 4; ++r) {
+        s[nt][r] = __fmul_rn(s[nt][r], sl2e);
+        if (r < 2) m0 = fmaxf(m0, s[nt][r]);
+        else m1 = fmaxf(m1, s[nt][r]);
       }
-      __syncwarp();
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = __fmul_rn(s[nt][r], sl2e);
+        s[nt][r] = nt * 8 + 2 * t + (r & 1) < lk ? x : neg_inf;
+        if (r < 2) m0 = fmaxf(m0, s[nt][r]);
+        else m1 = fmaxf(m1, s[nt][r]);
+      }
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+}
+
+// s <- p = exp2(s - m) in place; returns (l0, l1), the sums of the
+// unrounded p of rows g and g + 8.
+template <int NT>
+__device__ __forceinline__ void exp_rows(float (&s)[NT][4], float m0, float m1,
+                                         float& l0, float& l1) {
+  l0 = l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float p = exp2_ftz(s[nt][r] - (r < 2 ? m0 : m1));
+      s[nt][r] = p;
+      if (r < 2) l0 += p;
+      else l1 += p;
     }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+}
+
+// ------------------------------------------------------------- staging ----
+
+// Rows [0, rows) of a strided [*, D] head slice into dst (row length D +
+// 8, which keeps ldmatrix free of bank conflicts) by cp.async; rows at or
+// past n are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
+                                            long long row_stride, int rows,
+                                            int n) {
+  for (int c = threadIdx.x; c < rows * (D / 8); c += blockDim.x) {
+    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
+    const bool ok = r < n;
+    nylon::cp_async16(dst + r * (D + 8) + c8,
+                      src + (long long)(ok ? r : 0) * row_stride + c8, ok);
   }
 }
 
-// One attention launch (head_dim 64): (sequence, head, 128-query tile)
-// blocks, shared memory sized to the keys.
-template <bool kDrop, bool kProbs>
-int launch_attention(const void* q, const void* k, const void* v, void* o,
-                     void* probs, int n_seq, int lq, int lk, int n_heads,
-                     long long q_row, long long q_seq, long long kv_row,
-                     long long kv_seq, float scale_log2e, uint32_t seed_mix,
-                     int head_tag0, DropSite site, cudaStream_t stream) {
+// A warp's [16, D] output tile, written to the staging tile `st` (row
+// length D + 8) from f32 accumulators by f(value, row half), then copied to
+// dst rows r0 .. r0 + 15 (those < n) 16 bytes a lane.
+template <int D, typename F>
+__device__ __forceinline__ void store_tile(bf16* st,
+                                           const float (&acc)[D / 8][4], F f,
+                                           bf16* dst, long long row_stride,
+                                           int r0, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    *reinterpret_cast<uint32_t*>(st + g * (D + 8) + nd * 8 + 2 * t) =
+        pack_bf16(f(acc[nd][0], 0), f(acc[nd][1], 0));
+    *reinterpret_cast<uint32_t*>(st + (g + 8) * (D + 8) + nd * 8 + 2 * t) =
+        pack_bf16(f(acc[nd][2], 1), f(acc[nd][3], 1));
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * (D / 8); c += 32) {
+    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
+    if (r0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * row_stride + c8) =
+          *reinterpret_cast<const uint4*>(st + r * (D + 8) + c8);
+  }
+  __syncwarp();
+}
+
+// ------------------------------------------------------------ keep mask ----
+
+// Element r of n8 tile nt of a thread's [16, kKeys] row block sits at row
+// g + 8 * (r >= 2), column nt * 8 + 2t + (r & 1), and keeps its keep bit at
+// nt * 4 + r. Packed draws at Lk = 256 (half 128): tiles nt and nt + 16
+// share one hash.
+template <int kKeys>
+constexpr int kBitWords = (kKeys / 2 + 31) / 32;
+
+// The keep bits of a [16, 256] row block whose draws are packed (half =
+// 128): one hash gives columns j and j + 128, so words 0, 1 (tiles 0-15)
+// take the low draws and words 2, 3 (tiles 16-31) the high draws.
+// Invariants this form keeps: each word is built in a local of its own and
+// stored once; every word index and every shift count (j * 4 + r < 32) is
+// a compile-time constant, so `bits` stays in registers and no shift
+// reaches 32. An earlier form that or-ed both draws of a pair into `bits`
+// in one loop gave the backward wrong masks at 256 keys on an H100 while
+// the forward's same hashes were right; its cause was not found, so keep
+// to this form. chip_smoke.py (l) and (m) read K12's masks back and hold
+// its backward to the plain version at 88, 128 and 256 keys, D = 32 and 64.
+__device__ __forceinline__ void packed_keep_bits(uint32_t (&bits)[4],
+                                                 const DropSite& s,
+                                                 uint32_t row0, int t) {
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t row = row0 + (r >> 1) * 8;
+        const uint32_t c = (uint32_t)((8 * w + j) * 8 + 2 * t + (r & 1));
+        const uint32_t x = hash_mix((s.base + row * 128u + c) ^ s.key);
+        lo |= (uint32_t)((x & 0xFFFFu) >= s.thresh) << (j * 4 + r);
+        hi |= (uint32_t)((x >> 16) >= s.thresh) << (j * 4 + r);
+      }
+    bits[w] = lo;
+    bits[w + 2] = hi;
+  }
+}
+
+template <int kKeys>
+__device__ __forceinline__ void keep_bits(uint32_t (&bits)[kBitWords<kKeys>],
+                                          const DropSite& s, uint32_t row0,
+                                          int lk, int lane) {
+  constexpr int NT = kKeys / 8;
+  const int t = lane & 3;
+  if constexpr (kKeys == 256) {
+    if (s.half == 128) {
+      packed_keep_bits(bits, s, row0, t);
+      return;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < kBitWords<kKeys>; ++w) bits[w] = 0u;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = nt * 4 + r;
+      bits[i >> 5] |= (uint32_t)(keep_value(s, row0 + (r >> 1) * 8,
+                                            nt * 8 + 2 * t + (r & 1), lk) !=
+                                 0.f)
+                      << (i & 31);
+    }
+}
+
+template <int kKeys>
+__device__ __forceinline__ float keep_of(
+    const uint32_t (&bits)[kBitWords<kKeys>], int i, float scale) {
+  return (bits[i >> 5] >> (i & 31)) & 1u ? scale : 0.f;
+}
+
+// s *= keep for a thread's elements of a [16, kKeys] row block (rows row0,
+// row0 + 8): one hash for the pair of columns j, j + 128 when packed.
+template <int kKeys>
+__device__ __forceinline__ void apply_keep(float (&s)[kKeys / 8][4],
+                                           const DropSite& ds, uint32_t row0,
+                                           int lk, int lane) {
+  constexpr int NT = kKeys / 8;
+  const int t = lane & 3;
+  if (kKeys == 256 && ds.half == 128) {
+#pragma unroll
+    for (int nt = 0; nt < NT / 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t row = row0 + (r >> 1) * 8;
+        const uint32_t c = (uint32_t)(nt * 8 + 2 * t + (r & 1));
+        const uint32_t x = hash_mix((ds.base + row * 128u + c) ^ ds.key);
+        s[nt][r] *= (x & 0xFFFFu) >= ds.thresh ? ds.scale : 0.f;
+        s[nt + NT / 2][r] *= (x >> 16) >= ds.thresh ? ds.scale : 0.f;
+      }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        s[nt][r] *= keep_value(ds, row0 + (r >> 1) * 8,
+                               nt * 8 + 2 * t + (r & 1), lk);
+  }
+}
+
+// The key tier of a site: the register row block and the K/V rows in
+// shared memory cover kKeys >= lk keys (zero-filled past lk).
+template <typename F>
+int with_tier(int lk, F f) {
+  if (lk <= 96) return f(std::integral_constant<int, 96>{});
+  if (lk <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
+}
+
+// ------------------------------------------------------------- forward ----
+
+struct FwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* probs;  // K11: [n_seq, n_heads, lq, lk] f32, else null
+  int n_items, lq, lk, n_heads, o_row;  // n_items = n_seq * n_heads blocks
+  long long q_row, q_seq, kv_row, kv_seq;
+  float scale_log2e;
+  uint32_t seed_mix;
+  int head_tag0;  // head h's keep mask has tag head_tag0 + h
+  DropSite site;  // thresh, scale, half of the probability site
+};
+
+// One (sequence, head): K and V [kKeys][D+8], Q [lq16][D+8] bf16.
+template <int D, int kKeys>
+__host__ __device__ constexpr size_t fwd_smem_bytes(int lq16) {
+  return (size_t)(2 * kKeys + lq16) * (D + 8) * sizeof(bf16);
+}
+
+// o[seq, q, h*D:(h+1)*D] = softmax(q_h k_h^T * scale) v_h of one (sequence,
+// head) item; q/k/v are strided views (row and sequence strides in
+// elements) so packed QKV and K/V projections are read in place. Lk <=
+// kKeys.
+template <int D, int kKeys, bool kDrop, bool kProbs>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    attn_fwd_kernel(const FwdArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = D + 8;
+  constexpr int NT = kKeys / 8;
+  const int lq = args.lq, lk = args.lk;
+  const int lq16 = (lq + 15) & ~15;
+  bf16* const Ks = reinterpret_cast<bf16*>(smem);
+  bf16* const Vs = Ks + kKeys * LD;
+  bf16* const Qs = Vs + kKeys * LD;
+  const int seq = blockIdx.x / args.n_heads, h = blockIdx.x % args.n_heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // group 0: K and Q (the score product); group 1: V
+  stage_async<D>(Ks, args.k + seq * args.kv_seq + h * D, args.kv_row, kKeys,
+                 lk);
+  stage_async<D>(Qs, args.q + seq * args.q_seq + h * D, args.q_row, lq16, lq);
+  nylon::cp_async_commit();
+  stage_async<D>(Vs, args.v + seq * args.kv_seq + h * D, args.kv_row, kKeys,
+                 lk);
+  nylon::cp_async_commit();
+  nylon::cp_async_wait<1>();
+  __syncthreads();
+
+  DropSite hsite = args.site;
+  if constexpr (kDrop)
+    hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
+  const int nqt = lq16 / 16;
+  const int iters = (nqt + kFwdWarps - 1) / kFwdWarps;  // block-uniform
+  for (int it = 0; it < iters; ++it) {
+    const int tile = warp + it * kFwdWarps;
+    const bool active = tile < nqt;
+    float s[NT][4];
+    float l0 = 0.f, l1 = 0.f;
+    if (active) {
+      uint32_t qa[D / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[kk], a_addr<LD>(Qs, tile * 16, kk * 16, lane));
+      float m0, m1;
+      score_block<D, kKeys>(s, qa, Ks, args.scale_log2e, lk, lane, m0, m1);
+      exp_rows<NT>(s, m0, m1, l0, l1);
+    }
+    if (it == 0) {  // V has landed
+      nylon::cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
+    const int q0 = tile * 16 + g;
+    if constexpr (kProbs) {
+      // the normalised probabilities, straight from the registers
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gq = q0 + half * 8;
+        if (gq >= lq) continue;
+        const float l = half ? l1 : l0;
+        float* pr = args.probs +
+                    (((size_t)seq * args.n_heads + h) * lq + gq) * lk;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          if (col >= lk) continue;
+          const float p0 = s[nt][2 * half] / l, p1 = s[nt][2 * half + 1] / l;
+          if (lk % 2 == 0) {
+            *reinterpret_cast<float2*>(pr + col) = make_float2(p0, p1);
+          } else {
+            pr[col] = p0;
+            if (col + 1 < lk) pr[col + 1] = p1;
+          }
+        }
+      }
+    }
+    if constexpr (kDrop)
+      apply_keep<kKeys>(s, hsite, (uint32_t)seq * (uint32_t)lq + q0, lk,
+                        lane);
+    // O = bf16(p [* keep]) V, p taken from the score registers
+    float o[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[nd][r] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr<LD>(Vs, kc * 16, dp * 16, lane));
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    // O / l through the warp's own Q rows (read into registers above)
+    store_tile<D>(Qs + tile * 16 * LD, o,
+                  [&](float x, int half) { return x / (half ? l1 : l0); },
+                  args.o + (long long)seq * lq * args.o_row + h * D,
+                  args.o_row, tile * 16, lq, lane);
+  }
+}
+
+template <int D, int kKeys, bool kDrop, bool kProbs>
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<D, kKeys>((a.lq + 15) & ~15);
+  auto kernel = attn_fwd_kernel<D, kKeys, kDrop, kProbs>;
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<64, kDrop, kProbs>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_smem_bytes<64>(kMaxL));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int lk_pad = (lk + 15) & ~15;
-  const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_kernel<64, kDrop, kProbs>
-      <<<grid, kThreads, attn_smem_bytes<64>(lk_pad), stream>>>(
-          (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-          (float*)probs, lq, lk, q_row, q_seq, kv_row, kv_seq, n_heads * 64,
-          scale_log2e, seed_mix, head_tag0, site);
+  kernel<<<a.n_items, kFwdWarps * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// --------------------------------------------------------------- backward ----
+template <bool kDrop, bool kProbs>
+int launch_attention(const FwdArgs& a, int head_dim, cudaStream_t stream) {
+  return with_tier(a.lk, [&](auto tier) {
+    constexpr int kKeys = decltype(tier)::value;
+    return head_dim == 32 ? launch_fwd<32, kKeys, kDrop, kProbs>(a, stream)
+                          : launch_fwd<64, kKeys, kDrop, kProbs>(a, stream);
+  });
+}
 
-struct AttnBwdArgs {
+// ------------------------------------------------------------ backward ----
+
+struct BwdArgs {
   const bf16* q;
   const bf16* k;
   const bf16* v;
@@ -298,8 +574,7 @@ struct AttnBwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* stats;  // [3][n_seq][n_heads][lq]: m, l, row
-  int n_seq, n_heads, lq, lk;
+  int lq, lk;
   long long q_row, q_seq, kv_row, kv_seq, do_row, do_seq, dq_row, dq_seq,
       dkv_row, dkv_seq;
   float scale, scale_log2e;
@@ -308,375 +583,322 @@ struct AttnBwdArgs {
   DropSite site;  // thresh, scale, half of the probability site
 };
 
-template <int D>
-__host__ __device__ constexpr int bwd_tile_bytes() {
-  // two bf16 [16][D+8] tiles
-  return 2 * 16 * (D + 8) * (int)sizeof(bf16);
+// Keep-bit words a row of the backward's shared mask: bit k % 32 of word
+// k / 32 is key k's (one word of padding against bank conflicts).
+template <int kKeys>
+constexpr int kMaskLd = kKeys / 32 + 1;
+
+// Q, dO [lq16][D+8], K, V [kKeys][D+8] bf16; m, l, row [lq16] f32; with
+// dropout the keep bits [lq16][kMaskLd]; one [16][D+8] bf16 output
+// staging tile per warp.
+template <int D, int kKeys, bool kDrop>
+__host__ __device__ constexpr size_t bwd_smem_bytes(int lq16) {
+  return (size_t)(2 * lq16 + 2 * kKeys) * (D + 8) * sizeof(bf16) +
+         (size_t)3 * lq16 * sizeof(float) +
+         (kDrop ? (size_t)lq16 * kMaskLd<kKeys> * sizeof(uint32_t) : 0) +
+         (size_t)kBwdWarps * 16 * (D + 8) * sizeof(bf16);
 }
 
-// Per-warp region of kernel A: Q and dO tiles (then the f32 dq output, 16 x
-// (D+4), over them), a score tile and a dP tile (f32), a ds tile (bf16).
-template <int D>
-__host__ __device__ constexpr int bwd_q_region_bytes() {
-  return bwd_tile_bytes<D>() + 2 * 16 * kSLd * 4 + 16 * kPLd * 2;
-}
-
-// 16 x 16 f32 tile of rows(A) . rows(B)^T over D columns: a[kk] holds the
-// warp's 16 rows of A, b points at 16 rows of B in shared memory.
-template <int D>
-__device__ __forceinline__ void row_dot_tile(
-    float* dst,
-    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* a,
-    const bf16* b, int ldb) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-    wmma::load_matrix_sync(bf, b + kk * 16, ldb);
-    wmma::mma_sync(acc, a[kk], bf, acc);
-  }
-  wmma::store_matrix_sync(dst, acc, kSLd, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// Stage rows [r0, r0 + rows) of a strided [*, D] head slice into dst
-// (row length D + 8); rows at or past n are zero.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long row_stride, int r0,
-                                           int rows, int n, int tid,
-                                           int nthreads) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < rows * (D / 8); c += nthreads) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    uint4 val = zero;
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c8) = val;
-  }
-}
-
-// Kernel A: one block per (sequence, head, 128-query tile); each warp owns
-// 16 query rows, K and V of the whole sequence sit in shared memory. Four
-// passes over the key tiles (the same MMAs each time, so the same scores):
-// the row max m; l = sum p; row = sum(da * a) with a = p / l and da = dP *
-// keep; then ds = bf16(a * (da - row)) and dq += ds K. Writes dq * scale
-// and (m, l, row) of every query row for kernel B.
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    attn_bwd_dq_kernel(AttnBwdArgs args) {
+// dq, dk, dv of one (sequence, head): phase 1 query-major (dq and the row
+// statistics), phase 2 key-major (dk, dv), see the head note.
+template <int D, int kKeys, bool kDrop>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+    attn_bwd_kernel(const BwdArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kvLd = D + 8;
-  constexpr int oLd = D + 4;
+  constexpr int LD = D + 8;
+  constexpr int NT = kKeys / 8;
   const int lq = args.lq, lk = args.lk;
-  const int lk_pad = (lk + 15) & ~15;
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);
-  bf16* const Vs = Ks + lk_pad * kvLd;
-  unsigned char* const regions =
-      reinterpret_cast<unsigned char*>(Vs + lk_pad * kvLd);
-
-  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kAttnRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  stage_rows<D>(Ks, args.k + seq * args.kv_seq + h * D, args.kv_row, 0,
-                lk_pad, lk, threadIdx.x, kThreads);
-  stage_rows<D>(Vs, args.v + seq * args.kv_seq + h * D, args.kv_row, 0,
-                lk_pad, lk, threadIdx.x, kThreads);
-  unsigned char* const region = regions + warp * bwd_q_region_bytes<D>();
-  bf16* const Qw = reinterpret_cast<bf16*>(region);
-  bf16* const dOw = Qw + 16 * kvLd;
-  float* const Sw = reinterpret_cast<float*>(region + bwd_tile_bytes<D>());
-  float* const Dw = Sw + 16 * kSLd;
-  bf16* const Pw = reinterpret_cast<bf16*>(Dw + 16 * kSLd);
-  float* const Ow = reinterpret_cast<float*>(region);
-  const int qw0 = q0 + warp * 16;
-  stage_rows<D>(Qw, args.q + seq * args.q_seq + h * D, args.q_row, qw0, 16,
-                lq, lane, 32);
-  stage_rows<D>(dOw, args.dout + seq * args.do_seq + h * D, args.do_row, qw0,
-                16, lq, lane, 32);
-  __syncthreads();
-  // From here on every warp works alone: no block-wide barrier follows.
-  if (qw0 >= lq) return;
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16],
-      df[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qw + kk * 16, kvLd);
-    wmma::load_matrix_sync(df[kk], dOw + kk * 16, kvLd);
-  }
-  __syncwarp();
-
-  // Lanes 2r and 2r+1 own row r of a tile, 8 columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const float sl2e = args.scale_log2e;
-  const float neg_inf = __int_as_float(0xff800000u);
-  DropSite hsite = args.site;
-  if constexpr (kDrop) hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
-  const uint32_t mask_row = (uint32_t)seq * (uint32_t)lq + (uint32_t)(qw0 + r);
-
-  float m = neg_inf;
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    row_dot_tile<D>(Sw, qf, Ks + j0 * kvLd, kvLd);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (j0 + c0 + e < lk) m = fmaxf(m, Sw[r * kSLd + c0 + e] * sl2e);
-    __syncwarp();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  float l = 0.f;
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    row_dot_tile<D>(Sw, qf, Ks + j0 * kvLd, kvLd);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (j0 + c0 + e < lk) l += exp2f(Sw[r * kSLd + c0 + e] * sl2e - m);
-    __syncwarp();
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-  float row = 0.f;
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    row_dot_tile<D>(Sw, qf, Ks + j0 * kvLd, kvLd);
-    row_dot_tile<D>(Dw, df, Vs + j0 * kvLd, kvLd);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int j = j0 + c0 + e;
-      if (j < lk) {
-        const float a = exp2f(Sw[r * kSLd + c0 + e] * sl2e - m) / l;
-        float da = Dw[r * kSLd + c0 + e];
-        if constexpr (kDrop) da *= keep_value(hsite, mask_row, j, lk);
-        row += da * a;
-      }
-    }
-    __syncwarp();
-  }
-  row += __shfl_xor_sync(0xffffffffu, row, 1);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) wmma::fill_fragment(dq[dj], 0.f);
-  for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-    row_dot_tile<D>(Sw, qf, Ks + j0 * kvLd, kvLd);
-    row_dot_tile<D>(Dw, df, Vs + j0 * kvLd, kvLd);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int j = j0 + c0 + e;
-      float ds = 0.f;
-      if (j < lk) {
-        const float a = exp2f(Sw[r * kSLd + c0 + e] * sl2e - m) / l;
-        float da = Dw[r * kSLd + c0 + e];
-        if constexpr (kDrop) da *= keep_value(hsite, mask_row, j, lk);
-        ds = a * (da - row);
-      }
-      Pw[r * kPLd + c0 + e] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sf;
-    wmma::load_matrix_sync(sf, Pw, kPLd);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
-      wmma::load_matrix_sync(kf, Ks + j0 * kvLd + dj * 16, kvLd);
-      wmma::mma_sync(dq[dj], sf, kf, dq[dj]);
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj)
-    wmma::store_matrix_sync(Ow + dj * 16, dq[dj], oLd, wmma::mem_row_major);
-  __syncwarp();
-  bf16* const dqb = args.dq + seq * args.dq_seq + h * D;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int gq = qw0 + rr;
-    if (gq >= lq) break;  // warp-uniform
-    for (int c = lane; c < D; c += 32)
-      dqb[gq * args.dq_row + c] = __float2bfloat16(Ow[rr * oLd + c] * args.scale);
-  }
-  const int gq = qw0 + r;
-  if ((lane & 1) == 0 && gq < lq) {
-    const size_t plane = (size_t)args.n_seq * args.n_heads * lq;
-    const size_t at = ((size_t)seq * args.n_heads + h) * lq + gq;
-    args.stats[at] = m;
-    args.stats[plane + at] = l;
-    args.stats[2 * plane + at] = row;
-  }
-}
-
-// Per-warp region of kernel B: its K and V tiles (then the f32 dk/dv output
-// over them), transposed score and dP tiles (f32), ad and ds tiles (bf16).
-template <int D>
-__host__ __device__ constexpr int bwd_kv_region_bytes() {
-  constexpr int work = 2 * 16 * kSLd * 4 + 2 * 16 * kPLd * 2;
-  constexpr int tiles = bwd_tile_bytes<D>();
-  constexpr int out = 16 * (D + 4) * 4;
-  return (tiles > out ? tiles : out) + work;
-}
-
-template <int D>
-__host__ __device__ constexpr size_t bwd_kv_smem_bytes(int lq_pad) {
-  return (size_t)2 * lq_pad * (D + 8) * sizeof(bf16) +
-         (size_t)3 * lq_pad * sizeof(float) +
-         (size_t)(kThreads / 32) * bwd_kv_region_bytes<D>();
-}
-
-// Kernel B: one block per (sequence, head, 128-key tile); each warp owns 16
-// key rows and walks all query tiles (Q, dO and the row statistics of the
-// sequence in shared memory): s^T = K Q^T, dP^T = V dO^T, a = exp2(s - m) / l,
-// ad = a * keep, ds = a * (dP * keep - row); dV += bf16(ad)^T dO and dK +=
-// bf16(ds)^T Q stay in registers. Writes dk * scale and dv.
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    attn_bwd_dkv_kernel(AttnBwdArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kvLd = D + 8;
-  constexpr int oLd = D + 4;
-  const int lq = args.lq, lk = args.lk;
-  const int lq_pad = (lq + 15) & ~15;
+  const int lq16 = (lq + 15) & ~15, lk16 = (lk + 15) & ~15;
   bf16* const Qs = reinterpret_cast<bf16*>(smem);
-  bf16* const dOs = Qs + lq_pad * kvLd;
-  float* const ms = reinterpret_cast<float*>(dOs + lq_pad * kvLd);
-  float* const ls = ms + lq_pad;
-  float* const rs = ls + lq_pad;
-  unsigned char* const regions = reinterpret_cast<unsigned char*>(rs + lq_pad);
-
-  const int seq = blockIdx.x, h = blockIdx.y, k0 = blockIdx.z * kAttnRows;
+  bf16* const dOs = Qs + lq16 * LD;
+  bf16* const Ks = dOs + lq16 * LD;
+  bf16* const Vs = Ks + kKeys * LD;
+  float* const ms = reinterpret_cast<float*>(Vs + kKeys * LD);
+  float* const ls = ms + lq16;
+  float* const rs = ls + lq16;
+  uint32_t* const Ms = reinterpret_cast<uint32_t*>(rs + lq16);
+  const int seq = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kTiles = bwd_tile_bytes<D>() > 16 * oLd * 4
-                             ? bwd_tile_bytes<D>()
-                             : 16 * oLd * 4;
-  unsigned char* const region = regions + warp * bwd_kv_region_bytes<D>();
-  bf16* const Kw = reinterpret_cast<bf16*>(region);
-  bf16* const Vw = Kw + 16 * kvLd;
-  float* const Ow = reinterpret_cast<float*>(region);
-  float* const St = reinterpret_cast<float*>(region + kTiles);
-  float* const Dt = St + 16 * kSLd;
-  bf16* const At = reinterpret_cast<bf16*>(Dt + 16 * kSLd);
-  bf16* const Gt = At + 16 * kPLd;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* const St = reinterpret_cast<bf16*>(
+                       Ms + (kDrop ? lq16 * kMaskLd<kKeys> : 0)) +
+                   warp * 16 * LD;
 
-  stage_rows<D>(Qs, args.q + seq * args.q_seq + h * D, args.q_row, 0, lq_pad,
-                lq, threadIdx.x, kThreads);
-  stage_rows<D>(dOs, args.dout + seq * args.do_seq + h * D, args.do_row, 0,
-                lq_pad, lq, threadIdx.x, kThreads);
-  {
-    const size_t plane = (size_t)args.n_seq * args.n_heads * lq;
-    const size_t at = ((size_t)seq * args.n_heads + h) * lq;
-    for (int i = threadIdx.x; i < lq_pad; i += kThreads) {
-      const bool ok = i < lq;
-      ms[i] = ok ? args.stats[at + i] : 0.f;
-      ls[i] = ok ? args.stats[plane + at + i] : 1.f;
-      rs[i] = ok ? args.stats[2 * plane + at + i] : 0.f;
-    }
-  }
-  const int kw0 = k0 + warp * 16;
-  stage_rows<D>(Kw, args.k + seq * args.kv_seq + h * D, args.kv_row, kw0, 16,
-                lk, lane, 32);
-  stage_rows<D>(Vw, args.v + seq * args.kv_seq + h * D, args.kv_row, kw0, 16,
-                lk, lane, 32);
+  // group 0: K and Q (the score product); group 1: dO and V
+  stage_async<D>(Ks, args.k + seq * args.kv_seq + h * D, args.kv_row, kKeys,
+                 lk);
+  stage_async<D>(Qs, args.q + seq * args.q_seq + h * D, args.q_row, lq16, lq);
+  nylon::cp_async_commit();
+  stage_async<D>(dOs, args.dout + seq * args.do_seq + h * D, args.do_row,
+                 lq16, lq);
+  stage_async<D>(Vs, args.v + seq * args.kv_seq + h * D, args.kv_row, kKeys,
+                 lk);
+  nylon::cp_async_commit();
+  nylon::cp_async_wait<1>();
   __syncthreads();
-  if (kw0 >= lk) return;  // no block-wide barrier follows
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> kf[D / 16],
-      vf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], Kw + kk * 16, kvLd);
-    wmma::load_matrix_sync(vf[kk], Vw + kk * 16, kvLd);
-  }
-  __syncwarp();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[D / 16], dv[D / 16];
-#pragma unroll
-  for (int dj = 0; dj < D / 16; ++dj) {
-    wmma::fill_fragment(dk[dj], 0.f);
-    wmma::fill_fragment(dv[dj], 0.f);
-  }
-
-  // Lanes 2r and 2r+1 own key row r of a tile, 8 query columns each.
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const int key = kw0 + r;
   const float sl2e = args.scale_log2e;
   DropSite hsite = args.site;
-  if constexpr (kDrop) hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
-  for (int i0 = 0; i0 < lq_pad; i0 += 16) {
-    row_dot_tile<D>(St, kf, Qs + i0 * kvLd, kvLd);
-    row_dot_tile<D>(Dt, vf, dOs + i0 * kvLd, kvLd);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int qi = i0 + c0 + e;
-      float ad = 0.f, ds = 0.f;
-      if (qi < lq && key < lk) {
-        const float a = exp2f(St[r * kSLd + c0 + e] * sl2e - ms[qi]) / ls[qi];
-        float mk = 1.f;
-        if constexpr (kDrop)
-          mk = keep_value(hsite, (uint32_t)seq * (uint32_t)lq + (uint32_t)qi,
-                          key, lk);
-        ad = a * mk;
-        ds = a * (Dt[r * kSLd + c0 + e] * mk - rs[qi]);
-      }
-      At[r * kPLd + c0 + e] = __float2bfloat16(ad);
-      Gt[r * kPLd + c0 + e] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af, gf;
-    wmma::load_matrix_sync(af, At, kPLd);
-    wmma::load_matrix_sync(gf, Gt, kPLd);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
-      wmma::load_matrix_sync(of, dOs + i0 * kvLd + dj * 16, kvLd);
-      wmma::load_matrix_sync(qf, Qs + i0 * kvLd + dj * 16, kvLd);
-      wmma::mma_sync(dv[dj], af, of, dv[dj]);
-      wmma::mma_sync(dk[dj], gf, qf, dk[dj]);
-    }
-    __syncwarp();
-  }
+  if constexpr (kDrop)
+    hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
 
-  for (int which = 0; which < 2; ++which) {
+  // ---- phase 1: query rows ----
+  const int nqt = lq16 / 16;
+  const int iters = (nqt + kBwdWarps - 1) / kBwdWarps;  // block-uniform
+  for (int it = 0; it < iters; ++it) {
+    const int tile = warp + it * kBwdWarps;
+    const bool active = tile < nqt;
+    float a[NT][4];
+    if (active) {
+      uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj)
-      wmma::store_matrix_sync(Ow + dj * 16, which ? dv[dj] : dk[dj], oLd,
-                              wmma::mem_row_major);
-    __syncwarp();
-    bf16* const dst = (which ? args.dv : args.dk) + seq * args.dkv_seq + h * D;
-    const float mul = which ? 1.f : args.scale;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int gk = kw0 + rr;
-      if (gk >= lk) break;  // warp-uniform
-      for (int c = lane; c < D; c += 32)
-        dst[gk * args.dkv_row + c] = __float2bfloat16(Ow[rr * oLd + c] * mul);
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[kk], a_addr<LD>(Qs, tile * 16, kk * 16, lane));
+      float m0, m1, l0, l1;
+      score_block<D, kKeys>(a, qa, Ks, sl2e, lk, lane, m0, m1);
+      exp_rows<NT>(a, m0, m1, l0, l1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[nt][r] = a[nt][r] / (r < 2 ? l0 : l1);
+      if (t == 0) {
+        ms[tile * 16 + g] = m0;
+        ms[tile * 16 + g + 8] = m1;
+        ls[tile * 16 + g] = l0;
+        ls[tile * 16 + g + 8] = l1;
+      }
     }
-    __syncwarp();
+    if (it == 0) {  // dO and V have landed
+      nylon::cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!active) continue;
+    uint32_t bits[kBitWords<kKeys>];
+    if constexpr (kDrop) {
+      keep_bits<kKeys>(bits, hsite,
+                       (uint32_t)seq * (uint32_t)lq + tile * 16 + g, lk,
+                       lane);
+      // the same bits, row-major, for phase 2 (whose threads hold keys as
+      // rows): one word a (row, 32 keys), OR-ed over the quad
+#pragma unroll
+      for (int w = 0; w < kKeys / 32; ++w)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          uint32_t word = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = (4 * w + j) * 4 + 2 * hr + e;
+              word |= ((bits[i >> 5] >> (i & 31)) & 1u)
+                      << (j * 8 + 2 * t + e);
+            }
+          word |= __shfl_xor_sync(0xffffffffu, word, 1);
+          word |= __shfl_xor_sync(0xffffffffu, word, 2);
+          if (t == 0) Ms[(tile * 16 + g + 8 * hr) * kMaskLd<kKeys> + w] = word;
+        }
+    }
+    uint32_t da_frag[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(da_frag[kk], a_addr<LD>(dOs, tile * 16, kk * 16, lane));
+    // dP of 16 keys: dO V^T, times the keep mask
+    auto dp_chunk = [&](int np, float (&dp)[2][4]) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dp[j][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, bn_addr<LD>(Vs, np * 16, kk * 16, lane));
+        mma_bf16(dp[0], da_frag[kk], b[0], b[1]);
+        mma_bf16(dp[1], da_frag[kk], b[2], b[3]);
+      }
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            dp[j][r] *= keep_of<kKeys>(bits, (2 * np + j) * 4 + r,
+                                       hsite.scale);
+      }
+    };
+    float row0 = 0.f, row1 = 0.f;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      float dp[2][4];
+      dp_chunk(np, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        row0 += dp[j][0] * a[2 * np + j][0] + dp[j][1] * a[2 * np + j][1];
+        row1 += dp[j][2] * a[2 * np + j][2] + dp[j][3] * a[2 * np + j][3];
+      }
+    }
+    row0 = quad_sum(row0);
+    row1 = quad_sum(row1);
+    if (t == 0) {
+      rs[tile * 16 + g] = row0;
+      rs[tile * 16 + g + 8] = row1;
+    }
+    // ds = bf16(a * (da - row)); dQ += ds K
+    float dq[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dq[nd][r] = 0.f;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      float dp[2][4];
+      dp_chunk(np, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dp[j][r] = a[2 * np + j][r] * (dp[j][r] - (r < 2 ? row0 : row1));
+      uint32_t sa[4];
+      acc_to_a(sa, dp[0], dp[1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr<LD>(Ks, np * 16, dd * 16, lane));
+        mma_bf16(dq[2 * dd], sa, b[0], b[1]);
+        mma_bf16(dq[2 * dd + 1], sa, b[2], b[3]);
+      }
+    }
+    const float scale = args.scale;
+    store_tile<D>(St, dq, [&](float x, int) { return x * scale; },
+                  args.dq + seq * args.dq_seq + h * D, args.dq_row, tile * 16,
+                  lq, lane);
   }
+  __syncthreads();  // m, l, row of every query row
+
+  // ---- phase 2: key rows ----
+  for (int kt = warp; kt < lk16 / 16; kt += kBwdWarps) {
+    uint32_t ka[D / 16][4], va[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldsm_x4(ka[kk], a_addr<LD>(Ks, kt * 16, kk * 16, lane));
+      ldsm_x4(va[kk], a_addr<LD>(Vs, kt * 16, kk * 16, lane));
+    }
+    float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dk[nd][r] = dv[nd][r] = 0.f;
+    const int key0 = kt * 16 + g;
+    for (int qc = 0; qc < lq16; qc += 16) {
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) st[j][r] = dpt[j][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, bn_addr<LD>(Qs, qc, kk * 16, lane));
+        mma_bf16(st[0], ka[kk], b[0], b[1]);
+        mma_bf16(st[1], ka[kk], b[2], b[3]);
+        ldsm_x4(b, bn_addr<LD>(dOs, qc, kk * 16, lane));
+        mma_bf16(dpt[0], va[kk], b[0], b[1]);
+        mma_bf16(dpt[1], va[kk], b[2], b[3]);
+      }
+      // st -> a [* keep], dpt -> ds, keys as rows
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int q = qc + j * 8 + 2 * t + (r & 1);
+          const int key = key0 + (r >> 1) * 8;
+          float ad = 0.f, ds = 0.f;
+          if (q < lq && key < lk) {
+            const float a =
+                exp2_ftz(__fmul_rn(st[j][r], sl2e) - ms[q]) / ls[q];
+            float mk = 1.f;
+            if constexpr (kDrop)
+              mk = (Ms[q * kMaskLd<kKeys> + (key >> 5)] >> (key & 31)) & 1u
+                       ? hsite.scale
+                       : 0.f;
+            ad = a * mk;
+            ds = a * (dpt[j][r] * mk - rs[q]);
+          }
+          st[j][r] = ad;
+          dpt[j][r] = ds;
+        }
+      uint32_t aa[4], sa[4];
+      acc_to_a(aa, st[0], st[1]);
+      acc_to_a(sa, dpt[0], dpt[1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        ldsm_x4_t(b, bt_addr<LD>(dOs, qc, dd * 16, lane));
+        mma_bf16(dv[2 * dd], aa, b[0], b[1]);
+        mma_bf16(dv[2 * dd + 1], aa, b[2], b[3]);
+        ldsm_x4_t(b, bt_addr<LD>(Qs, qc, dd * 16, lane));
+        mma_bf16(dk[2 * dd], sa, b[0], b[1]);
+        mma_bf16(dk[2 * dd + 1], sa, b[2], b[3]);
+      }
+    }
+    const float scale = args.scale;
+    store_tile<D>(St, dk, [&](float x, int) { return x * scale; },
+                  args.dk + seq * args.dkv_seq + h * D, args.dkv_row, kt * 16,
+                  lk, lane);
+    store_tile<D>(St, dv, [](float x, int) { return x; },
+                  args.dv + seq * args.dkv_seq + h * D, args.dkv_row, kt * 16,
+                  lk, lane);
+  }
+}
+
+template <int D, int kKeys, bool kDrop>
+int launch_bwd(const BwdArgs& a, int n_seq, int n_heads, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<D, kKeys, kDrop>((a.lq + 15) & ~15);
+  auto kernel = attn_bwd_kernel<D, kKeys, kDrop>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(n_seq, n_heads), kBwdWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool kDrop>
-int launch_attn_bwd(const AttnBwdArgs& args, cudaStream_t stream) {
-  const int lk_pad = (args.lk + 15) & ~15;
-  const int lq_pad = (args.lq + 15) & ~15;
-  const size_t smem_a = (size_t)2 * lk_pad * (64 + 8) * sizeof(bf16) +
-                        (size_t)(kThreads / 32) * bwd_q_region_bytes<64>();
-  const size_t smem_b = bwd_kv_smem_bytes<64>(lq_pad);
-  const size_t max_a = (size_t)2 * kMaxL * (64 + 8) * sizeof(bf16) +
-                       (size_t)(kThreads / 32) * bwd_q_region_bytes<64>();
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<64, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_a);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_bwd_dkv_kernel<64, kDrop>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bwd_kv_smem_bytes<64>(kMaxL));
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid_a(args.n_seq, args.n_heads,
-                    (args.lq + kAttnRows - 1) / kAttnRows);
-  attn_bwd_dq_kernel<64, kDrop><<<grid_a, kThreads, smem_a, stream>>>(args);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid_b(args.n_seq, args.n_heads,
-                    (args.lk + kAttnRows - 1) / kAttnRows);
-  attn_bwd_dkv_kernel<64, kDrop><<<grid_b, kThreads, smem_b, stream>>>(args);
-  return (int)cudaGetLastError();
+int launch_attn_bwd(const BwdArgs& a, int n_seq, int n_heads, int head_dim,
+                    cudaStream_t stream) {
+  return with_tier(a.lk, [&](auto tier) {
+    constexpr int kKeys = decltype(tier)::value;
+    return head_dim == 32
+               ? launch_bwd<32, kKeys, kDrop>(a, n_seq, n_heads, stream)
+               : launch_bwd<64, kKeys, kDrop>(a, n_seq, n_heads, stream);
+  });
+}
+
+bool bad_geometry(int n_seq, int lq, int lk, int n_heads, int head_dim) {
+  return (head_dim != 32 && head_dim != 64) || n_seq <= 0 || lq <= 0 ||
+         lk <= 0 || lq > kMaxL || lk > kMaxL || n_heads <= 0 ||
+         n_heads > 65535 || (long long)n_seq * n_heads > 0x7fffffffLL;
+}
+
+FwdArgs fwd_args(const void* q, const void* k, const void* v, void* o,
+                 void* probs, int n_seq, int lq, int lk, int n_heads,
+                 int head_dim,
+                 long long q_row, long long q_seq, long long kv_row,
+                 long long kv_seq, float scale_log2e) {
+  FwdArgs a{};
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.o = (bf16*)o;
+  a.probs = (float*)probs;
+  a.n_items = n_seq * n_heads;
+  a.lq = lq;
+  a.lk = lk;
+  a.n_heads = n_heads;
+  a.o_row = n_heads * head_dim;
+  a.q_row = q_row;
+  a.q_seq = q_seq;
+  a.kv_row = kv_row;
+  a.kv_seq = kv_seq;
+  a.scale_log2e = scale_log2e;
+  return a;
 }
 
 }  // namespace
@@ -687,12 +909,12 @@ int nylon_attention(const void* q, const void* k, const void* v, void* o,
                     int n_seq, int lq, int lk, int n_heads, int head_dim,
                     long long q_row, long long q_seq, long long kv_row,
                     long long kv_seq, float scale_log2e, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxL ||
-      n_heads <= 0 || n_heads > 65535)
+  if (bad_geometry(n_seq, lq, lk, n_heads, head_dim))
     return (int)cudaErrorInvalidValue;
-  return launch_attention<false, false>(q, k, v, o, nullptr, n_seq, lq, lk,
-                                        n_heads, q_row, q_seq, kv_row, kv_seq,
-                                        scale_log2e, 0u, 0, DropSite{},
+  const FwdArgs a = fwd_args(q, k, v, o, nullptr, n_seq, lq, lk, n_heads,
+                             head_dim, q_row, q_seq, kv_row, kv_seq,
+                             scale_log2e);
+  return launch_attention<false, false>(a, head_dim,
                                         (cudaStream_t)stream);
 }
 
@@ -703,12 +925,12 @@ int nylon_attention_probs(const void* q, const void* k, const void* v,
                           int n_heads, int head_dim, long long q_row,
                           long long q_seq, long long kv_row, long long kv_seq,
                           float scale_log2e, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxL ||
-      n_heads <= 0 || n_heads > 65535 || probs == nullptr)
+  if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) || probs == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_attention<false, true>(q, k, v, o, probs, n_seq, lq, lk,
-                                       n_heads, q_row, q_seq, kv_row, kv_seq,
-                                       scale_log2e, 0u, 0, DropSite{},
+  const FwdArgs a = fwd_args(q, k, v, o, probs, n_seq, lq, lk, n_heads,
+                             head_dim, q_row, q_seq, kv_row, kv_seq,
+                             scale_log2e);
+  return launch_attention<false, true>(a, head_dim,
                                        (cudaStream_t)stream);
 }
 
@@ -721,61 +943,62 @@ int nylon_attention_drop(const void* q, const void* k, const void* v, void* o,
                          long long kv_seq, float scale_log2e,
                          unsigned seed_mix, int head_tag0, unsigned thresh,
                          float scale, int half, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxL ||
-      n_heads <= 0 || n_heads > 65535 || (half && 2 * half != lk))
+  if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) ||
+      (half && 2 * half != lk))
     return (int)cudaErrorInvalidValue;
-  return launch_attention<true, false>(
-      q, k, v, o, nullptr, n_seq, lq, lk, n_heads, q_row, q_seq, kv_row,
-      kv_seq, scale_log2e, seed_mix, head_tag0,
-      DropSite{0u, thresh, scale, half, 0u}, (cudaStream_t)stream);
+  FwdArgs a = fwd_args(q, k, v, o, nullptr, n_seq, lq, lk, n_heads,
+                       head_dim, q_row, q_seq, kv_row, kv_seq, scale_log2e);
+  a.seed_mix = seed_mix;
+  a.head_tag0 = head_tag0;
+  a.site = DropSite{0u, thresh, scale, half, 0u};
+  return launch_attention<true, false>(a, head_dim,
+                                       (cudaStream_t)stream);
 }
 
 // Attention backward of n_seq sequences on strided head-interleaved views
 // (row strides in elements, sequence stride = rows x row stride): dq [*, H*D]
-// and dk/dv sharing dkv_row; stats is f32 scratch [3, n_seq, H, lq]. With
-// active, head h's probabilities carry the keep mask of tag head_tag0 + h.
+// and dk/dv sharing dkv_row. With active, head h's probabilities carry the
+// keep mask of tag head_tag0 + h.
 int nylon_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, void* dq, void* dk, void* dv,
-                        void* stats, int n_seq, int lq, int lk, int n_heads,
-                        int head_dim, long long q_row, long long kv_row,
-                        long long do_row, long long dq_row, long long dkv_row,
-                        float scale, float scale_log2e, int active,
-                        unsigned seed_mix, int head_tag0, unsigned thresh,
-                        float pscale, int half, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lq > kMaxL ||
-      lk > kMaxL || n_heads <= 0 || n_heads > 65535 ||
+                        int n_seq, int lq, int lk, int n_heads, int head_dim,
+                        long long q_row, long long kv_row, long long do_row,
+                        long long dq_row, long long dkv_row, float scale,
+                        float scale_log2e, int active, unsigned seed_mix,
+                        int head_tag0, unsigned thresh, float pscale, int half,
+                        void* stream) {
+  if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) ||
       (half && 2 * half != lk))
     return (int)cudaErrorInvalidValue;
-  AttnBwdArgs args{};
-  args.q = (const bf16*)q;
-  args.k = (const bf16*)k;
-  args.v = (const bf16*)v;
-  args.dout = (const bf16*)dout;
-  args.dq = (bf16*)dq;
-  args.dk = (bf16*)dk;
-  args.dv = (bf16*)dv;
-  args.stats = (float*)stats;
-  args.n_seq = n_seq;
-  args.n_heads = n_heads;
-  args.lq = lq;
-  args.lk = lk;
-  args.q_row = q_row;
-  args.q_seq = q_row * lq;
-  args.kv_row = kv_row;
-  args.kv_seq = kv_row * lk;
-  args.do_row = do_row;
-  args.do_seq = do_row * lq;
-  args.dq_row = dq_row;
-  args.dq_seq = dq_row * lq;
-  args.dkv_row = dkv_row;
-  args.dkv_seq = dkv_row * lk;
-  args.scale = scale;
-  args.scale_log2e = scale_log2e;
-  args.seed_mix = seed_mix;
-  args.head_tag0 = head_tag0;
-  args.site = DropSite{0u, thresh, pscale, half, 0u};
-  return active ? launch_attn_bwd<true>(args, (cudaStream_t)stream)
-                : launch_attn_bwd<false>(args, (cudaStream_t)stream);
+  BwdArgs a{};
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.dout = (const bf16*)dout;
+  a.dq = (bf16*)dq;
+  a.dk = (bf16*)dk;
+  a.dv = (bf16*)dv;
+  a.lq = lq;
+  a.lk = lk;
+  a.q_row = q_row;
+  a.q_seq = q_row * lq;
+  a.kv_row = kv_row;
+  a.kv_seq = kv_row * lk;
+  a.do_row = do_row;
+  a.do_seq = do_row * lq;
+  a.dq_row = dq_row;
+  a.dq_seq = dq_row * lq;
+  a.dkv_row = dkv_row;
+  a.dkv_seq = dkv_row * lk;
+  a.scale = scale;
+  a.scale_log2e = scale_log2e;
+  a.seed_mix = seed_mix;
+  a.head_tag0 = head_tag0;
+  a.site = DropSite{0u, thresh, pscale, half, 0u};
+  return active ? launch_attn_bwd<true>(a, n_seq, n_heads, head_dim,
+                                        (cudaStream_t)stream)
+                : launch_attn_bwd<false>(a, n_seq, n_heads, head_dim,
+                                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -99,10 +99,10 @@ _SIGNATURES = {
     "nylon_wgrad": [_P] * 4 + [_I] * 5 + [_P],
     # parts, out, P, n, stream
     "nylon_reduce_rows": [_P, _P, _I, _L, _P],
-    # q, k, v, dout, dq, dk, dv, stats, n_seq, lq, lk, n_heads, head_dim,
-    # q_row, kv_row, do_row, dq_row, dkv_row, scale, scale_log2e, active,
-    # seed_mix, head_tag0, thresh, pscale, half, stream
-    "nylon_attention_bwd": [_P] * 8 + [_I] * 5 + [_L] * 5
+    # q, k, v, dout, dq, dk, dv, n_seq, lq, lk, n_heads, head_dim, q_row,
+    # kv_row, do_row, dq_row, dkv_row, scale, scale_log2e, active, seed_mix,
+    # head_tag0, thresh, pscale, half, stream
+    "nylon_attention_bwd": [_P] * 7 + [_I] * 5 + [_L] * 5
     + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
     # x, ld_x, M, K, n_seg, q, s, stream
     "nylon_q8_quant_rows": [_P, _L, _I, _I, _I, _P, _P, _P],

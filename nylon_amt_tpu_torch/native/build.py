@@ -29,20 +29,30 @@ def _lib_path() -> str:
 
 
 def build(force: bool = False) -> str | None:
-    """Compile decoder.cpp -> cached .so; returns the path or None."""
+    """Compile decoder.cpp -> cached .so; returns the path or None.
+
+    g++ writes a file of its own in the cache directory, which then
+    replaces the library in one ``os.replace``: processes that build at
+    once each install a whole library, and none can load a half-written
+    one."""
     out = _lib_path()
     if os.path.exists(out) and not force:
         return out
     if not os.path.exists(_SRC):
         return None
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", out]
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
+        os.replace(tmp, out)
+    except (subprocess.SubprocessError, FileNotFoundError, OSError) as e:
         print(f"nylon_amt_tpu_torch: native decoder build failed ({e}); "
               "using Python fallback", file=sys.stderr)
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 
@@ -61,7 +71,14 @@ def load_decoder_library():
         try:
             lib = ctypes.CDLL(path)
         except OSError:
-            return None
+            # a library left by an interrupted build: rebuild once
+            path = build(force=True)
+            if path is None:
+                return None
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                return None
         fn = lib.nylon_decode_notes
         fn.restype = ctypes.c_int
         fn.argtypes = [

@@ -35,8 +35,8 @@ from the unrounded f32 ``p``, ``bf16(p [* keep]) @ V`` in f32, and the
 ``a * keep``) to the compute dtype before their products. K12's mask of
 head ``h`` is :func:`hash_keep_mask` with the raw tag ``h`` on the ``(N,
 Lq, Lk)`` probabilities. A CPU tensor takes the plain versions; a CUDA
-tensor launches ``csrc/mha.cu`` (bf16, head_dim 64, at most 256 queries
-and keys) or raises.
+tensor launches ``csrc/mha.cu`` (bf16, head_dim 32 or 64, at most 256
+queries and keys) or raises.
 """
 
 from __future__ import annotations
@@ -44,8 +44,7 @@ from __future__ import annotations
 import torch
 
 from nylon_amt_tpu_torch import kernels
-from nylon_amt_tpu_torch.ops.layer_fused import (
-    _LOG2E, KERNEL_HEAD_DIM, KERNEL_MAX_KEYS)
+from nylon_amt_tpu_torch.ops.layer_fused import _LOG2E, check_geometry
 from nylon_amt_tpu_torch.ops.precision import full_f32
 
 _U32 = 0xFFFFFFFF
@@ -289,19 +288,13 @@ def _check(name, q, k, v, n_heads):
     if k.shape != v.shape or k.shape[0] != n or k.shape[2] != hid:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if hid != KERNEL_HEAD_DIM * n_heads:
-        raise ValueError(f"{name}: the kernels take head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {hid} over {n_heads} heads")
-    if max(lq, k.shape[1]) > KERNEL_MAX_KEYS:   # the backward holds Q too
-        raise ValueError(f"{name}: the kernels take at most "
-                         f"{KERNEL_MAX_KEYS} queries and keys, got {lq} and "
-                         f"{k.shape[1]}")
+    check_geometry(name, hid, n_heads, lq, k.shape[1])
 
 
 def _geometry(q, k, n_heads, scale):
     n, lq, hid = q.shape
     lk = k.shape[1]
-    return (n, lq, lk, n_heads, KERNEL_HEAD_DIM, hid, lq * hid, hid, lk * hid,
+    return (n, lq, lk, n_heads, hid // n_heads, hid, lq * hid, hid, lk * hid,
             scale * _LOG2E)
 
 
@@ -333,16 +326,14 @@ def _bwd_cuda(q, k, v, do, n_heads, scale, rate, seed):
     n, lq, hid = q.shape
     lk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((3, n, n_heads, lq), dtype=torch.float32,
-                        device=q.device)
     active = rate > 0.0
     thresh, keep, half = (site_constants(rate, lk, torch.float32) if active
                           else (0, 0.0, 0))
     with torch.cuda.device(q.device):
         kernels.call("nylon_attention_bwd", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), n, lq,
-                     lk, n_heads, KERNEL_HEAD_DIM, hid, hid, hid, hid, hid,
+                     dk.data_ptr(), dv.data_ptr(), n, lq, lk, n_heads,
+                     hid // n_heads, hid, hid, hid, hid, hid,
                      scale, scale * _LOG2E, int(active), seed_mix(seed), 0,
                      thresh, keep, half, kernels.stream_of(q))
     return dq, dk, dv

@@ -39,9 +39,27 @@ _LN_EPS = 1e-5  # torch nn.LayerNorm default, the reference's eps
 _LOG2E = 1.4426950408889634
 
 # What the CUDA kernels take (csrc/layer_fused.cu, csrc/mha.cu).
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_HID = 256   # the LayerNorm epilogue owns a full row
-KERNEL_MAX_KEYS = 256  # K and V of a sequence sit in shared memory
+KERNEL_MAX_KEYS = 256  # Q, K and V of a (sequence, head) sit in shared memory
+
+
+def check_geometry(name: str, hid: int, n_heads: int, lq: int, lk: int,
+                   pf: int | None = None) -> None:
+    """Raise unless the bf16 kernels take ``n_heads`` heads over ``hid``
+    with ``lq`` queries and ``lk`` keys a sequence, and with ``pf`` (a
+    layer's FFN width) the layer kernels' widths."""
+    bad = (hid % n_heads or hid // n_heads not in KERNEL_HEAD_DIMS
+           or max(lq, lk) > KERNEL_MAX_KEYS)
+    if pf is not None:
+        bad = bad or hid > KERNEL_MAX_HID or pf % 32
+    if bad:
+        raise ValueError(
+            f"{name}: kernels need head_dim in {KERNEL_HEAD_DIMS}, <= "
+            f"{KERNEL_MAX_KEYS} queries and keys"
+            + ("" if pf is None else f", hid <= {KERNEL_MAX_HID} and pf % 32 "
+               f"== 0") + f"; got hid {hid}, {n_heads} heads, {lq} queries, "
+            f"{lk} keys" + ("" if pf is None else f", pf {pf}"))
 
 
 class EncoderLayerParams(NamedTuple):
@@ -267,17 +285,12 @@ def _check_kernel_args(name, acts, p, fields, n_heads, lk):
     geometry."""
     for act_name, t in acts:
         kernels.check_cuda(f"{name}: {act_name}", t, torch.bfloat16, ndim=3)
-    n, _, hid = acts[0][1].shape
+    n, lq, hid = acts[0][1].shape
     if any(t.shape[0] != n or t.shape[2] != hid for _, t in acts):
         raise ValueError(f"{name}: activations disagree on n or hid: "
                          f"{[tuple(t.shape) for _, t in acts]}")
     pf = p.w1.shape[1]
-    if (hid % n_heads or hid // n_heads != KERNEL_HEAD_DIM
-            or hid > KERNEL_MAX_HID or pf % 32 or lk > KERNEL_MAX_KEYS):
-        raise ValueError(
-            f"{name}: kernels need head_dim {KERNEL_HEAD_DIM}, hid <= "
-            f"{KERNEL_MAX_HID}, pf % 32 == 0 and <= {KERNEL_MAX_KEYS} keys; "
-            f"got hid {hid}, {n_heads} heads, pf {pf}, {lk} keys")
+    check_geometry(name, hid, n_heads, lq, lk, pf)
     shapes = weight_shapes(hid, pf)
     for f in fields:
         t = getattr(p, f)

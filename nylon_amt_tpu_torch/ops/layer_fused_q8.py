@@ -351,6 +351,20 @@ def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads):
     return out
 
 
+def check_geometry(name: str, hid: int, n_heads: int, pf: int,
+                   lk: int) -> None:
+    """Raise unless the int8 kernels take this layer geometry (head_dim 64
+    only: the attention of ``csrc/layer_fused_q8.cu`` is its own)."""
+    if (hid % n_heads or hid // n_heads != KERNEL_HEAD_DIM
+            or hid > KERNEL_MAX_HID or pf % KERNEL_K_STEP
+            or pf > KERNEL_MAX_ROW or lk > KERNEL_MAX_KEYS):
+        raise ValueError(
+            f"{name}: kernels need head_dim {KERNEL_HEAD_DIM}, hid <= "
+            f"{KERNEL_MAX_HID}, pf % {KERNEL_K_STEP} == 0 and <= "
+            f"{KERNEL_MAX_ROW}, <= {KERNEL_MAX_KEYS} keys; got hid {hid}, "
+            f"{n_heads} heads, pf {pf}, {lk} keys")
+
+
 def _check_kernel_args(name, acts, p, fields, n_heads, lk):
     """Raise unless the kernels take these activations, weights and
     geometry."""
@@ -361,14 +375,7 @@ def _check_kernel_args(name, acts, p, fields, n_heads, lk):
         raise ValueError(f"{name}: activations disagree on n or hid: "
                          f"{[tuple(t.shape) for _, t in acts]}")
     pf = p.w1.shape[1]
-    if (hid % n_heads or hid // n_heads != KERNEL_HEAD_DIM
-            or hid > KERNEL_MAX_HID or pf % KERNEL_K_STEP
-            or pf > KERNEL_MAX_ROW or lk > KERNEL_MAX_KEYS):
-        raise ValueError(
-            f"{name}: kernels need head_dim {KERNEL_HEAD_DIM}, hid <= "
-            f"{KERNEL_MAX_HID}, pf % {KERNEL_K_STEP} == 0 and <= "
-            f"{KERNEL_MAX_ROW}, <= {KERNEL_MAX_KEYS} keys; got hid {hid}, "
-            f"{n_heads} heads, pf {pf}, {lk} keys")
+    check_geometry(name, hid, n_heads, pf, lk)
     shapes = lf.weight_shapes(hid, pf)
     for f in fields:
         t = getattr(p, f)

@@ -540,15 +540,13 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
     if k.stride(0) != v.stride(0) or dk.stride(0) != dv.stride(0):
         raise ValueError("attention backward: k/v and dk/dv must share "
                          "their row strides")
-    stats = torch.empty((3, n, n_heads, lq), dtype=torch.float32,
-                        device=q.device)
     active = rate > 0.0
     thresh, keep, half = (site_constants(rate, lk, torch.float32) if active
                           else (0, 0.0, 0))
     scale = _scale(hid, n_heads)
     kernels.call("nylon_attention_bwd", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), stats.data_ptr(), n, lq, lk, n_heads,
+                 dv.data_ptr(), n, lq, lk, n_heads,
                  hid // n_heads, q.stride(0), k.stride(0), do.stride(0),
                  dq.stride(0), dk.stride(0), scale, scale * _LOG2E,
                  int(active), seed_mix(seed), _head_tag(tag_base, 0), thresh,
@@ -629,7 +627,7 @@ def _weight_grad(a, dy):
     chunks, then a reduction in chunk order."""
     m, ka = a.shape
     n = dy.shape[1]
-    tiles = (ka // 128) * (n // 128)
+    tiles = -(-ka // 128) * -(-n // 128)
     blocks = _WGRAD_WAVES * _WGRAD_BLOCKS_PER_SM * _sm_count(a.device.index)
     chunks = max(1, -(-blocks // tiles))
     rows = -(-(-(-m // chunks)) // 32) * 32
@@ -651,14 +649,7 @@ def _check(name, acts, p, n_heads, max_len):
         raise ValueError(f"{name}: activations disagree on n or hid: "
                          f"{[tuple(t.shape) for _, t in acts]}")
     pf = p.w1.shape[1]
-    if (hid % n_heads or hid // n_heads != lf.KERNEL_HEAD_DIM
-            or hid > lf.KERNEL_MAX_HID or hid % 128 or pf % 128
-            or max_len > lf.KERNEL_MAX_KEYS):
-        raise ValueError(
-            f"{name}: kernels need head_dim {lf.KERNEL_HEAD_DIM}, hid <= "
-            f"{lf.KERNEL_MAX_HID}, hid and pf multiples of 128 and sequences "
-            f"of <= {lf.KERNEL_MAX_KEYS}; got hid {hid}, {n_heads} heads, "
-            f"pf {pf}, length {max_len}")
+    lf.check_geometry(name, hid, n_heads, max_len, max_len, pf)
     shapes = lf.weight_shapes(hid, pf)
     for f, t in zip(p._fields, p):
         if t.device != acts[0][1].device or t.dtype != torch.float32:

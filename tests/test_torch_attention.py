@@ -59,29 +59,31 @@ def _bf16_values(a):
                     .astype(jnp.float32))
 
 
-def _run(kind, lk, dtype, seed=0, with_jax=True):
+def _run(kind, lk, dtype, seed=0, with_jax=True, d=D):
     """(JAX, port) ``(outputs, (dq, dk, dv))`` as f32 numpy for the loss
-    sum(out * co) [+ sum(probs * cp)]; JAX's None without ``with_jax``."""
+    sum(out * co) [+ sum(probs * cp)] at head_dim ``d``; JAX's None without
+    ``with_jax``."""
     rng = np.random.default_rng(seed)
-    qkv = [_bf16_values(rng.standard_normal((N, L, HID)))
+    hid, scale = HEADS * d, 1.0 / math.sqrt(d)
+    qkv = [_bf16_values(rng.standard_normal((N, L, hid)))
            for L in (LQ, lk, lk)]
-    co = rng.standard_normal((N, LQ, HID)).astype(np.float32)
+    co = rng.standard_normal((N, LQ, hid)).astype(np.float32)
     cp = rng.standard_normal((N, HEADS, LQ, lk)).astype(np.float32)
     jdt, tdt = {"f32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
 
     if kind == "fused_mha":
-        jfn = lambda q, k, v: (jatt.fused_mha(q, k, v, HEADS, SCALE, True),)
-        tfn = lambda q, k, v: (tatt.fused_mha(q, k, v, HEADS, SCALE),)
+        jfn = lambda q, k, v: (jatt.fused_mha(q, k, v, HEADS, scale, True),)
+        tfn = lambda q, k, v: (tatt.fused_mha(q, k, v, HEADS, scale),)
     elif kind == "fused_mha_with_probs":
         jfn = lambda q, k, v: jatt.fused_mha_with_probs(q, k, v, HEADS,
-                                                        SCALE, True)
+                                                        scale, True)
         tfn = lambda q, k, v: tatt.fused_mha_with_probs(q, k, v, HEADS,
-                                                        SCALE)
+                                                        scale)
     else:
         jfn = lambda q, k, v: (jatt.fused_mha_dropout(
-            q, k, v, HEADS, SCALE, RATE, True, jnp.int32(SEED)),)
-        tfn = lambda q, k, v: (tatt.fused_mha_dropout(q, k, v, HEADS, SCALE,
+            q, k, v, HEADS, scale, RATE, True, jnp.int32(SEED)),)
+        tfn = lambda q, k, v: (tatt.fused_mha_dropout(q, k, v, HEADS, scale,
                                                       RATE, SEED),)
     cots = (co, cp)
 
@@ -114,6 +116,55 @@ def test_matches_jax_f32(kind, lk):
         np.testing.assert_allclose(a, b, atol=atol, err_msg=f"output {i}")
     for name, a, b in zip("qkv", tg, jg):
         np.testing.assert_allclose(a, b, atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("lk", [256, 88])
+@pytest.mark.parametrize("kind", ["fused_mha", "fused_mha_dropout"])
+def test_head_dim_32_matches_jax_f32(kind, lk):
+    """The head width of the default ``ModelConfig()`` (hid 64 over 2
+    heads): the plain ``mha_plain`` / ``mha_bwd_plain``, dropout off and
+    on, against JAX's kernels in interpret mode, at the tolerances of
+    :func:`test_matches_jax_f32`."""
+    (jo, jg), (to, tg) = _run(kind, lk, "f32", d=32)
+    atol = 1e-6 if kind == "fused_mha_dropout" else 2e-5
+    assert to[0].shape == (N, LQ, HEADS * 32)
+    for a, b in zip(to, jo):
+        np.testing.assert_allclose(a, b, atol=atol)
+    for name, a, b in zip("qkv", tg, jg):
+        np.testing.assert_allclose(a, b, atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_kernel_geometry_checks_by_head_dim(d):
+    """The bf16 kernels (engine layers, training layers, per-site
+    attention) take head_dim 32 and 64; the int8 layers keep their own
+    attention and take 64 only. Each check raises on what it does not
+    take, on the CPU, before any launch."""
+    from nylon_amt_tpu_torch.ops import layer_fused as tlf
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as tlq
+
+    heads = 2
+    hid = heads * d
+    bf16_ok, int8_ok = d in (32, 64), d == 64
+    checks = {
+        "layer": lambda: tlf.check_geometry("layer", hid, heads, 88, 256,
+                                            2 * hid),
+        "attention": lambda: tlf.check_geometry("attention", hid, heads,
+                                                256, 256),
+        "int8 layer": lambda: tlq.check_geometry("q8", hid, heads, 128, 256),
+    }
+    for name, check in checks.items():
+        ok = int8_ok if name == "int8 layer" else bf16_ok
+        if ok:
+            check()
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                check()
+    # more than 256 queries or keys, or an FFN off the 32-column grid
+    with pytest.raises(ValueError):
+        tlf.check_geometry("attention", 128, 2, 257, 256)
+    with pytest.raises(ValueError):
+        tlf.check_geometry("layer", 128, 2, 256, 256, 80)
 
 
 @pytest.mark.parametrize("lk", [256, 88])

@@ -248,3 +248,149 @@ def test_hft_parameters_live_on_the_given_device():
     assert model.dtype == torch.float32
     assert HFT(small_config(compute_dtype="bfloat16"), "cpu").dtype == \
         torch.bfloat16
+
+
+# ------------------------------------ the default configuration: head_dim 32 --
+
+def test_default_config_forward_matches_jax():
+    """The default ``ModelConfig()`` (hid 64 over 2 heads, so head_dim 32:
+    the width the CUDA kernels take beside 64): JAX's module against the
+    port's ``HFT.forward`` and ``engine.forward`` (plain versions) on the
+    same weights, f32, at :func:`test_forward_matches_jax_f32`'s 2e-4."""
+    cfg = Config()
+    assert cfg.model.hid_dim // cfg.model.enc_head == 32
+    j_mod = _jax_module(cfg)
+    t_mod, t_eng = _port(cfg)
+    assert set(t_mod) == set(t_eng) == set(j_mod)
+    for k in sorted(j_mod):
+        for name, got in (("HFT.forward", t_mod), ("engine.forward", t_eng)):
+            assert got[k].shape == j_mod[k].shape
+            np.testing.assert_allclose(got[k], j_mod[k], atol=2e-4,
+                                       rtol=2e-4, err_msg=f"{k}: {name}")
+
+
+@pytest.mark.parametrize("dropout,frames", [(0.0, 128), (0.1, 16)])
+def test_default_config_train_step_matches_jax(dropout, frames):
+    """One training step of the default ``ModelConfig()``: the port's loss
+    over its fused training forward (the plain twins of K7-K9, head_dim
+    32) against JAX's over ``make_fused_apply(cfg, interpret=True)``, as
+    ``tests/test_torch_train.py`` holds the small model: loss at rtol 1e-5,
+    every gradient at 5e-4 of its largest |grad|; with dropout, both run
+    JAX's per-layer seeds. Dropout 0.1 runs on windows of 16 frames (16
+    sequences a frequency layer): at 128 frames the f32 gradient of the
+    stem moves by more than 5e-4 when every weight moves by 1e-7 of its
+    value (ReLU gates and LN rows that flip with rounding), in the port
+    alone as between port and JAX (``scripts/probe_default_width_grads.py``
+    prints both, and shows each training layer of both packages equal to
+    JAX's gradient of its own forward at 128 sequences)."""
+    from nylon_amt_tpu.config import InputConfig
+    from nylon_amt_tpu.models import fused_train as jft
+    from nylon_amt_tpu.train import step as jstep
+    from nylon_amt_tpu_torch import config as tconfig
+    from nylon_amt_tpu_torch.train import step as tstep
+
+    jcfg = Config(model=ModelConfig(dropout=dropout),
+                  input=InputConfig(num_frame=frames))
+    tcfg = tconfig.Config(model=tconfig.ModelConfig(dropout=dropout),
+                          input=tconfig.InputConfig(num_frame=frames))
+    assert tcfg.to_dict() == jcfg.to_dict()
+    assert dataclasses.replace(tconfig.ModelConfig(), dropout=dropout) == \
+        tcfg.model
+    rng = np.random.default_rng(0)
+    shape = (1, frames, 88)
+    batch = {"spec": rng.standard_normal((1, 256, jcfg.window_frames))
+             .astype(np.float32),
+             "onset": (rng.random(shape) > 0.95).astype(np.float32),
+             "offset": (rng.random(shape) > 0.95).astype(np.float32),
+             "mpe": (rng.random(shape) > 0.7).astype(np.float32),
+             "velocity": rng.integers(0, 128, shape).astype(np.int32),
+             "valid": np.ones(1, np.float32)}
+    params = init_params(jcfg, jax.random.key(1), batch_size=1)
+    key = jax.random.key(7)
+    apply = jft.make_fused_apply(jcfg, interpret=True)
+    (l_j, _), g_j = jax.value_and_grad(
+        lambda p: jstep.loss_fn(jcfg, apply, p,
+                                {k: jnp.asarray(v) for k, v in batch.items()},
+                                key), has_aux=True)(params)
+    model = HFT(tcfg, "cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), tcfg))
+    assert fused_train.supports(tcfg)
+    seeds = {i: int(jax.random.randint(jax.random.fold_in(key, 1000 + i),
+                                       (), 0, 2 ** 31 - 1, dtype=jnp.int32))
+             for i in fused_train.seed_slots(tcfg)}
+    l_t, _ = tstep.loss_fn(tcfg, fused_train.make_fused_apply(tcfg), model,
+                           {k: torch.from_numpy(v) for k, v in batch.items()},
+                           seeds)
+    l_t.backward()
+    np.testing.assert_allclose(l_t.item(), float(l_j), rtol=1e-5)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, g_j), tcfg)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        scale = max(1.0, want[name].abs().max().item())
+        np.testing.assert_allclose(p.grad.numpy() / scale,
+                                   want[name].numpy() / scale, atol=5e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["enc", "dec_zero", "dec"])
+def test_default_width_layer_backward_is_the_forward_gradient(kind):
+    """At the default width (hid 64 over 2 heads of 32, pf 128), dropout
+    0.1 and the 128 sequences a layer sees per window, each training
+    layer's analytic backward twin (the function the CUDA backward is held
+    to on the card) equals autograd through its forward twin: input and
+    weight gradients within 2e-5 of max(1, |grad|) (two f32 orders of the
+    same sums)."""
+    from nylon_amt_tpu_torch.ops import layer_fused as tlf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+
+    m = ModelConfig()
+    hid, pf, heads, n, seed, rate = m.hid_dim, m.pf_dim, m.enc_head, 128, \
+        1_234_567, 0.1
+    rng = np.random.default_rng(2)
+    cls = {"enc": tlf.EncoderLayerParams, "dec_zero": tlt.DecZeroParams,
+           "dec": tlt.DecLayerParams}[kind]
+    shapes = tlf.weight_shapes(hid, pf)
+
+    def weight(f):
+        if f == "g":
+            return 1.0 + 0.1 * rng.standard_normal(hid)
+        if f == "b" or f.startswith("b"):
+            return 0.1 * rng.standard_normal(shapes[f])
+        return rng.standard_normal(shapes[f]) / math.sqrt(shapes[f][0])
+
+    w = {f: torch.tensor(weight(f), dtype=torch.float32)
+         for f in cls._fields}
+    lq = 256 if kind == "enc" else 88
+    acts = [torch.from_numpy(rng.standard_normal((n, lq, hid))
+                             .astype(np.float32))]
+    if kind != "enc":
+        acts.append(torch.from_numpy(rng.standard_normal((n, 256, hid))
+                                     .astype(np.float32)))
+    dz = torch.from_numpy(rng.standard_normal((n, lq, hid))
+                          .astype(np.float32))
+    ins = [a.clone().requires_grad_() for a in acts]
+    p = cls(**{f: t.clone().requires_grad_() for f, t in w.items()})
+    if kind == "enc":
+        z = tlt.encoder_layer_train_plain(ins[0], p, seed, heads, rate)
+        dx, grads = tlt.encoder_layer_train_bwd_plain(
+            acts[0], cls(**w), seed, dz, heads, rate)
+        analytic = [dx]
+    elif kind == "dec_zero":
+        z = tlt.decoder_layer_zero_train_plain(*ins, p, seed, heads, rate)
+        *analytic, grads = tlt.decoder_layer_zero_train_bwd_plain(
+            *acts, cls(**w), seed, dz, heads, rate)
+    else:
+        z = tlt.decoder_layer_train_plain(*ins, p, seed, heads, rate)
+        *analytic, grads = tlt.decoder_layer_train_bwd_plain(
+            *acts, cls(**w), seed, dz, heads, rate)
+    z.backward(dz)
+    pairs = [(f"d{i}", a, t.grad) for i, (a, t) in enumerate(zip(analytic,
+                                                                  ins))]
+    pairs += [(f, getattr(grads, f), getattr(p, f).grad) for f in cls._fields]
+    for name, a, auto in pairs:
+        scale = max(1.0, auto.abs().max().item())
+        np.testing.assert_allclose(a.detach().numpy() / scale,
+                                   auto.numpy() / scale, atol=2e-5,
+                                   err_msg=name)
