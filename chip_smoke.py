@@ -80,15 +80,40 @@ non-zero and never prints the last line):
     layers, no per-site kernel), ``cli transcribe --list`` with its
     checkpoint and ``cli evaluate``, with their launch counts.
 
-Every profile ((e), (j), (k), (l), (m)) also prints the device time and
-share of the attention kernels of ``csrc/mha.cu``.
+(n) the default ``Config()`` in float32 (hid 64 over 2 heads: head_dim 32;
+    the f32 kernels of ``csrc/layer_fused_f32.cu``, ``csrc/mha_f32.cu`` and
+    the f32 instantiations of the stem, LayerNorm-backward and int8
+    kernels): (n.1) K10-K12 at D = 32 and 64 at the four site geometries,
+    batch 8: outputs within 2e-5 of max(1, max |plain f32|), input
+    gradients within 1e-4 of max |plain|, K11's probabilities within 1e-6
+    and its output K10's bit for bit, K12's realized masks bit for bit,
+    bit-identical backward runs; times beside f32 SDPA; (n.2) K2-K5 at
+    batch 32 and K7-K9 forward and backward at batch 8, at the default and
+    the paper widths, under the same limits (ReLU gate flips aside), with
+    (h)'s stage hook (every backward kernel on the twin's inputs within
+    1e-5 of the twin's stage); times beside f32 ``torch.matmul`` of the
+    layer's GEMMs; (n.3) K13 at head_dim 32 in bf16 and f32 (quantizers
+    bit for bit, (k)'s gates, and in f32 each kernel on the plain
+    version's own codes); (n.4) the engine's
+    batch-32 f32 forward of ``Config()`` and ``paper_scale()`` against the
+    plain f32 forward (A heads within 2e-5, B heads within 2e-4 of max(1,
+    max |plain|)), the default int8 forward under (k)'s posterior gates,
+    the default f32 train step; (n.5) ``cli train`` (3 steps) ->
+    ``transcribe --list`` -> ``evaluate``, then ``transcribe --int8`` and
+    ``evaluate``, all with no ``--config``, with their launch counts.
+
+Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
+and share of the attention kernels of ``csrc/mha.cu`` and
+``csrc/mha_f32.cu``.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths in IEEE f32, and the script wraps only its own f32
 references in ``full_f32``.
 
 Before the last line it prints the card's name and power limit and one JSON
-object with each kernel's launches (K1-K5 from (d), K6-K9 from (i), K13
+object with, per wrapper, the dtypes and head dims this run held against
+its plain version (``held``), its float32 sources and (n)'s f32 times
+(``f32``), and its launches (K1-K5 from (d), K6-K9 from (i), K13
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
 ``return_attention`` training), error, times and bound (the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
@@ -257,10 +282,11 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
         log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
             f"x{calls}")
     attn = [(name, ms, calls) for name, ms, calls in rows
-            if "attn_fwd_kernel" in name or "attn_bwd_kernel" in name]
+            if "attn_fwd_" in name or "attn_bwd_" in name]
     if attn:
         ms = sum(r[1] for r in attn)
-        log(f"({phase})   attention kernels of csrc/mha.cu: {ms:.3f} ms, "
+        log(f"({phase})   attention kernels of csrc/mha.cu and "
+            f"csrc/mha_f32.cu: {ms:.3f} ms, "
             f"{ms / busy:.1%} of device-busy, "
             f"{sum(r[2] for r in attn)} launches per {what}")
 
@@ -278,6 +304,31 @@ def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0,
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+HELD: dict[str, set] = {}
+
+
+def held(name: str, dt, d: int | None = None) -> None:
+    """Record that this run held wrapper ``name`` against its plain version
+    in dtype ``dt`` at head_dim ``d`` (the ``held`` field of its JSON
+    row)."""
+    label = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+    HELD.setdefault(name.split("/")[0], set()).add(
+        label if d is None else f"{label}/D{d}")
+
+
+def bwd_name(name: str) -> str:
+    """The backward's row name of a layer check ``name`` ("x/time" ->
+    "x_bwd/time")."""
+    base, sep, rest = name.partition("/")
+    return f"{base}_bwd{sep}{rest}"
+
+
+def rel_err(got, want, floor: float = 0.0) -> float:
+    """max |got - want| over max(floor, max |want|)."""
+    top = max(floor, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / top
 
 
 def layer_flops(kind: str, n: int, lq: int, lk: int, hid: int,
@@ -348,6 +399,7 @@ def check_masks(dev) -> dict:
             raise AssertionError(f"K6 mask {shape} {dt}: "
                                  f"{(got != want).sum().item()} elements "
                                  f"differ from the plain version")
+        held("hash_keep_mask", dt)
         log(f"(g) K6 mask {shape} {str(dt)[6:]} "
             f"({'packed' if shape[2] % 256 == 0 else 'unpacked'}): equal to "
             f"the plain version, keep share {(got != 0).float().mean():.5f}")
@@ -366,9 +418,9 @@ def check_masks(dev) -> dict:
     return res
 
 
-def _train_layers(model, dev) -> dict:
-    """The training layers of (h) with the paper model's weights and
-    seeded bf16 activations at the batch-8 shapes: name -> (kind, inputs,
+def _train_layers(model, dev, dtype=torch.bfloat16) -> dict:
+    """The training layers of (h) with ``model``'s weights and seeded
+    activations in ``dtype`` at the batch-8 shapes: name -> (kind, inputs,
     f32 params, emb_drop)."""
     from nylon_amt_tpu_torch.models import fused_train as ft
 
@@ -376,7 +428,7 @@ def _train_layers(model, dev) -> dict:
     hid = model.config.model.hid_dim
 
     def act(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     def det(p):
         return type(p)(*(t.detach().contiguous() for t in p))
@@ -565,6 +617,8 @@ def check_train_layers(model, cfg, dev, k3k5, phase: str = "h",
         w_bytes = nbytes(*p)
         io = nbytes(*xs)
         chain = max(gate[3] for gate in in_gates)
+        held(name, torch.bfloat16, hid // heads)
+        held(bwd_name(name), torch.bfloat16, hid // heads)
         results[name] = dict(
             max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain_ms,
             **bound(io + w_bytes + nbytes(got), flops), library_ms=None,
@@ -696,6 +750,7 @@ def check_layers(cfg, packed, packed32, spec, dev,
             weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
         piece = sdpa_ms(n, lq, lk, heads, dev, backward=False,
                         d=hid // heads)
+        held(name, torch.bfloat16, hid // heads)
         results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **bound(nbytes(*xs, *weights, got),
@@ -713,12 +768,12 @@ def check_layers(cfg, packed, packed32, spec, dev,
     # K2's stem kernel alone (its private entry: these launches count
     # nowhere), on the real windows
     stem = (spec_t, packed.k_eff, packed.b_eff, packed.pos_freq, n_frame)
-    err, ulps = ulp_distance(lf._stem_embed(*stem),
+    err, ulps = ulp_distance(lf._stem_embed(*stem, torch.bfloat16),
                              lf.stem_embed_plain(*stem, torch.bfloat16))
     if not ulps <= ULPS:
         raise AssertionError(f"stem kernel vs plain bf16 {err} = {ulps:.2f} "
                              f"ulps > {ULPS}")
-    stem_ms = cuda_ms(lambda: lf._stem_embed(*stem))
+    stem_ms = cuda_ms(lambda: lf._stem_embed(*stem, torch.bfloat16))
     stem_plain_ms = cuda_ms(lambda: lf.stem_embed_plain(*stem,
                                                         torch.bfloat16))
     log(f"({phase}) K2's stem kernel alone: vs plain bf16 max abs {err:.3e} = "
@@ -838,7 +893,8 @@ def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"({phase}) batch-{cfg.train.batch_size} paper bf16 {what}train step "
+    log(f"({phase}) batch-{cfg.train.batch_size} {cfg.model.compute_dtype} "
+        f"{what}train step "
         f"(dropout {cfg.model.dropout}): {ms:.3f} ms by CUDA events (mean of "
         f"10 after 2), {cfg.train.batch_size / ms * 1e3:.1f} windows/s, peak "
         f"device memory {peak:.2f} GiB; card {card}")
@@ -1014,6 +1070,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
             weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
         b = bound(nbytes(*xs, *weights, got), f32_flops=stem_flops,
                   int8_ops=layer_flops(kind, n, lq_, lk, hid, pf))
+        held(name, torch.bfloat16, hid // heads)
         results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
             library_ms=int_mm_ms(gemms, dev), bf16_kernel_ms=exact_ms,
@@ -1213,15 +1270,16 @@ def site_counts(m) -> tuple[int, int]:
     return att, act
 
 
-def _realized_masks(att, n, lq, lk, heads, d, dev):
-    """The keep pattern K12 applies, read back from its output: with q = 0
-    every probability is 1 / Lk, and V one-hot over d keys at a time puts
-    key j's keep value in output column j mod d of each head."""
-    q = torch.zeros((n, lq, heads * d), dtype=torch.bfloat16, device=dev)
+def _realized_masks(att, n, lq, lk, heads, d, dev, dtype=torch.bfloat16):
+    """The keep pattern K12 applies (in ``dtype``), read back from its
+    output: with q = 0 every probability is 1 / Lk, and V one-hot over d
+    keys at a time puts key j's keep value in output column j mod d of each
+    head."""
+    q = torch.zeros((n, lq, heads * d), dtype=dtype, device=dev)
     keeps = torch.empty((heads, n, lq, lk), dtype=torch.bool, device=dev)
     for t0 in range(0, lk, d):
         w = min(d, lk - t0)
-        v = torch.zeros((n, lk, heads * d), dtype=torch.bfloat16, device=dev)
+        v = torch.zeros((n, lk, heads * d), dtype=dtype, device=dev)
         idx = torch.arange(w, device=dev)
         for h in range(heads):
             v[:, t0 + idx, h * d + idx] = 1.0
@@ -1365,6 +1423,8 @@ def check_attention_kernels(dev, heads: int = 4, hid: int = 256,
                       "K10's backward (the same kernel), so within its "
                       "gates"))
             line.append(f"K11 probs {p_err:.2e}, rows {r_err:.2e}")
+            for name in MHA_SOURCES:
+                held(name, torch.bfloat16, d)
             del o11, probs, p_plain
             # K12's realized masks, bit for bit (batch 8)
             if B == TRAIN_BATCH:
@@ -1792,6 +1852,895 @@ def check_default_config(feat, audio, spec, dev, card, cli_main) -> None:
         f"{f_note:.4f} (3 steps from random weights)")
 
 
+# (n) the default Config() in float32 -------------------------------------
+
+# f32 kernel outputs against the plain f32 version (under full_f32): the
+# same IEEE products, f32 sums in another order; of max(1, max |plain|)
+F32_OUT_REL = 2e-5
+# f32 input and weight gradients: of max |plain|
+F32_GRAD_REL = 1e-4
+# each f32 backward kernel fed the plain twin's own intermediates (the stage
+# hook): of max |the twin's same stage|
+F32_STAGE_REL = 1e-5
+# The chained f32 backward meets one discontinuity, the FFN's ReLU gate: an
+# element whose pre-activation the kernel's forward recompute and the twin
+# put on opposite sides of 0 (both within F32_OUT_REL of 0) passes its
+# whole gradient in one and none in the other, and the attention backward
+# spreads that over its sequence. So the chained input grads are held on
+# the sequences with no such flip, and every flip must sit within
+# F32_OUT_REL x max(1, max |u|) of 0; weight grads (sums over every row)
+# are held end to end when nothing flipped, and by the stage hook always.
+# K11's f32 probabilities, absolute (p / l <= 1)
+F32_PROBS_ATOL = 1e-6
+# the f32 engine forward against the plain f32 forward, of max(1, max
+# |plain|): stage 1 (A heads) as a layer; stage 2 (B heads) runs three more
+# layers on stage 1's output, as in (e) (PERF.md section 2)
+F32_FORWARD_REL = {"A": 2e-5, "B": 2e-4}
+# K13 in f32. Kernel by kernel, each on the plain version's own codes and
+# intermediates: the s8 GEMMs' dequantised outputs bit for bit, the
+# residual + LayerNorm epilogue within F32_OUT_REL (its output codes the
+# plain quantizer's on its own output, bit for bit), the int8 attention
+# with >= Q8_SHARE of the elements within Q8_F32_REL x max |plain| and all
+# within Q8_BUDGET. A whole f32 layer cannot be held that tightly: f32
+# hides no reordering (of l, of the LN sums) behind a bf16 rounding, so
+# each reaches the next quantizer, and a code flipped there moves its row
+# by ~1/127 of the row's scale (the stem layer read 98.2% of its elements
+# within 1e-5 of max |plain q8|, all within 0.039: PERF.md section 2). So
+# each wrapper is held by (k)'s gates: >= Q8_SHARE within 4 bf16 ulps of
+# max |plain q8|, all within Q8_BUDGET, and no further from the exact f32
+# layer than the plain q8 version + Q8_F32_EXACT.
+Q8_F32_REL = 1e-5
+Q8_F32_EXACT = 1e-4
+
+def f32_mm_ms(gemms, dev) -> float:
+    """Time of f32 ``torch.matmul`` (IEEE f32: no TF32) on a layer's GEMM
+    shapes ``[(M, K, N), ...]``, one call each: the library yardstick of
+    the f32 layer kernels (the port never calls it)."""
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    ops = [(torch.randn((m, k), generator=g, device=dev),
+            torch.randn((k, n), generator=g, device=dev)) for m, k, n in gemms]
+    with full_f32():
+        return cuda_ms(lambda: [a @ b for a, b in ops], iters=3)
+
+
+def layer_gemms(kind: str, n: int, lq: int, lk: int, hid: int,
+                pf: int) -> list:
+    """The (M, K, N) of a layer forward's projections."""
+    gemms = [(n * lq, hid, hid), (n * lq, hid, pf), (n * lq, pf, hid)]
+    gemms += ([(n * lq, hid, 3 * hid)] if kind == "enc" else
+              [(n * lq, hid, hid), (n * lk, hid, 2 * hid)])
+    if kind == "dec":
+        gemms += [(n * lq, hid, 3 * hid), (n * lq, hid, hid)]
+    return gemms
+
+
+def check_attention_f32(dev, heads: int, hid: int) -> dict:
+    """(n.1): K10, K11 and K12 in f32 forward and backward against their
+    plain f32 versions at the four site geometries, batch 8: outputs within
+    F32_OUT_REL, input gradients within F32_GRAD_REL, K11's probabilities
+    within F32_PROBS_ATOL and its rows summing to 1, its output K10's bit
+    for bit, K12's realized masks bit for bit, bit-identical backward runs;
+    times at the row shapes of (l) beside f32 SDPA. Returns the times."""
+    import torch.nn.functional as F
+
+    from nylon_amt_tpu_torch.ops import attention as att
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    scale, d = 0.125, hid // heads
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    mask = lambda h, shape: att.hash_keep_mask_plain(   # noqa: E731
+        DROP_SEED, h, 0, shape, RATE, torch.float32, dev)
+    fns = {"fused_mha": (lambda q, k, v: att.fused_mha(q, k, v, heads, scale),
+                         None),
+           "fused_mha_dropout": (lambda q, k, v: att.fused_mha_dropout(
+               q, k, v, heads, scale, RATE, DROP_SEED), mask)}
+    line = []
+    for site, (lq, lk, per) in ATTN_SITES.items():
+        n = TRAIN_BATCH * per
+        q, k, v, do = (torch.randn((n, L, hid), generator=g, device=dev)
+                       for L in (lq, lk, lk, lq))
+        worst = [0.0, 0.0]
+
+        def grads(fn):
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            out = fn(qq, kk, vv)
+            out = out[0] if isinstance(out, tuple) else out
+            return torch.autograd.grad(out, (qq, kk, vv), do)
+
+        for name, (fn, msk) in fns.items():
+            got = fn(q, k, v)
+            with full_f32():
+                want = att.mha_plain(q, k, v, heads, scale, msk)
+                pb = att.mha_bwd_plain(q, k, v, do, heads, scale, msk)
+            e = rel_err(got, want, 1.0)
+            kb, kb2 = grads(fn), grads(fn)
+            if not all(torch.equal(a, b) for a, b in zip(kb, kb2)):
+                raise AssertionError(f"(n) f32 {name} bwd {site}: two runs "
+                                     f"differ")
+            eg = max(rel_err(a, b) for a, b in zip(kb, pb))
+            if not (e <= F32_OUT_REL and eg <= F32_GRAD_REL):
+                raise AssertionError(
+                    f"(n) f32 {name} {site} D{d}: output {e:.2e} (<= "
+                    f"{F32_OUT_REL}), input grads {eg:.2e} (<= "
+                    f"{F32_GRAD_REL}) from the plain f32 version")
+            worst = [max(worst[0], e), max(worst[1], eg)]
+            for n_ in (name, name + "_bwd"):
+                held(n_, torch.float32, d)
+            if name == "fused_mha":
+                k10, k10b = got, kb
+            del got, want, kb, kb2, pb
+        o11, probs = att.fused_mha_with_probs(q, k, v, heads, scale)
+        with full_f32():
+            _, p_plain = att.mha_plain(q, k, v, heads, scale, with_probs=True)
+        p_err = (probs - p_plain).abs().max().item()
+        r_err = (probs.sum(-1) - 1.0).abs().max().item()
+        k11b = grads(lambda a, b, c: att.fused_mha_with_probs(
+            a, b, c, heads, scale))
+        if not (torch.equal(o11, k10) and p_err <= F32_PROBS_ATOL
+                and r_err <= ROW_SUM_ATOL
+                and all(torch.equal(a, b) for a, b in zip(k11b, k10b))):
+            raise AssertionError(
+                f"(n) f32 fused_mha_with_probs {site} D{d}: output equal to "
+                f"K10's {torch.equal(o11, k10)}, probs {p_err:.2e} (<= "
+                f"{F32_PROBS_ATOL}), rows 1 +- {r_err:.2e} (<= "
+                f"{ROW_SUM_ATOL})")
+        held("fused_mha_with_probs", torch.float32, d)
+        held("fused_mha_with_probs_bwd", torch.float32, d)
+        keeps = _realized_masks(att, n, lq, lk, heads, d, dev, torch.float32)
+        for h in range(heads):
+            if not torch.equal(keeps[h], mask(h, (n, lq, lk)) != 0):
+                raise AssertionError(f"(n) f32 K12 {site} D{d}: head {h}'s "
+                                     f"mask differs from the plain one")
+        line.append(f"{site} [{n}, {lq}, {lk}]: out {worst[0]:.2e}, grads "
+                    f"{worst[1]:.2e}, K11 probs {p_err:.2e} rows "
+                    f"{r_err:.2e}, K12 masks bit-identical")
+        del q, k, v, do, k10, k10b, o11, probs, p_plain, k11b, keeps
+        torch.cuda.empty_cache()
+    log(f"(n.1) f32 K10/K11/K12, {heads} heads of {d}, batch "
+        f"{TRAIN_BATCH} (of max(1, |plain|) / of max |plain|): "
+        + "; ".join(line) + "; backward runs bit-identical")
+    # times at (l)'s row shapes, beside f32 SDPA on the same inputs
+    times = {}
+    for name, (B, site) in MHA_ROW_SHAPES.items():
+        lq, lk, per = ATTN_SITES[site]
+        n = B * per
+        q, k, v, do = (torch.randn((n, L, hid), generator=g, device=dev)
+                       for L in (lq, lk, lk, lq))
+        msk = mask if "dropout" in name else None
+        rate = RATE if msk else 0.0
+        base = name.removesuffix("_bwd")
+        fn = (lambda a, b, c: att.fused_mha_with_probs(a, b, c, heads, scale)
+              ) if base == "fused_mha_with_probs" else fns[base][0]
+
+        def sd(a, b, c, rate=rate):
+            return F.scaled_dot_product_attention(
+                *(t.view(n, -1, heads, d).transpose(1, 2) for t in (a, b, c)),
+                dropout_p=rate).transpose(1, 2).reshape(n, lq, hid)
+
+        with full_f32():
+            if name.endswith("_bwd"):
+                ms = _bwd_only_ms(fn, q, k, v, do)
+                lib = _bwd_only_ms(sd, q, k, v, do)
+                plain_ms = cuda_ms(lambda: att.mha_bwd_plain(
+                    q, k, v, do, heads, scale, msk), iters=1)
+                nb, products = nbytes(q, k, v, do, q, k, v), 5
+            else:
+                ms = cuda_ms(lambda: fn(q, k, v))
+                lib = (None if base == "fused_mha_with_probs"
+                       else cuda_ms(lambda: sd(q, k, v)))
+                plain_ms = cuda_ms(lambda: att.mha_plain(
+                    q, k, v, heads, scale, msk,
+                    with_probs=base == "fused_mha_with_probs"), iters=1)
+                nb, products = nbytes(q, k, v, q), 2
+                if base == "fused_mha_with_probs":
+                    nb += n * heads * lq * lk * 4
+        flops = 2 * products * n * heads * lq * lk * d
+        hash_ops = 8 * n * heads * lq * lk if msk else 0
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                           shape=[n, lq, lk],
+                           **bound(nb, f32_flops=flops + hash_ops))
+        log(f"(n.1) f32 {name} [{n}, {lq}, {lk}] D{d}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, SDPA f32 "
+            + ("-" if lib is None else f"{lib:.3f}") + f" ms, bound "
+            f"{times[name]['bound_ms']:.3f} ms ({times[name]['bound_by']})")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return times
+
+
+def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
+    """(n.2): K2-K5 in f32 at the batch-32 shapes of ``cfg`` (K2 on the
+    real windows ``spec``) against their plain f32 versions, within
+    F32_OUT_REL; times beside the plain version, an f32 ``torch.matmul``
+    of the layer's GEMMs and the bound. Returns the times."""
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    m = cfg.model
+    hid, pf, n_frame = m.hid_dim, m.pf_dim, cfg.input.num_frame
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    n_f, n_t = BATCH * n_frame, BATCH * 88
+    n_proc = packed.k_eff.shape[0]
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def stem(fn):
+        return lambda s, p, heads: fn(s, packed.k_eff, packed.b_eff,
+                                      packed.pos_freq, p, heads, n_frame,
+                                      torch.float32)
+
+    spec_t = spec.transpose(1, 2).contiguous()
+    checks = {  # kernel, plain, inputs, params, heads, (kind, n, lq, lk)
+        "encoder_layer_with_stem": (
+            stem(lf.encoder_layer_with_stem),
+            stem(lf.encoder_layer_with_stem_plain), lambda: (spec_t,),
+            packed.enc[0], m.enc_head, ("enc", n_f, 256, 256)),
+        "encoder_layer": (lf.encoder_layer, lf.encoder_layer_plain,
+                          lambda: (act(n_f, 256, hid),), packed.enc[1],
+                          m.enc_head, ("enc", n_f, 256, 256)),
+        "encoder_layer/time": (lf.encoder_layer, lf.encoder_layer_plain,
+                               lambda: (act(n_t, n_frame, hid),),
+                               packed.time[0], m.dec_head,
+                               ("enc", n_t, n_frame, n_frame)),
+        "decoder_layer_zero": (lf.decoder_layer_zero,
+                               lf.decoder_layer_zero_plain,
+                               lambda: (act(n_f, 88, hid),
+                                        act(n_f, 256, hid)),
+                               packed.dec_zero, m.dec_head,
+                               ("dec_zero", n_f, 88, 256)),
+        "decoder_layer": (lf.decoder_layer, lf.decoder_layer_plain,
+                          lambda: (act(n_f, 88, hid), act(n_f, 256, hid)),
+                          packed.dec[0], m.dec_head, ("dec", n_f, 88, 256))}
+    results = {}
+    for name in names:
+        fn, plain, make, p, heads, (kind, n, lq, lk) = checks[name]
+        xs = make()
+        got = fn(*xs, p, heads)
+        with full_f32():
+            want = plain(*xs, p, heads)
+        e = rel_err(got, want, 1.0)
+        if not (got.dtype == torch.float32 and e <= F32_OUT_REL):
+            raise AssertionError(f"(n) f32 {name} {tag}: {got.dtype}, "
+                                 f"{e:.2e} of max(1, |plain f32|) > "
+                                 f"{F32_OUT_REL}")
+        held(name, torch.float32, hid // heads)
+        del want
+        ms = cuda_ms(lambda: fn(*xs, p, heads))
+        with full_f32():
+            plain_ms = cuda_ms(lambda: plain(*xs, p, heads), iters=2)
+        stem_flops = 2 * n * 256 * n_proc * hid if "stem" in name else 0
+        weights = [t for t in p if t.numel()]
+        if stem_flops:
+            weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
+        flops = layer_flops(kind, n, lq, lk, hid, pf) + stem_flops
+        lib = f32_mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev)
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib, shape=[n, lq, lk, hid],
+                             **bound(nbytes(*xs, *weights, got),
+                                     f32_flops=flops))
+        log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}: "
+            f"{e:.2e} of max(1, |plain f32|) (<= {F32_OUT_REL}); kernel "
+            f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms, f32 matmul of its "
+            f"GEMMs {lib:.3f} ms, bound {results[name]['bound_ms']:.3f} ms "
+            f"({results[name]['bound_by']})")
+        del xs, got
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
+    """(n.2): K7, K8, K9 in f32 forward and backward at the batch-8 shapes
+    of ``cfg`` against their plain f32 twins: the forward within
+    F32_OUT_REL, input and weight gradients within F32_GRAD_REL,
+    bit-identical backward runs, and (h)'s stage hook: every backward
+    kernel fed the twin's own intermediates within F32_STAGE_REL of the
+    twin's same stage, its weight gradients within STAGE_WGRAD_REL. Returns
+    the times."""
+    m = cfg.model
+    hid, pf = m.hid_dim, m.pf_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    layers = _train_layers(model, dev, torch.float32)
+    results = {}
+    for name in names:
+        kind, xs, p, emb = layers[name]
+        heads = m.enc_head if kind == "enc" else m.dec_head
+        k_fwd, p_fwd, k_bwd, p_bwd = _layer_fns(kind, emb, heads)
+        n, lq, _ = xs[0].shape
+        lk = xs[-1].shape[1]
+        got = k_fwd(xs, p, RATE)
+        want = p_fwd(xs, p, RATE)
+        e = rel_err(got, want, 1.0)
+        dz = torch.randn(xs[0].shape, generator=g, device=dev)
+        own = {}   # the kernels' own FFN activations, by a pass-through hook
+
+        def record(stage, t):
+            if stage.endswith("midd"):
+                own[stage] = t
+            return t
+
+        kb, kb2 = k_bwd(xs, p, RATE, dz, record), k_bwd(xs, p, RATE, dz)
+        k_in, k_w = _split_bwd(kind, kb)
+        k_in2, k_w2 = _split_bwd(kind, kb2)
+        if not all(torch.equal(a, b) for a, b in zip(list(k_w) + k_in,
+                                                     list(k_w2) + k_in2)):
+            raise AssertionError(f"(n) f32 {name} bwd: two runs differ")
+        del kb2, k_in2, k_w2
+        taps = {}
+        p_in, p_w = _split_bwd(kind, p_bwd(xs, p, RATE, dz, taps))
+        # ReLU gates the kernels' recompute and the twin set differently
+        pre = "" if kind == "enc" else "cross."
+        mine = own[pre + "midd"]
+        flips = (mine > 0) != (taps[pre + "midd"].reshape(mine.shape) > 0)
+        u = taps[pre + "u"].reshape(mine.shape)
+        n_flips = int(flips.sum().item())
+        near = u[flips].abs().max().item() if n_flips else 0.0
+        near_limit = F32_OUT_REL * max(1.0, u.abs().max().item())
+        clean = ~flips.any(-1).reshape(n, -1).any(-1)  # sequences
+        if not clean.any():
+            raise AssertionError(f"(n) f32 {name}: a ReLU gate flipped in "
+                                 f"every sequence")
+        e_in = max((a[clean] - b[clean]).abs().max().item()
+                   / b.abs().max().item() for a, b in zip(k_in, p_in))
+        e_w = max(rel_err(a, b) for a, b in zip(k_w, p_w))
+        if not (e <= F32_OUT_REL and e_in <= F32_GRAD_REL
+                and near <= near_limit
+                and (n_flips > 0 or e_w <= F32_GRAD_REL)):
+            raise AssertionError(
+                f"(n) f32 {name} {tag}: fwd {e:.2e} (<= {F32_OUT_REL}), "
+                f"input grads {e_in:.2e} on the {int(clean.sum())} of {n} "
+                f"sequences with no ReLU gate flip, weight grads {e_w:.2e} "
+                f"(<= {F32_GRAD_REL} when nothing flipped) from the plain "
+                f"f32 twin; {n_flips} flips, within {near:.2e} of 0 (<= "
+                f"{near_limit:.2e})")
+        del own, mine, flips, u
+        seen = {}
+
+        def hook(stage, t):
+            want_ = taps[stage].reshape(t.shape).contiguous()
+            if want_.dtype != t.dtype:
+                raise AssertionError(f"(n) {name} stage {stage}: the twin's "
+                                     f"{want_.dtype} for {t.dtype}")
+            seen[stage] = (t, want_)
+            return want_
+
+        _, s_w = _split_bwd(kind, k_bwd(xs, p, RATE, dz, hook))
+        torch.cuda.synchronize()
+        if len(seen) != STAGES[kind]:
+            raise AssertionError(f"(n) f32 {name} bwd: the stage hook saw "
+                                 f"{sorted(seen)}, {STAGES[kind]} expected")
+        stage = {k: rel_err(a, b) for k, (a, b) in seen.items()}
+        worst = max(stage, key=stage.get)
+        sw = max(rel_err(a, b) for a, b in zip(s_w, p_w))
+        if not (stage[worst] <= F32_STAGE_REL and sw <= STAGE_WGRAD_REL):
+            raise AssertionError(
+                f"(n) f32 {name} bwd on the twin's inputs: stage {worst} "
+                f"{stage[worst]:.2e} (<= {F32_STAGE_REL}), weight grads "
+                f"{sw:.2e} (<= {STAGE_WGRAD_REL})")
+        held(name, torch.float32, hid // heads)
+        held(bwd_name(name), torch.float32, hid // heads)
+        del seen, s_w, taps, p_in, p_w, want
+        fwd_ms = cuda_ms(lambda: k_fwd(xs, p, RATE))
+        fwd_plain_ms = cuda_ms(lambda: p_fwd(xs, p, RATE), iters=2)
+        bwd_ms = cuda_ms(lambda: k_bwd(xs, p, RATE, dz), iters=3)
+        bwd_plain_ms = cuda_ms(lambda: p_bwd(xs, p, RATE, dz), iters=1)
+        flops = layer_flops(kind, n, lq, lk, hid, pf)
+        w_bytes, io_bytes = nbytes(*p), nbytes(*xs)
+        gemms = layer_gemms(kind, n, lq, lk, hid, pf)
+        results[name] = dict(
+            max_abs_err=e, ms=fwd_ms, plain_ms=fwd_plain_ms,
+            library_ms=f32_mm_ms(gemms, dev), shape=[n, lq, lk, hid],
+            **bound(io_bytes + w_bytes + nbytes(got), f32_flops=flops))
+        results[bwd_name(name)] = dict(
+            max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
+            library_ms=f32_mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
+            **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
+                    f32_flops=3 * flops))
+        log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
+            f"{RATE}: fwd {e:.2e}, input grads {e_in:.2e} ({n_flips} ReLU "
+            f"gates flipped, within {near:.2e} of 0; {int(clean.sum())} of "
+            f"{n} sequences held), weight grads {e_w:.2e} from the plain f32 "
+            f"twin; {len(stage)} stages on the "
+            f"twin's inputs <= {stage[worst]:.2e} ({worst}), their weight "
+            f"grads <= {sw:.2e}; bit-identical runs; fwd kernel "
+            f"{fwd_ms:.3f} ms (plain {fwd_plain_ms:.3f}, f32 matmul "
+            f"{results[name]['library_ms']:.3f}, bound "
+            f"{results[name]['bound_ms']:.3f}), bwd kernel {bwd_ms:.3f} ms "
+            f"(plain {bwd_plain_ms:.3f}, bound "
+            f"{results[bwd_name(name)]['bound_ms']:.3f})")
+        del xs, got, kb, k_in, k_w, dz
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_int8_d32(model16, model32, cfg, spec, dev) -> dict:
+    """(n.3): K13 at head_dim 32 (the default widths), in bf16 and in f32:
+    the quantizers bit for bit; each wrapper at the batch-32 shapes against
+    its plain q8 version and the exact layer, under (k)'s gates (bf16) or
+    their f32 analogue (Q8_F32_REL, Q8_F32_EXACT). Returns the f32 and bf16
+    times."""
+    from nylon_amt_tpu_torch.infer import engine
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    m = cfg.model
+    hid, pf, n_frame = m.hid_dim, m.pf_dim, cfg.input.num_frame
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    n_f, n_t = BATCH * n_frame, BATCH * 88
+    spec_t = spec.transpose(1, 2).contiguous()
+    results = {}
+    for dt, model in ((torch.bfloat16, model16), (torch.float32, model32)):
+        packed = engine.pack_params(model, dt)
+        packed8 = engine.pack_params(model, dt, precision="int8")
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+
+        def act(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        x = act(n_f * 256, 3 * hid)
+        for t, n_seg in ((x[:, :hid], 1), (x[:, :2 * hid], 2),
+                         (x[:, :pf], 1)):
+            q, s = lq.quant_rows_cuda(t, n_seg)
+            for j, seg in enumerate(t.split(t.shape[1] // n_seg, dim=1)):
+                pq, ps = lq._quant_rows(seg)
+                w = seg.shape[1]
+                if not (torch.equal(q[:, j * w:(j + 1) * w], pq)
+                        and torch.equal(s[j], ps[:, 0])):
+                    raise AssertionError(f"(n) {label} row quantizer at "
+                                         f"width {w} differs")
+        v = x[:, 2 * hid:]
+        vt, sv = lq.quant_cols_cuda(v, n_f)
+        pv, psv = lq._quant_cols(v.reshape(n_f, 256, hid))
+        if not (torch.equal(vt.transpose(1, 2), pv)
+                and torch.equal(sv, psv[:, 0])):
+            raise AssertionError(f"(n) {label} column quantizer differs")
+        del x, v, q, s, vt, sv, pv, psv
+
+        def stem(fn, dt=dt, packed=packed):
+            return lambda s_, p, heads: fn(s_, packed.k_eff, packed.b_eff,
+                                           packed.pos_freq, p, heads,
+                                           n_frame, dt)
+
+        checks = {  # kernel, plain q8, exact kernel, inputs, p8, p, kind
+            "encoder_layer_with_stem_q8": (
+                stem(lq.encoder_layer_with_stem_q8),
+                stem(lq.encoder_layer_with_stem_q8_plain),
+                stem(lf.encoder_layer_with_stem), (spec_t,), packed8.enc[0],
+                packed.enc[0], m.enc_head, ("enc", n_f, 256, 256)),
+            "encoder_layer_q8": (
+                lq.encoder_layer_q8, lq.encoder_layer_q8_plain,
+                lf.encoder_layer, (act(n_f, 256, hid),), packed8.enc[1],
+                packed.enc[1], m.enc_head, ("enc", n_f, 256, 256)),
+            "encoder_layer_q8/time": (
+                lq.encoder_layer_q8, lq.encoder_layer_q8_plain,
+                lf.encoder_layer, (act(n_t, n_frame, hid),),
+                packed8.time[0], packed.time[0], m.dec_head,
+                ("enc", n_t, n_frame, n_frame)),
+            "decoder_layer_zero_q8": (
+                lq.decoder_layer_zero_q8, lq.decoder_layer_zero_q8_plain,
+                lf.decoder_layer_zero, (act(n_f, 88, hid),
+                                        act(n_f, 256, hid)),
+                packed8.dec_zero, packed.dec_zero, m.dec_head,
+                ("dec_zero", n_f, 88, 256)),
+            "decoder_layer_q8": (
+                lq.decoder_layer_q8, lq.decoder_layer_q8_plain,
+                lf.decoder_layer, (act(n_f, 88, hid), act(n_f, 256, hid)),
+                packed8.dec[0], packed.dec[0], m.dec_head,
+                ("dec", n_f, 88, 256))}
+        line = []
+        for name, (fn, plain, exact, xs, p8, p, heads, shp) in checks.items():
+            got = fn(*xs, p8, heads)
+            with full_f32():
+                want = plain(*xs, p8, heads)
+            ref = exact(*xs, p, heads)
+            torch.cuda.synchronize()
+            if got.dtype != dt or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"(n) {label} {name}: {got.dtype}, or "
+                                     f"not finite")
+            d = (got.float() - want.float()).abs()
+            tol = ULPS * bf16_ulp(want)
+            extra = (ULPS * bf16_ulp(ref) if dt == torch.bfloat16
+                     else Q8_F32_EXACT)
+            share = (d <= tol).float().mean().item()
+            # the f32 reading at Q8_F32_REL (logged, see Q8_F32_REL)
+            tight = (d <= Q8_F32_REL * want.float().abs().max().item()
+                     ).float().mean().item()
+            err = d.max().item()
+            from_exact = (got.float() - ref.float()).abs().max().item()
+            plain_exact = (want.float() - ref.float()).abs().max().item()
+            if not (share >= Q8_SHARE and err <= Q8_BUDGET
+                    and from_exact <= plain_exact + extra):
+                raise AssertionError(
+                    f"(n) {label} {name} D{hid // heads}: {share:.6f} within "
+                    f"{tol:.2e} of the plain q8 version (>= {Q8_SHARE}), max "
+                    f"{err:.4f} (<= {Q8_BUDGET}); {from_exact:.4f} from the "
+                    f"exact layer (<= {plain_exact:.4f} + {extra:.2e})")
+            held(name, dt, hid // heads)
+            del d, want, ref
+            ms = cuda_ms(lambda: fn(*xs, p8, heads))
+            with full_f32():
+                plain_ms = cuda_ms(lambda: plain(*xs, p8, heads), iters=2)
+            kind, n, lq_, lk = shp
+            weights = [t for t in p8 if t.numel()]
+            stem_flops = 0
+            if "stem" in name:
+                weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
+                stem_flops = 2 * n * 256 * packed.k_eff.shape[0] * hid
+            results[f"{name}/{label}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=int_mm_ms(layer_gemms(kind, n, lq_, lk, hid, pf),
+                                     dev),
+                shape=[n, lq_, lk, hid],
+                **bound(nbytes(*xs, *weights, got), f32_flops=stem_flops,
+                        int8_ops=layer_flops(kind, n, lq_, lk, hid, pf)))
+            line.append(f"{name} {share:.6f} ({tight:.6f} within "
+                        f"{Q8_F32_REL} of max) / max {err:.2e} / exact "
+                        f"{from_exact:.4f} (plain q8 {plain_exact:.4f}); "
+                        f"{ms:.3f} ms (plain q8 {plain_ms:.3f}, _int_mm "
+                        f"{results[f'{name}/{label}']['library_ms']:.3f})")
+            del got
+        if dt == torch.float32:
+            line.insert(0, check_q8_kernels_f32(packed8, hid, m.enc_head,
+                                                pf, dev, g))
+        log(f"(n.3) K13 {label} at head_dim {hid // m.enc_head} (quantizers "
+            f"bit-identical): " + "; ".join(line))
+        del packed, packed8
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_q8_kernels_f32(packed8, hid: int, heads: int, pf: int, dev,
+                         g) -> str:
+    """(n.3): K13's f32 kernels one by one at the batch-32 encoder shapes,
+    each fed the plain version's own codes and intermediates (see
+    Q8_F32_REL). Returns the log text."""
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.ops.layer_fused import _layer_norm, _scale
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    p = packed8.enc[1]
+    n, L = BATCH * 128, 256
+    f32 = torch.float32
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def codes(x):
+        q, s = lq._quant_rows(x)
+        return q, s, s.reshape(-1).contiguous()
+
+    x = act(n * L, hid)
+    xq, sx2, sx = codes(x)
+    mid_in = act(n * L, pf)
+    mq, sm2, sm = codes(mid_in)
+    with full_f32():
+        gemms = {
+            "qkv": (lq._gemm_q8(xq, sx, p.wqkv, p.sqkv, p.bqkv),
+                    lq._qlinear_pre(xq, sx2, p.wqkv, p.sqkv, p.bqkv, f32)),
+            "ffn up + ReLU": (
+                lq._gemm_q8(xq, sx, p.w1, p.s1, p.b1, relu=True),
+                torch.relu(lq._qlinear_pre(xq, sx2, p.w1, p.s1, p.b1, f32)))}
+        y, yq, sy = lq._gemm_q8_res_ln(mq, sm, p.w2, p.s2, p.b2, x, p.g, p.b,
+                                       quant_out=True)
+        y_plain = _layer_norm(
+            x + lq._qlinear_pre(mq, sm2, p.w2, p.s2, p.b2, f32), p.g, p.b)
+    for what, (a, b) in gemms.items():
+        if not torch.equal(a, b):
+            raise AssertionError(f"(n) f32 K13 s8 GEMM ({what}): "
+                                 f"{rel_err(a, b):.2e} from the plain "
+                                 f"version, not bit-identical")
+    e_ln = rel_err(y, y_plain, 1.0)
+    oq, os_ = lq._quant_rows(y)
+    if not (e_ln <= F32_OUT_REL and torch.equal(yq, oq)
+            and torch.equal(sy, os_.reshape(-1))):
+        raise AssertionError(f"(n) f32 K13 residual + LN: {e_ln:.2e} of "
+                             f"max(1, |plain|) (<= {F32_OUT_REL}); output "
+                             f"codes equal to the plain quantizer's "
+                             f"{torch.equal(yq, oq)}")
+    del gemms, y, yq, sy, y_plain, oq, os_, mid_in, mq
+    q, k, v = (act(n, L, hid) for _ in range(3))
+    qq, _, sq = codes(q.reshape(-1, hid))
+    kq, _, sk = codes(k.reshape(-1, hid))
+    vt, sv = lq.quant_cols_cuda(v.reshape(-1, hid), n)
+    got = lq._attention_q8(qq, sq, kq, sk, vt, sv, n, heads, f32)
+    with full_f32():
+        want = lq._mha_block_q8(q, k, v, heads, _scale(hid, heads))
+    d = (got.reshape(want.shape) - want).abs()
+    share = (d <= Q8_F32_REL * want.abs().max().item()).float().mean().item()
+    if not (share >= Q8_SHARE and d.max().item() <= Q8_BUDGET):
+        raise AssertionError(f"(n) f32 K13 attention: {share:.6f} of the "
+                             f"elements within {Q8_F32_REL} of max |plain| "
+                             f"(>= {Q8_SHARE}), max {d.max().item():.2e} (<= "
+                             f"{Q8_BUDGET})")
+    return (f"kernels on the plain version's codes at [{n * L}, {hid}]: s8 "
+            f"GEMMs bit-identical, residual + LN {e_ln:.2e} with its output "
+            f"codes bit-identical, attention {share:.6f} within "
+            f"{Q8_F32_REL} (max {d.max().item():.2e})")
+
+
+def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
+                      with_int8: bool) -> dict:
+    """(n.4): the engine's batch-32 forward of ``cfg`` (float32) against
+    the plain f32 forward, per output key, within F32_FORWARD_REL of max(1,
+    max |plain|); with ``with_int8`` also the int8 forward under (k)'s
+    posterior gates against the f32 forward. Returns the times."""
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.infer import engine
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    m = cfg.model
+    packed = engine.pack_params(model32, torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = engine.forward(packed, spec, cfg)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    want_counts = {"encoder_layer_with_stem": 1,
+                   "encoder_layer": m.enc_layer - 1 + m.dec_layer,
+                   "decoder_layer_zero": 1, "decoder_layer": m.dec_layer - 1}
+    if counts != want_counts:
+        raise AssertionError(f"(n) f32 forward {tag} launches {counts}, "
+                             f"expected {want_counts}")
+    with torch.no_grad(), full_f32():
+        plain = model32(spec)
+    errs = {k: rel_err(got[k], plain[k], 1.0) for k in plain}
+    bad = {k: e for k, e in errs.items() if not e <= F32_FORWARD_REL[k[-1]]}
+    if bad:
+        raise AssertionError(f"(n) f32 forward {tag}: {bad} of max(1, "
+                             f"|plain f32|) > {F32_FORWARD_REL}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: engine.forward(packed, spec, cfg), iters=5)
+        with full_f32():
+            plain_ms = cuda_ms(lambda: model32(spec), iters=2)
+    audio_s = BATCH * cfg.input.num_frame * cfg.feature.hop_sample / SR
+    out = {"ms": ms, "plain_ms": plain_ms}
+    log(f"(n.4) batch-{BATCH} f32 forward {tag} (hid {m.hid_dim}, "
+        f"{m.enc_head} heads): engine vs plain f32 (of max(1, |plain|), <= "
+        f"{F32_FORWARD_REL}): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f"; launches {counts}; engine {ms:.3f} ms ({audio_s / ms * 1e3:.1f} "
+        f"audio-s/s), plain f32 {plain_ms:.3f} ms; card {card}")
+    profile_forward(lambda: engine.forward(packed, spec, cfg), iters=3,
+                    phase="n", top=8)
+    if with_int8:
+        packed8 = engine.pack_params(model32, torch.float32,
+                                     precision="int8")
+
+        def plain_q8_forward():
+            kept = {n: getattr(lq, n) for n in Q8_SOURCES}
+            try:
+                for n in Q8_SOURCES:
+                    setattr(lq, n, getattr(lq, n + "_plain"))
+                with full_f32():
+                    return engine.forward(packed8, spec, cfg)
+            finally:
+                for n, fn in kept.items():
+                    setattr(lq, n, fn)
+
+        out8 = engine.forward(packed8, spec, cfg)
+        outp = plain_q8_forward()
+        worst, scheme, failed = {}, {}, []
+        for k in got:
+            if k.startswith("velocity"):
+                continue
+            p32 = torch.sigmoid(got[k].float())
+            worst[k] = (torch.sigmoid(out8[k].float()) - p32).abs().max().item()
+            scheme[k] = (torch.sigmoid(outp[k].float()) - p32).abs().max().item()
+            # (k)'s gates; where the W8A8 scheme itself (the plain q8
+            # forward) lands past Q8_POST on an A head, that head takes the
+            # B heads' rule alone
+            if not (worst[k] <= Q8_FORWARD_REL * scheme[k]
+                    and (k.endswith("_B") or scheme[k] > Q8_POST
+                         or worst[k] <= Q8_POST)):
+                failed.append(f"{k}: {worst[k]:.4f} from the f32 forward, "
+                              f"plain q8 {scheme[k]:.4f}")
+        if failed:
+            raise AssertionError("(n) f32 int8 forward: " + "; ".join(failed))
+        with torch.no_grad():
+            ms8 = cuda_ms(lambda: engine.forward(packed8, spec, cfg), iters=5)
+        out["int8_ms"] = ms8
+        log(f"(n.4) batch-{BATCH} int8 forward {tag}, f32 activations: "
+            f"posteriors from the f32 forward (plain q8 in brackets) "
+            + ", ".join(f"{k} {v:.4f} ({scheme[k]:.4f})"
+                        for k, v in worst.items())
+            + f"; A heads <= {Q8_POST} where the plain q8 forward is, all <= "
+            f"{Q8_FORWARD_REL} x plain q8; {ms8:.3f} ms "
+            f"({audio_s / ms8 * 1e3:.1f} audio-s/s)")
+        del out8, outp, packed8
+    del got, plain, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def default_cli_f32(feat, audio, cli_main) -> None:
+    """(n.5): the CLI with no ``--config`` (the default ``Config()``,
+    float32) on ``--device cuda``: ``train`` (3 steps of 16) ->
+    ``transcribe --list`` with its checkpoint -> ``evaluate``, then
+    ``transcribe --int8``, each with exact non-zero launch counts."""
+    from nylon_amt_tpu_torch import Config, kernels
+    from nylon_amt_tpu_torch.data.lists import CorpusList
+    from nylon_amt_tpu_torch.midi.smf import write_notes
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    cfg = Config()
+    m = cfg.model
+    if m.compute_dtype != "float32" or m.hid_dim // m.enc_head != 32:
+        raise AssertionError(f"the default model is not f32 at head_dim 32: "
+                             f"{m}")
+    n_frames = 1 + int(AUDIO_SEC * SR) // cfg.feature.hop_sample
+    n_batches = math.ceil(math.ceil(n_frames / cfg.input.num_frame) / BATCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        write_corpus(cfg, feat, tmp / "corpus")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["train", "--dataset", str(tmp / "corpus"), "--out",
+                       str(tmp / "run"), "--epochs", "1", "--batch-size",
+                       "16", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        perf = json.loads((tmp / "run" / "performance.json").read_text())
+        losses = perf["loss_train"] + perf["loss_valid"]
+        if rc != 0 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"(n) train: rc {rc}, losses {losses}")
+        steps = 3                       # 48 train windows, batch 16
+        per_step = {"hash_keep_mask": 4,
+                    "encoder_layer_train": m.enc_layer + m.dec_layer,
+                    "encoder_layer_train_bwd": m.enc_layer + m.dec_layer,
+                    "decoder_layer_zero_train": 1,
+                    "decoder_layer_zero_train_bwd": 1,
+                    "decoder_layer_train": m.dec_layer - 1,
+                    "decoder_layer_train_bwd": m.dec_layer - 1}
+        want = {k: v * steps for k, v in per_step.items()}
+        want.update(dict.fromkeys(MHA_SOURCES, 0))   # no per-site path
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"(n) train launches {got}, expected {want}")
+        ckpt = tmp / "run" / "checkpoints" / "model_000_000" / "model.dat"
+        save_wav(str(tmp / "piece.wav"), audio, SR)
+        write_notes(str(tmp / "piece.mid"), synth_notes(AUDIO_SEC))
+        cl = CorpusList()
+        cl.add("test", "piece", str(tmp / "piece.wav"), str(tmp / "piece.mid"))
+        cl.save(str(tmp / "lists"))
+        runs = {}
+        for label, extra in (("exact", []), ("int8", ["--int8"])):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            rc = cli_main(["transcribe", "--checkpoint", str(ckpt), "--list",
+                           str(tmp / "lists"), "--split", "test", "--out",
+                           str(tmp / label), "--batch-windows", str(BATCH),
+                           *extra, "--device", "cuda"])
+            torch.cuda.synchronize()
+            t_counts = {k: v for k, v in kernels.launches.items() if v}
+            sfx = "_q8" if label == "int8" else ""
+            t_want = {"log_mel": 1, f"encoder_layer_with_stem{sfx}": n_batches,
+                      f"encoder_layer{sfx}": n_batches * (m.enc_layer - 1
+                                                          + m.dec_layer),
+                      f"decoder_layer_zero{sfx}": n_batches,
+                      f"decoder_layer{sfx}": n_batches * (m.dec_layer - 1)}
+            if rc != 0 or t_counts != t_want:
+                raise AssertionError(f"(n) transcribe {label}: rc {rc}, "
+                                     f"launches {t_counts}, expected "
+                                     f"{t_want}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["evaluate", "--list", str(tmp / "lists"),
+                               "--split", "test", "--est-dir",
+                               str(tmp / label), "--out",
+                               str(tmp / f"scores_{label}.json")])
+            res = json.loads((tmp / f"scores_{label}.json").read_text())
+            if rc != 0 or "piece.notes.json" not in res["note"]["per_file"]:
+                raise AssertionError(f"(n) evaluate {label}: rc {rc}, {res}")
+            notes = json.loads((tmp / label / "piece.notes.json").read_text())
+            runs[label] = (t_counts, len(notes),
+                           res["note"]["mean"].get("F-measure", float("nan")))
+    log(f"(n.5) cli with no --config (Config(): float32, hid {m.hid_dim}, "
+        f"{m.enc_head} heads of 32): train 1 epoch, {steps} steps of 16, "
+        f"{wall:.2f} s wall, loss train {perf['loss_train'][0]:.5f}, valid "
+        f"{perf['loss_valid'][0]:.5f}; launches per step {per_step}, "
+        f"per-site K10-K12 0; "
+        + "; ".join(f"transcribe{' --int8' if k == 'int8' else ''} --list: "
+                    f"{n} notes, launches {c}, evaluate note F {f:.4f}"
+                    for k, (c, n, f) in runs.items()))
+
+
+def time_train_step_f32(cfg, feat, dev, card: str) -> float:
+    """(n): the default fused train step (float32, batch 8) by CUDA
+    events, and its profile."""
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        write_corpus(cfg, feat, Path(tmp) / "corpus")
+        ds = WindowDataset(SplitArrays.load(str(Path(tmp) / "corpus"),
+                                            "train"), cfg,
+                           n_slice=cfg.train.n_slice)
+        first = next(ds.batches(cfg.train.batch_size))
+    return time_train_step(cfg, first, dev, card, phase="n",
+                           what="default-config f32 ")
+
+
+def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
+    """(n): the default ``Config()`` in float32 (hid 64 over 2 heads:
+    head_dim 32), and the f32 kernels at the paper widths (head_dim 64):
+    (n.1) K10-K12 at D = 32 and 64; (n.2) K2-K5 at batch 32 and K7-K9
+    forward and backward at batch 8, at the default and the paper widths;
+    (n.3) K13 at D = 32 in bf16 and f32; (n.4) the engine's
+    f32 forward at the default and the paper config, and the default
+    config's int8 forward; (n.5) the CLI with no ``--config``; times of
+    each. Returns the f32 times per wrapper."""
+    from nylon_amt_tpu_torch import Config, ModelConfig
+    from nylon_amt_tpu_torch.models.hft import HFT
+    from nylon_amt_tpu_torch.models.init import reference_initialize
+    from nylon_amt_tpu_torch.infer import engine
+
+    times = {}
+    cfg = Config()
+    m = cfg.model
+    paper = Config(model=ModelConfig.paper_scale())
+    if m.compute_dtype != "float32" or paper.model.compute_dtype != "float32":
+        raise AssertionError("Config() and paper_scale() are not float32")
+
+    # (n.1) the attention kernels, D = 32 and D = 64
+    for hid, heads in ((m.hid_dim, m.enc_head), (256, 4)):
+        for name, r in check_attention_f32(dev, heads, hid).items():
+            times[f"{name}/D{hid // heads}"] = r
+
+    # (n.2) the layer kernels at the default widths, K3 and K7 at paper's
+    gen = torch.Generator().manual_seed(SEED + 13)
+    model32 = reference_initialize(HFT(cfg, dev), gen).eval()
+    packed = engine.pack_params(model32, torch.float32)
+    names = ("encoder_layer_with_stem", "encoder_layer", "encoder_layer/time",
+             "decoder_layer_zero", "decoder_layer")
+    train_names = ("encoder_layer_train", "encoder_layer_train/time",
+                   "decoder_layer_zero_train", "decoder_layer_train")
+    times.update(check_layers_f32(cfg, packed, spec, dev, names, "default"))
+    times.update(check_train_layers_f32(model32, cfg, dev, train_names,
+                                        "default"))
+    del packed
+    gen = torch.Generator().manual_seed(SEED + 14)
+    paper32 = reference_initialize(HFT(paper, dev), gen).eval()
+    packed = engine.pack_params(paper32, torch.float32)
+    times.update({f"{k}/paper": v for k, v in check_layers_f32(
+        paper, packed, spec, dev, names, "paper").items()})
+    times.update({f"{k}/paper": v for k, v in check_train_layers_f32(
+        paper32, paper, dev, train_names, "paper").items()})
+    del packed
+    torch.cuda.empty_cache()
+
+    # (n.3) K13 at head_dim 32, bf16 and f32
+    model16 = HFT(dataclasses.replace(cfg, model=dataclasses.replace(
+        m, compute_dtype="bfloat16")), dev)
+    model16.load_state_dict(model32.state_dict())
+    model16.eval()
+    times.update(check_int8_d32(model16, model32, cfg, spec, dev))
+    del model16
+
+    # (n.4) the engine's f32 forwards
+    fwd = check_forward_f32(cfg, model32, spec, dev, card, "default Config()",
+                            with_int8=True)
+    fwd_paper = check_forward_f32(paper, paper32, spec, dev, card,
+                                  "paper_scale()", with_int8=False)
+    del paper32
+    torch.cuda.empty_cache()
+    step_ms = time_train_step_f32(cfg, feat, dev, card)
+    log(f"(n) end to end, f32: default Config() batch-{BATCH} forward "
+        f"{fwd['ms']:.3f} ms (int8 {fwd['int8_ms']:.3f} ms), paper_scale() "
+        f"{fwd_paper['ms']:.3f} ms, default train step (batch "
+        f"{cfg.train.batch_size}) {step_ms:.3f} ms; card {card}")
+
+    # (n.5) the CLI with no --config
+    default_cli_f32(feat, audio, cli_main)
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1857,6 +2806,7 @@ def main() -> int:
             raise AssertionError(f"K1 log_mel ({label} audio): shape "
                                  f"{tuple(got.shape)} vs {tuple(ref.shape)}, "
                                  f"{err64} from float64 (atol {K1_ATOL})")
+    held("log_mel", torch.float32)
     wav = torch.from_numpy(audio).to(dev)
     ms = cuda_ms(lambda: log_mel(wav, fe), iters=10)
     plain_ms = cuda_ms(lambda: log_mel_plain(wav, fe), iters=10)
@@ -2011,6 +2961,9 @@ def main() -> int:
     # (m) head_dim 32: the default configuration ---------------------------
     check_default_config(feat, audio, spec, dev, card, cli_main)
 
+    # (n) the default Config() in float32 ----------------------------------
+    f32_times = check_float32(feat, audio, spec, dev, card, cli_main)
+
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))
     if loaded:
@@ -2042,11 +2995,31 @@ def main() -> int:
         **{name: ("mha.cu", tpu) for name, tpu in MHA_SOURCES.items()}}
     counts.update({k: q8_counts[k] for k in Q8_SOURCES})
     counts.update(mha_counts)
+    # the sources of each wrapper's float32 path
+    layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
+        "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
+    f32_sources = {
+        "log_mel": ["log_mel.cu"],
+        "encoder_layer_with_stem": ["stem_embed.cu", *layer32],
+        "encoder_layer": layer32, "decoder_layer_zero": layer32,
+        "decoder_layer": layer32, "hash_keep_mask": ["hash_mask.cu"],
+        "encoder_layer_train": layer32, "decoder_layer_zero_train": layer32,
+        "decoder_layer_train": layer32, "encoder_layer_train_bwd": train32,
+        "decoder_layer_zero_train_bwd": train32,
+        "decoder_layer_train_bwd": train32,
+        **{n: ["mha_f32.cu"] for n in MHA_SOURCES},
+        **{n: ["layer_fused_q8.cu"] for n in Q8_SOURCES}}
+    f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"nylon_amt_tpu_torch/csrc/{src}", "replaces": tpu,
-         "launches": counts[name], **results[name]}
+         "launches": counts[name], **results[name],
+         "held": sorted(HELD.get(name, ())),
+         "f32_sources": [f"nylon_amt_tpu_torch/csrc/{f}"
+                         for f in f32_sources[name]],
+         "f32": {k: v for k, v in f32_times.items()
+                 if k.split("/")[0] == name}}
         for name, (src, tpu) in sources.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

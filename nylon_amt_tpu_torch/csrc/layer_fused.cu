@@ -25,8 +25,10 @@
 // The intermediates (QKV, attention output, FFN hidden) go to device memory
 // in this version; fusing them back into fewer passes is later work.
 //
-// Numerics follow the reference exactly where it pins them: f32 accumulation,
-// cast to bf16 BEFORE the bias add, bias and residual added in bf16, f32
+// Numerics follow the reference exactly where it pins them (the epilogues of
+// layer_epilogue.cuh, shared with the float32 kernels of layer_fused_f32.cu):
+// f32 accumulation, cast to bf16 BEFORE the bias add, bias and residual
+// added in bf16, f32
 // two-pass LayerNorm statistics (eps from the caller), exp2 softmax with the
 // 1/l normalisation deferred to the f32 output, l summed from the unrounded
 // f32 probabilities, probabilities rounded to bf16 for the PV product.
@@ -45,12 +47,11 @@
 
 #include "common.cuh"
 #include "hash_mask.cuh"
+#include "layer_epilogue.cuh"
 
 using namespace nvcuda;
 using nylon::bf16;
-using nylon::bf16_round;
 using nylon::DropSite;
-using nylon::keep_value;
 
 namespace {
 
@@ -173,14 +174,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         uint4 ov;
         bf16* o = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float y = bf16_round(bf16_round(stage[r * 16 + c8 + e]) +
-                               __bfloat162float(bb[e]));
-          if (relu) y = fmaxf(y, 0.f);
-          if constexpr (kDrop)
-            y = bf16_round(y * keep_value(site, (uint32_t)gr, gc + e, N));
-          o[e] = __float2bfloat16(y);
-        }
+        for (int e = 0; e < 8; ++e)
+          o[e] = __float2bfloat16(nylon::bias_epilogue<bf16, kDrop>(
+              stage[r * 16 + c8 + e], __bfloat162float(bb[e]), relu, site,
+              (uint32_t)gr, gc + e, N));
         *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = ov;
       }
       __syncwarp();
@@ -285,11 +282,10 @@ __global__ void __launch_bounds__(kThreads)
       const int c = lane + 32 * t;
       s[t] = 0.f;
       if (c < N) {
-        float y = bf16_round(bf16_round(C[r * kLnCLd + c]) +
-                             __bfloat162float(bias[c]));
-        if constexpr (kDrop)
-          y = bf16_round(y * keep_value(site, (uint32_t)gr, c, N));
-        s[t] = bf16_round(__bfloat162float(res[(size_t)gr * N + c]) + y);
+        s[t] = nylon::residual_sum<bf16, kDrop>(
+            C[r * kLnCLd + c], __bfloat162float(bias[c]),
+            __bfloat162float(res[(size_t)gr * N + c]), site, (uint32_t)gr, c,
+            N);
         if constexpr (kTrain)
           if (pre_out != nullptr)
             pre_out[(size_t)gr * N + c] = __float2bfloat16(s[t]);

@@ -14,15 +14,18 @@
 // layer's time is set by how many passes its activations and their int8
 // copies make through device memory. As in csrc/layer_fused.cu, each layer
 // is a short sequence of simple kernels launched in turn by the Python
-// wrapper (ops/layer_fused_q8.py):
+// wrapper (ops/layer_fused_q8.py). Every kernel takes the activations in
+// the compute dtype T, bf16 or f32 (the default model configuration
+// computes in f32; JAX's int8 layers compute in q.dtype), each with its own
+// entry point (the f32 ones end in _f32):
 //
-//  * quant_rows_kernel: bf16 rows -> int8 codes + an f32 scale per row (one
+//  * quant_rows_kernel: T rows -> int8 codes + an f32 scale per row (one
 //    warp per row segment);
 //  * quant_cols_kernel: V's quantizer, one scale per column over the whole
 //    key sequence; it writes the codes transposed per sequence, [hid,
 //    Lk_pad] with zero codes past Lk, which is the operand layout the PV
 //    product needs;
-//  * gemm_q8_bias_kernel: out = bf16((f32(A @ W) * sa[row]) * sw[col]) +
+//  * gemm_q8_bias_kernel: out = T((f32(A @ W) * sa[row]) * sw[col]) +
 //    bias [, ReLU], an s8 x s8 -> s32 tensor-core GEMM (mma.sync
 //    m16n8k32) with a dequantizing epilogue;
 //  * gemm_q8_res_ln_kernel: the same GEMM with a block that owns full rows,
@@ -30,7 +33,9 @@
 //    optionally the row quantization of its output for the next GEMM;
 //  * attention_q8_kernel: one block per (sequence, head, 128-query tile),
 //    int8 K and V^T of the whole sequence in shared memory, int8 QK^T and
-//    PV products, an exact two-pass softmax in f32.
+//    PV products, an exact two-pass softmax in f32; head_dim D = 64 (two
+//    k32 steps of the score product) or 32 (one), the K rows padded to D +
+//    16 bytes either way.
 //
 // The mma's B operand wants each output column's K values contiguous, and
 // the packed weights are [K, N] (N contiguous). The GEMM's loader reads a
@@ -44,8 +49,8 @@
 //    the scale a * (1 / 127), in that order (x / a * 127 is another
 //    number); the constants are the f32 roundings of the double values, as
 //    JAX takes Python floats;
-//  * dequant: (f32(acc) * sx) * sw, cast to bf16 BEFORE the bias add, the
-//    bias added in bf16;
+//  * dequant: (f32(acc) * sx) * sw, cast to T BEFORE the bias add, the
+//    bias added in T (in f32 the casts are identities);
 //  * Q and K scales span all heads (the row quantizer sees the whole hid),
 //    V's span the whole key sequence (quant_cols sees it): a per-head block
 //    could compute neither, so attention takes int8 tensors and scales;
@@ -62,7 +67,7 @@
 #include "common.cuh"
 
 using nylon::bf16;
-using nylon::bf16_round;
+using nylon::round_to;
 
 namespace {
 
@@ -115,21 +120,53 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
   out[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+// 8 consecutive elements as f32 (16 bytes of bf16, 32 of f32).
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) v[t] = __bfloat162float(e[t]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// (f32(acc) * sx) * sw, each product rounded (no FMA with the bias add that
+// follows in f32).
+__device__ __forceinline__ float dequant(int acc, float sx, float sw) {
+  return __fmul_rn(__fmul_rn((float)acc, sx), sw);
+}
+
+// Two consecutive elements in one store.
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  __nv_bfloat162 o;
+  o.x = __float2bfloat16(a);
+  o.y = __float2bfloat16(b);
+  *reinterpret_cast<__nv_bfloat162*>(dst) = o;
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
 // ------------------------------------------------------------ quantizers ----
 
-constexpr int kMaxRowChunks = 4;  // 8 bf16 per chunk per lane: K <= 1024
+constexpr int kMaxRowChunks = 4;  // 8 elements per chunk per lane: K <= 1024
 
 // Row r, segment j: x[r, j*K : (j+1)*K] -> q[r, j*K : (j+1)*K], s[j, r].
-// One warp per (row, segment); the row stays in registers.
+// One warp per (row, segment); the row stays in registers. T: bf16 or f32.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    quant_rows_kernel(const bf16* __restrict__ x, long long ld_x, int M,
+    quant_rows_kernel(const T* __restrict__ x, long long ld_x, int M,
                       int K, int n_seg, int8_t* __restrict__ q,
                       float* __restrict__ s) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= M * n_seg) return;  // warp-uniform
   const int row = warp / n_seg, seg = warp % n_seg;
-  const bf16* src = x + (size_t)row * ld_x + (size_t)seg * K;
+  const T* src = x + (size_t)row * ld_x + (size_t)seg * K;
   const int chunks = K / 8;
   float v[kMaxRowChunks][8];
   float amax = 0.f;
@@ -137,13 +174,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kMaxRowChunks; ++i) {
     const int c = lane + 32 * i;
     if (c < chunks) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + c * 8);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      load8(src + c * 8, v[i]);
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        v[i][t] = __bfloat162float(e[t]);
-        amax = fmaxf(amax, fabsf(v[i][t]));
-      }
+      for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[i][t]));
     }
   }
   const float a = fmaxf(warp_max(amax), kAbsFloor);
@@ -169,8 +202,9 @@ constexpr int kRowTile = 32;   // key rows per transposed store
 // V of sequence `seq`: x[seq*L + j, col] -> vt[seq, col, j] (j < L_pad,
 // zero codes past L) and sv[seq, col] = max(absmax_j, 1e-12) / 127^2.
 // Block per (sequence, 64 columns); thread (c = tid % 64, g = tid / 64).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    quant_cols_kernel(const bf16* __restrict__ x, long long ld_x, int L,
+    quant_cols_kernel(const T* __restrict__ x, long long ld_x, int L,
                       int hid, int8_t* __restrict__ vt,
                       float* __restrict__ sv) {
   __shared__ float part[4][kColTile];
@@ -178,10 +212,10 @@ __global__ void __launch_bounds__(kThreads)
   const int seq = blockIdx.x, col0 = blockIdx.y * kColTile;
   const int c = threadIdx.x % kColTile, g = threadIdx.x / kColTile;
   const int l_pad = (L + kRowTile - 1) / kRowTile * kRowTile;
-  const bf16* base = x + (size_t)seq * L * ld_x + col0 + c;
+  const T* base = x + (size_t)seq * L * ld_x + col0 + c;
   float amax = 0.f;
   for (int j = g; j < L; j += 4)
-    amax = fmaxf(amax, fabsf(__bfloat162float(base[(size_t)j * ld_x])));
+    amax = fmaxf(amax, fabsf(nylon::to_f(base[(size_t)j * ld_x])));
   part[g][c] = amax;
   __syncthreads();
   const float a = fmaxf(fmaxf(fmaxf(part[0][c], part[1][c]), part[2][c]),
@@ -195,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < 8; ++t) {
       const int j = j0 + 8 * g + t;
       tile[c][8 * g + t] =
-          j < L ? quant_code(__bfloat162float(base[(size_t)j * ld_x]), r)
+          j < L ? quant_code(nylon::to_f(base[(size_t)j * ld_x]), r)
                 : (int8_t)0;
     }
     __syncthreads();
@@ -336,12 +370,13 @@ struct S8Gemm {
 // GEMM + bias: 128 x 128 tiles, warps 2 x 4 of 64 x 32.
 using GemmBias = S8Gemm<128, 128, 2, 4>;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gemm_q8_bias_kernel(const int8_t* __restrict__ a,
                         const float* __restrict__ sa,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ sw,
-                        const bf16* __restrict__ bias, bf16* __restrict__ out,
+                        const T* __restrict__ bias, T* __restrict__ out,
                         int M, int N, int K, int relu, int n_tiles_n) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int m0 = (blockIdx.x / n_tiles_n) * 128;
@@ -363,18 +398,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < GemmBias::kNT; ++j) {
         const int col = n0 + wn * 32 + j * 8 + t * 2;
         if (col >= N) continue;
-        __nv_bfloat162 o;
         float y[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          y[e] = bf16_round(bf16_round((float)acc[i][j][2 * half + e] * sx *
-                                       sw[col + e]) +
-                            __bfloat162float(bias[col + e]));
+          const float q = dequant(acc[i][j][2 * half + e], sx, sw[col + e]);
+          y[e] = round_to<T>(round_to<T>(q) + nylon::to_f(bias[col + e]));
           if (relu) y[e] = fmaxf(y[e], 0.f);
         }
-        o.x = __float2bfloat16(y[0]);
-        o.y = __float2bfloat16(y[1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) = o;
+        store2(out + (size_t)row * N + col, y[0], y[1]);
       }
     }
   }
@@ -392,16 +423,17 @@ constexpr size_t kLnSmem = (size_t)GemmLn::kPipeBytes > kLnStageBytes
                                ? (size_t)GemmLn::kPipeBytes
                                : kLnStageBytes;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gemm_q8_res_ln_kernel(const int8_t* __restrict__ a,
                           const float* __restrict__ sa,
                           const int8_t* __restrict__ w,
                           const float* __restrict__ sw,
-                          const bf16* __restrict__ bias,
-                          const bf16* __restrict__ res,
+                          const T* __restrict__ bias,
+                          const T* __restrict__ res,
                           const float* __restrict__ gamma,
                           const float* __restrict__ beta,
-                          bf16* __restrict__ out, int8_t* __restrict__ q_out,
+                          T* __restrict__ out, int8_t* __restrict__ q_out,
                           float* __restrict__ s_out, int M, int N, int K,
                           float eps) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -438,10 +470,10 @@ __global__ void __launch_bounds__(kThreads)
       const int c = lane + 32 * k;
       s[k] = 0.f;
       if (c < N) {
-        const float y = bf16_round(
-            bf16_round((float)C[r * kLnCLd + c] * sx * sw[c]) +
-            __bfloat162float(bias[c]));
-        s[k] = bf16_round(__bfloat162float(res[(size_t)row * N + c]) + y);
+        const float y = round_to<T>(
+            round_to<T>(dequant(C[r * kLnCLd + c], sx, sw[c])) +
+            nylon::to_f(bias[c]));
+        s[k] = round_to<T>(nylon::to_f(res[(size_t)row * N + c]) + y);
         sum += s[k];
       }
     }
@@ -461,13 +493,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kLnBN / 32; ++k) {
       const int c = lane + 32 * k;
       if (c < N) {
-        s[k] = bf16_round((s[k] - mean) * rstd * gamma[c] + beta[c]);
-        out[(size_t)row * N + c] = __float2bfloat16(s[k]);
+        s[k] = round_to<T>((s[k] - mean) * rstd * gamma[c] + beta[c]);
+        out[(size_t)row * N + c] = nylon::from_f<T>(s[k]);
         amax = fmaxf(amax, fabsf(s[k]));
       }
     }
     if (q_out == nullptr) continue;  // warp-uniform
-    // the next GEMM's row quantization of the bf16 output
+    // the next GEMM's row quantization of the output
     const float qa = fmaxf(warp_max(amax), kAbsFloor);
     const float qr = 127.f / qa;
 #pragma unroll
@@ -485,35 +517,44 @@ constexpr int kAttnRows = 128;  // queries per block: 16 per warp
 constexpr int kMaxLk = 256;
 constexpr int kPLd = 32 + 16;   // per-warp int8 probability tile row
 
+// K code rows of head_dim D padded by 16 bytes: 20 (D = 64) or 12 (D = 32)
+// words, so the fragment loads of 8 rows x 4 lanes hit 32 distinct banks.
+template <int D>
+constexpr int kKLd = D + 16;
+
+template <int D>
 __host__ __device__ constexpr size_t attn_q8_smem(int lk_pad) {
-  return (size_t)lk_pad * kLd                 // K codes [lk_pad][64 + 16]
-         + (size_t)64 * (lk_pad + 16)         // V^T codes [64][lk_pad + 16]
+  return (size_t)lk_pad * kKLd<D>             // K codes [lk_pad][D + 16]
+         + (size_t)D * (lk_pad + 16)          // V^T codes [D][lk_pad + 16]
          + (size_t)lk_pad * sizeof(float)     // key scales
          + (size_t)(kThreads / 32) * 16 * kPLd;
 }
 
-// o[seq, i, h*64 : (h+1)*64] for one (sequence, head, query tile). Q codes
-// go straight from device memory into the warp's A fragments; K codes
-// [lk_pad][64] and V^T codes [64][lk_pad] of the whole sequence sit in
-// shared memory. Each warp owns 16 query rows and walks the keys in 32-key
-// chunks twice: first for the exact row max of the dequantized scores,
-// then recomputing each chunk (the same MMAs, so the same values) to take
-// p = exp2(s - m), sum l from the unquantized p, and accumulate the int8
-// product of pq = rint(127 p) with V.
+// o[seq, i, h*D : (h+1)*D] for one (sequence, head, query tile), D = 32 or
+// 64, in T (bf16 or f32). Q codes go straight from device memory into the
+// warp's A fragments (D / 32 k-steps of m16n8k32); K codes [lk_pad][D] and
+// V^T codes [D][lk_pad] of the whole sequence sit in shared memory. Each
+// warp owns 16 query rows and walks the keys in 32-key chunks twice: first
+// for the exact row max of the dequantized scores, then recomputing each
+// chunk (the same MMAs, so the same values) to take p = exp2(s - m), sum l
+// from the unquantized p, and accumulate the int8 product of pq = rint(127
+// p) with V.
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_q8_kernel(const int8_t* __restrict__ q, long long q_row,
                         const float* __restrict__ sq,
                         const int8_t* __restrict__ k, long long k_row,
                         const float* __restrict__ sk,
                         const int8_t* __restrict__ vt, int vt_ld,
-                        const float* __restrict__ sv, bf16* __restrict__ o,
+                        const float* __restrict__ sv, T* __restrict__ o,
                         int lq, int lk, int hid, float scale_log2e) {
   extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int D = 64;
+  constexpr int KLD = kKLd<D>;
+  constexpr int KS = D / 32;  // k-steps of the score product
   const int lk_pad = vt_ld;  // a multiple of 32
   const int vs_ld = lk_pad + 16;
   uint8_t* const Ks = smem;
-  uint8_t* const Vs = Ks + lk_pad * kLd;
+  uint8_t* const Vs = Ks + lk_pad * KLD;
   float* const sks = reinterpret_cast<float*>(Vs + D * vs_ld);
   uint8_t* const Ps = reinterpret_cast<uint8_t*>(sks + lk_pad);
 
@@ -528,7 +569,7 @@ __global__ void __launch_bounds__(kThreads)
     const uint4 v = r < lk ? *reinterpret_cast<const uint4*>(
                                  kb + (size_t)r * k_row + c16)
                            : zero;
-    *reinterpret_cast<uint4*>(Ks + r * kLd + c16) = v;
+    *reinterpret_cast<uint4*>(Ks + r * KLD + c16) = v;
   }
   const int8_t* vb = vt + ((size_t)seq * hid + h * D) * lk_pad;
   for (int c = threadIdx.x; c < D * (lk_pad / 16); c += kThreads) {
@@ -544,12 +585,12 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
   const bool ok_a = row_a < lq, ok_b = row_b < lq;
-  uint32_t qa[2][4];
+  uint32_t qa[KS][4];
   {
     const int8_t* pa = q + ((size_t)seq * lq + row_a) * q_row + h * D;
     const int8_t* pb = q + ((size_t)seq * lq + row_b) * q_row + h * D;
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
       const int c = ks * 32 + t * 4;
       qa[ks][0] = ok_a ? *reinterpret_cast<const uint32_t*>(pa + c) : 0u;
       qa[ks][1] = ok_b ? *reinterpret_cast<const uint32_t*>(pb + c) : 0u;
@@ -567,9 +608,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
-      const uint8_t* kp = Ks + (j0 + nt * 8 + g) * kLd + t * 4;
+      const uint8_t* kp = Ks + (j0 + nt * 8 + g) * KLD + t * 4;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
         mma_s8(acc[nt], qa[ks], lds32(kp + ks * 32), lds32(kp + ks * 32 + 16));
     }
   };
@@ -646,108 +687,160 @@ __global__ void __launch_bounds__(kThreads)
   for (int dt = 0; dt < D / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     const float v0 = svh[c], v1 = svh[c + 1];
-    if (ok_a) {
-      __nv_bfloat162 r;
-      r.x = __float2bfloat16((float)oacc[dt][0] * v0 / l_a);
-      r.y = __float2bfloat16((float)oacc[dt][1] * v1 / l_a);
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + ((size_t)seq * lq + row_a) * hid + h * D + c) = r;
-    }
-    if (ok_b) {
-      __nv_bfloat162 r;
-      r.x = __float2bfloat16((float)oacc[dt][2] * v0 / l_b);
-      r.y = __float2bfloat16((float)oacc[dt][3] * v1 / l_b);
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + ((size_t)seq * lq + row_b) * hid + h * D + c) = r;
-    }
+    if (ok_a)
+      store2(o + ((size_t)seq * lq + row_a) * hid + h * D + c,
+             (float)oacc[dt][0] * v0 / l_a, (float)oacc[dt][1] * v1 / l_a);
+    if (ok_b)
+      store2(o + ((size_t)seq * lq + row_b) * hid + h * D + c,
+             (float)oacc[dt][2] * v0 / l_b, (float)oacc[dt][3] * v1 / l_b);
   }
 }
 
-}  // namespace
 
-extern "C" {
-
-int nylon_q8_quant_rows(const void* x, long long ld_x, int M, int K,
-                        int n_seg, void* q, void* s, void* stream) {
+template <typename T>
+int launch_quant_rows(const void* x, long long ld_x, int M, int K, int n_seg,
+                      void* q, void* s, cudaStream_t stream) {
   if (M <= 0 || K <= 0 || K % 8 || K > 8 * 32 * kMaxRowChunks || n_seg <= 0 ||
       ld_x % 8 || ld_x < (long long)n_seg * K)
     return (int)cudaErrorInvalidValue;
   const long long warps = (long long)M * n_seg;
   const unsigned blocks = (unsigned)((warps * 32 + kThreads - 1) / kThreads);
-  quant_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, ld_x, M, K, n_seg, (int8_t*)q, (float*)s);
+  quant_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      (const T*)x, ld_x, M, K, n_seg, (int8_t*)q, (float*)s);
   return (int)cudaGetLastError();
 }
 
-int nylon_q8_quant_cols(const void* x, long long ld_x, int n_seq, int L,
-                        int hid, void* vt, void* sv, void* stream) {
+template <typename T>
+int launch_quant_cols(const void* x, long long ld_x, int n_seq, int L,
+                      int hid, void* vt, void* sv, cudaStream_t stream) {
   if (n_seq <= 0 || L <= 0 || hid <= 0 || hid % kColTile || ld_x < hid)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n_seq, hid / kColTile);
-  quant_cols_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, ld_x, L, hid, (int8_t*)vt, (float*)sv);
+  quant_cols_kernel<T><<<grid, kThreads, 0, stream>>>(
+      (const T*)x, ld_x, L, hid, (int8_t*)vt, (float*)sv);
   return (int)cudaGetLastError();
 }
 
-int nylon_q8_gemm_bias(const void* a, const void* sa, const void* w,
-                       const void* sw, const void* bias, void* out, int M,
-                       int N, int K, int relu, void* stream) {
+template <typename T>
+int launch_gemm_bias(const void* a, const void* sa, const void* w,
+                     const void* sw, const void* bias, void* out, int M,
+                     int N, int K, int relu, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8)
     return (int)cudaErrorInvalidValue;
   const int smem = GemmBias::kPipeBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      gemm_q8_bias_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gemm_q8_bias_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles_n = (N + 127) / 128;
   const long long tiles = (long long)n_tiles_n * ((M + 127) / 128);
-  gemm_q8_bias_kernel<<<(unsigned)tiles, kThreads, smem,
-                        (cudaStream_t)stream>>>(
+  gemm_q8_bias_kernel<T><<<(unsigned)tiles, kThreads, smem, stream>>>(
       (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const bf16*)bias, (bf16*)out, M, N, K, relu, n_tiles_n);
+      (const T*)bias, (T*)out, M, N, K, relu, n_tiles_n);
   return (int)cudaGetLastError();
 }
 
-int nylon_q8_gemm_res_ln(const void* a, const void* sa, const void* w,
-                         const void* sw, const void* bias, const void* res,
-                         const void* gamma, const void* beta, void* out,
-                         void* q_out, void* s_out, int M, int N, int K,
-                         float eps, void* stream) {
+template <typename T>
+int launch_gemm_res_ln(const void* a, const void* sa, const void* w,
+                       const void* sw, const void* bias, const void* res,
+                       const void* gamma, const void* beta, void* out,
+                       void* q_out, void* s_out, int M, int N, int K,
+                       float eps, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN ||
       ((q_out == nullptr) != (s_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      gemm_q8_res_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_q8_res_ln_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kLnSmem);
   if (e != cudaSuccess) return (int)e;
-  gemm_q8_res_ln_kernel<<<(M + kLnBM - 1) / kLnBM, kThreads, kLnSmem,
-                          (cudaStream_t)stream>>>(
+  gemm_q8_res_ln_kernel<T><<<(M + kLnBM - 1) / kLnBM, kThreads, kLnSmem,
+                             stream>>>(
       (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const bf16*)bias, (const bf16*)res, (const float*)gamma,
-      (const float*)beta, (bf16*)out, (int8_t*)q_out, (float*)s_out, M, N, K,
-      eps);
+      (const T*)bias, (const T*)res, (const float*)gamma, (const float*)beta,
+      (T*)out, (int8_t*)q_out, (float*)s_out, M, N, K, eps);
   return (int)cudaGetLastError();
 }
 
-int nylon_q8_attention(const void* q, long long q_row, const void* sq,
+template <int D, typename T>
+int launch_attention_d(const void* q, long long q_row, const void* sq,
                        const void* k, long long k_row, const void* sk,
                        const void* vt, int vt_ld, const void* sv, void* o,
-                       int n_seq, int lq, int lk, int n_heads, int head_dim,
-                       float scale_log2e, void* stream) {
-  if (head_dim != 64 || n_seq <= 0 || lq <= 0 || lk <= 0 || lk > kMaxLk ||
-      n_heads <= 0 || n_heads > 65535 || vt_ld != (lk + 31) / 32 * 32 ||
-      q_row % 16 || k_row % 16)
-    return (int)cudaErrorInvalidValue;
+                       int n_seq, int lq, int lk, int n_heads,
+                       float scale_log2e, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_q8_smem(kMaxLk));
+      attention_q8_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_q8_smem<D>(kMaxLk));
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_q8_kernel<<<grid, kThreads, attn_q8_smem(vt_ld),
-                        (cudaStream_t)stream>>>(
+  attention_q8_kernel<D, T><<<grid, kThreads, attn_q8_smem<D>(vt_ld),
+                              stream>>>(
       (const int8_t*)q, q_row, (const float*)sq, (const int8_t*)k, k_row,
-      (const float*)sk, (const int8_t*)vt, vt_ld, (const float*)sv, (bf16*)o,
-      lq, lk, n_heads * head_dim, scale_log2e);
+      (const float*)sk, (const int8_t*)vt, vt_ld, (const float*)sv, (T*)o,
+      lq, lk, n_heads * D, scale_log2e);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_attention(const void* q, long long q_row, const void* sq,
+                     const void* k, long long k_row, const void* sk,
+                     const void* vt, int vt_ld, const void* sv, void* o,
+                     int n_seq, int lq, int lk, int n_heads, int head_dim,
+                     float scale_log2e, cudaStream_t stream) {
+  if ((head_dim != 32 && head_dim != 64) || n_seq <= 0 || lq <= 0 ||
+      lk <= 0 || lk > kMaxLk || n_heads <= 0 || n_heads > 65535 ||
+      vt_ld != (lk + 31) / 32 * 32 || q_row % 16 || k_row % 16)
+    return (int)cudaErrorInvalidValue;
+  return head_dim == 32
+             ? launch_attention_d<32, T>(q, q_row, sq, k, k_row, sk, vt,
+                                         vt_ld, sv, o, n_seq, lq, lk, n_heads,
+                                         scale_log2e, stream)
+             : launch_attention_d<64, T>(q, q_row, sq, k, k_row, sk, vt,
+                                         vt_ld, sv, o, n_seq, lq, lk, n_heads,
+                                         scale_log2e, stream);
+}
+
+}  // namespace
+
+// Each entry point takes bf16 activations (and writes bf16); its _f32 twin
+// takes and writes f32 (the float32 compute dtype).
+#define NYLON_Q8_ENTRY(name, T)                                                \
+  int nylon_q8_quant_rows##name(const void* x, long long ld_x, int M, int K,  \
+                                int n_seg, void* q, void* s, void* stream) {  \
+    return launch_quant_rows<T>(x, ld_x, M, K, n_seg, q, s,                   \
+                                (cudaStream_t)stream);                        \
+  }                                                                           \
+  int nylon_q8_quant_cols##name(const void* x, long long ld_x, int n_seq,     \
+                                int L, int hid, void* vt, void* sv,           \
+                                void* stream) {                               \
+    return launch_quant_cols<T>(x, ld_x, n_seq, L, hid, vt, sv,               \
+                                (cudaStream_t)stream);                        \
+  }                                                                           \
+  int nylon_q8_gemm_bias##name(const void* a, const void* sa, const void* w,  \
+                               const void* sw, const void* bias, void* out,   \
+                               int M, int N, int K, int relu, void* stream) { \
+    return launch_gemm_bias<T>(a, sa, w, sw, bias, out, M, N, K, relu,        \
+                               (cudaStream_t)stream);                         \
+  }                                                                           \
+  int nylon_q8_gemm_res_ln##name(                                             \
+      const void* a, const void* sa, const void* w, const void* sw,           \
+      const void* bias, const void* res, const void* gamma, const void* beta, \
+      void* out, void* q_out, void* s_out, int M, int N, int K, float eps,    \
+      void* stream) {                                                         \
+    return launch_gemm_res_ln<T>(a, sa, w, sw, bias, res, gamma, beta, out,   \
+                                 q_out, s_out, M, N, K, eps,                  \
+                                 (cudaStream_t)stream);                       \
+  }                                                                           \
+  int nylon_q8_attention##name(                                               \
+      const void* q, long long q_row, const void* sq, const void* k,          \
+      long long k_row, const void* sk, const void* vt, int vt_ld,             \
+      const void* sv, void* o, int n_seq, int lq, int lk, int n_heads,        \
+      int head_dim, float scale_log2e, void* stream) {                        \
+    return launch_attention<T>(q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, o,  \
+                               n_seq, lq, lk, n_heads, head_dim, scale_log2e, \
+                               (cudaStream_t)stream);                         \
+  }
+
+extern "C" {
+NYLON_Q8_ENTRY(, bf16)
+NYLON_Q8_ENTRY(_f32, float)
 }  // extern "C"

@@ -36,16 +36,21 @@
 // Numerics follow the TPU kernel's analytic backward cast for cast: every
 // product accumulates in f32, each gradient is rounded to bf16 where the
 // JAX code casts (.astype(dt)), weight gradients stay f32, dq/dk are scaled
-// in f32 before their cast.
+// in f32 before their cast. The dX epilogue is layer_epilogue.cuh's.
+//
+// Float32 compute dtype: ln_bwd_kernel is instantiated for f32 rows
+// (nylon_ln_bwd_f32); the dX and dW GEMMs have f32 twins in
+// layer_fused_f32.cu (the SIMT core of gemm_f32.cuh), whose partials this
+// file's reduce_rows sums in the same fixed order.
 
 #include <mma.h>
 
 #include "common.cuh"
 #include "hash_mask.cuh"
+#include "layer_epilogue.cuh"
 
 using namespace nvcuda;
 using nylon::bf16;
-using nylon::bf16_round;
 using nylon::DropSite;
 using nylon::keep_value;
 
@@ -85,12 +90,13 @@ constexpr int kLnMaxN = 256;
 // kDrop also dam = bf16(da * keep) for the dropout site feeding the sum.
 // Block b owns rows [b * rows_per_block, ...); its warps take every 8th row.
 // dg_part[b] / db_part[b] = sum over the block's rows of dy * xhat / dy,
-// summed warp by warp in a fixed order.
-template <bool kDrop>
+// summed warp by warp in a fixed order. T: bf16, or f32 (the float32
+// compute dtype, where every cast to T is the identity).
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    ln_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ s,
-                  const float* __restrict__ gamma, bf16* __restrict__ da,
-                  bf16* __restrict__ dam, float* __restrict__ dg_part,
+    ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ s,
+                  const float* __restrict__ gamma, T* __restrict__ da,
+                  T* __restrict__ dam, float* __restrict__ dg_part,
                   float* __restrict__ db_part, int M, int N,
                   int rows_per_block, float eps, DropSite site) {
   __shared__ float red[2][kThreads / 32][kLnMaxN];
@@ -111,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < kT; ++t) {
       x[t] = 0.f;
       if (t < nt) {
-        x[t] = __bfloat162float(s[off + lane + 32 * t]);
+        x[t] = nylon::to_f(s[off + lane + 32 * t]);
         sum += x[t];
       }
     }
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
       if (t < nt) {
         const int c = lane + 32 * t;
         const float xh = (x[t] - mean) * inv;
-        const float d = __bfloat162float(dy[off + c]);
+        const float d = nylon::to_f(dy[off + c]);
         dg[t] += d * xh;
         db[t] += d;
         dxh[t] = d * gamma[c];
@@ -146,11 +152,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < kT; ++t)
       if (t < nt) {
         const int c = lane + 32 * t;
-        const bf16 v = __float2bfloat16((dxh[t] - m1 - x[t] * m2) * inv);
+        const T v = nylon::from_f<T>((dxh[t] - m1 - x[t] * m2) * inv);
         da[off + c] = v;
         if constexpr (kDrop)
-          dam[off + c] = __float2bfloat16(
-              __bfloat162float(v) * keep_value(site, (uint32_t)row, c, N));
+          dam[off + c] = nylon::from_f<T>(
+              nylon::to_f(v) * keep_value(site, (uint32_t)row, c, N));
       }
   }
 #pragma unroll
@@ -177,13 +183,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kNtBM = 128, kNtBN = 128;
 constexpr size_t kNtPipeBytes = 2 * 2 * kNtBM * kALd * sizeof(bf16);
 
-struct Epilogue {
-  const bf16* gate;    // keep v only where gate > 0 (ReLU of the forward)
-  const bf16* addend;  // v = bf16(addend + v)
-  DropSite m1;         // v = bf16(v * keep) right after the cast
-  DropSite m2;         // v = bf16(v * keep) at the end
-  int act1, act2;
-};
+using nylon::NtEpilogue;
 
 // out[M, Kout] = epilogue(bf16(dy[M, N] @ w^T)), w [Kout, N] row-major.
 // The tiling of gemm_bias_kernel (layer_fused.cu): 8 warps as 2 x 4, each
@@ -192,7 +192,7 @@ struct Epilogue {
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_nt_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
                    bf16* __restrict__ out, int M, int N, int Kout,
-                   int n_tiles_k, Epilogue ep) {
+                   int n_tiles_k, NtEpilogue ep) {
   __shared__ __align__(128) unsigned char smem[kNtPipeBytes];
   bf16* const sa0 = reinterpret_cast<bf16*>(smem);
   bf16* const sb0 = sa0 + 2 * kNtBM * kALd;
@@ -260,22 +260,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int gc = c0 + wn * 32 + j * 16 + e8;
       if (gr < M && gc < Kout) {
         const size_t off = (size_t)gr * Kout + gc;
-        float gate[8], add[8];
-        if (ep.gate) load8(gate, ep.gate + off);
-        if (ep.addend) load8(add, ep.addend + off);
+        float gate[8] = {}, add[8] = {};
+        if (ep.gate) load8(gate, static_cast<const bf16*>(ep.gate) + off);
+        if (ep.addend) load8(add, static_cast<const bf16*>(ep.addend) + off);
         uint4 ov;
         bf16* o = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float v = bf16_round(stage[r * 16 + e8 + e]);
-          if (ep.act1)
-            v = bf16_round(v * keep_value(ep.m1, (uint32_t)gr, gc + e, Kout));
-          if (ep.gate && !(gate[e] > 0.f)) v = 0.f;
-          if (ep.addend) v = bf16_round(add[e] + v);
-          if (ep.act2)
-            v = bf16_round(v * keep_value(ep.m2, (uint32_t)gr, gc + e, Kout));
-          o[e] = __float2bfloat16(v);
-        }
+        for (int e = 0; e < 8; ++e)
+          o[e] = __float2bfloat16(nylon::nt_epilogue<bf16>(
+              stage[r * 16 + e8 + e], ep, gate[e], add[e], (uint32_t)gr,
+              gc + e, Kout));
         *reinterpret_cast<uint4*>(out + off) = ov;
       }
       __syncwarp();
@@ -397,6 +391,27 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = s;
 }
 
+template <typename T>
+int launch_ln_bwd(const void* dy, const void* s, const void* gamma, void* da,
+                  void* dam, void* dg_part, void* db_part, int M, int N,
+                  int rows_per_block, int n_blocks, float eps, int active,
+                  unsigned key, unsigned thresh, float scale, int half,
+                  cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || N % 32 || N > kLnMaxN || rows_per_block <= 0 ||
+      (long long)rows_per_block * n_blocks < M || (half && 2 * half != N))
+    return (int)cudaErrorInvalidValue;
+  const DropSite site{key, thresh, scale, half, 0u};
+  if (active)
+    ln_bwd_kernel<T, true><<<n_blocks, kThreads, 0, stream>>>(
+        (const T*)dy, (const T*)s, (const float*)gamma, (T*)da, (T*)dam,
+        (float*)dg_part, (float*)db_part, M, N, rows_per_block, eps, site);
+  else
+    ln_bwd_kernel<T, false><<<n_blocks, kThreads, 0, stream>>>(
+        (const T*)dy, (const T*)s, (const float*)gamma, (T*)da, nullptr,
+        (float*)dg_part, (float*)db_part, M, N, rows_per_block, eps, site);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -408,21 +423,20 @@ int nylon_ln_bwd(const void* dy, const void* s, const void* gamma, void* da,
                  int rows_per_block, int n_blocks, float eps, int active,
                  unsigned key, unsigned thresh, float scale, int half,
                  void* stream) {
-  if (M <= 0 || N <= 0 || N % 32 || N > kLnMaxN || rows_per_block <= 0 ||
-      (long long)rows_per_block * n_blocks < M || (half && 2 * half != N))
-    return (int)cudaErrorInvalidValue;
-  const DropSite site{key, thresh, scale, half, 0u};
-  if (active)
-    ln_bwd_kernel<true><<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const bf16*)dy, (const bf16*)s, (const float*)gamma, (bf16*)da,
-        (bf16*)dam, (float*)dg_part, (float*)db_part, M, N, rows_per_block,
-        eps, site);
-  else
-    ln_bwd_kernel<false><<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const bf16*)dy, (const bf16*)s, (const float*)gamma, (bf16*)da,
-        nullptr, (float*)dg_part, (float*)db_part, M, N, rows_per_block, eps,
-        site);
-  return (int)cudaGetLastError();
+  return launch_ln_bwd<bf16>(dy, s, gamma, da, dam, dg_part, db_part, M, N,
+                             rows_per_block, n_blocks, eps, active, key,
+                             thresh, scale, half, (cudaStream_t)stream);
+}
+
+// The float32 twin of nylon_ln_bwd: f32 dy, s, da and dam.
+int nylon_ln_bwd_f32(const void* dy, const void* s, const void* gamma,
+                     void* da, void* dam, void* dg_part, void* db_part, int M,
+                     int N, int rows_per_block, int n_blocks, float eps,
+                     int active, unsigned key, unsigned thresh, float scale,
+                     int half, void* stream) {
+  return launch_ln_bwd<float>(dy, s, gamma, da, dam, dg_part, db_part, M, N,
+                              rows_per_block, n_blocks, eps, active, key,
+                              thresh, scale, half, (cudaStream_t)stream);
 }
 
 // out[M, Kout] = epilogue(bf16(dy[M, N] @ w[Kout, N]^T)); gate and addend
@@ -435,9 +449,8 @@ int nylon_gemm_nt(const void* dy, const void* w, void* out, const void* gate,
   if (M <= 0 || N <= 0 || Kout <= 0 || N % kBK || Kout % 8 ||
       (half1 && 2 * half1 != Kout) || (half2 && 2 * half2 != Kout))
     return (int)cudaErrorInvalidValue;
-  const Epilogue ep{(const bf16*)gate, (const bf16*)addend,
-                    DropSite{key1, thresh1, scale1, half1, 0u},
-                    DropSite{key2, thresh2, scale2, half2, 0u}, act1, act2};
+  const NtEpilogue ep{gate, addend, DropSite{key1, thresh1, scale1, half1, 0u},
+                      DropSite{key2, thresh2, scale2, half2, 0u}, act1, act2};
   const int n_tiles_k = (Kout + kNtBN - 1) / kNtBN;
   const long long tiles = (long long)n_tiles_k * ((M + kNtBM - 1) / kNtBM);
   gemm_nt_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(

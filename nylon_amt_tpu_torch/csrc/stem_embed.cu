@@ -21,16 +21,20 @@
 // thread slides a register window along the frames (4 frames x 8 columns per
 // thread, 4 taps per window load). The f32 conv output and the transposed,
 // scaled and embedded intermediates of the plain route never reach device
-// memory: the kernel writes the bf16 layer input [B * n_frame, n_bin, hid].
+// memory: the kernel writes the layer input [B * n_frame, n_bin, hid] in the
+// compute dtype.
 //
 // Numerics follow the plain route step by step: f32 sum, rounded to bf16,
 // + bf16(bias), x bf16(sqrt(hid)), + position embedding, each op rounded to
-// bf16 as PyTorch and XLA round a bf16 elementwise op.
+// bf16 as PyTorch and XLA round a bf16 elementwise op. The float32 compute
+// dtype (the default model configuration) instantiates the same kernel with
+// T = float: the layer input, the position embedding and every rounding are
+// f32 there (nylon_stem_embed_f32).
 
 #include "common.cuh"
 
 using nylon::bf16;
-using nylon::bf16_round;
+using nylon::round_to;
 
 namespace {
 
@@ -40,6 +44,18 @@ constexpr int kCols = 64;  // hidden columns per block: 8 per thread
 constexpr int kFrames = 128;  // frames per pass: 32 thread rows x 4
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Four consecutive elements in one store (dst aligned to 4 elements).
+__device__ __forceinline__ void store4(bf16* dst, const bf16 (&v)[4]) {
+  uint2 o;
+  bf16* const p = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) p[e] = v[e];
+  *reinterpret_cast<uint2*>(dst) = o;
+}
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
 
 // Spectrogram row length in shared memory: the last window load of the last
 // frame group reads up to n_frame + round4(n_proc) - 1.
@@ -53,16 +69,17 @@ inline size_t stem_smem_bytes(int n_frame, int n_proc) {
 }
 
 // out[(b * n_frame + f) * n_bin + bin, h] =
-//   bf16(bf16(bf16(bf16(sum_m spec_t[b, f + m, bin] * keff[m, h]) + bq[h])
-//             * sqrt_hid) + pos[bin, h])
+//   T(T(T(T(sum_m spec_t[b, f + m, bin] * keff[m, h]) + bq[h])
+//       * sqrt_hid) + pos[bin, h])
 // for one (64-column tile, 8-bin group, example). Thread (ty, tx) owns frames
 // 4 ty .. 4 ty + 3 of each 128-frame pass and columns 4 tx .. 4 tx + 3 and
 // 32 + 4 tx .. 32 + 4 tx + 3 of the tile (two conflict-free 16-byte loads).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     stem_embed_kernel(const float* __restrict__ spec_t,
                       const float* __restrict__ keff,
                       const float* __restrict__ beff,
-                      const bf16* __restrict__ pos, bf16* __restrict__ out,
+                      const T* __restrict__ pos, T* __restrict__ out,
                       int total, int n_bin, int n_frame, int n_proc, int hid,
                       float sqrt_hid) {
   extern __shared__ __align__(16) float sm[];
@@ -92,8 +109,8 @@ __global__ void __launch_bounds__(kThreads)
   float bq[8];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    bq[e] = bf16_round(beff[h0 + ca + e]);
-    bq[4 + e] = bf16_round(beff[h0 + cb + e]);
+    bq[e] = round_to<T>(beff[h0 + ca + e]);
+    bq[4 + e] = round_to<T>(beff[h0 + cb + e]);
   }
 
   for (int j = 0; j < kBins; ++j) {
@@ -102,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
     float pq[8];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      pq[e] = __bfloat162float(pos[(size_t)bin * hid + h0 + ca + e]);
-      pq[4 + e] = __bfloat162float(pos[(size_t)bin * hid + h0 + cb + e]);
+      pq[e] = nylon::to_f(pos[(size_t)bin * hid + h0 + ca + e]);
+      pq[4 + e] = nylon::to_f(pos[(size_t)bin * hid + h0 + cb + e]);
     }
     for (int fb = 0; fb < n_frame; fb += kFrames) {
       const int f = fb + 4 * ty;
@@ -131,22 +148,41 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        bf16* const row = out + ((size_t)(b * n_frame + f + i) * n_bin + bin) * hid + h0;
-        uint2 oa, ob;
-        bf16* const pa = reinterpret_cast<bf16*>(&oa);
-        bf16* const pb = reinterpret_cast<bf16*>(&ob);
+        T* const row = out + ((size_t)(b * n_frame + f + i) * n_bin + bin) * hid + h0;
+        T ya[4], yb[4];  // 8 (bf16) or 16 (f32) bytes each
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          float x = bf16_round(bf16_round(acc[i][e]) + bq[e]);
-          x = bf16_round(x * sqrt_hid);
-          const bf16 y = __float2bfloat16(x + pq[e]);
-          if (e < 4) pa[e] = y; else pb[e - 4] = y;
+          float x = round_to<T>(round_to<T>(acc[i][e]) + bq[e]);
+          x = round_to<T>(x * sqrt_hid);
+          const T y = nylon::from_f<T>(x + pq[e]);
+          if (e < 4) ya[e] = y; else yb[e - 4] = y;
         }
-        *reinterpret_cast<uint2*>(row + ca) = oa;
-        *reinterpret_cast<uint2*>(row + cb) = ob;
+        store4(row + ca, ya);
+        store4(row + cb, yb);
       }
     }
   }
+}
+
+template <typename T>
+int launch_stem(const void* spec_t, const void* keff, const void* beff,
+                const void* pos, void* out, int batch, int total, int n_bin,
+                int n_frame, int n_proc, int hid, float sqrt_hid,
+                cudaStream_t stream) {
+  if (batch <= 0 || batch > 65535 || n_frame <= 0 || n_frame % 4 ||
+      n_proc <= 0 || total < n_frame + n_proc - 1 || n_bin % kBins ||
+      hid % kCols)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stem_smem_bytes(n_frame, n_proc);
+  const cudaError_t e = cudaFuncSetAttribute(
+      stem_embed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(hid / kCols, n_bin / kBins, batch);
+  stem_embed_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const float*)spec_t, (const float*)keff, (const float*)beff,
+      (const T*)pos, (T*)out, total, n_bin, n_frame, n_proc, hid, sqrt_hid);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -156,19 +192,18 @@ extern "C" int nylon_stem_embed(const void* spec_t, const void* keff,
                                 int batch, int total, int n_bin, int n_frame,
                                 int n_proc, int hid, float sqrt_hid,
                                 void* stream) {
-  if (batch <= 0 || batch > 65535 || n_frame <= 0 || n_frame % 4 ||
-      n_proc <= 0 || total < n_frame + n_proc - 1 || n_bin % kBins ||
-      hid % kCols)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = stem_smem_bytes(n_frame, n_proc);
-  const cudaError_t e = cudaFuncSetAttribute(
-      stem_embed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(hid / kCols, n_bin / kBins, batch);
-  stem_embed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)spec_t, (const float*)keff, (const float*)beff,
-      (const bf16*)pos, (bf16*)out, total, n_bin, n_frame, n_proc, hid,
-      sqrt_hid);
-  return (int)cudaGetLastError();
+  return launch_stem<bf16>(spec_t, keff, beff, pos, out, batch, total, n_bin,
+                           n_frame, n_proc, hid, sqrt_hid,
+                           (cudaStream_t)stream);
+}
+
+// The float32 twin: f32 pos and out, no rounding before the bias add.
+extern "C" int nylon_stem_embed_f32(const void* spec_t, const void* keff,
+                                    const void* beff, const void* pos,
+                                    void* out, int batch, int total,
+                                    int n_bin, int n_frame, int n_proc,
+                                    int hid, float sqrt_hid, void* stream) {
+  return launch_stem<float>(spec_t, keff, beff, pos, out, batch, total,
+                            n_bin, n_frame, n_proc, hid, sqrt_hid,
+                            (cudaStream_t)stream);
 }

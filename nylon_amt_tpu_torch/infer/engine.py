@@ -11,8 +11,10 @@ With ``precision="int8"`` the same five places take the W8A8 twins of K13
 (:mod:`nylon_amt_tpu_torch.ops.layer_fused_q8`): per-channel int8 weights,
 quantized once at pack time from the compute-dtype weights, and dynamic
 per-row int8 activations; the stem, the output heads, LayerNorm and softmax
-keep the bf16 path's numerics. On CUDA tensors every layer launches its
-kernels; on CPU tensors the same code runs the plain versions.
+keep the exact path's numerics. On CUDA tensors every layer launches its
+kernels, in the compute dtype of the pack (bfloat16, or float32 as the
+default configuration); on CPU tensors the same code runs the plain
+versions.
 
 The 65-tap stem, the sqrt(hid) scale and the frequency position embedding
 run in K2 (``encoder_layer_with_stem``) with the first frequency layer, as

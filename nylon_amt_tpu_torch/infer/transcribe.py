@@ -16,7 +16,7 @@ per-site forward (:meth:`HFT.per_site`: the ``return_attention`` and
 ablation configurations) elsewhere, as the JAX transcriber routes them. On
 a CUDA device every layer launches the port's kernels; on the CPU the same
 code runs the plain versions. ``precision="int8"`` runs the W8A8 layers
-(K13) instead of the bf16 ones, and needs the engine. Onset/offset/mpe
+(K13) instead of the exact ones, and needs the engine. Onset/offset/mpe
 posteriors are sigmoids of the logits and velocity is the argmax over the
 128 classes (int8); each batch's posteriors come back to the host in one
 copy.
@@ -57,10 +57,6 @@ class Transcriber:
                              "engine (engine.supports(config) must hold)")
         self.config = config
         self.device = torch.device(device)
-        if self.device.type != "cpu" and model.dtype != torch.bfloat16:
-            raise ValueError("the CUDA layer kernels compute in bfloat16: "
-                             "set model.compute_dtype to 'bfloat16', or run "
-                             "on the CPU")
         self.model = model
         self.batch_windows = batch_windows
         # Stage-1-only models ("cafreq" decoder) emit only A heads.

@@ -8,7 +8,11 @@ and loaded with :mod:`ctypes`. A missing ``nvcc`` or a failed build raises
 with the compiler's output: there is no fallback.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`call` raises when that is not 0.
+``cudaGetLastError()``; :func:`call` raises when that is not 0. An entry
+point that takes activations in the compute dtype exists for bfloat16 and,
+under the same name with ``_f32``, for float32 (the default model
+configuration computes in float32); :func:`entry` picks one by dtype and
+raises on any other.
 
 ``launches`` counts, per public kernel wrapper, the calls that launched the
 kernel on the card (the plain CPU versions never count). A run that must go
@@ -38,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # written mask), and the forward and backward of K7 encoder_layer_train, K8
 # decoder_layer_zero_train and K9 decoder_layer_train; K10 fused_mha, K11
 # fused_mha_with_probs and K12 fused_mha_dropout, forward and backward (the
-# per-site attention); K13, the int8 (W8A8) twins of K2-K5.
+# per-site attention); K13, the int8 (W8A8) twins of K2-K5. A launch in
+# float32 counts as one in bfloat16 does.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -118,6 +123,16 @@ _SIGNATURES = {
     "nylon_q8_attention": [_P, _L, _P, _P, _L, _P, _P, _I, _P, _P]
     + [_I] * 5 + [_F, _P],
 }
+
+# The entry points with a float32 twin ("<name>_f32", the same arguments).
+_F32_TWINS = ("nylon_stem_embed", "nylon_gemm_bias", "nylon_gemm_res_ln",
+              "nylon_attention", "nylon_attention_probs",
+              "nylon_gemm_bias_drop", "nylon_gemm_res_ln_train",
+              "nylon_attention_drop", "nylon_ln_bwd", "nylon_gemm_nt",
+              "nylon_wgrad", "nylon_attention_bwd", "nylon_q8_quant_rows",
+              "nylon_q8_quant_cols", "nylon_q8_gemm_bias",
+              "nylon_q8_gemm_res_ln", "nylon_q8_attention")
+_SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in _F32_TWINS})
 
 _lib: ctypes.CDLL | None = None
 
@@ -222,6 +237,25 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_dtype(name: str, dtype) -> None:
+    """Raise unless the kernels take activations of ``dtype``: bfloat16 or
+    float32."""
+    import torch
+
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the kernels take bfloat16 or float32, "
+                         f"got {dtype}")
+
+
+def entry(name: str, dtype) -> str:
+    """The C entry point ``name`` for activations of ``dtype``: itself for
+    bfloat16, its ``_f32`` twin for float32; any other dtype raises."""
+    import torch
+
+    check_dtype(name, dtype)
+    return name if dtype == torch.bfloat16 else f"{name}_f32"
 
 
 def check_cuda(name: str, t, dtype, ndim: int | None = None) -> None:

@@ -35,8 +35,8 @@ from the unrounded f32 ``p``, ``bf16(p [* keep]) @ V`` in f32, and the
 ``a * keep``) to the compute dtype before their products. K12's mask of
 head ``h`` is :func:`hash_keep_mask` with the raw tag ``h`` on the ``(N,
 Lq, Lk)`` probabilities. A CPU tensor takes the plain versions; a CUDA
-tensor launches ``csrc/mha.cu`` (bf16, head_dim 32 or 64, at most 256
-queries and keys) or raises.
+tensor launches ``csrc/mha.cu`` (bf16) or ``csrc/mha_f32.cu`` (float32),
+head_dim 32 or 64, at most 256 queries and keys, or raises.
 """
 
 from __future__ import annotations
@@ -127,12 +127,6 @@ def _launch(x, out, rows: int, d2: int, seed: int, tag: int, row0: int,
     kernels.launches["hash_keep_mask"] += 1
 
 
-def _check_dtype(dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"hash_keep_mask: the kernel writes float32 or "
-                         f"bfloat16, got {dtype}")
-
-
 def hash_keep_mask(seed: int, tag: int, row0: int, shape, rate: float,
                    dtype: torch.dtype = torch.float32,
                    device: torch.device | str = "cpu") -> torch.Tensor:
@@ -142,7 +136,7 @@ def hash_keep_mask(seed: int, tag: int, row0: int, shape, rate: float,
     device = torch.device(device)
     if device.type == "cpu":
         return hash_keep_mask_plain(seed, tag, row0, shape, rate, dtype)
-    _check_dtype(dtype)
+    kernels.check_dtype("hash_keep_mask", dtype)
     n, d1, d2 = shape
     out = torch.empty(shape, dtype=dtype, device=device)
     with torch.cuda.device(device):
@@ -156,7 +150,7 @@ def apply_keep_mask(x: torch.Tensor, seed: int, tag: int,
     3-D ``x``; on a CUDA tensor one launch of the K6 kernel."""
     if x.device.type == "cpu":
         return x * hash_keep_mask_plain(seed, tag, 0, x.shape, rate, x.dtype)
-    _check_dtype(x.dtype)
+    kernels.check_dtype("apply_keep_mask", x.dtype)
     kernels.check_cuda("apply_keep_mask: x", x, x.dtype, ndim=3)
     n, d1, d2 = x.shape
     out = torch.empty_like(x)
@@ -282,8 +276,9 @@ def _plain_mask(seed, rate, device):
 
 
 def _check(name, q, k, v, n_heads):
+    kernels.check_dtype(name, q.dtype)
     for t_name, t in (("q", q), ("k", k), ("v", v)):
-        kernels.check_cuda(f"{name}: {t_name}", t, torch.bfloat16, ndim=3)
+        kernels.check_cuda(f"{name}: {t_name}", t, q.dtype, ndim=3)
     n, lq, hid = q.shape
     if k.shape != v.shape or k.shape[0] != n or k.shape[2] != hid:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -308,21 +303,23 @@ def _fwd_cuda(q, k, v, n_heads, scale, rate, seed, with_probs=False):
             n, lq, lk = geo[:3]
             probs = torch.empty((n, n_heads, lq, lk), dtype=torch.float32,
                                 device=q.device)
-            kernels.call("nylon_attention_probs", *ptrs, probs.data_ptr(),
-                         *geo, stream)
+            kernels.call(kernels.entry("nylon_attention_probs", q.dtype),
+                         *ptrs, probs.data_ptr(), *geo, stream)
             return out, probs
         if rate > 0.0:
             thresh, keep, half = site_constants(rate, k.shape[1],
                                                 torch.float32)
-            kernels.call("nylon_attention_drop", *ptrs, *geo, seed_mix(seed),
-                         0, thresh, keep, half, stream)
+            kernels.call(kernels.entry("nylon_attention_drop", q.dtype),
+                         *ptrs, *geo, seed_mix(seed), 0, thresh, keep, half,
+                         stream)
         else:
-            kernels.call("nylon_attention", *ptrs, *geo, stream)
+            kernels.call(kernels.entry("nylon_attention", q.dtype), *ptrs,
+                         *geo, stream)
     return out
 
 
 def _bwd_cuda(q, k, v, do, n_heads, scale, rate, seed):
-    kernels.check_cuda("attention backward: do", do, torch.bfloat16, ndim=3)
+    kernels.check_cuda("attention backward: do", do, q.dtype, ndim=3)
     n, lq, hid = q.shape
     lk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -330,9 +327,10 @@ def _bwd_cuda(q, k, v, do, n_heads, scale, rate, seed):
     thresh, keep, half = (site_constants(rate, lk, torch.float32) if active
                           else (0, 0.0, 0))
     with torch.cuda.device(q.device):
-        kernels.call("nylon_attention_bwd", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), n, lq, lk, n_heads,
+        kernels.call(kernels.entry("nylon_attention_bwd", q.dtype),
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), n, lq, lk, n_heads,
                      hid // n_heads, hid, hid, hid, hid, hid,
                      scale, scale * _LOG2E, int(active), seed_mix(seed), 0,
                      thresh, keep, half, kernels.stream_of(q))

@@ -18,8 +18,10 @@ One LayerNorm (g, b) is shared by every residual of a layer, as in the
 reference. A CPU tensor takes the plain version; any other device launches
 the hand-written kernels of ``csrc/layer_fused.cu`` (a bf16 GEMM, the
 attention kernel of ``csrc/mha.cu`` and a GEMM with a residual + LayerNorm
-epilogue, in turn)
-or raises. The plain versions mirror ``layer_fused.py``'s ``_matmul``,
+epilogue, in turn), or for float32 activations (the default model
+configuration) their float32 twins in ``csrc/layer_fused_f32.cu`` and
+``csrc/mha_f32.cu``, or raises (any other dtype raises too). The plain
+versions mirror ``layer_fused.py``'s ``_matmul``,
 ``_layer_norm``, ``_mha_block``, ``_self_block``, ``_cross_tail`` and, for
 the stem, ``models/hft.py::fused_stem``.
 """
@@ -46,7 +48,7 @@ KERNEL_MAX_KEYS = 256  # Q, K and V of a (sequence, head) sit in shared memory
 
 def check_geometry(name: str, hid: int, n_heads: int, lq: int, lk: int,
                    pf: int | None = None) -> None:
-    """Raise unless the bf16 kernels take ``n_heads`` heads over ``hid``
+    """Raise unless the kernels take ``n_heads`` heads over ``hid``
     with ``lq`` queries and ``lk`` keys a sequence, and with ``pf`` (a
     layer's FFN width) the layer kernels' widths."""
     bad = (hid % n_heads or hid // n_heads not in KERNEL_HEAD_DIMS
@@ -230,23 +232,35 @@ def decoder_layer_plain(trg, enc, p: CrossLayerParams, n_heads: int):
 # ---------------------------------------------------------------- kernels --
 
 def _gemm(a, w, bias, relu=False):
-    """``bf16(a @ w) + bias`` [then ReLU] on ``a [M, K]``."""
+    """``dt(a @ w) + bias`` [then ReLU] on ``a [M, K]`` of dtype ``dt``."""
     (m, k), n = a.shape, w.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    kernels.call("nylon_gemm_bias", a.data_ptr(), w.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), m, n, k, int(relu),
-                 kernels.stream_of(a))
+    kernels.call(kernels.entry("nylon_gemm_bias", a.dtype), a.data_ptr(),
+                 w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
+                 int(relu), kernels.stream_of(a))
     return out
 
 
 def _gemm_res_ln(a, w, bias, res, g, b):
-    """``LN(res + (bf16(a @ w) + bias))`` with the shared LayerNorm."""
+    """``LN(res + (dt(a @ w) + bias))`` with the shared LayerNorm."""
     (m, k), n = a.shape, w.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    kernels.call("nylon_gemm_res_ln", a.data_ptr(), w.data_ptr(),
-                 bias.data_ptr(), res.data_ptr(), g.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), m, n, k, _LN_EPS, kernels.stream_of(a))
+    kernels.call(kernels.entry("nylon_gemm_res_ln", a.dtype), a.data_ptr(),
+                 w.data_ptr(), bias.data_ptr(), res.data_ptr(), g.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), m, n, k, _LN_EPS,
+                 kernels.stream_of(a))
     return out
+
+
+def check_rows(name: str, t) -> None:
+    """Raise unless the 2-D view ``t`` has a unit column stride, 16-byte
+    rows and a 16-byte aligned start (the kernels load rows 16 bytes at a
+    time)."""
+    if (t.stride(1) != 1 or t.stride(0) * t.element_size() % 16
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name} must have unit column stride, a row "
+                         "stride of a multiple of 16 bytes and a 16-byte "
+                         "aligned start")
 
 
 def _attention(q, k, v, n, n_heads):
@@ -256,15 +270,13 @@ def _attention(q, k, v, n, n_heads):
     hid = q.shape[1]
     lq, lk = q.shape[0] // n, k.shape[0] // n
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"attention: {name} must have unit column "
-                             "stride, a row stride that is a multiple of 8 "
-                             "and a 16-byte aligned start")
+        check_rows(f"attention: {name}", t)
     if k.stride(0) != v.stride(0):
         raise ValueError("attention: k and v must share a row stride")
     out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
-    kernels.call("nylon_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), n, lq, lk, n_heads, hid // n_heads,
+    kernels.call(kernels.entry("nylon_attention", q.dtype), q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), n, lq, lk,
+                 n_heads, hid // n_heads,
                  q.stride(0), lq * q.stride(0), k.stride(0), lk * k.stride(0),
                  _scale(hid, n_heads) * _LOG2E, kernels.stream_of(q))
     return out
@@ -281,10 +293,12 @@ def weight_shapes(hid: int, pf: int) -> dict[str, tuple[int, ...]]:
 
 
 def _check_kernel_args(name, acts, p, fields, n_heads, lk):
-    """Raise unless the kernels take these activations, weights and
-    geometry."""
+    """Raise unless the kernels take these activations (bfloat16 or
+    float32, all of one dtype), weights (of that dtype) and geometry."""
+    dt = acts[0][1].dtype
+    kernels.check_dtype(name, dt)
     for act_name, t in acts:
-        kernels.check_cuda(f"{name}: {act_name}", t, torch.bfloat16, ndim=3)
+        kernels.check_cuda(f"{name}: {act_name}", t, dt, ndim=3)
     n, lq, hid = acts[0][1].shape
     if any(t.shape[0] != n or t.shape[2] != hid for _, t in acts):
         raise ValueError(f"{name}: activations disagree on n or hid: "
@@ -295,7 +309,7 @@ def _check_kernel_args(name, acts, p, fields, n_heads, lk):
     for f in fields:
         t = getattr(p, f)
         kernels.check_cuda(f"{name}: {f}", t,
-                           torch.float32 if f in ("g", "b") else torch.bfloat16)
+                           torch.float32 if f in ("g", "b") else dt)
         if tuple(t.shape) != shapes[f]:
             raise ValueError(f"{name}: {f} has shape {tuple(t.shape)}, "
                              f"expected {shapes[f]}")
@@ -342,14 +356,15 @@ def encoder_layer(x, p: EncoderLayerParams, n_heads: int):
     return out
 
 
-def _stem_embed(spec_t, keff, beff, pos, n_frame):
-    """The stem kernel: ``spec_t [B, total, n_bin]`` f32 -> bf16 ``[B *
-    n_frame, n_bin, hid]``."""
+def _stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype):
+    """The stem kernel: ``spec_t [B, total, n_bin]`` f32 -> ``[B * n_frame,
+    n_bin, hid]`` in ``out_dtype`` (bfloat16 or float32, as ``pos``)."""
     name = "encoder_layer_with_stem"
+    fn = kernels.entry("nylon_stem_embed", out_dtype)
     kernels.check_cuda(f"{name}: spec_t", spec_t, torch.float32, ndim=3)
     kernels.check_cuda(f"{name}: keff", keff, torch.float32, ndim=2)
     kernels.check_cuda(f"{name}: beff", beff, torch.float32, ndim=1)
-    kernels.check_cuda(f"{name}: pos", pos, torch.bfloat16, ndim=2)
+    kernels.check_cuda(f"{name}: pos", pos, out_dtype, ndim=2)
     B, total, n_bin = spec_t.shape
     n_proc, hid = keff.shape
     if (beff.shape[0] != hid or tuple(pos.shape) != (n_bin, hid)
@@ -361,12 +376,11 @@ def _stem_embed(spec_t, keff, beff, pos, n_frame):
             f"== 0, n_bin % 8 == 0 and hid % 64 == 0; got spec_t "
             f"{tuple(spec_t.shape)}, keff {tuple(keff.shape)}, beff "
             f"{tuple(beff.shape)}, pos {tuple(pos.shape)}, n_frame {n_frame}")
-    out = torch.empty((B * n_frame, n_bin, hid), dtype=torch.bfloat16,
+    out = torch.empty((B * n_frame, n_bin, hid), dtype=out_dtype,
                       device=spec_t.device)
-    kernels.call("nylon_stem_embed", spec_t.data_ptr(), keff.data_ptr(),
-                 beff.data_ptr(), pos.data_ptr(), out.data_ptr(), B, total,
-                 n_bin, n_frame, n_proc, hid,
-                 sqrt_hid(hid, torch.bfloat16).item(),
+    kernels.call(fn, spec_t.data_ptr(), keff.data_ptr(), beff.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), B, total, n_bin, n_frame,
+                 n_proc, hid, sqrt_hid(hid, out_dtype).item(),
                  kernels.stream_of(spec_t))
     return out
 
@@ -380,16 +394,14 @@ def encoder_layer_with_stem(spec_t, keff, beff, pos, p: EncoderLayerParams,
     ``models.hft.stem_effective_kernel``), ``pos [n_bin, hid]`` the
     frequency position embedding. Returns ``[B * n_frame, n_bin, hid]`` in
     ``out_dtype``: ``encoder_layer`` applied to the embedded spectrogram.
-    The kernels take ``out_dtype`` bfloat16 only.
+    The kernels take ``out_dtype`` bfloat16 or float32.
     """
     if spec_t.device.type == "cpu":
         return encoder_layer_with_stem_plain(spec_t, keff, beff, pos, p,
                                              n_heads, n_frame, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"encoder_layer_with_stem: the kernels compute in "
-                         f"bfloat16, got out_dtype {out_dtype}")
+    kernels.check_dtype("encoder_layer_with_stem", out_dtype)
     with torch.cuda.device(spec_t.device):
-        x = _stem_embed(spec_t, keff, beff, pos, n_frame)
+        x = _stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype)
         out = _encoder_layer_cuda("encoder_layer_with_stem", x, p, n_heads)
     kernels.launches["encoder_layer_with_stem"] += 1
     return out

@@ -19,8 +19,9 @@ A CPU tensor takes the plain version; any other device launches the
 hand-written kernels of ``csrc/layer_fused_q8.cu`` (a row quantizer, a
 transposing column quantizer for V, an s8 x s8 -> s32 tensor-core GEMM with
 a dequantizing epilogue, the same GEMM with the residual + shared LayerNorm
-epilogue, and an int8 attention kernel) or raises. The plain versions follow
-the JAX bodies op for op.
+epilogue, and an int8 attention kernel for head_dim 32 or 64), each for
+bfloat16 or float32 activations (the compute dtype), or raises. The plain
+versions follow the JAX bodies op for op.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from nylon_amt_tpu_torch.ops.precision import full_f32
 _EXACT_MAX_K = (2 ** 24) // (127 * 127)  # 1040
 
 # What the CUDA kernels take (csrc/layer_fused_q8.cu).
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_HID = 256    # the LayerNorm epilogue owns a full row
 KERNEL_MAX_KEYS = 256   # K and V of a sequence sit in shared memory
 KERNEL_MAX_ROW = 1024   # the row quantizer keeps a row in registers
@@ -270,8 +271,8 @@ def decoder_layer_q8_plain(trg, enc, p: Q8CrossLayerParams, n_heads: int):
 # ---------------------------------------------------------------- kernels --
 
 def quant_rows_cuda(x2, n_seg: int = 1):
-    """The row quantizer on the card: ``x2 [M, >= n_seg*K]`` bf16 (a row
-    stride that is a multiple of 8, unit column stride) whose first
+    """The row quantizer on the card: ``x2 [M, >= n_seg*K]`` bf16 or f32 (a
+    row stride that is a multiple of 8, unit column stride) whose first
     ``n_seg`` column segments of ``K = x2.shape[1] // n_seg`` (or the
     whole row for ``n_seg`` 1) are quantized each on their own -> (int8
     ``[M, n_seg*K]``, f32 scales ``[n_seg, M]``)."""
@@ -279,13 +280,15 @@ def quant_rows_cuda(x2, n_seg: int = 1):
     k = width // n_seg
     q = torch.empty((m, n_seg * k), dtype=torch.int8, device=x2.device)
     s = torch.empty((n_seg, m), dtype=torch.float32, device=x2.device)
-    kernels.call("nylon_q8_quant_rows", x2.data_ptr(), x2.stride(0), m, k,
-                 n_seg, q.data_ptr(), s.data_ptr(), kernels.stream_of(x2))
+    kernels.call(kernels.entry("nylon_q8_quant_rows", x2.dtype),
+                 x2.data_ptr(), x2.stride(0), m, k, n_seg, q.data_ptr(),
+                 s.data_ptr(), kernels.stream_of(x2))
     return q, s
 
 
 def quant_cols_cuda(v2, n: int):
-    """V's quantizer on the card: ``v2 [n*Lk, hid]`` bf16 (row-strided) ->
+    """V's quantizer on the card: ``v2 [n*Lk, hid]`` bf16 or f32
+    (row-strided) ->
     (int8 codes TRANSPOSED per sequence, ``[n, hid, Lk_pad]`` with the keys
     padded with zero codes to a multiple of 32, so that the attention
     kernel reads V^T with 16-byte loads; f32 scales ``[n, hid]`` with P's
@@ -295,32 +298,37 @@ def quant_cols_cuda(v2, n: int):
     lk_pad = -(-lk // 32) * 32
     vt = torch.empty((n, hid, lk_pad), dtype=torch.int8, device=v2.device)
     sv = torch.empty((n, hid), dtype=torch.float32, device=v2.device)
-    kernels.call("nylon_q8_quant_cols", v2.data_ptr(), v2.stride(0), n, lk,
-                 hid, vt.data_ptr(), sv.data_ptr(), kernels.stream_of(v2))
+    kernels.call(kernels.entry("nylon_q8_quant_cols", v2.dtype),
+                 v2.data_ptr(), v2.stride(0), n, lk, hid, vt.data_ptr(),
+                 sv.data_ptr(), kernels.stream_of(v2))
     return vt, sv
 
 
 def _gemm_q8(aq, sa, wq, sw, bias, relu=False):
-    """``bf16((f32(aq @ wq) * sa) * sw) + bias`` [then ReLU]."""
+    """``dt((f32(aq @ wq) * sa) * sw) + bias`` [then ReLU], in the bias's
+    dtype ``dt`` (the compute dtype)."""
     (m, k), n = aq.shape, wq.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=aq.device)
-    kernels.call("nylon_q8_gemm_bias", aq.data_ptr(), sa.data_ptr(),
+    out = torch.empty((m, n), dtype=bias.dtype, device=aq.device)
+    kernels.call(kernels.entry("nylon_q8_gemm_bias", bias.dtype),
+                 aq.data_ptr(), sa.data_ptr(),
                  wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
                  out.data_ptr(), m, n, k, int(relu), kernels.stream_of(aq))
     return out
 
 
 def _gemm_q8_res_ln(aq, sa, wq, sw, bias, res, g, b, quant_out=False):
-    """``LN(res + (bf16((f32(aq @ wq) * sa) * sw) + bias))`` with the shared
-    LayerNorm; with ``quant_out`` also the output's row quantization (the
-    epilogue owns whole rows): returns (out, out codes, out scales)."""
+    """``LN(res + (dt((f32(aq @ wq) * sa) * sw) + bias))`` with the shared
+    LayerNorm, in ``res``'s dtype ``dt``; with ``quant_out`` also the
+    output's row quantization (the epilogue owns whole rows): returns (out,
+    out codes, out scales)."""
     (m, k), n = aq.shape, wq.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=aq.device)
+    out = torch.empty((m, n), dtype=res.dtype, device=aq.device)
     q = s = None
     if quant_out:
         q = torch.empty((m, n), dtype=torch.int8, device=aq.device)
         s = torch.empty((m,), dtype=torch.float32, device=aq.device)
-    kernels.call("nylon_q8_gemm_res_ln", aq.data_ptr(), sa.data_ptr(),
+    kernels.call(kernels.entry("nylon_q8_gemm_res_ln", res.dtype),
+                 aq.data_ptr(), sa.data_ptr(),
                  wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
                  res.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
                  q.data_ptr() if quant_out else None,
@@ -329,11 +337,11 @@ def _gemm_q8_res_ln(aq, sa, wq, sw, bias, res, g, b, quant_out=False):
     return out, q, s
 
 
-def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads):
+def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads, dt):
     """int8 attention of ``n`` sequences: Q codes ``qq [n*Lq, hid]`` and K
     codes ``kq [n*Lk, hid]`` (row-strided views) with their row scales,
-    V^T codes and column scales from :func:`quant_cols_cuda` -> bf16
-    ``[n*Lq, hid]``."""
+    V^T codes and column scales from :func:`quant_cols_cuda` -> ``[n*Lq,
+    hid]`` in ``dt``."""
     hid = qq.shape[1]
     lq, lk = qq.shape[0] // n, kq.shape[0] // n
     for name, t in (("q", qq), ("k", kq)):
@@ -341,9 +349,9 @@ def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads):
             raise ValueError(f"attention_q8: {name} codes must have unit "
                              "column stride, a row stride that is a "
                              "multiple of 16 and a 16-byte aligned start")
-    out = torch.empty((qq.shape[0], hid), dtype=torch.bfloat16,
-                      device=qq.device)
-    kernels.call("nylon_q8_attention", qq.data_ptr(), qq.stride(0),
+    out = torch.empty((qq.shape[0], hid), dtype=dt, device=qq.device)
+    kernels.call(kernels.entry("nylon_q8_attention", dt), qq.data_ptr(),
+                 qq.stride(0),
                  sq.data_ptr(), kq.data_ptr(), kq.stride(0), sk.data_ptr(),
                  vt.data_ptr(), vt.shape[2], sv.data_ptr(), out.data_ptr(),
                  n, lq, lk, n_heads, hid // n_heads,
@@ -353,23 +361,25 @@ def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads):
 
 def check_geometry(name: str, hid: int, n_heads: int, pf: int,
                    lk: int) -> None:
-    """Raise unless the int8 kernels take this layer geometry (head_dim 64
-    only: the attention of ``csrc/layer_fused_q8.cu`` is its own)."""
-    if (hid % n_heads or hid // n_heads != KERNEL_HEAD_DIM
+    """Raise unless the int8 kernels take this layer geometry (head_dim 32
+    or 64: the attention of ``csrc/layer_fused_q8.cu`` is its own)."""
+    if (hid % n_heads or hid // n_heads not in KERNEL_HEAD_DIMS
             or hid > KERNEL_MAX_HID or pf % KERNEL_K_STEP
             or pf > KERNEL_MAX_ROW or lk > KERNEL_MAX_KEYS):
         raise ValueError(
-            f"{name}: kernels need head_dim {KERNEL_HEAD_DIM}, hid <= "
+            f"{name}: kernels need head_dim in {KERNEL_HEAD_DIMS}, hid <= "
             f"{KERNEL_MAX_HID}, pf % {KERNEL_K_STEP} == 0 and <= "
             f"{KERNEL_MAX_ROW}, <= {KERNEL_MAX_KEYS} keys; got hid {hid}, "
             f"{n_heads} heads, pf {pf}, {lk} keys")
 
 
 def _check_kernel_args(name, acts, p, fields, n_heads, lk):
-    """Raise unless the kernels take these activations, weights and
-    geometry."""
+    """Raise unless the kernels take these activations (bfloat16 or
+    float32, all of one dtype), weights and geometry."""
+    act_dt = acts[0][1].dtype
+    kernels.check_dtype(name, act_dt)
     for act_name, t in acts:
-        kernels.check_cuda(f"{name}: {act_name}", t, torch.bfloat16, ndim=3)
+        kernels.check_cuda(f"{name}: {act_name}", t, act_dt, ndim=3)
     n, _, hid = acts[0][1].shape
     if any(t.shape[0] != n or t.shape[2] != hid for _, t in acts):
         raise ValueError(f"{name}: activations disagree on n or hid: "
@@ -385,7 +395,7 @@ def _check_kernel_args(name, acts, p, fields, n_heads, lk):
             want, dt = (1, shapes["w" + f[1:]][1]), torch.float32
         else:
             want = shapes[f]
-            dt = torch.float32 if f in ("g", "b") else torch.bfloat16
+            dt = torch.float32 if f in ("g", "b") else act_dt
         kernels.check_cuda(f"{name}: {f}", t, dt)
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: {f} has shape {tuple(t.shape)}, "
@@ -418,7 +428,7 @@ def _self_attention(x2, wqkv, sqkv, bqkv, n, n_heads, xq=None, sx=None):
     qk, sqk = quant_rows_cuda(qkv[:, :2 * hid], n_seg=2)  # Q, K rows
     vt, sv = quant_cols_cuda(qkv[:, 2 * hid:], n)
     return _attention_q8(qk[:, :hid], sqk[0], qk[:, hid:], sqk[1], vt, sv,
-                         n, n_heads)
+                         n, n_heads, x2.dtype)
 
 
 def _cross_tail_cuda(t2, e2, p, n, n_heads, tq=None, st=None):
@@ -432,7 +442,7 @@ def _cross_tail_cuda(t2, e2, p, n, n_heads, tq=None, st=None):
     qq, sq = quant_rows_cuda(q)
     kq, sk = quant_rows_cuda(kv[:, :hid])
     vt, sv = quant_cols_cuda(kv[:, hid:], n)
-    heads = _attention_q8(qq, sq[0], kq, sk[0], vt, sv, n, n_heads)
+    heads = _attention_q8(qq, sq[0], kq, sk[0], vt, sv, n, n_heads, t2.dtype)
     return _ffn_tail(heads, t2, p)
 
 
@@ -459,15 +469,14 @@ def encoder_layer_with_stem_q8(spec_t, keff, beff, pos,
                                p: Q8EncoderLayerParams, n_heads: int,
                                n_frame: int, out_dtype):
     """The f32 stem + position embedding (K2's stem kernel), then the int8
-    first encoder layer. The kernels take ``out_dtype`` bfloat16 only."""
+    first encoder layer. The kernels take ``out_dtype`` bfloat16 or
+    float32."""
     if spec_t.device.type == "cpu":
         return encoder_layer_with_stem_q8_plain(spec_t, keff, beff, pos, p,
                                                 n_heads, n_frame, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"encoder_layer_with_stem_q8: the kernels compute "
-                         f"in bfloat16, got out_dtype {out_dtype}")
+    kernels.check_dtype("encoder_layer_with_stem_q8", out_dtype)
     with torch.cuda.device(spec_t.device):
-        x = lf._stem_embed(spec_t, keff, beff, pos, n_frame)
+        x = lf._stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype)
         out = _encoder_layer_q8_cuda("encoder_layer_with_stem_q8", x, p,
                                      n_heads)
     kernels.launches["encoder_layer_with_stem_q8"] += 1

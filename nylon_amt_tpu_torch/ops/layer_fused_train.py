@@ -25,7 +25,10 @@ bodies (``_enc_train_fwd_body``, ``_enc_train_bwd_kernel``,
 with the same bf16 cast points and f32 weight gradients. On a CUDA device
 they launch the hand-written kernels of ``csrc/layer_fused.cu`` (forward,
 with a dropout site), ``csrc/layer_fused_train.cu`` (backward) and
-``csrc/mha.cu`` (the attention step of both), or raise.
+``csrc/mha.cu`` (the attention step of both) for bfloat16 activations, or
+their float32 twins (``csrc/layer_fused_f32.cu``, ``csrc/mha_f32.cu`` and
+the f32 instantiation of the LayerNorm backward) for float32 ones, the
+default model configuration's compute dtype; any other dtype raises.
 
 Weights arrive in float32 (so their gradients are float32) and are cast to
 the compute dtype (the activations' dtype): the plain versions on use, as
@@ -471,8 +474,9 @@ _NO_SITE = _Site(0, 0, 0.0, 0)
 
 
 def _site(seed: int, tag: int, d2: int, rate: float,
-          dtype=torch.bfloat16) -> _Site | None:
-    """The site's constants, or None at rate 0 (no mask)."""
+          dtype: torch.dtype) -> _Site | None:
+    """The site's constants (the keep value rounded to the compute dtype),
+    or None at rate 0 (no mask)."""
     if rate <= 0.0:
         return None
     thresh, keep, half = site_constants(rate, d2, dtype)
@@ -480,27 +484,28 @@ def _site(seed: int, tag: int, d2: int, rate: float,
 
 
 def _gemm_bias(a, w, bias, relu=False, site=None):
-    """``bf16(a @ w) + bias`` [, ReLU] [, x keep mask]."""
+    """``dt(a @ w) + bias`` [, ReLU] [, x keep mask]."""
     if site is None:
         return lf._gemm(a, w, bias, relu)
     (m, k), n = a.shape, w.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    kernels.call("nylon_gemm_bias_drop", a.data_ptr(), w.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), m, n, k, int(relu), *site,
-                 kernels.stream_of(a))
+    kernels.call(kernels.entry("nylon_gemm_bias_drop", a.dtype),
+                 a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 m, n, k, int(relu), *site, kernels.stream_of(a))
     return out
 
 
 def _gemm_res_ln(a, w, bias, res, g, b, site=None, pre=False, out=True):
-    """``LN(res + (bf16(a @ w) + bias) [x keep])``; returns ``(out or None,
+    """``LN(res + (dt(a @ w) + bias) [x keep])``; returns ``(out or None,
     pre-LN sum or None)``."""
     if site is None and not pre:
         return lf._gemm_res_ln(a, w, bias, res, g, b), None
     (m, k), n = a.shape, w.shape[1]
     y = torch.empty((m, n), dtype=a.dtype, device=a.device) if out else None
     s = torch.empty((m, n), dtype=a.dtype, device=a.device) if pre else None
-    kernels.call("nylon_gemm_res_ln_train", a.data_ptr(), w.data_ptr(),
-                 bias.data_ptr(), res.data_ptr(), g.data_ptr(), b.data_ptr(),
+    kernels.call(kernels.entry("nylon_gemm_res_ln_train", a.dtype),
+                 a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(),
+                 g.data_ptr(), b.data_ptr(),
                  None if y is None else y.data_ptr(),
                  None if s is None else s.data_ptr(), m, n, k, _LN_EPS,
                  int(site is not None), *(site or _NO_SITE),
@@ -517,9 +522,10 @@ def _attention(q, k, v, n, n_heads, seed, rate, tag_base):
     lq, lk = q.shape[0] // n, k.shape[0] // n
     thresh, keep, half = site_constants(rate, lk, torch.float32)
     out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
-    kernels.call("nylon_attention_drop", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), n, lq, lk, n_heads,
-                 hid // n_heads, q.stride(0), lq * q.stride(0), k.stride(0),
+    kernels.call(kernels.entry("nylon_attention_drop", q.dtype),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n,
+                 lq, lk, n_heads, hid // n_heads, q.stride(0),
+                 lq * q.stride(0), k.stride(0),
                  lk * k.stride(0), _scale(hid, n_heads) * _LOG2E,
                  seed_mix(seed), _head_tag(tag_base, 0), thresh, keep, half,
                  kernels.stream_of(q))
@@ -533,10 +539,7 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
     lq, lk = q.shape[0] // n, k.shape[0] // n
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
                     ("dk", dk), ("dv", dv)):
-        if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"attention backward: {name} must have unit "
-                             "column stride, a row stride that is a multiple "
-                             "of 8 and a 16-byte aligned start")
+        lf.check_rows(f"attention backward: {name}", t)
     if k.stride(0) != v.stride(0) or dk.stride(0) != dv.stride(0):
         raise ValueError("attention backward: k/v and dk/dv must share "
                          "their row strides")
@@ -544,10 +547,11 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
     thresh, keep, half = (site_constants(rate, lk, torch.float32) if active
                           else (0, 0.0, 0))
     scale = _scale(hid, n_heads)
-    kernels.call("nylon_attention_bwd", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), n, lq, lk, n_heads,
-                 hid // n_heads, q.stride(0), k.stride(0), do.stride(0),
+    kernels.call(kernels.entry("nylon_attention_bwd", q.dtype),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, lq, lk,
+                 n_heads, hid // n_heads, q.stride(0), k.stride(0),
+                 do.stride(0),
                  dq.stride(0), dk.stride(0), scale, scale * _LOG2E,
                  int(active), seed_mix(seed), _head_tag(tag_base, 0), thresh,
                  keep, half, kernels.stream_of(q))
@@ -589,20 +593,22 @@ def _ln_backward(dy, s, g, site, ln: _LnGrads):
     da = torch.empty_like(dy)
     dam = torch.empty_like(dy) if site is not None else da
     dg, db = ln.slot()
-    kernels.call("nylon_ln_bwd", dy.data_ptr(), s.data_ptr(), g.data_ptr(),
-                 da.data_ptr(), dam.data_ptr(), dg.data_ptr(), db.data_ptr(),
+    kernels.call(kernels.entry("nylon_ln_bwd", dy.dtype), dy.data_ptr(),
+                 s.data_ptr(), g.data_ptr(), da.data_ptr(), dam.data_ptr(),
+                 dg.data_ptr(), db.data_ptr(),
                  m, n, ln.rows, ln.blocks, _LN_EPS, int(site is not None),
                  *(site or _NO_SITE), kernels.stream_of(dy))
     return da, dam
 
 
 def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None):
-    """``bf16(dy @ w^T)`` [x m1] [ReLU gate] [+ addend] [x m2]."""
+    """``dt(dy @ w^T)`` [x m1] [ReLU gate] [+ addend] [x m2]."""
     m, n = dy.shape
     kout = w.shape[0]
     out = torch.empty((m, kout), dtype=dy.dtype, device=dy.device)
-    kernels.call("nylon_gemm_nt", dy.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), None if gate is None else gate.data_ptr(),
+    kernels.call(kernels.entry("nylon_gemm_nt", dy.dtype), dy.data_ptr(),
+                 w.data_ptr(), out.data_ptr(),
+                 None if gate is None else gate.data_ptr(),
                  None if addend is None else addend.data_ptr(), m, n, kout,
                  int(m1 is not None), *(m1 or _NO_SITE),
                  int(m2 is not None), *(m2 or _NO_SITE),
@@ -610,9 +616,10 @@ def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None):
     return out
 
 
-# wgrad_kernel keeps two blocks per SM resident (its launch bounds); the
-# row chunks are sized for two waves of them, so the card is full while
-# the partials to reduce stay few
+# wgrad_kernel (bf16, 128 x 128 tiles of dW) and wgrad_f32_kernel (f32,
+# 64 x 64 tiles) each keep two blocks per SM resident (their launch
+# bounds); the row chunks are sized for two waves of them, so the card is
+# full while the partials to reduce stay few
 _WGRAD_BLOCKS_PER_SM = 2
 _WGRAD_WAVES = 2
 
@@ -627,23 +634,27 @@ def _weight_grad(a, dy):
     chunks, then a reduction in chunk order."""
     m, ka = a.shape
     n = dy.shape[1]
-    tiles = -(-ka // 128) * -(-n // 128)
+    tile = 128 if a.dtype == torch.bfloat16 else 64
+    tiles = -(-ka // tile) * -(-n // tile)
     blocks = _WGRAD_WAVES * _WGRAD_BLOCKS_PER_SM * _sm_count(a.device.index)
     chunks = max(1, -(-blocks // tiles))
     rows = -(-(-(-m // chunks)) // 32) * 32
     chunks = -(-m // rows)
     part = torch.empty((chunks, ka, n), dtype=torch.float32, device=a.device)
     bias_part = torch.empty((chunks, n), dtype=torch.float32, device=a.device)
-    kernels.call("nylon_wgrad", a.data_ptr(), dy.data_ptr(), part.data_ptr(),
+    kernels.call(kernels.entry("nylon_wgrad", a.dtype), a.data_ptr(),
+                 dy.data_ptr(), part.data_ptr(),
                  bias_part.data_ptr(), m, ka, n, rows, chunks,
                  kernels.stream_of(a))
     return _reduce(part.view(chunks, -1)).view(ka, n), _reduce(bias_part)
 
 
 def _check(name, acts, p, n_heads, max_len):
-    """Raise unless the kernels take these activations and weights."""
+    """Raise unless the kernels take these activations (bfloat16 or
+    float32, all of one dtype) and weights."""
+    kernels.check_dtype(name, acts[0][1].dtype)
     for act_name, t in acts:
-        kernels.check_cuda(f"{name}: {act_name}", t, torch.bfloat16, ndim=3)
+        kernels.check_cuda(f"{name}: {act_name}", t, acts[0][1].dtype, ndim=3)
     n, _, hid = acts[0][1].shape
     if any(t.shape[0] != n or t.shape[2] != hid for _, t in acts):
         raise ValueError(f"{name}: activations disagree on n or hid: "
@@ -661,12 +672,13 @@ def _check(name, acts, p, n_heads, max_len):
                              f"expected {shapes[f]}")
 
 
-def compute_weights(p):
-    """The weights the kernels read: bf16 matrices and biases, f32 LN (the
-    cast of the f32 parameters that the training step makes once, in the
-    forward, for the forward and the backward)."""
+def compute_weights(p, dtype: torch.dtype):
+    """The weights the kernels read: matrices and biases in the compute
+    ``dtype`` (the activations'), f32 LN (the cast of the f32 parameters
+    that the training step makes once, in the forward, for the forward and
+    the backward)."""
     return type(p)(*(t.float().contiguous() if f in ("g", "b")
-                     else t.to(torch.bfloat16).contiguous()
+                     else t.to(dtype).contiguous()
                      for f, t in zip(p._fields, p)))
 
 
@@ -696,15 +708,16 @@ def _scoped(tap, scope):
 
 
 def _ffn_tail_cuda(attn, res, w, seed, rate, keep, tap=_untapped):
-    hid, pf = res.shape[1], w.w1.shape[1]
+    hid, pf, dt = res.shape[1], w.w1.shape[1], res.dtype
     y, a1 = _gemm_res_ln(attn, w.wo, w.bo, res, w.g, w.b,
-                         _site(seed, _SITE_ATTN_OUT, hid, rate), pre=keep)
+                         _site(seed, _SITE_ATTN_OUT, hid, rate, dt), pre=keep)
     if keep:
         y, a1 = tap("y", y), tap("a1", a1)
     midd = tap("midd", _gemm_bias(y, w.w1, w.b1, relu=True,
-                                  site=_site(seed, _SITE_FFN_MID, pf, rate)))
+                                  site=_site(seed, _SITE_FFN_MID, pf, rate,
+                                             dt)))
     z, a2 = _gemm_res_ln(midd, w.w2, w.b2, y, w.g, w.b,
-                         _site(seed, _SITE_FFN_OUT, hid, rate), pre=keep,
+                         _site(seed, _SITE_FFN_OUT, hid, rate, dt), pre=keep,
                          out=not keep)
     if keep:
         a2 = tap("a2", a2)
@@ -728,17 +741,17 @@ def _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop, keep=False,
 def _ffn_tail_bwd_cuda(f, dz, w, seed, rate, ln, tap):
     """From dz to the gradient at the attention output; returns (da1,
     dattn, grads of wo/bo/w1/b1/w2/b2)."""
-    hid, pf = dz.shape[1], w.w1.shape[1]
+    hid, pf, dt = dz.shape[1], w.w1.shape[1], dz.dtype
     da2, dff = _ln_backward(dz, f.a2, w.g,
-                            _site(seed, _SITE_FFN_OUT, hid, rate), ln)
+                            _site(seed, _SITE_FFN_OUT, hid, rate, dt), ln)
     da2, dff = tap("da2", da2), tap("dff", dff)
     dw2, db2 = _weight_grad(f.midd, dff)
     du = tap("du", _gemm_nt(dff, w.w2, gate=f.midd,
-                            m1=_site(seed, _SITE_FFN_MID, pf, rate)))
+                            m1=_site(seed, _SITE_FFN_MID, pf, rate, dt)))
     dw1, db1 = _weight_grad(f.y, du)
     dy = tap("dy", _gemm_nt(du, w.w1, addend=da2))
     da1, dattn = _ln_backward(dy, f.a1, w.g,
-                              _site(seed, _SITE_ATTN_OUT, hid, rate), ln)
+                              _site(seed, _SITE_ATTN_OUT, hid, rate, dt), ln)
     da1, dattn = tap("da1", da1), tap("dattn", dattn)
     dwo, dbo = _weight_grad(f.heads, dattn)
     return da1, dattn, dict(wo=dwo, bo=dbo, w1=dw1, b1=db1, w2=dw2, b2=db2)
@@ -760,7 +773,7 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped):
                    n_heads, seed, rate, _SITE_ATTN)
     dqkv = tap("dqkv", dqkv)
     dwqkv, dbqkv = _weight_grad(f.xs, dqkv)
-    m0 = _site(seed, _SITE_EMB, hid, rate) if emb_drop else None
+    m0 = _site(seed, _SITE_EMB, hid, rate, x.dtype) if emb_drop else None
     dx = tap("dx", _gemm_nt(dqkv, w.wqkv, addend=da1, m2=m0))
     dg, db = ln.reduce()
     return dx.view(n, l, hid), EncoderLayerParams(
@@ -807,7 +820,8 @@ def _self_prologue_cuda(t2, w, n, seed, n_heads, rate, keep=False,
                                       qkv[:, 2 * hid:], n, n_heads, seed,
                                       rate, _SITE_SA))
     t1, a0 = _gemm_res_ln(sheads, w.wso, w.bso, t2, w.g, w.b,
-                          _site(seed, _SITE_SA_OUT, hid, rate), pre=keep)
+                          _site(seed, _SITE_SA_OUT, hid, rate, t2.dtype),
+                          pre=keep)
     if keep:
         t1, a0 = tap("t1", t1), tap("a0", a0)
     return t1, qkv, sheads, a0
@@ -840,7 +854,8 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
     dt1, denc, grads = _cross_bwd_cuda(t1, e2, dz.view(-1, hid), w, n, seed,
                                        n_heads, rate, ln, cross)
     da0, dsa = _ln_backward(dt1, a0, w.g,
-                            _site(seed, _SITE_SA_OUT, hid, rate), ln)
+                            _site(seed, _SITE_SA_OUT, hid, rate, trg.dtype),
+                            ln)
     da0, dsa = st("da0", da0), st("dsa", dsa)
     grads["wso"], grads["bso"] = _weight_grad(sheads, dsa)
     dsheads = st("dsheads", _gemm_nt(dsa, w.wso))
@@ -858,7 +873,7 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
 
 # -------------------------------------------------------- public wrappers --
 #
-# ``w``: the bf16 compute weights of ``p`` (:func:`compute_weights`), cast
+# ``w``: the compute weights of ``p`` (:func:`compute_weights`), cast
 # here when not given. ``tap(name, t) -> tensor`` (default none): a hook on
 # the output of
 # every kernel of the backward (its forward recompute included), named as
@@ -870,11 +885,11 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
 def encoder_layer_train_cuda(x, p: EncoderLayerParams, seed: int,
                              n_heads: int, rate: float,
                              emb_drop: bool = False, w=None):
-    """The K7 forward kernels on a CUDA ``x`` (bf16)."""
+    """The K7 forward kernels on a CUDA ``x`` (bf16 or f32)."""
     n, l, _ = x.shape
     _check("encoder_layer_train", [("x", x)], p, n_heads, l)
     with torch.cuda.device(x.device):
-        w = compute_weights(p) if w is None else w
+        w = compute_weights(p, x.dtype) if w is None else w
         z = _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop).z.view(x.shape)
     kernels.launches["encoder_layer_train"] += 1
     return z
@@ -888,7 +903,7 @@ def encoder_layer_train_bwd_cuda(x, p: EncoderLayerParams, seed: int, dz,
     n, l, _ = x.shape
     _check("encoder_layer_train", [("x", x), ("dz", dz)], p, n_heads, l)
     with torch.cuda.device(x.device):
-        w = compute_weights(p) if w is None else w
+        w = compute_weights(p, x.dtype) if w is None else w
         out = _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop,
                             tap or _untapped)
     kernels.launches["encoder_layer_train_bwd"] += 1
@@ -903,12 +918,12 @@ def _dec_name(p) -> str:
 def decoder_layer_train_cuda(trg, enc, p, seed: int, n_heads: int,
                              rate: float, w=None):
     """The K8 (``DecZeroParams``) or K9 (``DecLayerParams``) forward
-    kernels on CUDA tensors (bf16)."""
+    kernels on CUDA tensors (bf16 or f32)."""
     name = _dec_name(p)
     _check(name, [("trg", trg), ("enc", enc)], p, n_heads,
            max(trg.shape[1], enc.shape[1]))
     with torch.cuda.device(trg.device):
-        w = compute_weights(p) if w is None else w
+        w = compute_weights(p, trg.dtype) if w is None else w
         z = _dec_fwd_cuda(trg, enc, w, seed, n_heads, rate)
     kernels.launches[name] += 1
     return z
@@ -921,9 +936,9 @@ def decoder_layer_train_bwd_cuda(trg, enc, p, seed: int, dz, n_heads: int,
     name = _dec_name(p)
     _check(name, [("trg", trg), ("enc", enc)], p, n_heads,
            max(trg.shape[1], enc.shape[1]))
-    kernels.check_cuda(f"{name}: dz", dz, torch.bfloat16, ndim=3)
+    kernels.check_cuda(f"{name}: dz", dz, trg.dtype, ndim=3)
     with torch.cuda.device(trg.device):
-        w = compute_weights(p) if w is None else w
+        w = compute_weights(p, trg.dtype) if w is None else w
         out = _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate,
                             tap or _untapped)
     kernels.launches[name + "_bwd"] += 1
@@ -939,7 +954,7 @@ class _EncoderLayerTrain(torch.autograd.Function):
         if x.device.type == "cpu":
             return encoder_layer_train_plain(x, p, seed, n_heads, rate,
                                              emb_drop)
-        ctx.w = compute_weights(p)
+        ctx.w = compute_weights(p, x.dtype)
         return encoder_layer_train_cuda(x, p, seed, n_heads, rate, emb_drop,
                                         ctx.w)
 
@@ -968,7 +983,7 @@ class _DecoderLayerTrain(torch.autograd.Function):
             plain = (decoder_layer_train_plain if cls is DecLayerParams
                      else decoder_layer_zero_train_plain)
             return plain(trg, enc, p, seed, n_heads, rate)
-        ctx.w = compute_weights(p)
+        ctx.w = compute_weights(p, trg.dtype)
         return decoder_layer_train_cuda(trg, enc, p, seed, n_heads, rate,
                                         ctx.w)
 

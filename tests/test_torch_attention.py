@@ -136,16 +136,16 @@ def test_head_dim_32_matches_jax_f32(kind, lk):
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_kernel_geometry_checks_by_head_dim(d):
-    """The bf16 kernels (engine layers, training layers, per-site
-    attention) take head_dim 32 and 64; the int8 layers keep their own
-    attention and take 64 only. Each check raises on what it does not
-    take, on the CPU, before any launch."""
+    """The kernels (engine layers, training layers, per-site attention, and
+    the int8 layers with their own attention) take head_dim 32 and 64, in
+    bf16 and f32. Each check raises on what it does not take, on the CPU,
+    before any launch."""
     from nylon_amt_tpu_torch.ops import layer_fused as tlf
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as tlq
 
     heads = 2
     hid = heads * d
-    bf16_ok, int8_ok = d in (32, 64), d == 64
+    bf16_ok = int8_ok = d in (32, 64)
     checks = {
         "layer": lambda: tlf.check_geometry("layer", hid, heads, 88, 256,
                                             2 * hid),

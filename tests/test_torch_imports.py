@@ -1,12 +1,16 @@
 """Import hygiene and the no-fallback rule of the port, each checked in a
 fresh interpreter (this test process has JAX loaded already)."""
 
+import functools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -76,99 +80,159 @@ def test_kernel_load_raises_without_nvcc(tmp_path):
     assert "nvcc not found" in out["msg"]
 
 
-def test_off_cpu_tensors_never_take_the_plain_path():
+# The child of test_off_cpu_tensors_never_take_the_plain_path. A CUDA
+# tensor cannot be made on a machine without a card, so a meta tensor stands
+# in for one: the device checks take meta for the card (the dtype, shape and
+# contiguity checks stay), the device guard and the stream are stubs, and
+# the kernel loader finds no nvcc. A wrapper whose gates let its inputs pass
+# then raises the loader's RuntimeError.
+_OFF_CPU_CHILD = """
+import contextlib, json, torch
+from pathlib import Path
+from nylon_amt_tpu_torch import Config, kernels
+from nylon_amt_tpu_torch.ops import layer_fused as lf
+from nylon_amt_tpu_torch.ops import attention as att
+from nylon_amt_tpu_torch.ops import layer_fused_train as lt
+from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+from nylon_amt_tpu_torch.ops.mel import MelFrontend
+from nylon_amt_tpu_torch.ops.spectrogram import log_mel
+kernels.BUILD_ROOT = Path('@BUILD@')
+kernels.find_nvcc = lambda: None
+
+
+def check_cuda(name, t, dtype, ndim=None):
+    if t.device.type != 'meta':
+        raise ValueError(f'{name}: expected a meta tensor, got {t.device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f'{name}: expected {ndim} dims')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')
+
+
+kernels.check_cuda = check_cuda
+kernels.stream_of = lambda t: 0
+torch.cuda.device = lambda d: contextlib.nullcontext()
+try:
+    torch.zeros(1, device='cuda')
+    cuda_tensor = 'made'
+except (RuntimeError, AssertionError):
+    cuda_tensor = 'raised'
+
+
+def t(*s, dt):
+    return torch.empty(s, dtype=dt, device='meta')
+
+
+f32 = lambda *s: t(*s, dt=torch.float32)
+i8 = lambda *s: t(*s, dt=torch.int8)
+
+
+def geometry(dt, hid, heads, pf):
+    a = lambda *s: t(*s, dt=dt)
+    tag = f'/D{hid // heads}'
+    ep = lf.EncoderLayerParams(a(hid, 3*hid), a(3*hid), a(hid, hid), a(hid),
+                               f32(hid), f32(hid), a(hid, pf), a(pf),
+                               a(pf, hid), a(hid))
+    cp = lf.CrossLayerParams(a(hid, 3*hid), a(3*hid), a(hid, hid), a(hid),
+                             a(hid, hid), a(hid), a(hid, 2*hid), a(2*hid),
+                             a(hid, hid), a(hid), f32(hid), f32(hid),
+                             a(hid, pf), a(pf), a(pf, hid), a(hid))
+    ef = lf.EncoderLayerParams(*(f32(*x.shape) for x in ep))
+    df = lt.DecLayerParams(*(f32(*x.shape) for x in cp))
+    zf = lt.DecZeroParams(*df[4:])
+    eq = lq.quantize_encoder_params(ep)
+    eq = eq._replace(**{f: i8(*getattr(eq, f).shape) for f in eq._fields
+                        if f.startswith('w')})
+    cq = lq.quantize_cross_params(cp)
+    cq = cq._replace(**{f: i8(*getattr(cq, f).shape) for f in cq._fields
+                        if f.startswith('w')})
+    n = 2
+    stem = (f32(n, 192, 256), f32(65, hid), f32(hid), a(256, hid))
+    x, trg, enc = a(n, 256, hid), a(n, 88, hid), a(n, 256, hid)
+    calls = {
+        'encoder_layer_with_stem': lambda: lf.encoder_layer_with_stem(
+            *stem, ep, heads, 128, dt),
+        'encoder_layer': lambda: lf.encoder_layer(x, ep, heads),
+        'decoder_layer_zero': lambda: lf.decoder_layer_zero(
+            trg, enc, cp, heads),
+        'decoder_layer': lambda: lf.decoder_layer(trg, enc, cp, heads),
+        'hash_keep_mask': lambda: att.hash_keep_mask(
+            1, 2, 0, (n, 256, hid), 0.1, dt, 'meta'),
+        'apply_keep_mask': lambda: att.apply_keep_mask(x, 1, 6, 0.1),
+        'encoder_layer_train': lambda: lt.encoder_layer_train(
+            x, ef, 3, heads, 0.1, True),
+        'decoder_layer_zero_train': lambda: lt.decoder_layer_zero_train(
+            trg, enc, zf, 3, heads, 0.1),
+        'decoder_layer_train': lambda: lt.decoder_layer_train(
+            trg, enc, df, 3, heads, 0.1),
+        'encoder_layer_with_stem_q8': lambda: lq.encoder_layer_with_stem_q8(
+            *stem, eq, heads, 128, dt),
+        'encoder_layer_q8': lambda: lq.encoder_layer_q8(x, eq, heads),
+        'decoder_layer_zero_q8': lambda: lq.decoder_layer_zero_q8(
+            trg, enc, cq, heads),
+        'decoder_layer_q8': lambda: lq.decoder_layer_q8(trg, enc, cq, heads),
+        'fused_mha': lambda: att.fused_mha(trg, enc, enc, heads, 0.125),
+        'fused_mha_with_probs': lambda: att.fused_mha_with_probs(
+            trg, enc, enc, heads, 0.125),
+        'fused_mha_dropout': lambda: att.fused_mha_dropout(
+            trg, enc, enc, heads, 0.125, 0.1, 7),
+        'dropout': lambda: att.dropout(trg, 7, 1, 0.1),
+    }
+    return {name + tag: call for name, call in calls.items()}
+
+
+out = {}
+for dt_name in ('bfloat16', 'float32', 'float16'):
+    dt = getattr(torch, dt_name)
+    calls = {'log_mel': lambda: log_mel(f32(16000),
+                                        MelFrontend(Config().feature, 'cpu'))}
+    calls.update(geometry(dt, 256, 4, 512))  # head_dim 64, the paper widths
+    calls.update(geometry(dt, 64, 2, 128))   # head_dim 32, the default widths
+    res = {'cuda_tensor': cuda_tensor}
+    for name, call in calls.items():
+        try:
+            call()
+            res[name] = ['returned', '']
+        except (RuntimeError, ValueError) as e:
+            res[name] = [type(e).__name__, str(e)]
+    res['launches'] = dict(kernels.launches)
+    out[dt_name] = res
+print(json.dumps(out))
+"""
+
+
+@functools.lru_cache(maxsize=1)
+def _off_cpu_results() -> dict:
+    """The child's results for every dtype (one interpreter for all)."""
+    with tempfile.TemporaryDirectory() as build:
+        return _last_json(_python(_OFF_CPU_CHILD.replace("@BUILD@", build)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_off_cpu_tensors_never_take_the_plain_path(dtype):
     """A tensor that is not on the CPU goes to the kernel route, which
-    raises here (no card, no nvcc); the launch counts stay 0. On this
-    machine a CUDA tensor cannot even be made, so a meta tensor stands in."""
-    out = _last_json(_python(
-        "import json, torch\n"
-        "from nylon_amt_tpu_torch import Config, kernels\n"
-        "from nylon_amt_tpu_torch.ops import layer_fused as lf\n"
-        "from nylon_amt_tpu_torch.ops import attention as att\n"
-        "from nylon_amt_tpu_torch.ops import layer_fused_train as lt\n"
-        "from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq\n"
-        "from nylon_amt_tpu_torch.ops.mel import MelFrontend\n"
-        "from nylon_amt_tpu_torch.ops.spectrogram import log_mel\n"
-        "res = {}\n"
-        "try:\n"
-        "    torch.zeros(1, device='cuda')\n"
-        "    res['cuda_tensor'] = 'made'\n"
-        "except (RuntimeError, AssertionError) as e:\n"
-        "    res['cuda_tensor'] = 'raised'\n"
-        "hid, pf, n = 256, 512, 2\n"
-        "def t(*s, dt=torch.bfloat16):\n"
-        "    return torch.empty(s, dtype=dt, device='meta')\n"
-        "ep = lf.EncoderLayerParams(t(hid, 3*hid), t(3*hid), t(hid, hid),"
-        " t(hid), t(hid, dt=torch.float32), t(hid, dt=torch.float32),"
-        " t(hid, pf), t(pf), t(pf, hid), t(hid))\n"
-        "cp = lf.CrossLayerParams(t(hid, 3*hid), t(3*hid), t(hid, hid),"
-        " t(hid), t(hid, hid), t(hid), t(hid, 2*hid), t(2*hid),"
-        " t(hid, hid), t(hid), t(hid, dt=torch.float32),"
-        " t(hid, dt=torch.float32), t(hid, pf), t(pf), t(pf, hid), t(hid))\n"
-        "calls = {\n"
-        "  'encoder_layer_with_stem': lambda: lf.encoder_layer_with_stem("
-        "t(n, 192, 256, dt=torch.float32), t(65, hid, dt=torch.float32),"
-        " t(hid, dt=torch.float32), t(256, hid), ep, 4, 128,"
-        " torch.bfloat16),\n"
-        "  'encoder_layer': lambda: lf.encoder_layer(t(n, 256, hid), ep, 4),\n"
-        "  'decoder_layer_zero': lambda: lf.decoder_layer_zero("
-        "t(n, 88, hid), t(n, 256, hid), cp, 4),\n"
-        "  'decoder_layer': lambda: lf.decoder_layer("
-        "t(n, 88, hid), t(n, 256, hid), cp, 4),\n"
-        "  'log_mel': lambda: log_mel(t(16000, dt=torch.float32),"
-        " MelFrontend(Config().feature, 'cpu')),\n"
-        "  'hash_keep_mask': lambda: att.hash_keep_mask(1, 2, 0,"
-        " (n, 256, hid), 0.1, torch.bfloat16, 'meta'),\n"
-        "  'apply_keep_mask': lambda: att.apply_keep_mask(t(n, 256, hid), 1,"
-        " 6, 0.1),\n"
-        "  'encoder_layer_train': lambda: lt.encoder_layer_train("
-        "t(n, 256, hid), ef, 3, 4, 0.1, True),\n"
-        "  'decoder_layer_zero_train': lambda: lt.decoder_layer_zero_train("
-        "t(n, 88, hid), t(n, 256, hid), zf, 3, 4, 0.1),\n"
-        "  'decoder_layer_train': lambda: lt.decoder_layer_train("
-        "t(n, 88, hid), t(n, 256, hid), df, 3, 4, 0.1),\n"
-        "  'encoder_layer_with_stem_q8': lambda: lq.encoder_layer_with_stem_q8("
-        "t(n, 192, 256, dt=torch.float32), t(65, hid, dt=torch.float32),"
-        " t(hid, dt=torch.float32), t(256, hid), eq, 4, 128,"
-        " torch.bfloat16),\n"
-        "  'encoder_layer_q8': lambda: lq.encoder_layer_q8(t(n, 256, hid), eq,"
-        " 4),\n"
-        "  'decoder_layer_zero_q8': lambda: lq.decoder_layer_zero_q8("
-        "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
-        "  'decoder_layer_q8': lambda: lq.decoder_layer_q8("
-        "t(n, 88, hid), t(n, 256, hid), cq, 4),\n"
-        "  'fused_mha': lambda: att.fused_mha(t(n, 88, hid), t(n, 256, hid),"
-        " t(n, 256, hid), 4, 0.125),\n"
-        "  'fused_mha_with_probs': lambda: att.fused_mha_with_probs("
-        "t(n, 88, hid), t(n, 256, hid), t(n, 256, hid), 4, 0.125),\n"
-        "  'fused_mha_dropout': lambda: att.fused_mha_dropout("
-        "t(n, 88, hid), t(n, 256, hid), t(n, 256, hid), 4, 0.125, 0.1, 7),\n"
-        "  'dropout': lambda: att.dropout(t(n, 88, hid), 7, 1, 0.1),\n"
-        "}\n"
-        "i8 = lambda *s: t(*s, dt=torch.int8)\n"
-        "f32 = lambda *s: t(*s, dt=torch.float32)\n"
-        "ef = lf.EncoderLayerParams(*(f32(*x.shape) for x in ep))\n"
-        "df = lt.DecLayerParams(*(f32(*x.shape) for x in cp))\n"
-        "zf = lt.DecZeroParams(*df[4:])\n"
-        "eq = lq.quantize_encoder_params(ef)\n"
-        "eq = eq._replace(**{f: i8(*getattr(eq, f).shape) for f in"
-        " eq._fields if f.startswith('w')})\n"
-        "cq = lq.quantize_cross_params(df)\n"
-        "cq = cq._replace(**{f: i8(*getattr(cq, f).shape) for f in"
-        " cq._fields if f.startswith('w')})\n"
-        "for name, call in calls.items():\n"
-        "    try:\n"
-        "        call()\n"
-        "        res[name] = 'returned'\n"
-        "    except (RuntimeError, ValueError) as e:\n"
-        "        res[name] = 'raised'\n"
-        "res['launches'] = kernels.launches\n"
-        "print(json.dumps(res))\n"))
+    raises here (no card, no nvcc); the launch counts stay 0. For bfloat16
+    and float32 activations, at head_dim 64 and at head_dim 32 (the default
+    widths; int8 included), every layer, attention and mask wrapper gets
+    past its dtype and geometry gates to the kernel loader and raises its
+    "nvcc not found"; float16 activations stop at the dtype gate with a
+    ValueError: no cast to another dtype, no plain path."""
+    out = dict(_off_cpu_results()[dtype])
     launches = out.pop("launches")
+    assert out.pop("cuda_tensor") == "raised"
     assert "encoder_layer_train_bwd" in launches
     assert "fused_mha_dropout_bwd" in launches
     assert set(launches.values()) == {0}
-    assert set(out.values()) == {"raised"}, out
+    assert out.pop("log_mel")[0] in ("RuntimeError", "ValueError")
+    assert len(out) == 2 * 17, sorted(out)
+    for name, (kind, msg) in out.items():
+        if dtype == "float16":
+            assert kind == "ValueError" and "float16" in msg, (name, msg)
+        else:
+            assert kind == "RuntimeError", (name, kind, msg)
+            assert "nvcc not found" in msg, (name, msg)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

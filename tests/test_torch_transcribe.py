@@ -172,6 +172,25 @@ def test_host_copies_are_bit_identical(tmp_path):
                                   j_wavio.load_mono(path, SR))
 
 
+@pytest.mark.parametrize("precision", [None, "int8"])
+def test_transcriber_takes_the_default_float32_config_off_cpu(precision):
+    """The default ``Config()`` computes in float32, and the kernels take
+    it: a transcriber on a device that is not the CPU (a meta device stands
+    in for the card) builds with no dtype check in its way and packs float32
+    weights (int8 codes beside float32 biases for ``int8``)."""
+    from nylon_amt_tpu_torch import Config as TConfig
+    from nylon_amt_tpu_torch.models.hft import build_model
+
+    cfg = TConfig()
+    model = build_model(cfg, "meta")
+    assert model.dtype == torch.float32
+    tr = Transcriber(cfg, model, "meta", precision=precision)
+    layer = tr.packed.enc[0]
+    assert tr.packed.dtype == torch.float32
+    assert layer.bqkv.dtype == torch.float32 and layer.bqkv.is_meta
+    assert layer.wqkv.dtype == (torch.int8 if precision else torch.float32)
+
+
 @pytest.mark.parametrize("fmt", ["dat", "state_dict"])
 def test_cli_transcribe_on_cpu_writes_midi(slice_run, fmt):
     tmp = slice_run.tmp
