@@ -87,14 +87,18 @@ non-zero and never prints the last line):
     batch 8: outputs within 2e-5 of max(1, max |plain f32|), input
     gradients within 1e-4 of max |plain|, K11's probabilities within 1e-6
     and its output K10's bit for bit, K12's realized masks bit for bit,
-    bit-identical backward runs; times beside f32 SDPA; (n.2) K2-K5 at
+    bit-identical backward runs; the blocks per SM of the kernels; times
+    beside the earlier all-FFMA kernels' (FFMA_F32_MS), f32 SDPA, and three
+    bounds: the products as they run (forward: FFMA scores, 3xTF32 PV;
+    backward: 3xTF32), all as 3xTF32, all on FFMA; (n.2) K2-K5 at
     batch 32 and K7-K9 forward and backward at batch 8, at the default and
     the paper widths, under the same limits (ReLU gate flips aside), with
     (h)'s stage hook (every backward kernel on the twin's inputs within
     1e-5 of the twin's stage); times beside f32 ``torch.matmul`` of the
     layer's GEMMs; (n.3) K13 at head_dim 32 in bf16 and f32 (quantizers
     bit for bit, (k)'s gates, and in f32 each kernel on the plain
-    version's own codes); (n.4) the engine's
+    version's own codes), and K13 in f32 at the paper widths (head_dim 64)
+    under the same gates; (n.4) the engine's
     batch-32 f32 forward of ``Config()`` and ``paper_scale()`` against the
     plain f32 forward (A heads within 2e-5, B heads within 2e-4 of max(1,
     max |plain|)), the default int8 forward under (k)'s posterior gates,
@@ -107,8 +111,9 @@ and share of the attention kernels of ``csrc/mha.cu`` and
 ``csrc/mha_f32.cu``.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
-keep its f32 paths in IEEE f32, and the script wraps only its own f32
-references in ``full_f32``.
+keep its f32 paths at f32 accuracy (IEEE f32; the f32 attention's PV
+product and its backward's products as 3xTF32), and the script wraps only
+its own f32 references in ``full_f32``.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with, per wrapper, the dtypes and head dims this run held against
@@ -117,8 +122,10 @@ its plain version (``held``), its float32 sources and (n)'s f32 times
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
 ``return_attention`` training), error, times and bound (the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
-1,979 TOP/s int8 for K13's products, 67 TFLOP/s for K1's and the stem's
-f32 and f64 work and K12's mask hashes: the H100 SXM's published rates).
+1,979 TOP/s int8 for K13's products, 494.7 / 3 TFLOP/s for the f32
+attention's 3xTF32 products (PV, and every backward product), 67 TFLOP/s
+for K1's and the stem's f32 and f64 work, the f32 attention's scores and
+K12's mask hashes: the H100 SXM's published rates).
 The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -192,6 +199,7 @@ HBM_BPS = 3.35e12   # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12  # dense bf16 tensor cores
 INT8_OPS = 1979e12   # dense int8 tensor cores
 F32_FLOPS = 67e12    # f32 (and K1's f64 work) outside the tensor cores
+TF32_FLOPS = 494.7e12  # dense TF32 tensor cores: 3xTF32 takes three a product
 
 
 def log(msg: str) -> None:
@@ -288,16 +296,20 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
         log(f"({phase})   attention kernels of csrc/mha.cu and "
             f"csrc/mha_f32.cu: {ms:.3f} ms, "
             f"{ms / busy:.1%} of device-busy, "
-            f"{sum(r[2] for r in attn)} launches per {what}")
+            f"{sum(r[2] for r in attn)} launches per {what}: "
+            + "; ".join(f"{name.split('namespace)::', 1)[-1][:44]} "
+                        f"{ms_:.3f} ms {ms_ / busy:.1%} x{c}"
+                        for name, ms_, c in attn))
 
 
 def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0,
-          int8_ops: float = 0.0) -> dict:
+          int8_ops: float = 0.0, tf32x3_flops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or
-    operations over the peak rate of their type, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger
+    (``tf32x3_flops``: f32 products taken as three TF32 products each)."""
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = (flops / BF16_FLOPS + f32_flops / F32_FLOPS
-             + int8_ops / INT8_OPS) * 1e3
+             + int8_ops / INT8_OPS + tf32x3_flops / (TF32_FLOPS / 3)) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -342,6 +354,14 @@ def layer_flops(kind: str, n: int, lq: int, lk: int, hid: int,
     if kind == "dec":
         f += 2 * mq * hid * 3 * hid + 2 * mq * hid * hid + 4 * n * lq * lq * hid
     return f
+
+
+def attn_product_flops(kind: str, n: int, lq: int, lk: int, hid: int) -> int:
+    """FLOPs of one of the two products (scores, PV) of a layer's attention
+    steps (enc: self; dec_zero: cross; dec: self and cross): half of the
+    attention's share of ``layer_flops``."""
+    f = 2 * n * lq * (lq if kind == "enc" else lk) * hid
+    return f + (2 * n * lq * lq * hid if kind == "dec" else 0)
 
 
 def sdpa_ms(n: int, lq: int, lk: int, heads: int, dev, backward: bool,
@@ -1251,6 +1271,18 @@ WMMA_MS = {
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "cross"): 3.292,
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "note self"): 1.059,
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "time self"): 0.944}
+# Times of csrc/mha_f32.cu's all-FFMA kernels, before its products moved to
+# the tensor cores, at (n.1)'s row shapes (MHA_ROW_SHAPES) per head_dim (ms;
+# PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W)
+FFMA_F32_MS = {
+    ("fused_mha", 32): 2.737, ("fused_mha_bwd", 32): 3.358,
+    ("fused_mha_with_probs", 32): 1.194,
+    ("fused_mha_with_probs_bwd", 32): 1.445,
+    ("fused_mha_dropout", 32): 0.847, ("fused_mha_dropout_bwd", 32): 3.907,
+    ("fused_mha", 64): 10.171, ("fused_mha_bwd", 64): 10.226,
+    ("fused_mha_with_probs", 64): 4.689,
+    ("fused_mha_with_probs_bwd", 64): 4.179,
+    ("fused_mha_dropout", 64): 2.956, ("fused_mha_dropout_bwd", 64): 10.969}
 
 
 def site_counts(m) -> tuple[int, int]:
@@ -1998,6 +2030,11 @@ def check_attention_f32(dev, heads: int, hid: int) -> dict:
                     f"{r_err:.2e}, K12 masks bit-identical")
         del q, k, v, do, k10, k10b, o11, probs, p_plain, k11b, keeps
         torch.cuda.empty_cache()
+    from nylon_amt_tpu_torch import kernels
+    occ = kernels.load().nylon_attention_f32_occupancy
+    log(f"(n.1) f32 attention blocks per SM at D{d} (forward / backward): "
+        + ", ".join(f"{site} {occ(d, lq, lk, 0)} / {occ(d, lq, lk, 1)}"
+                    for site, (lq, lk, _) in ATTN_SITES.items()))
     log(f"(n.1) f32 K10/K11/K12, {heads} heads of {d}, batch "
         f"{TRAIN_BATCH} (of max(1, |plain|) / of max |plain|): "
         + "; ".join(line) + "; backward runs bit-identical")
@@ -2038,13 +2075,22 @@ def check_attention_f32(dev, heads: int, hid: int) -> dict:
                     nb += n * heads * lq * lk * 4
         flops = 2 * products * n * heads * lq * lk * d
         hash_ops = 8 * n * heads * lq * lk if msk else 0
+        # as the products run (the forward's scores on FFMA, its PV and
+        # every backward product as 3xTF32), all as 3xTF32, all on FFMA
+        ffma = bound(nb, f32_flops=flops + hash_ops)
+        tf32 = bound(nb, f32_flops=hash_ops, tf32x3_flops=flops)
+        run = tf32 if name.endswith("_bwd") else bound(
+            nb, f32_flops=flops / 2 + hash_ops, tf32x3_flops=flops / 2)
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
-                           shape=[n, lq, lk],
-                           **bound(nb, f32_flops=flops + hash_ops))
-        log(f"(n.1) f32 {name} [{n}, {lq}, {lk}] D{d}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, SDPA f32 "
-            + ("-" if lib is None else f"{lib:.3f}") + f" ms, bound "
-            f"{times[name]['bound_ms']:.3f} ms ({times[name]['bound_by']})")
+                           shape=[n, lq, lk], **run)
+        log(f"(n.1) f32 {name} [{n}, {lq}, {lk}] D{d}: kernel {ms:.3f} ms "
+            f"(FFMA kernel {FFMA_F32_MS[name, d]:.3f}), plain "
+            f"{plain_ms:.3f} ms, SDPA f32 "
+            + ("-" if lib is None else f"{lib:.3f}")
+            + f" ms, bound as run {run['bound_ms']:.3f} ms "
+            f"({run['bound_by']}), all 3xTF32 {tf32['bound_ms']:.3f} ms "
+            f"({tf32['bound_by']}), all FFMA {ffma['bound_ms']:.3f} ms "
+            f"({ffma['bound_by']})")
         del q, k, v, do
         torch.cuda.empty_cache()
     return times
@@ -2116,11 +2162,12 @@ def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
         if stem_flops:
             weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
         flops = layer_flops(kind, n, lq, lk, hid, pf) + stem_flops
+        pv = attn_product_flops(kind, n, lq, lk, hid)  # 3xTF32
         lib = f32_mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev)
         results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                              library_ms=lib, shape=[n, lq, lk, hid],
                              **bound(nbytes(*xs, *weights, got),
-                                     f32_flops=flops))
+                                     f32_flops=flops - pv, tf32x3_flops=pv))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}: "
             f"{e:.2e} of max(1, |plain f32|) (<= {F32_OUT_REL}); kernel "
             f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms, f32 matmul of its "
@@ -2227,17 +2274,22 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
         bwd_ms = cuda_ms(lambda: k_bwd(xs, p, RATE, dz), iters=3)
         bwd_plain_ms = cuda_ms(lambda: p_bwd(xs, p, RATE, dz), iters=1)
         flops = layer_flops(kind, n, lq, lk, hid, pf)
+        # a = one attention product: the forward's scores on FFMA, its PV
+        # as 3xTF32; the backward recomputes the forward (GEMMs, scores,
+        # PV) and adds the GEMMs' dX and dW and 5 attention products
+        a = attn_product_flops(kind, n, lq, lk, hid)
         w_bytes, io_bytes = nbytes(*p), nbytes(*xs)
         gemms = layer_gemms(kind, n, lq, lk, hid, pf)
         results[name] = dict(
             max_abs_err=e, ms=fwd_ms, plain_ms=fwd_plain_ms,
             library_ms=f32_mm_ms(gemms, dev), shape=[n, lq, lk, hid],
-            **bound(io_bytes + w_bytes + nbytes(got), f32_flops=flops))
+            **bound(io_bytes + w_bytes + nbytes(got), f32_flops=flops - a,
+                    tf32x3_flops=a))
         results[bwd_name(name)] = dict(
             max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
             library_ms=f32_mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
             **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
-                    f32_flops=3 * flops))
+                    f32_flops=3 * (flops - 2 * a) + a, tf32x3_flops=6 * a))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
             f"{RATE}: fwd {e:.2e}, input grads {e_in:.2e} ({n_flips} ReLU "
             f"gates flipped, within {near:.2e} of 0; {int(clean.sum())} of "
@@ -2255,12 +2307,13 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
     return results
 
 
-def check_int8_d32(model16, model32, cfg, spec, dev) -> dict:
+def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
     """(n.3): K13 at head_dim 32 (the default widths), in bf16 and in f32:
     the quantizers bit for bit; each wrapper at the batch-32 shapes against
     its plain q8 version and the exact layer, under (k)'s gates (bf16) or
-    their f32 analogue (Q8_F32_REL, Q8_F32_EXACT). Returns the f32 and bf16
-    times."""
+    their f32 analogue (Q8_F32_REL, Q8_F32_EXACT). ``model16`` None: f32
+    only (the paper widths, head_dim 64; ``tag`` "/paper" on the keys).
+    Returns the f32 and bf16 times."""
     from nylon_amt_tpu_torch.infer import engine
     from nylon_amt_tpu_torch.ops import layer_fused as lf
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
@@ -2273,6 +2326,8 @@ def check_int8_d32(model16, model32, cfg, spec, dev) -> dict:
     spec_t = spec.transpose(1, 2).contiguous()
     results = {}
     for dt, model in ((torch.bfloat16, model16), (torch.float32, model32)):
+        if model is None:
+            continue
         packed = engine.pack_params(model, dt)
         packed8 = engine.pack_params(model, dt, precision="int8")
         label = "bf16" if dt == torch.bfloat16 else "f32"
@@ -2369,7 +2424,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev) -> dict:
             if "stem" in name:
                 weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
                 stem_flops = 2 * n * 256 * packed.k_eff.shape[0] * hid
-            results[f"{name}/{label}"] = dict(
+            results[f"{name}/{label}{tag}"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=int_mm_ms(layer_gemms(kind, n, lq_, lk, hid, pf),
                                      dev),
@@ -2380,7 +2435,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev) -> dict:
                         f"{Q8_F32_REL} of max) / max {err:.2e} / exact "
                         f"{from_exact:.4f} (plain q8 {plain_exact:.4f}); "
                         f"{ms:.3f} ms (plain q8 {plain_ms:.3f}, _int_mm "
-                        f"{results[f'{name}/{label}']['library_ms']:.3f})")
+                        f"{results[f'{name}/{label}{tag}']['library_ms']:.3f})")
             del got
         if dt == torch.float32:
             line.insert(0, check_q8_kernels_f32(packed8, hid, m.enc_head,
@@ -2722,6 +2777,8 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     model16.eval()
     times.update(check_int8_d32(model16, model32, cfg, spec, dev))
     del model16
+    # and in f32 at the paper widths (head_dim 64)
+    times.update(check_int8_d32(None, paper32, paper, spec, dev, "/paper"))
 
     # (n.4) the engine's f32 forwards
     fwd = check_forward_f32(cfg, model32, spec, dev, card, "default Config()",

@@ -109,6 +109,8 @@ _SIGNATURES = {
     # head_tag0, thresh, pscale, half, stream
     "nylon_attention_bwd": [_P] * 7 + [_I] * 5 + [_L] * 5
     + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
+    # head_dim, lq, lk, bwd -> resident blocks per SM of the f32 attention
+    "nylon_attention_f32_occupancy": [_I, _I, _I, _I],
     # x, ld_x, M, K, n_seg, q, s, stream
     "nylon_q8_quant_rows": [_P, _L, _I, _I, _I, _P, _P, _P],
     # x, ld_x, n_seq, L, hid, vt, sv, stream
