@@ -8,6 +8,10 @@ Phases (each prints one line; any failed check raises, so the script exits
 non-zero and never prints the last line):
 
 (a) build the kernels of ``nylon_amt_tpu_torch/csrc`` with nvcc (sm_90a);
+    the wgmma / TMA GEMMs of ``csrc/layer_fused.cu`` (``gemm_bias_kernel``,
+    ``gemm_res_ln_kernel``) spill nothing in ``ptxas -v``, and where the
+    toolkit has ``cuobjdump`` their SASS holds HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio and on a quiet variant of it (see the check), and the
     kernel's and the plain version's times;
@@ -105,6 +109,16 @@ non-zero and never prints the last line):
     the default f32 train step; (n.5) ``cli train`` (3 steps) ->
     ``transcribe --list`` -> ``evaluate``, then ``transcribe --int8`` and
     ``evaluate``, all with no ``--config``, with their launch counts.
+(o) the bf16 layer GEMMs alone (``gemm_bias_kernel``, ``gemm_res_ln_kernel``
+    of ``csrc/layer_fused.cu``) at every (M, K, N) and variant of the paper
+    batch-32 forward, the paper batch-8 training forward (dropout sites,
+    ``pre_out``, ``out`` None), the default widths and a ragged geometry
+    (hid 96, pf 160, M not a multiple of 128): within 4 bf16 ulps of the
+    plain twin (``gemm_bias_plain`` / ``gemm_res_ln_plain``) and under the
+    bf16 gate, ``pre_out`` likewise, two runs bit-identical; per shape the
+    kernel's time, its bound (bytes or FLOPs), TB/s and share of the bound,
+    and bf16 ``torch.matmul`` of the same product (+ ``F.layer_norm`` for
+    the LayerNorm GEMM) as the library yardstick.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -132,6 +146,7 @@ The last line is
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -289,6 +304,14 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
     for name, ms, calls in rows[:top]:
         log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
             f"x{calls}")
+    gemm = [(ms, calls) for name, ms, calls in rows
+            if "::gemm_bias_kernel<" in name or "::gemm_res_ln_kernel<" in name]
+    if gemm:
+        ms = sum(r[0] for r in gemm)
+        log(f"({phase})   bf16 layer GEMMs of csrc/layer_fused.cu "
+            f"(gemm_bias_kernel, gemm_res_ln_kernel): {ms:.3f} ms, "
+            f"{ms / busy:.1%} of device-busy, {sum(r[1] for r in gemm)} "
+            f"launches per {what}")
     attn = [(name, ms, calls) for name, ms, calls in rows
             if "attn_fwd_" in name or "attn_bwd_" in name]
     if attn:
@@ -395,6 +418,31 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def mm_ms(gemms, dev, dtype=torch.float32) -> float:
+    """Time of ``torch.matmul`` in ``dtype`` (f32: IEEE, no TF32) on a
+    layer's GEMM shapes ``[(M, K, N), ...]``, one call each: the library
+    yardstick of the layer kernels (the port never calls it)."""
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    ops = [(torch.randn((m, k), generator=g, device=dev).to(dtype),
+            torch.randn((k, n), generator=g, device=dev).to(dtype))
+           for m, k, n in gemms]
+    with full_f32():
+        return cuda_ms(lambda: [a @ b for a, b in ops], iters=3)
+
+
+def layer_gemms(kind: str, n: int, lq: int, lk: int, hid: int,
+                pf: int) -> list:
+    """The (M, K, N) of a layer forward's projections."""
+    gemms = [(n * lq, hid, hid), (n * lq, hid, pf), (n * lq, pf, hid)]
+    gemms += ([(n * lq, hid, 3 * hid)] if kind == "enc" else
+              [(n * lq, hid, hid), (n * lk, hid, 2 * hid)])
+    if kind == "dec":
+        gemms += [(n * lq, hid, 3 * hid), (n * lq, hid, hid)]
+    return gemms
 
 
 def check_masks(dev) -> dict:
@@ -634,6 +682,8 @@ def check_train_layers(model, cfg, dev, k3k5, phase: str = "h",
         bwd_ms = cuda_ms(lambda: k_bwd(xs, p, RATE, dz), iters=3)
         bwd_plain_ms = cuda_ms(lambda: p_bwd(xs, p, RATE, dz), iters=1)
         flops = layer_flops(kind, n, lq, lk, hid, pf)
+        # forward recompute, dX and dW: three GEMMs a forward one
+        gemms = layer_gemms(kind, n, lq, lk, hid, pf)
         w_bytes = nbytes(*p)
         io = nbytes(*xs)
         chain = max(gate[3] for gate in in_gates)
@@ -641,7 +691,8 @@ def check_train_layers(model, cfg, dev, k3k5, phase: str = "h",
         held(bwd_name(name), torch.bfloat16, hid // heads)
         results[name] = dict(
             max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain_ms,
-            **bound(io + w_bytes + nbytes(got), flops), library_ms=None,
+            **bound(io + w_bytes + nbytes(got), flops),
+            library_ms=mm_ms(gemms, dev, torch.bfloat16),
             sdpa_piece_ms=sdpa_ms(n, lq, lk, heads, dev, backward=False,
                                   d=hid // heads),
             gate=f"{ulps:.2f} bf16 ulps from plain bf16 <= {ULPS}; bf16 rel "
@@ -650,7 +701,7 @@ def check_train_layers(model, cfg, dev, k3k5, phase: str = "h",
         results[name + "_bwd"] = dict(
             max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
             **bound(2 * io + nbytes(dz) + 2 * w_bytes, 3 * flops),
-            library_ms=None,
+            library_ms=mm_ms(gemms * 3, dev, torch.bfloat16),
             sdpa_piece_ms=sdpa_ms(n, lq, lk, heads, dev, backward=True,
                                   d=hid // heads),
             gate=f"input grads under the bf16 gate (also scaled by max "
@@ -675,9 +726,11 @@ def check_train_layers(model, cfg, dev, k3k5, phase: str = "h",
         log(f"({phase}) {name}: fwd kernel {fwd_ms:.3f} ms, plain "
             f"{fwd_plain_ms:.3f} ms, bound {results[name]['bound_ms']:.3f} "
             f"ms; bwd kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
-            f"bound {results[name + '_bwd']['bound_ms']:.3f} ms; SDPA on the "
-            f"attention piece fwd {results[name]['sdpa_piece_ms']:.3f} ms, "
-            f"fwd+bwd {results[name + '_bwd']['sdpa_piece_ms']:.3f} ms")
+            f"bound {results[name + '_bwd']['bound_ms']:.3f} ms; bf16 "
+            f"torch.matmul of its GEMMs fwd {results[name]['library_ms']:.3f}"
+            f" ms, bwd {results[name + '_bwd']['library_ms']:.3f} ms; SDPA on "
+            f"the attention piece fwd {results[name]['sdpa_piece_ms']:.3f} "
+            f"ms, fwd+bwd {results[name + '_bwd']['sdpa_piece_ms']:.3f} ms")
         del xs, xs32, got, plain16, kb, k_in, k_w, dz
         torch.cuda.empty_cache()
     return results
@@ -775,7 +828,8 @@ def check_layers(cfg, packed, packed32, spec, dev,
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             **bound(nbytes(*xs, *weights, got),
                     layer_flops(kind, n, lq, lk, hid, pf), stem_flops),
-            library_ms=None, sdpa_piece_ms=piece,
+            library_ms=mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev,
+                             torch.bfloat16), sdpa_piece_ms=piece,
             gate=f"bf16 rel err from plain f32 {e_k:.5f} <= 2 x plain bf16 "
                  f"{e_p:.5f} + 1e-3; {ulps:.2f} bf16 ulps from plain bf16 "
                  f"<= {ULPS}")
@@ -783,7 +837,9 @@ def check_layers(cfg, packed, packed32, spec, dev,
             f"{e_p:.5f}; vs plain bf16 max abs {err:.3e} = {ulps:.2f} ulps; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{results[name]['bound_ms']:.3f} ms ({results[name]['bound_by']}"
-            f"); SDPA on its attention piece {piece:.3f} ms")
+            f"); bf16 torch.matmul of its GEMMs "
+            f"{results[name]['library_ms']:.3f} ms; SDPA on its attention "
+            f"piece {piece:.3f} ms")
         del xs, got, plain16
     # K2's stem kernel alone (its private entry: these launches count
     # nowhere), on the real windows
@@ -1924,28 +1980,6 @@ F32_FORWARD_REL = {"A": 2e-5, "B": 2e-4}
 Q8_F32_REL = 1e-5
 Q8_F32_EXACT = 1e-4
 
-def f32_mm_ms(gemms, dev) -> float:
-    """Time of f32 ``torch.matmul`` (IEEE f32: no TF32) on a layer's GEMM
-    shapes ``[(M, K, N), ...]``, one call each: the library yardstick of
-    the f32 layer kernels (the port never calls it)."""
-    from nylon_amt_tpu_torch.ops.precision import full_f32
-
-    g = torch.Generator(device=dev).manual_seed(3)
-    ops = [(torch.randn((m, k), generator=g, device=dev),
-            torch.randn((k, n), generator=g, device=dev)) for m, k, n in gemms]
-    with full_f32():
-        return cuda_ms(lambda: [a @ b for a, b in ops], iters=3)
-
-
-def layer_gemms(kind: str, n: int, lq: int, lk: int, hid: int,
-                pf: int) -> list:
-    """The (M, K, N) of a layer forward's projections."""
-    gemms = [(n * lq, hid, hid), (n * lq, hid, pf), (n * lq, pf, hid)]
-    gemms += ([(n * lq, hid, 3 * hid)] if kind == "enc" else
-              [(n * lq, hid, hid), (n * lk, hid, 2 * hid)])
-    if kind == "dec":
-        gemms += [(n * lq, hid, 3 * hid), (n * lq, hid, hid)]
-    return gemms
 
 
 def check_attention_f32(dev, heads: int, hid: int) -> dict:
@@ -2163,7 +2197,7 @@ def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
             weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
         flops = layer_flops(kind, n, lq, lk, hid, pf) + stem_flops
         pv = attn_product_flops(kind, n, lq, lk, hid)  # 3xTF32
-        lib = f32_mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev)
+        lib = mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev)
         results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                              library_ms=lib, shape=[n, lq, lk, hid],
                              **bound(nbytes(*xs, *weights, got),
@@ -2282,12 +2316,12 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
         gemms = layer_gemms(kind, n, lq, lk, hid, pf)
         results[name] = dict(
             max_abs_err=e, ms=fwd_ms, plain_ms=fwd_plain_ms,
-            library_ms=f32_mm_ms(gemms, dev), shape=[n, lq, lk, hid],
+            library_ms=mm_ms(gemms, dev), shape=[n, lq, lk, hid],
             **bound(io_bytes + w_bytes + nbytes(got), f32_flops=flops - a,
                     tf32x3_flops=a))
         results[bwd_name(name)] = dict(
             max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
-            library_ms=f32_mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
+            library_ms=mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
             **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
                     f32_flops=3 * (flops - 2 * a) + a, tf32x3_flops=6 * a))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
@@ -2798,6 +2832,214 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     return times
 
 
+# (o) the bf16 layer GEMMs alone ---------------------------------------------
+
+GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel")  # csrc/layer_fused.cu
+# (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
+# decoder and time layers, training forward): the paper batch-32 forward,
+# the paper batch-8 training forward (dropout 0.1: the forward, then the
+# forward recompute of the backward), the default widths' batch-32 forward,
+# and a ragged geometry that check_geometry admits (hid 96 over 3 heads of
+# 32, pf 160: K 96 and 160 are not multiples of 64, N 288 spans two tiles,
+# and neither row count is a multiple of 128), inference and training
+GEMM_GEOMETRIES = (
+    ("paper b32", BATCH * 128 * 256, BATCH * 128 * 88, 256, 512, 3, 3, 3,
+     False),
+    ("paper b8 train", TRAIN_BATCH * 128 * 256, TRAIN_BATCH * 128 * 88, 256,
+     512, 3, 3, 3, True),
+    ("default b32", BATCH * 128 * 256, BATCH * 128 * 88, 64, 128, 2, 2, 2,
+     False),
+    ("ragged", 100_003, 35_201, 96, 160, 2, 2, 2, False),
+    ("ragged train", 100_003, 35_201, 96, 160, 2, 2, 2, True),
+)
+
+
+def gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train) -> list:
+    """Every (label, kernel, M, K, N, relu, dropout site, pre_out, out,
+    launches) that a forward (``train``: a training step's forward and
+    its backward's recompute) of these widths runs: launches per forward
+    or per step."""
+    mult = 2 if train else 1
+    cases = []
+    for label, m, k, n, relu, count in (
+            ("qkv freq", mf, hid, 3 * hid, 0, n_enc),
+            ("ffn1 freq", mf, hid, pf, 1, n_enc),
+            ("kv cross", mf, hid, 2 * hid, 0, n_dec),
+            ("q cross", mq, hid, hid, 0, n_dec),
+            ("qkv note/time", mq, hid, 3 * hid, 0, n_dec - 1 + n_time),
+            ("ffn1 note/time", mq, hid, pf, 1, n_dec + n_time)):
+        cases.append((label, "gemm_bias", m, k, n, relu, train and relu,
+                      False, True, mult * count))
+    for label, m, k, n, count, recompute in (
+            ("o freq", mf, hid, hid, n_enc, (True, True)),
+            ("ffn2 freq", mf, pf, hid, n_enc, (True, False)),
+            ("o note/time", mq, hid, hid, 2 * n_dec - 1 + n_time,
+             (True, True)),
+            ("ffn2 note/time", mq, pf, hid, n_dec + n_time, (True, False))):
+        cases.append((label, "gemm_res_ln", m, k, n, 0, train, False, True,
+                      count))
+        if train:  # the backward's recompute: pre_out [and out]
+            cases.append((label, "gemm_res_ln", m, k, n, 0, True,
+                          recompute[0], recompute[1], count))
+    return cases
+
+
+def gemm_ptxas(log_text: str) -> dict:
+    """Registers and spill bytes of every instantiation of the two GEMM
+    kernels, from the build's ``ptxas -v`` log."""
+    out, fn = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            fn = next((k for k in GEMM_KERNELS if k in ln), None)
+            name = ln.split("'")[1] if fn else None
+        elif fn and "spill stores" in ln:
+            spill = [int(w) for w in ln.replace(",", "").split()
+                     if w.isdigit()]
+            out[name] = dict(kernel=fn, stack=spill[0],
+                             spill=spill[1] + spill[2])
+        elif fn and "Used" in ln and name in out:
+            out[name]["regs"] = int(ln.split("Used")[1].split()[0])
+            fn = None
+    return out
+
+
+def start_sass(lib: Path):
+    """Start ``cuobjdump -sass`` of the kernel library in the background
+    (it takes ~20 s), into ``sass.txt`` beside it; returns the process, or
+    None where the toolkit has no cuobjdump."""
+    from nylon_amt_tpu_torch import kernels
+
+    nvcc = kernels.find_nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None
+    if not tool or not os.path.exists(tool):
+        return None
+    with open(lib.parent / "sass.txt", "w") as out:
+        proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=out,
+                                stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)  # a failed phase leaves nothing running
+    return proc
+
+
+def gemm_sass(proc, lib: Path) -> dict:
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+    instantiation of the two GEMM kernels, from the ``cuobjdump -sass`` run
+    that ``start_sass`` started."""
+    if proc.wait(timeout=600):
+        raise AssertionError(f"cuobjdump -sass {lib}: exit {proc.returncode}")
+    counts, name = {}, None
+    for ln in (lib.parent / "sass.txt").read_text().splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            name = name if any(k in name for k in GEMM_KERNELS) else None
+            if name:
+                counts[name] = dict(HGMMA=0, UTMALDG=0)
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[name][op] += op in ln
+    return counts
+
+
+def check_gemms(dev, card: str) -> None:
+    """(o): gemm_bias_kernel and gemm_res_ln_kernel alone, at every (M, K,
+    N) and variant of GEMM_GEOMETRIES, against their plain twins
+    (``layer_fused.gemm_bias_plain`` / ``gemm_res_ln_plain``): within ULPS
+    bf16 ulps of the plain bf16 twin and under the bf16 gate against the
+    f32 truth (the twin on the inputs in f32, the same masks), pre_out
+    likewise, two runs bit-identical; the kernel's time beside its bound,
+    and bf16 ``torch.matmul`` of the same product (+ ``F.layer_norm`` of
+    the residual sum for gemm_res_ln), which the port never calls."""
+    import torch.nn.functional as F
+
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    bf = torch.bfloat16
+    totals = {}
+    for geo, mf, mq, hid, pf, n_enc, n_dec, n_time, train in GEMM_GEOMETRIES:
+        for case in gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train):
+            label, kern, m, k, n, relu, drop, pre, out, count = case
+
+            def r(*shape):
+                return torch.randn(shape, generator=g, device=dev)
+
+            a, w = r(m, k).to(bf), (r(k, n) / math.sqrt(k)).to(bf)
+            res = r(m, n).to(bf) if kern == "gemm_res_ln" else None
+            bias, gam, bet = (0.1 * r(n)).to(bf), 1.0 + 0.1 * r(n), 0.1 * r(n)
+            tag = (lft._SITE_FFN_MID if kern == "gemm_bias"
+                   else lft._SITE_ATTN_OUT)
+            site = lft._site(DROP_SEED, tag, n, RATE, bf) if drop \
+                else None
+            if kern == "gemm_bias":
+                def run():
+                    return {"out": lft._gemm_bias(a, w, bias, relu, site)}
+                plain = {"out": lf.gemm_bias_plain(a, w, bias, relu, site)}
+                with full_f32():
+                    truth = {"out": lf.gemm_bias_plain(
+                        a.float(), w.float(), bias.float(), relu, site)}
+            else:
+                def run():
+                    y, p = lft._gemm_res_ln(a, w, bias, res, gam, bet, site,
+                                            pre=pre, out=out)
+                    return {k_: v for k_, v in (("out", y), ("pre", p))
+                            if v is not None}
+                y, p = lf.gemm_res_ln_plain(a, w, bias, res, gam, bet, site)
+                plain = {"out": y, "pre": p}
+                with full_f32():
+                    y, p = lf.gemm_res_ln_plain(a.float(), w.float(),
+                                                bias.float(), res.float(),
+                                                gam, bet, site)
+                truth = {"out": y, "pre": p}
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            gates = []
+            for key, v in got.items():
+                err, ulps = ulp_distance(v, plain[key])
+                e_k, e_p = bf16_gate(f"{kern} {geo} {label} {key}", v,
+                                     plain[key], truth[key])
+                if not ulps <= ULPS:
+                    raise AssertionError(
+                        f"{kern} {geo} {label} [{m},{k},{n}] {key}: "
+                        f"{ulps:.2f} ulps from the plain bf16 twin > {ULPS}")
+                if not torch.equal(v.view(torch.int16),
+                                   again[key].view(torch.int16)):
+                    raise AssertionError(f"{kern} {geo} {label} {key}: two "
+                                         f"runs differ")
+                gates.append(f"{key} {ulps:.2f} ulps, gate {e_k:.5f} vs "
+                             f"{e_p:.5f}")
+            del plain, truth
+            ms = cuda_ms(run, iters=5)
+            mm = cuda_ms(lambda: a @ w, iters=5)
+            nbytes_ = 2 * (m * k + k * n + m * n * len(got)) + 2 * n
+            lib = f"matmul {mm:.3f} ms"
+            if kern == "gemm_res_ln":
+                nbytes_ += 2 * m * n + 8 * n
+                g16, b16 = gam.to(bf), bet.to(bf)
+                mmln = cuda_ms(lambda: F.layer_norm(a @ w + bias + res, (n,),
+                                                    g16, b16, 1e-5), iters=5)
+                lib += f", matmul + layer_norm {mmln:.3f} ms"
+            bd = bound(nbytes_, 2 * m * k * n)
+            variant = ("relu " if relu else "") + ("drop " if drop else "") \
+                + ("pre " if pre else "") + ("" if out else "no-out ")
+            log(f"(o) {kern} {geo} {label} [{m},{k},{n}] {variant}"
+                f"x{count}: {'; '.join(gates)}; bit-identical reruns; "
+                f"kernel {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+                f"({bd['bound_by']}), {nbytes_ / ms / 1e9:.2f} TB/s, "
+                f"{bd['bound_ms'] / ms:.1%} of the bound; {lib}")
+            tot = totals.setdefault(geo, [0.0, 0.0, 0.0])
+            tot[0] += count * ms
+            tot[1] += count * bd["bound_ms"]
+            tot[2] += count * mm
+            del a, w, res, got, again
+    for geo, (ms, bd, mm) in totals.items():
+        log(f"(o) {geo}: GEMMs of one {'step' if 'train' in geo else 'forward'}"
+            f" {ms:.3f} ms, bound {bd:.3f} ms ({bd / ms:.1%}), bf16 "
+            f"torch.matmul of the same products {mm:.3f} ms")
+    log(f"(o) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2833,6 +3075,19 @@ def main() -> int:
              if "Used" in ln or "spill" in ln]
     log(f"(a) built {kernels.build_dir() / kernels.LIB_NAME} in "
         f"{build_s:.1f} s; ptxas: " + " | ".join(ptxas))
+    # the wgmma / TMA GEMMs of csrc/layer_fused.cu: no spills, and (where
+    # the toolkit has cuobjdump) wgmma and TMA loads in their SASS
+    gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text())
+    spilled = {k: v for k, v in gemms.items() if v["spill"] or v["stack"]}
+    if {v["kernel"] for v in gemms.values()} != set(GEMM_KERNELS) \
+            or spilled:
+        raise AssertionError(f"(a) GEMM kernels in ptxas -v: {gemms}")
+    log(f"(a) {len(gemms)} instantiations of {', '.join(GEMM_KERNELS)}: no "
+        f"spills, {min(v['regs'] for v in gemms.values())}-"
+        f"{max(v['regs'] for v in gemms.values())} registers")
+    sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
+    if sass_proc is None:
+        log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
 
     # (b) K1 log-mel ------------------------------------------------------------
     # The f32 DFT of the lowest mel bins of zero-mean audio is a sum with
@@ -3020,6 +3275,22 @@ def main() -> int:
 
     # (n) the default Config() in float32 ----------------------------------
     f32_times = check_float32(feat, audio, spec, dev, card, cli_main)
+
+    # (o) the bf16 layer GEMMs alone ---------------------------------------
+    check_gemms(dev, card)
+    if sass_proc is not None:  # (a)'s SASS check, run in the background
+        sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
+        bad = {k: v for k, v in sass.items()
+               if not v["HGMMA"] or not v["UTMALDG"]}
+        if len(sass) != len(gemms) or bad:
+            raise AssertionError(f"(a) GEMM SASS: {len(sass)} kernels of "
+                                 f"{len(gemms)}, without HGMMA or UTMALDG: "
+                                 f"{bad}")
+        log(f"(a) SASS of the {len(sass)} GEMM kernels (cuobjdump): HGMMA "
+            f"{min(v['HGMMA'] for v in sass.values())}-"
+            f"{max(v['HGMMA'] for v in sass.values())}, UTMALDG "
+            f"{min(v['UTMALDG'] for v in sass.values())}-"
+            f"{max(v['UTMALDG'] for v in sass.values())} a kernel")
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))

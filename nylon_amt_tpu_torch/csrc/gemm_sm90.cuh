@@ -1,0 +1,500 @@
+// The Hopper (sm_90a) GEMM mainloop of the port's bf16 layer kernels:
+// TMA tile loads into a ring of shared-memory stages, full / empty
+// mbarriers between one producer warp and two consumer warpgroups, and
+// wgmma products with an f32 accumulator in registers. No epilogue lives
+// here: a kernel (layer_fused.cu) runs this mainloop for each output tile
+// it owns and then its own epilogue on the accumulator fragments.
+//
+// A block tile is kBM = 128 rows (warpgroup g owns rows 64 g .. 64 g + 63)
+// by BN columns (64, 128, 192 or 256: one m64nBNk16 wgmma a k16 step). A
+// stage is kBK = 64 deep in K, one 128-byte swizzle row of bf16:
+//
+//   * A [M, K] row-major (K-major for wgmma): one TMA box of 64 x 128,
+//     rows 128 bytes apart, 16-byte chunks XOR-swizzled by row % 8
+//     (CU_TENSOR_MAP_SWIZZLE_128B). Descriptor: SBO 1024 (eight rows),
+//     LBO unused; the k16 step advances the start address by 32 bytes
+//     inside the swizzle row.
+//   * B [K, N] row-major as JAX keeps the weights (MN-major for wgmma, the
+//     descriptor's transpose bit): BN / 64 boxes of 64 (N) x 64 (K), each
+//     64 K-rows of 128 bytes, 8 KB apart. Descriptor: LBO 8192 (from one
+//     64-column box to the next), SBO 1024 (eight K-rows); the k16 step
+//     advances 16 K-rows, 2048 bytes.
+//
+// Ragged K and M need no code: a box past the tensor's end is zero-filled
+// by TMA (and its bytes still count toward the barrier's transaction), so
+// K % 64 == 32 multiplies zeros into the sum.
+//
+// The block has 288 threads: warps 0-7 are the consumer warpgroups, warp 8
+// the producer (one elected lane issues every TMA load). ptxas gives the
+// kernels of layer_fused.cu up to 168 registers a thread under
+// __launch_bounds__(288, 1), room for the m64n256 accumulator (128 f32) and
+// the epilogue with no spills (chip_smoke.py (a) checks), so the register
+// file needs no setmaxnreg rebalancing between producer and consumers.
+//
+// Pipeline: full[s] completes when stage s's bytes have landed (the
+// producer's arrive.expect_tx + the TMA transactions); empty[s] when all 8
+// consumer warps have released it (one lane a warp, after the wgmma that
+// read it has retired). Producer and consumers walk the same sequence of
+// (tile, k-block) pairs, so each keeps its own (stage, phase) and the
+// parities need no exchange: a consumer waits full[s] on `phase`, the
+// producer waits empty[s] on `phase ^ 1` (a fresh barrier passes that
+// wait at once).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace nylon {
+namespace sm90 {
+
+constexpr int kBM = 128;       // rows of a block tile
+constexpr int kBK = 64;        // depth of a stage
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
+constexpr int kBoxBytes = 64 * 128;  // one 64-row box of 128-byte rows
+
+// A waiter that sees no phase change for this many SM cycles (~17 s) traps:
+// a broken parity then fails the launch instead of hanging the card.
+constexpr long long kHangCycles = 1ll << 35;
+
+// ------------------------------------------------------------ barriers --
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --------------------------------------------------------------- TMA --
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Box at (x = inner coordinate, y = outer) of `map` into `dst`, completing
+// on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
+// The box at shared address `src` to (x, y) of `map`; TMA clips what lies
+// past the tensor.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// All but the newest N committed stores have finished reading shared
+// memory.
+template <int N = 0>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// The committed stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) reads of them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Byte offset of the 16-byte chunk `chunk` (0-7) of row `row` in a box of
+// 128-byte rows under the 128-byte swizzle (box start 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// -------------------------------------------------------------- wgmma --
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses to the accumulator across the
+// asynchronous wgmma (which writes it after the asm statement returns).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D[64, N] (+)= A[64, 16] B[16, N], bf16 in, f32 accumulator: thread t of
+// the warpgroup holds d[4 j + 2 i + c] = D[16 (t / 32) + (t % 32) / 4 +
+// 8 i][8 j + 2 (t % 4) + c]. kTA / kTB: the operand is MN-major (1) or
+// K-major (0). scale_d == 0 overwrites D.
+template <int N, int kTA, int kTB>
+struct Wgmma;
+
+#define NYLON_D8(i)                                                    \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]),            \
+      "+f"(d[(i) + 7])
+
+template <int kTA, int kTB>
+struct Wgmma<64, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <int kTA, int kTB>
+struct Wgmma<128, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40), NYLON_D8(48), NYLON_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <int kTA, int kTB>
+struct Wgmma<192, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40), NYLON_D8(48), NYLON_D8(56),
+        NYLON_D8(64), NYLON_D8(72), NYLON_D8(80), NYLON_D8(88)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <int kTA, int kTB>
+struct Wgmma<256, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40), NYLON_D8(48), NYLON_D8(56),
+        NYLON_D8(64), NYLON_D8(72), NYLON_D8(80), NYLON_D8(88),
+        NYLON_D8(96), NYLON_D8(104), NYLON_D8(112), NYLON_D8(120)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+#undef NYLON_D8
+
+// --------------------------------------------------------------- ring --
+
+// The dynamic shared memory of a block: kStages stages of (A box, B boxes),
+// then kEpiBytes for the kernel's epilogue (swizzled 64 x 64 boxes), then
+// the barriers. Every piece starts on a 1024-byte boundary (the swizzle's
+// period). As many stages as fit, at most 4.
+template <int BN, int kEpi>
+struct Ring {
+  static_assert(BN % 64 == 0 && BN >= 64 && BN <= 256, "BN");
+  static constexpr int kABytes = kBM * kBK * 2;
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kEpiBytes = kEpi;
+  static constexpr int kFit = (kSmemMax - 2048 - kEpiBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "stages");
+  static constexpr int kBytes = 1024 + kStages * kStageBytes + kEpiBytes + 256;
+
+  uint8_t* base;  // 1024-byte aligned
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ explicit Ring(uint8_t* raw)
+      : base(reinterpret_cast<uint8_t*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+
+  __device__ uint8_t* a(int s) const { return base + s * kABytes; }
+  __device__ uint8_t* b(int s) const {
+    return base + kStages * kABytes + s * kBBytes;
+  }
+  // box i of the epilogue area
+  __device__ uint8_t* epi(int i) const {
+    return base + kStages * kStageBytes + i * kBoxBytes;
+  }
+  __device__ uint64_t* bars() const {
+    return reinterpret_cast<uint64_t*>(base + kStages * kStageBytes +
+                                       kEpiBytes);
+  }
+  __device__ uint64_t* full(int s) const { return bars() + s; }
+  __device__ uint64_t* empty(int s) const { return bars() + kStages + s; }
+  // the epilogue tile's own pair (a kernel that loads into it by TMA)
+  __device__ uint64_t* epi_full() const { return bars() + 2 * kStages; }
+  __device__ uint64_t* epi_empty() const { return bars() + 2 * kStages + 1; }
+
+  __device__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // One thread, before the block's roles split (then __syncthreads()).
+  __device__ void init(uint32_t epi_empty_count) const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    mbar_init(epi_full(), 1);
+    mbar_init(epi_empty(), epi_empty_count);
+    fence_barrier_init();
+  }
+
+  // Producer: k-block kb of the tile at (m0, n0) into the next stage:
+  // A [M, K] K-major, B [K, N] MN-major (see the head of this file).
+  __device__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                       int m0, int n0, int kb) {
+    mbar_wait(empty(stage), phase ^ 1);
+    mbar_expect_tx(full(stage), kStageBytes);
+    tma_load(a(stage), map_a, full(stage), kb * kBK, m0);
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      tma_load(b(stage) + c * kBoxBytes, map_b, full(stage), n0 + 64 * c,
+               kb * kBK);
+    advance();
+  }
+
+  // Consumer warpgroup g: acc = A[rows of g] B over nk k-blocks. Keeps one
+  // k-block of wgmmas in flight and releases each stage once the wgmmas
+  // that read it have retired.
+  __device__ void mma(float (&acc)[BN / 2], int nk, int g) {
+    const bool signal = (threadIdx.x & 31) == 0;
+    int prev = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(full(stage), phase);
+      const uint32_t sa = smem_u32(a(stage)) + g * 64 * 128;
+      const uint32_t sb = smem_u32(b(stage));
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBK / 16; ++k)
+        Wgmma<BN, 0, 1>::mma(acc, sw128_desc(sa + 32 * k, 16, 1024),
+                             sw128_desc(sb + 2048 * k, kBoxBytes, 1024),
+                             (kb | k) != 0);
+      wgmma_commit();
+      if (kb > 0) {
+        wgmma_wait<1>();
+        if (signal) mbar_arrive(empty(prev));
+      }
+      prev = stage;
+      advance();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (signal) mbar_arrive(empty(prev));
+  }
+};
+
+// -------------------------------------------------------------- host --
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the driver, through the runtime's entry-point
+// query (so the library links no libcuda); null if the driver has none.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a row-major bf16 [rows, cols] matrix (cols % 8 == 0,
+// 16-byte aligned) read or written in boxes of box_rows x 64 columns,
+// 128-byte swizzle, zero fill past the edges. Returns a cudaError_t.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, long long rows,
+                       long long cols, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 8 || rows <= 0 ||
+      cols <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Blocks of a persistent launch: every block the card holds at once (at
+// most `tiles`), after raising the kernel's dynamic shared-memory limit.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int smem_bytes, long long tiles,
+                    int* grid) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long most = (long long)per_sm * sms;
+  *grid = (int)(tiles < most ? tiles : most);
+  return 0;
+}
+
+}  // namespace sm90
+}  // namespace nylon

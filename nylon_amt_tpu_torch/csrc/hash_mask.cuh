@@ -43,19 +43,25 @@ __host__ __device__ __forceinline__ uint32_t hash_mix(uint32_t x) {
   return x;
 }
 
-// Keep value of element (row, col) of a site whose rows are d2 long.
-__device__ __forceinline__ float keep_value(const DropSite& s, uint32_t row,
-                                            int col, int d2) {
+// Whether element (row, col) of a site whose rows are d2 long is kept.
+__device__ __forceinline__ bool keeps(const DropSite& s, uint32_t row,
+                                      int col, int d2) {
   if (s.half) {
     const bool hi = col >= s.half;
     const uint32_t c = (uint32_t)(hi ? col - s.half : col);
     const uint32_t x = hash_mix((s.base + row * (uint32_t)s.half + c) ^ s.key);
     const uint32_t v = hi ? (x >> 16) : (x & 0xFFFFu);
-    return v >= s.thresh ? s.scale : 0.f;
+    return v >= s.thresh;
   }
   const uint32_t x =
       hash_mix((s.base + row * (uint32_t)d2 + (uint32_t)col) ^ s.key);
-  return x >= s.thresh ? s.scale : 0.f;
+  return x >= s.thresh;
+}
+
+// Keep value of element (row, col) of a site whose rows are d2 long.
+__device__ __forceinline__ float keep_value(const DropSite& s, uint32_t row,
+                                            int col, int d2) {
+  return keeps(s, row, col, d2) ? s.scale : 0.f;
 }
 
 // The key of tag `tag` under a seed whose mix (seed * 0x9E3779B9) is

@@ -1,11 +1,12 @@
 // The per-element epilogues of the layer GEMMs, for either element type T
 // (bf16 or f32): the float32 kernels of layer_fused_f32.cu compute with
-// these, and they state, op for op, what the bf16 kernels of
-// layer_fused.cu and layer_fused_train.cu compute after their wmma
-// products. Every "round to T" of the reference (JAX's _matmul casts the
-// f32 product to the compute dtype BEFORE the bias add, and every
-// elementwise op rounds to its dtype) stays in the code; for f32 it is the
-// identity. Every product is taken by __fmul_rn: in f32, where no rounding
+// these, and they state, op for op, what the bf16 kernels compute after
+// their products (layer_fused_train.cu's dX GEMM with nt_epilogue<bf16>;
+// layer_fused.cu's wgmma GEMMs with bias_epilogue2 / residual_sum2 below,
+// the same bits on column pairs). Every "round to T" of the reference
+// (JAX's _matmul casts the f32 product to the compute dtype BEFORE the bias
+// add, and every elementwise op rounds to its dtype) stays in the code; for
+// f32 it is the identity. Every product is taken by __fmul_rn: in f32, where no rounding
 // to T separates a product from the next addition, the compiler could
 // otherwise fuse the two into one FMA and skip the product's rounding that
 // the reference takes (in bf16 the rounding between prevents it anyway, so
@@ -38,6 +39,76 @@ __device__ __forceinline__ float residual_sum(float acc, float bias,
   if constexpr (kDrop)
     y = round_to<T>(__fmul_rn(y, keep_value(site, row, col, n)));
   return round_to<T>(res + y);
+}
+
+// The same two epilogues in bf16 on a pair of adjacent columns (col, col +
+// 1), packed, for the Hopper GEMMs of layer_fused.cu: the same bits as
+// bias_epilogue<bf16> / residual_sum<bf16> on each element. An f32 sum or
+// product of two bf16 values rounds to the same bf16 as their correctly
+// rounded bf16 sum or product (the f32 result is exact unless one addend
+// is below 2^-16 of the other, and then both round to the larger one; a
+// product of two 8-bit significands is exact while it stays above f32's
+// smallest normal, 2^-126), so each "round to bf16" after an add or a
+// multiply is one bf16x2 instruction here, and the accumulator pair goes
+// through the 16-lane conversion pipe once (cvt.rn.bf16x2.f32) instead of
+// each value twice, plus once more to pack. `keep` holds the site's keep
+// value in bf16 in both halves. The adds and multiplies carry an explicit
+// .rn, which keeps ptxas from contracting a multiply and the add after it
+// into one fma (one rounding where the reference takes two).
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a,
+                                                 __nv_bfloat162 b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(d)
+      : "r"(*reinterpret_cast<const uint32_t*>(&a)),
+        "r"(*reinterpret_cast<const uint32_t*>(&b)));
+  return *reinterpret_cast<const __nv_bfloat162*>(&d);
+}
+
+__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a,
+                                                 __nv_bfloat162 b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(d)
+      : "r"(*reinterpret_cast<const uint32_t*>(&a)),
+        "r"(*reinterpret_cast<const uint32_t*>(&b)));
+  return *reinterpret_cast<const __nv_bfloat162*>(&d);
+}
+
+template <bool kDrop>
+__device__ __forceinline__ __nv_bfloat162 keep_pair(
+    __nv_bfloat162 y, const DropSite& site, __nv_bfloat162 keep,
+    uint32_t row, int col, int n) {
+  if constexpr (kDrop) {
+    const __nv_bfloat162 z = __float2bfloat162_rn(0.f);
+    y = mul_rn(y, __halves2bfloat162(
+                       keeps(site, row, col, n) ? keep.x : z.x,
+                       keeps(site, row, col + 1, n) ? keep.y : z.y));
+  }
+  return y;
+}
+
+// bf16(acc) + bias [, ReLU] [, x keep] on (col, col + 1)
+template <bool kDrop>
+__device__ __forceinline__ __nv_bfloat162 bias_epilogue2(
+    float acc0, float acc1, __nv_bfloat162 bias, int relu,
+    const DropSite& site, __nv_bfloat162 keep, uint32_t row, int col,
+    int n) {
+  __nv_bfloat162 y = add_rn(__floats2bfloat162_rn(acc0, acc1), bias);
+  if (relu) y = __hmax2(y, __float2bfloat162_rn(0.f));
+  return keep_pair<kDrop>(y, site, keep, row, col, n);
+}
+
+// res + (bf16(acc) + bias) [x keep] on (col, col + 1)
+template <bool kDrop>
+__device__ __forceinline__ __nv_bfloat162 residual_sum2(
+    float acc0, float acc1, __nv_bfloat162 bias, __nv_bfloat162 res,
+    const DropSite& site, __nv_bfloat162 keep, uint32_t row, int col,
+    int n) {
+  const __nv_bfloat162 y = keep_pair<kDrop>(
+      add_rn(__floats2bfloat162_rn(acc0, acc1), bias), site, keep, row, col,
+      n);
+  return add_rn(res, y);
 }
 
 // The dX epilogue of the backward: T(acc) [x keep m1] [ReLU gate]

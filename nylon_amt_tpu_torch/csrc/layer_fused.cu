@@ -1,336 +1,482 @@
-// Transformer-layer kernels for the hFT inference engine on Hopper (sm_90a).
+// The GEMM kernels of the hFT transformer layers on Hopper (sm_90a), bf16.
 //
-// Replaces the whole-layer Pallas kernels of nylon_amt_tpu/ops/layer_fused.py:
-// encoder_layer (_enc_kernel -> _self_block), decoder_layer_zero
-// (_dec_zero_kernel -> _cross_tail) and decoder_layer (_dec_kernel).
+// Replaces the matrix products of the whole-layer Pallas kernels of
+// nylon_amt_tpu/ops/layer_fused.py (encoder_layer: _enc_kernel ->
+// _self_block; decoder_layer_zero: _dec_zero_kernel -> _cross_tail;
+// decoder_layer: _dec_kernel) and of the training forwards of
+// nylon_amt_tpu/ops/layer_fused_train.py (K7-K9, also run again as the
+// forward recompute of their backward). The TPU kernel kept a layer's ~1.3
+// MB of weights in VMEM and streamed the activations through once; a
+// Hopper block has at most 227 KB of shared memory, so a layer is instead
+// a short sequence of kernels launched by ops/layer_fused.py: the two
+// GEMMs of this file and the attention of mha.cu.
 //
-// What bounds them here: at hid 256 a [tokens, 256] x [256, 256] projection
-// does ~128 FLOP per byte of bf16 activations, under the H100's ~295 FLOP/B
-// ridge, so a layer is bound by device-memory traffic, as it was on the TPU.
-// The TPU kernel kept a layer's ~1.3 MB of weights resident in VMEM and
-// streamed the activations through once. A Hopper block has at most 227 KB of
-// shared memory, so that design does not carry over as it is. Each layer is
-// instead a short sequence of three hand-written kernels, launched in turn by
-// the Python wrapper (ops/layer_fused.py):
+//  * gemm_bias_kernel: out = bf16(A @ W) + bias [, ReLU] [, x keep mask]
+//    (QKV, cross Q and K/V, FFN up);
+//  * gemm_res_ln_kernel: out = LN(res + (bf16(A @ W) + bias) [x keep]),
+//    the block owning full rows (N <= 256) so the shared post-LayerNorm
+//    runs in its epilogue (O projection, FFN down); kTrain also writes the
+//    pre-LN sum (pre_out) that the backward kernels need, and out may be
+//    null.
 //
-//  * gemm_bias_kernel: out = bf16(A @ W) + bias [, ReLU], a tiled bf16 WMMA
-//    GEMM with an f32 accumulator (QKV, cross Q and K/V, FFN up);
-//  * the attention kernel of mha.cu (nylon_attention): one block per
-//    (sequence, head, 128-query tile), K and V of the whole sequence (L <=
-//    256, D = 64) in shared memory, an exact softmax;
-//  * gemm_res_ln_kernel: out = LN(res + (bf16(A @ W) + bias)), a GEMM whose
-//    block owns full 256-wide rows so the shared post-LayerNorm runs in its
-//    epilogue (O projection, FFN down).
+// What bounds them: a GEMM moves 2 (MK + KN + MN) bytes (+ 2 MN for the
+// residual) for 2 MKN operations. At the paper widths (hid 256, pf 512,
+// M ~ 10^5-10^6 rows) that is 85 (O projection: K = N = 256 with the
+// residual) to 192 (QKV: K 256, N 768) FLOP per byte, under the H100's
+// ~295 FLOP/B ridge (989 TFLOP/s bf16 over 3.35 TB/s): every one of them is
+// bound by device-memory bytes, and what counts is keeping HBM busy while
+// the tensor cores and the epilogue keep up.
 //
-// The intermediates (QKV, attention output, FFN hidden) go to device memory
-// in this version; fusing them back into fewer passes is later work.
+// The design (the mainloop is gemm_sm90.cuh's):
+//  * persistent blocks, about one per SM, each walking its output tiles
+//    of 128 rows x BN columns (BN 64-256 by N; gemm_bias walks the N tiles
+//    of one row block together, so A is read from HBM once and its other
+//    reads hit L2);
+//  * one producer warp keeps TMA loads of A and W in flight in a ring of
+//    3-4 stages 64 deep in K, across tile boundaries, so the next tile's
+//    loads run under this tile's epilogue; gemm_res_ln's producer also
+//    loads the residual tile by TMA while the mainloop runs;
+//  * two consumer warpgroups each run wgmma m64nBNk16 on 64 of the rows
+//    (W MN-major through the descriptor's transpose bit: no copy of the
+//    weights), the f32 accumulator in registers;
+//  * the epilogue works on the accumulator fragments in registers: in the
+//    m64nN layout a row's values sit in the 4 lanes of one quad, so the
+//    LayerNorm's two f32 passes are register sums and two shfl_xor each;
+//    outputs go through 128-byte-swizzled 64 x 64 shared boxes
+//    (bank-conflict free for that layout) and leave by TMA stores, which
+//    clip the ragged edge and overlap the next tile's mainloop
+//    (gemm_bias: box by box through a ring of two, so that a 128 x 256
+//    tile keeps 4 stages; gemm_res_ln: in place of the residual tile);
+//  * the element math runs on column pairs in bf16x2 (bias_epilogue2 /
+//    residual_sum2 of layer_epilogue.cuh, the same bits as the scalar
+//    epilogues), since each scalar round to bf16 costs a conversion on the
+//    SM's 16-lane conversion pipe; bias, gamma and beta are read from
+//    shared memory. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+//    (PERF.md): the scalar epilogue cost 22% of gemm_bias's time, loading
+//    gamma and beta from global memory 5-11% of gemm_res_ln's.
 //
-// Numerics follow the reference exactly where it pins them (the epilogues of
-// layer_epilogue.cuh, shared with the float32 kernels of layer_fused_f32.cu):
-// f32 accumulation, cast to bf16 BEFORE the bias add, bias and residual
-// added in bf16, f32
-// two-pass LayerNorm statistics (eps from the caller), exp2 softmax with the
-// 1/l normalisation deferred to the f32 output, l summed from the unrounded
-// f32 probabilities, probabilities rounded to bf16 for the PV product.
-//
-// The training forward (K7-K9, ops/layer_fused_train.py) runs the same three
-// kernels with a dropout site (kDrop): the keep mask of hash_mask.cuh (K6)
-// multiplies the GEMM output after the bias [and ReLU], before the residual
-// and LayerNorm (sites ATTN_OUT, SA_OUT, FFN_MID, FFN_OUT), and the
-// attention probabilities after l is summed from the unmasked p (per-head
-// sites ATTN, SA: nylon_attention_drop of mha.cu). kTrain lets gemm_res_ln
-// also write the pre-LN sum that the backward kernels (layer_fused_train.cu)
-// need. The inference instantiations (kDrop = kTrain = false) are the code
-// of the first slice.
-
-#include <mma.h>
+// Numerics are the reference's, op for op (layer_epilogue.cuh, shared with
+// the float32 kernels of layer_fused_f32.cu): f32 accumulation, cast to
+// bf16 BEFORE the bias add, bias and residual added in bf16, the keep mask
+// of hash_mask.cuh (a pure function of the element's index) after the bias
+// [and ReLU], f32 two-pass LayerNorm statistics with rsqrtf and the
+// caller's eps. Only the summation order inside the tensor core and of the
+// row statistics differs from the plain version; there is no split K and
+// no atomic, so two runs are bit-identical.
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
 
-using namespace nvcuda;
 using nylon::bf16;
 using nylon::DropSite;
+namespace sm = nylon::sm90;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps in every kernel of this file
-constexpr int kBK = 32;        // GEMM depth per pipeline stage
-constexpr int kALd = kBK + 8;  // padded smem row of an A tile (bf16)
+constexpr int kDepth = 32;    // the entry points take K % kDepth == 0
+constexpr int kLnMaxN = 256;  // gemm_res_ln: a block owns full rows
 
-// ---------------------------------------------------------------- tiles ----
-
-// rows x 32 tile of a row-major [M, K] matrix; rows past M are zero-filled.
-__device__ __forceinline__ void load_a_tile(bf16* dst, const bf16* a, int M,
-                                            int K, int m0, int k0, int rows) {
-  for (int c = threadIdx.x; c < rows * (kBK / 8); c += kThreads) {
-    const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
-    const int gr = m0 + r;
-    const bool ok = gr < M;
-    const bf16* src = a + (size_t)(ok ? gr : 0) * K + k0 + col;
-    nylon::cp_async16(dst + r * kALd + col, src, ok);
-  }
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// 32 x cols tile of a row-major [K, N] matrix; columns past N are zero-filled.
-__device__ __forceinline__ void load_b_tile(bf16* dst, const bf16* w, int N,
-                                            int k0, int n0, int cols,
-                                            int ld_dst) {
-  const int cpr = cols / 8;
-  for (int c = threadIdx.x; c < kBK * cpr; c += kThreads) {
-    const int r = c / cpr, col = (c % cpr) * 8;
-    const int gc = n0 + col;
-    const bool ok = gc < N;
-    const bf16* src = w + (size_t)(k0 + r) * N + (ok ? gc : 0);
-    nylon::cp_async16(dst + r * ld_dst + col, src, ok);
+__device__ __forceinline__ __nv_bfloat162 bf16x2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// Where consumer thread `tid` (0-127) of a warpgroup finds its fragment
+// d[4 j + 2 i + c]: row r0 + 8 i of the warpgroup's 64, column 8 j + 2 q +
+// c of the tile; and the byte address of that (row, j) in a 64 x 64 box
+// of 64-column block j / 8 at shared address `box`.
+struct Frag {
+  int r0, q;
+  __device__ explicit Frag(int tid)
+      : r0(((tid >> 5) << 4) + ((tid & 31) >> 2)), q(tid & 3) {}
+  __device__ uint32_t addr(uint32_t box, int i, int j) const {
+    return box + sm::sw128(r0 + 8 * i, j & 7) + 4 * q;
   }
+};
+
+// The warpgroup's 64 x BN tile, staged as BN / 64 boxes from `ebase`, to
+// (n0, row0) of `map` by its thread 0 (boxes wholly past N or M are
+// skipped).
+template <int BN>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t ebase, int n0, int row0,
+                                           int N, int M) {
+  if (row0 >= M) return;
+#pragma unroll
+  for (int c = 0; c < BN / 64; ++c)
+    if (n0 + 64 * c < N)
+      sm::tma_store(map, ebase + c * sm::kBoxBytes, n0 + 64 * c, row0);
+  sm::bulk_commit();
 }
 
 // ------------------------------------------------------ GEMM + bias ----
 
-constexpr int kGemmBM = 128, kGemmBN = 128;
-constexpr int kGemmBLd = kGemmBN + 8;
+// gemm_bias stages its output a 64-column box at a time, through a ring of
+// two boxes a warpgroup (so that a 128 x 256 tile leaves 4 stages of
+// room), and each warpgroup copies the tile's 256 bias values to shared
+// memory (512 bytes) once a tile.
+constexpr int kBiasEpiBytes = 2 * 2 * sm::kBoxBytes + 2 * 512;
 
-struct GemmSmem {
-  bf16 a[2][kGemmBM * kALd];
-  bf16 b[2][kBK * kGemmBLd];
-  float stage[kThreads / 32][16 * 16];
-};
+// out[M, N] = bf16(a[M, K] @ w[K, N]) + bias[N] [, ReLU if relu] [, x the
+// keep mask of `site` at (row, column) if kDrop]. Tile t is (row block
+// t / n_tiles_n, column block t % n_tiles_n).
+template <int BN, bool kDrop>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    gemm_bias_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_out,
+                     const bf16* __restrict__ bias, int M, int N, int K,
+                     int relu, int n_tiles_n, DropSite site) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::Ring<BN, kBiasEpiBytes> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(1);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBK - 1) / sm::kBK;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
 
-// out[M, N] = bf16(a[M, K] @ w[K, N]) + bias[N], then ReLU if relu.
-// 8 warps as 2 x 4, each owning a 64 x 32 piece of the 128 x 128 tile.
-// Capped at 128 registers so two blocks share an SM (16 warps to hide
-// latency): 23% less time than one block at 134 registers on the H100.
-// kDrop: then times the keep mask of `site` at (row, column).
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out,
-                     int M, int N, int K, int relu, int n_tiles_n,
-                     DropSite site) {
-  __shared__ __align__(128) GemmSmem sm;
-  const int m0 = (blockIdx.x / n_tiles_n) * kGemmBM;
-  const int n0 = (blockIdx.x % n_tiles_n) * kGemmBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = K / kBK;
-  load_a_tile(sm.a[0], a, M, K, m0, 0, kGemmBM);
-  load_b_tile(sm.b[0], w, N, 0, n0, kGemmBN, kGemmBLd);
-  nylon::cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_a_tile(sm.a[cur ^ 1], a, M, K, m0, (kt + 1) * kBK, kGemmBM);
-      load_b_tile(sm.b[cur ^ 1], w, N, (kt + 1) * kBK, n0, kGemmBN, kGemmBLd);
-      nylon::cp_async_commit();
-      nylon::cp_async_wait<1>();
-    } else {
-      nylon::cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], sm.a[cur] + (wm * 64 + i * 16) * kALd + kk,
-                               kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], sm.b[cur] + kk * kGemmBLd + wn * 32 + j * 16,
-                               kGemmBLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue, one 16 x 16 fragment at a time through a per-warp staging
-  // buffer: each lane owns 8 consecutive columns of one row.
-  float* stage = sm.stage[warp];
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + r;
-      const int gc = n0 + wn * 32 + j * 16 + c8;
-      if (gr < M && gc < N) {
-        const uint4 bv = *reinterpret_cast<const uint4*>(bias + gc);
-        const bf16* bb = reinterpret_cast<const bf16*>(&bv);
-        uint4 ov;
-        bf16* o = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = __float2bfloat16(nylon::bias_epilogue<bf16, kDrop>(
-              stage[r * 16 + c8 + e], __bfloat162float(bb[e]), relu, site,
-              (uint32_t)gr, gc + e, N));
-        *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = ov;
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_w);
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+        const int n0 = (int)(t % n_tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb) ring.load(&map_a, &map_w, m0, n0, kb);
       }
-      __syncwarp();
+    }
+    return;
+  }
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ebase = sm::smem_u32(ring.epi(2 * g));
+  const uint32_t s_bias = sm::smem_u32(ring.epi(4)) + 512 * g;
+  const __nv_bfloat162 keep = __float2bfloat162_rn(site.scale);
+  uint32_t staged = 0;  // boxes this warpgroup has staged: ring slot parity
+  float acc[BN / 2];
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+    const int n0 = (int)(t % n_tiles_n) * BN;
+    const int row0 = m0 + 64 * g;
+    ring.mma(acc, nk, g);
+    // (the previous tile's last reads of s_bias precede its last box sync)
+    if (2 * tid < BN && n0 + 2 * tid < N)
+      sm::st_shared(s_bias + 4 * tid,
+                    *reinterpret_cast<const uint32_t*>(bias + n0 + 2 * tid));
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c) {
+      const uint32_t box = ebase + (staged++ & 1) * sm::kBoxBytes;
+      // the slot is free once every store group but the newest (the other
+      // slot's: one group a box, empty if the box is not stored) has read
+      // its box
+      if (tid == 0) sm::bulk_wait_read<1>();
+      sm::named_sync(1 + g, 128);
+#pragma unroll
+      for (int j = 8 * c; j < 8 * c + 8; ++j) {
+        const int col = n0 + 8 * j + 2 * f.q;
+        if (col < N) {
+          const __nv_bfloat162 b =
+              bf16x2(sm::ld_shared(s_bias + 2 * (col - n0)));
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            sm::st_shared(f.addr(box, i, j),
+                          bits(nylon::bias_epilogue2<kDrop>(
+                              acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], b,
+                              relu, site, keep,
+                              (uint32_t)(row0 + f.r0 + 8 * i), col, N)));
+        }
+      }
+      sm::fence_async_smem();
+      sm::named_sync(1 + g, 128);
+      if (tid == 0) {
+        if (row0 < M && n0 + 64 * c < N)
+          sm::tma_store(&map_out, box, n0 + 64 * c, row0);
+        sm::bulk_commit();
+      }
     }
   }
+  if (tid == 0) sm::bulk_wait();
 }
 
 // ------------------------------------ GEMM + residual + shared LayerNorm ----
 
-constexpr int kLnBM = 64, kLnBN = 256;
-constexpr int kLnBLd = kLnBN + 8;
-constexpr int kLnCLd = kLnBN + 4;
-constexpr size_t kLnPipeBytes = 2 * (kLnBM * kALd + kBK * kLnBLd) * sizeof(bf16);
-constexpr size_t kLnStageBytes = kLnBM * kLnCLd * sizeof(float);
-constexpr size_t kLnSmem = kLnPipeBytes > kLnStageBytes ? kLnPipeBytes : kLnStageBytes;
+// gemm_res_ln's epilogue area: the 128 x BN residual / output tile, then
+// gamma and beta (f32) and the bias (bf16), copied once a block.
+template <int BN>
+constexpr int kLnEpiBytes = sm::kBM * BN * 2 + BN * 10;
 
-// out[M, N] = LN(res + (bf16(a @ w) + bias)) * gamma + beta, for N <= 256.
-// A block owns 64 full rows, so the LayerNorm statistics stay in the block.
-// 8 warps as 2 x 4, each owning a 32 x 64 piece of the 64 x 256 tile.
-// kDrop: the GEMM output is multiplied by the keep mask of `site` before the
-// residual. kTrain: the pre-LN sum goes to pre_out when it is not null, and
-// out may be null.
-template <bool kDrop, bool kTrain>
-__global__ void __launch_bounds__(kThreads)
-    gemm_res_ln_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+// out[M, N] = LN(res + (bf16(a @ w) + bias) [x keep]) * gamma + beta for
+// N <= BN: a block tile holds full rows. The producer loads the tile's
+// residual into the epilogue tile by TMA once its first k-blocks are
+// issued; each warpgroup reads its half, overwrites it in place with the
+// outputs (pre_out, then out) and releases it after its stores have read
+// it. kTrain: pre_out (the pre-LN sum) if has_pre, out only if has_out.
+template <int BN, bool kDrop, bool kTrain>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    gemm_res_ln_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const __grid_constant__ CUtensorMap map_res,
+                       const __grid_constant__ CUtensorMap map_out,
+                       const __grid_constant__ CUtensorMap map_pre,
                        const bf16* __restrict__ bias,
-                       const bf16* __restrict__ res,
                        const float* __restrict__ gamma,
-                       const float* __restrict__ beta, bf16* __restrict__ out,
-                       bf16* __restrict__ pre_out, int M, int N, int K,
-                       float eps, DropSite site) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const sa0 = reinterpret_cast<bf16*>(smem);
-  bf16* const sb0 = sa0 + 2 * kLnBM * kALd;
-  const int m0 = blockIdx.x * kLnBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = K / kBK;
-  load_a_tile(sa0, a, M, K, m0, 0, kLnBM);
-  load_b_tile(sb0, w, N, 0, 0, kLnBN, kLnBLd);
-  nylon::cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    bf16* const sa = sa0 + cur * kLnBM * kALd;
-    bf16* const sb = sb0 + cur * kBK * kLnBLd;
-    if (kt + 1 < nk) {
-      load_a_tile(sa0 + (cur ^ 1) * kLnBM * kALd, a, M, K, m0, (kt + 1) * kBK,
-                  kLnBM);
-      load_b_tile(sb0 + (cur ^ 1) * kBK * kLnBLd, w, N, (kt + 1) * kBK, 0,
-                  kLnBN, kLnBLd);
-      nylon::cp_async_commit();
-      nylon::cp_async_wait<1>();
-    } else {
-      nylon::cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sa + (wm * 32 + i * 16) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], sb + kk * kLnBLd + wn * 64 + j * 16, kLnBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // The pipeline buffers are dead: stage the f32 tile over them.
-  float* const C = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(C + (wm * 32 + i * 16) * kLnCLd + wn * 64 + j * 16,
-                              acc[i][j], kLnCLd, wmma::mem_row_major);
+                       const float* __restrict__ beta, int M, int N, int K,
+                       float eps, DropSite site, int has_out, int has_pre) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::Ring<BN, kLnEpiBytes<BN>> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(2);
   __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBK - 1) / sm::kBK;
+  const int tiles = (M + sm::kBM - 1) / sm::kBM;
+  uint32_t epi_phase = 0;
 
-  // Each warp normalises 8 rows; lane owns columns lane + 32 t.
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_w);
+      sm::tma_prefetch(&map_res);
+      const int res_after = (nk < ring.kStages ? nk : ring.kStages) - 1;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t * sm::kBM;
+        for (int kb = 0; kb < nk; ++kb) {
+          ring.load(&map_a, &map_w, m0, 0, kb);
+          if (kb != res_after) continue;
+          sm::mbar_wait(ring.epi_empty(), epi_phase ^ 1);
+          sm::mbar_expect_tx(ring.epi_full(), sm::kBM * BN * 2);
+#pragma unroll
+          for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              sm::tma_load(ring.epi(g * (BN / 64) + c), &map_res,
+                           ring.epi_full(), 64 * c, m0 + 64 * g);
+          epi_phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ebase = sm::smem_u32(ring.epi(g * (BN / 64)));
   const float inv_n = 1.f / (float)N;
-  for (int rr = 0; rr < kLnBM / 8; ++rr) {
-    const int r = warp * (kLnBM / 8) + rr;
-    const int gr = m0 + r;
-    if (gr >= M) break;  // warp-uniform
-    float s[kLnBN / 32];
-    float sum = 0.f;
+  const bool pre = kTrain && has_pre, out = !kTrain || has_out;
+  const __nv_bfloat162 keep = __float2bfloat162_rn(site.scale);
+  const auto box = [ebase](int j) {
+    return ebase + (j >> 3) * sm::kBoxBytes;  // of 64-column block j / 8
+  };
+  // gamma, beta and the bias, to shared memory once
+  const uint32_t s_gamma = sm::smem_u32(ring.epi(2 * (BN / 64)));
+  const uint32_t s_beta = s_gamma + 4 * BN, s_bias = s_beta + 4 * BN;
+  for (int c = threadIdx.x; c < N; c += 256) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_gamma + 4 * c),
+                 "f"(gamma[c]) : "memory");
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_beta + 4 * c),
+                 "f"(beta[c]) : "memory");
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(s_bias + 2 * c),
+                 "h"(__bfloat16_as_ushort(bias[c])) : "memory");
+  }
+  sm::named_sync(3, 256);
+  float acc[BN / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t * sm::kBM;
+    ring.mma(acc, nk, g);
+    sm::mbar_wait(ring.epi_full(), epi_phase);
+    epi_phase ^= 1;
+
+    // s = res + (bf16(acc) + bias) [x keep], in place of acc (and with
+    // pre, of the residual in the epilogue tile); row sums
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int t = 0; t < kLnBN / 32; ++t) {
-      const int c = lane + 32 * t;
-      s[t] = 0.f;
-      if (c < N) {
-        s[t] = nylon::residual_sum<bf16, kDrop>(
-            C[r * kLnCLd + c], __bfloat162float(bias[c]),
-            __bfloat162float(res[(size_t)gr * N + c]), site, (uint32_t)gr, c,
-            N);
-        if constexpr (kTrain)
-          if (pre_out != nullptr)
-            pre_out[(size_t)gr * N + c] = __float2bfloat16(s[t]);
-        sum += s[t];
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * f.q;
+      if (col < N) {
+        const __nv_bfloat162 b = bf16x2(sm::ld_shared(s_bias + 2 * col));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t row = (uint32_t)(m0 + 64 * g + f.r0 + 8 * i);
+          const __nv_bfloat162 s2 = nylon::residual_sum2<kDrop>(
+              acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], b,
+              bf16x2(sm::ld_shared(f.addr(box(j), i, j))), site, keep, row,
+              col, N);
+          if (pre) sm::st_shared(f.addr(box(j), i, j), bits(s2));
+          const float2 sf = __bfloat1622float2(s2);
+          acc[4 * j + 2 * i] = sf.x;
+          acc[4 * j + 2 * i + 1] = sf.y;
+          sum[i] += sf.x + sf.y;
+        }
       }
     }
-    const float mean = nylon::warp_sum(sum) * inv_n;
-    float sq = 0.f;
+    const int row0 = m0 + 64 * g;
+    if (pre) {  // the pre-LN sums leave while the statistics run
+      sm::fence_async_smem();
+      sm::named_sync(1 + g, 128);
+      if (tid == 0) store_tile<BN>(&map_pre, ebase, 0, row0, N, M);
+    }
+    float mean[2], rstd[2];
 #pragma unroll
-    for (int t = 0; t < kLnBN / 32; ++t) {
-      const int c = lane + 32 * t;
-      if (c < N) {
-        const float d = s[t] - mean;
-        sq += d * d;
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      mean[i] = sum[i] * inv_n;
+    }
+    float sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (8 * j + 2 * f.q < N) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float d0 = acc[4 * j + 2 * i] - mean[i];
+          const float d1 = acc[4 * j + 2 * i + 1] - mean[i];
+          sq[i] += d0 * d0 + d1 * d1;
+        }
       }
     }
-    const float rstd = rsqrtf(nylon::warp_sum(sq) * inv_n + eps);
-    if constexpr (kTrain)
-      if (out == nullptr) continue;  // warp-uniform
 #pragma unroll
-    for (int t = 0; t < kLnBN / 32; ++t) {
-      const int c = lane + 32 * t;
-      if (c < N)
-        out[(size_t)gr * N + c] =
-            __float2bfloat16((s[t] - mean) * rstd * gamma[c] + beta[c]);
+    for (int i = 0; i < 2; ++i) {
+      sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 1);
+      sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 2);
+      rstd[i] = rsqrtf(sq[i] * inv_n + eps);
+    }
+
+    if (out) {
+      if (pre) {  // the tile is free once the pre-LN store has read it
+        if (tid == 0) sm::bulk_wait_read();
+        sm::named_sync(1 + g, 128);
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * f.q;
+        if (col < N) {
+          const float2 ga = sm::ld_shared_f2(s_gamma + 4 * col);
+          const float2 be = sm::ld_shared_f2(s_beta + 4 * col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            sm::st_shared(
+                f.addr(box(j), i, j),
+                bits(__floats2bfloat162_rn(
+                    (acc[4 * j + 2 * i] - mean[i]) * rstd[i] * ga.x + be.x,
+                    (acc[4 * j + 2 * i + 1] - mean[i]) * rstd[i] * ga.y +
+                        be.y)));
+        }
+      }
+      sm::fence_async_smem();
+      sm::named_sync(1 + g, 128);
+      if (tid == 0) store_tile<BN>(&map_out, ebase, 0, row0, N, M);
+    } else if (!pre) {
+      sm::named_sync(1 + g, 128);  // every read of the residual is done
+    }
+    if (tid == 0) {
+      sm::bulk_wait_read();
+      sm::mbar_arrive(ring.epi_empty());
     }
   }
+  if (tid == 0) sm::bulk_wait();
+}
+
+// ------------------------------------------------------------- launch ----
+
+// gemm_bias's tile width: N in the fewest tiles of at most 256 columns,
+// each a multiple of 64.
+int bias_tile_n(int N) {
+  const int tiles = (N + 255) / 256;
+  return ((N + tiles - 1) / tiles + 63) / 64 * 64;
+}
+
+template <int BN, bool kDrop>
+int launch_gemm_bias(const void* a, const void* w, const void* bias,
+                     void* out, int M, int N, int K, int relu, DropSite site,
+                     cudaStream_t stream) {
+  CUtensorMap ma, mw, mo;
+  int e = sm::encode_bf16(&ma, a, M, K, sm::kBM);
+  if (!e) e = sm::encode_bf16(&mw, w, K, N, 64);
+  if (!e) e = sm::encode_bf16(&mo, out, M, N, 64);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+  const auto kernel = gemm_bias_kernel<BN, kDrop>;
+  constexpr int smem = sm::Ring<BN, kBiasEpiBytes>::kBytes;
+  int grid = 0;
+  if (!e) e = sm::persistent_grid(kernel, smem, tiles, &grid);
+  if (e) return e;
+  kernel<<<grid, sm::kThreads, smem, stream>>>(ma, mw, mo, (const bf16*)bias,
+                                               M, N, K, relu, n_tiles_n,
+                                               site);
+  return (int)cudaGetLastError();
 }
 
 template <bool kDrop>
-int launch_gemm_res_ln_train(const void* a, const void* w, const void* bias,
-                             const void* res, const void* gamma,
-                             const void* beta, void* out, void* pre_out,
-                             int M, int N, int K, float eps, DropSite site,
-                             cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_res_ln_kernel<kDrop, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLnSmem);
-  if (e != cudaSuccess) return (int)e;
-  gemm_res_ln_kernel<kDrop, true><<<(M + kLnBM - 1) / kLnBM, kThreads,
-                                    kLnSmem, stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
-      (const float*)gamma, (const float*)beta, (bf16*)out, (bf16*)pre_out, M,
-      N, K, eps, site);
+int gemm_bias(const void* a, const void* w, const void* bias, void* out,
+              int M, int N, int K, int relu, DropSite site, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (bias_tile_n(N)) {
+    case 64:
+      return launch_gemm_bias<64, kDrop>(a, w, bias, out, M, N, K, relu,
+                                         site, s);
+    case 128:
+      return launch_gemm_bias<128, kDrop>(a, w, bias, out, M, N, K, relu,
+                                          site, s);
+    case 192:
+      return launch_gemm_bias<192, kDrop>(a, w, bias, out, M, N, K, relu,
+                                          site, s);
+    default:
+      return launch_gemm_bias<256, kDrop>(a, w, bias, out, M, N, K, relu,
+                                          site, s);
+  }
+}
+
+template <int BN, bool kDrop, bool kTrain>
+int launch_gemm_res_ln(const void* a, const void* w, const void* bias,
+                       const void* res, const void* gamma, const void* beta,
+                       void* out, void* pre_out, int M, int N, int K,
+                       float eps, DropSite site, cudaStream_t stream) {
+  CUtensorMap ma, mw, mr, mo = {}, mp = {};
+  int e = sm::encode_bf16(&ma, a, M, K, sm::kBM);
+  if (!e) e = sm::encode_bf16(&mw, w, K, N, 64);
+  if (!e) e = sm::encode_bf16(&mr, res, M, N, 64);
+  if (!e && out != nullptr) e = sm::encode_bf16(&mo, out, M, N, 64);
+  if (!e && pre_out != nullptr) e = sm::encode_bf16(&mp, pre_out, M, N, 64);
+  const auto kernel = gemm_res_ln_kernel<BN, kDrop, kTrain>;
+  constexpr int smem = sm::Ring<BN, kLnEpiBytes<BN>>::kBytes;
+  int grid = 0;
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, (M + sm::kBM - 1) / sm::kBM, &grid);
+  if (e) return e;
+  kernel<<<grid, sm::kThreads, smem, stream>>>(
+      ma, mw, mr, mo, mp, (const bf16*)bias, (const float*)gamma,
+      (const float*)beta, M, N, K, eps, site, out != nullptr,
+      pre_out != nullptr);
   return (int)cudaGetLastError();
+}
+
+template <bool kDrop, bool kTrain>
+int gemm_res_ln(const void* a, const void* w, const void* bias,
+                const void* res, const void* gamma, const void* beta,
+                void* out, void* pre_out, int M, int N, int K, float eps,
+                DropSite site, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch ((N + 63) / 64) {
+    case 1:
+      return launch_gemm_res_ln<64, kDrop, kTrain>(
+          a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, site, s);
+    case 2:
+      return launch_gemm_res_ln<128, kDrop, kTrain>(
+          a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, site, s);
+    case 3:
+      return launch_gemm_res_ln<192, kDrop, kTrain>(
+          a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, site, s);
+    default:
+      return launch_gemm_res_ln<256, kDrop, kTrain>(
+          a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, site, s);
+  }
 }
 
 }  // namespace
@@ -339,15 +485,10 @@ extern "C" {
 
 int nylon_gemm_bias(const void* a, const void* w, const void* bias, void* out,
                     int M, int N, int K, int relu, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8)
+  if (M <= 0 || N <= 0 || K <= 0 || K % kDepth || N % 8)
     return (int)cudaErrorInvalidValue;
-  const int n_tiles_n = (N + kGemmBN - 1) / kGemmBN;
-  const long long tiles = (long long)n_tiles_n * ((M + kGemmBM - 1) / kGemmBM);
-  gemm_bias_kernel<false><<<(unsigned)tiles, kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (bf16*)out, M, N, K,
-      relu, n_tiles_n, DropSite{});
-  return (int)cudaGetLastError();
+  return gemm_bias<false>(a, w, bias, out, M, N, K, relu, DropSite{},
+                          stream);
 }
 
 // nylon_gemm_bias, then times the keep mask of a dropout site.
@@ -355,32 +496,21 @@ int nylon_gemm_bias_drop(const void* a, const void* w, const void* bias,
                          void* out, int M, int N, int K, int relu,
                          unsigned key, unsigned thresh, float scale, int half,
                          void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || (half && 2 * half != N))
+  if (M <= 0 || N <= 0 || K <= 0 || K % kDepth || N % 8 ||
+      (half && 2 * half != N))
     return (int)cudaErrorInvalidValue;
-  const int n_tiles_n = (N + kGemmBN - 1) / kGemmBN;
-  const long long tiles = (long long)n_tiles_n * ((M + kGemmBM - 1) / kGemmBM);
-  gemm_bias_kernel<true><<<(unsigned)tiles, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (bf16*)out, M, N, K,
-      relu, n_tiles_n, DropSite{key, thresh, scale, half, 0u});
-  return (int)cudaGetLastError();
+  return gemm_bias<true>(a, w, bias, out, M, N, K, relu,
+                         DropSite{key, thresh, scale, half, 0u}, stream);
 }
 
 int nylon_gemm_res_ln(const void* a, const void* w, const void* bias,
                       const void* res, const void* gamma, const void* beta,
                       void* out, int M, int N, int K, float eps, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN)
+  if (M <= 0 || N <= 0 || K <= 0 || K % kDepth || N % 8 || N > kLnMaxN ||
+      out == nullptr)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_res_ln_kernel<false, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLnSmem);
-  if (e != cudaSuccess) return (int)e;
-  gemm_res_ln_kernel<false, false><<<(M + kLnBM - 1) / kLnBM, kThreads,
-                                     kLnSmem, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
-      (const float*)gamma, (const float*)beta, (bf16*)out, nullptr, M, N, K,
-      eps, DropSite{});
-  return (int)cudaGetLastError();
+  return gemm_res_ln<false, false>(a, w, bias, res, gamma, beta, out, nullptr,
+                                   M, N, K, eps, DropSite{}, stream);
 }
 
 // Training variant of nylon_gemm_res_ln: an optional dropout site on the GEMM
@@ -392,16 +522,15 @@ int nylon_gemm_res_ln_train(const void* a, const void* w, const void* bias,
                             int N, int K, float eps, int active, unsigned key,
                             unsigned thresh, float scale, int half,
                             void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN ||
+  if (M <= 0 || N <= 0 || K <= 0 || K % kDepth || N % 8 || N > kLnMaxN ||
       (half && 2 * half != N))
     return (int)cudaErrorInvalidValue;
   const DropSite site{key, thresh, scale, half, 0u};
-  return active ? launch_gemm_res_ln_train<true>(a, w, bias, res, gamma, beta,
-                                                 out, pre_out, M, N, K, eps,
-                                                 site, (cudaStream_t)stream)
-                : launch_gemm_res_ln_train<false>(
-                      a, w, bias, res, gamma, beta, out, pre_out, M, N, K,
-                      eps, site, (cudaStream_t)stream);
+  return active ? gemm_res_ln<true, true>(a, w, bias, res, gamma, beta, out,
+                                          pre_out, M, N, K, eps, site, stream)
+                : gemm_res_ln<false, true>(a, w, bias, res, gamma, beta, out,
+                                           pre_out, M, N, K, eps, site,
+                                           stream);
 }
 
 const char* nylon_error_string(int code) {

@@ -89,18 +89,17 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
-def hash_keep_mask_plain(seed: int, tag: int, row0: int, shape, rate: float,
-                         dtype: torch.dtype = torch.float32,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
-    """The keep mask of ``shape = (n, d1, d2)`` on ``device``, by plain
-    tensor arithmetic (the JAX function's ``row0`` included)."""
-    n, d1, d2 = shape
-    threshold, keep, half = site_constants(rate, d2, dtype)
+def keep_values(key: int, threshold: int, keep: float, half: int,
+                rows: int, d2: int, dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cpu",
+                base: int = 0) -> torch.Tensor:
+    """The ``[rows, d2]`` keep mask of a site given by the kernels'
+    constants (``csrc/hash_mask.cuh``'s ``DropSite``: ``key``, ``threshold``,
+    ``keep`` value, ``half``, ``base``), by plain tensor arithmetic."""
     w = half or d2
-    base = (int(row0) * d1 * w) & _U32
-    r = torch.arange(n * d1, dtype=torch.int64, device=device)[:, None]
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(w, dtype=torch.int64, device=device)[None, :]
-    x = ((r * w + c + base) & _U32) ^ site_key(seed, tag)
+    x = ((r * w + c + base) & _U32) ^ key
     x = x ^ (x >> 16)
     x = _mul32(x, _MIX1)
     x = x ^ (x >> 15)
@@ -113,7 +112,19 @@ def hash_keep_mask_plain(seed: int, tag: int, row0: int, shape, rate: float,
         out = select(x)
     else:
         out = torch.cat([select(x & 0xFFFF), select(x >> 16)], dim=-1)
-    return out.to(dtype).reshape(n, d1, d2)
+    return out.to(dtype)
+
+
+def hash_keep_mask_plain(seed: int, tag: int, row0: int, shape, rate: float,
+                         dtype: torch.dtype = torch.float32,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """The keep mask of ``shape = (n, d1, d2)`` on ``device``, by plain
+    tensor arithmetic (the JAX function's ``row0`` included)."""
+    n, d1, d2 = shape
+    threshold, keep, half = site_constants(rate, d2, dtype)
+    base = (int(row0) * d1 * (half or d2)) & _U32
+    return keep_values(site_key(seed, tag), threshold, keep, half, n * d1,
+                       d2, dtype, device, base).reshape(n, d1, d2)
 
 
 def _launch(x, out, rows: int, d2: int, seed: int, tag: int, row0: int,

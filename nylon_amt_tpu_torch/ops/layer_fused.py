@@ -23,7 +23,10 @@ configuration) their float32 twins in ``csrc/layer_fused_f32.cu`` and
 ``csrc/mha_f32.cu``, or raises (any other dtype raises too). The plain
 versions mirror ``layer_fused.py``'s ``_matmul``,
 ``_layer_norm``, ``_mha_block``, ``_self_block``, ``_cross_tail`` and, for
-the stem, ``models/hft.py::fused_stem``.
+the stem, ``models/hft.py::fused_stem``. ``gemm_bias_plain`` and
+``gemm_res_ln_plain`` are the plain twins of the two GEMM kernels alone
+(``chip_smoke.py`` (o) holds the kernels to them); ``check_gemm`` refuses,
+before the library loads, the shapes those kernels do not take.
 """
 
 from __future__ import annotations
@@ -229,11 +232,72 @@ def decoder_layer_plain(trg, enc, p: CrossLayerParams, n_heads: int):
         return _cross_tail(trg, enc, *p[4:], n_heads, scale)
 
 
+def _site_mask(site, y) -> torch.Tensor:
+    """The keep mask of a GEMM kernel's dropout site on ``y``'s rows (its
+    last axis the site's columns)."""
+    # attention imports this module, so its hash is imported on use
+    from nylon_amt_tpu_torch.ops.attention import keep_values
+
+    n = y.shape[-1]
+    return keep_values(site.key, site.thresh, site.scale, site.half,
+                       y.numel() // n, n, y.dtype, y.device).reshape(y.shape)
+
+
+def gemm_bias_plain(a, w, bias, relu=False, site=None):
+    """The plain twin of the GEMM + bias kernel (``csrc/layer_fused.cu``
+    ``gemm_bias_kernel``, ``nylon_gemm_bias[_drop]``): ``dt(a @ w) + bias``
+    [, ReLU] [, times the keep mask of ``site``] on ``a [M, K]`` of dtype
+    ``dt``. ``site``: the kernel's dropout site (key, thresh, scale, half:
+    ``layer_fused_train._Site``) or None."""
+    with full_f32():
+        y = _matmul(a, w, bias)
+    if relu:
+        y = torch.relu(y)
+    if site is not None:
+        y = y * _site_mask(site, y)
+    return y
+
+
+def gemm_res_ln_plain(a, w, bias, res, g, b, site=None):
+    """The plain twin of the GEMM + residual + LayerNorm kernel
+    (``gemm_res_ln_kernel``, ``nylon_gemm_res_ln[_train]``): returns ``(out,
+    pre)``, ``pre = res + (dt(a @ w) + bias) [x keep of site]`` and ``out =
+    LN(pre)`` with the shared (g, b)."""
+    with full_f32():
+        y = _matmul(a, w, bias)
+    if site is not None:
+        y = y * _site_mask(site, y)
+    pre = res + y
+    return _layer_norm(pre, g, b), pre
+
+
 # ---------------------------------------------------------------- kernels --
+
+# What the GEMM entry points take, by activation dtype: K and N multiples
+# (csrc/layer_fused.cu: K % 32, N % 8; csrc/layer_fused_f32.cu: K % 4,
+# N % 4); the LayerNorm GEMM also N <= KERNEL_MAX_HID.
+_GEMM_MULTIPLES = {torch.bfloat16: (32, 8), torch.float32: (4, 4)}
+
+
+def check_gemm(name: str, m: int, k: int, n: int, dtype,
+               ln: bool = False) -> None:
+    """Raise ``ValueError`` unless the GEMM kernels take ``a [m, k] @ w [k,
+    n]`` in ``dtype`` (with ``ln``, the residual + LayerNorm one): what the
+    C entry points would refuse, refused before the library is loaded."""
+    kernels.check_dtype(name, dtype)
+    mk, mn = _GEMM_MULTIPLES[dtype]
+    if (m <= 0 or k <= 0 or n <= 0 or k % mk or n % mn
+            or (ln and n > KERNEL_MAX_HID)):
+        raise ValueError(
+            f"{name}: the {dtype} GEMM kernels take K % {mk} == 0, N % {mn} "
+            f"== 0" + (f" and N <= {KERNEL_MAX_HID}" if ln else "")
+            + f"; got M {m}, K {k}, N {n}")
+
 
 def _gemm(a, w, bias, relu=False):
     """``dt(a @ w) + bias`` [then ReLU] on ``a [M, K]`` of dtype ``dt``."""
     (m, k), n = a.shape, w.shape[1]
+    check_gemm("gemm_bias", m, k, n, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_bias", a.dtype), a.data_ptr(),
                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
@@ -244,6 +308,7 @@ def _gemm(a, w, bias, relu=False):
 def _gemm_res_ln(a, w, bias, res, g, b):
     """``LN(res + (dt(a @ w) + bias))`` with the shared LayerNorm."""
     (m, k), n = a.shape, w.shape[1]
+    check_gemm("gemm_res_ln", m, k, n, a.dtype, ln=True)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_res_ln", a.dtype), a.data_ptr(),
                  w.data_ptr(), bias.data_ptr(), res.data_ptr(), g.data_ptr(),

@@ -488,6 +488,7 @@ def _gemm_bias(a, w, bias, relu=False, site=None):
     if site is None:
         return lf._gemm(a, w, bias, relu)
     (m, k), n = a.shape, w.shape[1]
+    lf.check_gemm("gemm_bias", m, k, n, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_bias_drop", a.dtype),
                  a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -501,6 +502,7 @@ def _gemm_res_ln(a, w, bias, res, g, b, site=None, pre=False, out=True):
     if site is None and not pre:
         return lf._gemm_res_ln(a, w, bias, res, g, b), None
     (m, k), n = a.shape, w.shape[1]
+    lf.check_gemm("gemm_res_ln", m, k, n, a.dtype, ln=True)
     y = torch.empty((m, n), dtype=a.dtype, device=a.device) if out else None
     s = torch.empty((m, n), dtype=a.dtype, device=a.device) if pre else None
     kernels.call(kernels.entry("nylon_gemm_res_ln_train", a.dtype),
