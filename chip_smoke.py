@@ -9,9 +9,10 @@ non-zero and never prints the last line):
 
 (a) build the kernels of ``nylon_amt_tpu_torch/csrc`` with nvcc (sm_90a);
     the wgmma / TMA GEMMs of ``csrc/layer_fused.cu`` (``gemm_bias_kernel``,
-    ``gemm_res_ln_kernel``) spill nothing in ``ptxas -v``, and where the
-    toolkit has ``cuobjdump`` their SASS holds HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions;
+    ``gemm_res_ln_kernel``) and ``csrc/layer_fused_train.cu``
+    (``gemm_nt_kernel``, ``wgrad_kernel``) spill nothing and use no stack
+    in ``ptxas -v``, and where the toolkit has ``cuobjdump`` their SASS
+    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio and on a quiet variant of it (see the check), and the
     kernel's and the plain version's times;
@@ -119,6 +120,17 @@ non-zero and never prints the last line):
     kernel's time, its bound (bytes or FLOPs), TB/s and share of the bound,
     and bf16 ``torch.matmul`` of the same product (+ ``F.layer_norm`` for
     the LayerNorm GEMM) as the library yardstick.
+(p) the bf16 backward GEMMs alone (``gemm_nt_kernel``, dX = dY W^T with its
+    epilogue, and ``wgrad_kernel``, dW = A^T dY with the bias sums, of
+    ``csrc/layer_fused_train.cu``) at every product and variant of a batch-8
+    training step's backward (``tools/gemm_ab.py::step_bwd_products``: the
+    paper widths' 43 + 43 launches, the default widths' and the ragged
+    geometry's 28 + 28): dX within 4 bf16 ulps of ``gemm_nt_plain`` and
+    under the bf16 gate, dW and the bias sums no further from a float64
+    truth of the same bf16 operands than twice the plain f32 twin's own
+    distance + 1e-6 max |truth|, two runs bit-identical; per shape the
+    kernel's time, its bound, TB/s and share of the bound, and bf16
+    ``torch.matmul`` of the same product; the step's sums.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -2834,7 +2846,9 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
 
 # (o) the bf16 layer GEMMs alone ---------------------------------------------
 
-GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel")  # csrc/layer_fused.cu
+# csrc/layer_fused.cu's forward GEMMs, csrc/layer_fused_train.cu's dX and dW
+GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel", "gemm_nt_kernel",
+                "wgrad_kernel")
 # (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
 # decoder and time layers, training forward): the paper batch-32 forward,
 # the paper batch-8 training forward (dropout 0.1: the forward, then the
@@ -3040,6 +3054,138 @@ def check_gemms(dev, card: str) -> None:
     log(f"(o) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
 
 
+# (p) the bf16 backward GEMMs alone -----------------------------------------
+
+# (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
+# decoder and time layers) of a batch-8 training step's backward at dropout
+# RATE: the paper widths, the default widths and (o)'s ragged geometry;
+# tools/gemm_ab.py's step_bwd_products lists each one's dX and dW products
+BWD_GEOMETRIES = (
+    ("paper b8", TRAIN_BATCH * 128 * 256, TRAIN_BATCH * 128 * 88, 256, 512,
+     3, 3, 3),
+    ("default b8", TRAIN_BATCH * 128 * 256, TRAIN_BATCH * 128 * 88, 64, 128,
+     2, 2, 2),
+    ("ragged", 100_003, 35_201, 96, 160, 2, 2, 2),
+)
+
+
+def check_bwd_gemms(dev, card: str) -> None:
+    """(p): gemm_nt_kernel and wgrad_kernel (csrc/layer_fused_train.cu)
+    alone, at every product of BWD_GEOMETRIES, against their plain twins
+    (``layer_fused_train.gemm_nt_plain`` / ``weight_grad_plain``): dX within
+    ULPS bf16 ulps of the plain bf16 twin and under the bf16 gate against
+    the f32 truth (the twin on the inputs in f32, the same masks); dW and
+    the bias sums no further from a float64 truth of the same bf16 operands
+    than twice the plain f32 twin's own distance + 1e-6 max |truth| (f32
+    sums in another order); two runs bit-identical. Each kernel's time
+    beside its bound and bf16 ``torch.matmul`` of the same product (``dy @
+    w.t()``; ``a.t() @ dy`` and ``dy.sum(0)``), which the port never
+    calls."""
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+    from nylon_amt_tpu_torch.tools.gemm_ab import step_bwd_products
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    bf = torch.bfloat16
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    totals = {}
+    for geo, mf, mq, hid, pf, n_enc, n_dec, n_time in BWD_GEOMETRIES:
+        for case in step_bwd_products(mf, mq, hid, pf, n_enc, n_dec,
+                                      n_time):
+            label, kern, m, k, n = case[:5]
+            count = case[-1]
+            if kern == "gemm_nt":
+                side, act1, act2 = case[5:8]
+                dy, w = r(m, k).to(bf), (r(n, k) / math.sqrt(k)).to(bf)
+                sides = {side: r(m, n).to(bf)} if side else {}
+                m1 = lft._site(DROP_SEED, lft._SITE_FFN_MID, n, RATE, bf) \
+                    if act1 else None
+                m2 = lft._site(DROP_SEED, lft._SITE_EMB, n, RATE, bf) \
+                    if act2 else None
+
+                def run():
+                    return lft._gemm_nt(dy, w, m1=m1, m2=m2, **sides)
+                plain = lft.gemm_nt_plain(dy, w, m1=m1, m2=m2, **sides)
+                with full_f32():
+                    truth = lft.gemm_nt_plain(
+                        dy.float(), w.float(), m1=m1, m2=m2,
+                        **{k_: v.float() for k_, v in sides.items()})
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                err, ulps = ulp_distance(got, plain)
+                e_k, e_p = bf16_gate(f"gemm_nt {geo} {label}", got, plain,
+                                     truth)
+                if not ulps <= ULPS:
+                    raise AssertionError(
+                        f"gemm_nt {geo} {label} [{m},{k},{n}]: {ulps:.2f} "
+                        f"ulps from the plain bf16 twin > {ULPS}")
+                same = torch.equal(got.view(torch.int16),
+                                   again.view(torch.int16))
+                gate = f"{ulps:.2f} ulps, gate {e_k:.5f} vs {e_p:.5f}"
+                del plain, truth, got, again
+                nbytes_ = 2 * (m * k + n * k + m * n * (1 + len(sides)))
+                flops = 2 * m * k * n
+                ms = cuda_ms(run, iters=5)
+                mm = cuda_ms(lambda: dy @ w.t(), iters=5)
+                variant = " ".join(([side] if side else [])
+                                   + (["m1"] if act1 else [])
+                                   + (["m2"] if act2 else []))
+                shape = f"[{m},{k}->{n}] {variant}"
+                del dy, w, sides
+            else:
+                a, dy = r(m, k).to(bf), r(m, n).to(bf)
+
+                def run():
+                    return lft._weight_grad(a, dy)
+                got, again = run(), run()
+                plain = lft.weight_grad_plain(a, dy)
+                truth = (a.double().t() @ dy.double(), dy.double().sum(0))
+                torch.cuda.synchronize()
+                gates = []
+                for name, v, p_, t in zip(("dW", "bias"), got, plain, truth):
+                    d_k = (v.double() - t).abs().max().item()
+                    d_p = (p_.double() - t).abs().max().item()
+                    lim = 2 * d_p + 1e-6 * t.abs().max().item()
+                    if not d_k <= lim:
+                        raise AssertionError(
+                            f"wgrad {geo} {label} [{m},{k},{n}] {name}: "
+                            f"{d_k:.3e} from the float64 truth > {lim:.3e} "
+                            f"(plain f32 {d_p:.3e})")
+                    gates.append(f"{name} {d_k:.3e} (plain f32 {d_p:.3e})")
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                gate = "from float64: " + ", ".join(gates)
+                del got, again, plain, truth
+                nbytes_ = 2 * (m * k + m * n) + 4 * (k * n + n)
+                flops = 2 * m * k * n
+                ms = cuda_ms(run, iters=5)
+                mm = cuda_ms(lambda: (a.t() @ dy, dy.sum(0)), iters=5)
+                shape = f"[{m},{k}x{n}]"
+                del a, dy
+            if not same:
+                raise AssertionError(f"{kern} {geo} {label}: two runs differ")
+            bd = bound(nbytes_, flops)
+            log(f"(p) {kern} {geo} {label} {shape} x{count}: {gate}; "
+                f"bit-identical reruns; kernel {ms:.3f} ms, bound "
+                f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}), "
+                f"{nbytes_ / ms / 1e9:.2f} TB/s, "
+                f"{bd['bound_ms'] / ms:.1%} of the bound; matmul {mm:.3f} ms")
+            tot = totals.setdefault((geo, kern), [0, 0.0, 0.0, 0.0])
+            tot[0] += count
+            tot[1] += count * ms
+            tot[2] += count * bd["bound_ms"]
+            tot[3] += count * mm
+            torch.cuda.empty_cache()
+    for (geo, kern), (c, ms, bd, mm) in totals.items():
+        log(f"(p) {geo}: the step's {c} {kern} launches {ms:.3f} ms, bound "
+            f"{bd:.3f} ms ({bd / ms:.1%}), bf16 torch.matmul of the same "
+            f"products {mm:.3f} ms")
+    log(f"(p) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3075,15 +3221,16 @@ def main() -> int:
              if "Used" in ln or "spill" in ln]
     log(f"(a) built {kernels.build_dir() / kernels.LIB_NAME} in "
         f"{build_s:.1f} s; ptxas: " + " | ".join(ptxas))
-    # the wgmma / TMA GEMMs of csrc/layer_fused.cu: no spills, and (where
-    # the toolkit has cuobjdump) wgmma and TMA loads in their SASS
+    # the wgmma / TMA GEMMs of csrc/layer_fused.cu and layer_fused_train.cu:
+    # no spills, no stack, and (where the toolkit has cuobjdump) wgmma and
+    # TMA loads in their SASS
     gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text())
     spilled = {k: v for k, v in gemms.items() if v["spill"] or v["stack"]}
     if {v["kernel"] for v in gemms.values()} != set(GEMM_KERNELS) \
             or spilled:
         raise AssertionError(f"(a) GEMM kernels in ptxas -v: {gemms}")
     log(f"(a) {len(gemms)} instantiations of {', '.join(GEMM_KERNELS)}: no "
-        f"spills, {min(v['regs'] for v in gemms.values())}-"
+        f"spills, no stack, {min(v['regs'] for v in gemms.values())}-"
         f"{max(v['regs'] for v in gemms.values())} registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
@@ -3278,6 +3425,9 @@ def main() -> int:
 
     # (o) the bf16 layer GEMMs alone ---------------------------------------
     check_gemms(dev, card)
+
+    # (p) the bf16 backward GEMMs alone ------------------------------------
+    check_bwd_gemms(dev, card)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()

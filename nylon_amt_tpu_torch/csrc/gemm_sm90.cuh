@@ -2,23 +2,30 @@
 // TMA tile loads into a ring of shared-memory stages, full / empty
 // mbarriers between one producer warp and two consumer warpgroups, and
 // wgmma products with an f32 accumulator in registers. No epilogue lives
-// here: a kernel (layer_fused.cu) runs this mainloop for each output tile
-// it owns and then its own epilogue on the accumulator fragments.
+// here, only the helpers epilogues share (the fragment layout, swizzled
+// staging, TMA stores): a kernel (layer_fused.cu, layer_fused_train.cu)
+// runs this mainloop for each output tile it owns and then its own
+// epilogue on the accumulator fragments.
 //
 // A block tile is kBM = 128 rows (warpgroup g owns rows 64 g .. 64 g + 63)
 // by BN columns (64, 128, 192 or 256: one m64nBNk16 wgmma a k16 step). A
-// stage is kBK = 64 deep in K, one 128-byte swizzle row of bf16:
+// stage is kBK = 64 deep in K, one 128-byte swizzle row of bf16. Each
+// operand is K-major (K contiguous in memory) or MN-major (M or N
+// contiguous: the wgmma transpose bit), a template parameter of the Ring:
 //
-//   * A [M, K] row-major (K-major for wgmma): one TMA box of 64 x 128,
-//     rows 128 bytes apart, 16-byte chunks XOR-swizzled by row % 8
-//     (CU_TENSOR_MAP_SWIZZLE_128B). Descriptor: SBO 1024 (eight rows),
-//     LBO unused; the k16 step advances the start address by 32 bytes
-//     inside the swizzle row.
-//   * B [K, N] row-major as JAX keeps the weights (MN-major for wgmma, the
-//     descriptor's transpose bit): BN / 64 boxes of 64 (N) x 64 (K), each
-//     64 K-rows of 128 bytes, 8 KB apart. Descriptor: LBO 8192 (from one
-//     64-column box to the next), SBO 1024 (eight K-rows); the k16 step
-//     advances 16 K-rows, 2048 bytes.
+//   * K-major, e.g. A [M, K] row-major (the forward's activations, the dX
+//     product's dY) or B^T = W [N, K] row-major (the dX product's W): one
+//     TMA box of 64 (K) x 128 (A) or x BN (B) rows, rows 128 bytes apart,
+//     16-byte chunks XOR-swizzled by row % 8 (CU_TENSOR_MAP_SWIZZLE_128B).
+//     Descriptor: SBO 1024 (eight rows), LBO unused; the k16 step advances
+//     the start address by 32 bytes inside the swizzle row.
+//   * MN-major, e.g. B [K, N] row-major as JAX keeps the weights (the
+//     forward; the dW product's dY), or A^T with A [K, M] row-major (the dW
+//     product's activations): 64-wide boxes of 64 (M or N) x 64 (K), each
+//     64 K-rows of 128 bytes, 8 KB apart (BN / 64 of them for B; for A one
+//     per warpgroup). Descriptor: LBO 8192 (from one 64-column box to the
+//     next), SBO 1024 (eight K-rows); the k16 step advances 16 K-rows, 2048
+//     bytes.
 //
 // Ragged K and M need no code: a box past the tensor's end is zero-filled
 // by TMA (and its bytes still count toward the barrier's transaction), so
@@ -319,11 +326,12 @@ struct Wgmma<256, kTA, kTB> {
 
 // --------------------------------------------------------------- ring --
 
-// The dynamic shared memory of a block: kStages stages of (A box, B boxes),
-// then kEpiBytes for the kernel's epilogue (swizzled 64 x 64 boxes), then
-// the barriers. Every piece starts on a 1024-byte boundary (the swizzle's
-// period). As many stages as fit, at most 4.
-template <int BN, int kEpi>
+// The dynamic shared memory of a block: kStages stages of (A boxes, B
+// boxes), then kEpiBytes for the kernel's epilogue (swizzled 64 x 64
+// boxes), then the barriers. Every piece starts on a 1024-byte boundary
+// (the swizzle's period). As many stages as fit, at most 4. kTA / kTB: A /
+// B MN-major (1) or K-major (0); the defaults are the forward's layout.
+template <int BN, int kEpi, int kTA = 0, int kTB = 1>
 struct Ring {
   static_assert(BN % 64 == 0 && BN >= 64 && BN <= 256, "BN");
   static constexpr int kABytes = kBM * kBK * 2;
@@ -379,41 +387,62 @@ struct Ring {
     fence_barrier_init();
   }
 
-  // Producer: k-block kb of the tile at (m0, n0) into the next stage:
-  // A [M, K] K-major, B [K, N] MN-major (see the head of this file).
+  // Producer: k-block kb (from K offset k0) of the tile at (m0, n0) into the
+  // next stage, A and B in the layouts of kTA / kTB (the head of this file).
   __device__ void load(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                       int m0, int n0, int kb) {
+                       int m0, int n0, int kb, int k0 = 0) {
     mbar_wait(empty(stage), phase ^ 1);
     mbar_expect_tx(full(stage), kStageBytes);
-    tma_load(a(stage), map_a, full(stage), kb * kBK, m0);
+    if constexpr (kTA == 0) {
+      tma_load(a(stage), map_a, full(stage), k0 + kb * kBK, m0);
+    } else {
 #pragma unroll
-    for (int c = 0; c < BN / 64; ++c)
-      tma_load(b(stage) + c * kBoxBytes, map_b, full(stage), n0 + 64 * c,
-               kb * kBK);
+      for (int g = 0; g < kBM / 64; ++g)
+        tma_load(a(stage) + g * kBoxBytes, map_a, full(stage), m0 + 64 * g,
+                 k0 + kb * kBK);
+    }
+    if constexpr (kTB == 1) {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c)
+        tma_load(b(stage) + c * kBoxBytes, map_b, full(stage), n0 + 64 * c,
+                 k0 + kb * kBK);
+    } else {
+      tma_load(b(stage), map_b, full(stage), k0 + kb * kBK, n0);
+    }
     advance();
   }
 
   // Consumer warpgroup g: acc = A[rows of g] B over nk k-blocks. Keeps one
   // k-block of wgmmas in flight and releases each stage once the wgmmas
-  // that read it have retired.
-  __device__ void mma(float (&acc)[BN / 2], int nk, int g) {
+  // that read it have retired. After issuing a stage's wgmmas and
+  // releasing the stage before it, calls on_stage(shared address of its B
+  // boxes): work that runs while the tensor cores do, and may read the
+  // stage (it is released only after the next stage's wgmmas are issued).
+  template <typename OnStage>
+  __device__ void mma(float (&acc)[BN / 2], int nk, int g, OnStage on_stage) {
     const bool signal = (threadIdx.x & 31) == 0;
     int prev = 0;
     for (int kb = 0; kb < nk; ++kb) {
       mbar_wait(full(stage), phase);
-      const uint32_t sa = smem_u32(a(stage)) + g * 64 * 128;
+      // A: K-major, 64 rows of 128 bytes a warpgroup; MN-major, one box
+      const uint32_t sa = smem_u32(a(stage)) + g * kBoxBytes;
       const uint32_t sb = smem_u32(b(stage));
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kBK / 16; ++k)
-        Wgmma<BN, 0, 1>::mma(acc, sw128_desc(sa + 32 * k, 16, 1024),
-                             sw128_desc(sb + 2048 * k, kBoxBytes, 1024),
-                             (kb | k) != 0);
+        Wgmma<BN, kTA, kTB>::mma(
+            acc,
+            kTA ? sw128_desc(sa + 2048 * k, kBoxBytes, 1024)
+                : sw128_desc(sa + 32 * k, 16, 1024),
+            kTB ? sw128_desc(sb + 2048 * k, kBoxBytes, 1024)
+                : sw128_desc(sb + 32 * k, 16, 1024),
+            (kb | k) != 0);
       wgmma_commit();
       if (kb > 0) {
         wgmma_wait<1>();
         if (signal) mbar_arrive(empty(prev));
       }
+      on_stage(sb);
       prev = stage;
       advance();
     }
@@ -421,7 +450,49 @@ struct Ring {
     fence_regs(acc);
     if (signal) mbar_arrive(empty(prev));
   }
+
+  __device__ void mma(float (&acc)[BN / 2], int nk, int g) {
+    mma(acc, nk, g, [](uint32_t) {});
+  }
 };
+
+// ---------------------------------------------------------- epilogue --
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bf16x2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// Where consumer thread `tid` (0-127) of a warpgroup finds its fragment
+// d[4 j + 2 i + c]: row r0 + 8 i of the warpgroup's 64, column 8 j + 2 q +
+// c of the tile; and the byte address of that (row, j) in a 64 x 64 box
+// of 64-column block j / 8 at shared address `box`.
+struct Frag {
+  int r0, q;
+  __device__ explicit Frag(int tid)
+      : r0(((tid >> 5) << 4) + ((tid & 31) >> 2)), q(tid & 3) {}
+  __device__ uint32_t addr(uint32_t box, int i, int j) const {
+    return box + sw128(r0 + 8 * i, j & 7) + 4 * q;
+  }
+};
+
+// The warpgroup's 64 x BN tile, staged as BN / 64 boxes from `ebase`, to
+// (n0, row0) of `map` by its thread 0 (boxes wholly past N or M are
+// skipped).
+template <int BN>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t ebase, int n0, int row0,
+                                           int N, int M) {
+  if (row0 >= M) return;
+#pragma unroll
+  for (int c = 0; c < BN / 64; ++c)
+    if (n0 + 64 * c < N)
+      tma_store(map, ebase + c * kBoxBytes, n0 + 64 * c, row0);
+  bulk_commit();
+}
 
 // -------------------------------------------------------------- host --
 
@@ -473,6 +544,13 @@ inline int encode_bf16(CUtensorMap* map, const void* ptr, long long rows,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tile width of an output N columns wide: N in the fewest tiles of at
+// most 256 columns, each a multiple of 64.
+inline int tile_width(int N) {
+  const int tiles = (N + 255) / 256;
+  return ((N + tiles - 1) / tiles + 63) / 64 * 64;
 }
 
 // Blocks of a persistent launch: every block the card holds at once (at

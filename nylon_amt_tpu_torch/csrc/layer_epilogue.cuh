@@ -1,9 +1,10 @@
 // The per-element epilogues of the layer GEMMs, for either element type T
 // (bf16 or f32): the float32 kernels of layer_fused_f32.cu compute with
 // these, and they state, op for op, what the bf16 kernels compute after
-// their products (layer_fused_train.cu's dX GEMM with nt_epilogue<bf16>;
-// layer_fused.cu's wgmma GEMMs with bias_epilogue2 / residual_sum2 below,
-// the same bits on column pairs). Every "round to T" of the reference
+// their products (the wgmma GEMMs of layer_fused.cu with bias_epilogue2 /
+// residual_sum2 below, and the dX GEMM of layer_fused_train.cu with
+// nt_epilogue2: the same bits as bias_epilogue<bf16>, residual_sum<bf16>
+// and nt_epilogue<bf16> on column pairs). Every "round to T" of the reference
 // (JAX's _matmul casts the f32 product to the compute dtype BEFORE the bias
 // add, and every elementwise op rounds to its dtype) stays in the code; for
 // f32 it is the identity. Every product is taken by __fmul_rn: in f32, where no rounding
@@ -132,6 +133,27 @@ __device__ __forceinline__ float nt_epilogue(float acc, const NtEpilogue& ep,
   if (ep.addend) v = round_to<T>(add + v);
   if (ep.act2)
     v = round_to<T>(__fmul_rn(v, keep_value(ep.m2, row, col, n)));
+  return v;
+}
+
+// nt_epilogue<bf16> on (col, col + 1), packed as bias_epilogue2: bf16(acc)
+// [x keep m1] [ReLU gate] [+ addend] [x keep m2], where at most one of the
+// gate and the addend and at most one of m1 and m2 are on (the bf16 dX
+// kernel's terms). side: the pair of ep.gate or ep.addend at (row, col);
+// keep: the keep values of the dropout site that is on at the pair (its
+// keep value or 0 in each half).
+__device__ __forceinline__ __nv_bfloat162 nt_epilogue2(
+    float acc0, float acc1, const NtEpilogue& ep, __nv_bfloat162 side,
+    __nv_bfloat162 keep) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(acc0, acc1);
+  if (ep.act1) v = mul_rn(v, keep);
+  if (ep.gate) {
+    const float2 g = __bfloat1622float2(side);
+    const __nv_bfloat162 z = __float2bfloat162_rn(0.f);
+    v = __halves2bfloat162(g.x > 0.f ? v.x : z.x, g.y > 0.f ? v.y : z.y);
+  }
+  if (ep.addend) v = add_rn(side, v);
+  if (ep.act2) v = mul_rn(v, keep);
   return v;
 }
 

@@ -72,47 +72,15 @@
 using nylon::bf16;
 using nylon::DropSite;
 namespace sm = nylon::sm90;
+using sm::bf16x2;
+using sm::bits;
+using sm::Frag;
+using sm::store_tile;
 
 namespace {
 
 constexpr int kDepth = 32;    // the entry points take K % kDepth == 0
 constexpr int kLnMaxN = 256;  // gemm_res_ln: a block owns full rows
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 bf16x2(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-// Where consumer thread `tid` (0-127) of a warpgroup finds its fragment
-// d[4 j + 2 i + c]: row r0 + 8 i of the warpgroup's 64, column 8 j + 2 q +
-// c of the tile; and the byte address of that (row, j) in a 64 x 64 box
-// of 64-column block j / 8 at shared address `box`.
-struct Frag {
-  int r0, q;
-  __device__ explicit Frag(int tid)
-      : r0(((tid >> 5) << 4) + ((tid & 31) >> 2)), q(tid & 3) {}
-  __device__ uint32_t addr(uint32_t box, int i, int j) const {
-    return box + sm::sw128(r0 + 8 * i, j & 7) + 4 * q;
-  }
-};
-
-// The warpgroup's 64 x BN tile, staged as BN / 64 boxes from `ebase`, to
-// (n0, row0) of `map` by its thread 0 (boxes wholly past N or M are
-// skipped).
-template <int BN>
-__device__ __forceinline__ void store_tile(const CUtensorMap* map,
-                                           uint32_t ebase, int n0, int row0,
-                                           int N, int M) {
-  if (row0 >= M) return;
-#pragma unroll
-  for (int c = 0; c < BN / 64; ++c)
-    if (n0 + 64 * c < N)
-      sm::tma_store(map, ebase + c * sm::kBoxBytes, n0 + 64 * c, row0);
-  sm::bulk_commit();
-}
 
 // ------------------------------------------------------ GEMM + bias ----
 
@@ -384,13 +352,6 @@ __global__ void __launch_bounds__(sm::kThreads, 1)
 
 // ------------------------------------------------------------- launch ----
 
-// gemm_bias's tile width: N in the fewest tiles of at most 256 columns,
-// each a multiple of 64.
-int bias_tile_n(int N) {
-  const int tiles = (N + 255) / 256;
-  return ((N + tiles - 1) / tiles + 63) / 64 * 64;
-}
-
 template <int BN, bool kDrop>
 int launch_gemm_bias(const void* a, const void* w, const void* bias,
                      void* out, int M, int N, int K, int relu, DropSite site,
@@ -417,7 +378,7 @@ template <bool kDrop>
 int gemm_bias(const void* a, const void* w, const void* bias, void* out,
               int M, int N, int K, int relu, DropSite site, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (bias_tile_n(N)) {
+  switch (sm::tile_width(N)) {
     case 64:
       return launch_gemm_bias<64, kDrop>(a, w, bias, out, M, N, K, relu,
                                          site, s);

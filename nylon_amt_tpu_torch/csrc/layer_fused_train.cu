@@ -18,20 +18,33 @@
 //    recomputed from the saved pre-LN sum), the bf16 cast of the input
 //    gradient, the dropout mask of the site feeding the residual, and per-
 //    block partial sums of dgamma/dbeta;
-//  * gemm_nt_kernel: dX = dY @ W^T with the epilogues of the analytic
-//    backward (bf16 cast, dropout mask, ReLU gate, + residual gradient,
-//    embedding mask);
+//  * gemm_nt_kernel: dX = dY @ W^T (the TPU kernel's dot_general of dY and
+//    W over W's second axis) with the epilogues of the analytic backward
+//    (bf16 cast, dropout mask, ReLU gate, + residual gradient, embedding
+//    mask);
 //  * the attention backward of mha.cu (nylon_attention_bwd), with the
 //    layer's per-head probability masks;
-//  * wgrad_kernel: dW = A^T @ dY over a chunk of rows into f32 per-chunk
-//    partials (with the bias gradient's column sums), and reduce_rows_kernel
-//    summing the partials in a fixed order. No float atomics: a weight
-//    gradient is the same bits from run to run.
+//  * wgrad_kernel: dW = A^T @ dY (the dot_general over the rows) over a
+//    chunk of rows into f32 per-chunk partials, with the bias gradient's
+//    column sums, and reduce_rows_kernel summing the partials in a fixed
+//    order. No float atomics: a weight gradient is the same bits from run
+//    to run.
 //
-// What bounds them: the layer's GEMMs and attention products run at the
-// WMMA rate of this simple tiling, and the recompute moves the layer's
-// intermediates through device memory (~2 GB per frequency-encoder layer at
-// batch 8). Fusing the recompute and wgmma tiles are later work.
+// What bounds the two GEMMs: at the paper widths (hid 256, pf 512, 90,112-
+// 262,144 rows a step) each moves its operands once for 85-192 FLOP a byte,
+// under the H100's ~295 FLOP/B ridge: device-memory bytes. So they run on
+// the wgmma + TMA mainloop of gemm_sm90.cuh, which keeps HBM streaming: a
+// ring of 3-4 stages 64 deep, one producer warp, two consumer warpgroups
+// decoupled by mbarriers. gemm_nt reads W K-major (W [Kout, N] row-major is
+// B^T) and is persistent over 128 x BN output tiles with the epilogue of
+// layer_epilogue.cuh packed in bf16x2 and its side input (ReLU gate or
+// addend) loaded by TMA under the mainloop. wgrad reads both operands MN-
+// major (A^T and dY in their row-major [rows, *] layout); its output has
+// only 4-12 tiles of 128 x 128 at the paper widths, so its grid is tiles x
+// row chunks, one wave of one block an SM, and the ~20 MB of partials cost
+// a few microseconds to write and reduce. The forward recompute moves the
+// layer's intermediates through device memory (~2 GB per frequency-encoder
+// layer at batch 8); fusing it is later work.
 //
 // Numerics follow the TPU kernel's analytic backward cast for cast: every
 // product accumulates in f32, each gradient is rounded to bf16 where the
@@ -43,42 +56,24 @@
 // layer_fused_f32.cu (the SIMT core of gemm_f32.cuh), whose partials this
 // file's reduce_rows sums in the same fixed order.
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
 
-using namespace nvcuda;
 using nylon::bf16;
 using nylon::DropSite;
 using nylon::keep_value;
+using nylon::NtEpilogue;
+namespace sm = nylon::sm90;
+using sm::bf16x2;
+using sm::bits;
+using sm::Frag;
+using sm::store_tile;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps in every kernel of this file
-constexpr int kBK = 32;
-constexpr int kALd = kBK + 8;
-
-// rows x 32 tile of a row-major [M, K] matrix from column k0; rows past M are
-// zero-filled.
-__device__ __forceinline__ void load_rows32(bf16* dst, const bf16* a, int M,
-                                            int K, int m0, int k0, int rows) {
-  for (int c = threadIdx.x; c < rows * (kBK / 8); c += kThreads) {
-    const int r = c / (kBK / 8), col = (c % (kBK / 8)) * 8;
-    const int gr = m0 + r;
-    const bool ok = gr < M;
-    const bf16* src = a + (size_t)(ok ? gr : 0) * K + k0 + col;
-    nylon::cp_async16(dst + r * kALd + col, src, ok);
-  }
-}
-
-__device__ __forceinline__ void load8(float* dst, const bf16* src) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const bf16* b = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(b[e]);
-}
+constexpr int kThreads = 256;  // ln_bwd_kernel and reduce_rows_kernel
 
 // ------------------------------------------------------ LayerNorm backward --
 
@@ -180,204 +175,246 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------- dX = dY W^T --
 
-constexpr int kNtBM = 128, kNtBN = 128;
-constexpr size_t kNtPipeBytes = 2 * 2 * kNtBM * kALd * sizeof(bf16);
+// gemm_nt's epilogue area: the 128 x BN tile of the side input (the gate or
+// the addend), overwritten in place by the outputs.
+template <int BN>
+constexpr int kNtEpiBytes = sm::kBM * BN * 2;
 
-using nylon::NtEpilogue;
+// out[M, Kout] = epilogue(bf16(dy[M, N] @ w^T)), w [Kout, N] row-major: dy
+// is A (K-major), w is B K-major (its rows are the output columns), on the
+// mainloop of gemm_sm90.cuh. Tile t is (row block t / n_tiles_n, column
+// block t % n_tiles_n); blocks are persistent. With a side input (ep.gate
+// or ep.addend, at most one: map_side) the producer loads the tile's side
+// values by TMA into the epilogue tile while the mainloop runs, as
+// gemm_res_ln_kernel (layer_fused.cu) loads its residual; each warpgroup
+// reads its half, overwrites it with the outputs, stores them by TMA and
+// releases the tile once the stores have read it. nt_epilogue2 is the
+// element math (layer_epilogue.cuh); of the two dropout sites at most one
+// is on (every call of the backward has at most one), and each thread draws
+// its keep bits of a 64-column box in a rolled loop before the box's
+// unrolled element math.
+template <int BN>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    gemm_nt_kernel(const __grid_constant__ CUtensorMap map_dy,
+                   const __grid_constant__ CUtensorMap map_w,
+                   const __grid_constant__ CUtensorMap map_side,
+                   const __grid_constant__ CUtensorMap map_out, int M, int N,
+                   int Kout, int n_tiles_n, NtEpilogue ep, DropSite site) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::Ring<BN, kNtEpiBytes<BN>, 0, 0> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(2);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (N + sm::kBK - 1) / sm::kBK;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+  const bool side = ep.gate != nullptr || ep.addend != nullptr;
+  uint32_t epi_phase = 0;
 
-// out[M, Kout] = epilogue(bf16(dy[M, N] @ w^T)), w [Kout, N] row-major.
-// The tiling of gemm_bias_kernel (layer_fused.cu): 8 warps as 2 x 4, each
-// owning a 64 x 32 piece of the 128 x 128 tile; W^T tiles are W's rows read
-// as column-major fragments.
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_nt_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
-                   bf16* __restrict__ out, int M, int N, int Kout,
-                   int n_tiles_k, NtEpilogue ep) {
-  __shared__ __align__(128) unsigned char smem[kNtPipeBytes];
-  bf16* const sa0 = reinterpret_cast<bf16*>(smem);
-  bf16* const sb0 = sa0 + 2 * kNtBM * kALd;
-  const int m0 = (blockIdx.x / n_tiles_k) * kNtBM;
-  const int c0 = (blockIdx.x % n_tiles_k) * kNtBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_dy);
+      sm::tma_prefetch(&map_w);
+      if (side) sm::tma_prefetch(&map_side);
+      const int side_after = (nk < ring.kStages ? nk : ring.kStages) - 1;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+        const int n0 = (int)(t % n_tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb) {
+          ring.load(&map_dy, &map_w, m0, n0, kb);
+          if (kb != side_after) continue;
+          sm::mbar_wait(ring.epi_empty(), epi_phase ^ 1);
+          if (side) {
+            sm::mbar_expect_tx(ring.epi_full(), sm::kBM * BN * 2);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+            for (int g = 0; g < 2; ++g)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = N / kBK;
-  load_rows32(sa0, dy, M, N, m0, 0, kNtBM);
-  load_rows32(sb0, w, Kout, N, c0, 0, kNtBN);
-  nylon::cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    bf16* const sa = sa0 + cur * kNtBM * kALd;
-    bf16* const sb = sb0 + cur * kNtBN * kALd;
-    if (kt + 1 < nk) {
-      load_rows32(sa0 + (cur ^ 1) * kNtBM * kALd, dy, M, N, m0,
-                  (kt + 1) * kBK, kNtBM);
-      load_rows32(sb0 + (cur ^ 1) * kNtBN * kALd, w, Kout, N, c0,
-                  (kt + 1) * kBK, kNtBN);
-      nylon::cp_async_commit();
-      nylon::cp_async_wait<1>();
-    } else {
-      nylon::cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], sa + (wm * 64 + i * 16) * kALd + kk,
-                               kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], sb + (wn * 32 + j * 16) * kALd + kk,
-                               kALd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // The pipeline buffers are dead: one 16 x 16 staging tile per warp.
-  float* const stage = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane >> 1, e8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + i * 16 + r;
-      const int gc = c0 + wn * 32 + j * 16 + e8;
-      if (gr < M && gc < Kout) {
-        const size_t off = (size_t)gr * Kout + gc;
-        float gate[8] = {}, add[8] = {};
-        if (ep.gate) load8(gate, static_cast<const bf16*>(ep.gate) + off);
-        if (ep.addend) load8(add, static_cast<const bf16*>(ep.addend) + off);
-        uint4 ov;
-        bf16* o = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o[e] = __float2bfloat16(nylon::nt_epilogue<bf16>(
-              stage[r * 16 + e8 + e], ep, gate[e], add[e], (uint32_t)gr,
-              gc + e, Kout));
-        *reinterpret_cast<uint4*>(out + off) = ov;
+              for (int c = 0; c < BN / 64; ++c)
+                sm::tma_load(ring.epi(g * (BN / 64) + c), &map_side,
+                             ring.epi_full(), n0 + 64 * c, m0 + 64 * g);
+          } else {
+            sm::mbar_arrive(ring.epi_full());
+          }
+          epi_phase ^= 1;
+        }
       }
-      __syncwarp();
+    }
+    return;
+  }
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ebase = sm::smem_u32(ring.epi(g * (BN / 64)));
+  // site: the one dropout site that is on (m1 or m2); its keep value in
+  // both halves
+  const bool masked = ep.act1 || ep.act2;
+  const __nv_bfloat162 keep = __float2bfloat162_rn(site.scale);
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  float acc[BN / 2];
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+    const int n0 = (int)(t % n_tiles_n) * BN;
+    const int row0 = m0 + 64 * g;
+    ring.mma(acc, nk, g);
+    sm::mbar_wait(ring.epi_full(), epi_phase);
+    epi_phase ^= 1;
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c) {
+      // the site's keep bits of this 64-column box: bit 2 jj + e of word i
+      // is column 8 (8 c + jj) + 2 q + e of row r0 + 8 i, drawn in a rolled
+      // loop (unrolled with the element math, the hashes made the kernel
+      // too long for the instruction cache)
+      uint32_t kbits[2] = {0u, 0u};
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t row = (uint32_t)(row0 + f.r0 + 8 * i);
+#pragma unroll 1
+          for (int b = 0; b < 16; ++b)
+            kbits[i] |= (uint32_t)nylon::keeps(
+                            site, row, n0 + 64 * c + 8 * (b >> 1) + 2 * f.q +
+                                           (b & 1), Kout)
+                        << b;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * c + jj;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t at = f.addr(ebase + c * sm::kBoxBytes, i, j);
+          const __nv_bfloat162 s = side ? bf16x2(sm::ld_shared(at)) : zero;
+          const __nv_bfloat162 k = __halves2bfloat162(
+              (kbits[i] >> (2 * jj)) & 1 ? keep.x : zero.x,
+              (kbits[i] >> (2 * jj + 1)) & 1 ? keep.y : zero.y);
+          sm::st_shared(at, bits(nylon::nt_epilogue2(
+                                acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1],
+                                ep, s, k)));
+        }
+      }
+    }
+    sm::fence_async_smem();
+    sm::named_sync(1 + g, 128);
+    if (tid == 0) {
+      store_tile<BN>(&map_out, ebase, n0, row0, Kout, M);
+      sm::bulk_wait_read();
+      sm::mbar_arrive(ring.epi_empty());
     }
   }
+  if (tid == 0) sm::bulk_wait();
 }
 
 // ------------------------------------------------------------ dW = A^T dY --
 
-constexpr int kWgBK = 128, kWgBN = 128;  // tile of dW [Ka, N]
-constexpr int kWgRows = 32;              // rows per pipeline stage
-constexpr int kWgLd = 128 + 8;
+// wgrad's epilogue area: the column sums of dy of each part of the block's
+// 256 consumer threads (256 / (BN / 2) parts of BN columns).
+template <int BN>
+constexpr int kWgEpiBytes = 2048;
+// wgrad's dW tile width, and the k-blocks (of kBK rows) that one wgmma
+// accumulator sums before the f32 sum takes it: the tensor core's f32
+// accumulation rounds less finely than an FADD, and its error grows with
+// the length of the chain (a chunk of 8,000 rows read 10x the error of an
+// f32 cuBLAS product from a float64 truth on an NVIDIA H100), so each chain
+// is kWgFlush k-blocks long and the chains add in f32, in order. The second
+// accumulator is why the tile is 128 columns wide.
+constexpr int kWgBN = 128;
+constexpr int kWgFlush = 4;
 
-// rows x 128 tile of a row-major [*, width] matrix at (r0, c0); rows at or
-// past r_end and columns at or past width (a multiple of 8) are zero-filled.
-__device__ __forceinline__ void load_cols128(bf16* dst, const bf16* a,
-                                             int width, int r0, int r_end,
-                                             int c0) {
-  for (int c = threadIdx.x; c < kWgRows * 16; c += kThreads) {
-    const int r = c / 16, col = (c % 16) * 8;
-    const bool ok = r0 + r < r_end && c0 + col < width;
-    const bf16* src = a + (ok ? (size_t)(r0 + r) * width + c0 + col : 0);
-    nylon::cp_async16(dst + r * kWgLd + col, src, ok);
-  }
-}
-
-// part[chunk][Ka][N] = a[rows, Ka]^T @ dy[rows, N] over the chunk's rows;
-// blocks of the first Ka tile also write bias_part[chunk][N] = column sums
-// of dy over those rows. 8 warps as 2 x 4, each owning 64 x 32 of the tile;
-// a tile past Ka or N (multiples of 16) is zero-filled there and not stored.
-__global__ void __launch_bounds__(kThreads, 2)
-    wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ dy,
+// part[chunk][Ka, N] = a[rows, Ka]^T @ dy[rows, N] over the chunk's rows
+// (rows_per_chunk of them, a multiple of kBK, so that no box straddles two
+// chunks; TMA zero-fills the rows past M), on the mainloop of
+// gemm_sm90.cuh with Ka as the wgmma M dimension: A^T is MN-major (one box
+// of 64 Ka-columns x 64 rows a warpgroup), dy is B MN-major (the forward's
+// W layout). Block (t, chunk) owns the dW tile t of 128 x BN (Ka rows
+// past Ka, a multiple of 8, read TMA's zeros and are not stored) and writes
+// its f32 partial straight from the registers. The column sums of dy over
+// the chunk are shared by the KT = ceil(Ka / 128) blocks of the tile's
+// column range: the block of Ka tile kt sums the rows r = kt (mod KT) of
+// each dy stage, each of its consumer threads one column pair in one of
+// 256 / (BN / 2) parts of those rows, in row order, while the stage's
+// wgmmas run; bias_part[chunk * KT + kt][N] is the parts' sums added in
+// order. (Only the first Ka tile's blocks summing every row read 40% slower
+// on an NVIDIA H100: they held each stage past the others.)
+template <int BN>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    wgrad_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_dy,
                  float* __restrict__ part, float* __restrict__ bias_part,
-                 int M, int Ka, int N, int rows_per_chunk) {
-  __shared__ __align__(128) bf16 sa[2][kWgRows * kWgLd];
-  __shared__ __align__(128) bf16 sb[2][kWgRows * kWgLd];
-  const int n0 = blockIdx.x * kWgBN, k0 = blockIdx.y * kWgBK;
-  const int chunk = blockIdx.z;
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(M, r_begin + rows_per_chunk);
+                 int M, int Ka, int N, int rows_per_chunk, int n_tiles_n) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::Ring<BN, kWgEpiBytes<BN>, 1, 1> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(1);
+  __syncthreads();
   const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bool bias = blockIdx.y == 0;
-  float bsum = 0.f;  // column threadIdx.x of the bias sum (threads < 128)
+  const int k0 = (blockIdx.x / n_tiles_n) * sm::kBM;
+  const int n0 = (blockIdx.x % n_tiles_n) * BN;
+  const int chunk = blockIdx.y;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(M, r0 + rows_per_chunk);
+  const int nk = (r1 - r0 + sm::kBK - 1) / sm::kBK;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int steps = r_end > r_begin ? (r_end - r_begin + kWgRows - 1) / kWgRows
-                                    : 0;
-  if (steps > 0) {
-    load_cols128(sa[0], a, Ka, r_begin, r_end, k0);
-    load_cols128(sb[0], dy, N, r_begin, r_end, n0);
-    nylon::cp_async_commit();
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_dy);
+      for (int kb = 0; kb < nk; ++kb)
+        ring.load(&map_a, &map_dy, k0, n0, kb, r0);
+    }
+    return;
   }
-  for (int st = 0; st < steps; ++st) {
-    const int cur = st & 1;
-    if (st + 1 < steps) {
-      const int rn = r_begin + (st + 1) * kWgRows;
-      load_cols128(sa[cur ^ 1], a, Ka, rn, r_end, k0);
-      load_cols128(sb[cur ^ 1], dy, N, rn, r_end, n0);
-      nylon::cp_async_commit();
-      nylon::cp_async_wait<1>();
-    } else {
-      nylon::cp_async_wait<0>();
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  // column pair `pair` of the tile (16-byte chunk (pair % 32) / 4 of box
+  // pair / 32 in each dy row), rows first, first + step, ... of each stage
+  constexpr int kParts = 256 / (BN / 2);
+  const int kt = k0 / sm::kBM, n_kt = (Ka + sm::kBM - 1) / sm::kBM;
+  const int pair = threadIdx.x % (BN / 2), part_of = threadIdx.x / (BN / 2);
+  const uint32_t pair_at = (pair >> 5) * sm::kBoxBytes + 4 * (pair & 3);
+  const int pair_chunk = (pair & 31) >> 2;
+  const int first = kt + n_kt * part_of, step = n_kt * kParts;
+  float b0 = 0.f, b1 = 0.f;
+  const auto bias_sums = [&](uint32_t sb) {
+#pragma unroll 4
+    for (int r = first; r < sm::kBK; r += step) {
+      const float2 v = __bfloat1622float2(
+          bf16x2(sm::ld_shared(sb + pair_at + sm::sw128(r, pair_chunk))));
+      b0 += v.x;
+      b1 += v.y;
     }
-    __syncthreads();
+  };
+  float acc[BN / 2], sum[BN / 2];
 #pragma unroll
-    for (int kk = 0; kk < kWgRows; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+  for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+  for (int kb = 0; kb < nk; kb += kWgFlush) {
+    ring.mma(acc, min(kWgFlush, nk - kb), g, bias_sums);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], sa[cur] + kk * kWgLd + wm * 64 + i * 16,
-                               kWgLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], sb[cur] + kk * kWgLd + wn * 32 + j * 16,
-                               kWgLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (bias && threadIdx.x < kWgBN) {
-      // rows past r_end are zero-filled
-      for (int r = 0; r < kWgRows; ++r)
-        bsum += __bfloat162float(sb[cur][r * kWgLd + threadIdx.x]);
-    }
-    __syncthreads();
+    for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
   }
 
   float* const dst = part + (size_t)chunk * Ka * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * f.q;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = k0 + wm * 64 + i * 16, col = n0 + wn * 32 + j * 16;
-      if (row < Ka && col < N)  // warp-uniform
-        wmma::store_matrix_sync(dst + (size_t)row * N + col, acc[i][j], N,
-                                wmma::mem_row_major);
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + 64 * g + f.r0 + 8 * i;
+      if (row < Ka && col < N)
+        *reinterpret_cast<float2*>(dst + (size_t)row * N + col) =
+            make_float2(sum[4 * j + 2 * i], sum[4 * j + 2 * i + 1]);
     }
-  if (bias && threadIdx.x < kWgBN && n0 + threadIdx.x < N)
-    bias_part[(size_t)chunk * N + n0 + threadIdx.x] = bsum;
+  }
+  float* const sums = reinterpret_cast<float*>(ring.epi(0));
+  *reinterpret_cast<float2*>(sums + part_of * BN + 2 * pair) =
+      make_float2(b0, b1);
+  sm::named_sync(1, 256);
+  for (int c = threadIdx.x; c < BN; c += 256) {
+    if (n0 + c >= N) continue;
+    float t = sums[c];
+#pragma unroll
+    for (int h = 1; h < kParts; ++h) t += sums[h * BN + c];
+    bias_part[((size_t)chunk * n_kt + kt) * N + n0 + c] = t;
+  }
 }
 
 // out[i] = sum over p = 0, 1, ..., P - 1 of parts[p][i], in that order.
@@ -412,6 +449,49 @@ int launch_ln_bwd(const void* dy, const void* s, const void* gamma, void* da,
   return (int)cudaGetLastError();
 }
 
+template <int BN>
+int launch_gemm_nt(const void* dy, const void* w, void* out, int M, int N,
+                   int Kout, const NtEpilogue& ep, cudaStream_t stream) {
+  const void* side = ep.gate != nullptr ? ep.gate : ep.addend;
+  CUtensorMap md, mw, ms = {}, mo;
+  int e = sm::encode_bf16(&md, dy, M, N, sm::kBM);
+  if (!e) e = sm::encode_bf16(&mw, w, Kout, N, BN);
+  if (!e && side != nullptr) e = sm::encode_bf16(&ms, side, M, Kout, 64);
+  if (!e) e = sm::encode_bf16(&mo, out, M, Kout, 64);
+  const int n_tiles_n = (Kout + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+  const auto kernel = gemm_nt_kernel<BN>;
+  constexpr int smem = sm::Ring<BN, kNtEpiBytes<BN>, 0, 0>::kBytes;
+  int grid = 0;
+  if (!e) e = sm::persistent_grid(kernel, smem, tiles, &grid);
+  if (e) return e;
+  kernel<<<grid, sm::kThreads, smem, stream>>>(
+      md, mw, ms, mo, M, N, Kout, n_tiles_n, ep, ep.act1 ? ep.m1 : ep.m2);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_wgrad(const void* a, const void* dy, void* part, void* bias_part,
+                 int M, int Ka, int N, int rows_per_chunk, int chunks,
+                 cudaStream_t stream) {
+  CUtensorMap ma, md;
+  int e = sm::encode_bf16(&ma, a, M, Ka, 64);
+  if (!e) e = sm::encode_bf16(&md, dy, M, N, 64);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const int tiles = n_tiles_n * ((Ka + sm::kBM - 1) / sm::kBM);
+  const auto kernel = wgrad_kernel<BN>;
+  constexpr int smem = sm::Ring<BN, kWgEpiBytes<BN>, 1, 1>::kBytes;
+  if (!e)
+    e = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  kernel<<<dim3(tiles, chunks), sm::kThreads, smem, stream>>>(
+      ma, md, (float*)part, (float*)bias_part, M, Ka, N, rows_per_chunk,
+      n_tiles_n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,39 +520,47 @@ int nylon_ln_bwd_f32(const void* dy, const void* s, const void* gamma,
 }
 
 // out[M, Kout] = epilogue(bf16(dy[M, N] @ w[Kout, N]^T)); gate and addend
-// may be null; act1/act2 switch the two dropout sites.
+// may be null, not both set; act1/act2 switch the two dropout sites, not
+// both on. N and Kout multiples of 8 (TMA: 16-byte rows), every pointer
+// 16-byte aligned.
 int nylon_gemm_nt(const void* dy, const void* w, void* out, const void* gate,
                   const void* addend, int M, int N, int Kout, int act1,
                   unsigned key1, unsigned thresh1, float scale1, int half1,
                   int act2, unsigned key2, unsigned thresh2, float scale2,
                   int half2, void* stream) {
-  if (M <= 0 || N <= 0 || Kout <= 0 || N % kBK || Kout % 8 ||
+  if (M <= 0 || N <= 0 || Kout <= 0 || N % 8 || Kout % 8 ||
+      (gate != nullptr && addend != nullptr) || (act1 && act2) ||
       (half1 && 2 * half1 != Kout) || (half2 && 2 * half2 != Kout))
     return (int)cudaErrorInvalidValue;
   const NtEpilogue ep{gate, addend, DropSite{key1, thresh1, scale1, half1, 0u},
                       DropSite{key2, thresh2, scale2, half2, 0u}, act1, act2};
-  const int n_tiles_k = (Kout + kNtBN - 1) / kNtBN;
-  const long long tiles = (long long)n_tiles_k * ((M + kNtBM - 1) / kNtBM);
-  gemm_nt_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)dy, (const bf16*)w, (bf16*)out, M, N, Kout, n_tiles_k, ep);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (sm::tile_width(Kout)) {
+    case 64:
+      return launch_gemm_nt<64>(dy, w, out, M, N, Kout, ep, s);
+    case 128:
+      return launch_gemm_nt<128>(dy, w, out, M, N, Kout, ep, s);
+    case 192:
+      return launch_gemm_nt<192>(dy, w, out, M, N, Kout, ep, s);
+    default:
+      return launch_gemm_nt<256>(dy, w, out, M, N, Kout, ep, s);
+  }
 }
 
-// part[chunks, Ka, N] and bias_part[chunks, N] for dW = a^T dy, a [M, Ka],
-// dy [M, N], rows split into chunks of rows_per_chunk (a multiple of 32);
-// Ka and N multiples of 16.
+// part[chunks, Ka, N] and bias_part[chunks * ceil(Ka / 128), N] for dW =
+// a^T dy (and dy's column sums), a [M, Ka], dy [M, N], rows split into
+// chunks of rows_per_chunk (a multiple of 64), each holding at least one
+// row; Ka and N multiples of 8.
 int nylon_wgrad(const void* a, const void* dy, void* part, void* bias_part,
                 int M, int Ka, int N, int rows_per_chunk, int chunks,
                 void* stream) {
-  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 16 || N % 16 ||
-      rows_per_chunk <= 0 || rows_per_chunk % kWgRows || chunks <= 0 ||
-      chunks > 65535 || (long long)rows_per_chunk * chunks < M)
+  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 8 || N % 8 ||
+      rows_per_chunk <= 0 || rows_per_chunk % sm::kBK || chunks <= 0 ||
+      chunks > 65535 || (long long)rows_per_chunk * chunks < M ||
+      (long long)rows_per_chunk * (chunks - 1) >= M)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kWgBN - 1) / kWgBN, (Ka + kWgBK - 1) / kWgBK, chunks);
-  wgrad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)dy, (float*)part, (float*)bias_part, M, Ka,
-      N, rows_per_chunk);
-  return (int)cudaGetLastError();
+  return launch_wgrad<kWgBN>(a, dy, part, bias_part, M, Ka, N,
+                             rows_per_chunk, chunks, (cudaStream_t)stream);
 }
 
 // out[n] = sum over the P rows of parts[P, n], in row order.

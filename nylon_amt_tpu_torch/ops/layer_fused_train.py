@@ -29,6 +29,12 @@ with a dropout site), ``csrc/layer_fused_train.cu`` (backward) and
 their float32 twins (``csrc/layer_fused_f32.cu``, ``csrc/mha_f32.cu`` and
 the f32 instantiation of the LayerNorm backward) for float32 ones, the
 default model configuration's compute dtype; any other dtype raises.
+The plain backward bodies take their matrix products from
+:func:`gemm_nt_plain` and :func:`weight_grad_plain`, the plain twins of the
+backward's dX and dW kernels alone (``chip_smoke.py`` (p) holds the kernels
+to them); ``check_gemm_nt`` and ``check_wgrad`` refuse, before the library
+loads, the shapes those kernels do not take, and ``wgrad_plan`` splits the
+rows of a dW product into the kernel's chunks.
 
 Weights arrive in float32 (so their gradients are float32) and are cast to
 the compute dtype (the activations' dtype): the plain versions on use, as
@@ -147,9 +153,40 @@ def _flat(t):
     return t.reshape(-1, t.shape[-1])
 
 
-def _wgrad(a, dy):
-    """(A^T dY over all rows, column sums of dY), both f32."""
-    return _mm(_flat(a).t(), _flat(dy)), dy.float().sum((0, 1))
+def _keep(m, like):
+    """A keep mask given as values (a tensor) or as a kernel's dropout site
+    (``_Site``), as values shaped like ``like``."""
+    return m if torch.is_tensor(m) else lf._site_mask(m, like)
+
+
+def gemm_nt_plain(dy, w, gate=None, addend=None, m1=None, m2=None):
+    """The plain twin of the dX GEMM kernel (``csrc/layer_fused_train.cu``
+    ``gemm_nt_kernel``, ``nylon_gemm_nt``): ``v = dt(dy @ w^T)`` on ``dy
+    [.., N]`` of dtype ``dt`` and ``w [Kout, N]``, then ``v = dt(v x m1)``,
+    ``v = 0`` where not ``gate > 0`` (the forward's ReLU), ``v = dt(addend
+    + v)``, ``v = dt(v x m2)``, each step where its argument is given.
+    ``m1`` / ``m2``: keep masks (values shaped like the output) or the
+    kernel's dropout sites (``_Site``)."""
+    with full_f32():
+        v = _mm(dy, w.t()).to(dy.dtype)
+    if m1 is not None:
+        v = v * _keep(m1, v)
+    if gate is not None:
+        v = torch.where(gate.float() > 0, v, torch.zeros_like(v))
+    if addend is not None:
+        v = addend + v
+    if m2 is not None:
+        v = v * _keep(m2, v)
+    return v
+
+
+def weight_grad_plain(a, dy):
+    """The plain twin of the dW GEMM kernel (``wgrad_kernel`` and
+    ``reduce_rows_kernel``, ``nylon_wgrad``): ``(a^T dy, column sums of dy)``
+    over every row of ``a [.., Ka]`` and ``dy [.., N]``, both f32."""
+    with full_f32():
+        dw = _mm(_flat(a).t(), _flat(dy))
+    return dw, dy.float().sum(tuple(range(dy.dim() - 1)))
 
 
 def _head_masks(active, drop, tag_base):
@@ -266,22 +303,19 @@ def _enc_bwd_body(x, p, seed, dz, n_heads, rate, emb_drop, taps=None):
     da2, dg2, db2_ = _ln_bwd(dz, xhat2, inv2, gf)
     da2 = da2.to(dt)
     dff = da2 * m4 if active else da2
-    dw2, db2 = _wgrad(midd, dff)
-    dmidd = _mm(dff, c(p.w2).t()).to(dt)
-    dmid = dmidd * m3 if active else dmidd
-    du = torch.where(u.float() > 0, dmid, torch.zeros_like(dmid)).to(dt)
-    dw1, db1 = _wgrad(y, du)
-    dy = da2 + _mm(du, c(p.w1).t()).to(dt)
+    dw2, db2 = weight_grad_plain(midd, dff)
+    du = gemm_nt_plain(dff, c(p.w2), gate=u, m1=m3 if active else None)
+    dw1, db1 = weight_grad_plain(y, du)
+    dy = gemm_nt_plain(du, c(p.w1), addend=da2)
     da1, dg1, db1_ = _ln_bwd(dy, xhat1, inv1, gf)
     da1 = da1.to(dt)
     dattn = da1 * m2 if active else da1
-    dwo, dbo = _wgrad(heads, dattn)
-    dheads = _mm(dattn, c(p.wo).t()).to(dt)
+    dwo, dbo = weight_grad_plain(heads, dattn)
+    dheads = gemm_nt_plain(dattn, c(p.wo))
     dqkv = _heads_bwd(qkv, dheads, n_heads, scale, active, drop)
-    dwqkv, dbqkv = _wgrad(x, dqkv)
-    dx = da1 + _mm(dqkv, c(p.wqkv).t()).to(dt)
-    if active and emb_drop:
-        dx = dx * m0
+    dwqkv, dbqkv = weight_grad_plain(x, dqkv)
+    dx = gemm_nt_plain(dqkv, c(p.wqkv), addend=da1,
+                       m2=m0 if active and emb_drop else None)
     _tap(taps, locals())
     return dx, EncoderLayerParams(dwqkv, dbqkv, dwo, dbo, dg1 + dg2,
                                   db1_ + db2_, dw1, db1, dw2, db2)
@@ -356,23 +390,21 @@ def _cross_tail_bwd_body(trg, enc, dz, p, n_heads, scale, active, drop,
     da2, dg2, db2_ = _ln_bwd(dz, xhat2, inv2, gf)
     da2 = da2.to(dt)
     dff = da2 * m4 if active else da2
-    dw2, db2 = _wgrad(midd, dff)
-    dmidd = _mm(dff, c(p.w2).t()).to(dt)
-    dmid = dmidd * m3 if active else dmidd
-    du = torch.where(u.float() > 0, dmid, torch.zeros_like(dmid)).to(dt)
-    dw1, db1 = _wgrad(y, du)
-    dy = da2 + _mm(du, c(p.w1).t()).to(dt)
+    dw2, db2 = weight_grad_plain(midd, dff)
+    du = gemm_nt_plain(dff, c(p.w2), gate=u, m1=m3 if active else None)
+    dw1, db1 = weight_grad_plain(y, du)
+    dy = gemm_nt_plain(du, c(p.w1), addend=da2)
     da1, dg1, db1_ = _ln_bwd(dy, xhat1, inv1, gf)
     da1 = da1.to(dt)
     dattn = da1 * m2 if active else da1
-    dwo, dbo = _wgrad(heads, dattn)
-    dheads = _mm(dattn, c(p.wo).t()).to(dt)
+    dwo, dbo = weight_grad_plain(heads, dattn)
+    dheads = gemm_nt_plain(dattn, c(p.wo))
     dq, dkv = _heads_bwd_cross(q, kv, dheads, n_heads, scale, active,
                                drop)
-    dwq, dbq = _wgrad(trg, dq)
-    dwkv, dbkv = _wgrad(enc, dkv)
-    dtrg = da1 + _mm(dq, c(p.wq).t()).to(dt)
-    denc = _mm(dkv, c(p.wkv).t()).to(dt)
+    dwq, dbq = weight_grad_plain(trg, dq)
+    dwkv, dbkv = weight_grad_plain(enc, dkv)
+    dtrg = gemm_nt_plain(dq, c(p.wq), addend=da1)
+    denc = gemm_nt_plain(dkv, c(p.wkv))
     _tap(taps, locals(), "cross.")
     grads = dict(wq=dwq, bq=dbq, wkv=dwkv, bkv=dbkv, wo=dwo, bo=dbo,
                  g=dg1 + dg2, b=db1_ + db2_, w1=dw1, b1=db1, w2=dw2, b2=db2)
@@ -448,12 +480,12 @@ def decoder_layer_train_bwd_plain(trg, enc, p: DecLayerParams, seed: int, dz,
         grads["g"] = grads["g"] + dg0
         grads["b"] = grads["b"] + db0
         dsa = da0 * msa if active else da0
-        dwso, dbso = _wgrad(sheads, dsa)
-        dsheads = _mm(dsa, c(p.wso).t()).to(dt)
+        dwso, dbso = weight_grad_plain(sheads, dsa)
+        dsheads = gemm_nt_plain(dsa, c(p.wso))
         dqkv = _heads_bwd(qkv, dsheads, n_heads, scale, active, drop,
                           tag_base=_SITE_SA)
-        dwsqkv, dbsqkv = _wgrad(trg, dqkv)
-        dtrg = da0 + _mm(dqkv, c(p.wsqkv).t()).to(dt)
+        dwsqkv, dbsqkv = weight_grad_plain(trg, dqkv)
+        dtrg = gemm_nt_plain(dqkv, c(p.wsqkv), addend=da0)
     _tap(taps, locals(), "self.")
     return dtrg, denc, DecLayerParams(wsqkv=dwsqkv, bsqkv=dbsqkv, wso=dwso,
                                       bso=dbso, **grads)
@@ -603,10 +635,42 @@ def _ln_backward(dy, s, g, site, ln: _LnGrads):
     return da, dam
 
 
+# What the dX and dW entry points take, by activation dtype: the multiple
+# of N and Kout (dX) and of Ka and N (dW). bf16 (csrc/layer_fused_train.cu,
+# TMA: 16-byte rows) 8; f32 (csrc/layer_fused_f32.cu) 4.
+_BWD_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
+
+
+def check_gemm_nt(name: str, m: int, n: int, kout: int, dtype, gate=None,
+                  addend=None, m1=None, m2=None) -> None:
+    """Raise ``ValueError`` unless the dX kernel takes ``dy [m, n] @ w
+    [kout, n]^T`` in ``dtype`` with these side inputs (``[m, kout]``) and
+    dropout sites (the bf16 kernel takes one of gate and addend and one of
+    m1 and m2 at a time, as every call of the backward gives them): what
+    the C entry point would refuse, refused before the library is
+    loaded."""
+    kernels.check_dtype(name, dtype)
+    k = _BWD_MULTIPLE[dtype]
+    if m <= 0 or n <= 0 or kout <= 0 or n % k or kout % k:
+        raise ValueError(f"{name}: the {dtype} dX kernel takes N % {k} == 0 "
+                         f"and Kout % {k} == 0; got M {m}, N {n}, Kout {kout}")
+    for side, t in (("gate", gate), ("addend", addend)):
+        if t is not None and tuple(t.shape) != (m, kout):
+            raise ValueError(f"{name}: {side} has shape {tuple(t.shape)}, "
+                             f"expected {(m, kout)}")
+    if dtype == torch.bfloat16 and gate is not None and addend is not None:
+        raise ValueError(f"{name}: the bf16 dX kernel takes a gate or an "
+                         "addend, not both")
+    if dtype == torch.bfloat16 and m1 is not None and m2 is not None:
+        raise ValueError(f"{name}: the bf16 dX kernel takes the dropout "
+                         "site m1 or m2, not both")
+
+
 def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None):
     """``dt(dy @ w^T)`` [x m1] [ReLU gate] [+ addend] [x m2]."""
     m, n = dy.shape
     kout = w.shape[0]
+    check_gemm_nt("gemm_nt", m, n, kout, dy.dtype, gate, addend, m1, m2)
     out = torch.empty((m, kout), dtype=dy.dtype, device=dy.device)
     kernels.call(kernels.entry("nylon_gemm_nt", dy.dtype), dy.data_ptr(),
                  w.data_ptr(), out.data_ptr(),
@@ -618,12 +682,21 @@ def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None):
     return out
 
 
-# wgrad_kernel (bf16, 128 x 128 tiles of dW) and wgrad_f32_kernel (f32,
-# 64 x 64 tiles) each keep two blocks per SM resident (their launch
-# bounds); the row chunks are sized for two waves of them, so the card is
-# full while the partials to reduce stay few
-_WGRAD_BLOCKS_PER_SM = 2
-_WGRAD_WAVES = 2
+def wgrad_plan(m: int, tiles: int, sms: int) -> tuple[int, int]:
+    """``(rows_per_chunk, chunks)`` of the bf16 dW kernel over ``m`` rows
+    with ``tiles`` output tiles on a card of ``sms`` SMs: one wave of one
+    block an SM (tiles x chunks <= sms where tiles allow), every chunk a
+    multiple of 64 rows (the kernel's k-block: no TMA box straddles two
+    chunks) holding at least one row, every row in exactly one chunk."""
+    chunks = max(1, sms // tiles)
+    rows = -(-(-(-m // chunks)) // 64) * 64
+    return rows, -(-m // rows)
+
+
+# wgrad_f32_kernel (f32, 64 x 64 tiles of dW) keeps two blocks per SM
+# resident (its launch bounds); its row chunks are sized for two waves of
+# them, so the card is full while the partials to reduce stay few
+_WGRAD_F32_BLOCKS = 2 * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -631,19 +704,36 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def check_wgrad(name: str, m: int, ka: int, n: int, dtype) -> None:
+    """Raise ``ValueError`` unless the dW kernel takes ``a [m, ka]^T @ dy
+    [m, n]`` in ``dtype``, before the library is loaded."""
+    kernels.check_dtype(name, dtype)
+    k = _BWD_MULTIPLE[dtype]
+    if m <= 0 or ka <= 0 or n <= 0 or ka % k or n % k:
+        raise ValueError(f"{name}: the {dtype} dW kernel takes Ka % {k} == 0 "
+                         f"and N % {k} == 0; got M {m}, Ka {ka}, N {n}")
+
+
 def _weight_grad(a, dy):
     """(a^T dy, column sums of dy) in f32: per-chunk partials over row
     chunks, then a reduction in chunk order."""
     m, ka = a.shape
     n = dy.shape[1]
-    tile = 128 if a.dtype == torch.bfloat16 else 64
-    tiles = -(-ka // tile) * -(-n // tile)
-    blocks = _WGRAD_WAVES * _WGRAD_BLOCKS_PER_SM * _sm_count(a.device.index)
-    chunks = max(1, -(-blocks // tiles))
-    rows = -(-(-(-m // chunks)) // 32) * 32
-    chunks = -(-m // rows)
+    check_wgrad("weight_grad", m, ka, n, a.dtype)
+    sms = _sm_count(a.device.index)
+    if a.dtype == torch.bfloat16:
+        # 128 x 128 tiles of dW; a chunk's column sums of dy come in a part
+        # from each of the ceil(ka / 128) tiles of a column range
+        rows, chunks = wgrad_plan(m, -(-ka // 128) * -(-n // 128), sms)
+        bias_rows = chunks * -(-ka // 128)
+    else:  # 64 x 64 tiles, rows a multiple of 32
+        tiles = -(-ka // 64) * -(-n // 64)
+        chunks = max(1, -(-(_WGRAD_F32_BLOCKS * sms) // tiles))
+        rows = -(-(-(-m // chunks)) // 32) * 32
+        chunks = bias_rows = -(-m // rows)
     part = torch.empty((chunks, ka, n), dtype=torch.float32, device=a.device)
-    bias_part = torch.empty((chunks, n), dtype=torch.float32, device=a.device)
+    bias_part = torch.empty((bias_rows, n), dtype=torch.float32,
+                            device=a.device)
     kernels.call(kernels.entry("nylon_wgrad", a.dtype), a.data_ptr(),
                  dy.data_ptr(), part.data_ptr(),
                  bias_part.data_ptr(), m, ka, n, rows, chunks,

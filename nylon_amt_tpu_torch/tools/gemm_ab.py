@@ -1,28 +1,47 @@
-"""A/B two or more builds of the bf16 layer GEMMs (``csrc/layer_fused.cu``)
-in one run on the card.
+"""A/B two or more builds of the bf16 layer GEMMs in one run on the card:
+the forward's (``csrc/layer_fused.cu``: ``nylon_gemm_bias[_drop]``,
+``nylon_gemm_res_ln[_train]``) and the backward's (``csrc/
+layer_fused_train.cu``: ``nylon_gemm_nt``, the dX product, and
+``nylon_wgrad`` + ``nylon_reduce_rows``, the dW product).
 
-Each variant is a directory holding a ``layer_fused.cu`` and the headers it
-includes (a ``csrc/`` of some tree: the working tree's, a parent commit's
-unpacked with ``git archive`` under ``build/``, a patched copy). All of
-them build at once, with ``kernels.NVCC_FLAGS``, into their own libraries
-under ``build/gemm_ab/``, load side by side through ctypes, and are:
+Each variant is a directory holding ``layer_fused.cu``,
+``layer_fused_train.cu`` and the headers they include (a ``csrc/`` of some
+tree: the working tree's, a parent commit's unpacked with ``git archive``
+under ``build/``, a patched copy). Every source of every variant builds at
+once, one nvcc each, with ``kernels.NVCC_FLAGS``, into its own library
+under ``build/gemm_ab/`` (``NAME_fwd.so``, ``NAME_bwd.so``); they load side
+by side through ctypes, and are:
 
-* held against the plain twins (``ops.layer_fused.gemm_bias_plain`` /
-  ``gemm_res_ln_plain``) at small and ragged shapes, dropout sites and
-  ``pre_out`` included: at most 4 bf16 ulps, two runs bit-identical;
-* compared with the first variant bit for bit (``--same``);
-* timed at the GEMM shapes of the paper batch-32 forward, in the order
-  A B ... B A (CUDA events; the best of the two), beside bf16
+* held against the plain twins at small and ragged shapes: the forward's
+  (``ops.layer_fused.gemm_bias_plain`` / ``gemm_res_ln_plain``, dropout
+  sites and ``pre_out`` included) and dX (``ops.layer_fused_train.
+  gemm_nt_plain``, every epilogue) within 4 bf16 ulps; dW and its bias
+  sums (``weight_grad_plain``) no further from a float64 truth than twice
+  the plain f32 twin's own distance + 1e-6 max |truth|; two runs
+  bit-identical;
+* compared with the first variant bit for bit; with ``--same`` a forward
+  output that differs from the first variant's, or a forward GEMM whose
+  SASS (``cuobjdump -sass``) differs, fails the run. The first variant is
+  the one under test: its gates decide the exit code; the others' are
+  reported (the parent's ``wmma`` dW kernel does not pass the float64
+  gate);
+* timed at the GEMM shapes of the paper batch-32 forward and of the paper
+  batch-8 training step's backward (its 43 dX and 43 dW products), in the
+  order A B ... B A (CUDA events; the best of the two), beside bf16
   ``torch.matmul`` of the same product and the bound.
+
+A variant's dW row chunks follow its own kernel: ``wgrad_plan`` for the
+``wgmma`` kernel, the earlier rule (two waves of two 128 x 128 blocks an
+SM, rows a multiple of 32) where the source still holds the ``wmma`` one.
 
 Run from the root of a checkout on the card::
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
-    python -m nylon_amt_tpu_torch.tools.gemm_ab \\
+    python -m nylon_amt_tpu_torch.tools.gemm_ab --same \\
         new=nylon_amt_tpu_torch/csrc old=build/parent/nylon_amt_tpu_torch/csrc
 
 It prints the card's name and power limit first. A variant that fails to
-build or to check is reported and left out of the timings.
+build or to launch is reported and left out of the timings.
 """
 
 from __future__ import annotations
@@ -30,13 +49,17 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-ENTRIES = ("nylon_gemm_bias", "nylon_gemm_bias_drop", "nylon_gemm_res_ln",
-           "nylon_gemm_res_ln_train")
+ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
+                   "nylon_gemm_res_ln", "nylon_gemm_res_ln_train"),
+           "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows")}
+SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu"}
+FWD_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel")
 ULPS = 4
 
 # (kernel, M, K, N, ReLU, dropout, pre_out, out): one tile, ragged K, M and
@@ -53,6 +76,16 @@ CHECKS = [
     ("ln", 5000, 256, 256, 0, 1, 0, 1), ("ln", 5000, 256, 256, 0, 1, 1, 1),
     ("ln", 5000, 512, 256, 0, 1, 1, 0), ("ln", 777, 96, 96, 0, 0, 1, 1),
 ]
+# dX (M, N, Kout, side input, m1, m2) and dW (M, Ka, N): one tile, ragged
+# M, K and N, every tile width, every epilogue the backward runs
+BWD_CHECKS = [
+    ("nt", 128, 64, 64, None, 0, 0), ("nt", 333, 96, 288, "addend", 0, 0),
+    ("nt", 777, 160, 160, "gate", 1, 0), ("nt", 300001, 256, 512, "gate", 1, 0),
+    ("nt", 300000, 768, 256, "addend", 0, 1), ("nt", 5000, 512, 256, None, 0, 0),
+    ("nt", 300000, 192, 64, "addend", 0, 0), ("nt", 200, 8, 8, None, 0, 1),
+    ("wg", 100, 64, 64), ("wg", 333, 96, 288), ("wg", 300001, 512, 256),
+    ("wg", 300000, 256, 768), ("wg", 5000, 8, 8), ("wg", 90112, 160, 96),
+]
 # (label, M, K, N, ReLU, launches per batch-32 forward) of the paper model
 PAPER = [
     ("bias qkv freq", 1048576, 256, 768, 0, 3),
@@ -67,11 +100,49 @@ PAPER = [
     ("ln ffn2 note/time", 360448, 512, 256, 0, 6),
 ]
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
+DROP_SEED, RATE = 77, 0.1
+
+
+def step_bwd_products(mf, mq, hid, pf, n_enc, n_dec, n_time) -> list:
+    """Every dX product (label, "gemm_nt", M, N, Kout, side input, m1, m2,
+    launches) and dW product (label, "wgrad", M, Ka, N, launches) of one
+    training step's backward at these widths (frequency-stream rows mf,
+    note/time-stream rows mq): K7 on n_enc frequency and n_time time layers
+    (the first of each with the embedding site m2), K8 once, K9 n_dec - 1
+    times (its cross tail and its self prologue)."""
+    nt_, cross = n_time + n_dec, n_dec
+    dx = [("ffn2 freq", mf, hid, pf, "gate", 1, 0, n_enc),
+          ("ffn1 freq", mf, pf, hid, "addend", 0, 0, n_enc),
+          ("o freq", mf, hid, hid, None, 0, 0, n_enc),
+          ("qkv freq", mf, 3 * hid, hid, "addend", 0, 0, n_enc - 1),
+          ("qkv freq, emb", mf, 3 * hid, hid, "addend", 0, 1, 1),
+          ("kv cross", mf, 2 * hid, hid, None, 0, 0, cross),
+          ("ffn2 note/time", mq, hid, pf, "gate", 1, 0, nt_),
+          ("ffn1 note/time", mq, pf, hid, "addend", 0, 0, nt_),
+          ("o note/time", mq, hid, hid, None, 0, 0, nt_ + n_dec - 1),
+          ("q cross", mq, hid, hid, "addend", 0, 0, cross),
+          ("qkv note/time", mq, 3 * hid, hid, "addend", 0, 0,
+           n_time - 1 + n_dec - 1),
+          ("qkv time, emb", mq, 3 * hid, hid, "addend", 0, 1, 1)]
+    dw = [("ffn2 freq", mf, pf, hid, n_enc), ("ffn1 freq", mf, hid, pf, n_enc),
+          ("o freq", mf, hid, hid, n_enc), ("qkv freq", mf, hid, 3 * hid, n_enc),
+          ("kv cross", mf, hid, 2 * hid, cross),
+          ("ffn2 note/time", mq, pf, hid, nt_),
+          ("ffn1 note/time", mq, hid, pf, nt_),
+          ("o, q cross note/time", mq, hid, hid, nt_ + 2 * n_dec - 1),
+          ("qkv note/time", mq, hid, 3 * hid, nt_ - 1)]
+    return ([(label, "gemm_nt", *rest) for label, *rest in dx]
+            + [(label, "wgrad", *rest) for label, *rest in dw])
+
+
+# the paper batch-8 step: 8 windows x 128 frames x 256 bins / 88 notes
+PAPER_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 256, 512, 3, 3,
+                               3)
 
 
 def build(variants: dict, out_dir: Path) -> dict:
-    """``{name: library path or None}``: every variant's layer_fused.cu,
-    each in its own nvcc, all started together."""
+    """``{name: {"fwd": path, "bwd": path} or None}``: every variant's two
+    sources, each in its own nvcc, all started together."""
     from nylon_amt_tpu_torch import kernels
 
     nvcc = kernels.find_nvcc()
@@ -80,40 +151,64 @@ def build(variants: dict, out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in variants.items():
-        lib = out_dir / f"{name}.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(lib),
-               str(Path(src) / "layer_fused.cu")]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
+        for part, file in SOURCES.items():
+            lib = out_dir / f"{name}_{part}.so"
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(lib),
+                   str(Path(src) / file)]
+            procs[name, part] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for (name, part), (lib, proc) in procs.items():
         log = proc.communicate()[0]
-        (out_dir / f"{name}.log").write_text(log)
-        libs[name] = lib if proc.returncode == 0 else None
+        (out_dir / f"{name}_{part}.log").write_text(log)
         if proc.returncode:
-            print(f"{name}: build failed (exit {proc.returncode}); "
-                  f"{out_dir / name}.log:\n{log[-3000:]}", flush=True)
-    return libs
+            print(f"{name}: {SOURCES[part]} build failed (exit "
+                  f"{proc.returncode}); {out_dir / name}_{part}.log:\n"
+                  f"{log[-3000:]}", flush=True)
+        libs.setdefault(name, {})[part] = None if proc.returncode else lib
+    return {name: paths if all(paths.values()) else None
+            for name, paths in libs.items()}
+
+
+def wmma_plan(m: int, ka: int, n: int, sms: int) -> tuple[int, int]:
+    """The row chunks of the earlier ``wmma`` dW kernel: two waves of two
+    128 x 128 blocks an SM, rows a multiple of 32."""
+    tiles = -(-ka // 128) * -(-n // 128)
+    chunks = max(1, -(-(2 * 2 * sms) // tiles))
+    rows = -(-(-(-m // chunks)) // 32) * 32
+    return rows, -(-m // rows)
+
+
+class Refused(Exception):
+    """An entry point refused its arguments (a shape it does not take)."""
 
 
 class Lib:
-    """One variant's library: the four GEMM entry points on tensors."""
+    """One variant's libraries: the GEMM entry points on tensors."""
 
-    def __init__(self, path: Path):
+    def __init__(self, paths: dict, src: Path):
         from nylon_amt_tpu_torch import kernels
 
-        self.lib = ctypes.CDLL(str(path))
-        for e in ENTRIES:
-            getattr(self.lib, e).argtypes = kernels._SIGNATURES[e]
-            getattr(self.lib, e).restype = ctypes.c_int
-        self.lib.nylon_error_string.argtypes = [ctypes.c_int]
-        self.lib.nylon_error_string.restype = ctypes.c_char_p
+        self.libs = {}
+        for part, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            for e in ENTRIES[part]:
+                getattr(lib, e).argtypes = kernels._SIGNATURES[e]
+                getattr(lib, e).restype = ctypes.c_int
+            self.libs[part] = lib
+        # layer_fused.cu defines the message lookup
+        self.error_string = self.libs["fwd"].nylon_error_string
+        self.error_string.argtypes = [ctypes.c_int]
+        self.error_string.restype = ctypes.c_char_p
+        self.wmma = "wmma::" in (Path(src) / SOURCES["bwd"]).read_text()
 
-    def _call(self, name, *args):
-        status = getattr(self.lib, name)(*args)
+    def _call(self, part, name, *args):
+        status = getattr(self.libs[part], name)(*args)
+        if status == 1:  # cudaErrorInvalidValue: arguments it does not take
+            raise Refused(name)
         if status:
-            msg = self.lib.nylon_error_string(status).decode()
+            msg = self.error_string(status).decode()
             raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
     def bias(self, a, w, b, relu=0, site=None):
@@ -125,9 +220,9 @@ class Lib:
         args = (a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m,
                 n, k, relu)
         if site is None:
-            self._call("nylon_gemm_bias", *args, s)
+            self._call("fwd", "nylon_gemm_bias", *args, s)
         else:
-            self._call("nylon_gemm_bias_drop", *args, *site, s)
+            self._call("fwd", "nylon_gemm_bias_drop", *args, *site, s)
         return [out]
 
     def res_ln(self, a, w, b, res, g, be, site=None, pre=0, out=1):
@@ -144,14 +239,56 @@ class Lib:
         ptrs = (a.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
                 g.data_ptr(), be.data_ptr())
         if site is None and not pre:
-            self._call("nylon_gemm_res_ln", *ptrs, y.data_ptr(), m, n, k,
-                       1e-5, s)
+            self._call("fwd", "nylon_gemm_res_ln", *ptrs, y.data_ptr(), m, n,
+                       k, 1e-5, s)
         else:
-            self._call("nylon_gemm_res_ln_train", *ptrs,
+            self._call("fwd", "nylon_gemm_res_ln_train", *ptrs,
                        None if y is None else y.data_ptr(),
                        None if p is None else p.data_ptr(), m, n, k, 1e-5,
                        int(site is not None), *(site or _NO_SITE), s)
         return [t for t in (y, p) if t is not None]
+
+    def nt(self, dy, w, gate=None, addend=None, m1=None, m2=None):
+        import torch
+
+        from nylon_amt_tpu_torch.ops.layer_fused_train import _NO_SITE
+
+        m, n = dy.shape
+        kout = w.shape[0]
+        out = torch.empty((m, kout), dtype=dy.dtype, device=dy.device)
+        self._call("bwd", "nylon_gemm_nt", dy.data_ptr(), w.data_ptr(),
+                   out.data_ptr(), None if gate is None else gate.data_ptr(),
+                   None if addend is None else addend.data_ptr(), m, n, kout,
+                   int(m1 is not None), *(m1 or _NO_SITE),
+                   int(m2 is not None), *(m2 or _NO_SITE),
+                   torch.cuda.current_stream().cuda_stream)
+        return out
+
+    def wgrad(self, a, dy):
+        """(a^T dy, column sums of dy): the kernel over this variant's row
+        chunks, then the fixed-order reduction of the partials."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops.layer_fused_train import wgrad_plan
+
+        (m, ka), n = a.shape, dy.shape[1]
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        rows, chunks = (wmma_plan(m, ka, n, sms) if self.wmma else
+                        wgrad_plan(m, -(-ka // 128) * -(-n // 128), sms))
+        s = torch.cuda.current_stream().cuda_stream
+        f32 = dict(dtype=torch.float32, device=a.device)
+        # the wgmma kernel's bias sums: a part from each 128-row Ka tile
+        bias_rows = chunks * (1 if self.wmma else -(-ka // 128))
+        part, bias_part = torch.empty((chunks, ka, n), **f32), \
+            torch.empty((bias_rows, n), **f32)
+        self._call("bwd", "nylon_wgrad", a.data_ptr(), dy.data_ptr(),
+                   part.data_ptr(), bias_part.data_ptr(), m, ka, n, rows,
+                   chunks, s)
+        dw, db = torch.empty((ka, n), **f32), torch.empty((n,), **f32)
+        for src, dst in ((part, dw), (bias_part, db)):
+            self._call("bwd", "nylon_reduce_rows", src.data_ptr(),
+                       dst.data_ptr(), src.shape[0], dst.numel(), s)
+        return [dw, db]
 
 
 def inputs(m, k, n, seed=0):
@@ -167,6 +304,34 @@ def inputs(m, k, n, seed=0):
                 g=1.0 + 0.1 * r(n), be=0.1 * r(n))
 
 
+def bwd_inputs(case, seed=0):
+    """dX: dy [M, N], w [Kout, N], the side input [M, Kout] and the sites;
+    dW: a [M, Ka], dy [M, N]."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops.layer_fused_train import (
+        _SITE_EMB, _SITE_FFN_MID, _site)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    bf = torch.bfloat16
+    if case[0] != "nt":
+        _, m, ka, n = case
+        return dict(a=r(m, ka).to(bf), dy=r(m, n).to(bf))
+    _, m, n, kout, side, act1, act2 = case
+    x = dict(dy=r(m, n).to(bf), w=(r(kout, n) / math.sqrt(n)).to(bf))
+    if side:
+        x[side] = r(m, kout).to(bf)
+    if act1:
+        x["m1"] = _site(DROP_SEED, _SITE_FFN_MID, kout, RATE, bf)
+    if act2:
+        x["m2"] = _site(DROP_SEED, _SITE_EMB, kout, RATE, bf)
+    return x
+
+
 def _run(lib: Lib, case, x, site):
     kind, relu, pre, out = case[0], case[4], case[6], case[7]
     if kind == "bias":
@@ -175,59 +340,138 @@ def _run(lib: Lib, case, x, site):
                       site, pre, out)
 
 
-def check(libs: dict) -> dict:
-    """Hold every variant against the plain twins at CHECKS; returns
-    ``{name: passed}``. With two or more, also reports whether each
-    variant's outputs equal the first one's bit for bit."""
+def _run_bwd(lib: Lib, case, x):
+    if case[0] == "nt":
+        return [lib.nt(**x)]
+    return lib.wgrad(x["a"], x["dy"])
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32)
+
+
+def _equal(xs, ys) -> bool:
+    import torch
+
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(xs, ys))
+
+
+def _ulps(got, want) -> float:
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return (got.float() - want.float()).abs().max().item() / ulp
+
+
+def check(libs: dict) -> tuple[dict, dict, dict]:
+    """Hold every variant against the plain twins at CHECKS and BWD_CHECKS;
+    returns ``({name: passed the gates}, {name: ran with no launch error},
+    {name: forward cases whose bits differ from the first variant's})``,
+    and reports the backward's differing cases."""
     import torch
 
     from nylon_amt_tpu_torch.ops import layer_fused as lf
-    from nylon_amt_tpu_torch.ops.layer_fused_train import _site
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
 
     ok = {name: True for name in libs}
+    ran = {name: True for name in libs}
     differ = {name: 0 for name in libs}
-    for case in CHECKS:
-        kind, m, k, n, relu, drop, pre, out = case
-        x = inputs(m, k, n, seed=m + k + n)
-        site = _site(77, 3, n, 0.1, torch.bfloat16) if drop else None
-        if kind == "bias":
-            want = [lf.gemm_bias_plain(x["a"], x["w"], x["b"], relu, site)]
+    differ_bwd = {name: 0 for name in libs}
+    for case in CHECKS + BWD_CHECKS:
+        fwd = case in CHECKS
+        if fwd:
+            kind, m, k, n, relu, drop, pre, out = case
+            x = inputs(m, k, n, seed=m + k + n)
+            site = lft._site(DROP_SEED, 3, n, RATE, torch.bfloat16) if drop \
+                else None
+            if kind == "bias":
+                want = [lf.gemm_bias_plain(x["a"], x["w"], x["b"], relu,
+                                           site)]
+            else:
+                y, p = lf.gemm_res_ln_plain(x["a"], x["w"], x["b"], x["res"],
+                                            x["g"], x["be"], site)
+                want = ([y] if out else []) + ([p] if pre else [])
         else:
-            y, p = lf.gemm_res_ln_plain(x["a"], x["w"], x["b"], x["res"],
-                                        x["g"], x["be"], site)
-            want = ([y] if out else []) + ([p] if pre else [])
+            x = bwd_inputs(case, seed=sum(c for c in case[1:4]))
+            if case[0] == "nt":
+                want = [lft.gemm_nt_plain(**x)]
+            else:
+                want = lft.weight_grad_plain(x["a"], x["dy"])
+                truth = (x["a"].double().t() @ x["dy"].double(),
+                         x["dy"].double().sum(0))
         first = None
         for name, lib in libs.items():
             try:
-                got, again = _run(lib, case, x, site), _run(lib, case, x, site)
+                if fwd:
+                    got, again = _run(lib, case, x, site), \
+                        _run(lib, case, x, site)
+                else:
+                    got, again = _run_bwd(lib, case, x), \
+                        _run_bwd(lib, case, x)
                 torch.cuda.synchronize()
+            except Refused:
+                print(f"check {name} {case}: refused (a shape it does not "
+                      "take)", flush=True)
+                continue
             except RuntimeError as e:
                 print(f"check {name} {case}: {e}", flush=True)
-                ok[name] = False
+                ok[name] = ran[name] = False
                 continue
-            worst = 0.0
-            for g_, a_, w_ in zip(got, again, want):
-                top = w_.float().abs().max().item()
-                ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-                worst = max(worst, (g_.float() - w_.float()).abs().max()
-                            .item() / ulp)
-                ok[name] &= torch.equal(g_.view(torch.int16),
-                                        a_.view(torch.int16))
-            ok[name] &= worst <= ULPS
+            ok[name] &= _equal(got, again)
+            if case[0] == "wg":
+                dist = [(g_.double() - t).abs().max().item()
+                        for g_, t in zip(got, truth)]
+                lims = [2 * (p_.double() - t).abs().max().item()
+                        + 1e-6 * t.abs().max().item()
+                        for p_, t in zip(want, truth)]
+                ok[name] &= all(d <= lim for d, lim in zip(dist, lims))
+                what = ("dW, bias from float64: " + ", ".join(
+                    f"{d:.3e} (limit {lim:.3e})"
+                    for d, lim in zip(dist, lims)))
+            else:
+                worst = max(_ulps(g_, w_) for g_, w_ in zip(got, want))
+                ok[name] &= worst <= ULPS
+                what = f"{worst:.2f} ulps from the plain twin"
             if first is None:
                 first = got
-            elif not all(torch.equal(a_.view(torch.int16),
-                                     b_.view(torch.int16))
-                         for a_, b_ in zip(got, first)):
-                differ[name] += 1
-            print(f"check {name} {case}: {worst:.2f} ulps from the plain "
-                  f"twin", flush=True)
+            elif not _equal(got, first):
+                (differ if fwd else differ_bwd)[name] += 1
+            print(f"check {name} {case}: {what}", flush=True)
     for name in libs:
         print(f"check {name}: {'passed' if ok[name] else 'FAILED'}"
-              + (f"; {differ[name]} of {len(CHECKS)} cases differ from the "
-                 f"first variant's bits" if name != next(iter(libs)) else ""),
-              flush=True)
-    return ok
+              + (f"; forward: {differ[name]} of {len(CHECKS)} cases, "
+                 f"backward: {differ_bwd[name]} of {len(BWD_CHECKS)}, "
+                 "differ from the first variant's bits"
+                 if name != next(iter(libs)) else ""), flush=True)
+    return ok, ran, differ
+
+
+def fwd_sass(libs_paths: dict) -> dict:
+    """``{name: {forward GEMM instantiation: its SASS}}`` of each variant's
+    forward library (``cuobjdump -sass``), the names stripped of the
+    anonymous namespace's per-build tag."""
+    from nylon_amt_tpu_torch import kernels
+
+    tool = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    out = {}
+    for name, paths in libs_paths.items():
+        text = subprocess.run([str(tool), "-sass", str(paths["fwd"])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        funcs, cur = {}, None
+        for ln in text.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[1].strip()
+                cur = None
+                if any(k in fn for k in FWD_KERNELS):
+                    cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", fn)
+                    funcs[cur] = []
+            elif cur is not None and ln.strip():
+                funcs[cur].append(ln.strip())
+        out[name] = funcs
+    return out
 
 
 def cuda_ms(fn, iters=10, warmup=2) -> float:
@@ -246,10 +490,26 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _abba(names, fn) -> dict:
+    """Best of two times of each variant, in the order A B .. B A."""
+    ms = {}
+    for name in names + names[::-1]:
+        ms.setdefault(name, []).append(cuda_ms(lambda: fn(name)))
+    return {name: min(t) for name, t in ms.items()}
+
+
+def _line(label, shape, count, ms, bound, lib_txt):
+    print(f"time {label} {shape} x{count}: " + "; ".join(
+        f"{name} {t:.3f} ms ({bound / t:.1%} of the bound)"
+        for name, t in ms.items()) + f"; {lib_txt} ms; bound {bound:.3f} ms",
+          flush=True)
+
+
 def timing(libs: dict) -> None:
-    """Each variant at PAPER, in the order A B .. B A, beside bf16
-    torch.matmul of the same product (and + F.layer_norm for the LayerNorm
-    GEMM) and the bound; and the totals of one forward."""
+    """Each variant at PAPER and PAPER_STEP, in the order A B .. B A, beside
+    bf16 torch.matmul of the same product (and + F.layer_norm for the
+    LayerNorm GEMM) and the bound; and the totals of one forward and of
+    one step's 43 dX and 43 dW products."""
     import torch
     import torch.nn.functional as F
 
@@ -259,10 +519,7 @@ def timing(libs: dict) -> None:
         x = inputs(m, k, n)
         case = ("ln" if label.startswith("ln") else "bias", m, k, n, relu, 0,
                 0, 1)
-        ms = {}
-        for name in names + names[::-1]:
-            ms.setdefault(name, []).append(
-                cuda_ms(lambda: _run(libs[name], case, x, None)))
+        ms = _abba(names, lambda name: _run(libs[name], case, x, None))
         mm = cuda_ms(lambda: x["a"] @ x["w"])
         lib = f"matmul {mm:.3f}"
         ln = case[0] == "ln"
@@ -273,18 +530,47 @@ def timing(libs: dict) -> None:
                                      (n,), g16, b16, 1e-5)), ".3f")
         nbytes = 2 * (m * k + k * n + m * n) + (2 * m * n if ln else 0)
         bound = max(nbytes / HBM_BPS, 2 * m * k * n / BF16_FLOPS) * 1e3
-        print(f"time {label} [{m},{k},{n}] x{count}: " + "; ".join(
-            f"{name} {min(t):.3f} ms ({bound / min(t):.1%} of the bound)"
-            for name, t in ms.items())
-              + f"; {lib} ms; bound {bound:.3f} ms", flush=True)
+        _line(label, f"[{m},{k},{n}]", count, ms, bound, lib)
         for name, t in ms.items():
-            total[name] += count * min(t)
+            total[name] += count * t
         total["bound"] += count * bound
         total["matmul"] += count * mm
         del x
         torch.cuda.empty_cache()
     print("time of one forward's 43 GEMMs (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+    totals = {kind: dict.fromkeys(names + ["bound", "matmul"], 0.0)
+              for kind in ("gemm_nt", "wgrad")}
+    for label, kind, m, k, n, *rest in PAPER_STEP:
+        count = rest[-1]
+        if kind == "gemm_nt":
+            x = bwd_inputs(("nt", m, k, n, *rest[:3]))
+            side = 1 if rest[0] else 0
+            ms = _abba(names, lambda name: libs[name].nt(**x))
+            mm = cuda_ms(lambda: x["dy"] @ x["w"].t())
+            nbytes = 2 * (m * k + n * k + m * n * (1 + side))
+            shape = f"[{m},{k}->{n}] " + " ".join(
+                v for v, on in ((rest[0], rest[0]), ("m1", rest[1]),
+                                ("m2", rest[2])) if on)
+        else:
+            x = bwd_inputs(("wg", m, k, n))
+            ms = _abba(names, lambda name: libs[name].wgrad(x["a"], x["dy"]))
+            mm = cuda_ms(lambda: (x["a"].t() @ x["dy"], x["dy"].sum(0)))
+            nbytes = 2 * (m * k + m * n) + 4 * (k * n + n)
+            shape = f"[{m},{k}x{n}]"
+        bound = max(nbytes / HBM_BPS, 2 * m * k * n / BF16_FLOPS) * 1e3
+        _line(f"{kind} {label}", shape, count, ms, bound,
+              f"matmul {mm:.3f}")
+        tot = totals[kind]
+        for name, t in ms.items():
+            tot[name] += count * t
+        tot["bound"] += count * bound
+        tot["matmul"] += count * mm
+        del x
+        torch.cuda.empty_cache()
+    for kind, tot in totals.items():
+        print(f"time of one step's 43 {kind} products (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
 
 
 def main(argv=None) -> int:
@@ -292,6 +578,9 @@ def main(argv=None) -> int:
     ap.add_argument("variants", nargs="+", metavar="NAME=CSRC_DIR")
     ap.add_argument("--out", default="build/gemm_ab")
     ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--same", action="store_true",
+                    help="fail unless every variant's forward GEMMs give the "
+                         "first variant's bits and SASS")
     args = ap.parse_args(argv)
     import torch
 
@@ -304,12 +593,40 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build(variants, Path(args.out))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    libs = {name: Lib(path) for name, path in built.items() if path}
-    ok = check(libs)
-    good = {name: lib for name, lib in libs.items() if ok[name]}
+    libs = {name: Lib(paths, variants[name])
+            for name, paths in built.items() if paths}
+    ok, ran, differ = check(libs)
+    same = True
+    if args.same and len(libs) > 1:
+        sass = fwd_sass({name: built[name] for name in libs})
+        first = next(iter(sass))
+        for name, funcs in sass.items():
+            if name == first:
+                continue
+            alike = sum(funcs.get(k) == v for k, v in sass[first].items())
+            same &= (alike == len(sass[first]) == len(funcs)
+                     and not differ[name])
+            print(f"same {name}: forward GEMM SASS identical to {first}'s in "
+                  f"{alike} of {len(sass[first])} instantiations; forward "
+                  f"outputs differ in {differ[name]} of {len(CHECKS)} cases",
+                  flush=True)
+            for k, v in sass[first].items():
+                w = funcs.get(k, [])
+                if w != v:
+                    i = next((i for i, (x, y) in enumerate(zip(v, w))
+                              if x != y), min(len(v), len(w)))
+                    print(f"same {name}: {k[:60]}: {len(v)} vs {len(w)} "
+                          f"lines, first difference at line {i}: "
+                          f"{v[i] if i < len(v) else ''!r} vs "
+                          f"{w[i] if i < len(w) else ''!r}", flush=True)
+    # every variant that ran is timed; the first (the one under test) must
+    # also pass the gates (a reference, e.g. the parent's kernels, is held
+    # to them and reported)
+    good = {name: lib for name, lib in libs.items() if ran[name]}
     if good and not args.no_time:
         timing(good)
-    return 0 if len(good) == len(variants) else 1
+    first_ok = bool(libs) and ok[next(iter(libs))]
+    return 0 if len(good) == len(variants) and first_ok and same else 1
 
 
 if __name__ == "__main__":
