@@ -9,10 +9,12 @@ non-zero and never prints the last line):
 
 (a) build the kernels of ``nylon_amt_tpu_torch/csrc`` with nvcc (sm_90a);
     the wgmma / TMA GEMMs of ``csrc/layer_fused.cu`` (``gemm_bias_kernel``,
-    ``gemm_res_ln_kernel``) and ``csrc/layer_fused_train.cu``
-    (``gemm_nt_kernel``, ``wgrad_kernel``) spill nothing and use no stack
-    in ``ptxas -v``, and where the toolkit has ``cuobjdump`` their SASS
-    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions;
+    ``gemm_res_ln_kernel``), ``csrc/layer_fused_train.cu``
+    (``gemm_nt_kernel``, ``wgrad_kernel``) and ``csrc/layer_fused_f32.cu``
+    (``gemm_bias_f32_kernel``, ``gemm_res_ln_f32_kernel``: 3xTF32) spill
+    nothing and use no stack in ``ptxas -v``, and where the toolkit has
+    ``cuobjdump`` their SASS holds HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio and on a quiet variant of it (see the check), and the
     kernel's and the plain version's times;
@@ -99,11 +101,14 @@ non-zero and never prints the last line):
     batch 32 and K7-K9 forward and backward at batch 8, at the default and
     the paper widths, under the same limits (ReLU gate flips aside), with
     (h)'s stage hook (every backward kernel on the twin's inputs within
-    1e-5 of the twin's stage); times beside f32 ``torch.matmul`` of the
-    layer's GEMMs; (n.3) K13 at head_dim 32 in bf16 and f32 (quantizers
-    bit for bit, (k)'s gates, and in f32 each kernel on the plain
-    version's own codes), and K13 in f32 at the paper widths (head_dim 64)
-    under the same gates; (n.4) the engine's
+    1e-5 of the twin's stage); K7 also as training runs it on the stem's
+    output (its QKV on FFMA), and at rate 0 with its float64 distance;
+    K2-K5's and the plain f32 version's
+    distances from a float64 truth (``layer64``); times beside f32
+    ``torch.matmul`` of the layer's GEMMs; (n.3) K13 at head_dim 32 in
+    bf16 and f32 (quantizers bit for bit, (k)'s gates, and in f32 each
+    kernel on the plain version's own codes), and K13 in f32 at the paper
+    widths (head_dim 64) under the same gates; (n.4) the engine's
     batch-32 f32 forward of ``Config()`` and ``paper_scale()`` against the
     plain f32 forward (A heads within 2e-5, B heads within 2e-4 of max(1,
     max |plain|)), the default int8 forward under (k)'s posterior gates,
@@ -131,6 +136,18 @@ non-zero and never prints the last line):
     distance + 1e-6 max |truth|, two runs bit-identical; per shape the
     kernel's time, its bound, TB/s and share of the bound, and bf16
     ``torch.matmul`` of the same product; the step's sums.
+(q) the f32 forward GEMMs alone (``gemm_bias_f32_kernel``,
+    ``gemm_res_ln_f32_kernel`` of ``csrc/layer_fused_f32.cu``: 3xTF32 on
+    ``wgmma``) at every (M, K, N) and variant of (o) in float32, and the
+    stem layer's QKV GEMM on FFMA (``gemm_bias_ffma_f32_kernel``) at its
+    shapes: within 2e-5 of max(1, max |plain f32 twin|), ``pre_out``
+    likewise, two runs bit-identical, with the kernel's and the twin's
+    distances from a float64 truth; per shape the kernel's time beside its
+    bound (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s; FFMA's
+    at 67 TFLOP/s), the FFMA bound, f32 ``torch.matmul`` (IEEE f32) and
+    the plain twin; the three kernels' rows of the JSON line: the paper
+    batch-32 forward's shapes summed over its launches, the launches
+    those that (n.4)'s paper f32 forward counted.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -316,14 +333,18 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
     for name, ms, calls in rows[:top]:
         log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
             f"x{calls}")
-    gemm = [(ms, calls) for name, ms, calls in rows
-            if "::gemm_bias_kernel<" in name or "::gemm_res_ln_kernel<" in name]
-    if gemm:
-        ms = sum(r[0] for r in gemm)
-        log(f"({phase})   bf16 layer GEMMs of csrc/layer_fused.cu "
-            f"(gemm_bias_kernel, gemm_res_ln_kernel): {ms:.3f} ms, "
-            f"{ms / busy:.1%} of device-busy, {sum(r[1] for r in gemm)} "
-            f"launches per {what}")
+    for dt, src, names in (
+            ("bf16", "layer_fused.cu", ("gemm_bias_kernel",
+                                        "gemm_res_ln_kernel")),
+            ("f32", "layer_fused_f32.cu", ("gemm_bias_f32_kernel",
+                                           "gemm_res_ln_f32_kernel"))):
+        gemm = [(ms, calls) for name, ms, calls in rows
+                if any(f"::{k}<" in name for k in names)]
+        if gemm:
+            ms = sum(r[0] for r in gemm)
+            log(f"({phase})   {dt} layer GEMMs of csrc/{src} "
+                f"({', '.join(names)}): {ms:.3f} ms, {ms / busy:.1%} of "
+                f"device-busy, {sum(r[1] for r in gemm)} launches per {what}")
     attn = [(name, ms, calls) for name, ms, calls in rows
             if "attn_fwd_" in name or "attn_bwd_" in name]
     if attn:
@@ -446,6 +467,65 @@ def mm_ms(gemms, dev, dtype=torch.float32) -> float:
         return cuda_ms(lambda: [a @ b for a, b in ops], iters=3)
 
 
+def _ln64(x, g, b):
+    m = x.mean(-1, keepdim=True)
+    var = (x - m).square().mean(-1, keepdim=True)
+    return (x - m) / torch.sqrt(var + 1e-5) * g + b
+
+
+def _mha64(q, k, v, heads):
+    n, lq, hid = q.shape
+    lk, d = k.shape[1], hid // heads
+
+    def split(t, L):
+        return t.reshape(n, L, heads, d).transpose(1, 2)
+
+    s = split(q, lq) @ split(k, lk).transpose(-1, -2) / math.sqrt(d)
+    o = torch.softmax(s, -1) @ split(v, lk)
+    return o.transpose(1, 2).reshape(n, lq, hid)
+
+
+def layer64(kind: str, xs, p, heads: int, chunk: int = 256):
+    """The float64 truth of a layer forward (kind "enc", "dec_zero" or
+    "dec") on ``xs`` ((x,) or (trg, enc)) and the f32 weights ``p``: the
+    plain layer's op sequence with no rounding, ``chunk`` sequences at a
+    time. Returns the f64 output."""
+    P = {f: t.double() for f, t in zip(p._fields, p)}
+    hid = xs[0].shape[-1]
+
+    def lin(x, w, b):
+        return x @ P[w] + P[b]
+
+    def ffn_tail(attn, res):
+        y = _ln64(res + attn, P["g"], P["b"])
+        return _ln64(y + lin(torch.relu(lin(y, "w1", "b1")), "w2", "b2"),
+                     P["g"], P["b"])
+
+    def one(*x):
+        x = [t.double() for t in x]
+        if kind == "enc":
+            q, k, v = lin(x[0], "wqkv", "bqkv").split(hid, -1)
+            return ffn_tail(lin(_mha64(q, k, v, heads), "wo", "bo"), x[0])
+        trg, enc = x
+        if kind == "dec":
+            q, k, v = lin(trg, "wsqkv", "bsqkv").split(hid, -1)
+            trg = _ln64(trg + lin(_mha64(q, k, v, heads), "wso", "bso"),
+                        P["g"], P["b"])
+        k, v = lin(enc, "wkv", "bkv").split(hid, -1)
+        attn = _mha64(lin(trg, "wq", "bq"), k, v, heads)
+        return ffn_tail(lin(attn, "wo", "bo"), trg)
+
+    n = xs[0].shape[0]
+    return torch.cat([one(*(x[i:i + chunk] for x in xs))
+                      for i in range(0, n, chunk)])
+
+
+def f64_dist(got, truth) -> float:
+    """max |got - truth| over max(1, max |truth|) (the f32 gates' scale)."""
+    top = max(1.0, truth.abs().max().item())
+    return (got.double() - truth).abs().max().item() / top
+
+
 def layer_gemms(kind: str, n: int, lq: int, lk: int, hid: int,
                 pf: int) -> list:
     """The (M, K, N) of a layer forward's projections."""
@@ -529,18 +609,20 @@ def _train_layers(model, dev, dtype=torch.bfloat16) -> dict:
             det(ft._pack_dec(dec.layers_freq[0], True)), False)}
 
 
-def _layer_fns(kind: str, emb: bool, heads: int):
+def _layer_fns(kind: str, emb: bool, heads: int, stem: bool = False):
     """(kernel fwd, plain fwd, kernel bwd, plain bwd) of a layer kind, as
-    functions of (inputs, params, rate[, dz[, stage hook | taps dict]])."""
+    functions of (inputs, params, rate[, dz[, stage hook | taps dict]]);
+    ``stem``: the K7 layer that the stem feeds."""
     from nylon_amt_tpu_torch.ops import layer_fused_train as lt
 
     if kind == "enc":
         return (lambda xs, p, r: lt.encoder_layer_train_cuda(
-                    xs[0], p, DROP_SEED, heads, r, emb),
+                    xs[0], p, DROP_SEED, heads, r, emb, stem=stem),
                 lambda xs, p, r: lt.encoder_layer_train_plain(
                     xs[0], p, DROP_SEED, heads, r, emb),
                 lambda xs, p, r, dz, tap=None: lt.encoder_layer_train_bwd_cuda(
-                    xs[0], p, DROP_SEED, dz, heads, r, emb, tap=tap),
+                    xs[0], p, DROP_SEED, dz, heads, r, emb, tap=tap,
+                    stem=stem),
                 lambda xs, p, r, dz, taps=None: lt.encoder_layer_train_bwd_plain(
                     xs[0], p, DROP_SEED, dz, heads, r, emb, taps))
     fwd_plain = (lt.decoder_layer_train_plain if kind == "dec"
@@ -2144,9 +2226,12 @@ def check_attention_f32(dev, heads: int, hid: int) -> dict:
 
 def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
     """(n.2): K2-K5 in f32 at the batch-32 shapes of ``cfg`` (K2 on the
-    real windows ``spec``) against their plain f32 versions, within
-    F32_OUT_REL; times beside the plain version, an f32 ``torch.matmul``
-    of the layer's GEMMs and the bound. Returns the times."""
+    real windows ``spec``; the engine's TF32 pairs of ``packed``) against
+    their plain f32 versions, within F32_OUT_REL, with the kernel's and
+    the plain version's distances from a float64 truth (``layer64``; K2's
+    from the plain stem's output); times beside the plain version, an f32
+    ``torch.matmul`` of the layer's GEMMs and the bound. Returns the
+    times."""
     from nylon_amt_tpu_torch.ops import layer_fused as lf
     from nylon_amt_tpu_torch.ops.precision import full_f32
 
@@ -2160,47 +2245,59 @@ def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
         return torch.randn(shape, generator=g, device=dev)
 
     def stem(fn):
-        return lambda s, p, heads: fn(s, packed.k_eff, packed.b_eff,
-                                      packed.pos_freq, p, heads, n_frame,
-                                      torch.float32)
+        return lambda s, p, heads, **kw: fn(s, packed.k_eff, packed.b_eff,
+                                            packed.pos_freq, p, heads,
+                                            n_frame, torch.float32, **kw)
 
     spec_t = spec.transpose(1, 2).contiguous()
-    checks = {  # kernel, plain, inputs, params, heads, (kind, n, lq, lk)
+    pairs = packed.tf32
+    checks = {  # kernel, plain, inputs, params, TF32 pairs, heads, (kind,
+        # n, lq, lk)
         "encoder_layer_with_stem": (
             stem(lf.encoder_layer_with_stem),
             stem(lf.encoder_layer_with_stem_plain), lambda: (spec_t,),
-            packed.enc[0], m.enc_head, ("enc", n_f, 256, 256)),
+            packed.enc[0], pairs["enc"][0], m.enc_head,
+            ("enc", n_f, 256, 256)),
         "encoder_layer": (lf.encoder_layer, lf.encoder_layer_plain,
                           lambda: (act(n_f, 256, hid),), packed.enc[1],
-                          m.enc_head, ("enc", n_f, 256, 256)),
+                          pairs["enc"][1], m.enc_head, ("enc", n_f, 256, 256)),
         "encoder_layer/time": (lf.encoder_layer, lf.encoder_layer_plain,
                                lambda: (act(n_t, n_frame, hid),),
-                               packed.time[0], m.dec_head,
+                               packed.time[0], pairs["time"][0], m.dec_head,
                                ("enc", n_t, n_frame, n_frame)),
         "decoder_layer_zero": (lf.decoder_layer_zero,
                                lf.decoder_layer_zero_plain,
                                lambda: (act(n_f, 88, hid),
                                         act(n_f, 256, hid)),
-                               packed.dec_zero, m.dec_head,
+                               packed.dec_zero, pairs["dec_zero"], m.dec_head,
                                ("dec_zero", n_f, 88, 256)),
         "decoder_layer": (lf.decoder_layer, lf.decoder_layer_plain,
                           lambda: (act(n_f, 88, hid), act(n_f, 256, hid)),
-                          packed.dec[0], m.dec_head, ("dec", n_f, 88, 256))}
+                          packed.dec[0], pairs["dec"][0], m.dec_head,
+                          ("dec", n_f, 88, 256))}
     results = {}
     for name in names:
-        fn, plain, make, p, heads, (kind, n, lq, lk) = checks[name]
+        fn, plain, make, p, tf32, heads, (kind, n, lq, lk) = checks[name]
         xs = make()
-        got = fn(*xs, p, heads)
+        got = fn(*xs, p, heads, tf32=tf32)
         with full_f32():
             want = plain(*xs, p, heads)
+            # the float64 truth of the layer (K2's from the plain stem)
+            x64 = ((lf.stem_embed_plain(spec_t, packed.k_eff, packed.b_eff,
+                                        packed.pos_freq, n_frame,
+                                        torch.float32),)
+                   if "stem" in name else xs)
+        truth = layer64(kind, x64, p, heads)
         e = rel_err(got, want, 1.0)
+        e64, p64 = f64_dist(got, truth), f64_dist(want, truth)
         if not (got.dtype == torch.float32 and e <= F32_OUT_REL):
             raise AssertionError(f"(n) f32 {name} {tag}: {got.dtype}, "
                                  f"{e:.2e} of max(1, |plain f32|) > "
-                                 f"{F32_OUT_REL}")
+                                 f"{F32_OUT_REL}; from float64 kernel "
+                                 f"{e64:.2e}, plain f32 {p64:.2e}")
         held(name, torch.float32, hid // heads)
-        del want
-        ms = cuda_ms(lambda: fn(*xs, p, heads))
+        del want, truth, x64
+        ms = cuda_ms(lambda: fn(*xs, p, heads, tf32=tf32))
         with full_f32():
             plain_ms = cuda_ms(lambda: plain(*xs, p, heads), iters=2)
         stem_flops = 2 * n * 256 * n_proc * hid if "stem" in name else 0
@@ -2208,14 +2305,20 @@ def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
         if stem_flops:
             weights += [packed.k_eff, packed.b_eff, packed.pos_freq]
         flops = layer_flops(kind, n, lq, lk, hid, pf) + stem_flops
-        pv = attn_product_flops(kind, n, lq, lk, hid)  # 3xTF32
+        # priced as the products run: the stem, the stem layer's QKV and
+        # the attention scores on FFMA; the other GEMMs and the PV 3xTF32
+        ffma = (stem_flops + attn_product_flops(kind, n, lq, lk, hid)
+                + (2 * n * lq * hid * 3 * hid if stem_flops else 0))
         lib = mm_ms(layer_gemms(kind, n, lq, lk, hid, pf), dev)
         results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                              library_ms=lib, shape=[n, lq, lk, hid],
+                             f64_dist=e64, plain_f64_dist=p64,
                              **bound(nbytes(*xs, *weights, got),
-                                     f32_flops=flops - pv, tf32x3_flops=pv))
+                                     f32_flops=ffma,
+                                     tf32x3_flops=flops - ffma))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}: "
-            f"{e:.2e} of max(1, |plain f32|) (<= {F32_OUT_REL}); kernel "
+            f"{e:.2e} of max(1, |plain f32|) (<= {F32_OUT_REL}); from "
+            f"float64 kernel {e64:.2e}, plain f32 {p64:.2e}; kernel "
             f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms, f32 matmul of its "
             f"GEMMs {lib:.3f} ms, bound {results[name]['bound_ms']:.3f} ms "
             f"({results[name]['bound_by']})")
@@ -2224,25 +2327,74 @@ def check_layers_f32(cfg, packed, spec, dev, names, tag: str) -> dict:
     return results
 
 
-def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
+def _stem_input(model, spec):
+    """The f32 training forward's input to its first layer
+    (``models/fused_train.py::train_forward``): the stem's output on the
+    first TRAIN_BATCH real windows ``spec``, scaled, plus the position
+    embedding."""
+    from nylon_amt_tpu_torch.ops.layer_fused import fused_stem, sqrt_hid
+
+    cfg, enc = model.config, model.encoder_spec2midi
+    n_frame, hid = cfg.input.num_frame, cfg.model.hid_dim
+    with torch.no_grad():
+        k_eff, b_eff = enc.stem_kernel(cfg)
+        emb = fused_stem(spec[:TRAIN_BATCH], k_eff, b_eff, torch.float32)
+        x = (emb.reshape(TRAIN_BATCH * n_frame, -1, hid)
+             * sqrt_hid(hid, torch.float32).to(spec.device)
+             + enc.pos_embedding_freq.weight.float())
+    return x.contiguous()
+
+
+def check_train_layers_f32(model, cfg, spec, dev, names,
+                           tag: str) -> dict:
     """(n.2): K7, K8, K9 in f32 forward and backward at the batch-8 shapes
     of ``cfg`` against their plain f32 twins: the forward within
     F32_OUT_REL, input and weight gradients within F32_GRAD_REL,
     bit-identical backward runs, and (h)'s stage hook: every backward
     kernel fed the twin's own intermediates within F32_STAGE_REL of the
-    twin's same stage, its weight gradients within STAGE_WGRAD_REL. Returns
-    the times."""
+    twin's same stage, its weight gradients within STAGE_WGRAD_REL.
+    "encoder_layer_train/stem" is K7 as training runs it on the stem's
+    output of the real windows ``spec`` (its QKV on FFMA); at rate 0 it is
+    also held within F32_OUT_REL of the plain twin, with both distances
+    from the float64 layer printed; its gradients are held against a
+    float64 truth of the twin instead (within twice the twin's own
+    distance + 1e-6, as (p) holds dW), and its stage hook over every
+    stage but the attention backward's, whose distance is printed.
+    Returns the times."""
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
     m = cfg.model
     hid, pf = m.hid_dim, m.pf_dim
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     layers = _train_layers(model, dev, torch.float32)
+    _, _, p0, _ = layers["encoder_layer_train"]
+    layers["encoder_layer_train/stem"] = ("enc", (_stem_input(model, spec),),
+                                          p0, True)
     results = {}
     for name in names:
         kind, xs, p, emb = layers[name]
+        stem = name.endswith("/stem")
         heads = m.enc_head if kind == "enc" else m.dec_head
-        k_fwd, p_fwd, k_bwd, p_bwd = _layer_fns(kind, emb, heads)
+        k_fwd, p_fwd, k_bwd, p_bwd = _layer_fns(kind, emb, heads, stem)
         n, lq, _ = xs[0].shape
         lk = xs[-1].shape[1]
+        zero64 = ""
+        if stem:  # rate 0: the inference layer's function, and its truth
+            got, want = k_fwd(xs, p, 0.0), p_fwd(xs, p, 0.0)
+            e0 = rel_err(got, want, 1.0)
+            with full_f32():
+                truth = layer64(kind, xs, p, heads)
+            e64, p64 = f64_dist(got, truth), f64_dist(want, truth)
+            if not e0 <= F32_OUT_REL:
+                raise AssertionError(
+                    f"(n) f32 {name} {tag} rate 0: {e0:.2e} of max(1, "
+                    f"|plain f32|) > {F32_OUT_REL}; from float64 kernel "
+                    f"{e64:.2e}, plain f32 {p64:.2e}")
+            results[name + "/rate0"] = dict(max_abs_err=e0, f64_dist=e64,
+                                            plain_f64_dist=p64)
+            zero64 = (f"; rate 0: {e0:.2e} of max(1, |plain f32|), from "
+                      f"float64 kernel {e64:.2e}, plain f32 {p64:.2e}")
+            del got, want, truth
         got = k_fwd(xs, p, RATE)
         want = p_fwd(xs, p, RATE)
         e = rel_err(got, want, 1.0)
@@ -2278,16 +2430,43 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
         e_in = max((a[clean] - b[clean]).abs().max().item()
                    / b.abs().max().item() for a, b in zip(k_in, p_in))
         e_w = max(rel_err(a, b) for a, b in zip(k_w, p_w))
-        if not (e <= F32_OUT_REL and e_in <= F32_GRAD_REL
-                and near <= near_limit
-                and (n_flips > 0 or e_w <= F32_GRAD_REL)):
+        grads_held = e_in <= F32_GRAD_REL and (n_flips > 0
+                                               or e_w <= F32_GRAD_REL)
+        if stem:
+            # On the stem's output (scores near 2^14) the gradients are
+            # held against a float64 truth of the plain twin, as (p) holds
+            # dW: the kernels' distance within twice the plain f32 twin's
+            # own + 1e-6, input grads on the sequences with no flip
+            with full_f32():
+                t_in, t_w = _split_bwd(kind, p_bwd(
+                    [x.double() for x in xs],
+                    type(p)(*(t.double() for t in p)), RATE, dz.double()))
+            d64 = {}
+            for label, got_, plain_, truth_ in (
+                    ("input", k_in, p_in, t_in), ("weight", k_w, p_w, t_w)):
+                sel = ((lambda t: t[clean]) if label == "input"
+                       else (lambda t: t))
+                d64[label] = [max(rel_err(sel(a), sel(t)) for a, t in
+                                  zip(got_, truth_)),
+                              max(rel_err(sel(a), sel(t)) for a, t in
+                                  zip(plain_, truth_))]
+            grads_held = all(k64 <= 2 * p64_ + 1e-6
+                             for k64, p64_ in d64.values())
+            zero64 += ("; grads from float64 (kernel, plain f32): "
+                       + ", ".join(f"{k} {a:.2e}, {b:.2e}"
+                                   for k, (a, b) in d64.items()))
+            results[name + "/grads64"] = {
+                f"{k}_{w}": v for k, (a, b) in d64.items()
+                for w, v in (("f64_dist", a), ("plain_f64_dist", b))}
+            del t_in, t_w
+        if not (e <= F32_OUT_REL and grads_held and near <= near_limit):
             raise AssertionError(
                 f"(n) f32 {name} {tag}: fwd {e:.2e} (<= {F32_OUT_REL}), "
                 f"input grads {e_in:.2e} on the {int(clean.sum())} of {n} "
                 f"sequences with no ReLU gate flip, weight grads {e_w:.2e} "
                 f"(<= {F32_GRAD_REL} when nothing flipped) from the plain "
                 f"f32 twin; {n_flips} flips, within {near:.2e} of 0 (<= "
-                f"{near_limit:.2e})")
+                f"{near_limit:.2e}){zero64}")
         del own, mine, flips, u
         seen = {}
 
@@ -2305,6 +2484,12 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
             raise AssertionError(f"(n) f32 {name} bwd: the stage hook saw "
                                  f"{sorted(seen)}, {STAGES[kind]} expected")
         stage = {k: rel_err(a, b) for k, (a, b) in seen.items()}
+        if stem:
+            # the f32 attention backward on the stem's scores (near 2^14)
+            # reads past F32_STAGE_REL from the twin's: printed, and the
+            # end-to-end gradients held to float64 above
+            zero64 += (f"; attention backward on the twin's inputs "
+                       f"{stage.pop('dqkv'):.2e} from the twin's dqkv")
         worst = max(stage, key=stage.get)
         sw = max(rel_err(a, b) for a, b in zip(s_w, p_w))
         if not (stage[worst] <= F32_STAGE_REL and sw <= STAGE_WGRAD_REL):
@@ -2320,22 +2505,27 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
         bwd_ms = cuda_ms(lambda: k_bwd(xs, p, RATE, dz), iters=3)
         bwd_plain_ms = cuda_ms(lambda: p_bwd(xs, p, RATE, dz), iters=1)
         flops = layer_flops(kind, n, lq, lk, hid, pf)
-        # a = one attention product: the forward's scores on FFMA, its PV
-        # as 3xTF32; the backward recomputes the forward (GEMMs, scores,
-        # PV) and adds the GEMMs' dX and dW and 5 attention products
+        # a = one attention product. The forward: its GEMMs and PV as
+        # 3xTF32, its scores on FFMA. The backward recomputes the forward
+        # and adds 5 attention products (3xTF32) and the GEMMs' dX and dW
+        # (FFMA). The layer the stem feeds has its QKV on FFMA, forward
+        # and recompute.
         a = attn_product_flops(kind, n, lq, lk, hid)
+        gemm = flops - 2 * a
+        qkv = 2 * n * lq * hid * 3 * hid if stem else 0
         w_bytes, io_bytes = nbytes(*p), nbytes(*xs)
         gemms = layer_gemms(kind, n, lq, lk, hid, pf)
         results[name] = dict(
             max_abs_err=e, ms=fwd_ms, plain_ms=fwd_plain_ms,
             library_ms=mm_ms(gemms, dev), shape=[n, lq, lk, hid],
-            **bound(io_bytes + w_bytes + nbytes(got), f32_flops=flops - a,
-                    tf32x3_flops=a))
+            **bound(io_bytes + w_bytes + nbytes(got), f32_flops=a + qkv,
+                    tf32x3_flops=gemm - qkv + a))
         results[bwd_name(name)] = dict(
             max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
             library_ms=mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
             **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
-                    f32_flops=3 * (flops - 2 * a) + a, tf32x3_flops=6 * a))
+                    f32_flops=2 * gemm + a + qkv,
+                    tf32x3_flops=gemm - qkv + 6 * a))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
             f"{RATE}: fwd {e:.2e}, input grads {e_in:.2e} ({n_flips} ReLU "
             f"gates flipped, within {near:.2e} of 0; {int(clean.sum())} of "
@@ -2347,7 +2537,7 @@ def check_train_layers_f32(model, cfg, dev, names, tag: str) -> dict:
             f"{results[name]['library_ms']:.3f}, bound "
             f"{results[name]['bound_ms']:.3f}), bwd kernel {bwd_ms:.3f} ms "
             f"(plain {bwd_plain_ms:.3f}, bound "
-            f"{results[bwd_name(name)]['bound_ms']:.3f})")
+            f"{results[bwd_name(name)]['bound_ms']:.3f}){zero64}")
         del xs, got, kb, k_in, k_w, dz
         torch.cuda.empty_cache()
     return results
@@ -2401,9 +2591,18 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
         del x, v, q, s, vt, sv, pv, psv
 
         def stem(fn, dt=dt, packed=packed):
-            return lambda s_, p, heads: fn(s_, packed.k_eff, packed.b_eff,
-                                           packed.pos_freq, p, heads,
-                                           n_frame, dt)
+            return lambda s_, p, heads, **kw: fn(
+                s_, packed.k_eff, packed.b_eff, packed.pos_freq, p, heads,
+                n_frame, dt, **kw)
+
+        pairs = packed.tf32  # float32: the TF32 pairs the exact layers read
+        exact_kw = {} if pairs is None else {
+            name: {"tf32": tf32} for name, tf32 in (
+                ("encoder_layer_with_stem_q8", pairs["enc"][0]),
+                ("encoder_layer_q8", pairs["enc"][1]),
+                ("encoder_layer_q8/time", pairs["time"][0]),
+                ("decoder_layer_zero_q8", pairs["dec_zero"]),
+                ("decoder_layer_q8", pairs["dec"][0]))}
 
         checks = {  # kernel, plain q8, exact kernel, inputs, p8, p, kind
             "encoder_layer_with_stem_q8": (
@@ -2436,7 +2635,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
             got = fn(*xs, p8, heads)
             with full_f32():
                 want = plain(*xs, p8, heads)
-            ref = exact(*xs, p, heads)
+            ref = exact(*xs, p, heads, **exact_kw.get(name, {}))
             torch.cuda.synchronize()
             if got.dtype != dt or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"(n) {label} {name}: {got.dtype}, or "
@@ -2562,12 +2761,30 @@ def check_q8_kernels_f32(packed8, hid: int, heads: int, pf: int, dev,
             f"{Q8_F32_REL} (max {d.max().item():.2e})")
 
 
+def f32_gemm_launches(m, train: bool = False) -> dict:
+    """Launches of the float32 GEMM kernels (``kernels.launches``
+    "gemm_bias_f32", "gemm_res_ln_f32", and "gemm_bias_ffma_f32": the stem
+    layer's QKV) in one engine forward of the model config ``m`` (stage 2
+    on), or with ``train`` in one fused train step (each layer's forward
+    and its backward's recompute)."""
+    enc, dec = m.enc_layer, m.dec_layer
+    if train:
+        layers = enc + dec                          # K7: frequency + time
+        return {"gemm_bias_f32": 2 * (2 * layers - 1 + 3 + 4 * (dec - 1)),
+                "gemm_res_ln_f32": 2 * (2 * layers + 2 + 3 * (dec - 1)),
+                "gemm_bias_ffma_f32": 2}
+    return {"gemm_bias_f32": 1 + 2 * (enc - 1) + 3 + 4 * (dec - 1) + 2 * dec,
+            "gemm_res_ln_f32": 2 + 2 * (enc - 1) + 2 + 3 * (dec - 1)
+            + 2 * dec, "gemm_bias_ffma_f32": 1}
+
+
 def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
                       with_int8: bool) -> dict:
     """(n.4): the engine's batch-32 forward of ``cfg`` (float32) against
     the plain f32 forward, per output key, within F32_FORWARD_REL of max(1,
     max |plain|); with ``with_int8`` also the int8 forward under (k)'s
-    posterior gates against the f32 forward. Returns the times."""
+    posterior gates against the f32 forward. Returns the times and the
+    f32 forward's launch counts."""
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.infer import engine
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
@@ -2582,7 +2799,8 @@ def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
     counts = {k: v for k, v in kernels.launches.items() if v}
     want_counts = {"encoder_layer_with_stem": 1,
                    "encoder_layer": m.enc_layer - 1 + m.dec_layer,
-                   "decoder_layer_zero": 1, "decoder_layer": m.dec_layer - 1}
+                   "decoder_layer_zero": 1, "decoder_layer": m.dec_layer - 1,
+                   **f32_gemm_launches(m)}
     if counts != want_counts:
         raise AssertionError(f"(n) f32 forward {tag} launches {counts}, "
                              f"expected {want_counts}")
@@ -2598,7 +2816,7 @@ def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
         with full_f32():
             plain_ms = cuda_ms(lambda: model32(spec), iters=2)
     audio_s = BATCH * cfg.input.num_frame * cfg.feature.hop_sample / SR
-    out = {"ms": ms, "plain_ms": plain_ms}
+    out = {"ms": ms, "plain_ms": plain_ms, "launches": counts}
     log(f"(n.4) batch-{BATCH} f32 forward {tag} (hid {m.hid_dim}, "
         f"{m.enc_head} heads): engine vs plain f32 (of max(1, |plain|), <= "
         f"{F32_FORWARD_REL}): "
@@ -2700,6 +2918,11 @@ def default_cli_f32(feat, audio, cli_main) -> None:
                     "decoder_layer_train": m.dec_layer - 1,
                     "decoder_layer_train_bwd": m.dec_layer - 1}
         want = {k: v * steps for k, v in per_step.items()}
+        # the f32 GEMMs: the steps', and the validation forwards' (the
+        # engine's, one stem layer each)
+        n_valid = counts["encoder_layer_with_stem"]
+        for k, v in f32_gemm_launches(m, train=True).items():
+            want[k] = steps * v + n_valid * f32_gemm_launches(m)[k]
         want.update(dict.fromkeys(MHA_SOURCES, 0))   # no per-site path
         got = {k: counts[k] for k in want}
         if got != want:
@@ -2726,6 +2949,9 @@ def default_cli_f32(feat, audio, cli_main) -> None:
                                                           + m.dec_layer),
                       f"decoder_layer_zero{sfx}": n_batches,
                       f"decoder_layer{sfx}": n_batches * (m.dec_layer - 1)}
+            if label == "exact":
+                t_want.update({k: n_batches * v for k, v in
+                               f32_gemm_launches(m).items()})
             if rc != 0 or t_counts != t_want:
                 raise AssertionError(f"(n) transcribe {label}: rc {rc}, "
                                      f"launches {t_counts}, expected "
@@ -2776,7 +3002,8 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     (n.3) K13 at D = 32 in bf16 and f32; (n.4) the engine's
     f32 forward at the default and the paper config, and the default
     config's int8 forward; (n.5) the CLI with no ``--config``; times of
-    each. Returns the f32 times per wrapper."""
+    each. Returns the f32 times per wrapper, and the launch counts of
+    (n.4)'s paper f32 forward."""
     from nylon_amt_tpu_torch import Config, ModelConfig
     from nylon_amt_tpu_torch.models.hft import HFT
     from nylon_amt_tpu_torch.models.init import reference_initialize
@@ -2800,10 +3027,11 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     packed = engine.pack_params(model32, torch.float32)
     names = ("encoder_layer_with_stem", "encoder_layer", "encoder_layer/time",
              "decoder_layer_zero", "decoder_layer")
-    train_names = ("encoder_layer_train", "encoder_layer_train/time",
-                   "decoder_layer_zero_train", "decoder_layer_train")
+    train_names = ("encoder_layer_train", "encoder_layer_train/stem",
+                   "encoder_layer_train/time", "decoder_layer_zero_train",
+                   "decoder_layer_train")
     times.update(check_layers_f32(cfg, packed, spec, dev, names, "default"))
-    times.update(check_train_layers_f32(model32, cfg, dev, train_names,
+    times.update(check_train_layers_f32(model32, cfg, spec, dev, train_names,
                                         "default"))
     del packed
     gen = torch.Generator().manual_seed(SEED + 14)
@@ -2812,7 +3040,7 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     times.update({f"{k}/paper": v for k, v in check_layers_f32(
         paper, packed, spec, dev, names, "paper").items()})
     times.update({f"{k}/paper": v for k, v in check_train_layers_f32(
-        paper32, paper, dev, train_names, "paper").items()})
+        paper32, paper, spec, dev, train_names, "paper").items()})
     del packed
     torch.cuda.empty_cache()
 
@@ -2841,14 +3069,16 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
 
     # (n.5) the CLI with no --config
     default_cli_f32(feat, audio, cli_main)
-    return times
+    return times, fwd_paper["launches"]
 
 
 # (o) the bf16 layer GEMMs alone ---------------------------------------------
 
-# csrc/layer_fused.cu's forward GEMMs, csrc/layer_fused_train.cu's dX and dW
+# csrc/layer_fused.cu's forward GEMMs, csrc/layer_fused_train.cu's dX and dW,
+# csrc/layer_fused_f32.cu's float32 forward GEMMs (3xTF32 wgmma)
 GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel", "gemm_nt_kernel",
-                "wgrad_kernel")
+                "wgrad_kernel", "gemm_bias_f32_kernel",
+                "gemm_res_ln_f32_kernel")
 # (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
 # decoder and time layers, training forward): the paper batch-32 forward,
 # the paper batch-8 training forward (dropout 0.1: the forward, then the
@@ -2868,15 +3098,18 @@ GEMM_GEOMETRIES = (
 )
 
 
-def gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train) -> list:
+def gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train,
+               f32: bool = False) -> list:
     """Every (label, kernel, M, K, N, relu, dropout site, pre_out, out,
     launches) that a forward (``train``: a training step's forward and
     its backward's recompute) of these widths runs: launches per forward
-    or per step."""
+    or per step. In ``f32`` the stem layer's QKV is the CUDA cores' GEMM
+    ("gemm_bias_ffma")."""
     mult = 2 if train else 1
-    cases = []
+    cases = [("qkv stem", "gemm_bias_ffma", mf, hid, 3 * hid, 0, False,
+              False, True, mult)] if f32 else []
     for label, m, k, n, relu, count in (
-            ("qkv freq", mf, hid, 3 * hid, 0, n_enc),
+            ("qkv freq", mf, hid, 3 * hid, 0, n_enc - int(f32)),
             ("ffn1 freq", mf, hid, pf, 1, n_enc),
             ("kv cross", mf, hid, 2 * hid, 0, n_dec),
             ("q cross", mq, hid, hid, 0, n_dec),
@@ -3186,6 +3419,155 @@ def check_bwd_gemms(dev, card: str) -> None:
     log(f"(p) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
 
 
+# (q) the float32 layer GEMMs alone ------------------------------------------
+
+def check_gemms_f32(dev, card: str) -> dict:
+    """(q): gemm_bias_f32_kernel and gemm_res_ln_f32_kernel (3xTF32 wgmma,
+    csrc/layer_fused_f32.cu), and the stem layer's QKV GEMM on the CUDA
+    cores (gemm_bias_ffma_f32_kernel), alone at every (M, K, N) and variant
+    of GEMM_GEOMETRIES in float32: the paper batch-32 forward, the paper
+    batch-8 training forward (dropout sites, ``pre_out``, ``out`` None), the
+    default ``Config()`` widths' batch-32 forward, hid 96 / pf 160 with
+    ragged M. Each within F32_OUT_REL of max(1, max |plain f32 twin|)
+    (``gemm_bias_plain`` / ``gemm_res_ln_plain``), ``pre_out`` likewise,
+    two runs bit-identical; the kernel's and the twin's distances from a
+    float64 truth of the same operands; the kernel's time beside its bound
+    (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s), the FFMA bound
+    (the products at 67 TFLOP/s) and f32 ``torch.matmul`` (IEEE f32) of
+    the same product, which the port never calls. The weight's TF32 pair
+    is packed once a shape, as the engine packs it. Returns the rows of the
+    three kernels for the JSON line: the paper batch-32 forward's shapes
+    summed over its launches, with those launches under "launches"."""
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+    from nylon_amt_tpu_torch.tools.gemm_ab import f64_twin
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    f32 = torch.float32
+    totals, rows = {}, {}
+    for geo, mf, mq, hid, pf, n_enc, n_dec, n_time, train in GEMM_GEOMETRIES:
+        for case in gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train,
+                               f32=True):
+            label, kern, m, k, n, relu, drop, pre, out, count = case
+
+            def r(*shape):
+                return torch.randn(shape, generator=g, device=dev)
+
+            x = dict(a=r(m, k), w=r(k, n) / math.sqrt(k), b=0.1 * r(n),
+                     res=r(m, n) if kern == "gemm_res_ln" else None,
+                     g=1.0 + 0.1 * r(n), be=0.1 * r(n))
+            ffma = kern == "gemm_bias_ffma"   # reads w itself
+            pair = None if ffma else lf.tf32_pair(x["w"])
+            tag = (lft._SITE_FFN_MID if kern == "gemm_bias"
+                   else lft._SITE_ATTN_OUT)
+            site = lft._site(DROP_SEED, tag, n, RATE, f32) if drop else None
+            if ffma:
+                def run():
+                    return {"out": lf._gemm_ffma(x["a"], x["w"], x["b"])}
+
+                def plain_run():
+                    return {"out": lf.gemm_bias_plain(x["a"], x["w"], x["b"],
+                                                      relu, site)}
+            elif kern == "gemm_bias":
+                def run():
+                    return {"out": lft._gemm_bias(x["a"], x["w"], x["b"],
+                                                  relu, site, pair=pair)}
+
+                def plain_run():
+                    return {"out": lf.gemm_bias_plain(x["a"], x["w"], x["b"],
+                                                      relu, site)}
+            else:
+                def run():
+                    y, p = lft._gemm_res_ln(x["a"], x["w"], x["b"], x["res"],
+                                            x["g"], x["be"], site, pre=pre,
+                                            out=out, pair=pair)
+                    return {k_: v for k_, v in (("out", y), ("pre", p))
+                            if v is not None}
+
+                def plain_run():
+                    y, p = lf.gemm_res_ln_plain(x["a"], x["w"], x["b"],
+                                                x["res"], x["g"], x["be"],
+                                                site)
+                    return {"out": y, "pre": p}
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            with full_f32():
+                plain = plain_run()
+            kind = ("ln" if kern == "gemm_res_ln" else "bias", m, k, n, relu,
+                    drop, 1, 1)
+            truth = dict(zip(("out", "pre") if kind[0] == "ln" else ("out",),
+                             f64_twin(kind, {k_: v for k_, v in x.items()
+                                             if v is not None}, site)))
+            gates = []
+            worst = 0.0
+            for key, v in got.items():
+                e = rel_err(v, plain[key], 1.0)
+                e64 = f64_dist(v, truth[key])
+                p64 = f64_dist(plain[key], truth[key])
+                if not e <= F32_OUT_REL:
+                    raise AssertionError(
+                        f"(q) {kern} {geo} {label} [{m},{k},{n}] {key}: "
+                        f"{e:.2e} of max(1, |plain f32|) > {F32_OUT_REL}; "
+                        f"from float64 kernel {e64:.2e}, plain {p64:.2e}")
+                if not torch.equal(v.view(torch.int32),
+                                   again[key].view(torch.int32)):
+                    raise AssertionError(f"(q) {kern} {geo} {label} {key}: "
+                                         f"two runs differ")
+                worst = max(worst, e)
+                gates.append(f"{key} {e:.2e} of max(1, |plain f32|), from "
+                             f"float64 kernel {e64:.2e}, plain {p64:.2e}")
+            del plain, truth, again
+            ms = cuda_ms(run, iters=5)
+            with full_f32():
+                plain_ms = cuda_ms(plain_run, iters=3)
+                mm = cuda_ms(lambda: x["a"] @ x["w"], iters=5)
+            nbytes_ = 4 * (m * k + (1 if ffma else 2) * k * n
+                           + m * n * len(got) + n) + (
+                4 * m * n + 8 * n if kern == "gemm_res_ln" else 0)
+            flops = 2 * m * k * n
+            bd = bound(nbytes_, **{"f32_flops" if ffma else "tf32x3_flops":
+                                   flops})
+            ffma_bd = bound(nbytes_, f32_flops=flops)["bound_ms"]
+            variant = ("relu " if relu else "") + ("drop " if drop else "") \
+                + ("pre " if pre else "") + ("" if out else "no-out ")
+            log(f"(q) {kern}_f32 {geo} {label} [{m},{k},{n}] {variant}"
+                f"x{count}: {'; '.join(gates)}; bit-identical reruns; "
+                f"kernel {ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+                f"({bd['bound_by']}, {bd['bound_ms'] / ms:.1%}), FFMA bound "
+                f"{ffma_bd:.3f} ms, f32 matmul {mm:.3f} ms ({ms / mm:.2f}x), "
+                f"plain f32 twin {plain_ms:.3f} ms")
+            tot = totals.setdefault(geo, [0.0] * 4)
+            for i, v in enumerate((ms, bd["bound_ms"], ffma_bd, mm)):
+                tot[i] += count * v
+            if geo == "paper b32":
+                row = rows.setdefault(f"{kern}_f32", dict(
+                    max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    nbytes=0, flops=0, launches=0))
+                row["max_abs_err"] = max(row["max_abs_err"], worst)
+                for key_, v in (("ms", ms), ("plain_ms", plain_ms),
+                                ("library_ms", mm), ("nbytes", nbytes_),
+                                ("flops", flops), ("launches", 1)):
+                    row[key_] += count * v
+            del x, got, pair
+            torch.cuda.empty_cache()
+    for geo, (ms, bd, ffma, mm) in totals.items():
+        log(f"(q) {geo}: f32 GEMMs of one "
+            f"{'step' if 'train' in geo else 'forward'} {ms:.3f} ms, bound "
+            f"{bd:.3f} ms ({bd / ms:.1%}), FFMA bound {ffma:.3f} ms, f32 "
+            f"torch.matmul of the same products {mm:.3f} ms")
+    log(f"(q) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    for name, row in rows.items():
+        row.update(bound(row.pop("nbytes"), **{
+            "f32_flops" if "ffma" in name else "tf32x3_flops":
+            row.pop("flops")}))
+        row["gate"] = (f"<= {F32_OUT_REL} of max(1, |plain f32|) at every "
+                       f"shape of (q); the paper batch-32 forward's shapes "
+                       f"summed over its launches")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3221,13 +3603,17 @@ def main() -> int:
              if "Used" in ln or "spill" in ln]
     log(f"(a) built {kernels.build_dir() / kernels.LIB_NAME} in "
         f"{build_s:.1f} s; ptxas: " + " | ".join(ptxas))
-    # the wgmma / TMA GEMMs of csrc/layer_fused.cu and layer_fused_train.cu:
-    # no spills, no stack, and (where the toolkit has cuobjdump) wgmma and
-    # TMA loads in their SASS
+    # the wgmma / TMA GEMMs of csrc/layer_fused.cu, layer_fused_train.cu and
+    # layer_fused_f32.cu: no spills, no stack, and (where the toolkit has
+    # cuobjdump) wgmma and TMA loads in their SASS
     gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text())
     spilled = {k: v for k, v in gemms.items() if v["spill"] or v["stack"]}
+    # the f32 GEMMs hand registers between warpgroups (setmaxnreg): the
+    # consumers' 232 a thread balance the producer's 40 only from 168
+    unbalanced = {k: v for k, v in gemms.items()
+                  if v["kernel"].endswith("_f32_kernel") and v["regs"] != 168}
     if {v["kernel"] for v in gemms.values()} != set(GEMM_KERNELS) \
-            or spilled:
+            or spilled or unbalanced:
         raise AssertionError(f"(a) GEMM kernels in ptxas -v: {gemms}")
     log(f"(a) {len(gemms)} instantiations of {', '.join(GEMM_KERNELS)}: no "
         f"spills, no stack, {min(v['regs'] for v in gemms.values())}-"
@@ -3421,13 +3807,25 @@ def main() -> int:
     check_default_config(feat, audio, spec, dev, card, cli_main)
 
     # (n) the default Config() in float32 ----------------------------------
-    f32_times = check_float32(feat, audio, spec, dev, card, cli_main)
+    f32_times, f32_counts = check_float32(feat, audio, spec, dev, card,
+                                          cli_main)
 
     # (o) the bf16 layer GEMMs alone ---------------------------------------
     check_gemms(dev, card)
 
     # (p) the bf16 backward GEMMs alone ------------------------------------
     check_bwd_gemms(dev, card)
+
+    # (q) the f32 layer GEMMs alone -----------------------------------------
+    gemm32 = ("gemm_bias_f32", "gemm_res_ln_f32", "gemm_bias_ffma_f32")
+    q_rows = check_gemms_f32(dev, card)
+    q_counts = {k: row.pop("launches") for k, row in q_rows.items()}
+    if q_counts != {k: f32_counts[k] for k in gemm32}:
+        raise AssertionError(f"(q) the paper batch-32 forward's GEMM cases "
+                             f"{q_counts}, (n.4)'s launches {f32_counts}")
+    results.update(q_rows)
+    for name in gemm32:
+        held(name, torch.float32)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -3473,6 +3871,14 @@ def main() -> int:
         **{name: ("mha.cu", tpu) for name, tpu in MHA_SOURCES.items()}}
     counts.update({k: q8_counts[k] for k in Q8_SOURCES})
     counts.update(mha_counts)
+    # the f32 GEMM kernels: launches of (n.4)'s paper f32 forward, whose
+    # shapes (q) timed
+    counts.update({k: f32_counts[k] for k in gemm32})
+    sources.update({k: ("layer_fused_f32.cu",
+                        "nylon_amt_tpu/ops/layer_fused.py:301")
+                    for k in gemm32[:2]})
+    sources["gemm_bias_ffma_f32"] = ("layer_fused_f32.cu",
+                                     "nylon_amt_tpu/ops/layer_fused.py:376")
     # the sources of each wrapper's float32 path
     layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
         "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
@@ -3486,7 +3892,8 @@ def main() -> int:
         "decoder_layer_zero_train_bwd": train32,
         "decoder_layer_train_bwd": train32,
         **{n: ["mha_f32.cu"] for n in MHA_SOURCES},
-        **{n: ["layer_fused_q8.cu"] for n in Q8_SOURCES}}
+        **{n: ["layer_fused_q8.cu"] for n in Q8_SOURCES},
+        **{n: ["layer_fused_f32.cu"] for n in gemm32}}
     f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [

@@ -53,6 +53,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace nylon {
 namespace sm90 {
@@ -557,7 +558,7 @@ inline int tile_width(int N) {
 // most `tiles`), after raising the kernel's dynamic shared-memory limit.
 template <typename Kernel>
 int persistent_grid(Kernel kernel, int smem_bytes, long long tiles,
-                    int* grid) {
+                    int* grid, int threads = kThreads) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   int dev = 0, sms = 0, per_sm = 0;
@@ -566,12 +567,291 @@ int persistent_grid(Kernel kernel, int smem_bytes, long long tiles,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem_bytes);
+                                                      threads, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long most = (long long)per_sm * sms;
   *grid = (int)(tiles < most ? tiles : most);
   return 0;
+}
+
+
+// ============================================================ TF32 ====
+//
+// The f32 form of the mainloop (layer_fused_f32.cu's forward GEMMs): the
+// same ring, barriers, producer warp and consumer warpgroups, with wgmma
+// m64nNk8 .tf32 products taken as 3xTF32 (tf32.cuh). What differs from
+// the bf16 form:
+//
+//  * TF32 wgmma reads shared-memory operands K-major only (the transpose
+//    bits are for 16-bit types), so B is the weights packed once on the
+//    host as a K-major TF32 pair w_big, w_small [N, K] (ops/layer_fused.py
+//    ::tf32_pair): two boxes of BN rows x 32 floats a stage, one 128-byte
+//    swizzle row each, read by the K-major descriptor of the bf16 form (SBO
+//    1024, the k8 step +32 bytes).
+//  * A [M, K] (the activations) is split in registers: each consumer thread
+//    reads its m64k8 fragments from the swizzled A box (rows r, r + 8 of its
+//    warp's 16, columns t and t + 4 of each k8 step: 16 conflict-free
+//    32-bit shared loads a stage), splits each value once, and issues the
+//    register-A form of wgmma: small_a big_w + big_a small_w + big_a big_w
+//    a k8 step, a k-block's 12 wgmmas in one chain, each chain's sum added
+//    into an f32 register sum (mma3).
+//  * A stage is kBKTf32 = 32 deep (one 128-byte row of floats), half the
+//    bf16 stage's depth; the stage holds A (kRowsA x 128 bytes) and B's two
+//    boxes (2 x BN x 128 bytes).
+//  * The block has kThreadsTf32 = 384 threads: a full producer warpgroup,
+//    whose registers the consumers take (reg_dealloc / reg_alloc).
+
+constexpr int kBKTf32 = 32;
+
+#define NYLON_D8(i)                                                    \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]),            \
+      "+f"(d[(i) + 7])
+
+// D[64, N] (+)= A[64, 8] B[8, N], TF32 in, f32 accumulator; A from
+// registers (thread t of the warpgroup holds a[0..3] = A[16 (t / 32) + g
+// (+ 8 for a[1], a[3])][c (+ 4 for a[2], a[3])], g = (t % 32) / 4, c = t %
+// 4), B a K-major shared-memory descriptor. D's layout is Wgmma's.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40), NYLON_D8(48), NYLON_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+#undef NYLON_D8
+
+// Hand registers between the warpgroups of a block (every warp of a
+// warpgroup executes it). reg_alloc takes only what the block's own
+// reg_dealloc gave back, so the TF32 kernels run kThreadsTf32 threads: the
+// producer warpgroup's 4 warps give 128 of their 168 registers each (16384
+// in all), the two consumer warpgroups take 64 more each (16384).
+constexpr int kThreadsTf32 = (kConsumerWarps + 4) * 32;
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The ring of the TF32 form: kStages stages of (A box, w_big box, w_small
+// box), then kExtra bytes for the kernel, then the barriers. A: kRowsA rows
+// (a block's rows) of 32 floats; B: BN rows of each half of the pair.
+template <int kRowsA, int BN, int kExtra>
+struct RingTf32 {
+  static_assert(kRowsA % 64 == 0 && kRowsA <= 256, "A box");
+  static_assert(BN % 8 == 0 && BN <= 256, "B box");
+  static constexpr int kABytes = kRowsA * 128;
+  static constexpr int kBBytes = BN * 128;
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr int kExtraBytes = (kExtra + 1023) / 1024 * 1024;
+  static constexpr int kFit =
+      (kSmemMax - 1024 - 256 - kExtraBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "stages");
+  static constexpr int kBytes =
+      1024 + kStages * kStageBytes + kExtraBytes + 256;
+
+  uint8_t* base;  // 1024-byte aligned
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ explicit RingTf32(uint8_t* raw)
+      : base(reinterpret_cast<uint8_t*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+
+  __device__ uint8_t* a(int s) const { return base + s * kStageBytes; }
+  __device__ uint8_t* b_big(int s) const { return a(s) + kABytes; }
+  __device__ uint8_t* b_small(int s) const { return a(s) + kABytes + kBBytes; }
+  __device__ uint8_t* extra() const { return base + kStages * kStageBytes; }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(extra() + kExtraBytes) + s;
+  }
+  __device__ uint64_t* empty(int s) const { return full(0) + kStages + s; }
+
+  __device__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // One thread, before the block's roles split (then __syncthreads()).
+  __device__ void init() const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+
+  // Producer: k-block kb of rows m0 of A and rows n0 of the pair.
+  __device__ void load(const CUtensorMap* map_a, const CUtensorMap* map_big,
+                       const CUtensorMap* map_small, int m0, int n0, int kb) {
+    mbar_wait(empty(stage), phase ^ 1);
+    mbar_expect_tx(full(stage), kStageBytes);
+    const int k0 = kb * kBKTf32;
+    tma_load(a(stage), map_a, full(stage), k0, m0);
+    tma_load(b_big(stage), map_big, full(stage), k0, n0);
+    tma_load(b_small(stage), map_small, full(stage), k0, n0);
+    advance();
+  }
+
+  // Consumer warpgroup: acc[64, WN] = A[a_row0 .. a_row0 + 63] B[b_row0 ..
+  // b_row0 + WN - 1]^T over nk k-blocks, 3xTF32. Each k-block's 12 wgmmas
+  // accumulate in a chain of their own, added into acc in f32: over longer
+  // chains the tensor core's own accumulation drifts (PERF.md). The
+  // A fragments of k8 step s + 1 are read and split while step s's wgmmas
+  // run; a stage is released once its wgmmas have retired.
+  template <int WN>
+  __device__ void mma3(float (&acc)[WN / 2], int nk, int a_row0,
+                       int b_row0) {
+    const int tid = threadIdx.x & 127;
+    const int r = a_row0 + ((tid >> 5) << 4) + ((tid & 31) >> 2);
+    const int c = tid & 3;
+    const bool signal = (threadIdx.x & 31) == 0;
+    float part[WN / 2];
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(full(stage), phase);
+      const uint32_t sa = smem_u32(a(stage));
+      const uint32_t sb = smem_u32(b_big(stage)) + b_row0 * 128;
+      const uint32_t ss = smem_u32(b_small(stage)) + b_row0 * 128;
+      uint32_t big[4][4], small[4][4];
+#pragma unroll
+      for (int s = 0; s < kBKTf32 / 8; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r + 8 * (i & 1), k = 8 * s + c + 4 * (i >> 1);
+          const Split x =
+              split(ld_shared_f32(sa + sw128(row, k >> 2) + 4 * (k & 3)));
+          big[s][i] = x.big;
+          small[s][i] = x.small;
+        }
+        wgmma_fence();
+        issue3<WN>(part, big[s], small[s], sb + 32 * s, ss + 32 * s, s);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < WN / 2; ++i)
+        acc[i] = kb == 0 ? part[i] : acc[i] + part[i];
+      if (signal) mbar_arrive(empty(stage));
+      advance();
+    }
+  }
+
+  // The three wgmmas of a k8 step into d, B's boxes at shared addresses sb
+  // (w_big) and ss (w_small): small_a big_w + big_a small_w + big_a big_w;
+  // `more` == 0 starts d afresh.
+  template <int WN>
+  static __device__ __forceinline__ void issue3(float (&d)[WN / 2],
+                                                const uint32_t (&big)[4],
+                                                const uint32_t (&small)[4],
+                                                uint32_t sb, uint32_t ss,
+                                                int more) {
+    WgmmaTf32<WN>::mma(d, small, sw128_desc(sb, 16, 1024), more);
+    WgmmaTf32<WN>::mma(d, big, sw128_desc(ss, 16, 1024), 1);
+    WgmmaTf32<WN>::mma(d, big, sw128_desc(sb, 16, 1024), 1);
+  }
+};
+
+// The tensor map of a row-major f32 [rows, cols] matrix (cols % 4 == 0,
+// 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte
+// swizzle, zero fill past the edges. Returns a cudaError_t.
+inline int encode_f32(CUtensorMap* map, const void* ptr, long long rows,
+                      long long cols, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 4 || rows <= 0 ||
+      cols <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kBKTf32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

@@ -3,8 +3,9 @@
 // The default model configuration computes in float32 (ModelConfig.
 // compute_dtype), and the reference's Pallas kernels follow their inputs'
 // dtype (nylon_amt_tpu/ops/layer_fused.py: _matmul and _layer_norm cast to
-// x.dtype). These kernels are the f32 twins of the bf16 GEMMs, for the
-// same TPU kernels:
+// x.dtype; the TPU kernel takes dot_general(x, w,
+// preferred_element_type=f32) on f32 operands, :97-102). These kernels are
+// the f32 twins of the bf16 GEMMs, for the same TPU kernels:
 //
 //  * gemm_bias_f32_kernel <- layer_fused.cu's gemm_bias_kernel: the QKV,
 //    cross Q and K/V and FFN-up projections of encoder_layer (K3),
@@ -23,14 +24,66 @@
 //    order by layer_fused_train.cu's reduce_rows: no float atomics, the
 //    same bits from run to run.
 //
-// The product core is gemm_f32.cuh (SIMT FFMA tiles): wmma has no f32
-// operands. The epilogues are layer_epilogue.cuh's, the same op sequence
-// as the bf16 kernels with every rounding to the compute dtype an identity.
-// What bounds them: FFMA issue at the layer widths; the default widths (hid
-// 64, pf 128) make every product thin, so N-tiles are sized to the width
-// (64, 128 or 256 columns) rather than padded to 256.
+// The two forward GEMMs run on the tensor cores: gemm_sm90.cuh's TF32
+// mainloop (TMA ring of 32-deep stages, a producer warpgroup, two consumer
+// warpgroups, wgmma m64nNk8 .tf32 with A split in registers) as 3xTF32
+// (tf32.cuh), the weights packed once on the host as a K-major TF32 pair
+// w_big, w_small [N, K] (ops/layer_fused.py::tf32_pair). What bounds them:
+// at the paper widths (hid 256, pf 512) the 3xTF32 products (3 x 2MNK at
+// 494.7 TFLOP/s) and the f32 bytes (4 (MK + MN [+ MN residual])) come
+// within 0.8-2x of each other: QKV and FFN-up are bound by operations, O
+// and FFN down by bytes; the default widths (hid 64) by bytes. A single f32
+// FFMA core (67 TFLOP/s) is 2.5x further from both.
+//
+// Tiles, shared memory and registers (384 threads: two consumer warpgroups
+// and a producer warpgroup, whose first warp issues the TMA loads; 227 KB
+// of shared memory a block; no spills, no stack: chip_smoke.py (a)
+// checks). ptxas gives each thread 168 registers; the producer warpgroup
+// gives 128 of them back (setmaxnreg: 40) and the consumers take them (232:
+// setmaxnreg.inc takes only what the block's own dec gave back, so a lone
+// producer warp could not feed it, and the consumers waited for ever):
+//  * gemm_bias_f32_kernel: 128 rows x BN columns a tile (BN = 32, 64, 96
+//    or 128: N in the fewest tiles of <= 128), warpgroup g the rows 64 g ..
+//    64 g + 63 at all BN columns. A stage is 16 KB of A + 2 x BN x 128
+//    bytes of the pair (48 KB at BN 128: 4 stages, 193 KB). Registers: the
+//    m64n128 sum and the chain's accumulator (2 x 64), the split A
+//    fragments of a stage (32), the addressing. The epilogue stores float2
+//    pairs straight from the fragments (a quad of lanes writes one 32-byte
+//    sector of a row).
+//  * gemm_res_ln_f32_kernel: 64 rows x BN (64, 128 or 256) a tile, the
+//    columns split between the warpgroups (g owns BN / 2 of them: a 64 x
+//    256 sum and its chain's accumulator would take 256 registers), the
+//    row statistics of the two halves combined through shared memory in a
+//    fixed order (half 0 + half 1). A stage is 8 KB of A + 2 x BN x 128
+//    bytes (72 KB at BN 256: 3 stages, 221 KB with bias, gamma and beta
+//    staged once a block). The residual is read from device memory into
+//    registers as the fragments' float2 pairs: all of it before the tile's
+//    mainloop at BN <= 128, a quarter at BN 256 and the rest once the
+//    mainloop has ended (the training variants a quarter at a time, a
+//    quarter ahead); then the two-pass LayerNorm, then pre_out / out as
+//    float2 pairs.
+//
+// Numerics: the epilogues are layer_epilogue.cuh's f32 ones, the same op
+// sequence as the bf16 kernels with every rounding to the compute dtype an
+// identity. The products differ from IEEE f32 only by 3xTF32's dropped
+// small*small term (~2^-22 of a product), the tensor core's summation
+// order and its accumulation over a wgmma chain, which is kept to one
+// k-block (12 wgmmas) and summed in f32 (RingTf32::mma3): one chain a tile
+// over all of K read 2-4x the plain f32 twin's float64 distance and failed
+// chip_smoke.py (n.4)'s stage-2 gate on the paper forward (PERF.md). (q)
+// holds every shape within 2e-5 of the plain f32 twin and prints both
+// distances from a float64 truth. There is no split K and no atomic: two
+// runs are bit-identical.
+//
+// gemm_bias_ffma_f32_kernel (gemm_f32.cuh's SIMT FFMA core, IEEE f32
+// products summed over k in ascending order): the QKV projection of the
+// stem layer (K2), where the attention scores reach ~2^14 in log2 units:
+// with its QKV as 3xTF32 the layer reads 1.4e-4 (default widths) and
+// 4.3e-4 (paper) of max(1, |plain f32|) against (n.2)'s 2e-5, on FFMA
+// 4.9e-6 / 2.9e-6 (PERF.md).
 
 #include "gemm_f32.cuh"
+#include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
 
@@ -38,23 +91,375 @@ using nylon::DropSite;
 using nylon::F32Gemm;
 using nylon::keep_value;
 using nylon::NtEpilogue;
+namespace sm = nylon::sm90;
+using sm::Frag;
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// ----------------------------------------------------------- GEMM + bias ----
+// ------------------------------------------------------ GEMM + bias, TF32 --
 
-using GemmNN = F32Gemm<64, 64, 4, 4, false, false>;
+constexpr int kBiasRows = 128;  // gemm_bias: rows of a tile
+// registers a thread: the producer warpgroup's, and the consumers' (at 128
+// columns a warpgroup the chain's accumulator beside the sum, 2 x 64, + 32
+// of split A do not fit in the 168 ptxas gives each of 384 threads)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-// out[M, N] = (a[M, K] @ w[K, N]) + bias [, ReLU] [, x keep of `site`].
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_f32_kernel(const float* __restrict__ a,
-                         const float* __restrict__ w,
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// out[M, N] = (a[M, K] @ w) + bias [, ReLU] [, x keep of `site`], w read
+// as its TF32 pair w_big, w_small [N, K]. Tile t is (row block t /
+// n_tiles_n, column block t % n_tiles_n).
+template <int BN, bool kDrop>
+__global__ void __launch_bounds__(sm::kThreadsTf32, 1)
+    gemm_bias_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_big,
+                         const __grid_constant__ CUtensorMap map_small,
                          const float* __restrict__ bias,
                          float* __restrict__ out, int M, int N, int K,
                          int relu, int n_tiles_n, DropSite site) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::RingTf32<kBiasRows, BN, 0> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBKTf32 - 1) / sm::kBKTf32;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + kBiasRows - 1) / kBiasRows);
+
+  if (warp >= sm::kConsumerWarps) {  // the producer warpgroup
+    sm::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == sm::kConsumerWarps * 32) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_big);
+      sm::tma_prefetch(&map_small);
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t / n_tiles_n) * kBiasRows;
+        const int n0 = (int)(t % n_tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb)
+          ring.load(&map_a, &map_big, &map_small, m0, n0, kb);
+      }
+    }
+  } else {
+    sm::reg_alloc<kConsumerRegs>();
+    const int g = warp >> 2;
+    const Frag f(threadIdx.x & 127);
+    float acc[BN / 2];
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (int)(t / n_tiles_n) * kBiasRows;
+      const int n0 = (int)(t % n_tiles_n) * BN;
+      ring.template mma3<BN>(acc, nk, 64 * g, 0);
+      const int row0 = m0 + 64 * g + f.r0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * f.q;
+        if (col >= N) continue;
+        const float2 b = ldg2(bias + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + 8 * i;
+          if (row >= M) continue;
+          st2(out + (size_t)row * N + col,
+              nylon::bias_epilogue<float, kDrop>(acc[4 * j + 2 * i], b.x,
+                                                 relu, site, (uint32_t)row,
+                                                 col, N),
+              nylon::bias_epilogue<float, kDrop>(acc[4 * j + 2 * i + 1], b.y,
+                                                 relu, site, (uint32_t)row,
+                                                 col + 1, N));
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------- GEMM + residual + shared LayerNorm, TF32 --
+
+constexpr int kLnRows = 64;  // gemm_res_ln: rows of a tile
+template <int BN>
+constexpr int kLnExtra = (2 * 2 * kLnRows + 3 * BN) * 4;
+
+// out[M, N] = LN(res + (a @ w + bias) [x keep]) * gamma + beta for N <= BN,
+// w read as its TF32 pair w_big, w_small [N, K]: a block tile holds
+// kLnRows full rows, warpgroup g columns g BN / 2 .. (g + 1) BN / 2 - 1.
+// kTrain: the pre-LN sum to pre_out when it is not null, and out may be
+// null.
+template <int BN, bool kDrop, bool kTrain>
+__global__ void __launch_bounds__(sm::kThreadsTf32, 1)
+    gemm_res_ln_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_big,
+                           const __grid_constant__ CUtensorMap map_small,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ res,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           float* __restrict__ out,
+                           float* __restrict__ pre_out, int M, int N, int K,
+                           float eps, DropSite site) {
+  constexpr int WN = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  // the extra area: the row statistics of the two halves, [pass][g][row],
+  // then bias, gamma and beta
+  sm::RingTf32<kLnRows, BN, kLnExtra<BN>> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBKTf32 - 1) / sm::kBKTf32;
+  const int tiles = (M + kLnRows - 1) / kLnRows;
+
+  if (warp >= sm::kConsumerWarps) {  // the producer warpgroup
+    sm::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == sm::kConsumerWarps * 32) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_big);
+      sm::tma_prefetch(&map_small);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        for (int kb = 0; kb < nk; ++kb)
+          ring.load(&map_a, &map_big, &map_small, t * kLnRows, 0, kb);
+    }
+  } else {
+    sm::reg_alloc<kConsumerRegs>();
+    const int g = warp >> 2;
+    const Frag f(threadIdx.x & 127);
+    float* const red = reinterpret_cast<float*>(ring.extra());
+    // bias, gamma and beta of the warpgroup's columns, to shared memory once
+    float* const s_bias = red + 4 * kLnRows;
+    float* const s_gamma = s_bias + BN, *const s_beta = s_gamma + BN;
+    for (int c = threadIdx.x; c < N; c += 256) {
+      s_bias[c] = bias[c];
+      s_gamma[c] = gamma[c];
+      s_beta[c] = beta[c];
+    }
+    sm::named_sync(1, 256);
+    const float inv_n = 1.f / (float)N;
+    const bool pre = kTrain && pre_out != nullptr;
+    const bool has_out = !kTrain || out != nullptr;
+    // the residual pairs of a fragment: the first kPre column blocks loaded
+    // before the tile's mainloop (in flight under it), the others once it
+    // has ended, kRest at a time, a chunk ahead of their use (at 128 columns
+    // a warpgroup, 64 registers of residual would not fit beside the
+    // mainloop's, nor 48 beside the training epilogue's)
+    constexpr int kJ = WN / 8, kPre = kJ <= 8 ? kJ : 4;
+    constexpr int kRest = kJ == kPre ? 1 : kTrain ? 4 : kJ - kPre;
+    float2 rv[kJ][2];
+    const auto load_res = [&](int m0, int j0, int j1) {
+#pragma unroll
+      for (int j = j0; j < j1; ++j) {
+        const int col = g * WN + 8 * j + 2 * f.q;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + f.r0 + 8 * i;
+          rv[j][i] = col < N && row < M ? ldg2(res + (size_t)row * N + col)
+                                        : make_float2(0.f, 0.f);
+        }
+      }
+    };
+    float acc[WN / 2];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t * kLnRows;
+      load_res(m0, 0, kPre);
+      ring.template mma3<WN>(acc, nk, 0, g * WN);
+      if constexpr (kPre < kJ) load_res(m0, kPre, kPre + kRest);
+
+      // s = res + (acc + bias) [x keep], in place of acc; row sums
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        if (j >= kPre && (j - kPre) % kRest == 0 && j + kRest < kJ)
+          load_res(m0, j + kRest, j + 2 * kRest);  // the next chunk
+        const int col = g * WN + 8 * j + 2 * f.q;
+        if (col >= N) continue;
+        const float2 b = *reinterpret_cast<const float2*>(s_bias + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + f.r0 + 8 * i;
+          const float s0 = nylon::residual_sum<float, kDrop>(
+              acc[4 * j + 2 * i], b.x, rv[j][i].x, site, (uint32_t)row, col,
+              N);
+          const float s1 = nylon::residual_sum<float, kDrop>(
+              acc[4 * j + 2 * i + 1], b.y, rv[j][i].y, site, (uint32_t)row,
+              col + 1, N);
+          acc[4 * j + 2 * i] = s0;
+          acc[4 * j + 2 * i + 1] = s1;
+          if (pre && row < M) st2(pre_out + (size_t)row * N + col, s0, s1);
+          sum[i] += s0 + s1;
+        }
+      }
+      // the mean: the quad's sums, then the two halves of the row in order
+      float mean[2], rstd[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        if (f.q == 0) red[g * kLnRows + f.r0 + 8 * i] = sum[i];
+      }
+      sm::named_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        mean[i] = (red[f.r0 + 8 * i] + red[kLnRows + f.r0 + 8 * i]) * inv_n;
+      float sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+        if (g * WN + 8 * j + 2 * f.q >= N) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float d0 = acc[4 * j + 2 * i] - mean[i];
+          const float d1 = acc[4 * j + 2 * i + 1] - mean[i];
+          sq[i] += d0 * d0 + d1 * d1;
+        }
+      }
+      float* const red2 = red + 2 * kLnRows;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 1);
+        sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], 2);
+        if (f.q == 0) red2[g * kLnRows + f.r0 + 8 * i] = sq[i];
+      }
+      sm::named_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        rstd[i] = rsqrtf(
+            (red2[f.r0 + 8 * i] + red2[kLnRows + f.r0 + 8 * i]) * inv_n +
+            eps);
+      if (!has_out) continue;
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+        const int col = g * WN + 8 * j + 2 * f.q;
+        if (col >= N) continue;
+        const float2 ga = *reinterpret_cast<const float2*>(s_gamma + col);
+        const float2 be = *reinterpret_cast<const float2*>(s_beta + col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + f.r0 + 8 * i;
+          if (row >= M) continue;
+          st2(out + (size_t)row * N + col,
+              (acc[4 * j + 2 * i] - mean[i]) * rstd[i] * ga.x + be.x,
+              (acc[4 * j + 2 * i + 1] - mean[i]) * rstd[i] * ga.y + be.y);
+        }
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------- launch ----
+
+// The tile width of gemm_bias_f32_kernel for an output N columns wide: N in
+// the fewest tiles of at most 128 columns, each a multiple of 32.
+inline int bias_tile_width(int N) {
+  const int tiles = (N + 127) / 128;
+  return ((N + tiles - 1) / tiles + 31) / 32 * 32;
+}
+
+// The maps of A [M, K] (box_rows a box) and of the two halves of the
+// weight's TF32 pair, w_big and w_small [N, K] (BN rows a box).
+inline int encode_tf32(CUtensorMap* ma, CUtensorMap* mb, CUtensorMap* ms,
+                       const void* a, const void* w_big,
+                       const void* w_small, int M, int N, int K,
+                       int box_rows, int bn) {
+  int e = sm::encode_f32(ma, a, M, K, box_rows);
+  if (!e) e = sm::encode_f32(mb, w_big, N, K, bn);
+  if (!e) e = sm::encode_f32(ms, w_small, N, K, bn);
+  return e;
+}
+
+template <int BN, bool kDrop>
+int launch_gemm_bias(const void* a, const void* wb, const void* ws,
+                     const void* bias, void* out, int M, int N, int K,
+                     int relu, DropSite site, cudaStream_t stream) {
+  CUtensorMap ma, mb, ms;
+  int e = encode_tf32(&ma, &mb, &ms, a, wb, ws, M, N, K, kBiasRows, BN);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + kBiasRows - 1) / kBiasRows);
+  const auto kernel = gemm_bias_f32_kernel<BN, kDrop>;
+  constexpr int smem = sm::RingTf32<kBiasRows, BN, 0>::kBytes;
+  int grid = 0;
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, tiles, &grid, sm::kThreadsTf32);
+  if (e) return e;
+  kernel<<<grid, sm::kThreadsTf32, smem, stream>>>(
+      ma, mb, ms, (const float*)bias, (float*)out, M, N, K, relu, n_tiles_n,
+      site);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int gemm_bias(const void* a, const void* wb, const void* ws,
+              const void* bias, void* out, int M, int N, int K, int relu,
+              DropSite site, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (bias_tile_width(N)) {
+    case 32:
+      return launch_gemm_bias<32, kDrop>(a, wb, ws, bias, out, M, N, K, relu,
+                                         site, s);
+    case 64:
+      return launch_gemm_bias<64, kDrop>(a, wb, ws, bias, out, M, N, K, relu,
+                                         site, s);
+    case 96:
+      return launch_gemm_bias<96, kDrop>(a, wb, ws, bias, out, M, N, K, relu,
+                                         site, s);
+    default:
+      return launch_gemm_bias<128, kDrop>(a, wb, ws, bias, out, M, N, K,
+                                          relu, site, s);
+  }
+}
+
+template <int BN, bool kDrop, bool kTrain>
+int launch_res_ln(const void* a, const void* wb, const void* ws,
+                  const void* bias, const void* res, const void* gamma,
+                  const void* beta, void* out, void* pre_out, int M, int N,
+                  int K, float eps, DropSite site, cudaStream_t stream) {
+  CUtensorMap ma, mb, ms;
+  int e = encode_tf32(&ma, &mb, &ms, a, wb, ws, M, N, K, kLnRows, BN);
+  const auto kernel = gemm_res_ln_f32_kernel<BN, kDrop, kTrain>;
+  constexpr int smem = sm::RingTf32<kLnRows, BN, kLnExtra<BN>>::kBytes;
+  int grid = 0;
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, (M + kLnRows - 1) / kLnRows, &grid,
+                            sm::kThreadsTf32);
+  if (e) return e;
+  kernel<<<grid, sm::kThreadsTf32, smem, stream>>>(
+      ma, mb, ms, (const float*)bias, (const float*)res, (const float*)gamma,
+      (const float*)beta, (float*)out, (float*)pre_out, M, N, K, eps, site);
+  return (int)cudaGetLastError();
+}
+
+// The N tier of a residual layer: 64, 128 or 256 columns.
+template <bool kDrop, bool kTrain>
+int res_ln_tier(const void* a, const void* wb, const void* ws,
+                const void* bias, const void* res, const void* gamma,
+                const void* beta, void* out, void* pre_out, int M, int N,
+                int K, float eps, DropSite site, cudaStream_t stream) {
+  if (N <= 64)
+    return launch_res_ln<64, kDrop, kTrain>(a, wb, ws, bias, res, gamma, beta,
+                                            out, pre_out, M, N, K, eps, site,
+                                            stream);
+  if (N <= 128)
+    return launch_res_ln<128, kDrop, kTrain>(a, wb, ws, bias, res, gamma,
+                                             beta, out, pre_out, M, N, K, eps,
+                                             site, stream);
+  return launch_res_ln<256, kDrop, kTrain>(a, wb, ws, bias, res, gamma, beta,
+                                           out, pre_out, M, N, K, eps, site,
+                                           stream);
+}
+
+// ----------------------------------------------------- GEMM + bias, FFMA --
+
+using GemmNN = F32Gemm<64, 64, 4, 4, false, false>;
+
+// out[M, N] = (a[M, K] @ w[K, N]) + bias [, ReLU], on the CUDA cores.
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_bias_ffma_f32_kernel(const float* __restrict__ a,
+                              const float* __restrict__ w,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int M, int N, int K,
+                              int relu, int n_tiles_n) {
   __shared__ __align__(16) GemmNN::Smem sm;
   const int m0 = (blockIdx.x / n_tiles_n) * 64;
   const int n0 = (blockIdx.x % n_tiles_n) * 64;
@@ -71,137 +476,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     float y[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      y[e] = nylon::bias_epilogue<float, kDrop>(acc[i][e], b[e], relu, site,
-                                                (uint32_t)row, col + e, N);
+      y[e] = nylon::bias_epilogue<float, false>(acc[i][e], b[e], relu,
+                                                DropSite{}, (uint32_t)row,
+                                                col + e, N);
     *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
         make_float4(y[0], y[1], y[2], y[3]);
   }
-}
-
-// ------------------------------------- GEMM + residual + shared LayerNorm ----
-
-// A block owns BM full rows of BN >= N columns: 64 x 64, 64 x 128 or 32 x
-// 256 tiles, the f32 product staged in shared memory over the dead
-// pipeline buffers, then each warp normalises BM / 8 rows (lane owning
-// columns lane + 32 t).
-template <int BN>
-struct LnTile {
-  static constexpr int BM = BN == 256 ? 32 : 64;
-  static constexpr int TN = BN == 64 ? 4 : 8;
-  using Gemm = F32Gemm<BM, BN, 4, TN, false, false>;
-  static constexpr int kCLd = BN + 4;
-  union Smem {
-    typename Gemm::Smem pipe;
-    float c[BM * kCLd];
-  };
-};
-
-// out[M, N] = LN(res + (a @ w + bias) [x keep]) * gamma + beta; kTrain: the
-// pre-LN sum to pre_out when it is not null, and out may be null.
-template <int BN, bool kDrop, bool kTrain>
-__global__ void __launch_bounds__(kThreads)
-    gemm_res_ln_f32_kernel(const float* __restrict__ a,
-                           const float* __restrict__ w,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ res,
-                           const float* __restrict__ gamma,
-                           const float* __restrict__ beta,
-                           float* __restrict__ out,
-                           float* __restrict__ pre_out, int M, int N, int K,
-                           float eps, DropSite site) {
-  using Tile = LnTile<BN>;
-  using Gemm = typename Tile::Gemm;
-  constexpr int BM = Tile::BM, TN = Tile::TN, kCLd = Tile::kCLd;
-  __shared__ __align__(16) typename Tile::Smem sm;
-  const int m0 = blockIdx.x * BM;
-  float acc[4][TN];
-  Gemm::run(sm.pipe, a, K, w, N, M, N, m0, 0, 0, K, acc,
-            [](const float*) {});
-  // run() ends on a barrier: the pipeline buffers are dead
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN / 4; ++j)
-      *reinterpret_cast<float4*>(sm.c + Gemm::row(i) * kCLd +
-                                 Gemm::col(4 * j)) =
-          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
-                      acc[i][4 * j + 3]);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float inv_n = 1.f / (float)N;
-  for (int rr = 0; rr < BM / 8; ++rr) {
-    const int r = warp * (BM / 8) + rr;
-    const int gr = m0 + r;
-    if (gr >= M) break;  // warp-uniform
-    float s[BN / 32];
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < BN / 32; ++t) {
-      const int c = lane + 32 * t;
-      s[t] = 0.f;
-      if (c < N) {
-        s[t] = nylon::residual_sum<float, kDrop>(
-            sm.c[r * kCLd + c], bias[c], res[(size_t)gr * N + c], site,
-            (uint32_t)gr, c, N);
-        if constexpr (kTrain)
-          if (pre_out != nullptr) pre_out[(size_t)gr * N + c] = s[t];
-        sum += s[t];
-      }
-    }
-    const float mean = nylon::warp_sum(sum) * inv_n;
-    float sq = 0.f;
-#pragma unroll
-    for (int t = 0; t < BN / 32; ++t) {
-      const int c = lane + 32 * t;
-      if (c < N) {
-        const float d = s[t] - mean;
-        sq += d * d;
-      }
-    }
-    const float rstd = rsqrtf(nylon::warp_sum(sq) * inv_n + eps);
-    if constexpr (kTrain)
-      if (out == nullptr) continue;  // warp-uniform
-#pragma unroll
-    for (int t = 0; t < BN / 32; ++t) {
-      const int c = lane + 32 * t;
-      if (c < N)
-        out[(size_t)gr * N + c] = (s[t] - mean) * rstd * gamma[c] + beta[c];
-    }
-  }
-}
-
-template <int BN, bool kDrop, bool kTrain>
-int launch_res_ln(const void* a, const void* w, const void* bias,
-                  const void* res, const void* gamma, const void* beta,
-                  void* out, void* pre_out, int M, int N, int K, float eps,
-                  DropSite site, cudaStream_t stream) {
-  constexpr int BM = LnTile<BN>::BM;
-  gemm_res_ln_f32_kernel<BN, kDrop, kTrain>
-      <<<(M + BM - 1) / BM, kThreads, 0, stream>>>(
-          (const float*)a, (const float*)w, (const float*)bias,
-          (const float*)res, (const float*)gamma, (const float*)beta,
-          (float*)out, (float*)pre_out, M, N, K, eps, site);
-  return (int)cudaGetLastError();
-}
-
-// The N tier of a residual layer: 64, 128 or 256 columns.
-template <bool kDrop, bool kTrain>
-int res_ln_tier(const void* a, const void* w, const void* bias,
-                const void* res, const void* gamma, const void* beta,
-                void* out, void* pre_out, int M, int N, int K, float eps,
-                DropSite site, cudaStream_t stream) {
-  if (N <= 64)
-    return launch_res_ln<64, kDrop, kTrain>(a, w, bias, res, gamma, beta, out,
-                                            pre_out, M, N, K, eps, site,
-                                            stream);
-  if (N <= 128)
-    return launch_res_ln<128, kDrop, kTrain>(a, w, bias, res, gamma, beta,
-                                             out, pre_out, M, N, K, eps, site,
-                                             stream);
-  return launch_res_ln<256, kDrop, kTrain>(a, w, bias, res, gamma, beta, out,
-                                           pre_out, M, N, K, eps, site,
-                                           stream);
 }
 
 // ------------------------------------------------------------- dX = dY W^T --
@@ -290,67 +570,77 @@ __global__ void __launch_bounds__(kThreads, 2)
 extern "C" {
 
 // The float32 twins of nylon_gemm_bias / nylon_gemm_bias_drop
-// (layer_fused.cu): K % 4 == 0, N % 4 == 0.
-int nylon_gemm_bias_f32(const void* a, const void* w, const void* bias,
-                        void* out, int M, int N, int K, int relu,
-                        void* stream) {
+// (layer_fused.cu), the weight [K, N] as its TF32 pair w_big, w_small [N,
+// K] (ops/layer_fused.py::tf32_pair): K % 4 == 0, N % 4 == 0.
+int nylon_gemm_bias_f32(const void* a, const void* w_big, const void* w_small,
+                        const void* bias, void* out, int M, int N, int K,
+                        int relu, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4)
+    return (int)cudaErrorInvalidValue;
+  return gemm_bias<false>(a, w_big, w_small, bias, out, M, N, K, relu,
+                          DropSite{}, stream);
+}
+
+int nylon_gemm_bias_drop_f32(const void* a, const void* w_big,
+                             const void* w_small, const void* bias, void* out,
+                             int M, int N, int K, int relu, unsigned key,
+                             unsigned thresh, float scale, int half,
+                             void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 ||
+      (half && 2 * half != N))
+    return (int)cudaErrorInvalidValue;
+  return gemm_bias<true>(a, w_big, w_small, bias, out, M, N, K, relu,
+                         DropSite{key, thresh, scale, half, 0u}, stream);
+}
+
+// nylon_gemm_bias_f32 on the CUDA cores, w the [K, N] weight itself (IEEE
+// f32 products summed over k in order: the stem layer's QKV projection).
+int nylon_gemm_bias_ffma_f32(const void* a, const void* w, const void* bias,
+                             void* out, int M, int N, int K, int relu,
+                             void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4)
     return (int)cudaErrorInvalidValue;
   const int n_tiles_n = (N + 63) / 64;
   const long long tiles = (long long)n_tiles_n * ((M + 63) / 64);
-  gemm_bias_f32_kernel<false><<<(unsigned)tiles, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  gemm_bias_ffma_f32_kernel<<<(unsigned)tiles, kThreads, 0,
+                              (cudaStream_t)stream>>>(
       (const float*)a, (const float*)w, (const float*)bias, (float*)out, M, N,
-      K, relu, n_tiles_n, DropSite{});
+      K, relu, n_tiles_n);
   return (int)cudaGetLastError();
 }
 
-int nylon_gemm_bias_drop_f32(const void* a, const void* w, const void* bias,
-                             void* out, int M, int N, int K, int relu,
-                             unsigned key, unsigned thresh, float scale,
-                             int half, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 ||
-      (half && 2 * half != N))
-    return (int)cudaErrorInvalidValue;
-  const int n_tiles_n = (N + 63) / 64;
-  const long long tiles = (long long)n_tiles_n * ((M + 63) / 64);
-  gemm_bias_f32_kernel<true><<<(unsigned)tiles, kThreads, 0,
-                                (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)w, (const float*)bias, (float*)out, M, N,
-      K, relu, n_tiles_n, DropSite{key, thresh, scale, half, 0u});
-  return (int)cudaGetLastError();
-}
-
-// The float32 twins of nylon_gemm_res_ln / nylon_gemm_res_ln_train: N <=
-// 256, K % 4 == 0, N % 4 == 0.
-int nylon_gemm_res_ln_f32(const void* a, const void* w, const void* bias,
+// The float32 twins of nylon_gemm_res_ln / nylon_gemm_res_ln_train, the
+// weight as its TF32 pair w_big, w_small [N, K]: N <= 256, K % 4 == 0, N %
+// 4 == 0.
+int nylon_gemm_res_ln_f32(const void* a, const void* w_big,
+                          const void* w_small, const void* bias,
                           const void* res, const void* gamma,
                           const void* beta, void* out, int M, int N, int K,
                           float eps, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 || N > 256)
     return (int)cudaErrorInvalidValue;
-  return res_ln_tier<false, false>(a, w, bias, res, gamma, beta, out, nullptr,
-                                   M, N, K, eps, DropSite{},
+  return res_ln_tier<false, false>(a, w_big, w_small, bias, res, gamma, beta,
+                                   out, nullptr, M, N, K, eps, DropSite{},
                                    (cudaStream_t)stream);
 }
 
-int nylon_gemm_res_ln_train_f32(const void* a, const void* w,
-                                const void* bias, const void* res,
-                                const void* gamma, const void* beta,
-                                void* out, void* pre_out, int M, int N, int K,
-                                float eps, int active, unsigned key,
-                                unsigned thresh, float scale, int half,
-                                void* stream) {
+int nylon_gemm_res_ln_train_f32(const void* a, const void* w_big,
+                                const void* w_small, const void* bias,
+                                const void* res, const void* gamma,
+                                const void* beta, void* out, void* pre_out,
+                                int M, int N, int K, float eps, int active,
+                                unsigned key, unsigned thresh, float scale,
+                                int half, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 || N > 256 ||
       (half && 2 * half != N))
     return (int)cudaErrorInvalidValue;
   const DropSite site{key, thresh, scale, half, 0u};
-  return active ? res_ln_tier<true, true>(a, w, bias, res, gamma, beta, out,
-                                          pre_out, M, N, K, eps, site,
-                                          (cudaStream_t)stream)
-                : res_ln_tier<false, true>(a, w, bias, res, gamma, beta, out,
-                                           pre_out, M, N, K, eps, site,
-                                           (cudaStream_t)stream);
+  return active ? res_ln_tier<true, true>(a, w_big, w_small, bias, res, gamma,
+                                          beta, out, pre_out, M, N, K, eps,
+                                          site, (cudaStream_t)stream)
+                : res_ln_tier<false, true>(a, w_big, w_small, bias, res,
+                                           gamma, beta, out, pre_out, M, N, K,
+                                           eps, site, (cudaStream_t)stream);
 }
 
 // The float32 twin of nylon_gemm_nt (layer_fused_train.cu): N % 4 == 0,

@@ -94,6 +94,7 @@
 
 #include "common.cuh"
 #include "hash_mask.cuh"
+#include "tf32.cuh"
 
 using nylon::DropSite;
 using nylon::keep_value;
@@ -109,16 +110,8 @@ constexpr int kDqChains = 4;
 
 // ----------------------------------------------------------- 3xTF32 ------
 
-// An f32 operand as a TF32 pair: x ~ big + small, both round-to-nearest.
-struct Split {
-  uint32_t big, small;
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const float c = __fmul_rn(x, 8193.f);
-  const float big = __fsub_rn(c, __fsub_rn(c, x));
-  return {__float_as_uint(big), __float_as_uint(__fsub_rn(x, big)) + 0x1000u};
-}
+using nylon::Split;
+using nylon::split;
 
 // c += a (16 x 8, row-major) b (8 x 8, column-major), one TF32 pass.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,

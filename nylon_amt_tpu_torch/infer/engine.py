@@ -23,7 +23,9 @@ leaves them to XLA.
 
 Weights are packed once, by :func:`pack_params`, when a transcriber is
 built: under ``jit`` the JAX engine packs at trace time for free, eagerly it
-would cost a repack per forward.
+would cost a repack per forward. A float32 pack on the card also holds each
+layer matrix's TF32 pair (``layer_fused.pack_tf32``), the form the float32
+GEMM kernels read.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from nylon_amt_tpu_torch.ops.layer_fused import (
     decoder_layer_zero,
     encoder_layer,
     encoder_layer_with_stem,
+    pack_tf32,
     sqrt_hid,
 )
 from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
@@ -77,6 +80,9 @@ class PackedHFT(NamedTuple):
     time: list[EncoderLayerParams]
     heads_b: dict[str, tuple[torch.Tensor, torch.Tensor]]
     precision: str | None = None
+    # float32 on the card: the TF32 pairs of each layer's matrices, by group
+    # ("enc", "dec_zero", "dec", "time") and layer (layer_fused.pack_tf32)
+    tf32: dict | None = None
 
 
 def _lin(lin, dt, *more):
@@ -146,19 +152,27 @@ def pack_params(model: HFT, dtype: torch.dtype,
     heads = {s: {k: _lin(getattr(dec, f"fc_{k}_{t}"), dtype) for k in _KEYS}
              for s, t in (("a", "freq"), ("b", "time"))
              if s == "a" or dec.stage2}
+    layers = dict(
+        enc=[enc_pack(layer) for layer in enc.layers_freq],
+        dec_zero=cross_pack(dec.layer_zero_freq),
+        dec=[cross_pack(layer) for layer in dec.layers_freq],
+        time=[enc_pack(layer) for layer in dec.layers_time]
+        if dec.stage2 else [])
+    tf32 = None
+    if (dtype == torch.float32 and not q8
+            and enc.pos_embedding_freq.weight.device.type == "cuda"):
+        tf32 = {group: pack_tf32(ps) if isinstance(ps, CrossLayerParams)
+                else [pack_tf32(p) for p in ps]
+                for group, ps in layers.items()}
     return PackedHFT(
         dtype=dtype, k_eff=k_eff, b_eff=b_eff,
         pos_freq=enc.pos_embedding_freq.weight.to(dtype),
-        enc=[enc_pack(layer) for layer in enc.layers_freq],
         note_q=dec.pos_embedding_freq.weight.to(dtype),
-        dec_zero=cross_pack(dec.layer_zero_freq),
-        dec=[cross_pack(layer) for layer in dec.layers_freq],
         heads_a=heads["a"],
         pos_time=dec.pos_embedding_time.weight.to(dtype) if dec.stage2
         else None,
-        time=[enc_pack(layer) for layer in dec.layers_time]
-        if dec.stage2 else [],
-        heads_b=heads.get("b", {}), precision="int8" if q8 else None)
+        heads_b=heads.get("b", {}), precision="int8" if q8 else None,
+        tf32=tf32, **layers)
 
 
 def _dense(x, head):
@@ -184,19 +198,27 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
         stem_layer, enc_layer = encoder_layer_with_stem, encoder_layer
         dec_zero, dec_layer = decoder_layer_zero, decoder_layer
 
+    def tf32(group, i=None):
+        """The ``tf32`` argument of a layer call: its packed pairs."""
+        if packed.tf32 is None:
+            return {}
+        pairs = packed.tf32[group]
+        return {"tf32": pairs if i is None else pairs[i]}
+
     # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
     spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
     h = stem_layer(spec_t, packed.k_eff, packed.b_eff, packed.pos_freq,
-                   packed.enc[0], m.enc_head, n_frame, dt)
-    for p in packed.enc[1:]:
-        h = enc_layer(h, p, m.enc_head)
+                   packed.enc[0], m.enc_head, n_frame, dt, **tf32("enc", 0))
+    for i, p in enumerate(packed.enc[1:], 1):
+        h = enc_layer(h, p, m.enc_head, **tf32("enc", i))
     enc = h                                        # [B*n_frame, n_bin, hid]
 
     # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
     trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
-    trg = dec_zero(trg, enc, packed.dec_zero, m.dec_head)
-    for p in packed.dec:
-        trg = dec_layer(trg, enc, p, m.dec_head)
+    trg = dec_zero(trg, enc, packed.dec_zero, m.dec_head,
+                   **tf32("dec_zero"))
+    for i, p in enumerate(packed.dec):
+        trg = dec_layer(trg, enc, p, m.dec_head, **tf32("dec", i))
     out = {f"{k}_A": _dense(trg, packed.heads_a[k])
            .reshape(B, n_frame, n_note, -1) for k in _KEYS}
     if packed.pos_time is None:                    # stage-1-only decoder
@@ -205,8 +227,8 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     # ---- stage 2: SAtime, K3 per layer --------------------------------------
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
     t = t.reshape(B * n_note, n_frame, hid) * scale + packed.pos_time
-    for p in packed.time:
-        t = enc_layer(t, p, m.dec_head)
+    for i, p in enumerate(packed.time):
+        t = enc_layer(t, p, m.dec_head, **tf32("time", i))
     for k in _KEYS:
         out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
                          .reshape(B, n_note, n_frame, -1).transpose(1, 2))

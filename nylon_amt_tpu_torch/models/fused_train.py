@@ -113,7 +113,7 @@ def train_forward(model: HFT, spec: torch.Tensor, seeds: Mapping[int, int],
         + enc.pos_embedding_freq.weight.to(dt)
     for i, layer in enumerate(enc.layers_freq):
         h = encoder_layer_train(h, _pack_enc(layer), seeds[i], m.enc_head,
-                                rate, emb_drop=i == 0)
+                                rate, emb_drop=i == 0, stem=i == 0)
 
     # ---- stage 1: CAfreq ----
     note_q = dec.pos_embedding_freq.weight.to(dt)

@@ -20,7 +20,11 @@ the hand-written kernels of ``csrc/layer_fused.cu`` (a bf16 GEMM, the
 attention kernel of ``csrc/mha.cu`` and a GEMM with a residual + LayerNorm
 epilogue, in turn), or for float32 activations (the default model
 configuration) their float32 twins in ``csrc/layer_fused_f32.cu`` and
-``csrc/mha_f32.cu``, or raises (any other dtype raises too). The plain
+``csrc/mha_f32.cu``, or raises (any other dtype raises too). The float32
+GEMM kernels multiply on the tensor cores as 3xTF32 and read each weight
+matrix as its TF32 pair (:func:`tf32_pair`, packed once by
+``infer/engine.py::pack_params`` and handed to the layers as ``tf32``;
+a float32 GEMM on the card without its pair raises). The plain
 versions mirror ``layer_fused.py``'s ``_matmul``,
 ``_layer_norm``, ``_mha_block``, ``_self_block``, ``_cross_tail`` and, for
 the stem, ``models/hft.py::fused_stem``. ``gemm_bias_plain`` and
@@ -271,6 +275,54 @@ def gemm_res_ln_plain(a, w, bias, res, g, b, site=None):
     return _layer_norm(pre, g, b), pre
 
 
+# ------------------------------------------------------ the TF32 weights --
+
+def _split(x):
+    """(big, small) of f32 ``x``: ``big`` = each value rounded to nearest at
+    TF32's 11 significant bits (Veltkamp's split: ``c = x * 8193``, ``big
+    = c - (c - x)``), ``small`` = ``x - big`` (exact) with half a TF32 ulp
+    added to its bits (the tensor core drops the low 13): the split of
+    ``csrc/tf32.cuh``, bit for bit. Each op is one rounded f32 op."""
+    c = x * 8193.0
+    big = c - (c - x)
+    small = ((x - big).view(torch.int32) + 0x1000).view(torch.float32)
+    return big, small
+
+
+def tf32_pair(w):
+    """The float32 GEMM kernels' form of a weight ``w [K, N]``: the K-major
+    TF32 pair ``[2, N, K]`` (big, small) of ``w^T`` (TF32 ``wgmma`` reads
+    shared-memory operands K-major only)."""
+    return torch.stack(_split(w.float().t().contiguous()))
+
+
+def pack_tf32(p) -> dict[str, tuple]:
+    """The TF32 pair ``(big, small)``, each ``[N, K]``, of every weight
+    matrix of the layer parameters ``p`` (``EncoderLayerParams`` or
+    ``CrossLayerParams``), by field name: :func:`tf32_pair`'s values,
+    split at once for the whole layer (a handful of launches, not a
+    handful a matrix) into two buffers that the pairs view."""
+    mats = [(f, t) for f, t in zip(p._fields, p) if t.dim() == 2
+            and t.numel()]
+    wt = torch.empty(sum(t.numel() for _, t in mats), dtype=torch.float32,
+                     device=mats[0][1].device)
+    views, off = {}, 0
+    for f, t in mats:          # w^T of each matrix, K-major, one copy each
+        k, n = t.shape
+        views[f] = (off, n, k)
+        wt[off:off + n * k].view(n, k).copy_(t.t())
+        off += n * k
+    big, small = _split(wt)
+    return {f: (big[o:o + n * k].view(n, k), small[o:o + n * k].view(n, k))
+            for f, (o, n, k) in views.items()}
+
+
+def _pair(tf32, name):
+    """The TF32 pair of matrix ``name`` from a :func:`pack_tf32` dict, or
+    None (bfloat16, which reads the matrix itself)."""
+    return None if tf32 is None else tf32[name]
+
+
 # ---------------------------------------------------------------- kernels --
 
 # What the GEMM entry points take, by activation dtype: K and N multiples
@@ -294,26 +346,83 @@ def check_gemm(name: str, m: int, k: int, n: int, dtype,
             + f"; got M {m}, K {k}, N {n}")
 
 
-def _gemm(a, w, bias, relu=False):
-    """``dt(a @ w) + bias`` [then ReLU] on ``a [M, K]`` of dtype ``dt``."""
+def gemm_weight(name: str, w, pair, dtype) -> tuple:
+    """The pointers a GEMM entry point takes for the weight ``w [K, N]``:
+    ``w``'s for bfloat16; for float32 those of its TF32 pair ``(big,
+    small)``, each ``[N, K]``: ``pair`` (a :func:`pack_tf32` entry or a
+    :func:`tf32_pair`). Raises for a ``pair`` of another shape, dtype or
+    device, and on the card for a missing one: the callers pack once
+    (``pack_params``, the training step's ``Weights``). Off the card (a
+    meta tensor, or a CPU tensor handed to a GEMM wrapper itself), where no
+    kernel runs on the data, a missing pair is made here so that the call
+    goes on to the kernel loader."""
+    if dtype != torch.float32:
+        return (w.data_ptr(),)
+    k, n = w.shape
+    if pair is None and w.device.type == "cuda":
+        raise ValueError(
+            f"{name}: the float32 kernels read the weight [{k}, {n}] as its "
+            f"TF32 pair, and none was given (pack_tf32 / tf32_pair)")
+    halves = tf32_pair(w) if pair is None else pair
+    if len(halves) != 2 or any(
+            tuple(h.shape) != (n, k) or h.dtype != torch.float32
+            or not h.is_contiguous() or h.device != w.device
+            for h in halves):
+        raise ValueError(
+            f"{name}: the float32 kernels read the weight [{k}, {n}] as its "
+            f"TF32 pair, two contiguous float32 [{n}, {k}] on {w.device} "
+            f"(tf32_pair); got "
+            + ", ".join(f"{tuple(h.shape)} {h.dtype} on {h.device}"
+                        for h in halves))
+    return tuple(h.data_ptr() for h in halves)
+
+
+def count_f32_gemm(name: str, dtype) -> None:
+    """Count a launch of the float32 GEMM kernel ``name``."""
+    if dtype == torch.float32:
+        kernels.launches[f"{name}_f32"] += 1
+
+
+def _gemm(a, w, bias, relu=False, pair=None):
+    """``dt(a @ w) + bias`` [then ReLU] on ``a [M, K]`` of dtype ``dt``
+    (float32: ``pair`` is ``tf32_pair(w)``)."""
     (m, k), n = a.shape, w.shape[1]
     check_gemm("gemm_bias", m, k, n, a.dtype)
+    wk = gemm_weight("gemm_bias", w, pair, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_bias", a.dtype), a.data_ptr(),
-                 w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k,
-                 int(relu), kernels.stream_of(a))
+                 *wk, bias.data_ptr(), out.data_ptr(), m, n, k, int(relu),
+                 kernels.stream_of(a))
+    count_f32_gemm("gemm_bias", a.dtype)
     return out
 
 
-def _gemm_res_ln(a, w, bias, res, g, b):
-    """``LN(res + (dt(a @ w) + bias))`` with the shared LayerNorm."""
+def _gemm_ffma(a, w, bias):
+    """``a @ w + bias`` in float32 on the CUDA cores (IEEE f32 products
+    summed over k in order): the stem layer's QKV projection, in inference
+    and in training."""
+    (m, k), n = a.shape, w.shape[1]
+    check_gemm("gemm_bias", m, k, n, a.dtype)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    kernels.call("nylon_gemm_bias_ffma_f32", a.data_ptr(), w.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), m, n, k, 0,
+                 kernels.stream_of(a))
+    kernels.launches["gemm_bias_ffma_f32"] += 1
+    return out
+
+
+def _gemm_res_ln(a, w, bias, res, g, b, pair=None):
+    """``LN(res + (dt(a @ w) + bias))`` with the shared LayerNorm
+    (float32: ``pair`` is ``tf32_pair(w)``)."""
     (m, k), n = a.shape, w.shape[1]
     check_gemm("gemm_res_ln", m, k, n, a.dtype, ln=True)
+    wk = gemm_weight("gemm_res_ln", w, pair, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_res_ln", a.dtype), a.data_ptr(),
-                 w.data_ptr(), bias.data_ptr(), res.data_ptr(), g.data_ptr(),
+                 *wk, bias.data_ptr(), res.data_ptr(), g.data_ptr(),
                  b.data_ptr(), out.data_ptr(), m, n, k, _LN_EPS,
                  kernels.stream_of(a))
+    count_f32_gemm("gemm_res_ln", a.dtype)
     return out
 
 
@@ -384,39 +493,50 @@ _FFN_LN = ("wo", "bo", "g", "b", "w1", "b1", "w2", "b2")
 _CROSS = ("wq", "bq", "wkv", "bkv") + _FFN_LN
 
 
-def _ffn_tail(attn, res, p):
+def _ffn_tail(attn, res, p, tf32):
     """LN(res + attn @ wo) -> LN(. + FFN(.)), on row-major 2-D tensors."""
-    y = _gemm_res_ln(attn, p.wo, p.bo, res, p.g, p.b)
-    h = _gemm(y, p.w1, p.b1, relu=True)
-    return _gemm_res_ln(h, p.w2, p.b2, y, p.g, p.b)
+    y = _gemm_res_ln(attn, p.wo, p.bo, res, p.g, p.b,
+                     pair=_pair(tf32, "wo"))
+    h = _gemm(y, p.w1, p.b1, relu=True, pair=_pair(tf32, "w1"))
+    return _gemm_res_ln(h, p.w2, p.b2, y, p.g, p.b,
+                        pair=_pair(tf32, "w2"))
 
 
-def _cross_tail_cuda(t2, e2, p, n, n_heads):
+def _cross_tail_cuda(t2, e2, p, n, n_heads, tf32):
     hid = t2.shape[1]
-    q = _gemm(t2, p.wq, p.bq)
-    kv = _gemm(e2, p.wkv, p.bkv)
+    q = _gemm(t2, p.wq, p.bq, pair=_pair(tf32, "wq"))
+    kv = _gemm(e2, p.wkv, p.bkv, pair=_pair(tf32, "wkv"))
     attn = _attention(q, kv[:, :hid], kv[:, hid:], n, n_heads)
-    return _ffn_tail(attn, t2, p)
+    return _ffn_tail(attn, t2, p, tf32)
 
 
-def _encoder_layer_cuda(name, x, p, n_heads):
+def _encoder_layer_cuda(name, x, p, n_heads, tf32, stem=False):
     n, l, hid = x.shape
     _check_kernel_args(name, [("x", x)], p, ("wqkv", "bqkv") + _FFN_LN,
                        n_heads, l)
     x2 = x.view(n * l, hid)
-    qkv = _gemm(x2, p.wqkv, p.bqkv)
+    if stem and x.dtype == torch.float32:
+        # The stem layer's scores reach ~2^14 in log2 units, where the plain
+        # f32 layer is itself ~8e-5 from a float64 truth: the layer stays
+        # within 2e-5 of it only with the plain GEMM's IEEE f32 products
+        # (chip_smoke.py (n.2) reads both; PERF.md). The training layer fed
+        # by the stem takes the same route (layer_fused_train, stem=True).
+        qkv = _gemm_ffma(x2, p.wqkv, p.bqkv)
+    else:
+        qkv = _gemm(x2, p.wqkv, p.bqkv, pair=_pair(tf32, "wqkv"))
     attn = _attention(qkv[:, :hid], qkv[:, hid:2 * hid], qkv[:, 2 * hid:],
                       n, n_heads)
-    return _ffn_tail(attn, x2, p).view(n, l, hid)
+    return _ffn_tail(attn, x2, p, tf32).view(n, l, hid)
 
 
-def encoder_layer(x, p: EncoderLayerParams, n_heads: int):
+def encoder_layer(x, p: EncoderLayerParams, n_heads: int, tf32=None):
     """Self-attention transformer layer: ``x [n, L, hid] -> [n, L, hid]``
-    (ref ``EncoderLayer:222-245``)."""
+    (ref ``EncoderLayer:222-245``). ``tf32``: :func:`pack_tf32` of ``p``,
+    which float32 on the card requires."""
     if x.device.type == "cpu":
         return encoder_layer_plain(x, p, n_heads)
     with torch.cuda.device(x.device):
-        out = _encoder_layer_cuda("encoder_layer", x, p, n_heads)
+        out = _encoder_layer_cuda("encoder_layer", x, p, n_heads, tf32)
     kernels.launches["encoder_layer"] += 1
     return out
 
@@ -451,7 +571,8 @@ def _stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype):
 
 
 def encoder_layer_with_stem(spec_t, keff, beff, pos, p: EncoderLayerParams,
-                            n_heads: int, n_frame: int, out_dtype):
+                            n_heads: int, n_frame: int, out_dtype,
+                            tf32=None):
     """Stem + position embedding + first encoder layer.
 
     ``spec_t [B, total_frames, n_bin]`` (frame-major f32 log-mel), ``keff
@@ -459,7 +580,8 @@ def encoder_layer_with_stem(spec_t, keff, beff, pos, p: EncoderLayerParams,
     ``models.hft.stem_effective_kernel``), ``pos [n_bin, hid]`` the
     frequency position embedding. Returns ``[B * n_frame, n_bin, hid]`` in
     ``out_dtype``: ``encoder_layer`` applied to the embedded spectrogram.
-    The kernels take ``out_dtype`` bfloat16 or float32.
+    The kernels take ``out_dtype`` bfloat16 or float32 (``tf32`` as for
+    ``encoder_layer``).
     """
     if spec_t.device.type == "cpu":
         return encoder_layer_with_stem_plain(spec_t, keff, beff, pos, p,
@@ -467,28 +589,32 @@ def encoder_layer_with_stem(spec_t, keff, beff, pos, p: EncoderLayerParams,
     kernels.check_dtype("encoder_layer_with_stem", out_dtype)
     with torch.cuda.device(spec_t.device):
         x = _stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype)
-        out = _encoder_layer_cuda("encoder_layer_with_stem", x, p, n_heads)
+        out = _encoder_layer_cuda("encoder_layer_with_stem", x, p, n_heads,
+                                  tf32, stem=True)
     kernels.launches["encoder_layer_with_stem"] += 1
     return out
 
 
-def decoder_layer_zero(trg, enc, p: CrossLayerParams, n_heads: int):
+def decoder_layer_zero(trg, enc, p: CrossLayerParams, n_heads: int,
+                       tf32=None):
     """Cross-attention-only decoder layer (ref ``DecoderLayer_Zero:247-272``):
-    ``trg [n, Lq, hid]`` attends to ``enc [n, Lk, hid]``."""
+    ``trg [n, Lq, hid]`` attends to ``enc [n, Lk, hid]`` (``tf32`` as for
+    ``encoder_layer``)."""
     if trg.device.type == "cpu":
         return decoder_layer_zero_plain(trg, enc, p, n_heads)
     n, lq, hid = trg.shape
     _check_kernel_args("decoder_layer_zero", [("trg", trg), ("enc", enc)], p,
                        _CROSS, n_heads, enc.shape[1])
     with torch.cuda.device(trg.device):
-        out = _cross_tail_cuda(trg.view(n * lq, hid),
-                               enc.view(-1, hid), p, n, n_heads)
+        out = _cross_tail_cuda(trg.view(n * lq, hid), enc.view(-1, hid), p,
+                               n, n_heads, tf32)
     kernels.launches["decoder_layer_zero"] += 1
     return out.view(n, lq, hid)
 
 
-def decoder_layer(trg, enc, p: CrossLayerParams, n_heads: int):
-    """Self + cross decoder layer (ref ``DecoderLayer:274-306``)."""
+def decoder_layer(trg, enc, p: CrossLayerParams, n_heads: int, tf32=None):
+    """Self + cross decoder layer (ref ``DecoderLayer:274-306``; ``tf32``
+    as for ``encoder_layer``)."""
     if trg.device.type == "cpu":
         return decoder_layer_plain(trg, enc, p, n_heads)
     n, lq, hid = trg.shape
@@ -497,10 +623,11 @@ def decoder_layer(trg, enc, p: CrossLayerParams, n_heads: int):
                        max(lq, enc.shape[1]))
     with torch.cuda.device(trg.device):
         t2 = trg.view(n * lq, hid)
-        qkv = _gemm(t2, p.wsqkv, p.bsqkv)
+        qkv = _gemm(t2, p.wsqkv, p.bsqkv, pair=_pair(tf32, "wsqkv"))
         sa = _attention(qkv[:, :hid], qkv[:, hid:2 * hid], qkv[:, 2 * hid:],
                         n, n_heads)
-        t2 = _gemm_res_ln(sa, p.wso, p.bso, t2, p.g, p.b)
-        out = _cross_tail_cuda(t2, enc.view(-1, hid), p, n, n_heads)
+        t2 = _gemm_res_ln(sa, p.wso, p.bso, t2, p.g, p.b,
+                          pair=_pair(tf32, "wso"))
+        out = _cross_tail_cuda(t2, enc.view(-1, hid), p, n, n_heads, tf32)
     kernels.launches["decoder_layer"] += 1
     return out.view(n, lq, hid)

@@ -515,35 +515,41 @@ def _site(seed: int, tag: int, d2: int, rate: float,
     return _Site(site_key(seed, tag), thresh, keep, half)
 
 
-def _gemm_bias(a, w, bias, relu=False, site=None):
-    """``dt(a @ w) + bias`` [, ReLU] [, x keep mask]."""
+def _gemm_bias(a, w, bias, relu=False, site=None, pair=None):
+    """``dt(a @ w) + bias`` [, ReLU] [, x keep mask] (float32: ``pair`` is
+    ``tf32_pair(w)``)."""
     if site is None:
-        return lf._gemm(a, w, bias, relu)
+        return lf._gemm(a, w, bias, relu, pair)
     (m, k), n = a.shape, w.shape[1]
     lf.check_gemm("gemm_bias", m, k, n, a.dtype)
+    wk = lf.gemm_weight("gemm_bias", w, pair, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call(kernels.entry("nylon_gemm_bias_drop", a.dtype),
-                 a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 m, n, k, int(relu), *site, kernels.stream_of(a))
+                 a.data_ptr(), *wk, bias.data_ptr(), out.data_ptr(), m, n, k,
+                 int(relu), *site, kernels.stream_of(a))
+    lf.count_f32_gemm("gemm_bias", a.dtype)
     return out
 
 
-def _gemm_res_ln(a, w, bias, res, g, b, site=None, pre=False, out=True):
+def _gemm_res_ln(a, w, bias, res, g, b, site=None, pre=False, out=True,
+                 pair=None):
     """``LN(res + (dt(a @ w) + bias) [x keep])``; returns ``(out or None,
-    pre-LN sum or None)``."""
+    pre-LN sum or None)`` (float32: ``pair`` is ``tf32_pair(w)``)."""
     if site is None and not pre:
-        return lf._gemm_res_ln(a, w, bias, res, g, b), None
+        return lf._gemm_res_ln(a, w, bias, res, g, b, pair), None
     (m, k), n = a.shape, w.shape[1]
     lf.check_gemm("gemm_res_ln", m, k, n, a.dtype, ln=True)
+    wk = lf.gemm_weight("gemm_res_ln", w, pair, a.dtype)
     y = torch.empty((m, n), dtype=a.dtype, device=a.device) if out else None
     s = torch.empty((m, n), dtype=a.dtype, device=a.device) if pre else None
     kernels.call(kernels.entry("nylon_gemm_res_ln_train", a.dtype),
-                 a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(),
+                 a.data_ptr(), *wk, bias.data_ptr(), res.data_ptr(),
                  g.data_ptr(), b.data_ptr(),
                  None if y is None else y.data_ptr(),
                  None if s is None else s.data_ptr(), m, n, k, _LN_EPS,
                  int(site is not None), *(site or _NO_SITE),
                  kernels.stream_of(a))
+    lf.count_f32_gemm("gemm_res_ln", a.dtype)
     return y, s
 
 
@@ -764,14 +770,31 @@ def _check(name, acts, p, n_heads, max_len):
                              f"expected {shapes[f]}")
 
 
-def compute_weights(p, dtype: torch.dtype):
-    """The weights the kernels read: matrices and biases in the compute
-    ``dtype`` (the activations'), f32 LN (the cast of the f32 parameters
-    that the training step makes once, in the forward, for the forward and
-    the backward)."""
-    return type(p)(*(t.float().contiguous() if f in ("g", "b")
-                     else t.to(dtype).contiguous()
-                     for f, t in zip(p._fields, p)))
+class Weights:
+    """The weights the kernels read: ``p``'s matrices and biases in the
+    compute dtype (the activations'), f32 LN, as attributes (``w.wo``);
+    for float32 also the TF32 pair of each matrix (``pair``), the form the
+    forward GEMMs read (the backward's dX and dW GEMMs read the matrices)."""
+
+    def __init__(self, p, dtype: torch.dtype):
+        self.p = type(p)(*(t.float().contiguous() if f in ("g", "b")
+                           else t.to(dtype).contiguous()
+                           for f, t in zip(p._fields, p)))
+        self.tf32 = lf.pack_tf32(self.p) if dtype == torch.float32 else None
+
+    def __getattr__(self, name):
+        return getattr(self.p, name)
+
+    def pair(self, name: str):
+        """The TF32 pair of matrix ``name`` (None for bfloat16)."""
+        return None if self.tf32 is None else self.tf32[name]
+
+
+def compute_weights(p, dtype: torch.dtype) -> Weights:
+    """The weights the kernels read (the cast, and for float32 the TF32
+    pack, that the training step makes once, in the forward, for the
+    forward and the backward)."""
+    return Weights(p, dtype)
 
 
 class _Fwd(NamedTuple):
@@ -802,27 +825,34 @@ def _scoped(tap, scope):
 def _ffn_tail_cuda(attn, res, w, seed, rate, keep, tap=_untapped):
     hid, pf, dt = res.shape[1], w.w1.shape[1], res.dtype
     y, a1 = _gemm_res_ln(attn, w.wo, w.bo, res, w.g, w.b,
-                         _site(seed, _SITE_ATTN_OUT, hid, rate, dt), pre=keep)
+                         _site(seed, _SITE_ATTN_OUT, hid, rate, dt), pre=keep,
+                         pair=w.pair("wo"))
     if keep:
         y, a1 = tap("y", y), tap("a1", a1)
     midd = tap("midd", _gemm_bias(y, w.w1, w.b1, relu=True,
                                   site=_site(seed, _SITE_FFN_MID, pf, rate,
-                                             dt)))
+                                             dt), pair=w.pair("w1")))
     z, a2 = _gemm_res_ln(midd, w.w2, w.b2, y, w.g, w.b,
                          _site(seed, _SITE_FFN_OUT, hid, rate, dt), pre=keep,
-                         out=not keep)
+                         out=not keep, pair=w.pair("w2"))
     if keep:
         a2 = tap("a2", a2)
     return y, a1, midd, a2, z
 
 
 def _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop, keep=False,
-                  tap=_untapped):
+                  tap=_untapped, stem=False):
     n, l, hid = x.shape
     if rate > 0 and emb_drop:
         x = apply_keep_mask(x, seed, _SITE_EMB, rate)
     xs = tap("x", x.view(n * l, hid))
-    qkv = tap("qkv", _gemm_bias(xs, w.wqkv, w.bqkv))
+    if stem and x.dtype == torch.float32:
+        # fed by the stem: its QKV on the CUDA cores, as the inference
+        # layer's (layer_fused._encoder_layer_cuda)
+        qkv = tap("qkv", lf._gemm_ffma(xs, w.wqkv, w.bqkv))
+    else:
+        qkv = tap("qkv", _gemm_bias(xs, w.wqkv, w.bqkv,
+                                    pair=w.pair("wqkv")))
     heads = tap("heads", _attention(qkv[:, :hid], qkv[:, hid:2 * hid],
                                     qkv[:, 2 * hid:], n, n_heads, seed, rate,
                                     _SITE_ATTN))
@@ -849,11 +879,12 @@ def _ffn_tail_bwd_cuda(f, dz, w, seed, rate, ln, tap):
     return da1, dattn, dict(wo=dwo, bo=dbo, w1=dw1, b1=db1, w2=dw2, b2=db2)
 
 
-def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped):
+def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped,
+                  stem=False):
     n, l, hid = x.shape
     m = n * l
     f = _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop, keep=True,
-                      tap=tap)
+                      tap=tap, stem=stem)
     ln = _LnGrads(m, hid, 2, x.device)
     da1, dattn, grads = _ffn_tail_bwd_cuda(f, dz.view(m, hid), w, seed, rate,
                                            ln, tap)
@@ -875,8 +906,8 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped):
 def _cross_fwd_cuda(t2, e2, w, n, seed, n_heads, rate, keep=False,
                     tap=_untapped):
     hid = t2.shape[1]
-    q = tap("q", _gemm_bias(t2, w.wq, w.bq))
-    kv = tap("kv", _gemm_bias(e2, w.wkv, w.bkv))
+    q = tap("q", _gemm_bias(t2, w.wq, w.bq, pair=w.pair("wq")))
+    kv = tap("kv", _gemm_bias(e2, w.wkv, w.bkv, pair=w.pair("wkv")))
     heads = tap("heads", _attention(q, kv[:, :hid], kv[:, hid:], n, n_heads,
                                     seed, rate, _SITE_ATTN))
     y, a1, midd, a2, z = _ffn_tail_cuda(heads, t2, w, seed, rate, keep, tap)
@@ -907,13 +938,13 @@ def _cross_bwd_cuda(t2, e2, dz2, w, n, seed, n_heads, rate, ln, tap):
 def _self_prologue_cuda(t2, w, n, seed, n_heads, rate, keep=False,
                         tap=_untapped):
     hid = t2.shape[1]
-    qkv = tap("qkv", _gemm_bias(t2, w.wsqkv, w.bsqkv))
+    qkv = tap("qkv", _gemm_bias(t2, w.wsqkv, w.bsqkv, pair=w.pair("wsqkv")))
     sheads = tap("sheads", _attention(qkv[:, :hid], qkv[:, hid:2 * hid],
                                       qkv[:, 2 * hid:], n, n_heads, seed,
                                       rate, _SITE_SA))
     t1, a0 = _gemm_res_ln(sheads, w.wso, w.bso, t2, w.g, w.b,
                           _site(seed, _SITE_SA_OUT, hid, rate, t2.dtype),
-                          pre=keep)
+                          pre=keep, pair=w.pair("wso"))
     if keep:
         t1, a0 = tap("t1", t1), tap("a0", a0)
     return t1, qkv, sheads, a0
@@ -922,7 +953,7 @@ def _self_prologue_cuda(t2, w, n, seed, n_heads, rate, keep=False,
 def _dec_fwd_cuda(trg, enc, w, seed, n_heads, rate):
     n, lq, hid = trg.shape
     t2 = trg.view(n * lq, hid)
-    if isinstance(w, DecLayerParams):
+    if isinstance(w.p, DecLayerParams):
         t2, _, _, _ = _self_prologue_cuda(t2, w, n, seed, n_heads, rate)
     f = _cross_fwd_cuda(t2, enc.view(-1, hid), w, n, seed, n_heads, rate)
     return f.z.view(n, lq, hid)
@@ -931,7 +962,7 @@ def _dec_fwd_cuda(trg, enc, w, seed, n_heads, rate):
 def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
     n, lq, hid = trg.shape
     t2, e2 = trg.view(n * lq, hid), enc.view(-1, hid)
-    with_self = isinstance(w, DecLayerParams)
+    with_self = isinstance(w.p, DecLayerParams)
     ln = _LnGrads(n * lq, hid, 3 if with_self else 2, trg.device)
     cross, st = _scoped(tap, "cross"), _scoped(tap, "self")
     if not with_self:
@@ -976,20 +1007,24 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
 
 def encoder_layer_train_cuda(x, p: EncoderLayerParams, seed: int,
                              n_heads: int, rate: float,
-                             emb_drop: bool = False, w=None):
-    """The K7 forward kernels on a CUDA ``x`` (bf16 or f32)."""
+                             emb_drop: bool = False, w=None,
+                             stem: bool = False):
+    """The K7 forward kernels on a CUDA ``x`` (bf16 or f32; ``stem``: the
+    layer that the stem feeds, as in :func:`encoder_layer_train`)."""
     n, l, _ = x.shape
     _check("encoder_layer_train", [("x", x)], p, n_heads, l)
     with torch.cuda.device(x.device):
         w = compute_weights(p, x.dtype) if w is None else w
-        z = _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop).z.view(x.shape)
+        z = _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop,
+                          stem=stem).z.view(x.shape)
     kernels.launches["encoder_layer_train"] += 1
     return z
 
 
 def encoder_layer_train_bwd_cuda(x, p: EncoderLayerParams, seed: int, dz,
                                  n_heads: int, rate: float,
-                                 emb_drop: bool = False, w=None, tap=None):
+                                 emb_drop: bool = False, w=None, tap=None,
+                                 stem: bool = False):
     """The K7 backward kernels: ``(dx, EncoderLayerParams of f32
     gradients)``."""
     n, l, _ = x.shape
@@ -997,7 +1032,7 @@ def encoder_layer_train_bwd_cuda(x, p: EncoderLayerParams, seed: int, dz,
     with torch.cuda.device(x.device):
         w = compute_weights(p, x.dtype) if w is None else w
         out = _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop,
-                            tap or _untapped)
+                            tap or _untapped, stem)
     kernels.launches["encoder_layer_train_bwd"] += 1
     return out
 
@@ -1039,21 +1074,21 @@ def decoder_layer_train_bwd_cuda(trg, enc, p, seed: int, dz, n_heads: int,
 
 class _EncoderLayerTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, n_heads, rate, emb_drop, *weights):
+    def forward(ctx, x, seed, n_heads, rate, emb_drop, stem, *weights):
         p = EncoderLayerParams(*weights)
         ctx.save_for_backward(x, *weights)
-        ctx.cfg = (seed, n_heads, rate, emb_drop)
+        ctx.cfg = (seed, n_heads, rate, emb_drop, stem)
         if x.device.type == "cpu":
             return encoder_layer_train_plain(x, p, seed, n_heads, rate,
                                              emb_drop)
         ctx.w = compute_weights(p, x.dtype)
         return encoder_layer_train_cuda(x, p, seed, n_heads, rate, emb_drop,
-                                        ctx.w)
+                                        ctx.w, stem)
 
     @staticmethod
     def backward(ctx, dz):
         x, *weights = ctx.saved_tensors
-        seed, n_heads, rate, emb_drop = ctx.cfg
+        seed, n_heads, rate, emb_drop, stem = ctx.cfg
         p = EncoderLayerParams(*weights)
         dz = dz.contiguous()
         if x.device.type == "cpu":
@@ -1061,8 +1096,9 @@ class _EncoderLayerTrain(torch.autograd.Function):
                                                    rate, emb_drop)
         else:
             dx, dp = encoder_layer_train_bwd_cuda(x, p, seed, dz, n_heads,
-                                                  rate, emb_drop, ctx.w)
-        return (dx, None, None, None, None, *dp)
+                                                  rate, emb_drop, ctx.w,
+                                                  stem=stem)
+        return (dx, None, None, None, None, None, *dp)
 
 
 class _DecoderLayerTrain(torch.autograd.Function):
@@ -1096,13 +1132,18 @@ class _DecoderLayerTrain(torch.autograd.Function):
 
 
 def encoder_layer_train(x, p: EncoderLayerParams, seed: int, n_heads: int,
-                        rate: float, emb_drop: bool = False):
+                        rate: float, emb_drop: bool = False,
+                        stem: bool = False):
     """Training forward of one self-attention block, differentiable wrt
     ``x`` and every field of ``p`` (float32). ``seed`` (a Python int in
     [0, 2**31)) drives the dropout masks; ``emb_drop`` also drops the
-    layer's input (site ``_SITE_EMB``)."""
+    layer's input (site ``_SITE_EMB``); ``stem`` marks the layer that the
+    stem feeds, whose float32 QKV runs on the CUDA cores in its forward
+    and its recompute, as the inference stem layer's does (the plain
+    version is the same function either way)."""
     return _EncoderLayerTrain.apply(x.contiguous(), int(seed), n_heads,
-                                    float(rate), bool(emb_drop), *p)
+                                    float(rate), bool(emb_drop), bool(stem),
+                                    *p)
 
 
 def decoder_layer_zero_train(trg, enc, p: DecZeroParams, seed: int,

@@ -1,16 +1,19 @@
-"""A/B two or more builds of the bf16 layer GEMMs in one run on the card:
-the forward's (``csrc/layer_fused.cu``: ``nylon_gemm_bias[_drop]``,
-``nylon_gemm_res_ln[_train]``) and the backward's (``csrc/
+"""A/B two or more builds of the layer GEMMs in one run on the card: the
+bf16 forward's (``csrc/layer_fused.cu``: ``nylon_gemm_bias[_drop]``,
+``nylon_gemm_res_ln[_train]``), the bf16 backward's (``csrc/
 layer_fused_train.cu``: ``nylon_gemm_nt``, the dX product, and
-``nylon_wgrad`` + ``nylon_reduce_rows``, the dW product).
+``nylon_wgrad`` + ``nylon_reduce_rows``, the dW product) and the float32
+forward's (``csrc/layer_fused_f32.cu``: ``nylon_gemm_bias[_drop]_f32``,
+``nylon_gemm_res_ln[_train]_f32``).
 
 Each variant is a directory holding ``layer_fused.cu``,
-``layer_fused_train.cu`` and the headers they include (a ``csrc/`` of some
-tree: the working tree's, a parent commit's unpacked with ``git archive``
-under ``build/``, a patched copy). Every source of every variant builds at
-once, one nvcc each, with ``kernels.NVCC_FLAGS``, into its own library
-under ``build/gemm_ab/`` (``NAME_fwd.so``, ``NAME_bwd.so``); they load side
-by side through ctypes, and are:
+``layer_fused_train.cu``, ``layer_fused_f32.cu``, ``mha_f32.cu`` and the
+headers they include (a ``csrc/`` of some tree: the working tree's, a
+parent commit's unpacked with ``git archive`` under ``build/``, a patched
+copy). Every source of every variant builds at once, one nvcc each, with
+``kernels.NVCC_FLAGS``, into its own library under ``build/gemm_ab/``
+(``NAME_fwd.so``, ``NAME_bwd.so``, ``NAME_f32.so``, ``NAME_attn32.so``);
+they load side by side through ctypes, and are:
 
 * held against the plain twins at small and ragged shapes: the forward's
   (``ops.layer_fused.gemm_bias_plain`` / ``gemm_res_ln_plain``, dropout
@@ -19,16 +22,28 @@ by side through ctypes, and are:
   sums (``weight_grad_plain``) no further from a float64 truth than twice
   the plain f32 twin's own distance + 1e-6 max |truth|; two runs
   bit-identical;
-* compared with the first variant bit for bit; with ``--same`` a forward
-  output that differs from the first variant's, or a forward GEMM whose
-  SASS (``cuobjdump -sass``) differs, fails the run. The first variant is
-  the one under test: its gates decide the exit code; the others' are
-  reported (the parent's ``wmma`` dW kernel does not pass the float64
-  gate);
+* the float32 forward GEMMs (``F32_CHECKS``: small, ragged and paper
+  shapes, every variant) held within 2e-5 of max(1, max |plain f32 twin|),
+  two runs bit-identical, with the kernel's and the plain twin's distances
+  from a float64 truth of the same operands printed. A variant's weight
+  form follows its source: the TF32 pair (two pointers, each half ``[N,
+  K]``) where ``layer_fused_f32.cu`` runs the ``wgmma`` mainloop, ``[K,
+  N]`` where it still holds the SIMT kernels;
+* compared with the first variant bit for bit; with ``--same`` a bf16
+  forward output that differs from the first variant's, or a bf16 forward
+  GEMM, an f32 dX / dW GEMM or an f32 attention kernel (``mha_f32.cu``)
+  whose SASS (``cuobjdump -sass``) differs, fails the run. The first
+  variant is the one under test: its gates decide the exit code; the
+  others' are reported (the parent's ``wmma`` dW kernel does not pass the
+  float64 gate);
 * timed at the GEMM shapes of the paper batch-32 forward and of the paper
   batch-8 training step's backward (its 43 dX and 43 dW products), in the
   order A B ... B A (CUDA events; the best of the two), beside bf16
-  ``torch.matmul`` of the same product and the bound.
+  ``torch.matmul`` of the same product and the bound; and the float32
+  forward GEMMs at the paper and the default widths' batch-32 shapes
+  beside f32 ``torch.matmul`` (IEEE f32: ``allow_tf32`` off), the bound
+  (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s) and the FFMA
+  bound (the products at 67 TFLOP/s).
 
 A variant's dW row chunks follow its own kernel: ``wgrad_plan`` for the
 ``wgmma`` kernel, the earlier rule (two waves of two 128 x 128 blocks an
@@ -57,10 +72,18 @@ from pathlib import Path
 
 ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
                    "nylon_gemm_res_ln", "nylon_gemm_res_ln_train"),
-           "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows")}
-SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu"}
-FWD_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel")
+           "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows"),
+           "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
+                   "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32"),
+           "attn32": ()}
+SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
+           "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu"}
+# the kernels whose SASS --same holds, by library
+SAME_KERNELS = {"fwd": ("gemm_bias_kernel", "gemm_res_ln_kernel"),
+                "f32": ("gemm_nt_f32_kernel", "wgrad_f32_kernel"),
+                "attn32": ("attn_fwd_f32_kernel", "attn_bwd_f32_kernel")}
 ULPS = 4
+F32_REL = 2e-5  # f32 GEMMs: of max(1, max |plain f32 twin|)
 
 # (kernel, M, K, N, ReLU, dropout, pre_out, out): one tile, ragged K, M and
 # N, several tiles a block at every tile width, the training variants
@@ -99,7 +122,36 @@ PAPER = [
     ("ln o note/time", 360448, 256, 256, 0, 8),
     ("ln ffn2 note/time", 360448, 512, 256, 0, 6),
 ]
+# the float32 forward GEMMs: (kernel, M, K, N, ReLU, dropout, pre_out,
+# out), small and ragged shapes of every tile width and variant, and one
+# paper shape of each product
+F32_CHECKS = [
+    ("bias", 128, 64, 64, 0, 0, 0, 1), ("bias", 200, 96, 288, 0, 0, 0, 1),
+    ("bias", 777, 160, 160, 1, 0, 0, 1), ("bias", 333, 36, 8, 1, 0, 0, 1),
+    ("bias", 5000, 256, 512, 1, 1, 0, 1), ("bias", 300001, 64, 192, 0, 0, 0, 1),
+    ("bias", 300000, 256, 768, 0, 0, 0, 1), ("bias", 90001, 96, 288, 0, 1, 0, 1),
+    ("ln", 128, 64, 64, 0, 0, 0, 1), ("ln", 333, 36, 8, 0, 0, 0, 1),
+    ("ln", 777, 160, 96, 0, 0, 0, 1), ("ln", 300000, 512, 256, 0, 0, 0, 1),
+    ("ln", 300001, 256, 256, 0, 0, 0, 1), ("ln", 300001, 128, 64, 0, 0, 0, 1),
+    ("ln", 5000, 256, 256, 0, 1, 1, 1), ("ln", 5000, 512, 256, 0, 1, 1, 0),
+    ("ln", 777, 96, 96, 0, 0, 1, 1), ("ln", 90001, 160, 96, 0, 1, 1, 1),
+]
+# (label, M, K, N, ReLU, launches per batch-32 forward) of the default
+# widths (hid 64, pf 128, 2 + 2 + 2 layers)
+DEFAULT = [
+    ("bias qkv freq", 1048576, 64, 192, 0, 2),
+    ("bias ffn1 freq", 1048576, 64, 128, 1, 2),
+    ("bias kv cross", 1048576, 64, 128, 0, 2),
+    ("bias q cross", 360448, 64, 64, 0, 2),
+    ("bias qkv note/time", 360448, 64, 192, 0, 3),
+    ("bias ffn1 note/time", 360448, 64, 128, 1, 4),
+    ("ln o freq", 1048576, 64, 64, 0, 2),
+    ("ln ffn2 freq", 1048576, 128, 64, 0, 2),
+    ("ln o note/time", 360448, 64, 64, 0, 5),
+    ("ln ffn2 note/time", 360448, 128, 64, 0, 4),
+]
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
+TF32_FLOPS, F32_FLOPS = 494.7e12, 67e12
 DROP_SEED, RATE = 77, 0.1
 
 
@@ -190,18 +242,24 @@ class Lib:
     def __init__(self, paths: dict, src: Path):
         from nylon_amt_tpu_torch import kernels
 
+        self.wmma = "wmma::" in (Path(src) / SOURCES["bwd"]).read_text()
+        # the f32 forward GEMMs read the weight as its TF32 pair, two
+        # pointers (wgmma), or the weight [K, N] itself, the bf16 entry
+        # points' arguments (the SIMT kernels)
+        self.tf32 = "RingTf32" in (Path(src) / SOURCES["f32"]).read_text()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for e in ENTRIES[part]:
-                getattr(lib, e).argtypes = kernels._SIGNATURES[e]
+                sig = kernels._SIGNATURES[
+                    e if self.tf32 or part != "f32" else e[:-len("_f32")]]
+                getattr(lib, e).argtypes = sig
                 getattr(lib, e).restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
         self.error_string = self.libs["fwd"].nylon_error_string
         self.error_string.argtypes = [ctypes.c_int]
         self.error_string.restype = ctypes.c_char_p
-        self.wmma = "wmma::" in (Path(src) / SOURCES["bwd"]).read_text()
 
     def _call(self, part, name, *args):
         status = getattr(self.libs[part], name)(*args)
@@ -211,38 +269,55 @@ class Lib:
             msg = self.error_string(status).decode()
             raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
-    def bias(self, a, w, b, relu=0, site=None):
+    def _fwd(self, a, w, pair):
+        """(library part, entry suffix, the weight's pointers as this
+        variant reads it)."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops.layer_fused import tf32_pair
+
+        if a.dtype != torch.float32:
+            return "fwd", "", (w.data_ptr(),)
+        if not self.tf32:
+            return "f32", "_f32", (w.data_ptr(),)
+        halves = tf32_pair(w) if pair is None else pair
+        return "f32", "_f32", tuple(h.data_ptr() for h in halves)
+
+    def bias(self, a, w, b, relu=0, site=None, pair=None):
         import torch
 
         (m, k), n = a.shape, w.shape[1]
+        part, sfx, wk = self._fwd(a, w, pair)
         out = torch.empty((m, n), dtype=a.dtype, device=a.device)
         s = torch.cuda.current_stream().cuda_stream
-        args = (a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                n, k, relu)
+        args = (a.data_ptr(), *wk, b.data_ptr(), out.data_ptr(), m, n, k,
+                relu)
         if site is None:
-            self._call("fwd", "nylon_gemm_bias", *args, s)
+            self._call(part, "nylon_gemm_bias" + sfx, *args, s)
         else:
-            self._call("fwd", "nylon_gemm_bias_drop", *args, *site, s)
+            self._call(part, "nylon_gemm_bias_drop" + sfx, *args, *site, s)
         return [out]
 
-    def res_ln(self, a, w, b, res, g, be, site=None, pre=0, out=1):
+    def res_ln(self, a, w, b, res, g, be, site=None, pre=0, out=1,
+               pair=None):
         import torch
 
         from nylon_amt_tpu_torch.ops.layer_fused_train import _NO_SITE
 
         (m, k), n = a.shape, w.shape[1]
+        part, sfx, wk = self._fwd(a, w, pair)
         s = torch.cuda.current_stream().cuda_stream
         y = torch.empty((m, n), dtype=a.dtype, device=a.device) if out \
             else None
         p = torch.empty((m, n), dtype=a.dtype, device=a.device) if pre \
             else None
-        ptrs = (a.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
+        ptrs = (a.data_ptr(), *wk, b.data_ptr(), res.data_ptr(),
                 g.data_ptr(), be.data_ptr())
         if site is None and not pre:
-            self._call("fwd", "nylon_gemm_res_ln", *ptrs, y.data_ptr(), m, n,
-                       k, 1e-5, s)
+            self._call(part, "nylon_gemm_res_ln" + sfx, *ptrs, y.data_ptr(),
+                       m, n, k, 1e-5, s)
         else:
-            self._call("fwd", "nylon_gemm_res_ln_train", *ptrs,
+            self._call(part, "nylon_gemm_res_ln_train" + sfx, *ptrs,
                        None if y is None else y.data_ptr(),
                        None if p is None else p.data_ptr(), m, n, k, 1e-5,
                        int(site is not None), *(site or _NO_SITE), s)
@@ -291,17 +366,25 @@ class Lib:
         return [dw, db]
 
 
-def inputs(m, k, n, seed=0):
+def inputs(m, k, n, seed=0, dtype=None):
+    """A GEMM's operands in ``dtype`` (bf16 unless given); for float32 also
+    the weight's TF32 pair (``pair``)."""
     import torch
 
+    from nylon_amt_tpu_torch.ops.layer_fused import tf32_pair
+
+    dt = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
-    return dict(a=r(m, k).bfloat16(), w=(r(k, n) / math.sqrt(k)).bfloat16(),
-                b=(0.1 * r(n)).bfloat16(), res=r(m, n).bfloat16(),
-                g=1.0 + 0.1 * r(n), be=0.1 * r(n))
+    x = dict(a=r(m, k).to(dt), w=(r(k, n) / math.sqrt(k)).to(dt),
+             b=(0.1 * r(n)).to(dt), res=r(m, n).to(dt),
+             g=1.0 + 0.1 * r(n), be=0.1 * r(n))
+    if dt == torch.float32:
+        x["pair"] = tf32_pair(x["w"])
+    return x
 
 
 def bwd_inputs(case, seed=0):
@@ -335,9 +418,9 @@ def bwd_inputs(case, seed=0):
 def _run(lib: Lib, case, x, site):
     kind, relu, pre, out = case[0], case[4], case[6], case[7]
     if kind == "bias":
-        return lib.bias(x["a"], x["w"], x["b"], relu, site)
+        return lib.bias(x["a"], x["w"], x["b"], relu, site, x.get("pair"))
     return lib.res_ln(x["a"], x["w"], x["b"], x["res"], x["g"], x["be"],
-                      site, pre, out)
+                      site, pre, out, x.get("pair"))
 
 
 def _run_bwd(lib: Lib, case, x):
@@ -448,28 +531,113 @@ def check(libs: dict) -> tuple[dict, dict, dict]:
     return ok, ran, differ
 
 
-def fwd_sass(libs_paths: dict) -> dict:
-    """``{name: {forward GEMM instantiation: its SASS}}`` of each variant's
-    forward library (``cuobjdump -sass``), the names stripped of the
-    anonymous namespace's per-build tag."""
+def f64_twin(case, x, site):
+    """The float64 truth of an f32 GEMM case on the same f32 operands (the
+    plain twins' op sequence with every rounding dropped)."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops.layer_fused import _site_mask
+
+    kind, relu, pre, out = case[0], case[4], case[6], case[7]
+    d = {k: v.double() for k, v in x.items() if k != "pair"}
+    y = d["a"] @ d["w"] + d["b"]
+    if relu:
+        y = torch.relu(y)
+    if site is not None:
+        y = y * _site_mask(site, y)
+    if kind == "bias":
+        return [y]
+    s = d["res"] + y
+    mu = s.mean(-1, keepdim=True)
+    var = (s - mu).square().mean(-1, keepdim=True)
+    z = (s - mu) / torch.sqrt(var + 1e-5) * d["g"] + d["be"]
+    return ([z] if out else []) + ([s] if pre else [])
+
+
+def check_f32(libs: dict) -> dict:
+    """Hold every variant's f32 forward GEMMs at F32_CHECKS within F32_REL
+    of max(1, max |plain f32 twin|), two runs bit-identical; prints the
+    kernel's and the twin's distances from the float64 truth (of max(1,
+    max |truth|)). Returns ``{name: passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    def rel(got, want):
+        top = max(1.0, want.double().abs().max().item())
+        return (got.double() - want.double()).abs().max().item() / top
+
+    ok = {name: True for name in libs}
+    f32 = torch.float32
+    for case in F32_CHECKS:
+        kind, m, k, n, relu, drop, pre, out = case
+        x = inputs(m, k, n, seed=m + k + n + 1, dtype=f32)
+        site = lft._site(DROP_SEED, 3, n, RATE, f32) if drop else None
+        with full_f32():
+            if kind == "bias":
+                want = [lf.gemm_bias_plain(x["a"], x["w"], x["b"], relu,
+                                           site)]
+            else:
+                y, p = lf.gemm_res_ln_plain(x["a"], x["w"], x["b"], x["res"],
+                                            x["g"], x["be"], site)
+                want = ([y] if out else []) + ([p] if pre else [])
+        truth = f64_twin(case, x, site)
+        plain64 = max(rel(w_, t) for w_, t in zip(want, truth))
+        for name, lib in libs.items():
+            try:
+                got, again = _run(lib, case, x, site), _run(lib, case, x,
+                                                            site)
+                torch.cuda.synchronize()
+            except Refused:
+                print(f"f32 {name} {case}: refused", flush=True)
+                continue
+            except RuntimeError as e:
+                print(f"f32 {name} {case}: {e}", flush=True)
+                ok[name] = False
+                continue
+            err = max(rel(g_, w_) for g_, w_ in zip(got, want))
+            e64 = max(rel(g_, t) for g_, t in zip(got, truth))
+            same = _equal(got, again)
+            ok[name] &= err <= F32_REL and same
+            print(f"f32 {name} {case}: {err:.3e} of max(1, |plain f32|) "
+                  f"(<= {F32_REL}); from float64 kernel {e64:.3e}, plain f32 "
+                  f"{plain64:.3e}; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        del x, want, truth
+    for name in libs:
+        print(f"f32 {name}: {'passed' if ok[name] else 'FAILED'}",
+              flush=True)
+    return ok
+
+
+def sass(libs_paths: dict) -> dict:
+    """``{name: {instantiation: its SASS}}`` of each variant's SAME_KERNELS
+    (``cuobjdump -sass`` of the library that holds them), the names
+    stripped of the anonymous namespace's per-build tag."""
     from nylon_amt_tpu_torch import kernels
 
     tool = Path(kernels.find_nvcc()).parent / "cuobjdump"
     out = {}
     for name, paths in libs_paths.items():
-        text = subprocess.run([str(tool), "-sass", str(paths["fwd"])],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        funcs, cur = {}, None
-        for ln in text.splitlines():
-            if "Function :" in ln:
-                fn = ln.split("Function :")[1].strip()
-                cur = None
-                if any(k in fn for k in FWD_KERNELS):
-                    cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", fn)
-                    funcs[cur] = []
-            elif cur is not None and ln.strip():
-                funcs[cur].append(ln.strip())
+        funcs = {}
+        for part, kernels_ in SAME_KERNELS.items():
+            text = subprocess.run([str(tool), "-sass", str(paths[part])],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            cur = None
+            for ln in text.splitlines():
+                if "Function :" in ln:
+                    fn = ln.split("Function :")[1].strip()
+                    cur = None
+                    if any(k in fn for k in kernels_):
+                        cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
+                                     fn)
+                        funcs[cur] = []
+                elif cur is not None and ln.strip():
+                    # (cuobjdump pads the columns to the file's widest line)
+                    funcs[cur].append(" ".join(ln.split()))
         out[name] = funcs
     return out
 
@@ -573,11 +741,49 @@ def timing(libs: dict) -> None:
             f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
 
 
+def timing_f32(libs: dict) -> None:
+    """Each variant's f32 forward GEMMs at PAPER and DEFAULT, A B .. B A,
+    beside f32 torch.matmul (IEEE), the bound and the FFMA bound; and the
+    totals of one forward."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    names = list(libs)
+    for geo, table in (("paper", PAPER), ("default", DEFAULT)):
+        total = dict.fromkeys(names + ["bound", "matmul", "ffma"], 0.0)
+        for label, m, k, n, relu, count in table:
+            x = inputs(m, k, n, dtype=torch.float32)
+            ln = label.startswith("ln")
+            case = ("ln" if ln else "bias", m, k, n, relu, 0, 0, 1)
+            ms = _abba(names, lambda name: _run(libs[name], case, x, None))
+            with full_f32():
+                mm = cuda_ms(lambda: x["a"] @ x["w"])
+            nbytes = 4 * (m * k + 2 * k * n + m * n) + (4 * m * n if ln
+                                                        else 0)
+            flops = 2 * m * k * n
+            bound = max(nbytes / HBM_BPS, 3 * flops / TF32_FLOPS) * 1e3
+            ffma = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
+            _line(f"f32 {geo} {label}", f"[{m},{k},{n}]", count, ms, bound,
+                  f"f32 matmul {mm:.3f}, FFMA bound {ffma:.3f}")
+            for name, t in ms.items():
+                total[name] += count * t
+            total["bound"] += count * bound
+            total["matmul"] += count * mm
+            total["ffma"] += count * ffma
+            del x
+            torch.cuda.empty_cache()
+        print(f"time of one f32 {geo} forward's GEMMs (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="+", metavar="NAME=CSRC_DIR")
     ap.add_argument("--out", default="build/gemm_ab")
     ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--f32", action="store_true",
+                    help="time the float32 forward GEMMs only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -596,21 +802,23 @@ def main(argv=None) -> int:
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
     ok, ran, differ = check(libs)
+    ok32 = check_f32(libs)
     same = True
     if args.same and len(libs) > 1:
-        sass = fwd_sass({name: built[name] for name in libs})
-        first = next(iter(sass))
-        for name, funcs in sass.items():
+        code = sass({name: built[name] for name in libs})
+        first = next(iter(code))
+        for name, funcs in code.items():
             if name == first:
                 continue
-            alike = sum(funcs.get(k) == v for k, v in sass[first].items())
-            same &= (alike == len(sass[first]) == len(funcs)
+            alike = sum(funcs.get(k) == v for k, v in code[first].items())
+            same &= (alike == len(code[first]) == len(funcs)
                      and not differ[name])
-            print(f"same {name}: forward GEMM SASS identical to {first}'s in "
-                  f"{alike} of {len(sass[first])} instantiations; forward "
-                  f"outputs differ in {differ[name]} of {len(CHECKS)} cases",
-                  flush=True)
-            for k, v in sass[first].items():
+            print(f"same {name}: SASS of the bf16 forward GEMMs, the f32 dX "
+                  f"/ dW GEMMs and the f32 attention identical to {first}'s "
+                  f"in {alike} of {len(code[first])} instantiations; bf16 "
+                  f"forward outputs differ in {differ[name]} of "
+                  f"{len(CHECKS)} cases", flush=True)
+            for k, v in code[first].items():
                 w = funcs.get(k, [])
                 if w != v:
                     i = next((i for i, (x, y) in enumerate(zip(v, w))
@@ -624,8 +832,11 @@ def main(argv=None) -> int:
     # to them and reported)
     good = {name: lib for name, lib in libs.items() if ran[name]}
     if good and not args.no_time:
-        timing(good)
-    first_ok = bool(libs) and ok[next(iter(libs))]
+        timing_f32(good)
+        if not args.f32:
+            timing(good)
+    first_ok = bool(libs) and ok[next(iter(libs))] \
+        and ok32[next(iter(libs))]
     return 0 if len(good) == len(variants) and first_ok and same else 1
 
 
