@@ -14,10 +14,17 @@ non-zero and never prints the last line):
     (``gemm_bias_f32_kernel``, ``gemm_res_ln_f32_kernel``: 3xTF32) spill
     nothing and use no stack in ``ptxas -v``, and where the toolkit has
     ``cuobjdump`` their SASS holds HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions;
+    instructions; the TMA-fed kernels of the f32-exact products
+    (``log_mel_kernel`` of ``csrc/log_mel.cu``, on the FP64 tensor cores,
+    and ``gemm_bias_ffma_kernel`` of ``csrc/layer_fused_f32.cu``, the stem
+    QKV on the CUDA cores) likewise spill nothing, use no stack, and hold
+    UTMALDG and DMMA (K1) or FFMA (the QKV) instructions;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
-    seeded audio and on a quiet variant of it (see the check), and the
-    kernel's and the plain version's times;
+    seeded audio, on a quiet variant of it (see the check) and on 10 s of
+    other audio (the card's partial wave), two runs bit-identical; the
+    kernel's and the plain f32 version's float64 distances; the kernel's
+    time beside its bound, the plain version's and the CUDA-core kernel's
+    it replaced (K1_SIMT_MS);
 (c) K2, K3, K4 and K5 against their plain versions at the shapes of a
     batch-32 paper-scale bf16 forward (K2 on random and on the real
     windows): the bf16 gate against the plain f32 truth, at most 4 bf16 ulps
@@ -102,7 +109,9 @@ non-zero and never prints the last line):
     the paper widths, under the same limits (ReLU gate flips aside), with
     (h)'s stage hook (every backward kernel on the twin's inputs within
     1e-5 of the twin's stage); K7 also as training runs it on the stem's
-    output (its QKV on FFMA), and at rate 0 with its float64 distance;
+    output (its QKV on FFMA, its attention backward's scores on FFMA: that
+    stage too within 1e-5 of the twin's), and at rate 0 with its float64
+    distance;
     K2-K5's and the plain f32 version's
     distances from a float64 truth (``layer64``); times beside f32
     ``torch.matmul`` of the layer's GEMMs; (n.3) K13 at head_dim 32 in
@@ -139,10 +148,11 @@ non-zero and never prints the last line):
 (q) the f32 forward GEMMs alone (``gemm_bias_f32_kernel``,
     ``gemm_res_ln_f32_kernel`` of ``csrc/layer_fused_f32.cu``: 3xTF32 on
     ``wgmma``) at every (M, K, N) and variant of (o) in float32, and the
-    stem layer's QKV GEMM on FFMA (``gemm_bias_ffma_f32_kernel``) at its
+    stem layer's QKV GEMM on FFMA (``gemm_bias_ffma_kernel``, TMA-fed) at its
     shapes: within 2e-5 of max(1, max |plain f32 twin|), ``pre_out``
     likewise, two runs bit-identical, with the kernel's and the twin's
-    distances from a float64 truth; per shape the kernel's time beside its
+    distances from a float64 truth (the QKV's within twice the twin's + 4
+    f32 ulps of max(1, max |truth|)); per shape the kernel's time beside its
     bound (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s; FFMA's
     at 67 TFLOP/s), the FFMA bound, f32 ``torch.matmul`` (IEEE f32) and
     the plain twin; the three kernels' rows of the JSON line: the paper
@@ -167,8 +177,9 @@ from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
 1,979 TOP/s int8 for K13's products, 494.7 / 3 TFLOP/s for the f32
 attention's 3xTF32 products (PV, and every backward product), 67 TFLOP/s
-for K1's and the stem's f32 and f64 work, the f32 attention's scores and
-K12's mask hashes: the H100 SXM's published rates).
+for the FP64 tensor cores' products (K1's DFT), the stem's and the stem
+QKV's f32 work, the f32 attention's scores and K12's mask hashes: the H100
+SXM's published rates).
 The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,7 +253,13 @@ Q8_FORWARD_REL = 1.5
 HBM_BPS = 3.35e12   # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12  # dense bf16 tensor cores
 INT8_OPS = 1979e12   # dense int8 tensor cores
-F32_FLOPS = 67e12    # f32 (and K1's f64 work) outside the tensor cores
+F32_FLOPS = 67e12    # f32 outside the tensor cores
+F64_FLOPS = 67e12    # the FP64 tensor cores (DMMA: K1's DFT)
+F32_EPS = 2.0 ** -23  # an f32 ulp at 1
+# Time of csrc/log_mel.cu's CUDA-core kernel (f64 FMA on 4 x 4 register
+# tiles) that the FP64 tensor-core one replaced, on (b)'s 120 s audio (ms;
+# PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W)
+K1_SIMT_MS = 6.838
 TF32_FLOPS = 494.7e12  # dense TF32 tensor cores: 3xTF32 takes three a product
 
 
@@ -359,13 +376,16 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
 
 
 def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0,
-          int8_ops: float = 0.0, tf32x3_flops: float = 0.0) -> dict:
+          int8_ops: float = 0.0, tf32x3_flops: float = 0.0,
+          f64_flops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or
     operations over the peak rate of their type, whichever is larger
-    (``tf32x3_flops``: f32 products taken as three TF32 products each)."""
+    (``tf32x3_flops``: f32 products taken as three TF32 products each;
+    ``f64_flops``: on the FP64 tensor cores)."""
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = (flops / BF16_FLOPS + f32_flops / F32_FLOPS
-             + int8_ops / INT8_OPS + tf32x3_flops / (TF32_FLOPS / 3)) * 1e3
+             + int8_ops / INT8_OPS + tf32x3_flops / (TF32_FLOPS / 3)
+             + f64_flops / F64_FLOPS) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -2354,13 +2374,13 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
     kernel fed the twin's own intermediates within F32_STAGE_REL of the
     twin's same stage, its weight gradients within STAGE_WGRAD_REL.
     "encoder_layer_train/stem" is K7 as training runs it on the stem's
-    output of the real windows ``spec`` (its QKV on FFMA); at rate 0 it is
-    also held within F32_OUT_REL of the plain twin, with both distances
-    from the float64 layer printed; its gradients are held against a
-    float64 truth of the twin instead (within twice the twin's own
-    distance + 1e-6, as (p) holds dW), and its stage hook over every
-    stage but the attention backward's, whose distance is printed.
-    Returns the times."""
+    output of the real windows ``spec`` (its QKV on FFMA, its attention
+    backward's scores on FFMA); at rate 0 it is also held
+    within F32_OUT_REL of the plain twin, with both distances from the
+    float64 layer printed; its gradients are held against a float64 truth
+    of the twin instead (within twice the twin's own distance + 1e-6, as
+    (p) holds dW), and its stage hook over every stage, the attention
+    backward's (printed on its own) included. Returns the times."""
     from nylon_amt_tpu_torch.ops.precision import full_f32
 
     m = cfg.model
@@ -2485,11 +2505,11 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
                                  f"{sorted(seen)}, {STAGES[kind]} expected")
         stage = {k: rel_err(a, b) for k, (a, b) in seen.items()}
         if stem:
-            # the f32 attention backward on the stem's scores (near 2^14)
-            # reads past F32_STAGE_REL from the twin's: printed, and the
-            # end-to-end gradients held to float64 above
+            # the f32 attention backward on the stem's scores (near 2^14),
+            # which it recomputes on FFMA as the forward computes them
             zero64 += (f"; attention backward on the twin's inputs "
-                       f"{stage.pop('dqkv'):.2e} from the twin's dqkv")
+                       f"{stage['dqkv']:.2e} from the twin's dqkv (<= "
+                       f"{F32_STAGE_REL})")
         worst = max(stage, key=stage.get)
         sw = max(rel_err(a, b) for a, b in zip(s_w, p_w))
         if not (stage[worst] <= F32_STAGE_REL and sw <= STAGE_WGRAD_REL):
@@ -2508,11 +2528,12 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
         # a = one attention product. The forward: its GEMMs and PV as
         # 3xTF32, its scores on FFMA. The backward recomputes the forward
         # and adds 5 attention products (3xTF32) and the GEMMs' dX and dW
-        # (FFMA). The layer the stem feeds has its QKV on FFMA, forward
-        # and recompute.
+        # (FFMA). The layer the stem feeds has its QKV on FFMA, forward and
+        # recompute, and its backward's S^T on FFMA.
         a = attn_product_flops(kind, n, lq, lk, hid)
         gemm = flops - 2 * a
         qkv = 2 * n * lq * hid * 3 * hid if stem else 0
+        s_ffma = a if stem else 0
         w_bytes, io_bytes = nbytes(*p), nbytes(*xs)
         gemms = layer_gemms(kind, n, lq, lk, hid, pf)
         results[name] = dict(
@@ -2524,8 +2545,8 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
             max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
             library_ms=mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
             **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
-                    f32_flops=2 * gemm + a + qkv,
-                    tf32x3_flops=gemm - qkv + 6 * a))
+                    f32_flops=2 * gemm + a + s_ffma + qkv,
+                    tf32x3_flops=gemm - qkv + 6 * a - s_ffma))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
             f"{RATE}: fwd {e:.2e}, input grads {e_in:.2e} ({n_flips} ReLU "
             f"gates flipped, within {near:.2e} of 0; {int(clean.sum())} of "
@@ -3079,6 +3100,10 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
 GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel", "gemm_nt_kernel",
                 "wgrad_kernel", "gemm_bias_f32_kernel",
                 "gemm_res_ln_f32_kernel")
+# the TMA-fed kernels of the f32-exact products and the instructions their
+# SASS must hold: K1's DFT on the FP64 tensor cores (mma.sync .f64), the
+# stem layer's QKV on FFMA
+RING_KERNELS = {"log_mel_kernel": "DMMA", "gemm_bias_ffma_kernel": "FFMA"}
 # (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
 # decoder and time layers, training forward): the paper batch-32 forward,
 # the paper batch-8 training forward (dropout 0.1: the forward, then the
@@ -3131,13 +3156,13 @@ def gemm_cases(mf, mq, hid, pf, n_enc, n_dec, n_time, train,
     return cases
 
 
-def gemm_ptxas(log_text: str) -> dict:
-    """Registers and spill bytes of every instantiation of the two GEMM
-    kernels, from the build's ``ptxas -v`` log."""
+def gemm_ptxas(log_text: str, names=GEMM_KERNELS) -> dict:
+    """Registers and spill bytes of every instantiation of the kernels
+    ``names``, from the build's ``ptxas -v`` log."""
     out, fn = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
-            fn = next((k for k in GEMM_KERNELS if k in ln), None)
+            fn = next((k for k in names if k in ln), None)
             name = ln.split("'")[1] if fn else None
         elif fn and "spill stores" in ln:
             spill = [int(w) for w in ln.replace(",", "").split()
@@ -3167,21 +3192,23 @@ def start_sass(lib: Path):
     return proc
 
 
-def gemm_sass(proc, lib: Path) -> dict:
-    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-    instantiation of the two GEMM kernels, from the ``cuobjdump -sass`` run
-    that ``start_sass`` started."""
+def gemm_sass(proc, lib: Path, names=GEMM_KERNELS,
+              ops=("HGMMA", "UTMALDG")) -> dict:
+    """Counts of the instructions ``ops`` (HGMMA: wgmma; DMMA: mma.sync
+    .f64; UTMALDG: TMA load) in each instantiation of the kernels
+    ``names``, from the ``cuobjdump -sass`` run that ``start_sass``
+    started."""
     if proc.wait(timeout=600):
         raise AssertionError(f"cuobjdump -sass {lib}: exit {proc.returncode}")
     counts, name = {}, None
     for ln in (lib.parent / "sass.txt").read_text().splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            name = name if any(k in name for k in GEMM_KERNELS) else None
+            name = name if any(k in name for k in names) else None
             if name:
-                counts[name] = dict(HGMMA=0, UTMALDG=0)
+                counts[name] = dict.fromkeys(ops, 0)
         elif name:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 counts[name][op] += op in ln
     return counts
 
@@ -3424,14 +3451,15 @@ def check_bwd_gemms(dev, card: str) -> None:
 def check_gemms_f32(dev, card: str) -> dict:
     """(q): gemm_bias_f32_kernel and gemm_res_ln_f32_kernel (3xTF32 wgmma,
     csrc/layer_fused_f32.cu), and the stem layer's QKV GEMM on the CUDA
-    cores (gemm_bias_ffma_f32_kernel), alone at every (M, K, N) and variant
+    cores (gemm_bias_ffma_kernel), alone at every (M, K, N) and variant
     of GEMM_GEOMETRIES in float32: the paper batch-32 forward, the paper
     batch-8 training forward (dropout sites, ``pre_out``, ``out`` None), the
     default ``Config()`` widths' batch-32 forward, hid 96 / pf 160 with
     ragged M. Each within F32_OUT_REL of max(1, max |plain f32 twin|)
     (``gemm_bias_plain`` / ``gemm_res_ln_plain``), ``pre_out`` likewise,
     two runs bit-identical; the kernel's and the twin's distances from a
-    float64 truth of the same operands; the kernel's time beside its bound
+    float64 truth of the same operands, the QKV's gated within twice the
+    twin's + 4 f32 ulps; the kernel's time beside its bound
     (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s), the FFMA bound
     (the products at 67 TFLOP/s) and f32 ``torch.matmul`` (IEEE f32) of
     the same product, which the port never calls. The weight's TF32 pair
@@ -3515,6 +3543,13 @@ def check_gemms_f32(dev, card: str) -> dict:
                                    again[key].view(torch.int32)):
                     raise AssertionError(f"(q) {kern} {geo} {label} {key}: "
                                          f"two runs differ")
+                # the QKV's fmaf chain is not the twin's summation order:
+                # from float64 within twice the twin's distance + 4 f32 ulps
+                if ffma and not e64 <= 2 * p64 + 4 * F32_EPS:
+                    raise AssertionError(
+                        f"(q) {kern} {geo} {label} [{m},{k},{n}] {key}: "
+                        f"{e64:.2e} from float64 > twice the plain f32 "
+                        f"twin's {p64:.2e} + {4 * F32_EPS:.1e}")
                 worst = max(worst, e)
                 gates.append(f"{key} {e:.2e} of max(1, |plain f32|), from "
                              f"float64 kernel {e64:.2e}, plain {p64:.2e}")
@@ -3618,6 +3653,15 @@ def main() -> int:
     log(f"(a) {len(gemms)} instantiations of {', '.join(GEMM_KERNELS)}: no "
         f"spills, no stack, {min(v['regs'] for v in gemms.values())}-"
         f"{max(v['regs'] for v in gemms.values())} registers")
+    rings = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
+                       tuple(RING_KERNELS))
+    if {v["kernel"] for v in rings.values()} != set(RING_KERNELS) or any(
+            v["spill"] or v["stack"] for v in rings.values()):
+        raise AssertionError(f"(a) the TMA-ring kernels in ptxas -v: {rings}")
+    log(f"(a) {len(rings)} instantiations of {', '.join(RING_KERNELS)}: no "
+        f"spills, no stack, " + ", ".join(
+            f"{v['kernel']} {v['regs']}" for v in rings.values())
+        + " registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -3626,17 +3670,21 @@ def main() -> int:
     # The f32 DFT of the lowest mel bins of zero-mean audio is a sum with
     # heavy cancellation: there, any two f32 summation orders (the kernel's
     # and cuBLAS's) differ by more than 2e-4 in log-mel. So the kernel is
-    # held within 2e-4 of a float64 truth, on the smoke's audio and on a
-    # quiet variant (noise floor 0.01), where the cancellation is worst.
+    # held within 2e-4 of a float64 truth, on the smoke's audio, on a quiet
+    # variant (noise floor 0.01), where the cancellation is worst, and on 10
+    # s of other audio (fewer blocks than the card holds at once).
     cfg = Config(model=dataclasses.replace(ModelConfig.paper_scale(),
                                            compute_dtype="bfloat16"))
     fe = MelFrontend(cfg.feature, dev)
     audio = synth_audio(AUDIO_SEC, rng)
     quiet = synth_audio(AUDIO_SEC, np.random.default_rng(SEED + 1), 0.01)
+    short = synth_audio(10.0, np.random.default_rng(SEED + 2))
     k1 = {}
-    for label, samples in (("main", audio), ("quiet", quiet)):
+    for label, samples in (("main", audio), ("quiet", quiet),
+                           ("short", short)):
         w = torch.from_numpy(samples).to(dev)
         got = log_mel(w, fe)
+        again = log_mel(w, fe)
         ref = log_mel_plain(w, fe)
         frames = fe.frame(w).double()
         re, im = frames @ fe.cos_w.double().T, frames @ fe.sin_w.double().T
@@ -3646,31 +3694,51 @@ def main() -> int:
         err64 = (got.double() - ref64).abs().max().item()
         k1[label] = dict(
             err64=err64, plain_err64=(ref.double() - ref64).abs().max().item(),
-            diff=(got - ref).abs().max().item())
+            diff=(got - ref).abs().max().item(), frames=got.shape[0])
         if got.shape != ref64.shape or not err64 <= K1_ATOL:
             raise AssertionError(f"K1 log_mel ({label} audio): shape "
                                  f"{tuple(got.shape)} vs {tuple(ref.shape)}, "
                                  f"{err64} from float64 (atol {K1_ATOL})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 log_mel ({label} audio): two runs "
+                                 f"differ")
     held("log_mel", torch.float32)
     wav = torch.from_numpy(audio).to(dev)
+    got = log_mel(wav, fe)
     ms = cuda_ms(lambda: log_mel(wav, fe), iters=10)
     plain_ms = cuda_ms(lambda: log_mel_plain(wav, fe), iters=10)
-    n_freq, n_fft = fe.cos_w.shape
+    w_short = torch.from_numpy(short).to(dev)
+    short_ms = cuda_ms(lambda: log_mel(w_short, fe), iters=10)
+    # the work the function needs: the DFT of the bins from the first to
+    # the last filterbank row with mel weight (f64), then their power and
+    # the gather of the filterbank's non-zeros (f32)
+    n_fft = fe.cos_w.shape[1]
     t_frames, n_mels = got.shape
+    weighted = fe.fb != 0
+    rows = weighted.any(1).nonzero().flatten().tolist()
+    n_bins = rows[-1] - rows[0] + 1
+    nnz = int(weighted.sum())
     results["log_mel"] = dict(
         max_abs_err=k1["main"]["err64"], ms=ms, plain_ms=plain_ms,
         **bound(nbytes(wav, got, *fe.kernel_bases),
-                f32_flops=2 * t_frames * n_fft * n_freq * 2
-                + 2 * t_frames * n_freq * n_mels),
+                f64_flops=2 * 2 * t_frames * n_fft * n_bins,
+                f32_flops=t_frames * (3 * n_bins + 2 * nnz)),
         library_ms=None,
         gate=f"atol {K1_ATOL} from float64 (main {k1['main']['err64']:.3e}, "
-             f"quiet {k1['quiet']['err64']:.3e})")
+             f"quiet {k1['quiet']['err64']:.3e}, short "
+             f"{k1['short']['err64']:.3e}); reruns bit-identical")
     for label, r in k1.items():
-        log(f"(b) K1 log_mel, {label} audio [{wav.shape[0]}] -> "
-            f"[{got.shape[0]}, {got.shape[1]}]: from float64 kernel "
-            f"{r['err64']:.3e} (atol {K1_ATOL}), plain f32 "
-            f"{r['plain_err64']:.3e}; kernel vs plain {r['diff']:.3e}")
-    log(f"(b) K1 log_mel: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        log(f"(b) K1 log_mel, {label} audio -> [{r['frames']}, {n_mels}]: "
+            f"from float64 kernel {r['err64']:.3e} (atol {K1_ATOL}), plain "
+            f"f32 {r['plain_err64']:.3e}; kernel vs plain {r['diff']:.3e}; "
+            f"bit-identical reruns")
+    log(f"(b) K1 log_mel, {AUDIO_SEC:.0f} s: kernel {ms:.3f} ms, bound "
+        f"{results['log_mel']['bound_ms']:.3f} ms "
+        f"({results['log_mel']['bound_ms'] / ms:.1%}; bins {rows[0]}.."
+        f"{rows[-1]}, {nnz} filterbank non-zeros), plain f32 "
+        f"{plain_ms:.3f} ms, the CUDA-core kernel it replaced "
+        f"{K1_SIMT_MS:.3f} ms (PERF.md); 10 s: kernel {short_ms:.3f} ms; "
+        f"card {card}")
 
     # the batch of windows of (c)'s K2 check and of (e), from the features
     feat = fe(wav)
@@ -3839,6 +3907,17 @@ def main() -> int:
             f"{max(v['HGMMA'] for v in sass.values())}, UTMALDG "
             f"{min(v['UTMALDG'] for v in sass.values())}-"
             f"{max(v['UTMALDG'] for v in sass.values())} a kernel")
+        sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME,
+                         tuple(RING_KERNELS), ("DMMA", "FFMA", "UTMALDG"))
+        want = {k: next(op for n, op in RING_KERNELS.items() if n in k)
+                for k in sass}
+        if len(sass) != len(rings) or any(
+                not v[want[k]] or not v["UTMALDG"] for k, v in sass.items()):
+            raise AssertionError(f"(a) SASS of the TMA-ring kernels: {sass}")
+        log("(a) SASS of the TMA-ring kernels (cuobjdump): " + "; ".join(
+            f"{rings[k]['kernel'] if k in rings else k[:40]}: "
+            f"{want[k]} {v[want[k]]}, UTMALDG {v['UTMALDG']}"
+            for k, v in sass.items()))
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))

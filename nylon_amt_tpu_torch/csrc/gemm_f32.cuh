@@ -1,11 +1,11 @@
 // The float32 product core of the port's GEMM kernels (sm_90a).
 //
 // The float32 GEMMs of layer_fused_f32.cu that multiply on the CUDA cores:
-// the dX and dW GEMMs of K7-K9's backward, and the stem layer's QKV
-// projection (K2; its forward GEMMs otherwise run as 3xTF32 wgmma on
-// gemm_sm90.cuh's TF32 mainloop): true IEEE f32 products, f32 sums over k in
-// ascending order per element. Only the order of the sums differs from
-// PyTorch's f32 matmul.
+// the dX and dW GEMMs of K7-K9's backward (the forward GEMMs run as 3xTF32
+// wgmma on gemm_sm90.cuh's TF32 mainloop, the stem layer's QKV on its own
+// TMA-fed FFMA kernel, gemm_bias_ffma_kernel): true IEEE f32 products, f32
+// sums over k in ascending order per element. Only the order of the sums
+// differs from PyTorch's f32 matmul.
 //
 // One block of 256 threads owns a BM x BN tile of C = A B. K-slices of 16
 // are staged in shared memory k-major (As[k][m], Bs[k][n]), double-buffered:

@@ -75,15 +75,23 @@
 // distances from a float64 truth. There is no split K and no atomic: two
 // runs are bit-identical.
 //
-// gemm_bias_ffma_f32_kernel (gemm_f32.cuh's SIMT FFMA core, IEEE f32
-// products summed over k in ascending order): the QKV projection of the
-// stem layer (K2), where the attention scores reach ~2^14 in log2 units:
-// with its QKV as 3xTF32 the layer reads 1.4e-4 (default widths) and
-// 4.3e-4 (paper) of max(1, |plain f32|) against (n.2)'s 2e-5, on FFMA
-// 4.9e-6 / 2.9e-6 (PERF.md).
+// gemm_bias_ffma_kernel: the QKV projection of the stem layer (K2, and the
+// training layer the stem feeds), where the attention scores reach ~2^14 in
+// log2 units. The layer holds chip_smoke.py (n.2)'s 2e-5 of the plain f32
+// twin only with the plain GEMM's IEEE f32 products summed over k in
+// ascending order: with its QKV as 3xTF32 it reads 1.4e-4 (default widths)
+// and 4.3e-4 (paper), with exact products and f64 sums on the FP64 tensor
+// cores (closer to a float64 truth than the twin) 7.8e-5 and 2.4e-4
+// (PERF.md). So it multiplies on the CUDA cores, one fmaf chain over k per
+// output: A [M, K] (128-byte swizzle, 32 k a row) and W [K, N] (as it is
+// kept) by TMA into a ring of 2-3 stages that thread 0 fills ahead of the
+// warps (tma_ring.cuh), 8 x 8 register tiles (A read as float4 along k: 4
+// k steps a load), 256 threads, two blocks an SM (128 registers),
+// persistent over the tiles. Bound: FFMA issue, 67 TFLOP/s.
 
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
+#include "tma_ring.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
 
@@ -449,39 +457,153 @@ int res_ln_tier(const void* a, const void* wb, const void* ws,
                                            stream);
 }
 
-// ----------------------------------------------------- GEMM + bias, FFMA --
+// ------------------------------------------ GEMM + bias, FFMA, TMA ring --
 
-using GemmNN = F32Gemm<64, 64, 4, 4, false, false>;
+// An 8 x 8 register tile a thread, 256 threads: tiles of kBM x BN = 16384
+// outputs, thread (ty, tx) = (t / kTX, t % kTX) at rows ty + kTY i and
+// columns 4 tx + j % 4 + (j / 4) BN / 2; stages of 32 k. Its 8 rows share
+// row % 8 (kTY is a multiple of 8), so one XOR places a k quad of all of
+// them in A's swizzled box, and the rows of a warp's ty hit distinct banks.
+template <int BN>
+struct FfmaTile {
+  static constexpr int kTX = BN / 8;
+  static constexpr int kTY = 256 / kTX;
+  static constexpr int kBM = 8 * kTY;
+  static constexpr int kStages = BN == 128 ? 3 : 2;  // two blocks an SM
+  using Ring = nylon::ring::Ring<kBM * 128, BN * 128, kStages, 8>;
+};
 
-// out[M, N] = (a[M, K] @ w[K, N]) + bias [, ReLU], on the CUDA cores.
+// out[M, N] = (a[M, K] @ w[K, N]) + bias [, ReLU], each output one fmaf
+// chain over k ascending from 0; tile t at (row block t / n_tiles_n,
+// column block t % n_tiles_n).
+template <int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-    gemm_bias_ffma_f32_kernel(const float* __restrict__ a,
-                              const float* __restrict__ w,
-                              const float* __restrict__ bias,
-                              float* __restrict__ out, int M, int N, int K,
-                              int relu, int n_tiles_n) {
-  __shared__ __align__(16) GemmNN::Smem sm;
-  const int m0 = (blockIdx.x / n_tiles_n) * 64;
-  const int n0 = (blockIdx.x % n_tiles_n) * 64;
-  float acc[4][4];
-  GemmNN::run(sm, a, K, w, N, M, N, m0, n0, 0, K, acc, [](const float*) {});
-  const int col = n0 + GemmNN::col(0);
-  if (col >= N) return;
-  const float4 bv = *reinterpret_cast<const float4*>(bias + col);
-  const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + GemmNN::row(i);
-    if (row >= M) continue;
-    float y[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      y[e] = nylon::bias_epilogue<float, false>(acc[i][e], b[e], relu,
-                                                DropSite{}, (uint32_t)row,
-                                                col + e, N);
-    *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
-        make_float4(y[0], y[1], y[2], y[3]);
+    gemm_bias_ffma_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, int M, int N, int K,
+                          int relu, int n_tiles_n) {
+  using T = FfmaTile<BN>;
+  constexpr int BM = T::kBM, TX = T::kTX, TY = T::kTY, S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const typename T::Ring ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int nk = (K + 31) / 32;
+  const int tiles = n_tiles_n * ((M + BM - 1) / BM);
+  const int items =
+      (int)blockIdx.x < tiles
+          ? ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * nk
+          : 0;
+  // the tile of item q (k-block q % nk of the block's (q / nk)-th tile)
+  const auto tile_of = [&](int q, int& m0, int& n0) {
+    const int t = blockIdx.x + (q / nk) * gridDim.x;
+    m0 = (t / n_tiles_n) * BM;
+    n0 = (t % n_tiles_n) * BN;
+  };
+  const CUtensorMap* const ma = &map_a;
+  const CUtensorMap* const mw = &map_w;
+  const auto fill = [&](int q) {
+    int m0, n0;
+    tile_of(q, m0, n0);
+    const int k0 = (q % nk) * 32;
+    const int s = ring.fill(q);
+    sm::tma_load(ring.a(s), ma, ring.full(s), k0, m0);
+    sm::tma_load(ring.b(s), mw, ring.full(s), n0, k0);
+  };
+  if (threadIdx.x == 0) {
+    sm::tma_prefetch(ma);
+    sm::tma_prefetch(mw);
+    for (int q = 0; q < S - 1 && q < items; ++q) fill(q);
   }
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float acc[8][8];
+  for (int q = 0; q < items; ++q) {
+    if (threadIdx.x == 0 && q + S - 1 < items) fill(q + S - 1);
+    const int kb = q % nk;
+    if (kb == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    const int s = ring.wait(q);
+    const uint8_t* const sa = ring.a(s) + ty * 128;
+    const float* const sb = reinterpret_cast<const float*>(ring.b(s));
+#pragma unroll
+    for (int k0 = 0; k0 < 32; k0 += 4) {
+      // A's 128-byte swizzled box: k0 .. k0 + 3 of row r at sw128(r, k0 /
+      // 4), the same XOR for the thread's 8 rows
+      const uint8_t* const ak = sa + ((((k0 >> 2) ^ ty) & 7) << 4);
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[i] = *reinterpret_cast<const float4*>(ak + i * TY * 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* const br = sb + (k0 + kk) * BN + 4 * tx;
+        const float4 b0 = *reinterpret_cast<const float4*>(br);
+        const float4 b1 = *reinterpret_cast<const float4*>(br + BN / 2);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float a = kk == 0   ? av[i].x
+                          : kk == 1 ? av[i].y
+                          : kk == 2 ? av[i].z
+                                    : av[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+        }
+      }
+    }
+    ring.release(q);
+    if (kb != nk - 1) continue;
+    int m0, n0;
+    tile_of(q, m0, n0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 4 * tx + h * (BN / 2);
+      if (col >= N) continue;
+      const float4 bv = *reinterpret_cast<const float4*>(bias + col);
+      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = m0 + ty + TY * i;
+        if (row >= M) continue;
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = nylon::bias_epilogue<float, false>(
+              acc[i][4 * h + e], b[e], relu, DropSite{}, (uint32_t)row,
+              col + e, N);
+        *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
+            make_float4(y[0], y[1], y[2], y[3]);
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch_gemm_bias_ffma(const void* a, const void* w, const void* bias,
+                          void* out, int M, int N, int K, int relu,
+                          cudaStream_t stream) {
+  using T = FfmaTile<BN>;
+  CUtensorMap ma, mw;
+  int e = sm::encode_f32(&ma, a, M, K, T::kBM);
+  if (!e) e = nylon::ring::encode_rows(&mw, w, K, N, 32, BN);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + T::kBM - 1) / T::kBM);
+  const auto kernel = gemm_bias_ffma_kernel<BN>;
+  constexpr int smem = 1024 + T::Ring::kBytes;
+  int grid = 0;
+  if (!e) e = sm::persistent_grid(kernel, smem, tiles, &grid, kThreads);
+  if (e) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(ma, mw, (const float*)bias,
+                                           (float*)out, M, N, K, relu,
+                                           n_tiles_n);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- dX = dY W^T --
@@ -594,19 +716,17 @@ int nylon_gemm_bias_drop_f32(const void* a, const void* w_big,
 }
 
 // nylon_gemm_bias_f32 on the CUDA cores, w the [K, N] weight itself (IEEE
-// f32 products summed over k in order: the stem layer's QKV projection).
+// f32 products summed over k in order: the stem layer's QKV projection): K
+// % 4 == 0, N % 4 == 0.
 int nylon_gemm_bias_ffma_f32(const void* a, const void* w, const void* bias,
                              void* out, int M, int N, int K, int relu,
                              void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4)
     return (int)cudaErrorInvalidValue;
-  const int n_tiles_n = (N + 63) / 64;
-  const long long tiles = (long long)n_tiles_n * ((M + 63) / 64);
-  gemm_bias_ffma_f32_kernel<<<(unsigned)tiles, kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)w, (const float*)bias, (float*)out, M, N,
-      K, relu, n_tiles_n);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return N % 128 == 0
+             ? launch_gemm_bias_ffma<128>(a, w, bias, out, M, N, K, relu, s)
+             : launch_gemm_bias_ffma<64>(a, w, bias, out, M, N, K, relu, s);
 }
 
 // The float32 twins of nylon_gemm_res_ln / nylon_gemm_res_ln_train, the

@@ -83,6 +83,16 @@
 // operands split at load, 5 f32 / integer operations an element; one
 // block per SM leaves the 5 barrier phases of a chunk unhidden.
 //
+// attn_bwd_ffma_f32_kernel: the same backward with S^T recomputed on FFMA,
+// each score the fmaf chain over d ascending of attn_fwd_f32_kernel
+// (dot_rows), from the chunk's raw Q rows (kept beside their TF32 pairs):
+// its probabilities are the forward's bit for bit. The layer that the stem
+// feeds takes it (ops/layer_fused_train.py, stem=True): there the scores
+// reach ~2^14 in log2 units, and with S^T as 3xTF32 the backward read
+// 1.19e-4 (default widths) and 7.97e-4 (paper) of the plain twin's dq /
+// dk / dv on the twin's own inputs, past chip_smoke.py (n.2)'s 1e-5
+// (PERF.md). Every other layer keeps the 3xTF32 scores.
+//
 // Dropout (kDrop): head h takes hash_mask.cuh's keep mask with tag
 // head_tag0 + h (K12: head_tag0 = 0; K7-K9: (tag_base + 8) * 64), row seq *
 // Lq + query and column key. The forward draws it per element
@@ -501,13 +511,23 @@ constexpr int kLS = kQC<D> + 4;
 // K, V [kKeys][D + 4]; the chunk's Q and dO split into TF32 pairs, [QC][D
 // + 4] for each half; ds^T split, [kKeys][kLS] for each half; per-warp
 // partial max, l and sum(da p) of the chunk's queries [3][kBwdWarps][QC];
-// the high key half of dQ^T [kDqTiles][32 lanes][4].
-template <int D, int kKeys>
+// the high key half of dQ^T [kDqTiles][32 lanes][4]; with kFfmaS the
+// chunk's raw Q [QC][D + 4].
+template <int D, int kKeys, bool kFfmaS = false>
 constexpr size_t bwd_smem_bytes() {
   return ((size_t)2 * kKeys * (D + 4) + (size_t)4 * kQC<D> * (D + 4) +
           (size_t)2 * kKeys * kLS<D> + (size_t)3 * kBwdWarps * kQC<D> +
-          (size_t)kDqTiles * 32 * 4) *
+          (size_t)kDqTiles * 32 * 4 +
+          (kFfmaS ? (size_t)kQC<D> * (D + 4) : 0)) *
          sizeof(float);
+}
+
+// One fmaf a step over the four elements in order, as dot_rows takes them.
+__device__ __forceinline__ float fma4(float4 x, float4 y, float a) {
+  a = fmaf(x.x, y.x, a);
+  a = fmaf(x.y, y.y, a);
+  a = fmaf(x.z, y.z, a);
+  return fmaf(x.w, y.w, a);
 }
 
 // B fragments from a tile stored as TF32 pairs (hi: big, lo: small): b_cols2
@@ -529,10 +549,9 @@ __device__ __forceinline__ void b_rows2(Split (&b)[2], const uint32_t* hi,
   b[1] = {hi[i + ld], lo[i + ld]};
 }
 
-template <int D, int kKeys, bool kDrop>
-__global__ void __launch_bounds__(kBwdWarps * 32, 1)
-    attn_bwd_f32_kernel(const BwdArgs args) {
-  extern __shared__ __align__(16) float smem[];
+template <int D, int kKeys, bool kDrop, bool kFfmaS>
+__device__ __forceinline__ void attn_bwd_f32(const BwdArgs& args,
+                                             float* smem) {
   constexpr int LD = D + 4, QC = kQC<D>, LS = kLS<D>, NJ = QC / 8;
   constexpr int NKT = (kKeys / 16 + kBwdWarps - 1) / kBwdWarps;
   constexpr int nthreads = kBwdWarps * 32;
@@ -553,6 +572,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1)
   float* const red_l = red_m + kBwdWarps * QC;  // [kBwdWarps][QC] each
   float* const red_r = red_l + kBwdWarps * QC;
   float* const dqx = red_r + kBwdWarps * QC;  // [kDqTiles][32][4]
+  float* const Qr = dqx + kDqTiles * 32 * 4;   // [QC][LD] with kFfmaS
   const int seq = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -593,8 +613,13 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1)
     *reinterpret_cast<uint2*>(lo + cr * LD + cc) =
         make_uint2(a.small, b.small);
   };
+  auto store_q = [&] {
+    store_split(Qh, Ql, qn);
+    if constexpr (kFfmaS)
+      *reinterpret_cast<float2*>(Qr + cr * LD + cc) = qn;
+  };
   load_chunk(0);
-  store_split(Qh, Ql, qn);
+  store_q();
   store_split(dOh, dOl, don);
 
   float dk[NKT][D / 8][4], dv[NKT][D / 8][4];
@@ -627,15 +652,39 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
         Split ka[4], va[4];
-        a_rows(ka, Ks, LD, kt * 16, kk * 8, g, t);
+        if constexpr (!kFfmaS) a_rows(ka, Ks, LD, kt * 16, kk * 8, g, t);
         a_rows(va, Vs, LD, kt * 16, kk * 8, g, t);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           Split b[2];
-          b_cols2(b, Qh, Ql, LD, j * 8, kk * 8, g, t);
-          mma3(st[i][j], ka, b);
+          if constexpr (!kFfmaS) {
+            b_cols2(b, Qh, Ql, LD, j * 8, kk * 8, g, t);
+            mma3(st[i][j], ka, b);
+          }
           b_cols2(b, dOh, dOl, LD, j * 8, kk * 8, g, t);
           mma3(dpt[i][j], va, b);
+        }
+      }
+      if constexpr (kFfmaS) {
+        // S^T on FFMA: element (j, r) is key kt * 16 + g + 8 (r >> 1) and
+        // query j * 8 + 2t + (r & 1), the fmaf chain of the forward
+        const float* const k0 = Ks + (kt * 16 + g) * LD;
+        const float* const k1 = k0 + 8 * LD;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* const q0 = Qr + (j * 8 + 2 * t) * LD;
+          const float* const q1 = q0 + LD;
+#pragma unroll 4
+          for (int d = 0; d < D; d += 4) {
+            const float4 ka = *reinterpret_cast<const float4*>(k0 + d);
+            const float4 kb = *reinterpret_cast<const float4*>(k1 + d);
+            const float4 qa = *reinterpret_cast<const float4*>(q0 + d);
+            const float4 qb = *reinterpret_cast<const float4*>(q1 + d);
+            st[i][j][0] = fma4(qa, ka, st[i][j][0]);
+            st[i][j][1] = fma4(qb, ka, st[i][j][1]);
+            st[i][j][2] = fma4(qa, kb, st[i][j][2]);
+            st[i][j][3] = fma4(qb, kb, st[i][j][3]);
+          }
         }
       }
     }
@@ -816,7 +865,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1)
     }
     __syncthreads();  // ds^T of every key; the chunk's Q and dO are read
     if (c + 1 < nchunks) {
-      store_split(Qh, Ql, qn);
+      store_q();
       store_split(dOh, dOl, don);
     }
 
@@ -892,9 +941,24 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 1)
 }
 
 template <int D, int kKeys, bool kDrop>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+    attn_bwd_f32_kernel(const BwdArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  attn_bwd_f32<D, kKeys, kDrop, false>(args, smem);
+}
+
+template <int D, int kKeys, bool kDrop>
+__global__ void __launch_bounds__(kBwdWarps * 32, 1)
+    attn_bwd_ffma_f32_kernel(const BwdArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  attn_bwd_f32<D, kKeys, kDrop, true>(args, smem);
+}
+
+template <int D, int kKeys, bool kDrop, bool kFfmaS>
 int launch_bwd(const BwdArgs& a, int n_seq, int n_heads, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D, kKeys>();
-  auto kernel = attn_bwd_f32_kernel<D, kKeys, kDrop>;
+  constexpr size_t smem = bwd_smem_bytes<D, kKeys, kFfmaS>();
+  auto kernel = kFfmaS ? attn_bwd_ffma_f32_kernel<D, kKeys, kDrop>
+                       : attn_bwd_f32_kernel<D, kKeys, kDrop>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -902,14 +966,16 @@ int launch_bwd(const BwdArgs& a, int n_seq, int n_heads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kDrop>
+template <bool kDrop, bool kFfmaS>
 int launch_attn_bwd(const BwdArgs& a, int n_seq, int n_heads, int head_dim,
                     cudaStream_t stream) {
   return with_tier(a.lk, [&](auto tier) {
     constexpr int kKeys = decltype(tier)::value;
     return head_dim == 32
-               ? launch_bwd<32, kKeys, kDrop>(a, n_seq, n_heads, stream)
-               : launch_bwd<64, kKeys, kDrop>(a, n_seq, n_heads, stream);
+               ? launch_bwd<32, kKeys, kDrop, kFfmaS>(a, n_seq, n_heads,
+                                                      stream)
+               : launch_bwd<64, kKeys, kDrop, kFfmaS>(a, n_seq, n_heads,
+                                                      stream);
   });
 }
 
@@ -1020,15 +1086,19 @@ int nylon_attention_drop_f32(const void* q, const void* k, const void* v,
                                        (cudaStream_t)stream);
 }
 
-int nylon_attention_bwd_f32(const void* q, const void* k, const void* v,
-                            const void* dout, void* dq, void* dk, void* dv,
-                            int n_seq, int lq, int lk, int n_heads,
-                            int head_dim, long long q_row, long long kv_row,
-                            long long do_row, long long dq_row,
-                            long long dkv_row, float scale, float scale_log2e,
-                            int active, unsigned seed_mix, int head_tag0,
-                            unsigned thresh, float pscale, int half,
-                            void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The f32 attention backward, S^T on FFMA when ffma_scores.
+int attention_bwd_f32(bool ffma_scores, const void* q, const void* k,
+                      const void* v, const void* dout, void* dq, void* dk,
+                      void* dv, int n_seq, int lq, int lk, int n_heads,
+                      int head_dim, long long q_row, long long kv_row,
+                      long long do_row, long long dq_row, long long dkv_row,
+                      float scale, float scale_log2e, int active,
+                      unsigned seed_mix, int head_tag0, unsigned thresh,
+                      float pscale, int half, void* stream) {
   if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) ||
       (half && 2 * half != lk))
     return (int)cudaErrorInvalidValue;
@@ -1057,10 +1127,48 @@ int nylon_attention_bwd_f32(const void* q, const void* k, const void* v,
   a.seed_mix = seed_mix;
   a.head_tag0 = head_tag0;
   a.site = DropSite{0u, thresh, pscale, half, 0u};
-  return active ? launch_attn_bwd<true>(a, n_seq, n_heads, head_dim,
-                                        (cudaStream_t)stream)
-                : launch_attn_bwd<false>(a, n_seq, n_heads, head_dim,
-                                         (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ffma_scores)
+    return active ? launch_attn_bwd<true, true>(a, n_seq, n_heads, head_dim, s)
+                  : launch_attn_bwd<false, true>(a, n_seq, n_heads, head_dim,
+                                                 s);
+  return active ? launch_attn_bwd<true, false>(a, n_seq, n_heads, head_dim, s)
+                : launch_attn_bwd<false, false>(a, n_seq, n_heads, head_dim,
+                                                s);
+}
+
+}  // namespace
+
+extern "C" {
+
+int nylon_attention_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* dout, void* dq, void* dk, void* dv,
+                            int n_seq, int lq, int lk, int n_heads,
+                            int head_dim, long long q_row, long long kv_row,
+                            long long do_row, long long dq_row,
+                            long long dkv_row, float scale, float scale_log2e,
+                            int active, unsigned seed_mix, int head_tag0,
+                            unsigned thresh, float pscale, int half,
+                            void* stream) {
+  return attention_bwd_f32(false, q, k, v, dout, dq, dk, dv, n_seq, lq, lk,
+                           n_heads, head_dim, q_row, kv_row, do_row, dq_row,
+                           dkv_row, scale, scale_log2e, active, seed_mix,
+                           head_tag0, thresh, pscale, half, stream);
+}
+
+// nylon_attention_bwd_f32 with S^T recomputed on FFMA (the layer that the
+// stem feeds), the same arguments.
+int nylon_attention_bwd_ffma_f32(
+    const void* q, const void* k, const void* v, const void* dout, void* dq,
+    void* dk, void* dv, int n_seq, int lq, int lk, int n_heads, int head_dim,
+    long long q_row, long long kv_row, long long do_row, long long dq_row,
+    long long dkv_row, float scale, float scale_log2e, int active,
+    unsigned seed_mix, int head_tag0, unsigned thresh, float pscale,
+    int half, void* stream) {
+  return attention_bwd_f32(true, q, k, v, dout, dq, dk, dv, n_seq, lq, lk,
+                           n_heads, head_dim, q_row, kv_row, do_row, dq_row,
+                           dkv_row, scale, scale_log2e, active, seed_mix,
+                           head_tag0, thresh, pscale, half, stream);
 }
 
 // Resident blocks per SM of the float32 attention kernels (the forward, or

@@ -71,9 +71,10 @@ _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_uint
 _SITE = [_U, _U, _F, _I]  # a dropout site: key, thresh, scale, half
 _SIGNATURES = {
-    # wav, n, wc_t, ws_t, fb, out, n_frames, n_fft, hop, n_freq_pad, n_mels,
-    # log_offset, stream
-    "nylon_log_mel": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # wav, n, bases, n_cols, groups, n_groups, mel_tab, mel_w, out, n_frames,
+    # n_fft, hop, n_mels, log_offset, stream
+    "nylon_log_mel": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F,
+                      _P],
     # spec_t, keff, beff, pos, out, batch, total, n_bin, n_frame, n_proc,
     # hid, sqrt_hid, stream
     "nylon_stem_embed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -145,6 +146,10 @@ _SIGNATURES.update({f"{n}_f32": [_P, _P, *_SIGNATURES[n][1:]] for n in (
 # the float32 GEMM + bias on the CUDA cores (the stem layer's QKV): a, w [K,
 # N], bias, out, M, N, K, relu, stream
 _SIGNATURES["nylon_gemm_bias_ffma_f32"] = _SIGNATURES["nylon_gemm_bias"]
+# the float32 attention backward with its scores on FFMA (the layer that the
+# stem feeds): nylon_attention_bwd_f32's arguments
+_SIGNATURES["nylon_attention_bwd_ffma_f32"] = _SIGNATURES[
+    "nylon_attention_bwd"]
 
 _lib: ctypes.CDLL | None = None
 

@@ -403,6 +403,10 @@ def _gemm_ffma(a, w, bias):
     and in training."""
     (m, k), n = a.shape, w.shape[1]
     check_gemm("gemm_bias", m, k, n, a.dtype)
+    if a.dtype != torch.float32 or w.shape[0] != k or bias.shape != (n,):
+        raise ValueError(f"gemm_bias_ffma: takes float32 a [M, K], w [K, N], "
+                         f"bias [N]; got {a.dtype} {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(bias.shape)}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     kernels.call("nylon_gemm_bias_ffma_f32", a.data_ptr(), w.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), m, n, k, 0,
@@ -519,8 +523,11 @@ def _encoder_layer_cuda(name, x, p, n_heads, tf32, stem=False):
         # The stem layer's scores reach ~2^14 in log2 units, where the plain
         # f32 layer is itself ~8e-5 from a float64 truth: the layer stays
         # within 2e-5 of it only with the plain GEMM's IEEE f32 products
-        # (chip_smoke.py (n.2) reads both; PERF.md). The training layer fed
-        # by the stem takes the same route (layer_fused_train, stem=True).
+        # summed over k in order (3xTF32 reads 1.4e-4 / 4.3e-4; exact
+        # products with f64 sums, closer to the truth, 7.8e-5 / 2.4e-4:
+        # chip_smoke.py (n.2) reads both distances; PERF.md). The training
+        # layer fed by the stem takes the same route (layer_fused_train,
+        # stem=True).
         qkv = _gemm_ffma(x2, p.wqkv, p.bqkv)
     else:
         qkv = _gemm(x2, p.wqkv, p.bqkv, pair=_pair(tf32, "wqkv"))

@@ -573,8 +573,10 @@ def _attention(q, k, v, n, n_heads, seed, rate, tag_base):
 
 
 def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
-                   tag_base):
-    """dq, dk, dv (written into the given strided views) of attention."""
+                   tag_base, ffma_scores=False):
+    """dq, dk, dv (written into the given strided views) of attention
+    (``ffma_scores``: float32 with the scores recomputed on FFMA as the
+    forward computes them, for the layer that the stem feeds)."""
     hid = q.shape[1]
     lq, lk = q.shape[0] // n, k.shape[0] // n
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("dq", dq),
@@ -587,11 +589,13 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
     thresh, keep, half = (site_constants(rate, lk, torch.float32) if active
                           else (0, 0.0, 0))
     scale = _scale(hid, n_heads)
-    kernels.call(kernels.entry("nylon_attention_bwd", q.dtype),
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, lq, lk,
-                 n_heads, hid // n_heads, q.stride(0), k.stride(0),
-                 do.stride(0),
+    name = ("nylon_attention_bwd_ffma_f32"
+            if ffma_scores and q.dtype == torch.float32
+            else kernels.entry("nylon_attention_bwd", q.dtype))
+    kernels.call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 n, lq, lk, n_heads, hid // n_heads, q.stride(0),
+                 k.stride(0), do.stride(0),
                  dq.stride(0), dk.stride(0), scale, scale * _LOG2E,
                  int(active), seed_mix(seed), _head_tag(tag_base, 0), thresh,
                  keep, half, kernels.stream_of(q))
@@ -891,9 +895,10 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped,
     dheads = tap("dheads", _gemm_nt(dattn, w.wo))
     dqkv = torch.empty((m, 3 * hid), dtype=x.dtype, device=x.device)
     q = f.qkv
+    # fed by the stem (scores near 2^14): f32 scores as the forward's
     _attention_bwd(q[:, :hid], q[:, hid:2 * hid], q[:, 2 * hid:], dheads,
                    dqkv[:, :hid], dqkv[:, hid:2 * hid], dqkv[:, 2 * hid:], n,
-                   n_heads, seed, rate, _SITE_ATTN)
+                   n_heads, seed, rate, _SITE_ATTN, ffma_scores=stem)
     dqkv = tap("dqkv", dqkv)
     dwqkv, dbqkv = _weight_grad(f.xs, dqkv)
     m0 = _site(seed, _SITE_EMB, hid, rate, x.dtype) if emb_drop else None
@@ -1139,8 +1144,10 @@ def encoder_layer_train(x, p: EncoderLayerParams, seed: int, n_heads: int,
     [0, 2**31)) drives the dropout masks; ``emb_drop`` also drops the
     layer's input (site ``_SITE_EMB``); ``stem`` marks the layer that the
     stem feeds, whose float32 QKV runs on the CUDA cores in its forward
-    and its recompute, as the inference stem layer's does (the plain
-    version is the same function either way)."""
+    and its recompute, as the inference stem layer's does, and whose
+    float32 attention backward recomputes the scores on FFMA, as the
+    forward computes them (the plain version is the same function either
+    way)."""
     return _EncoderLayerTrain.apply(x.contiguous(), int(seed), n_heads,
                                     float(rate), bool(emb_drop), bool(stem),
                                     *p)

@@ -4,16 +4,18 @@ bf16 forward's (``csrc/layer_fused.cu``: ``nylon_gemm_bias[_drop]``,
 layer_fused_train.cu``: ``nylon_gemm_nt``, the dX product, and
 ``nylon_wgrad`` + ``nylon_reduce_rows``, the dW product) and the float32
 forward's (``csrc/layer_fused_f32.cu``: ``nylon_gemm_bias[_drop]_f32``,
-``nylon_gemm_res_ln[_train]_f32``).
+``nylon_gemm_res_ln[_train]_f32``, and the stem layer's QKV on the CUDA
+cores, ``nylon_gemm_bias_ffma_f32``).
 
 Each variant is a directory holding ``layer_fused.cu``,
-``layer_fused_train.cu``, ``layer_fused_f32.cu``, ``mha_f32.cu`` and the
-headers they include (a ``csrc/`` of some tree: the working tree's, a
-parent commit's unpacked with ``git archive`` under ``build/``, a patched
-copy). Every source of every variant builds at once, one nvcc each, with
-``kernels.NVCC_FLAGS``, into its own library under ``build/gemm_ab/``
-(``NAME_fwd.so``, ``NAME_bwd.so``, ``NAME_f32.so``, ``NAME_attn32.so``);
-they load side by side through ctypes, and are:
+``layer_fused_train.cu``, ``layer_fused_f32.cu``, ``mha_f32.cu``,
+``mha.cu`` and the headers they include (a ``csrc/`` of some tree: the
+working tree's, a parent commit's unpacked with ``git archive`` under
+``build/``, a patched copy). Every source of every variant builds at once,
+one nvcc each, with ``kernels.NVCC_FLAGS``, into its own library under
+``build/gemm_ab/`` (``NAME_fwd.so``, ``NAME_bwd.so``, ``NAME_f32.so``,
+``NAME_attn32.so``, ``NAME_attn16.so``); they load side by side through
+ctypes, and are:
 
 * held against the plain twins at small and ragged shapes: the forward's
   (``ops.layer_fused.gemm_bias_plain`` / ``gemm_res_ln_plain``, dropout
@@ -28,11 +30,14 @@ they load side by side through ctypes, and are:
   from a float64 truth of the same operands printed. A variant's weight
   form follows its source: the TF32 pair (two pointers, each half ``[N,
   K]``) where ``layer_fused_f32.cu`` runs the ``wgmma`` mainloop, ``[K,
-  N]`` where it still holds the SIMT kernels;
+  N]`` where it still holds the SIMT kernels; and the stem QKV GEMM
+  (``QKV_CHECKS``: ragged, default and paper shapes) the same way, its
+  weight ``[K, N]``;
 * compared with the first variant bit for bit; with ``--same`` a bf16
   forward output that differs from the first variant's, or a bf16 forward
-  GEMM, an f32 dX / dW GEMM or an f32 attention kernel (``mha_f32.cu``)
-  whose SASS (``cuobjdump -sass``) differs, fails the run. The first
+  GEMM, a TF32 forward GEMM, an f32 dX / dW GEMM, a bf16 attention kernel
+  (``mha.cu``) or an f32 attention kernel (``mha_f32.cu``) whose SASS
+  (``cuobjdump -sass``) differs, fails the run. The first
   variant is the one under test: its gates decide the exit code; the
   others' are reported (the parent's ``wmma`` dW kernel does not pass the
   float64 gate);
@@ -43,7 +48,9 @@ they load side by side through ctypes, and are:
   forward GEMMs at the paper and the default widths' batch-32 shapes
   beside f32 ``torch.matmul`` (IEEE f32: ``allow_tf32`` off), the bound
   (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s) and the FFMA
-  bound (the products at 67 TFLOP/s).
+  bound (the products at 67 TFLOP/s), with the stem QKV GEMM at its paper
+  and default shapes beside the same f32 ``torch.matmul`` and its bound
+  (the products at 67 TFLOP/s).
 
 A variant's dW row chunks follow its own kernel: ``wgrad_plan`` for the
 ``wgmma`` kernel, the earlier rule (two waves of two 128 x 128 blocks an
@@ -75,13 +82,19 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
            "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows"),
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
                    "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32"),
-           "attn32": ()}
+           "attn32": (), "attn16": ()}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
-           "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu"}
+           "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
+           "attn16": "mha.cu"}
+# the stem QKV GEMM's entry point, where the tree's layer_fused_f32.cu has
+# one (a, w [K, N], bias, out, M, N, K, relu, stream)
+QKV_ENTRY = "nylon_gemm_bias_ffma_f32"
 # the kernels whose SASS --same holds, by library
 SAME_KERNELS = {"fwd": ("gemm_bias_kernel", "gemm_res_ln_kernel"),
-                "f32": ("gemm_nt_f32_kernel", "wgrad_f32_kernel"),
-                "attn32": ("attn_fwd_f32_kernel", "attn_bwd_f32_kernel")}
+                "f32": ("gemm_bias_f32_kernel", "gemm_res_ln_f32_kernel",
+                        "gemm_nt_f32_kernel", "wgrad_f32_kernel"),
+                "attn32": ("attn_fwd_f32_kernel", "attn_bwd_f32_kernel"),
+                "attn16": ("attn_fwd_kernel", "attn_bwd_kernel")}
 ULPS = 4
 F32_REL = 2e-5  # f32 GEMMs: of max(1, max |plain f32 twin|)
 
@@ -136,6 +149,9 @@ F32_CHECKS = [
     ("ln", 5000, 256, 256, 0, 1, 1, 1), ("ln", 5000, 512, 256, 0, 1, 1, 0),
     ("ln", 777, 96, 96, 0, 0, 1, 1), ("ln", 90001, 160, 96, 0, 1, 1, 1),
 ]
+# the stem layer's QKV GEMM: (M, K, N), ragged, default and paper widths
+QKV_CHECKS = [(333, 64, 192), (300001, 96, 288), (1048576, 64, 192),
+              (1048576, 256, 768)]
 # (label, M, K, N, ReLU, launches per batch-32 forward) of the default
 # widths (hid 64, pf 128, 2 + 2 + 2 layers)
 DEFAULT = [
@@ -246,7 +262,9 @@ class Lib:
         # the f32 forward GEMMs read the weight as its TF32 pair, two
         # pointers (wgmma), or the weight [K, N] itself, the bf16 entry
         # points' arguments (the SIMT kernels)
-        self.tf32 = "RingTf32" in (Path(src) / SOURCES["f32"]).read_text()
+        f32_src = (Path(src) / SOURCES["f32"]).read_text()
+        self.tf32 = "RingTf32" in f32_src
+        self.qkv_entry = QKV_ENTRY if QKV_ENTRY in f32_src else None
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -255,6 +273,10 @@ class Lib:
                     e if self.tf32 or part != "f32" else e[:-len("_f32")]]
                 getattr(lib, e).argtypes = sig
                 getattr(lib, e).restype = ctypes.c_int
+            if part == "f32" and self.qkv_entry:
+                fn = getattr(lib, self.qkv_entry)
+                fn.argtypes = kernels._SIGNATURES["nylon_gemm_bias"]
+                fn.restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
         self.error_string = self.libs["fwd"].nylon_error_string
@@ -296,6 +318,17 @@ class Lib:
             self._call(part, "nylon_gemm_bias" + sfx, *args, s)
         else:
             self._call(part, "nylon_gemm_bias_drop" + sfx, *args, *site, s)
+        return [out]
+
+    def qkv(self, a, w, b):
+        """The stem layer's QKV GEMM: f32 ``a @ w + b``, w ``[K, N]``."""
+        import torch
+
+        (m, k), n = a.shape, w.shape[1]
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        self._call("f32", self.qkv_entry, a.data_ptr(), w.data_ptr(),
+                   b.data_ptr(), out.data_ptr(), m, n, k, 0,
+                   torch.cuda.current_stream().cuda_stream)
         return [out]
 
     def res_ln(self, a, w, b, res, g, be, site=None, pre=0, out=1,
@@ -606,6 +639,33 @@ def check_f32(libs: dict) -> dict:
                   f"{plain64:.3e}; reruns "
                   f"{'bit-identical' if same else 'DIFFER'}", flush=True)
         del x, want, truth
+    for m, k, n in QKV_CHECKS:
+        x = inputs(m, k, n, seed=m + k + n + 2, dtype=f32)
+        with full_f32():
+            want = lf.gemm_bias_plain(x["a"], x["w"], x["b"])
+        truth = f64_twin(("bias", m, k, n, 0, 0, 0, 1), x, None)[0]
+        plain64 = rel(want, truth)
+        for name, lib in libs.items():
+            if lib.qkv_entry is None:
+                continue
+            try:
+                got, again = lib.qkv(x["a"], x["w"], x["b"]), \
+                    lib.qkv(x["a"], x["w"], x["b"])
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"f32 {name} qkv stem [{m},{k},{n}]: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            err, e64 = rel(got[0], want), rel(got[0], truth)
+            same = _equal(got, again)
+            ok[name] &= err <= F32_REL and same
+            print(f"f32 {name} qkv stem [{m},{k},{n}]: {err:.3e} of max(1, "
+                  f"|plain f32|) "
+                  f"(<= {F32_REL}); from float64 kernel {e64:.3e}, plain f32 "
+                  f"{plain64:.3e}; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        del x, want, truth
+        torch.cuda.empty_cache()
     for name in libs:
         print(f"f32 {name}: {'passed' if ok[name] else 'FAILED'}",
               flush=True)
@@ -775,6 +835,19 @@ def timing_f32(libs: dict) -> None:
             torch.cuda.empty_cache()
         print(f"time of one f32 {geo} forward's GEMMs (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+        # the stem layer's QKV GEMM, one a forward
+        m, k, n = table[0][1:4]
+        x = inputs(m, k, n, dtype=torch.float32)
+        qkv = [name for name in names if libs[name].qkv_entry]
+        ms = _abba(qkv, lambda name: libs[name].qkv(x["a"], x["w"], x["b"]))
+        with full_f32():
+            mm = cuda_ms(lambda: x["a"] @ x["w"])
+        nbytes = 4 * (m * k + k * n + m * n + n)
+        bound = max(nbytes / HBM_BPS, 2 * m * k * n / F32_FLOPS) * 1e3
+        _line(f"f32 {geo} qkv stem", f"[{m},{k},{n}]", 1, ms, bound,
+              f"f32 matmul {mm:.3f}")
+        del x
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -813,8 +886,9 @@ def main(argv=None) -> int:
             alike = sum(funcs.get(k) == v for k, v in code[first].items())
             same &= (alike == len(code[first]) == len(funcs)
                      and not differ[name])
-            print(f"same {name}: SASS of the bf16 forward GEMMs, the f32 dX "
-                  f"/ dW GEMMs and the f32 attention identical to {first}'s "
+            print(f"same {name}: SASS of the bf16 forward GEMMs, the TF32 "
+                  f"forward GEMMs, the f32 dX / dW GEMMs and the bf16 and f32 "
+                  f"attention identical to {first}'s "
                   f"in {alike} of {len(code[first])} instantiations; bf16 "
                   f"forward outputs differ in {differ[name]} of "
                   f"{len(CHECKS)} cases", flush=True)

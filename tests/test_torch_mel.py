@@ -11,7 +11,7 @@ from nylon_amt_tpu.ops.spectrogram_pallas import log_mel_pallas
 from nylon_amt_tpu_torch import kernels
 from nylon_amt_tpu_torch.ops import mel as tmel
 from nylon_amt_tpu_torch.ops.spectrogram import (
-    FREQ_CHUNK, kernel_bases, log_mel, log_mel_plain)
+    MMA_N, kernel_bases, log_mel, log_mel_plain)
 
 
 def _wav(n_samples, seed=0):
@@ -87,14 +87,24 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
 
 
 def test_kernel_bases_layout():
+    """The bases hold each 8 bins' cos columns, then their sin columns,
+    tap-major, for the bins up to the last non-zero filterbank row (padded
+    with zero bins to a multiple of 8)."""
     cfg = FeatureConfig()
     cos_w, sin_w = tmel.windowed_bases(cfg)
     fb = tmel.mel_filterbank(cfg.sr, cfg.fft_bins, cfg.mel_bins)
-    wc_t, ws_t, fb_pad = (t.numpy() for t in
-                          kernel_bases(cos_w, sin_w, fb, torch.device("cpu")))
+    bases, groups, mel_tab, mel_w = (t.numpy() for t in kernel_bases(
+        cos_w, sin_w, fb, torch.device("cpu")))
     n_freqs = cfg.fft_bins // 2 + 1
-    assert wc_t.shape[1] % FREQ_CHUNK == 0 and wc_t.shape[1] >= n_freqs
-    np.testing.assert_array_equal(wc_t[:, :n_freqs], cos_w.T)
-    np.testing.assert_array_equal(ws_t[:, :n_freqs], sin_w.T)
-    np.testing.assert_array_equal(fb_pad[:n_freqs], fb)
-    assert not wc_t[:, n_freqs:].any() and not fb_pad[n_freqs:].any()
+    last = np.nonzero(fb.any(1))[0].max()
+    n_bins = bases.shape[1] // 2
+    assert bases.shape == (cfg.fft_bins, 2 * n_bins)
+    assert n_bins % MMA_N == 0 and last < n_bins < last + 1 + MMA_N
+    cols = bases.T.reshape(n_bins // MMA_N, 2, MMA_N, cfg.fft_bins)
+    n = min(n_bins, n_freqs)
+    for half, basis in ((0, cos_w), (1, sin_w)):
+        rows = cols[:, half].reshape(n_bins, -1)
+        np.testing.assert_array_equal(rows[:n], basis[:n])
+        assert not rows[n:].any()
+    assert groups.dtype == mel_tab.dtype == np.int32
+    assert mel_w.dtype == np.float32
