@@ -11,8 +11,9 @@ non-zero and never prints the last line):
     the wgmma / TMA GEMMs of ``csrc/layer_fused.cu`` (``gemm_bias_kernel``,
     ``gemm_res_ln_kernel``), ``csrc/layer_fused_train.cu``
     (``gemm_nt_kernel``, ``wgrad_kernel``) and ``csrc/layer_fused_f32.cu``
-    (``gemm_bias_f32_kernel``, ``gemm_res_ln_f32_kernel``: 3xTF32) spill
-    nothing and use no stack in ``ptxas -v``, and where the toolkit has
+    (``gemm_bias_f32_kernel``, ``gemm_res_ln_f32_kernel``,
+    ``gemm_nt_f32_kernel``, ``wgrad_f32_kernel``: 3xTF32) spill nothing
+    and use no stack in ``ptxas -v``, and where the toolkit has
     ``cuobjdump`` their SASS holds HGMMA (wgmma) and UTMALDG (TMA load)
     instructions; the TMA-fed kernels of the f32-exact products
     (``log_mel_kernel`` of ``csrc/log_mel.cu``, on the FP64 tensor cores,
@@ -158,6 +159,21 @@ non-zero and never prints the last line):
     the plain twin; the three kernels' rows of the JSON line: the paper
     batch-32 forward's shapes summed over its launches, the launches
     those that (n.4)'s paper f32 forward counted.
+(r) the f32 backward GEMMs alone (``gemm_nt_f32_kernel``, dX on
+    ``wgmma``, and ``wgrad_f32_kernel``, dW on ``wgmma`` with dY re-staged
+    as a K-major TF32 pair, of ``csrc/layer_fused_f32.cu``: 3xTF32) at
+    every product of (p) in float32: dX within 2e-5 of max(1, max |plain f32
+    twin|), dW and the bias sums no further from a float64 truth than twice
+    the plain f32 twin's own distance + 1e-6 max |truth|, two runs
+    bit-identical; per shape the kernel's time beside its bound (bytes, or
+    the products as 3xTF32), f32 ``torch.matmul`` of the same product (the
+    two by CUDA graphs of 20 calls, as ``gemm_ab.graph_ms`` times them),
+    the plain twin, and the SIMT kernels' time that they replaced
+    (``SIMT_F32_BWD_MS``: ``tools/gemm_ab.py``'s A B B A); the two
+    kernels' rows of the JSON line: the default batch-8 step's products
+    summed over their launches, the launches those that (n)'s default f32
+    train step counted, and the paper step's sums beside them, its
+    launches those of (n.2)'s paper backwards times the model's layers.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -173,7 +189,8 @@ object with, per wrapper, the dtypes and head dims this run held against
 its plain version (``held``), its float32 sources and (n)'s f32 times
 (``f32``), and its launches (K1-K5 from (d), K6-K9 from (i), K13
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
-``return_attention`` training), error, times and bound (the larger of the
+``return_attention`` training, the f32 GEMMs from (n)), error, times and
+bound (the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
 1,979 TOP/s int8 for K13's products, 494.7 / 3 TFLOP/s for the f32
 attention's 3xTF32 products (PV, and every backward product), 67 TFLOP/s
@@ -2380,7 +2397,9 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
     float64 layer printed; its gradients are held against a float64 truth
     of the twin instead (within twice the twin's own distance + 1e-6, as
     (p) holds dW), and its stage hook over every stage, the attention
-    backward's (printed on its own) included. Returns the times."""
+    backward's (printed on its own) included. Returns the times, and under
+    "<name>/bwd_gemm_launches" the dX and dW launches of one backward."""
+    from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.ops.precision import full_f32
 
     m = cfg.model
@@ -2426,7 +2445,11 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
                 own[stage] = t
             return t
 
-        kb, kb2 = k_bwd(xs, p, RATE, dz, record), k_bwd(xs, p, RATE, dz)
+        kernels.reset_launches()
+        kb = k_bwd(xs, p, RATE, dz, record)
+        results[name + "/bwd_gemm_launches"] = {
+            k: kernels.launches[k] for k in ("gemm_nt_f32", "wgrad_f32")}
+        kb2 = k_bwd(xs, p, RATE, dz)
         k_in, k_w = _split_bwd(kind, kb)
         k_in2, k_w2 = _split_bwd(kind, kb2)
         if not all(torch.equal(a, b) for a, b in zip(list(k_w) + k_in,
@@ -2527,8 +2550,8 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
         flops = layer_flops(kind, n, lq, lk, hid, pf)
         # a = one attention product. The forward: its GEMMs and PV as
         # 3xTF32, its scores on FFMA. The backward recomputes the forward
-        # and adds 5 attention products (3xTF32) and the GEMMs' dX and dW
-        # (FFMA). The layer the stem feeds has its QKV on FFMA, forward and
+        # and adds 5 attention products and the GEMMs' dX and dW (all
+        # 3xTF32). The layer the stem feeds has its QKV on FFMA, forward and
         # recompute, and its backward's S^T on FFMA.
         a = attn_product_flops(kind, n, lq, lk, hid)
         gemm = flops - 2 * a
@@ -2545,8 +2568,8 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
             max_abs_err=e_in, ms=bwd_ms, plain_ms=bwd_plain_ms,
             library_ms=mm_ms(gemms * 3, dev), shape=[n, lq, lk, hid],
             **bound(2 * io_bytes + nbytes(dz) + 2 * w_bytes,
-                    f32_flops=2 * gemm + a + s_ffma + qkv,
-                    tf32x3_flops=gemm - qkv + 6 * a - s_ffma))
+                    f32_flops=a + s_ffma + qkv,
+                    tf32x3_flops=3 * gemm - qkv + 6 * a - s_ffma))
         log(f"(n.2) f32 {name} {tag} at {[tuple(x.shape) for x in xs]}, rate "
             f"{RATE}: fwd {e:.2e}, input grads {e_in:.2e} ({n_flips} ReLU "
             f"gates flipped, within {near:.2e} of 0; {int(clean.sum())} of "
@@ -2787,13 +2810,16 @@ def f32_gemm_launches(m, train: bool = False) -> dict:
     "gemm_bias_f32", "gemm_res_ln_f32", and "gemm_bias_ffma_f32": the stem
     layer's QKV) in one engine forward of the model config ``m`` (stage 2
     on), or with ``train`` in one fused train step (each layer's forward
-    and its backward's recompute)."""
+    and its backward's recompute, and the backward's dX and dW GEMMs:
+    "gemm_nt_f32", "wgrad_f32", 4 a K7 layer, 5 for K8, 7 a K9 layer)."""
     enc, dec = m.enc_layer, m.dec_layer
     if train:
         layers = enc + dec                          # K7: frequency + time
+        bwd = 4 * layers + 5 + 7 * (dec - 1)
         return {"gemm_bias_f32": 2 * (2 * layers - 1 + 3 + 4 * (dec - 1)),
                 "gemm_res_ln_f32": 2 * (2 * layers + 2 + 3 * (dec - 1)),
-                "gemm_bias_ffma_f32": 2}
+                "gemm_bias_ffma_f32": 2, "gemm_nt_f32": bwd,
+                "wgrad_f32": bwd}
     return {"gemm_bias_f32": 1 + 2 * (enc - 1) + 3 + 4 * (dec - 1) + 2 * dec,
             "gemm_res_ln_f32": 2 + 2 * (enc - 1) + 2 + 3 * (dec - 1)
             + 2 * dec, "gemm_bias_ffma_f32": 1}
@@ -2943,7 +2969,7 @@ def default_cli_f32(feat, audio, cli_main) -> None:
         # engine's, one stem layer each)
         n_valid = counts["encoder_layer_with_stem"]
         for k, v in f32_gemm_launches(m, train=True).items():
-            want[k] = steps * v + n_valid * f32_gemm_launches(m)[k]
+            want[k] = steps * v + n_valid * f32_gemm_launches(m).get(k, 0)
         want.update(dict.fromkeys(MHA_SOURCES, 0))   # no per-site path
         got = {k: counts[k] for k in want}
         if got != want:
@@ -2998,11 +3024,14 @@ def default_cli_f32(feat, audio, cli_main) -> None:
                     for k, (c, n, f) in runs.items()))
 
 
-def time_train_step_f32(cfg, feat, dev, card: str) -> float:
+def time_train_step_f32(cfg, feat, dev, card: str) -> tuple[float, dict]:
     """(n): the default fused train step (float32, batch 8) by CUDA
-    events, and its profile."""
+    events, and its profile; and the float32 GEMM launches of one step,
+    which must be f32_gemm_launches(train=True)'s."""
+    from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.train import step as st
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -3011,8 +3040,23 @@ def time_train_step_f32(cfg, feat, dev, card: str) -> float:
                                             "train"), cfg,
                            n_slice=cfg.train.n_slice)
         first = next(ds.batches(cfg.train.batch_size))
-    return time_train_step(cfg, first, dev, card, phase="n",
-                           what="default-config f32 ")
+    state = st.create_train_state(cfg, SEED, dev)
+    apply, draw = st.make_apply(cfg)
+    batch = st.to_device(first, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    st.train_step(cfg, state, batch, draw(cfg, torch.Generator()
+                                          .manual_seed(SEED)), apply)
+    torch.cuda.synchronize()
+    want = f32_gemm_launches(cfg.model, train=True)
+    counts = {k: kernels.launches[k] for k in want}
+    if counts != want:
+        raise AssertionError(f"(n) default f32 train step: GEMM launches "
+                             f"{counts}, expected {want}")
+    del state, batch
+    ms = time_train_step(cfg, first, dev, card, phase="n",
+                         what="default-config f32 ")
+    return ms, counts
 
 
 def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
@@ -3024,7 +3068,9 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     f32 forward at the default and the paper config, and the default
     config's int8 forward; (n.5) the CLI with no ``--config``; times of
     each. Returns the f32 times per wrapper, and the launch counts of
-    (n.4)'s paper f32 forward."""
+    (n.4)'s paper f32 forward, of the default f32 train step's dX and dW
+    GEMMs, and of the paper f32 step's ("<name>/paper") from (n.2)'s paper
+    layers."""
     from nylon_amt_tpu_torch import Config, ModelConfig
     from nylon_amt_tpu_torch.models.hft import HFT
     from nylon_amt_tpu_torch.models.init import reference_initialize
@@ -3060,9 +3106,24 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     packed = engine.pack_params(paper32, torch.float32)
     times.update({f"{k}/paper": v for k, v in check_layers_f32(
         paper, packed, spec, dev, names, "paper").items()})
-    times.update({f"{k}/paper": v for k, v in check_train_layers_f32(
-        paper32, paper, spec, dev, train_names, "paper").items()})
+    paper_train = check_train_layers_f32(paper32, paper, spec, dev,
+                                         train_names, "paper")
+    times.update({f"{k}/paper": v for k, v in paper_train.items()})
     del packed
+    # the paper step's dX / dW launches: (n.2)'s paper backward of each
+    # layer times its layers in the model (the stem-fed K7, the other
+    # frequency K7s, the time K7s, K8, K9 on each further decoder layer)
+    enc, dec = paper32.encoder_spec2midi, paper32.decoder_spec2midi
+    per_step = {"encoder_layer_train/stem": 1,
+                "encoder_layer_train": len(enc.layers_freq) - 1,
+                "encoder_layer_train/time": len(dec.layers_time),
+                "decoder_layer_zero_train": 1,
+                "decoder_layer_train": len(dec.layers_freq)}
+    paper_bwd = {f"{k}/paper": sum(
+        c * paper_train[f"{n}/bwd_gemm_launches"][k]
+        for n, c in per_step.items()) for k in ("gemm_nt_f32", "wgrad_f32")}
+    log(f"(n.2) the paper f32 step's dX / dW launches from its layers' "
+        f"backwards {per_step}: {paper_bwd}")
     torch.cuda.empty_cache()
 
     # (n.3) K13 at head_dim 32, bf16 and f32
@@ -3082,7 +3143,7 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
                                   "paper_scale()", with_int8=False)
     del paper32
     torch.cuda.empty_cache()
-    step_ms = time_train_step_f32(cfg, feat, dev, card)
+    step_ms, step_counts = time_train_step_f32(cfg, feat, dev, card)
     log(f"(n) end to end, f32: default Config() batch-{BATCH} forward "
         f"{fwd['ms']:.3f} ms (int8 {fwd['int8_ms']:.3f} ms), paper_scale() "
         f"{fwd_paper['ms']:.3f} ms, default train step (batch "
@@ -3090,16 +3151,23 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
 
     # (n.5) the CLI with no --config
     default_cli_f32(feat, audio, cli_main)
-    return times, fwd_paper["launches"]
+    return times, {**fwd_paper["launches"], **paper_bwd,
+                   **{k: step_counts[k] for k in ("gemm_nt_f32",
+                                                  "wgrad_f32")}}
 
 
 # (o) the bf16 layer GEMMs alone ---------------------------------------------
 
 # csrc/layer_fused.cu's forward GEMMs, csrc/layer_fused_train.cu's dX and dW,
-# csrc/layer_fused_f32.cu's float32 forward GEMMs (3xTF32 wgmma)
+# csrc/layer_fused_f32.cu's float32 forward GEMMs, dX and dW (3xTF32 wgmma)
 GEMM_KERNELS = ("gemm_bias_kernel", "gemm_res_ln_kernel", "gemm_nt_kernel",
                 "wgrad_kernel", "gemm_bias_f32_kernel",
-                "gemm_res_ln_f32_kernel")
+                "gemm_res_ln_f32_kernel", "gemm_nt_f32_kernel",
+                "wgrad_f32_kernel")
+# the TF32 GEMMs that hand registers between warpgroups (setmaxnreg): the
+# consumers' 232 a thread balance the producer's 40 only from 168
+SETMAXNREG_KERNELS = ("gemm_bias_f32_kernel", "gemm_res_ln_f32_kernel",
+                      "gemm_nt_f32_kernel")
 # the TMA-fed kernels of the f32-exact products and the instructions their
 # SASS must hold: K1's DFT on the FP64 tensor cores (mma.sync .f64), the
 # stem layer's QKV on FFMA
@@ -3603,6 +3671,209 @@ def check_gemms_f32(dev, card: str) -> dict:
     return rows
 
 
+# (r) the float32 backward GEMMs alone ---------------------------------------
+
+# Times of csrc/layer_fused_f32.cu's SIMT dX and dW kernels (csrc/gemm_f32.cuh,
+# PR 6) that the tensor-core ones replaced, per (geometry, kernel, product)
+# of (r) (ms; tools/gemm_ab.py --same --f32-bwd, A B B A against the parent
+# tree, by CUDA graphs of 20 calls, NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 6); the ragged geometry was not timed there
+SIMT_F32_BWD_MS = {
+    "paper b8": {
+        "gemm_nt": {
+            "ffn2 freq": 2.275, "ffn1 freq": 2.268, "o freq": 1.137,
+            "qkv freq": 3.358, "qkv freq, emb": 3.380, "kv cross": 2.249,
+            "ffn2 note/time": 0.802, "ffn1 note/time": 0.785,
+            "o note/time": 0.397, "q cross": 0.398, "qkv note/time": 1.172,
+            "qkv time, emb": 1.162
+        },
+        "wgrad": {
+            "ffn2 freq": 2.638, "ffn1 freq": 2.659, "o freq": 1.359,
+            "qkv freq": 4.008, "kv cross": 2.636, "ffn2 note/time": 0.922,
+            "ffn1 note/time": 0.926, "o, q cross note/time": 0.487,
+            "qkv note/time": 1.418
+        },
+    },
+    "default b8": {
+        "gemm_nt": {
+            "ffn2 freq": 0.211, "ffn1 freq": 0.164, "o freq": 0.089,
+            "qkv freq": 0.230, "qkv freq, emb": 0.235, "kv cross": 0.151,
+            "ffn2 note/time": 0.078, "ffn1 note/time": 0.061,
+            "o note/time": 0.034, "q cross": 0.041, "qkv note/time": 0.084,
+            "qkv time, emb": 0.087
+        },
+        "wgrad": {
+            "ffn2 freq": 0.170, "ffn1 freq": 0.172, "o freq": 0.112,
+            "qkv freq": 0.236, "kv cross": 0.172, "ffn2 note/time": 0.070,
+            "ffn1 note/time": 0.069, "o, q cross note/time": 0.053,
+            "qkv note/time": 0.093
+        },
+    },
+}
+
+
+def check_bwd_gemms_f32(dev, card: str) -> dict:
+    """(r): gemm_nt_f32_kernel and wgrad_f32_kernel (3xTF32 on wgmma,
+    csrc/layer_fused_f32.cu) alone at every product of BWD_GEOMETRIES in
+    float32, against their plain twins (``layer_fused_train.gemm_nt_plain``
+    / ``weight_grad_plain`` under ``full_f32``): dX within F32_OUT_REL of
+    max(1, max |plain f32 twin|); dW and the bias sums no further from a
+    float64 truth of the same operands than twice the plain f32 twin's own
+    distance + 1e-6 max |truth|; two runs bit-identical. dX reads the
+    weight's dX pair, packed once a shape as the training step packs it.
+    Per shape the kernel's time beside its bound (bytes, or the products as
+    3xTF32 at 494.7 / 3 TFLOP/s), f32 ``torch.matmul`` of the same product
+    (``dy @ w.t()``; ``a.t() @ dy`` and ``dy.sum(0)``), which the port never
+    calls, the plain twin, and the SIMT kernel's time (SIMT_F32_BWD_MS).
+    The kernel and the matmul are timed by ``gemm_ab.graph_ms`` (a CUDA
+    graph of 20 calls: at the default widths a call's host work outlasts
+    its kernels), the plain twin by CUDA events around back-to-back calls.
+    Returns the two kernels' rows for the JSON line by (geometry, name):
+    the default and the paper batch-8 step's products summed over their
+    launches, the launches themselves under "launches"."""
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+    from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms, step_bwd_products
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    f32 = torch.float32
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    totals, rows = {}, {}
+    for geo, mf, mq, hid, pf, n_enc, n_dec, n_time in BWD_GEOMETRIES:
+        for case in step_bwd_products(mf, mq, hid, pf, n_enc, n_dec,
+                                      n_time):
+            label, kern, m, k, n = case[:5]
+            count = case[-1]
+            if kern == "gemm_nt":
+                side, act1, act2 = case[5:8]
+                dy, w = r(m, k), r(n, k) / math.sqrt(k)
+                pair = lf.tf32_pair(w, nt=True)
+                sides = {side: r(m, n)} if side else {}
+                m1 = lft._site(DROP_SEED, lft._SITE_FFN_MID, n, RATE, f32) \
+                    if act1 else None
+                m2 = lft._site(DROP_SEED, lft._SITE_EMB, n, RATE, f32) \
+                    if act2 else None
+
+                def run():
+                    return lft._gemm_nt(dy, w, m1=m1, m2=m2, pair=pair,
+                                        **sides)
+
+                def plain_run():
+                    return lft.gemm_nt_plain(dy, w, m1=m1, m2=m2, **sides)
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                with full_f32():
+                    plain = plain_run()
+                    truth = lft.gemm_nt_plain(
+                        dy.double(), w.double(), m1=m1, m2=m2,
+                        **{k_: v.double() for k_, v in sides.items()})
+                err = rel_err(got, plain, 1.0)
+                e64, p64 = f64_dist(got, truth), f64_dist(plain, truth)
+                if not err <= F32_OUT_REL:
+                    raise AssertionError(
+                        f"(r) gemm_nt_f32 {geo} {label} [{m},{k}->{n}]: "
+                        f"{err:.2e} of max(1, |plain f32|) > {F32_OUT_REL}; "
+                        f"from float64 kernel {e64:.2e}, plain {p64:.2e}")
+                same = torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+                gate = (f"{err:.2e} of max(1, |plain f32|), from float64 "
+                        f"kernel {e64:.2e}, plain {p64:.2e}")
+                del plain, truth, got, again
+                nbytes_ = 4 * (m * k + n * k + m * n * (1 + len(sides)))
+                ms = graph_ms(run)
+                with full_f32():
+                    plain_ms = cuda_ms(plain_run, iters=3)
+                    mm = graph_ms(lambda: dy @ w.t())
+                variant = " ".join(([side] if side else [])
+                                   + (["m1"] if act1 else [])
+                                   + (["m2"] if act2 else []))
+                shape = f"[{m},{k}->{n}] {variant}"
+                del dy, w, sides, pair
+            else:
+                a, dy = r(m, k), r(m, n)
+
+                def run():
+                    return lft._weight_grad(a, dy)
+
+                def plain_run():
+                    return lft.weight_grad_plain(a, dy)
+                got, again = run(), run()
+                with full_f32():
+                    plain = plain_run()
+                truth = (a.double().t() @ dy.double(), dy.double().sum(0))
+                torch.cuda.synchronize()
+                gates, err = [], 0.0
+                for name, v, p_, t in zip(("dW", "bias"), got, plain, truth):
+                    d_k = (v.double() - t).abs().max().item()
+                    d_p = (p_.double() - t).abs().max().item()
+                    lim = 2 * d_p + 1e-6 * t.abs().max().item()
+                    if not d_k <= lim:
+                        raise AssertionError(
+                            f"(r) wgrad_f32 {geo} {label} [{m},{k}x{n}] "
+                            f"{name}: {d_k:.3e} from the float64 truth > "
+                            f"{lim:.3e} (plain f32 {d_p:.3e})")
+                    err = max(err, rel_err(v, p_))
+                    gates.append(f"{name} {d_k:.3e} (plain f32 {d_p:.3e}, "
+                                 f"limit {lim:.3e})")
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                gate = "from float64: " + ", ".join(gates)
+                del got, again, plain, truth
+                nbytes_ = 4 * (m * k + m * n + k * n + n)
+                ms = graph_ms(run)
+                with full_f32():
+                    plain_ms = cuda_ms(plain_run, iters=3)
+                    mm = graph_ms(lambda: (a.t() @ dy, dy.sum(0)))
+                shape = f"[{m},{k}x{n}]"
+                del a, dy
+            if not same:
+                raise AssertionError(f"(r) {kern}_f32 {geo} {label}: two "
+                                     f"runs differ")
+            flops = 2 * m * k * n
+            bd = bound(nbytes_, tf32x3_flops=flops)
+            simt = SIMT_F32_BWD_MS.get(geo, {}).get(kern, {}).get(label)
+            log(f"(r) {kern}_f32 {geo} {label} {shape} x{count}: {gate}; "
+                f"bit-identical reruns; kernel {ms:.3f} ms, bound "
+                f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+                f"{bd['bound_ms'] / ms:.1%}), f32 matmul {mm:.3f} ms "
+                f"({ms / mm:.2f}x), plain f32 twin {plain_ms:.3f} ms, SIMT "
+                + (f"{simt:.3f} ms" if simt else "not measured"))
+            tot = totals.setdefault((geo, kern), [0, 0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, ms, bd["bound_ms"], mm, simt or 0.0)):
+                tot[i] += count * v
+            if geo in ("default b8", "paper b8"):
+                row = rows.setdefault((geo, kern), dict(
+                    max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    nbytes=0, flops=0, launches=0))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                for key_, v in (("ms", ms), ("plain_ms", plain_ms),
+                                ("library_ms", mm), ("nbytes", nbytes_),
+                                ("flops", flops), ("launches", 1)):
+                    row[key_] += count * v
+            torch.cuda.empty_cache()
+    for (geo, kern), (c, ms, bd, mm, simt) in totals.items():
+        log(f"(r) {geo}: the step's {c} {kern}_f32 launches {ms:.3f} ms, "
+            f"bound {bd:.3f} ms ({bd / ms:.1%}), f32 torch.matmul of the "
+            f"same products {mm:.3f} ms, SIMT "
+            + (f"{simt:.3f} ms" if simt else "not measured"))
+    log(f"(r) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    out = {}
+    for (geo, kern), row in rows.items():
+        row.update(bound(row.pop("nbytes"), tf32x3_flops=row.pop("flops")))
+        row["gate"] = (
+            f"every product of (r): dX <= {F32_OUT_REL} of max(1, |plain "
+            f"f32|); dW and bias sums within 2 x the plain f32 twin's "
+            f"float64 distance + 1e-6 max |truth|; max_abs_err of max "
+            f"|plain f32|; the {geo} step's products summed over its "
+            f"launches")
+        out[(geo, f"{kern}_f32")] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3643,10 +3914,8 @@ def main() -> int:
     # cuobjdump) wgmma and TMA loads in their SASS
     gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text())
     spilled = {k: v for k, v in gemms.items() if v["spill"] or v["stack"]}
-    # the f32 GEMMs hand registers between warpgroups (setmaxnreg): the
-    # consumers' 232 a thread balance the producer's 40 only from 168
     unbalanced = {k: v for k, v in gemms.items()
-                  if v["kernel"].endswith("_f32_kernel") and v["regs"] != 168}
+                  if v["kernel"] in SETMAXNREG_KERNELS and v["regs"] != 168}
     if {v["kernel"] for v in gemms.values()} != set(GEMM_KERNELS) \
             or spilled or unbalanced:
         raise AssertionError(f"(a) GEMM kernels in ptxas -v: {gemms}")
@@ -3894,6 +4163,24 @@ def main() -> int:
     results.update(q_rows)
     for name in gemm32:
         held(name, torch.float32)
+
+    # (r) the f32 backward GEMMs alone ---------------------------------------
+    bwd32 = ("gemm_nt_f32", "wgrad_f32")
+    r_rows = check_bwd_gemms_f32(dev, card)
+    r_counts = {key: row.pop("launches") for key, row in r_rows.items()}
+    want = {**{("default b8", k): f32_counts[k] for k in bwd32},
+            **{("paper b8", k): f32_counts[f"{k}/paper"] for k in bwd32}}
+    if r_counts != want or not all(r_counts.values()):
+        raise AssertionError(f"(r) the steps' dX / dW cases {r_counts}, the "
+                             f"launches of (n)'s default step and of (n.2)'s "
+                             f"paper layers {want}")
+    for k in bwd32:  # the default step's row, the paper step's beside it
+        paper_row = r_rows[("paper b8", k)]
+        results[k] = dict(r_rows[("default b8", k)], paper_step={
+            "launches": want[("paper b8", k)], **{k_: paper_row[k_] for k_ in (
+                "ms", "plain_ms", "library_ms", "bound_ms")}})
+    for name in bwd32:
+        held(name, torch.float32)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -3958,6 +4245,11 @@ def main() -> int:
                     for k in gemm32[:2]})
     sources["gemm_bias_ffma_f32"] = ("layer_fused_f32.cu",
                                      "nylon_amt_tpu/ops/layer_fused.py:376")
+    # the f32 dX / dW GEMMs: launches of (n)'s default f32 train step, whose
+    # shapes (r) timed; the dot_generals of the backward kernels K7-K9
+    counts.update({k: f32_counts[k] for k in bwd32})
+    sources.update({k: ("layer_fused_f32.cu", f"{train}:472")
+                    for k in bwd32})
     # the sources of each wrapper's float32 path
     layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
         "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
@@ -3972,7 +4264,9 @@ def main() -> int:
         "decoder_layer_train_bwd": train32,
         **{n: ["mha_f32.cu"] for n in MHA_SOURCES},
         **{n: ["layer_fused_q8.cu"] for n in Q8_SOURCES},
-        **{n: ["layer_fused_f32.cu"] for n in gemm32}}
+        **{n: ["layer_fused_f32.cu"] for n in gemm32},
+        "gemm_nt_f32": ["layer_fused_f32.cu"],
+        "wgrad_f32": ["layer_fused_f32.cu", "layer_fused_train.cu"]}
     f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [

@@ -122,17 +122,18 @@ struct NtEpilogue {
   int act1, act2;
 };
 
+// At most one of the gate and the addend, and at most one of m1 and m2, are
+// on (every call of the backward gives them so): side is the value of the
+// one given at the element, keep the keep value there (the site's or 0) of
+// the site that is on.
 template <typename T>
 __device__ __forceinline__ float nt_epilogue(float acc, const NtEpilogue& ep,
-                                             float gate, float add,
-                                             uint32_t row, int col, int n) {
+                                             float side, float keep) {
   float v = round_to<T>(acc);
-  if (ep.act1)
-    v = round_to<T>(__fmul_rn(v, keep_value(ep.m1, row, col, n)));
-  if (ep.gate && !(gate > 0.f)) v = 0.f;
-  if (ep.addend) v = round_to<T>(add + v);
-  if (ep.act2)
-    v = round_to<T>(__fmul_rn(v, keep_value(ep.m2, row, col, n)));
+  if (ep.act1) v = round_to<T>(__fmul_rn(v, keep));
+  if (ep.gate && !(side > 0.f)) v = 0.f;
+  if (ep.addend) v = round_to<T>(side + v);
+  if (ep.act2) v = round_to<T>(__fmul_rn(v, keep));
   return v;
 }
 

@@ -18,30 +18,37 @@
 //    backward (kTrain);
 //  * gemm_nt_f32_kernel <- layer_fused_train.cu's gemm_nt_kernel: the dX
 //    GEMMs of the K7-K9 backward with their mask, ReLU-gate and residual
-//    epilogues;
+//    epilogues (nt_epilogue), on gemm_bias_f32_kernel's mainloop;
 //  * wgrad_f32_kernel <- wgrad_kernel: dW = A^T dY per row chunk into f32
 //    partials (with the bias gradient's column sums), summed in a fixed
 //    order by layer_fused_train.cu's reduce_rows: no float atomics, the
 //    same bits from run to run.
 //
-// The two forward GEMMs run on the tensor cores: gemm_sm90.cuh's TF32
-// mainloop (TMA ring of 32-deep stages, a producer warpgroup, two consumer
-// warpgroups, wgmma m64nNk8 .tf32 with A split in registers) as 3xTF32
-// (tf32.cuh), the weights packed once on the host as a K-major TF32 pair
-// w_big, w_small [N, K] (ops/layer_fused.py::tf32_pair). What bounds them:
-// at the paper widths (hid 256, pf 512) the 3xTF32 products (3 x 2MNK at
-// 494.7 TFLOP/s) and the f32 bytes (4 (MK + MN [+ MN residual])) come
-// within 0.8-2x of each other: QKV and FFN-up are bound by operations, O
-// and FFN down by bytes; the default widths (hid 64) by bytes. A single f32
-// FFMA core (67 TFLOP/s) is 2.5x further from both.
+// The two forward GEMMs and dX run on the tensor cores: gemm_sm90.cuh's
+// TF32 mainloop (TMA ring of 32-deep stages, a producer warpgroup, two
+// consumer warpgroups, wgmma m64nNk8 .tf32 with A split in registers) as
+// 3xTF32 (tf32.cuh), the weights packed once on the host as K-major TF32
+// pairs (ops/layer_fused.py::pack_tf32): w_big, w_small [N, K] (w^T) for
+// the forward, [Kout, N] (w itself) for dX = dY w^T. dW = A^T dY reduces
+// over rows and gets both operands MN-major, which TF32 wgmma does not read
+// from shared memory: A^T is its register operand, and the consumers
+// re-stage each landed dY tile as a K-major TF32 pair (tma_ring.cuh feeds
+// the raw tiles).
+// What bounds them: at the paper widths (hid 256, pf 512) the 3xTF32
+// products (3 x 2MNK at 494.7 TFLOP/s) and the f32 bytes (4 (MK + MN [+ MN
+// residual or side input])) come within 0.8-2x of each other: QKV, FFN-up
+// and most dX / dW products are bound by operations, O and FFN down by
+// bytes; the default widths (hid 64) by bytes. A single f32 FFMA core (67
+// TFLOP/s) is 2.5x further from both.
 //
-// Tiles, shared memory and registers (384 threads: two consumer warpgroups
-// and a producer warpgroup, whose first warp issues the TMA loads; 227 KB
-// of shared memory a block; no spills, no stack: chip_smoke.py (a)
-// checks). ptxas gives each thread 168 registers; the producer warpgroup
-// gives 128 of them back (setmaxnreg: 40) and the consumers take them (232:
-// setmaxnreg.inc takes only what the block's own dec gave back, so a lone
-// producer warp could not feed it, and the consumers waited for ever):
+// Tiles, shared memory and registers (the kernels on RingTf32: 384
+// threads, two consumer warpgroups and a producer warpgroup, whose first
+// warp issues the TMA loads; 227 KB of shared memory a block; no spills, no
+// stack: chip_smoke.py (a) checks). ptxas gives each thread 168 registers;
+// the producer warpgroup gives 128 of them back (setmaxnreg: 40) and the
+// consumers take them (232: setmaxnreg.inc takes only what the block's own
+// dec gave back, so a lone producer warp could not feed it, and the
+// consumers waited for ever):
 //  * gemm_bias_f32_kernel: 128 rows x BN columns a tile (BN = 32, 64, 96
 //    or 128: N in the fewest tiles of <= 128), warpgroup g the rows 64 g ..
 //    64 g + 63 at all BN columns. A stage is 16 KB of A + 2 x BN x 128
@@ -62,18 +69,29 @@
 //    mainloop has ended (the training variants a quarter at a time, a
 //    quarter ahead); then the two-pass LayerNorm, then pre_out / out as
 //    float2 pairs.
+//  * gemm_nt_f32_kernel: gemm_bias_f32_kernel's tiles (BN from Kout), the
+//    side input (ReLU gate or addend) read from device memory as float2
+//    pairs in the epilogue.
+//  * wgrad_f32_kernel: 256 threads, two consumer warpgroups and no
+//    producer warp (thread 0 issues the loads, tma_ring.cuh: the m64n128
+//    sum beside its chain's accumulator takes more than the 168 registers
+//    a block with a ninth warp gets), no setmaxnreg; one block an SM, a
+//    grid of dW tiles x row chunks in one wave (ops/layer_fused_train.py::
+//    wgrad_plan); BM x BN = 64 or 128 each (from Ka and N); a stage of 32
+//    rows (BM / 32 + BN / 32 boxes of 4 KB), 4 stages, then two re-staged
+//    pair buffers of 2 x BN x 128 bytes (197 KB in all at 128 x 128).
 //
 // Numerics: the epilogues are layer_epilogue.cuh's f32 ones, the same op
 // sequence as the bf16 kernels with every rounding to the compute dtype an
 // identity. The products differ from IEEE f32 only by 3xTF32's dropped
 // small*small term (~2^-22 of a product), the tensor core's summation
-// order and its accumulation over a wgmma chain, which is kept to one
-// k-block (12 wgmmas) and summed in f32 (RingTf32::mma3): one chain a tile
-// over all of K read 2-4x the plain f32 twin's float64 distance and failed
-// chip_smoke.py (n.4)'s stage-2 gate on the paper forward (PERF.md). (q)
-// holds every shape within 2e-5 of the plain f32 twin and prints both
-// distances from a float64 truth. There is no split K and no atomic: two
-// runs are bit-identical.
+// order and its accumulation over a chain, which is kept to one k-block
+// (12 wgmmas) and summed in f32 (RingTf32::mma3): one chain a tile over all of K read 2-4x the plain f32
+// twin's float64 distance and failed chip_smoke.py (n.4)'s stage-2 gate on
+// the paper forward (PERF.md). (q) holds the forward GEMMs and (r) dX / dW
+// at every shape within their gates and prints the distances from a
+// float64 truth. There is no split K and no atomic: two runs are
+// bit-identical.
 //
 // gemm_bias_ffma_kernel: the QKV projection of the stem layer (K2, and the
 // training layer the stem feeds), where the attention scores reach ~2^14 in
@@ -89,14 +107,12 @@
 // k steps a load), 256 threads, two blocks an SM (128 registers),
 // persistent over the tiles. Bound: FFMA issue, 67 TFLOP/s.
 
-#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "tma_ring.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
 
 using nylon::DropSite;
-using nylon::F32Gemm;
 using nylon::keep_value;
 using nylon::NtEpilogue;
 namespace sm = nylon::sm90;
@@ -608,83 +624,363 @@ int launch_gemm_bias_ffma(const void* a, const void* w, const void* bias,
 
 // ------------------------------------------------------------- dX = dY W^T --
 
-using GemmNT = F32Gemm<64, 64, 4, 4, false, true>;
+// out[M, Kout] = epilogue(dy[M, N] @ w^T), w [Kout, N] read as its TF32
+// pair w_big, w_small [Kout, N] (the weight's own layout, K-major for this
+// product: ops/layer_fused.py::pack_tf32's dX pair), on
+// gemm_bias_f32_kernel's mainloop with dy as A. Tile t is (row block t /
+// n_tiles_n, column block t % n_tiles_n). `side` is ep.gate or ep.addend
+// (at most one is given), read as the fragments' float2 pairs, all of a
+// tile's loads issued at once after its mainloop; of the two dropout sites
+// at most one (`site`) is on, and each thread draws its keep bits of the
+// tile (both rows an iteration) in a rolled loop under those loads, before
+// the unrolled element math (the hashes unrolled into it made
+// layer_fused_train.cu's gemm_nt_kernel 4x slower: instruction cache).
+template <int BN>
+__global__ void __launch_bounds__(sm::kThreadsTf32, 1)
+    gemm_nt_f32_kernel(const __grid_constant__ CUtensorMap map_dy,
+                       const __grid_constant__ CUtensorMap map_big,
+                       const __grid_constant__ CUtensorMap map_small,
+                       const float* __restrict__ side,
+                       float* __restrict__ out, int M, int N, int Kout,
+                       int n_tiles_n, NtEpilogue ep, DropSite site) {
+  extern __shared__ uint8_t smem_raw[];
+  sm::RingTf32<kBiasRows, BN, 0> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (N + sm::kBKTf32 - 1) / sm::kBKTf32;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + kBiasRows - 1) / kBiasRows);
 
-// out[M, Kout] = epilogue(dy[M, N] @ w[Kout, N]^T).
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_nt_f32_kernel(const float* __restrict__ dy,
-                       const float* __restrict__ w, float* __restrict__ out,
-                       int M, int N, int Kout, int n_tiles_k, NtEpilogue ep) {
-  __shared__ __align__(16) GemmNT::Smem sm;
-  const int m0 = (blockIdx.x / n_tiles_k) * 64;
-  const int c0 = (blockIdx.x % n_tiles_k) * 64;
-  float acc[4][4];
-  GemmNT::run(sm, dy, N, w, N, M, Kout, m0, c0, 0, N, acc,
-              [](const float*) {});
-  const int col = c0 + GemmNT::col(0);
-  if (col >= Kout) return;
-  const float* gate = static_cast<const float*>(ep.gate);
-  const float* addend = static_cast<const float*>(ep.addend);
+  if (warp >= sm::kConsumerWarps) {  // the producer warpgroup
+    sm::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == sm::kConsumerWarps * 32) {
+      sm::tma_prefetch(&map_dy);
+      sm::tma_prefetch(&map_big);
+      sm::tma_prefetch(&map_small);
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t / n_tiles_n) * kBiasRows;
+        const int n0 = (int)(t % n_tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb)
+          ring.load(&map_dy, &map_big, &map_small, m0, n0, kb);
+      }
+    }
+  } else {
+    sm::reg_alloc<kConsumerRegs>();
+    const int g = warp >> 2;
+    const Frag f(threadIdx.x & 127);
+    const bool masked = ep.act1 || ep.act2;
+    float acc[BN / 2];
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (int)(t / n_tiles_n) * kBiasRows;
+      const int n0 = (int)(t % n_tiles_n) * BN;
+      ring.template mma3<BN>(acc, nk, 64 * g, 0);
+      const int row0 = m0 + 64 * g + f.r0;
+      // the tile's side values, every load issued before the first is used
+      // (one trip to device memory a tile, not one a pair), in flight under
+      // the keep bits' hashes
+      float2 sv[BN / 8][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + GemmNT::row(i);
-    if (row >= M) continue;
-    const size_t off = (size_t)row * Kout + col;
-    float4 gv = make_float4(0.f, 0.f, 0.f, 0.f), av = gv;
-    if (gate) gv = *reinterpret_cast<const float4*>(gate + off);
-    if (addend) av = *reinterpret_cast<const float4*>(addend + off);
-    const float g[4] = {gv.x, gv.y, gv.z, gv.w};
-    const float ad[4] = {av.x, av.y, av.z, av.w};
-    float v[4];
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = nylon::nt_epilogue<float>(acc[i][e], ep, g[e], ad[e],
-                                       (uint32_t)row, col + e, Kout);
-    *reinterpret_cast<float4*>(out + off) = make_float4(v[0], v[1], v[2], v[3]);
+        for (int i = 0; i < 2; ++i) {
+          const int col = n0 + 8 * j + 2 * f.q, row = row0 + 8 * i;
+          sv[j][i] = side && col < Kout && row < M
+                         ? ldg2(side + (size_t)row * Kout + col)
+                         : make_float2(0.f, 0.f);
+        }
+      // bit 2 j + c of word i: whether the site keeps column n0 + 8 j + 2 q
+      // + c of row row0 + 8 i
+      uint32_t kbits[2] = {0u, 0u};
+      if (masked) {
+#pragma unroll 1
+        for (int b = 0; b < BN / 4; ++b) {
+          const int col = n0 + 8 * (b >> 1) + 2 * f.q + (b & 1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            kbits[i] |= (uint32_t)nylon::keeps(site, (uint32_t)(row0 + 8 * i),
+                                               col, Kout)
+                        << b;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * f.q;
+        if (col >= Kout) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + 8 * i;
+          if (row >= M) continue;
+          const size_t off = (size_t)row * Kout + col;
+          const float k0 = (kbits[i] >> (2 * j)) & 1 ? site.scale : 0.f;
+          const float k1 = (kbits[i] >> (2 * j + 1)) & 1 ? site.scale : 0.f;
+          st2(out + off,
+              nylon::nt_epilogue<float>(acc[4 * j + 2 * i], ep, sv[j][i].x,
+                                        k0),
+              nylon::nt_epilogue<float>(acc[4 * j + 2 * i + 1], ep,
+                                        sv[j][i].y, k1));
+        }
+      }
+    }
   }
 }
 
 // ------------------------------------------------------------ dW = A^T dY --
 
-using GemmTN = F32Gemm<64, 64, 4, 4, true, false>;
+constexpr int kWgRows = 32;  // rows of a k-block (a stage)
+constexpr int kWgWarps = kThreads / 32;
 
-// part[chunk][Ka][N] = a[rows, Ka]^T @ dy[rows, N] over the chunk's rows;
-// blocks of the first Ka tile also write bias_part[chunk][N], the column
-// sums of dy over those rows (row order, from the staged dY slices).
-__global__ void __launch_bounds__(kThreads, 2)
-    wgrad_f32_kernel(const float* __restrict__ a, const float* __restrict__ dy,
+// The dW kernel's tile: BM (Ka) x BN (N) a block, each 64 or 128. At BM =
+// 128 warpgroup g owns the Ka rows 64 g .. 64 g + 63 at all BN columns; at
+// BM = 64 all 64 rows at the kWN = BN / 2 columns from g kWN. From the
+// 1024-byte aligned base: the ring's stages (the k-block's rows of A, BM / 32
+// boxes of 32 rows x 32 floats, and of dy, BN / 32 such boxes, 128-byte
+// swizzle, by TMA) and barriers; two buffers of dy's K-major TF32 pair (big,
+// small: BN rows of the k-block's 32 rows each, 128-byte swizzle), written
+// by the consumers; the column sums of dy of each of kParts parts of the
+// block's threads.
+template <int BM, int BN>
+struct WgTile {
+  static constexpr int kWN = BM == 128 ? BN : BN / 2;
+  static constexpr int kABytes = BM * 128, kBBytes = BN * 128;
+  static constexpr int kPairBytes = 2 * BN * 128;
+  static constexpr int kParts = kThreads / (BN / 2);
+  static constexpr int kFit =
+      (sm::kSmemMax - 2048 - 2 * kPairBytes - kParts * BN * 4) /
+      (kABytes + kBBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  using Ring = nylon::ring::Ring<kABytes, kBBytes, kStages, kWgWarps>;
+  static constexpr int kPairs = (Ring::kBytes + 1023) / 1024 * 1024;
+  static constexpr int kSums = kPairs + 2 * kPairBytes;
+  static constexpr int kSmem = 1024 + kSums + kParts * BN * 4;
+};
+
+// Byte offset of element (row r, column c) of a stage's A or dy: box c / 32,
+// 16-byte chunk (c % 32) / 4 of row r under the 128-byte swizzle.
+__device__ __forceinline__ uint32_t wg_at(int r, int c) {
+  return (uint32_t)((c >> 5) * 4096) + sm::sw128(r, (c & 31) >> 2) +
+         4 * (c & 3);
+}
+
+__device__ __forceinline__ float lds(const uint8_t* base, uint32_t at) {
+  return *reinterpret_cast<const float*>(base + at);
+}
+
+// part[chunk][Ka, N] = a[rows, Ka]^T @ dy[rows, N] over the chunk's rows
+// (rows_per_chunk of them, a multiple of kWgRows: no box straddles two
+// chunks; TMA zero-fills the rows past M), 3xTF32 on wgmma m64nNk8 .tf32.
+// dW reduces over rows, and both operands arrive MN-major (Ka and N
+// contiguous), which TF32 wgmma does not read from shared memory: A^T is
+// the register operand, each thread reading its fragments straight from
+// the staged A boxes and splitting them (as the forward splits A); dy is
+// B, re-staged by the consumers from each landed stage into a K-major TF32
+// pair (each element read once, split, written as big and small), one
+// buffer while the other's wgmmas run. The k index of a k8 step is
+// permuted alike in both (index t is row 2 t, t + 4 row 2 t + 1): the rows
+// a fragment load touches then sit at distinct swizzle phases, and the
+// loads and the re-staging's 16-byte stores are free of bank conflicts.
+// Each k-block's 12 wgmmas accumulate in a chain of their own, added into
+// the f32 sum (the forward's RingTf32::mma3 rule). Block (t, chunk) owns dW
+// tile t (Ka rows and N columns past the matrix are not stored, and a box
+// wholly past them is not loaded) and writes its f32 partial straight from
+// the registers. The column sums of dy over the chunk are shared by the
+// n_kt = ceil(Ka / BM) blocks of the tile's column range, as
+// layer_fused_train.cu's wgrad_kernel shares them: the block of Ka tile kt
+// sums the rows r = kt (mod n_kt) of each stage, each thread one column
+// pair in one of kParts parts of those rows, in row order;
+// bias_part[chunk * n_kt + kt][N] is the parts' sums added in order.
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    wgrad_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_dy,
                      float* __restrict__ part, float* __restrict__ bias_part,
-                     int M, int Ka, int N, int rows_per_chunk) {
-  __shared__ __align__(16) GemmTN::Smem sm;
-  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
-  const int chunk = blockIdx.z;
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(M, r_begin + rows_per_chunk);
-  const bool bias = blockIdx.y == 0;
-  float bsum = 0.f;  // column threadIdx.x of the bias sum (threads < 64)
-  float acc[4][4];
-  GemmTN::run(sm, a, Ka, dy, N, Ka, N, k0, n0, r_begin, r_end, acc,
-              [&](const float* Bs) {
-                if (bias && threadIdx.x < 64) {
-                  // rows past r_end are zero-filled
+                     int M, int Ka, int N, int rows_per_chunk,
+                     int n_tiles_n) {
+  using T = WgTile<BM, BN>;
+  using Issue = sm::RingTf32<64, T::kWN, 0>;
+  constexpr int S = T::kStages, WN = T::kWN;
+  extern __shared__ uint8_t smem_raw[];
+  const typename T::Ring ring(smem_raw);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  const int k0 = (blockIdx.x / n_tiles_n) * BM;
+  const int n0 = (blockIdx.x % n_tiles_n) * BN;
+  const int chunk = blockIdx.y;
+  const int r0 = chunk * rows_per_chunk;
+  const int r1 = min(M, r0 + rows_per_chunk);
+  const int nk = (r1 - r0 + kWgRows - 1) / kWgRows;
+  const int boxes_a = min(BM / 32, (Ka - k0 + 31) / 32);
+  const int boxes_b = min(BN / 32, (N - n0 + 31) / 32);
+  const CUtensorMap* const ma = &map_a;
+  const CUtensorMap* const md = &map_dy;
+  const auto fill = [&](int q) {
+    const int s = ring.fill(q, (uint32_t)(boxes_a + boxes_b) * 4096u);
+    const int row = r0 + q * kWgRows;
+    for (int b = 0; b < boxes_a; ++b)
+      sm::tma_load(ring.a(s) + b * 4096, ma, ring.full(s), k0 + 32 * b, row);
+    for (int b = 0; b < boxes_b; ++b)
+      sm::tma_load(ring.b(s) + b * 4096, md, ring.full(s), n0 + 32 * b, row);
+  };
+  if (threadIdx.x == 0) {
+    sm::tma_prefetch(ma);
+    sm::tma_prefetch(md);
+    for (int q = 0; q < S - 1 && q < nk; ++q) fill(q);
+  }
+
+  const int g = threadIdx.x >> 7;
+  const Frag f(threadIdx.x & 127);
+  const int a_row = (BM == 128 ? 64 * g : 0) + f.r0;  // A^T fragment rows
+  const int wn = BM == 128 ? 0 : g * WN;             // the warpgroup's columns
+  uint8_t* const pairs = ring.base + T::kPairs;
+  // dy's rows 8 ks + 2 e + h (e = 0..3) of column n to the 16-byte chunk cc
+  // = 2 ks + h of row n of the pair buffer: thread t takes column t % BN
+  // and the chunks t / BN + j 256 / BN
+  const auto restage = [&](const uint8_t* sb, uint8_t* pb) {
+    const int n = threadIdx.x % BN;
 #pragma unroll
-                  for (int k = 0; k < GemmTN::kBK; ++k)
-                    bsum += Bs[k * GemmTN::kBLd + threadIdx.x];
-                }
-              });
+    for (int j = 0; j < BN / 32; ++j) {
+      const int cc = threadIdx.x / BN + j * (kThreads / BN);
+      const int row = 8 * (cc >> 1) + (cc & 1);
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const nylon::Split x = nylon::split(lds(sb, wg_at(row + 2 * e, n)));
+        big[e] = x.big;
+        small[e] = x.small;
+      }
+      const uint32_t at = n * 128 + ((cc ^ (n & 7)) << 4);
+      *reinterpret_cast<uint4*>(pb + at) =
+          make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(pb + BN * 128 + at) =
+          make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  };
+  // column pair `pair` of the tile, rows first, first + step, ... of each
+  // stage
+  const int kt = k0 / BM, n_kt = (Ka + BM - 1) / BM;
+  const int pair = threadIdx.x % (BN / 2), part_of = threadIdx.x / (BN / 2);
+  const int first = kt + n_kt * part_of, step = n_kt * T::kParts;
+  float b0 = 0.f, b1 = 0.f;
+  float acc[WN / 2], chain[WN / 2];
+
+  restage(ring.b(ring.wait(0)), pairs);
+  sm::fence_async_smem();
+  __syncthreads();
+  for (int q = 0; q < nk; ++q) {
+    if (threadIdx.x == 0 && q + S - 1 < nk) fill(q + S - 1);
+    const int s = q % S;
+    const uint8_t* const sa = ring.a(s);
+    const uint8_t* const sb = ring.b(s);
+    const uint32_t pb = sm::smem_u32(pairs + (q & 1) * T::kPairBytes);
+    const uint32_t bb = pb + wn * 128, bs = pb + BN * 128 + wn * 128;
+    // the k-block's 12 wgmmas, each k8 step's A^T fragments (rows a_row, +
+    // 8; k indices c, c + 4: rows 8 ks + 2 c, + 1) split while the
+    // previous step's run
+#pragma unroll
+    for (int ks = 0; ks < kWgRows / 8; ++ks) {
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const nylon::Split x = nylon::split(
+            lds(sa, wg_at(8 * ks + 2 * f.q + (i >> 1), a_row + 8 * (i & 1))));
+        big[i] = x.big;
+        small[i] = x.small;
+      }
+      sm::wgmma_fence();
+      Issue::template issue3<WN>(chain, big, small, bb + 32 * ks,
+                                 bs + 32 * ks, ks);
+    }
+    sm::wgmma_commit();
+#pragma unroll 4
+    for (int rr = first; rr < kWgRows; rr += step) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(sb + wg_at(rr, 2 * pair));
+      b0 += v.x;
+      b1 += v.y;
+    }
+    // the next k-block's pair, into the other buffer, under the wgmmas
+    if (q + 1 < nk) {
+      restage(ring.b(ring.wait(q + 1)),
+              pairs + ((q + 1) & 1) * T::kPairBytes);
+      sm::fence_async_smem();
+    }
+    sm::wgmma_wait<0>();
+    sm::fence_regs(chain);
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i)
+      acc[i] = q == 0 ? chain[i] : acc[i] + chain[i];
+    ring.release(q);
+    // every wgmma of buffer q % 2 has retired, buffer (q + 1) % 2 is whole
+    __syncthreads();
+  }
+
   float* const dst = part + (size_t)chunk * Ka * N;
-  const int col = n0 + GemmTN::col(0);
-  if (col < N) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = k0 + GemmTN::row(i);
-      if (row < Ka)
-        *reinterpret_cast<float4*>(dst + (size_t)row * N + col) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * f.q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + a_row + 8 * i;
+      if (row < Ka && col < N)
+        st2(dst + (size_t)row * N + col, acc[4 * j + 2 * i],
+            acc[4 * j + 2 * i + 1]);
     }
   }
-  if (bias && threadIdx.x < 64 && n0 + threadIdx.x < N)
-    bias_part[(size_t)chunk * N + n0 + threadIdx.x] = bsum;
+  float* const sums = reinterpret_cast<float*>(ring.base + T::kSums);
+  *reinterpret_cast<float2*>(sums + part_of * BN + 2 * pair) =
+      make_float2(b0, b1);
+  __syncthreads();
+  for (int c = threadIdx.x; c < BN; c += kThreads) {
+    if (n0 + c >= N) continue;
+    float v = sums[c];
+#pragma unroll
+    for (int h = 1; h < T::kParts; ++h) v += sums[h * BN + c];
+    bias_part[((size_t)chunk * n_kt + kt) * N + n0 + c] = v;
+  }
+}
+
+template <int BN>
+int launch_gemm_nt(const void* dy, const void* wb, const void* ws, void* out,
+                   int M, int N, int Kout, const NtEpilogue& ep,
+                   cudaStream_t stream) {
+  CUtensorMap md, mb, ms;
+  // dy [M, N] is A, the pair [Kout, N] the K-major B
+  int e = encode_tf32(&md, &mb, &ms, dy, wb, ws, M, Kout, N, kBiasRows, BN);
+  const int n_tiles_n = (Kout + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + kBiasRows - 1) / kBiasRows);
+  const auto kernel = gemm_nt_f32_kernel<BN>;
+  constexpr int smem = sm::RingTf32<kBiasRows, BN, 0>::kBytes;
+  int grid = 0;
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, tiles, &grid, sm::kThreadsTf32);
+  if (e) return e;
+  const void* side = ep.gate != nullptr ? ep.gate : ep.addend;
+  kernel<<<grid, sm::kThreadsTf32, smem, stream>>>(
+      md, mb, ms, (const float*)side, (float*)out, M, N, Kout, n_tiles_n, ep,
+      ep.act1 ? ep.m1 : ep.m2);
+  return (int)cudaGetLastError();
+}
+
+template <int BM, int BN>
+int launch_wgrad(const void* a, const void* dy, void* part, void* bias_part,
+                 int M, int Ka, int N, int rows_per_chunk, int chunks,
+                 cudaStream_t stream) {
+  CUtensorMap ma, md;
+  int e = sm::encode_f32(&ma, a, M, Ka, kWgRows);
+  if (!e) e = sm::encode_f32(&md, dy, M, N, kWgRows);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const int tiles = n_tiles_n * ((Ka + BM - 1) / BM);
+  const auto kernel = wgrad_f32_kernel<BM, BN>;
+  constexpr int smem = WgTile<BM, BN>::kSmem;
+  if (!e)
+    e = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  kernel<<<dim3(tiles, chunks), kThreads, smem, stream>>>(
+      ma, md, (float*)part, (float*)bias_part, M, Ka, N, rows_per_chunk,
+      n_tiles_n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -763,40 +1059,59 @@ int nylon_gemm_res_ln_train_f32(const void* a, const void* w_big,
                                            eps, site, (cudaStream_t)stream);
 }
 
-// The float32 twin of nylon_gemm_nt (layer_fused_train.cu): N % 4 == 0,
-// Kout % 4 == 0.
-int nylon_gemm_nt_f32(const void* dy, const void* w, void* out,
-                      const void* gate, const void* addend, int M, int N,
-                      int Kout, int act1, unsigned key1, unsigned thresh1,
-                      float scale1, int half1, int act2, unsigned key2,
-                      unsigned thresh2, float scale2, int half2,
-                      void* stream) {
+// The float32 twin of nylon_gemm_nt (layer_fused_train.cu), the weight w
+// [Kout, N] as its TF32 pair w_big, w_small [Kout, N] (ops/layer_fused.py
+// ::pack_tf32's dX pair): N % 4 == 0, Kout % 4 == 0; gate and addend not
+// both set, act1 and act2 not both on.
+int nylon_gemm_nt_f32(const void* dy, const void* w_big, const void* w_small,
+                      void* out, const void* gate, const void* addend, int M,
+                      int N, int Kout, int act1, unsigned key1,
+                      unsigned thresh1, float scale1, int half1, int act2,
+                      unsigned key2, unsigned thresh2, float scale2,
+                      int half2, void* stream) {
   if (M <= 0 || N <= 0 || Kout <= 0 || N % 4 || Kout % 4 ||
+      (gate != nullptr && addend != nullptr) || (act1 && act2) ||
       (half1 && 2 * half1 != Kout) || (half2 && 2 * half2 != Kout))
     return (int)cudaErrorInvalidValue;
   const NtEpilogue ep{gate, addend, DropSite{key1, thresh1, scale1, half1, 0u},
                       DropSite{key2, thresh2, scale2, half2, 0u}, act1, act2};
-  const int n_tiles_k = (Kout + 63) / 64;
-  const long long tiles = (long long)n_tiles_k * ((M + 63) / 64);
-  gemm_nt_f32_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dy, (const float*)w, (float*)out, M, N, Kout, n_tiles_k,
-      ep);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (bias_tile_width(Kout)) {
+    case 32:
+      return launch_gemm_nt<32>(dy, w_big, w_small, out, M, N, Kout, ep, s);
+    case 64:
+      return launch_gemm_nt<64>(dy, w_big, w_small, out, M, N, Kout, ep, s);
+    case 96:
+      return launch_gemm_nt<96>(dy, w_big, w_small, out, M, N, Kout, ep, s);
+    default:
+      return launch_gemm_nt<128>(dy, w_big, w_small, out, M, N, Kout, ep, s);
+  }
 }
 
-// The float32 twin of nylon_wgrad: Ka % 4 == 0, N % 4 == 0, any
-// rows_per_chunk.
+// The float32 twin of nylon_wgrad: part[chunks, Ka, N] and
+// bias_part[chunks * ceil(Ka / bm), N], the dW tile bm x bn (64 or 128
+// each: ops/layer_fused_train.py::wgrad_tile, which sizes bias_part; no
+// other tile is taken), rows split into chunks of rows_per_chunk (a
+// multiple of 32), each holding at least one row; Ka % 4 == 0, N % 4 == 0.
 int nylon_wgrad_f32(const void* a, const void* dy, void* part,
                     void* bias_part, int M, int Ka, int N, int rows_per_chunk,
-                    int chunks, void* stream) {
-  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 4 || N % 4 || rows_per_chunk <= 0 ||
-      chunks <= 0 || chunks > 65535 || (long long)rows_per_chunk * chunks < M)
+                    int chunks, int bm, int bn, void* stream) {
+  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 4 || N % 4 ||
+      rows_per_chunk <= 0 || rows_per_chunk % kWgRows || chunks <= 0 ||
+      chunks > 65535 || (long long)rows_per_chunk * chunks < M ||
+      (long long)rows_per_chunk * (chunks - 1) >= M ||
+      (bm != 64 && bm != 128) || (bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + 63) / 64, (Ka + 63) / 64, chunks);
-  wgrad_f32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)dy, (float*)part, (float*)bias_part, M,
-      Ka, N, rows_per_chunk);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 64)
+    return bn == 64 ? launch_wgrad<64, 64>(a, dy, part, bias_part, M, Ka, N,
+                                           rows_per_chunk, chunks, s)
+                    : launch_wgrad<64, 128>(a, dy, part, bias_part, M, Ka, N,
+                                            rows_per_chunk, chunks, s);
+  return bn == 64 ? launch_wgrad<128, 64>(a, dy, part, bias_part, M, Ka, N,
+                                          rows_per_chunk, chunks, s)
+                  : launch_wgrad<128, 128>(a, dy, part, bias_part, M, Ka, N,
+                                           rows_per_chunk, chunks, s);
 }
 
 }  // extern "C"

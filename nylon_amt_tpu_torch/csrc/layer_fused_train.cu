@@ -53,8 +53,8 @@
 //
 // Float32 compute dtype: ln_bwd_kernel is instantiated for f32 rows
 // (nylon_ln_bwd_f32); the dX and dW GEMMs have f32 twins in
-// layer_fused_f32.cu (the SIMT core of gemm_f32.cuh), whose partials this
-// file's reduce_rows sums in the same fixed order.
+// layer_fused_f32.cu (3xTF32 on wgmma), whose partials
+// this file's reduce_rows sums in the same fixed order.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"

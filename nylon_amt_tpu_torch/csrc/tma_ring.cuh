@@ -1,14 +1,16 @@
 // A TMA ring with no producer warp (sm_90a): the f32-exact kernels of the
 // port (log_mel.cu's DFT on the FP64 tensor cores, layer_fused_f32.cu's
-// stem-layer QKV on the CUDA cores).
+// stem-layer QKV on the CUDA cores) and layer_fused_f32.cu's dW GEMM
+// (3xTF32 wgmma, its B operand re-staged by the warps).
 //
-// Both keep large register tiles (K1: 64 f64 accumulators a thread; the QKV:
-// an 8 x 8 f32 tile and its operands), and a block of 8 warps plus a
-// producer warp gets at most 168 registers a thread (three of its 9 warps
-// share one SM sub-partition's 16384): K1 spilled there. So thread 0 of the
-// block issues the TMA loads itself, kStages - 1 stages ahead of the warps,
-// in the same loop: before it refills a stage it waits until every warp has
-// released the stage's previous use.
+// They keep large register tiles (K1: 64 f64 accumulators a thread; the
+// QKV: an 8 x 8 f32 tile and its operands; dW: the m64n128 sum beside its
+// chain's accumulator, and the split fragments), and a block of 8 warps
+// plus a producer warp gets at most 168 registers a thread (three of its 9
+// warps share one SM sub-partition's 16384): K1 spilled there. So thread 0
+// of the block issues the TMA loads itself, kStages - 1 stages ahead of the
+// warps, in the same loop: before it refills a stage it waits until every
+// warp has released the stage's previous use.
 //
 // Item q of a block's sequence of (tile, k-block) pairs lives in stage q %
 // kStages, its u-th use (u = q / kStages): full[s] completes its phase u when
@@ -59,11 +61,12 @@ struct Ring {
   }
 
   // Thread 0, before it issues item q's loads on full(stage): the stage
-  // once free, expecting its bytes. Returns the stage.
-  __device__ int fill(int q) const {
+  // once free, expecting `bytes` (those of the boxes it will load: the
+  // whole stage unless some are left out). Returns the stage.
+  __device__ int fill(int q, uint32_t bytes = kStageBytes) const {
     const int s = q % kStages, u = q / kStages;
     if (u > 0) sm::mbar_wait(empty(s), (uint32_t)((u - 1) & 1));
-    sm::mbar_expect_tx(full(s), kStageBytes);
+    sm::mbar_expect_tx(full(s), bytes);
     return s;
   }
 

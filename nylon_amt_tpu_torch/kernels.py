@@ -44,8 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # fused_mha_with_probs and K12 fused_mha_dropout, forward and backward (the
 # per-site attention); K13, the int8 (W8A8) twins of K2-K5. A launch in
 # float32 counts as one in bfloat16 does. And, inside those layers, the two
-# float32 forward GEMM kernels (3xTF32 wgmma, csrc/layer_fused_f32.cu) and
-# the stem layer's float32 QKV GEMM on the CUDA cores, one count a launch.
+# float32 forward GEMM kernels (3xTF32 wgmma, csrc/layer_fused_f32.cu), the
+# stem layer's float32 QKV GEMM on the CUDA cores, and the training
+# backward's float32 dX and dW GEMMs (3xTF32 wgmma), one count a
+# launch.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -65,7 +67,8 @@ launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "decoder_layer_zero_q8": 0,
                             "decoder_layer_q8": 0,
                             "gemm_bias_f32": 0, "gemm_res_ln_f32": 0,
-                            "gemm_bias_ffma_f32": 0}
+                            "gemm_bias_ffma_f32": 0, "gemm_nt_f32": 0,
+                            "wgrad_f32": 0}
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_uint
@@ -133,8 +136,8 @@ _SIGNATURES = {
 
 # The entry points with a float32 twin ("<name>_f32", the same arguments).
 _F32_TWINS = ("nylon_stem_embed", "nylon_attention", "nylon_attention_probs",
-              "nylon_attention_drop", "nylon_ln_bwd", "nylon_gemm_nt",
-              "nylon_wgrad", "nylon_attention_bwd", "nylon_q8_quant_rows",
+              "nylon_attention_drop", "nylon_ln_bwd",
+              "nylon_attention_bwd", "nylon_q8_quant_rows",
               "nylon_q8_quant_cols", "nylon_q8_gemm_bias",
               "nylon_q8_gemm_res_ln", "nylon_q8_attention")
 _SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in _F32_TWINS})
@@ -143,6 +146,12 @@ _SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in _F32_TWINS})
 _SIGNATURES.update({f"{n}_f32": [_P, _P, *_SIGNATURES[n][1:]] for n in (
     "nylon_gemm_bias", "nylon_gemm_bias_drop", "nylon_gemm_res_ln",
     "nylon_gemm_res_ln_train")})
+# the float32 dX GEMM: dy, then the weight [Kout, N] as its TF32 pair (w_big,
+# w_small [Kout, N]: pack_tf32's dX pair), then nylon_gemm_nt's arguments
+_SIGNATURES["nylon_gemm_nt_f32"] = [_P, _P, *_SIGNATURES["nylon_gemm_nt"][1:]]
+# the float32 dW GEMM: nylon_wgrad's arguments and, before the stream, the
+# dW tile's rows and columns (ops/layer_fused_train.py::wgrad_tile)
+_SIGNATURES["nylon_wgrad_f32"] = [_P] * 4 + [_I] * 7 + [_P]
 # the float32 GEMM + bias on the CUDA cores (the stem layer's QKV): a, w [K,
 # N], bias, out, M, N, K, relu, stream
 _SIGNATURES["nylon_gemm_bias_ffma_f32"] = _SIGNATURES["nylon_gemm_bias"]

@@ -289,22 +289,27 @@ def _split(x):
     return big, small
 
 
-def tf32_pair(w):
+def tf32_pair(w, nt: bool = False):
     """The float32 GEMM kernels' form of a weight ``w [K, N]``: the K-major
     TF32 pair ``[2, N, K]`` (big, small) of ``w^T`` (TF32 ``wgmma`` reads
-    shared-memory operands K-major only)."""
-    return torch.stack(_split(w.float().t().contiguous()))
+    shared-memory operands K-major only); with ``nt`` the pair ``[2, K,
+    N]`` of ``w`` itself, the dX GEMM's (``dy @ w^T`` reduces over N)."""
+    return torch.stack(_split((w if nt else w.t()).float().contiguous()))
 
 
-def pack_tf32(p) -> dict[str, tuple]:
+def pack_tf32(p, nt: bool = False) -> dict[str, tuple]:
     """The TF32 pair ``(big, small)``, each ``[N, K]``, of every weight
     matrix of the layer parameters ``p`` (``EncoderLayerParams`` or
     ``CrossLayerParams``), by field name: :func:`tf32_pair`'s values,
     split at once for the whole layer (a handful of launches, not a
-    handful a matrix) into two buffers that the pairs view."""
+    handful a matrix) into two buffers that the pairs view. With ``nt``
+    (training) the same split also gives the dX GEMM's pair ``[K, N]`` of
+    each matrix, under ``name + "_nt"``: one more copy a matrix, in the same
+    buffer."""
     mats = [(f, t) for f, t in zip(p._fields, p) if t.dim() == 2
             and t.numel()]
-    wt = torch.empty(sum(t.numel() for _, t in mats), dtype=torch.float32,
+    size = sum(t.numel() for _, t in mats)
+    wt = torch.empty((2 if nt else 1) * size, dtype=torch.float32,
                      device=mats[0][1].device)
     views, off = {}, 0
     for f, t in mats:          # w^T of each matrix, K-major, one copy each
@@ -312,9 +317,15 @@ def pack_tf32(p) -> dict[str, tuple]:
         views[f] = (off, n, k)
         wt[off:off + n * k].view(n, k).copy_(t.t())
         off += n * k
+    if nt:
+        for f, t in mats:      # and w itself, for dX
+            k, n = t.shape
+            views[f + "_nt"] = (off, k, n)
+            wt[off:off + n * k].view(k, n).copy_(t)
+            off += n * k
     big, small = _split(wt)
-    return {f: (big[o:o + n * k].view(n, k), small[o:o + n * k].view(n, k))
-            for f, (o, n, k) in views.items()}
+    return {f: (big[o:o + r * c].view(r, c), small[o:o + r * c].view(r, c))
+            for f, (o, r, c) in views.items()}
 
 
 def _pair(tf32, name):
@@ -346,31 +357,33 @@ def check_gemm(name: str, m: int, k: int, n: int, dtype,
             + f"; got M {m}, K {k}, N {n}")
 
 
-def gemm_weight(name: str, w, pair, dtype) -> tuple:
+def gemm_weight(name: str, w, pair, dtype, nt: bool = False) -> tuple:
     """The pointers a GEMM entry point takes for the weight ``w [K, N]``:
     ``w``'s for bfloat16; for float32 those of its TF32 pair ``(big,
-    small)``, each ``[N, K]``: ``pair`` (a :func:`pack_tf32` entry or a
-    :func:`tf32_pair`). Raises for a ``pair`` of another shape, dtype or
-    device, and on the card for a missing one: the callers pack once
-    (``pack_params``, the training step's ``Weights``). Off the card (a
-    meta tensor, or a CPU tensor handed to a GEMM wrapper itself), where no
-    kernel runs on the data, a missing pair is made here so that the call
-    goes on to the kernel loader."""
+    small)``, each ``[N, K]`` (with ``nt``, the dX GEMM's, each ``[K,
+    N]``): ``pair`` (a :func:`pack_tf32` entry or a :func:`tf32_pair`).
+    Raises for a ``pair`` of another shape, dtype or device, and on the
+    card for a missing one: the callers pack once (``pack_params``, the
+    training step's ``Weights``). Off the card (a meta tensor, or a CPU
+    tensor handed to a GEMM wrapper itself), where no kernel runs on the
+    data, a missing pair is made here so that the call goes on to the
+    kernel loader."""
     if dtype != torch.float32:
         return (w.data_ptr(),)
     k, n = w.shape
+    shape = (k, n) if nt else (n, k)
     if pair is None and w.device.type == "cuda":
         raise ValueError(
             f"{name}: the float32 kernels read the weight [{k}, {n}] as its "
             f"TF32 pair, and none was given (pack_tf32 / tf32_pair)")
-    halves = tf32_pair(w) if pair is None else pair
+    halves = tf32_pair(w, nt) if pair is None else pair
     if len(halves) != 2 or any(
-            tuple(h.shape) != (n, k) or h.dtype != torch.float32
+            tuple(h.shape) != shape or h.dtype != torch.float32
             or not h.is_contiguous() or h.device != w.device
             for h in halves):
         raise ValueError(
             f"{name}: the float32 kernels read the weight [{k}, {n}] as its "
-            f"TF32 pair, two contiguous float32 [{n}, {k}] on {w.device} "
+            f"TF32 pair, two contiguous float32 {list(shape)} on {w.device} "
             f"(tf32_pair); got "
             + ", ".join(f"{tuple(h.shape)} {h.dtype} on {h.device}"
                         for h in halves))

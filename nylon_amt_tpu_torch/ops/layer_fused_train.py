@@ -31,15 +31,18 @@ the f32 instantiation of the LayerNorm backward) for float32 ones, the
 default model configuration's compute dtype; any other dtype raises.
 The plain backward bodies take their matrix products from
 :func:`gemm_nt_plain` and :func:`weight_grad_plain`, the plain twins of the
-backward's dX and dW kernels alone (``chip_smoke.py`` (p) holds the kernels
-to them); ``check_gemm_nt`` and ``check_wgrad`` refuse, before the library
-loads, the shapes those kernels do not take, and ``wgrad_plan`` splits the
-rows of a dW product into the kernel's chunks.
+backward's dX and dW kernels alone (``chip_smoke.py`` (p) holds the bf16
+kernels to them, (r) the float32 ones); ``check_gemm_nt`` and
+``check_wgrad`` refuse, before the library loads, the shapes those kernels
+do not take, and ``wgrad_plan`` splits the rows of a dW product into the
+kernel's chunks.
 
 Weights arrive in float32 (so their gradients are float32) and are cast to
 the compute dtype (the activations' dtype): the plain versions on use, as
 the TPU kernels cast on read; the autograd Functions once per call of the
-training step, in the forward, and the backward reuses that copy.
+training step, in the forward, and the backward reuses that copy (for
+float32 with the TF32 pairs that the forward and the dX GEMMs read, from
+one ``pack_tf32``).
 """
 
 from __future__ import annotations
@@ -655,10 +658,9 @@ def check_gemm_nt(name: str, m: int, n: int, kout: int, dtype, gate=None,
                   addend=None, m1=None, m2=None) -> None:
     """Raise ``ValueError`` unless the dX kernel takes ``dy [m, n] @ w
     [kout, n]^T`` in ``dtype`` with these side inputs (``[m, kout]``) and
-    dropout sites (the bf16 kernel takes one of gate and addend and one of
-    m1 and m2 at a time, as every call of the backward gives them): what
-    the C entry point would refuse, refused before the library is
-    loaded."""
+    dropout sites (the kernels take one of gate and addend and one of m1
+    and m2 at a time, as every call of the backward gives them): what the C
+    entry point would refuse, refused before the library is loaded."""
     kernels.check_dtype(name, dtype)
     k = _BWD_MULTIPLE[dtype]
     if m <= 0 or n <= 0 or kout <= 0 or n % k or kout % k:
@@ -668,45 +670,68 @@ def check_gemm_nt(name: str, m: int, n: int, kout: int, dtype, gate=None,
         if t is not None and tuple(t.shape) != (m, kout):
             raise ValueError(f"{name}: {side} has shape {tuple(t.shape)}, "
                              f"expected {(m, kout)}")
-    if dtype == torch.bfloat16 and gate is not None and addend is not None:
-        raise ValueError(f"{name}: the bf16 dX kernel takes a gate or an "
+    if gate is not None and addend is not None:
+        raise ValueError(f"{name}: the {dtype} dX kernel takes a gate or an "
                          "addend, not both")
-    if dtype == torch.bfloat16 and m1 is not None and m2 is not None:
-        raise ValueError(f"{name}: the bf16 dX kernel takes the dropout "
+    if m1 is not None and m2 is not None:
+        raise ValueError(f"{name}: the {dtype} dX kernel takes the dropout "
                          "site m1 or m2, not both")
 
 
-def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None):
-    """``dt(dy @ w^T)`` [x m1] [ReLU gate] [+ addend] [x m2]."""
+def _gemm_nt(dy, w, gate=None, addend=None, m1=None, m2=None, pair=None):
+    """``dt(dy @ w^T)`` [x m1] [ReLU gate] [+ addend] [x m2] (float32:
+    ``pair`` is the dX pair of ``w``, ``tf32_pair(w, nt=True)``)."""
     m, n = dy.shape
     kout = w.shape[0]
     check_gemm_nt("gemm_nt", m, n, kout, dy.dtype, gate, addend, m1, m2)
+    wk = lf.gemm_weight("gemm_nt", w, pair, dy.dtype, nt=True)
     out = torch.empty((m, kout), dtype=dy.dtype, device=dy.device)
     kernels.call(kernels.entry("nylon_gemm_nt", dy.dtype), dy.data_ptr(),
-                 w.data_ptr(), out.data_ptr(),
+                 *wk, out.data_ptr(),
                  None if gate is None else gate.data_ptr(),
                  None if addend is None else addend.data_ptr(), m, n, kout,
                  int(m1 is not None), *(m1 or _NO_SITE),
                  int(m2 is not None), *(m2 or _NO_SITE),
                  kernels.stream_of(dy))
+    if dy.dtype == torch.float32:
+        kernels.launches["gemm_nt_f32"] += 1
     return out
 
 
-def wgrad_plan(m: int, tiles: int, sms: int) -> tuple[int, int]:
-    """``(rows_per_chunk, chunks)`` of the bf16 dW kernel over ``m`` rows
-    with ``tiles`` output tiles on a card of ``sms`` SMs: one wave of one
-    block an SM (tiles x chunks <= sms where tiles allow), every chunk a
-    multiple of 64 rows (the kernel's k-block: no TMA box straddles two
-    chunks) holding at least one row, every row in exactly one chunk."""
+def wgrad_plan(m: int, tiles: int, sms: int,
+               rows_multiple: int = 64) -> tuple[int, int]:
+    """``(rows_per_chunk, chunks)`` of the dW kernels over ``m`` rows with
+    ``tiles`` output tiles on a card of ``sms`` SMs: one wave of one block
+    an SM (tiles x chunks <= sms where tiles allow), every chunk a multiple
+    of ``rows_multiple`` rows (the kernel's k-block: 64 in bf16, 32 in
+    float32; no TMA box straddles two chunks) holding at least one row,
+    every row in exactly one chunk."""
     chunks = max(1, sms // tiles)
-    rows = -(-(-(-m // chunks)) // 64) * 64
+    rows = -(-(-(-m // chunks)) // rows_multiple) * rows_multiple
     return rows, -(-m // rows)
 
 
-# wgrad_f32_kernel (f32, 64 x 64 tiles of dW) keeps two blocks per SM
-# resident (its launch bounds); its row chunks are sized for two waves of
-# them, so the card is full while the partials to reduce stay few
-_WGRAD_F32_BLOCKS = 2 * 2
+def wgrad_tile(ka: int, n: int, dtype) -> tuple[int, int]:
+    """The dW kernel's tile of ``dW [ka, n]``: 128 x 128 in bf16; in
+    float32 64 rows where ``ka`` is at most 64, else 128, and 64 columns
+    where ``n`` is at most 64, else 128. The one rule: ``nylon_wgrad_f32``
+    takes the tile as arguments and refuses any other."""
+    if dtype == torch.bfloat16:
+        return 128, 128
+    return (64 if ka <= 64 else 128), (64 if n <= 64 else 128)
+
+
+def wgrad_layout(m: int, ka: int, n: int, dtype,
+                 sms: int) -> tuple[int, int, int, int]:
+    """``(bm, bn, rows_per_chunk, chunks)`` of the dW kernel of ``a [m,
+    ka]^T @ dy [m, n]`` in ``dtype`` on a card of ``sms`` SMs: the tile
+    (``wgrad_tile``) and the row chunks over its tiles (``wgrad_plan``;
+    the k-block is 64 rows in bf16, 32 in float32). The bias sums take
+    ``chunks * ceil(ka / bm)`` rows."""
+    bm, bn = wgrad_tile(ka, n, dtype)
+    rows, chunks = wgrad_plan(m, -(-ka // bm) * -(-n // bn), sms,
+                              64 if dtype == torch.bfloat16 else 32)
+    return bm, bn, rows, chunks
 
 
 @functools.lru_cache(maxsize=None)
@@ -726,28 +751,24 @@ def check_wgrad(name: str, m: int, ka: int, n: int, dtype) -> None:
 
 def _weight_grad(a, dy):
     """(a^T dy, column sums of dy) in f32: per-chunk partials over row
-    chunks, then a reduction in chunk order."""
+    chunks (one wave of dW tiles x chunks), then a reduction in chunk
+    order; a chunk's column sums of dy come in a part from each of the
+    ceil(ka / tile rows) tiles of a column range."""
     m, ka = a.shape
     n = dy.shape[1]
     check_wgrad("weight_grad", m, ka, n, a.dtype)
-    sms = _sm_count(a.device.index)
-    if a.dtype == torch.bfloat16:
-        # 128 x 128 tiles of dW; a chunk's column sums of dy come in a part
-        # from each of the ceil(ka / 128) tiles of a column range
-        rows, chunks = wgrad_plan(m, -(-ka // 128) * -(-n // 128), sms)
-        bias_rows = chunks * -(-ka // 128)
-    else:  # 64 x 64 tiles, rows a multiple of 32
-        tiles = -(-ka // 64) * -(-n // 64)
-        chunks = max(1, -(-(_WGRAD_F32_BLOCKS * sms) // tiles))
-        rows = -(-(-(-m // chunks)) // 32) * 32
-        chunks = bias_rows = -(-m // rows)
+    bm, bn, rows, chunks = wgrad_layout(m, ka, n, a.dtype,
+                                        _sm_count(a.device.index))
+    f32 = a.dtype == torch.float32
     part = torch.empty((chunks, ka, n), dtype=torch.float32, device=a.device)
-    bias_part = torch.empty((bias_rows, n), dtype=torch.float32,
+    bias_part = torch.empty((chunks * -(-ka // bm), n), dtype=torch.float32,
                             device=a.device)
     kernels.call(kernels.entry("nylon_wgrad", a.dtype), a.data_ptr(),
                  dy.data_ptr(), part.data_ptr(),
                  bias_part.data_ptr(), m, ka, n, rows, chunks,
-                 kernels.stream_of(a))
+                 *((bm, bn) if f32 else ()), kernels.stream_of(a))
+    if f32:
+        kernels.launches["wgrad_f32"] += 1
     return _reduce(part.view(chunks, -1)).view(ka, n), _reduce(bias_part)
 
 
@@ -777,21 +798,25 @@ def _check(name, acts, p, n_heads, max_len):
 class Weights:
     """The weights the kernels read: ``p``'s matrices and biases in the
     compute dtype (the activations'), f32 LN, as attributes (``w.wo``);
-    for float32 also the TF32 pair of each matrix (``pair``), the form the
-    forward GEMMs read (the backward's dX and dW GEMMs read the matrices)."""
+    for float32 also the TF32 pairs of each matrix (``pair``): the forward
+    GEMMs' and the backward dX GEMM's, from one pack (the dW GEMM reads no
+    weight)."""
 
     def __init__(self, p, dtype: torch.dtype):
         self.p = type(p)(*(t.float().contiguous() if f in ("g", "b")
                            else t.to(dtype).contiguous()
                            for f, t in zip(p._fields, p)))
-        self.tf32 = lf.pack_tf32(self.p) if dtype == torch.float32 else None
+        self.tf32 = (lf.pack_tf32(self.p, nt=True)
+                     if dtype == torch.float32 else None)
 
     def __getattr__(self, name):
         return getattr(self.p, name)
 
-    def pair(self, name: str):
-        """The TF32 pair of matrix ``name`` (None for bfloat16)."""
-        return None if self.tf32 is None else self.tf32[name]
+    def pair(self, name: str, nt: bool = False):
+        """The TF32 pair of matrix ``name`` (``nt``: the dX GEMM's) or None
+        for bfloat16."""
+        return None if self.tf32 is None else \
+            self.tf32[name + "_nt" if nt else name]
 
 
 def compute_weights(p, dtype: torch.dtype) -> Weights:
@@ -873,9 +898,11 @@ def _ffn_tail_bwd_cuda(f, dz, w, seed, rate, ln, tap):
     da2, dff = tap("da2", da2), tap("dff", dff)
     dw2, db2 = _weight_grad(f.midd, dff)
     du = tap("du", _gemm_nt(dff, w.w2, gate=f.midd,
-                            m1=_site(seed, _SITE_FFN_MID, pf, rate, dt)))
+                            m1=_site(seed, _SITE_FFN_MID, pf, rate, dt),
+                            pair=w.pair("w2", nt=True)))
     dw1, db1 = _weight_grad(f.y, du)
-    dy = tap("dy", _gemm_nt(du, w.w1, addend=da2))
+    dy = tap("dy", _gemm_nt(du, w.w1, addend=da2,
+                            pair=w.pair("w1", nt=True)))
     da1, dattn = _ln_backward(dy, f.a1, w.g,
                               _site(seed, _SITE_ATTN_OUT, hid, rate, dt), ln)
     da1, dattn = tap("da1", da1), tap("dattn", dattn)
@@ -892,7 +919,8 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped,
     ln = _LnGrads(m, hid, 2, x.device)
     da1, dattn, grads = _ffn_tail_bwd_cuda(f, dz.view(m, hid), w, seed, rate,
                                            ln, tap)
-    dheads = tap("dheads", _gemm_nt(dattn, w.wo))
+    dheads = tap("dheads", _gemm_nt(dattn, w.wo,
+                                    pair=w.pair("wo", nt=True)))
     dqkv = torch.empty((m, 3 * hid), dtype=x.dtype, device=x.device)
     q = f.qkv
     # fed by the stem (scores near 2^14): f32 scores as the forward's
@@ -902,7 +930,8 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped,
     dqkv = tap("dqkv", dqkv)
     dwqkv, dbqkv = _weight_grad(f.xs, dqkv)
     m0 = _site(seed, _SITE_EMB, hid, rate, x.dtype) if emb_drop else None
-    dx = tap("dx", _gemm_nt(dqkv, w.wqkv, addend=da1, m2=m0))
+    dx = tap("dx", _gemm_nt(dqkv, w.wqkv, addend=da1, m2=m0,
+                            pair=w.pair("wqkv", nt=True)))
     dg, db = ln.reduce()
     return dx.view(n, l, hid), EncoderLayerParams(
         wqkv=dwqkv, bqkv=dbqkv, g=dg, b=db, **grads)
@@ -925,7 +954,8 @@ def _cross_bwd_cuda(t2, e2, dz2, w, n, seed, n_heads, rate, ln, tap):
     f = _cross_fwd_cuda(t2, e2, w, n, seed, n_heads, rate, keep=True,
                         tap=tap)
     da1, dattn, grads = _ffn_tail_bwd_cuda(f, dz2, w, seed, rate, ln, tap)
-    dheads = tap("dheads", _gemm_nt(dattn, w.wo))
+    dheads = tap("dheads", _gemm_nt(dattn, w.wo,
+                                    pair=w.pair("wo", nt=True)))
     dq = torch.empty_like(t2)
     dkv = torch.empty((e2.shape[0], 2 * hid), dtype=e2.dtype,
                       device=e2.device)
@@ -935,8 +965,9 @@ def _cross_bwd_cuda(t2, e2, dz2, w, n, seed, n_heads, rate, ln, tap):
     dq, dkv = tap("dq", dq), tap("dkv", dkv)
     grads["wq"], grads["bq"] = _weight_grad(t2, dq)
     grads["wkv"], grads["bkv"] = _weight_grad(e2, dkv)
-    dtrg = tap("dtrg", _gemm_nt(dq, w.wq, addend=da1))
-    denc = tap("denc", _gemm_nt(dkv, w.wkv))
+    dtrg = tap("dtrg", _gemm_nt(dq, w.wq, addend=da1,
+                                 pair=w.pair("wq", nt=True)))
+    denc = tap("denc", _gemm_nt(dkv, w.wkv, pair=w.pair("wkv", nt=True)))
     return dtrg, denc, grads
 
 
@@ -986,14 +1017,16 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
                             ln)
     da0, dsa = st("da0", da0), st("dsa", dsa)
     grads["wso"], grads["bso"] = _weight_grad(sheads, dsa)
-    dsheads = st("dsheads", _gemm_nt(dsa, w.wso))
+    dsheads = st("dsheads", _gemm_nt(dsa, w.wso,
+                                     pair=w.pair("wso", nt=True)))
     dqkv = torch.empty((n * lq, 3 * hid), dtype=trg.dtype, device=trg.device)
     _attention_bwd(qkv[:, :hid], qkv[:, hid:2 * hid], qkv[:, 2 * hid:],
                    dsheads, dqkv[:, :hid], dqkv[:, hid:2 * hid],
                    dqkv[:, 2 * hid:], n, n_heads, seed, rate, _SITE_SA)
     dqkv = st("dqkv", dqkv)
     grads["wsqkv"], grads["bsqkv"] = _weight_grad(t2, dqkv)
-    dtrg = st("dtrg", _gemm_nt(dqkv, w.wsqkv, addend=da0))
+    dtrg = st("dtrg", _gemm_nt(dqkv, w.wsqkv, addend=da0,
+                                pair=w.pair("wsqkv", nt=True)))
     dg, db = ln.reduce()
     grads.update(g=dg, b=db)
     return dtrg.view(n, lq, hid), denc.view(enc.shape), DecLayerParams(**grads)

@@ -5,7 +5,8 @@ layer_fused_train.cu``: ``nylon_gemm_nt``, the dX product, and
 ``nylon_wgrad`` + ``nylon_reduce_rows``, the dW product) and the float32
 forward's (``csrc/layer_fused_f32.cu``: ``nylon_gemm_bias[_drop]_f32``,
 ``nylon_gemm_res_ln[_train]_f32``, and the stem layer's QKV on the CUDA
-cores, ``nylon_gemm_bias_ffma_f32``).
+cores, ``nylon_gemm_bias_ffma_f32``) and the float32 backward's (the same
+file's ``nylon_gemm_nt_f32``, dX, and ``nylon_wgrad_f32``, dW).
 
 Each variant is a directory holding ``layer_fused.cu``,
 ``layer_fused_train.cu``, ``layer_fused_f32.cu``, ``mha_f32.cu``,
@@ -27,20 +28,23 @@ ctypes, and are:
 * the float32 forward GEMMs (``F32_CHECKS``: small, ragged and paper
   shapes, every variant) held within 2e-5 of max(1, max |plain f32 twin|),
   two runs bit-identical, with the kernel's and the plain twin's distances
-  from a float64 truth of the same operands printed. A variant's weight
-  form follows its source: the TF32 pair (two pointers, each half ``[N,
-  K]``) where ``layer_fused_f32.cu`` runs the ``wgmma`` mainloop, ``[K,
-  N]`` where it still holds the SIMT kernels; and the stem QKV GEMM
+  from a float64 truth of the same operands printed, the weight as its
+  TF32 pair (two pointers, each half ``[N, K]``); and the stem QKV GEMM
   (``QKV_CHECKS``: ragged, default and paper shapes) the same way, its
-  weight ``[K, N]``;
+  weight ``[K, N]``; the float32 dX and dW (``F32_BWD_CHECKS``: every
+  epilogue, ragged and paper shapes): dX within 2e-5 of max(1, max |plain
+  f32 twin|), dW and its bias sums no further from a float64 truth than
+  twice the plain f32 twin's own distance + 1e-6 max |truth|, reruns
+  bit-identical; dX reads the weight as its dX pair (``[Kout, N]`` halves)
+  where the tree's ``nylon_gemm_nt_f32`` takes one, the weight itself where
+  it is the SIMT kernel;
 * compared with the first variant bit for bit; with ``--same`` a bf16
   forward output that differs from the first variant's, or a bf16 forward
   GEMM, a TF32 forward GEMM, an f32 dX / dW GEMM, a bf16 attention kernel
   (``mha.cu``) or an f32 attention kernel (``mha_f32.cu``) whose SASS
   (``cuobjdump -sass``) differs, fails the run. The first
   variant is the one under test: its gates decide the exit code; the
-  others' are reported (the parent's ``wmma`` dW kernel does not pass the
-  float64 gate);
+  others' are reported;
 * timed at the GEMM shapes of the paper batch-32 forward and of the paper
   batch-8 training step's backward (its 43 dX and 43 dW products), in the
   order A B ... B A (CUDA events; the best of the two), beside bf16
@@ -50,11 +54,17 @@ ctypes, and are:
   (bytes, or the products as 3xTF32 at 494.7 / 3 TFLOP/s) and the FFMA
   bound (the products at 67 TFLOP/s), with the stem QKV GEMM at its paper
   and default shapes beside the same f32 ``torch.matmul`` and its bound
-  (the products at 67 TFLOP/s).
+  (the products at 67 TFLOP/s); and the float32 dX and dW at every product
+  of the paper and the default batch-8 step (``step_bwd_products``) beside
+  f32 ``torch.matmul``, the bound (bytes, or the products as 3xTF32) and
+  the FFMA bound. ``--f32-bwd`` times only those.
 
-A variant's dW row chunks follow its own kernel: ``wgrad_plan`` for the
-``wgmma`` kernel, the earlier rule (two waves of two 128 x 128 blocks an
-SM, rows a multiple of 32) where the source still holds the ``wmma`` one.
+A variant's dW row chunks and tile follow ``wgrad_layout``. A tree whose
+``layer_fused_f32.cu`` still holds the SIMT float32 dX and dW kernels (the
+parent of the tensor-core ones) is driven as those take it: dX reads the
+weight ``[Kout, N]`` itself, dW takes no tile and its own row chunks (two
+waves of two 64 x 64 blocks an SM, rows a multiple of 32). That fork goes
+once no parent tree holds the SIMT kernels.
 
 Run from the root of a checkout on the card::
 
@@ -81,18 +91,19 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
                    "nylon_gemm_res_ln", "nylon_gemm_res_ln_train"),
            "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows"),
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
-                   "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32"),
+                   "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32",
+                   "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
            "attn32": (), "attn16": ()}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
            "attn16": "mha.cu"}
-# the stem QKV GEMM's entry point, where the tree's layer_fused_f32.cu has
-# one (a, w [K, N], bias, out, M, N, K, relu, stream)
+# the stem QKV GEMM's entry point (a, w [K, N], bias, out, M, N, K, relu,
+# stream)
 QKV_ENTRY = "nylon_gemm_bias_ffma_f32"
-# the kernels whose SASS --same holds, by library
+# the kernels whose SASS --same holds, by library (not the f32 dX / dW,
+# which the tensor-core kernels replaced)
 SAME_KERNELS = {"fwd": ("gemm_bias_kernel", "gemm_res_ln_kernel"),
-                "f32": ("gemm_bias_f32_kernel", "gemm_res_ln_f32_kernel",
-                        "gemm_nt_f32_kernel", "wgrad_f32_kernel"),
+                "f32": ("gemm_bias_f32_kernel", "gemm_res_ln_f32_kernel"),
                 "attn32": ("attn_fwd_f32_kernel", "attn_bwd_f32_kernel"),
                 "attn16": ("attn_fwd_kernel", "attn_bwd_kernel")}
 ULPS = 4
@@ -152,6 +163,13 @@ F32_CHECKS = [
 # the stem layer's QKV GEMM: (M, K, N), ragged, default and paper widths
 QKV_CHECKS = [(333, 64, 192), (300001, 96, 288), (1048576, 64, 192),
               (1048576, 256, 768)]
+# the float32 dX (M, N, Kout, side input, m1, m2) and dW (M, Ka, N): one
+# tile, ragged M, K and N, every tile width, every epilogue the backward
+# runs, and a paper shape of each
+F32_BWD_CHECKS = BWD_CHECKS + [
+    ("nt", 333, 36, 96, "gate", 1, 0), ("nt", 90001, 160, 96, "addend", 0, 1),
+    ("wg", 333, 36, 96), ("wg", 90001, 96, 160), ("wg", 262144, 64, 192),
+]
 # (label, M, K, N, ReLU, launches per batch-32 forward) of the default
 # widths (hid 64, pf 128, 2 + 2 + 2 layers)
 DEFAULT = [
@@ -206,6 +224,9 @@ def step_bwd_products(mf, mq, hid, pf, n_enc, n_dec, n_time) -> list:
 # the paper batch-8 step: 8 windows x 128 frames x 256 bins / 88 notes
 PAPER_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 256, 512, 3, 3,
                                3)
+# the default Config()'s batch-8 step (hid 64, pf 128, 2 + 2 + 2 layers)
+DEFAULT_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 64, 128, 2, 2,
+                                 2)
 
 
 def build(variants: dict, out_dir: Path) -> dict:
@@ -239,10 +260,10 @@ def build(variants: dict, out_dir: Path) -> dict:
             for name, paths in libs.items()}
 
 
-def wmma_plan(m: int, ka: int, n: int, sms: int) -> tuple[int, int]:
-    """The row chunks of the earlier ``wmma`` dW kernel: two waves of two
-    128 x 128 blocks an SM, rows a multiple of 32."""
-    tiles = -(-ka // 128) * -(-n // 128)
+def simt_f32_plan(m: int, ka: int, n: int, sms: int) -> tuple[int, int]:
+    """The row chunks of the earlier SIMT f32 dW kernel: two waves of two
+    64 x 64 blocks an SM, rows a multiple of 32."""
+    tiles = -(-ka // 64) * -(-n // 64)
     chunks = max(1, -(-(2 * 2 * sms) // tiles))
     rows = -(-(-(-m // chunks)) // 32) * 32
     return rows, -(-m // rows)
@@ -258,25 +279,18 @@ class Lib:
     def __init__(self, paths: dict, src: Path):
         from nylon_amt_tpu_torch import kernels
 
-        self.wmma = "wmma::" in (Path(src) / SOURCES["bwd"]).read_text()
-        # the f32 forward GEMMs read the weight as its TF32 pair, two
-        # pointers (wgmma), or the weight [K, N] itself, the bf16 entry
-        # points' arguments (the SIMT kernels)
-        f32_src = (Path(src) / SOURCES["f32"]).read_text()
-        self.tf32 = "RingTf32" in f32_src
-        self.qkv_entry = QKV_ENTRY if QKV_ENTRY in f32_src else None
+        # the f32 dX and dW on the SIMT core (csrc/gemm_f32.cuh): the bf16
+        # entry points' arguments, dX reading the weight [Kout, N] itself
+        self.f32_simt = "F32Gemm" in (Path(src) / SOURCES["f32"]).read_text()
+        simt = ("nylon_gemm_nt_f32", "nylon_wgrad_f32") if self.f32_simt \
+            else ()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
-            for e in ENTRIES[part]:
-                sig = kernels._SIGNATURES[
-                    e if self.tf32 or part != "f32" else e[:-len("_f32")]]
-                getattr(lib, e).argtypes = sig
+            for e in ENTRIES[part] + ((QKV_ENTRY,) if part == "f32" else ()):
+                getattr(lib, e).argtypes = kernels._SIGNATURES[
+                    e[:-len("_f32")] if e in simt else e]
                 getattr(lib, e).restype = ctypes.c_int
-            if part == "f32" and self.qkv_entry:
-                fn = getattr(lib, self.qkv_entry)
-                fn.argtypes = kernels._SIGNATURES["nylon_gemm_bias"]
-                fn.restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
         self.error_string = self.libs["fwd"].nylon_error_string
@@ -300,8 +314,6 @@ class Lib:
 
         if a.dtype != torch.float32:
             return "fwd", "", (w.data_ptr(),)
-        if not self.tf32:
-            return "f32", "_f32", (w.data_ptr(),)
         halves = tf32_pair(w) if pair is None else pair
         return "f32", "_f32", tuple(h.data_ptr() for h in halves)
 
@@ -326,7 +338,7 @@ class Lib:
 
         (m, k), n = a.shape, w.shape[1]
         out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-        self._call("f32", self.qkv_entry, a.data_ptr(), w.data_ptr(),
+        self._call("f32", QKV_ENTRY, a.data_ptr(), w.data_ptr(),
                    b.data_ptr(), out.data_ptr(), m, n, k, 0,
                    torch.cuda.current_stream().cuda_stream)
         return [out]
@@ -356,15 +368,23 @@ class Lib:
                        int(site is not None), *(site or _NO_SITE), s)
         return [t for t in (y, p) if t is not None]
 
-    def nt(self, dy, w, gate=None, addend=None, m1=None, m2=None):
+    def nt(self, dy, w, gate=None, addend=None, m1=None, m2=None,
+           pair=None):
         import torch
 
+        from nylon_amt_tpu_torch.ops.layer_fused import tf32_pair
         from nylon_amt_tpu_torch.ops.layer_fused_train import _NO_SITE
 
         m, n = dy.shape
         kout = w.shape[0]
         out = torch.empty((m, kout), dtype=dy.dtype, device=dy.device)
-        self._call("bwd", "nylon_gemm_nt", dy.data_ptr(), w.data_ptr(),
+        part, name, wk = "bwd", "nylon_gemm_nt", (w.data_ptr(),)
+        if dy.dtype == torch.float32:
+            part, name = "f32", "nylon_gemm_nt_f32"
+            if not self.f32_simt:
+                halves = tf32_pair(w, nt=True) if pair is None else pair
+                wk = tuple(h.data_ptr() for h in halves)
+        self._call(part, name, dy.data_ptr(), *wk,
                    out.data_ptr(), None if gate is None else gate.data_ptr(),
                    None if addend is None else addend.data_ptr(), m, n, kout,
                    int(m1 is not None), *(m1 or _NO_SITE),
@@ -377,21 +397,25 @@ class Lib:
         chunks, then the fixed-order reduction of the partials."""
         import torch
 
-        from nylon_amt_tpu_torch.ops.layer_fused_train import wgrad_plan
+        from nylon_amt_tpu_torch.ops.layer_fused_train import wgrad_layout
 
         (m, ka), n = a.shape, dy.shape[1]
         sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        rows, chunks = (wmma_plan(m, ka, n, sms) if self.wmma else
-                        wgrad_plan(m, -(-ka // 128) * -(-n // 128), sms))
+        f32_ = a.dtype == torch.float32
+        lib, name = ("f32", "nylon_wgrad_f32") if f32_ else (
+            "bwd", "nylon_wgrad")
+        bm, bn, rows, chunks = wgrad_layout(m, ka, n, a.dtype, sms)
+        tile = (bm, bn) if f32_ else ()
+        if f32_ and self.f32_simt:
+            rows, chunks = simt_f32_plan(m, ka, n, sms)
+            bm, tile = ka, ()   # one bias part a chunk
         s = torch.cuda.current_stream().cuda_stream
         f32 = dict(dtype=torch.float32, device=a.device)
-        # the wgmma kernel's bias sums: a part from each 128-row Ka tile
-        bias_rows = chunks * (1 if self.wmma else -(-ka // 128))
         part, bias_part = torch.empty((chunks, ka, n), **f32), \
-            torch.empty((bias_rows, n), **f32)
-        self._call("bwd", "nylon_wgrad", a.data_ptr(), dy.data_ptr(),
+            torch.empty((chunks * -(-ka // bm), n), **f32)
+        self._call(lib, name, a.data_ptr(), dy.data_ptr(),
                    part.data_ptr(), bias_part.data_ptr(), m, ka, n, rows,
-                   chunks, s)
+                   chunks, *tile, s)
         dw, db = torch.empty((ka, n), **f32), torch.empty((n,), **f32)
         for src, dst in ((part, dw), (bias_part, db)):
             self._call("bwd", "nylon_reduce_rows", src.data_ptr(),
@@ -420,11 +444,13 @@ def inputs(m, k, n, seed=0, dtype=None):
     return x
 
 
-def bwd_inputs(case, seed=0):
-    """dX: dy [M, N], w [Kout, N], the side input [M, Kout] and the sites;
-    dW: a [M, Ka], dy [M, N]."""
+def bwd_inputs(case, seed=0, dtype=None):
+    """dX: dy [M, N], w [Kout, N], the side input [M, Kout] and the sites
+    (float32: also w's dX pair, ``pair``); dW: a [M, Ka], dy [M, N]; in
+    ``dtype`` (bf16 unless given)."""
     import torch
 
+    from nylon_amt_tpu_torch.ops.layer_fused import tf32_pair
     from nylon_amt_tpu_torch.ops.layer_fused_train import (
         _SITE_EMB, _SITE_FFN_MID, _site)
 
@@ -433,18 +459,20 @@ def bwd_inputs(case, seed=0):
     def r(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
-    bf = torch.bfloat16
+    dt = dtype or torch.bfloat16
     if case[0] != "nt":
         _, m, ka, n = case
-        return dict(a=r(m, ka).to(bf), dy=r(m, n).to(bf))
+        return dict(a=r(m, ka).to(dt), dy=r(m, n).to(dt))
     _, m, n, kout, side, act1, act2 = case
-    x = dict(dy=r(m, n).to(bf), w=(r(kout, n) / math.sqrt(n)).to(bf))
+    x = dict(dy=r(m, n).to(dt), w=(r(kout, n) / math.sqrt(n)).to(dt))
     if side:
-        x[side] = r(m, kout).to(bf)
+        x[side] = r(m, kout).to(dt)
     if act1:
-        x["m1"] = _site(DROP_SEED, _SITE_FFN_MID, kout, RATE, bf)
+        x["m1"] = _site(DROP_SEED, _SITE_FFN_MID, kout, RATE, dt)
     if act2:
-        x["m2"] = _site(DROP_SEED, _SITE_EMB, kout, RATE, bf)
+        x["m2"] = _site(DROP_SEED, _SITE_EMB, kout, RATE, dt)
+    if dt == torch.float32:
+        x["pair"] = tf32_pair(x["w"], nt=True)
     return x
 
 
@@ -646,8 +674,6 @@ def check_f32(libs: dict) -> dict:
         truth = f64_twin(("bias", m, k, n, 0, 0, 0, 1), x, None)[0]
         plain64 = rel(want, truth)
         for name, lib in libs.items():
-            if lib.qkv_entry is None:
-                continue
             try:
                 got, again = lib.qkv(x["a"], x["w"], x["b"]), \
                     lib.qkv(x["a"], x["w"], x["b"])
@@ -668,6 +694,68 @@ def check_f32(libs: dict) -> dict:
         torch.cuda.empty_cache()
     for name in libs:
         print(f"f32 {name}: {'passed' if ok[name] else 'FAILED'}",
+              flush=True)
+    return ok
+
+
+def check_f32_bwd(libs: dict) -> dict:
+    """Hold every variant's f32 dX and dW at F32_BWD_CHECKS: dX within
+    F32_REL of max(1, max |plain f32 twin|), dW and its bias sums no
+    further from the float64 truth than twice the plain f32 twin's own
+    distance + 1e-6 max |truth|, two runs bit-identical. Returns ``{name:
+    passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lft
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    ok = {name: True for name in libs}
+    for case in F32_BWD_CHECKS:
+        x = bwd_inputs(case, seed=sum(case[1:4]) + 3, dtype=torch.float32)
+        with full_f32():
+            if case[0] == "nt":
+                want = [lft.gemm_nt_plain(**{k: v for k, v in x.items()
+                                             if k != "pair"})]
+                truth = [lft.gemm_nt_plain(
+                    **{k: v.double() if torch.is_tensor(v) else v
+                       for k, v in x.items() if k != "pair"})]
+            else:
+                want = list(lft.weight_grad_plain(x["a"], x["dy"]))
+                truth = [x["a"].double().t() @ x["dy"].double(),
+                         x["dy"].double().sum(0)]
+        for name, lib in libs.items():
+            try:
+                got, again = _run_bwd(lib, case, x), _run_bwd(lib, case, x)
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"f32 bwd {name} {case}: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            same = _equal(got, again)
+            if case[0] == "nt":
+                top = max(1.0, want[0].abs().max().item())
+                err = (got[0] - want[0]).abs().max().item() / top
+                e64 = (got[0].double() - truth[0]).abs().max().item() / top
+                p64 = (want[0].double() - truth[0]).abs().max().item() / top
+                passed = err <= F32_REL
+                what = (f"{err:.3e} of max(1, |plain f32|) (<= {F32_REL}); "
+                        f"from float64 kernel {e64:.3e}, plain f32 {p64:.3e}")
+            else:
+                dist = [(g_.double() - t).abs().max().item()
+                        for g_, t in zip(got, truth)]
+                lims = [2 * (w_.double() - t).abs().max().item()
+                        + 1e-6 * t.abs().max().item()
+                        for w_, t in zip(want, truth)]
+                passed = all(d <= lim for d, lim in zip(dist, lims))
+                what = "dW, bias from float64: " + ", ".join(
+                    f"{d:.3e} (limit {lim:.3e})" for d, lim in zip(dist, lims))
+            ok[name] &= passed and same
+            print(f"f32 bwd {name} {case}: {what}; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        del x, want, truth
+        torch.cuda.empty_cache()
+    for name in libs:
+        print(f"f32 bwd {name}: {'passed' if ok[name] else 'FAILED'}",
               flush=True)
     return ok
 
@@ -718,11 +806,46 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _abba(names, fn) -> dict:
-    """Best of two times of each variant, in the order A B .. B A."""
+def graph_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Device time of one call of ``fn`` in ms with no host time in it:
+    ``reps`` calls captured in one CUDA graph after ``warmup`` calls on
+    the capture's stream, the graph replayed once to warm it, then the best
+    of three replays by CUDA events, over ``reps``. For a call whose host
+    work (allocation, TMA maps, the launch) can outlast its kernels, where
+    back-to-back calls would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    best = math.inf
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    return best
+
+
+def _abba(names, fn, timer=cuda_ms) -> dict:
+    """Best of two times of each variant by ``timer``, in the order A B ..
+    B A."""
     ms = {}
     for name in names + names[::-1]:
-        ms.setdefault(name, []).append(cuda_ms(lambda: fn(name)))
+        ms.setdefault(name, []).append(timer(lambda: fn(name)))
     return {name: min(t) for name, t in ms.items()}
 
 
@@ -838,8 +961,7 @@ def timing_f32(libs: dict) -> None:
         # the stem layer's QKV GEMM, one a forward
         m, k, n = table[0][1:4]
         x = inputs(m, k, n, dtype=torch.float32)
-        qkv = [name for name in names if libs[name].qkv_entry]
-        ms = _abba(qkv, lambda name: libs[name].qkv(x["a"], x["w"], x["b"]))
+        ms = _abba(names, lambda name: libs[name].qkv(x["a"], x["w"], x["b"]))
         with full_f32():
             mm = cuda_ms(lambda: x["a"] @ x["w"])
         nbytes = 4 * (m * k + k * n + m * n + n)
@@ -850,6 +972,64 @@ def timing_f32(libs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def timing_f32_bwd(libs: dict) -> None:
+    """Each variant's f32 dX and dW at every product of PAPER_STEP and
+    DEFAULT_STEP, A B .. B A, beside f32 torch.matmul (IEEE: ``dy @ w.t()``;
+    ``a.t() @ dy`` and ``dy.sum(0)``), the bound (bytes, or the products as
+    3xTF32) and the FFMA bound; and the totals of one step's products. All
+    timed by ``graph_ms``: at the default widths a call's host work
+    outlasts its kernels."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    names = list(libs)
+    f32 = torch.float32
+    for geo, table in (("paper", PAPER_STEP), ("default", DEFAULT_STEP)):
+        totals = {kind: dict.fromkeys(names + ["bound", "matmul", "ffma"],
+                                      0.0) for kind in ("gemm_nt", "wgrad")}
+        for label, kind, m, k, n, *rest in table:
+            count = rest[-1]
+            if kind == "gemm_nt":
+                x = bwd_inputs(("nt", m, k, n, *rest[:3]), dtype=f32)
+                side = 1 if rest[0] else 0
+                ms = _abba(names, lambda name: libs[name].nt(**x), graph_ms)
+                with full_f32():
+                    mm = graph_ms(lambda: x["dy"] @ x["w"].t())
+                nbytes = 4 * (m * k + n * k + m * n * (1 + side))
+                shape = f"[{m},{k}->{n}] " + " ".join(
+                    v for v, on in ((rest[0], rest[0]), ("m1", rest[1]),
+                                    ("m2", rest[2])) if on)
+            else:
+                x = bwd_inputs(("wg", m, k, n), dtype=f32)
+                ms = _abba(names,
+                           lambda name: libs[name].wgrad(x["a"], x["dy"]),
+                           graph_ms)
+                with full_f32():
+                    mm = graph_ms(lambda: (x["a"].t() @ x["dy"],
+                                           x["dy"].sum(0)))
+                nbytes = 4 * (m * k + m * n + k * n + n)
+                shape = f"[{m},{k}x{n}]"
+            flops = 2 * m * k * n
+            bound = max(nbytes / HBM_BPS, 3 * flops / TF32_FLOPS) * 1e3
+            ffma = max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3
+            _line(f"f32 {geo} {kind} {label}", shape, count, ms, bound,
+                  f"f32 matmul {mm:.3f}, FFMA bound {ffma:.3f}")
+            tot = totals[kind]
+            for name, t in ms.items():
+                tot[name] += count * t
+            tot["bound"] += count * bound
+            tot["matmul"] += count * mm
+            tot["ffma"] += count * ffma
+            del x
+            torch.cuda.empty_cache()
+        for kind, tot in totals.items():
+            c = sum(rest[-1] for _, k_, *rest in table if k_ == kind)
+            print(f"time of one f32 {geo} step's {c} {kind} products (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="+", metavar="NAME=CSRC_DIR")
@@ -857,6 +1037,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--f32", action="store_true",
                     help="time the float32 forward GEMMs only")
+    ap.add_argument("--f32-bwd", action="store_true",
+                    help="time the float32 dX and dW GEMMs only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -876,6 +1058,7 @@ def main(argv=None) -> int:
             for name, paths in built.items() if paths}
     ok, ran, differ = check(libs)
     ok32 = check_f32(libs)
+    ok32b = check_f32_bwd(libs)
     same = True
     if args.same and len(libs) > 1:
         code = sass({name: built[name] for name in libs})
@@ -887,7 +1070,7 @@ def main(argv=None) -> int:
             same &= (alike == len(code[first]) == len(funcs)
                      and not differ[name])
             print(f"same {name}: SASS of the bf16 forward GEMMs, the TF32 "
-                  f"forward GEMMs, the f32 dX / dW GEMMs and the bf16 and f32 "
+                  f"forward GEMMs and the bf16 and f32 "
                   f"attention identical to {first}'s "
                   f"in {alike} of {len(code[first])} instantiations; bf16 "
                   f"forward outputs differ in {differ[name]} of "
@@ -906,11 +1089,15 @@ def main(argv=None) -> int:
     # to them and reported)
     good = {name: lib for name, lib in libs.items() if ran[name]}
     if good and not args.no_time:
-        timing_f32(good)
+        if not args.f32_bwd:
+            timing_f32(good)
         if not args.f32:
+            timing_f32_bwd(good)
+        if not (args.f32 or args.f32_bwd):
             timing(good)
-    first_ok = bool(libs) and ok[next(iter(libs))] \
-        and ok32[next(iter(libs))]
+    first = next(iter(libs), None)
+    first_ok = first is not None and ok[first] and ok32[first] \
+        and ok32b[first]
     return 0 if len(good) == len(variants) and first_ok and same else 1
 
 
