@@ -19,7 +19,10 @@ non-zero and never prints the last line):
     (``log_mel_kernel`` of ``csrc/log_mel.cu``, on the FP64 tensor cores,
     and ``gemm_bias_ffma_kernel`` of ``csrc/layer_fused_f32.cu``, the stem
     QKV on the CUDA cores) likewise spill nothing, use no stack, and hold
-    UTMALDG and DMMA (K1) or FFMA (the QKV) instructions;
+    UTMALDG and DMMA (K1) or FFMA (the QKV) instructions; the int8 GEMMs of
+    ``csrc/layer_fused_q8.cu`` (``gemm_q8_bias_kernel``,
+    ``gemm_q8_res_ln_kernel``: s8 ``wgmma``, bf16 and f32) spill nothing,
+    use no stack, and hold IGMMA (int8 wgmma) and UTMALDG;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio, on a quiet variant of it (see the check) and on 10 s of
     other audio (the card's partial wave), two runs bit-identical; the
@@ -167,17 +170,33 @@ non-zero and never prints the last line):
     the plain f32 twin's own distance + 1e-6 max |truth|, two runs
     bit-identical; per shape the kernel's time beside its bound (bytes, or
     the products as 3xTF32), f32 ``torch.matmul`` of the same product (the
-    two by CUDA graphs of 20 calls, as ``gemm_ab.graph_ms`` times them),
-    the plain twin, and the SIMT kernels' time that they replaced
-    (``SIMT_F32_BWD_MS``: ``tools/gemm_ab.py``'s A B B A); the two
+    two by CUDA graphs of 20 calls, as ``gemm_ab.graph_ms`` times them)
+    and the plain twin; the two
     kernels' rows of the JSON line: the default batch-8 step's products
     summed over their launches, the launches those that (n)'s default f32
     train step counted, and the paper step's sums beside them, its
     launches those of (n.2)'s paper backwards times the model's layers.
+(s) the int8 GEMMs alone (``gemm_q8_bias_kernel``, ``gemm_q8_res_ln_kernel``
+    of ``csrc/layer_fused_q8.cu``: s8 ``wgmma`` fed by TMA, the weights
+    K-major) at every product and variant of the paper batch-32 int8
+    forward (23 GEMM + bias with and without ReLU, 20 residual +
+    LayerNorm with and without the output's quantization), the default
+    widths' and a ragged geometry (hid 96, pf 160, M not a multiple of
+    128), in bf16 and f32, on seeded codes and scales: the GEMM + bias bit
+    for bit equal to its plain twin, the LayerNorm one within 4 bf16 ulps
+    (f32: 2e-5 of max(1, |plain|)) with its output codes and scales those
+    of the row quantizer on its own output, two runs bit-identical; per
+    product the kernel's time (CUDA graphs of 20 calls, as (r)) beside its
+    bound, the exact kernel of the same product in the same dtype and
+    ``torch._int_mm``; the paper forward's sums in every K13 row of the
+    JSON line (``s8_gemms``), their launches those that (k) profiled in
+    the int8 forward (the run fails unless they are the cases (s) timed);
+    the log line beside them quotes PERF.md's times of the ``mma.sync``
+    kernels these replaced and of the bf16 GEMMs.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
-``csrc/mha_f32.cu``.
+``csrc/mha_f32.cu``, and of the layer GEMMs (bf16, f32 and int8).
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths at f32 accuracy (IEEE f32; the f32 attention's PV
@@ -342,10 +361,11 @@ def synth_audio(seconds: float, rng: np.random.Generator,
 
 
 def profile_forward(fwd, iters: int = 10, phase: str = "e",
-                    what: str = "forward", top: int = 12) -> None:
+                    what: str = "forward", top: int = 12) -> list:
     """Device time per kernel over ``iters`` calls of ``fwd`` (forwards,
     or train steps), by torch.profiler, and the device-busy share of the
-    profiled window."""
+    profiled window. Returns (kernel name, ms, launches) per call of
+    ``fwd``, for every kernel that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,7 +391,9 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             ("bf16", "layer_fused.cu", ("gemm_bias_kernel",
                                         "gemm_res_ln_kernel")),
             ("f32", "layer_fused_f32.cu", ("gemm_bias_f32_kernel",
-                                           "gemm_res_ln_f32_kernel"))):
+                                           "gemm_res_ln_f32_kernel")),
+            ("int8", "layer_fused_q8.cu", ("gemm_q8_bias_kernel",
+                                           "gemm_q8_res_ln_kernel"))):
         gemm = [(ms, calls) for name, ms, calls in rows
                 if any(f"::{k}<" in name for k in names)]
         if gemm:
@@ -390,6 +412,7 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             + "; ".join(f"{name.split('namespace)::', 1)[-1][:44]} "
                         f"{ms_:.3f} ms {ms_ / busy:.1%} x{c}"
                         for name, ms_, c in attn))
+    return rows
 
 
 def bound(nbytes: float, flops: float = 0.0, f32_flops: float = 0.0,
@@ -1116,6 +1139,25 @@ Q8_SOURCES = {  # K13 wrapper -> the TPU kernel's pallas_call line
     "decoder_layer_q8": "nylon_amt_tpu/ops/layer_fused_q8.py:378"}
 
 
+@contextlib.contextmanager
+def plain_q8_layers():
+    """The int8 layer wrappers swapped for their plain versions while the
+    block runs (``engine.forward`` then runs the plain q8 forward; the
+    plain versions read the codes ``[K, N]`` and take no K-major pack)."""
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+
+    kept = {n: getattr(lq, n) for n in Q8_SOURCES}
+    try:
+        for n in Q8_SOURCES:
+            plain = getattr(lq, n + "_plain")
+            setattr(lq, n, lambda *a, wt=None, _plain=plain, **kw:
+                    _plain(*a, **kw))
+        yield
+    finally:
+        for n, fn in kept.items():
+            setattr(lq, n, fn)
+
+
 def synth_notes(seconds: float) -> list[dict]:
     """The notes that ``synth_audio`` plays (each sounds 1 s)."""
     pitches = (48, 55, 60, 64, 67, 72, 76)
@@ -1143,7 +1185,8 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
     layer; the int8 forward against the bf16 forward; ``transcribe --int8
     --list --tab --sheet --save-posteriors`` and ``evaluate`` through the
     CLI with the launch counts; times, a profile and the ``torch._int_mm``
-    yardstick. Returns (launch counts of the CLI run, results)."""
+    yardstick. Returns (launch counts of the CLI run, results, the
+    profiled int8 forward's launches of each s8 GEMM kernel)."""
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.lists import CorpusList
     from nylon_amt_tpu_torch.infer import engine
@@ -1191,9 +1234,9 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
 
     # (2) each wrapper against its plain q8 version and the exact layer
     def stem(fn):
-        return lambda s_, p, heads: fn(s_, packed.k_eff, packed.b_eff,
-                                       packed.pos_freq, p, heads, n_frame,
-                                       torch.bfloat16)
+        return lambda s_, p, heads, **kw: fn(
+            s_, packed.k_eff, packed.b_eff, packed.pos_freq, p, heads,
+            n_frame, torch.bfloat16, **kw)
 
     spec_t = spec.transpose(1, 2).contiguous()
     n_f, n_t = BATCH * n_frame, BATCH * 88
@@ -1238,10 +1281,17 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         "decoder_layer_q8": ("dec", n_f, 88, 256, 0)}
     shapes["encoder_layer_with_stem_q8/windows"] = \
         shapes["encoder_layer_with_stem_q8"]
+    wt = {  # the K-major packs of each check's int8 weights
+        "encoder_layer_with_stem_q8": packed8.wt["enc"][0],
+        "encoder_layer_with_stem_q8/windows": packed8.wt["enc"][0],
+        "encoder_layer_q8": packed8.wt["enc"][1],
+        "encoder_layer_q8/time": packed8.wt["time"][0],
+        "decoder_layer_zero_q8": packed8.wt["dec_zero"],
+        "decoder_layer_q8": packed8.wt["dec"][0]}
     results, failed = {}, []
     for name, (fn, plain, exact, make, p8, p16, heads) in checks.items():
         xs = make()
-        got = fn(*xs, p8, heads)
+        got = fn(*xs, p8, heads, wt=wt[name])
         want = plain(*xs, p8, heads)
         ref = exact(*xs, p16, heads)
         torch.cuda.synchronize()
@@ -1263,7 +1313,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
                 f"layer (<= plain q8's {plain_from_exact:.4f} + {ULPS} "
                 f"ulps)")
         del d, want, ref
-        ms = cuda_ms(lambda: fn(*xs, p8, heads))
+        ms = cuda_ms(lambda: fn(*xs, p8, heads, wt=wt[name]))
         plain_ms = cuda_ms(lambda: plain(*xs, p8, heads), iters=2)
         exact_ms = cuda_ms(lambda: exact(*xs, p16, heads))
         kind, n, lq_, lk, stem_flops = shapes[name]
@@ -1300,14 +1350,8 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
     # q8 forward (the wrappers' plain versions on the card) shows how far
     # the W8A8 scheme itself lands from the bf16 forward
     def plain_q8_forward():
-        kept = {n: getattr(lq, n) for n in Q8_SOURCES}
-        try:
-            for n in Q8_SOURCES:
-                setattr(lq, n, getattr(lq, n + "_plain"))
+        with plain_q8_layers():
             return engine.forward(packed8, spec, cfg)
-        finally:
-            for n, fn in kept.items():
-                setattr(lq, n, fn)
 
     out8 = engine.forward(packed8, spec, cfg)
     out16 = engine.forward(packed, spec, cfg)
@@ -1340,8 +1384,11 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
     log(f"(k) batch-{BATCH} paper forward: int8 {ms8:.3f} ms "
         f"({audio_s / ms8 * 1e3:.1f} audio-s/s), bf16 {ms16:.3f} ms "
         f"({audio_s / ms16 * 1e3:.1f} audio-s/s); card {card}")
-    profile_forward(lambda: engine.forward(packed8, spec, cfg), phase="k",
-                    what="int8 forward", top=14)
+    rows = profile_forward(lambda: engine.forward(packed8, spec, cfg),
+                           phase="k", what="int8 forward", top=14)
+    gemm_launches = {k.removesuffix("_kernel"): sum(
+        c for name, _, c in rows if f"::{k}<" in name)
+        for k in Q8_GEMM_KERNELS}
 
     # (4) transcribe --int8 --list ... and evaluate, through the CLI
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1410,7 +1457,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         f"{wall:.2f} s wall; launches {ran} ({n_batches} batches of "
         f"{BATCH}; bf16 K2-K5 0); evaluate: note F {f_note:.4f}, MPE "
         f"posterior F {f_mpe:.4f} (random weights)")
-    return counts, results
+    return counts, results, gemm_launches
 
 
 # (l) the per-site attention -------------------------------------------------
@@ -2639,14 +2686,19 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
                 s_, packed.k_eff, packed.b_eff, packed.pos_freq, p, heads,
                 n_frame, dt, **kw)
 
-        pairs = packed.tf32  # float32: the TF32 pairs the exact layers read
-        exact_kw = {} if pairs is None else {
-            name: {"tf32": tf32} for name, tf32 in (
-                ("encoder_layer_with_stem_q8", pairs["enc"][0]),
-                ("encoder_layer_q8", pairs["enc"][1]),
-                ("encoder_layer_q8/time", pairs["time"][0]),
-                ("decoder_layer_zero_q8", pairs["dec_zero"]),
-                ("decoder_layer_q8", pairs["dec"][0]))}
+        def by_check(packs):
+            """A pack's entries for the checks below, by name."""
+            return {"encoder_layer_with_stem_q8": packs["enc"][0],
+                    "encoder_layer_q8": packs["enc"][1],
+                    "encoder_layer_q8/time": packs["time"][0],
+                    "decoder_layer_zero_q8": packs["dec_zero"],
+                    "decoder_layer_q8": packs["dec"][0]}
+
+        # float32: the TF32 pairs the exact layers read
+        exact_kw = {} if packed.tf32 is None else {
+            name: {"tf32": tf32} for name, tf32 in by_check(
+                packed.tf32).items()}
+        wt = by_check(packed8.wt)  # the K-major packs the int8 kernels read
 
         checks = {  # kernel, plain q8, exact kernel, inputs, p8, p, kind
             "encoder_layer_with_stem_q8": (
@@ -2676,7 +2728,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
                 ("dec", n_f, 88, 256))}
         line = []
         for name, (fn, plain, exact, xs, p8, p, heads, shp) in checks.items():
-            got = fn(*xs, p8, heads)
+            got = fn(*xs, p8, heads, wt=wt[name])
             with full_f32():
                 want = plain(*xs, p8, heads)
             ref = exact(*xs, p, heads, **exact_kw.get(name, {}))
@@ -2704,7 +2756,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
                     f"exact layer (<= {plain_exact:.4f} + {extra:.2e})")
             held(name, dt, hid // heads)
             del d, want, ref
-            ms = cuda_ms(lambda: fn(*xs, p8, heads))
+            ms = cuda_ms(lambda: fn(*xs, p8, heads, wt=wt[name]))
             with full_f32():
                 plain_ms = cuda_ms(lambda: plain(*xs, p8, heads), iters=2)
             kind, n, lq_, lk = shp
@@ -2745,7 +2797,7 @@ def check_q8_kernels_f32(packed8, hid: int, heads: int, pf: int, dev,
     from nylon_amt_tpu_torch.ops.layer_fused import _layer_norm, _scale
     from nylon_amt_tpu_torch.ops.precision import full_f32
 
-    p = packed8.enc[1]
+    p, wt = packed8.enc[1], packed8.wt["enc"][1]
     n, L = BATCH * 128, 256
     f32 = torch.float32
 
@@ -2762,13 +2814,15 @@ def check_q8_kernels_f32(packed8, hid: int, heads: int, pf: int, dev,
     mq, sm2, sm = codes(mid_in)
     with full_f32():
         gemms = {
-            "qkv": (lq._gemm_q8(xq, sx, p.wqkv, p.sqkv, p.bqkv),
+            "qkv": (lq._gemm_q8(xq, sx, p.wqkv, p.sqkv, p.bqkv,
+                                wt=wt["wqkv"]),
                     lq._qlinear_pre(xq, sx2, p.wqkv, p.sqkv, p.bqkv, f32)),
             "ffn up + ReLU": (
-                lq._gemm_q8(xq, sx, p.w1, p.s1, p.b1, relu=True),
+                lq._gemm_q8(xq, sx, p.w1, p.s1, p.b1, relu=True,
+                            wt=wt["w1"]),
                 torch.relu(lq._qlinear_pre(xq, sx2, p.w1, p.s1, p.b1, f32)))}
         y, yq, sy = lq._gemm_q8_res_ln(mq, sm, p.w2, p.s2, p.b2, x, p.g, p.b,
-                                       quant_out=True)
+                                       quant_out=True, wt=wt["w2"])
         y_plain = _layer_norm(
             x + lq._qlinear_pre(mq, sm2, p.w2, p.s2, p.b2, f32), p.g, p.b)
     for what, (a, b) in gemms.items():
@@ -2834,7 +2888,6 @@ def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
     f32 forward's launch counts."""
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.infer import engine
-    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
     from nylon_amt_tpu_torch.ops.precision import full_f32
 
     m = cfg.model
@@ -2877,15 +2930,8 @@ def check_forward_f32(cfg, model32, spec, dev, card, tag: str,
                                      precision="int8")
 
         def plain_q8_forward():
-            kept = {n: getattr(lq, n) for n in Q8_SOURCES}
-            try:
-                for n in Q8_SOURCES:
-                    setattr(lq, n, getattr(lq, n + "_plain"))
-                with full_f32():
-                    return engine.forward(packed8, spec, cfg)
-            finally:
-                for n, fn in kept.items():
-                    setattr(lq, n, fn)
+            with plain_q8_layers(), full_f32():
+                return engine.forward(packed8, spec, cfg)
 
         out8 = engine.forward(packed8, spec, cfg)
         outp = plain_q8_forward()
@@ -3673,45 +3719,6 @@ def check_gemms_f32(dev, card: str) -> dict:
 
 # (r) the float32 backward GEMMs alone ---------------------------------------
 
-# Times of csrc/layer_fused_f32.cu's SIMT dX and dW kernels (csrc/gemm_f32.cuh,
-# PR 6) that the tensor-core ones replaced, per (geometry, kernel, product)
-# of (r) (ms; tools/gemm_ab.py --same --f32-bwd, A B B A against the parent
-# tree, by CUDA graphs of 20 calls, NVIDIA H100 80GB HBM3, 700 W; PERF.md
-# section 6); the ragged geometry was not timed there
-SIMT_F32_BWD_MS = {
-    "paper b8": {
-        "gemm_nt": {
-            "ffn2 freq": 2.275, "ffn1 freq": 2.268, "o freq": 1.137,
-            "qkv freq": 3.358, "qkv freq, emb": 3.380, "kv cross": 2.249,
-            "ffn2 note/time": 0.802, "ffn1 note/time": 0.785,
-            "o note/time": 0.397, "q cross": 0.398, "qkv note/time": 1.172,
-            "qkv time, emb": 1.162
-        },
-        "wgrad": {
-            "ffn2 freq": 2.638, "ffn1 freq": 2.659, "o freq": 1.359,
-            "qkv freq": 4.008, "kv cross": 2.636, "ffn2 note/time": 0.922,
-            "ffn1 note/time": 0.926, "o, q cross note/time": 0.487,
-            "qkv note/time": 1.418
-        },
-    },
-    "default b8": {
-        "gemm_nt": {
-            "ffn2 freq": 0.211, "ffn1 freq": 0.164, "o freq": 0.089,
-            "qkv freq": 0.230, "qkv freq, emb": 0.235, "kv cross": 0.151,
-            "ffn2 note/time": 0.078, "ffn1 note/time": 0.061,
-            "o note/time": 0.034, "q cross": 0.041, "qkv note/time": 0.084,
-            "qkv time, emb": 0.087
-        },
-        "wgrad": {
-            "ffn2 freq": 0.170, "ffn1 freq": 0.172, "o freq": 0.112,
-            "qkv freq": 0.236, "kv cross": 0.172, "ffn2 note/time": 0.070,
-            "ffn1 note/time": 0.069, "o, q cross note/time": 0.053,
-            "qkv note/time": 0.093
-        },
-    },
-}
-
-
 def check_bwd_gemms_f32(dev, card: str) -> dict:
     """(r): gemm_nt_f32_kernel and wgrad_f32_kernel (3xTF32 on wgmma,
     csrc/layer_fused_f32.cu) alone at every product of BWD_GEOMETRIES in
@@ -3724,7 +3731,7 @@ def check_bwd_gemms_f32(dev, card: str) -> dict:
     Per shape the kernel's time beside its bound (bytes, or the products as
     3xTF32 at 494.7 / 3 TFLOP/s), f32 ``torch.matmul`` of the same product
     (``dy @ w.t()``; ``a.t() @ dy`` and ``dy.sum(0)``), which the port never
-    calls, the plain twin, and the SIMT kernel's time (SIMT_F32_BWD_MS).
+    calls, and the plain twin.
     The kernel and the matmul are timed by ``gemm_ab.graph_ms`` (a CUDA
     graph of 20 calls: at the default widths a call's host work outlasts
     its kernels), the plain twin by CUDA events around back-to-back calls.
@@ -3835,15 +3842,13 @@ def check_bwd_gemms_f32(dev, card: str) -> dict:
                                      f"runs differ")
             flops = 2 * m * k * n
             bd = bound(nbytes_, tf32x3_flops=flops)
-            simt = SIMT_F32_BWD_MS.get(geo, {}).get(kern, {}).get(label)
             log(f"(r) {kern}_f32 {geo} {label} {shape} x{count}: {gate}; "
                 f"bit-identical reruns; kernel {ms:.3f} ms, bound "
                 f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
                 f"{bd['bound_ms'] / ms:.1%}), f32 matmul {mm:.3f} ms "
-                f"({ms / mm:.2f}x), plain f32 twin {plain_ms:.3f} ms, SIMT "
-                + (f"{simt:.3f} ms" if simt else "not measured"))
-            tot = totals.setdefault((geo, kern), [0, 0.0, 0.0, 0.0, 0.0])
-            for i, v in enumerate((1, ms, bd["bound_ms"], mm, simt or 0.0)):
+                f"({ms / mm:.2f}x), plain f32 twin {plain_ms:.3f} ms")
+            tot = totals.setdefault((geo, kern), [0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, ms, bd["bound_ms"], mm)):
                 tot[i] += count * v
             if geo in ("default b8", "paper b8"):
                 row = rows.setdefault((geo, kern), dict(
@@ -3855,11 +3860,10 @@ def check_bwd_gemms_f32(dev, card: str) -> dict:
                                 ("flops", flops), ("launches", 1)):
                     row[key_] += count * v
             torch.cuda.empty_cache()
-    for (geo, kern), (c, ms, bd, mm, simt) in totals.items():
+    for (geo, kern), (c, ms, bd, mm) in totals.items():
         log(f"(r) {geo}: the step's {c} {kern}_f32 launches {ms:.3f} ms, "
             f"bound {bd:.3f} ms ({bd / ms:.1%}), f32 torch.matmul of the "
-            f"same products {mm:.3f} ms, SIMT "
-            + (f"{simt:.3f} ms" if simt else "not measured"))
+            f"same products {mm:.3f} ms")
     log(f"(r) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
     out = {}
     for (geo, kern), row in rows.items():
@@ -3872,6 +3876,192 @@ def check_bwd_gemms_f32(dev, card: str) -> dict:
             f"launches")
         out[(geo, f"{kern}_f32")] = row
     return out
+
+
+# (s) the int8 layer GEMMs alone ---------------------------------------------
+
+# csrc/layer_fused_q8.cu's s8 GEMMs (wgmma .s32.s8.s8 fed by TMA): their
+# SASS must hold IGMMA (int8 wgmma) and UTMALDG (TMA load)
+Q8_GEMM_KERNELS = ("gemm_q8_bias_kernel", "gemm_q8_res_ln_kernel")
+# The mma.sync s8 GEMMs that these replaced, summed over the 43 launches of
+# the paper batch-32 int8 forward, and the bf16 wgmma GEMMs of the same 43
+# products (ms; (k)'s and (o)'s profiles of the parent tree, NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6)
+Q8_GEMM_BEFORE_MS, BF16_GEMM_MS = 51.771, 17.494
+# (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
+# decoder and time layers): the paper batch-32 int8 forward, the default
+# widths' and a ragged geometry (hid 96, pf 160: K 96 and 160 not multiples
+# of the 128-deep stage, N 288 over two tiles, N 96 under one, neither row
+# count a multiple of 128). The GEMMs take hid 96; the int8 layers do not
+# (check_geometry: V's column quantizer takes hid % 64)
+Q8_GEMM_GEOMETRIES = (
+    ("paper b32", BATCH * 128 * 256, BATCH * 128 * 88, 256, 512, 3, 3, 3),
+    ("default b32", BATCH * 128 * 256, BATCH * 128 * 88, 64, 128, 2, 2, 2),
+    ("ragged", 100_003, 35_201, 96, 160, 2, 2, 2),
+)
+
+
+def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
+    """(s): gemm_q8_bias_kernel and gemm_q8_res_ln_kernel alone, at every
+    product and variant (``gemm_ab.q8_products``: ReLU, quant_out) of
+    ``geometries`` in bf16 and f32, on the codes and
+    scales of seeded activations and weights (the plain quantizers'), the
+    weights handed K-major as ``pack_wt`` packs them: gemm_q8_bias bit for
+    bit equal to ``gemm_q8_bias_plain``; gemm_q8_res_ln within ULPS bf16
+    ulps of ``gemm_q8_res_ln_plain`` (bf16) or F32_OUT_REL of max(1,
+    |plain|) (f32), its output codes and scales those of ``_quant_rows`` of
+    its own output, bit for bit; two runs bit-identical. Per product the
+    kernel's time (a CUDA graph of 20 calls, ``gemm_ab.graph_ms``), its
+    bound (bytes, or the int8 products at 1,979 TOP/s), the exact kernel of
+    the same product in the same dtype (bf16 wgmma, or f32 3xTF32 wgmma
+    with its TF32 pair) and ``torch._int_mm`` (s8 x s8 -> s32), which the
+    port never calls. Returns the paper batch-32 bf16 forward's sums."""
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms, q8_products
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    totals, summary = {}, {}
+    for geo, mf, mq, hid, pf, n_enc, n_dec, n_time in geometries:
+        for dt in (torch.bfloat16, torch.float32):
+            label_dt = "bf16" if dt == torch.bfloat16 else "f32"
+            for case in q8_products(mf, mq, hid, pf, n_enc, n_dec, n_time):
+                label, kern, m, k, n, relu, quant_out, count = case
+                ln = kern == "gemm_q8_res_ln"
+                x = r(m, k).to(dt)
+                w = (r(k, n) / math.sqrt(k)).to(dt)
+                aq, sa = lq._quant_rows(x)
+                sa = sa.reshape(-1).contiguous()
+                wq, sw = lq.quantize_weight(w)
+                wt = wq.t().contiguous()
+                bias = (0.1 * r(n)).to(dt)
+                res = r(m, n).to(dt) if ln else None
+                gam, bet = 1.0 + 0.1 * r(n), 0.1 * r(n)
+                if ln:
+                    def run():
+                        return lq._gemm_q8_res_ln(aq, sa, wq, sw, bias, res,
+                                                  gam, bet, quant_out, wt=wt)
+                    want = lq.gemm_q8_res_ln_plain(aq, sa, wq, sw, bias, res,
+                                                   gam, bet, quant_out)[0]
+                else:
+                    def run():
+                        return (lq._gemm_q8(aq, sa, wq, sw, bias, relu,
+                                            wt=wt),)
+                    want = lq.gemm_q8_bias_plain(aq, sa, wq, sw, bias, relu)
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+                what = f"{kern} {label_dt} {geo} {label} [{m},{k},{n}]"
+                if not all(torch.equal(a_.view(bits) if a_.is_floating_point()
+                                       else a_, b_.view(bits)
+                                       if b_.is_floating_point() else b_)
+                           for a_, b_ in zip(got, again) if a_ is not None):
+                    raise AssertionError(f"(s) {what}: two runs differ")
+                out = got[0]
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"(s) {what}: non-finite output")
+                if not ln:
+                    if not torch.equal(out.view(bits), want.view(bits)):
+                        d = (out.float() - want.float()).abs()
+                        raise AssertionError(
+                            f"(s) {what}: not bit-identical to "
+                            f"gemm_q8_bias_plain ({int((d > 0).sum())} "
+                            f"elements differ, max {d.max().item():.3e})")
+                    err, gate = 0.0, "bit-identical to the plain twin"
+                else:
+                    if dt == torch.bfloat16:
+                        err, ulps = ulp_distance(out, want)
+                        ok, gate = ulps <= ULPS, (f"{ulps:.2f} ulps from the "
+                                                  f"plain twin")
+                    else:
+                        err = rel_err(out, want, 1.0)
+                        ok, gate = err <= F32_OUT_REL, (
+                            f"{err:.2e} of max(1, |plain|)")
+                    if not ok:
+                        raise AssertionError(f"(s) {what}: {gate} (limit "
+                                             f"{ULPS} ulps / {F32_OUT_REL})")
+                    if quant_out:
+                        oq, os_ = lq._quant_rows(out)
+                        if not (torch.equal(got[1], oq)
+                                and torch.equal(got[2], os_[:, 0])):
+                            raise AssertionError(
+                                f"(s) {what}: output codes or scales differ "
+                                f"from _quant_rows of its own output")
+                        gate += ", codes and scales exact"
+                        del oq, os_
+                del got, again, want, out
+                # the same product on the exact kernel of dt, and _int_mm
+                pair = lf.tf32_pair(w) if dt == torch.float32 else None
+                if ln:
+                    def exact():
+                        return lf._gemm_res_ln(x, w, bias, res, gam, bet,
+                                               pair=pair)
+                else:
+                    def exact():
+                        return lf._gemm(x, w, bias, relu, pair=pair)
+                ms = graph_ms(run)
+                exact_ms = graph_ms(exact)
+                try:
+                    lib_ms = graph_ms(lambda: torch._int_mm(aq, wq))
+                except RuntimeError:  # cuBLASLt: no int8 GEMM of this K
+                    lib_ms = None
+                size = 2 if dt == torch.bfloat16 else 4
+                nbytes_ = (m * k + 4 * m + n * k + 4 * n + size * n
+                           + size * m * n)
+                if ln:
+                    nbytes_ += size * m * n + 8 * n
+                    if quant_out:
+                        nbytes_ += m * n + 4 * m
+                bd = bound(nbytes_, int8_ops=2 * m * k * n)
+                variant = ("relu " if relu else "") + \
+                    ("quant_out " if quant_out else "")
+                log(f"(s) {what} {variant}x{count}: {gate}; bit-identical "
+                    f"reruns; kernel {ms:.3f} ms, bound "
+                    f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+                    f"{bd['bound_ms'] / ms:.1%}), {nbytes_ / ms / 1e9:.2f} "
+                    f"TB/s; {label_dt} kernel {exact_ms:.3f} ms, "
+                    f"torch._int_mm "
+                    + ("not supported" if lib_ms is None
+                       else f"{lib_ms:.3f} ms"))
+                tot = totals.setdefault((geo, label_dt, kern),
+                                        [0, 0.0, 0.0, 0.0, 0.0, 0.0])
+                for i, v in enumerate((1, ms, bd["bound_ms"], exact_ms,
+                                       lib_ms, err)):
+                    if i == 5:
+                        tot[i] = max(tot[i], v)
+                    elif tot[i] is not None:  # _int_mm: None if one is
+                        tot[i] = None if v is None else tot[i] + count * v
+                del x, w, aq, sa, wq, sw, wt, bias, res, pair
+                torch.cuda.empty_cache()
+    for (geo, label_dt, kern), (c, ms, bd, ex, lib, err) in totals.items():
+        log(f"(s) {geo} {label_dt}: the forward's {c} {kern} launches "
+            f"{ms:.3f} ms, bound {bd:.3f} ms ({bd / ms:.1%}), the "
+            f"{label_dt} kernels of the same products {ex:.3f} ms, "
+            f"torch._int_mm "
+            + ("not supported" if lib is None else f"{lib:.3f} ms"))
+        if geo == "paper b32" and label_dt == "bf16":
+            summary[kern] = dict(launches=c, ms=ms, bound_ms=bd,
+                                 bf16_kernel_ms=ex, library_ms=lib,
+                                 max_abs_err=err)
+    if summary:
+        ms = sum(v["ms"] for v in summary.values())
+        bd = sum(v["bound_ms"] for v in summary.values())
+        ex = sum(v["bf16_kernel_ms"] for v in summary.values())
+        lib = sum(v["library_ms"] or math.nan for v in summary.values())
+        log(f"(s) paper b32 bf16: the int8 forward's "
+            f"{sum(v['launches'] for v in summary.values())} s8 GEMMs "
+            f"{ms:.3f} ms (the mma.sync kernels they replaced "
+            f"{Q8_GEMM_BEFORE_MS:.3f} ms, PERF.md), bound {bd:.3f} ms "
+            f"({bd / ms:.1%}); the bf16 wgmma GEMMs of the same products "
+            f"{ex:.3f} ms ({BF16_GEMM_MS:.3f} ms in (o)'s parent, PERF.md); "
+            f"torch._int_mm {lib:.3f} ms")
+    log(f"(s) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return summary
 
 
 def main() -> int:
@@ -3931,6 +4121,15 @@ def main() -> int:
         f"spills, no stack, " + ", ".join(
             f"{v['kernel']} {v['regs']}" for v in rings.values())
         + " registers")
+    q8_gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
+                          Q8_GEMM_KERNELS)
+    if {v["kernel"] for v in q8_gemms.values()} != set(Q8_GEMM_KERNELS) \
+            or any(v["spill"] or v["stack"] for v in q8_gemms.values()):
+        raise AssertionError(f"(a) the s8 GEMMs in ptxas -v: {q8_gemms}")
+    log(f"(a) {len(q8_gemms)} instantiations of "
+        f"{', '.join(Q8_GEMM_KERNELS)}: no spills, no stack, "
+        f"{min(v['regs'] for v in q8_gemms.values())}-"
+        f"{max(v['regs'] for v in q8_gemms.values())} registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -4121,8 +4320,8 @@ def main() -> int:
     fused_step_ms = time_train_step(cfg, first_batch, dev, card)
 
     # (k) K13, the int8 layers -------------------------------------------------
-    q8_counts, q8_results = check_int8(cfg, model, packed, spec, audio, dev,
-                                       card, cli_main)
+    q8_counts, q8_results, q8_gemm_launches = check_int8(
+        cfg, model, packed, spec, audio, dev, card, cli_main)
     results.update(q8_results)
 
     # (l) K10 / K11 / K12, the per-site attention ---------------------------
@@ -4181,6 +4380,25 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms")}})
     for name in bwd32:
         held(name, torch.float32)
+
+    # (s) the int8 layer GEMMs alone -------------------------------------------
+    s8 = check_gemms_q8(dev, card)
+    s8_cases = {k: v.pop("launches") for k, v in s8.items()}
+    if s8_cases != q8_gemm_launches or not all(s8_cases.values()):
+        raise AssertionError(f"(s) the paper batch-32 int8 forward's GEMM "
+                             f"cases {s8_cases}, (k)'s profiled launches "
+                             f"{q8_gemm_launches}")
+    for k, v in s8.items():
+        v["launches"] = q8_gemm_launches[k]
+    s8_row = dict(  # the paper batch-32 int8 forward's s8 GEMMs, summed
+        launches=sum(q8_gemm_launches.values()),
+        ms=sum(v["ms"] for v in s8.values()),
+        bound_ms=sum(v["bound_ms"] for v in s8.values()),
+        bf16_kernel_ms=sum(v["bf16_kernel_ms"] for v in s8.values()),
+        library_ms=None if any(v["library_ms"] is None for v in s8.values())
+        else sum(v["library_ms"] for v in s8.values()), by_kernel=s8)
+    for name in Q8_SOURCES:
+        results[name]["s8_gemms"] = s8_row
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -4205,6 +4423,16 @@ def main() -> int:
             f"{rings[k]['kernel'] if k in rings else k[:40]}: "
             f"{want[k]} {v[want[k]]}, UTMALDG {v['UTMALDG']}"
             for k, v in sass.items()))
+        sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME,
+                         Q8_GEMM_KERNELS, ("IGMMA", "UTMALDG"))
+        if len(sass) != len(q8_gemms) or any(
+                not v["IGMMA"] or not v["UTMALDG"] for v in sass.values()):
+            raise AssertionError(f"(a) SASS of the s8 GEMMs: {sass}")
+        log(f"(a) SASS of the {len(sass)} s8 GEMM kernels (cuobjdump): "
+            f"IGMMA {min(v['IGMMA'] for v in sass.values())}-"
+            f"{max(v['IGMMA'] for v in sass.values())}, UTMALDG "
+            f"{min(v['UTMALDG'] for v in sass.values())}-"
+            f"{max(v['UTMALDG'] for v in sass.values())} a kernel")
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))

@@ -5,7 +5,8 @@
 // here, only the helpers epilogues share (the fragment layout, swizzled
 // staging, TMA stores): a kernel (layer_fused.cu, layer_fused_train.cu)
 // runs this mainloop for each output tile it owns and then its own
-// epilogue on the accumulator fragments.
+// epilogue on the accumulator fragments. Its TF32 form (layer_fused_f32.cu)
+// and its s8 form (layer_fused_q8.cu) follow at the end of the file.
 //
 // A block tile is kBM = 128 rows (warpgroup g owns rows 64 g .. 64 g + 63)
 // by BN columns (64, 128, 192 or 256: one m64nBNk16 wgmma a k16 step). A
@@ -524,27 +525,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major bf16 [rows, cols] matrix (cols % 8 == 0,
-// 16-byte aligned) read or written in boxes of box_rows x 64 columns,
-// 128-byte swizzle, zero fill past the edges. Returns a cudaError_t.
-inline int encode_bf16(CUtensorMap* map, const void* ptr, long long rows,
-                       long long cols, int box_rows) {
+// The tensor map of a row-major [rows, cols] matrix of `elem`-byte elements
+// (rows of a multiple of 16 bytes, 16-byte aligned) read or written in boxes
+// of box_rows x one 128-byte swizzle row (128 / elem columns), 128-byte
+// swizzle, zero fill past the edges. Returns a cudaError_t.
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                        const void* ptr, long long rows, long long cols,
+                        int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 8 || rows <= 0 ||
-      cols <= 0)
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols * elem % 16 ||
+      rows <= 0 || cols <= 0)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16 [rows, cols] (cols % 8 == 0) in boxes of box_rows x 64 columns.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, long long rows,
+                       long long cols, int box_rows) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                      cols, box_rows);
 }
 
 // The tile width of an output N columns wide: N in the fewest tiles of at
@@ -831,27 +840,187 @@ struct RingTf32 {
   }
 };
 
-// The tensor map of a row-major f32 [rows, cols] matrix (cols % 4 == 0,
-// 16-byte aligned) read in boxes of box_rows x 32 columns, 128-byte
-// swizzle, zero fill past the edges. Returns a cudaError_t.
+// f32 [rows, cols] (cols % 4 == 0) in boxes of box_rows x 32 columns.
 inline int encode_f32(CUtensorMap* map, const void* ptr, long long rows,
                       long long cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 4 || rows <= 0 ||
-      cols <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kBKTf32, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows,
+                      cols, box_rows);
+}
+
+
+// ============================================================== s8 ====
+//
+// The int8 form of the mainloop (layer_fused_q8.cu's W8A8 GEMMs): the ring,
+// barriers, producer warp and consumer warpgroups of the bf16 form, with
+// wgmma m64nBNk32 .s32.s8.s8 products into an s32 accumulator. What differs
+// from the bf16 form:
+//
+//  * 8-bit wgmma reads both shared-memory operands K-major only (the
+//    transpose bits are for 16-bit types), so B is the weights packed once
+//    on the host as W^T [N, K] (ops/layer_fused_q8.py::pack_wt), and A the
+//    activation codes [M, K] as they are.
+//  * A stage is kBKS8 = 128 deep: one 128-byte swizzle row of int8. So its
+//    bytes are the bf16 K-major stage's (an A box of 128 rows and a B box of
+//    BN rows, 128 bytes each), read by the same descriptors: SBO 1024, the
+//    k32 step +32 bytes inside the swizzle row.
+//  * The s32 accumulator has the f32 one's fragment layout (Frag).
+
+constexpr int kBKS8 = 128;
+
+// D[64, N] (+)= A[64, 32] B[32, N], s8 in, s32 accumulator, both operands
+// K-major shared-memory descriptors. scale_d == 0 overwrites D.
+template <int N>
+struct WgmmaS8;
+
+#define NYLON_R8(i)                                                    \
+  "+r"(d[(i) + 0]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3]), \
+      "+r"(d[(i) + 4]), "+r"(d[(i) + 5]), "+r"(d[(i) + 6]),            \
+      "+r"(d[(i) + 7])
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : NYLON_R8(0), NYLON_R8(8), NYLON_R8(16), NYLON_R8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : NYLON_R8(0), NYLON_R8(8), NYLON_R8(16), NYLON_R8(24),
+        NYLON_R8(32), NYLON_R8(40), NYLON_R8(48), NYLON_R8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<192> {
+  static __device__ __forceinline__ void mma(int (&d)[96], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : NYLON_R8(0), NYLON_R8(8), NYLON_R8(16), NYLON_R8(24),
+        NYLON_R8(32), NYLON_R8(40), NYLON_R8(48), NYLON_R8(56),
+        NYLON_R8(64), NYLON_R8(72), NYLON_R8(80), NYLON_R8(88)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : NYLON_R8(0), NYLON_R8(8), NYLON_R8(16), NYLON_R8(24),
+        NYLON_R8(32), NYLON_R8(40), NYLON_R8(48), NYLON_R8(56),
+        NYLON_R8(64), NYLON_R8(72), NYLON_R8(80), NYLON_R8(88),
+        NYLON_R8(96), NYLON_R8(104), NYLON_R8(112), NYLON_R8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+#undef NYLON_R8
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The ring of the s8 form: the bf16 ring's stages, epilogue area and
+// barriers (both operands K-major), with the s8 producer load and consumer
+// mainloop.
+template <int BN, int kEpi>
+struct RingS8 : Ring<BN, kEpi, 0, 0> {
+  using Base = Ring<BN, kEpi, 0, 0>;
+  static_assert(Base::kABytes == kBM * kBKS8 && Base::kBBytes == BN * kBKS8,
+                "an s8 stage holds the bf16 K-major stage's bytes");
+
+  __device__ explicit RingS8(uint8_t* raw) : Base(raw) {}
+
+  // Producer: k-block kb of the tile at (m0, n0): A [M, K] rows m0.., W^T
+  // [N, K] rows n0.., one box each.
+  __device__ void load(const CUtensorMap* map_a, const CUtensorMap* map_wt,
+                       int m0, int n0, int kb) {
+    const int s = this->stage;
+    mbar_wait(this->empty(s), this->phase ^ 1);
+    mbar_expect_tx(this->full(s), Base::kStageBytes);
+    tma_load(this->a(s), map_a, this->full(s), kb * kBKS8, m0);
+    tma_load(this->b(s), map_wt, this->full(s), kb * kBKS8, n0);
+    this->advance();
+  }
+
+  // Consumer warpgroup g: acc = A[rows of g] W over nk k-blocks, exact in
+  // s32. Keeps one k-block of wgmmas in flight and releases each stage once
+  // the wgmmas that read it have retired.
+  __device__ void mma(int (&acc)[BN / 2], int nk, int g) {
+    const bool signal = (threadIdx.x & 31) == 0;
+    int prev = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = this->stage;
+      mbar_wait(this->full(s), this->phase);
+      const uint32_t sa = smem_u32(this->a(s)) + g * kBoxBytes;
+      const uint32_t sb = smem_u32(this->b(s));
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBKS8 / 32; ++k)
+        WgmmaS8<BN>::mma(acc, sw128_desc(sa + 32 * k, 16, 1024),
+                         sw128_desc(sb + 32 * k, 16, 1024), (kb | k) != 0);
+      wgmma_commit();
+      if (kb > 0) {
+        wgmma_wait<1>();
+        if (signal) mbar_arrive(this->empty(prev));
+      }
+      prev = s;
+      this->advance();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (signal) mbar_arrive(this->empty(prev));
+  }
+};
+
+// int8 [rows, cols] (cols % 16 == 0) in boxes of box_rows x 128 columns.
+inline int encode_s8(CUtensorMap* map, const void* ptr, long long rows,
+                     long long cols, int box_rows) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols,
+                      box_rows);
 }
 
 }  // namespace sm90

@@ -26,21 +26,23 @@
 //    Lk_pad] with zero codes past Lk, which is the operand layout the PV
 //    product needs;
 //  * gemm_q8_bias_kernel: out = T((f32(A @ W) * sa[row]) * sw[col]) +
-//    bias [, ReLU], an s8 x s8 -> s32 tensor-core GEMM (mma.sync
-//    m16n8k32) with a dequantizing epilogue;
+//    bias [, ReLU], an s8 x s8 -> s32 tensor-core GEMM (wgmma m64nNk32 fed
+//    by TMA: gemm_sm90.cuh's s8 mainloop) with a dequantizing epilogue;
 //  * gemm_q8_res_ln_kernel: the same GEMM with a block that owns full rows,
-//    so the residual and the shared post-LayerNorm run in its epilogue, and
-//    optionally the row quantization of its output for the next GEMM;
+//    so the residual and the shared post-LayerNorm run in its epilogue on
+//    the accumulator fragments, and optionally the row quantization of its
+//    output for the next GEMM;
 //  * attention_q8_kernel: one block per (sequence, head, 128-query tile),
 //    int8 K and V^T of the whole sequence in shared memory, int8 QK^T and
 //    PV products, an exact two-pass softmax in f32; head_dim D = 64 (two
 //    k32 steps of the score product) or 32 (one), the K rows padded to D +
 //    16 bytes either way.
 //
-// The mma's B operand wants each output column's K values contiguous, and
-// the packed weights are [K, N] (N contiguous). The GEMM's loader reads a
-// 4 x 4 byte block of W as four 32-bit words and transposes it in
-// registers (__byte_perm) before the shared-memory store.
+// 8-bit wgmma reads both operands K-major only, so the GEMMs take the
+// weights as W^T [N, K], packed once on the host (ops/layer_fused_q8.py::
+// pack_wt) from the [K, N] codes JAX's pack keeps; a stage is one 128-byte
+// swizzle row of int8 (K 128) of A and of W^T. K is a multiple of 16 (a
+// TMA row of K bytes) up to kMaxK; ragged K and M are zero-filled by TMA.
 //
 // Numerics follow the JAX kernel body where it pins them (the traps):
 //  * rounding: jnp.round rounds half to even; rintf does too (roundf rounds
@@ -59,23 +61,26 @@
 //    f32(o) * sv / l with sv = av / 127^2;
 //  * keys past Lk (88 decoder queries attend to 88 keys) are zero codes,
 //    masked out of the row max and out of l.
-// Every int8 sum is exact (|acc| <= 512 * 127^2 < 2^24, so f32(acc) is
-// too): the GEMM outputs equal the plain version's bit for bit; only the
-// f32 sums of the LayerNorm and of l, and exp2, are taken in another order
-// or by another routine than PyTorch's.
+// Every int8 sum is exact (|acc| <= K * 127^2 < 2^24 for K <= 1040, so
+// f32(acc) is too): the GEMM outputs equal the plain version's bit for bit;
+// only the f32 sums of the LayerNorm and of l, and exp2, are taken in
+// another order or by another routine than PyTorch's.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
+#include "layer_epilogue.cuh"
 
 using nylon::bf16;
-using nylon::round_to;
+namespace sm = nylon::sm90;
+using sm::Frag;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps in every kernel of this file
-constexpr int kBK = 64;        // GEMM depth per pipeline stage, in int8
-constexpr int kLd = kBK + 16;  // padded smem row (bytes): 20 words, so the
-                               // fragment loads of 8 rows x 4 lanes hit 32
-                               // distinct banks
+constexpr int kThreads = 256;  // 8 warps: the quantizers and attention
+constexpr int kMaxK = 1040;    // the GEMMs' depth: |sum| <= K 127^2 < 2^24
+constexpr int kLnMaxN = 256;   // gemm_q8_res_ln: a block owns full rows
 constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr float kInv127Sq = (float)(1.0 / (127.0 * 127.0));
 constexpr float kAbsFloor = 1e-12f;
@@ -104,20 +109,6 @@ __device__ __forceinline__ float warp_max(float v) {
 // even; |x * r| <= 127 up to rounding, so the cast cannot overflow).
 __device__ __forceinline__ int8_t quant_code(float x, float r) {
   return (int8_t)(int)rintf(x * r);
-}
-
-// rows r0..r3 of a 4 x 4 byte block (byte c of each = column c) ->
-// columns: out[c] holds {r0.c, r1.c, r2.c, r3.c}.
-__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4],
-                                             uint32_t (&out)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  out[0] = __byte_perm(t0, t1, 0x5410);
-  out[1] = __byte_perm(t0, t1, 0x7632);
-  out[2] = __byte_perm(t2, t3, 0x5410);
-  out[3] = __byte_perm(t2, t3, 0x7632);
 }
 
 // 8 consecutive elements as f32 (16 bytes of bf16, 32 of f32).
@@ -242,273 +233,520 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------ s8 GEMM ----
+//
+// Both GEMM kernels run gemm_sm90.cuh's s8 mainloop (RingS8): persistent
+// blocks of one producer warp (TMA loads of A [M, K] and W^T [N, K], a
+// ring of 3-4 stages 128 deep in K) and two consumer warpgroups (wgmma
+// m64nBNk32 .s32.s8.s8, 64 rows each), and their epilogues work on the s32
+// accumulator fragments in registers. Outputs in T leave through
+// 128-byte-swizzled 64-row boxes of 128-byte rows (64 bf16 or 32 f32
+// columns) by TMA stores, which clip the ragged edge.
 
-// The tiled mainloop shared by both GEMM kernels: acc += A[m0:m0+BM, :] @
-// W[:, n0:n0+BN], warps WM x WN, each owning (BM/WM) x (BN/WN). A stage
-// holds A[BM][kLd] (cp.async, zero rows past M) and W^T[BN][kLd] (transposed
-// 4 x 4 byte blocks, zero columns past N); double-buffered: the next
-// stage's A is in flight by cp.async and its W words in registers while
-// the current stage is multiplied.
-template <int BM, int BN, int WM, int WN>
-struct S8Gemm {
-  static constexpr int kMT = BM / WM / 16;        // m16 tiles per warp
-  static constexpr int kNT = BN / WN / 8;         // n8 tiles per warp
-  static constexpr int kABytes = BM * kLd;
-  static constexpr int kBBytes = BN * kLd;
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kPipeBytes = 2 * kStageBytes;
-  static constexpr int kWBlocks = (kBK / 4) * (BN / 4) / kThreads;
-  static_assert(WM * WN == kThreads / 32, "8 warps");
-  static_assert(kWBlocks * kThreads == (kBK / 4) * (BN / 4), "W blocks");
+// Columns of T in a box row of 128 bytes: 64 bf16, 32 f32.
+template <typename T>
+constexpr int kBoxCols = 128 / (int)sizeof(T);
 
-  __device__ static void load_a(uint8_t* dst, const int8_t* a, int M, int K,
-                                int m0, int k0) {
-    for (int c = threadIdx.x; c < BM * (kBK / 16); c += kThreads) {
-      const int r = c / (kBK / 16), col = (c % (kBK / 16)) * 16;
-      const bool ok = m0 + r < M;
-      const int8_t* src = a + (size_t)(ok ? m0 + r : 0) * K + k0 + col;
-      nylon::cp_async16(dst + r * kLd + col, src, ok);
-    }
+// Shared address of consumer thread f's column pair (8 j + 2 q, + 1) of row
+// r0 + 8 i in the 64-row box at `box` that holds column 8 j (128-byte
+// swizzle).
+template <typename T>
+__device__ __forceinline__ uint32_t pair_addr(const Frag& f, uint32_t box,
+                                              int i, int j) {
+  const int b = ((8 * j) % kBoxCols<T> + 2 * f.q) * (int)sizeof(T);
+  return box + sm::sw128(f.r0 + 8 * i, b >> 4) + (b & 15);
+}
+
+// A column pair (col, col + 1) of T, kept as T: bf16x2, or two f32; its
+// shared-memory and global loads, its shared-memory store, its f32 values,
+// and two f32 values rounded to it.
+template <typename T>
+struct PairOf;
+
+template <>
+struct PairOf<bf16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type ld(uint32_t addr) {
+    return sm::bf16x2(sm::ld_shared(addr));
   }
-
-  // Block b of the stage: k rows 4*ii .. 4*ii+3, columns 4*j .. 4*j+3.
-  __device__ static void fetch_w(uint32_t (&w4)[kWBlocks][4],
-                                 const int8_t* w, int N, int k0, int n0) {
-#pragma unroll
-    for (int i = 0; i < kWBlocks; ++i) {
-      const int b = threadIdx.x + i * kThreads;
-      const int j = b % (BN / 4), ii = b / (BN / 4);
-      const int n = n0 + 4 * j;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        w4[i][r] = n < N ? *reinterpret_cast<const uint32_t*>(
-                               w + (size_t)(k0 + 4 * ii + r) * N + n)
-                         : 0u;
-    }
+  static __device__ __forceinline__ type ldg(const bf16* p) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
   }
-
-  __device__ static void store_w(uint8_t* dst,
-                                 const uint32_t (&w4)[kWBlocks][4]) {
-#pragma unroll
-    for (int i = 0; i < kWBlocks; ++i) {
-      const int b = threadIdx.x + i * kThreads;
-      const int j = b % (BN / 4), ii = b / (BN / 4);
-      uint32_t cols[4];
-      transpose4x4(w4[i], cols);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        *reinterpret_cast<uint32_t*>(dst + (4 * j + cc) * kLd + 4 * ii) =
-            cols[cc];
-    }
+  static __device__ __forceinline__ void st(uint32_t addr, type v) {
+    sm::st_shared(addr, sm::bits(v));
   }
-
-  __device__ static void run(const int8_t* a, const int8_t* w, int M, int N,
-                             int K, int m0, int n0, uint8_t* smem,
-                             int (&acc)[kMT][kNT][4]) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = warp / WN, wn = warp % WN;
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-    uint32_t w4[kWBlocks][4];
-    const int nk = K / kBK;
-    load_a(smem, a, M, K, m0, 0);
-    nylon::cp_async_commit();
-    fetch_w(w4, w, N, 0, n0);
-    store_w(smem + kABytes, w4);
-    for (int kt = 0; kt < nk; ++kt) {
-      uint8_t* const cur = smem + (kt & 1) * kStageBytes;
-      uint8_t* const nxt = smem + ((kt + 1) & 1) * kStageBytes;
-      const bool more = kt + 1 < nk;
-      if (more) {
-        load_a(nxt, a, M, K, m0, (kt + 1) * kBK);
-        nylon::cp_async_commit();
-        fetch_w(w4, w, N, (kt + 1) * kBK, n0);
-        nylon::cp_async_wait<1>();
-      } else {
-        nylon::cp_async_wait<0>();
-      }
-      __syncthreads();
-      const uint8_t* As = cur;
-      const uint8_t* Bs = cur + kABytes;
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 32) {
-        uint32_t af[kMT][4], bfr[kNT][2];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          const uint8_t* p = As + (wm * (BM / WM) + i * 16 + g) * kLd + ks +
-                             t * 4;
-          af[i][0] = lds32(p);
-          af[i][1] = lds32(p + 8 * kLd);
-          af[i][2] = lds32(p + 16);
-          af[i][3] = lds32(p + 8 * kLd + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const uint8_t* p = Bs + (wn * (BN / WN) + j * 8 + g) * kLd + ks +
-                             t * 4;
-          bfr[j][0] = lds32(p);
-          bfr[j][1] = lds32(p + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-            mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-      }
-      if (more) store_w(nxt + kABytes, w4);  // nxt is not read this stage
-      __syncthreads();
-    }
+  static __device__ __forceinline__ float2 f32(type v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ type from(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
   }
 };
 
-// GEMM + bias: 128 x 128 tiles, warps 2 x 4 of 64 x 32.
-using GemmBias = S8Gemm<128, 128, 2, 4>;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gemm_q8_bias_kernel(const int8_t* __restrict__ a,
-                        const float* __restrict__ sa,
-                        const int8_t* __restrict__ w,
-                        const float* __restrict__ sw,
-                        const T* __restrict__ bias, T* __restrict__ out,
-                        int M, int N, int K, int relu, int n_tiles_n) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int m0 = (blockIdx.x / n_tiles_n) * 128;
-  const int n0 = (blockIdx.x % n_tiles_n) * 128;
-  int acc[GemmBias::kMT][GemmBias::kNT][4];
-  GemmBias::run(a, w, M, N, K, m0, n0, smem, acc);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int i = 0; i < GemmBias::kMT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + i * 16 + g + 8 * half;
-      if (row >= M) continue;
-      const float sx = sa[row];
-#pragma unroll
-      for (int j = 0; j < GemmBias::kNT; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + t * 2;
-        if (col >= N) continue;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float q = dequant(acc[i][j][2 * half + e], sx, sw[col + e]);
-          y[e] = round_to<T>(round_to<T>(q) + nylon::to_f(bias[col + e]));
-          if (relu) y[e] = fmaxf(y[e], 0.f);
-        }
-        store2(out + (size_t)row * N + col, y[0], y[1]);
-      }
-    }
+template <>
+struct PairOf<float> {
+  using type = float2;
+  static __device__ __forceinline__ type ld(uint32_t addr) {
+    return sm::ld_shared_f2(addr);
   }
+  static __device__ __forceinline__ type ldg(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void st(uint32_t addr, type v) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x),
+                 "f"(v.y)
+                 : "memory");
+  }
+  static __device__ __forceinline__ float2 f32(type v) { return v; }
+  static __device__ __forceinline__ type from(float x, float y) {
+    return make_float2(x, y);
+  }
+};
+
+// gemm_q8_bias's epilogue on a column pair of a row: T(T((f32(acc) * sx) *
+// sw) + bias) [, ReLU]: the dequantized product cast to T BEFORE the bias
+// add, the bias added in T. bf16: packed, layer_epilogue.cuh's
+// bias_epilogue2 on the dequantized pair (the bits of the scalar form on
+// each element, with one conversion of the pair).
+__device__ __forceinline__ __nv_bfloat162 bias_pair(int a0, int a1, float sx,
+                                                    float2 sw,
+                                                    __nv_bfloat162 bias,
+                                                    int relu) {
+  return nylon::bias_epilogue2<false>(dequant(a0, sx, sw.x),
+                                      dequant(a1, sx, sw.y), bias, relu,
+                                      nylon::DropSite{}, bias, 0u, 0, 0);
+}
+__device__ __forceinline__ float2 bias_pair(int a0, int a1, float sx,
+                                            float2 sw, float2 bias,
+                                            int relu) {
+  float2 y = make_float2(dequant(a0, sx, sw.x) + bias.x,
+                         dequant(a1, sx, sw.y) + bias.y);
+  if (relu) y = make_float2(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f));
+  return y;
 }
 
-// GEMM + residual + shared LayerNorm: 64 x 256 tiles (a block owns whole
-// rows, N <= 256), warps 2 x 4 of 32 x 64. The s32 tile is staged in
-// shared memory over the dead pipeline buffers; each warp then normalises
-// 8 rows, lane owning columns lane + 32 t.
-using GemmLn = S8Gemm<64, 256, 2, 4>;
-constexpr int kLnBM = 64, kLnBN = 256;
-constexpr int kLnCLd = kLnBN + 4;
-constexpr size_t kLnStageBytes = (size_t)kLnBM * kLnCLd * sizeof(int);
-constexpr size_t kLnSmem = (size_t)GemmLn::kPipeBytes > kLnStageBytes
-                               ? (size_t)GemmLn::kPipeBytes
-                               : kLnStageBytes;
+// gemm_q8_res_ln's pre-LN sum on a column pair: T(res + T(T(dequant) +
+// bias)); bf16: residual_sum2's packed form.
+__device__ __forceinline__ __nv_bfloat162 res_pair(int a0, int a1, float sx,
+                                                   float2 sw,
+                                                   __nv_bfloat162 bias,
+                                                   __nv_bfloat162 res) {
+  return nylon::residual_sum2<false>(dequant(a0, sx, sw.x),
+                                     dequant(a1, sx, sw.y), bias, res,
+                                     nylon::DropSite{}, bias, 0u, 0, 0);
+}
+__device__ __forceinline__ float2 res_pair(int a0, int a1, float sx,
+                                           float2 sw, float2 bias,
+                                           float2 res) {
+  return make_float2(res.x + (dequant(a0, sx, sw.x) + bias.x),
+                     res.y + (dequant(a1, sx, sw.y) + bias.y));
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gemm_q8_res_ln_kernel(const int8_t* __restrict__ a,
+// One element of T to shared memory.
+__device__ __forceinline__ void st_shared_t(uint32_t addr, bf16 v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr),
+               "h"(__bfloat16_as_ushort(v))
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_t(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The int8 codes of a column pair (f32 bits a0, a1) for the reciprocal
+// scale r, as the low 16 bits (column col in the low byte).
+__device__ __forceinline__ uint32_t code_pair(int a0, int a1, float r) {
+  return (uint32_t)(uint8_t)quant_code(__int_as_float(a0), r) |
+         (uint32_t)(uint8_t)quant_code(__int_as_float(a1), r) << 8;
+}
+
+// A row's codes of column fragments 4 J .. 4 J + 3 regrouped within the
+// quad: lane q holds two codes of each (columns 8 j + 2 q, + 1; w0 = those
+// of 4 J | 4 J + 1 << 16, w1 = 4 J + 2 | 4 J + 3 << 16) and gets the eight
+// codes of fragment 4 J + q, in column order: two shfl_xor and byte
+// permutes, so that each lane stores 8 bytes and the quad a 32-byte sector
+// of the row. Every lane of the warp calls it.
+__device__ __forceinline__ uint2 quad_gather(uint32_t w0, uint32_t w1,
+                                             int q) {
+  // lanes q, q ^ 2 swap halves: then x holds lane (q & 1)'s codes and y
+  // lane (q & 1) + 2's, of fragments 4 J + 2 (q >> 1) (low) and + 1 (high)
+  const bool upper = q >= 2;
+  const uint32_t kept = upper ? w1 : w0;
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, upper ? w0 : w1, 2);
+  const uint32_t x = upper ? got : kept, y = upper ? kept : got;
+  // lanes q, q ^ 1 swap the fragment each wants: k, lanes (q & 1) and
+  // (q & 1) + 2 of fragment 4 J + q; r, the other two lanes'
+  const bool odd = q & 1;
+  const uint32_t lo = __byte_perm(x, y, 0x5410), hi = __byte_perm(x, y, 0x7632);
+  const uint32_t k = odd ? hi : lo;
+  const uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
+  const uint32_t a = odd ? r : k, b = odd ? k : r;  // lanes 0, 2 | 1, 3
+  return make_uint2(__byte_perm(a, b, 0x5410), __byte_perm(a, b, 0x7632));
+}
+
+// ------------------------------------------------------- GEMM + bias ----
+
+// gemm_q8_bias's epilogue area: a ring of two output boxes a warpgroup,
+// then each warpgroup's copy of the tile's column scales (f32) and bias
+// (T), BN of each.
+template <int BN, typename T>
+constexpr int kBiasEpiBytes =
+    2 * 2 * sm::kBoxBytes + 2 * BN * (4 + (int)sizeof(T));
+
+// out[M, N] = T(T((f32(a @ w) * sa[row]) * sw[col]) + bias[col]) [, ReLU]
+// with a [M, K] and W^T [N, K] int8. Tile t is (row block t / n_tiles_n,
+// column block t % n_tiles_n): the N tiles of a row block run together, so
+// A is read from HBM once and its other reads hit L2.
+template <typename T, int BN>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    gemm_q8_bias_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_wt,
+                        const __grid_constant__ CUtensorMap map_out,
+                        const float* __restrict__ sa,
+                        const float* __restrict__ sw,
+                        const T* __restrict__ bias, int M, int N, int K,
+                        int relu, int n_tiles_n) {
+  constexpr int kCols = kBoxCols<T>;
+  extern __shared__ uint8_t smem_raw[];
+  sm::RingS8<BN, kBiasEpiBytes<BN, T>> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(1);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBKS8 - 1) / sm::kBKS8;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_wt);
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+        const int n0 = (int)(t % n_tiles_n) * BN;
+        for (int kb = 0; kb < nk; ++kb) ring.load(&map_a, &map_wt, m0, n0, kb);
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ebase = sm::smem_u32(ring.epi(2 * g));
+  const uint32_t s_sw =
+      sm::smem_u32(ring.epi(4)) + g * BN * (4 + (int)sizeof(T));
+  const uint32_t s_bias = s_sw + 4 * BN;
+  using Pair = PairOf<T>;
+  constexpr int kJ = kCols / 8;  // column fragments a box
+  uint32_t staged = 0;  // boxes this warpgroup has staged: ring slot parity
+  int acc[BN / 2];
+  constexpr int kPer = (BN + 127) / 128;  // columns a thread stages
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+    const int n0 = (int)(t % n_tiles_n) * BN;
+    const int row0 = m0 + 64 * g;
+    // the tile's row scales, column scales and bias, loaded while the
+    // mainloop runs (their latency, once a tile, would stall the epilogue)
+    float sx[2], swv[kPer];
+    T bv[kPer];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + f.r0 + 8 * i;
+      sx[i] = row < M ? sa[row] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = tid + 128 * u;
+      if (c < BN && n0 + c < N) {
+        swv[u] = sw[n0 + c];
+        bv[u] = bias[n0 + c];
+      }
+    }
+    ring.mma(acc, nk, g);
+    // the column values to shared memory (the previous tile's last reads
+    // of them precede its last box sync)
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = tid + 128 * u;
+      if (c < BN && n0 + c < N) {
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_sw + 4 * c),
+                     "f"(swv[u])
+                     : "memory");
+        st_shared_t(s_bias + (int)sizeof(T) * c, bv[u]);
+      }
+    }
+    // a box of kJ fragments at a time, through the ring of two
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j / kJ;
+      const uint32_t box = ebase + ((staged + c) & 1) * sm::kBoxBytes;
+      if (j % kJ == 0) {
+        // the slot is free once every store group but the newest (the
+        // other slot's: one group a box, empty if the box is not stored)
+        // has read its box
+        if (tid == 0) sm::bulk_wait_read<1>();
+        sm::named_sync(1 + g, 128);
+      }
+      const int col = 8 * j + 2 * f.q;  // of the tile
+      if (n0 + col < N) {
+        const float2 w2 = sm::ld_shared_f2(s_sw + 4 * col);
+        const auto b2 = Pair::ld(s_bias + (int)sizeof(T) * col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          Pair::st(pair_addr<T>(f, box, i, j),
+                   bias_pair(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1],
+                             sx[i], w2, b2, relu));
+      }
+      if (j % kJ == kJ - 1) {
+        sm::fence_async_smem();
+        sm::named_sync(1 + g, 128);
+        if (tid == 0) {
+          if (row0 < M && n0 + c * kCols < N)
+            sm::tma_store(&map_out, box, n0 + c * kCols, row0);
+          sm::bulk_commit();
+        }
+      }
+    }
+    staged += BN / kCols;
+  }
+  if (tid == 0) sm::bulk_wait();
+}
+
+// ------------------------------------ GEMM + residual + shared LayerNorm ----
+
+// gemm_q8_res_ln's epilogue area: the 128 x BN residual / output tile (T),
+// then, where they fit beside two stages, the column scales, gamma, beta
+// (f32) and the bias (T), copied once a block; where they do not (f32 at BN
+// 256), the epilogue reads them from global memory.
+template <int BN, typename T>
+constexpr int kLnTileBytes = sm::kBM * BN * (int)sizeof(T);
+template <int BN, typename T>
+constexpr int kLnParamBytes = BN * (12 + (int)sizeof(T));
+template <int BN, typename T>
+constexpr bool kLnParamsInSmem =
+    sm::kSmemMax - 2048 - kLnTileBytes<BN, T> - kLnParamBytes<BN, T> >=
+    2 * (sm::kBM + BN) * sm::kBKS8;
+template <int BN, typename T>
+constexpr int kLnEpiBytes =
+    kLnTileBytes<BN, T> + (kLnParamsInSmem<BN, T> ? kLnParamBytes<BN, T> : 0);
+
+// out[M, N] = LN(res + T(T((f32(a @ w) * sa[row]) * sw[col]) + bias)) *
+// gamma + beta for N <= BN: a block tile holds full rows, and a row's
+// values sit in the 4 lanes of one quad, so the LayerNorm's statistics are
+// register sums and two shfl_xor each. The producer loads the tile's
+// residual into the epilogue tile by TMA once its first k-blocks are
+// issued; each warpgroup reads its half and overwrites it in place with the
+// outputs. With q_out, also the next GEMM's row quantization of out: codes
+// q_out [M, N] and scales s_out [M], from the same registers.
+template <typename T, int BN>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    gemm_q8_res_ln_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_wt,
+                          const __grid_constant__ CUtensorMap map_res,
+                          const __grid_constant__ CUtensorMap map_out,
                           const float* __restrict__ sa,
-                          const int8_t* __restrict__ w,
                           const float* __restrict__ sw,
                           const T* __restrict__ bias,
-                          const T* __restrict__ res,
                           const float* __restrict__ gamma,
                           const float* __restrict__ beta,
-                          T* __restrict__ out, int8_t* __restrict__ q_out,
+                          int8_t* __restrict__ q_out,
                           float* __restrict__ s_out, int M, int N, int K,
                           float eps) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int m0 = blockIdx.x * kLnBM;
-  int acc[GemmLn::kMT][GemmLn::kNT][4];
-  GemmLn::run(a, w, M, N, K, m0, 0, smem, acc);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / 4, wn = warp % 4;
-  int* const C = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int i = 0; i < GemmLn::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < GemmLn::kNT; ++j) {
-      const int r = wm * 32 + i * 16 + g, c = wn * 64 + j * 8 + t * 2;
-      C[r * kLnCLd + c] = acc[i][j][0];
-      C[r * kLnCLd + c + 1] = acc[i][j][1];
-      C[(r + 8) * kLnCLd + c] = acc[i][j][2];
-      C[(r + 8) * kLnCLd + c + 1] = acc[i][j][3];
-    }
+  constexpr int kCols = kBoxCols<T>, kBoxes = BN / kCols;  // a warpgroup's
+  extern __shared__ uint8_t smem_raw[];
+  sm::RingS8<BN, kLnEpiBytes<BN, T>> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(2);
   __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int nk = (K + sm::kBKS8 - 1) / sm::kBKS8;
+  const int tiles = (M + sm::kBM - 1) / sm::kBM;
+  uint32_t epi_phase = 0;
 
-  const float inv_n = 1.f / (float)N;
-  for (int rr = 0; rr < kLnBM / 8; ++rr) {
-    const int r = warp * (kLnBM / 8) + rr;
-    const int row = m0 + r;
-    if (row >= M) break;  // warp-uniform
-    const float sx = sa[row];
-    float s[kLnBN / 32];
-    float sum = 0.f;
+  if (warp == sm::kConsumerWarps) {  // the producer
+    if ((threadIdx.x & 31) == 0) {
+      sm::tma_prefetch(&map_a);
+      sm::tma_prefetch(&map_wt);
+      sm::tma_prefetch(&map_res);
+      const int res_after = (nk < ring.kStages ? nk : ring.kStages) - 1;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t * sm::kBM;
+        for (int kb = 0; kb < nk; ++kb) {
+          ring.load(&map_a, &map_wt, m0, 0, kb);
+          if (kb != res_after) continue;
+          sm::mbar_wait(ring.epi_empty(), epi_phase ^ 1);
+          sm::mbar_expect_tx(ring.epi_full(), kLnTileBytes<BN, T>);
 #pragma unroll
-    for (int k = 0; k < kLnBN / 32; ++k) {
-      const int c = lane + 32 * k;
-      s[k] = 0.f;
-      if (c < N) {
-        const float y = round_to<T>(
-            round_to<T>(dequant(C[r * kLnCLd + c], sx, sw[c])) +
-            nylon::to_f(bias[c]));
-        s[k] = round_to<T>(nylon::to_f(res[(size_t)row * N + c]) + y);
-        sum += s[k];
+          for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int c = 0; c < kBoxes; ++c)
+              sm::tma_load(ring.epi(g * kBoxes + c), &map_res,
+                           ring.epi_full(), kCols * c, m0 + 64 * g);
+          epi_phase ^= 1;
+        }
       }
     }
-    const float mean = nylon::warp_sum(sum) * inv_n;
-    float sq = 0.f;
-#pragma unroll
-    for (int k = 0; k < kLnBN / 32; ++k) {
-      const int c = lane + 32 * k;
-      if (c < N) {
-        const float d = s[k] - mean;
-        sq += d * d;
-      }
-    }
-    const float rstd = rsqrtf(nylon::warp_sum(sq) * inv_n + eps);
-    float amax = 0.f;
-#pragma unroll
-    for (int k = 0; k < kLnBN / 32; ++k) {
-      const int c = lane + 32 * k;
-      if (c < N) {
-        s[k] = round_to<T>((s[k] - mean) * rstd * gamma[c] + beta[c]);
-        out[(size_t)row * N + c] = nylon::from_f<T>(s[k]);
-        amax = fmaxf(amax, fabsf(s[k]));
-      }
-    }
-    if (q_out == nullptr) continue;  // warp-uniform
-    // the next GEMM's row quantization of the output
-    const float qa = fmaxf(warp_max(amax), kAbsFloor);
-    const float qr = 127.f / qa;
-#pragma unroll
-    for (int k = 0; k < kLnBN / 32; ++k) {
-      const int c = lane + 32 * k;
-      if (c < N) q_out[(size_t)row * N + c] = quant_code(s[k], qr);
-    }
-    if (lane == 0) s_out[row] = qa * kInv127;
+    return;
   }
+
+  const int g = warp >> 2, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ebase = sm::smem_u32(ring.epi(g * kBoxes));
+  const float inv_n = 1.f / (float)N;
+  // the column scales, gamma, beta and the bias, to shared memory once
+  const uint32_t s_sw = sm::smem_u32(ring.epi(2 * kBoxes));
+  const uint32_t s_gamma = s_sw + 4 * BN, s_beta = s_gamma + 4 * BN;
+  const uint32_t s_bias = s_beta + 4 * BN;
+  if constexpr (kLnParamsInSmem<BN, T>) {
+    for (int c = threadIdx.x; c < N; c += 256) {
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_sw + 4 * c),
+                   "f"(sw[c]) : "memory");
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_gamma + 4 * c),
+                   "f"(gamma[c]) : "memory");
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_beta + 4 * c),
+                   "f"(beta[c]) : "memory");
+      st_shared_t(s_bias + (int)sizeof(T) * c, bias[c]);
+    }
+    sm::named_sync(3, 256);
+  }
+  // the pair (col, col + 1) of an f32 per-column vector, kept at s in
+  // shared memory, or at v in global memory
+  const auto param = [](uint32_t s, const float* v, int col) {
+    if constexpr (kLnParamsInSmem<BN, T>) return sm::ld_shared_f2(s + 4 * col);
+    else return *reinterpret_cast<const float2*>(v + col);
+  };
+  using Pair = PairOf<T>;
+  const auto bias2 = [s_bias, bias](int col) {
+    if constexpr (kLnParamsInSmem<BN, T>)
+      return Pair::ld(s_bias + (int)sizeof(T) * col);
+    else return Pair::ldg(bias + col);
+  };
+  const auto box = [ebase](int j) {  // of column 8 j
+    return ebase + (8 * j / kCols) * sm::kBoxBytes;
+  };
+
+  int acc[BN / 2];  // the s32 products, then the f32 bits of s, then of out
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t * sm::kBM, row0 = m0 + 64 * g;
+    float sx[2];  // the row scales, loaded while the mainloop runs
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + f.r0 + 8 * i;
+      sx[i] = row < M ? sa[row] : 0.f;
+    }
+    ring.mma(acc, nk, g);
+    sm::mbar_wait(ring.epi_full(), epi_phase);
+    epi_phase ^= 1;
+
+    // s = T(res + T(T(dequant) + bias)), in place of acc; row sums
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * f.q;
+      if (col < N) {
+        const float2 w2 = param(s_sw, sw, col);
+        const auto b2 = bias2(col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 s2 = Pair::f32(res_pair(
+              acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], sx[i], w2, b2,
+              Pair::ld(pair_addr<T>(f, box(j), i, j))));
+          acc[4 * j + 2 * i] = __float_as_int(s2.x);
+          acc[4 * j + 2 * i + 1] = __float_as_int(s2.y);
+          sum[i] += s2.x + s2.y;
+        }
+      }
+    }
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mean[i] = quad_sum(sum[i]) * inv_n;
+    float sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (8 * j + 2 * f.q < N) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float d0 = __int_as_float(acc[4 * j + 2 * i]) - mean[i];
+          const float d1 = __int_as_float(acc[4 * j + 2 * i + 1]) - mean[i];
+          sq[i] += d0 * d0 + d1 * d1;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rstd[i] = rsqrtf(quad_sum(sq[i]) * inv_n + eps);
+
+    // out = T((s - mean) * rstd * gamma + beta), in place of the residual
+    float amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * f.q;
+      if (col < N) {
+        const float2 ga = param(s_gamma, gamma, col);
+        const float2 be = param(s_beta, beta, col);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const auto o2 = Pair::from(
+              (__int_as_float(acc[4 * j + 2 * i]) - mean[i]) * rstd[i] *
+                      ga.x + be.x,
+              (__int_as_float(acc[4 * j + 2 * i + 1]) - mean[i]) * rstd[i] *
+                      ga.y + be.y);
+          Pair::st(pair_addr<T>(f, box(j), i, j), o2);
+          const float2 o = Pair::f32(o2);  // out as T, for its codes
+          acc[4 * j + 2 * i] = __float_as_int(o.x);
+          acc[4 * j + 2 * i + 1] = __float_as_int(o.y);
+          amax[i] = fmaxf(amax[i], fmaxf(fabsf(o.x), fabsf(o.y)));
+        }
+      }
+    }
+    sm::fence_async_smem();
+    sm::named_sync(1 + g, 128);
+    if (tid == 0) {
+      if (row0 < M) {
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          if (kCols * c < N)
+            sm::tma_store(&map_out, ebase + c * sm::kBoxBytes, kCols * c,
+                          row0);
+      }
+      sm::bulk_commit();
+    }
+    if (q_out != nullptr) {  // the next GEMM's row quantization of out
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float qa = fmaxf(quad_max(amax[i]), kAbsFloor);
+        const float qr = 127.f / qa;  // IEEE division (no fast math)
+        const int row = row0 + f.r0 + 8 * i;
+        int8_t* dst = q_out + (size_t)row * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; j += 4) {
+          uint32_t w[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int a = 4 * (j + 2 * h) + 2 * i;  // fragments j + 2 h, + 1
+            w[h] = code_pair(acc[a], acc[a + 1], qr) |
+                   code_pair(acc[a + 4], acc[a + 5], qr) << 16;
+          }
+          const uint2 codes = quad_gather(w[0], w[1], f.q);
+          const int col = 8 * (j + f.q);
+          if (row < M && col < N)
+            *reinterpret_cast<uint2*>(dst + col) = codes;
+        }
+        if (row < M && f.q == 0) s_out[row] = qa * kInv127;
+      }
+    }
+    if (tid == 0) {  // the tile is free once the store has read it
+      sm::bulk_wait_read();
+      sm::mbar_arrive(ring.epi_empty());
+    }
+  }
+  if (tid == 0) sm::bulk_wait();
 }
 
 // -------------------------------------------------------------- attention ----
@@ -721,44 +959,115 @@ int launch_quant_cols(const void* x, long long ld_x, int n_seq, int L,
   return (int)cudaGetLastError();
 }
 
+// The tensor map of an activation matrix of T [rows, cols] in boxes of 64
+// rows x one 128-byte row (the epilogues' boxes).
 template <typename T>
-int launch_gemm_bias(const void* a, const void* sa, const void* w,
+int encode_act(CUtensorMap* map, const void* ptr, long long rows,
+               long long cols) {
+  return std::is_same<T, float>::value
+             ? sm::encode_f32(map, ptr, rows, cols, 64)
+             : sm::encode_bf16(map, ptr, rows, cols, 64);
+}
+
+// What both GEMM entry points refuse: K a multiple of 16 (a TMA row of K
+// bytes) up to kMaxK, N a multiple of 8.
+inline bool gemm_shape_ok(int M, int N, int K) {
+  return M > 0 && N > 0 && K > 0 && K % 16 == 0 && K <= kMaxK && N % 8 == 0;
+}
+
+template <typename T, int BN>
+int launch_gemm_bias(const void* a, const void* sa, const void* wt,
                      const void* sw, const void* bias, void* out, int M,
                      int N, int K, int relu, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8)
-    return (int)cudaErrorInvalidValue;
-  const int smem = GemmBias::kPipeBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_q8_bias_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_tiles_n = (N + 127) / 128;
-  const long long tiles = (long long)n_tiles_n * ((M + 127) / 128);
-  gemm_q8_bias_kernel<T><<<(unsigned)tiles, kThreads, smem, stream>>>(
-      (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const T*)bias, (T*)out, M, N, K, relu, n_tiles_n);
+  CUtensorMap ma, mw, mo;
+  int e = sm::encode_s8(&ma, a, M, K, sm::kBM);
+  if (!e) e = sm::encode_s8(&mw, wt, N, K, BN);
+  if (!e) e = encode_act<T>(&mo, out, M, N);
+  const int n_tiles_n = (N + BN - 1) / BN;
+  const long long tiles =
+      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+  const auto kernel = gemm_q8_bias_kernel<T, BN>;
+  constexpr int smem = sm::RingS8<BN, kBiasEpiBytes<BN, T>>::kBytes;
+  int grid = 0;
+  if (!e) e = sm::persistent_grid(kernel, smem, tiles, &grid);
+  if (e) return e;
+  kernel<<<grid, sm::kThreads, smem, stream>>>(
+      ma, mw, mo, (const float*)sa, (const float*)sw, (const T*)bias, M, N,
+      K, relu, n_tiles_n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_gemm_res_ln(const void* a, const void* sa, const void* w,
+int gemm_bias(const void* a, const void* sa, const void* wt, const void* sw,
+              const void* bias, void* out, int M, int N, int K, int relu,
+              cudaStream_t stream) {
+  if (!gemm_shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+  switch (sm::tile_width(N)) {
+    case 64:
+      return launch_gemm_bias<T, 64>(a, sa, wt, sw, bias, out, M, N, K, relu,
+                                     stream);
+    case 128:
+      return launch_gemm_bias<T, 128>(a, sa, wt, sw, bias, out, M, N, K,
+                                      relu, stream);
+    case 192:
+      return launch_gemm_bias<T, 192>(a, sa, wt, sw, bias, out, M, N, K,
+                                      relu, stream);
+    default:
+      return launch_gemm_bias<T, 256>(a, sa, wt, sw, bias, out, M, N, K,
+                                      relu, stream);
+  }
+}
+
+template <typename T, int BN>
+int launch_gemm_res_ln(const void* a, const void* sa, const void* wt,
                        const void* sw, const void* bias, const void* res,
                        const void* gamma, const void* beta, void* out,
                        void* q_out, void* s_out, int M, int N, int K,
                        float eps, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % kBK || N % 8 || N > kLnBN ||
-      ((q_out == nullptr) != (s_out == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_q8_res_ln_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kLnSmem);
-  if (e != cudaSuccess) return (int)e;
-  gemm_q8_res_ln_kernel<T><<<(M + kLnBM - 1) / kLnBM, kThreads, kLnSmem,
-                             stream>>>(
-      (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const T*)bias, (const T*)res, (const float*)gamma, (const float*)beta,
-      (T*)out, (int8_t*)q_out, (float*)s_out, M, N, K, eps);
+  CUtensorMap ma, mw, mr, mo;
+  int e = sm::encode_s8(&ma, a, M, K, sm::kBM);
+  if (!e) e = sm::encode_s8(&mw, wt, N, K, BN);
+  if (!e) e = encode_act<T>(&mr, res, M, N);
+  if (!e) e = encode_act<T>(&mo, out, M, N);
+  const auto kernel = gemm_q8_res_ln_kernel<T, BN>;
+  constexpr int smem = sm::RingS8<BN, kLnEpiBytes<BN, T>>::kBytes;
+  int grid = 0;
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, (M + sm::kBM - 1) / sm::kBM, &grid);
+  if (e) return e;
+  kernel<<<grid, sm::kThreads, smem, stream>>>(
+      ma, mw, mr, mo, (const float*)sa, (const float*)sw, (const T*)bias,
+      (const float*)gamma, (const float*)beta, (int8_t*)q_out,
+      (float*)s_out, M, N, K, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int gemm_res_ln(const void* a, const void* sa, const void* wt, const void* sw,
+                const void* bias, const void* res, const void* gamma,
+                const void* beta, void* out, void* q_out, void* s_out, int M,
+                int N, int K, float eps, cudaStream_t stream) {
+  if (!gemm_shape_ok(M, N, K) || N > kLnMaxN ||
+      (q_out == nullptr) != (s_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch ((N + 63) / 64) {
+    case 1:
+      return launch_gemm_res_ln<T, 64>(a, sa, wt, sw, bias, res, gamma, beta,
+                                       out, q_out, s_out, M, N, K, eps,
+                                       stream);
+    case 2:
+      return launch_gemm_res_ln<T, 128>(a, sa, wt, sw, bias, res, gamma,
+                                        beta, out, q_out, s_out, M, N, K, eps,
+                                        stream);
+    case 3:
+      return launch_gemm_res_ln<T, 192>(a, sa, wt, sw, bias, res, gamma,
+                                        beta, out, q_out, s_out, M, N, K, eps,
+                                        stream);
+    default:
+      return launch_gemm_res_ln<T, 256>(a, sa, wt, sw, bias, res, gamma,
+                                        beta, out, q_out, s_out, M, N, K, eps,
+                                        stream);
+  }
 }
 
 template <int D, typename T>
@@ -802,7 +1111,8 @@ int launch_attention(const void* q, long long q_row, const void* sq,
 }  // namespace
 
 // Each entry point takes bf16 activations (and writes bf16); its _f32 twin
-// takes and writes f32 (the float32 compute dtype).
+// takes and writes f32 (the float32 compute dtype). The GEMMs take the
+// weight codes as W^T [N, K] (wt).
 #define NYLON_Q8_ENTRY(name, T)                                                \
   int nylon_q8_quant_rows##name(const void* x, long long ld_x, int M, int K,  \
                                 int n_seg, void* q, void* s, void* stream) {  \
@@ -815,20 +1125,19 @@ int launch_attention(const void* q, long long q_row, const void* sq,
     return launch_quant_cols<T>(x, ld_x, n_seq, L, hid, vt, sv,               \
                                 (cudaStream_t)stream);                        \
   }                                                                           \
-  int nylon_q8_gemm_bias##name(const void* a, const void* sa, const void* w,  \
+  int nylon_q8_gemm_bias##name(const void* a, const void* sa, const void* wt, \
                                const void* sw, const void* bias, void* out,   \
                                int M, int N, int K, int relu, void* stream) { \
-    return launch_gemm_bias<T>(a, sa, w, sw, bias, out, M, N, K, relu,        \
-                               (cudaStream_t)stream);                         \
+    return gemm_bias<T>(a, sa, wt, sw, bias, out, M, N, K, relu,              \
+                        (cudaStream_t)stream);                                \
   }                                                                           \
   int nylon_q8_gemm_res_ln##name(                                             \
-      const void* a, const void* sa, const void* w, const void* sw,           \
+      const void* a, const void* sa, const void* wt, const void* sw,          \
       const void* bias, const void* res, const void* gamma, const void* beta, \
       void* out, void* q_out, void* s_out, int M, int N, int K, float eps,    \
       void* stream) {                                                         \
-    return launch_gemm_res_ln<T>(a, sa, w, sw, bias, res, gamma, beta, out,   \
-                                 q_out, s_out, M, N, K, eps,                  \
-                                 (cudaStream_t)stream);                       \
+    return gemm_res_ln<T>(a, sa, wt, sw, bias, res, gamma, beta, out, q_out,  \
+                          s_out, M, N, K, eps, (cudaStream_t)stream);         \
   }                                                                           \
   int nylon_q8_attention##name(                                               \
       const void* q, long long q_row, const void* sq, const void* k,          \

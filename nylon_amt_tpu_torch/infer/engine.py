@@ -25,7 +25,9 @@ Weights are packed once, by :func:`pack_params`, when a transcriber is
 built: under ``jit`` the JAX engine packs at trace time for free, eagerly it
 would cost a repack per forward. A float32 pack on the card also holds each
 layer matrix's TF32 pair (``layer_fused.pack_tf32``), the form the float32
-GEMM kernels read.
+GEMM kernels read; an int8 pack on the card each layer matrix's codes
+K-major, ``W^T [N, K]`` (``layer_fused_q8.pack_wt``), the form the s8 GEMM
+kernels read.
 """
 
 from __future__ import annotations
@@ -83,6 +85,9 @@ class PackedHFT(NamedTuple):
     # float32 on the card: the TF32 pairs of each layer's matrices, by group
     # ("enc", "dec_zero", "dec", "time") and layer (layer_fused.pack_tf32)
     tf32: dict | None = None
+    # int8 on the card: each layer's codes as W^T [N, K], by group and layer
+    # (layer_fused_q8.pack_wt)
+    wt: dict | None = None
 
 
 def _lin(lin, dt, *more):
@@ -158,12 +163,13 @@ def pack_params(model: HFT, dtype: torch.dtype,
         dec=[cross_pack(layer) for layer in dec.layers_freq],
         time=[enc_pack(layer) for layer in dec.layers_time]
         if dec.stage2 else [])
-    tf32 = None
-    if (dtype == torch.float32 and not q8
-            and enc.pos_embedding_freq.weight.device.type == "cuda"):
-        tf32 = {group: pack_tf32(ps) if isinstance(ps, CrossLayerParams)
-                else [pack_tf32(p) for p in ps]
-                for group, ps in layers.items()}
+    packs = {}  # the kernels' forms of the weights, made on the card only
+    if (enc.pos_embedding_freq.weight.device.type == "cuda"
+            and (q8 or dtype == torch.float32)):
+        pack = lq.pack_wt if q8 else pack_tf32
+        packs["wt" if q8 else "tf32"] = {
+            group: [pack(p) for p in ps] if isinstance(ps, list) else pack(ps)
+            for group, ps in layers.items()}
     return PackedHFT(
         dtype=dtype, k_eff=k_eff, b_eff=b_eff,
         pos_freq=enc.pos_embedding_freq.weight.to(dtype),
@@ -172,7 +178,7 @@ def pack_params(model: HFT, dtype: torch.dtype,
         pos_time=dec.pos_embedding_time.weight.to(dtype) if dec.stage2
         else None,
         heads_b=heads.get("b", {}), precision="int8" if q8 else None,
-        tf32=tf32, **layers)
+        **packs, **layers)
 
 
 def _dense(x, head):
@@ -198,27 +204,29 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
         stem_layer, enc_layer = encoder_layer_with_stem, encoder_layer
         dec_zero, dec_layer = decoder_layer_zero, decoder_layer
 
-    def tf32(group, i=None):
-        """The ``tf32`` argument of a layer call: its packed pairs."""
-        if packed.tf32 is None:
-            return {}
-        pairs = packed.tf32[group]
-        return {"tf32": pairs if i is None else pairs[i]}
+    def pack(group, i=None):
+        """The layer call's packed weights: ``tf32=`` (its TF32 pairs) or
+        ``wt=`` (its int8 codes K-major), where the pack holds them."""
+        for key in ("tf32", "wt"):
+            packs = getattr(packed, key)
+            if packs is not None:
+                return {key: packs[group] if i is None else packs[group][i]}
+        return {}
 
     # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
     spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
     h = stem_layer(spec_t, packed.k_eff, packed.b_eff, packed.pos_freq,
-                   packed.enc[0], m.enc_head, n_frame, dt, **tf32("enc", 0))
+                   packed.enc[0], m.enc_head, n_frame, dt, **pack("enc", 0))
     for i, p in enumerate(packed.enc[1:], 1):
-        h = enc_layer(h, p, m.enc_head, **tf32("enc", i))
+        h = enc_layer(h, p, m.enc_head, **pack("enc", i))
     enc = h                                        # [B*n_frame, n_bin, hid]
 
     # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
     trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
     trg = dec_zero(trg, enc, packed.dec_zero, m.dec_head,
-                   **tf32("dec_zero"))
+                   **pack("dec_zero"))
     for i, p in enumerate(packed.dec):
-        trg = dec_layer(trg, enc, p, m.dec_head, **tf32("dec", i))
+        trg = dec_layer(trg, enc, p, m.dec_head, **pack("dec", i))
     out = {f"{k}_A": _dense(trg, packed.heads_a[k])
            .reshape(B, n_frame, n_note, -1) for k in _KEYS}
     if packed.pos_time is None:                    # stage-1-only decoder
@@ -228,7 +236,7 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
     t = t.reshape(B * n_note, n_frame, hid) * scale + packed.pos_time
     for i, p in enumerate(packed.time):
-        t = enc_layer(t, p, m.dec_head, **tf32("time", i))
+        t = enc_layer(t, p, m.dec_head, **pack("time", i))
     for k in _KEYS:
         out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
                          .reshape(B, n_note, n_frame, -1).transpose(1, 2))

@@ -123,10 +123,11 @@ _SIGNATURES = {
     "nylon_q8_quant_rows": [_P, _L, _I, _I, _I, _P, _P, _P],
     # x, ld_x, n_seq, L, hid, vt, sv, stream
     "nylon_q8_quant_cols": [_P, _L, _I, _I, _I, _P, _P, _P],
-    # a, sa, w, sw, bias, out, M, N, K, relu, stream
+    # a [M, K], sa, wt (the weight codes K-major, W^T [N, K]), sw, bias,
+    # out, M, N, K, relu, stream
     "nylon_q8_gemm_bias": [_P] * 6 + [_I] * 4 + [_P],
-    # a, sa, w, sw, bias, res, gamma, beta, out, q_out, s_out, M, N, K, eps,
-    # stream
+    # a, sa, wt, sw, bias, res, gamma, beta, out, q_out, s_out, M, N, K,
+    # eps, stream
     "nylon_q8_gemm_res_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
     # q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, o, n_seq, lq, lk, n_heads,
     # head_dim, scale_log2e, stream

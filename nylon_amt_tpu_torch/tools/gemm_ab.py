@@ -35,9 +35,8 @@ ctypes, and are:
   epilogue, ragged and paper shapes): dX within 2e-5 of max(1, max |plain
   f32 twin|), dW and its bias sums no further from a float64 truth than
   twice the plain f32 twin's own distance + 1e-6 max |truth|, reruns
-  bit-identical; dX reads the weight as its dX pair (``[Kout, N]`` halves)
-  where the tree's ``nylon_gemm_nt_f32`` takes one, the weight itself where
-  it is the SIMT kernel;
+  bit-identical; dX reads the weight as its dX pair (``[Kout, N]``
+  halves);
 * compared with the first variant bit for bit; with ``--same`` a bf16
   forward output that differs from the first variant's, or a bf16 forward
   GEMM, a TF32 forward GEMM, an f32 dX / dW GEMM, a bf16 attention kernel
@@ -59,17 +58,28 @@ ctypes, and are:
   f32 ``torch.matmul``, the bound (bytes, or the products as 3xTF32) and
   the FFMA bound. ``--f32-bwd`` times only those.
 
-A variant's dW row chunks and tile follow ``wgrad_layout``. A tree whose
-``layer_fused_f32.cu`` still holds the SIMT float32 dX and dW kernels (the
-parent of the tensor-core ones) is driven as those take it: dX reads the
-weight ``[Kout, N]`` itself, dW takes no tile and its own row chunks (two
-waves of two 64 x 64 blocks an SM, rows a multiple of 32). That fork goes
-once no parent tree holds the SIMT kernels.
+A variant's dW row chunks and tile follow ``wgrad_layout``.
+
+With ``--q8`` the run is the int8 layer GEMMs' alone (``csrc/
+layer_fused_q8.cu``: ``nylon_q8_gemm_bias[_f32]``, ``nylon_q8_gemm_res_ln
+[_f32]``; each variant builds that file and ``layer_fused.cu``): each is
+held at ``Q8_CHECKS`` (ragged, default and paper shapes, bf16 and f32,
+ReLU and ``quant_out``) against the plain twins (``ops.layer_fused_q8.
+gemm_q8_bias_plain`` bit for bit; ``gemm_q8_res_ln_plain`` within 4 bf16
+ulps or 2e-5 of max(1, |plain|), its output codes and scales those of
+``_quant_rows`` of its own output), two runs bit-identical, then timed A B
+.. B A by ``graph_ms`` at the 43 products of the paper batch-32 int8 forward
+(``q8_products``) beside the bound and ``torch._int_mm``. Each tree is
+called with its own weight layout: the codes K-major, ``W^T [N, K]``, or
+``[K, N]`` where its ``layer_fused_q8.cu`` still holds the ``mma.sync``
+GEMMs (``S8Gemm``).
 
 Run from the root of a checkout on the card::
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
     python -m nylon_amt_tpu_torch.tools.gemm_ab --same \\
+        new=nylon_amt_tpu_torch/csrc old=build/parent/nylon_amt_tpu_torch/csrc
+    python -m nylon_amt_tpu_torch.tools.gemm_ab --q8 \\
         new=nylon_amt_tpu_torch/csrc old=build/parent/nylon_amt_tpu_torch/csrc
 
 It prints the card's name and power limit first. A variant that fails to
@@ -93,10 +103,14 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
                    "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32",
                    "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
-           "attn32": (), "attn16": ()}
+           "attn32": (), "attn16": (),
+           "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
+                  "nylon_q8_gemm_bias_f32", "nylon_q8_gemm_res_ln_f32")}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
-           "attn16": "mha.cu"}
+           "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
+# what --q8 builds (layer_fused.cu for the error strings)
+Q8_PARTS = ("fwd", "q8")
 # the stem QKV GEMM's entry point (a, w [K, N], bias, out, M, N, K, relu,
 # stream)
 QKV_ENTRY = "nylon_gemm_bias_ffma_f32"
@@ -184,8 +198,25 @@ DEFAULT = [
     ("ln o note/time", 360448, 64, 64, 0, 5),
     ("ln ffn2 note/time", 360448, 128, 64, 0, 4),
 ]
+# the int8 GEMMs (kernel, M, K, N, ReLU, quant_out, dtype): one tile, ragged
+# K, M and N, every tile width, a paper shape of each variant, and K up to
+# 1024
+Q8_CHECKS = [
+    (kern, m, k, n, relu, qo, dt)
+    for dt in ("bf16", "f32")
+    for kern, m, k, n, relu, qo in (
+        ("bias", 128, 64, 64, 0, 0), ("bias", 200, 96, 288, 0, 0),
+        ("bias", 777, 160, 160, 1, 0), ("bias", 333, 32, 8, 1, 0),
+        ("bias", 300001, 64, 192, 0, 0), ("bias", 300000, 256, 768, 0, 0),
+        ("bias", 90001, 256, 512, 1, 0), ("ln", 128, 64, 64, 0, 1),
+        ("ln", 333, 32, 8, 0, 1), ("ln", 777, 160, 96, 0, 1),
+        ("ln", 300001, 256, 256, 0, 1), ("ln", 300000, 512, 256, 0, 0),
+        ("ln", 90001, 128, 64, 0, 0), ("ln", 777, 96, 192, 0, 0),
+        ("bias", 5000, 512, 512, 1, 0), ("bias", 3001, 1024, 64, 0, 0),
+        ("ln", 3001, 1024, 192, 0, 1))]
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
 TF32_FLOPS, F32_FLOPS = 494.7e12, 67e12
+INT8_OPS = 1979e12
 DROP_SEED, RATE = 77, 0.1
 
 
@@ -229,9 +260,34 @@ DEFAULT_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 64, 128, 2, 2,
                                  2)
 
 
-def build(variants: dict, out_dir: Path) -> dict:
-    """``{name: {"fwd": path, "bwd": path} or None}``: every variant's two
-    sources, each in its own nvcc, all started together."""
+def q8_products(mf, mq, hid, pf, n_enc, n_dec, n_time) -> list:
+    """Every (label, kernel, M, K, N, relu, quant_out, launches) of an int8
+    forward of these widths (frequency-stream rows mf, note/time-stream
+    rows mq): n_enc frequency encoder layers, the decoder's layer zero and
+    n_dec - 1 self + cross layers, n_time time layers. Each layer's first
+    LayerNorm GEMM also quantizes its output for the FFN, and the decoder's
+    self-attention one for the cross tail."""
+    bias, ln = "gemm_q8_bias", "gemm_q8_res_ln"
+    return [
+        ("qkv freq", bias, mf, hid, 3 * hid, 0, 0, n_enc),
+        ("ffn1 freq", bias, mf, hid, pf, 1, 0, n_enc),
+        ("kv cross", bias, mf, hid, 2 * hid, 0, 0, n_dec),
+        ("q cross", bias, mq, hid, hid, 0, 0, n_dec),
+        ("qkv note/time", bias, mq, hid, 3 * hid, 0, 0, n_dec - 1 + n_time),
+        ("ffn1 note/time", bias, mq, hid, pf, 1, 0, n_dec + n_time),
+        ("o freq", ln, mf, hid, hid, 0, 1, n_enc),
+        ("ffn2 freq", ln, mf, pf, hid, 0, 0, n_enc),
+        ("o note/time", ln, mq, hid, hid, 0, 1, 2 * n_dec - 1 + n_time),
+        ("ffn2 note/time", ln, mq, pf, hid, 0, 0, n_dec + n_time)]
+
+
+# the paper batch-32 int8 forward's 43 products
+PAPER_Q8 = q8_products(32 * 128 * 256, 32 * 128 * 88, 256, 512, 3, 3, 3)
+
+
+def build(variants: dict, out_dir: Path, parts=tuple(SOURCES)) -> dict:
+    """``{name: {part: path} or None}``: every variant's sources of
+    ``parts``, each in its own nvcc, all started together."""
     from nylon_amt_tpu_torch import kernels
 
     nvcc = kernels.find_nvcc()
@@ -240,7 +296,8 @@ def build(variants: dict, out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in variants.items():
-        for part, file in SOURCES.items():
+        for part in parts:
+            file = SOURCES[part]
             lib = out_dir / f"{name}_{part}.so"
             cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(lib),
                    str(Path(src) / file)]
@@ -260,15 +317,6 @@ def build(variants: dict, out_dir: Path) -> dict:
             for name, paths in libs.items()}
 
 
-def simt_f32_plan(m: int, ka: int, n: int, sms: int) -> tuple[int, int]:
-    """The row chunks of the earlier SIMT f32 dW kernel: two waves of two
-    64 x 64 blocks an SM, rows a multiple of 32."""
-    tiles = -(-ka // 64) * -(-n // 64)
-    chunks = max(1, -(-(2 * 2 * sms) // tiles))
-    rows = -(-(-(-m // chunks)) // 32) * 32
-    return rows, -(-m // rows)
-
-
 class Refused(Exception):
     """An entry point refused its arguments (a shape it does not take)."""
 
@@ -279,17 +327,15 @@ class Lib:
     def __init__(self, paths: dict, src: Path):
         from nylon_amt_tpu_torch import kernels
 
-        # the f32 dX and dW on the SIMT core (csrc/gemm_f32.cuh): the bf16
-        # entry points' arguments, dX reading the weight [Kout, N] itself
-        self.f32_simt = "F32Gemm" in (Path(src) / SOURCES["f32"]).read_text()
-        simt = ("nylon_gemm_nt_f32", "nylon_wgrad_f32") if self.f32_simt \
-            else ()
+        # the int8 GEMMs on mma.sync (S8Gemm) read the weight codes [K, N];
+        # those on wgmma their K-major pack, W^T [N, K]
+        self.q8_kn = "q8" in paths and "S8Gemm" in (
+            Path(src) / SOURCES["q8"]).read_text()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for e in ENTRIES[part] + ((QKV_ENTRY,) if part == "f32" else ()):
-                getattr(lib, e).argtypes = kernels._SIGNATURES[
-                    e[:-len("_f32")] if e in simt else e]
+                getattr(lib, e).argtypes = kernels._SIGNATURES[e]
                 getattr(lib, e).restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
@@ -381,9 +427,8 @@ class Lib:
         part, name, wk = "bwd", "nylon_gemm_nt", (w.data_ptr(),)
         if dy.dtype == torch.float32:
             part, name = "f32", "nylon_gemm_nt_f32"
-            if not self.f32_simt:
-                halves = tf32_pair(w, nt=True) if pair is None else pair
-                wk = tuple(h.data_ptr() for h in halves)
+            halves = tf32_pair(w, nt=True) if pair is None else pair
+            wk = tuple(h.data_ptr() for h in halves)
         self._call(part, name, dy.data_ptr(), *wk,
                    out.data_ptr(), None if gate is None else gate.data_ptr(),
                    None if addend is None else addend.data_ptr(), m, n, kout,
@@ -406,9 +451,6 @@ class Lib:
             "bwd", "nylon_wgrad")
         bm, bn, rows, chunks = wgrad_layout(m, ka, n, a.dtype, sms)
         tile = (bm, bn) if f32_ else ()
-        if f32_ and self.f32_simt:
-            rows, chunks = simt_f32_plan(m, ka, n, sms)
-            bm, tile = ka, ()   # one bias part a chunk
         s = torch.cuda.current_stream().cuda_stream
         f32 = dict(dtype=torch.float32, device=a.device)
         part, bias_part = torch.empty((chunks, ka, n), **f32), \
@@ -421,6 +463,58 @@ class Lib:
             self._call("bwd", "nylon_reduce_rows", src.data_ptr(),
                        dst.data_ptr(), src.shape[0], dst.numel(), s)
         return [dw, db]
+
+    def q8(self, x, relu=0, quant_out=0):
+        """An int8 GEMM of ``q8_inputs`` ``x``: ``[out]`` of the GEMM +
+        bias, or with ``x["res"]`` ``[out]`` of the residual + LayerNorm
+        one [+ its output codes and scales]."""
+        import torch
+
+        (m, k), n = x["aq"].shape, x["wq"].shape[1]
+        dt, dev = x["bias"].dtype, x["aq"].device
+        sfx = "" if dt == torch.bfloat16 else "_f32"
+        w = x["wq"] if self.q8_kn else x["wt"]
+        s = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((m, n), dtype=dt, device=dev)
+        head = (x["aq"].data_ptr(), x["sa"].data_ptr(), w.data_ptr(),
+                x["sw"].data_ptr(), x["bias"].data_ptr())
+        if "res" not in x:
+            self._call("q8", "nylon_q8_gemm_bias" + sfx, *head,
+                       out.data_ptr(), m, n, k, relu, s)
+            return [out]
+        q = torch.empty((m, n), dtype=torch.int8, device=dev) \
+            if quant_out else None
+        sc = torch.empty((m,), dtype=torch.float32, device=dev) \
+            if quant_out else None
+        self._call("q8", "nylon_q8_gemm_res_ln" + sfx, *head,
+                   x["res"].data_ptr(), x["g"].data_ptr(),
+                   x["be"].data_ptr(), out.data_ptr(),
+                   None if q is None else q.data_ptr(),
+                   None if sc is None else sc.data_ptr(), m, n, k, 1e-5, s)
+        return [t for t in (out, q, sc) if t is not None]
+
+
+def q8_inputs(m, k, n, ln, dtype, seed=0):
+    """An int8 GEMM's operands: the codes and scales of seeded activations
+    and weights in ``dtype`` (the plain quantizers'), the codes K-major
+    (``wt``), the bias in ``dtype``; with ``ln`` the residual in ``dtype``
+    and the LayerNorm's f32 gamma and beta."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    aq, sa = lq._quant_rows(r(m, k).to(dtype))
+    wq, sw = lq.quantize_weight((r(k, n) / math.sqrt(k)).to(dtype))
+    x = dict(aq=aq, sa=sa.reshape(-1).contiguous(), wq=wq,
+             wt=wq.t().contiguous(), sw=sw, bias=(0.1 * r(n)).to(dtype))
+    if ln:
+        x.update(res=r(m, n).to(dtype), g=1.0 + 0.1 * r(n), be=0.1 * r(n))
+    return x
 
 
 def inputs(m, k, n, seed=0, dtype=None):
@@ -760,6 +854,90 @@ def check_f32_bwd(libs: dict) -> dict:
     return ok
 
 
+def check_q8(libs: dict) -> dict:
+    """Hold every variant's int8 GEMMs at Q8_CHECKS: the GEMM + bias bit
+    for bit equal to ``gemm_q8_bias_plain``; the LayerNorm one within ULPS
+    bf16 ulps of ``gemm_q8_res_ln_plain`` (f32: F32_REL of max(1, |plain|)),
+    its codes and scales ``_quant_rows`` of its own output; two runs
+    bit-identical. Returns ``{name: passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+
+    ok = {name: True for name in libs}
+    for case in Q8_CHECKS:
+        kern, m, k, n, relu, qo, dt_ = case
+        dt = torch.bfloat16 if dt_ == "bf16" else torch.float32
+        ln = kern == "ln"
+        x = q8_inputs(m, k, n, ln, dt, seed=m + k + n + 4)
+        args = (x["aq"], x["sa"], x["wq"], x["sw"], x["bias"])
+        want = (lq.gemm_q8_res_ln_plain(*args, x["res"], x["g"], x["be"])[0]
+                if ln else lq.gemm_q8_bias_plain(*args, relu))
+        for name, lib in libs.items():
+            try:
+                got, again = lib.q8(x, relu, qo), lib.q8(x, relu, qo)
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"q8 {name} {case}: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            same = _equal(got, again)
+            if not ln:
+                passed = _equal(got, [want])
+                what = "bit-identical" if passed else "NOT bit-identical"
+            elif dt == torch.bfloat16:
+                u = _ulps(got[0], want)
+                passed, what = u <= ULPS, f"{u:.2f} ulps"
+            else:
+                top = max(1.0, want.abs().max().item())
+                e = (got[0] - want).abs().max().item() / top
+                passed, what = e <= F32_REL, f"{e:.2e} of max(1, |plain|)"
+            if qo:
+                q, sc = lq._quant_rows(got[0])
+                exact = torch.equal(got[1], q) and torch.equal(got[2],
+                                                               sc[:, 0])
+                passed &= exact
+                what += f", codes {'exact' if exact else 'DIFFER'}"
+            ok[name] &= passed and same
+            print(f"q8 {name} {case}: {what} from the plain twin; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+        del x, want
+        torch.cuda.empty_cache()
+    for name in libs:
+        print(f"q8 {name}: {'passed' if ok[name] else 'FAILED'}", flush=True)
+    return ok
+
+
+def timing_q8(libs: dict) -> None:
+    """Each variant's int8 GEMMs at the 43 products of PAPER_Q8 in bf16, A
+    B .. B A by ``graph_ms``, beside the bound (bytes, or the int8 products
+    at 1,979 TOP/s) and ``torch._int_mm``; and the totals of one
+    forward."""
+    import torch
+
+    names = list(libs)
+    total = dict.fromkeys(names + ["bound", "_int_mm"], 0.0)
+    for label, kern, m, k, n, relu, qo, count in PAPER_Q8:
+        ln = kern == "gemm_q8_res_ln"
+        x = q8_inputs(m, k, n, ln, torch.bfloat16)
+        ms = _abba(names, lambda name: libs[name].q8(x, relu, qo), graph_ms)
+        mm = graph_ms(lambda: torch._int_mm(x["aq"], x["wq"]))
+        nbytes = m * k + 4 * m + n * k + 4 * n + 2 * n + 2 * m * n
+        if ln:
+            nbytes += 2 * m * n + 8 * n + (m * n + 4 * m if qo else 0)
+        bound = max(nbytes / HBM_BPS, 2 * m * k * n / INT8_OPS) * 1e3
+        _line(f"q8 {kern} {label}" + (" quant_out" if qo else ""),
+              f"[{m},{k},{n}]", count, ms, bound, f"_int_mm {mm:.3f}")
+        for name, t in ms.items():
+            total[name] += count * t
+        total["bound"] += count * bound
+        total["_int_mm"] += count * mm
+        del x
+        torch.cuda.empty_cache()
+    print("time of one int8 forward's 43 s8 GEMMs (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+
+
 def sass(libs_paths: dict) -> dict:
     """``{name: {instantiation: its SASS}}`` of each variant's SAME_KERNELS
     (``cuobjdump -sass`` of the library that holds them), the names
@@ -1039,6 +1217,8 @@ def main(argv=None) -> int:
                     help="time the float32 forward GEMMs only")
     ap.add_argument("--f32-bwd", action="store_true",
                     help="time the float32 dX and dW GEMMs only")
+    ap.add_argument("--q8", action="store_true",
+                    help="check and time the int8 GEMMs only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -1052,10 +1232,17 @@ def main(argv=None) -> int:
                          text=True).stdout.strip(), flush=True)
     variants = dict(v.split("=", 1) for v in args.variants)
     t0 = time.perf_counter()
-    built = build(variants, Path(args.out))
+    built = build(variants, Path(args.out),
+                  Q8_PARTS if args.q8 else tuple(SOURCES))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
+    if args.q8:
+        ok = check_q8(libs)
+        if libs and not args.no_time:
+            timing_q8(libs)
+        first = next(iter(libs), None)
+        return 0 if len(libs) == len(variants) and ok.get(first) else 1
     ok, ran, differ = check(libs)
     ok32 = check_f32(libs)
     ok32b = check_f32_bwd(libs)

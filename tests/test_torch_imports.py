@@ -148,6 +148,7 @@ def geometry(dt, hid, heads, pf):
     cq = lq.quantize_cross_params(cp)
     cq = cq._replace(**{f: i8(*getattr(cq, f).shape) for f in cq._fields
                         if f.startswith('w')})
+    ew, cw = lq.pack_wt(eq), lq.pack_wt(cq)  # as pack_params hands them
     n = 2
     stem = (f32(n, 192, 256), f32(65, hid), f32(hid), a(256, hid))
     x, trg, enc = a(n, 256, hid), a(n, 88, hid), a(n, 256, hid)
@@ -168,11 +169,12 @@ def geometry(dt, hid, heads, pf):
         'decoder_layer_train': lambda: lt.decoder_layer_train(
             trg, enc, df, 3, heads, 0.1),
         'encoder_layer_with_stem_q8': lambda: lq.encoder_layer_with_stem_q8(
-            *stem, eq, heads, 128, dt),
-        'encoder_layer_q8': lambda: lq.encoder_layer_q8(x, eq, heads),
+            *stem, eq, heads, 128, dt, wt=ew),
+        'encoder_layer_q8': lambda: lq.encoder_layer_q8(x, eq, heads, wt=ew),
         'decoder_layer_zero_q8': lambda: lq.decoder_layer_zero_q8(
-            trg, enc, cq, heads),
-        'decoder_layer_q8': lambda: lq.decoder_layer_q8(trg, enc, cq, heads),
+            trg, enc, cq, heads, wt=cw),
+        'decoder_layer_q8': lambda: lq.decoder_layer_q8(trg, enc, cq, heads,
+                                                        wt=cw),
         'fused_mha': lambda: att.fused_mha(trg, enc, enc, heads, 0.125),
         'fused_mha_with_probs': lambda: att.fused_mha_with_probs(
             trg, enc, enc, heads, 0.125),
