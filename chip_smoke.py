@@ -19,10 +19,12 @@ non-zero and never prints the last line):
     (``log_mel_kernel`` of ``csrc/log_mel.cu``, on the FP64 tensor cores,
     and ``gemm_bias_ffma_kernel`` of ``csrc/layer_fused_f32.cu``, the stem
     QKV on the CUDA cores) likewise spill nothing, use no stack, and hold
-    UTMALDG and DMMA (K1) or FFMA (the QKV) instructions; the int8 GEMMs of
-    ``csrc/layer_fused_q8.cu`` (``gemm_q8_bias_kernel``,
-    ``gemm_q8_res_ln_kernel``: s8 ``wgmma``, bf16 and f32) spill nothing,
-    use no stack, and hold IGMMA (int8 wgmma) and UTMALDG;
+    UTMALDG and DMMA (K1) or FFMA (the QKV) instructions; the int8 GEMMs and
+    attention of ``csrc/layer_fused_q8.cu`` (``gemm_q8_bias_kernel``,
+    ``gemm_q8_res_ln_kernel``, ``attention_q8_kernel``: s8 ``wgmma``, bf16
+    and f32) spill nothing, use no stack (``gemm_q8_bias_kernel``: 168
+    registers, the setmaxnreg balance), and hold IGMMA (int8 wgmma) and
+    UTMALDG and no IMMA (``mma.sync``);
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio, on a quiet variant of it (see the check) and on 10 s of
     other audio (the card's partial wave), two runs bit-identical; the
@@ -65,7 +67,12 @@ non-zero and never prints the last line):
     batch-32 shapes (the stem's on the real windows) with >= 99.9% of the
     elements within 4 bf16 ulps of its plain q8 version and every element
     within 0.08 of it, and no further from the exact bf16 layer than the
-    plain q8 version + 4 ulps; the int8 forward's
+    plain q8 version + 4 ulps, and bit for bit the same run with its
+    inputs' row codes handed in (``x_codes`` ...), its ``codes_out`` those
+    of ``_quant_rows`` of its output; the profiled int8 forward launches
+    ``quant_rows_kernel`` at most 3 times (every other GEMM input leaves
+    the kernel that makes it as codes) and ``attention_q8_kernel`` once a
+    site; the int8 forward's
     posteriors within 0.06 of the bf16 forward's; ``transcribe --int8
     --list --tab --sheet --save-posteriors --device cuda`` on (d)'s WAV and
     ``evaluate`` of its notes and posteriors, with the launch counts (every
@@ -119,9 +126,11 @@ non-zero and never prints the last line):
     K2-K5's and the plain f32 version's
     distances from a float64 truth (``layer64``); times beside f32
     ``torch.matmul`` of the layer's GEMMs; (n.3) K13 at head_dim 32 in
-    bf16 and f32 (quantizers bit for bit, (k)'s gates, and in f32 each
-    kernel on the plain version's own codes), and K13 in f32 at the paper
-    widths (head_dim 64) under the same gates; (n.4) the engine's
+    bf16 and f32 (quantizers bit for bit, (k)'s gates and codes handed in,
+    and in f32 each kernel on the plain version's own codes), K13 in f32 at
+    the paper widths (head_dim 64) and at hid 96 over 3 heads, pf 160, in
+    bf16 and f32 (every layer but the stem's, whose stem kernel takes hid %
+    64) under the same gates; (n.4) the engine's
     batch-32 f32 forward of ``Config()`` and ``paper_scale()`` against the
     plain f32 forward (A heads within 2e-5, B heads within 2e-4 of max(1,
     max |plain|)), the default int8 forward under (k)'s posterior gates,
@@ -178,12 +187,16 @@ non-zero and never prints the last line):
     launches those of (n.2)'s paper backwards times the model's layers.
 (s) the int8 GEMMs alone (``gemm_q8_bias_kernel``, ``gemm_q8_res_ln_kernel``
     of ``csrc/layer_fused_q8.cu``: s8 ``wgmma`` fed by TMA, the weights
-    K-major) at every product and variant of the paper batch-32 int8
-    forward (23 GEMM + bias with and without ReLU, 20 residual +
-    LayerNorm with and without the output's quantization), the default
-    widths' and a ragged geometry (hid 96, pf 160, M not a multiple of
-    128), in bf16 and f32, on seeded codes and scales: the GEMM + bias bit
-    for bit equal to its plain twin, the LayerNorm one within 4 bf16 ulps
+    K-major) at every product of the paper batch-32 int8 forward in the
+    variant the forward runs it (23 GEMM + bias, with and without ReLU,
+    with the row codes of their column segments: Q and K of the QKV
+    product, K of the cross KV product, the cross Q, the FFN hidden; 20
+    residual + LayerNorm with and without the output's quantization), the
+    default widths' and a ragged geometry (hid 96, pf 160, M not a multiple
+    of 128), in bf16 and f32, on seeded codes and scales: the GEMM + bias
+    bit for bit equal to its plain twin, its codes and scales those of
+    ``_quant_rows`` of each segment of the twin's output, the LayerNorm one
+    within 4 bf16 ulps
     (f32: 2e-5 of max(1, |plain|)) with its output codes and scales those
     of the row quantizer on its own output, two runs bit-identical; per
     product the kernel's time (CUDA graphs of 20 calls, as (r)) beside its
@@ -193,6 +206,21 @@ non-zero and never prints the last line):
     the int8 forward (the run fails unless they are the cases (s) timed);
     the log line beside them quotes PERF.md's times of the ``mma.sync``
     kernels these replaced and of the bf16 GEMMs.
+(t) K13's attention and quantizers alone: ``attention_q8_kernel`` (s8
+    ``wgmma``, a thread-block cluster of the heads of a sequence, the row
+    codes of its output) at the four attention shapes of the paper int8
+    forward, at the paper widths, the default widths (head_dim 32) and hid
+    96 over 3 heads, bf16 and f32: its output (written on request) under
+    (k)'s / (n.3)'s gates against ``attention_q8_plain``, its codes and
+    scales ``_quant_rows`` of its own output bit for bit (and the
+    codes-only run's), its codes >= 99.9% equal to the twin's and all
+    within 1, two runs bit-identical; each time (CUDA graphs) beside its
+    bytes bound and the parent tree's kernel (PERF.md: ``tools/gemm_ab.py
+    --q8``, A B B A); ``quant_rows_kernel`` at the three inputs the forward
+    still gives it and ``quant_cols_kernel`` at the forward's V, bit for
+    bit, timed. The JSON line gets a row for each of K13's five CUDA
+    kernels: the paper int8 forward's launches of it ((k)'s profile),
+    summed times and bounds.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -1147,11 +1175,17 @@ def plain_q8_layers():
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
 
     kept = {n: getattr(lq, n) for n in Q8_SOURCES}
+
+    def plain_layer(plain):
+        # the inputs' codes go unread; codes_out: _quant_rows of the output
+        def run(*a, wt=None, codes_out=False, x_codes=None, trg_codes=None,
+                enc_codes=None):
+            out = plain(*a)
+            return lq._with_codes(out) if codes_out else out
+        return run
     try:
         for n in Q8_SOURCES:
-            plain = getattr(lq, n + "_plain")
-            setattr(lq, n, lambda *a, wt=None, _plain=plain, **kw:
-                    _plain(*a, **kw))
+            setattr(lq, n, plain_layer(getattr(lq, n + "_plain")))
         yield
     finally:
         for n, fn in kept.items():
@@ -1178,15 +1212,51 @@ def int_mm_ms(gemms, dev) -> float:
     return cuda_ms(lambda: [torch._int_mm(a, b) for a, b in ops], iters=5)
 
 
+# K13's CUDA kernels (csrc/layer_fused_q8.cu), each a row of the JSON line
+Q8_KERNELS = ("quant_rows_kernel", "quant_cols_kernel", "gemm_q8_bias_kernel",
+              "gemm_q8_res_ln_kernel", "attention_q8_kernel")
+# the inputs the row quantizer still sees in a forward: the stem's output,
+# the decoder's note queries and the first time layer's input (every other
+# GEMM input leaves the kernel that makes it as codes)
+Q8_ROW_QUANT_MAX = 3
+
+
+def check_codes_handed(name, fn, xs, p8, heads, wt, got) -> None:
+    """An int8 wrapper run with its inputs' row codes handed in (from the
+    row quantizer) and ``codes_out``: its output bit for bit ``got``, the
+    same wrapper quantizing its own inputs, and its output codes and
+    scales those of ``_quant_rows`` of its output, bit for bit."""
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+
+    kw = {}
+    if "stem" not in name:  # the stem layer quantizes the stem's output
+        keys = (("x_codes",) if name.startswith("encoder")
+                else ("trg_codes", "enc_codes"))
+        kw = {key: lq.quant_rows_cuda(t.reshape(-1, t.shape[-1]))
+              for key, t in zip(keys, xs)}
+    out, q, sc = fn(*xs, p8, heads, wt=wt, codes_out=True, **kw)
+    oq, os_ = lq._quant_rows(out)
+    if not (torch.equal(out, got) and torch.equal(q, oq.reshape(q.shape))
+            and torch.equal(sc, os_.reshape(-1))):
+        raise AssertionError(
+            f"{name}: with its inputs' codes handed in, output "
+            f"{'equal' if torch.equal(out, got) else 'DIFFERS'} from the run "
+            f"quantizing its own; output codes "
+            f"{'equal' if torch.equal(q, oq.reshape(q.shape)) else 'DIFFER'}"
+            f" from _quant_rows of the output")
+
+
 def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
-               ) -> tuple[dict, dict]:
+               ) -> tuple[dict, dict, dict]:
     """(k): K13, the int8 (W8A8) layers: the quantizers on the card bit for
     bit; each wrapper against its plain q8 version and the exact bf16
     layer; the int8 forward against the bf16 forward; ``transcribe --int8
     --list --tab --sheet --save-posteriors`` and ``evaluate`` through the
     CLI with the launch counts; times, a profile and the ``torch._int_mm``
-    yardstick. Returns (launch counts of the CLI run, results, the
-    profiled int8 forward's launches of each s8 GEMM kernel)."""
+    yardstick. Each wrapper also runs with its inputs' codes handed in and
+    ``codes_out`` (check_codes_handed). Returns (launch counts of the CLI
+    run, results, the profiled int8 forward's (ms, launches) of each of
+    K13's CUDA kernels)."""
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.lists import CorpusList
     from nylon_amt_tpu_torch.infer import engine
@@ -1204,20 +1274,18 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     # (1) the quantizers, bit for bit, at the layer's shapes: rows of the
-    # layer input, of the packed QKV (Q and K segments in one call) and of
-    # the FFN hidden; V's columns over each 256-key sequence
+    # layer input, of a row-strided segment (the fallback of the GEMMs'
+    # codes epilogue) and of an FFN-wide row; V's columns over each
+    # 256-key sequence
     x = act(BATCH * n_frame * 256, 3 * hid)
-    rows = {"input": (x[:, :hid], 1), "Q/K of QKV": (x[:, :2 * hid], 2),
-            "FFN hidden": (x[:, :pf], 1)}
-    for what, (t, n_seg) in rows.items():
-        q, s = lq.quant_rows_cuda(t, n_seg)
-        for j, seg in enumerate(t.split(t.shape[1] // n_seg, dim=1)):
-            pq, ps = lq._quant_rows(seg)
-            width = seg.shape[1]
-            if not (torch.equal(q[:, j * width:(j + 1) * width], pq)
-                    and torch.equal(s[j], ps[:, 0])):
-                raise AssertionError(f"K13 row quantizer ({what}, segment "
-                                     f"{j}) differs from the plain version")
+    rows = {"input": x[:, :hid], "strided segment": x[:, hid:2 * hid],
+            "FFN-wide": x[:, :pf]}
+    for what, t in rows.items():
+        q, s = lq.quant_rows_cuda(t)
+        pq, ps = lq._quant_rows(t)
+        if not (torch.equal(q, pq) and torch.equal(s, ps[:, 0])):
+            raise AssertionError(f"K13 row quantizer ({what}) differs from "
+                                 f"the plain version")
     v = x[:, 2 * hid:]
     vt, sv = lq.quant_cols_cuda(v, BATCH * n_frame)
     pv, psv = lq._quant_cols(v.reshape(BATCH * n_frame, 256, hid))
@@ -1227,7 +1295,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
                              "version")
     q_ms = cuda_ms(lambda: lq.quant_rows_cuda(x[:, :hid]), iters=10)
     log(f"(k) K13 quantizers bit-identical to the plain versions: rows "
-        f"[{x.shape[0]}, {hid}] / Q,K [{x.shape[0]}, 2 x {hid}] / "
+        f"[{x.shape[0]}, {hid}] (contiguous and row-strided) / "
         f"[{x.shape[0]}, {pf}], V columns of {BATCH * n_frame} sequences; "
         f"row quantizer {q_ms:.3f} ms at [{x.shape[0]}, {hid}]")
     del x, v, q, s, pq, ps, vt, sv, pv, psv
@@ -1297,6 +1365,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         torch.cuda.synchronize()
         if not torch.isfinite(got.float()).all():
             raise AssertionError(f"{name}: non-finite output")
+        check_codes_handed(name, fn, xs, p8, heads, wt[name], got)
         d = (got.float() - want.float()).abs()
         ulp = bf16_ulp(want)
         share = (d <= ULPS * ulp).float().mean().item()
@@ -1386,9 +1455,19 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         f"({audio_s / ms16 * 1e3:.1f} audio-s/s); card {card}")
     rows = profile_forward(lambda: engine.forward(packed8, spec, cfg),
                            phase="k", what="int8 forward", top=14)
-    gemm_launches = {k.removesuffix("_kernel"): sum(
-        c for name, _, c in rows if f"::{k}<" in name)
-        for k in Q8_GEMM_KERNELS}
+    k13 = {k: (sum(ms for name, ms, _ in rows if f"::{k}<" in name),
+               sum(c for name, _, c in rows if f"::{k}<" in name))
+           for k in Q8_KERNELS}
+    want_attn = m.enc_layer + 2 * m.dec_layer - 1 + m.dec_layer
+    if k13["quant_rows_kernel"][1] > Q8_ROW_QUANT_MAX \
+            or k13["attention_q8_kernel"][1] != want_attn:
+        raise AssertionError(f"(k) the int8 forward's K13 launches {k13}: "
+                             f"quant_rows_kernel at most {Q8_ROW_QUANT_MAX}, "
+                             f"attention_q8_kernel {want_attn}")
+    log(f"(k) K13's kernels in the profiled int8 forward: " + ", ".join(
+        f"{k} {ms:.3f} ms x{c}" for k, (ms, c) in k13.items())
+        + f"; every wrapper bit-identical with its inputs' codes handed in; "
+        f"card {card}")
 
     # (4) transcribe --int8 --list ... and evaluate, through the CLI
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1457,7 +1536,7 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         f"{wall:.2f} s wall; launches {ran} ({n_batches} batches of "
         f"{BATCH}; bf16 K2-K5 0); evaluate: note F {f_note:.4f}, MPE "
         f"posterior F {f_mpe:.4f} (random weights)")
-    return counts, results, gemm_launches
+    return counts, results, k13
 
 
 # (l) the per-site attention -------------------------------------------------
@@ -2634,12 +2713,16 @@ def check_train_layers_f32(model, cfg, spec, dev, names,
     return results
 
 
-def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
+def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "",
+                   with_stem: bool = True) -> dict:
     """(n.3): K13 at head_dim 32 (the default widths), in bf16 and in f32:
     the quantizers bit for bit; each wrapper at the batch-32 shapes against
     its plain q8 version and the exact layer, under (k)'s gates (bf16) or
-    their f32 analogue (Q8_F32_REL, Q8_F32_EXACT). ``model16`` None: f32
+    their f32 analogue (Q8_F32_REL, Q8_F32_EXACT), and bit for bit with its
+    inputs' codes handed in (check_codes_handed). ``model16`` None: f32
     only (the paper widths, head_dim 64; ``tag`` "/paper" on the keys).
+    ``with_stem`` False: no stem layer (K2's stem kernel takes hid % 64
+    only).
     Returns the f32 and bf16 times."""
     from nylon_amt_tpu_torch.infer import engine
     from nylon_amt_tpu_torch.ops import layer_fused as lf
@@ -2663,16 +2746,13 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
             return torch.randn(shape, generator=g, device=dev).to(dt)
 
         x = act(n_f * 256, 3 * hid)
-        for t, n_seg in ((x[:, :hid], 1), (x[:, :2 * hid], 2),
-                         (x[:, :pf], 1)):
-            q, s = lq.quant_rows_cuda(t, n_seg)
-            for j, seg in enumerate(t.split(t.shape[1] // n_seg, dim=1)):
-                pq, ps = lq._quant_rows(seg)
-                w = seg.shape[1]
-                if not (torch.equal(q[:, j * w:(j + 1) * w], pq)
-                        and torch.equal(s[j], ps[:, 0])):
-                    raise AssertionError(f"(n) {label} row quantizer at "
-                                         f"width {w} differs")
+        for t in (x[:, :hid], x[:, hid:2 * hid], x[:, :pf]):
+            q, s = lq.quant_rows_cuda(t)
+            pq, ps = lq._quant_rows(t)
+            if not (torch.equal(q, pq) and torch.equal(s, ps[:, 0])):
+                raise AssertionError(f"(n) {label} row quantizer at width "
+                                     f"{t.shape[1]} (row stride "
+                                     f"{t.stride(0)}) differs")
         v = x[:, 2 * hid:]
         vt, sv = lq.quant_cols_cuda(v, n_f)
         pv, psv = lq._quant_cols(v.reshape(n_f, 256, hid))
@@ -2705,7 +2785,9 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
                 stem(lq.encoder_layer_with_stem_q8),
                 stem(lq.encoder_layer_with_stem_q8_plain),
                 stem(lf.encoder_layer_with_stem), (spec_t,), packed8.enc[0],
-                packed.enc[0], m.enc_head, ("enc", n_f, 256, 256)),
+                packed.enc[0], m.enc_head, ("enc", n_f, 256, 256))} \
+            if with_stem else {}
+        checks |= {
             "encoder_layer_q8": (
                 lq.encoder_layer_q8, lq.encoder_layer_q8_plain,
                 lf.encoder_layer, (act(n_f, 256, hid),), packed8.enc[1],
@@ -2736,6 +2818,7 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
             if got.dtype != dt or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"(n) {label} {name}: {got.dtype}, or "
                                      f"not finite")
+            check_codes_handed(name, fn, xs, p8, heads, wt[name], got)
             d = (got.float() - want.float()).abs()
             tol = ULPS * bf16_ulp(want)
             extra = (ULPS * bf16_ulp(ref) if dt == torch.bfloat16
@@ -2781,8 +2864,9 @@ def check_int8_d32(model16, model32, cfg, spec, dev, tag: str = "") -> dict:
         if dt == torch.float32:
             line.insert(0, check_q8_kernels_f32(packed8, hid, m.enc_head,
                                                 pf, dev, g))
-        log(f"(n.3) K13 {label} at head_dim {hid // m.enc_head} (quantizers "
-            f"bit-identical): " + "; ".join(line))
+        log(f"(n.3) K13 {label} at hid {hid} over {m.enc_head} heads "
+            f"(quantizers bit-identical, every wrapper with its inputs' "
+            f"codes handed in bit-identical): " + "; ".join(line))
         del packed, packed8
         torch.cuda.empty_cache()
     return results
@@ -2843,7 +2927,12 @@ def check_q8_kernels_f32(packed8, hid: int, heads: int, pf: int, dev,
     qq, _, sq = codes(q.reshape(-1, hid))
     kq, _, sk = codes(k.reshape(-1, hid))
     vt, sv = lq.quant_cols_cuda(v.reshape(-1, hid), n)
-    got = lq._attention_q8(qq, sq, kq, sk, vt, sv, n, heads, f32)
+    got, codes, scales = lq._attention_q8(qq, sq, kq, sk, vt, sv, n, heads,
+                                          f32, t_out=True)
+    oq, os_ = lq._quant_rows(got)
+    if not (torch.equal(codes, oq) and torch.equal(scales, os_[:, 0])):
+        raise AssertionError("(n) f32 K13 attention: its codes or scales "
+                             "differ from _quant_rows of its own output")
     with full_f32():
         want = lq._mha_block_q8(q, k, v, heads, _scale(hid, heads))
     d = (got.reshape(want.shape) - want).abs()
@@ -3181,6 +3270,20 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     del model16
     # and in f32 at the paper widths (head_dim 64)
     times.update(check_int8_d32(None, paper32, paper, spec, dev, "/paper"))
+    # and hid 96 over 3 heads of 32, pf 160 (V's quantizer's ragged column
+    # block; Q and K of the QKV product inside one 192-column tile), bf16
+    # and f32, but for the stem layer (K2's stem kernel takes hid % 64)
+    cfg96 = dataclasses.replace(cfg, model=dataclasses.replace(
+        m, hid_dim=96, pf_dim=160, enc_head=3, dec_head=3))
+    gen = torch.Generator().manual_seed(SEED + 21)
+    m96 = reference_initialize(HFT(cfg96, dev), gen).eval()
+    m96_16 = HFT(dataclasses.replace(cfg96, model=dataclasses.replace(
+        cfg96.model, compute_dtype="bfloat16")), dev)
+    m96_16.load_state_dict(m96.state_dict())
+    m96_16.eval()
+    times.update(check_int8_d32(m96_16, m96, cfg96, spec, dev, "/hid96",
+                                with_stem=False))
+    del m96, m96_16
 
     # (n.4) the engine's f32 forwards
     fwd = check_forward_f32(cfg, model32, spec, dev, card, "default Config()",
@@ -3883,6 +3986,11 @@ def check_bwd_gemms_f32(dev, card: str) -> dict:
 # csrc/layer_fused_q8.cu's s8 GEMMs (wgmma .s32.s8.s8 fed by TMA): their
 # SASS must hold IGMMA (int8 wgmma) and UTMALDG (TMA load)
 Q8_GEMM_KERNELS = ("gemm_q8_bias_kernel", "gemm_q8_res_ln_kernel")
+# and the int8 attention (its products on wgmma too: IGMMA and UTMALDG, and
+# no mma.sync, IMMA, left in its SASS); gemm_q8_bias_kernel hands its
+# producer warpgroup's registers to its consumers (setmaxnreg), which holds
+# only if ptxas gives it 168
+Q8_WGMMA_KERNELS = Q8_GEMM_KERNELS + ("attention_q8_kernel",)
 # The mma.sync s8 GEMMs that these replaced, summed over the 43 launches of
 # the paper batch-32 int8 forward, and the bf16 wgmma GEMMs of the same 43
 # products (ms; (k)'s and (o)'s profiles of the parent tree, NVIDIA H100
@@ -3892,8 +4000,7 @@ Q8_GEMM_BEFORE_MS, BF16_GEMM_MS = 51.771, 17.494
 # decoder and time layers): the paper batch-32 int8 forward, the default
 # widths' and a ragged geometry (hid 96, pf 160: K 96 and 160 not multiples
 # of the 128-deep stage, N 288 over two tiles, N 96 under one, neither row
-# count a multiple of 128). The GEMMs take hid 96; the int8 layers do not
-# (check_geometry: V's column quantizer takes hid % 64)
+# count a multiple of 128)
 Q8_GEMM_GEOMETRIES = (
     ("paper b32", BATCH * 128 * 256, BATCH * 128 * 88, 256, 512, 3, 3, 3),
     ("default b32", BATCH * 128 * 256, BATCH * 128 * 88, 64, 128, 2, 2, 2),
@@ -3903,19 +4010,24 @@ Q8_GEMM_GEOMETRIES = (
 
 def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
     """(s): gemm_q8_bias_kernel and gemm_q8_res_ln_kernel alone, at every
-    product and variant (``gemm_ab.q8_products``: ReLU, quant_out) of
-    ``geometries`` in bf16 and f32, on the codes and
-    scales of seeded activations and weights (the plain quantizers'), the
-    weights handed K-major as ``pack_wt`` packs them: gemm_q8_bias bit for
-    bit equal to ``gemm_q8_bias_plain``; gemm_q8_res_ln within ULPS bf16
-    ulps of ``gemm_q8_res_ln_plain`` (bf16) or F32_OUT_REL of max(1,
+    product of ``geometries`` in the variant the int8 forward runs it
+    (``gemm_ab.q8_products``: ReLU, the GEMM + bias's row codes of its
+    column segments, quant_out) in bf16 and f32, on the codes and scales
+    of seeded activations and weights (the plain quantizers'), the weights
+    handed K-major as ``pack_wt`` packs them: gemm_q8_bias bit for bit
+    equal to ``gemm_q8_bias_plain``, its codes and scales (Q and K of the
+    QKV product, K of the cross KV product, the cross Q, the FFN hidden
+    after ReLU) those of ``_quant_rows`` of each segment of its output
+    (``gemm_q8_bias_codes_plain``), bit for bit; gemm_q8_res_ln within ULPS
+    bf16 ulps of ``gemm_q8_res_ln_plain`` (bf16) or F32_OUT_REL of max(1,
     |plain|) (f32), its output codes and scales those of ``_quant_rows`` of
     its own output, bit for bit; two runs bit-identical. Per product the
     kernel's time (a CUDA graph of 20 calls, ``gemm_ab.graph_ms``), its
     bound (bytes, or the int8 products at 1,979 TOP/s), the exact kernel of
     the same product in the same dtype (bf16 wgmma, or f32 3xTF32 wgmma
-    with its TF32 pair) and ``torch._int_mm`` (s8 x s8 -> s32), which the
-    port never calls. Returns the paper batch-32 bf16 forward's sums."""
+    with its TF32 pair), ``torch._int_mm`` (s8 x s8 -> s32), which the
+    port never calls, and (paper bf16) the plain twin. Returns the paper
+    batch-32 bf16 forward's sums."""
     from nylon_amt_tpu_torch.ops import layer_fused as lf
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
     from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms, q8_products
@@ -3927,11 +4039,13 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
         return torch.randn(shape, generator=g, device=dev)
 
     totals, summary = {}, {}
+    biggest = {}  # the product with the largest bound: what bounds the sum
     for geo, mf, mq, hid, pf, n_enc, n_dec, n_time in geometries:
         for dt in (torch.bfloat16, torch.float32):
             label_dt = "bf16" if dt == torch.bfloat16 else "f32"
+            timed_plain = geo == "paper b32" and label_dt == "bf16"
             for case in q8_products(mf, mq, hid, pf, n_enc, n_dec, n_time):
-                label, kern, m, k, n, relu, quant_out, count = case
+                label, kern, m, k, n, relu, var, count = case
                 ln = kern == "gemm_q8_res_ln"
                 x = r(m, k).to(dt)
                 w = (r(k, n) / math.sqrt(k)).to(dt)
@@ -3945,47 +4059,83 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
                 if ln:
                     def run():
                         return lq._gemm_q8_res_ln(aq, sa, wq, sw, bias, res,
-                                                  gam, bet, quant_out, wt=wt)
-                    want = lq.gemm_q8_res_ln_plain(aq, sa, wq, sw, bias, res,
-                                                   gam, bet, quant_out)[0]
+                                                  gam, bet, bool(var), wt=wt)
+
+                    def plain():
+                        return lq.gemm_q8_res_ln_plain(
+                            aq, sa, wq, sw, bias, res, gam, bet, bool(var))
+                elif var:
+                    def run():
+                        return lq._gemm_q8(aq, sa, wq, sw, bias, relu, wt=wt,
+                                           seg=var[0], n_seg=var[1],
+                                           t_out=bool(var[2]))
+
+                    def plain():
+                        return lq.gemm_q8_bias_codes_plain(
+                            aq, sa, wq, sw, bias, relu, var[0], var[1])
                 else:
                     def run():
                         return (lq._gemm_q8(aq, sa, wq, sw, bias, relu,
                                             wt=wt),)
-                    want = lq.gemm_q8_bias_plain(aq, sa, wq, sw, bias, relu)
+
+                    def plain():
+                        return (lq.gemm_q8_bias_plain(aq, sa, wq, sw, bias,
+                                                      relu),)
+                want = plain()
                 got, again = run(), run()
                 torch.cuda.synchronize()
                 bits = torch.int16 if dt == torch.bfloat16 else torch.int32
                 what = f"{kern} {label_dt} {geo} {label} [{m},{k},{n}]"
-                if not all(torch.equal(a_.view(bits) if a_.is_floating_point()
-                                       else a_, b_.view(bits)
-                                       if b_.is_floating_point() else b_)
-                           for a_, b_ in zip(got, again) if a_ is not None):
+                nc = var[0] * var[1] if var and not ln else 0
+
+                def written(t, first):  # a codes run writes no T code columns
+                    t = t[:, nc:] if first else t
+                    return t.view(bits) if t.is_floating_point() else t
+                if not all(torch.equal(written(a_, i == 0),
+                                       written(b_, i == 0))
+                           for i, (a_, b_) in enumerate(zip(got, again))
+                           if a_ is not None):
                     raise AssertionError(f"(s) {what}: two runs differ")
                 out = got[0]
-                if not torch.isfinite(out.float()).all():
+                if out is not None and not torch.isfinite(
+                        out[:, nc:].float()).all():
                     raise AssertionError(f"(s) {what}: non-finite output")
                 if not ln:
-                    if not torch.equal(out.view(bits), want.view(bits)):
-                        d = (out.float() - want.float()).abs()
+                    if out is not None and not torch.equal(
+                            out[:, nc:].view(bits), want[0][:, nc:].view(bits)):
+                        d = (out[:, nc:].float()
+                             - want[0][:, nc:].float()).abs()
                         raise AssertionError(
                             f"(s) {what}: not bit-identical to "
                             f"gemm_q8_bias_plain ({int((d > 0).sum())} "
                             f"elements differ, max {d.max().item():.3e})")
                     err, gate = 0.0, "bit-identical to the plain twin"
+                    if var:
+                        if not (torch.equal(got[1], want[1])
+                                and torch.equal(got[2], want[2])):
+                            raise AssertionError(
+                                f"(s) {what}: the codes or scales of its "
+                                f"{var[1]} segment(s) of {var[0]} columns "
+                                f"differ from _quant_rows of the plain "
+                                f"twin's")
+                        gate = (f"{var[1]} segment(s) of {var[0]} columns' "
+                                f"codes and scales bit-identical to "
+                                f"_quant_rows of the plain twin's output"
+                                + (", the other columns' T too"
+                                   if out is not None else " (codes only)"))
                 else:
                     if dt == torch.bfloat16:
-                        err, ulps = ulp_distance(out, want)
+                        err, ulps = ulp_distance(out, want[0])
                         ok, gate = ulps <= ULPS, (f"{ulps:.2f} ulps from the "
                                                   f"plain twin")
                     else:
-                        err = rel_err(out, want, 1.0)
+                        err = rel_err(out, want[0], 1.0)
                         ok, gate = err <= F32_OUT_REL, (
                             f"{err:.2e} of max(1, |plain|)")
                     if not ok:
                         raise AssertionError(f"(s) {what}: {gate} (limit "
                                              f"{ULPS} ulps / {F32_OUT_REL})")
-                    if quant_out:
+                    if var:
                         oq, os_ = lq._quant_rows(out)
                         if not (torch.equal(got[1], oq)
                                 and torch.equal(got[2], os_[:, 0])):
@@ -3994,6 +4144,7 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
                                 f"from _quant_rows of its own output")
                         gate += ", codes and scales exact"
                         del oq, os_
+                held(kern + "_kernel", dt)
                 del got, again, want, out
                 # the same product on the exact kernel of dt, and _int_mm
                 pair = lf.tf32_pair(w) if dt == torch.float32 else None
@@ -4006,20 +4157,27 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
                         return lf._gemm(x, w, bias, relu, pair=pair)
                 ms = graph_ms(run)
                 exact_ms = graph_ms(exact)
+                plain_ms = cuda_ms(plain, iters=3) if timed_plain else 0.0
                 try:
                     lib_ms = graph_ms(lambda: torch._int_mm(aq, wq))
                 except RuntimeError:  # cuBLASLt: no int8 GEMM of this K
                     lib_ms = None
                 size = 2 if dt == torch.bfloat16 else 4
+                out_bytes = size * m * n
+                if not ln and var:  # the segments as codes + scales
+                    nc = var[0] * var[1]
+                    out_bytes = (m * nc + 4 * var[1] * m
+                                 + size * m * (n - nc) * var[2])
                 nbytes_ = (m * k + 4 * m + n * k + 4 * n + size * n
-                           + size * m * n)
+                           + out_bytes)
                 if ln:
                     nbytes_ += size * m * n + 8 * n
-                    if quant_out:
+                    if var:
                         nbytes_ += m * n + 4 * m
                 bd = bound(nbytes_, int8_ops=2 * m * k * n)
-                variant = ("relu " if relu else "") + \
-                    ("quant_out " if quant_out else "")
+                variant = ("relu " if relu else "") + (
+                    ("quant_out " if var else "") if ln else
+                    (f"codes {var} " if var else ""))
                 log(f"(s) {what} {variant}x{count}: {gate}; bit-identical "
                     f"reruns; kernel {ms:.3f} ms, bound "
                     f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
@@ -4027,25 +4185,33 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
                     f"TB/s; {label_dt} kernel {exact_ms:.3f} ms, "
                     f"torch._int_mm "
                     + ("not supported" if lib_ms is None
-                       else f"{lib_ms:.3f} ms"))
+                       else f"{lib_ms:.3f} ms")
+                    + (f", plain twin {plain_ms:.3f} ms" if timed_plain
+                       else ""))
+                top = biggest.get((geo, label_dt, kern), (0.0, ""))
+                if count * bd["bound_ms"] > top[0]:
+                    biggest[geo, label_dt, kern] = (count * bd["bound_ms"],
+                                                    bd["bound_by"])
                 tot = totals.setdefault((geo, label_dt, kern),
-                                        [0, 0.0, 0.0, 0.0, 0.0, 0.0])
+                                        [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
                 for i, v in enumerate((1, ms, bd["bound_ms"], exact_ms,
-                                       lib_ms, err)):
+                                       lib_ms, err, plain_ms)):
                     if i == 5:
                         tot[i] = max(tot[i], v)
                     elif tot[i] is not None:  # _int_mm: None if one is
                         tot[i] = None if v is None else tot[i] + count * v
                 del x, w, aq, sa, wq, sw, wt, bias, res, pair
                 torch.cuda.empty_cache()
-    for (geo, label_dt, kern), (c, ms, bd, ex, lib, err) in totals.items():
+    for (geo, label_dt, kern), (c, ms, bd, ex, lib, err, pl) in \
+            totals.items():
         log(f"(s) {geo} {label_dt}: the forward's {c} {kern} launches "
             f"{ms:.3f} ms, bound {bd:.3f} ms ({bd / ms:.1%}), the "
             f"{label_dt} kernels of the same products {ex:.3f} ms, "
             f"torch._int_mm "
             + ("not supported" if lib is None else f"{lib:.3f} ms"))
         if geo == "paper b32" and label_dt == "bf16":
-            summary[kern] = dict(launches=c, ms=ms, bound_ms=bd,
+            summary[kern] = dict(launches=c, ms=ms, plain_ms=pl, bound_ms=bd,
+                                 bound_by=biggest[geo, label_dt, kern][1],
                                  bf16_kernel_ms=ex, library_ms=lib,
                                  max_abs_err=err)
     if summary:
@@ -4062,6 +4228,191 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
             f"torch._int_mm {lib:.3f} ms")
     log(f"(s) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
     return summary
+
+
+# (t) K13's attention and quantizers alone ----------------------------------
+
+# The attention kernel of the parent tree (mma.sync, its output in T for
+# the row quantizer to read back) at the paper int8 forward's four
+# attention shapes (gemm_ab.Q8_ATTENTION), bf16 (ms; tools/gemm_ab.py --q8,
+# A B B A against it: PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
+Q8_ATTN_BEFORE_MS = {"freq self": 1.856, "time self": 0.449,
+                     "decoder self": 0.495, "cross": 0.801}
+# (label, hid, heads) of the widths (t) holds the attention at: the paper's
+# (head_dim 64), the default model's and hid 96 over 3 heads (head_dim 32)
+Q8_ATTN_WIDTHS = (("paper", 256, 4), ("default", 64, 2), ("hid 96", 96, 3))
+# the FP32 operations of the softmax a score: the dequantizing products,
+# s - m, the sum l, the P code's product (exp2 on the special-function
+# units aside)
+ATTN_SOFTMAX_FLOPS = 5
+
+
+def check_k13_kernels(dev, card: str) -> dict:
+    """(t): attention_q8_kernel alone at the four attention shapes of the
+    paper int8 forward (``gemm_ab.Q8_ATTENTION``) at the paper widths, the
+    default widths (head_dim 32) and hid 96 over 3 heads, in bf16 and f32,
+    on the codes of seeded activations: its output in T (asked for here;
+    the forward writes only the codes) under (k)'s attention gates (bf16:
+    >= Q8_SHARE of the elements within ULPS bf16 ulps of
+    ``attention_q8_plain``, all within Q8_BUDGET; f32: >= Q8_SHARE within
+    Q8_F32_REL of max |plain|); its codes and scales those of
+    ``_quant_rows`` of its own output, bit for bit, and those of the run
+    that writes the codes only; its codes against the plain twin's: >=
+    Q8_SHARE equal, all within 1; two runs bit-identical. Per shape the
+    time (a CUDA graph of 20 calls) beside the bytes bound and the parent
+    tree's kernel (Q8_ATTN_BEFORE_MS). Then quant_rows_kernel at the three
+    inputs the forward still quantizes with it and quant_cols_kernel at
+    the forward's V, bit for bit equal to their plain versions, timed.
+    Returns the JSON rows' numbers of the three kernels: the paper batch-32
+    bf16 forward's launches of each summed."""
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+    from nylon_amt_tpu_torch.ops.layer_fused import _scale
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+    from nylon_amt_tpu_torch.tools.gemm_ab import (Q8_ATTENTION,
+                                                   attention_q8_bytes,
+                                                   graph_ms)
+
+    t_phase = time.perf_counter()
+    sums = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                    library_ms=None) for k in Q8_KERNELS
+            if k.startswith(("attention", "quant"))}
+    before = 0.0
+    for width, hid, heads in Q8_ATTN_WIDTHS:
+        for dt in (torch.bfloat16, torch.float32):
+            label_dt = "bf16" if dt == torch.bfloat16 else "f32"
+            paper = width == "paper" and dt == torch.bfloat16
+            for label, n, lq_, lk, count in Q8_ATTENTION:
+                g = torch.Generator(device=dev).manual_seed(SEED + 23 + lk)
+                q, k, v = (torch.randn((n, ln, hid), generator=g,
+                                       device=dev).to(dt)
+                           for ln in (lq_, lk, lk))
+                qq, sq = lq._quant_rows(q)
+                kq, sk = lq._quant_rows(k)
+                vq, sv = lq._quant_cols(v)
+                vt, svt = lq.quant_cols_cuda(v.reshape(-1, hid), n)
+                args = (qq.reshape(-1, hid), sq.reshape(-1).contiguous(),
+                        kq.reshape(-1, hid), sk.reshape(-1).contiguous(), vt,
+                        svt, n, heads, dt)
+                out, codes, scales = lq._attention_q8(*args, t_out=True)
+                again = lq._attention_q8(*args, t_out=True)
+                _, codes_only, scales_only = lq._attention_q8(*args)
+
+                def plain():
+                    with full_f32():
+                        return lq.attention_q8_plain(
+                            qq, sq, kq, sk, vq, sv, heads, _scale(hid, heads),
+                            dt)
+                pout, pc, ps = plain()
+                torch.cuda.synchronize()
+                what = (f"(t) attention_q8 {width} {label_dt} {label} "
+                        f"[{n}, {lq_}, {lk}] hid {hid}/{heads}")
+                pout, pc = pout.reshape(-1, hid), pc.reshape(-1, hid)
+                if not (torch.equal(out, again[0])
+                        and torch.equal(codes, again[1])
+                        and torch.equal(scales, again[2])):
+                    raise AssertionError(f"{what}: two runs differ")
+                oq, os_ = lq._quant_rows(out)
+                if not (torch.equal(codes, oq) and torch.equal(scales, os_[:, 0])
+                        and torch.equal(codes_only, codes)
+                        and torch.equal(scales_only, scales)):
+                    raise AssertionError(
+                        f"{what}: its codes or scales differ from "
+                        f"_quant_rows of its own output, or from the "
+                        f"codes-only run's")
+                d = (out.float() - pout.float()).abs()
+                tol = (ULPS * bf16_ulp(pout) if dt == torch.bfloat16
+                       else Q8_F32_REL * pout.float().abs().max().item())
+                share = (d <= tol).float().mean().item()
+                err = d.max().item()
+                cd = (codes.int() - pc.int()).abs()
+                same = (cd == 0).float().mean().item()
+                if not (share >= Q8_SHARE and err <= Q8_BUDGET
+                        and same >= Q8_SHARE and cd.max().item() <= 1):
+                    raise AssertionError(
+                        f"{what}: {share:.6f} of the output within {tol:.2e} "
+                        f"of attention_q8_plain (>= {Q8_SHARE}), max "
+                        f"{err:.3e} (<= {Q8_BUDGET}); codes equal to the "
+                        f"twin's {same:.6f} (>= {Q8_SHARE}), max difference "
+                        f"{cd.max().item()} (<= 1)")
+                del d, cd, oq, os_, again, out, pout, pc, ps
+                ms = graph_ms(lambda: lq._attention_q8(*args))
+                bd = bound(attention_q8_bytes(n, lq_, lk, hid),
+                           int8_ops=4 * n * lq_ * lk * hid,
+                           f32_flops=ATTN_SOFTMAX_FLOPS * n * heads * lq_ * lk)
+                old = Q8_ATTN_BEFORE_MS[label] if paper else math.nan
+                log(f"{what}: output {share:.6f} within {tol:.2e} of the "
+                    f"plain twin, max {err:.3e}; codes = _quant_rows of its "
+                    f"output, bit for bit, {same:.6f} equal to the twin's "
+                    f"(all within 1); bit-identical reruns; {ms:.3f} ms, "
+                    f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}, "
+                    f"{bd['bound_ms'] / ms:.1%})"
+                    + (f", the parent tree's kernel {old:.3f} ms (PERF.md)"
+                       if paper else "") + f" x{count}")
+                held("attention_q8_kernel", dt, hid // heads)
+                if paper:
+                    row = sums["attention_q8_kernel"]
+                    row["ms"] += count * ms
+                    row["plain_ms"] += count * cuda_ms(plain, iters=2)
+                    row["bound_ms"] += count * bd["bound_ms"]
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    row["bound_by"] = bd["bound_by"]
+                    before += count * old
+                del q, k, v, qq, sq, kq, sk, vq, sv, vt, svt, args
+                torch.cuda.empty_cache()
+    row = sums["attention_q8_kernel"]
+    log(f"(t) the paper int8 forward's 11 attention launches (bf16): "
+        f"{row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_ms'] / row['ms']:.1%}), the parent tree's kernel "
+        f"{before:.3f} ms (PERF.md), the plain twin {row['plain_ms']:.3f} ms")
+
+    # the row quantizer at the inputs the forward still gives it (the
+    # stem's output, the note queries, the first time layer's input) and
+    # V's quantizer at the forward's V (a column slice of the QKV / KV
+    # output), paper widths, bf16
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    hid = 256
+    rows_in = (BATCH * 128 * 256, BATCH * 128 * 88, BATCH * 88 * 128)
+    for m_ in rows_in:
+        x = torch.randn((m_, hid), generator=g, device=dev).to(torch.bfloat16)
+        q, sc = lq.quant_rows_cuda(x)
+        pq, ps = lq._quant_rows(x)
+        if not (torch.equal(q, pq) and torch.equal(sc, ps[:, 0])):
+            raise AssertionError(f"(t) quant_rows [{m_}, {hid}] differs")
+        row = sums["quant_rows_kernel"]
+        row["ms"] += graph_ms(lambda: lq.quant_rows_cuda(x))
+        row["plain_ms"] += cuda_ms(lambda: lq._quant_rows(x), iters=3)
+        bd = bound(m_ * hid * 3 + 4 * m_)
+        row["bound_ms"] += bd["bound_ms"]
+        row["bound_by"] = bd["bound_by"]
+        del x, q, sc, pq, ps
+    for label, n, _, lk, count in Q8_ATTENTION:
+        width = 3 if label.endswith("self") else 2  # QKV or KV
+        x = torch.randn((n * lk, width * hid), generator=g, device=dev).to(
+            torch.bfloat16)
+        v = x[:, (width - 1) * hid:]
+        vt, sv = lq.quant_cols_cuda(v, n)
+        pv, psv = lq._quant_cols(v.reshape(n, lk, hid))
+        if not (torch.equal(vt[:, :, :lk].transpose(1, 2), pv)
+                and torch.equal(sv, psv[:, 0])):
+            raise AssertionError(f"(t) quant_cols of {label} differs")
+        row = sums["quant_cols_kernel"]
+        row["ms"] += count * graph_ms(lambda: lq.quant_cols_cuda(v, n))
+        row["plain_ms"] += count * cuda_ms(
+            lambda: lq._quant_cols(v.reshape(n, lk, hid)), iters=3)
+        bd = bound(n * lk * hid * 2 + n * hid * vt.shape[2] + 4 * n * hid)
+        row["bound_ms"] += count * bd["bound_ms"]
+        row["bound_by"] = bd["bound_by"]
+        del x, v, vt, sv, pv, psv
+        torch.cuda.empty_cache()
+    for k in ("quant_rows_kernel", "quant_cols_kernel"):
+        held(k, torch.bfloat16)
+        row = sums[k]
+        log(f"(t) {k} at the paper int8 forward's launches (bf16): bit for "
+            f"bit equal to the plain version; {row['ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_ms'] / row['ms']:.1%}), "
+            f"plain {row['plain_ms']:.3f} ms")
+    log(f"(t) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return sums
 
 
 def main() -> int:
@@ -4122,14 +4473,18 @@ def main() -> int:
             f"{v['kernel']} {v['regs']}" for v in rings.values())
         + " registers")
     q8_gemms = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
-                          Q8_GEMM_KERNELS)
-    if {v["kernel"] for v in q8_gemms.values()} != set(Q8_GEMM_KERNELS) \
-            or any(v["spill"] or v["stack"] for v in q8_gemms.values()):
-        raise AssertionError(f"(a) the s8 GEMMs in ptxas -v: {q8_gemms}")
+                          Q8_WGMMA_KERNELS)
+    if {v["kernel"] for v in q8_gemms.values()} != set(Q8_WGMMA_KERNELS) \
+            or any(v["spill"] or v["stack"] for v in q8_gemms.values()) \
+            or any(v["regs"] != 168 for v in q8_gemms.values()
+                   if v["kernel"] == "gemm_q8_bias_kernel"):
+        raise AssertionError(f"(a) the s8 GEMMs and attention in ptxas -v: "
+                             f"{q8_gemms}")
     log(f"(a) {len(q8_gemms)} instantiations of "
-        f"{', '.join(Q8_GEMM_KERNELS)}: no spills, no stack, "
-        f"{min(v['regs'] for v in q8_gemms.values())}-"
-        f"{max(v['regs'] for v in q8_gemms.values())} registers")
+        f"{', '.join(Q8_WGMMA_KERNELS)}: no spills, no stack, "
+        + ", ".join(f"{k} " + "/".join(str(v["regs"]) for v in
+                                      q8_gemms.values() if v["kernel"] == k)
+                    for k in Q8_WGMMA_KERNELS) + " registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -4320,9 +4675,11 @@ def main() -> int:
     fused_step_ms = time_train_step(cfg, first_batch, dev, card)
 
     # (k) K13, the int8 layers -------------------------------------------------
-    q8_counts, q8_results, q8_gemm_launches = check_int8(
+    q8_counts, q8_results, k13_profile = check_int8(
         cfg, model, packed, spec, audio, dev, card, cli_main)
     results.update(q8_results)
+    q8_gemm_launches = {k.removesuffix("_kernel"): k13_profile[k][1]
+                        for k in Q8_GEMM_KERNELS}
 
     # (l) K10 / K11 / K12, the per-site attention ---------------------------
     results.update(check_attention_kernels(dev))
@@ -4399,6 +4756,13 @@ def main() -> int:
         else sum(v["library_ms"] for v in s8.values()), by_kernel=s8)
     for name in Q8_SOURCES:
         results[name]["s8_gemms"] = s8_row
+
+    # (t) K13's attention and quantizers alone ---------------------------------
+    k13_rows = check_k13_kernels(dev, card)
+    for k in Q8_GEMM_KERNELS:
+        row = dict(s8[k.removesuffix("_kernel")])
+        row.pop("launches")
+        k13_rows[k] = row
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -4424,15 +4788,18 @@ def main() -> int:
             f"{want[k]} {v[want[k]]}, UTMALDG {v['UTMALDG']}"
             for k, v in sass.items()))
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME,
-                         Q8_GEMM_KERNELS, ("IGMMA", "UTMALDG"))
+                         Q8_WGMMA_KERNELS, ("IGMMA", "UTMALDG", "IMMA"))
         if len(sass) != len(q8_gemms) or any(
-                not v["IGMMA"] or not v["UTMALDG"] for v in sass.values()):
-            raise AssertionError(f"(a) SASS of the s8 GEMMs: {sass}")
-        log(f"(a) SASS of the {len(sass)} s8 GEMM kernels (cuobjdump): "
-            f"IGMMA {min(v['IGMMA'] for v in sass.values())}-"
+                not v["IGMMA"] or not v["UTMALDG"] or v["IMMA"]
+                for v in sass.values()):
+            raise AssertionError(f"(a) SASS of the s8 GEMMs and attention: "
+                                 f"{sass}")
+        log(f"(a) SASS of the {len(sass)} s8 GEMM and attention kernels "
+            f"(cuobjdump): IGMMA {min(v['IGMMA'] for v in sass.values())}-"
             f"{max(v['IGMMA'] for v in sass.values())}, UTMALDG "
             f"{min(v['UTMALDG'] for v in sass.values())}-"
-            f"{max(v['UTMALDG'] for v in sass.values())} a kernel")
+            f"{max(v['UTMALDG'] for v in sass.values())} a kernel, no IMMA "
+            f"(mma.sync)")
 
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in
                     ("jax", "jaxlib", "flax", "nylon_amt_tpu"))
@@ -4464,6 +4831,12 @@ def main() -> int:
            Q8_SOURCES.items()},
         **{name: ("mha.cu", tpu) for name, tpu in MHA_SOURCES.items()}}
     counts.update({k: q8_counts[k] for k in Q8_SOURCES})
+    # K13's CUDA kernels: launches of (k)'s profiled paper int8 forward,
+    # whose shapes (s) and (t) timed
+    counts.update({k: k13_profile[k][1] for k in Q8_KERNELS})
+    results.update(k13_rows)
+    sources.update({k: ("layer_fused_q8.cu", Q8_SOURCES["encoder_layer_q8"])
+                    for k in Q8_KERNELS})
     counts.update(mha_counts)
     # the f32 GEMM kernels: launches of (n.4)'s paper f32 forward, whose
     # shapes (q) timed
@@ -4491,7 +4864,7 @@ def main() -> int:
         "decoder_layer_zero_train_bwd": train32,
         "decoder_layer_train_bwd": train32,
         **{n: ["mha_f32.cu"] for n in MHA_SOURCES},
-        **{n: ["layer_fused_q8.cu"] for n in Q8_SOURCES},
+        **{n: ["layer_fused_q8.cu"] for n in (*Q8_SOURCES, *Q8_KERNELS)},
         **{n: ["layer_fused_f32.cu"] for n in gemm32},
         "gemm_nt_f32": ["layer_fused_f32.cu"],
         "wgrad_f32": ["layer_fused_f32.cu", "layer_fused_train.cu"]}

@@ -526,27 +526,42 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The tensor map of a row-major [rows, cols] matrix of `elem`-byte elements
-// (rows of a multiple of 16 bytes, 16-byte aligned) read or written in boxes
-// of box_rows x one 128-byte swizzle row (128 / elem columns), 128-byte
-// swizzle, zero fill past the edges. Returns a cudaError_t.
-inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int elem,
-                        const void* ptr, long long rows, long long cols,
-                        int box_rows) {
+// of row stride ld (elements; a multiple of 16 bytes, 16-byte aligned) read
+// or written in boxes of box_rows x one row of row_bytes (128, 64 or 32:
+// row_bytes / elem columns) under the swizzle of that width, zero fill
+// past the edges. Returns a cudaError_t.
+inline int encode_swizzled(CUtensorMap* map, CUtensorMapDataType type,
+                           int elem, const void* ptr, long long rows,
+                           long long cols, long long ld, int box_rows,
+                           int row_bytes) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols * elem % 16 ||
-      rows <= 0 || cols <= 0)
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || ld * elem % 16 ||
+      rows <= 0 || cols <= 0 || ld < cols)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem)};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)(row_bytes / elem),
+                             (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
-                        box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous [rows, cols] matrix in boxes of box_rows x one 128-byte
+// swizzle row (128 / elem columns).
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                        const void* ptr, long long rows, long long cols,
+                        int box_rows) {
+  return encode_swizzled(map, type, elem, ptr, rows, cols, cols, box_rows,
+                         128);
 }
 
 // bf16 [rows, cols] (cols % 8 == 0) in boxes of box_rows x 64 columns.
@@ -878,6 +893,20 @@ struct WgmmaS8;
       "+r"(d[(i) + 7])
 
 template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : NYLON_R8(0), NYLON_R8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaS8<64> {
   static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -1021,6 +1050,37 @@ inline int encode_s8(CUtensorMap* map, const void* ptr, long long rows,
                      long long cols, int box_rows) {
   return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols,
                       box_rows);
+}
+
+// ---------------------------------------------------------- clusters --
+//
+// A thread-block cluster's blocks write each other's shared memory
+// (distributed shared memory) between cluster barriers.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster (all lanes of a warp
+// together): the writes to shared memory before it are seen by every block
+// after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v to shared address `addr` of block `rank` of the cluster (`addr`: the
+// address in this block).
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, uint32_t rank,
+                                               float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
+               : "memory");
 }
 
 }  // namespace sm90

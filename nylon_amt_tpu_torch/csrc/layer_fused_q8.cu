@@ -20,23 +20,34 @@
 // entry point (the f32 ones end in _f32):
 //
 //  * quant_rows_kernel: T rows -> int8 codes + an f32 scale per row (one
-//    warp per row segment);
+//    warp per row), for the GEMM inputs that no kernel before them writes
+//    as codes (the stem layer's and the first time layer's input, the
+//    decoder's note queries);
 //  * quant_cols_kernel: V's quantizer, one scale per column over the whole
 //    key sequence; it writes the codes transposed per sequence, [hid,
 //    Lk_pad] with zero codes past Lk, which is the operand layout the PV
-//    product needs;
+//    product needs (a ragged last block of columns for hid % 64 != 0);
 //  * gemm_q8_bias_kernel: out = T((f32(A @ W) * sa[row]) * sw[col]) +
 //    bias [, ReLU], an s8 x s8 -> s32 tensor-core GEMM (wgmma m64nNk32 fed
 //    by TMA: gemm_sm90.cuh's s8 mainloop) with a dequantizing epilogue;
+//    optionally the row quantization of its first n_seg column segments
+//    (Q and K of the QKV product, K of the cross KV product, the cross Q,
+//    the FFN hidden) from the same registers, those columns then leaving
+//    as codes only;
 //  * gemm_q8_res_ln_kernel: the same GEMM with a block that owns full rows,
 //    so the residual and the shared post-LayerNorm run in its epilogue on
 //    the accumulator fragments, and optionally the row quantization of its
 //    output for the next GEMM;
-//  * attention_q8_kernel: one block per (sequence, head, 128-query tile),
-//    int8 K and V^T of the whole sequence in shared memory, int8 QK^T and
-//    PV products, an exact two-pass softmax in f32; head_dim D = 64 (two
-//    k32 steps of the score product) or 32 (one), the K rows padded to D +
-//    16 bytes either way.
+//  * attention_q8_kernel: a persistent grid of thread-block clusters, one
+//    block a head, walking the sequences with the next one's loads in
+//    flight; int8 QK^T and PV products on wgmma fed by TMA, an exact
+//    two-pass softmax in f32, and the row quantization of the heads'
+//    output across the cluster (each row's scale spans every head): codes
+//    and row scales out, the output in T only on request.
+//
+// Every row quantization (quant_rows_kernel and the epilogues) goes through
+// row_quant and frag_codes below, on the values as rounded to T: its codes
+// and scales are _quant_rows's of the T values, bit for bit.
 //
 // 8-bit wgmma reads both operands K-major only, so the GEMMs take the
 // weights as W^T [N, K], packed once on the host (ops/layer_fused_q8.py::
@@ -78,25 +89,12 @@ using sm::Frag;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: the quantizers and attention
+constexpr int kThreads = 256;  // 8 warps: the quantizers
 constexpr int kMaxK = 1040;    // the GEMMs' depth: |sum| <= K 127^2 < 2^24
 constexpr int kLnMaxN = 256;   // gemm_q8_res_ln: a block owns full rows
 constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr float kInv127Sq = (float)(1.0 / (127.0 * 127.0));
 constexpr float kAbsFloor = 1e-12f;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -105,11 +103,31 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The int8 code of x for the reciprocal scale r = 127 / a (round half to
-// even; |x * r| <= 127 up to rounding, so the cast cannot overflow).
-__device__ __forceinline__ int8_t quant_code(float x, float r) {
-  return (int8_t)(int)rintf(x * r);
+// The int8 code of x for the reciprocal scale r = 127 / a, as an int
+// (round half to even: rintf's bits in one conversion; |x * r| <= 127 up
+// to rounding, so the code fits a byte).
+__device__ __forceinline__ int quant_int(float x, float r) {
+  return __float2int_rn(x * r);
 }
+__device__ __forceinline__ int8_t quant_code(float x, float r) {
+  return (int8_t)quant_int(x, r);
+}
+
+// The codes of x0, x1 in the low two bytes (x0's first); the high two
+// are x0's again: callers keep the low half.
+__device__ __forceinline__ uint32_t code_bytes(float x0, float x1, float r) {
+  return __byte_perm(quant_int(x0, r), quant_int(x1, r), 0x0040);
+}
+
+// A row's quantizer from the absmax of its values: a = max(absmax, 1e-12),
+// the codes' reciprocal scale r = 127 / a (IEEE division: no fast math),
+// and the dequantizing scale a * (1 / 127).
+struct RowQuant {
+  float a, r;
+  __device__ __forceinline__ explicit RowQuant(float absmax)
+      : a(fmaxf(absmax, kAbsFloor)), r(127.f / a) {}
+  __device__ __forceinline__ float scale() const { return a * kInv127; }
+};
 
 // 8 consecutive elements as f32 (16 bytes of bf16, 32 of f32).
 __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
@@ -131,33 +149,21 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
   return __fmul_rn(__fmul_rn((float)acc, sx), sw);
 }
 
-// Two consecutive elements in one store.
-__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
-  __nv_bfloat162 o;
-  o.x = __float2bfloat16(a);
-  o.y = __float2bfloat16(b);
-  *reinterpret_cast<__nv_bfloat162*>(dst) = o;
-}
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
 // ------------------------------------------------------------ quantizers ----
 
 constexpr int kMaxRowChunks = 4;  // 8 elements per chunk per lane: K <= 1024
 
-// Row r, segment j: x[r, j*K : (j+1)*K] -> q[r, j*K : (j+1)*K], s[j, r].
-// One warp per (row, segment); the row stays in registers. T: bf16 or f32.
+// Row r: x[r, :K] -> q[r, :K], s[r]. One warp per row; the row stays in
+// registers. T: bf16 or f32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quant_rows_kernel(const T* __restrict__ x, long long ld_x, int M,
-                      int K, int n_seg, int8_t* __restrict__ q,
+                      int K, int8_t* __restrict__ q,
                       float* __restrict__ s) {
-  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= M * n_seg) return;  // warp-uniform
-  const int row = warp / n_seg, seg = warp % n_seg;
-  const T* src = x + (size_t)row * ld_x + (size_t)seg * K;
+  if (row >= M) return;  // warp-uniform
+  const T* src = x + (size_t)row * ld_x;
   const int chunks = K / 8;
   float v[kMaxRowChunks][8];
   float amax = 0.f;
@@ -170,9 +176,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[i][t]));
     }
   }
-  const float a = fmaxf(warp_max(amax), kAbsFloor);
-  const float r = 127.f / a;  // IEEE division (no fast math)
-  int8_t* dst = q + (size_t)row * n_seg * K + (size_t)seg * K;
+  const RowQuant rq(warp_max(amax));
+  int8_t* dst = q + (size_t)row * K;
 #pragma unroll
   for (int i = 0; i < kMaxRowChunks; ++i) {
     const int c = lane + 32 * i;
@@ -180,11 +185,11 @@ __global__ void __launch_bounds__(kThreads)
       uint2 packed;
       int8_t* o = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
-      for (int t = 0; t < 8; ++t) o[t] = quant_code(v[i][t], r);
+      for (int t = 0; t < 8; ++t) o[t] = quant_code(v[i][t], rq.r);
       *reinterpret_cast<uint2*>(dst + c * 8) = packed;
     }
   }
-  if (lane == 0) s[(size_t)seg * M + row] = a * kInv127;
+  if (lane == 0) s[row] = rq.scale();
 }
 
 constexpr int kColTile = 64;   // columns per block
@@ -193,26 +198,30 @@ constexpr int kRowTile = 32;   // key rows per transposed store
 // V of sequence `seq`: x[seq*L + j, col] -> vt[seq, col, j] (j < L_pad,
 // zero codes past L) and sv[seq, col] = max(absmax_j, 1e-12) / 127^2.
 // Block per (sequence, 64 columns); thread (c = tid % 64, g = tid / 64).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    quant_cols_kernel(const T* __restrict__ x, long long ld_x, int L,
-                      int hid, int8_t* __restrict__ vt,
-                      float* __restrict__ sv) {
+// kRagged: the last block where hid % 64, its columns past hid idle (a
+// path of its own: the guards slow the full blocks' loops by a third).
+template <typename T, bool kRagged>
+__device__ __forceinline__ void quant_cols_block(const T* __restrict__ x,
+                                                 long long ld_x, int L,
+                                                 int hid, int seq, int col0,
+                                                 int8_t* __restrict__ vt,
+                                                 float* __restrict__ sv) {
   __shared__ float part[4][kColTile];
   __shared__ __align__(16) int8_t tile[kColTile][kRowTile + 16];
-  const int seq = blockIdx.x, col0 = blockIdx.y * kColTile;
   const int c = threadIdx.x % kColTile, g = threadIdx.x / kColTile;
+  const bool col_ok = !kRagged || col0 + c < hid;
   const int l_pad = (L + kRowTile - 1) / kRowTile * kRowTile;
   const T* base = x + (size_t)seq * L * ld_x + col0 + c;
   float amax = 0.f;
-  for (int j = g; j < L; j += 4)
-    amax = fmaxf(amax, fabsf(nylon::to_f(base[(size_t)j * ld_x])));
+  if (col_ok)
+    for (int j = g; j < L; j += 4)
+      amax = fmaxf(amax, fabsf(nylon::to_f(base[(size_t)j * ld_x])));
   part[g][c] = amax;
   __syncthreads();
   const float a = fmaxf(fmaxf(fmaxf(part[0][c], part[1][c]), part[2][c]),
                         part[3][c]);
   const float r = 127.f / a;
-  if (g == 0) sv[(size_t)seq * hid + col0 + c] = a * kInv127Sq;
+  if (g == 0 && col_ok) sv[(size_t)seq * hid + col0 + c] = a * kInv127Sq;
   int8_t* out = vt + ((size_t)seq * hid + col0) * l_pad;
   for (int j0 = 0; j0 < l_pad; j0 += kRowTile) {
     // thread (c, g) quantizes rows j0 + 8g .. j0 + 8g + 7 of column c
@@ -220,16 +229,30 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < 8; ++t) {
       const int j = j0 + 8 * g + t;
       tile[c][8 * g + t] =
-          j < L ? quant_code(nylon::to_f(base[(size_t)j * ld_x]), r)
-                : (int8_t)0;
+          col_ok && j < L
+              ? quant_code(nylon::to_f(base[(size_t)j * ld_x]), r)
+              : (int8_t)0;
     }
     __syncthreads();
     // 64 columns x 32 bytes out, 8 bytes per thread, contiguous per column
     const int oc = threadIdx.x / 4, part8 = (threadIdx.x % 4) * 8;
-    *reinterpret_cast<uint2*>(out + (size_t)oc * l_pad + j0 + part8) =
-        *reinterpret_cast<const uint2*>(&tile[oc][part8]);
+    if (!kRagged || col0 + oc < hid)
+      *reinterpret_cast<uint2*>(out + (size_t)oc * l_pad + j0 + part8) =
+          *reinterpret_cast<const uint2*>(&tile[oc][part8]);
     __syncthreads();
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quant_cols_kernel(const T* __restrict__ x, long long ld_x, int L,
+                      int hid, int8_t* __restrict__ vt,
+                      float* __restrict__ sv) {
+  const int col0 = blockIdx.y * kColTile;
+  if (col0 + kColTile <= hid)  // block-uniform
+    quant_cols_block<T, false>(x, ld_x, L, hid, blockIdx.x, col0, vt, sv);
+  else
+    quant_cols_block<T, true>(x, ld_x, L, hid, blockIdx.x, col0, vt, sv);
 }
 
 // ------------------------------------------------------------ s8 GEMM ----
@@ -362,10 +385,9 @@ __device__ __forceinline__ float quad_max(float v) {
 }
 
 // The int8 codes of a column pair (f32 bits a0, a1) for the reciprocal
-// scale r, as the low 16 bits (column col in the low byte).
+// scale r, in the low two bytes (column col's first).
 __device__ __forceinline__ uint32_t code_pair(int a0, int a1, float r) {
-  return (uint32_t)(uint8_t)quant_code(__int_as_float(a0), r) |
-         (uint32_t)(uint8_t)quant_code(__int_as_float(a1), r) << 8;
+  return code_bytes(__int_as_float(a0), __int_as_float(a1), r);
 }
 
 // A row's codes of column fragments 4 J .. 4 J + 3 regrouped within the
@@ -392,129 +414,324 @@ __device__ __forceinline__ uint2 quad_gather(uint32_t w0, uint32_t w1,
   return make_uint2(__byte_perm(a, b, 0x5410), __byte_perm(a, b, 0x7632));
 }
 
+// The eight codes lane q of a quad stores for row i of the column
+// fragments j .. j + 3 held as f32 bits in v (v[4 j' + 2 i + c]: the
+// accumulator's fragment layout), for the reciprocal scale r (RowQuant):
+// those of fragment j + q, in column order (quad_gather). Every lane of the
+// warp calls it.
+template <int R>
+__device__ __forceinline__ uint2 frag_codes(const int (&v)[R], int j, int i,
+                                            float r, int q) {
+  uint32_t w[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int a = 4 * (j + 2 * h) + 2 * i;  // fragments j + 2 h, + 1
+    w[h] = __byte_perm(code_pair(v[a], v[a + 1], r),
+                       code_pair(v[a + 4], v[a + 5], r), 0x5410);
+  }
+  return quad_gather(w[0], w[1], q);
+}
+
 // ------------------------------------------------------- GEMM + bias ----
 
+// With kStash (codes only, each row one segment over a row block's two
+// column tiles) each consumer thread stashes its first tile's T values in
+// shared memory, as pairs of T (32-bit words: bf16x2, or the two halves of
+// a float2), BN / 4 words of bf16 or BN / 2 of f32 a thread, word k of all
+// 256 consumers contiguous.
+template <int BN, typename T>
+constexpr int kStashWords = BN / 4 * (int)sizeof(T) / 2;
 // gemm_q8_bias's epilogue area: a ring of two output boxes a warpgroup,
 // then each warpgroup's copy of the tile's column scales (f32) and bias
-// (T), BN of each.
+// (T), BN of each. With kStash the stash instead of the boxes, and in f32
+// no column values (the stash leaves no room: the epilogue reads them from
+// global memory).
 template <int BN, typename T>
+constexpr int kBiasParamBytes = 2 * BN * (4 + (int)sizeof(T));
+template <int BN, typename T, bool kStash>
+constexpr bool kBiasParamsInSmem = !kStash || sizeof(T) == 2;
+template <int BN, typename T, bool kStash>
 constexpr int kBiasEpiBytes =
-    2 * 2 * sm::kBoxBytes + 2 * BN * (4 + (int)sizeof(T));
+    (kStash ? 2 * 128 * 4 * kStashWords<BN, T> : 2 * 2 * sm::kBoxBytes) +
+    (kBiasParamsInSmem<BN, T, kStash> ? kBiasParamBytes<BN, T> : 0);
+
+// Column segments of a tile the codes epilogue tracks: at least 64 columns
+// each, at most two (codes_tile).
+template <int BN>
+constexpr int kSlots = BN / 64 < 2 ? BN / 64 : 2;
+
+// gemm_q8_bias's registers a thread: its producer warpgroup's and its
+// consumers'. At BN 256 the accumulator (128) and the codes epilogue do not
+// fit in the 168 that ptxas gives each of 288 threads, so the kernel runs
+// 384 (a full producer warpgroup, whose registers the consumers take:
+// setmaxnreg.inc takes only what the block's own dec gave back).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
 // out[M, N] = T(T((f32(a @ w) * sa[row]) * sw[col]) + bias[col]) [, ReLU]
 // with a [M, K] and W^T [N, K] int8. Tile t is (row block t / n_tiles_n,
 // column block t % n_tiles_n): the N tiles of a row block run together, so
 // A is read from HBM once and its other reads hit L2.
-template <typename T, int BN>
-__global__ void __launch_bounds__(sm::kThreads, 1)
+//
+// With q: the row quantization of the first n_codes / seg column segments
+// of seg columns each, from the T values in registers (RowQuant,
+// frag_codes): codes q [M, n_codes] and scales s [n_codes / seg, M]. Each
+// segment lies inside one tile (codes_tile), or, with kStash, the only
+// segment is the whole row over the two column tiles of a row block, which
+// one block walks in turn, stashing the first tile's values until the
+// second gives the row's absmax. Only the columns from n_codes on leave in
+// T, to out [M, N] (none if n_codes == N). A tile holds at most two
+// segments; a column's is found by one compare with the second's first
+// column (no division but the quantizers').
+template <typename T, int BN, bool kStash>
+__global__ void __launch_bounds__(sm::kThreadsTf32, 1)
     gemm_q8_bias_kernel(const __grid_constant__ CUtensorMap map_a,
                         const __grid_constant__ CUtensorMap map_wt,
                         const __grid_constant__ CUtensorMap map_out,
                         const float* __restrict__ sa,
                         const float* __restrict__ sw,
-                        const T* __restrict__ bias, int M, int N, int K,
-                        int relu, int n_tiles_n) {
+                        const T* __restrict__ bias,
+                        int8_t* __restrict__ q, float* __restrict__ s,
+                        int M, int N, int K, int relu, int n_tiles_n,
+                        int seg, int n_codes) {
   constexpr int kCols = kBoxCols<T>;
+  constexpr bool kParams = kBiasParamsInSmem<BN, T, kStash>;
+  constexpr int kGroups = BN / 32;  // quad_gather groups of a tile
+  static_assert(kSlots<BN> <= 2, "a tile's segments");
   extern __shared__ uint8_t smem_raw[];
-  sm::RingS8<BN, kBiasEpiBytes<BN, T>> ring(smem_raw);
+  sm::RingS8<BN, kBiasEpiBytes<BN, T, kStash>> ring(smem_raw);
   if (threadIdx.x == 0) ring.init(1);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int nk = (K + sm::kBKS8 - 1) / sm::kBKS8;
-  const long long tiles =
-      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
+  // a block's unit of work: a tile, or with kStash a row block's tiles
+  const int per_unit = kStash ? n_tiles_n : 1;
+  const long long units =
+      (long long)(n_tiles_n / per_unit) * ((M + sm::kBM - 1) / sm::kBM);
 
-  if (warp == sm::kConsumerWarps) {  // the producer
-    if ((threadIdx.x & 31) == 0) {
+  if (warp >= sm::kConsumerWarps) {  // the producer warpgroup
+    sm::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == sm::kConsumerWarps * 32) {
       sm::tma_prefetch(&map_a);
       sm::tma_prefetch(&map_wt);
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (int)(t / n_tiles_n) * sm::kBM;
-        const int n0 = (int)(t % n_tiles_n) * BN;
-        for (int kb = 0; kb < nk; ++kb) ring.load(&map_a, &map_wt, m0, n0, kb);
-      }
+      for (long long u = blockIdx.x; u < units; u += gridDim.x)
+        for (int jn = 0; jn < per_unit; ++jn) {
+          const long long t = u * per_unit + jn;
+          const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+          const int n0 = (int)(t % n_tiles_n) * BN;
+          for (int kb = 0; kb < nk; ++kb)
+            ring.load(&map_a, &map_wt, m0, n0, kb);
+        }
     }
     return;
   }
 
+  sm::reg_alloc<kConsumerRegs>();
   const int g = warp >> 2, tid = threadIdx.x & 127;
   const Frag f(tid);
   const uint32_t ebase = sm::smem_u32(ring.epi(2 * g));
+  const uint32_t stash = sm::smem_u32(ring.epi(0)) + 4 * (128 * g + tid);
   const uint32_t s_sw =
-      sm::smem_u32(ring.epi(4)) + g * BN * (4 + (int)sizeof(T));
+      sm::smem_u32(ring.epi(0)) +
+      (kStash ? 2 * 128 * 4 * kStashWords<BN, T> : 4 * sm::kBoxBytes) +
+      g * BN * (4 + (int)sizeof(T));
   const uint32_t s_bias = s_sw + 4 * BN;
   using Pair = PairOf<T>;
   constexpr int kJ = kCols / 8;  // column fragments a box
   uint32_t staged = 0;  // boxes this warpgroup has staged: ring slot parity
   int acc[BN / 2];
+  float amax[kSlots<BN>][2];  // the rows' absmax of each segment
   constexpr int kPer = (BN + 127) / 128;  // columns a thread stages
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (int)(t / n_tiles_n) * sm::kBM;
-    const int n0 = (int)(t % n_tiles_n) * BN;
-    const int row0 = m0 + 64 * g;
-    // the tile's row scales, column scales and bias, loaded while the
-    // mainloop runs (their latency, once a tile, would stall the epilogue)
-    float sx[2], swv[kPer];
-    T bv[kPer];
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    for (int jn = 0; jn < per_unit; ++jn) {
+      const long long t = u * per_unit + jn;
+      const int m0 = (int)(t / n_tiles_n) * sm::kBM;
+      const int n0 = (int)(t % n_tiles_n) * BN;
+      const int row0 = m0 + 64 * g;
+      // the tile's row scales, column scales and bias, loaded while the
+      // mainloop runs (their latency, once a tile, would stall the epilogue)
+      float sx[2], swv[kPer];
+      T bv[kPer];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + f.r0 + 8 * i;
-      sx[i] = row < M ? sa[row] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = tid + 128 * u;
-      if (c < BN && n0 + c < N) {
-        swv[u] = sw[n0 + c];
-        bv[u] = bias[n0 + c];
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + f.r0 + 8 * i;
+        sx[i] = row < M ? sa[row] : 0.f;
       }
-    }
-    ring.mma(acc, nk, g);
-    // the column values to shared memory (the previous tile's last reads
-    // of them precede its last box sync)
+      if constexpr (kParams) {
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = tid + 128 * u;
-      if (c < BN && n0 + c < N) {
-        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_sw + 4 * c),
-                     "f"(swv[u])
-                     : "memory");
-        st_shared_t(s_bias + (int)sizeof(T) * c, bv[u]);
+        for (int u2 = 0; u2 < kPer; ++u2) {
+          const int c = tid + 128 * u2;
+          if (c < BN && n0 + c < N) {
+            swv[u2] = sw[n0 + c];
+            bv[u2] = bias[n0 + c];
+          }
+        }
       }
-    }
-    // a box of kJ fragments at a time, through the ring of two
+      ring.mma(acc, nk, g);
+      if constexpr (kParams) {
+        // the column values to shared memory: a T tile's box syncs order
+        // them after the previous tile's reads and before this one's; a
+        // codes tile has none, so with q the warpgroup syncs around them
+        if (q != nullptr) sm::named_sync(1 + g, 128);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = j / kJ;
-      const uint32_t box = ebase + ((staged + c) & 1) * sm::kBoxBytes;
-      if (j % kJ == 0) {
-        // the slot is free once every store group but the newest (the
-        // other slot's: one group a box, empty if the box is not stored)
-        // has read its box
-        if (tid == 0) sm::bulk_wait_read<1>();
-        sm::named_sync(1 + g, 128);
+        for (int u2 = 0; u2 < kPer; ++u2) {
+          const int c = tid + 128 * u2;
+          if (c < BN && n0 + c < N) {
+            asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(s_sw + 4 * c),
+                         "f"(swv[u2])
+                         : "memory");
+            st_shared_t(s_bias + (int)sizeof(T) * c, bv[u2]);
+          }
+        }
+        if (q != nullptr) sm::named_sync(1 + g, 128);
       }
-      const int col = 8 * j + 2 * f.q;  // of the tile
-      if (n0 + col < N) {
-        const float2 w2 = sm::ld_shared_f2(s_sw + 4 * col);
-        const auto b2 = Pair::ld(s_bias + (int)sizeof(T) * col);
+      // the segments that start in this tile: the tile-relative first
+      // column of each, BN past the last (with kStash the one segment is
+      // the row, begun in the row block's first tile)
+      const int first = kStash ? 0 : (n0 + seg - 1) / seg;
+      int lo[kSlots<BN>];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          Pair::st(pair_addr<T>(f, box, i, j),
-                   bias_pair(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1],
-                             sx[i], w2, b2, relu));
+      for (int k = 0; k < kSlots<BN>; ++k) {
+        const int c0 = (first + k) * seg;
+        lo[k] = !kStash && c0 < n_codes && c0 < n0 + BN ? c0 - n0 : BN;
       }
-      if (j % kJ == kJ - 1) {
-        sm::fence_async_smem();
-        sm::named_sync(1 + g, 128);
-        if (tid == 0) {
-          if (row0 < M && n0 + c * kCols < N)
-            sm::tma_store(&map_out, box, n0 + c * kCols, row0);
-          sm::bulk_commit();
+      if (!kStash || jn == 0) {
+#pragma unroll
+        for (int k = 0; k < kSlots<BN>; ++k) amax[k][0] = amax[k][1] = 0.f;
+      }
+      // a tile with T columns stages them through the ring of two boxes
+      const bool t_out = !kStash && n0 + BN > n_codes && n_codes < N;
+      // a box of kJ fragments at a time
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j / kJ;
+        const uint32_t box = ebase + ((staged + c) & 1) * sm::kBoxBytes;
+        if (t_out && j % kJ == 0) {
+          // the slot is free once every store group but the newest (the
+          // other slot's: one group a box, empty if the box is not stored)
+          // has read its box
+          if (tid == 0) sm::bulk_wait_read<1>();
+          sm::named_sync(1 + g, 128);
+        }
+        const int col = n0 + 8 * j + 2 * f.q;
+        if (col < N) {
+          float2 w2;
+          typename Pair::type b2;
+          if constexpr (kParams) {
+            w2 = sm::ld_shared_f2(s_sw + 4 * (col - n0));
+            b2 = Pair::ld(s_bias + (int)sizeof(T) * (col - n0));
+          } else {
+            w2 = *reinterpret_cast<const float2*>(sw + col);
+            b2 = Pair::ldg(bias + col);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const auto y2 = bias_pair(acc[4 * j + 2 * i],
+                                      acc[4 * j + 2 * i + 1], sx[i], w2, b2,
+                                      relu);
+            if (col < n_codes) {  // kept as T values for the codes
+              const float2 y = Pair::f32(y2);
+              acc[4 * j + 2 * i] = __float_as_int(y.x);
+              acc[4 * j + 2 * i + 1] = __float_as_int(y.y);
+              const float m = fmaxf(fabsf(y.x), fabsf(y.y));
+              if (kSlots<BN> > 1 && 8 * j >= lo[kSlots<BN> - 1])
+                amax[kSlots<BN> - 1][i] =
+                    fmaxf(amax[kSlots<BN> - 1][i], m);
+              else
+                amax[0][i] = fmaxf(amax[0][i], m);
+              if constexpr (kStash) {
+                if (jn + 1 < per_unit) {  // the row's absmax is not known
+                  if constexpr (sizeof(T) == 2) {
+                    sm::st_shared(stash + 1024 * (2 * j + i), sm::bits(y2));
+                  } else {
+                    sm::st_shared(stash + 1024 * (4 * j + 2 * i),
+                                  __float_as_uint(y.x));
+                    sm::st_shared(stash + 1024 * (4 * j + 2 * i + 1),
+                                  __float_as_uint(y.y));
+                  }
+                }
+              }
+            } else if constexpr (!kStash) {
+              Pair::st(pair_addr<T>(f, box, i, j), y2);
+            }
+          }
+        }
+        if (t_out && j % kJ == kJ - 1) {
+          sm::fence_async_smem();
+          sm::named_sync(1 + g, 128);
+          if (tid == 0) {
+            const int bc = n0 + c * kCols;
+            if (row0 < M && bc < N && bc + kCols > n_codes)
+              sm::tma_store(&map_out, box, bc, row0);
+            sm::bulk_commit();
+          }
+        }
+      }
+      if (t_out) staged += BN / kCols;
+      if (q == nullptr || n0 >= n_codes) continue;
+      if (kStash && jn + 1 < per_unit) continue;  // the row goes on
+      // each segment's quantizer
+      float rs[kSlots<BN>][2], scale[kSlots<BN>][2];
+#pragma unroll
+      for (int k = 0; k < kSlots<BN>; ++k)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const RowQuant rq(quad_max(amax[k][i]));
+          rs[k][i] = rq.r;
+          scale[k][i] = rq.scale();
+        }
+      // the codes of the tile at column nt0 (its values in acc), 8 bytes a
+      // lane
+      const auto codes = [&](int nt0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + f.r0 + 8 * i;
+#pragma unroll
+          for (int gr = 0; gr < kGroups; ++gr) {
+            const int col = nt0 + 32 * gr;  // the group's first column
+            if (col >= n_codes) continue;  // warp-uniform
+            const float r = kSlots<BN> > 1 && 32 * gr >= lo[kSlots<BN> - 1]
+                                ? rs[kSlots<BN> - 1][i]
+                                : rs[0][i];
+            const uint2 w = frag_codes(acc, 4 * gr, i, r, f.q);
+            if (row < M && col + 8 * f.q < n_codes)
+              *reinterpret_cast<uint2*>(q + (size_t)row * n_codes + col +
+                                        8 * f.q) = w;
+          }
+        }
+      };
+      codes(n0);
+      if constexpr (kStash) {  // the first tile's codes, from the stash
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if constexpr (sizeof(T) == 2) {
+              const float2 y = Pair::f32(
+                  sm::bf16x2(sm::ld_shared(stash + 1024 * (2 * j + i))));
+              acc[4 * j + 2 * i] = __float_as_int(y.x);
+              acc[4 * j + 2 * i + 1] = __float_as_int(y.y);
+            } else {
+              acc[4 * j + 2 * i] =
+                  (int)sm::ld_shared(stash + 1024 * (4 * j + 2 * i));
+              acc[4 * j + 2 * i + 1] =
+                  (int)sm::ld_shared(stash + 1024 * (4 * j + 2 * i + 1));
+            }
+          }
+        codes(n0 - BN);
+      }
+      // the scales of the segments that start in this tile
+      if (f.q == 0) {
+#pragma unroll
+        for (int k = 0; k < kSlots<BN>; ++k) {
+          if (lo[k] == BN && !(kStash && k == 0)) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = row0 + f.r0 + 8 * i;
+            if (row < M) s[(size_t)(first + k) * M + row] = scale[k][i];
+          }
         }
       }
     }
-    staged += BN / kCols;
   }
   if (tid == 0) sm::bulk_wait();
 }
@@ -720,25 +937,17 @@ __global__ void __launch_bounds__(sm::kThreads, 1)
     if (q_out != nullptr) {  // the next GEMM's row quantization of out
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float qa = fmaxf(quad_max(amax[i]), kAbsFloor);
-        const float qr = 127.f / qa;  // IEEE division (no fast math)
+        const RowQuant rq(quad_max(amax[i]));
         const int row = row0 + f.r0 + 8 * i;
         int8_t* dst = q_out + (size_t)row * N;
 #pragma unroll
         for (int j = 0; j < BN / 8; j += 4) {
-          uint32_t w[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int a = 4 * (j + 2 * h) + 2 * i;  // fragments j + 2 h, + 1
-            w[h] = code_pair(acc[a], acc[a + 1], qr) |
-                   code_pair(acc[a + 4], acc[a + 5], qr) << 16;
-          }
-          const uint2 codes = quad_gather(w[0], w[1], f.q);
+          const uint2 codes = frag_codes(acc, j, i, rq.r, f.q);
           const int col = 8 * (j + f.q);
           if (row < M && col < N)
             *reinterpret_cast<uint2*>(dst + col) = codes;
         }
-        if (row < M && f.q == 0) s_out[row] = qa * kInv127;
+        if (row < M && f.q == 0) s_out[row] = rq.scale();
       }
     }
     if (tid == 0) {  // the tile is free once the store has read it
@@ -750,210 +959,354 @@ __global__ void __launch_bounds__(sm::kThreads, 1)
 }
 
 // -------------------------------------------------------------- attention ----
+//
+// A persistent grid of thread-block clusters, one block a head, two blocks
+// an SM: a cluster walks the sequences (cluster c takes c, c + the
+// clusters, ...), every block of it the same ones. Thread 0 prefetches the
+// next sequence's head slice of the Q, K and V^T codes and its key scales
+// (TMA and a bulk copy, one barrier a stage) into the second of two
+// shared-memory stages while the block works on the current one, so the
+// loads overlap the products and no block waits for its inputs after the
+// first. A stage is small enough for two blocks an SM (8 warps, 128
+// registers a thread) because Q and K arrive as boxes exactly D bytes wide
+// (64- or 32-byte swizzle), V^T as boxes of D rows x 128 keys. A consumer
+// warpgroup takes 64 queries a round (128 a round for the block). The
+// scores of a 64-key chunk are one m64n64k32 wgmma chain, taken twice (the
+// exact two-pass softmax: the row max first, then p = exp2(s - m), l from
+// the unquantized p and the codes pq = rint(127 p)): recomputing the
+// products costs less than holding 256 scores a row in registers. Each
+// chunk's P codes go to shared memory (64 rows x 64 keys, 64-byte swizzle)
+// as the A operand of its PV product (m64nDk32 on V^T). The row
+// quantization of the output spans every head: each block writes its
+// rows' absmax of the T values into every block of its cluster
+// (distributed shared memory) and, after the cluster barrier, quantizes
+// its own D columns from its own copies.
 
-constexpr int kAttnRows = 128;  // queries per block: 16 per warp
 constexpr int kMaxLk = 256;
-constexpr int kPLd = 32 + 16;   // per-warp int8 probability tile row
+constexpr int kChunk = 64;                 // keys a score wgmma
+constexpr int kRoundRows = 128;            // queries a round
+constexpr int kMaxRounds = 2;              // Lq <= 256
+constexpr int kMaxHeads = 8;               // the portable cluster size
+constexpr int kAttnThreads = 256;          // two consumer warpgroups
 
-// K code rows of head_dim D padded by 16 bytes: 20 (D = 64) or 12 (D = 32)
-// words, so the fragment loads of 8 rows x 4 lanes hit 32 distinct banks.
-template <int D>
-constexpr int kKLd = D + 16;
-
-template <int D>
-__host__ __device__ constexpr size_t attn_q8_smem(int lk_pad) {
-  return (size_t)lk_pad * kKLd<D>             // K codes [lk_pad][D + 16]
-         + (size_t)D * (lk_pad + 16)          // V^T codes [D][lk_pad + 16]
-         + (size_t)lk_pad * sizeof(float)     // key scales
-         + (size_t)(kThreads / 32) * 16 * kPLd;
+// exp2 on the special-function unit, subnormal results flushed to 0: the
+// bits of exp2f wherever its result is normal (a p below 2^-126 has the
+// code 0 and adds nothing to l either way).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// o[seq, i, h*D : (h+1)*D] for one (sequence, head, query tile), D = 32 or
-// 64, in T (bf16 or f32). Q codes go straight from device memory into the
-// warp's A fragments (D / 32 k-steps of m16n8k32); K codes [lk_pad][D] and
-// V^T codes [D][lk_pad] of the whole sequence sit in shared memory. Each
-// warp owns 16 query rows and walks the keys in 32-key chunks twice: first
-// for the exact row max of the dequantized scores, then recomputing each
-// chunk (the same MMAs, so the same values) to take p = exp2(s - m), sum l
-// from the unquantized p, and accumulate the int8 product of pq = rint(127
-// p) with V.
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, completing
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(sm::smem_u32(bar))
+      : "memory");
+}
+
+// The K-major shared-memory matrix descriptor of rows of kRowBytes (128,
+// 64 or 32) under the swizzle of that width (gemm_sm90.cuh's sw128_desc
+// for 128): SBO eight rows, LBO unused.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  constexpr uint64_t mode = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(8 * kRowBytes >> 4) << 32) | (mode << 62);
+}
+
+// Byte offset of (row, byte b) in a tile of 64-byte rows under the 64-byte
+// swizzle (tile start 512-byte aligned): the 16-byte chunk XOR (row / 2) %
+// 4.
+__device__ __forceinline__ uint32_t sw64(int row, int b) {
+  return (uint32_t)(row * 64 + ((((b >> 4) ^ (row >> 1)) & 3) << 4) +
+                    (b & 15));
+}
+
+// attention_q8_kernel's shared memory (from a 1024-byte aligned base): two
+// stages, each a sequence's Q (four boxes of 64 rows x D bytes), K (256
+// rows x D bytes), V^T (two boxes of D rows x 128 keys) and key scales;
+// then each warpgroup's P chunk (64 rows x 64 keys), the rows' absmax of
+// the last two exchanges (every head's: 1024 bytes a head), the stages'
+// barriers. The launch sizes it by its heads (kBytes(n_heads)): at 4
+// heads of 64 two blocks fit an SM.
+template <int D>
+struct AttnSmem {
+  static constexpr int kQBytes = 2 * kMaxRounds * 64 * D;
+  static constexpr int kKBytes = kMaxLk * D;
+  static constexpr int kVBytes = kMaxLk / 128 * D * 128;
+  static constexpr int kSkBytes = kMaxLk * 4;
+  static constexpr int kStage = kQBytes + kKBytes + kVBytes + kSkBytes;
+  static constexpr int kP = 2 * kStage;
+  static constexpr int kPart = kP + 2 * 64 * kChunk;
+  __host__ __device__ static constexpr int bars(int n_heads) {
+    return kPart + 2 * n_heads * kRoundRows * 4;
+  }
+  __host__ __device__ static constexpr int bytes(int n_heads) {
+    return 1024 + bars(n_heads) + 16;
+  }
+  static_assert(kStage % 1024 == 0, "1024-byte aligned stages");
+};
+
+// codes [n * lq, hid] and scales [n * lq] of out = attention(Q, K, V) of
+// each sequence, head h's columns from block h of its cluster; with o, out
+// in T too. map_q / map_k: the codes [n * lq | n * lk, hid] (row-strided)
+// in boxes of 64 | 256 rows x D bytes (D-byte swizzle); map_vt: V^T codes
+// [n * hid, lk_pad] in boxes of D rows x 128 keys (128-byte swizzle).
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-    attention_q8_kernel(const int8_t* __restrict__ q, long long q_row,
+__global__ void __launch_bounds__(kAttnThreads, 2)
+    attention_q8_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_vt,
                         const float* __restrict__ sq,
-                        const int8_t* __restrict__ k, long long k_row,
                         const float* __restrict__ sk,
-                        const int8_t* __restrict__ vt, int vt_ld,
-                        const float* __restrict__ sv, T* __restrict__ o,
-                        int lq, int lk, int hid, float scale_log2e) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int KLD = kKLd<D>;
-  constexpr int KS = D / 32;  // k-steps of the score product
-  const int lk_pad = vt_ld;  // a multiple of 32
-  const int vs_ld = lk_pad + 16;
-  uint8_t* const Ks = smem;
-  uint8_t* const Vs = Ks + lk_pad * KLD;
-  float* const sks = reinterpret_cast<float*>(Vs + D * vs_ld);
-  uint8_t* const Ps = reinterpret_cast<uint8_t*>(sks + lk_pad);
-
-  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * kAttnRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  const int8_t* kb = k + (size_t)seq * lk * k_row + h * D;
-  for (int c = threadIdx.x; c < lk_pad * (D / 16); c += kThreads) {
-    const int r = c / (D / 16), c16 = (c % (D / 16)) * 16;
-    const uint4 v = r < lk ? *reinterpret_cast<const uint4*>(
-                                 kb + (size_t)r * k_row + c16)
-                           : zero;
-    *reinterpret_cast<uint4*>(Ks + r * KLD + c16) = v;
-  }
-  const int8_t* vb = vt + ((size_t)seq * hid + h * D) * lk_pad;
-  for (int c = threadIdx.x; c < D * (lk_pad / 16); c += kThreads) {
-    const int r = c / (lk_pad / 16), c16 = (c % (lk_pad / 16)) * 16;
-    *reinterpret_cast<uint4*>(Vs + r * vs_ld + c16) =
-        *reinterpret_cast<const uint4*>(vb + (size_t)r * lk_pad + c16);
-  }
-  for (int j = threadIdx.x; j < lk_pad; j += kThreads)
-    sks[j] = j < lk ? sk[(size_t)seq * lk + j] : 0.f;
-  __syncthreads();
-  // From here on every warp works alone: no block-wide barrier follows.
-  if (q0 + warp * 16 >= lq) return;
-
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const bool ok_a = row_a < lq, ok_b = row_b < lq;
-  uint32_t qa[KS][4];
-  {
-    const int8_t* pa = q + ((size_t)seq * lq + row_a) * q_row + h * D;
-    const int8_t* pb = q + ((size_t)seq * lq + row_b) * q_row + h * D;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int c = ks * 32 + t * 4;
-      qa[ks][0] = ok_a ? *reinterpret_cast<const uint32_t*>(pa + c) : 0u;
-      qa[ks][1] = ok_b ? *reinterpret_cast<const uint32_t*>(pb + c) : 0u;
-      qa[ks][2] = ok_a ? *reinterpret_cast<const uint32_t*>(pa + c + 16) : 0u;
-      qa[ks][3] = ok_b ? *reinterpret_cast<const uint32_t*>(pb + c + 16) : 0u;
-    }
-  }
-  // sq * (scale * log2e), then (f32(s_i) * that) * sk, as the JAX body
-  const float sqc_a = ok_a ? sq[(size_t)seq * lq + row_a] * scale_log2e : 0.f;
-  const float sqc_b = ok_b ? sq[(size_t)seq * lq + row_b] * scale_log2e : 0.f;
-
-  // s32 scores of the 16 x 32 chunk at keys j0.. in acc[n8 tile][4]
-  auto scores = [&](int j0, int (&acc)[4][4]) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
-      const uint8_t* kp = Ks + (j0 + nt * 8 + g) * KLD + t * 4;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma_s8(acc[nt], qa[ks], lds32(kp + ks * 32), lds32(kp + ks * 32 + 16));
-    }
+                        const float* __restrict__ sv,
+                        int8_t* __restrict__ codes,
+                        float* __restrict__ scales, T* __restrict__ o,
+                        int n_seq, int lq, int lk, int hid, int n_heads,
+                        float scale_log2e) {
+  using L = AttnSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base + L::bars(n_heads));
+  const uint32_t part = sm::smem_u32(base + L::kPart);
+  const int h = (int)sm::cluster_rank();  // blockIdx.x % n_heads
+  const int first_seq = blockIdx.x / n_heads;
+  const int n_clusters = gridDim.x / n_heads;
+  const int nq = (lq + 63) / 64;           // Q boxes a sequence
+  const int n_chunks = (lk + kChunk - 1) / kChunk;
+  const int n_vbox = (lk + 127) / 128;
+  const int rounds = (lq + kRoundRows - 1) / kRoundRows;
+  // thread 0: sequence seq's loads into stage st
+  const auto load = [&](int seq, int st) {
+    uint8_t* const sb = base + st * L::kStage;
+    sm::mbar_expect_tx(full + st, nq * 64 * D + kMaxLk * D +
+                                      n_vbox * D * 128 + lk * 4);
+    for (int b = 0; b < nq; ++b)
+      sm::tma_load(sb + b * 64 * D, &map_q, full + st, h * D,
+                   seq * lq + 64 * b);
+    sm::tma_load(sb + L::kQBytes, &map_k, full + st, h * D, seq * lk);
+    for (int b = 0; b < n_vbox; ++b)
+      sm::tma_load(sb + L::kQBytes + L::kKBytes + b * D * 128, &map_vt,
+                   full + st, 128 * b, seq * hid + h * D);
+    bulk_load(sb + L::kQBytes + L::kKBytes + L::kVBytes,
+              sk + (size_t)seq * lk, lk * 4, full + st);
   };
+  if (threadIdx.x == 0) {
+    sm::mbar_init(full, 1);
+    sm::mbar_init(full + 1, 1);
+    sm::fence_barrier_init();
+    sm::tma_prefetch(&map_q);
+    sm::tma_prefetch(&map_k);
+    sm::tma_prefetch(&map_vt);
+    if (first_seq < n_seq) load(first_seq, 0);
+  }
+  __syncthreads();
 
+  const int g = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const Frag f(tid);
+  const uint32_t ps = sm::smem_u32(base + L::kP) + g * 64 * kChunk;
   const float neg_inf = __int_as_float(0xff800000u);
-  float m_a = neg_inf, m_b = neg_inf;
-  for (int j0 = 0; j0 < lk_pad; j0 += 32) {
-    int acc[4][4];
-    scores(j0, acc);
+  using Pair = PairOf<T>;
+  int exchange = 0;  // the cluster exchanges so far: part's parity
+  int it = 0;
+  for (int seq = first_seq; seq < n_seq; seq += n_clusters, ++it) {
+    const int st = it & 1;
+    // the next sequence's loads, into the stage the last one left
+    if (threadIdx.x == 0 && seq + n_clusters < n_seq)
+      load(seq + n_clusters, st ^ 1);
+    const uint8_t* const sb = base + st * L::kStage;
+    const uint32_t ks = sm::smem_u32(sb + L::kQBytes);
+    const uint32_t vs = sm::smem_u32(sb + L::kQBytes + L::kKBytes);
+    const float* const sks = reinterpret_cast<const float*>(
+        sb + L::kQBytes + L::kKBytes + L::kVBytes);
+    const float* const svh = sv + (size_t)seq * hid + h * D;
+    sm::mbar_wait(full + st, (it >> 1) & 1);
+    for (int r = 0; r < rounds; ++r, ++exchange) {
+      const int row0 = r * kRoundRows + 64 * g;  // the warpgroup's first
+      const bool active = row0 < lq;             // warpgroup-uniform
+      // this round's absmax copies: [head][row of the round]
+      const uint32_t xslot = part + 4 * (exchange & 1) * n_heads * kRoundRows;
+      int ov[D / 2];  // the s32 PV products, then the f32 bits of out
+      if (active) {
+        const uint32_t qs = sm::smem_u32(sb) + (2 * r + g) * 64 * D;
+        // sq * (scale * log2e), then (f32(s_i) * that) * sk, as the JAX
+        // body, each product rounded
+        float sqc[2];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + f.r0 + 8 * i;
+          sqc[i] = row < lq
+                       ? __fmul_rn(sq[(size_t)seq * lq + row], scale_log2e)
+                       : 0.f;
+        }
+        const auto score = [&](int v, int i, float skv) {
+          return __fmul_rn(__fmul_rn((float)v, sqc[i]), skv);
+        };
+        // chunk c's s32 scores: the warpgroup's 64 queries x 64 keys
+        int sc[kChunk / 2];
+        const auto scores = [&](int c) {
+          sm::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j0 + nt * 8 + t * 2 + e;
-        if (key < lk) {
-          m_a = fmaxf(m_a, (float)acc[nt][e] * sqc_a * sks[key]);
-          m_b = fmaxf(m_b, (float)acc[nt][2 + e] * sqc_b * sks[key]);
+          for (int kk = 0; kk < D / 32; ++kk)
+            sm::WgmmaS8<kChunk>::mma(
+                sc, kmajor_desc<D>(qs + 32 * kk),
+                kmajor_desc<D>(ks + c * kChunk * D + 32 * kk), kk);
+          sm::wgmma_commit();
+          sm::wgmma_wait<0>();
+          sm::fence_regs(sc);
+        };
+        // pass 1: the exact row max over the keys < lk
+        float m[2] = {neg_inf, neg_inf};
+        for (int c = 0; c < n_chunks; ++c) {
+          scores(c);
+#pragma unroll
+          for (int j = 0; j < kChunk / 8; ++j) {
+            const int key = c * kChunk + 8 * j + 2 * f.q;
+            const float2 k2 = *reinterpret_cast<const float2*>(sks + key);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              if (key < lk) m[i] = fmaxf(m[i], score(sc[4 * j + 2 * i], i, k2.x));
+              if (key + 1 < lk)
+                m[i] = fmaxf(m[i], score(sc[4 * j + 2 * i + 1], i, k2.y));
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+        // pass 2: p = exp2(s - m) (padded keys: 0, out of l), l, the P
+        // codes of the chunk, its PV product
+        float l[2] = {0.f, 0.f};
+        for (int c = 0; c < n_chunks; ++c) {
+          scores(c);  // its wait also retires the last chunk's PV
+#pragma unroll
+          for (int j = 0; j < kChunk / 8; ++j) {
+            const int key = c * kChunk + 8 * j + 2 * f.q;
+            const float2 k2 = *reinterpret_cast<const float2*>(sks + key);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float p0 =
+                  key < lk
+                      ? exp2_ftz(score(sc[4 * j + 2 * i], i, k2.x) - m[i])
+                      : 0.f;
+              const float p1 =
+                  key + 1 < lk
+                      ? exp2_ftz(score(sc[4 * j + 2 * i + 1], i, k2.y) - m[i])
+                      : 0.f;
+              l[i] += p0;
+              l[i] += p1;
+              const uint32_t pc = code_bytes(p0, p1, 127.f);
+              asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(
+                               ps + sw64(f.r0 + 8 * i, 8 * j + 2 * f.q)),
+                           "h"((unsigned short)pc)
+                           : "memory");
+            }
+          }
+          // the chunk's P codes of the whole warpgroup, to the async proxy
+          sm::fence_async_smem();
+          sm::named_sync(1 + g, 128);
+          sm::fence_regs(ov);
+          sm::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kChunk / 32; ++kk)
+            sm::WgmmaS8<D>::mma(
+                ov, kmajor_desc<64>(ps + 32 * kk),
+                kmajor_desc<128>(vs + (c >> 1) * D * 128 + (c & 1) * 64 +
+                                 32 * kk),
+                c | kk);
+          sm::wgmma_commit();
+        }
+        sm::wgmma_wait<0>();
+        sm::fence_regs(ov);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+        // out = T((f32(o) * sv) / l); its absmax per row; out in T on
+        // request
+        float amax[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int col = 8 * j + 2 * f.q;
+          const float2 v2 = *reinterpret_cast<const float2*>(svh + col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const auto y2 = Pair::from(
+                __fmul_rn((float)ov[4 * j + 2 * i], v2.x) / l[i],
+                __fmul_rn((float)ov[4 * j + 2 * i + 1], v2.y) / l[i]);
+            const float2 y = Pair::f32(y2);
+            ov[4 * j + 2 * i] = __float_as_int(y.x);
+            ov[4 * j + 2 * i + 1] = __float_as_int(y.y);
+            amax[i] = fmaxf(amax[i], fmaxf(fabsf(y.x), fabsf(y.y)));
+            const int row = row0 + f.r0 + 8 * i;
+            if (o != nullptr && row < lq)
+              *reinterpret_cast<typename Pair::type*>(
+                  o + ((size_t)seq * lq + row) * hid + h * D + col) = y2;
+          }
+        }
+        // the rows' absmax, into this head's slot of every block's copy
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          amax[i] = quad_max(amax[i]);
+          const uint32_t at =
+              xslot + 4 * (h * kRoundRows + 64 * g + f.r0 + 8 * i);
+#pragma unroll
+          for (int rk = 0; rk < kMaxHeads; ++rk)
+            if (rk < n_heads && f.q == (rk & 3))
+              sm::st_cluster_f32(at, (uint32_t)rk, amax[i]);
         }
       }
-  }
+      sm::cluster_sync();  // every head's absmax of the round, in place
+      if (active) {
 #pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, o2));
-    m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, o2));
-  }
-
-  uint8_t* const Pw = Ps + warp * 16 * kPLd;
-  float l_a = 0.f, l_b = 0.f;
-  int oacc[D / 8][4];
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + f.r0 + 8 * i;
+          float a = 0.f;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+          for (int rk = 0; rk < kMaxHeads; ++rk)
+            if (rk < n_heads)
+              a = fmaxf(a, sm::ld_shared_f32(
+                               xslot + 4 * (rk * kRoundRows + 64 * g +
+                                            f.r0 + 8 * i)));
+          const RowQuant rq(a);
+          int8_t* dst = codes + ((size_t)seq * lq + row) * hid + h * D;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0;
-  for (int j0 = 0; j0 < lk_pad; j0 += 32) {
-    int acc[4][4];
-    scores(j0, acc);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j0 + nt * 8 + t * 2 + e;
-        float pa = 0.f, pb = 0.f;  // padded keys: out of l, zero codes
-        if (key < lk) {
-          pa = exp2f((float)acc[nt][e] * sqc_a * sks[key] - m_a);
-          pb = exp2f((float)acc[nt][2 + e] * sqc_b * sks[key] - m_b);
+          for (int j = 0; j < D / 8; j += 4) {
+            const uint2 w = frag_codes(ov, j, i, rq.r, f.q);
+            if (row < lq) *reinterpret_cast<uint2*>(dst + 8 * (j + f.q)) = w;
+          }
+          if (h == 0 && f.q == 0 && row < lq)
+            scales[(size_t)seq * lq + row] = rq.scale();
         }
-        l_a += pa;
-        l_b += pb;
-        Pw[g * kPLd + nt * 8 + t * 2 + e] = (uint8_t)quant_code(pa, 127.f);
-        Pw[(g + 8) * kPLd + nt * 8 + t * 2 + e] =
-            (uint8_t)quant_code(pb, 127.f);
       }
-    __syncwarp();
-    uint32_t pf[4];
-    pf[0] = lds32(Pw + g * kPLd + t * 4);
-    pf[1] = lds32(Pw + (g + 8) * kPLd + t * 4);
-    pf[2] = lds32(Pw + g * kPLd + 16 + t * 4);
-    pf[3] = lds32(Pw + (g + 8) * kPLd + 16 + t * 4);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const uint8_t* vp = Vs + (dt * 8 + g) * vs_ld + j0 + t * 4;
-      mma_s8(oacc[dt], pf, lds32(vp), lds32(vp + 16));
     }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
-  }
-
-  const float* svh = sv + (size_t)seq * hid + h * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    const float v0 = svh[c], v1 = svh[c + 1];
-    if (ok_a)
-      store2(o + ((size_t)seq * lq + row_a) * hid + h * D + c,
-             (float)oacc[dt][0] * v0 / l_a, (float)oacc[dt][1] * v1 / l_a);
-    if (ok_b)
-      store2(o + ((size_t)seq * lq + row_b) * hid + h * D + c,
-             (float)oacc[dt][2] * v0 / l_b, (float)oacc[dt][3] * v1 / l_b);
+    __syncthreads();  // the stage is free for the loads after the next
   }
 }
-
 
 template <typename T>
-int launch_quant_rows(const void* x, long long ld_x, int M, int K, int n_seg,
-                      void* q, void* s, cudaStream_t stream) {
-  if (M <= 0 || K <= 0 || K % 8 || K > 8 * 32 * kMaxRowChunks || n_seg <= 0 ||
-      ld_x % 8 || ld_x < (long long)n_seg * K)
+int launch_quant_rows(const void* x, long long ld_x, int M, int K, void* q,
+                      void* s, cudaStream_t stream) {
+  if (M <= 0 || K <= 0 || K % 8 || K > 8 * 32 * kMaxRowChunks || ld_x % 8 ||
+      ld_x < K)
     return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)M * n_seg;
-  const unsigned blocks = (unsigned)((warps * 32 + kThreads - 1) / kThreads);
+  const unsigned blocks =
+      (unsigned)(((long long)M * 32 + kThreads - 1) / kThreads);
   quant_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      (const T*)x, ld_x, M, K, n_seg, (int8_t*)q, (float*)s);
+      (const T*)x, ld_x, M, K, (int8_t*)q, (float*)s);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_quant_cols(const void* x, long long ld_x, int n_seq, int L,
                       int hid, void* vt, void* sv, cudaStream_t stream) {
-  if (n_seq <= 0 || L <= 0 || hid <= 0 || hid % kColTile || ld_x < hid)
+  if (n_seq <= 0 || L <= 0 || hid <= 0 || hid % 8 || ld_x < hid)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_seq, hid / kColTile);
+  const dim3 grid(n_seq, (hid + kColTile - 1) / kColTile);
   quant_cols_kernel<T><<<grid, kThreads, 0, stream>>>(
       (const T*)x, ld_x, L, hid, (int8_t*)vt, (float*)sv);
   return (int)cudaGetLastError();
@@ -975,46 +1328,88 @@ inline bool gemm_shape_ok(int M, int N, int K) {
   return M > 0 && N > 0 && K > 0 && K % 16 == 0 && K <= kMaxK && N % 8 == 0;
 }
 
-template <typename T, int BN>
+// The tile width of gemm_q8_bias's codes epilogue for n_seg segments of
+// seg columns: the first of tile_width(N), 256, 192, 128 and 64 that holds
+// each segment inside one tile; 0 if none does, or the segments are not
+// one or two of a multiple of 32 columns, at least 64
+// (ops/layer_fused_q8.py::codes_tile is its twin).
+inline int codes_tile(int N, int seg, int n_seg) {
+  if (seg < 64 || seg % 32 || n_seg > 2) return 0;
+  const int widths[5] = {sm::tile_width(N), 256, 192, 128, 64};
+  for (int bn : widths) {
+    bool ok = bn >= seg;
+    for (int k = 0; ok && k < n_seg; ++k)
+      ok = k * seg / bn == ((k + 1) * seg - 1) / bn;
+    if (ok) return bn;
+  }
+  return 0;
+}
+
+template <typename T, int BN, bool kStash>
 int launch_gemm_bias(const void* a, const void* sa, const void* wt,
-                     const void* sw, const void* bias, void* out, int M,
-                     int N, int K, int relu, cudaStream_t stream) {
-  CUtensorMap ma, mw, mo;
+                     const void* sw, const void* bias, void* out, void* q,
+                     void* s, int M, int N, int K, int relu, int seg,
+                     int n_codes, cudaStream_t stream) {
+  CUtensorMap ma, mw, mo = {};
   int e = sm::encode_s8(&ma, a, M, K, sm::kBM);
   if (!e) e = sm::encode_s8(&mw, wt, N, K, BN);
-  if (!e) e = encode_act<T>(&mo, out, M, N);
+  if (!e && n_codes < N) e = encode_act<T>(&mo, out, M, N);
   const int n_tiles_n = (N + BN - 1) / BN;
-  const long long tiles =
-      (long long)n_tiles_n * ((M + sm::kBM - 1) / sm::kBM);
-  const auto kernel = gemm_q8_bias_kernel<T, BN>;
-  constexpr int smem = sm::RingS8<BN, kBiasEpiBytes<BN, T>>::kBytes;
+  const long long units =
+      (long long)(kStash ? 1 : n_tiles_n) * ((M + sm::kBM - 1) / sm::kBM);
+  const auto kernel = gemm_q8_bias_kernel<T, BN, kStash>;
+  constexpr int smem = sm::RingS8<BN, kBiasEpiBytes<BN, T, kStash>>::kBytes;
   int grid = 0;
-  if (!e) e = sm::persistent_grid(kernel, smem, tiles, &grid);
+  if (!e)
+    e = sm::persistent_grid(kernel, smem, units, &grid, sm::kThreadsTf32);
   if (e) return e;
-  kernel<<<grid, sm::kThreads, smem, stream>>>(
-      ma, mw, mo, (const float*)sa, (const float*)sw, (const T*)bias, M, N,
-      K, relu, n_tiles_n);
+  kernel<<<grid, sm::kThreadsTf32, smem, stream>>>(
+      ma, mw, mo, (const float*)sa, (const float*)sw, (const T*)bias,
+      (int8_t*)q, (float*)s, M, N, K, relu, n_tiles_n, seg > 0 ? seg : N,
+      n_codes);
   return (int)cudaGetLastError();
 }
 
+// gemm_q8_bias with q null: out [M, N] in T. With q: the codes of the first
+// n_seg segments of seg columns to q [M, n_seg seg] and their scales to s
+// [n_seg, M]; the other columns to out [M, N], which is null when the
+// segments cover the row.
 template <typename T>
 int gemm_bias(const void* a, const void* sa, const void* wt, const void* sw,
-              const void* bias, void* out, int M, int N, int K, int relu,
-              cudaStream_t stream) {
+              const void* bias, void* out, void* q, void* s, int M, int N,
+              int K, int relu, int seg, int n_seg, cudaStream_t stream) {
   if (!gemm_shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
-  switch (sm::tile_width(N)) {
+  int bn = sm::tile_width(N), n_codes = 0;
+  if (q != nullptr) {
+    n_codes = seg * n_seg;
+    if (s == nullptr || seg <= 0 || n_seg <= 0 || n_codes > N ||
+        (out == nullptr) != (n_codes == N))
+      return (int)cudaErrorInvalidValue;
+    if (out == nullptr && n_seg == 1 && N > 256 && N <= 512)
+      return launch_gemm_bias<T, 256, true>(a, sa, wt, sw, bias, out, q, s, M,
+                                            N, K, relu, seg, n_codes, stream);
+    bn = codes_tile(N, seg, n_seg);
+  } else if (out == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (bn) {
     case 64:
-      return launch_gemm_bias<T, 64>(a, sa, wt, sw, bias, out, M, N, K, relu,
-                                     stream);
+      return launch_gemm_bias<T, 64, false>(a, sa, wt, sw, bias, out, q, s, M,
+                                            N, K, relu, seg, n_codes, stream);
     case 128:
-      return launch_gemm_bias<T, 128>(a, sa, wt, sw, bias, out, M, N, K,
-                                      relu, stream);
+      return launch_gemm_bias<T, 128, false>(a, sa, wt, sw, bias, out, q, s,
+                                             M, N, K, relu, seg, n_codes,
+                                             stream);
     case 192:
-      return launch_gemm_bias<T, 192>(a, sa, wt, sw, bias, out, M, N, K,
-                                      relu, stream);
+      return launch_gemm_bias<T, 192, false>(a, sa, wt, sw, bias, out, q, s,
+                                             M, N, K, relu, seg, n_codes,
+                                             stream);
+    case 256:
+      return launch_gemm_bias<T, 256, false>(a, sa, wt, sw, bias, out, q, s,
+                                             M, N, K, relu, seg, n_codes,
+                                             stream);
     default:
-      return launch_gemm_bias<T, 256>(a, sa, wt, sw, bias, out, M, N, K,
-                                      relu, stream);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -1073,39 +1468,74 @@ int gemm_res_ln(const void* a, const void* sa, const void* wt, const void* sw,
 template <int D, typename T>
 int launch_attention_d(const void* q, long long q_row, const void* sq,
                        const void* k, long long k_row, const void* sk,
-                       const void* vt, int vt_ld, const void* sv, void* o,
-                       int n_seq, int lq, int lk, int n_heads,
-                       float scale_log2e, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_q8_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_q8_smem<D>(kMaxLk));
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(n_seq, n_heads, (lq + kAttnRows - 1) / kAttnRows);
-  attention_q8_kernel<D, T><<<grid, kThreads, attn_q8_smem<D>(vt_ld),
-                              stream>>>(
-      (const int8_t*)q, q_row, (const float*)sq, (const int8_t*)k, k_row,
-      (const float*)sk, (const int8_t*)vt, vt_ld, (const float*)sv, (T*)o,
-      lq, lk, n_heads * D, scale_log2e);
+                       const void* vt, int vt_ld, const void* sv, void* codes,
+                       void* scales, void* o, int n_seq, int lq, int lk,
+                       int n_heads, float scale_log2e, cudaStream_t stream) {
+  const int hid = n_heads * D;
+  CUtensorMap mq, mk, mv;
+  constexpr auto kS8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  int e = sm::encode_swizzled(&mq, kS8, 1, q, (long long)n_seq * lq, hid,
+                              q_row, 64, D);
+  if (!e)
+    e = sm::encode_swizzled(&mk, kS8, 1, k, (long long)n_seq * lk, hid,
+                            k_row, kMaxLk, D);
+  if (!e) e = sm::encode_s8(&mv, vt, (long long)n_seq * hid, vt_ld, D);
+  if (e) return e;
+  const auto kernel = attention_q8_kernel<D, T>;
+  const int smem = AttnSmem<D>::bytes(n_heads);
+  cudaError_t ce = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AttnSmem<D>::bytes(kMaxHeads));
+  if (ce != cudaSuccess) return (int)ce;
+  // a persistent grid of clusters of n_heads blocks: as many as the card
+  // holds at once, at most one a sequence
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kAttnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n_heads;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3((unsigned)n_heads);
+  int clusters = 0;
+  ce = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (ce != cudaSuccess) return (int)ce;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  if (clusters > n_seq) clusters = n_seq;
+  cfg.gridDim = dim3((unsigned)(clusters * n_heads));
+  ce = cudaLaunchKernelEx(&cfg, kernel, mq, mk, mv, (const float*)sq,
+                          (const float*)sk, (const float*)sv, (int8_t*)codes,
+                          (float*)scales, (T*)o, n_seq, lq, lk, hid, n_heads,
+                          scale_log2e);
+  if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_attention(const void* q, long long q_row, const void* sq,
                      const void* k, long long k_row, const void* sk,
-                     const void* vt, int vt_ld, const void* sv, void* o,
-                     int n_seq, int lq, int lk, int n_heads, int head_dim,
-                     float scale_log2e, cudaStream_t stream) {
+                     const void* vt, int vt_ld, const void* sv, void* codes,
+                     void* scales, void* o, int n_seq, int lq, int lk,
+                     int n_heads, int head_dim, float scale_log2e,
+                     cudaStream_t stream) {
   if ((head_dim != 32 && head_dim != 64) || n_seq <= 0 || lq <= 0 ||
-      lk <= 0 || lk > kMaxLk || n_heads <= 0 || n_heads > 65535 ||
-      vt_ld != (lk + 31) / 32 * 32 || q_row % 16 || k_row % 16)
+      lq > kMaxRounds * kRoundRows || lk <= 0 || lk > kMaxLk ||
+      n_heads <= 0 || n_heads > kMaxHeads ||
+      (long long)n_seq * n_heads > 0x7fffffffll ||
+      vt_ld != (lk + 31) / 32 * 32 || q_row % 16 || k_row % 16 ||
+      lk % 4 || codes == nullptr || scales == nullptr)
     return (int)cudaErrorInvalidValue;
   return head_dim == 32
              ? launch_attention_d<32, T>(q, q_row, sq, k, k_row, sk, vt,
-                                         vt_ld, sv, o, n_seq, lq, lk, n_heads,
-                                         scale_log2e, stream)
+                                         vt_ld, sv, codes, scales, o, n_seq,
+                                         lq, lk, n_heads, scale_log2e, stream)
              : launch_attention_d<64, T>(q, q_row, sq, k, k_row, sk, vt,
-                                         vt_ld, sv, o, n_seq, lq, lk, n_heads,
-                                         scale_log2e, stream);
+                                         vt_ld, sv, codes, scales, o, n_seq,
+                                         lq, lk, n_heads, scale_log2e, stream);
 }
 
 }  // namespace
@@ -1115,9 +1545,8 @@ int launch_attention(const void* q, long long q_row, const void* sq,
 // weight codes as W^T [N, K] (wt).
 #define NYLON_Q8_ENTRY(name, T)                                                \
   int nylon_q8_quant_rows##name(const void* x, long long ld_x, int M, int K,  \
-                                int n_seg, void* q, void* s, void* stream) {  \
-    return launch_quant_rows<T>(x, ld_x, M, K, n_seg, q, s,                   \
-                                (cudaStream_t)stream);                        \
+                                void* q, void* s, void* stream) {             \
+    return launch_quant_rows<T>(x, ld_x, M, K, q, s, (cudaStream_t)stream);   \
   }                                                                           \
   int nylon_q8_quant_cols##name(const void* x, long long ld_x, int n_seq,     \
                                 int L, int hid, void* vt, void* sv,           \
@@ -1127,9 +1556,10 @@ int launch_attention(const void* q, long long q_row, const void* sq,
   }                                                                           \
   int nylon_q8_gemm_bias##name(const void* a, const void* sa, const void* wt, \
                                const void* sw, const void* bias, void* out,   \
-                               int M, int N, int K, int relu, void* stream) { \
-    return gemm_bias<T>(a, sa, wt, sw, bias, out, M, N, K, relu,              \
-                        (cudaStream_t)stream);                                \
+                               void* q, void* s, int M, int N, int K,         \
+                               int relu, int seg, int n_seg, void* stream) {  \
+    return gemm_bias<T>(a, sa, wt, sw, bias, out, q, s, M, N, K, relu, seg,   \
+                        n_seg, (cudaStream_t)stream);                         \
   }                                                                           \
   int nylon_q8_gemm_res_ln##name(                                             \
       const void* a, const void* sa, const void* wt, const void* sw,          \
@@ -1142,11 +1572,11 @@ int launch_attention(const void* q, long long q_row, const void* sq,
   int nylon_q8_attention##name(                                               \
       const void* q, long long q_row, const void* sq, const void* k,          \
       long long k_row, const void* sk, const void* vt, int vt_ld,             \
-      const void* sv, void* o, int n_seq, int lq, int lk, int n_heads,        \
-      int head_dim, float scale_log2e, void* stream) {                        \
-    return launch_attention<T>(q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, o,  \
-                               n_seq, lq, lk, n_heads, head_dim, scale_log2e, \
-                               (cudaStream_t)stream);                         \
+      const void* sv, void* codes, void* scales, void* o, int n_seq, int lq,  \
+      int lk, int n_heads, int head_dim, float scale_log2e, void* stream) {   \
+    return launch_attention<T>(q, q_row, sq, k, k_row, sk, vt, vt_ld, sv,     \
+                               codes, scales, o, n_seq, lq, lk, n_heads,      \
+                               head_dim, scale_log2e, (cudaStream_t)stream);  \
   }
 
 extern "C" {

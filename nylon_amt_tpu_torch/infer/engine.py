@@ -11,7 +11,11 @@ With ``precision="int8"`` the same five places take the W8A8 twins of K13
 (:mod:`nylon_amt_tpu_torch.ops.layer_fused_q8`): per-channel int8 weights,
 quantized once at pack time from the compute-dtype weights, and dynamic
 per-row int8 activations; the stem, the output heads, LayerNorm and softmax
-keep the exact path's numerics. On CUDA tensors every layer launches its
+keep the exact path's numerics. The int8 layers hand each other their
+outputs' row codes (``codes_out``, then ``x_codes`` / ``trg_codes`` /
+``enc_codes``), so only the first layer of each stream (the stem layer,
+the decoder's layer zero on the note queries, the first time layer)
+quantizes its input itself. On CUDA tensors every layer launches its
 kernels, in the compute dtype of the pack (bfloat16, or float32 as the
 default configuration); on CPU tensors the same code runs the plain
 versions.
@@ -196,13 +200,26 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     n_frame = config.input.num_frame
     n_note, hid = config.midi.num_note, m.hid_dim
     scale = sqrt_hid(hid, dt)
-    if packed.precision == "int8":
+    q8 = packed.precision == "int8"
+    if q8:
         stem_layer, enc_layer = lq.encoder_layer_with_stem_q8, \
             lq.encoder_layer_q8
         dec_zero, dec_layer = lq.decoder_layer_zero_q8, lq.decoder_layer_q8
     else:
         stem_layer, enc_layer = encoder_layer_with_stem, encoder_layer
         dec_zero, dec_layer = decoder_layer_zero, decoder_layer
+
+    def codes(out_codes: bool, **inputs):
+        """An int8 layer call's codes keywords: its inputs' row codes
+        (``x_codes`` ...) and ``codes_out``. Each int8 layer hands the next
+        its output's codes, made in its last kernel's epilogue, so only the
+        first layer of each stream quantizes its input; the exact layers
+        take none."""
+        return dict(inputs, codes_out=out_codes) if q8 else {}
+
+    def split(out, out_codes: bool):
+        """(a layer's output, its codes or None)."""
+        return (out[0], out[1:]) if q8 and out_codes else (out, None)
 
     def pack(group, i=None):
         """The layer call's packed weights: ``tf32=`` (its TF32 pairs) or
@@ -215,18 +232,26 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
 
     # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
     spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
-    h = stem_layer(spec_t, packed.k_eff, packed.b_eff, packed.pos_freq,
-                   packed.enc[0], m.enc_head, n_frame, dt, **pack("enc", 0))
+    h, hc = split(stem_layer(spec_t, packed.k_eff, packed.b_eff,
+                             packed.pos_freq, packed.enc[0], m.enc_head,
+                             n_frame, dt, **pack("enc", 0),
+                             **codes(True)), True)
     for i, p in enumerate(packed.enc[1:], 1):
-        h = enc_layer(h, p, m.enc_head, **pack("enc", i))
-    enc = h                                        # [B*n_frame, n_bin, hid]
+        h, hc = split(enc_layer(h, p, m.enc_head, **pack("enc", i),
+                                **codes(True, x_codes=hc)), True)
+    enc, enc_codes = h, hc                         # [B*n_frame, n_bin, hid]
 
     # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
     trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
-    trg = dec_zero(trg, enc, packed.dec_zero, m.dec_head,
-                   **pack("dec_zero"))
+    more = bool(packed.dec)
+    trg, tc = split(dec_zero(trg, enc, packed.dec_zero, m.dec_head,
+                             **pack("dec_zero"),
+                             **codes(more, enc_codes=enc_codes)), more)
     for i, p in enumerate(packed.dec):
-        trg = dec_layer(trg, enc, p, m.dec_head, **pack("dec", i))
+        more = i + 1 < len(packed.dec)
+        trg, tc = split(dec_layer(trg, enc, p, m.dec_head, **pack("dec", i),
+                                  **codes(more, trg_codes=tc,
+                                          enc_codes=enc_codes)), more)
     out = {f"{k}_A": _dense(trg, packed.heads_a[k])
            .reshape(B, n_frame, n_note, -1) for k in _KEYS}
     if packed.pos_time is None:                    # stage-1-only decoder
@@ -234,9 +259,14 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
 
     # ---- stage 2: SAtime, K3 per layer --------------------------------------
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
-    t = t.reshape(B * n_note, n_frame, hid) * scale + packed.pos_time
+    # (contiguous: at B = 1 the reshape is a view of the transpose)
+    t = (t.reshape(B * n_note, n_frame, hid) * scale
+         + packed.pos_time).contiguous()
+    tc = None
     for i, p in enumerate(packed.time):
-        t = enc_layer(t, p, m.dec_head, **pack("time", i))
+        more = i + 1 < len(packed.time)
+        t, tc = split(enc_layer(t, p, m.dec_head, **pack("time", i),
+                                **codes(more, x_codes=tc)), more)
     for k in _KEYS:
         out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
                          .reshape(B, n_note, n_frame, -1).transpose(1, 2))

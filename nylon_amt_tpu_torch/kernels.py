@@ -119,19 +119,20 @@ _SIGNATURES = {
     + [_F, _F, _I, _U, _I, _U, _F, _I, _P],
     # head_dim, lq, lk, bwd -> resident blocks per SM of the f32 attention
     "nylon_attention_f32_occupancy": [_I, _I, _I, _I],
-    # x, ld_x, M, K, n_seg, q, s, stream
-    "nylon_q8_quant_rows": [_P, _L, _I, _I, _I, _P, _P, _P],
+    # x, ld_x, M, K, q, s, stream
+    "nylon_q8_quant_rows": [_P, _L, _I, _I, _P, _P, _P],
     # x, ld_x, n_seq, L, hid, vt, sv, stream
     "nylon_q8_quant_cols": [_P, _L, _I, _I, _I, _P, _P, _P],
     # a [M, K], sa, wt (the weight codes K-major, W^T [N, K]), sw, bias,
-    # out, M, N, K, relu, stream
-    "nylon_q8_gemm_bias": [_P] * 6 + [_I] * 4 + [_P],
+    # out, q (the codes of the first n_seg column segments of seg columns;
+    # null: none), s (their scales), M, N, K, relu, seg, n_seg, stream
+    "nylon_q8_gemm_bias": [_P] * 8 + [_I] * 6 + [_P],
     # a, sa, wt, sw, bias, res, gamma, beta, out, q_out, s_out, M, N, K,
     # eps, stream
     "nylon_q8_gemm_res_ln": [_P] * 11 + [_I] * 3 + [_F, _P],
-    # q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, o, n_seq, lq, lk, n_heads,
-    # head_dim, scale_log2e, stream
-    "nylon_q8_attention": [_P, _L, _P, _P, _L, _P, _P, _I, _P, _P]
+    # q, q_row, sq, k, k_row, sk, vt, vt_ld, sv, codes, scales, o (null:
+    # not written), n_seq, lq, lk, n_heads, head_dim, scale_log2e, stream
+    "nylon_q8_attention": [_P, _L, _P, _P, _L, _P, _P, _I, _P, _P, _P, _P]
     + [_I] * 5 + [_F, _P],
 }
 

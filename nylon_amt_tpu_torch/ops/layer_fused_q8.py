@@ -18,11 +18,24 @@ f32 softmax, residuals in the compute dtype).
 A CPU tensor takes the plain version; any other device launches the
 hand-written kernels of ``csrc/layer_fused_q8.cu`` (a row quantizer, a
 transposing column quantizer for V, an s8 x s8 -> s32 tensor-core GEMM with
-a dequantizing epilogue, the same GEMM with the residual + shared LayerNorm
-epilogue, and an int8 attention kernel for head_dim 32 or 64), each for
+a dequantizing epilogue that can also quantize rows of its output, the same
+GEMM with the residual + shared LayerNorm epilogue, and an int8 attention
+kernel for head_dim 32 or 64 that writes its output's row codes), each for
 bfloat16 or float32 activations (the compute dtype), or raises. The plain
-versions follow the JAX bodies op for op; the two GEMMs' are named
-(:func:`gemm_q8_bias_plain`, :func:`gemm_q8_res_ln_plain`).
+versions follow the JAX bodies op for op; the kernels' are named
+(:func:`gemm_q8_bias_plain`, :func:`gemm_q8_bias_codes_plain`,
+:func:`gemm_q8_res_ln_plain`, :func:`attention_q8_plain`).
+
+On the card a tensor that a GEMM reads as codes leaves the kernel that
+makes it as codes (the row quantization folded into its epilogue: Q and K
+of the QKV product, the cross Q and K, the FFN hidden, the heads' output,
+each layer's output when the caller asks for it with ``codes_out``), so a
+layer quantizes with the row quantizer only an input that no kernel before
+it wrote as codes. The layers take their inputs' codes as keyword
+arguments (``x_codes``, ``trg_codes``, ``enc_codes``) and hand back their
+output's with ``codes_out``; ``infer/engine.py::forward`` threads them from
+layer to layer. The codes are those :func:`_quant_rows` gives of the same
+values, bit for bit, on either device.
 
 The GEMM kernels read each weight matrix K-major, as ``W^T [N, K]``
 (8-bit ``wgmma`` reads shared-memory operands K-major only): the layers on
@@ -57,11 +70,15 @@ _EXACT_MAX_K = (2 ** 24) // (127 * 127)  # 1040
 # What the CUDA kernels take (csrc/layer_fused_q8.cu).
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_MAX_HID = 256    # the LayerNorm epilogue owns a full row
-KERNEL_MAX_KEYS = 256   # K and V of a sequence sit in shared memory
+KERNEL_MAX_KEYS = 256   # a head's K and V of a sequence sit in shared memory
+KERNEL_KEY_STEP = 4     # a sequence's key scales: a copy of 16-byte rows
 KERNEL_MAX_ROW = 1024   # the row quantizer keeps a row in registers
-KERNEL_HID_STEP = 64    # V's column quantizer: 64 columns a block
 KERNEL_K_STEP = 16      # the GEMMs' K: a TMA row of K bytes (16-byte rows)
 KERNEL_N_STEP = 8       # the GEMMs' N: 16-byte output rows
+# gemm_q8_bias's codes epilogue: segments of a multiple of 32 columns, at
+# least 64, each inside one tile of at most 256 columns; a whole row of up
+# to 512 columns over two tiles (the codes only)
+KERNEL_MAX_TILE = 256
 
 
 class Q8EncoderLayerParams(NamedTuple):
@@ -218,6 +235,18 @@ def gemm_q8_bias_plain(aq, sa, wq, sw, bias, relu=False):
     return torch.relu(y) if relu else y
 
 
+def gemm_q8_bias_codes_plain(aq, sa, wq, sw, bias, relu, seg, n_seg):
+    """The plain twin of ``gemm_q8_bias_kernel`` with its codes epilogue:
+    returns (out, codes, scales), ``out`` :func:`gemm_q8_bias_plain`'s (the
+    kernel writes only its columns from ``n_seg * seg`` on), ``codes [M,
+    n_seg * seg]`` and ``scales [n_seg, M]`` :func:`_quant_rows` of each of
+    its first ``n_seg`` column segments of ``seg`` columns."""
+    out = gemm_q8_bias_plain(aq, sa, wq, sw, bias, relu)
+    quant = [_quant_rows(out[:, i * seg:(i + 1) * seg]) for i in range(n_seg)]
+    return (out, torch.cat([q for q, _ in quant], dim=1),
+            torch.stack([s[:, 0] for _, s in quant]))
+
+
 def gemm_q8_res_ln_plain(aq, sa, wq, sw, bias, res, g, b, quant_out=False):
     """The plain twin of the s8 GEMM + residual + LayerNorm kernel
     (``gemm_q8_res_ln_kernel``, ``nylon_q8_gemm_res_ln``): returns ``(out,
@@ -244,15 +273,16 @@ def _quant_cols(v):
     return vq, av * (1.0 / (127.0 * 127.0))
 
 
-def _mha_block_q8(q, k, v, n_heads, scale):
-    """Per-head one-pass attention with int8 score and PV products on
-    ``q [bn, Lq, hid]``, ``k/v [bn, Lk, hid]`` in the compute dtype."""
-    dt = q.dtype
-    d = q.shape[-1] // n_heads
-    qq, sq = _quant_rows(q)                 # scales span all heads
-    kq, sk = _quant_rows(k)
+def attention_q8_plain(qq, sq, kq, sk, vq, sv, n_heads, scale, dt):
+    """The plain twin of the int8 attention kernel (``attention_q8_kernel``,
+    ``nylon_q8_attention``): ``_mha_block_q8``'s body on the codes of Q and
+    K (``qq [bn, Lq, hid]``, ``kq [bn, Lk, hid]``) with their row scales
+    ``[bn, L, 1]`` and V's per-column codes ``vq [bn, Lk, hid]`` with their
+    scales ``sv [bn, 1, hid]`` (:func:`_quant_cols`), then the row
+    quantization of the output: returns (out ``[bn, Lq, hid]`` in ``dt``,
+    its codes, its scales ``[bn, Lq, 1]``)."""
+    d = qq.shape[-1] // n_heads
     sk_t = sk.transpose(-1, -2)
-    vq, sv = _quant_cols(v)
     sqc = sq * (scale * _LOG2E)
     outs = []
     for h in range(n_heads):
@@ -264,7 +294,18 @@ def _mha_block_q8(q, k, v, n_heads, scale):
         pq = torch.round(p * 127.0)
         o = _qdot(pq, vq[..., sl]) * sv[..., sl]
         outs.append((o / l).to(dt))
-    return torch.cat(outs, dim=-1)
+    out = torch.cat(outs, dim=-1)
+    return (out, *_quant_rows(out))
+
+
+def _mha_block_q8(q, k, v, n_heads, scale):
+    """Per-head one-pass attention with int8 score and PV products on
+    ``q [bn, Lq, hid]``, ``k/v [bn, Lk, hid]`` in the compute dtype."""
+    qq, sq = _quant_rows(q)                 # scales span all heads
+    kq, sk = _quant_rows(k)
+    vq, sv = _quant_cols(v)
+    return attention_q8_plain(qq, sq, kq, sk, vq, sv, n_heads, scale,
+                              q.dtype)[0]
 
 
 def _ffn_ln_q8(res, attn, g, b, w1, s1, b1, w2, s2, b2, dt):
@@ -325,18 +366,15 @@ def decoder_layer_q8_plain(trg, enc, p: Q8CrossLayerParams, n_heads: int):
 
 # ---------------------------------------------------------------- kernels --
 
-def quant_rows_cuda(x2, n_seg: int = 1):
-    """The row quantizer on the card: ``x2 [M, >= n_seg*K]`` bf16 or f32 (a
-    row stride that is a multiple of 8, unit column stride) whose first
-    ``n_seg`` column segments of ``K = x2.shape[1] // n_seg`` (or the
-    whole row for ``n_seg`` 1) are quantized each on their own -> (int8
-    ``[M, n_seg*K]``, f32 scales ``[n_seg, M]``)."""
-    m, width = x2.shape
-    k = width // n_seg
-    q = torch.empty((m, n_seg * k), dtype=torch.int8, device=x2.device)
-    s = torch.empty((n_seg, m), dtype=torch.float32, device=x2.device)
+def quant_rows_cuda(x2):
+    """The row quantizer on the card: ``x2 [M, K]`` bf16 or f32 (a row
+    stride that is a multiple of 8, unit column stride) -> (int8 ``[M,
+    K]``, f32 scales ``[M]``)."""
+    m, k = x2.shape
+    q = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    s = torch.empty((m,), dtype=torch.float32, device=x2.device)
     kernels.call(kernels.entry("nylon_q8_quant_rows", x2.dtype),
-                 x2.data_ptr(), x2.stride(0), m, k, n_seg, q.data_ptr(),
+                 x2.data_ptr(), x2.stride(0), m, k, q.data_ptr(),
                  s.data_ptr(), kernels.stream_of(x2))
     return q, s
 
@@ -345,9 +383,9 @@ def quant_cols_cuda(v2, n: int):
     """V's quantizer on the card: ``v2 [n*Lk, hid]`` bf16 or f32
     (row-strided) ->
     (int8 codes TRANSPOSED per sequence, ``[n, hid, Lk_pad]`` with the keys
-    padded with zero codes to a multiple of 32, so that the attention
-    kernel reads V^T with 16-byte loads; f32 scales ``[n, hid]`` with P's
-    1/127 folded in)."""
+    padded with zero codes to a multiple of 32, the operand layout of the
+    attention's PV product; f32 scales ``[n, hid]`` with P's 1/127 folded
+    in)."""
     rows, hid = v2.shape
     lk = rows // n
     lk_pad = -(-lk // 32) * 32
@@ -357,6 +395,36 @@ def quant_cols_cuda(v2, n: int):
                  v2.data_ptr(), v2.stride(0), n, lk, hid, vt.data_ptr(),
                  sv.data_ptr(), kernels.stream_of(v2))
     return vt, sv
+
+
+def tile_width(n: int) -> int:
+    """The s8 GEMMs' column tile for an output ``n`` columns wide (the
+    fewest tiles of at most 256 columns, each a multiple of 64:
+    ``gemm_sm90.cuh::tile_width``)."""
+    tiles = -(-n // KERNEL_MAX_TILE)
+    width = -(-n // tiles)
+    return -(-width // 64) * 64
+
+
+def codes_tile(n: int, seg: int, n_seg: int, codes_only: bool) -> int:
+    """The column tile that ``gemm_q8_bias_kernel``'s codes epilogue takes
+    for the row quantization of the first ``n_seg`` segments of ``seg`` of
+    ``n`` columns (``csrc/layer_fused_q8.cu::gemm_bias`` / ``codes_tile``),
+    or 0 where it takes none (then the wrapper quantizes the T output
+    with the row quantizer): a whole row of 257-512 columns, codes only,
+    over two tiles of 256; else the first of ``tile_width(n)``, 256, 192,
+    128, 64 that holds each segment inside one tile, for one or two
+    segments of a multiple of 32 columns, at least 64."""
+    if codes_only and n_seg == 1 and seg == n \
+            and KERNEL_MAX_TILE < n <= 2 * KERNEL_MAX_TILE:
+        return KERNEL_MAX_TILE
+    if seg < 64 or seg % 32 or n_seg > 2:
+        return 0
+    for bn in (tile_width(n), 256, 192, 128, 64):
+        if bn >= seg and all(k * seg // bn == ((k + 1) * seg - 1) // bn
+                             for k in range(n_seg)):
+            return bn
+    return 0
 
 
 def check_gemm_q8(name: str, m: int, k: int, n: int, dtype,
@@ -397,18 +465,48 @@ def gemm_wt(name: str, wq, wt) -> int:
     return wt.data_ptr()
 
 
-def _gemm_q8(aq, sa, wq, sw, bias, relu=False, wt=None):
+def _gemm_q8(aq, sa, wq, sw, bias, relu=False, wt=None, *, seg=0,
+             n_seg=0, t_out=True):
     """``dt((f32(aq @ wq) * sa) * sw) + bias`` [then ReLU], in the bias's
-    dtype ``dt`` (the compute dtype); ``wt``: ``wq``'s K-major pack."""
+    dtype ``dt`` (the compute dtype); ``wt``: ``wq``'s K-major pack.
+
+    With ``n_seg``: also the row quantization of the output's first
+    ``n_seg`` column segments of ``seg`` columns, from the kernel's
+    epilogue; those columns then leave as codes only. Returns (out, codes
+    ``[M, n_seg * seg]``, scales ``[n_seg, M]``), ``out [M, N]`` holding
+    the other columns, or None with ``t_out`` False (the segments cover the
+    row). Where the epilogue takes no such segments (:func:`codes_tile`) the
+    row quantizer quantizes each segment of the T output."""
     (m, k), n = aq.shape, wq.shape[1]
     check_gemm_q8("gemm_q8_bias", m, k, n, bias.dtype)
     w_ptr = gemm_wt("gemm_q8_bias", wq, wt)
-    out = torch.empty((m, n), dtype=bias.dtype, device=aq.device)
-    kernels.call(kernels.entry("nylon_q8_gemm_bias", bias.dtype),
-                 aq.data_ptr(), sa.data_ptr(), w_ptr, sw.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), m, n, k, int(relu),
-                 kernels.stream_of(aq))
-    return out
+    entry = kernels.entry("nylon_q8_gemm_bias", bias.dtype)
+    stream = kernels.stream_of(aq)
+    if not n_seg:
+        out = torch.empty((m, n), dtype=bias.dtype, device=aq.device)
+        kernels.call(entry, aq.data_ptr(), sa.data_ptr(), w_ptr,
+                     sw.data_ptr(), bias.data_ptr(), out.data_ptr(), None,
+                     None, m, n, k, int(relu), 0, 0, stream)
+        return out
+    if not t_out and seg * n_seg != n:
+        raise ValueError(f"gemm_q8_bias: {n_seg} segments of {seg} columns "
+                         f"do not cover the {n} columns")
+    if not codes_tile(n, seg, n_seg, not t_out):
+        out = _gemm_q8(aq, sa, wq, sw, bias, relu, wt)
+        quant = [quant_rows_cuda(out[:, i * seg:(i + 1) * seg])
+                 for i in range(n_seg)]
+        return (out if t_out else None,
+                torch.cat([q for q, _ in quant], dim=1),
+                torch.stack([s for _, s in quant]))
+    out = torch.empty((m, n), dtype=bias.dtype, device=aq.device) \
+        if t_out else None
+    q = torch.empty((m, seg * n_seg), dtype=torch.int8, device=aq.device)
+    s = torch.empty((n_seg, m), dtype=torch.float32, device=aq.device)
+    kernels.call(entry, aq.data_ptr(), sa.data_ptr(), w_ptr, sw.data_ptr(),
+                 bias.data_ptr(), None if out is None else out.data_ptr(),
+                 q.data_ptr(), s.data_ptr(), m, n, k, int(relu), seg, n_seg,
+                 stream)
+    return out, q, s
 
 
 def _gemm_q8_res_ln(aq, sa, wq, sw, bias, res, g, b, quant_out=False,
@@ -435,11 +533,12 @@ def _gemm_q8_res_ln(aq, sa, wq, sw, bias, res, g, b, quant_out=False,
     return out, q, s
 
 
-def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads, dt):
+def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads, dt, t_out=False):
     """int8 attention of ``n`` sequences: Q codes ``qq [n*Lq, hid]`` and K
-    codes ``kq [n*Lk, hid]`` (row-strided views) with their row scales,
-    V^T codes and column scales from :func:`quant_cols_cuda` -> ``[n*Lq,
-    hid]`` in ``dt``."""
+    codes ``kq [n*Lk, hid]`` (row-strided views) with their row scales
+    ``[n*L]``, V^T codes and column scales from :func:`quant_cols_cuda` ->
+    (the output ``[n*Lq, hid]`` in ``dt`` with ``t_out``, else None; its
+    row codes ``[n*Lq, hid]``; their scales ``[n*Lq]``)."""
     hid = qq.shape[1]
     lq, lk = qq.shape[0] // n, kq.shape[0] // n
     for name, t in (("q", qq), ("k", kq)):
@@ -447,34 +546,46 @@ def _attention_q8(qq, sq, kq, sk, vt, sv, n, n_heads, dt):
             raise ValueError(f"attention_q8: {name} codes must have unit "
                              "column stride, a row stride that is a "
                              "multiple of 16 and a 16-byte aligned start")
-    out = torch.empty((qq.shape[0], hid), dtype=dt, device=qq.device)
+    if lk % KERNEL_KEY_STEP or sk.data_ptr() % 16:
+        raise ValueError(f"attention_q8: the kernel copies a sequence's key "
+                         f"scales in 16-byte rows: it takes a multiple of "
+                         f"{KERNEL_KEY_STEP} keys and 16-byte aligned scales"
+                         f"; got {lk} keys")
+    dev = qq.device
+    out = torch.empty((qq.shape[0], hid), dtype=dt, device=dev) \
+        if t_out else None
+    codes = torch.empty((qq.shape[0], hid), dtype=torch.int8, device=dev)
+    scales = torch.empty((qq.shape[0],), dtype=torch.float32, device=dev)
     kernels.call(kernels.entry("nylon_q8_attention", dt), qq.data_ptr(),
                  qq.stride(0),
                  sq.data_ptr(), kq.data_ptr(), kq.stride(0), sk.data_ptr(),
-                 vt.data_ptr(), vt.shape[2], sv.data_ptr(), out.data_ptr(),
+                 vt.data_ptr(), vt.shape[2], sv.data_ptr(), codes.data_ptr(),
+                 scales.data_ptr(), None if out is None else out.data_ptr(),
                  n, lq, lk, n_heads, hid // n_heads,
                  _scale(hid, n_heads) * _LOG2E, kernels.stream_of(qq))
-    return out
+    return out, codes, scales
 
 
 def check_geometry(name: str, hid: int, n_heads: int, pf: int,
                    lk: int) -> None:
     """Raise unless the int8 kernels take this layer geometry: head_dim 32
-    or 64 (the attention of ``csrc/layer_fused_q8.cu`` is its own), hid a
-    multiple of 64 (V's column quantizer) up to 256 (the LayerNorm
-    epilogue owns a full row), pf a multiple of 16 (the GEMMs' K) up to
-    1024 (the row quantizer), at most 256 keys. JAX's int8 layers take any
-    geometry."""
+    or 64 (the attention of ``csrc/layer_fused_q8.cu`` is its own), hid up
+    to 256 (the LayerNorm epilogue owns a full row), pf a multiple of 16
+    (the GEMMs' K) up to 1024 (the row quantizer, where the FFN hidden is
+    wider than the codes epilogue takes), at most 256 keys and queries, a
+    multiple of 4 keys (``lk``: each attention's keys, an int or a tuple).
+    JAX's int8 layers take any geometry."""
+    lks = lk if isinstance(lk, tuple) else (lk,)
     if (hid % n_heads or hid // n_heads not in KERNEL_HEAD_DIMS
-            or hid % KERNEL_HID_STEP or hid > KERNEL_MAX_HID
+            or hid > KERNEL_MAX_HID
             or pf % KERNEL_K_STEP or pf > KERNEL_MAX_ROW
-            or lk > KERNEL_MAX_KEYS):
+            or any(k > KERNEL_MAX_KEYS or k % KERNEL_KEY_STEP for k in lks)):
         raise ValueError(
-            f"{name}: kernels need head_dim in {KERNEL_HEAD_DIMS}, hid % "
-            f"{KERNEL_HID_STEP} == 0 and <= {KERNEL_MAX_HID}, pf % "
-            f"{KERNEL_K_STEP} == 0 and <= {KERNEL_MAX_ROW}, <= "
-            f"{KERNEL_MAX_KEYS} keys; got hid {hid}, {n_heads} heads, pf "
-            f"{pf}, {lk} keys")
+            f"{name}: kernels need head_dim in {KERNEL_HEAD_DIMS}, hid <= "
+            f"{KERNEL_MAX_HID}, pf % {KERNEL_K_STEP} == 0 and <= "
+            f"{KERNEL_MAX_ROW}, <= {KERNEL_MAX_KEYS} keys and a multiple of "
+            f"{KERNEL_KEY_STEP}; got hid {hid}, {n_heads} heads, pf {pf}, "
+            f"{lk} keys")
 
 
 def layer_wt(name: str, fields, wt) -> dict:
@@ -525,123 +636,173 @@ _CROSS = ("wq", "sq", "bq", "wkv", "skv", "bkv") + _FFN_LN
 _SELF = ("wsqkv", "ssqkv", "bsqkv", "wso", "sso", "bso")
 
 
-def _ffn_tail(heads, res, p, wt):
-    """LN(res + heads @ wo) -> LN(. + FFN(.)) on row-major 2-D tensors."""
-    hq, sh = quant_rows_cuda(heads)
-    y, yq, sy = _gemm_q8_res_ln(hq, sh[0], p.wo, p.so, p.bo, res, p.g, p.b,
+def _codes_of(name, x2, codes):
+    """``x2 [M, hid]``'s row quantization: ``codes`` (int8 ``[M, hid]``,
+    f32 ``[M]``) where the caller has them, else the row quantizer's."""
+    if codes is None:
+        return quant_rows_cuda(x2)
+    q, s = codes
+    if (tuple(q.shape) != tuple(x2.shape) or q.dtype != torch.int8
+            or tuple(s.shape) != (x2.shape[0],) or s.dtype != torch.float32
+            or not (q.is_contiguous() and s.is_contiguous())
+            or q.device != x2.device or s.device != x2.device):
+        raise ValueError(f"{name}: the codes of an input {tuple(x2.shape)} "
+                         f"are contiguous int8 {tuple(x2.shape)} and f32 "
+                         f"[{x2.shape[0]}] on {x2.device}; got "
+                         f"{tuple(q.shape)} {q.dtype}, {tuple(s.shape)} "
+                         f"{s.dtype}")
+    return q, s
+
+
+def _with_codes(out):
+    """(out, its row codes ``[n*L, hid]``, scales ``[n*L]``): what a layer
+    with ``codes_out`` returns, from :func:`_quant_rows` (the plain path)."""
+    q, s = _quant_rows(out)
+    return out, q.reshape(-1, out.shape[-1]), s.reshape(-1)
+
+
+def _ffn_tail(hq, sh, res, p, wt, codes_out):
+    """LN(res + heads @ wo) -> LN(. + FFN(.)) on row-major 2-D tensors, the
+    heads as their codes: (out, its codes and scales with ``codes_out``,
+    else None twice)."""
+    y, yq, sy = _gemm_q8_res_ln(hq, sh, p.wo, p.so, p.bo, res, p.g, p.b,
                                 quant_out=True, wt=wt["wo"])
-    mid = _gemm_q8(yq, sy, p.w1, p.s1, p.b1, relu=True, wt=wt["w1"])
-    mq, sm = quant_rows_cuda(mid)
+    pf = p.w1.shape[1]
+    _, mq, sm = _gemm_q8(yq, sy, p.w1, p.s1, p.b1, relu=True, wt=wt["w1"],
+                         seg=pf, n_seg=1, t_out=False)
     return _gemm_q8_res_ln(mq, sm[0], p.w2, p.s2, p.b2, y, p.g, p.b,
-                           wt=wt["w2"])[0]
+                           quant_out=codes_out, wt=wt["w2"])
 
 
-def _self_attention(x2, wqkv, sqkv, bqkv, n, n_heads, wt, xq=None, sx=None):
-    """Packed QKV projection (``wt``: ``wqkv``'s K-major pack) and int8
-    self-attention of ``x2 [n*L, hid]``; ``xq, sx``: x2's row quantization
-    where the caller has it already."""
-    hid = x2.shape[1]
-    if xq is None:
-        xq, sx = quant_rows_cuda(x2)
-        sx = sx[0]
-    qkv = _gemm_q8(xq, sx, wqkv, sqkv, bqkv, wt=wt)
-    qk, sqk = quant_rows_cuda(qkv[:, :2 * hid], n_seg=2)  # Q, K rows
+def _self_attention(xq, sx, wqkv, sqkv, bqkv, n, n_heads, wt, dt):
+    """Packed QKV projection of the codes ``xq [n*L, hid]`` (``wt``:
+    ``wqkv``'s K-major pack; Q and K leave it as codes, V in ``dt``) and
+    int8 self-attention -> the heads' codes and scales."""
+    hid = xq.shape[1]
+    qkv, qk, sqk = _gemm_q8(xq, sx, wqkv, sqkv, bqkv, wt=wt, seg=hid,
+                            n_seg=2)
     vt, sv = quant_cols_cuda(qkv[:, 2 * hid:], n)
-    return _attention_q8(qk[:, :hid], sqk[0], qk[:, hid:], sqk[1], vt, sv,
-                         n, n_heads, x2.dtype)
+    _, hq, sh = _attention_q8(qk[:, :hid], sqk[0], qk[:, hid:], sqk[1], vt,
+                              sv, n, n_heads, dt)
+    return hq, sh
 
 
-def _cross_tail_cuda(t2, e2, p, n, n_heads, wt, tq=None, st=None):
+def _cross_tail_cuda(t2, tq, st, eq, se, p, n, n_heads, wt, codes_out):
+    """The cross tail on ``t2 [n*Lq, hid]`` and the encoder output's codes
+    ``eq [n*Lk, hid]``, ``tq, st``: t2's codes."""
     hid = t2.shape[1]
-    if tq is None:
-        tq, st = quant_rows_cuda(t2)
-        st = st[0]
-    q = _gemm_q8(tq, st, p.wq, p.sq, p.bq, wt=wt["wq"])
-    eq, se = quant_rows_cuda(e2)
-    kv = _gemm_q8(eq, se[0], p.wkv, p.skv, p.bkv, wt=wt["wkv"])
-    qq, sq = quant_rows_cuda(q)
-    kq, sk = quant_rows_cuda(kv[:, :hid])
+    _, qq, sq = _gemm_q8(tq, st, p.wq, p.sq, p.bq, wt=wt["wq"], seg=hid,
+                         n_seg=1, t_out=False)
+    kv, kq, sk = _gemm_q8(eq, se, p.wkv, p.skv, p.bkv, wt=wt["wkv"],
+                          seg=hid, n_seg=1)
     vt, sv = quant_cols_cuda(kv[:, hid:], n)
-    heads = _attention_q8(qq, sq[0], kq, sk[0], vt, sv, n, n_heads, t2.dtype)
-    return _ffn_tail(heads, t2, p, wt)
+    _, hq, sh = _attention_q8(qq, sq[0], kq, sk[0], vt, sv, n, n_heads,
+                              t2.dtype)
+    return _ffn_tail(hq, sh, t2, p, wt, codes_out)
 
 
-def _encoder_layer_q8_cuda(name, x, p, n_heads, wt):
+def _encoder_layer_q8_cuda(name, x, p, n_heads, wt, x_codes, codes_out):
     n, l, hid = x.shape
     wt = _check_kernel_args(name, [("x", x)], p, ("wqkv", "sqkv", "bqkv")
                             + _FFN_LN, n_heads, l, wt)
     x2 = x.view(n * l, hid)
-    heads = _self_attention(x2, p.wqkv, p.sqkv, p.bqkv, n, n_heads,
-                            wt["wqkv"])
-    return _ffn_tail(heads, x2, p, wt).view(n, l, hid)
+    xq, sx = _codes_of(name, x2, x_codes)
+    hq, sh = _self_attention(xq, sx, p.wqkv, p.sqkv, p.bqkv, n, n_heads,
+                             wt["wqkv"], x.dtype)
+    out, q, s = _ffn_tail(hq, sh, x2, p, wt, codes_out)
+    out = out.view(n, l, hid)
+    return (out, q, s) if codes_out else out
 
 
-def encoder_layer_q8(x, p: Q8EncoderLayerParams, n_heads: int, wt=None):
+def encoder_layer_q8(x, p: Q8EncoderLayerParams, n_heads: int, wt=None, *,
+                     x_codes=None, codes_out: bool = False):
     """int8 self-attention layer: ``x [n, L, hid] -> [n, L, hid]``. ``wt``:
-    :func:`pack_wt` of ``p``, which the kernels need on the card."""
+    :func:`pack_wt` of ``p``, which the kernels need on the card.
+    ``x_codes``: x's row quantization (int8 ``[n*L, hid]``, f32 ``[n*L]``)
+    where the caller has it (a layer's ``codes_out``), so the layer
+    quantizes nothing itself; with ``codes_out`` the layer returns (out,
+    its codes, their scales) (on the CPU, :func:`_quant_rows` of the
+    output)."""
     if x.device.type == "cpu":
-        return encoder_layer_q8_plain(x, p, n_heads)
+        out = encoder_layer_q8_plain(x, p, n_heads)
+        return _with_codes(out) if codes_out else out
     with torch.cuda.device(x.device):
-        out = _encoder_layer_q8_cuda("encoder_layer_q8", x, p, n_heads, wt)
+        out = _encoder_layer_q8_cuda("encoder_layer_q8", x, p, n_heads, wt,
+                                     x_codes, codes_out)
     kernels.launches["encoder_layer_q8"] += 1
     return out
 
 
 def encoder_layer_with_stem_q8(spec_t, keff, beff, pos,
                                p: Q8EncoderLayerParams, n_heads: int,
-                               n_frame: int, out_dtype, wt=None):
+                               n_frame: int, out_dtype, wt=None, *,
+                               codes_out: bool = False):
     """The f32 stem + position embedding (K2's stem kernel), then the int8
     first encoder layer. The kernels take ``out_dtype`` bfloat16 or
-    float32 (``wt`` as for :func:`encoder_layer_q8`)."""
+    float32 (``wt`` and ``codes_out`` as for :func:`encoder_layer_q8`)."""
     if spec_t.device.type == "cpu":
-        return encoder_layer_with_stem_q8_plain(spec_t, keff, beff, pos, p,
-                                                n_heads, n_frame, out_dtype)
+        out = encoder_layer_with_stem_q8_plain(spec_t, keff, beff, pos, p,
+                                               n_heads, n_frame, out_dtype)
+        return _with_codes(out) if codes_out else out
     kernels.check_dtype("encoder_layer_with_stem_q8", out_dtype)
     with torch.cuda.device(spec_t.device):
         x = lf._stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype)
         out = _encoder_layer_q8_cuda("encoder_layer_with_stem_q8", x, p,
-                                     n_heads, wt)
+                                     n_heads, wt, None, codes_out)
     kernels.launches["encoder_layer_with_stem_q8"] += 1
     return out
 
 
 def decoder_layer_zero_q8(trg, enc, p: Q8CrossLayerParams, n_heads: int,
-                          wt=None):
+                          wt=None, *, trg_codes=None, enc_codes=None,
+                          codes_out: bool = False):
     """int8 cross-attention-only decoder layer (the cross fields of ``p``,
-    ``list(p)[6:]``; ``wt`` as for :func:`encoder_layer_q8`)."""
+    ``list(p)[6:]``; ``wt`` and ``codes_out`` as for
+    :func:`encoder_layer_q8`; ``trg_codes`` / ``enc_codes``: the inputs'
+    row quantizations, as ``x_codes`` there)."""
     if trg.device.type == "cpu":
-        return decoder_layer_zero_q8_plain(trg, enc, p, n_heads)
+        out = decoder_layer_zero_q8_plain(trg, enc, p, n_heads)
+        return _with_codes(out) if codes_out else out
     n, lq, hid = trg.shape
-    wt = _check_kernel_args("decoder_layer_zero_q8",
-                            [("trg", trg), ("enc", enc)], p, _CROSS, n_heads,
-                            enc.shape[1], wt)
+    name = "decoder_layer_zero_q8"
+    wt = _check_kernel_args(name, [("trg", trg), ("enc", enc)], p, _CROSS,
+                            n_heads, enc.shape[1], wt)
     with torch.cuda.device(trg.device):
-        out = _cross_tail_cuda(trg.view(n * lq, hid), enc.view(-1, hid), p,
-                               n, n_heads, wt)
-    kernels.launches["decoder_layer_zero_q8"] += 1
-    return out.view(n, lq, hid)
+        t2, e2 = trg.view(n * lq, hid), enc.view(-1, hid)
+        tq, st = _codes_of(name, t2, trg_codes)
+        eq, se = _codes_of(name, e2, enc_codes)
+        out, q, s = _cross_tail_cuda(t2, tq, st, eq, se, p, n, n_heads, wt,
+                                     codes_out)
+    kernels.launches[name] += 1
+    out = out.view(n, lq, hid)
+    return (out, q, s) if codes_out else out
 
 
 def decoder_layer_q8(trg, enc, p: Q8CrossLayerParams, n_heads: int,
-                     wt=None):
-    """int8 self + cross decoder layer (``wt`` as for
-    :func:`encoder_layer_q8`)."""
+                     wt=None, *, trg_codes=None, enc_codes=None,
+                     codes_out: bool = False):
+    """int8 self + cross decoder layer (the keywords as for
+    :func:`decoder_layer_zero_q8`)."""
     if trg.device.type == "cpu":
-        return decoder_layer_q8_plain(trg, enc, p, n_heads)
+        out = decoder_layer_q8_plain(trg, enc, p, n_heads)
+        return _with_codes(out) if codes_out else out
     n, lq, hid = trg.shape
-    wt = _check_kernel_args("decoder_layer_q8", [("trg", trg), ("enc", enc)],
-                            p, _SELF + _CROSS, n_heads, max(lq, enc.shape[1]),
+    name = "decoder_layer_q8"
+    wt = _check_kernel_args(name, [("trg", trg), ("enc", enc)], p,
+                            _SELF + _CROSS, n_heads, (lq, enc.shape[1]),
                             wt)
     with torch.cuda.device(trg.device):
-        t2 = trg.view(n * lq, hid)
-        heads = _self_attention(t2, p.wsqkv, p.ssqkv, p.bsqkv, n, n_heads,
-                                wt["wsqkv"])
-        hq, sh = quant_rows_cuda(heads)
+        t2, e2 = trg.view(n * lq, hid), enc.view(-1, hid)
+        tq, st = _codes_of(name, t2, trg_codes)
+        hq, sh = _self_attention(tq, st, p.wsqkv, p.ssqkv, p.bsqkv, n,
+                                 n_heads, wt["wsqkv"], trg.dtype)
         # the prologue's LayerNorm epilogue hands the cross tail its input
         # already quantized
-        t2, tq, st = _gemm_q8_res_ln(hq, sh[0], p.wso, p.sso, p.bso, t2,
-                                     p.g, p.b, quant_out=True, wt=wt["wso"])
-        out = _cross_tail_cuda(t2, enc.view(-1, hid), p, n, n_heads, wt, tq,
-                               st)
-    kernels.launches["decoder_layer_q8"] += 1
-    return out.view(n, lq, hid)
+        t2, tq, st = _gemm_q8_res_ln(hq, sh, p.wso, p.sso, p.bso, t2, p.g,
+                                     p.b, quant_out=True, wt=wt["wso"])
+        eq, se = _codes_of(name, e2, enc_codes)
+        out, q, s = _cross_tail_cuda(t2, tq, st, eq, se, p, n, n_heads, wt,
+                                     codes_out)
+    kernels.launches[name] += 1
+    out = out.view(n, lq, hid)
+    return (out, q, s) if codes_out else out

@@ -60,19 +60,24 @@ ctypes, and are:
 
 A variant's dW row chunks and tile follow ``wgrad_layout``.
 
-With ``--q8`` the run is the int8 layer GEMMs' alone (``csrc/
+With ``--q8`` the run is the int8 layer kernels' alone (``csrc/
 layer_fused_q8.cu``: ``nylon_q8_gemm_bias[_f32]``, ``nylon_q8_gemm_res_ln
-[_f32]``; each variant builds that file and ``layer_fused.cu``): each is
-held at ``Q8_CHECKS`` (ragged, default and paper shapes, bf16 and f32,
-ReLU and ``quant_out``) against the plain twins (``ops.layer_fused_q8.
-gemm_q8_bias_plain`` bit for bit; ``gemm_q8_res_ln_plain`` within 4 bf16
-ulps or 2e-5 of max(1, |plain|), its output codes and scales those of
+[_f32]``, ``nylon_q8_attention[_f32]``; each variant builds that file and
+``layer_fused.cu``): the GEMMs are held at ``Q8_CHECKS`` (ragged, default
+and paper shapes, bf16 and f32, ReLU, ``quant_out`` and the row codes of
+the GEMM + bias's column segments) against the plain twins (``ops.
+layer_fused_q8.gemm_q8_bias_plain`` bit for bit, its codes and scales
+``gemm_q8_bias_codes_plain``'s; ``gemm_q8_res_ln_plain`` within 4 bf16 ulps
+or 2e-5 of max(1, |plain|), its output codes and scales those of
 ``_quant_rows`` of its own output), two runs bit-identical, then timed A B
-.. B A by ``graph_ms`` at the 43 products of the paper batch-32 int8 forward
-(``q8_products``) beside the bound and ``torch._int_mm``. Each tree is
-called with its own weight layout: the codes K-major, ``W^T [N, K]``, or
-``[K, N]`` where its ``layer_fused_q8.cu`` still holds the ``mma.sync``
-GEMMs (``S8Gemm``).
+.. B A by ``graph_ms`` at the 43 products of the paper batch-32 int8
+forward (``q8_products``, each in the variant the forward runs) beside the
+bound and ``torch._int_mm``; the attention is timed A B .. B A at the four
+attention shapes of that forward (``Q8_ATTENTION``) beside its bound. A
+variant whose ``layer_fused_q8.cu`` predates the row codes of the GEMM +
+bias and of the attention (its entry points take none: ``Q8_PRE_CODES``)
+is called with its own entry points: its GEMMs write every column in T,
+its attention its output in T.
 
 Run from the root of a checkout on the card::
 
@@ -105,7 +110,8 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
                    "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
            "attn32": (), "attn16": (),
            "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
-                  "nylon_q8_gemm_bias_f32", "nylon_q8_gemm_res_ln_f32")}
+                  "nylon_q8_attention", "nylon_q8_gemm_bias_f32",
+                  "nylon_q8_gemm_res_ln_f32", "nylon_q8_attention_f32")}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
            "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
@@ -198,22 +204,51 @@ DEFAULT = [
     ("ln o note/time", 360448, 64, 64, 0, 5),
     ("ln ffn2 note/time", 360448, 128, 64, 0, 4),
 ]
-# the int8 GEMMs (kernel, M, K, N, ReLU, quant_out, dtype): one tile, ragged
+# the int8 GEMMs (kernel, M, K, N, ReLU, variant, dtype): one tile, ragged
 # K, M and N, every tile width, a paper shape of each variant, and K up to
-# 1024
+# 1024. The variant: the LayerNorm GEMM's quant_out; the GEMM + bias's row
+# codes (segment width, segments, whether the other columns leave in T),
+# or None
 Q8_CHECKS = [
-    (kern, m, k, n, relu, qo, dt)
+    (kern, m, k, n, relu, var, dt)
     for dt in ("bf16", "f32")
-    for kern, m, k, n, relu, qo in (
-        ("bias", 128, 64, 64, 0, 0), ("bias", 200, 96, 288, 0, 0),
-        ("bias", 777, 160, 160, 1, 0), ("bias", 333, 32, 8, 1, 0),
-        ("bias", 300001, 64, 192, 0, 0), ("bias", 300000, 256, 768, 0, 0),
-        ("bias", 90001, 256, 512, 1, 0), ("ln", 128, 64, 64, 0, 1),
+    for kern, m, k, n, relu, var in (
+        ("bias", 128, 64, 64, 0, None), ("bias", 200, 96, 288, 0, None),
+        ("bias", 777, 160, 160, 1, None), ("bias", 333, 32, 8, 1, None),
+        ("bias", 300001, 64, 192, 0, None),
+        ("bias", 300000, 256, 768, 0, None),
+        ("bias", 90001, 256, 512, 1, None), ("ln", 128, 64, 64, 0, 1),
         ("ln", 333, 32, 8, 0, 1), ("ln", 777, 160, 96, 0, 1),
         ("ln", 300001, 256, 256, 0, 1), ("ln", 300000, 512, 256, 0, 0),
         ("ln", 90001, 128, 64, 0, 0), ("ln", 777, 96, 192, 0, 0),
-        ("bias", 5000, 512, 512, 1, 0), ("bias", 3001, 1024, 64, 0, 0),
-        ("ln", 3001, 1024, 192, 0, 1))]
+        ("bias", 5000, 512, 512, 1, None), ("bias", 3001, 1024, 64, 0, None),
+        ("ln", 3001, 1024, 192, 0, 1),
+        # the row codes: QKV's Q and K, the cross KV's K, the cross Q, the
+        # FFN hidden (a whole row over two tiles at pf 512)
+        ("bias", 200, 96, 288, 0, (96, 2, 1)),
+        ("bias", 300001, 64, 192, 0, (64, 2, 1)),
+        ("bias", 300000, 256, 768, 0, (256, 2, 1)),
+        ("bias", 5001, 256, 512, 0, (256, 1, 1)),
+        ("bias", 777, 96, 192, 0, (96, 1, 1)),
+        ("bias", 333, 256, 256, 0, (256, 1, 0)),
+        ("bias", 90001, 256, 512, 1, (512, 1, 0)),
+        ("bias", 777, 96, 160, 1, (160, 1, 0)),
+        ("bias", 3001, 64, 128, 1, (128, 1, 0)))]
+# the attention shapes of the paper batch-32 int8 forward (label, n, Lq,
+# Lk, launches) at hid 256 over 4 heads
+Q8_ATTENTION = [("freq self", 32 * 128, 256, 256, 3),
+                ("time self", 32 * 88, 128, 128, 3),
+                ("decoder self", 32 * 128, 88, 88, 2),
+                ("cross", 32 * 128, 88, 256, 3)]
+# the int8 entry points of a layer_fused_q8.cu that predates the row codes
+# of the GEMM + bias and of the attention (the arguments without q, s, seg,
+# n_seg, and without codes, scales: the attention writes o in T)
+_P8, _I8, _L8, _F8 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+Q8_PRE_CODES = {
+    "nylon_q8_gemm_bias": [_P8] * 6 + [_I8] * 4 + [_P8],
+    "nylon_q8_attention": [_P8, _L8, _P8, _P8, _L8, _P8, _P8, _I8, _P8, _P8]
+    + [_I8] * 5 + [_F8, _P8]}
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
 TF32_FLOPS, F32_FLOPS = 494.7e12, 67e12
 INT8_OPS = 1979e12
@@ -261,24 +296,33 @@ DEFAULT_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 64, 128, 2, 2,
 
 
 def q8_products(mf, mq, hid, pf, n_enc, n_dec, n_time) -> list:
-    """Every (label, kernel, M, K, N, relu, quant_out, launches) of an int8
+    """Every (label, kernel, M, K, N, relu, variant, launches) of an int8
     forward of these widths (frequency-stream rows mf, note/time-stream
     rows mq): n_enc frequency encoder layers, the decoder's layer zero and
-    n_dec - 1 self + cross layers, n_time time layers. Each layer's first
-    LayerNorm GEMM also quantizes its output for the FFN, and the decoder's
-    self-attention one for the cross tail."""
+    n_dec - 1 self + cross layers, n_time time layers, each product in the
+    variant the forward runs. The GEMM + bias's variant: the row codes of
+    its first column segments (segment width, segments, whether the other
+    columns leave in T): Q and K of the QKV product, K of the cross KV
+    product, the cross Q and the FFN hidden (codes only). The LayerNorm
+    GEMM's: whether it also quantizes its output (quant_out): always the
+    attention output's projection (the FFN's input), and the FFN's second
+    product where a next layer takes the layer's output as codes (every
+    one but the last decoder and the last time layer)."""
     bias, ln = "gemm_q8_bias", "gemm_q8_res_ln"
+    qkv, kv, whole = (hid, 2, 1), (hid, 1, 1), (hid, 1, 0)
+    last = (n_dec > 0) + (n_time > 0)  # the streams' last layers
     return [
-        ("qkv freq", bias, mf, hid, 3 * hid, 0, 0, n_enc),
-        ("ffn1 freq", bias, mf, hid, pf, 1, 0, n_enc),
-        ("kv cross", bias, mf, hid, 2 * hid, 0, 0, n_dec),
-        ("q cross", bias, mq, hid, hid, 0, 0, n_dec),
-        ("qkv note/time", bias, mq, hid, 3 * hid, 0, 0, n_dec - 1 + n_time),
-        ("ffn1 note/time", bias, mq, hid, pf, 1, 0, n_dec + n_time),
+        ("qkv freq", bias, mf, hid, 3 * hid, 0, qkv, n_enc),
+        ("ffn1 freq", bias, mf, hid, pf, 1, (pf, 1, 0), n_enc),
+        ("kv cross", bias, mf, hid, 2 * hid, 0, kv, n_dec),
+        ("q cross", bias, mq, hid, hid, 0, whole, n_dec),
+        ("qkv note/time", bias, mq, hid, 3 * hid, 0, qkv, n_dec - 1 + n_time),
+        ("ffn1 note/time", bias, mq, hid, pf, 1, (pf, 1, 0), n_dec + n_time),
         ("o freq", ln, mf, hid, hid, 0, 1, n_enc),
-        ("ffn2 freq", ln, mf, pf, hid, 0, 0, n_enc),
+        ("ffn2 freq", ln, mf, pf, hid, 0, 1, n_enc),
         ("o note/time", ln, mq, hid, hid, 0, 1, 2 * n_dec - 1 + n_time),
-        ("ffn2 note/time", ln, mq, pf, hid, 0, 0, n_dec + n_time)]
+        ("ffn2 note/time", ln, mq, pf, hid, 0, 1, n_dec + n_time - last),
+        ("ffn2 last", ln, mq, pf, hid, 0, 0, last)]
 
 
 # the paper batch-32 int8 forward's 43 products
@@ -327,15 +371,17 @@ class Lib:
     def __init__(self, paths: dict, src: Path):
         from nylon_amt_tpu_torch import kernels
 
-        # the int8 GEMMs on mma.sync (S8Gemm) read the weight codes [K, N];
-        # those on wgmma their K-major pack, W^T [N, K]
-        self.q8_kn = "q8" in paths and "S8Gemm" in (
+        # whether the int8 entry points take the row codes (Q8_PRE_CODES)
+        self.q8_codes = "q8" in paths and "int seg, int n_seg" in (
             Path(src) / SOURCES["q8"]).read_text()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for e in ENTRIES[part] + ((QKV_ENTRY,) if part == "f32" else ()):
-                getattr(lib, e).argtypes = kernels._SIGNATURES[e]
+                base = e.removesuffix("_f32")
+                getattr(lib, e).argtypes = (
+                    Q8_PRE_CODES[base] if part == "q8" and not self.q8_codes
+                    and base in Q8_PRE_CODES else kernels._SIGNATURES[e])
                 getattr(lib, e).restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
@@ -464,34 +510,79 @@ class Lib:
                        dst.data_ptr(), src.shape[0], dst.numel(), s)
         return [dw, db]
 
-    def q8(self, x, relu=0, quant_out=0):
-        """An int8 GEMM of ``q8_inputs`` ``x``: ``[out]`` of the GEMM +
-        bias, or with ``x["res"]`` ``[out]`` of the residual + LayerNorm
-        one [+ its output codes and scales]."""
+    def q8(self, x, relu=0, var=None):
+        """An int8 GEMM of ``q8_inputs`` ``x``: the GEMM + bias, ``[out]``,
+        or with its row codes ``var`` (segment width, segments, T out)
+        ``[out or None, codes, scales]``; or with ``x["res"]`` ``[out]`` of
+        the residual + LayerNorm one [+ its output codes and scales, with
+        ``var``: quant_out]. A variant without the row codes (Q8_PRE_CODES)
+        writes every column of the GEMM + bias in T: ``[out]``."""
         import torch
 
         (m, k), n = x["aq"].shape, x["wq"].shape[1]
         dt, dev = x["bias"].dtype, x["aq"].device
         sfx = "" if dt == torch.bfloat16 else "_f32"
-        w = x["wq"] if self.q8_kn else x["wt"]
         s = torch.cuda.current_stream().cuda_stream
-        out = torch.empty((m, n), dtype=dt, device=dev)
-        head = (x["aq"].data_ptr(), x["sa"].data_ptr(), w.data_ptr(),
+        head = (x["aq"].data_ptr(), x["sa"].data_ptr(), x["wt"].data_ptr(),
                 x["sw"].data_ptr(), x["bias"].data_ptr())
         if "res" not in x:
+            if not self.q8_codes:
+                out = torch.empty((m, n), dtype=dt, device=dev)
+                self._call("q8", "nylon_q8_gemm_bias" + sfx, *head,
+                           out.data_ptr(), m, n, k, relu, s)
+                return [out]
+            seg, n_seg, t_out = var or (0, 0, 1)
+            out = torch.empty((m, n), dtype=dt, device=dev) \
+                if t_out else None
+            q = torch.empty((m, seg * n_seg), dtype=torch.int8, device=dev) \
+                if n_seg else None
+            sc = torch.empty((n_seg, m), dtype=torch.float32, device=dev) \
+                if n_seg else None
             self._call("q8", "nylon_q8_gemm_bias" + sfx, *head,
-                       out.data_ptr(), m, n, k, relu, s)
-            return [out]
+                       None if out is None else out.data_ptr(),
+                       None if q is None else q.data_ptr(),
+                       None if sc is None else sc.data_ptr(), m, n, k, relu,
+                       seg, n_seg, s)
+            return [out, q, sc] if n_seg else [out]
         q = torch.empty((m, n), dtype=torch.int8, device=dev) \
-            if quant_out else None
+            if var else None
         sc = torch.empty((m,), dtype=torch.float32, device=dev) \
-            if quant_out else None
+            if var else None
+        out = torch.empty((m, n), dtype=dt, device=dev)
         self._call("q8", "nylon_q8_gemm_res_ln" + sfx, *head,
                    x["res"].data_ptr(), x["g"].data_ptr(),
                    x["be"].data_ptr(), out.data_ptr(),
                    None if q is None else q.data_ptr(),
                    None if sc is None else sc.data_ptr(), m, n, k, 1e-5, s)
         return [t for t in (out, q, sc) if t is not None]
+
+    def attention_q8(self, a, t_out=False):
+        """The int8 attention of ``q8_attention_inputs`` ``a``: ``[codes,
+        scales]`` (with ``t_out`` also the output in T, first); a variant
+        without the row codes (Q8_PRE_CODES) writes its output in T only:
+        ``[out]``."""
+        import torch
+
+        n, lq, hid, heads = a["n"], a["lq"], a["hid"], a["heads"]
+        dt, dev = a["dt"], a["qq"].device
+        sfx = "" if dt == torch.bfloat16 else "_f32"
+        s = torch.cuda.current_stream().cuda_stream
+        args = (a["qq"].data_ptr(), a["qq"].stride(0), a["sq"].data_ptr(),
+                a["kq"].data_ptr(), a["kq"].stride(0), a["sk"].data_ptr(),
+                a["vt"].data_ptr(), a["vt"].shape[2], a["sv"].data_ptr())
+        tail = (n, lq, a["lk"], heads, hid // heads, a["scale_log2e"], s)
+        out = torch.empty((n * lq, hid), dtype=dt, device=dev) \
+            if t_out or not self.q8_codes else None
+        if not self.q8_codes:
+            self._call("q8", "nylon_q8_attention" + sfx, *args,
+                       out.data_ptr(), *tail)
+            return [out]
+        codes = torch.empty((n * lq, hid), dtype=torch.int8, device=dev)
+        sc = torch.empty((n * lq,), dtype=torch.float32, device=dev)
+        self._call("q8", "nylon_q8_attention" + sfx, *args, codes.data_ptr(),
+                   sc.data_ptr(), None if out is None else out.data_ptr(),
+                   *tail)
+        return ([out] if t_out else []) + [codes, sc]
 
 
 def q8_inputs(m, k, n, ln, dtype, seed=0):
@@ -515,6 +606,36 @@ def q8_inputs(m, k, n, ln, dtype, seed=0):
     if ln:
         x.update(res=r(m, n).to(dtype), g=1.0 + 0.1 * r(n), be=0.1 * r(n))
     return x
+
+
+def q8_attention_inputs(n, lq, lk, hid, heads, dtype, seed=0):
+    """An int8 attention's operands: the codes and row scales of seeded Q
+    and K in ``dtype`` (the plain quantizer's), V's per-column codes
+    transposed per sequence and padded to a multiple of 32 keys with zero
+    codes, ``[n, hid, Lk_pad]`` (what ``quant_cols_cuda`` writes), and
+    their scales; with the plain twin's own operands (``plain``)."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq_
+    from nylon_amt_tpu_torch.ops.layer_fused import _LOG2E, _scale
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    qq, sq = lq_._quant_rows(r(n, lq, hid))
+    kq, sk = lq_._quant_rows(r(n, lk, hid))
+    vq, sv = lq_._quant_cols(r(n, lk, hid))
+    lk_pad = -(-lk // 32) * 32
+    vt = torch.zeros((n, hid, lk_pad), dtype=torch.int8, device="cuda")
+    vt[:, :, :lk] = vq.transpose(1, 2)
+    return dict(qq=qq.reshape(-1, hid), sq=sq.reshape(-1).contiguous(),
+                kq=kq.reshape(-1, hid), sk=sk.reshape(-1).contiguous(),
+                vt=vt, sv=sv.reshape(n, hid).contiguous(), n=n, lq=lq, lk=lk,
+                hid=hid, heads=heads, dt=dtype,
+                scale_log2e=_scale(hid, heads) * _LOG2E,
+                plain=(qq, sq, kq, sk, vq, sv))
 
 
 def inputs(m, k, n, seed=0, dtype=None):
@@ -856,33 +977,53 @@ def check_f32_bwd(libs: dict) -> dict:
 
 def check_q8(libs: dict) -> dict:
     """Hold every variant's int8 GEMMs at Q8_CHECKS: the GEMM + bias bit
-    for bit equal to ``gemm_q8_bias_plain``; the LayerNorm one within ULPS
-    bf16 ulps of ``gemm_q8_res_ln_plain`` (f32: F32_REL of max(1, |plain|)),
-    its codes and scales ``_quant_rows`` of its own output; two runs
-    bit-identical. Returns ``{name: passed}``."""
+    for bit equal to ``gemm_q8_bias_plain``, its row codes and scales
+    ``gemm_q8_bias_codes_plain``'s (a variant without them is not run at
+    those cases); the LayerNorm one within ULPS bf16 ulps of
+    ``gemm_q8_res_ln_plain`` (f32: F32_REL of max(1, |plain|)), its codes
+    and scales ``_quant_rows`` of its own output; two runs bit-identical.
+    Returns ``{name: passed}``."""
     import torch
 
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
 
     ok = {name: True for name in libs}
     for case in Q8_CHECKS:
-        kern, m, k, n, relu, qo, dt_ = case
+        kern, m, k, n, relu, var, dt_ = case
         dt = torch.bfloat16 if dt_ == "bf16" else torch.float32
         ln = kern == "ln"
         x = q8_inputs(m, k, n, ln, dt, seed=m + k + n + 4)
         args = (x["aq"], x["sa"], x["wq"], x["sw"], x["bias"])
-        want = (lq.gemm_q8_res_ln_plain(*args, x["res"], x["g"], x["be"])[0]
-                if ln else lq.gemm_q8_bias_plain(*args, relu))
+        if ln:
+            want = lq.gemm_q8_res_ln_plain(*args, x["res"], x["g"],
+                                           x["be"])[0]
+        elif var:
+            want, want_q, want_s = lq.gemm_q8_bias_codes_plain(
+                *args, relu, var[0], var[1])
+        else:
+            want = lq.gemm_q8_bias_plain(*args, relu)
         for name, lib in libs.items():
+            if var and not ln and not lib.q8_codes:
+                continue
             try:
-                got, again = lib.q8(x, relu, qo), lib.q8(x, relu, qo)
+                got, again = lib.q8(x, relu, var), lib.q8(x, relu, var)
                 torch.cuda.synchronize()
             except (Refused, RuntimeError) as e:
                 print(f"q8 {name} {case}: {e!r}", flush=True)
                 ok[name] = False
                 continue
-            same = _equal(got, again)
-            if not ln:
+            def written(res):  # a codes run writes no T code columns
+                return [t[:, var[0] * var[1]:] if i == 0 and var and not ln
+                        else t for i, t in enumerate(res) if t is not None]
+            same = _equal(written(got), written(again))
+            if not ln and var:
+                nc = var[0] * var[1]
+                passed = torch.equal(got[1], want_q) and torch.equal(
+                    got[2], want_s) and (got[0] is None or torch.equal(
+                        got[0][:, nc:], want[:, nc:]))
+                what = ("codes, scales and T columns bit-identical"
+                        if passed else "codes, scales or T columns DIFFER")
+            elif not ln:
                 passed = _equal(got, [want])
                 what = "bit-identical" if passed else "NOT bit-identical"
             elif dt == torch.bfloat16:
@@ -892,7 +1033,7 @@ def check_q8(libs: dict) -> dict:
                 top = max(1.0, want.abs().max().item())
                 e = (got[0] - want).abs().max().item() / top
                 passed, what = e <= F32_REL, f"{e:.2e} of max(1, |plain|)"
-            if qo:
+            if ln and var:
                 q, sc = lq._quant_rows(got[0])
                 exact = torch.equal(got[1], q) and torch.equal(got[2],
                                                                sc[:, 0])
@@ -911,22 +1052,28 @@ def check_q8(libs: dict) -> dict:
 def timing_q8(libs: dict) -> None:
     """Each variant's int8 GEMMs at the 43 products of PAPER_Q8 in bf16, A
     B .. B A by ``graph_ms``, beside the bound (bytes, or the int8 products
-    at 1,979 TOP/s) and ``torch._int_mm``; and the totals of one
-    forward."""
+    at 1,979 TOP/s) and ``torch._int_mm``; and the totals of one forward.
+    Then the attention at Q8_ATTENTION the same way: a variant with the
+    row codes writes its output's codes and scales (the forward's variant),
+    one without them its output in T; the bound counts the codes'."""
     import torch
 
     names = list(libs)
     total = dict.fromkeys(names + ["bound", "_int_mm"], 0.0)
-    for label, kern, m, k, n, relu, qo, count in PAPER_Q8:
+    for label, kern, m, k, n, relu, var, count in PAPER_Q8:
         ln = kern == "gemm_q8_res_ln"
         x = q8_inputs(m, k, n, ln, torch.bfloat16)
-        ms = _abba(names, lambda name: libs[name].q8(x, relu, qo), graph_ms)
+        ms = _abba(names, lambda name: libs[name].q8(x, relu, var), graph_ms)
         mm = graph_ms(lambda: torch._int_mm(x["aq"], x["wq"]))
-        nbytes = m * k + 4 * m + n * k + 4 * n + 2 * n + 2 * m * n
+        size = 2 * m * n  # T out
+        if not ln and var:  # the segments as codes, the rest (if any) in T
+            size = m * var[0] * var[1] + 4 * var[1] * m + 2 * m * (
+                n - var[0] * var[1]) * var[2]
+        nbytes = m * k + 4 * m + n * k + 4 * n + 2 * n + size
         if ln:
-            nbytes += 2 * m * n + 8 * n + (m * n + 4 * m if qo else 0)
+            nbytes += 2 * m * n + 8 * n + (m * n + 4 * m if var else 0)
         bound = max(nbytes / HBM_BPS, 2 * m * k * n / INT8_OPS) * 1e3
-        _line(f"q8 {kern} {label}" + (" quant_out" if qo else ""),
+        _line(f"q8 {kern} {label}" + (f" {var}" if var else ""),
               f"[{m},{k},{n}]", count, ms, bound, f"_int_mm {mm:.3f}")
         for name, t in ms.items():
             total[name] += count * t
@@ -936,6 +1083,31 @@ def timing_q8(libs: dict) -> None:
         torch.cuda.empty_cache()
     print("time of one int8 forward's 43 s8 GEMMs (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+    total = dict.fromkeys(names + ["bound"], 0.0)
+    hid, heads = 256, 4
+    for label, n, lq, lk, count in Q8_ATTENTION:
+        a = q8_attention_inputs(n, lq, lk, hid, heads, torch.bfloat16)
+        ms = _abba(names, lambda name: libs[name].attention_q8(a), graph_ms)
+        bound = attention_q8_bytes(n, lq, lk, hid) / HBM_BPS * 1e3
+        _line(f"q8 attention {label}", f"[{n},{lq},{lk}]", count, ms, bound,
+              "no library call")
+        for name, t in ms.items():
+            total[name] += count * t
+        total["bound"] += count * bound
+        del a
+        torch.cuda.empty_cache()
+    print("time of one int8 forward's 11 attention launches (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+
+
+def attention_q8_bytes(n, lq, lk, hid) -> int:
+    """The bytes the int8 attention must move: Q, K and V^T codes (the
+    keys padded to 32) with their scales in; the output's codes and row
+    scales out. Its int8 products (4 n Lq Lk hid) take less time at 1,979
+    TOP/s at every shape of the model."""
+    lk_pad = -(-lk // 32) * 32
+    return (n * lq * hid + n * lk * hid + n * hid * lk_pad
+            + 4 * (n * lq + n * lk + n * hid) + n * lq * hid + 4 * n * lq)
 
 
 def sass(libs_paths: dict) -> dict:

@@ -314,7 +314,8 @@ def test_q8_wrappers_hand_the_kernel_the_kmajor_pack(calls, dt):
     assert [(n, a[2]) for n, a in calls] == [
         (f"nylon_q8_gemm_bias{sfx}", wt.data_ptr()),
         (f"nylon_q8_gemm_res_ln{sfx}", wt2.data_ptr())]
-    assert calls[0][1][6:10] == (M, 160, 96, 1)       # M, N, K, relu
+    # no codes (q, s null), M, N, K, relu, no segments (seg, n_seg)
+    assert calls[0][1][6:14] == (None, None, M, 160, 96, 1, 0, 0)
     assert calls[1][1][11:14] == (M, 96, 160)         # M, N, K
     # a pack_wt entry: a view of the layer's buffer
     z = torch.zeros
@@ -445,12 +446,13 @@ def test_q8_layers_on_the_card_refuse_missing_packs():
     (64, 2, 128, 256, True),      # the default model's
     (64, 2, 160, 256, True),      # pf % 16: the GEMMs' K
     (128, 2, 1024, 88, True),
-    (96, 3, 160, 256, False),     # hid % 64: V's column quantizer
+    (96, 3, 160, 256, True),      # a ragged column block of V's quantizer
     (64, 2, 168, 256, False),     # pf % 16
     (64, 2, 1040, 256, False),    # pf > 1024: the row quantizer
     (320, 5, 512, 256, False),    # hid > 256: the LayerNorm epilogue
     (192, 4, 512, 256, False),    # head_dim 48
     (64, 2, 128, 257, False),     # > 256 keys
+    (64, 2, 128, 90, False),      # keys % 4: the key scales' 16-byte copy
 ])
 def test_check_geometry_states_the_kernels_constraints(hid, heads, pf, lk,
                                                        ok):
