@@ -24,7 +24,12 @@ non-zero and never prints the last line):
     ``gemm_q8_res_ln_kernel``, ``attention_q8_kernel``: s8 ``wgmma``, bf16
     and f32) spill nothing, use no stack (``gemm_q8_bias_kernel``: 168
     registers, the setmaxnreg balance), and hold IGMMA (int8 wgmma) and
-    UTMALDG and no IMMA (``mma.sync``);
+    UTMALDG and no IMMA (``mma.sync``); every instantiation of the bf16
+    attention of ``csrc/mha.cu`` (``attn_fwd_kernel``, ``attn_bwd_kernel``:
+    D 32 and 64, key tiers 96, 128 and 256, the forward plain, with K11's
+    probabilities and with dropout, the backward plain and with dropout)
+    spills nothing, uses no stack, and holds HGMMA and UTMALDG and no HMMA
+    (``mma.sync``);
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio, on a quiet variant of it (see the check) and on 10 s of
     other audio (the card's partial wave), two runs bit-identical; the
@@ -95,8 +100,10 @@ non-zero and never prints the last line):
     ``return_attention`` config at dropout 0 (K10's and K11's backward),
     1FLT and 2FDT (BatchNorm statistics move): every launch count, finite
     losses. The per-site train steps' times and profiles beside (j)'s.
-    Each (l) time prints beside SDPA's and, where ``PERF.md`` has one, the
-    time of the ``wmma`` kernels that ``csrc/mha.cu`` replaced;
+    Each (l) time prints beside its bound, SDPA's and, where ``PERF.md``
+    has them, the times of the ``mma.sync`` kernels that the wgmma ones of
+    ``csrc/mha.cu`` replaced (MMA_SYNC_MS) and of the ``wmma`` kernels
+    before them (WMMA_MS);
 (m) the default ``ModelConfig()`` in bf16 (hid 64 over 2 heads: head_dim
     32): K10-K12's D = 32 kernels at the four site geometries, batch 8 and
     32, under (l)'s gates; the batch-32 engine forward against the plain
@@ -1584,6 +1591,30 @@ WMMA_MS = {
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "cross"): 3.292,
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "note self"): 1.059,
     ("fused_mha_dropout_bwd", TRAIN_BATCH, "time self"): 0.944}
+# Times of the mma.sync bf16 attention kernels (csrc/mha.cu before its
+# products moved to wgmma fed by TMA) at the batch-32 shapes of (l) and time
+# self at batch 8 (ms; (l) of the parent tree's chip_smoke.py run, NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md section 6)
+MMA_SYNC_MS = {
+    ("fused_mha", BATCH, "freq self"): 1.360,
+    ("fused_mha_bwd", BATCH, "freq self"): 7.607,
+    ("fused_mha_dropout", BATCH, "freq self"): 1.755,
+    ("fused_mha_dropout_bwd", BATCH, "freq self"): 9.551,
+    ("fused_mha", BATCH, "cross"): 0.726,
+    ("fused_mha_bwd", BATCH, "cross"): 3.403,
+    ("fused_mha_dropout", BATCH, "cross"): 0.941,
+    ("fused_mha_dropout_bwd", BATCH, "cross"): 4.026,
+    ("fused_mha", BATCH, "note self"): 0.323,
+    ("fused_mha_bwd", BATCH, "note self"): 1.792,
+    ("fused_mha_dropout", BATCH, "note self"): 0.463,
+    ("fused_mha_dropout_bwd", BATCH, "note self"): 2.099,
+    ("fused_mha", TRAIN_BATCH, "time self"): 0.102,
+    ("fused_mha_bwd", TRAIN_BATCH, "time self"): 0.771}
+# the bf16 attention kernels of csrc/mha.cu and their instantiations: D 32
+# and 64 x key tiers 96, 128, 256 x (forward plain, K11, dropout; backward
+# plain, dropout)
+MHA_KERNELS = ("attn_fwd_kernel", "attn_bwd_kernel")
+MHA_INSTANTIATIONS = 2 * 3 * (3 + 2)
 # Times of csrc/mha_f32.cu's all-FFMA kernels, before its products moved to
 # the tensor cores, at (n.1)'s row shapes (MHA_ROW_SHAPES) per head_dim (ms;
 # PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W)
@@ -1613,6 +1644,25 @@ def site_counts(m) -> tuple[int, int]:
         att += m.dec_layer
         act += 3 * m.dec_layer + 1
     return att, act
+
+
+def mha_bound(name: str, n: int, lq: int, lk: int, heads: int,
+              d: int) -> dict:
+    """bound() of a K10-K12 wrapper at [n, lq, lk] x heads of d: q, k, v
+    (and dO) read once, the output (and K11's f32 probabilities; dq, dk,
+    dv) written once; its products (2, or the backward's 5 at the least) on
+    the bf16 tensor cores, the hash of each score under dropout (8 integer
+    operations) on the CUDA cores."""
+    hid = heads * d
+    if name.endswith("_bwd"):
+        nb, products = 2 * n * hid * (3 * lq + 4 * lk), 5
+    else:
+        nb, products = 2 * n * hid * (2 * lq + 2 * lk), 2
+        if name == "fused_mha_with_probs":
+            nb += 4 * n * heads * lq * lk
+    hash_ops = 8 * n * heads * lq * lk if "dropout" in name else 0
+    return bound(nb, 2 * products * n * heads * lq * lk * d,
+                 f32_flops=hash_ops)
 
 
 def _realized_masks(att, n, lq, lk, heads, d, dev, dtype=torch.bfloat16):
@@ -1818,8 +1868,12 @@ def check_attention_kernels(dev, heads: int = 4, hid: int = 256,
             log(f"({phase}) [{n}, {lq}, {lk}] x {heads} heads of {d} "
                 f"({site}, batch {B}): " + "; ".join(line))
             log(f"({phase})   ms " + ", ".join(
-                f"{k_} {v_:.3f}" + (f" (SDPA {lib[k_]:.3f})"
-                                    if lib[k_] is not None else "")
+                f"{k_} {v_:.3f} (bound "
+                f"{mha_bound(k_, n, lq, lk, heads, d)['bound_ms']:.3f})"
+                + (f" (SDPA {lib[k_]:.3f})" if lib[k_] is not None else "")
+                + (f" (mma.sync {MMA_SYNC_MS[k_, B, site]:.3f}: "
+                   f"{MMA_SYNC_MS[k_, B, site] / v_:.2f}x)"
+                   if d == 64 and (k_, B, site) in MMA_SYNC_MS else "")
                 + (f" (wmma {WMMA_MS[k_, B, site]:.3f}: "
                    f"{WMMA_MS[k_, B, site] / v_:.2f}x)"
                    if d == 64 and (k_, B, site) in WMMA_MS else "")
@@ -1831,22 +1885,14 @@ def check_attention_kernels(dev, heads: int = 4, hid: int = 256,
                 if name.endswith("_bwd"):
                     plain_ms = cuda_ms(lambda: att.mha_bwd_plain(
                         q, k, v, do, heads, scale, msk), iters=1)
-                    nb = nbytes(q, k, v, do, q, k, v)       # dq, dk, dv
-                    products = 5
                 else:
                     plain_ms = cuda_ms(lambda: att.mha_plain(
                         q, k, v, heads, scale, msk,
                         with_probs=name == "fused_mha_with_probs"), iters=1)
-                    nb = nbytes(q, k, v, q)
-                    if name == "fused_mha_with_probs":
-                        nb += n * heads * lq * lk * 4
-                    products = 2
-                flops = 2 * products * n * heads * lq * lk * d
-                hash_ops = 8 * n * heads * lq * lk if msk else 0
                 rows[name] = dict(
                     max_abs_err=fields[name]["max_abs_err"], ms=ms[name],
                     plain_ms=plain_ms,
-                    **bound(nb, flops, f32_flops=hash_ops),
+                    **mha_bound(name, n, lq, lk, heads, d),
                     library_ms=lib[name], shape=[n, lq, lk],
                     gate=fields[name]["gate"])
             del q, k, v, do, f32, qh, kh, vh, k10, k10b, k10pb, k11b
@@ -4485,6 +4531,18 @@ def main() -> int:
         + ", ".join(f"{k} " + "/".join(str(v["regs"]) for v in
                                       q8_gemms.values() if v["kernel"] == k)
                     for k in Q8_WGMMA_KERNELS) + " registers")
+    mha = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
+                     MHA_KERNELS)
+    if {v["kernel"] for v in mha.values()} != set(MHA_KERNELS) \
+            or len(mha) != MHA_INSTANTIATIONS \
+            or any(v["spill"] or v["stack"] for v in mha.values()):
+        raise AssertionError(f"(a) the bf16 attention kernels in ptxas -v "
+                             f"({len(mha)} of {MHA_INSTANTIATIONS}): {mha}")
+    log(f"(a) {len(mha)} instantiations of {', '.join(MHA_KERNELS)}: no "
+        f"spills, no stack, " + ", ".join(
+            f"{k} " + "-".join(str(f(v["regs"] for v in mha.values()
+                                     if v["kernel"] == k)) for f in (min, max))
+            for k in MHA_KERNELS) + " registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -4794,6 +4852,21 @@ def main() -> int:
                 for v in sass.values()):
             raise AssertionError(f"(a) SASS of the s8 GEMMs and attention: "
                                  f"{sass}")
+        mha_sass = gemm_sass(sass_proc, kernels.build_dir()
+                             / kernels.LIB_NAME, MHA_KERNELS,
+                             ("HGMMA", "UTMALDG", "HMMA"))
+        if len(mha_sass) != len(mha) or any(
+                not v["HGMMA"] or not v["UTMALDG"] or v["HMMA"]
+                for v in mha_sass.values()):
+            raise AssertionError(f"(a) SASS of the bf16 attention: "
+                                 f"{mha_sass}")
+        log(f"(a) SASS of the {len(mha_sass)} bf16 attention kernels "
+            f"(cuobjdump): HGMMA "
+            f"{min(v['HGMMA'] for v in mha_sass.values())}-"
+            f"{max(v['HGMMA'] for v in mha_sass.values())}, UTMALDG "
+            f"{min(v['UTMALDG'] for v in mha_sass.values())}-"
+            f"{max(v['UTMALDG'] for v in mha_sass.values())} a kernel, no "
+            f"HMMA (mma.sync)")
         log(f"(a) SASS of the {len(sass)} s8 GEMM and attention kernels "
             f"(cuobjdump): IGMMA {min(v['IGMMA'] for v in sass.values())}-"
             f"{max(v['IGMMA'] for v in sass.values())}, UTMALDG "

@@ -247,6 +247,20 @@ struct Wgmma;
       "+f"(d[(i) + 7])
 
 template <int kTA, int kTB>
+struct Wgmma<32, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <int kTA, int kTB>
 struct Wgmma<64, kTA, kTB> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -257,6 +271,23 @@ struct Wgmma<64, kTA, kTB> {
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <int kTA, int kTB>
+struct Wgmma<96, kTA, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24),
+        NYLON_D8(32), NYLON_D8(40)
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
   }
 };
@@ -321,6 +352,48 @@ struct Wgmma<256, kTA, kTB> {
         NYLON_D8(64), NYLON_D8(72), NYLON_D8(80), NYLON_D8(88),
         NYLON_D8(96), NYLON_D8(104), NYLON_D8(112), NYLON_D8(120)
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+  }
+};
+
+// D[64, N] (+)= A[64, 16] B[16, N] with A from registers: thread t of the
+// warpgroup holds a[0..3] = A[16 (t / 32) + g (+ 8 for a[1], a[3])][2 c, 2
+// c + 1 (+ 8 for a[2], a[3])], g = (t % 32) / 4, c = t % 4, two bf16 a
+// register (the accumulator layout of two n8 column blocks of a product
+// whose output feeds this one); B a shared-memory descriptor, MN-major if
+// kTB. D's layout is Wgmma's.
+template <int N, int kTB>
+struct WgmmaRA;
+
+template <int kTB>
+struct WgmmaRA<32, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTB));
+  }
+};
+
+template <int kTB>
+struct WgmmaRA<64, kTB> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : NYLON_D8(0), NYLON_D8(8), NYLON_D8(16), NYLON_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTB));
   }
 };
 

@@ -1,4 +1,5 @@
-// Multi-head attention kernels on Hopper (sm_90a).
+// Multi-head attention kernels on Hopper (sm_90a): wgmma products on
+// operands that TMA brings into shared memory.
 //
 // Replaces the per-site attention kernels of nylon_amt_tpu/ops/attention.py:
 // fused_mha (K10: _fwd_kernel, and _bwd_kernel for its custom VJP),
@@ -12,125 +13,160 @@
 // The sites. The hFT model's attention sequences are short (256 bins, 88
 // notes, 128 frames; head_dim 64 in the paper model, 32 in the reduced
 // default) and numerous (one per frame or per note), and every site has
-// Lq, Lk <= 256. So one block owns one (sequence, head): it stages Q, K and
-// V (and dO in the backward) of the whole head in shared memory once, by
-// cp.async in two commit groups (what the score product needs, then the
-// rest, which lands while that product runs), and no other block reads
-// them. Each kernel is instantiated for D in {32, 64} and a key tier of
-// 96, 128 or 256 (the sites' 88, 128 and 256 keys): every register array
-// and every loop over keys has a compile-time size, K and V rows past Lk
-// are zeros, and a site with Lk == tier skips the column mask.
+// Lq, Lk <= 256. So a block owns a whole (sequence, head): TMA brings its
+// Q, K and V (and dO in the backward) into shared memory once, from the
+// strided views the callers pass (row stride 3 hid for a packed QKV, 2 hid
+// for a packed KV: a 3-D tensor map [sequence, row, column] a view, its box
+// one head's D columns by the rows of a sequence, 128- or 64-byte swizzled
+// rows for D = 64 or 32; rows past Lq or Lk are zero-filled by TMA), and no
+// other block reads them. Each kernel is instantiated for D in {32, 64} and
+// a key tier of 96, 128 or 256 (the sites' 88, 128 and 256 keys): every
+// register array and every loop over keys has a compile-time size, and a
+// site with Lk == tier skips the column mask. Outputs leave through a
+// shared-memory tile and a TMA store, which clips the rows past Lq or Lk.
+//
+// Every product is a wgmma of a warpgroup (64 query or key rows): operands
+// in shared memory as TMA wrote them (K-major for Q K^T-shaped products, V,
+// K, dO or Q MN-major through the transpose bit where they are the B of a
+// product over keys or queries), and probabilities or ds from registers:
+// the accumulator layout of two n8 column blocks is the register-A layout
+// of one k16 step, so bf16(p [* keep]) goes from the score registers
+// straight into the next product. A warpgroup's whole [64, tier] score
+// block lives in registers (tier 256: 128 f32 a thread), which the exact
+// row max needs.
+//
+//  * attn_fwd_kernel: a persistent grid of blocks of two consumer
+//    warpgroups (256 threads; one block an SM at tier 256, two below, in
+//    128 registers a thread), walking (sequence, head) items; thread 0
+//    prefetches the next item's Q, K, V into the second of two shared-memory
+//    stages while the block works on the current one, so the loads run
+//    under the products. A warpgroup takes the item's 64-query tiles g, g +
+//    2: S = Q K^T (m64 n{tier}), the exact row max from the registers, p =
+//    exp2(s - m) in place, l summed from the unrounded f32 p, O = bf16(p [*
+//    keep]) V (register A, V MN-major), then O / l into the warpgroup's
+//    output tile and one TMA store. K11 writes the normalised f32 p / l
+//    from the same registers. 2 products per head.
+//  * attn_bwd_kernel (two warpgroups, one block an SM, a block a (sequence,
+//    head)), no statistics in device memory. Phase 1, query-major (64 query
+//    rows a warpgroup): S = Q K^T -> m, l, a = p / l in f32 registers; dP =
+//    dO V^T in chunks of 64 keys (96 at tier 96) for row = sum(da * a) (da =
+//    dP [* keep]); dP again for ds = bf16(a * (da - row)) and dQ += ds K
+//    (register A, K MN-major); (m, l, row) and the keep bits go to shared
+//    memory. Phase 2, key-major (64 keys a warpgroup, after a block
+//    barrier): S^T = K Q^T and dP^T = V dO^T per 64-query chunk, a^T from
+//    the shared statistics, dV += bf16(a [* keep])^T dO and dK += bf16(ds)^T
+//    Q (register A, dO and Q MN-major). 8 QK^T-sized products per head (5
+//    is the minimum: dP beside a would take 128 registers more, and ds for
+//    the key-major products would need a [Lq, Lk] tile in shared memory, 128
+//    KB at 256 x 256 beside the 128 KB of Q, K, V and dO). The block owns
+//    every query and every key, so dq, dk and dv are summed inside it in a
+//    fixed order: no float atomics, no scratch, the same bits from run to
+//    run.
 //
 // What bounds them on this card: a site does Lq * Lk / (Lq + Lk) FLOP per
 // byte of q, k, v and o (128 at 256 x 256, 65 at 88 x 256), under the
-// H100's ~295 FLOP/B ridge, so the least time is the bytes'. What keeps
-// the kernels above it is instruction rate and latency, not bytes:
-// mma.sync on 16-row warp tiles (wgmma, with its 64-row warpgroup tiles
-// and operands in its swizzled shared-memory layout, is not used yet), the
-// exp2 / hash / IEEE-division work per score, every warp reading all of K
-// and V through ldmatrix, and occupancy (the forward's 110 KB at D = 64
-// holds two 4-warp blocks per SM; the backward's 169 KB one 8-warp block).
-// A persistent forward (one block per SM, the next item's loads in flight
-// in a second buffer) measured slower than two resident blocks per SM: the
-// loads were not what stalled it.
-//
-// Scores live in registers. A warp owns 16 query rows and computes their
-// whole [16, tier] score block with mma.sync.m16n8k16 into accumulator
-// registers (256 keys: 32 n8 tiles, 128 f32 registers a thread). The
-// accumulator layout of two n8 tiles is the A-fragment layout of one k16
-// step, so bf16(p [* keep]) goes from those registers straight into the
-// next product. No score, probability or ds tile is staged in shared
-// memory; only outputs pass through a warp's staging tile for 16-byte
-// stores.
-//
-//  * attn_fwd_kernel (4 warps, a warp walks query tiles): ONE QK^T product
-//    per query tile, the exact row max from the registers, p = exp2(s - m)
-//    in place, l summed from the unrounded f32 p, O = bf16(p [* keep]) V,
-//    then O / l. K11 writes the normalised f32 p / l from the same
-//    registers (one product where the wmma version took three). 2
-//    products per head.
-//  * attn_bwd_kernel (8 warps), one kernel, no statistics in device
-//    memory. Phase 1, query-major (16 query rows a warp): S = Q K^T once
-//    -> m, l, a = p / l in f32 registers; dP = dO V^T streamed 16 keys at a
-//    time for row = sum(da * a) (da = dP [* keep]); dP again for ds =
-//    bf16(a * (da - row)) and dQ += ds K; (m, l, row) and the keep bits go
-//    to shared memory. Phase 2, key-major (16 keys a warp, after a block
-//    barrier): S^T = K Q^T and dP^T = V dO^T per 16-query chunk, a^T from
-//    the shared statistics, dV += bf16(a [* keep])^T dO and dK += bf16(ds)^T
-//    Q in registers. 8 QK^T-sized products per head, where the two wmma
-//    kernels took 11 (5 is the minimum: keeping dP beside a would take 128
-//    registers more, and ds in the key-major phase would need a transpose
-//    and a sum of dQ across warps). The block owns every query and every
-//    key, so dq, dk and dv are summed inside it in a fixed order: no float
-//    atomics, no scratch, the same bits from run to run.
+// H100's ~295 FLOP/B ridge, so the least time is the bytes'. The forward
+// runs at 84-89% of that rate at the paper's sites (PERF.md); probes of an
+// earlier form at 256 x 256 read its loads and stores alone at 0.720 ms
+// against the 0.641 bound, its products and softmax alone at 1.031 of its
+// 0.993: the prefetch hides the loads, and the compute sets the time.
+// What is left is the per-score work on the CUDA cores and the
+// special-function unit (the scale, the max, exp2, the sum, the bf16
+// packs, the hash under dropout), a warpgroup's chain of dependent
+// products, and in the backward its 8 products and a second exp2 a score
+// (~39% of the bound). So the reductions keep four chains a row, every
+// division by l is a multiply and one Newton step (div_rn: the IEEE slow
+// path of `/` cost the forward ~20%), and nothing branches around a wgmma
+// (warps skipping the softmax past Lq made the Lq 88 forwards 2x slower).
 //
 // Numerics follow the TPU kernels: f32 scores times scale * log2(e)
 // (rounded: __fmul_rn keeps the product out of an FMA), exp2 with the
 // exact row max (ex2.approx.ftz: subnormal p flushed), l summed from the
 // unrounded p, bf16(p) (times the keep mask under dropout) into the PV
-// product, the 1/l normalisation deferred to the f32 output; the
-// backward's a = p / l by IEEE division and row = sum(da * a) from the
-// unrounded f32 a, ds and a (or a * keep) cast to bf16 before their
-// products, dq/dk scaled in f32 before the cast.
+// product, the 1/l normalisation deferred to the f32 output (o / l, K11's p
+// / l and the backward's a = p / l correctly rounded: div_rn); the
+// backward's row = sum(da * a) from the unrounded f32 a, ds and a (or a *
+// keep) cast to bf16 before their products, dq/dk scaled in f32 before the
+// cast.
 //
 // Dropout (kDrop): head h takes the keep mask of hash_mask.cuh (K6) with tag
 // head_tag0 + h, row seq * Lq + query and column key, drawn per element
 // from its (row, column) in the fragment. K12's TPU kernel hashes head h
 // with the raw tag h (head_tag0 = 0); K7-K9 use the tag (tag_base + 8) * 64
-// + h (ops/layer_fused_train.py::_head_tag). At Lk = 256 the draws are
-// packed (half = 128): columns j and j + 128 come from one hash, and a
-// query-major thread holds both (n8 tiles i and i + 16), so the forward
-// and the backward's phase 1 hash once a pair. Phase 1 keeps its keep bits
-// in registers for its two dP passes and writes them, row-major, to shared
-// memory for phase 2, whose threads hold keys as rows.
+// + h (ops/layer_fused_train.py::_head_tag). A warp's share of a wgmma
+// accumulator is the mma.sync m16n8 layout repeated over N / 8 column
+// blocks, so at Lk = 256 the draws are packed (half = 128): columns j and j
+// + 128 come from one hash and one thread holds both (blocks i and i + 16),
+// so the forward and the backward's phase 1 hash once a pair. Phase 1 draws
+// its rows' keep bits before its score product and stores each thread's
+// words to shared memory as they fall in the fragment; its own two dP
+// passes read each score's bit from the sign of its a (a >= 0, a dropped
+// score's kept negated: held in registers beside the 128 score registers
+// of tier 256, the bits spilled), and phase 2 (whose threads hold keys as
+// rows) gathers a chunk's 32 bits a thread into one word while its
+// products run (a load a score cost the dropout backward ~15%).
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 
-using nylon::bf16;
 using nylon::DropSite;
 using nylon::hash_mix;
 using nylon::keep_value;
+namespace sm = nylon::sm90;
 
 namespace {
 
-constexpr int kFwdWarps = 4;  // 4 warps a forward block: 2+ blocks per SM
-constexpr int kBwdWarps = 8;  // 8 warps a backward block: one block per SM
-constexpr int kMaxL = 256;    // Q, K, V (and dO) of a head in shared memory
+constexpr int kWarpgroups = 2;               // consumer warpgroups a block
+constexpr int kThreads = kWarpgroups * 128;  // one block an SM
+constexpr int kMaxL = 256;                   // queries and keys a sequence
 
-// ------------------------------------------------------------- mma.sync ----
+// ------------------------------------------------------------- operands ----
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// The shared-memory descriptor of an operand whose rows are RB bytes (2 D:
+// 128 or 64) under the swizzle of that width, K-major (rows along M or N,
+// the k16 step +32 bytes) or MN-major one swizzle atom wide (rows along K,
+// the k16 step +16 rows): either way eight rows apart (SBO), LBO unused.
+template <int RB>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t mode = RB == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(8 * RB >> 4) << 32) | (mode << 62);
 }
 
-// Four 8 x 8 bf16 matrices; lane l gives the address of one row.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Byte offset of the 16-byte chunk `chunk` of row `row` in a tile of RB-byte
+// rows under the swizzle TMA writes (tile start 1024- or 512-byte aligned).
+template <int RB>
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  if constexpr (RB == 128)
+    return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+  else
+    return (uint32_t)(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
+}
+
+// The box at (x = column, y = row, z = sequence) of a 3-D map into dst,
+// completing on bar; and a box from shared memory to (x, y, z).
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint64_t* bar, int x, int y,
+                                          int z) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm::smem_u32(bar)), "r"(x),
+      "r"(y), "r"(z)
       : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int x, int y,
+                                           int z) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y), "r"(z)
       : "memory");
-}
-
-// c += a (16 x 16, row-major) b (16 x 8, column-major); f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -138,38 +174,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Lane addresses of ldmatrix x4 over a row-major tile with row length ld:
-// the A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 16);
-template <int ld>
-__device__ __forceinline__ const bf16* a_addr(const bf16* s, int r0, int c0,
-                                              int lane) {
-  return s + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
-}
-// the B fragments of two n8 tiles (rows n0 .. n0 + 15 of an [n][k] tile,
-// columns k0 .. k0 + 15): r[0], r[1] for rows n0 .. n0 + 7, r[2], r[3] for
-// the next 8;
-template <int ld>
-__device__ __forceinline__ const bf16* bn_addr(const bf16* s, int n0, int k0,
-                                               int lane) {
-  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-// with .trans, the B fragments of two n8 tiles of a [k][n] tile (rows k0 ..
-// k0 + 15, columns n0 .. n0 + 15).
-template <int ld>
-__device__ __forceinline__ const bf16* bt_addr(const bf16* s, int k0, int n0,
-                                               int lane) {
-  return s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
-         (lane >> 4) * 8;
-}
-
-// The A fragment of a k16 step from the accumulators of two n8 tiles.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+// The register-A fragment of k16 step kc from an accumulator d: the column
+// blocks 2 kc and 2 kc + 1.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
+                                         int kc) {
+  const int j0 = 8 * kc, j1 = 8 * kc + 4;
+  a[0] = pack_bf16(d[j0], d[j0 + 1]);
+  a[1] = pack_bf16(d[j0 + 2], d[j0 + 3]);
+  a[2] = pack_bf16(d[j1], d[j1 + 1]);
+  a[3] = pack_bf16(d[j1 + 2], d[j1 + 3]);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -189,133 +203,80 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The [16, kKeys] score block of a warp's 16 query rows: s = Q K^T, the A
-// fragments of Q in qa, K [kKeys][D+8] in shared memory. Then s <- s *
-// scale_log2e (rounded: __fmul_rn keeps the product out of an FMA), -inf
-// past lk, and (m0, m1) the exact max of rows g and g + 8. Every loop has
-// a compile-time trip count, so the compiler interleaves the whole block.
-template <int D, int kKeys>
-__device__ __forceinline__ void score_block(float (&s)[kKeys / 8][4],
-                                            const uint32_t (&qa)[D / 16][4],
-                                            const bf16* Ks, float sl2e,
-                                            int lk, int lane, float& m0,
-                                            float& m1) {
-  constexpr int NT = kKeys / 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, bn_addr<D + 8>(Ks, np * 16, kk * 16, lane));
-      mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-    }
+// p / l, correctly rounded, from r = 1 / l (IEEE, once a row): one Newton
+// step on the quotient, which yields the IEEE quotient wherever it is
+// normal (0 < p <= 1 <= l here), without a reciprocal on the
+// special-function unit for every score.
+__device__ __forceinline__ float div_rn(float p, float l, float r) {
+  const float q = __fmul_rn(p, r);
+  return __fmaf_rn(__fmaf_rn(-l, q, p), r, q);
+}
+
+// A thread's share of a [64, kKeys] score block (element 4 nt + r at row g
+// + 8 (r >= 2) of its warp's 16, column 8 nt + 2t + (r & 1)): s <- s *
+// scale_log2e (rounded), -inf past lk, and (m0, m1) the exact max of its
+// two rows. Reductions here and in exp_rows keep four chains a row (the
+// element's column pair c and n8 block parity): one chain of 64 dependent
+// operations a row left two warps an SM sub-partition waiting on latency.
+template <int kKeys>
+__device__ __forceinline__ void scale_max(float (&s)[kKeys / 2], float sl2e,
+                                          int lk, int t, float& m0,
+                                          float& m1) {
   const float neg_inf = __int_as_float(0xff800000u);
-  const int t = lane & 3;
-  m0 = m1 = neg_inf;
-  if (lk == kKeys) {  // every column is a key: no mask (the common sites)
+  float m[8];  // row (i & 2) / 2, chain (i & 1) + 2 ((i >> 2) & 1)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int c = 0; c < 8; ++c) m[c] = neg_inf;
+  // at tier 256 (every site has Lk = 256) a loop of its own without the
+  // mask; below, one loop for both (two spilled the dropout forward at 128
+  // registers)
+  if (kKeys == 256 && lk == kKeys) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[nt][r] = __fmul_rn(s[nt][r], sl2e);
-        if (r < 2) m0 = fmaxf(m0, s[nt][r]);
-        else m1 = fmaxf(m1, s[nt][r]);
-      }
+    for (int i = 0; i < kKeys / 2; ++i) s[i] = __fmul_rn(s[i], sl2e);
   } else {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x = __fmul_rn(s[nt][r], sl2e);
-        s[nt][r] = nt * 8 + 2 * t + (r & 1) < lk ? x : neg_inf;
-        if (r < 2) m0 = fmaxf(m0, s[nt][r]);
-        else m1 = fmaxf(m1, s[nt][r]);
-      }
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const float x = __fmul_rn(s[i], sl2e);
+      s[i] = lk == kKeys || (i >> 2) * 8 + 2 * t + (i & 1) < lk ? x : neg_inf;
+    }
   }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) {
+    float& mc = m[(i & 3) + 4 * ((i >> 2) & 1)];
+    mc = fmaxf(mc, s[i]);
+  }
+  m0 = quad_max(fmaxf(fmaxf(m[0], m[1]), fmaxf(m[4], m[5])));
+  m1 = quad_max(fmaxf(fmaxf(m[2], m[3]), fmaxf(m[6], m[7])));
 }
 
 // s <- p = exp2(s - m) in place; returns (l0, l1), the sums of the
-// unrounded p of rows g and g + 8.
-template <int NT>
-__device__ __forceinline__ void exp_rows(float (&s)[NT][4], float m0, float m1,
+// unrounded p of the thread's two rows.
+template <int R>
+__device__ __forceinline__ void exp_rows(float (&s)[R], float m0, float m1,
                                          float& l0, float& l1) {
-  l0 = l1 = 0.f;
+  float l[8];  // as scale_max's chains
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int c = 0; c < 8; ++c) l[c] = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float p = exp2_ftz(s[nt][r] - (r < 2 ? m0 : m1));
-      s[nt][r] = p;
-      if (r < 2) l0 += p;
-      else l1 += p;
-    }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-}
-
-// ------------------------------------------------------------- staging ----
-
-// Rows [0, rows) of a strided [*, D] head slice into dst (row length D +
-// 8, which keeps ldmatrix free of bank conflicts) by cp.async; rows at or
-// past n are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
-                                            long long row_stride, int rows,
-                                            int n) {
-  for (int c = threadIdx.x; c < rows * (D / 8); c += blockDim.x) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    const bool ok = r < n;
-    nylon::cp_async16(dst + r * (D + 8) + c8,
-                      src + (long long)(ok ? r : 0) * row_stride + c8, ok);
+  for (int i = 0; i < R; ++i) {
+    const float p = exp2_ftz(s[i] - ((i & 3) < 2 ? m0 : m1));
+    s[i] = p;
+    l[(i & 3) + 4 * ((i >> 2) & 1)] += p;
   }
-}
-
-// A warp's [16, D] output tile, written to the staging tile `st` (row
-// length D + 8) from f32 accumulators by f(value, row half), then copied to
-// dst rows r0 .. r0 + 15 (those < n) 16 bytes a lane.
-template <int D, typename F>
-__device__ __forceinline__ void store_tile(bf16* st,
-                                           const float (&acc)[D / 8][4], F f,
-                                           bf16* dst, long long row_stride,
-                                           int r0, int n, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  __syncwarp();
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    *reinterpret_cast<uint32_t*>(st + g * (D + 8) + nd * 8 + 2 * t) =
-        pack_bf16(f(acc[nd][0], 0), f(acc[nd][1], 0));
-    *reinterpret_cast<uint32_t*>(st + (g + 8) * (D + 8) + nd * 8 + 2 * t) =
-        pack_bf16(f(acc[nd][2], 1), f(acc[nd][3], 1));
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * (D / 8); c += 32) {
-    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
-    if (r0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * row_stride + c8) =
-          *reinterpret_cast<const uint4*>(st + r * (D + 8) + c8);
-  }
-  __syncwarp();
+  l0 = quad_sum((l[0] + l[1]) + (l[4] + l[5]));
+  l1 = quad_sum((l[2] + l[3]) + (l[6] + l[7]));
 }
 
 // ------------------------------------------------------------ keep mask ----
 
-// Element r of n8 tile nt of a thread's [16, kKeys] row block sits at row
-// g + 8 * (r >= 2), column nt * 8 + 2t + (r & 1), and keeps its keep bit at
-// nt * 4 + r. Packed draws at Lk = 256 (half 128): tiles nt and nt + 16
+// Element 4 nt + r of a thread's [16, kKeys] row block keeps its keep bit
+// at nt * 4 + r. Packed draws at Lk = 256 (half 128): blocks nt and nt + 16
 // share one hash.
 template <int kKeys>
 constexpr int kBitWords = (kKeys / 2 + 31) / 32;
 
 // The keep bits of a [16, 256] row block whose draws are packed (half =
-// 128): one hash gives columns j and j + 128, so words 0, 1 (tiles 0-15)
-// take the low draws and words 2, 3 (tiles 16-31) the high draws.
+// 128): one hash gives columns j and j + 128, so words 0, 1 (blocks 0-15)
+// take the low draws and words 2, 3 (blocks 16-31) the high draws.
 // Invariants this form keeps: each word is built in a local of its own and
 // stored once; every word index and every shift count (j * 4 + r < 32) is
 // a compile-time constant, so `bits` stays in registers and no shift
@@ -348,9 +309,8 @@ __device__ __forceinline__ void packed_keep_bits(uint32_t (&bits)[4],
 template <int kKeys>
 __device__ __forceinline__ void keep_bits(uint32_t (&bits)[kBitWords<kKeys>],
                                           const DropSite& s, uint32_t row0,
-                                          int lk, int lane) {
+                                          int lk, int t) {
   constexpr int NT = kKeys / 8;
-  const int t = lane & 3;
   if constexpr (kKeys == 256) {
     if (s.half == 128) {
       packed_keep_bits(bits, s, row0, t);
@@ -371,20 +331,13 @@ __device__ __forceinline__ void keep_bits(uint32_t (&bits)[kBitWords<kKeys>],
     }
 }
 
-template <int kKeys>
-__device__ __forceinline__ float keep_of(
-    const uint32_t (&bits)[kBitWords<kKeys>], int i, float scale) {
-  return (bits[i >> 5] >> (i & 31)) & 1u ? scale : 0.f;
-}
-
 // s *= keep for a thread's elements of a [16, kKeys] row block (rows row0,
 // row0 + 8): one hash for the pair of columns j, j + 128 when packed.
 template <int kKeys>
-__device__ __forceinline__ void apply_keep(float (&s)[kKeys / 8][4],
+__device__ __forceinline__ void apply_keep(float (&s)[kKeys / 2],
                                            const DropSite& ds, uint32_t row0,
-                                           int lk, int lane) {
+                                           int lk, int t) {
   constexpr int NT = kKeys / 8;
-  const int t = lane & 3;
   if (kKeys == 256 && ds.half == 128) {
 #pragma unroll
     for (int nt = 0; nt < NT / 2; ++nt)
@@ -393,16 +346,16 @@ __device__ __forceinline__ void apply_keep(float (&s)[kKeys / 8][4],
         const uint32_t row = row0 + (r >> 1) * 8;
         const uint32_t c = (uint32_t)(nt * 8 + 2 * t + (r & 1));
         const uint32_t x = hash_mix((ds.base + row * 128u + c) ^ ds.key);
-        s[nt][r] *= (x & 0xFFFFu) >= ds.thresh ? ds.scale : 0.f;
-        s[nt + NT / 2][r] *= (x >> 16) >= ds.thresh ? ds.scale : 0.f;
+        s[4 * nt + r] *= (x & 0xFFFFu) >= ds.thresh ? ds.scale : 0.f;
+        s[4 * (nt + NT / 2) + r] *= (x >> 16) >= ds.thresh ? ds.scale : 0.f;
       }
   } else {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        s[nt][r] *= keep_value(ds, row0 + (r >> 1) * 8,
-                               nt * 8 + 2 * t + (r & 1), lk);
+        s[4 * nt + r] *= keep_value(ds, row0 + (r >> 1) * 8,
+                                    nt * 8 + 2 * t + (r & 1), lk);
   }
 }
 
@@ -415,461 +368,565 @@ int with_tier(int lk, F f) {
   return f(std::integral_constant<int, 256>{});
 }
 
+// A warpgroup's [64, D] f32 tile, times f, as bf16 into the tile of RB-byte
+// rows at shared address `tile` (swizzled as TMA reads it), then one TMA
+// store of it to (h D, row0, seq) of `map` by the warpgroup's thread 0.
+// The tile must be free: its last store has finished reading it.
+template <int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 2], float f,
+                                           uint32_t tile,
+                                           const CUtensorMap* map, int h,
+                                           int row0, int seq, int wg,
+                                           int tid) {
+  const int r = 16 * (tid >> 5) + ((tid & 31) >> 2), t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      sm::st_shared(tile + swz<2 * D>(r + 8 * i, j) + 4 * t,
+                    pack_bf16(acc[4 * j + 2 * i] * f,
+                              acc[4 * j + 2 * i + 1] * f));
+  sm::fence_async_smem();
+  sm::named_sync(1 + wg, 128);
+  if (tid == 0) {
+    tma_store3(map, tile, h * D, row0, seq);
+    sm::bulk_commit();
+  }
+}
+
 // ------------------------------------------------------------- forward ----
 
 struct FwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
   float* probs;  // K11: [n_seq, n_heads, lq, lk] f32, else null
-  int n_items, lq, lk, n_heads, o_row;  // n_items = n_seq * n_heads blocks
-  long long q_row, q_seq, kv_row, kv_seq;
+  int n_items, lq, lk, n_heads;  // n_items = n_seq * n_heads
   float scale_log2e;
   uint32_t seed_mix;
   int head_tag0;  // head h's keep mask has tag head_tag0 + h
   DropSite site;  // thresh, scale, half of the probability site
 };
 
-// One (sequence, head): K and V [kKeys][D+8], Q [lq16][D+8] bf16.
+// attn_fwd_kernel's shared memory (from a 1024-byte aligned base): two
+// stages of Q [Lq rounded up to 64 rows], K and V [kKeys rows], rows of 2 D
+// bytes; at tier 256 each warpgroup's [64, D] output tile (its store may
+// still read it while the next item's loads land in the stage; below 256 a
+// tile's O goes through its own Q rows, and two blocks fit an SM); the
+// stages' barriers.
 template <int D, int kKeys>
-__host__ __device__ constexpr size_t fwd_smem_bytes(int lq16) {
-  return (size_t)(2 * kKeys + lq16) * (D + 8) * sizeof(bf16);
-}
+struct FwdSmem {
+  static constexpr int RB = 2 * D;
+  static constexpr bool kOwnTile = kKeys == 256;
+  __host__ __device__ static int q_bytes(int lq) {
+    return (lq + 63) / 64 * 64 * RB;
+  }
+  __host__ __device__ static int stage(int lq) {
+    return q_bytes(lq) + 2 * kKeys * RB;
+  }
+  __host__ __device__ static int bytes(int lq) {
+    return 1024 + 2 * stage(lq) + (kOwnTile ? kWarpgroups * 64 * RB : 0) +
+           16;
+  }
+};
 
-// o[seq, q, h*D:(h+1)*D] = softmax(q_h k_h^T * scale) v_h of one (sequence,
-// head) item; q/k/v are strided views (row and sequence strides in
-// elements) so packed QKV and K/V projections are read in place. Lk <=
-// kKeys.
+// o[seq, q, h*D:(h+1)*D] = softmax(q_h k_h^T * scale) v_h of each (sequence,
+// head) item, items blockIdx.x, + gridDim.x, ... (item = seq * n_heads + h).
+// map_q / map_k / map_v: the strided views, boxes of one head's D columns by
+// Lq rounded up to 64 / kKeys rows; map_o: the output, boxes of 64 rows.
+// Two blocks an SM where a tier <= 128 leaves room: 128 registers a thread
+// hold the [64, 128] score block (not with K11's probabilities).
 template <int D, int kKeys, bool kDrop, bool kProbs>
-__global__ void __launch_bounds__(kFwdWarps * 32)
-    attn_fwd_kernel(const FwdArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = D + 8;
-  constexpr int NT = kKeys / 8;
-  const int lq = args.lq, lk = args.lk;
-  const int lq16 = (lq + 15) & ~15;
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);
-  bf16* const Vs = Ks + kKeys * LD;
-  bf16* const Qs = Vs + kKeys * LD;
-  const int seq = blockIdx.x / args.n_heads, h = blockIdx.x % args.n_heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // group 0: K and Q (the score product); group 1: V
-  stage_async<D>(Ks, args.k + seq * args.kv_seq + h * D, args.kv_row, kKeys,
-                 lk);
-  stage_async<D>(Qs, args.q + seq * args.q_seq + h * D, args.q_row, lq16, lq);
-  nylon::cp_async_commit();
-  stage_async<D>(Vs, args.v + seq * args.kv_seq + h * D, args.kv_row, kKeys,
-                 lk);
-  nylon::cp_async_commit();
-  nylon::cp_async_wait<1>();
+__global__ void __launch_bounds__(kThreads, kKeys <= 128 && !kProbs ? 2 : 1)
+    attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_o,
+                    const FwdArgs args) {
+  using L = FwdSmem<D, kKeys>;
+  constexpr int RB = L::RB;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte aligned, as an offset into smem_raw (the compiler then keeps
+  // the shared window: 32-bit addresses)
+  uint8_t* const base =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  const int lq = args.lq, lk = args.lk, n_heads = args.n_heads;
+  const int q_bytes = L::q_bytes(lq), stage = L::stage(lq);
+  const int n_tiles = q_bytes / (64 * RB);
+  const uint32_t obuf = sm::smem_u32(base + 2 * stage);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(
+      base + 2 * stage + (L::kOwnTile ? kWarpgroups * 64 * RB : 0));
+  // thread 0: item `item`'s Q, K and V into stage st
+  const auto load = [&](int item, int st) {
+    const uint32_t sb = sm::smem_u32(base + st * stage);
+    const int seq = item / n_heads, h = item % n_heads;
+    sm::mbar_expect_tx(full + st, stage);
+    tma_load3(sb, &map_q, full + st, h * D, 0, seq);
+    tma_load3(sb + q_bytes, &map_k, full + st, h * D, 0, seq);
+    tma_load3(sb + q_bytes + kKeys * RB, &map_v, full + st, h * D, 0, seq);
+  };
+  if (threadIdx.x == 0) {
+    sm::mbar_init(full, 1);
+    sm::mbar_init(full + 1, 1);
+    sm::fence_barrier_init();
+    sm::tma_prefetch(&map_q);
+    sm::tma_prefetch(&map_k);
+    sm::tma_prefetch(&map_v);
+    sm::tma_prefetch(&map_o);
+    if ((int)blockIdx.x < args.n_items) load(blockIdx.x, 0);
+  }
   __syncthreads();
 
-  DropSite hsite = args.site;
-  if constexpr (kDrop)
-    hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
-  const int nqt = lq16 / 16;
-  const int iters = (nqt + kFwdWarps - 1) / kFwdWarps;  // block-uniform
-  for (int it = 0; it < iters; ++it) {
-    const int tile = warp + it * kFwdWarps;
-    const bool active = tile < nqt;
-    float s[NT][4];
-    float l0 = 0.f, l1 = 0.f;
-    if (active) {
-      uint32_t qa[D / 16][4];
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, t = tid & 3;
+  const int r_in = 16 * warp + ((tid & 31) >> 2);  // rows r_in, r_in + 8
+  int it = 0;
+  for (int item = blockIdx.x; item < args.n_items; item += gridDim.x, ++it) {
+    const int st = it & 1;
+    // the next item's loads, into the stage the last one left
+    if (threadIdx.x == 0 && item + (int)gridDim.x < args.n_items)
+      load(item + gridDim.x, st ^ 1);
+    const int seq = item / n_heads, h = item % n_heads;
+    const uint32_t qs = sm::smem_u32(base + st * stage);
+    const uint32_t ks = qs + q_bytes, vs = ks + kKeys * RB;
+    DropSite hsite = args.site;
+    if constexpr (kDrop)
+      hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
+    sm::mbar_wait(full + st, (it >> 1) & 1);
+    for (int tile = wg; tile < n_tiles; tile += kWarpgroups) {
+      const uint32_t qt = qs + tile * 64 * RB;
+      // S = Q K^T: the warpgroup's 64 rows by every key
+      float s[kKeys / 2];
+      sm::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qa[kk], a_addr<LD>(Qs, tile * 16, kk * 16, lane));
-      float m0, m1;
-      score_block<D, kKeys>(s, qa, Ks, args.scale_log2e, lk, lane, m0, m1);
-      exp_rows<NT>(s, m0, m1, l0, l1);
-    }
-    if (it == 0) {  // V has landed
-      nylon::cp_async_wait<0>();
-      __syncthreads();
-    }
-    if (!active) continue;
-    const int q0 = tile * 16 + g;
-    if constexpr (kProbs) {
-      // the normalised probabilities, straight from the registers
+        sm::Wgmma<kKeys, 0, 0>::mma(s, desc<RB>(qt + 32 * kk),
+                                    desc<RB>(ks + 32 * kk), kk);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(s);
+      float m0, m1, l0, l1;
+      scale_max<kKeys>(s, args.scale_log2e, lk, t, m0, m1);
+      exp_rows(s, m0, m1, l0, l1);
+      const int row = tile * 64 + r_in;
+      if constexpr (kProbs) {
+        // the normalised probabilities, straight from the registers
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gq = q0 + half * 8;
-        if (gq >= lq) continue;
-        const float l = half ? l1 : l0;
-        float* pr = args.probs +
-                    (((size_t)seq * args.n_heads + h) * lq + gq) * lk;
+        for (int half = 0; half < 2; ++half) {
+          const int gq = row + half * 8;
+          if (gq >= lq) continue;
+          const float l = half ? l1 : l0, ri = 1.f / l;
+          float* pr = args.probs +
+                      (((size_t)seq * n_heads + h) * lq + gq) * lk;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = nt * 8 + 2 * t;
-          if (col >= lk) continue;
-          const float p0 = s[nt][2 * half] / l, p1 = s[nt][2 * half + 1] / l;
-          if (lk % 2 == 0) {
-            *reinterpret_cast<float2*>(pr + col) = make_float2(p0, p1);
-          } else {
-            pr[col] = p0;
-            if (col + 1 < lk) pr[col + 1] = p1;
+          for (int nt = 0; nt < kKeys / 8; ++nt) {
+            const int col = nt * 8 + 2 * t;
+            if (col >= lk) continue;
+            const float p0 = div_rn(s[4 * nt + 2 * half], l, ri);
+            const float p1 = div_rn(s[4 * nt + 2 * half + 1], l, ri);
+            if (lk % 2 == 0) {
+              *reinterpret_cast<float2*>(pr + col) = make_float2(p0, p1);
+            } else {
+              pr[col] = p0;
+              if (col + 1 < lk) pr[col + 1] = p1;
+            }
           }
         }
       }
-    }
-    if constexpr (kDrop)
-      apply_keep<kKeys>(s, hsite, (uint32_t)seq * (uint32_t)lq + q0, lk,
-                        lane);
-    // O = bf16(p [* keep]) V, p taken from the score registers
-    float o[D / 8][4];
+      if constexpr (kDrop)
+        apply_keep<kKeys>(s, hsite, (uint32_t)seq * (uint32_t)lq + row, lk,
+                          t);
+      // O = bf16(p [* keep]) V, p from the score registers
+      uint32_t pa[kKeys / 16][4];
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+      for (int kc = 0; kc < kKeys / 16; ++kc) acc_to_a(pa[kc], s, kc);
+      float o[D / 2];
+      sm::wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) o[nd][r] = 0.f;
+      for (int kc = 0; kc < kKeys / 16; ++kc)
+        sm::WgmmaRA<D, 1>::mma(o, pa[kc], desc<RB>(vs + kc * 16 * RB), kc);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(o);
+      // O / l into the warpgroup's output tile (or the tile's own Q rows,
+      // read by S above), then stored
+      const uint32_t ot = L::kOwnTile ? obuf + wg * 64 * RB : qt;
+      if constexpr (L::kOwnTile) {
+        if (tid == 0) sm::bulk_wait_read<0>();  // its last store read it
+        sm::named_sync(1 + wg, 128);
+      }
+      const float ri0 = 1.f / l0, ri1 = 1.f / l1;
 #pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
+      for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_t(b, bt_addr<LD>(Vs, kc * 16, dp * 16, lane));
-        mma_bf16(o[2 * dp], pa, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+        for (int i = 0; i < 2; ++i) {
+          const float l = i ? l1 : l0, ri = i ? ri1 : ri0;
+          sm::st_shared(ot + swz<RB>(r_in + 8 * i, j) + 4 * t,
+                        pack_bf16(div_rn(o[4 * j + 2 * i], l, ri),
+                                  div_rn(o[4 * j + 2 * i + 1], l, ri)));
+        }
+      sm::fence_async_smem();
+      sm::named_sync(1 + wg, 128);
+      if (tid == 0) {
+        tma_store3(&map_o, ot, h * D, tile * 64, seq);
+        sm::bulk_commit();
       }
     }
-    // O / l through the warp's own Q rows (read into registers above)
-    store_tile<D>(Qs + tile * 16 * LD, o,
-                  [&](float x, int half) { return x / (half ? l1 : l0); },
-                  args.o + (long long)seq * lq * args.o_row + h * D,
-                  args.o_row, tile * 16, lq, lane);
+    // the stage is free for the loads after the next (once its stores have
+    // read it, where O went through the Q rows)
+    if (!L::kOwnTile && tid == 0) sm::bulk_wait_read<0>();
+    __syncthreads();
   }
-}
-
-template <int D, int kKeys, bool kDrop, bool kProbs>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D, kKeys>((a.lq + 15) & ~15);
-  auto kernel = attn_fwd_kernel<D, kKeys, kDrop, kProbs>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<a.n_items, kFwdWarps * 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool kDrop, bool kProbs>
-int launch_attention(const FwdArgs& a, int head_dim, cudaStream_t stream) {
-  return with_tier(a.lk, [&](auto tier) {
-    constexpr int kKeys = decltype(tier)::value;
-    return head_dim == 32 ? launch_fwd<32, kKeys, kDrop, kProbs>(a, stream)
-                          : launch_fwd<64, kKeys, kDrop, kProbs>(a, stream);
-  });
+  if (tid == 0) sm::bulk_wait();
 }
 
 // ------------------------------------------------------------ backward ----
 
 struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
   int lq, lk;
-  long long q_row, q_seq, kv_row, kv_seq, do_row, do_seq, dq_row, dq_seq,
-      dkv_row, dkv_seq;
   float scale, scale_log2e;
   uint32_t seed_mix;
   int head_tag0;  // head h's keep mask has tag head_tag0 + h
   DropSite site;  // thresh, scale, half of the probability site
 };
 
-// Keep-bit words a row of the backward's shared mask: bit k % 32 of word
-// k / 32 is key k's (one word of padding against bank conflicts).
+// The backward's shared keep bits: each phase-1 thread's words as
+// keep_bits draws them (bit 4 nt + r: element r of n8 block nt of its two
+// rows), one word apart more than it has (phase 2's reads, 16 threads of a
+// warp on 16 phase-1 threads, then fall in distinct banks).
 template <int kKeys>
-constexpr int kMaskLd = kKeys / 32 + 1;
+constexpr int kBitLd = kBitWords<kKeys> + 1;
 
-// Q, dO [lq16][D+8], K, V [kKeys][D+8] bf16; m, l, row [lq16] f32; with
-// dropout the keep bits [lq16][kMaskLd]; one [16][D+8] bf16 output
-// staging tile per warp.
-template <int D, int kKeys, bool kDrop>
-__host__ __device__ constexpr size_t bwd_smem_bytes(int lq16) {
-  return (size_t)(2 * lq16 + 2 * kKeys) * (D + 8) * sizeof(bf16) +
-         (size_t)3 * lq16 * sizeof(float) +
-         (kDrop ? (size_t)lq16 * kMaskLd<kKeys> * sizeof(uint32_t) : 0) +
-         (size_t)kBwdWarps * 16 * (D + 8) * sizeof(bf16);
+// Phase 1's dP chunks: keys a wgmma (the whole row block at tier 96), in
+// the row pass and in the ds pass (which holds dQ's 32 accumulators too:
+// at tier 256 under dropout, 64 keys spilled).
+template <int kKeys>
+constexpr int kChunk = kKeys == 96 ? 96 : 64;
+template <int kKeys, bool kDrop>
+constexpr int kChunkDs = kDrop && kKeys == 256 ? 32 : kChunk<kKeys>;
+
+// dP of KC keys from key c * KC of a warpgroup's 64 query rows: dO V^T (the
+// rows' dO at shared address dot, V at vs), times the keep mask that a's
+// signs carry (a dropped score's a is negative or -0).
+template <int D, int KC, int kKeys, bool kDrop>
+__device__ __forceinline__ void dp_chunk(float (&dp)[KC / 2],
+                                         const float (&a)[kKeys / 2], int c,
+                                         uint32_t dot, uint32_t vs,
+                                         float keep) {
+  constexpr int RB = 2 * D;
+  sm::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm::Wgmma<KC, 0, 0>::mma(dp, desc<RB>(dot + 32 * kk),
+                             desc<RB>(vs + c * KC * RB + 32 * kk), kk);
+  sm::wgmma_commit();
+  sm::wgmma_wait<0>();
+  sm::fence_regs(dp);
+  if constexpr (kDrop) {
+#pragma unroll
+    for (int i = 0; i < KC / 2; ++i)
+      dp[i] = a[c * (KC / 2) + i] < 0.f ? 0.f : dp[i] * keep;
+  }
 }
 
-// dq, dk, dv of one (sequence, head): phase 1 query-major (dq and the row
-// statistics), phase 2 key-major (dk, dv), see the head note.
+// attn_bwd_kernel's shared memory (from a 1024-byte aligned base): Q, dO
+// [Lq rounded up to 64 rows], K, V [kKeys rounded up to 64 rows], rows of 2
+// D bytes; each warpgroup's two [64, D] output tiles; m, l, 1 / l, row [Lq
+// rounded up to 64] f32; with dropout the keep bits of phase 1's threads
+// [Lq rounded up to 64 / 64][128][kBitLd]; the two load barriers.
 template <int D, int kKeys, bool kDrop>
-__global__ void __launch_bounds__(kBwdWarps * 32, 1)
-    attn_bwd_kernel(const BwdArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = D + 8;
-  constexpr int NT = kKeys / 8;
-  const int lq = args.lq, lk = args.lk;
-  const int lq16 = (lq + 15) & ~15, lk16 = (lk + 15) & ~15;
-  bf16* const Qs = reinterpret_cast<bf16*>(smem);
-  bf16* const dOs = Qs + lq16 * LD;
-  bf16* const Ks = dOs + lq16 * LD;
-  bf16* const Vs = Ks + kKeys * LD;
-  float* const ms = reinterpret_cast<float*>(Vs + kKeys * LD);
-  float* const ls = ms + lq16;
-  float* const rs = ls + lq16;
-  uint32_t* const Ms = reinterpret_cast<uint32_t*>(rs + lq16);
-  const int seq = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  bf16* const St = reinterpret_cast<bf16*>(
-                       Ms + (kDrop ? lq16 * kMaskLd<kKeys> : 0)) +
-                   warp * 16 * LD;
+struct BwdSmem {
+  static constexpr int RB = 2 * D;
+  static constexpr int kK64 = (kKeys + 63) / 64 * 64;
+  static constexpr int kTile = 64 * RB;
+  int lq64, dout, k, v, out, stats, mask, bars, bytes;  // offsets; Q at 0
+  __host__ __device__ explicit BwdSmem(int lq)
+      : lq64((lq + 63) / 64 * 64),
+        dout(lq64 * RB),
+        k(2 * lq64 * RB),
+        v(k + kK64 * RB),
+        out(v + kK64 * RB),
+        stats(out + 2 * kWarpgroups * kTile),
+        mask(stats + 4 * lq64 * 4),
+        bars(mask + (kDrop ? lq64 / 64 * 128 * kBitLd<kKeys> * 4 : 0)),
+        bytes(1024 + bars + 16) {}
+};
 
-  // group 0: K and Q (the score product); group 1: dO and V
-  stage_async<D>(Ks, args.k + seq * args.kv_seq + h * D, args.kv_row, kKeys,
-                 lk);
-  stage_async<D>(Qs, args.q + seq * args.q_seq + h * D, args.q_row, lq16, lq);
-  nylon::cp_async_commit();
-  stage_async<D>(dOs, args.dout + seq * args.do_seq + h * D, args.do_row,
-                 lq16, lq);
-  stage_async<D>(Vs, args.v + seq * args.kv_seq + h * D, args.kv_row, kKeys,
-                 lk);
-  nylon::cp_async_commit();
-  nylon::cp_async_wait<1>();
+// dq, dk, dv of one (sequence, head) (blockIdx.x, blockIdx.y): phase 1
+// query-major (dq and the row statistics), phase 2 key-major (dk, dv), see
+// the head note. The maps: the strided views of q, k, v, dO (boxes of one
+// head's D columns by Lq rounded up to 64, or kKeys rounded up to 64, rows)
+// and of dq, dk, dv (boxes of 64 rows).
+template <int D, int kKeys, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_dq,
+                    const __grid_constant__ CUtensorMap map_dk,
+                    const __grid_constant__ CUtensorMap map_dv,
+                    const BwdArgs args) {
+  using L = BwdSmem<D, kKeys, kDrop>;
+  constexpr int RB = L::RB;
+  constexpr int KC = kChunk<kKeys>, KS = kChunkDs<kKeys, kDrop>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte aligned, as an offset into smem_raw (the compiler then keeps
+  // the shared window: 32-bit addresses)
+  uint8_t* const base =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  const int lq = args.lq, lk = args.lk;
+  const L lay(lq);
+  const uint32_t qs = sm::smem_u32(base), dos = qs + lay.dout,
+                 ks = qs + lay.k, vs = qs + lay.v;
+  float* const ms = reinterpret_cast<float*>(base + lay.stats);
+  float* const ls = ms + lay.lq64;
+  float* const ri = ls + lay.lq64;
+  float* const rs = ri + lay.lq64;
+  uint32_t* const Mb = reinterpret_cast<uint32_t*>(base + lay.mask);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base + lay.bars);
+  const int seq = blockIdx.x, h = blockIdx.y;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int r_in = 16 * warp + g;  // the thread's rows r_in, r_in + 8
+  const uint32_t out0 = qs + lay.out + wg * 2 * L::kTile;  // its two tiles
+  const uint32_t out1 = out0 + L::kTile;
+
+  // barrier 0: Q and K (the score product); barrier 1: dO and V
+  if (threadIdx.x == 0) {
+    sm::mbar_init(full, 1);
+    sm::mbar_init(full + 1, 1);
+    sm::fence_barrier_init();
+    sm::mbar_expect_tx(full, (lay.lq64 + L::kK64) * RB);
+    tma_load3(qs, &map_q, full, h * D, 0, seq);
+    tma_load3(ks, &map_k, full, h * D, 0, seq);
+    sm::mbar_expect_tx(full + 1, (lay.lq64 + L::kK64) * RB);
+    tma_load3(dos, &map_do, full + 1, h * D, 0, seq);
+    tma_load3(vs, &map_v, full + 1, h * D, 0, seq);
+  }
   __syncthreads();
 
-  const float sl2e = args.scale_log2e;
+  const float sl2e = args.scale_log2e, scale = args.scale;
   DropSite hsite = args.site;
   if constexpr (kDrop)
     hsite.key = nylon::tag_key(args.seed_mix, args.head_tag0 + h);
+  const int n_qt = lay.lq64 / 64, n_kt = (lk + 63) / 64;
 
   // ---- phase 1: query rows ----
-  const int nqt = lq16 / 16;
-  const int iters = (nqt + kBwdWarps - 1) / kBwdWarps;  // block-uniform
-  for (int it = 0; it < iters; ++it) {
-    const int tile = warp + it * kBwdWarps;
-    const bool active = tile < nqt;
-    float a[NT][4];
-    if (active) {
-      uint32_t qa[D / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qa[kk], a_addr<LD>(Qs, tile * 16, kk * 16, lane));
-      float m0, m1, l0, l1;
-      score_block<D, kKeys>(a, qa, Ks, sl2e, lk, lane, m0, m1);
-      exp_rows<NT>(a, m0, m1, l0, l1);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[nt][r] = a[nt][r] / (r < 2 ? l0 : l1);
-      if (t == 0) {
-        ms[tile * 16 + g] = m0;
-        ms[tile * 16 + g + 8] = m1;
-        ls[tile * 16 + g] = l0;
-        ls[tile * 16 + g + 8] = l1;
-      }
-    }
-    if (it == 0) {  // dO and V have landed
-      nylon::cp_async_wait<0>();
-      __syncthreads();
-    }
-    if (!active) continue;
-    uint32_t bits[kBitWords<kKeys>];
+  sm::mbar_wait(full, 0);
+  for (int tile = wg; tile < n_qt; tile += kWarpgroups) {
+    const uint32_t qt = qs + tile * 64 * RB, dot = dos + tile * 64 * RB;
+    const int row = tile * 64 + r_in;
+    // the keep bits, drawn before any score is live, to shared memory as
+    // they fall in the fragment (phase 2 finds a (query, key)'s bit there)
+    uint32_t* const mb = Mb + (tile * 128 + tid) * kBitLd<kKeys>;
     if constexpr (kDrop) {
-      keep_bits<kKeys>(bits, hsite,
-                       (uint32_t)seq * (uint32_t)lq + tile * 16 + g, lk,
-                       lane);
-      // the same bits, row-major, for phase 2 (whose threads hold keys as
-      // rows): one word a (row, 32 keys), OR-ed over the quad
+      uint32_t bits[kBitWords<kKeys>];
+      keep_bits<kKeys>(bits, hsite, (uint32_t)seq * (uint32_t)lq + row, lk,
+                       t);
 #pragma unroll
-      for (int w = 0; w < kKeys / 32; ++w)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          uint32_t word = 0u;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int i = (4 * w + j) * 4 + 2 * hr + e;
-              word |= ((bits[i >> 5] >> (i & 31)) & 1u)
-                      << (j * 8 + 2 * t + e);
-            }
-          word |= __shfl_xor_sync(0xffffffffu, word, 1);
-          word |= __shfl_xor_sync(0xffffffffu, word, 2);
-          if (t == 0) Ms[(tile * 16 + g + 8 * hr) * kMaskLd<kKeys> + w] = word;
-        }
+      for (int w = 0; w < kBitWords<kKeys>; ++w) mb[w] = bits[w];
     }
-    uint32_t da_frag[D / 16][4];
+    float a[kKeys / 2];
+    sm::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      ldsm_x4(da_frag[kk], a_addr<LD>(dOs, tile * 16, kk * 16, lane));
-    // dP of 16 keys: dO V^T, times the keep mask
-    auto dp_chunk = [&](int np, float (&dp)[2][4]) {
+      sm::Wgmma<kKeys, 0, 0>::mma(a, desc<RB>(qt + 32 * kk),
+                                  desc<RB>(ks + 32 * kk), kk);
+    sm::wgmma_commit();
+    sm::wgmma_wait<0>();
+    sm::fence_regs(a);
+    float m0, m1, l0, l1;
+    scale_max<kKeys>(a, sl2e, lk, t, m0, m1);
+    exp_rows(a, m0, m1, l0, l1);
+    const float r0 = 1.f / l0, r1 = 1.f / l1;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+    for (int i = 0; i < kKeys / 2; ++i)
+      a[i] = (i & 3) < 2 ? div_rn(a[i], l0, r0) : div_rn(a[i], l1, r1);
+    if (t == 0) {
+      ms[row] = m0;
+      ms[row + 8] = m1;
+      ls[row] = l0;
+      ls[row + 8] = l1;
+      ri[row] = r0;
+      ri[row + 8] = r1;
+    }
+    if constexpr (kDrop) {
+      // each score's keep bit into the sign of its a (a >= 0: a dropped
+      // score's a is kept negated, -0 where a = 0, which weighs nothing
+      // either way), where the two dP passes read it
+      uint32_t bits[kBitWords<kKeys>];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) dp[j][r] = 0.f;
+      for (int w = 0; w < kBitWords<kKeys>; ++w) bits[w] = mb[w];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        ldsm_x4(b, bn_addr<LD>(Vs, np * 16, kk * 16, lane));
-        mma_bf16(dp[0], da_frag[kk], b[0], b[1]);
-        mma_bf16(dp[1], da_frag[kk], b[2], b[3]);
-      }
-      if constexpr (kDrop) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            dp[j][r] *= keep_of<kKeys>(bits, (2 * np + j) * 4 + r,
-                                       hsite.scale);
-      }
-    };
+      for (int i = 0; i < kKeys / 2; ++i)
+        if (!((bits[i >> 5] >> (i & 31)) & 1u)) a[i] = -a[i];
+    }
+    sm::mbar_wait(full + 1, 0);  // dO and V
     float row0 = 0.f, row1 = 0.f;
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      float dp[2][4];
-      dp_chunk(np, dp);
+    for (int c = 0; c < kKeys / KC; ++c) {
+      float dp[KC / 2];
+      dp_chunk<D, KC, kKeys, kDrop>(dp, a, c, dot, vs, hsite.scale);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        row0 += dp[j][0] * a[2 * np + j][0] + dp[j][1] * a[2 * np + j][1];
-        row1 += dp[j][2] * a[2 * np + j][2] + dp[j][3] * a[2 * np + j][3];
+      for (int i = 0; i < KC / 2; ++i) {
+        const float x = dp[i] * fabsf(a[c * (KC / 2) + i]);
+        if ((i & 3) < 2) row0 += x;
+        else row1 += x;
       }
     }
     row0 = quad_sum(row0);
     row1 = quad_sum(row1);
     if (t == 0) {
-      rs[tile * 16 + g] = row0;
-      rs[tile * 16 + g + 8] = row1;
+      rs[row] = row0;
+      rs[row + 8] = row1;
     }
-    // ds = bf16(a * (da - row)); dQ += ds K
-    float dq[D / 8][4];
+    // ds = bf16(a * (da - row)); dQ += ds K (K MN-major: keys are the k)
+    float dq[D / 2];
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) dq[nd][r] = 0.f;
+    for (int c = 0; c < kKeys / KS; ++c) {
+      float dp[KS / 2];
+      // its wait also retires the last chunk's dQ product
+      dp_chunk<D, KS, kKeys, kDrop>(dp, a, c, dot, vs, hsite.scale);
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      float dp[2][4];
-      dp_chunk(np, dp);
+      for (int i = 0; i < KS / 2; ++i)
+        dp[i] = fabsf(a[c * (KS / 2) + i]) *
+                (dp[i] - ((i & 3) < 2 ? row0 : row1));
+      uint32_t sa[KS / 16][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int kc = 0; kc < KS / 16; ++kc) acc_to_a(sa[kc], dp, kc);
+      sm::wgmma_fence();
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          dp[j][r] = a[2 * np + j][r] * (dp[j][r] - (r < 2 ? row0 : row1));
-      uint32_t sa[4];
-      acc_to_a(sa, dp[0], dp[1]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, bt_addr<LD>(Ks, np * 16, dd * 16, lane));
-        mma_bf16(dq[2 * dd], sa, b[0], b[1]);
-        mma_bf16(dq[2 * dd + 1], sa, b[2], b[3]);
-      }
+      for (int kc = 0; kc < KS / 16; ++kc)
+        sm::WgmmaRA<D, 1>::mma(dq, sa[kc],
+                               desc<RB>(ks + (c * KS + 16 * kc) * RB), 1);
+      sm::wgmma_commit();
     }
-    const float scale = args.scale;
-    store_tile<D>(St, dq, [&](float x, int) { return x * scale; },
-                  args.dq + seq * args.dq_seq + h * D, args.dq_row, tile * 16,
-                  lq, lane);
+    sm::wgmma_wait<0>();
+    sm::fence_regs(dq);
+    if (tid == 0) sm::bulk_wait_read<0>();  // the tile's last store read it
+    sm::named_sync(1 + wg, 128);
+    store_tile<D>(dq, scale, out0, &map_dq, h, tile * 64, seq, wg, tid);
   }
-  __syncthreads();  // m, l, row of every query row
+  __syncthreads();  // m, l, row (and the keep bits) of every query row
 
   // ---- phase 2: key rows ----
-  for (int kt = warp; kt < lk16 / 16; kt += kBwdWarps) {
-    uint32_t ka[D / 16][4], va[D / 16][4];
+  for (int kt = wg; kt < n_kt; kt += kWarpgroups) {
+    const uint32_t kts = ks + kt * 64 * RB, vts = vs + kt * 64 * RB;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      ldsm_x4(ka[kk], a_addr<LD>(Ks, kt * 16, kk * 16, lane));
-      ldsm_x4(va[kk], a_addr<LD>(Vs, kt * 16, kk * 16, lane));
-    }
-    float dk[D / 8][4], dv[D / 8][4];
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const int key0 = kt * 64 + r_in;  // the thread's keys key0, key0 + 8
+    for (int qc = 0; qc < n_qt; ++qc) {
+      const uint32_t qcs = qs + qc * 64 * RB, docs = dos + qc * 64 * RB;
+      float st[32], dpt[32];  // S^T, dP^T: 64 keys by 64 queries
+      sm::wgmma_fence();
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm::Wgmma<64, 0, 0>::mma(st, desc<RB>(kts + 32 * kk),
+                                 desc<RB>(qcs + 32 * kk), kk);
+      sm::wgmma_commit();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) dk[nd][r] = dv[nd][r] = 0.f;
-    const int key0 = kt * 16 + g;
-    for (int qc = 0; qc < lq16; qc += 16) {
-      float st[2][4], dpt[2][4];
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm::Wgmma<64, 0, 0>::mma(dpt, desc<RB>(vts + 32 * kk),
+                                 desc<RB>(docs + 32 * kk), kk);
+      sm::wgmma_commit();
+      // the keep bits of the thread's (key0 + 8 i, query qc * 64 + 8 j + 2t
+      // + e), gathered into bit 16 i + 2 j + e while the products run: as
+      // phase 1's thread of the query's row drew them (tile qc, warp j / 2,
+      // lane 4 (2t + e) + g / 2; its element 4 (key / 8) + 2 (j & 1) + (g &
+      // 1))
+      uint32_t kw = 0u;
+      if constexpr (kDrop) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int i = 0; i < 2; ++i) {
+          const int bit = ((key0 + 8 * i) >> 3) * 4 + (g & 1);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) st[j][r] = dpt[j][r] = 0.f;
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        ldsm_x4(b, bn_addr<LD>(Qs, qc, kk * 16, lane));
-        mma_bf16(st[0], ka[kk], b[0], b[1]);
-        mma_bf16(st[1], ka[kk], b[2], b[3]);
-        ldsm_x4(b, bn_addr<LD>(dOs, qc, kk * 16, lane));
-        mma_bf16(dpt[0], va[kk], b[0], b[1]);
-        mma_bf16(dpt[1], va[kk], b[2], b[3]);
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t w =
+                  Mb[(qc * 128 + (j >> 1) * 32 + (2 * t + e) * 4 + (g >> 1)) *
+                         kBitLd<kKeys> +
+                     (bit >> 5)];
+              kw |= ((w >> ((bit + 2 * (j & 1)) & 31)) & 1u)
+                    << (16 * i + 2 * j + e);
+            }
+        }
       }
-      // st -> a [* keep], dpt -> ds, keys as rows
+      // S^T (and the last chunk's dV, dK products) retired; dP^T runs on
+      // under the exp2 work
+      sm::wgmma_wait<1>();
+      sm::fence_regs(st);
+      // st -> a (0 past lq or lk), keys as rows
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 8; ++j) {
+        const int q = qc * 64 + 8 * j + 2 * t;  // queries q, q + 1
+        const float2 m2 = *reinterpret_cast<const float2*>(ms + q);
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + q);
+        const float2 i2 = *reinterpret_cast<const float2*>(ri + q);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int q = qc + j * 8 + 2 * t + (r & 1);
-          const int key = key0 + (r >> 1) * 8;
-          float ad = 0.f, ds = 0.f;
-          if (q < lq && key < lk) {
-            const float a =
-                exp2_ftz(__fmul_rn(st[j][r], sl2e) - ms[q]) / ls[q];
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const float a = div_rn(
+                exp2_ftz(__fmul_rn(st[x], sl2e) - (e ? m2.y : m2.x)),
+                e ? l2.y : l2.x, e ? i2.y : i2.x);
+            st[x] = q + e < lq && key0 + 8 * i < lk ? a : 0.f;
+          }
+      }
+      sm::wgmma_wait<0>();
+      sm::fence_regs(dpt);
+      // dpt -> ds = a (dP [* keep] - row), st -> a [* keep]
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int q = qc * 64 + 8 * j + 2 * t;
+        const float2 r2 = *reinterpret_cast<const float2*>(rs + q);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e, key = key0 + 8 * i;
             float mk = 1.f;
             if constexpr (kDrop)
-              mk = (Ms[q * kMaskLd<kKeys> + (key >> 5)] >> (key & 31)) & 1u
+              mk = q + e < lq && key < lk && (kw >> (16 * i + 2 * j + e)) & 1u
                        ? hsite.scale
                        : 0.f;
-            ad = a * mk;
-            ds = a * (dpt[j][r] * mk - rs[q]);
+            // da = dP * keep rounded before row is taken from it (an FMA
+            // would keep da's rounding error: ds != 0 at Lk 1)
+            dpt[x] = st[x] * (__fmul_rn(dpt[x], mk) - (e ? r2.y : r2.x));
+            st[x] *= mk;
           }
-          st[j][r] = ad;
-          dpt[j][r] = ds;
-        }
-      uint32_t aa[4], sa[4];
-      acc_to_a(aa, st[0], st[1]);
-      acc_to_a(sa, dpt[0], dpt[1]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldsm_x4_t(b, bt_addr<LD>(dOs, qc, dd * 16, lane));
-        mma_bf16(dv[2 * dd], aa, b[0], b[1]);
-        mma_bf16(dv[2 * dd + 1], aa, b[2], b[3]);
-        ldsm_x4_t(b, bt_addr<LD>(Qs, qc, dd * 16, lane));
-        mma_bf16(dk[2 * dd], sa, b[0], b[1]);
-        mma_bf16(dk[2 * dd + 1], sa, b[2], b[3]);
       }
+      uint32_t aa[4][4], sa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        acc_to_a(aa[kc], st, kc);
+        acc_to_a(sa[kc], dpt, kc);
+      }
+      // dV += bf16(a [* keep])^T dO, dK += bf16(ds)^T Q (queries are the k)
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        sm::WgmmaRA<D, 1>::mma(dv, aa[kc],
+                               desc<RB>(docs + 16 * kc * RB), 1);
+        sm::WgmmaRA<D, 1>::mma(dk, sa[kc], desc<RB>(qcs + 16 * kc * RB),
+                               1);
+      }
+      sm::wgmma_commit();
     }
-    const float scale = args.scale;
-    store_tile<D>(St, dk, [&](float x, int) { return x * scale; },
-                  args.dk + seq * args.dkv_seq + h * D, args.dkv_row, kt * 16,
-                  lk, lane);
-    store_tile<D>(St, dv, [](float x, int) { return x; },
-                  args.dv + seq * args.dkv_seq + h * D, args.dkv_row, kt * 16,
-                  lk, lane);
+    sm::wgmma_wait<0>();
+    sm::fence_regs(dk);
+    sm::fence_regs(dv);
+    if (tid == 0) sm::bulk_wait_read<0>();  // the tiles' last stores read them
+    sm::named_sync(1 + wg, 128);
+    store_tile<D>(dk, scale, out0, &map_dk, h, kt * 64, seq, wg, tid);
+    store_tile<D>(dv, 1.f, out1, &map_dv, h, kt * 64, seq, wg, tid);
   }
+  if (tid == 0) sm::bulk_wait();
 }
 
-template <int D, int kKeys, bool kDrop>
-int launch_bwd(const BwdArgs& a, int n_seq, int n_heads, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<D, kKeys, kDrop>((a.lq + 15) & ~15);
-  auto kernel = attn_bwd_kernel<D, kKeys, kDrop>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(n_seq, n_heads), kBwdWarps * 32, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool kDrop>
-int launch_attn_bwd(const BwdArgs& a, int n_seq, int n_heads, int head_dim,
-                    cudaStream_t stream) {
-  return with_tier(a.lk, [&](auto tier) {
-    constexpr int kKeys = decltype(tier)::value;
-    return head_dim == 32
-               ? launch_bwd<32, kKeys, kDrop>(a, n_seq, n_heads, stream)
-               : launch_bwd<64, kKeys, kDrop>(a, n_seq, n_heads, stream);
-  });
-}
+// ----------------------------------------------------------------- host ----
 
 bool bad_geometry(int n_seq, int lq, int lk, int n_heads, int head_dim) {
   return (head_dim != 32 && head_dim != 64) || n_seq <= 0 || lq <= 0 ||
@@ -877,26 +934,179 @@ bool bad_geometry(int n_seq, int lq, int lk, int n_heads, int head_dim) {
          n_heads > 65535 || (long long)n_seq * n_heads > 0x7fffffffLL;
 }
 
-FwdArgs fwd_args(const void* q, const void* k, const void* v, void* o,
-                 void* probs, int n_seq, int lq, int lk, int n_heads,
-                 int head_dim,
-                 long long q_row, long long q_seq, long long kv_row,
-                 long long kv_seq, float scale_log2e) {
+// The 3-D tensor map [n_seq][rows][n_heads * D] of a bf16 view (row and
+// sequence strides in elements), read or written in boxes of one head's D
+// columns by box_rows rows, rows of 2 D bytes under the swizzle of that
+// width, zero fill past the rows of a sequence. TMA takes a 16-byte aligned
+// base and strides that are multiples of 16 bytes; anything else returns
+// cudaErrorInvalidValue before any launch (ops/attention.py and
+// ops/layer_fused.py::check_rows refuse such views first).
+int encode_view(CUtensorMap* map, const void* ptr, int n_seq, int rows,
+                int n_heads, int D, long long row_stride,
+                long long seq_stride, int box_rows) {
+  const sm::EncodeTiledFn fn = sm::encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const long long cols = (long long)n_heads * D;
+  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 ||
+      row_stride % 8 || seq_stride % 8 || row_stride < cols ||
+      seq_stride < (long long)rows * row_stride)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)n_seq};
+  const cuuint64_t strides[2] = {(cuuint64_t)(row_stride * 2),
+                                 (cuuint64_t)(seq_stride * 2)};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const auto encode = [&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+              const_cast<void*>(ptr), dims, strides, box, steps,
+              CU_TENSOR_MAP_INTERLEAVE_NONE,
+              D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_64B,
+              CU_TENSOR_MAP_L2_PROMOTION_NONE,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // cuTensorMapEncodeTiled needs the device's context current on this
+    // thread; one of PyTorch's autograd threads may not have bound it (no
+    // runtime call there has needed it yet). cudaSetDevice binds it.
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return (int)e;
+    r = encode();
+  }
+  return r == CUDA_SUCCESS ? 0 : 100 + (int)r;
+}
+
+struct Views {  // the forward's pointers and strides (elements)
+  const void *q, *k, *v;
+  void* o;
+  int n_seq;
+  long long q_row, q_seq, kv_row, kv_seq;
+};
+
+template <int D, int kKeys, bool kDrop, bool kProbs>
+int launch_fwd(const Views& w, const FwdArgs& a, cudaStream_t stream) {
+  using L = FwdSmem<D, kKeys>;
+  const int lq64 = (a.lq + 63) / 64 * 64;
+  CUtensorMap mq, mk, mv, mo;
+  int e = encode_view(&mq, w.q, w.n_seq, a.lq, a.n_heads, D, w.q_row,
+                      w.q_seq, lq64);
+  if (!e)
+    e = encode_view(&mk, w.k, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
+                    w.kv_seq, kKeys);
+  if (!e)
+    e = encode_view(&mv, w.v, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
+                    w.kv_seq, kKeys);
+  const long long hid = (long long)a.n_heads * D;
+  if (!e)
+    e = encode_view(&mo, w.o, w.n_seq, a.lq, a.n_heads, D, hid,
+                    (long long)a.lq * hid, 64);
+  if (e) return e;
+  const auto kernel = attn_fwd_kernel<D, kKeys, kDrop, kProbs>;
+  const int smem = L::bytes(a.lq);
+  // blocks an SM by Lq / 64 (the shared memory a block takes), found once
+  static int per_sm[kMaxL / 64 + 1] = {};
+  static int sms = 0;
+  int& fit = per_sm[lq64 / 64];
+  if (fit == 0) {
+    cudaError_t ce = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes(kMaxL));
+    int dev = 0, n = 0;
+    if (ce == cudaSuccess) ce = cudaGetDevice(&dev);
+    if (ce == cudaSuccess)
+      ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (ce == cudaSuccess)
+      ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                         smem);
+    if (ce != cudaSuccess) return (int)ce;
+    if (n < 1) return (int)cudaErrorInvalidConfiguration;
+    fit = n;
+  }
+  const long long most = (long long)fit * sms;
+  const int grid = (int)(a.n_items < most ? a.n_items : most);
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mo, a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop, bool kProbs>
+int launch_attention(const Views& w, const FwdArgs& a, int head_dim,
+                     cudaStream_t stream) {
+  return with_tier(a.lk, [&](auto tier) {
+    constexpr int kKeys = decltype(tier)::value;
+    return head_dim == 32
+               ? launch_fwd<32, kKeys, kDrop, kProbs>(w, a, stream)
+               : launch_fwd<64, kKeys, kDrop, kProbs>(w, a, stream);
+  });
+}
+
+struct BwdViews {  // the backward's pointers and row strides (elements)
+  const void *q, *k, *v, *dout;
+  void *dq, *dk, *dv;
+  int n_seq, n_heads;
+  long long q_row, kv_row, do_row, dq_row, dkv_row;
+};
+
+template <int D, int kKeys, bool kDrop>
+int launch_bwd(const BwdViews& w, const BwdArgs& a, cudaStream_t stream) {
+  using L = BwdSmem<D, kKeys, kDrop>;
+  const int lq64 = (a.lq + 63) / 64 * 64, lq = a.lq, lk = a.lk;
+  CUtensorMap mq, mk, mv, mdo, mdq, mdk, mdv;
+  int e = encode_view(&mq, w.q, w.n_seq, lq, w.n_heads, D, w.q_row,
+                      w.q_row * lq, lq64);
+  if (!e)
+    e = encode_view(&mk, w.k, w.n_seq, lk, w.n_heads, D, w.kv_row,
+                    w.kv_row * lk, L::kK64);
+  if (!e)
+    e = encode_view(&mv, w.v, w.n_seq, lk, w.n_heads, D, w.kv_row,
+                    w.kv_row * lk, L::kK64);
+  if (!e)
+    e = encode_view(&mdo, w.dout, w.n_seq, lq, w.n_heads, D, w.do_row,
+                    w.do_row * lq, lq64);
+  if (!e)
+    e = encode_view(&mdq, w.dq, w.n_seq, lq, w.n_heads, D, w.dq_row,
+                    w.dq_row * lq, 64);
+  if (!e)
+    e = encode_view(&mdk, w.dk, w.n_seq, lk, w.n_heads, D, w.dkv_row,
+                    w.dkv_row * lk, 64);
+  if (!e)
+    e = encode_view(&mdv, w.dv, w.n_seq, lk, w.n_heads, D, w.dkv_row,
+                    w.dkv_row * lk, 64);
+  if (e) return 1000 + e;
+  const auto kernel = attn_bwd_kernel<D, kKeys, kDrop>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t ce = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L(kMaxL).bytes);
+    if (ce != cudaSuccess) return 2000 + (int)ce;
+    attr_set = true;
+  }
+  kernel<<<dim3(w.n_seq, w.n_heads), kThreads, L(lq).bytes, stream>>>(
+      mq, mk, mv, mdo, mdq, mdk, mdv, a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int launch_attn_bwd(const BwdViews& w, const BwdArgs& a, int head_dim,
+                    cudaStream_t stream) {
+  return with_tier(a.lk, [&](auto tier) {
+    constexpr int kKeys = decltype(tier)::value;
+    return head_dim == 32 ? launch_bwd<32, kKeys, kDrop>(w, a, stream)
+                          : launch_bwd<64, kKeys, kDrop>(w, a, stream);
+  });
+}
+
+FwdArgs fwd_args(void* probs, int n_seq, int lq, int lk, int n_heads,
+                 float scale_log2e) {
   FwdArgs a{};
-  a.q = (const bf16*)q;
-  a.k = (const bf16*)k;
-  a.v = (const bf16*)v;
-  a.o = (bf16*)o;
   a.probs = (float*)probs;
   a.n_items = n_seq * n_heads;
   a.lq = lq;
   a.lk = lk;
   a.n_heads = n_heads;
-  a.o_row = n_heads * head_dim;
-  a.q_row = q_row;
-  a.q_seq = q_seq;
-  a.kv_row = kv_row;
-  a.kv_seq = kv_seq;
   a.scale_log2e = scale_log2e;
   return a;
 }
@@ -911,11 +1121,10 @@ int nylon_attention(const void* q, const void* k, const void* v, void* o,
                     long long kv_seq, float scale_log2e, void* stream) {
   if (bad_geometry(n_seq, lq, lk, n_heads, head_dim))
     return (int)cudaErrorInvalidValue;
-  const FwdArgs a = fwd_args(q, k, v, o, nullptr, n_seq, lq, lk, n_heads,
-                             head_dim, q_row, q_seq, kv_row, kv_seq,
-                             scale_log2e);
-  return launch_attention<false, false>(a, head_dim,
-                                        (cudaStream_t)stream);
+  const Views w{q, k, v, o, n_seq, q_row, q_seq, kv_row, kv_seq};
+  return launch_attention<false, false>(
+      w, fwd_args(nullptr, n_seq, lq, lk, n_heads, scale_log2e), head_dim,
+      (cudaStream_t)stream);
 }
 
 // nylon_attention that also writes the normalised f32 probabilities
@@ -927,11 +1136,10 @@ int nylon_attention_probs(const void* q, const void* k, const void* v,
                           float scale_log2e, void* stream) {
   if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) || probs == nullptr)
     return (int)cudaErrorInvalidValue;
-  const FwdArgs a = fwd_args(q, k, v, o, probs, n_seq, lq, lk, n_heads,
-                             head_dim, q_row, q_seq, kv_row, kv_seq,
-                             scale_log2e);
-  return launch_attention<false, true>(a, head_dim,
-                                       (cudaStream_t)stream);
+  const Views w{q, k, v, o, n_seq, q_row, q_seq, kv_row, kv_seq};
+  return launch_attention<false, true>(
+      w, fwd_args(probs, n_seq, lq, lk, n_heads, scale_log2e), head_dim,
+      (cudaStream_t)stream);
 }
 
 // nylon_attention with dropout on the probabilities: head h takes the keep
@@ -946,13 +1154,12 @@ int nylon_attention_drop(const void* q, const void* k, const void* v, void* o,
   if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) ||
       (half && 2 * half != lk))
     return (int)cudaErrorInvalidValue;
-  FwdArgs a = fwd_args(q, k, v, o, nullptr, n_seq, lq, lk, n_heads,
-                       head_dim, q_row, q_seq, kv_row, kv_seq, scale_log2e);
+  const Views w{q, k, v, o, n_seq, q_row, q_seq, kv_row, kv_seq};
+  FwdArgs a = fwd_args(nullptr, n_seq, lq, lk, n_heads, scale_log2e);
   a.seed_mix = seed_mix;
   a.head_tag0 = head_tag0;
   a.site = DropSite{0u, thresh, scale, half, 0u};
-  return launch_attention<true, false>(a, head_dim,
-                                       (cudaStream_t)stream);
+  return launch_attention<true, false>(w, a, head_dim, (cudaStream_t)stream);
 }
 
 // Attention backward of n_seq sequences on strided head-interleaved views
@@ -970,34 +1177,18 @@ int nylon_attention_bwd(const void* q, const void* k, const void* v,
   if (bad_geometry(n_seq, lq, lk, n_heads, head_dim) ||
       (half && 2 * half != lk))
     return (int)cudaErrorInvalidValue;
+  const BwdViews w{q,     k,       v,       dout,   dq,     dk,     dv,
+                   n_seq, n_heads, q_row,   kv_row, do_row, dq_row, dkv_row};
   BwdArgs a{};
-  a.q = (const bf16*)q;
-  a.k = (const bf16*)k;
-  a.v = (const bf16*)v;
-  a.dout = (const bf16*)dout;
-  a.dq = (bf16*)dq;
-  a.dk = (bf16*)dk;
-  a.dv = (bf16*)dv;
   a.lq = lq;
   a.lk = lk;
-  a.q_row = q_row;
-  a.q_seq = q_row * lq;
-  a.kv_row = kv_row;
-  a.kv_seq = kv_row * lk;
-  a.do_row = do_row;
-  a.do_seq = do_row * lq;
-  a.dq_row = dq_row;
-  a.dq_seq = dq_row * lq;
-  a.dkv_row = dkv_row;
-  a.dkv_seq = dkv_row * lk;
   a.scale = scale;
   a.scale_log2e = scale_log2e;
   a.seed_mix = seed_mix;
   a.head_tag0 = head_tag0;
   a.site = DropSite{0u, thresh, pscale, half, 0u};
-  return active ? launch_attn_bwd<true>(a, n_seq, n_heads, head_dim,
-                                        (cudaStream_t)stream)
-                : launch_attn_bwd<false>(a, n_seq, n_heads, head_dim,
+  return active ? launch_attn_bwd<true>(w, a, head_dim, (cudaStream_t)stream)
+                : launch_attn_bwd<false>(w, a, head_dim,
                                          (cudaStream_t)stream);
 }
 

@@ -445,13 +445,23 @@ def _gemm_res_ln(a, w, bias, res, g, b, pair=None):
 
 def check_rows(name: str, t) -> None:
     """Raise unless the 2-D view ``t`` has a unit column stride, 16-byte
-    rows and a 16-byte aligned start (the kernels load rows 16 bytes at a
-    time)."""
+    rows that do not overlap and a 16-byte aligned start (the kernels load
+    rows 16 bytes at a time, the attention by TMA, which takes nothing
+    else)."""
     if (t.stride(1) != 1 or t.stride(0) * t.element_size() % 16
-            or t.data_ptr() % 16):
+            or t.stride(0) < t.shape[1] or t.data_ptr() % 16):
         raise ValueError(f"{name} must have unit column stride, a row "
-                         "stride of a multiple of 16 bytes and a 16-byte "
-                         "aligned start")
+                         "stride of a multiple of 16 bytes and at least "
+                         "its columns, and a 16-byte aligned start")
+
+
+def check_attention_views(q, k, v) -> None:
+    """Raise unless the attention kernels take the views ``q``, ``k``,
+    ``v`` (:func:`check_rows`; ``k`` and ``v`` sharing a row stride)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_rows(f"attention: {name}", t)
+    if k.stride(0) != v.stride(0):
+        raise ValueError("attention: k and v must share a row stride")
 
 
 def _attention(q, k, v, n, n_heads):
@@ -460,10 +470,7 @@ def _attention(q, k, v, n, n_heads):
     read in place) -> contiguous ``[n*Lq, hid]``."""
     hid = q.shape[1]
     lq, lk = q.shape[0] // n, k.shape[0] // n
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_rows(f"attention: {name}", t)
-    if k.stride(0) != v.stride(0):
-        raise ValueError("attention: k and v must share a row stride")
+    check_attention_views(q, k, v)
     out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
     kernels.call(kernels.entry("nylon_attention", q.dtype), q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), n, lq, lk,

@@ -563,6 +563,7 @@ def _attention(q, k, v, n, n_heads, seed, rate, tag_base):
         return lf._attention(q, k, v, n, n_heads)
     hid = q.shape[1]
     lq, lk = q.shape[0] // n, k.shape[0] // n
+    lf.check_attention_views(q, k, v)
     thresh, keep, half = site_constants(rate, lk, torch.float32)
     out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
     kernels.call(kernels.entry("nylon_attention_drop", q.dtype),

@@ -108,15 +108,18 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
                    "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32",
                    "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
-           "attn32": (), "attn16": (),
+           "attn32": (),
+           "attn16": ("nylon_attention", "nylon_attention_probs",
+                      "nylon_attention_drop", "nylon_attention_bwd"),
            "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
                   "nylon_q8_attention", "nylon_q8_gemm_bias_f32",
                   "nylon_q8_gemm_res_ln_f32", "nylon_q8_attention_f32")}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
            "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
-# what --q8 builds (layer_fused.cu for the error strings)
+# what --q8 and --attn16 build (layer_fused.cu for the error strings)
 Q8_PARTS = ("fwd", "q8")
+ATTN16_PARTS = ("fwd", "attn16")
 # the stem QKV GEMM's entry point (a, w [K, N], bias, out, M, N, K, relu,
 # stream)
 QKV_ENTRY = "nylon_gemm_bias_ffma_f32"
@@ -249,6 +252,20 @@ Q8_PRE_CODES = {
     "nylon_q8_gemm_bias": [_P8] * 6 + [_I8] * 4 + [_P8],
     "nylon_q8_attention": [_P8, _L8, _P8, _P8, _L8, _P8, _P8, _I8, _P8, _P8]
     + [_I8] * 5 + [_F8, _P8]}
+# the per-site attention of chip_smoke.py (l): (label, Lq, Lk, sequences a
+# window) at 4 heads of 64 (hid 256), batch 32 and 8; the checks at 16
+# sequences of each, at 4 heads of 64 and 2 heads of 32, under (l)'s
+# limits: outputs within ULPS bf16 ulps of the plain twin, input grads
+# within ATTN_CHAIN_ULPS, K11's probabilities within ATTN_PROBS_ATOL
+ATTN16_SITES = [("freq self", 256, 256, 128), ("cross", 88, 256, 128),
+                ("note self", 88, 88, 128), ("time self", 128, 128, 88)]
+ATTN16_BATCHES = (32, 8)
+# (Lq, Lk) beside the sites, checked at 4 sequences: one key (every grad
+# of q and k exactly 0), tiers' edges, Lq past 128, a few keys
+ATTN16_ODD = [(1, 1), (7, 13), (57, 200), (65, 97), (129, 40), (256, 8)]
+ATTN16_KINDS = ("fwd", "probs", "drop", "bwd", "drop_bwd")
+ATTN_CHAIN_ULPS, ATTN_PROBS_ATOL = 12, 1e-5
+ATTN_SCALE = 0.125
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
 TF32_FLOPS, F32_FLOPS = 494.7e12, 67e12
 INT8_OPS = 1979e12
@@ -585,6 +602,53 @@ class Lib:
         return ([out] if t_out else []) + [codes, sc]
 
 
+    def attention16(self, q, k, v, heads, kind="fwd", do=None):
+        """The bf16 attention of ``[n, L, hid]`` q, k, v (row-strided views
+        with a unit column stride, such as column slices of a packed QKV;
+        scale ATTN_SCALE): ``kind`` "fwd" ``[out]``, "probs" ``[out,
+        probs]``, "drop" ``[out]`` (rate RATE, seed DROP_SEED, heads' raw
+        tags, as K12), "bwd" / "drop_bwd" ``[dq, dk, dv]`` (contiguous)
+        given ``do``."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops.attention import seed_mix, site_constants
+        from nylon_amt_tpu_torch.ops.layer_fused import _LOG2E
+
+        n, lq, hid = q.shape
+        lk, d = k.shape[1], hid // heads
+        s = torch.cuda.current_stream().cuda_stream
+        drop = kind.startswith("drop")
+        site = (site_constants(RATE, lk, torch.float32) if drop
+                else (0, 0.0, 0))
+        if kind.endswith("bwd"):
+            grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (q, k, v)]
+            self._call("attn16", "nylon_attention_bwd", q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                       *(g.data_ptr() for g in grads), n, lq, lk, heads, d,
+                       q.stride(1), k.stride(1), do.stride(1), hid, hid,
+                       ATTN_SCALE,
+                       ATTN_SCALE * _LOG2E, int(drop), seed_mix(DROP_SEED),
+                       0, *site, s)
+            return grads
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        geo = (n, lq, lk, heads, d, q.stride(1), q.stride(0), k.stride(1),
+               k.stride(0), ATTN_SCALE * _LOG2E)
+        if kind == "probs":
+            probs = torch.empty((n, heads, lq, lk), dtype=torch.float32,
+                                device=q.device)
+            self._call("attn16", "nylon_attention_probs", *ptrs,
+                       probs.data_ptr(), *geo, s)
+            return [out, probs]
+        if drop:
+            self._call("attn16", "nylon_attention_drop", *ptrs, *geo,
+                       seed_mix(DROP_SEED), 0, *site, s)
+        else:
+            self._call("attn16", "nylon_attention", *ptrs, *geo, s)
+        return [out]
+
+
 def q8_inputs(m, k, n, ln, dtype, seed=0):
     """An int8 GEMM's operands: the codes and scales of seeded activations
     and weights in ``dtype`` (the plain quantizers'), the codes K-major
@@ -719,9 +783,13 @@ def _equal(xs, ys) -> bool:
 
 
 def _ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of max |want| (want all zero: 0 if got
+    is too, else inf)."""
     top = want.float().abs().max().item()
-    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-    return (got.float() - want.float()).abs().max().item() / ulp
+    diff = (got.float() - want.float()).abs().max().item()
+    if top == 0:
+        return 0.0 if diff == 0 else math.inf
+    return diff / 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
 def check(libs: dict) -> tuple[dict, dict, dict]:
@@ -1100,6 +1168,165 @@ def timing_q8(libs: dict) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
 
 
+def attention16_inputs(n, lq, lk, hid, seed=0, packed=False):
+    """Seeded bf16 q, k, v, do ``[n, L, hid]`` on the card; with
+    ``packed`` (lq == lk) q, k, v are the column slices of one ``[n, L, 3
+    hid]`` QKV, as a self-attention layer reads them (row stride 3 hid)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        qkv = torch.randn((n, lq, 3 * hid), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        do = torch.randn((n, lq, hid), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        return [qkv[..., :hid], qkv[..., hid:2 * hid], qkv[..., 2 * hid:],
+                do]
+    return [torch.randn((n, L, hid), generator=g, device="cuda")
+            .to(torch.bfloat16) for L in (lq, lk, lk, lq)]
+
+
+def attention16_plain(q, k, v, do, heads, kind):
+    """The plain twin of ``Lib.attention16``'s ``kind``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import attention as att
+
+    mask = None
+    if kind.startswith("drop"):
+        def mask(h, shape):
+            return att.hash_keep_mask_plain(DROP_SEED, h, 0, shape, RATE,
+                                            torch.float32, q.device)
+    if kind.endswith("bwd"):
+        return list(att.mha_bwd_plain(q, k, v, do, heads, ATTN_SCALE, mask))
+    if kind == "probs":
+        return list(att.mha_plain(q, k, v, heads, ATTN_SCALE,
+                                  with_probs=True))
+    return [att.mha_plain(q, k, v, heads, ATTN_SCALE, mask)]
+
+
+def check_attn16(libs: dict) -> dict:
+    """Hold every variant's bf16 attention at 16 sequences of each site of
+    ATTN16_SITES, at 4 heads of 64, 2 heads of 32 and 3 heads of 32 (the
+    self sites on packed QKV views, row stride 3 hid), under (l)'s limits:
+    each output within ULPS bf16 ulps of the plain twin (the same masks
+    under dropout), K11's output bit for bit K10's and its probabilities
+    within ATTN_PROBS_ATOL of the plain f32 ones, rows summing to 1 within
+    it; dq, dk, dv within ATTN_CHAIN_ULPS; two runs bit-identical. The
+    same at 4 sequences of each ATTN16_ODD (Lq, Lk), at 4 heads of 64 and
+    3 of 32. Returns ``{name: passed}``."""
+    import torch
+
+    ok = {name: True for name in libs}
+    cases = [(hid, heads, 16, label, lq, lk) for hid, heads in (
+        (256, 4), (64, 2), (96, 3)) for label, lq, lk, _ in ATTN16_SITES]
+    cases += [(hid, heads, 4, f"[{lq}, {lk}]", lq, lk) for hid, heads in (
+        (256, 4), (96, 3)) for lq, lk in ATTN16_ODD]
+    for hid, heads, n, label, lq, lk in cases:
+        q, k, v, do = attention16_inputs(n, lq, lk, hid,
+                                         seed=lq + lk + hid,
+                                         packed=lq == lk)
+        for kind in ATTN16_KINDS:
+            want = attention16_plain(q, k, v, do, heads, kind)
+            for name, lib in libs.items():
+                try:
+                    got = lib.attention16(q, k, v, heads, kind, do)
+                    again = lib.attention16(q, k, v, heads, kind, do)
+                    torch.cuda.synchronize()
+                except (Refused, RuntimeError) as e:
+                    print(f"attn16 {name} {label} hid {hid} "
+                          f"{kind}: {e!r}", flush=True)
+                    ok[name] = False
+                    continue
+                same = _equal(got, again)
+                limit = ATTN_CHAIN_ULPS if kind.endswith("bwd") else ULPS
+                us = [_ulps(a, b) for a, b in zip(got[:3], want[:3])
+                      if a.dtype == torch.bfloat16]
+                passed = same and max(us) <= limit
+                what = "/".join(f"{u:.2f}" for u in us) + " ulps"
+                if kind == "probs":
+                    k10 = lib.attention16(q, k, v, heads, "fwd")[0]
+                    p_err = (got[1] - want[1]).abs().max().item()
+                    r_err = (got[1].sum(-1) - 1).abs().max().item()
+                    eq = torch.equal(got[0], k10)
+                    passed &= (eq and p_err <= ATTN_PROBS_ATOL
+                               and r_err <= ATTN_PROBS_ATOL)
+                    what += (f", output {'=' if eq else '!='} K10's, "
+                             f"probs {p_err:.2e}, rows {r_err:.2e}")
+                ok[name] &= passed
+                print(f"attn16 {name} {label} hid {hid} {kind}: "
+                      f"{what} from the plain twin (<= {limit}); reruns "
+                      f"{'bit-identical' if same else 'DIFFER'}",
+                      flush=True)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for name in libs:
+        print(f"attn16 {name}: {'passed' if ok[name] else 'FAILED'}",
+              flush=True)
+    return ok
+
+
+def attention16_bound(kind, n, lq, lk, hid, heads) -> float:
+    """The least time (ms) of ``kind`` at these shapes: q, k, v (and dO) in,
+    the output (and the f32 probabilities; dq, dk, dv) out once, over
+    HBM_BPS, or its products (2, or the backward's 5 at the least) over
+    BF16_FLOPS, whichever is longer."""
+    bwd = kind.endswith("bwd")
+    nbytes = 2 * n * hid * ((2 * lq + 2 * lk) if not bwd
+                            else (3 * lq + 4 * lk))
+    if kind == "probs":
+        nbytes += 4 * n * heads * lq * lk
+    flops = 2 * (5 if bwd else 2) * n * lq * lk * hid
+    return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+
+
+def timing_attn16(libs: dict) -> None:
+    """Each variant's bf16 attention at the shapes of (l) (ATTN16_SITES at
+    ATTN16_BATCHES, 4 heads of 64), every kind, A B .. B A by ``graph_ms``,
+    beside the bound and SDPA (``F.scaled_dot_product_attention`` on the
+    same views, by CUDA events; its backward by ``autograd.grad`` over one
+    recorded forward; K11 has none)."""
+    import torch
+    import torch.nn.functional as F
+
+    names = list(libs)
+    hid, heads = 256, 4
+    d = hid // heads
+    for B in ATTN16_BATCHES:
+        for label, lq, lk, per in ATTN16_SITES:
+            n = B * per
+            q, k, v, do = attention16_inputs(n, lq, lk, hid)
+
+            def sdpa(a, b, c, **kw):
+                return F.scaled_dot_product_attention(
+                    *(t.view(n, -1, heads, d).transpose(1, 2)
+                      for t in (a, b, c)), scale=ATTN_SCALE,
+                    **kw).transpose(1, 2).reshape(n, lq, hid)
+
+            def sdpa_bwd(**kw):
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                out = sdpa(qq, kk, vv, **kw)
+                return cuda_ms(lambda: torch.autograd.grad(
+                    out, (qq, kk, vv), do, retain_graph=True))
+
+            lib_ms = {"fwd": cuda_ms(lambda: sdpa(q, k, v)),
+                      "probs": None,
+                      "drop": cuda_ms(lambda: sdpa(q, k, v, dropout_p=RATE)),
+                      "bwd": sdpa_bwd(),
+                      "drop_bwd": sdpa_bwd(dropout_p=RATE)}
+            for kind in ATTN16_KINDS:
+                ms = _abba(names, lambda name: libs[name].attention16(
+                    q, k, v, heads, kind, do), graph_ms)
+                bound = attention16_bound(kind, n, lq, lk, hid, heads)
+                lib_txt = ("SDPA " + (f"{lib_ms[kind]:.3f}"
+                                      if lib_ms[kind] is not None else
+                                      "none"))
+                _line(f"attn16 {kind} {label} batch {B}", f"[{n},{lq},{lk}]",
+                      1, ms, bound, lib_txt)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+
 def attention_q8_bytes(n, lq, lk, hid) -> int:
     """The bytes the int8 attention must move: Q, K and V^T codes (the
     keys padded to 32) with their scales in; the output's codes and row
@@ -1391,6 +1618,8 @@ def main(argv=None) -> int:
                     help="time the float32 dX and dW GEMMs only")
     ap.add_argument("--q8", action="store_true",
                     help="check and time the int8 GEMMs only")
+    ap.add_argument("--attn16", action="store_true",
+                    help="check and time the bf16 attention (mha.cu) only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -1405,14 +1634,15 @@ def main(argv=None) -> int:
     variants = dict(v.split("=", 1) for v in args.variants)
     t0 = time.perf_counter()
     built = build(variants, Path(args.out),
-                  Q8_PARTS if args.q8 else tuple(SOURCES))
+                  Q8_PARTS if args.q8 else ATTN16_PARTS if args.attn16
+                  else tuple(SOURCES))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
-    if args.q8:
-        ok = check_q8(libs)
+    if args.q8 or args.attn16:
+        ok = (check_q8 if args.q8 else check_attn16)(libs)
         if libs and not args.no_time:
-            timing_q8(libs)
+            (timing_q8 if args.q8 else timing_attn16)(libs)
         first = next(iter(libs), None)
         return 0 if len(libs) == len(variants) and ok.get(first) else 1
     ok, ran, differ = check(libs)
