@@ -108,13 +108,18 @@
 
 #include <type_traits>
 
+#include "attn_tma.cuh"
 #include "common.cuh"
-#include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 
 using nylon::DropSite;
 using nylon::hash_mix;
 using nylon::keep_value;
+using nylon::attn::desc;
+using nylon::attn::encode_view;
+using nylon::attn::swz;
+using nylon::attn::tma_load3;
+using nylon::attn::tma_store3;
 namespace sm = nylon::sm90;
 
 namespace {
@@ -124,50 +129,6 @@ constexpr int kThreads = kWarpgroups * 128;  // one block an SM
 constexpr int kMaxL = 256;                   // queries and keys a sequence
 
 // ------------------------------------------------------------- operands ----
-
-// The shared-memory descriptor of an operand whose rows are RB bytes (2 D:
-// 128 or 64) under the swizzle of that width, K-major (rows along M or N,
-// the k16 step +32 bytes) or MN-major one swizzle atom wide (rows along K,
-// the k16 step +16 rows): either way eight rows apart (SBO), LBO unused.
-template <int RB>
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  constexpr uint64_t mode = RB == 128 ? 1 : 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(8 * RB >> 4) << 32) | (mode << 62);
-}
-
-// Byte offset of the 16-byte chunk `chunk` of row `row` in a tile of RB-byte
-// rows under the swizzle TMA writes (tile start 1024- or 512-byte aligned).
-template <int RB>
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  if constexpr (RB == 128)
-    return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
-  else
-    return (uint32_t)(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
-}
-
-// The box at (x = column, y = row, z = sequence) of a 3-D map into dst,
-// completing on bar; and a box from shared memory to (x, y, z).
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
-                                          uint64_t* bar, int x, int y,
-                                          int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm::smem_u32(bar)), "r"(x),
-      "r"(y), "r"(z)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
-                                           uint32_t src, int x, int y,
-                                           int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(x), "r"(y), "r"(z)
-      : "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -934,52 +895,6 @@ bool bad_geometry(int n_seq, int lq, int lk, int n_heads, int head_dim) {
          n_heads > 65535 || (long long)n_seq * n_heads > 0x7fffffffLL;
 }
 
-// The 3-D tensor map [n_seq][rows][n_heads * D] of a bf16 view (row and
-// sequence strides in elements), read or written in boxes of one head's D
-// columns by box_rows rows, rows of 2 D bytes under the swizzle of that
-// width, zero fill past the rows of a sequence. TMA takes a 16-byte aligned
-// base and strides that are multiples of 16 bytes; anything else returns
-// cudaErrorInvalidValue before any launch (ops/attention.py and
-// ops/layer_fused.py::check_rows refuse such views first).
-int encode_view(CUtensorMap* map, const void* ptr, int n_seq, int rows,
-                int n_heads, int D, long long row_stride,
-                long long seq_stride, int box_rows) {
-  const sm::EncodeTiledFn fn = sm::encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const long long cols = (long long)n_heads * D;
-  if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 ||
-      row_stride % 8 || seq_stride % 8 || row_stride < cols ||
-      seq_stride < (long long)rows * row_stride)
-    return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)n_seq};
-  const cuuint64_t strides[2] = {(cuuint64_t)(row_stride * 2),
-                                 (cuuint64_t)(seq_stride * 2)};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  const auto encode = [&] {
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-              const_cast<void*>(ptr), dims, strides, box, steps,
-              CU_TENSOR_MAP_INTERLEAVE_NONE,
-              D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : CU_TENSOR_MAP_SWIZZLE_64B,
-              CU_TENSOR_MAP_L2_PROMOTION_NONE,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  };
-  CUresult r = encode();
-  if (r == CUDA_ERROR_INVALID_CONTEXT) {
-    // cuTensorMapEncodeTiled needs the device's context current on this
-    // thread; one of PyTorch's autograd threads may not have bound it (no
-    // runtime call there has needed it yet). cudaSetDevice binds it.
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaSetDevice(dev);
-    if (e != cudaSuccess) return (int)e;
-    r = encode();
-  }
-  return r == CUDA_SUCCESS ? 0 : 100 + (int)r;
-}
-
 struct Views {  // the forward's pointers and strides (elements)
   const void *q, *k, *v;
   void* o;
@@ -992,17 +907,17 @@ int launch_fwd(const Views& w, const FwdArgs& a, cudaStream_t stream) {
   using L = FwdSmem<D, kKeys>;
   const int lq64 = (a.lq + 63) / 64 * 64;
   CUtensorMap mq, mk, mv, mo;
-  int e = encode_view(&mq, w.q, w.n_seq, a.lq, a.n_heads, D, w.q_row,
+  int e = encode_view(&mq, w.q, 2, w.n_seq, a.lq, a.n_heads, D, w.q_row,
                       w.q_seq, lq64);
   if (!e)
-    e = encode_view(&mk, w.k, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
+    e = encode_view(&mk, w.k, 2, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
                     w.kv_seq, kKeys);
   if (!e)
-    e = encode_view(&mv, w.v, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
+    e = encode_view(&mv, w.v, 2, w.n_seq, a.lk, a.n_heads, D, w.kv_row,
                     w.kv_seq, kKeys);
   const long long hid = (long long)a.n_heads * D;
   if (!e)
-    e = encode_view(&mo, w.o, w.n_seq, a.lq, a.n_heads, D, hid,
+    e = encode_view(&mo, w.o, 2, w.n_seq, a.lq, a.n_heads, D, hid,
                     (long long)a.lq * hid, 64);
   if (e) return e;
   const auto kernel = attn_fwd_kernel<D, kKeys, kDrop, kProbs>;
@@ -1054,25 +969,25 @@ int launch_bwd(const BwdViews& w, const BwdArgs& a, cudaStream_t stream) {
   using L = BwdSmem<D, kKeys, kDrop>;
   const int lq64 = (a.lq + 63) / 64 * 64, lq = a.lq, lk = a.lk;
   CUtensorMap mq, mk, mv, mdo, mdq, mdk, mdv;
-  int e = encode_view(&mq, w.q, w.n_seq, lq, w.n_heads, D, w.q_row,
+  int e = encode_view(&mq, w.q, 2, w.n_seq, lq, w.n_heads, D, w.q_row,
                       w.q_row * lq, lq64);
   if (!e)
-    e = encode_view(&mk, w.k, w.n_seq, lk, w.n_heads, D, w.kv_row,
+    e = encode_view(&mk, w.k, 2, w.n_seq, lk, w.n_heads, D, w.kv_row,
                     w.kv_row * lk, L::kK64);
   if (!e)
-    e = encode_view(&mv, w.v, w.n_seq, lk, w.n_heads, D, w.kv_row,
+    e = encode_view(&mv, w.v, 2, w.n_seq, lk, w.n_heads, D, w.kv_row,
                     w.kv_row * lk, L::kK64);
   if (!e)
-    e = encode_view(&mdo, w.dout, w.n_seq, lq, w.n_heads, D, w.do_row,
+    e = encode_view(&mdo, w.dout, 2, w.n_seq, lq, w.n_heads, D, w.do_row,
                     w.do_row * lq, lq64);
   if (!e)
-    e = encode_view(&mdq, w.dq, w.n_seq, lq, w.n_heads, D, w.dq_row,
+    e = encode_view(&mdq, w.dq, 2, w.n_seq, lq, w.n_heads, D, w.dq_row,
                     w.dq_row * lq, 64);
   if (!e)
-    e = encode_view(&mdk, w.dk, w.n_seq, lk, w.n_heads, D, w.dkv_row,
+    e = encode_view(&mdk, w.dk, 2, w.n_seq, lk, w.n_heads, D, w.dkv_row,
                     w.dkv_row * lk, 64);
   if (!e)
-    e = encode_view(&mdv, w.dv, w.n_seq, lk, w.n_heads, D, w.dkv_row,
+    e = encode_view(&mdv, w.dv, 2, w.n_seq, lk, w.n_heads, D, w.dkv_row,
                     w.dkv_row * lk, 64);
   if (e) return 1000 + e;
   const auto kernel = attn_bwd_kernel<D, kKeys, kDrop>;

@@ -22,7 +22,10 @@
 // thread, 4 taps per window load). The f32 conv output and the transposed,
 // scaled and embedded intermediates of the plain route never reach device
 // memory: the kernel writes the layer input [B * n_frame, n_bin, hid] in the
-// compute dtype.
+// compute dtype. The last block of columns may be ragged (hid % 64 == 32
+// for a hid of 3 heads of 32): its taps past hid are staged as zeros and
+// its stores past hid are skipped, a column quad at a time (hid % 4 == 0,
+// so every 4-element store stays aligned and whole).
 //
 // Numerics follow the plain route step by step: f32 sum, rounded to bf16,
 // + bf16(bias), x bf16(sqrt(hid)), + position embedding, each op rounded to
@@ -73,7 +76,8 @@ inline size_t stem_smem_bytes(int n_frame, int n_proc) {
 //       * sqrt_hid) + pos[bin, h])
 // for one (64-column tile, 8-bin group, example). Thread (ty, tx) owns frames
 // 4 ty .. 4 ty + 3 of each 128-frame pass and columns 4 tx .. 4 tx + 3 and
-// 32 + 4 tx .. 32 + 4 tx + 3 of the tile (two conflict-free 16-byte loads).
+// 32 + 4 tx .. 32 + 4 tx + 3 of the tile (two conflict-free 16-byte loads);
+// columns at or past hid are computed from zero taps and not stored.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     stem_embed_kernel(const float* __restrict__ spec_t,
@@ -92,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < n_taps * (kCols / 4); e += kThreads) {
     const int m = e / (kCols / 4), c4 = (e % (kCols / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < n_proc)
+    if (m < n_proc && h0 + c4 < hid)
       v = *reinterpret_cast<const float4*>(keff + (size_t)m * hid + h0 + c4);
     *reinterpret_cast<float4*>(Ks + m * kCols + c4) = v;
   }
@@ -106,11 +110,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
   const int ca = 4 * tx, cb = 32 + 4 * tx;  // the thread's two column quads
+  // whether each quad lies inside hid (hid % 4 == 0: a quad is all in or out)
+  const bool in_a = h0 + ca < hid, in_b = h0 + cb < hid;
   float bq[8];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    bq[e] = round_to<T>(beff[h0 + ca + e]);
-    bq[4 + e] = round_to<T>(beff[h0 + cb + e]);
+    bq[e] = in_a ? round_to<T>(beff[h0 + ca + e]) : 0.f;
+    bq[4 + e] = in_b ? round_to<T>(beff[h0 + cb + e]) : 0.f;
   }
 
   for (int j = 0; j < kBins; ++j) {
@@ -119,8 +125,9 @@ __global__ void __launch_bounds__(kThreads)
     float pq[8];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      pq[e] = nylon::to_f(pos[(size_t)bin * hid + h0 + ca + e]);
-      pq[4 + e] = nylon::to_f(pos[(size_t)bin * hid + h0 + cb + e]);
+      pq[e] = in_a ? nylon::to_f(pos[(size_t)bin * hid + h0 + ca + e]) : 0.f;
+      pq[4 + e] =
+          in_b ? nylon::to_f(pos[(size_t)bin * hid + h0 + cb + e]) : 0.f;
     }
     for (int fb = 0; fb < n_frame; fb += kFrames) {
       const int f = fb + 4 * ty;
@@ -157,8 +164,8 @@ __global__ void __launch_bounds__(kThreads)
           const T y = nylon::from_f<T>(x + pq[e]);
           if (e < 4) ya[e] = y; else yb[e - 4] = y;
         }
-        store4(row + ca, ya);
-        store4(row + cb, yb);
+        if (in_a) store4(row + ca, ya);
+        if (in_b) store4(row + cb, yb);
       }
     }
   }
@@ -171,14 +178,14 @@ int launch_stem(const void* spec_t, const void* keff, const void* beff,
                 cudaStream_t stream) {
   if (batch <= 0 || batch > 65535 || n_frame <= 0 || n_frame % 4 ||
       n_proc <= 0 || total < n_frame + n_proc - 1 || n_bin % kBins ||
-      hid % kCols)
+      hid <= 0 || hid % 4)
     return (int)cudaErrorInvalidValue;
   const size_t smem = stem_smem_bytes(n_frame, n_proc);
   const cudaError_t e = cudaFuncSetAttribute(
       stem_embed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(hid / kCols, n_bin / kBins, batch);
+  const dim3 grid((hid + kCols - 1) / kCols, n_bin / kBins, batch);
   stem_embed_kernel<T><<<grid, kThreads, smem, stream>>>(
       (const float*)spec_t, (const float*)keff, (const float*)beff,
       (const T*)pos, (T*)out, total, n_bin, n_frame, n_proc, hid, sqrt_hid);

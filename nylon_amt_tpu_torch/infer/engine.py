@@ -56,7 +56,7 @@ from nylon_amt_tpu_torch.ops.layer_fused import (
 from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
 from nylon_amt_tpu_torch.ops.precision import full_f32
 
-__all__ = ["PackedHFT", "forward", "pack_params", "supports"]
+__all__ = ["PackedHFT", "forward", "pack_params", "stage2", "supports"]
 
 _KEYS = ("onset", "offset", "mpe", "velocity")
 
@@ -190,6 +190,29 @@ def _dense(x, head):
         return _matmul(x, *head)
 
 
+def _codes(q8: bool, out_codes: bool, **inputs) -> dict:
+    """An int8 layer call's codes keywords: its inputs' row codes
+    (``x_codes`` ...) and ``codes_out``. Each int8 layer hands the next its
+    output's codes, made in its last kernel's epilogue, so only the first
+    layer of each stream quantizes its input; the exact layers take none."""
+    return dict(inputs, codes_out=out_codes) if q8 else {}
+
+
+def _split(q8: bool, out, out_codes: bool):
+    """(a layer's output, its codes or None)."""
+    return (out[0], out[1:]) if q8 and out_codes else (out, None)
+
+
+def _pack(packed: PackedHFT, group: str, i=None) -> dict:
+    """The layer call's packed weights: ``tf32=`` (its TF32 pairs) or
+    ``wt=`` (its int8 codes K-major), where the pack holds them."""
+    for key in ("tf32", "wt"):
+        packs = getattr(packed, key)
+        if packs is not None:
+            return {key: packs[group] if i is None else packs[group][i]}
+    return {}
+
+
 @torch.no_grad()
 def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     """``spec [B, n_bin, margin_b + n_frame + margin_f]`` -> dict of logits
@@ -199,7 +222,6 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
     B = spec.shape[0]
     n_frame = config.input.num_frame
     n_note, hid = config.midi.num_note, m.hid_dim
-    scale = sqrt_hid(hid, dt)
     q8 = packed.precision == "int8"
     if q8:
         stem_layer, enc_layer = lq.encoder_layer_with_stem_q8, \
@@ -209,68 +231,62 @@ def forward(packed: PackedHFT, spec: torch.Tensor, config: Config) -> dict:
         stem_layer, enc_layer = encoder_layer_with_stem, encoder_layer
         dec_zero, dec_layer = decoder_layer_zero, decoder_layer
 
-    def codes(out_codes: bool, **inputs):
-        """An int8 layer call's codes keywords: its inputs' row codes
-        (``x_codes`` ...) and ``codes_out``. Each int8 layer hands the next
-        its output's codes, made in its last kernel's epilogue, so only the
-        first layer of each stream quantizes its input; the exact layers
-        take none."""
-        return dict(inputs, codes_out=out_codes) if q8 else {}
-
-    def split(out, out_codes: bool):
-        """(a layer's output, its codes or None)."""
-        return (out[0], out[1:]) if q8 and out_codes else (out, None)
-
-    def pack(group, i=None):
-        """The layer call's packed weights: ``tf32=`` (its TF32 pairs) or
-        ``wt=`` (its int8 codes K-major), where the pack holds them."""
-        for key in ("tf32", "wt"):
-            packs = getattr(packed, key)
-            if packs is not None:
-                return {key: packs[group] if i is None else packs[group][i]}
-        return {}
-
     # ---- frequency encoder: K2 (stem + first layer), then K3 per layer ------
     spec_t = spec.float().transpose(1, 2).contiguous()      # frame-major
-    h, hc = split(stem_layer(spec_t, packed.k_eff, packed.b_eff,
-                             packed.pos_freq, packed.enc[0], m.enc_head,
-                             n_frame, dt, **pack("enc", 0),
-                             **codes(True)), True)
+    h, hc = _split(q8, stem_layer(spec_t, packed.k_eff, packed.b_eff,
+                                  packed.pos_freq, packed.enc[0], m.enc_head,
+                                  n_frame, dt, **_pack(packed, "enc", 0),
+                                  **_codes(q8, True)), True)
     for i, p in enumerate(packed.enc[1:], 1):
-        h, hc = split(enc_layer(h, p, m.enc_head, **pack("enc", i),
-                                **codes(True, x_codes=hc)), True)
+        h, hc = _split(q8, enc_layer(h, p, m.enc_head,
+                                     **_pack(packed, "enc", i),
+                                     **_codes(q8, True, x_codes=hc)), True)
     enc, enc_codes = h, hc                         # [B*n_frame, n_bin, hid]
 
     # ---- stage 1: CAfreq, K4 then K5 per further layer ---------------------
     trg = packed.note_q.expand(B * n_frame, n_note, hid).contiguous()
     more = bool(packed.dec)
-    trg, tc = split(dec_zero(trg, enc, packed.dec_zero, m.dec_head,
-                             **pack("dec_zero"),
-                             **codes(more, enc_codes=enc_codes)), more)
+    trg, tc = _split(q8, dec_zero(trg, enc, packed.dec_zero, m.dec_head,
+                                  **_pack(packed, "dec_zero"),
+                                  **_codes(q8, more, enc_codes=enc_codes)),
+                     more)
     for i, p in enumerate(packed.dec):
         more = i + 1 < len(packed.dec)
-        trg, tc = split(dec_layer(trg, enc, p, m.dec_head, **pack("dec", i),
-                                  **codes(more, trg_codes=tc,
-                                          enc_codes=enc_codes)), more)
+        trg, tc = _split(q8, dec_layer(trg, enc, p, m.dec_head,
+                                       **_pack(packed, "dec", i),
+                                       **_codes(q8, more, trg_codes=tc,
+                                                enc_codes=enc_codes)), more)
     out = {f"{k}_A": _dense(trg, packed.heads_a[k])
            .reshape(B, n_frame, n_note, -1) for k in _KEYS}
-    if packed.pos_time is None:                    # stage-1-only decoder
-        return _squeeze(out)
+    if packed.pos_time is not None:                # else stage 1 only
+        out |= stage2(packed, trg, B, config)
+    return _squeeze(out)
 
-    # ---- stage 2: SAtime, K3 per layer --------------------------------------
+
+@torch.no_grad()
+def stage2(packed: PackedHFT, trg: torch.Tensor, B: int,
+           config: Config) -> dict:
+    """SAtime: the stage-1 tokens ``trg [B*n_frame, n_note, hid]`` (the last
+    stage-1 layer's output) through the time layers (K3, or K13's int8
+    twin, per layer) and the B heads -> ``{"<head>_B": logits}``, the unit
+    class axis kept (``forward`` drops it)."""
+    m = config.model
+    n_frame, n_note, hid = (config.input.num_frame, config.midi.num_note,
+                            m.hid_dim)
+    q8 = packed.precision == "int8"
+    enc_layer = lq.encoder_layer_q8 if q8 else encoder_layer
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
     # (contiguous: at B = 1 the reshape is a view of the transpose)
-    t = (t.reshape(B * n_note, n_frame, hid) * scale
+    t = (t.reshape(B * n_note, n_frame, hid) * sqrt_hid(hid, packed.dtype)
          + packed.pos_time).contiguous()
     tc = None
     for i, p in enumerate(packed.time):
         more = i + 1 < len(packed.time)
-        t, tc = split(enc_layer(t, p, m.dec_head, **pack("time", i),
-                                **codes(more, x_codes=tc)), more)
-    for k in _KEYS:
-        out[f"{k}_B"] = (_dense(t, packed.heads_b[k])
-                         .reshape(B, n_note, n_frame, -1).transpose(1, 2))
-    return _squeeze(out)
+        t, tc = _split(q8, enc_layer(t, p, m.dec_head,
+                                     **_pack(packed, "time", i),
+                                     **_codes(q8, more, x_codes=tc)), more)
+    return {f"{k}_B": _dense(t, packed.heads_b[k])
+            .reshape(B, n_note, n_frame, -1).transpose(1, 2) for k in _KEYS}
 
 
 def _squeeze(out: dict) -> dict:

@@ -161,6 +161,11 @@ _SIGNATURES["nylon_gemm_bias_ffma_f32"] = _SIGNATURES["nylon_gemm_bias"]
 # stem feeds): nylon_attention_bwd_f32's arguments
 _SIGNATURES["nylon_attention_bwd_ffma_f32"] = _SIGNATURES[
     "nylon_attention_bwd"]
+# the float32 attention forward with its scores on FFMA (the layer that the
+# stem feeds): nylon_attention_drop_f32's arguments with `active` (0: no
+# dropout) before seed_mix
+_SIGNATURES["nylon_attention_ffma_f32"] = [_P] * 4 + [_I] * 5 + [_L] * 4 \
+    + [_F, _I, _U, _I, _U, _F, _I, _P]
 
 _lib: ctypes.CDLL | None = None
 

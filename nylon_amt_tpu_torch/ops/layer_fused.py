@@ -464,19 +464,31 @@ def check_attention_views(q, k, v) -> None:
         raise ValueError("attention: k and v must share a row stride")
 
 
-def _attention(q, k, v, n, n_heads):
+def _attention(q, k, v, n, n_heads, ffma_scores=False, drop=None):
     """Attention of ``n`` sequences on row-strided 2-D views ``q [n*Lq,
     hid]`` and ``k, v [n*Lk, hid]`` (column slices of packed projections,
-    read in place) -> contiguous ``[n*Lq, hid]``."""
+    read in place) -> contiguous ``[n*Lq, hid]``. ``ffma_scores``: float32
+    with the scores on FFMA, for the layer that the stem feeds (its scores
+    reach ~2^14 in log2 units, where only the plain GEMM's fmaf chain over
+    d keeps the layer within 2e-5 of the plain one: csrc/mha_f32.cu).
+    ``drop``: ``(seed_mix, head_tag0, thresh, keep, half)`` of a dropout
+    site on the probabilities, or None."""
     hid = q.shape[1]
     lq, lk = q.shape[0] // n, k.shape[0] // n
     check_attention_views(q, k, v)
     out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
-    kernels.call(kernels.entry("nylon_attention", q.dtype), q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), n, lq, lk,
-                 n_heads, hid // n_heads,
-                 q.stride(0), lq * q.stride(0), k.stride(0), lk * k.stride(0),
-                 _scale(hid, n_heads) * _LOG2E, kernels.stream_of(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, lq,
+            lk, n_heads, hid // n_heads, q.stride(0), lq * q.stride(0),
+            k.stride(0), lk * k.stride(0), _scale(hid, n_heads) * _LOG2E)
+    if ffma_scores and q.dtype == torch.float32:
+        kernels.call("nylon_attention_ffma_f32", *args, int(drop is not None),
+                     *(drop or (0, 0, 0, 1.0, 0)), kernels.stream_of(q))
+    elif drop is not None:
+        kernels.call(kernels.entry("nylon_attention_drop", q.dtype), *args,
+                     *drop, kernels.stream_of(q))
+    else:
+        kernels.call(kernels.entry("nylon_attention", q.dtype), *args,
+                     kernels.stream_of(q))
     return out
 
 
@@ -545,14 +557,14 @@ def _encoder_layer_cuda(name, x, p, n_heads, tf32, stem=False):
         # within 2e-5 of it only with the plain GEMM's IEEE f32 products
         # summed over k in order (3xTF32 reads 1.4e-4 / 4.3e-4; exact
         # products with f64 sums, closer to the truth, 7.8e-5 / 2.4e-4:
-        # chip_smoke.py (n.2) reads both distances; PERF.md). The training
-        # layer fed by the stem takes the same route (layer_fused_train,
-        # stem=True).
+        # chip_smoke.py (n.2) reads both distances; PERF.md). Its attention
+        # scores stay on FFMA for the same reason. The training layer fed by
+        # the stem takes the same route (layer_fused_train, stem=True).
         qkv = _gemm_ffma(x2, p.wqkv, p.bqkv)
     else:
         qkv = _gemm(x2, p.wqkv, p.bqkv, pair=_pair(tf32, "wqkv"))
     attn = _attention(qkv[:, :hid], qkv[:, hid:2 * hid], qkv[:, 2 * hid:],
-                      n, n_heads)
+                      n, n_heads, ffma_scores=stem)
     return _ffn_tail(attn, x2, p, tf32).view(n, l, hid)
 
 
@@ -581,11 +593,11 @@ def _stem_embed(spec_t, keff, beff, pos, n_frame, out_dtype):
     n_proc, hid = keff.shape
     if (beff.shape[0] != hid or tuple(pos.shape) != (n_bin, hid)
             or total < n_frame + n_proc - 1 or n_frame % 4 or n_bin % 8
-            or hid % 64):
+            or hid % 4):
         raise ValueError(
             f"{name}: the stem kernel needs keff [n_proc, hid], beff [hid], "
             f"pos [n_bin, hid], total >= n_frame + n_proc - 1, n_frame % 4 "
-            f"== 0, n_bin % 8 == 0 and hid % 64 == 0; got spec_t "
+            f"== 0, n_bin % 8 == 0 and hid % 4 == 0; got spec_t "
             f"{tuple(spec_t.shape)}, keff {tuple(keff.shape)}, beff "
             f"{tuple(beff.shape)}, pos {tuple(pos.shape)}, n_frame {n_frame}")
     out = torch.empty((B * n_frame, n_bin, hid), dtype=out_dtype,

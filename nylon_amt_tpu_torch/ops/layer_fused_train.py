@@ -556,24 +556,17 @@ def _gemm_res_ln(a, w, bias, res, g, b, site=None, pre=False, out=True,
     return y, s
 
 
-def _attention(q, k, v, n, n_heads, seed, rate, tag_base):
+def _attention(q, k, v, n, n_heads, seed, rate, tag_base,
+               ffma_scores=False):
     """Attention of ``n`` sequences on strided 2-D views, with dropout on
-    the probabilities of each head at rate > 0."""
-    if rate <= 0.0:
-        return lf._attention(q, k, v, n, n_heads)
-    hid = q.shape[1]
-    lq, lk = q.shape[0] // n, k.shape[0] // n
-    lf.check_attention_views(q, k, v)
-    thresh, keep, half = site_constants(rate, lk, torch.float32)
-    out = torch.empty((q.shape[0], hid), dtype=q.dtype, device=q.device)
-    kernels.call(kernels.entry("nylon_attention_drop", q.dtype),
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n,
-                 lq, lk, n_heads, hid // n_heads, q.stride(0),
-                 lq * q.stride(0), k.stride(0),
-                 lk * k.stride(0), _scale(hid, n_heads) * _LOG2E,
-                 seed_mix(seed), _head_tag(tag_base, 0), thresh, keep, half,
-                 kernels.stream_of(q))
-    return out
+    the probabilities of each head at rate > 0 (``ffma_scores``: float32
+    with the scores on FFMA, for the layer that the stem feeds)."""
+    drop = None
+    if rate > 0.0:
+        thresh, keep, half = site_constants(rate, k.shape[0] // n,
+                                            torch.float32)
+        drop = (seed_mix(seed), _head_tag(tag_base, 0), thresh, keep, half)
+    return lf._attention(q, k, v, n, n_heads, ffma_scores, drop)
 
 
 def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
@@ -885,7 +878,7 @@ def _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop, keep=False,
                                     pair=w.pair("wqkv")))
     heads = tap("heads", _attention(qkv[:, :hid], qkv[:, hid:2 * hid],
                                     qkv[:, 2 * hid:], n, n_heads, seed, rate,
-                                    _SITE_ATTN))
+                                    _SITE_ATTN, ffma_scores=stem))
     y, a1, midd, a2, z = _ffn_tail_cuda(heads, xs, w, seed, rate, keep, tap)
     return _Fwd(xs, qkv, None, heads, a1, y, midd, a2, z)
 

@@ -108,7 +108,10 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
                    "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32",
                    "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
-           "attn32": (),
+           "attn32": ("nylon_attention_f32", "nylon_attention_probs_f32",
+                      "nylon_attention_drop_f32", "nylon_attention_bwd_f32",
+                      "nylon_attention_bwd_ffma_f32",
+                      "nylon_attention_ffma_f32"),
            "attn16": ("nylon_attention", "nylon_attention_probs",
                       "nylon_attention_drop", "nylon_attention_bwd"),
            "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
@@ -117,9 +120,14 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
            "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
-# what --q8 and --attn16 build (layer_fused.cu for the error strings)
+# what --q8, --attn16 and --attn32 build (layer_fused.cu for the error
+# strings)
 Q8_PARTS = ("fwd", "q8")
 ATTN16_PARTS = ("fwd", "attn16")
+ATTN32_PARTS = ("fwd", "attn32")
+# entry points a variant may lack (a tree from before they were added): its
+# kinds that need them are reported as absent, not failed
+OPTIONAL_ENTRIES = ("nylon_attention_ffma_f32",)
 # the stem QKV GEMM's entry point (a, w [K, N], bias, out, M, N, K, relu,
 # stream)
 QKV_ENTRY = "nylon_gemm_bias_ffma_f32"
@@ -266,6 +274,22 @@ ATTN16_ODD = [(1, 1), (7, 13), (57, 200), (65, 97), (129, 40), (256, 8)]
 ATTN16_KINDS = ("fwd", "probs", "drop", "bwd", "drop_bwd")
 ATTN_CHAIN_ULPS, ATTN_PROBS_ATOL = 12, 1e-5
 ATTN_SCALE = 0.125
+# the f32 attention (mha_f32.cu) under chip_smoke.py (n.1)'s gates: outputs
+# within ATTN32_OUT_REL of max(1, max |plain f32|), input grads within
+# ATTN32_GRAD_REL of max |plain f32|, K11's probabilities within
+# ATTN32_PROBS_ATOL and its rows summing to 1 within ATTN32_ROW_ATOL; every
+# kind at 16 sequences of each ATTN16_SITES at hid 256 over 4 heads, 64 over
+# 2 and 96 over 3 (the self sites on packed QKV views), and at 4 sequences
+# of each ATTN16_ODD; timed at the sites at D 32 (hid 64 over 2 heads) and D
+# 64 (256 over 4), the forwards at batch 32, the backwards at batch 8
+ATTN32_OUT_REL, ATTN32_GRAD_REL = 2e-5, 1e-4
+ATTN32_PROBS_ATOL, ATTN32_ROW_ATOL = 1e-6, 1e-5
+# fwd, K11, K12, the backward and K12's; the stem-fed layer's FFMA-score
+# forward (nylon_attention_ffma_f32, OPTIONAL_ENTRIES) and backward
+ATTN32_KINDS = ("fwd", "probs", "drop", "bwd", "drop_bwd", "ffma_fwd",
+                "ffma_bwd")
+ATTN_KINDS = {"attn16": ATTN16_KINDS, "attn32": ATTN32_KINDS}
+ATTN32_WIDTHS = ((64, 2), (256, 4))
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM, published
 TF32_FLOPS, F32_FLOPS = 494.7e12, 67e12
 INT8_OPS = 1979e12
@@ -395,6 +419,8 @@ class Lib:
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
             for e in ENTRIES[part] + ((QKV_ENTRY,) if part == "f32" else ()):
+                if e in OPTIONAL_ENTRIES and not hasattr(lib, e):
+                    continue
                 base = e.removesuffix("_f32")
                 getattr(lib, e).argtypes = (
                     Q8_PRE_CODES[base] if part == "q8" and not self.q8_codes
@@ -602,18 +628,21 @@ class Lib:
         return ([out] if t_out else []) + [codes, sc]
 
 
-    def attention16(self, q, k, v, heads, kind="fwd", do=None):
-        """The bf16 attention of ``[n, L, hid]`` q, k, v (row-strided views
-        with a unit column stride, such as column slices of a packed QKV;
-        scale ATTN_SCALE): ``kind`` "fwd" ``[out]``, "probs" ``[out,
-        probs]``, "drop" ``[out]`` (rate RATE, seed DROP_SEED, heads' raw
-        tags, as K12), "bwd" / "drop_bwd" ``[dq, dk, dv]`` (contiguous)
-        given ``do``."""
+    def attention(self, part, q, k, v, heads, kind="fwd", do=None):
+        """The attention of ``part`` ("attn16": bf16, mha.cu; "attn32": f32,
+        mha_f32.cu) on ``[n, L, hid]`` q, k, v (row-strided views with a
+        unit column stride, such as column slices of a packed QKV; scale
+        ATTN_SCALE): ``kind`` "fwd" ``[out]``, "probs" ``[out, probs]``,
+        "drop" ``[out]`` (rate RATE, seed DROP_SEED, heads' raw tags, as
+        K12), "bwd" / "drop_bwd" ``[dq, dk, dv]`` (contiguous) given ``do``;
+        f32 also "ffma_fwd" / "ffma_bwd" (the stem-fed layer's FFMA-score
+        entry points, no dropout)."""
         import torch
 
         from nylon_amt_tpu_torch.ops.attention import seed_mix, site_constants
         from nylon_amt_tpu_torch.ops.layer_fused import _LOG2E
 
+        sfx = "_f32" if part == "attn32" else ""
         n, lq, hid = q.shape
         lk, d = k.shape[1], hid // heads
         s = torch.cuda.current_stream().cuda_stream
@@ -623,13 +652,14 @@ class Lib:
         if kind.endswith("bwd"):
             grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                      for t in (q, k, v)]
-            self._call("attn16", "nylon_attention_bwd", q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            entry = ("nylon_attention_bwd_ffma" if kind == "ffma_bwd"
+                     else "nylon_attention_bwd") + sfx
+            self._call(part, entry, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), do.data_ptr(),
                        *(g.data_ptr() for g in grads), n, lq, lk, heads, d,
                        q.stride(1), k.stride(1), do.stride(1), hid, hid,
-                       ATTN_SCALE,
-                       ATTN_SCALE * _LOG2E, int(drop), seed_mix(DROP_SEED),
-                       0, *site, s)
+                       ATTN_SCALE, ATTN_SCALE * _LOG2E, int(drop),
+                       seed_mix(DROP_SEED), 0, *site, s)
             return grads
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -638,15 +668,23 @@ class Lib:
         if kind == "probs":
             probs = torch.empty((n, heads, lq, lk), dtype=torch.float32,
                                 device=q.device)
-            self._call("attn16", "nylon_attention_probs", *ptrs,
+            self._call(part, "nylon_attention_probs" + sfx, *ptrs,
                        probs.data_ptr(), *geo, s)
             return [out, probs]
-        if drop:
-            self._call("attn16", "nylon_attention_drop", *ptrs, *geo,
+        if kind == "ffma_fwd":
+            self._call(part, "nylon_attention_ffma_f32", *ptrs, *geo, 0, 0, 0,
+                       0, 1.0, 0, s)
+        elif drop:
+            self._call(part, "nylon_attention_drop" + sfx, *ptrs, *geo,
                        seed_mix(DROP_SEED), 0, *site, s)
         else:
-            self._call("attn16", "nylon_attention", *ptrs, *geo, s)
+            self._call(part, "nylon_attention" + sfx, *ptrs, *geo, s)
         return [out]
+
+    def attention_kinds(self, part) -> tuple:
+        """The kinds of ``part`` (ATTN_KINDS) that this library has."""
+        return tuple(k for k in ATTN_KINDS[part] if k != "ffma_fwd"
+                     or hasattr(self.libs[part], "nylon_attention_ffma_f32"))
 
 
 def q8_inputs(m, k, n, ln, dtype, seed=0):
@@ -1168,8 +1206,8 @@ def timing_q8(libs: dict) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
 
 
-def attention16_inputs(n, lq, lk, hid, seed=0, packed=False):
-    """Seeded bf16 q, k, v, do ``[n, L, hid]`` on the card; with
+def attention_inputs(n, lq, lk, hid, dtype, seed=0, packed=False):
+    """Seeded q, k, v, do ``[n, L, hid]`` in ``dtype`` on the card; with
     ``packed`` (lq == lk) q, k, v are the column slices of one ``[n, L, 3
     hid]`` QKV, as a self-attention layer reads them (row stride 3 hid)."""
     import torch
@@ -1177,154 +1215,216 @@ def attention16_inputs(n, lq, lk, hid, seed=0, packed=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     if packed:
         qkv = torch.randn((n, lq, 3 * hid), generator=g,
-                          device="cuda").to(torch.bfloat16)
-        do = torch.randn((n, lq, hid), generator=g,
-                         device="cuda").to(torch.bfloat16)
+                          device="cuda").to(dtype)
+        do = torch.randn((n, lq, hid), generator=g, device="cuda").to(dtype)
         return [qkv[..., :hid], qkv[..., hid:2 * hid], qkv[..., 2 * hid:],
                 do]
-    return [torch.randn((n, L, hid), generator=g, device="cuda")
-            .to(torch.bfloat16) for L in (lq, lk, lk, lq)]
+    return [torch.randn((n, L, hid), generator=g, device="cuda").to(dtype)
+            for L in (lq, lk, lk, lq)]
 
 
-def attention16_plain(q, k, v, do, heads, kind):
-    """The plain twin of ``Lib.attention16``'s ``kind``."""
+def attention_plain(q, k, v, do, heads, kind):
+    """The plain twin of ``Lib.attention``'s ``kind`` (the FFMA-score kinds
+    the plain forward and backward), under full_f32 for f32 inputs."""
+    import contextlib
+
     import torch
 
     from nylon_amt_tpu_torch.ops import attention as att
+    from nylon_amt_tpu_torch.ops.precision import full_f32
 
+    kind = kind.removeprefix("ffma_")
     mask = None
     if kind.startswith("drop"):
         def mask(h, shape):
             return att.hash_keep_mask_plain(DROP_SEED, h, 0, shape, RATE,
                                             torch.float32, q.device)
-    if kind.endswith("bwd"):
-        return list(att.mha_bwd_plain(q, k, v, do, heads, ATTN_SCALE, mask))
-    if kind == "probs":
-        return list(att.mha_plain(q, k, v, heads, ATTN_SCALE,
-                                  with_probs=True))
-    return [att.mha_plain(q, k, v, heads, ATTN_SCALE, mask)]
+    with (full_f32() if q.dtype == torch.float32
+          else contextlib.nullcontext()):
+        if kind.endswith("bwd"):
+            return list(att.mha_bwd_plain(q, k, v, do, heads, ATTN_SCALE,
+                                          mask))
+        if kind == "probs":
+            return list(att.mha_plain(q, k, v, heads, ATTN_SCALE,
+                                      with_probs=True))
+        return [att.mha_plain(q, k, v, heads, ATTN_SCALE, mask)]
 
 
-def check_attn16(libs: dict) -> dict:
-    """Hold every variant's bf16 attention at 16 sequences of each site of
-    ATTN16_SITES, at 4 heads of 64, 2 heads of 32 and 3 heads of 32 (the
-    self sites on packed QKV views, row stride 3 hid), under (l)'s limits:
-    each output within ULPS bf16 ulps of the plain twin (the same masks
-    under dropout), K11's output bit for bit K10's and its probabilities
-    within ATTN_PROBS_ATOL of the plain f32 ones, rows summing to 1 within
-    it; dq, dk, dv within ATTN_CHAIN_ULPS; two runs bit-identical. The
-    same at 4 sequences of each ATTN16_ODD (Lq, Lk), at 4 heads of 64 and
-    3 of 32. Returns ``{name: passed}``."""
+def check_attn(libs: dict, part: str) -> dict:
+    """Hold every variant's attention of ``part`` (each kind of ATTN_KINDS
+    it has) at 16 sequences of each site of ATTN16_SITES, at 4 heads of 64,
+    2 heads of 32 and 3 heads of 32 (the self sites on packed QKV views,
+    row stride 3 hid), and at 4 sequences of each ATTN16_ODD (Lq, Lk) at 4
+    heads of 64 and 3 of 32, against ``attention_plain``. bf16, under (l)'s
+    limits: each output within ULPS bf16 ulps of the plain twin (the same
+    masks under dropout), dq, dk, dv within ATTN_CHAIN_ULPS, K11's
+    probabilities within ATTN_PROBS_ATOL of the plain f32 ones, rows
+    summing to 1 within it. f32, under (n.1)'s: outputs within
+    ATTN32_OUT_REL of max(1, max |plain|), input grads within
+    ATTN32_GRAD_REL of max |plain|, K11's probabilities within
+    ATTN32_PROBS_ATOL and its rows within ATTN32_ROW_ATOL. Both: K11's
+    output K10's bit for bit, two runs bit-identical. Returns ``{name:
+    passed}``."""
     import torch
 
+    f32 = part == "attn32"
+    dtype = torch.float32 if f32 else torch.bfloat16
+    p_atol, r_atol = ((ATTN32_PROBS_ATOL, ATTN32_ROW_ATOL) if f32
+                      else (ATTN_PROBS_ATOL, ATTN_PROBS_ATOL))
     ok = {name: True for name in libs}
     cases = [(hid, heads, 16, label, lq, lk) for hid, heads in (
         (256, 4), (64, 2), (96, 3)) for label, lq, lk, _ in ATTN16_SITES]
     cases += [(hid, heads, 4, f"[{lq}, {lk}]", lq, lk) for hid, heads in (
         (256, 4), (96, 3)) for lq, lk in ATTN16_ODD]
     for hid, heads, n, label, lq, lk in cases:
-        q, k, v, do = attention16_inputs(n, lq, lk, hid,
-                                         seed=lq + lk + hid,
-                                         packed=lq == lk)
-        for kind in ATTN16_KINDS:
-            want = attention16_plain(q, k, v, do, heads, kind)
+        q, k, v, do = attention_inputs(n, lq, lk, hid, dtype,
+                                       seed=lq + lk + hid, packed=lq == lk)
+        for kind in ATTN_KINDS[part]:
+            want = attention_plain(q, k, v, do, heads, kind)
             for name, lib in libs.items():
+                if kind not in lib.attention_kinds(part):
+                    continue
                 try:
-                    got = lib.attention16(q, k, v, heads, kind, do)
-                    again = lib.attention16(q, k, v, heads, kind, do)
+                    got = lib.attention(part, q, k, v, heads, kind, do)
+                    again = lib.attention(part, q, k, v, heads, kind, do)
                     torch.cuda.synchronize()
                 except (Refused, RuntimeError) as e:
-                    print(f"attn16 {name} {label} hid {hid} "
-                          f"{kind}: {e!r}", flush=True)
+                    print(f"{part} {name} {label} hid {hid} {kind}: {e!r}",
+                          flush=True)
                     ok[name] = False
                     continue
                 same = _equal(got, again)
-                limit = ATTN_CHAIN_ULPS if kind.endswith("bwd") else ULPS
-                us = [_ulps(a, b) for a, b in zip(got[:3], want[:3])
-                      if a.dtype == torch.bfloat16]
-                passed = same and max(us) <= limit
-                what = "/".join(f"{u:.2f}" for u in us) + " ulps"
+                bwd = kind.endswith("bwd")
+                if f32:
+                    errs = [(a - b).abs().max().item()
+                            / max(b.abs().max().item(), 0.0 if bwd else 1.0,
+                                  1e-30)
+                            for a, b in zip(got[:1] if kind == "probs"
+                                            else got, want)]
+                    limit = ATTN32_GRAD_REL if bwd else ATTN32_OUT_REL
+                    what = "/".join(f"{e:.2e}" for e in errs)
+                else:
+                    errs = [_ulps(a, b) for a, b in zip(got[:3], want[:3])
+                            if a.dtype == torch.bfloat16]
+                    limit = ATTN_CHAIN_ULPS if bwd else ULPS
+                    what = "/".join(f"{u:.2f}" for u in errs) + " ulps"
+                passed = same and max(errs) <= limit
                 if kind == "probs":
-                    k10 = lib.attention16(q, k, v, heads, "fwd")[0]
+                    k10 = lib.attention(part, q, k, v, heads, "fwd")[0]
                     p_err = (got[1] - want[1]).abs().max().item()
                     r_err = (got[1].sum(-1) - 1).abs().max().item()
                     eq = torch.equal(got[0], k10)
-                    passed &= (eq and p_err <= ATTN_PROBS_ATOL
-                               and r_err <= ATTN_PROBS_ATOL)
+                    passed &= eq and p_err <= p_atol and r_err <= r_atol
                     what += (f", output {'=' if eq else '!='} K10's, "
                              f"probs {p_err:.2e}, rows {r_err:.2e}")
                 ok[name] &= passed
-                print(f"attn16 {name} {label} hid {hid} {kind}: "
-                      f"{what} from the plain twin (<= {limit}); reruns "
-                      f"{'bit-identical' if same else 'DIFFER'}",
-                      flush=True)
+                print(f"{part} {name} {label} hid {hid} {kind}: {what} from "
+                      f"the plain twin (<= {limit}); reruns "
+                      f"{'bit-identical' if same else 'DIFFER'}", flush=True)
         del q, k, v, do
         torch.cuda.empty_cache()
     for name in libs:
-        print(f"attn16 {name}: {'passed' if ok[name] else 'FAILED'}",
+        print(f"{part} {name}: {'passed' if ok[name] else 'FAILED'}",
               flush=True)
     return ok
 
 
-def attention16_bound(kind, n, lq, lk, hid, heads) -> float:
-    """The least time (ms) of ``kind`` at these shapes: q, k, v (and dO) in,
-    the output (and the f32 probabilities; dq, dk, dv) out once, over
-    HBM_BPS, or its products (2, or the backward's 5 at the least) over
-    BF16_FLOPS, whichever is longer."""
+def attention_bounds(part, kind, n, lq, lk, hid, heads) -> tuple:
+    """(as the products run, at the least), in ms, of ``kind`` at these
+    shapes: q, k, v (and dO) in, the output (and the f32 probabilities; dq,
+    dk, dv) out once over HBM_BPS, or the products (2, or the backward's 5)
+    over their peak, the hash of each score under dropout (8 integer
+    operations) over F32_FLOPS, whichever is longer. bf16: the products at
+    BF16_FLOPS (no hashes), both times alike. f32: at the least each product
+    as 3 TF32 passes over TF32_FLOPS; as run, the FFMA-score kinds take the
+    score product (and K11 its second pass of scores) on FFMA over
+    F32_FLOPS."""
     bwd = kind.endswith("bwd")
-    nbytes = 2 * n * hid * ((2 * lq + 2 * lk) if not bwd
-                            else (3 * lq + 4 * lk))
+    size = 4 if part == "attn32" else 2
+    nbytes = size * n * hid * ((2 * lq + 2 * lk) if not bwd
+                               else (3 * lq + 4 * lk))
     if kind == "probs":
         nbytes += 4 * n * heads * lq * lk
-    flops = 2 * (5 if bwd else 2) * n * lq * lk * hid
-    return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    prod = 2 * n * lq * lk * hid
+    if part == "attn16":
+        t = max(nbytes / HBM_BPS, (5 if bwd else 2) * prod / BF16_FLOPS) * 1e3
+        return t, t
+    hashes = 8 * n * heads * lq * lk if kind.startswith("drop") else 0
+    tf32 = ((5 if bwd else 2) * 3 * prod / TF32_FLOPS + hashes / F32_FLOPS)
+    ffma = prod if kind in ("ffma_fwd", "ffma_bwd", "probs") else 0
+    run = tf32 - (3 * prod / TF32_FLOPS if kind != "probs" and ffma else 0) \
+        + ffma / F32_FLOPS
+    return (max(nbytes / HBM_BPS, run) * 1e3,
+            max(nbytes / HBM_BPS, tf32) * 1e3)
 
 
-def timing_attn16(libs: dict) -> None:
-    """Each variant's bf16 attention at the shapes of (l) (ATTN16_SITES at
-    ATTN16_BATCHES, 4 heads of 64), every kind, A B .. B A by ``graph_ms``,
-    beside the bound and SDPA (``F.scaled_dot_product_attention`` on the
-    same views, by CUDA events; its backward by ``autograd.grad`` over one
-    recorded forward; K11 has none)."""
+def timing_attn(libs: dict, part: str) -> None:
+    """Each variant's attention of ``part`` at the sites (ATTN16_SITES), A B
+    .. B A by ``graph_ms``, beside the bound and SDPA
+    (``F.scaled_dot_product_attention`` on the same views, f32 under
+    full_f32, by CUDA events; its backward by ``autograd.grad`` over one
+    recorded forward; K11 has none, the FFMA-score kinds are timed beside
+    K10's). bf16: every kind at ATTN16_BATCHES, 4 heads of 64. f32: at D 32
+    and 64 (ATTN32_WIDTHS), the forward kinds at batch 32 and the backward
+    ones at batch 8, with the all-3xTF32 bound beside the one as run."""
+    import contextlib
+
     import torch
     import torch.nn.functional as F
 
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+
+    f32 = part == "attn32"
+    dtype = torch.float32 if f32 else torch.bfloat16
     names = list(libs)
-    hid, heads = 256, 4
-    d = hid // heads
-    for B in ATTN16_BATCHES:
+    widths = ATTN32_WIDTHS if f32 else ((256, 4),)
+    runs = (((32, ("fwd", "probs", "drop", "ffma_fwd")),
+             (8, ("bwd", "drop_bwd", "ffma_bwd"))) if f32 else
+            tuple((B, ATTN16_KINDS) for B in ATTN16_BATCHES))
+    for hid, heads in widths:
+        d = hid // heads
         for label, lq, lk, per in ATTN16_SITES:
-            n = B * per
-            q, k, v, do = attention16_inputs(n, lq, lk, hid)
+            for B, kinds in runs:
+                n = B * per
+                q, k, v, do = attention_inputs(n, lq, lk, hid, dtype)
 
-            def sdpa(a, b, c, **kw):
-                return F.scaled_dot_product_attention(
-                    *(t.view(n, -1, heads, d).transpose(1, 2)
-                      for t in (a, b, c)), scale=ATTN_SCALE,
-                    **kw).transpose(1, 2).reshape(n, lq, hid)
+                def sdpa(a, b, c, **kw):
+                    return F.scaled_dot_product_attention(
+                        *(t.view(n, -1, heads, d).transpose(1, 2)
+                          for t in (a, b, c)), scale=ATTN_SCALE,
+                        **kw).transpose(1, 2).reshape(n, lq, hid)
 
-            def sdpa_bwd(**kw):
-                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-                out = sdpa(qq, kk, vv, **kw)
-                return cuda_ms(lambda: torch.autograd.grad(
-                    out, (qq, kk, vv), do, retain_graph=True))
+                def sdpa_bwd(**kw):
+                    qq, kk, vv = (t.detach().requires_grad_()
+                                  for t in (q, k, v))
+                    out = sdpa(qq, kk, vv, **kw)
+                    return cuda_ms(lambda: torch.autograd.grad(
+                        out, (qq, kk, vv), do, retain_graph=True))
 
-            lib_ms = {"fwd": cuda_ms(lambda: sdpa(q, k, v)),
-                      "probs": None,
-                      "drop": cuda_ms(lambda: sdpa(q, k, v, dropout_p=RATE)),
-                      "bwd": sdpa_bwd(),
-                      "drop_bwd": sdpa_bwd(dropout_p=RATE)}
-            for kind in ATTN16_KINDS:
-                ms = _abba(names, lambda name: libs[name].attention16(
-                    q, k, v, heads, kind, do), graph_ms)
-                bound = attention16_bound(kind, n, lq, lk, hid, heads)
-                lib_txt = ("SDPA " + (f"{lib_ms[kind]:.3f}"
-                                      if lib_ms[kind] is not None else
-                                      "none"))
-                _line(f"attn16 {kind} {label} batch {B}", f"[{n},{lq},{lk}]",
-                      1, ms, bound, lib_txt)
-            del q, k, v, do
-            torch.cuda.empty_cache()
+                lib_ms = {"fwd": lambda: cuda_ms(lambda: sdpa(q, k, v)),
+                          "drop": lambda: cuda_ms(lambda: sdpa(
+                              q, k, v, dropout_p=RATE)),
+                          "bwd": sdpa_bwd,
+                          "drop_bwd": lambda: sdpa_bwd(dropout_p=RATE)}
+                lib_ms["ffma_fwd"] = lib_ms["fwd"]
+                lib_ms["ffma_bwd"] = lib_ms["bwd"]
+                with full_f32() if f32 else contextlib.nullcontext():
+                    for kind in kinds:
+                        have = [x for x in names
+                                if kind in libs[x].attention_kinds(part)]
+                        ms = _abba(have, lambda name: libs[name].attention(
+                            part, q, k, v, heads, kind, do), graph_ms)
+                        run, tf32 = attention_bounds(part, kind, n, lq, lk,
+                                                     hid, heads)
+                        sd = lib_ms[kind]() if kind in lib_ms else None
+                        lib_txt = (("SDPA f32 " if f32 else "SDPA ")
+                                   + ("none" if sd is None else f"{sd:.3f}")
+                                   + (f" ms; all 3xTF32 bound {tf32:.3f}"
+                                      if f32 else ""))
+                        _line(f"{part} {kind} {label} D{d} batch {B}",
+                              f"[{n},{lq},{lk}]", 1, ms, run, lib_txt)
+                del q, k, v, do
+                torch.cuda.empty_cache()
 
 
 def attention_q8_bytes(n, lq, lk, hid) -> int:
@@ -1620,6 +1720,9 @@ def main(argv=None) -> int:
                     help="check and time the int8 GEMMs only")
     ap.add_argument("--attn16", action="store_true",
                     help="check and time the bf16 attention (mha.cu) only")
+    ap.add_argument("--attn32", action="store_true",
+                    help="check and time the f32 attention (mha_f32.cu) "
+                         "only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -1635,14 +1738,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build(variants, Path(args.out),
                   Q8_PARTS if args.q8 else ATTN16_PARTS if args.attn16
-                  else tuple(SOURCES))
+                  else ATTN32_PARTS if args.attn32 else tuple(SOURCES))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
-    if args.q8 or args.attn16:
-        ok = (check_q8 if args.q8 else check_attn16)(libs)
+    if args.q8 or args.attn16 or args.attn32:
+        part = "attn16" if args.attn16 else "attn32"
+        ok = check_q8(libs) if args.q8 else check_attn(libs, part)
         if libs and not args.no_time:
-            (timing_q8 if args.q8 else timing_attn16)(libs)
+            timing_q8(libs) if args.q8 else timing_attn(libs, part)
         first = next(iter(libs), None)
         return 0 if len(libs) == len(variants) and ok.get(first) else 1
     ok, ran, differ = check(libs)

@@ -7,9 +7,11 @@ An f32 operand ``x`` splits into TF32 halves, ``big = rna(x)`` and ``small
 operations), and each matrix product is ``small @ big + big @ small + big @
 big`` in f32 (a product of two TF32 values is exact in f32). The emulated
 attention follows :func:`nylon_amt_tpu_torch.ops.attention.mha_plain` and
-``mha_bwd_plain`` op for op with the kernels' products: the forward's
-scores in f32 (the kernel's FFMA), its PV product and every backward
-product (S, dP, dQ, dK, dV) as 3xTF32. It must stay within ``chip_smoke.py``
+``mha_bwd_plain`` op for op with the kernels' products: every product (the
+forward's S and PV, the backward's S, dP, dQ, dK, dV) as 3xTF32, K11's
+probabilities from scores in f32 (the kernel's FFMA pass); and the form of
+the layer that the stem feeds, whose forward scores are f32 (FFMA) too.
+It must stay within ``chip_smoke.py``
 (n)'s limits of the plain versions: outputs within 2e-5 of max(1, max
 |plain|), input gradients within 1e-4 of max |plain|, K11's probabilities
 within 1e-6. One TF32 pass per product misses those limits, and a negative
@@ -57,10 +59,11 @@ def mm_tf32(a, b):
     return rna_tf32(a) @ rna_tf32(b)
 
 
-def attention(q, k, v, do, mask, scale, mm, score_mm=None):
+def attention(q, k, v, do, mask, scale, mm, score_mm=None, probs_mm=None):
     """(out, probs, dq, dk, dv) of mha_plain / mha_bwd_plain with every
-    matrix product taken by ``mm``, but the forward's scores (out, probs)
-    by ``score_mm`` where given."""
+    matrix product taken by ``mm``, but the forward's scores by
+    ``score_mm`` and the probabilities' by ``probs_mm`` (default
+    ``score_mm``) where given."""
     d = q.shape[-1] // HEADS
     outs, probs, dqs, dks, dvs = [], [], [], [], []
     for h in range(HEADS):
@@ -76,6 +79,7 @@ def attention(q, k, v, do, mask, scale, mm, score_mm=None):
         mk = None if mask is None else mask(h, tuple(p.shape))
         pd = p if mk is None else p * mk
         outs.append(mm(pd, vh) / l)
+        p, l = softmax_of(probs_mm or score_mm or mm)
         probs.append(p / l)
         p, l = softmax_of(mm)  # the backward recomputes the scores
         a = p / l
@@ -93,10 +97,11 @@ def attention(q, k, v, do, mask, scale, mm, score_mm=None):
             cat(dvs))
 
 
-def errors(d, lq, lk, drop, mm, score_mm=None):
+def errors(d, lq, lk, drop, mm, score_mm=None, probs_mm=None):
     """(output, probabilities, gradients) error of the emulation ``mm``
-    (``score_mm`` for the forward's scores) from the plain f32 versions: of
-    max(1, max |plain|), absolute, of max |plain|."""
+    (``score_mm`` for the forward's scores, ``probs_mm`` for the
+    probabilities') from the plain f32 versions: of max(1, max |plain|),
+    absolute, of max |plain|."""
     rng = np.random.default_rng(1000 * d + 10 * lq + lk + drop)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (N, n, HEADS * d)).astype(np.float32)) for n in (lq, lk, lk, lq))
@@ -105,7 +110,7 @@ def errors(d, lq, lk, drop, mm, score_mm=None):
         SEED, h, 0, shape, RATE, torch.float32)) if drop else None)
     with full_f32():
         out, probs, dq, dk, dv = attention(q, k, v, do, mask, scale, mm,
-                                           score_mm)
+                                           score_mm, probs_mm)
         want = tatt.mha_plain(q, k, v, HEADS, scale, mask)
         _, want_probs = tatt.mha_plain(q, k, v, HEADS, scale,
                                        with_probs=True)
@@ -121,8 +126,22 @@ def errors(d, lq, lk, drop, mm, score_mm=None):
 @pytest.mark.parametrize("lq,lk", SITES, ids=[f"{a}x{b}" for a, b in SITES])
 @pytest.mark.parametrize("d", [32, 64])
 def test_3xtf32_within_the_f32_gates(d, lq, lk, drop):
+    # the stem-fed layer's form: the forward's scores in f32 (FFMA)
     e_out, e_probs, e_grad = errors(d, lq, lk, drop, mm_3xtf32,
                                     score_mm=torch.matmul)
+    assert e_out <= OUT_REL, e_out
+    assert e_probs <= PROBS_ATOL, e_probs
+    assert e_grad <= GRAD_REL, e_grad
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["rate0", "rate0.1"])
+@pytest.mark.parametrize("lq,lk", SITES, ids=[f"{a}x{b}" for a, b in SITES])
+@pytest.mark.parametrize("d", [32, 64])
+def test_3xtf32_scores_within_the_f32_gates(d, lq, lk, drop):
+    # every other layer: the forward's scores as 3xTF32 too, K11's
+    # probabilities from f32 (FFMA) scores
+    e_out, e_probs, e_grad = errors(d, lq, lk, drop, mm_3xtf32,
+                                    probs_mm=torch.matmul)
     assert e_out <= OUT_REL, e_out
     assert e_probs <= PROBS_ATOL, e_probs
     assert e_grad <= GRAD_REL, e_grad

@@ -162,6 +162,49 @@ def test_forward_bf16_gate():
             assert e_port <= 2.0 * e_jax + 1e-3, (k, name, e_port, e_jax)
 
 
+def test_engine_stage2_is_the_module_stage2_on_the_same_tokens():
+    """``engine.stage2`` fed a stage-1 token tensor gives the module's stage
+    2 (``models.hft.stage2``, the time layers and the B heads) on the same
+    tokens, in f32 within 1e-5; and ``engine.forward``'s B heads are its
+    stage 2 on the engine's own stage-1 tokens."""
+    from nylon_amt_tpu_torch.models.hft import PLAIN, stage2
+
+    cfg = small_config()
+    model = reference_initialize(HFT(cfg, "cpu"),
+                                 torch.Generator().manual_seed(3)).eval()
+    packed = tengine.pack_params(model, model.dtype)
+    B, n_frame = 2, cfg.input.num_frame
+    trg = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B * n_frame, cfg.midi.num_note, cfg.model.hid_dim))
+        .astype(np.float32))
+    got = tengine.stage2(packed, trg, B, cfg)
+    with torch.no_grad():
+        want = stage2(model.decoder_spec2midi, trg, B, n_frame, model.dtype,
+                      PLAIN, {})
+    assert set(got) == set(want) == {"onset_B", "offset_B", "mpe_B",
+                                     "velocity_B"}
+    for k, w in want.items():
+        g = got[k] if k.startswith("velocity") else got[k][..., 0]
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+    # forward's B heads: stage2 on the tokens its stage 1 handed on
+    seen = {}
+    real = tengine.stage2
+
+    def record(packed_, trg_, B_, cfg_):
+        seen["out"] = real(packed_, trg_, B_, cfg_)
+        return seen["out"]
+
+    tengine.stage2 = record
+    try:
+        out = tengine.forward(packed, torch.from_numpy(_spec(cfg)), cfg)
+    finally:
+        tengine.stage2 = real
+    for k, v in seen["out"].items():
+        assert torch.equal(out[k], v if k.startswith("velocity")
+                           else v[..., 0])
+
+
 def test_stem_effective_kernel_matches_jax():
     rng = np.random.default_rng(5)
     cc, ck, hid, margin = 4, 5, 16, 32
