@@ -32,7 +32,11 @@ non-zero and never prints the last line):
     (``mma.sync``); so does every instantiation of the f32 attention of
     ``csrc/mha_f32.cu`` (``attn_fwd_f32_kernel``,
     ``attn_fwd_ffma_f32_kernel``, ``attn_bwd_f32_kernel``,
-    ``attn_bwd_ffma_f32_kernel``: 3xTF32 ``wgmma`` fed by TMA);
+    ``attn_bwd_ffma_f32_kernel``: 3xTF32 ``wgmma`` fed by TMA); and every
+    instantiation of the TMA-fed streaming kernels (``ln_bwd_kernel`` of
+    ``csrc/layer_fused_train.cu``, ``quant_cols_kernel`` of
+    ``csrc/layer_fused_q8.cu``) spills nothing, uses no stack and holds
+    UTMALDG;
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio, on a quiet variant of it (see the check) and on 10 s of
     other audio (the card's partial wave), two runs bit-identical; the
@@ -231,10 +235,23 @@ non-zero and never prints the last line):
     within 1, two runs bit-identical; each time (CUDA graphs) beside its
     bytes bound and the parent tree's kernel (PERF.md: ``tools/gemm_ab.py
     --q8``, A B B A); ``quant_rows_kernel`` at the three inputs the forward
-    still gives it and ``quant_cols_kernel`` at the forward's V, bit for
-    bit, timed. The JSON line gets a row for each of K13's five CUDA
-    kernels: the paper int8 forward's launches of it ((k)'s profile),
-    summed times and bounds.
+    still gives it, bit for bit, and ``quant_cols_kernel`` at the forward's
+    V (strided views of the QKV and KV outputs, a zero column) at the
+    paper, default and hid-96 widths in bf16 and f32, bit for bit
+    ``quant_cols_plain``'s layout, reruns bit-identical, timed. The JSON
+    line gets a row for each of K13's five CUDA kernels: the paper int8
+    forward's launches of it ((k)'s profile), summed times and bounds.
+(u) the LayerNorm backward alone (``ln_bwd_kernel`` of
+    ``csrc/layer_fused_train.cu``, bf16 and f32) at every launch shape of
+    (j)'s paper bf16 step and (n)'s default f32 step (their launches
+    counted in (j) and (n) and derived from the layer counts), with the
+    steps' dropout site and without: da and dam within 4 bf16 ulps of
+    ``ln_bwd_plain`` (f32: 2e-5 of max(1, |plain|)), dam bit for bit T(da
+    x keep) of the kernel's own da, dgamma and dbeta within 1e-4 of max
+    |plain|, reruns bit-identical; each shape's time (CUDA graphs) beside
+    its bytes bound, the plain twin and, without dropout,
+    ``native_layer_norm_backward``; its JSON row: (j)'s launches summed,
+    (n)'s beside them.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -250,7 +267,8 @@ object with, per wrapper, the dtypes and head dims this run held against
 its plain version (``held``), its float32 sources and (n)'s f32 times
 (``f32``), and its launches (K1-K5 from (d), K6-K9 from (i), K13
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
-``return_attention`` training, the f32 GEMMs from (n)), error, times and
+``return_attention`` training, the f32 GEMMs from (n), the LayerNorm
+backward from (j)), error, times and
 bound (the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
 1,979 TOP/s int8 for K13's products, 494.7 / 3 TFLOP/s for the f32
@@ -1086,6 +1104,7 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
     from nylon_amt_tpu_torch.utils.wavio import save_wav
 
     m, t = cfg.model, cfg.train
@@ -1120,7 +1139,8 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
                     "decoder_layer_zero_train": 1,
                     "decoder_layer_zero_train_bwd": 1,
                     "decoder_layer_train": m.dec_layer - 1,
-                    "decoder_layer_train_bwd": m.dec_layer - 1}
+                    "decoder_layer_train_bwd": m.dec_layer - 1,
+                    "ln_bwd": sum(c for _, c in ln_step_shapes(m))}
         want = {k: v * steps for k, v in per_step.items()}
         got = {k: counts[k] for k in want}
         if got != want or steps != 6:
@@ -1147,11 +1167,13 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
 
 
 def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
-                    what: str = "") -> float:
+                    what: str = "") -> tuple[float, dict]:
     """(j): the batch-8 paper bf16 train step by CUDA events, and the
     device time per kernel over a few steps; the step's forward is the one
     the trainer routes ``cfg`` to (``step.make_apply``: the fused layers,
-    or in (l) the per-site forward)."""
+    or in (l) the per-site forward). Returns (ms, the launch counts of one
+    step, counted before the timed ones)."""
+    from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.train import step as st
 
     state = st.create_train_state(cfg, SEED, dev)
@@ -1162,6 +1184,11 @@ def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
     def step():
         st.train_step(cfg, state, batch, draw(cfg, gen), apply)
 
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1171,7 +1198,7 @@ def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
         f"10 after 2), {cfg.train.batch_size / ms * 1e3:.1f} windows/s, peak "
         f"device memory {peak:.2f} GiB; card {card}")
     profile_forward(step, iters=3, phase=phase, what="train step", top=16)
-    return ms
+    return ms, counts
 
 
 Q8_SOURCES = {  # K13 wrapper -> the TPU kernel's pallas_call line
@@ -3365,6 +3392,7 @@ def time_train_step_f32(cfg, feat, dev, card: str) -> tuple[float, dict]:
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
     from nylon_amt_tpu_torch.train import step as st
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3382,14 +3410,15 @@ def time_train_step_f32(cfg, feat, dev, card: str) -> tuple[float, dict]:
     st.train_step(cfg, state, batch, draw(cfg, torch.Generator()
                                           .manual_seed(SEED)), apply)
     torch.cuda.synchronize()
-    want = f32_gemm_launches(cfg.model, train=True)
+    want = dict(f32_gemm_launches(cfg.model, train=True),
+                ln_bwd=sum(c for _, c in ln_step_shapes(cfg.model)))
     counts = {k: kernels.launches[k] for k in want}
     if counts != want:
-        raise AssertionError(f"(n) default f32 train step: GEMM launches "
-                             f"{counts}, expected {want}")
+        raise AssertionError(f"(n) default f32 train step: GEMM and ln_bwd "
+                             f"launches {counts}, expected {want}")
     del state, batch
-    ms = time_train_step(cfg, first, dev, card, phase="n",
-                         what="default-config f32 ")
+    ms, _ = time_train_step(cfg, first, dev, card, phase="n",
+                            what="default-config f32 ")
     return ms, counts
 
 
@@ -3528,7 +3557,8 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     default_cli_f32(feat, audio, cli_main)
     return times, {**fwd_paper["launches"], **paper_bwd,
                    **{k: step_counts[k] for k in ("gemm_nt_f32",
-                                                  "wgrad_f32")}}
+                                                  "wgrad_f32")},
+                   "ln_bwd/default": step_counts["ln_bwd"]}
 
 
 # (o) the bf16 layer GEMMs alone ---------------------------------------------
@@ -3547,6 +3577,11 @@ SETMAXNREG_KERNELS = ("gemm_bias_f32_kernel", "gemm_res_ln_f32_kernel",
 # SASS must hold: K1's DFT on the FP64 tensor cores (mma.sync .f64), the
 # stem layer's QKV on FFMA
 RING_KERNELS = {"log_mel_kernel": "DMMA", "gemm_bias_ffma_kernel": "FFMA"}
+# the TMA-fed streaming kernels: the LayerNorm backward (bf16 with 1 or 3
+# chunks a lane, f32 with 1-3, each with and without a dropout site) and
+# V's quantizer (bf16 and f32)
+STREAM_KERNELS = ("ln_bwd_kernel", "quant_cols_kernel")
+STREAM_INSTANTIATIONS = (2 + 3) * 2 + 2
 # (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
 # decoder and time layers, training forward): the paper batch-32 forward,
 # the paper batch-8 training forward (dropout 0.1: the forward, then the
@@ -4464,6 +4499,10 @@ def check_gemms_q8(dev, card: str, geometries=Q8_GEMM_GEOMETRIES) -> dict:
 # A B B A against it: PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W)
 Q8_ATTN_BEFORE_MS = {"freq self": 1.856, "time self": 0.449,
                      "decoder self": 0.495, "cross": 0.801}
+# V's column quantizer of the parent tree (two reads of V) over the paper
+# int8 forward's 11 launches, bf16 (ms; chip_smoke.py (t), PERF.md section
+# 6: NVIDIA H100 80GB HBM3, 700 W)
+Q8_COLS_BEFORE_MS = 3.950
 # (label, hid, heads) of the widths (t) holds the attention at: the paper's
 # (head_dim 64), the default model's and hid 96 over 3 heads (head_dim 32)
 Q8_ATTN_WIDTHS = (("paper", 256, 4), ("default", 64, 2), ("hid 96", 96, 3))
@@ -4487,8 +4526,12 @@ def check_k13_kernels(dev, card: str) -> dict:
     Q8_SHARE equal, all within 1; two runs bit-identical. Per shape the
     time (a CUDA graph of 20 calls) beside the bytes bound and the parent
     tree's kernel (Q8_ATTN_BEFORE_MS). Then quant_rows_kernel at the three
-    inputs the forward still quantizes with it and quant_cols_kernel at
-    the forward's V, bit for bit equal to their plain versions, timed.
+    inputs the forward still quantizes with it, bit for bit equal to its
+    plain version, and quant_cols_kernel at the forward's V (strided views
+    of the QKV and KV outputs, one column all zeros) at the paper, default
+    and hid-96 widths in bf16 and f32, bit for bit ``quant_cols_plain``'s
+    layout (zero codes past Lk included), reruns bit-identical; all
+    timed.
     Returns the JSON rows' numbers of the three kernels: the paper batch-32
     bf16 forward's launches of each summed."""
     from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
@@ -4611,25 +4654,57 @@ def check_k13_kernels(dev, card: str) -> dict:
         row["bound_ms"] += bd["bound_ms"]
         row["bound_by"] = bd["bound_by"]
         del x, q, sc, pq, ps
-    for label, n, _, lk, count in Q8_ATTENTION:
-        width = 3 if label.endswith("self") else 2  # QKV or KV
-        x = torch.randn((n * lk, width * hid), generator=g, device=dev).to(
-            torch.bfloat16)
-        v = x[:, (width - 1) * hid:]
-        vt, sv = lq.quant_cols_cuda(v, n)
-        pv, psv = lq._quant_cols(v.reshape(n, lk, hid))
-        if not (torch.equal(vt[:, :, :lk].transpose(1, 2), pv)
-                and torch.equal(sv, psv[:, 0])):
-            raise AssertionError(f"(t) quant_cols of {label} differs")
-        row = sums["quant_cols_kernel"]
-        row["ms"] += count * graph_ms(lambda: lq.quant_cols_cuda(v, n))
-        row["plain_ms"] += count * cuda_ms(
-            lambda: lq._quant_cols(v.reshape(n, lk, hid)), iters=3)
-        bd = bound(n * lk * hid * 2 + n * hid * vt.shape[2] + 4 * n * hid)
-        row["bound_ms"] += count * bd["bound_ms"]
-        row["bound_by"] = bd["bound_by"]
-        del x, v, vt, sv, pv, psv
-        torch.cuda.empty_cache()
+    # V's quantizer at every width of Q8_ATTN_WIDTHS in bf16 and f32, on V's
+    # strided view with one all-zero column (the floored scale), against
+    # quant_cols_plain's layout in full (zero codes past Lk included)
+    for width, hid_, _ in Q8_ATTN_WIDTHS:
+        for dt in (torch.bfloat16, torch.float32):
+            paper = width == "paper" and dt == torch.bfloat16
+            label_dt = "bf16" if dt == torch.bfloat16 else "f32"
+            tot = dict(ms=0.0, bound_ms=0.0)
+            for label, n, _, lk, count in Q8_ATTENTION:
+                width_ = 3 if label.endswith("self") else 2  # QKV or KV
+                x = torch.randn((n * lk, width_ * hid_), generator=g,
+                                device=dev).to(dt)
+                v = x[:, (width_ - 1) * hid_:]
+                v[:, 7] = 0
+                vt, sv = lq.quant_cols_cuda(v, n)
+                again = lq.quant_cols_cuda(v, n)
+                pv, psv = lq.quant_cols_plain(v, n)
+                if not (torch.equal(vt, pv) and torch.equal(sv, psv)
+                        and torch.equal(vt, again[0])
+                        and torch.equal(sv, again[1])):
+                    raise AssertionError(f"(t) quant_cols {width} "
+                                         f"{label_dt} of {label} differs "
+                                         f"from quant_cols_plain or between "
+                                         f"runs")
+                ms = graph_ms(lambda: lq.quant_cols_cuda(v, n))
+                bd = bound(n * lk * hid_ * v.element_size() + vt.numel()
+                           + 4 * sv.numel())
+                tot["ms"] += count * ms
+                tot["bound_ms"] += count * bd["bound_ms"]
+                log(f"(t) quant_cols_kernel {width} {label_dt} {label} "
+                    f"[{n} x {lk}, {hid_}] (row stride {v.stride(0)}): "
+                    f"codes and scales bit for bit quant_cols_plain's, "
+                    f"reruns bit-identical; {ms:.3f} ms, bound "
+                    f"{bd['bound_ms']:.3f} ms ({bd['bound_ms'] / ms:.1%}) "
+                    f"x{count}")
+                if paper:
+                    row = sums["quant_cols_kernel"]
+                    row["ms"] += count * ms
+                    row["plain_ms"] += count * cuda_ms(
+                        lambda: lq.quant_cols_plain(v, n), iters=3)
+                    row["bound_ms"] += count * bd["bound_ms"]
+                    row["bound_by"] = bd["bound_by"]
+                del x, v, vt, sv, pv, psv, again
+                torch.cuda.empty_cache()
+            held("quant_cols_kernel", dt)
+            log(f"(t) quant_cols_kernel {width} {label_dt}, the int8 "
+                f"forward's 11 launches: {tot['ms']:.3f} ms, bound "
+                f"{tot['bound_ms']:.3f} ms "
+                f"({tot['bound_ms'] / tot['ms']:.1%})"
+                + (f"; the parent tree's kernel {Q8_COLS_BEFORE_MS:.3f} ms "
+                   f"(PERF.md)" if paper else ""))
     for k in ("quant_rows_kernel", "quant_cols_kernel"):
         held(k, torch.bfloat16)
         row = sums[k]
@@ -4639,6 +4714,153 @@ def check_k13_kernels(dev, card: str) -> dict:
             f"plain {row['plain_ms']:.3f} ms")
     log(f"(t) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
     return sums
+
+
+# (u) the LayerNorm backward alone --------------------------------------------
+
+# The steps whose launches (u) runs: (label, compute dtype, config): the
+# paper bf16 step of (j) and the default f32 step of (n), batch TRAIN_BATCH
+LN_STEPS = (("paper bf16 (j)", torch.bfloat16, "paper"),
+            ("default f32 (n)", torch.float32, "default"))
+# the parent tree's ln_bwd_kernel over (j)'s 20 launches (ms: PR 15's (j)
+# profile, PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W)
+LN_BWD_BEFORE_MS = 5.636
+LN_F32_REL = 2e-5   # f32 da / dam, of max(1, max |plain|)
+LN_SUM_REL = 1e-4   # dgamma / dbeta, of max |plain|
+
+
+def check_ln_bwd(dev, card: str, launches: dict) -> dict:
+    """(u): ln_bwd_kernel alone at every launch shape of (j)'s paper bf16
+    step and (n)'s default f32 step, with the steps' dropout site (rate
+    RATE) and without: da and dam within ULPS bf16 ulps of
+    ``ln_bwd_plain`` (f32: LN_F32_REL of max(1, max |plain|)), dam bit for
+    bit T(da x keep) of the kernel's own da, dgamma and dbeta within
+    LN_SUM_REL of max |plain|, reruns bit-identical. Each shape timed by a
+    CUDA graph of the kernel's call beside its bytes bound, the plain twin
+    and, without dropout, ``torch.ops.aten.native_layer_norm_backward``
+    (handed mean and rstd; the library computes no keep mask).
+    ``launches``: each step's count of ln_bwd launches from (j) and (n),
+    which the shapes must add up to. Returns the JSON row: the paper
+    step's launches (all with their dropout site) summed, the default
+    step's beside it."""
+    from nylon_amt_tpu_torch import Config, ModelConfig
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+    from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms, ln_step_shapes
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for label, dt, which in LN_STEPS:
+        m_cfg = ModelConfig.paper_scale() if which == "paper" \
+            else Config().model
+        n = m_cfg.hid_dim
+        shapes = ln_step_shapes(m_cfg)
+        if sum(c for _, c in shapes) != launches[label]:
+            raise AssertionError(f"(u) {label}: shapes {shapes}, the step's "
+                                 f"launches {launches[label]}")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                   nodrop_ms=0.0, library_ms=0.0, bound_by="bytes")
+        for m, count in shapes:
+            g = torch.Generator(device=dev).manual_seed(SEED + 31 + m + n)
+            dy = torch.randn((m, n), generator=g, device=dev).to(dt)
+            s = (3 * torch.randn((m, n), generator=g, device=dev)
+                 + 0.5).to(dt)
+            gamma = 1 + 0.1 * torch.randn(n, generator=g, device=dev)
+            for drop in (False, True):
+                site = (tlt._site(DROP_SEED, tlt._SITE_FFN_OUT, n, RATE, dt)
+                        if drop else None)
+                got = tlt.ln_bwd_cuda(dy, s, gamma, site)
+                again = tlt.ln_bwd_cuda(dy, s, gamma, site)
+                want = tlt.ln_bwd_plain(dy, s, gamma, site)
+                torch.cuda.synchronize()
+                what = (f"(u) ln_bwd_kernel {label} [{m}, {n}] "
+                        f"{'with' if drop else 'without'} a dropout site")
+                if not all(a is b or torch.equal(a, b)
+                           for a, b in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                errs = []
+                for a, b in zip(got[:2], want[:2]):
+                    if b is None:
+                        continue
+                    if dt == torch.bfloat16:
+                        err, ulps = ulp_distance(a, b)
+                        ok = ulps <= ULPS
+                        errs.append(f"{ulps:.2f} ulps")
+                    else:
+                        err = (a - b).abs().max().item()
+                        rel = err / max(1.0, b.abs().max().item())
+                        ok = rel <= LN_F32_REL
+                        errs.append(f"{rel:.2e} of max(1, |plain|)")
+                    if not ok:
+                        raise AssertionError(f"{what}: da / dam {errs} from "
+                                             f"ln_bwd_plain")
+                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                if drop and not torch.equal(
+                        got[1], (got[0] * lf._site_mask(site, got[0]))
+                        .to(dt)):
+                    raise AssertionError(f"{what}: dam is not T(da x keep) "
+                                         f"of the kernel's own da")
+                sums = [rel_err(a, b) for a, b in zip(got[2:], want[2:])]
+                if not max(sums) <= LN_SUM_REL:
+                    raise AssertionError(f"{what}: dgamma / dbeta {sums} of "
+                                         f"max |plain| (<= {LN_SUM_REL})")
+                ln = tlt._LnGrads(m, n, 1, dev, dt)
+
+                def kernel():
+                    ln.used = 0
+                    tlt._ln_backward(dy, s, gamma, site, ln)
+                ms = graph_ms(kernel)
+                plain_ms = cuda_ms(lambda: tlt.ln_bwd_plain(dy, s, gamma,
+                                                            site), iters=2)
+                bd = bound(nbytes(dy, s, gamma, *got[:2 if drop else 1])
+                           + 2 * 4 * ln.blocks * n)
+                lib = ""
+                if drop:
+                    tot["ms"] += count * ms
+                    tot["plain_ms"] += count * plain_ms
+                    tot["bound_ms"] += count * bd["bound_ms"]
+                else:
+                    w = gamma.to(dt)
+                    zero = torch.zeros_like(w)
+                    _, mean, rstd = torch.ops.aten.native_layer_norm(
+                        s, [n], w, zero, lf._LN_EPS)
+                    lib_ms = graph_ms(
+                        lambda: torch.ops.aten.native_layer_norm_backward(
+                            dy, s, [n], mean, rstd, w, zero,
+                            [True, True, True]))
+                    tot["nodrop_ms"] += count * ms
+                    tot["library_ms"] += count * lib_ms
+                    lib = (f", native_layer_norm_backward {lib_ms:.3f} ms "
+                           f"({lib_ms / ms:.2f}x the kernel's)")
+                log(f"{what}: da/dam {', '.join(errs)} from ln_bwd_plain"
+                    + (", dam T(da x keep) bit for bit" if drop else "")
+                    + f", dgamma/dbeta {max(sums):.1e} of max |plain|; "
+                    f"reruns bit-identical; {ms:.3f} ms, bound "
+                    f"{bd['bound_ms']:.3f} ms ({bd['bound_ms'] / ms:.1%}), "
+                    f"plain {plain_ms:.3f} ms{lib}; {ln.blocks} blocks of "
+                    f"{ln.rows} rows a tile x{count}")
+                del got, again, want
+            held("ln_bwd_kernel", dt)
+            del dy, s, gamma
+            torch.cuda.empty_cache()
+        rows[label] = dict(tot, launches=launches[label])
+        log(f"(u) {label}, its {launches[label]} ln_bwd launches: "
+            f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+            f"({tot['bound_ms'] / tot['ms']:.1%}), plain "
+            f"{tot['plain_ms']:.3f} ms; without dropout {tot['nodrop_ms']:.3f}"
+            f" ms against native_layer_norm_backward "
+            f"{tot['library_ms']:.3f} ms"
+            + (f"; the parent tree's kernel {LN_BWD_BEFORE_MS:.3f} ms "
+               f"(PERF.md)" if which == "paper" else ""))
+    log(f"(u) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    paper, default = (rows[label] for label, _, _ in LN_STEPS)
+    return dict({k: paper[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err",
+                                       "library_ms")},
+                nodrop_ms=paper["nodrop_ms"], default_f32_step={
+                    k: default[k] for k in ("launches", "ms", "plain_ms",
+                                            "bound_ms", "nodrop_ms",
+                                            "library_ms")})
 
 
 def main() -> int:
@@ -4659,6 +4881,7 @@ def main() -> int:
     from nylon_amt_tpu_torch.ops.mel import MelFrontend
     from nylon_amt_tpu_torch.ops.precision import full_f32
     from nylon_amt_tpu_torch.ops.spectrogram import log_mel, log_mel_plain
+    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
     from nylon_amt_tpu_torch.utils.wavio import save_wav
 
     dev = torch.device("cuda:0")
@@ -4736,6 +4959,19 @@ def main() -> int:
             f"{k} " + "-".join(str(f(v["regs"] for v in mha32.values()
                                      if v["kernel"] == k)) for f in (min, max))
             for k in MHA_F32_KERNELS) + " registers")
+    stream = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
+                        STREAM_KERNELS)
+    if {v["kernel"] for v in stream.values()} != set(STREAM_KERNELS) \
+            or len(stream) != STREAM_INSTANTIATIONS \
+            or any(v["spill"] or v["stack"] for v in stream.values()):
+        raise AssertionError(f"(a) the streaming kernels in ptxas -v "
+                             f"({len(stream)} of {STREAM_INSTANTIATIONS}): "
+                             f"{stream}")
+    log(f"(a) {len(stream)} instantiations of {', '.join(STREAM_KERNELS)}: "
+        f"no spills, no stack, " + ", ".join(
+            f"{k} " + "-".join(str(f(v["regs"] for v in stream.values()
+                                     if v["kernel"] == k)) for f in (min, max))
+            for k in STREAM_KERNELS) + " registers")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -4923,7 +5159,11 @@ def main() -> int:
     train_counts, first_batch = train_through_cli(cfg, feat, audio, cli_main)
 
     # (j) the train step's time ------------------------------------------------
-    fused_step_ms = time_train_step(cfg, first_batch, dev, card)
+    fused_step_ms, step_counts = time_train_step(cfg, first_batch, dev, card)
+    want = sum(c for _, c in ln_step_shapes(m))
+    if step_counts["ln_bwd"] != want:
+        raise AssertionError(f"(j) the step's ln_bwd launches "
+                             f"{step_counts['ln_bwd']}, expected {want}")
 
     # (k) K13, the int8 layers -------------------------------------------------
     q8_counts, q8_results, k13_profile = check_int8(
@@ -4941,9 +5181,9 @@ def main() -> int:
     for name, over in (("--remat", dict(remat=True)),
                        ("1FLT", dict(dec_alg="linear_satime")),
                        ("2FDT", dict(enc_alg="cnnblock_safreq"))):
-        ms = time_train_step(rep(cfg, model=rep(cfg.model, **over)),
-                             first_batch, dev, card, phase="l",
-                             what=f"{name} per-site ")
+        ms, _ = time_train_step(rep(cfg, model=rep(cfg.model, **over)),
+                                first_batch, dev, card, phase="l",
+                                what=f"{name} per-site ")
         log(f"(l) {name} per-site train step {ms:.3f} ms against (j)'s fused "
             f"step {fused_step_ms:.3f} ms ({ms / fused_step_ms:.2f}x)")
 
@@ -5014,6 +5254,11 @@ def main() -> int:
         row = dict(s8[k.removesuffix("_kernel")])
         row.pop("launches")
         k13_rows[k] = row
+
+    # (u) the LayerNorm backward alone -------------------------------------
+    results["ln_bwd_kernel"] = check_ln_bwd(dev, card, {
+        "paper bf16 (j)": step_counts["ln_bwd"],
+        "default f32 (n)": f32_counts["ln_bwd/default"]})
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -5061,6 +5306,15 @@ def main() -> int:
                 for v in mha32_sass.values()):
             raise AssertionError(f"(a) SASS of the f32 attention: "
                                  f"{mha32_sass}")
+        stream_sass = gemm_sass(sass_proc, kernels.build_dir()
+                                / kernels.LIB_NAME, STREAM_KERNELS,
+                                ("UTMALDG",))
+        if len(stream_sass) != len(stream) or any(
+                not v["UTMALDG"] for v in stream_sass.values()):
+            raise AssertionError(f"(a) SASS of the streaming kernels: "
+                                 f"{stream_sass}")
+        log(f"(a) SASS of the {len(stream_sass)} streaming kernels "
+            f"(cuobjdump): UTMALDG in each")
         log(f"(a) SASS of the {len(mha32_sass)} f32 attention kernels "
             f"(cuobjdump): HGMMA "
             f"{min(v['HGMMA'] for v in mha32_sass.values())}-"
@@ -5132,6 +5386,11 @@ def main() -> int:
     counts.update({k: f32_counts[k] for k in bwd32})
     sources.update({k: ("layer_fused_f32.cu", f"{train}:472")
                     for k in bwd32})
+    # the LayerNorm backward of K7-K9 (the encoder's pallas_call line; the
+    # decoders' is f"{train}:789"): launches of (j)'s paper bf16 step, whose
+    # shapes (u) timed
+    counts["ln_bwd_kernel"] = step_counts["ln_bwd"]
+    sources["ln_bwd_kernel"] = ("layer_fused_train.cu", f"{train}:472")
     # the sources of each wrapper's float32 path
     layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
         "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
@@ -5148,6 +5407,7 @@ def main() -> int:
         **{n: ["layer_fused_q8.cu"] for n in (*Q8_SOURCES, *Q8_KERNELS)},
         **{n: ["layer_fused_f32.cu"] for n in gemm32},
         "gemm_nt_f32": ["layer_fused_f32.cu"],
+        "ln_bwd_kernel": ["layer_fused_train.cu"],
         "wgrad_f32": ["layer_fused_f32.cu", "layer_fused_train.cu"]}
     f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
     log(card)  # name, power limit: nvidia-smi's own line

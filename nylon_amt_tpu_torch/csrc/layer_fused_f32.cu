@@ -607,7 +607,9 @@ int launch_gemm_bias_ffma(const void* a, const void* w, const void* bias,
   using T = FfmaTile<BN>;
   CUtensorMap ma, mw;
   int e = sm::encode_f32(&ma, a, M, K, T::kBM);
-  if (!e) e = nylon::ring::encode_rows(&mw, w, K, N, 32, BN);
+  if (!e)
+    e = nylon::ring::encode_rows_of(&mw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                    w, K, N, N, 32, BN);
   const int n_tiles_n = (N + BN - 1) / BN;
   const long long tiles =
       (long long)n_tiles_n * ((M + T::kBM - 1) / T::kBM);

@@ -24,9 +24,10 @@
 //    as codes (the stem layer's and the first time layer's input, the
 //    decoder's note queries);
 //  * quant_cols_kernel: V's quantizer, one scale per column over the whole
-//    key sequence; it writes the codes transposed per sequence, [hid,
-//    Lk_pad] with zero codes past Lk, which is the operand layout the PV
-//    product needs (a ragged last block of columns for hid % 64 != 0);
+//    key sequence, from one TMA-fed read of V; it writes the codes
+//    transposed per sequence, [hid, Lk_pad] with zero codes past Lk, which
+//    is the operand layout the PV product needs (a ragged last block of
+//    columns for hid % 64 != 0; its design note is at the kernel);
 //  * gemm_q8_bias_kernel: out = T((f32(A @ W) * sa[row]) * sw[col]) +
 //    bias [, ReLU], an s8 x s8 -> s32 tensor-core GEMM (wgmma m64nNk32 fed
 //    by TMA: gemm_sm90.cuh's s8 mainloop) with a dequantizing epilogue;
@@ -82,6 +83,7 @@
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "layer_epilogue.cuh"
+#include "tma_ring.cuh"
 
 using nylon::bf16;
 namespace sm = nylon::sm90;
@@ -192,67 +194,167 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) s[row] = rq.scale();
 }
 
-constexpr int kColTile = 64;   // columns per block
-constexpr int kRowTile = 32;   // key rows per transposed store
+// quant_cols_kernel: V's quantizer (JAX's _mha_block_q8: av, vq, sv).
+// What bounds it: bytes. It reads V once (T) and writes one code a value
+// and one scale a column, a few operations a value. Its first form read V
+// twice from device memory with 2-byte loads on V's row stride of 3 hid
+// or 2 hid (the absmax, then the codes), two __syncthreads every 32 keys,
+// and ran at 47% of this bound on an NVIDIA H100 (PERF.md). This design
+// reads V once:
+//
+//  * a persistent grid over work items (sequence, 64-column block); one TMA
+//    load brings an item's whole [L, 64] slice of V into shared memory (a
+//    2-D map over V's strided view [n L, hid]: its column extent hid, so
+//    the ragged last block is TMA's zero fill and nothing past V is read),
+//    into a ring of 2-4 stages that thread 0 keeps filled ahead of the
+//    block (the next items' loads in flight while one is quantized);
+//  * each thread owns a column pair (lane l: columns 2 l, 2 l + 1) and a
+//    set of 16-key chunks (warp w: chunks (w + l) % 8, + 8, ..): the
+//    column absmax from shared memory (order-free: the scales are the plain
+//    version's bits), combined over the warps in shared memory, then the
+//    codes of its chunks from shared memory again, 16 codes of a column in
+//    one 16-byte store into the item's code tile [64, L_pad] (the rotation
+//    of the chunks over the lanes keeps both the loads and these stores
+//    free of bank conflicts);
+//  * the code tile, laid out as the item's rows of vt, leaves by one bulk
+//    copy (cp.async.bulk) while the next item is quantized into the other
+//    tile.
+//
+// The quantizer is RowQuant's on the column: a = max(absmax, 1e-12), the
+// codes rint(x * (127 / a)), the scale a / 127^2 (P's 1/127 folded in).
 
-// V of sequence `seq`: x[seq*L + j, col] -> vt[seq, col, j] (j < L_pad,
-// zero codes past L) and sv[seq, col] = max(absmax_j, 1e-12) / 127^2.
-// Block per (sequence, 64 columns); thread (c = tid % 64, g = tid / 64).
-// kRagged: the last block where hid % 64, its columns past hid idle (a
-// path of its own: the guards slow the full blocks' loops by a third).
-template <typename T, bool kRagged>
-__device__ __forceinline__ void quant_cols_block(const T* __restrict__ x,
-                                                 long long ld_x, int L,
-                                                 int hid, int seq, int col0,
-                                                 int8_t* __restrict__ vt,
-                                                 float* __restrict__ sv) {
-  __shared__ float part[4][kColTile];
-  __shared__ __align__(16) int8_t tile[kColTile][kRowTile + 16];
-  const int c = threadIdx.x % kColTile, g = threadIdx.x / kColTile;
-  const bool col_ok = !kRagged || col0 + c < hid;
-  const int l_pad = (L + kRowTile - 1) / kRowTile * kRowTile;
-  const T* base = x + (size_t)seq * L * ld_x + col0 + c;
-  float amax = 0.f;
-  if (col_ok)
-    for (int j = g; j < L; j += 4)
-      amax = fmaxf(amax, fabsf(nylon::to_f(base[(size_t)j * ld_x])));
-  part[g][c] = amax;
-  __syncthreads();
-  const float a = fmaxf(fmaxf(fmaxf(part[0][c], part[1][c]), part[2][c]),
-                        part[3][c]);
-  const float r = 127.f / a;
-  if (g == 0 && col_ok) sv[(size_t)seq * hid + col0 + c] = a * kInv127Sq;
-  int8_t* out = vt + ((size_t)seq * hid + col0) * l_pad;
-  for (int j0 = 0; j0 < l_pad; j0 += kRowTile) {
-    // thread (c, g) quantizes rows j0 + 8g .. j0 + 8g + 7 of column c
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int j = j0 + 8 * g + t;
-      tile[c][8 * g + t] =
-          col_ok && j < L
-              ? quant_code(nylon::to_f(base[(size_t)j * ld_x]), r)
-              : (int8_t)0;
-    }
-    __syncthreads();
-    // 64 columns x 32 bytes out, 8 bytes per thread, contiguous per column
-    const int oc = threadIdx.x / 4, part8 = (threadIdx.x % 4) * 8;
-    if (!kRagged || col0 + oc < hid)
-      *reinterpret_cast<uint2*>(out + (size_t)oc * l_pad + j0 + part8) =
-          *reinterpret_cast<const uint2*>(&tile[oc][part8]);
-    __syncthreads();
-  }
+constexpr int kColTile = 64;      // V columns a work item
+constexpr int kColChunk = 16;     // keys a 16-byte chunk of codes
+constexpr int kColMaxKeys = 256;  // L: a stage of at most 64 KB
+constexpr int kColMaxStages = 4;
+constexpr int kColRingBytes = 64 * 1024;
+
+// The item's code tile to device memory: `bytes` (a multiple of 16) from
+// shared address `src` to `dst` (16-byte aligned).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
 }
 
+// Two consecutive T of shared memory as f32.
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Item i of n_seq * ceil(hid / 64): sequence i / n_cb, columns 64 (i %
+// n_cb) ..: x[seq L + j, col] -> vt[seq, col, j] (j < l_pad, zero codes
+// past L) and sv[seq, col]. The ring: `stages` stages of stage_bytes, then
+// two code tiles of 64 l_pad bytes, from a 1024-byte aligned base.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    quant_cols_kernel(const T* __restrict__ x, long long ld_x, int L,
-                      int hid, int8_t* __restrict__ vt,
-                      float* __restrict__ sv) {
-  const int col0 = blockIdx.y * kColTile;
-  if (col0 + kColTile <= hid)  // block-uniform
-    quant_cols_block<T, false>(x, ld_x, L, hid, blockIdx.x, col0, vt, sv);
-  else
-    quant_cols_block<T, true>(x, ld_x, L, hid, blockIdx.x, col0, vt, sv);
+    quant_cols_kernel(const __grid_constant__ CUtensorMap map_v, int n_seq,
+                      int L, int l_pad, int hid, int stages, int stage_bytes,
+                      int8_t* __restrict__ vt, float* __restrict__ sv) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kColMaxStages];
+  __shared__ float part[kThreads / 32][kColTile];
+  uint8_t* const base =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const codes = base + stages * stage_bytes;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_cb = (hid + kColTile - 1) / kColTile;
+  const int items = n_seq * n_cb, n_chunks = l_pad / kColChunk;
+  const uint32_t box = (uint32_t)(L * kColTile * sizeof(T));
+  const auto load = [&](int k) {  // thread 0: the block's k-th item
+    const int i = blockIdx.x + k * gridDim.x;
+    if (i >= items) return;
+    uint64_t* const bar = &full[k % stages];
+    sm::mbar_expect_tx(bar, box);
+    sm::tma_load(base + (k % stages) * stage_bytes, &map_v, bar,
+                 (i % n_cb) * kColTile, (i / n_cb) * L);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) sm::mbar_init(&full[s], 1);
+    sm::fence_barrier_init();
+    sm::tma_prefetch(&map_v);
+    for (int k = 0; k < stages - 1; ++k) load(k);
+  }
+  __syncthreads();
+
+  int k = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++k) {
+    // the stage of item k - 1 has been read (the barrier that closed it):
+    // refill it
+    if (threadIdx.x == 0) load(k + stages - 1);
+    const int seq = i / n_cb, col0 = (i % n_cb) * kColTile;
+    sm::mbar_wait(&full[k % stages], (uint32_t)((k / stages) & 1));
+    const T* const v =
+        reinterpret_cast<const T*>(base + (k % stages) * stage_bytes) +
+        2 * lane;  // [L][64]
+    float a0 = 0.f, a1 = 0.f;
+    for (int c = (warp + lane) & 7; c < n_chunks; c += 8)
+#pragma unroll 4
+      for (int t = 0; t < kColChunk; ++t) {
+        const int j = c * kColChunk + t;
+        if (j < L) {
+          const float2 x = ld_pair(v + j * kColTile);
+          a0 = fmaxf(a0, fabsf(x.x));
+          a1 = fmaxf(a1, fabsf(x.y));
+        }
+      }
+    part[warp][2 * lane] = a0;
+    part[warp][2 * lane + 1] = a1;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {  // every warp's keys
+      a0 = fmaxf(a0, part[w][2 * lane]);
+      a1 = fmaxf(a1, part[w][2 * lane + 1]);
+    }
+    const RowQuant q0(a0), q1(a1);
+    const int col = col0 + 2 * lane;
+    if (warp == 0 && col < hid) {  // hid % 8 == 0: col + 1 < hid too
+      sv[(size_t)seq * hid + col] = q0.a * kInv127Sq;
+      sv[(size_t)seq * hid + col + 1] = q1.a * kInv127Sq;
+    }
+    int8_t* const tile =
+        reinterpret_cast<int8_t*>(codes + (k & 1) * kColTile * l_pad);
+    const uint32_t out0 = sm::smem_u32(tile + 2 * lane * l_pad);
+    for (int c = (warp + lane) & 7; c < n_chunks; c += 8) {
+      uint32_t w0[4], w1[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        w0[u] = w1[u] = 0u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = c * kColChunk + 4 * u + b;
+          const float2 x = j < L ? ld_pair(v + j * kColTile)
+                                 : make_float2(0.f, 0.f);
+          w0[u] |= (uint32_t)(quant_int(x.x, q0.r) & 0xFF) << (8 * b);
+          w1[u] |= (uint32_t)(quant_int(x.y, q1.r) & 0xFF) << (8 * b);
+        }
+      }
+      const uint32_t at = out0 + c * kColChunk;
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+                   "r"(w0[0]), "r"(w0[1]), "r"(w0[2]), "r"(w0[3])
+                   : "memory");
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       at + l_pad),
+                   "r"(w1[0]), "r"(w1[1]), "r"(w1[2]), "r"(w1[3])
+                   : "memory");
+    }
+    sm::fence_async_smem();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int cols = hid - col0 < kColTile ? hid - col0 : kColTile;
+      bulk_store(vt + ((size_t)seq * hid + col0) * l_pad, sm::smem_u32(tile),
+                 (uint32_t)(cols * l_pad));
+      sm::bulk_commit();
+      sm::bulk_wait_read<1>();  // the other tile is free for the next item
+    }
+  }
+  if (threadIdx.x == 0) sm::bulk_wait();
 }
 
 // ------------------------------------------------------------ s8 GEMM ----
@@ -1304,11 +1406,26 @@ int launch_quant_rows(const void* x, long long ld_x, int M, int K, void* q,
 template <typename T>
 int launch_quant_cols(const void* x, long long ld_x, int n_seq, int L,
                       int hid, void* vt, void* sv, cudaStream_t stream) {
-  if (n_seq <= 0 || L <= 0 || hid <= 0 || hid % 8 || ld_x < hid)
+  if (n_seq <= 0 || L <= 0 || L > kColMaxKeys || hid <= 0 || hid % 8 ||
+      ld_x < hid)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_seq, (hid + kColTile - 1) / kColTile);
-  quant_cols_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, ld_x, L, hid, (int8_t*)vt, (float*)sv);
+  const int l_pad = (L + 31) / 32 * 32;
+  const int stage_bytes = (L * kColTile * (int)sizeof(T) + 1023) / 1024 * 1024;
+  const int fit = kColRingBytes / stage_bytes;
+  const int stages = fit < 2 ? 2 : fit > kColMaxStages ? kColMaxStages : fit;
+  const int smem = stages * stage_bytes + 2 * kColTile * l_pad + 1024;
+  CUtensorMap map;
+  int e = nylon::ring::encode_rows_of(&map, nylon::ring::tma_type<T>(),
+                                      sizeof(T), x, (long long)n_seq * L, hid,
+                                      ld_x, L, kColTile);
+  const long long items = (long long)n_seq * ((hid + kColTile - 1) / kColTile);
+  int grid = 0;
+  const auto kernel = quant_cols_kernel<T>;
+  if (!e) e = sm::persistent_grid(kernel, smem, items, &grid, kThreads);
+  if (e) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(map, n_seq, L, l_pad, hid, stages,
+                                           stage_bytes, (int8_t*)vt,
+                                           (float*)sv);
   return (int)cudaGetLastError();
 }
 

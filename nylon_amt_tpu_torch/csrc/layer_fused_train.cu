@@ -14,10 +14,11 @@
 // internals into device memory with the forward kernels (saving the pre-LN
 // sums), then runs, per layer, in turn:
 //
-//  * ln_bwd_kernel: the LayerNorm backward of one row per warp (statistics
-//    recomputed from the saved pre-LN sum), the bf16 cast of the input
-//    gradient, the dropout mask of the site feeding the residual, and per-
-//    block partial sums of dgamma/dbeta;
+//  * ln_bwd_kernel: the LayerNorm backward from TMA-fed row tiles
+//    (statistics recomputed from the saved pre-LN sum), the bf16 cast of
+//    the input gradient, the dropout mask of the site feeding the residual,
+//    and per-block partial sums of dgamma/dbeta (its design note is at the
+//    kernel);
 //  * gemm_nt_kernel: dX = dY @ W^T (the TPU kernel's dot_general of dY and
 //    W over W's second axis) with the epilogues of the analytic backward
 //    (bf16 cast, dropout mask, ReLU gate, + residual gradient, embedding
@@ -60,6 +61,7 @@
 #include "gemm_sm90.cuh"
 #include "hash_mask.cuh"
 #include "layer_epilogue.cuh"
+#include "tma_ring.cuh"
 
 using nylon::bf16;
 using nylon::DropSite;
@@ -73,103 +75,388 @@ using sm::store_tile;
 
 namespace {
 
-constexpr int kThreads = 256;  // ln_bwd_kernel and reduce_rows_kernel
+constexpr int kThreads = 256;  // reduce_rows_kernel
 
 // ------------------------------------------------------ LayerNorm backward --
+//
+// ln_bwd_kernel: the LayerNorm backward of the TPU kernels' bodies (JAX's
+// _ln_bwd on the statistics of _ln_fwd recomputed from the saved pre-LN
+// sum, in _enc_train_bwd_kernel and _dec_train_bwd_kernel /
+// _dec_zero_train_bwd_kernel). What bounds it: bytes. Per element it does
+// ~20 f32 operations (~35 with a dropout site's hash) on 6 bytes of bf16
+// (dy and s read, da written; 8 with dam), some 3-6 operations a byte
+// against the card's ~20 f32 FLOP a byte of HBM (67 TFLOP/s over 3.35
+// TB/s): a launch at M = 262,144, N = 256 needs 0.12 ms of device memory.
+// Its first form (one row per warp, 2-byte loads straight from device
+// memory, three dependent warp reductions a row, gamma re-read every row,
+// 16 warps an SM) kept few bytes in flight and ran at 23-31% of that
+// bound on an NVIDIA H100 (PERF.md). This design keeps HBM streaming:
+//
+//  * a persistent grid, one or two blocks an SM (kLnBlocks), kLnWarps
+//    consumer warps and a producer warp whose lane 0 keeps a ring of row
+//    tiles in flight by TMA (a stage: the tile's R rows x N of dy, then of
+//    s, through 2-D maps over [M, N]; 15-45 KB a stage, up to kLnRingBytes
+//    of shared memory);
+//  * rows spread over lanes in 16-byte chunks (8 bf16, 4 f32): kC chunks a
+//    lane (chunks j, j + lanes, ..), `lanes` lanes a row, 32 / lanes rows a
+//    warp, so no lane idles at N = 64, 96 and 256 (ln_layout), and a tile
+//    is one row group a warp. A lane reads its chunks from shared memory
+//    16 bytes at a time: once, into registers, releasing the stage before
+//    the math, where they fit (up to 8 values a lane: N = 64 and 256 in
+//    either dtype); else (N = 96) s four times and dy twice (the
+//    statistics' two passes, the sums, the outputs). It reduces each row
+//    by xor shuffles over its lanes and stores da (and dam) 16 bytes at a
+//    time;
+//  * gamma and the lane's dgamma / dbeta sums stay in registers for the
+//    whole block, then are summed over the warp's row groups (xor shuffles)
+//    and over the warps in warp order into the block's partial row: a fixed
+//    order for a fixed grid, so reruns give the same bits;
+//  * the keep bits of a chunk are drawn in a rolled loop (hashes unrolled
+//    into the element math make a kernel too long for the instruction
+//    cache: gemm_nt_kernel).
 
 constexpr int kLnMaxN = 256;
+// 15 consumer warps and the producer warp: 4 warps an SM sub-partition, so
+// 128 registers a thread (a 17th warp puts 5 on one sub-partition, caps the
+// kernel at 96 registers and spills its 3-chunk form)
+constexpr int kLnWarps = 15;
+constexpr int kLnThreads = (kLnWarps + 1) * 32;
+constexpr int kLnMaxStages = 10;
+// Blocks an SM: two where a lane holds one chunk (64 registers a thread),
+// each with a ring of 96 KB; else one with 160 KB.
+template <int kC>
+constexpr int kLnBlocks = kC == 1 ? 2 : 1;
+template <int kC>
+constexpr int kLnRingBytes = kC == 1 ? 96 * 1024 : 160 * 1024;
 
-// For each row of the pre-LN sum s [M, N] and its output gradient dy:
-// xhat, inv from s (f32 two-pass, as the forward); dxhat = dy * gamma;
-// da = bf16((dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * inv); with
-// kDrop also dam = bf16(da * keep) for the dropout site feeding the sum.
-// Block b owns rows [b * rows_per_block, ...); its warps take every 8th row.
-// dg_part[b] / db_part[b] = sum over the block's rows of dy * xhat / dy,
-// summed warp by warp in a fixed order. T: bf16, or f32 (the float32
-// compute dtype, where every cast to T is the identity).
-template <typename T, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-    ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ s,
+// The lanes' share of a row of N elements of `elem` bytes: kc 16-byte
+// chunks a lane, `lanes` lanes a row (a power of two up to 32) and `rows`
+// rows a tile (one row group a warp). The fewest lanes with no lane idle;
+// where no kc <= 3 gives that, 32 lanes and the chunks past the row idle.
+// ops/layer_fused_train.py::ln_bwd_layout is this function.
+struct LnLayout {
+  int kc, lanes, rows;
+};
+inline LnLayout ln_layout(int N, int elem) {
+  const int chunks = N * elem / 16;
+  for (int kc = 1; kc <= 3; ++kc) {
+    const int lanes = chunks / kc;
+    if (chunks % kc == 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0)
+      return {kc, lanes, kLnWarps * 32 / lanes};
+  }
+  return {(chunks + 31) / 32, 32, kLnWarps};
+}
+
+// 16 bytes of T as f32 values, and f32 values rounded to T into 16 bytes.
+template <typename T>
+struct Chunk16;
+
+template <>
+struct Chunk16<bf16> {
+  static constexpr int kE = 8;
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(sm::bf16x2(w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    uint4 raw;
+    raw.x = bits(__floats2bfloat162_rn(v[0], v[1]));
+    raw.y = bits(__floats2bfloat162_rn(v[2], v[3]));
+    raw.z = bits(__floats2bfloat162_rn(v[4], v[5]));
+    raw.w = bits(__floats2bfloat162_rn(v[6], v[7]));
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+template <>
+struct Chunk16<float> {
+  static constexpr int kE = 4;
+  static __device__ __forceinline__ void load(const float* p,
+                                              float (&v)[4]) {
+    const float4 raw = *reinterpret_cast<const float4*>(p);
+    v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
+  }
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// The sum of v over the `lanes` lanes (a power of two) of this lane's row.
+__device__ __forceinline__ float row_sum(float v, int lanes) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < lanes) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// For each row of the pre-LN sum s [M, N] and its output gradient dy (both
+// contiguous): xhat, inv from s (f32 two-pass, as the forward); dxhat = dy
+// * gamma; da = T((dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) *
+// inv); with kDrop also dam = T(T(da) * keep) for the dropout site feeding
+// the sum. Block b takes the tiles of `rows` rows b, b + gridDim.x, ..;
+// dg_part[b] / db_part[b] = its rows' sums of dy * xhat and dy. The ring:
+// `stages` stages of stage_bytes from a 1024-byte aligned base, each the
+// dy tile, then the s tile from the next multiple of 1024 bytes; full[s]
+// completes its u-th phase when the u-th tile of the stage has landed,
+// empty[s] when the kLnWarps warps have read it. T: bf16, or f32 (the
+// float32 compute dtype, where every cast to T is the identity).
+template <typename T, int kC, bool kDrop>
+__global__ void __launch_bounds__(kLnThreads, kLnBlocks<kC>)
+    ln_bwd_kernel(const __grid_constant__ CUtensorMap map_dy,
+                  const __grid_constant__ CUtensorMap map_s,
                   const float* __restrict__ gamma, T* __restrict__ da,
                   T* __restrict__ dam, float* __restrict__ dg_part,
-                  float* __restrict__ db_part, int M, int N,
-                  int rows_per_block, float eps, DropSite site) {
-  __shared__ float red[2][kThreads / 32][kLnMaxN];
-  constexpr int kT = kLnMaxN / 32;
+                  float* __restrict__ db_part, int M, int N, int lanes,
+                  int rows, int stages, int stage_bytes, float eps,
+                  DropSite site) {
+  using C16 = Chunk16<T>;
+  constexpr int kE = C16::kE;
+  // a lane's chunks of a row fit in registers beside gamma and the sums
+  constexpr bool kKeep = kC * kE <= 8;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kLnMaxStages], empty[kLnMaxStages];
+  uint8_t* const base =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nt = N / 32;
+  const int box = rows * N * (int)sizeof(T);  // bytes of one tile
+  const int s_at = (box + 1023) / 1024 * 1024;  // the s tile in a stage
+  const int tiles = (M + rows - 1) / rows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm::mbar_init(&full[s], 1);
+      sm::mbar_init(&empty[s], kLnWarps);
+    }
+    sm::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kLnWarps) {  // the producer
+    if (lane == 0) {
+      sm::tma_prefetch(&map_dy);
+      sm::tma_prefetch(&map_s);
+      int q = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
+        const int s = q % stages, u = q / stages;
+        if (u > 0) sm::mbar_wait(&empty[s], (uint32_t)((u - 1) & 1));
+        sm::mbar_expect_tx(&full[s], 2 * box);
+        uint8_t* const dst = base + s * stage_bytes;
+        sm::tma_load(dst, &map_dy, &full[s], 0, t * rows);
+        sm::tma_load(dst + s_at, &map_s, &full[s], 0, t * rows);
+      }
+    }
+    return;
+  }
+
+  const int chunks = N / kE;
+  const int j = lane % lanes;                         // the lane's place
+  const int r = warp * (32 / lanes) + lane / lanes;   // its row of a tile
   const float inv_n = 1.f / (float)N;
-  float dg[kT], db[kT];
+  float g[kC][kE], dg[kC][kE], db[kC][kE];
 #pragma unroll
-  for (int t = 0; t < kT; ++t) dg[t] = db[t] = 0.f;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(M, r0 + rows_per_block);
-  for (int row = r0 + warp; row < r1; row += kThreads / 32) {
-    const size_t off = (size_t)row * N;
-    float x[kT], g[kT], dxh[kT];
+  for (int c = 0; c < kC; ++c) {
+    const int k = j + lanes * c;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      g[c][e] = k < chunks ? gamma[k * kE + e] : 0.f;
+      dg[c][e] = db[c][e] = 0.f;
+    }
+  }
+  int q = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++q) {
+    const int s = q % stages;
+    sm::mbar_wait(&full[s], (uint32_t)((q / stages) & 1));
+    const T* const ys =
+        reinterpret_cast<const T*>(base + s * stage_bytes) + r * N;
+    const T* const xs =
+        reinterpret_cast<const T*>(base + s * stage_bytes + s_at) + r * N;
+    const int row = t * rows + r;
+    const bool live = row < M;  // TMA's zero rows past M: computed, unused
+    // da of chunk k from v (f32 values) [and dam, in scratch tmp]
+    const auto emit = [&](int k, const float(&v)[kE], float(&tmp)[kE]) {
+      const size_t off = (size_t)row * N + k * kE;
+      C16::store(da + off, v);
+      if constexpr (kDrop) {
+        uint32_t keep = 0u;
+#pragma unroll 1
+        for (int e = 0; e < kE; ++e)
+          keep |= (uint32_t)nylon::keeps(site, (uint32_t)row, k * kE + e, N)
+                  << e;
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          tmp[e] = nylon::round_to<T>(v[e]) * ((keep >> e) & 1u ? site.scale
+                                                                : 0.f);
+        C16::store(dam + off, tmp);
+      }
+    };
+    if constexpr (kKeep) {
+      // the lane's chunks of the row in registers, read once: the stage
+      // is released before the math
+      float x[kC][kE], d[kC][kE];
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const int k = j + lanes * c;
+        if (k >= chunks) continue;
+        C16::load(xs + k * kE, x[c]);
+        C16::load(ys + k * kE, d[c]);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) sum += x[c][e];
+      }
+      __syncwarp();
+      if (lane == 0) sm::mbar_arrive(&empty[s]);
+      // the statistics: the mean, then the variance about it
+      const float mean = row_sum(sum, lanes) * inv_n;
+      float sq = 0.f;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (j + lanes * c >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          x[c][e] -= mean;
+          sq += x[c][e] * x[c][e];
+        }
+      }
+      const float inv = rsqrtf(row_sum(sq, lanes) * inv_n + eps);
+      // x to xhat, d to dxhat: dgamma, dbeta, the row means of dxhat and
+      // dxhat * xhat
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (j + lanes * c >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          x[c][e] *= inv;
+          if (live) {
+            dg[c][e] += d[c][e] * x[c][e];
+            db[c][e] += d[c][e];
+          }
+          d[c][e] *= g[c][e];
+          s1 += d[c][e];
+          s2 += d[c][e] * x[c][e];
+        }
+      }
+      const float m1 = row_sum(s1, lanes) * inv_n;
+      const float m2 = row_sum(s2, lanes) * inv_n;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const int k = j + lanes * c;
+        if (k >= chunks) continue;
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          d[c][e] = (d[c][e] - m1 - x[c][e] * m2) * inv;
+        if (live) emit(k, d[c], x[c]);
+      }
+      continue;
+    }
+    // wider lanes: the chunks read from the stage in every pass
+    float x[kE], d[kE];
+    // the statistics: the mean, then the variance about it
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      x[t] = 0.f;
-      if (t < nt) {
-        x[t] = nylon::to_f(s[off + lane + 32 * t]);
-        sum += x[t];
-      }
+    for (int c = 0; c < kC; ++c) {
+      const int k = j + lanes * c;
+      if (k >= chunks) continue;
+      C16::load(xs + k * kE, x);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) sum += x[e];
     }
-    const float mean = nylon::warp_sum(sum) * inv_n;
+    const float mean = row_sum(sum, lanes) * inv_n;
     float sq = 0.f;
 #pragma unroll
-    for (int t = 0; t < kT; ++t)
-      if (t < nt) {
-        const float d = x[t] - mean;
-        sq += d * d;
+    for (int c = 0; c < kC; ++c) {
+      const int k = j + lanes * c;
+      if (k >= chunks) continue;
+      C16::load(xs + k * kE, x);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float v = x[e] - mean;
+        sq += v * v;
       }
-    const float inv = rsqrtf(nylon::warp_sum(sq) * inv_n + eps);
+    }
+    const float inv = rsqrtf(row_sum(sq, lanes) * inv_n + eps);
+    // dgamma, dbeta, and the row means of dxhat and dxhat * xhat
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      g[t] = dxh[t] = 0.f;
-      if (t < nt) {
-        const int c = lane + 32 * t;
-        const float xh = (x[t] - mean) * inv;
-        const float d = nylon::to_f(dy[off + c]);
-        dg[t] += d * xh;
-        db[t] += d;
-        dxh[t] = d * gamma[c];
-        s1 += dxh[t];
-        s2 += dxh[t] * xh;
-        x[t] = xh;
+    for (int c = 0; c < kC; ++c) {
+      const int k = j + lanes * c;
+      if (k >= chunks) continue;
+      C16::load(xs + k * kE, x);
+      C16::load(ys + k * kE, d);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float xh = (x[e] - mean) * inv;
+        if (live) {
+          dg[c][e] += d[e] * xh;
+          db[c][e] += d[e];
+        }
+        const float dxh = d[e] * g[c][e];
+        s1 += dxh;
+        s2 += dxh * xh;
       }
     }
-    const float m1 = nylon::warp_sum(s1) * inv_n;
-    const float m2 = nylon::warp_sum(s2) * inv_n;
+    const float m1 = row_sum(s1, lanes) * inv_n;
+    const float m2 = row_sum(s2, lanes) * inv_n;
+    // da [and dam], 16 bytes a chunk
 #pragma unroll
-    for (int t = 0; t < kT; ++t)
-      if (t < nt) {
-        const int c = lane + 32 * t;
-        const T v = nylon::from_f<T>((dxh[t] - m1 - x[t] * m2) * inv);
-        da[off + c] = v;
-        if constexpr (kDrop)
-          dam[off + c] = nylon::from_f<T>(
-              nylon::to_f(v) * keep_value(site, (uint32_t)row, c, N));
+    for (int c = 0; c < kC; ++c) {
+      const int k = j + lanes * c;
+      if (k >= chunks) continue;
+      C16::load(xs + k * kE, x);
+      C16::load(ys + k * kE, d);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float xh = (x[e] - mean) * inv;
+        d[e] = (d[e] * g[c][e] - m1 - xh * m2) * inv;
       }
+      if (live) emit(k, d, x);
+    }
+    __syncwarp();
+    if (lane == 0) sm::mbar_arrive(&empty[s]);
   }
+
+  // the block's dgamma / dbeta: over the warp's row groups, then over the
+  // warps in order, in the ring (every tile has been read: the named
+  // barrier waits for the warps still on their last one)
 #pragma unroll
-  for (int t = 0; t < kT; ++t)
-    if (t < nt) {
-      red[0][warp][lane + 32 * t] = dg[t];
-      red[1][warp][lane + 32 * t] = db[t];
+  for (int c = 0; c < kC; ++c)
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        if (o >= lanes) {
+          dg[c][e] += __shfl_xor_sync(0xffffffffu, dg[c][e], o);
+          db[c][e] += __shfl_xor_sync(0xffffffffu, db[c][e], o);
+        }
+  sm::named_sync(1, kLnWarps * 32);
+  float* const red = reinterpret_cast<float*>(base);  // [2][kLnWarps][N]
+  if (lane < lanes) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int k = j + lanes * c;
+      if (k >= chunks) continue;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        red[warp * N + k * kE + e] = dg[c][e];
+        red[(kLnWarps + warp) * N + k * kE + e] = db[c][e];
+      }
     }
-  __syncthreads();
-  for (int c = threadIdx.x; c < N; c += kThreads) {
+  }
+  sm::named_sync(1, kLnWarps * 32);
+  for (int col = threadIdx.x; col < N; col += kLnWarps * 32) {
     float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      a += red[0][w][c];
-      b += red[1][w][c];
+    for (int w = 0; w < kLnWarps; ++w) {
+      a += red[w * N + col];
+      b += red[(kLnWarps + w) * N + col];
     }
-    dg_part[(size_t)blockIdx.x * N + c] = a;
-    db_part[(size_t)blockIdx.x * N + c] = b;
+    dg_part[(size_t)blockIdx.x * N + col] = a;
+    db_part[(size_t)blockIdx.x * N + col] = b;
   }
 }
 
@@ -428,25 +715,62 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = s;
 }
 
+template <typename T, int kC>
+int launch_ln_bwd_c(const void* dy, const void* s, const void* gamma,
+                    void* da, void* dam, void* dg_part, void* db_part, int M,
+                    int N, const LnLayout& lay, int n_blocks, float eps,
+                    int active, const DropSite& site, cudaStream_t stream) {
+  const int stage_bytes = 2 * ((lay.rows * N * (int)sizeof(T) + 1023) /
+                               1024 * 1024);
+  const int fit = kLnRingBytes<kC> / stage_bytes;
+  const int stages = fit < kLnMaxStages ? fit : kLnMaxStages;
+  const int red = 2 * kLnWarps * N * (int)sizeof(float);  // the block sums
+  const int smem =
+      (stages * stage_bytes > red ? stages * stage_bytes : red) + 1024;
+  CUtensorMap md, ms;
+  int e = nylon::ring::encode_rows_of(&md, nylon::ring::tma_type<T>(),
+                                      sizeof(T), dy, M, N, N, lay.rows, N);
+  if (!e)
+    e = nylon::ring::encode_rows_of(&ms, nylon::ring::tma_type<T>(),
+                                    sizeof(T), s, M, N, N, lay.rows, N);
+  const auto kernel =
+      active ? ln_bwd_kernel<T, kC, true> : ln_bwd_kernel<T, kC, false>;
+  if (!e)
+    e = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  kernel<<<n_blocks, kLnThreads, smem, stream>>>(
+      md, ms, (const float*)gamma, (T*)da, active ? (T*)dam : nullptr,
+      (float*)dg_part, (float*)db_part, M, N, lay.lanes, lay.rows, stages,
+      stage_bytes, eps, site);
+  return (int)cudaGetLastError();
+}
+
+// rows_per_tile: ln_layout's rows (the caller's plan must be this
+// kernel's); n_blocks: at most the tiles, so that every block has one.
 template <typename T>
 int launch_ln_bwd(const void* dy, const void* s, const void* gamma, void* da,
                   void* dam, void* dg_part, void* db_part, int M, int N,
-                  int rows_per_block, int n_blocks, float eps, int active,
+                  int rows_per_tile, int n_blocks, float eps, int active,
                   unsigned key, unsigned thresh, float scale, int half,
                   cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || N % 32 || N > kLnMaxN || rows_per_block <= 0 ||
-      (long long)rows_per_block * n_blocks < M || (half && 2 * half != N))
+  if (M <= 0 || N <= 0 || N % 32 || N > kLnMaxN || (half && 2 * half != N))
+    return (int)cudaErrorInvalidValue;
+  const LnLayout lay = ln_layout(N, sizeof(T));
+  const long long tiles = ((long long)M + lay.rows - 1) / lay.rows;
+  if (rows_per_tile != lay.rows || n_blocks <= 0 || n_blocks > tiles)
     return (int)cudaErrorInvalidValue;
   const DropSite site{key, thresh, scale, half, 0u};
-  if (active)
-    ln_bwd_kernel<T, true><<<n_blocks, kThreads, 0, stream>>>(
-        (const T*)dy, (const T*)s, (const float*)gamma, (T*)da, (T*)dam,
-        (float*)dg_part, (float*)db_part, M, N, rows_per_block, eps, site);
-  else
-    ln_bwd_kernel<T, false><<<n_blocks, kThreads, 0, stream>>>(
-        (const T*)dy, (const T*)s, (const float*)gamma, (T*)da, nullptr,
-        (float*)dg_part, (float*)db_part, M, N, rows_per_block, eps, site);
-  return (int)cudaGetLastError();
+  if (lay.kc == 1)
+    return launch_ln_bwd_c<T, 1>(dy, s, gamma, da, dam, dg_part, db_part, M,
+                                 N, lay, n_blocks, eps, active, site, stream);
+  if constexpr (sizeof(T) == 4)  // a bf16 row's <= 32 chunks: 1 or 3 a lane
+    if (lay.kc == 2)
+      return launch_ln_bwd_c<T, 2>(dy, s, gamma, da, dam, dg_part, db_part,
+                                   M, N, lay, n_blocks, eps, active, site,
+                                   stream);
+  return launch_ln_bwd_c<T, 3>(dy, s, gamma, da, dam, dg_part, db_part, M, N,
+                               lay, n_blocks, eps, active, site, stream);
 }
 
 template <int BN>
@@ -497,25 +821,27 @@ int launch_wgrad(const void* a, const void* dy, void* part, void* bias_part,
 extern "C" {
 
 // da = bf16 LayerNorm input gradient; with active also dam = bf16(da *
-// keep). dg_part/db_part: [n_blocks, N] partial sums.
+// keep). dy, s, da, dam: contiguous [M, N], 16-byte aligned; N % 32 == 0,
+// N <= 256; rows_per_tile: the kernel's tile (ln_layout); dg_part/db_part:
+// [n_blocks, N] partial sums, n_blocks at most the tiles.
 int nylon_ln_bwd(const void* dy, const void* s, const void* gamma, void* da,
                  void* dam, void* dg_part, void* db_part, int M, int N,
-                 int rows_per_block, int n_blocks, float eps, int active,
+                 int rows_per_tile, int n_blocks, float eps, int active,
                  unsigned key, unsigned thresh, float scale, int half,
                  void* stream) {
   return launch_ln_bwd<bf16>(dy, s, gamma, da, dam, dg_part, db_part, M, N,
-                             rows_per_block, n_blocks, eps, active, key,
+                             rows_per_tile, n_blocks, eps, active, key,
                              thresh, scale, half, (cudaStream_t)stream);
 }
 
 // The float32 twin of nylon_ln_bwd: f32 dy, s, da and dam.
 int nylon_ln_bwd_f32(const void* dy, const void* s, const void* gamma,
                      void* da, void* dam, void* dg_part, void* db_part, int M,
-                     int N, int rows_per_block, int n_blocks, float eps,
+                     int N, int rows_per_tile, int n_blocks, float eps,
                      int active, unsigned key, unsigned thresh, float scale,
                      int half, void* stream) {
   return launch_ln_bwd<float>(dy, s, gamma, da, dam, dg_part, db_part, M, N,
-                              rows_per_block, n_blocks, eps, active, key,
+                              rows_per_tile, n_blocks, eps, active, key,
                               thresh, scale, half, (cudaStream_t)stream);
 }
 

@@ -12,6 +12,10 @@
 // warps, in the same loop: before it refills a stage it waits until every
 // warp has released the stage's previous use.
 //
+// Its encode_rows_of also maps the row tiles that layer_fused_train.cu's
+// LayerNorm backward and layer_fused_q8.cu's V quantizer load by TMA into
+// rings of their own (stage sizes known only at launch).
+//
 // Item q of a block's sequence of (tile, k-block) pairs lives in stage q %
 // kStages, its u-th use (u = q / kStages): full[s] completes its phase u when
 // the loads of item q have landed (thread 0's expect_tx + the TMA bytes),
@@ -94,29 +98,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The tensor map of a row-major f32 [rows, cols] matrix (cols % 4 == 0,
-// 16-byte aligned) read in boxes of box_rows rows x box_cols columns (<=
-// 256 each), unswizzled: a box lands as [box_rows][box_cols] floats; zero
-// fill past the edges. Returns a cudaError_t.
-inline int encode_rows(CUtensorMap* map, const void* ptr, long long rows,
-                       long long cols, int box_rows, int box_cols) {
+// The tensor map of a row-major [rows, cols] matrix of `elem`-byte
+// elements of row stride ld (elements; ld * elem a multiple of 16, the
+// start 16-byte aligned) read in boxes of box_rows rows x box_cols columns
+// (<= 256 each, box_cols * elem a multiple of 16), unswizzled: a box lands
+// as [box_rows][box_cols] elements; zero fill past the edges. Returns a
+// cudaError_t.
+inline int encode_rows_of(CUtensorMap* map, CUtensorMapDataType type,
+                          int elem, const void* ptr, long long rows,
+                          long long cols, long long ld, int box_rows,
+                          int box_cols) {
   const sm::EncodeTiledFn fn = sm::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 4 || rows <= 0 ||
-      cols <= 0 || box_cols % 4 || box_cols <= 0 || box_cols > 256 ||
-      box_rows <= 0 || box_rows > 256)
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || ld * elem % 16 ||
+      ld < cols || rows <= 0 || cols <= 0 || box_cols * elem % 16 ||
+      box_cols <= 0 || box_cols > 256 || box_rows <= 0 || box_rows > 256)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The TMA element type of T (bf16 or f32).
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 }  // namespace ring

@@ -45,9 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per-site attention); K13, the int8 (W8A8) twins of K2-K5. A launch in
 # float32 counts as one in bfloat16 does. And, inside those layers, the two
 # float32 forward GEMM kernels (3xTF32 wgmma, csrc/layer_fused_f32.cu), the
-# stem layer's float32 QKV GEMM on the CUDA cores, and the training
-# backward's float32 dX and dW GEMMs (3xTF32 wgmma), one count a
-# launch.
+# stem layer's float32 QKV GEMM on the CUDA cores, the training
+# backward's float32 dX and dW GEMMs (3xTF32 wgmma), and its LayerNorm
+# backward (ln_bwd_kernel, bf16 and f32 alike), one count a launch.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -68,7 +68,7 @@ launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "decoder_layer_q8": 0,
                             "gemm_bias_f32": 0, "gemm_res_ln_f32": 0,
                             "gemm_bias_ffma_f32": 0, "gemm_nt_f32": 0,
-                            "wgrad_f32": 0}
+                            "wgrad_f32": 0, "ln_bwd": 0}
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_uint
@@ -103,7 +103,7 @@ _SIGNATURES = {
     # kv_seq, scale_log2e, seed_mix, head_tag0, thresh, scale, half, stream
     "nylon_attention_drop": [_P] * 4 + [_I] * 5 + [_L] * 4
     + [_F, _U, _I, _U, _F, _I, _P],
-    # dy, s, gamma, da, dam, dg_part, db_part, M, N, rows_per_block,
+    # dy, s, gamma, da, dam, dg_part, db_part, M, N, rows_per_tile,
     # n_blocks, eps, active, site, stream
     "nylon_ln_bwd": [_P] * 7 + [_I, _I, _I, _I, _F, _I, *_SITE, _P],
     # dy, w, out, gate, addend, M, N, Kout, act1, site1, act2, site2, stream

@@ -379,17 +379,54 @@ def quant_rows_cuda(x2):
     return q, s
 
 
-def quant_cols_cuda(v2, n: int):
-    """V's quantizer on the card: ``v2 [n*Lk, hid]`` bf16 or f32
-    (row-strided) ->
-    (int8 codes TRANSPOSED per sequence, ``[n, hid, Lk_pad]`` with the keys
-    padded with zero codes to a multiple of 32, the operand layout of the
-    attention's PV product; f32 scales ``[n, hid]`` with P's 1/127 folded
-    in)."""
+def _cols_pad(lk: int) -> int:
+    """The keys of V's codes a sequence: ``lk`` padded to a multiple of
+    32 (the PV product's operand rows)."""
+    return -(-lk // 32) * 32
+
+
+def quant_cols_plain(v2, n: int):
+    """The plain twin of V's quantizer kernel (``quant_cols_kernel``,
+    ``nylon_q8_quant_cols``): :func:`_quant_cols` of ``v2 [n*Lk, hid]`` in
+    the kernel's layout: the codes transposed per sequence, ``[n, hid,
+    Lk_pad]`` with zero codes past Lk, and the scales ``[n, hid]``."""
     rows, hid = v2.shape
     lk = rows // n
-    lk_pad = -(-lk // 32) * 32
-    vt = torch.empty((n, hid, lk_pad), dtype=torch.int8, device=v2.device)
+    vq, sv = _quant_cols(v2.reshape(n, lk, hid))
+    vt = torch.zeros((n, hid, _cols_pad(lk)), dtype=torch.int8,
+                     device=v2.device)
+    vt[:, :, :lk] = vq.transpose(1, 2)
+    return vt, sv[:, 0]
+
+
+def check_quant_cols(name: str, v2, n: int) -> None:
+    """Raise ``ValueError`` unless V's quantizer kernel takes ``v2 [n*Lk,
+    hid]``: bfloat16 or float32, ``n`` whole sequences of at most
+    KERNEL_MAX_KEYS keys (a sequence's slice is one TMA box), hid % 8 ==
+    0, and a view TMA can read (``layer_fused.check_rows``)."""
+    kernels.check_dtype(name, v2.dtype)
+    rows, hid = v2.shape
+    if (n <= 0 or rows <= 0 or rows % n or rows // n > KERNEL_MAX_KEYS
+            or hid <= 0 or hid % KERNEL_N_STEP):
+        raise ValueError(f"{name}: the kernel takes n whole sequences of at "
+                         f"most {KERNEL_MAX_KEYS} keys and hid % "
+                         f"{KERNEL_N_STEP} == 0; got {rows} rows of {hid} "
+                         f"in {n} sequences")
+    lf.check_rows(name, v2)
+
+
+def quant_cols_cuda(v2, n: int):
+    """V's quantizer on the card: ``v2 [n*Lk, hid]`` bf16 or f32
+    (row-strided: V's columns of the packed QKV or KV output) -> (int8
+    codes TRANSPOSED per sequence, ``[n, hid, Lk_pad]`` with the keys
+    padded with zero codes to a multiple of 32, the operand layout of the
+    attention's PV product; f32 scales ``[n, hid]`` with P's 1/127 folded
+    in): :func:`quant_cols_plain`'s, bit for bit."""
+    check_quant_cols("quant_cols", v2, n)
+    rows, hid = v2.shape
+    lk = rows // n
+    vt = torch.empty((n, hid, _cols_pad(lk)), dtype=torch.int8,
+                     device=v2.device)
     sv = torch.empty((n, hid), dtype=torch.float32, device=v2.device)
     kernels.call(kernels.entry("nylon_q8_quant_cols", v2.dtype),
                  v2.data_ptr(), v2.stride(0), n, lk, hid, vt.data_ptr(),

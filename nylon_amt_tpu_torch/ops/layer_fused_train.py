@@ -156,6 +156,22 @@ def _flat(t):
     return t.reshape(-1, t.shape[-1])
 
 
+def ln_bwd_plain(dy, s, g, site=None):
+    """The plain twin of the LayerNorm backward kernel
+    (``csrc/layer_fused_train.cu`` ``ln_bwd_kernel``, ``nylon_ln_bwd``) on
+    ``dy`` and the pre-LN sum ``s [M, N]`` of dtype ``dt`` and ``g [N]``:
+    xhat and inv recomputed from ``s`` as :func:`_ln_fwd` does, then
+    :func:`_ln_bwd`. Returns ``(da, dam, dgamma, dbeta)``: da = dt(dx); dam
+    = dt(da x keep) of the dropout site ``site`` (a ``_Site``), None
+    without one; the sums in f32."""
+    gf = g.float()
+    _, xhat, inv = _ln_fwd(s, gf, torch.zeros_like(gf))
+    dx, dg, db = _ln_bwd(dy, xhat, inv, gf)
+    da = dx.to(dy.dtype)
+    dam = None if site is None else (da * _keep(site, da)).to(dy.dtype)
+    return da, dam, dg, db
+
+
 def _keep(m, like):
     """A keep mask given as values (a tensor) or as a kernel's dropout site
     (``_Site``), as values shaped like ``like``."""
@@ -598,13 +614,61 @@ def _attention_bwd(q, k, v, do, dq, dk, dv, n, n_heads, seed, rate,
                  keep, half, kernels.stream_of(q))
 
 
+# ln_bwd_kernel's consumer warps and widest row (csrc/layer_fused_train.cu
+# kLnWarps, kLnMaxN)
+_LN_WARPS, _LN_MAX_N = 15, 256
+
+
+def ln_bwd_layout(n: int, dtype) -> tuple[int, int, int]:
+    """``(kc, lanes, rows)`` of the LayerNorm backward kernel at row width
+    ``n`` (``csrc/layer_fused_train.cu::ln_layout``): 16-byte chunks a lane,
+    lanes a row (a power of two up to 32, the fewest with no lane idle;
+    where no ``kc <= 3`` gives that, 32 with the chunks past the row idle)
+    and rows a tile (one row group of each consumer warp)."""
+    chunks = n * dtype.itemsize // 16
+    for kc in (1, 2, 3):
+        lanes = chunks // kc
+        if chunks % kc == 0 and lanes <= 32 and lanes & (lanes - 1) == 0:
+            return kc, lanes, _LN_WARPS * 32 // lanes
+    return -(-chunks // 32), 32, _LN_WARPS
+
+
+def ln_bwd_plan(m: int, n: int, dtype, sms: int) -> tuple[int, int]:
+    """``(rows a tile, blocks)`` of the LayerNorm backward kernel over ``m``
+    rows: a persistent grid of two blocks an SM where a lane holds one
+    chunk, else one (the kernel's ``kLnBlocks``), at most one a tile
+    (block b takes the tiles b, b + blocks, ..)."""
+    kc, _, rows = ln_bwd_layout(n, dtype)
+    return rows, min((2 if kc == 1 else 1) * sms, -(-m // rows))
+
+
+def check_ln_bwd(name: str, dy, s) -> None:
+    """Raise ``ValueError`` unless the LayerNorm backward kernel takes ``dy``
+    and the pre-LN sum ``s``: bfloat16 or float32 ``[M, N]`` of one dtype
+    and shape, N a multiple of 32 up to 256, contiguous rows (TMA reads
+    row tiles of both) from a 16-byte aligned start."""
+    kernels.check_dtype(name, dy.dtype)
+    if (dy.dim() != 2 or s.shape != dy.shape or s.dtype != dy.dtype
+            or dy.shape[0] <= 0 or dy.shape[1] % 32
+            or not 0 < dy.shape[1] <= _LN_MAX_N):
+        raise ValueError(f"{name}: the kernel takes dy and s [M, N] of one "
+                         f"dtype with N % 32 == 0 and N <= {_LN_MAX_N}; got "
+                         f"{tuple(dy.shape)} {dy.dtype} and "
+                         f"{tuple(s.shape)} {s.dtype}")
+    for what, t in (("dy", dy), ("s", s)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be contiguous from a "
+                             f"16-byte aligned start")
+
+
 class _LnGrads:
     """Partial sums of dgamma/dbeta of the shared LayerNorm: ``slots`` LN
-    backward passes write disjoint blocks of rows, one reduction sums all."""
+    backward passes over the same ``m`` rows write disjoint blocks of
+    rows (one a kernel block: ``ln_bwd_plan``), one reduction sums all."""
 
-    def __init__(self, m: int, n: int, slots: int, device):
-        self.blocks = min(264, -(-m // 8))
-        self.rows = -(-m // self.blocks)
+    def __init__(self, m: int, n: int, slots: int, device, dtype):
+        self.rows, self.blocks = ln_bwd_plan(m, n, dtype,
+                                             _sm_count(device.index))
         self.parts = torch.empty((2, slots * self.blocks, n),
                                  dtype=torch.float32, device=device)
         self.used = 0
@@ -630,6 +694,7 @@ def _reduce(parts):
 
 def _ln_backward(dy, s, g, site, ln: _LnGrads):
     """(da, da x keep) of the LayerNorm whose pre-LN sum was ``s``."""
+    check_ln_bwd("ln_backward", dy, s)
     m, n = dy.shape
     da = torch.empty_like(dy)
     dam = torch.empty_like(dy) if site is not None else da
@@ -639,7 +704,26 @@ def _ln_backward(dy, s, g, site, ln: _LnGrads):
                  dg.data_ptr(), db.data_ptr(),
                  m, n, ln.rows, ln.blocks, _LN_EPS, int(site is not None),
                  *(site or _NO_SITE), kernels.stream_of(dy))
+    kernels.launches["ln_bwd"] += 1
     return da, dam
+
+
+def ln_bwd_cuda(dy, s, g, site=None):
+    """The LayerNorm backward kernel alone on CUDA ``dy`` and ``s`` (its
+    wiring in the training backward, with one slot of partial sums):
+    ``(da, dam or None, dgamma, dbeta)`` as :func:`ln_bwd_plain` gives
+    them. ``g``: f32 ``[N]`` on the same device."""
+    check_ln_bwd("ln_bwd", dy, s)
+    kernels.check_cuda("ln_bwd: dy", dy, dy.dtype, ndim=2)
+    if g.dtype != torch.float32 or tuple(g.shape) != (dy.shape[1],) \
+            or g.device != dy.device or not g.is_contiguous():
+        raise ValueError(f"ln_bwd: gamma must be contiguous float32 "
+                         f"[{dy.shape[1]}] on {dy.device}")
+    with torch.cuda.device(dy.device):
+        ln = _LnGrads(dy.shape[0], dy.shape[1], 1, dy.device, dy.dtype)
+        da, dam = _ln_backward(dy, s, g, site, ln)
+        dg, db = ln.reduce()
+    return da, None if site is None else dam, dg, db
 
 
 # What the dX and dW entry points take, by activation dtype: the multiple
@@ -910,7 +994,7 @@ def _enc_bwd_cuda(x, w, seed, dz, n_heads, rate, emb_drop, tap=_untapped,
     m = n * l
     f = _enc_fwd_cuda(x, w, seed, n_heads, rate, emb_drop, keep=True,
                       tap=tap, stem=stem)
-    ln = _LnGrads(m, hid, 2, x.device)
+    ln = _LnGrads(m, hid, 2, x.device, x.dtype)
     da1, dattn, grads = _ffn_tail_bwd_cuda(f, dz.view(m, hid), w, seed, rate,
                                            ln, tap)
     dheads = tap("dheads", _gemm_nt(dattn, w.wo,
@@ -993,7 +1077,8 @@ def _dec_bwd_cuda(trg, enc, w, seed, dz, n_heads, rate, tap=_untapped):
     n, lq, hid = trg.shape
     t2, e2 = trg.view(n * lq, hid), enc.view(-1, hid)
     with_self = isinstance(w.p, DecLayerParams)
-    ln = _LnGrads(n * lq, hid, 3 if with_self else 2, trg.device)
+    ln = _LnGrads(n * lq, hid, 3 if with_self else 2, trg.device,
+                  trg.dtype)
     cross, st = _scoped(tap, "cross"), _scoped(tap, "self")
     if not with_self:
         dtrg, denc, grads = _cross_bwd_cuda(t2, e2, dz.view(-1, hid), w, n,

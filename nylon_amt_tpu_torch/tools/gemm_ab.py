@@ -104,7 +104,8 @@ from pathlib import Path
 
 ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
                    "nylon_gemm_res_ln", "nylon_gemm_res_ln_train"),
-           "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows"),
+           "bwd": ("nylon_gemm_nt", "nylon_wgrad", "nylon_reduce_rows",
+                   "nylon_ln_bwd", "nylon_ln_bwd_f32"),
            "f32": ("nylon_gemm_bias_f32", "nylon_gemm_bias_drop_f32",
                    "nylon_gemm_res_ln_f32", "nylon_gemm_res_ln_train_f32",
                    "nylon_gemm_nt_f32", "nylon_wgrad_f32"),
@@ -116,7 +117,8 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
                       "nylon_attention_drop", "nylon_attention_bwd"),
            "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
                   "nylon_q8_attention", "nylon_q8_gemm_bias_f32",
-                  "nylon_q8_gemm_res_ln_f32", "nylon_q8_attention_f32")}
+                  "nylon_q8_gemm_res_ln_f32", "nylon_q8_attention_f32",
+                  "nylon_q8_quant_cols", "nylon_q8_quant_cols_f32")}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
            "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
@@ -125,6 +127,8 @@ SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
 Q8_PARTS = ("fwd", "q8")
 ATTN16_PARTS = ("fwd", "attn16")
 ATTN32_PARTS = ("fwd", "attn32")
+# what --ln-bwd builds (the LayerNorm backward lives in layer_fused_train.cu)
+LN_PARTS = ("fwd", "bwd")
 # entry points a variant may lack (a tree from before they were added): its
 # kinds that need them are reported as absent, not failed
 OPTIONAL_ENTRIES = ("nylon_attention_ffma_f32",)
@@ -336,6 +340,36 @@ DEFAULT_STEP = step_bwd_products(8 * 128 * 256, 8 * 128 * 88, 64, 128, 2, 2,
                                  2)
 
 
+def ln_step_shapes(m, batch: int = 8) -> list:
+    """(M, launches) of the LayerNorm backward of a batch-``batch`` fused
+    training step of model config ``m``: two launches an encoder-type
+    layer (frequency and time), two for decoder_layer_zero, three a
+    decoder layer; a frequency layer's rows are frames x bins, every other
+    layer's frames x notes."""
+    from nylon_amt_tpu_torch.config import Config
+
+    c = Config()
+    frames = batch * c.input.num_frame
+    return [(frames * c.feature.n_bins, 2 * m.enc_layer),
+            (frames * c.midi.num_note,
+             2 * m.dec_layer + 2 + 3 * (m.dec_layer - 1))]
+
+
+# (M, N, dtype, dropout site) the LayerNorm backward is held at: ragged
+# row counts, every lane layout (1, 2, 3 chunks a lane, idle lanes at
+# N 160), a few tiles or thousands of them
+LN_CHECKS = [(1003, 256, "bf16", True), (1003, 256, "bf16", False),
+             (4099, 96, "bf16", True), (777, 64, "bf16", False),
+             (2049, 160, "bf16", True), (90112, 256, "bf16", True),
+             (1003, 256, "f32", True), (4099, 96, "f32", False),
+             (777, 64, "f32", True), (2049, 224, "f32", True),
+             (90112, 64, "f32", True)]
+# (hid, V's packed width: 3 a self-attention's QKV, 2 a cross KV, n, Lk) V's
+# quantizer is held at (bit for bit)
+Q8_COLS_CHECKS = [(256, 3, 64, 256), (256, 2, 64, 88), (64, 3, 128, 128),
+                  (96, 2, 100, 88), (96, 3, 33, 40)]
+
+
 def q8_products(mf, mq, hid, pf, n_enc, n_dec, n_time) -> list:
     """Every (label, kernel, M, K, N, relu, variant, launches) of an int8
     forward of these widths (frequency-stream rows mf, note/time-stream
@@ -415,6 +449,10 @@ class Lib:
         # whether the int8 entry points take the row codes (Q8_PRE_CODES)
         self.q8_codes = "q8" in paths and "int seg, int n_seg" in (
             Path(src) / SOURCES["q8"]).read_text()
+        # whether the LayerNorm backward takes a tile plan (ln_layout) or
+        # its first form's rows a block
+        self.ln_tiles = "bwd" in paths and "ln_layout" in (
+            Path(src) / SOURCES["bwd"]).read_text()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -627,6 +665,50 @@ class Lib:
                    *tail)
         return ([out] if t_out else []) + [codes, sc]
 
+
+    def ln_bwd(self, dy, s, g, site=None):
+        """The LayerNorm backward of ``dy`` and the pre-LN sum ``s`` as this
+        variant plans it: ``[da, dam (with a site), dgamma and dbeta
+        partials [blocks, N]]``."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+        from nylon_amt_tpu_torch.ops.layer_fused import _LN_EPS
+
+        m, n = dy.shape
+        if self.ln_tiles:
+            rows, blocks = tlt.ln_bwd_plan(
+                m, n, dy.dtype, tlt._sm_count(dy.device.index))
+        else:  # its first form: at most 264 blocks of 8 warps
+            blocks = min(264, -(-m // 8))
+            rows = -(-m // blocks)
+        da = torch.empty_like(dy)
+        dam = torch.empty_like(dy) if site is not None else da
+        parts = torch.empty((2, blocks, n), dtype=torch.float32,
+                            device=dy.device)
+        self._call("bwd", "nylon_ln_bwd" + (
+            "" if dy.dtype == torch.bfloat16 else "_f32"), dy.data_ptr(),
+            s.data_ptr(), g.data_ptr(), da.data_ptr(), dam.data_ptr(),
+            parts[0].data_ptr(), parts[1].data_ptr(), m, n, rows, blocks,
+            _LN_EPS, int(site is not None), *(site or (0, 0, 0.0, 0)),
+            torch.cuda.current_stream().cuda_stream)
+        return [da] + ([dam] if site is not None else []) + [parts]
+
+    def quant_cols(self, v, n):
+        """V's quantizer on the strided view ``v [n Lk, hid]``: ``[vt,
+        sv]``."""
+        import torch
+
+        rows, hid = v.shape
+        lk = rows // n
+        vt = torch.empty((n, hid, -(-lk // 32) * 32), dtype=torch.int8,
+                         device=v.device)
+        sv = torch.empty((n, hid), dtype=torch.float32, device=v.device)
+        self._call("q8", "nylon_q8_quant_cols" + (
+            "" if v.dtype == torch.bfloat16 else "_f32"), v.data_ptr(),
+            v.stride(0), n, lk, hid, vt.data_ptr(), sv.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        return [vt, sv]
 
     def attention(self, part, q, k, v, heads, kind="fwd", do=None):
         """The attention of ``part`` ("attn16": bf16, mha.cu; "attn32": f32,
@@ -1206,6 +1288,199 @@ def timing_q8(libs: dict) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
 
 
+def ln_inputs(m, n, dtype, drop, seed=0):
+    """Seeded dy, the pre-LN sum s (``dtype``), f32 gamma, and the dropout
+    site of the step's FFN output (rate 0.1) or None."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+    s = (3 * torch.randn((m, n), generator=g, device="cuda") + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(n, generator=g, device="cuda")
+    site = tlt._site(DROP_SEED, tlt._SITE_FFN_OUT, n, RATE, dtype) if drop \
+        else None
+    return dy, s, gamma, site
+
+
+def check_ln(libs: dict) -> dict:
+    """Hold every variant's LayerNorm backward at LN_CHECKS against
+    ``ln_bwd_plain``: da and dam within ULPS bf16 ulps (f32: F32_REL of
+    max(1, |plain|)), dam bit for bit T(da x keep) of its own da, dgamma
+    and dbeta (its partials summed) within 1e-4 of max |plain|; two runs
+    bit-identical. Returns ``{name: passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused as lf
+    from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+
+    ok = {name: True for name in libs}
+    for m, n, dt_, drop in LN_CHECKS:
+        dt = torch.bfloat16 if dt_ == "bf16" else torch.float32
+        dy, s, g, site = ln_inputs(m, n, dt, drop, seed=m + n)
+        want = tlt.ln_bwd_plain(dy, s, g, site)
+        for name, lib in libs.items():
+            try:
+                got, again = lib.ln_bwd(dy, s, g, site), \
+                    lib.ln_bwd(dy, s, g, site)
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"ln {name} {(m, n, dt_, drop)}: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            same = _equal(got, again)
+            errs, passed = [], True
+            for a, b in zip(got[:-1], want[:2]):
+                if dt == torch.bfloat16:
+                    u = _ulps(a, b)
+                    passed &= u <= ULPS
+                    errs.append(f"{u:.2f} ulps")
+                else:
+                    e = (a - b).abs().max().item() / max(
+                        1.0, b.abs().max().item())
+                    passed &= e <= F32_REL
+                    errs.append(f"{e:.1e}")
+            if drop:
+                exact = torch.equal(got[1], (got[0] * lf._site_mask(
+                    site, got[0])).to(dt))
+                passed &= exact
+                errs.append("dam T(da x keep)" if exact else "dam DIFFERS")
+            sums = got[-1].sum(1)
+            rel = max((a - b).abs().max().item() / b.abs().max().item()
+                      for a, b in zip(sums, want[2:]))
+            passed &= rel <= 1e-4
+            ok[name] &= passed and same
+            print(f"ln {name} [{m}, {n}] {dt_}{' drop' if drop else ''}: "
+                  f"{', '.join(errs)}; dgamma/dbeta {rel:.1e}; reruns "
+                  f"{'bit-identical' if same else 'DIFFER'}"
+                  f"{'' if passed else '; FAILED'}", flush=True)
+        del dy, s, want
+        torch.cuda.empty_cache()
+    for name in libs:
+        print(f"ln {name}: {'passed' if ok[name] else 'FAILED'}", flush=True)
+    return ok
+
+
+def timing_ln(libs: dict) -> None:
+    """Each variant's LayerNorm backward A B .. B A by ``graph_ms`` at every
+    launch shape of the paper bf16 and the default f32 batch-8 steps
+    (``ln_step_shapes``), with the steps' dropout site and without, beside
+    the bytes bound and ``native_layer_norm_backward`` (without dropout);
+    and each step's launches summed."""
+    import torch
+
+    from nylon_amt_tpu_torch.config import Config, ModelConfig
+    from nylon_amt_tpu_torch.ops.layer_fused import _LN_EPS
+
+    names = list(libs)
+    for label, dt, m_cfg in (
+            ("paper bf16", torch.bfloat16, ModelConfig.paper_scale()),
+            ("default f32", torch.float32, Config().model)):
+        n = m_cfg.hid_dim
+        for drop in (True, False):
+            total = dict.fromkeys(names + ["bound", "library"], 0.0)
+            for m, count in ln_step_shapes(m_cfg):
+                dy, s, g, site = ln_inputs(m, n, dt, drop)
+                ms = _abba(names, lambda name: libs[name].ln_bwd(
+                    dy, s, g, site), graph_ms)
+                nbytes = dy.numel() * dy.element_size() * (4 if drop else 3)
+                bound = nbytes / HBM_BPS * 1e3
+                lib = "the library computes no keep mask"
+                if not drop:
+                    w, zero = g.to(dt), torch.zeros(n, dtype=dt,
+                                                    device="cuda")
+                    _, mean, rstd = torch.ops.aten.native_layer_norm(
+                        s, [n], w, zero, _LN_EPS)
+                    lib_ms = graph_ms(
+                        lambda: torch.ops.aten.native_layer_norm_backward(
+                            dy, s, [n], mean, rstd, w, zero,
+                            [True, True, True]))
+                    total["library"] += count * lib_ms
+                    lib = f"native_layer_norm_backward {lib_ms:.3f}"
+                _line(f"ln_bwd {label}{' drop' if drop else ''}",
+                      f"[{m},{n}]", count, ms, bound, lib)
+                for name, t in ms.items():
+                    total[name] += count * t
+                total["bound"] += count * bound
+                del dy, s
+                torch.cuda.empty_cache()
+            print(f"time of one {label} step's LayerNorm backward "
+                  f"{'with' if drop else 'without'} dropout (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in total.items()),
+                  flush=True)
+
+
+def check_q8_cols(libs: dict) -> dict:
+    """Hold every variant's V quantizer at Q8_COLS_CHECKS, on V's strided
+    view of a packed QKV or KV output, in bf16 and f32: its codes and
+    scales bit for bit ``quant_cols_plain``'s (zero codes past Lk
+    included), two runs bit-identical. Returns ``{name: passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
+
+    ok = {name: True for name in libs}
+    for hid, width, n, lk in Q8_COLS_CHECKS:
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(hid + n + lk)
+            x = torch.randn((n * lk, width * hid), generator=g,
+                            device="cuda").to(dt)
+            v = x[:, (width - 1) * hid:]
+            want = lq.quant_cols_plain(v, n)
+            for name, lib in libs.items():
+                try:
+                    got, again = lib.quant_cols(v, n), lib.quant_cols(v, n)
+                    torch.cuda.synchronize()
+                except (Refused, RuntimeError) as e:
+                    print(f"q8 cols {name}: {e!r}", flush=True)
+                    ok[name] = False
+                    continue
+                passed = _equal(got, list(want)) and _equal(got, again)
+                ok[name] &= passed
+                print(f"q8 cols {name} hid {hid} [{n} x {lk}] {dt}: "
+                      f"{'bit for bit' if passed else 'DIFFERS'}",
+                      flush=True)
+    for name in libs:
+        print(f"q8 cols {name}: {'passed' if ok[name] else 'FAILED'}",
+              flush=True)
+    return ok
+
+
+def timing_q8_cols(libs: dict) -> None:
+    """Each variant's V quantizer A B .. B A by ``graph_ms`` at the paper
+    int8 forward's four attention shapes (Q8_ATTENTION: V's strided view)
+    in bf16 and f32, beside the bytes bound (one read of V, the codes and
+    the scales written); and the forward's 11 launches summed."""
+    import torch
+
+    names = list(libs)
+    hid = 256
+    for dt in (torch.bfloat16, torch.float32):
+        total = dict.fromkeys(names + ["bound"], 0.0)
+        for label, n, _, lk, count in Q8_ATTENTION:
+            width = 3 if label.endswith("self") else 2
+            g = torch.Generator(device="cuda").manual_seed(lk)
+            x = torch.randn((n * lk, width * hid), generator=g,
+                            device="cuda").to(dt)
+            v = x[:, (width - 1) * hid:]
+            ms = _abba(names, lambda name: libs[name].quant_cols(v, n),
+                       graph_ms)
+            bound = (n * lk * hid * x.element_size()
+                     + n * hid * (-(-lk // 32) * 32) + 4 * n * hid) \
+                / HBM_BPS * 1e3
+            _line(f"quant_cols {str(dt).removeprefix('torch.')}",
+                  f"[{n},{lk},{hid}]", count, ms, bound, "no library call")
+            for name, t in ms.items():
+                total[name] += count * t
+            total["bound"] += count * bound
+            del x, v
+            torch.cuda.empty_cache()
+        print(f"time of one int8 forward's 11 V quantizer launches, {dt} "
+              f"(ms): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    total.items()), flush=True)
+
+
 def attention_inputs(n, lq, lk, hid, dtype, seed=0, packed=False):
     """Seeded q, k, v, do ``[n, L, hid]`` in ``dtype`` on the card; with
     ``packed`` (lq == lk) q, k, v are the column slices of one ``[n, L, 3
@@ -1723,6 +1998,12 @@ def main(argv=None) -> int:
     ap.add_argument("--attn32", action="store_true",
                     help="check and time the f32 attention (mha_f32.cu) "
                          "only")
+    ap.add_argument("--ln-bwd", action="store_true",
+                    help="check and time the LayerNorm backward "
+                         "(layer_fused_train.cu's ln_bwd_kernel) only")
+    ap.add_argument("--q8-cols", action="store_true",
+                    help="check and time V's int8 column quantizer "
+                         "(layer_fused_q8.cu's quant_cols_kernel) only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -1737,11 +2018,18 @@ def main(argv=None) -> int:
     variants = dict(v.split("=", 1) for v in args.variants)
     t0 = time.perf_counter()
     built = build(variants, Path(args.out),
-                  Q8_PARTS if args.q8 else ATTN16_PARTS if args.attn16
-                  else ATTN32_PARTS if args.attn32 else tuple(SOURCES))
+                  Q8_PARTS if args.q8 or args.q8_cols else ATTN16_PARTS
+                  if args.attn16 else ATTN32_PARTS if args.attn32 else
+                  LN_PARTS if args.ln_bwd else tuple(SOURCES))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
+    if args.ln_bwd or args.q8_cols:
+        ok = check_ln(libs) if args.ln_bwd else check_q8_cols(libs)
+        if libs and not args.no_time:
+            timing_ln(libs) if args.ln_bwd else timing_q8_cols(libs)
+        first = next(iter(libs), None)
+        return 0 if len(libs) == len(variants) and ok.get(first) else 1
     if args.q8 or args.attn16 or args.attn32:
         part = "attn16" if args.attn16 else "attn32"
         ok = check_q8(libs) if args.q8 else check_attn(libs, part)
