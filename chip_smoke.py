@@ -36,7 +36,12 @@ non-zero and never prints the last line):
     instantiation of the TMA-fed streaming kernels (``ln_bwd_kernel`` of
     ``csrc/layer_fused_train.cu``, ``quant_cols_kernel`` of
     ``csrc/layer_fused_q8.cu``) spills nothing, uses no stack and holds
-    UTMALDG;
+    UTMALDG; and every instantiation of K6's mask kernel
+    (``hash_mask_kernel`` of ``csrc/hash_mask.cu``: bf16 and f32, packed
+    and not) and of the partial-sum reduction (``reduce_rows_kernel`` of
+    ``csrc/layer_fused_train.cu``) spills nothing and uses no stack, and
+    in SASS the mask kernels hold 16-byte accesses and no CALL (no
+    division routine) and the reduction LDGSTS (cp.async);
 (b) K1, the log-mel kernel, within atol 2e-4 of a float64 truth on 120 s of
     seeded audio, on a quiet variant of it (see the check) and on 10 s of
     other audio (the card's partial wave), two runs bit-identical; the
@@ -55,9 +60,17 @@ non-zero and never prints the last line):
     ulps from the plain bf16 forward for the stage-1 / stage-2 heads), the
     ms per forward and the device time per kernel;
 (f) the launch counts of run (d): every kernel of the path ran;
-(g) K6, the dropout-mask kernel, bit for bit equal to its plain version on
-    every site shape of the batch-8 train step (packed and unpacked, f32
-    and bf16);
+(g) K6, the dropout-mask kernel, bit for bit equal to its plain version,
+    the mask and x * mask, bf16 and f32, reruns bit-identical, on the site
+    shapes of the batch-8 paper step (packed and unpacked); each launch's
+    grid (``nylon_hash_mask_grid``) that ``hash_mask_plan`` gives from the
+    SM count and the measured occupancy; x * mask at [1024, 256, 256] bf16
+    timed beside its bytes bound and the plain version. (g.2), after (n):
+    the same checks at every (rows, d2) site shape that one step of (j),
+    (n) and the three (l) per-site steps launched (recorded at the
+    wrapper, in both dtypes), the launched ones timed by CUDA graphs
+    beside their bytes bound, and each step's launches summed (the JSON
+    row: (j)'s 4, with (n)'s and (l)'s ``--remat`` 93 beside them);
 (h) K7, K8 and K9 (the training layers) at the batch-8 paper bf16 shapes,
     dropout 0.1 (and the embedding site for K7): the forward within 4 bf16
     ulps of the plain bf16 twin and the bf16 gate against the plain f32
@@ -251,11 +264,21 @@ non-zero and never prints the last line):
     |plain|, reruns bit-identical; each shape's time (CUDA graphs) beside
     its bytes bound, the plain twin and, without dropout,
     ``native_layer_norm_backward``; its JSON row: (j)'s launches summed,
-    (n)'s beside them.
+    (n)'s beside them;
+(v) the partial-sum reduction alone (``reduce_rows_kernel`` of
+    ``csrc/layer_fused_train.cu``: a dW product's weight and bias partials,
+    or a layer's dgamma and dbeta partials, in one launch) at every launch
+    of (j)'s paper bf16 step and (n)'s default f32 step
+    (``reduce_step_segments``, whose count must be the steps' launches
+    counted in (j) and (n)): bit for bit ``reduce_rows_plain``, reruns
+    bit-identical; each launch's time (CUDA graphs) beside its bytes bound,
+    the plain twin and ``parts.sum(0)`` of its segments; its JSON row:
+    (j)'s launches summed, (n)'s beside them.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
-``csrc/mha_f32.cu``, and of the layer GEMMs (bf16, f32 and int8).
+``csrc/mha_f32.cu``, of the layer GEMMs (bf16, f32 and int8), of K6's
+mask kernel and of the reduction.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths at f32 accuracy (IEEE f32; the f32 attention's PV
@@ -268,7 +291,7 @@ its plain version (``held``), its float32 sources and (n)'s f32 times
 (``f32``), and its launches (K1-K5 from (d), K6-K9 from (i), K13
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
 ``return_attention`` training, the f32 GEMMs from (n), the LayerNorm
-backward from (j)), error, times and
+backward and the reduction from (j)), error, times and
 bound (the larger of the
 bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s bf16,
 1,979 TOP/s int8 for K13's products, 494.7 / 3 TFLOP/s for the f32
@@ -461,6 +484,12 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             log(f"({phase})   {dt} layer GEMMs of csrc/{src} "
                 f"({', '.join(names)}): {ms:.3f} ms, {ms / busy:.1%} of "
                 f"device-busy, {sum(r[1] for r in gemm)} launches per {what}")
+    for k in ("hash_mask_kernel", "reduce_rows_kernel"):
+        hits = [(ms, calls) for name, ms, calls in rows if f"::{k}" in name]
+        if hits:
+            ms = sum(r[0] for r in hits)
+            log(f"({phase})   {k}: {ms:.3f} ms, {ms / busy:.1%} of "
+                f"device-busy, {sum(r[1] for r in hits)} launches per {what}")
     attn = [(name, ms, calls) for name, ms, calls in rows
             if "attn_fwd_" in name or "attn_bwd_" in name]
     if attn:
@@ -657,45 +686,165 @@ def layer_gemms(kind: str, n: int, lq: int, lk: int, hid: int,
     return gemms
 
 
+def check_mask_shape(att, rows: int, d2: int, tag: int, dev) -> str:
+    """The K6 kernel against the plain version at one ``(rows, d2)`` site
+    view, bit for bit, in bf16 and f32, the mask and x * mask, two runs
+    each bit-identical; and the grid of each launch the one
+    ``hash_mask_plan`` gives from the SM count and the measured occupancy.
+    Returns the plan of the bf16 launch, as text."""
+    from nylon_amt_tpu_torch import kernels
+
+    lib = kernels.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED + rows + d2)
+    x32 = torch.randn((1, rows, d2), generator=g, device=dev)
+    plans = []
+    for dt in (torch.bfloat16, torch.float32):
+        bf = int(dt == torch.bfloat16)
+        _, _, half = att.site_constants(RATE, d2, dt)
+        per_sm = lib.nylon_hash_mask_occupancy(bf, int(half > 0))
+        plan = att.hash_mask_plan(rows, d2, dt, sms, per_sm)
+        grid = lib.nylon_hash_mask_grid(rows, d2, half, bf)
+        if grid != plan.blocks:
+            raise AssertionError(f"(g) K6 [{rows}, {d2}] {dt}: the entry "
+                                 f"point launches {grid} blocks, "
+                                 f"hash_mask_plan {plan}")
+        plans.append(plan)
+        x = x32.to(dt)
+        want = att.hash_keep_mask_plain(DROP_SEED, tag, 0, (1, rows, d2),
+                                        RATE, dt, dev)
+        for what, fn, ref in (
+                ("mask", lambda: att.hash_keep_mask(
+                    DROP_SEED, tag, 0, (1, rows, d2), RATE, dt, dev), want),
+                ("x * mask", lambda: att.apply_keep_mask(
+                    x, DROP_SEED, tag, RATE), x * want)):
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 {what} [{rows}, {d2}] {dt}: "
+                                     f"{(got != ref).sum().item()} elements "
+                                     f"differ from the plain version")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K6 {what} [{rows}, {d2}] {dt}: two "
+                                     f"runs differ")
+        held("hash_keep_mask", dt)
+        del x, want, got, again, ref
+    p = plans[0]
+    return (f"{'packed' if p.half else 'unpacked'}, {p.blocks} blocks "
+            f"(f32 {plans[1].blocks})")
+
+
 def check_masks(dev) -> dict:
-    """(g): the K6 kernel's masks against the plain version, bit for bit,
-    on every dropout site shape of the batch-8 paper train step."""
+    """(g): the K6 kernel against the plain version on the dropout site
+    shapes of the batch-8 paper train step (``check_mask_shape``), and x *
+    mask at the frequency stage's embedding site timed."""
     from nylon_amt_tpu_torch.ops import attention as att
+    from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms
 
     n_f, n_t = TRAIN_BATCH * 128, TRAIN_BATCH * 88
-    sites = [  # shape, dtype: activations bf16, probabilities f32
-        ((n_f, 256, 256), torch.bfloat16), ((n_f, 256, 512), torch.bfloat16),
-        ((n_f, 256, 256), torch.float32),
-        ((n_t, 128, 256), torch.bfloat16), ((n_t, 128, 512), torch.bfloat16),
-        ((n_t, 128, 128), torch.float32),
-        ((n_f, 88, 256), torch.bfloat16), ((n_f, 88, 512), torch.bfloat16),
-        ((n_f, 88, 256), torch.float32), ((n_f, 88, 88), torch.float32)]
-    for i, (shape, dt) in enumerate(sites):
-        got = att.hash_keep_mask(DROP_SEED, 3 + i, 0, shape, RATE, dt, dev)
-        want = att.hash_keep_mask_plain(DROP_SEED, 3 + i, 0, shape, RATE, dt,
-                                        dev)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K6 mask {shape} {dt}: "
-                                 f"{(got != want).sum().item()} elements "
-                                 f"differ from the plain version")
-        held("hash_keep_mask", dt)
-        log(f"(g) K6 mask {shape} {str(dt)[6:]} "
-            f"({'packed' if shape[2] % 256 == 0 else 'unpacked'}): equal to "
-            f"the plain version, keep share {(got != 0).float().mean():.5f}")
+    sites = [(n_f * 256, 256), (n_f * 256, 512), (n_t * 128, 256),
+             (n_t * 128, 512), (n_t * 128, 128), (n_f * 88, 256),
+             (n_f * 88, 512), (n_f * 88, 88)]
+    for i, (rows, d2) in enumerate(sites):
+        plan = check_mask_shape(att, rows, d2, 3 + i, dev)
+        log(f"(g) K6 [{rows}, {d2}]: the mask and x * mask, bf16 and f32, "
+            f"bit for bit the plain version, reruns bit-identical; {plan}")
     # the main path's launch: x * mask on the first frequency layer's input
     x = torch.randn((n_f, 256, 256), device=dev).to(torch.bfloat16)
-    ms = cuda_ms(lambda: att.apply_keep_mask(x, DROP_SEED, 6, RATE), iters=10)
+    ms = graph_ms(lambda: att.apply_keep_mask(x, DROP_SEED, 6, RATE))
     plain_ms = cuda_ms(lambda: x * att.hash_keep_mask_plain(
         DROP_SEED, 6, 0, tuple(x.shape), RATE, x.dtype, dev), iters=3)
-    ops = 8 * x.numel()  # hash + select per element, packed (two per hash)
-    res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(2 * nbytes(x), f32_flops=ops), library_ms=None,
-               gate="bit-identical masks on every site shape")
+    bd = bound(2 * nbytes(x))
     log(f"(g) K6 x * mask at {tuple(x.shape)} bf16: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.3f} ms "
-        f"({res['bound_by']})")
-    return res
+        f"plain {plain_ms:.3f} ms, bound {bd['bound_ms']:.3f} ms "
+        f"({bd['bound_ms'] / ms:.1%}, {bd['bound_by']})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **bd,
+                library_ms=None,
+                gate="bit-identical masks and x * mask, bf16 and f32, on "
+                     "every site shape")
+
+
+# the K6 launches of one step of each timed train step: "(phase) what
+# step" -> {(rows, d2, dtype, x given): launches}, recorded by
+# time_train_step; (j)'s step's label
+MASK_SITES: dict[str, dict] = {}
+FUSED_STEP = "(j) step"
+
+
+@contextlib.contextmanager
+def recording_masks(into: dict):
+    """Count the K6 launches in the block by (rows, d2, dtype, x given), at
+    the wrapper's launch (``ops.attention._launch``), into ``into``."""
+    from nylon_amt_tpu_torch.ops import attention as att
+
+    launch = att._launch
+
+    def record(x, out, rows, d2, *args):
+        key = (rows, d2, out.dtype, x is not None)
+        into[key] = into.get(key, 0) + 1
+        return launch(x, out, rows, d2, *args)
+
+    att._launch = record
+    try:
+        yield
+    finally:
+        att._launch = launch
+
+
+def check_mask_launches(dev, card: str) -> dict:
+    """(g.2): every K6 site shape that one step of (j), (n) and the three
+    (l) per-site steps launched (MASK_SITES), held by
+    ``check_mask_shape``; each launched (shape, dtype, x given) timed by a
+    CUDA graph of the wrapper's call beside its bytes bound, and each
+    step's launches summed. Returns the JSON row: (j)'s launches summed,
+    the others' beside them."""
+    from nylon_amt_tpu_torch.ops import attention as att
+    from nylon_amt_tpu_torch.tools.gemm_ab import graph_ms
+
+    t_phase = time.perf_counter()
+    shapes = sorted({(r, d) for sites in MASK_SITES.values()
+                     for r, d, _, _ in sites})
+    for i, (rows, d2) in enumerate(shapes):
+        plan = check_mask_shape(att, rows, d2, 20 + i, dev)
+        log(f"(g.2) K6 [{rows}, {d2}]: the mask and x * mask, bf16 and f32, "
+            f"bit for bit the plain version, reruns bit-identical; {plan}")
+    timed, steps = {}, {}
+    for key in sorted({k for sites in MASK_SITES.values() for k in sites},
+                      key=str):
+        rows, d2, dt, with_x = key
+        x = torch.randn((1, rows, d2), device=dev).to(dt)
+        fn = (lambda: att.apply_keep_mask(x, DROP_SEED, 7, RATE)) if with_x \
+            else (lambda: att.hash_keep_mask(DROP_SEED, 7, 0, (1, rows, d2),
+                                             RATE, dt, dev))
+        plain = (lambda: x * att.hash_keep_mask_plain(
+            DROP_SEED, 7, 0, (1, rows, d2), RATE, dt, dev))
+        timed[key] = dict(ms=graph_ms(fn), plain_ms=cuda_ms(plain, iters=2),
+                          **bound(nbytes(x) * (2 if with_x else 1)))
+        log(f"(g.2) K6 {'x * mask' if with_x else 'mask'} [{rows}, {d2}] "
+            f"{str(dt)[6:]}: {timed[key]['ms']:.4f} ms, bound "
+            f"{timed[key]['bound_ms']:.4f} ms "
+            f"({timed[key]['bound_ms'] / timed[key]['ms']:.1%}), plain "
+            f"{timed[key]['plain_ms']:.3f} ms")
+        del x
+        torch.cuda.empty_cache()
+    for label, sites in MASK_SITES.items():
+        steps[label] = dict(
+            launches=sum(sites.values()),
+            **{k: sum(c * timed[s][k] for s, c in sites.items())
+               for k in ("ms", "plain_ms", "bound_ms")})
+        t = steps[label]
+        log(f"(g.2) {label}: its {t['launches']} K6 launches "
+            f"{t['ms']:.3f} ms against a summed bytes bound of "
+            f"{t['bound_ms']:.3f} ms ({t['bound_ms'] / t['ms']:.1%}), plain "
+            f"{t['plain_ms']:.3f} ms, over {len(sites)} (shape, dtype, x) "
+            f"kinds")
+    log(f"(g.2) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    j = steps[FUSED_STEP]
+    return dict(max_abs_err=0.0, ms=j["ms"], plain_ms=j["plain_ms"],
+                bound_ms=j["bound_ms"], bound_by="bytes", library_ms=None,
+                gate="bit-identical masks and x * mask, bf16 and f32, at "
+                     "every site shape the timed steps launch",
+                steps=steps)
 
 
 def _train_layers(model, dev, dtype=torch.bfloat16) -> dict:
@@ -1104,7 +1253,8 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
-    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
+    from nylon_amt_tpu_torch.tools.gemm_ab import (ln_step_shapes,
+                                                   reduce_step_segments)
     from nylon_amt_tpu_torch.utils.wavio import save_wav
 
     m, t = cfg.model, cfg.train
@@ -1140,7 +1290,10 @@ def train_through_cli(cfg, feat, audio, cli_main) -> tuple[dict, dict]:
                     "decoder_layer_zero_train_bwd": 1,
                     "decoder_layer_train": m.dec_layer - 1,
                     "decoder_layer_train_bwd": m.dec_layer - 1,
-                    "ln_bwd": sum(c for _, c in ln_step_shapes(m))}
+                    "ln_bwd": sum(c for _, c in ln_step_shapes(m)),
+                    "reduce_rows": sum(c for _, _, c in reduce_step_segments(
+                        m, torch.bfloat16, torch.cuda.get_device_properties(
+                            0).multi_processor_count))}
         want = {k: v * steps for k, v in per_step.items()}
         got = {k: counts[k] for k in want}
         if got != want or steps != 6:
@@ -1186,9 +1339,14 @@ def time_train_step(cfg, batch_np, dev, card: str, phase: str = "j",
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    step()
+    sites = MASK_SITES.setdefault(f"({phase}) {what}step", {})
+    with recording_masks(sites):
+        step()
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
+    if sum(sites.values()) != counts["hash_keep_mask"]:
+        raise AssertionError(f"({phase}) {what}step: recorded K6 sites "
+                             f"{sites}, launches {counts['hash_keep_mask']}")
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(step, iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1335,10 +1493,14 @@ def check_int8(cfg, model, packed, spec, audio, dev, card, cli_main
         raise AssertionError("K13 column quantizer differs from the plain "
                              "version")
     q_ms = cuda_ms(lambda: lq.quant_rows_cuda(x[:, :hid]), iters=10)
+    q_plain_ms = cuda_ms(lambda: lq._quant_rows(x[:, :hid]), iters=3)
+    # the rows read once, the codes and the row scales written once
+    q_bound = bound(x.shape[0] * (hid * (x.element_size() + 1) + 4))
     log(f"(k) K13 quantizers bit-identical to the plain versions: rows "
         f"[{x.shape[0]}, {hid}] (contiguous and row-strided) / "
         f"[{x.shape[0]}, {pf}], V columns of {BATCH * n_frame} sequences; "
-        f"row quantizer {q_ms:.3f} ms at [{x.shape[0]}, {hid}]")
+        f"row quantizer {q_ms:.3f} ms at [{x.shape[0]}, {hid}] (bytes "
+        f"bound {q_bound['bound_ms']:.4f} ms), plain {q_plain_ms:.3f} ms")
     del x, v, q, s, pq, ps, vt, sv, pv, psv
 
     # (2) each wrapper against its plain q8 version and the exact layer
@@ -3392,7 +3554,8 @@ def time_train_step_f32(cfg, feat, dev, card: str) -> tuple[float, dict]:
     from nylon_amt_tpu_torch import kernels
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
-    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
+    from nylon_amt_tpu_torch.tools.gemm_ab import (ln_step_shapes,
+                                                   reduce_step_segments)
     from nylon_amt_tpu_torch.train import step as st
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3411,11 +3574,17 @@ def time_train_step_f32(cfg, feat, dev, card: str) -> tuple[float, dict]:
                                           .manual_seed(SEED)), apply)
     torch.cuda.synchronize()
     want = dict(f32_gemm_launches(cfg.model, train=True),
-                ln_bwd=sum(c for _, c in ln_step_shapes(cfg.model)))
+                ln_bwd=sum(c for _, c in ln_step_shapes(cfg.model)),
+                hash_keep_mask=4, reduce_rows=sum(
+                    c for _, _, c in reduce_step_segments(
+                        cfg.model, torch.float32,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)))
     counts = {k: kernels.launches[k] for k in want}
     if counts != want:
-        raise AssertionError(f"(n) default f32 train step: GEMM and ln_bwd "
-                             f"launches {counts}, expected {want}")
+        raise AssertionError(f"(n) default f32 train step: GEMM, ln_bwd, K6 "
+                             f"and reduction launches {counts}, expected "
+                             f"{want}")
     del state, batch
     ms, _ = time_train_step(cfg, first, dev, card, phase="n",
                             what="default-config f32 ")
@@ -3558,7 +3727,8 @@ def check_float32(feat, audio, spec, dev, card, cli_main) -> dict:
     return times, {**fwd_paper["launches"], **paper_bwd,
                    **{k: step_counts[k] for k in ("gemm_nt_f32",
                                                   "wgrad_f32")},
-                   "ln_bwd/default": step_counts["ln_bwd"]}
+                   "ln_bwd/default": step_counts["ln_bwd"],
+                   "reduce_rows/default": step_counts["reduce_rows"]}
 
 
 # (o) the bf16 layer GEMMs alone ---------------------------------------------
@@ -3582,6 +3752,10 @@ RING_KERNELS = {"log_mel_kernel": "DMMA", "gemm_bias_ffma_kernel": "FFMA"}
 # V's quantizer (bf16 and f32)
 STREAM_KERNELS = ("ln_bwd_kernel", "quant_cols_kernel")
 STREAM_INSTANTIATIONS = (2 + 3) * 2 + 2
+# the streaming kernels of plain loads (no TMA): K6's mask kernel (bf16 and
+# f32, packed and not) and the partial-sum reduction
+LOOP_KERNELS = ("hash_mask_kernel", "reduce_rows_kernel")
+LOOP_INSTANTIATIONS = 2 * 2 + 1
 # (label, frequency-stream rows, note/time-stream rows, hid, pf, encoder,
 # decoder and time layers, training forward): the paper batch-32 forward,
 # the paper batch-8 training forward (dropout 0.1: the forward, then the
@@ -4863,6 +5037,89 @@ def check_ln_bwd(dev, card: str, launches: dict) -> dict:
                                             "library_ms")})
 
 
+# (v) the partial-sum reduction alone ----------------------------------------
+
+# the reduction of one launch a segment, before the two-segment table, over
+# (j)'s 104 launches and (n)'s 68 (ms: (j)'s and (n)'s profiles, PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700 W)
+REDUCE_BEFORE_MS = {"paper bf16 (j)": 0.613, "default f32 (n)": 0.428}
+
+
+def check_reduce_rows(dev, card: str, launches: dict) -> dict:
+    """(v): the reduction alone at every launch of (j)'s paper bf16 step
+    and (n)'s default f32 step (``reduce_step_segments``: a dW product's
+    weight and bias partials, a layer's dgamma and dbeta partials), on
+    seeded f32 partials: bit for bit ``reduce_rows_plain``, reruns
+    bit-identical. Each launch timed by a CUDA graph of the wrapper's call
+    beside its bytes bound, the plain twin and ``parts.sum(0)`` of each of
+    its segments (one graph). ``launches``: each step's count of
+    reduction launches, which the segment lists must add up to. Returns
+    the JSON row: (j)'s launches summed, (n)'s beside them."""
+    from nylon_amt_tpu_torch import Config, ModelConfig
+    from nylon_amt_tpu_torch.ops import layer_fused_train as tlt
+    from nylon_amt_tpu_torch.tools.gemm_ab import (graph_ms,
+                                                   reduce_step_segments)
+
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for label, dt, which in LN_STEPS:
+        m_cfg = ModelConfig.paper_scale() if which == "paper" \
+            else Config().model
+        lists = reduce_step_segments(m_cfg, dt, sms)
+        if sum(c for _, _, c in lists) != launches[label]:
+            raise AssertionError(f"(v) {label}: segment lists {lists}, the "
+                                 f"step's launches {launches[label]}")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   max_abs_err=0.0, bound_by="bytes")
+        for i, (what, segs, count) in enumerate(lists):
+            g = torch.Generator(device=dev).manual_seed(SEED + 41 + i)
+            parts = [torch.randn((p, n), generator=g, device=dev)
+                     for p, n in segs]
+            got, again = tlt._reduce(*parts), tlt._reduce(*parts)
+            want = tlt.reduce_rows_plain(parts)
+            torch.cuda.synchronize()
+            for a, b, c in zip(got, again, want):
+                if not torch.equal(a, c):
+                    raise AssertionError(f"(v) {label} {what} {segs}: "
+                                         f"{(a != c).sum().item()} sums "
+                                         f"differ from reduce_rows_plain")
+                if not torch.equal(a, b):
+                    raise AssertionError(f"(v) {label} {what} {segs}: two "
+                                         f"runs differ")
+            ms = graph_ms(lambda: tlt._reduce(*parts))
+            lib_ms = graph_ms(lambda: [p.sum(0) for p in parts])
+            plain_ms = cuda_ms(lambda: tlt.reduce_rows_plain(parts), iters=1)
+            bd = bound(nbytes(*parts, *got))
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bd["bound_ms"]), ("library_ms", lib_ms)):
+                tot[k] += count * v
+            log(f"(v) reduce_rows {label} {what} {segs} x{count}: bit for bit "
+                f"reduce_rows_plain, reruns bit-identical; {ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_ms'] / ms:.1%}), "
+                f"parts.sum(0) {lib_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+                + ", ".join(f"{tlt.reduce_rows_plan(*sg)[1]} blocks of "
+                            f"{tlt.reduce_rows_plan(*sg)[0]} columns"
+                            for sg in segs))
+            del parts, got, again, want
+            torch.cuda.empty_cache()
+        held("reduce_rows", torch.float32)
+        rows[label] = dict(tot, launches=launches[label])
+        log(f"(v) {label}, its {launches[label]} reduction launches: "
+            f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+            f"({tot['bound_ms'] / tot['ms']:.1%}), parts.sum(0) "
+            f"{tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms; "
+            f"one launch a segment ({2 * launches[label]} launches) "
+            f"{REDUCE_BEFORE_MS[label]:.3f} ms (PERF.md)")
+    log(f"(v) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    paper, default = (rows[label] for label, _, _ in LN_STEPS)
+    return dict({k: paper[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err",
+                                       "library_ms")},
+                default_f32_step={k: default[k] for k in (
+                    "launches", "ms", "plain_ms", "bound_ms", "library_ms")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4881,7 +5138,8 @@ def main() -> int:
     from nylon_amt_tpu_torch.ops.mel import MelFrontend
     from nylon_amt_tpu_torch.ops.precision import full_f32
     from nylon_amt_tpu_torch.ops.spectrogram import log_mel, log_mel_plain
-    from nylon_amt_tpu_torch.tools.gemm_ab import ln_step_shapes
+    from nylon_amt_tpu_torch.tools.gemm_ab import (ln_step_shapes,
+                                                   reduce_step_segments)
     from nylon_amt_tpu_torch.utils.wavio import save_wav
 
     dev = torch.device("cuda:0")
@@ -4972,6 +5230,22 @@ def main() -> int:
             f"{k} " + "-".join(str(f(v["regs"] for v in stream.values()
                                      if v["kernel"] == k)) for f in (min, max))
             for k in STREAM_KERNELS) + " registers")
+    loops = gemm_ptxas((kernels.build_dir() / "build.log").read_text(),
+                       LOOP_KERNELS)
+    if {v["kernel"] for v in loops.values()} != set(LOOP_KERNELS) \
+            or len(loops) != LOOP_INSTANTIATIONS \
+            or any(v["spill"] or v["stack"] for v in loops.values()):
+        raise AssertionError(f"(a) the mask and reduction kernels in ptxas "
+                             f"-v ({len(loops)} of {LOOP_INSTANTIATIONS}): "
+                             f"{loops}")
+    occ = kernels.load().nylon_hash_mask_occupancy
+    log(f"(a) {len(loops)} instantiations of {', '.join(LOOP_KERNELS)}: no "
+        f"spills, no stack, " + ", ".join(
+            f"{k} " + "-".join(str(f(v["regs"] for v in loops.values()
+                                     if v["kernel"] == k)) for f in (min, max))
+            for k in LOOP_KERNELS) + " registers; hash_mask_kernel blocks "
+        f"an SM (bf16 / f32, unpacked / packed): {occ(1, 0)}/{occ(1, 1)} / "
+        f"{occ(0, 0)}/{occ(0, 1)}")
     sass_proc = start_sass(kernels.build_dir() / kernels.LIB_NAME)
     if sass_proc is None:
         log("(a) no cuobjdump beside nvcc: the GEMMs' SASS is not checked")
@@ -5160,10 +5434,14 @@ def main() -> int:
 
     # (j) the train step's time ------------------------------------------------
     fused_step_ms, step_counts = time_train_step(cfg, first_batch, dev, card)
-    want = sum(c for _, c in ln_step_shapes(m))
-    if step_counts["ln_bwd"] != want:
-        raise AssertionError(f"(j) the step's ln_bwd launches "
-                             f"{step_counts['ln_bwd']}, expected {want}")
+    want = dict(ln_bwd=sum(c for _, c in ln_step_shapes(m)), hash_keep_mask=4,
+                reduce_rows=sum(c for _, _, c in reduce_step_segments(
+                    m, torch.bfloat16, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)))
+    if {k: step_counts[k] for k in want} != want:
+        raise AssertionError(f"(j) the step's launches "
+                             f"{ {k: step_counts[k] for k in want} }, "
+                             f"expected {want}")
 
     # (k) K13, the int8 layers -------------------------------------------------
     q8_counts, q8_results, k13_profile = check_int8(
@@ -5259,6 +5537,17 @@ def main() -> int:
     results["ln_bwd_kernel"] = check_ln_bwd(dev, card, {
         "paper bf16 (j)": step_counts["ln_bwd"],
         "default f32 (n)": f32_counts["ln_bwd/default"]})
+
+    # (g.2) K6 at every site shape the timed steps launched -----------------
+    mask_steps = check_mask_launches(dev, card)
+    results["hash_keep_mask"] = dict(results["hash_keep_mask"], **{
+        k: v for k, v in mask_steps.items() if k != "gate"},
+        shape_ms=results["hash_keep_mask"]["ms"])
+
+    # (v) the partial-sum reduction alone ----------------------------------
+    results["reduce_rows"] = check_reduce_rows(dev, card, {
+        "paper bf16 (j)": step_counts["reduce_rows"],
+        "default f32 (n)": f32_counts["reduce_rows/default"]})
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -5315,6 +5604,19 @@ def main() -> int:
                                  f"{stream_sass}")
         log(f"(a) SASS of the {len(stream_sass)} streaming kernels "
             f"(cuobjdump): UTMALDG in each")
+        loop_sass = gemm_sass(sass_proc, kernels.build_dir()
+                              / kernels.LIB_NAME, LOOP_KERNELS,
+                              ("CALL.", ".128", "LDGSTS"))
+        if len(loop_sass) != len(loops) or any(
+                v["CALL."] or v[".128"] < 2 if "hash_mask" in k
+                else not v["LDGSTS"] for k, v in loop_sass.items()):
+            raise AssertionError(f"(a) SASS of the mask and reduction "
+                                 f"kernels: {loop_sass}")
+        log(f"(a) SASS of the {len(loop_sass)} mask and reduction kernels "
+            f"(cuobjdump): " + "; ".join(
+                f"{loops[k]['kernel'] if k in loops else k[:40]}: "
+                f"16-byte accesses {v['.128']}, CALL {v['CALL.']}, LDGSTS "
+                f"{v['LDGSTS']}" for k, v in loop_sass.items()))
         log(f"(a) SASS of the {len(mha32_sass)} f32 attention kernels "
             f"(cuobjdump): HGMMA "
             f"{min(v['HGMMA'] for v in mha32_sass.values())}-"
@@ -5391,6 +5693,11 @@ def main() -> int:
     # shapes (u) timed
     counts["ln_bwd_kernel"] = step_counts["ln_bwd"]
     sources["ln_bwd_kernel"] = ("layer_fused_train.cu", f"{train}:472")
+    # the reduction of the dW and dgamma / dbeta partials (the second pass
+    # of the TPU backward kernels' VMEM accumulation, the encoder's
+    # pallas_call line): launches of (j)'s paper bf16 step, which (v) timed
+    counts["reduce_rows"] = step_counts["reduce_rows"]
+    sources["reduce_rows"] = ("layer_fused_train.cu", f"{train}:472")
     # the sources of each wrapper's float32 path
     layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
         "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
@@ -5408,6 +5715,7 @@ def main() -> int:
         **{n: ["layer_fused_f32.cu"] for n in gemm32},
         "gemm_nt_f32": ["layer_fused_f32.cu"],
         "ln_bwd_kernel": ["layer_fused_train.cu"],
+        "reduce_rows": ["layer_fused_train.cu"],
         "wgrad_f32": ["layer_fused_f32.cu", "layer_fused_train.cu"]}
     f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
     log(card)  # name, power limit: nvidia-smi's own line

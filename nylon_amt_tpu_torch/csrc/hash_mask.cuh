@@ -64,6 +64,28 @@ __device__ __forceinline__ float keep_value(const DropSite& s, uint32_t row,
   return keeps(s, row, col, d2) ? s.scale : 0.f;
 }
 
+// The keep bits of the kN consecutive linear indices lin, lin + 1, ..,
+// lin + kN - 1 of a site (bit e for lin + e; mod 2^32), one hash each: when
+// packed, `lo` takes the low draws (the columns c of [0, d2/2)) and `hi`
+// the high draws (the columns c + d2/2), when not, `lo` the whole hashes
+// and `hi` nothing. The standalone kernel (hash_mask.cu) calls it on a
+// vector of a row; the result is keeps()'s, bit for bit.
+template <int kN, bool kPacked>
+__device__ __forceinline__ void keep_bits(const DropSite& s, uint32_t lin,
+                                          uint32_t& lo, uint32_t& hi) {
+  lo = hi = 0;
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const uint32_t x = hash_mix((lin + (uint32_t)e) ^ s.key);
+    if (kPacked) {
+      lo |= (uint32_t)((x & 0xFFFFu) >= s.thresh) << e;
+      hi |= (uint32_t)((x >> 16) >= s.thresh) << e;
+    } else {
+      lo |= (uint32_t)(x >= s.thresh) << e;
+    }
+  }
+}
+
 // The key of tag `tag` under a seed whose mix (seed * 0x9E3779B9) is
 // seed_mix. The attention kernels give head h the tag head_tag0 + h: head_tag0
 // is (tag_base + 8) * 64 in the training layers K7-K9

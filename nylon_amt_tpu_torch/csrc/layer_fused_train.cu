@@ -28,8 +28,10 @@
 //  * wgrad_kernel: dW = A^T @ dY (the dot_general over the rows) over a
 //    chunk of rows into f32 per-chunk partials, with the bias gradient's
 //    column sums, and reduce_rows_kernel summing the partials in a fixed
-//    order. No float atomics: a weight gradient is the same bits from run
-//    to run.
+//    order, the weight's and the bias's in one launch (and a layer's
+//    dgamma and dbeta partials likewise; its design note is at the
+//    kernel). No float atomics: a weight gradient is the same bits from
+//    run to run.
 //
 // What bounds the two GEMMs: at the paper widths (hid 256, pf 512, 90,112-
 // 262,144 rows a step) each moves its operands once for 85-192 FLOP a byte,
@@ -74,8 +76,6 @@ using sm::Frag;
 using sm::store_tile;
 
 namespace {
-
-constexpr int kThreads = 256;  // reduce_rows_kernel
 
 // ------------------------------------------------------ LayerNorm backward --
 //
@@ -704,15 +704,125 @@ __global__ void __launch_bounds__(sm::kThreads, 1)
   }
 }
 
-// out[i] = sum over p = 0, 1, ..., P - 1 of parts[p][i], in that order.
-__global__ void __launch_bounds__(kThreads)
-    reduce_rows_kernel(const float* __restrict__ parts,
-                       float* __restrict__ out, int P, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += parts[(size_t)p * n + i];
-  out[i] = s;
+// ------------------------------------------------ partial-sum reduction --
+//
+// reduce_rows_kernel: out[i] = ((parts[0][i] + parts[1][i]) + ...) +
+// parts[P-1][i] in f32, added in that order (the plain twin's bits, the same
+// from run to run: no float atomics, no tree), for up to two segments in one
+// launch: the weight and bias partials of one dW product, or the dgamma and
+// dbeta partials of one layer's LayerNorm. It replaces no TPU kernel on its
+// own: the TPU kernels carried dW and dgamma / dbeta in VMEM across their
+// sequential grid, which blocks running in no order cannot do
+// (nylon_amt_tpu/ops/layer_fused_train.py's custom-VJP kernels); this is the
+// second pass.
+//
+// What bounds it: bytes (each partial read once), and at small sizes the
+// launch. A segment is P rows of n floats: 11-131 rows of 64 to 196 K floats
+// (dW) or 528-792 rows of 64-256 floats (LayerNorm). The sum of a column is a
+// chain of P dependent adds, so parallelism comes from columns and from loads
+// in flight: a block takes a tile of `cols` columns (a power of two, 8-1024:
+// ops/layer_fused_train.py::reduce_rows_plan sizes it to at most ~16 KB of
+// partials a block where it can, so a 9 MB segment spreads over the card in one
+// wave and a 10 KB one takes a block), and streams its rows through a ring of
+// kRedStages 8 KB stages in shared memory with 16-byte cp.async (rows not
+// 16-byte aligned, n % 4 != 0: 4-byte copies), kRedStages - 1 stages in flight
+// (at the model's segments, every stage of a block but a tall LayerNorm
+// segment's last); the block's threads then add each column's rows of a stage
+// in row order from shared memory (a thread a column, or 2-4 columns 256 apart
+// for wider tiles). A column's chain of P adds (~4 cycles each) is the floor a
+// tall segment meets.
+constexpr int kRedThreads = 256;
+constexpr int kRedStage = 2048;   // floats a stage
+constexpr int kRedStages = 4;     // a 32 KB ring
+constexpr int kRedMinCols = 8, kRedMaxCols = 1024;
+
+struct RedSeg {
+  const float* parts;  // [P, n]
+  float* out;          // [n]
+  int P, n, cols, blocks;
+};
+
+// The launch's segments: blocks [0, seg[0].blocks) take the first, the
+// rest the second (n_seg 2).
+struct RedTable {
+  RedSeg seg[2];
+  int n_seg;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem_ptr, const void* gmem_ptr,
+                                          bool pred) {
+  const unsigned saddr =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
+               "l"(gmem_ptr), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kRedThreads)
+    reduce_rows_kernel(const __grid_constant__ RedTable tab) {
+  __shared__ __align__(16) float ring[kRedStages][kRedStage];
+  const bool second =
+      tab.n_seg > 1 && blockIdx.x >= (unsigned)tab.seg[0].blocks;
+  const RedSeg& g = tab.seg[second ? 1 : 0];
+  const float* const parts = g.parts;
+  const int P = g.P, n = g.n, cols = g.cols;
+  const int c0 = (blockIdx.x - (second ? tab.seg[0].blocks : 0)) * cols;
+  const int shift = __ffs(cols) - 1;   // cols is a power of two
+  const int rows = kRedStage >> shift;  // rows a stage: 2-256
+  const int stages = (P + rows - 1) / rows;
+  const bool vec = n % 4 == 0;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int st) {
+    float* const dst = ring[st % kRedStages];
+    const int p0 = st * rows;
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < kRedStage / 4 / kRedThreads; ++q) {
+        const int e = 4 * (tid + q * kRedThreads);
+        const int p = p0 + (e >> shift), col = c0 + (e & (cols - 1));
+        const bool ok = p < P && col < n;
+        nylon::cp_async16(dst + e, ok ? parts + (size_t)p * n + col : parts,
+                          ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < kRedStage; e += kRedThreads) {
+        const int p = p0 + (e >> shift), col = c0 + (e & (cols - 1));
+        const bool ok = p < P && col < n;
+        cp_async4(dst + e, ok ? parts + (size_t)p * n + col : parts, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kRedStages - 1; ++st) {
+    if (st < stages) load(st);
+    nylon::cp_async_commit();
+  }
+  float acc[kRedMaxCols / kRedThreads] = {};  // columns tid + 256 j
+  for (int st = 0; st < stages; ++st) {
+    if (st + kRedStages - 1 < stages) load(st + kRedStages - 1);
+    nylon::cp_async_commit();
+    nylon::cp_async_wait<kRedStages - 1>();
+    __syncthreads();
+    const float* const src = ring[st % kRedStages];
+    const int nr = min(rows, P - st * rows);
+#pragma unroll
+    for (int j = 0; j < kRedMaxCols / kRedThreads; ++j) {
+      const int c = tid + j * kRedThreads;
+      if (c < cols) {
+#pragma unroll 8
+        for (int r = 0; r < nr; ++r) acc[j] += src[(r << shift) + c];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kRedMaxCols / kRedThreads; ++j) {
+    const int c = tid + j * kRedThreads;
+    if (c < cols && c0 + c < n) g.out[c0 + c] = acc[j];
+  }
 }
 
 template <typename T, int kC>
@@ -889,13 +999,34 @@ int nylon_wgrad(const void* a, const void* dy, void* part, void* bias_part,
                              rows_per_chunk, chunks, (cudaStream_t)stream);
 }
 
-// out[n] = sum over the P rows of parts[P, n], in row order.
-int nylon_reduce_rows(const void* parts, void* out, int P, long long n,
-                      void* stream) {
-  if (P <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  reduce_rows_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                       (cudaStream_t)stream>>>((const float*)parts,
-                                               (float*)out, P, n);
+// Segment i (i < 2; parts1 null: one segment): out_i[n_i] = the sum of the
+// P_i rows of parts_i [P_i, n_i] in row order, blocks of cols_i columns
+// (a power of two, kRedMinCols-kRedMaxCols:
+// ops/layer_fused_train.py::reduce_rows_plan); parts_i 16-byte aligned
+// where n_i % 4 == 0.
+int nylon_reduce_rows(const void* parts0, void* out0, int P0, int n0,
+                      int cols0, const void* parts1, void* out1, int P1,
+                      int n1, int cols1, void* stream) {
+  RedTable tab{};
+  const void* parts[2] = {parts0, parts1};
+  void* outs[2] = {out0, out1};
+  const int P[2] = {P0, P1}, n[2] = {n0, n1}, cols[2] = {cols0, cols1};
+  tab.n_seg = parts1 ? 2 : 1;
+  long long blocks = 0;
+  for (int i = 0; i < tab.n_seg; ++i) {
+    if (!parts[i] || !outs[i] || P[i] <= 0 || n[i] <= 0 ||
+        cols[i] < kRedMinCols || cols[i] > kRedMaxCols ||
+        (cols[i] & (cols[i] - 1)) ||
+        (n[i] % 4 == 0 && reinterpret_cast<uintptr_t>(parts[i]) % 16))
+      return (int)cudaErrorInvalidValue;
+    const int b = (n[i] + cols[i] - 1) / cols[i];
+    tab.seg[i] = RedSeg{(const float*)parts[i], (float*)outs[i], P[i], n[i],
+                        cols[i], b};
+    blocks += b;
+  }
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  reduce_rows_kernel<<<(unsigned)blocks, kRedThreads, 0,
+                       (cudaStream_t)stream>>>(tab);
   return (int)cudaGetLastError();
 }
 

@@ -46,8 +46,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # float32 counts as one in bfloat16 does. And, inside those layers, the two
 # float32 forward GEMM kernels (3xTF32 wgmma, csrc/layer_fused_f32.cu), the
 # stem layer's float32 QKV GEMM on the CUDA cores, the training
-# backward's float32 dX and dW GEMMs (3xTF32 wgmma), and its LayerNorm
-# backward (ln_bwd_kernel, bf16 and f32 alike), one count a launch.
+# backward's float32 dX and dW GEMMs (3xTF32 wgmma), its LayerNorm
+# backward (ln_bwd_kernel, bf16 and f32 alike) and the reduction of the dW
+# and dgamma / dbeta partials (reduce_rows_kernel: one launch a dW product
+# and one a layer's LayerNorm), one count a launch.
 launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
@@ -68,7 +70,7 @@ launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
                             "decoder_layer_q8": 0,
                             "gemm_bias_f32": 0, "gemm_res_ln_f32": 0,
                             "gemm_bias_ffma_f32": 0, "gemm_nt_f32": 0,
-                            "wgrad_f32": 0, "ln_bwd": 0}
+                            "wgrad_f32": 0, "ln_bwd": 0, "reduce_rows": 0}
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_uint
@@ -94,6 +96,10 @@ _SIGNATURES = {
     "nylon_attention_probs": [_P] * 5 + [_I] * 5 + [_L] * 4 + [_F, _P],
     # x, out, rows, d2, key, thresh, scale, half, base, dtype_bf16, stream
     "nylon_hash_mask": [_P, _P, _L, _I, _U, _U, _F, _I, _U, _I, _P],
+    # dtype_bf16, packed -> blocks of the mask kernel an SM holds
+    "nylon_hash_mask_occupancy": [_I, _I],
+    # rows, d2, half, dtype_bf16 -> the grid nylon_hash_mask launches
+    "nylon_hash_mask_grid": [_L, _I, _I, _I],
     # a, w, bias, out, M, N, K, relu, site, stream
     "nylon_gemm_bias_drop": [_P, _P, _P, _P, _I, _I, _I, _I, *_SITE, _P],
     # a, w, bias, res, gamma, beta, out, pre_out, M, N, K, eps, active,
@@ -110,8 +116,9 @@ _SIGNATURES = {
     "nylon_gemm_nt": [_P] * 5 + [_I, _I, _I, _I, *_SITE, _I, *_SITE, _P],
     # a, dy, part, bias_part, M, Ka, N, rows_per_chunk, chunks, stream
     "nylon_wgrad": [_P] * 4 + [_I] * 5 + [_P],
-    # parts, out, P, n, stream
-    "nylon_reduce_rows": [_P, _P, _I, _L, _P],
+    # two segments (the second's parts null: one), each parts, out, P, n,
+    # cols (reduce_rows_plan); stream
+    "nylon_reduce_rows": [_P, _P, _I, _I, _I] * 2 + [_P],
     # q, k, v, dout, dq, dk, dv, n_seq, lq, lk, n_heads, head_dim, q_row,
     # kv_row, do_row, dq_row, dkv_row, scale, scale_log2e, active, seed_mix,
     # head_tag0, thresh, pscale, half, stream

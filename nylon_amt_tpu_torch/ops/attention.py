@@ -20,8 +20,10 @@ regenerate the same masks in any launch geometry:
 any device. :func:`hash_keep_mask` and :func:`apply_keep_mask` are the
 wrappers: on a CPU tensor they take the plain version, on a CUDA device
 they launch ``csrc/hash_mask.cu`` (the device function of
-``csrc/hash_mask.cuh`` that the training kernels call in their epilogues).
-:func:`dropout` is inverted dropout on those masks, with its gradient.
+``csrc/hash_mask.cuh`` that the training kernels call in their epilogues)
+on the grid that :func:`hash_mask_plan` mirrors and
+:func:`hash_mask_walk` follows, or raise. :func:`dropout` is inverted
+dropout on those masks, with its gradient.
 
 K10, K11, K12: the per-site attention of :func:`nylon_amt_tpu.ops.attention.
 fused_mha`, ``fused_mha_with_probs`` and ``fused_mha_dropout``, on the flat
@@ -40,6 +42,8 @@ head_dim 32 or 64, at most 256 queries and keys, or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -99,11 +103,7 @@ def keep_values(key: int, threshold: int, keep: float, half: int,
     w = half or d2
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(w, dtype=torch.int64, device=device)[None, :]
-    x = ((r * w + c + base) & _U32) ^ key
-    x = x ^ (x >> 16)
-    x = _mul32(x, _MIX1)
-    x = x ^ (x >> 15)
-    x = _mul32(x, _MIX2)
+    x = hash32(r * w + c + base, key)
 
     def select(v):
         return torch.where(v >= threshold, keep, 0.0).to(torch.float32)
@@ -113,6 +113,16 @@ def keep_values(key: int, threshold: int, keep: float, half: int,
     else:
         out = torch.cat([select(x & 0xFFFF), select(x >> 16)], dim=-1)
     return out.to(dtype)
+
+
+def hash32(lin: torch.Tensor, key: int) -> torch.Tensor:
+    """The 32-bit hash of int64 linear indices ``lin`` (taken mod 2**32)
+    under ``key``: ``hash_mix(lin ^ key)`` of ``csrc/hash_mask.cuh``."""
+    x = (lin & _U32) ^ key
+    x = x ^ (x >> 16)
+    x = _mul32(x, _MIX1)
+    x = x ^ (x >> 15)
+    return _mul32(x, _MIX2)
 
 
 def hash_keep_mask_plain(seed: int, tag: int, row0: int, shape, rate: float,
@@ -125,6 +135,102 @@ def hash_keep_mask_plain(seed: int, tag: int, row0: int, shape, rate: float,
     base = (int(row0) * d1 * (half or d2)) & _U32
     return keep_values(site_key(seed, tag), threshold, keep, half, n * d1,
                        d2, dtype, device, base).reshape(n, d1, d2)
+
+
+# hash_mask_kernel's threads a block and items a thread has in flight (one
+# 16-byte vector, or a pair when packed): csrc/hash_mask.cu kThreads,
+# kUnroll
+_HASH_THREADS, _HASH_UNROLL = 256, 2
+
+
+class HashMaskPlan(NamedTuple):
+    """How ``csrc/hash_mask.cu`` covers a ``(rows, d2)`` site view: 16-byte
+    vectors of ``vec`` elements; packed (``half = d2 / 2``), ``width``
+    items a row, an item the vectors at columns ``c`` and ``c + half`` (one
+    hash each element pair); unpacked (``half`` 0), ``items`` vectors of
+    the flat view, then ``tail`` scalar elements; a persistent grid of
+    ``blocks`` blocks of _HASH_THREADS."""
+    vec: int
+    half: int
+    width: int
+    items: int
+    tail: int
+    blocks: int
+
+
+def hash_mask_plan(rows: int, d2: int, dtype: torch.dtype, sms: int,
+                   per_sm: int) -> HashMaskPlan:
+    """The plan of the mask kernel over ``rows`` rows of ``d2`` elements of
+    ``dtype`` on a card of ``sms`` SMs that hold ``per_sm`` of its blocks
+    each (``nylon_hash_mask_occupancy``): the grid is at most one wave,
+    and no larger than one item a thread. The entry point plans its own
+    launch so (``nylon_hash_mask_grid`` reports it)."""
+    vec = 16 // dtype.itemsize
+    half = d2 // 2 if d2 % 256 == 0 else 0
+    if half:
+        width, tail = half // vec, 0
+        items = rows * width
+    else:
+        width, (items, tail) = 0, divmod(rows * d2, vec)
+    blocks = max(1, min(sms * per_sm, -(-items // _HASH_THREADS)))
+    return HashMaskPlan(vec, half, width, items, tail, blocks)
+
+
+def hash_mask_walk(plan: HashMaskPlan, rows: int, d2: int, base: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every element the kernel writes, in the order its threads take
+    them (pass by pass, each thread's items in turn, a vector's elements
+    in order): ``(lin, lo, hi)`` int64, ``lin`` the hash's linear index
+    (mod 2**32), ``lo`` the flat index of the element its whole hash
+    (unpacked) or its low draw (packed) keeps, ``hi`` that of the element
+    its high draw keeps (packed; -1 unpacked). The packed walk is the
+    kernel's: each thread's first (row, column vector) from one division,
+    then a step of one grid of items with a carry."""
+    stride = plan.blocks * _HASH_THREADS
+    t = torch.arange(stride, dtype=torch.int64)
+    e = torch.arange(plan.vec, dtype=torch.int64)
+    lins, los, his = [], [], []
+    if plan.half:
+        w = plan.width
+        row, c = t // w, t % w
+        drow, dc = divmod(stride, w)
+        while bool((row < rows).any()):
+            for _ in range(_HASH_UNROLL):
+                live = row < rows
+                r, cv = row[live, None], c[live, None]
+                lins.append(base + r * plan.half + cv * plan.vec + e)
+                los.append(r * d2 + cv * plan.vec + e)
+                his.append(los[-1] + plan.half)
+                c = c + dc
+                carry = c >= w
+                row, c = row + drow + carry, c - w * carry
+    else:
+        for k0 in range(0, plan.items, stride):
+            k = (k0 + t)[k0 + t < plan.items, None]
+            los.append(k * plan.vec + e)
+            lins.append(base + los[-1])
+            his.append(torch.full_like(los[-1], -1))
+        tail = plan.items * plan.vec + t[:plan.tail]
+        los.append(tail)
+        lins.append(base + tail)
+        his.append(torch.full_like(tail, -1))
+    lin, lo, hi = (torch.cat([a.flatten() for a in v])
+                   for v in (lins, los, his))
+    return lin & _U32, lo, hi
+
+
+def check_hash_mask(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the mask kernel takes ``t`` (its input
+    or output): bfloat16 or float32, contiguous from a 16-byte aligned
+    start (the kernel moves 16-byte vectors), fewer than 2**31 elements
+    (its index arithmetic is 32-bit)."""
+    kernels.check_dtype(name, t.dtype)
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the tensor must be contiguous from a "
+                         f"16-byte aligned start")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements; the kernel takes "
+                         f"fewer than 2**31")
 
 
 def _launch(x, out, rows: int, d2: int, seed: int, tag: int, row0: int,
@@ -150,6 +256,7 @@ def hash_keep_mask(seed: int, tag: int, row0: int, shape, rate: float,
     kernels.check_dtype("hash_keep_mask", dtype)
     n, d1, d2 = shape
     out = torch.empty(shape, dtype=dtype, device=device)
+    check_hash_mask("hash_keep_mask", out)
     with torch.cuda.device(device):
         _launch(None, out, n * d1, d2, seed, tag, row0, d1, rate)
     return out
@@ -158,11 +265,13 @@ def hash_keep_mask(seed: int, tag: int, row0: int, shape, rate: float,
 def apply_keep_mask(x: torch.Tensor, seed: int, tag: int,
                     rate: float) -> torch.Tensor:
     """``x * hash_keep_mask(seed, tag, 0, x.shape, rate, x.dtype)`` for a
-    3-D ``x``; on a CUDA tensor one launch of the K6 kernel."""
+    3-D ``x``; on a CUDA tensor one launch of the K6 kernel (``x``
+    contiguous from a 16-byte aligned start, or ``ValueError``)."""
     if x.device.type == "cpu":
         return x * hash_keep_mask_plain(seed, tag, 0, x.shape, rate, x.dtype)
     kernels.check_dtype("apply_keep_mask", x.dtype)
     kernels.check_cuda("apply_keep_mask: x", x, x.dtype, ndim=3)
+    check_hash_mask("apply_keep_mask", x)
     n, d1, d2 = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

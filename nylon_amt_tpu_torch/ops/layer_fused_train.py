@@ -680,16 +680,76 @@ class _LnGrads:
                 self.parts[1, lo:lo + self.blocks])
 
     def reduce(self):
-        return _reduce(self.parts[0]), _reduce(self.parts[1])
+        """[dgamma, dbeta]: one launch of the reduction."""
+        return _reduce(self.parts[0], self.parts[1])
 
 
-def _reduce(parts):
-    """Sum of the rows of ``parts [P, *]`` in row order (f32)."""
-    out = torch.empty(parts.shape[1:], dtype=torch.float32,
-                      device=parts.device)
-    kernels.call("nylon_reduce_rows", parts.data_ptr(), out.data_ptr(),
-                 parts.shape[0], out.numel(), kernels.stream_of(parts))
-    return out
+# reduce_rows_kernel's column tiles (csrc/layer_fused_train.cu kRedMinCols,
+# kRedMaxCols) and the bytes of partials reduce_rows_plan gives a block
+_RED_MIN_COLS, _RED_MAX_COLS, _RED_BLOCK_BYTES = 8, 1024, 1 << 14
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_rows_plan(p: int, n: int) -> tuple[int, int]:
+    """``(cols, blocks)`` of the reduction of ``parts [p, n]``: blocks of
+    a tile of ``cols`` columns (a power of two, 8-1024) taking at most
+    about _RED_BLOCK_BYTES of partials each (a block's stages are then all
+    in flight at once) where the tiles allow; a block sums its columns
+    over all ``p`` rows."""
+    per_block = -(-n // -(-(p * n * 4) // _RED_BLOCK_BYTES))
+    cols = min(_RED_MAX_COLS, max(_RED_MIN_COLS,
+                                  1 << (per_block - 1).bit_length()))
+    return cols, -(-n // cols)
+
+
+def check_reduce_rows(name: str, parts) -> None:
+    """Raise ``ValueError`` unless the reduction takes ``parts`` (one or
+    two segments): float32 ``[P, *]`` with P and the row at least 1 and
+    under 2**31 elements in all, contiguous from a 16-byte aligned start,
+    on one device."""
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"{name}: the kernel takes one or two segments, got "
+                         f"{len(parts)}")
+    for p in parts:
+        if (p.dtype != torch.float32 or p.dim() < 2
+                or not 0 < p.numel() < 2 ** 31
+                or p.device != parts[0].device):
+            raise ValueError(f"{name}: the kernel takes float32 [P, *] on "
+                             f"one device; got {p.dtype} {tuple(p.shape)} "
+                             f"on {p.device}")
+        if not p.is_contiguous() or p.data_ptr() % 16:
+            raise ValueError(f"{name}: parts must be contiguous from a "
+                             f"16-byte aligned start")
+
+
+def _reduce(*parts):
+    """The sum of the rows of each ``parts[i] [P_i, *]`` in row order
+    (f32), one launch of the reduction for all (at most two)."""
+    check_reduce_rows("reduce_rows", parts)
+    outs = [torch.empty(p.shape[1:], dtype=torch.float32, device=p.device)
+            for p in parts]
+    segs = []
+    for p, out in zip(parts, outs):
+        n = p.numel() // p.shape[0]
+        segs += [p.data_ptr(), out.data_ptr(), p.shape[0], n,
+                 reduce_rows_plan(p.shape[0], n)[0]]
+    segs += [None, None, 0, 0, 0] * (2 - len(parts))
+    kernels.call("nylon_reduce_rows", *segs, kernels.stream_of(parts[0]))
+    kernels.launches["reduce_rows"] += 1
+    return outs
+
+
+def reduce_rows_plain(parts_list) -> list:
+    """The plain twin of the reduction: the rows of each ``parts [P, *]``
+    added in f32 in row order, from 0, as the kernel adds them."""
+    outs = []
+    for parts in parts_list:
+        s = torch.zeros(parts.shape[1:], dtype=torch.float32,
+                        device=parts.device)
+        for p in range(parts.shape[0]):
+            s = s + parts[p]
+        outs.append(s)
+    return outs
 
 
 def _ln_backward(dy, s, g, site, ln: _LnGrads):
@@ -829,9 +889,10 @@ def check_wgrad(name: str, m: int, ka: int, n: int, dtype) -> None:
 
 def _weight_grad(a, dy):
     """(a^T dy, column sums of dy) in f32: per-chunk partials over row
-    chunks (one wave of dW tiles x chunks), then a reduction in chunk
-    order; a chunk's column sums of dy come in a part from each of the
-    ceil(ka / tile rows) tiles of a column range."""
+    chunks (one wave of dW tiles x chunks), then one launch of the
+    reduction in chunk order for both; a chunk's column sums of dy come
+    in a part from each of the ceil(ka / tile rows) tiles of a column
+    range."""
     m, ka = a.shape
     n = dy.shape[1]
     check_wgrad("weight_grad", m, ka, n, a.dtype)
@@ -847,7 +908,8 @@ def _weight_grad(a, dy):
                  *((bm, bn) if f32 else ()), kernels.stream_of(a))
     if f32:
         kernels.launches["wgrad_f32"] += 1
-    return _reduce(part.view(chunks, -1)).view(ka, n), _reduce(bias_part)
+    dw, db = _reduce(part.view(chunks, -1), bias_part)
+    return dw.view(ka, n), db
 
 
 def _check(name, acts, p, n_heads, max_len):

@@ -79,6 +79,25 @@ bias and of the attention (its entry points take none: ``Q8_PRE_CODES``)
 is called with its own entry points: its GEMMs write every column in T,
 its attention its output in T.
 
+With ``--hash-mask`` the run is K6's standalone mask kernel alone
+(``csrc/hash_mask.cu``: ``nylon_hash_mask``; each variant builds that file
+and ``layer_fused.cu``): held bit for bit against ``ops.attention.
+hash_keep_mask_plain`` (the mask, and x * mask) at ``HASH_CHECKS``
+(packed and unpacked rows, ragged ones, a flat tail under a vector, a
+``row0``), bf16 and f32, reruns bit-identical; then timed A B .. B A by
+``graph_ms`` at ``HASH_TIMES`` (the embedding-dropout launches of the paper
+bf16 and the default f32 batch-8 fused steps, and the per-site models'
+activation sites at the paper widths) beside the bytes bound, with each
+step's launches summed. With ``--reduce-rows`` the run is the partial-sum
+reduction alone (``layer_fused_train.cu``'s ``nylon_reduce_rows``): held
+bit for bit against ``ops.layer_fused_train.reduce_rows_plain`` at
+``REDUCE_CHECKS``, reruns bit-identical, then timed A B .. B A by
+``graph_ms`` at every launch of the paper bf16 and the default f32 batch-8
+steps (``reduce_step_segments``: a dW product's weight and bias partials,
+a layer's dgamma and dbeta partials), beside the bytes bound and
+``parts.sum(0)`` of each segment; a variant from before the segment table
+(one segment a launch) launches once a segment.
+
 Run from the root of a checkout on the card::
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
@@ -118,17 +137,25 @@ ENTRIES = {"fwd": ("nylon_gemm_bias", "nylon_gemm_bias_drop",
            "q8": ("nylon_q8_gemm_bias", "nylon_q8_gemm_res_ln",
                   "nylon_q8_attention", "nylon_q8_gemm_bias_f32",
                   "nylon_q8_gemm_res_ln_f32", "nylon_q8_attention_f32",
-                  "nylon_q8_quant_cols", "nylon_q8_quant_cols_f32")}
+                  "nylon_q8_quant_cols", "nylon_q8_quant_cols_f32"),
+           "hash": ("nylon_hash_mask",)}
 SOURCES = {"fwd": "layer_fused.cu", "bwd": "layer_fused_train.cu",
            "f32": "layer_fused_f32.cu", "attn32": "mha_f32.cu",
-           "attn16": "mha.cu", "q8": "layer_fused_q8.cu"}
+           "attn16": "mha.cu", "q8": "layer_fused_q8.cu",
+           "hash": "hash_mask.cu"}
 # what --q8, --attn16 and --attn32 build (layer_fused.cu for the error
 # strings)
 Q8_PARTS = ("fwd", "q8")
 ATTN16_PARTS = ("fwd", "attn16")
 ATTN32_PARTS = ("fwd", "attn32")
-# what --ln-bwd builds (the LayerNorm backward lives in layer_fused_train.cu)
+# what --ln-bwd and --reduce-rows build (the LayerNorm backward and the
+# reduction live in layer_fused_train.cu), and --hash-mask
 LN_PARTS = ("fwd", "bwd")
+HASH_PARTS = ("fwd", "hash")
+# nylon_reduce_rows of a tree from before the segment table: parts, out, P,
+# n, stream (one segment a launch)
+REDUCE_PRE_SEGMENTS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p]
 # entry points a variant may lack (a tree from before they were added): its
 # kinds that need them are reported as absent, not failed
 OPTIONAL_ENTRIES = ("nylon_attention_ffma_f32",)
@@ -355,6 +382,38 @@ def ln_step_shapes(m, batch: int = 8) -> list:
              2 * m.dec_layer + 2 + 3 * (m.dec_layer - 1))]
 
 
+def reduce_step_segments(m, dtype, sms: int, batch: int = 8) -> list:
+    """Every launch of the partial-sum reduction in a batch-``batch`` fused
+    training step of model config ``m`` in ``dtype`` on a card of ``sms``
+    SMs, as (label, [(P, n) of each segment], launches): a dW product's
+    weight partials ``[chunks, Ka * N]`` and bias partials ``[chunks *
+    ceil(Ka / tile rows), N]`` (``wgrad_layout``), and a layer's dgamma and
+    dbeta partials ``[slots * blocks, hid]`` (``ln_bwd_plan``; two slots an
+    encoder-type layer and decoder_layer_zero, three a decoder layer)."""
+    from nylon_amt_tpu_torch.config import Config
+    from nylon_amt_tpu_torch.ops.layer_fused_train import (ln_bwd_plan,
+                                                           wgrad_layout)
+
+    c = Config()
+    frames = batch * c.input.num_frame
+    mf, mq = frames * c.feature.n_bins, frames * c.midi.num_note
+    hid = m.hid_dim
+    out = []
+    for label, _, rows, ka, n, count in (
+            p for p in step_bwd_products(mf, mq, hid, m.pf_dim, m.enc_layer,
+                                         m.dec_layer, m.dec_layer)
+            if p[1] == "wgrad"):
+        bm, _, _, chunks = wgrad_layout(rows, ka, n, dtype, sms)
+        out.append((f"dW {label}", [(chunks, ka * n),
+                                    (chunks * -(-ka // bm), n)], count))
+    for label, rows, slots, count in (
+            ("LN freq", mf, 2, m.enc_layer), ("LN time", mq, 2, m.dec_layer),
+            ("LN dec zero", mq, 2, 1), ("LN dec", mq, 3, m.dec_layer - 1)):
+        p = slots * ln_bwd_plan(rows, hid, dtype, sms)[1]
+        out.append((label, [(p, hid), (p, hid)], count))
+    return [seg for seg in out if seg[2]]
+
+
 # (M, N, dtype, dropout site) the LayerNorm backward is held at: ragged
 # row counts, every lane layout (1, 2, 3 chunks a lane, idle lanes at
 # N 160), a few tiles or thousands of them
@@ -453,6 +512,10 @@ class Lib:
         # its first form's rows a block
         self.ln_tiles = "bwd" in paths and "ln_layout" in (
             Path(src) / SOURCES["bwd"]).read_text()
+        # whether the reduction takes a table of segments (one launch a
+        # call site) or one segment a launch
+        self.reduce_segs = "bwd" in paths and "RedTable" in (
+            Path(src) / SOURCES["bwd"]).read_text()
         self.libs = {}
         for part, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -462,7 +525,9 @@ class Lib:
                 base = e.removesuffix("_f32")
                 getattr(lib, e).argtypes = (
                     Q8_PRE_CODES[base] if part == "q8" and not self.q8_codes
-                    and base in Q8_PRE_CODES else kernels._SIGNATURES[e])
+                    and base in Q8_PRE_CODES else REDUCE_PRE_SEGMENTS
+                    if e == "nylon_reduce_rows" and not self.reduce_segs
+                    else kernels._SIGNATURES[e])
                 getattr(lib, e).restype = ctypes.c_int
             self.libs[part] = lib
         # layer_fused.cu defines the message lookup
@@ -585,11 +650,50 @@ class Lib:
         self._call(lib, name, a.data_ptr(), dy.data_ptr(),
                    part.data_ptr(), bias_part.data_ptr(), m, ka, n, rows,
                    chunks, *tile, s)
-        dw, db = torch.empty((ka, n), **f32), torch.empty((n,), **f32)
-        for src, dst in ((part, dw), (bias_part, db)):
-            self._call("bwd", "nylon_reduce_rows", src.data_ptr(),
-                       dst.data_ptr(), src.shape[0], dst.numel(), s)
-        return [dw, db]
+        dw, db = self.reduce([part.view(chunks, -1), bias_part])
+        return [dw.view(ka, n), db]
+
+    def reduce(self, parts_list):
+        """The rows of each ``parts [P, *]`` (f32) summed in row order: one
+        launch for all, or (a variant without the segment table) one a
+        segment."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops.layer_fused_train import \
+            reduce_rows_plan
+
+        outs = [torch.empty(p.shape[1:], dtype=torch.float32,
+                            device=p.device) for p in parts_list]
+        s = torch.cuda.current_stream().cuda_stream
+        if not self.reduce_segs:
+            for p, out in zip(parts_list, outs):
+                self._call("bwd", "nylon_reduce_rows", p.data_ptr(),
+                           out.data_ptr(), p.shape[0], out.numel(), s)
+            return outs
+        segs = []
+        for p, out in zip(parts_list, outs):
+            segs += [p.data_ptr(), out.data_ptr(), p.shape[0], out.numel(),
+                     reduce_rows_plan(p.shape[0], out.numel())[0]]
+        segs += [None, None, 0, 0, 0] * (2 - len(parts_list))
+        self._call("bwd", "nylon_reduce_rows", *segs, s)
+        return outs
+
+    def hash_mask(self, x, rows, d2, dtype, seed, tag, row0, rate):
+        """K6's kernel over a ``(rows, d2)`` view of ``dtype`` (``row0``:
+        the JAX function's, with d1 = rows): the mask, or x * mask."""
+        import torch
+
+        from nylon_amt_tpu_torch.ops import attention as att
+
+        th, keep, half = att.site_constants(rate, d2, dtype)
+        base = (row0 * rows * (half or d2)) & 0xFFFFFFFF
+        out = torch.empty((rows, d2), dtype=dtype, device="cuda")
+        self._call("hash", "nylon_hash_mask",
+                   None if x is None else x.data_ptr(), out.data_ptr(),
+                   rows, d2, att.site_key(seed, tag), th, keep, half, base,
+                   int(dtype == torch.bfloat16),
+                   torch.cuda.current_stream().cuda_stream)
+        return out
 
     def q8(self, x, relu=0, var=None):
         """An int8 GEMM of ``q8_inputs`` ``x``: the GEMM + bias, ``[out]``,
@@ -1481,6 +1585,180 @@ def timing_q8_cols(libs: dict) -> None:
                                     total.items()), flush=True)
 
 
+# (rows, d2, row0) the mask kernel is held at: packed rows (256, 512, 768
+# wide), unpacked ones (the paper and the default widths, odd widths), a
+# flat tail under a vector, a few items or thousands a thread
+HASH_CHECKS = [(1003, 256, 0), (77, 512, 2), (5, 768, 0), (1003, 88, 0),
+               (4099, 128, 1), (333, 96, 0), (31, 7, 0), (3, 3, 5),
+               (262144, 256, 0), (90112, 88, 0)]
+# (label, rows, d2, dtype, x * mask, launches a step): the embedding-dropout
+# launches of the paper bf16 and the default f32 batch-8 fused steps (the
+# forward and the backward's recompute of each stage), then the per-site
+# models' activation sites at the paper widths
+HASH_TIMES = [("paper step, freq", 262144, 256, "bf16", True, 2),
+              ("paper step, time", 90112, 256, "bf16", True, 2),
+              ("default f32 step, freq", 262144, 64, "f32", True, 2),
+              ("default f32 step, time", 90112, 64, "f32", True, 2),
+              ("per-site FFN mid, freq", 262144, 512, "bf16", True, 0),
+              ("per-site FFN mid, time", 90112, 512, "bf16", True, 0),
+              ("mask only, probabilities", 90112, 88, "f32", False, 0)]
+
+
+def check_hash(libs: dict) -> dict:
+    """Hold every variant's mask kernel at HASH_CHECKS in bf16 and f32, the
+    mask and x * mask, bit for bit against ``hash_keep_mask_plain``; two
+    runs bit-identical. Returns ``{name: passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops import attention as att
+
+    ok = {name: True for name in libs}
+    for (rows, d2, row0), dt, with_x in (
+            (c, dt, wx) for c in HASH_CHECKS
+            for dt in (torch.bfloat16, torch.float32) for wx in (False, True)):
+        g = torch.Generator(device="cuda").manual_seed(rows + d2)
+        x = torch.randn((rows, d2), generator=g, device="cuda").to(dt) \
+            if with_x else None
+        want = att.hash_keep_mask_plain(DROP_SEED, 5, row0, (1, rows, d2),
+                                        RATE, dt, "cuda")[0]
+        if with_x:
+            want = x * want
+        for name, lib in libs.items():
+            try:
+                got = [lib.hash_mask(x, rows, d2, dt, DROP_SEED, 5, row0, RATE)
+                       for _ in range(2)]
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"hash {name} {(rows, d2, row0)}: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            same = _equal(got[:1], got[1:])
+            passed = same and _equal(got[:1], [want])
+            ok[name] &= passed
+            if not passed:
+                print(f"hash {name} [{rows}, {d2}] row0 {row0} {dt}"
+                      f"{' x * mask' if with_x else ''}: "
+                      f"{(got[0] != want).sum().item()} elements differ"
+                      f"{'' if same else ', reruns DIFFER'}", flush=True)
+    exact = "bit for bit, reruns bit-identical"
+    for name in libs:
+        print(f"hash {name}: {len(HASH_CHECKS) * 4} cases "
+              f"{exact if ok[name] else 'FAILED'}", flush=True)
+    return ok
+
+
+def timing_hash(libs: dict) -> None:
+    """Each variant's mask kernel A B .. B A by ``graph_ms`` at HASH_TIMES
+    beside the bytes bound (x read once, the output written once), and the
+    two fused steps' launches summed."""
+    import torch
+
+    names = list(libs)
+    total = {}
+    for label, rows, d2, dt_, with_x, count in HASH_TIMES:
+        dt = torch.bfloat16 if dt_ == "bf16" else torch.float32
+        x = torch.randn((rows, d2), device="cuda").to(dt) if with_x else None
+        ms = _abba(names, lambda name: libs[name].hash_mask(
+            x, rows, d2, dt, DROP_SEED, 6, 0, RATE), graph_ms)
+        bound = rows * d2 * dt.itemsize * (2 if with_x else 1) / HBM_BPS * 1e3
+        _line(f"hash_mask {label} {dt_}{' x * mask' if with_x else ''}",
+              f"[{rows},{d2}]", count, ms, bound, "no library call")
+        if count:
+            step = total.setdefault(label.split(",")[0],
+                                    dict.fromkeys(names + ["bound"], 0.0))
+            for name, t in ms.items():
+                step[name] += count * t
+            step["bound"] += count * bound
+        del x
+        torch.cuda.empty_cache()
+    for step, t in total.items():
+        print(f"time of the {step}'s 4 mask launches (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
+
+
+# (P, n) segment lists the reduction is held at: one and two segments,
+# columns not a multiple of 4, tiles of every width, a tall LayerNorm one
+REDUCE_CHECKS = [[(11, 196608), (22, 768)], [(528, 256), (528, 256)],
+                 [(5, 10)], [(7, 1030), (1, 4)], [(33, 4096), (66, 64)],
+                 [(792, 64), (792, 64)], [(16, 131072), (16, 512)]]
+
+
+def reduce_inputs(segs, seed=0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((p, n), generator=g, device="cuda") * 100
+            for p, n in segs]
+
+
+def check_reduce(libs: dict) -> dict:
+    """Hold every variant's reduction at REDUCE_CHECKS bit for bit against
+    ``reduce_rows_plain``; two runs bit-identical. Returns ``{name:
+    passed}``."""
+    import torch
+
+    from nylon_amt_tpu_torch.ops.layer_fused_train import reduce_rows_plain
+
+    ok = {name: True for name in libs}
+    for i, segs in enumerate(REDUCE_CHECKS):
+        parts = reduce_inputs(segs, seed=i)
+        want = reduce_rows_plain(parts)
+        for name, lib in libs.items():
+            try:
+                got, again = lib.reduce(parts), lib.reduce(parts)
+                torch.cuda.synchronize()
+            except (Refused, RuntimeError) as e:
+                print(f"reduce {name} {segs}: {e!r}", flush=True)
+                ok[name] = False
+                continue
+            passed = _equal(got, want) and _equal(got, again)
+            ok[name] &= passed
+            print(f"reduce {name} {segs}: " + (
+                "bit for bit, reruns bit-identical" if passed
+                else "DIFFERS"), flush=True)
+    for name in libs:
+        print(f"reduce {name}: {'passed' if ok[name] else 'FAILED'}",
+              flush=True)
+    return ok
+
+
+def timing_reduce(libs: dict) -> None:
+    """Each variant's reduction A B .. B A by ``graph_ms`` at every launch
+    of the paper bf16 and the default f32 batch-8 steps
+    (``reduce_step_segments``), beside the bytes bound (each partial read
+    once, the sums written once) and ``parts.sum(0)`` of each segment; and
+    each step's launches summed."""
+    import torch
+
+    from nylon_amt_tpu_torch.config import Config, ModelConfig
+
+    names = list(libs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, dt, m_cfg in (
+            ("paper bf16", torch.bfloat16, ModelConfig.paper_scale()),
+            ("default f32", torch.float32, Config().model)):
+        total = dict.fromkeys(names + ["bound", "parts.sum(0)"], 0.0)
+        launches = 0
+        for what, segs, count in reduce_step_segments(m_cfg, dt, sms):
+            parts = reduce_inputs(segs)
+            ms = _abba(names, lambda name: libs[name].reduce(parts),
+                       graph_ms)
+            lib_ms = graph_ms(lambda: [p.sum(0) for p in parts])
+            bound = sum(p * n + n for p, n in segs) * 4 / HBM_BPS * 1e3
+            _line(f"reduce_rows {label} {what}", str(segs), count, ms, bound,
+                  f"parts.sum(0) {lib_ms:.4f}")
+            for name, t in ms.items():
+                total[name] += count * t
+            total["bound"] += count * bound
+            total["parts.sum(0)"] += count * lib_ms
+            launches += count
+            del parts
+            torch.cuda.empty_cache()
+        print(f"time of one {label} step's {launches} reduction launches "
+              f"(ms): " + ", ".join(f"{k} {v:.3f}" for k, v in total.items()),
+              flush=True)
+
+
 def attention_inputs(n, lq, lk, hid, dtype, seed=0, packed=False):
     """Seeded q, k, v, do ``[n, L, hid]`` in ``dtype`` on the card; with
     ``packed`` (lq == lk) q, k, v are the column slices of one ``[n, L, 3
@@ -2004,6 +2282,12 @@ def main(argv=None) -> int:
     ap.add_argument("--q8-cols", action="store_true",
                     help="check and time V's int8 column quantizer "
                          "(layer_fused_q8.cu's quant_cols_kernel) only")
+    ap.add_argument("--hash-mask", action="store_true",
+                    help="check and time K6's mask kernel (hash_mask.cu) "
+                         "only")
+    ap.add_argument("--reduce-rows", action="store_true",
+                    help="check and time the partial-sum reduction "
+                         "(layer_fused_train.cu's reduce_rows_kernel) only")
     ap.add_argument("--same", action="store_true",
                     help="fail unless every variant's forward GEMMs give the "
                          "first variant's bits and SASS")
@@ -2020,10 +2304,17 @@ def main(argv=None) -> int:
     built = build(variants, Path(args.out),
                   Q8_PARTS if args.q8 or args.q8_cols else ATTN16_PARTS
                   if args.attn16 else ATTN32_PARTS if args.attn32 else
-                  LN_PARTS if args.ln_bwd else tuple(SOURCES))
+                  LN_PARTS if args.ln_bwd or args.reduce_rows else HASH_PARTS
+                  if args.hash_mask else tuple(SOURCES))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {name: Lib(paths, variants[name])
             for name, paths in built.items() if paths}
+    if args.hash_mask or args.reduce_rows:
+        ok = check_hash(libs) if args.hash_mask else check_reduce(libs)
+        if libs and not args.no_time:
+            timing_hash(libs) if args.hash_mask else timing_reduce(libs)
+        first = next(iter(libs), None)
+        return 0 if len(libs) == len(variants) and ok.get(first) else 1
     if args.ln_bwd or args.q8_cols:
         ok = check_ln(libs) if args.ln_bwd else check_q8_cols(libs)
         if libs and not args.no_time:

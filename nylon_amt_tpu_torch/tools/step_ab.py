@@ -1,5 +1,8 @@
-"""A/B the default configuration's float32 train step between source trees
-in one run on the card, its time split into host and device time.
+"""A/B a train step between source trees in one run on the card, its time
+split into host and device time: the default configuration's float32
+step, or (``--config``) the paper configuration's bf16 step through the
+fused layers (``paper``, ``chip_smoke.py`` (j)) or through the per-site
+path with ``--remat`` (``remat``, (l)).
 
 Each tree is a checkout of this repository (the working tree, a parent
 commit unpacked with ``git archive`` under ``build/``). Each run is an
@@ -9,9 +12,9 @@ that tree's package and builds that tree's kernels (under its own
 drift of the card shows as two readings of one tree that differ.
 
 A run takes the seeded batch that ``chip_smoke.py`` (n) times (the
-default ``Config()``: float32, batch 8, dropout on; the tree's own
-``chip_smoke.py`` makes it), warms up, and then reads over ``--steps``
-steps, ``--reps`` times:
+configuration's own: batch 8, dropout on; the tree's own ``chip_smoke.py``
+makes it), warms up, and then reads over ``--steps`` steps, ``--reps``
+times:
 
 * ``wall_ms``: the step's time by CUDA events (the card's clock);
 * ``host_ms``: the host's time to issue a step, the loop timed without a
@@ -40,13 +43,13 @@ import sys
 from pathlib import Path
 
 _CHILD = r"""
-import json, sys, tempfile, time
+import dataclasses, json, sys, tempfile, time
 from pathlib import Path
 import numpy as np
 import torch
 sys.path.insert(0, str(Path.cwd()))
 import chip_smoke as cs
-from nylon_amt_tpu_torch import Config
+from nylon_amt_tpu_torch import Config, ModelConfig
 from nylon_amt_tpu_torch.data.corpus import SplitArrays
 from nylon_amt_tpu_torch.data.windows import WindowDataset
 from nylon_amt_tpu_torch.ops.mel import MelFrontend
@@ -54,9 +57,11 @@ from nylon_amt_tpu_torch.train import step as st
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-steps, reps = int(sys.argv[1]), int(sys.argv[2])
+steps, reps, which = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dev = torch.device("cuda:0")
-cfg = Config()
+cfg = Config() if which == "default" else Config(model=dataclasses.replace(
+    ModelConfig.paper_scale(), compute_dtype="bfloat16",
+    remat=which == "remat"))
 audio = cs.synth_audio(cs.AUDIO_SEC, np.random.default_rng(cs.SEED))
 feat = MelFrontend(cfg.feature, dev)(torch.from_numpy(audio).to(dev))
 (Path.cwd() / "build").mkdir(exist_ok=True)
@@ -113,11 +118,18 @@ def _card() -> str:
         return "nvidia-smi not found"
 
 
-def run(tree: Path, steps: int, reps: int) -> dict:
+# what --config times: the default Config() (f32), the paper config (bf16)
+# through the fused layers, and through the per-site path with --remat
+CONFIGS = {"default": "default Config() f32 train step",
+           "paper": "paper bf16 fused train step",
+           "remat": "paper bf16 --remat per-site train step"}
+
+
+def run(tree: Path, steps: int, reps: int, which: str = "default") -> dict:
     """One timed run of ``tree``'s step in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(steps),
-                           str(reps)], cwd=tree, env=env,
+                           str(reps), which], cwd=tree, env=env,
                           capture_output=True, text=True)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("STEP_AB ")]
@@ -134,6 +146,7 @@ def main(argv=None) -> int:
                     help="the runs, a letter a tree in the order given")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--config", choices=tuple(CONFIGS), default="default")
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.trees)
     names = list(trees)
@@ -141,14 +154,15 @@ def main(argv=None) -> int:
     out = {n: [] for n in names}
     for letter in args.order:
         name = names[ord(letter) - ord("A")]
-        r = run(Path(trees[name]).resolve(), args.steps, args.reps)
+        r = run(Path(trees[name]).resolve(), args.steps, args.reps,
+                args.config)
         out[name].append(r)
         print(f"STEP_AB {name} " + json.dumps(r), flush=True)
     for name, rs in out.items():
         med = {k: statistics.median(r[k] for r in rs)
                for k in ("wall_ms", "host_ms", "busy_ms", "idle")}
-        print(f"step_ab {name}: default Config() f32 train step (batch 8) "
-              f"wall {med['wall_ms']:.3f} ms, host {med['host_ms']:.3f} ms "
+        print(f"step_ab {name}: {CONFIGS[args.config]} (batch 8) wall "
+              f"{med['wall_ms']:.3f} ms, host {med['host_ms']:.3f} ms "
               f"to issue, device-busy {med['busy_ms']:.3f} ms, idle "
               f"{med['idle']:.1%} (medians of {len(rs)} runs)", flush=True)
     return 0

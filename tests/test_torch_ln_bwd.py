@@ -20,6 +20,13 @@ CPU, in a few seconds:
    contiguous, a misaligned start.
 4. ``ln_bwd_layout``: no lane idles at the default, hid-96 and paper
    widths in either dtype.
+5. The reduction of the partial sums (``reduce_rows_kernel``,
+   ``nylon_reduce_rows``): ``reduce_rows_plain`` is a numpy f32 loop in
+   row order bit for bit; ``reduce_rows_plan``'s tiles cover every column;
+   ``_weight_grad`` and ``_LnGrads.reduce`` each make one call with both
+   segments; a fused step's calls are ``reduce_step_segments``' (52 at
+   the paper's layer counts, 34 at the default's); the wrapper refuses
+   what the kernel does not take before any call.
 """
 
 from __future__ import annotations
@@ -199,10 +206,10 @@ def test_ln_bwd_cuda_takes_the_step_widths(calls):
         da, dam, dg, db = tlt.ln_bwd_cuda(dy, s, g, site)
         assert da.shape == dam.shape == dy.shape and dg.shape == (n,)
     assert [name for name, _ in calls] == [
-        "nylon_ln_bwd_f32", "nylon_reduce_rows", "nylon_reduce_rows",
-        "nylon_ln_bwd", "nylon_reduce_rows", "nylon_reduce_rows",
-        "nylon_ln_bwd", "nylon_reduce_rows", "nylon_reduce_rows",
-        "nylon_ln_bwd_f32", "nylon_reduce_rows", "nylon_reduce_rows"]
+        "nylon_ln_bwd_f32", "nylon_reduce_rows",
+        "nylon_ln_bwd", "nylon_reduce_rows",
+        "nylon_ln_bwd", "nylon_reduce_rows",
+        "nylon_ln_bwd_f32", "nylon_reduce_rows"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -213,3 +220,93 @@ def test_ln_bwd_layout_idles_no_lane_at_the_model_widths(dtype, n):
     assert kc in (1, 2, 3) and lanes in (1, 2, 4, 8, 16, 32)
     assert kc * lanes * per_chunk == n            # every lane busy
     assert rows == tlt._LN_WARPS * 32 // lanes    # a row group a warp
+
+
+# ------------------------------------------ the partial-sum reduction --
+
+@pytest.mark.parametrize("p,n", [(1, 7), (11, 300), (528, 256), (33, 64)])
+def test_reduce_rows_plain_adds_in_row_order(p, n):
+    rng = np.random.default_rng(p * n)
+    parts = (rng.standard_normal((p, n)) * 10.0 ** rng.integers(
+        -3, 4, (p, n))).astype(np.float32)
+    want = np.zeros(n, np.float32)
+    for row in parts:
+        want = (want + row).astype(np.float32)
+    got = tlt.reduce_rows_plain([torch.from_numpy(parts)])[0]
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("p,n", [(11, 196608), (22, 768), (528, 256),
+                                 (792, 64), (131, 8192), (5, 10), (1, 4)])
+def test_reduce_rows_plan_tiles_every_column(p, n):
+    cols, blocks = tlt.reduce_rows_plan(p, n)
+    assert cols & (cols - 1) == 0 and tlt._RED_MIN_COLS <= cols <= \
+        tlt._RED_MAX_COLS
+    assert blocks * cols >= n > (blocks - 1) * cols
+    # a block takes about _RED_BLOCK_BYTES of partials where tiles allow
+    assert p * cols * 4 <= 2 * tlt._RED_BLOCK_BYTES or \
+        cols == tlt._RED_MIN_COLS
+
+
+def _segments(args):
+    """The (P, n, cols) of each segment of a ``nylon_reduce_rows`` call."""
+    segs = [args[5 * i + 2:5 * i + 5] for i in range(2)]
+    return [s for s, ptr in zip(segs, (args[0], args[5])) if ptr is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_weight_grad_reduces_weight_and_bias_in_one_launch(calls, dtype):
+    m, ka, n = 5000, 256, 768
+    kernels.reset_launches()
+    dw, db = tlt._weight_grad(_meta((m, ka), dtype), _meta((m, n), dtype))
+    assert dw.shape == (ka, n) and db.shape == (n,)
+    assert [name for name, _ in calls] == [
+        "nylon_wgrad" + ("" if dtype == torch.bfloat16 else "_f32"),
+        "nylon_reduce_rows"]
+    assert kernels.launches["reduce_rows"] == 1
+    bm, _, _, chunks = tlt.wgrad_layout(m, ka, n, dtype, SMS)
+    want = [(chunks, ka * n), (chunks * -(-ka // bm), n)]
+    assert _segments(calls[1][1]) == [
+        (p, k, tlt.reduce_rows_plan(p, k)[0]) for p, k in want]
+
+
+def test_ln_grads_reduce_dgamma_and_dbeta_in_one_launch(calls):
+    ln = tlt._LnGrads(90112, 256, 3, torch.device("meta"), torch.bfloat16)
+    kernels.reset_launches()
+    dg, db = ln.reduce()
+    assert dg.shape == db.shape == (256,)
+    assert [name for name, _ in calls] == ["nylon_reduce_rows"]
+    assert kernels.launches["reduce_rows"] == 1
+    p = 3 * tlt.ln_bwd_plan(90112, 256, torch.bfloat16, SMS)[1]
+    assert _segments(calls[0][1]) == [(p, 256, 8)] * 2
+
+
+def test_reduce_refuses_before_any_call(calls):
+    f32 = _meta((4, 64), torch.float32)
+    for parts in ((), (f32, f32, f32), (_meta((4, 64)),),
+                  (_meta((4, 128), torch.float32)[:, :64],),
+                  (_meta((4 * 64 + 1,), torch.float32)[1:].view(4, 64),),
+                  (_meta((0, 64), torch.float32),)):
+        with pytest.raises(ValueError):
+            tlt._reduce(*parts)
+    assert calls == []
+
+
+@pytest.mark.parametrize("which", ["paper bf16", "default f32"])
+def test_train_step_reduces_once_a_dw_product_and_a_layer(calls, which):
+    from nylon_amt_tpu_torch.tools.gemm_ab import reduce_step_segments
+
+    if which == "paper bf16":
+        cfg = Config(model=dataclasses.replace(ModelConfig.paper_scale(),
+                                               compute_dtype="bfloat16"))
+        name, dtype = "nylon_ln_bwd", torch.bfloat16
+    else:
+        cfg, name, dtype = Config(), "nylon_ln_bwd_f32", torch.float32
+    _step_calls(cfg, calls, name)
+    got = sorted(tuple((p, n) for p, n, _ in _segments(a))
+                 for n_, a in calls if n_ == "nylon_reduce_rows")
+    assert kernels.launches["reduce_rows"] == len(got)
+    want = sorted(tuple(segs) for _, segs, count in reduce_step_segments(
+        cfg.model, dtype, SMS, batch=1) for _ in range(count))
+    assert got == want and len(got) == (52 if which == "paper bf16" else 34)
