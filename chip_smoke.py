@@ -273,7 +273,27 @@ non-zero and never prints the last line):
     counted in (j) and (n)): bit for bit ``reduce_rows_plain``, reruns
     bit-identical; each launch's time (CUDA graphs) beside its bytes bound,
     the plain twin and ``parts.sum(0)`` of its segments; its JSON row:
-    (j)'s launches summed, (n)'s beside them.
+    (j)'s launches summed, (n)'s beside them;
+(w) the training workflow of a user through ``cli.main`` at the default
+    ``Config()`` widths (float32, two train shards), on four 8 s rich
+    pieces of ``tools/proof_corpus.py`` (2 train, 1 valid, 1 test):
+    ``corpus --refs --n-div-train 2 --device cuda`` with one K1 launch a
+    file, every file's features bit for bit a direct
+    ``MelFrontend(cfg.feature, "cuda")`` call, the labels, ``idx``, lists
+    and ``ref/`` texts byte-identical to ``--device cpu``'s; ``train
+    --epochs 2 --valid-test --test-metrics --trace`` (``loss_test`` an
+    (epoch, div), ``test_performance.json``'s six keys, the trace naming
+    ``gemm_res_ln``, ``attn_bwd`` and ``hash_mask_kernel``, the training
+    kernels' launches exact); the same run in a child interpreter, in
+    another that gets SIGUSR1 once epoch 0 is saved, then
+    ``--resume-auto`` in a third (all three under PyTorch's deterministic
+    algorithms: without them two identical runs part in their first
+    epoch): the resumed run's (1, 1) ``model.dat`` and ``loss_train`` bit
+    for bit the uninterrupted child's; ``--init-from`` the traced run's
+    checkpoints for one epoch (the optimizer's step one epoch's, the
+    parameters moved) and into a hid-128 config (the mismatch
+    ``SystemExit``); ``transcribe --checkpoint DIR --epoch 1 --div 1
+    --list`` and ``--int8``, then ``evaluate``, with exact launch counts.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -5120,6 +5140,327 @@ def check_reduce_rows(dev, card: str, launches: dict) -> dict:
                     "launches", "ms", "plain_ms", "bound_ms", "library_ms")})
 
 
+# The CLI in a child interpreter with PyTorch's deterministic algorithms:
+# without them two identical training runs on the card part in their first
+# epoch (the library calls on the path that the mode changes are the stem's
+# cuDNN convolution, ops/layer_fused.py::fused_stem, and cuBLAS's
+# workspace; which of them varies is not measured)
+_DETERMINISTIC_CLI = ("import sys, torch; "
+                      "torch.use_deterministic_algorithms(True, "
+                      "warn_only=True); "
+                      "from nylon_amt_tpu_torch.cli import main; "
+                      "sys.exit(main(sys.argv[1:]))")
+
+
+def _run_child(argv: list[str], log_path: Path, on_marker=None
+               ) -> tuple[int, bool]:
+    """The CLI (``_DETERMINISTIC_CLI``) with ``argv`` in a child interpreter
+    (its output to ``log_path``). With ``on_marker = (path, signum)``, the
+    child gets ``signum`` once ``path`` exists, while it still runs.
+    Returns (exit code, whether the signal was sent); the child never
+    outlives the call."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", _DETERMINISTIC_CLI,
+                                 *argv], cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        sent = False
+        try:
+            if on_marker is not None:
+                marker, signum = on_marker
+                while proc.poll() is None and not marker.exists():
+                    time.sleep(0.01)
+                if proc.poll() is None:
+                    proc.send_signal(signum)
+                    sent = True
+            rc = proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rc, sent
+
+
+def check_workflow(card: str, cli_main) -> None:
+    """(w): the training workflow of a user through ``cli.main`` at the
+    default ``Config()`` widths (float32; two train shards): rich pieces
+    of ``tools/proof_corpus.py`` -> ``corpus`` (K1) -> ``train --valid-test
+    --test-metrics --trace`` -> a preempted and auto-resumed run, bit for
+    bit the uninterrupted one -> ``--init-from`` warm start (and its
+    mismatch error) -> ``transcribe --checkpoint DIR --epoch --div``
+    [``--int8``] -> ``evaluate``."""
+    import signal
+
+    from nylon_amt_tpu_torch import Config, kernels
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays, build_corpus_split
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.labels import midi2note, note2label
+    from nylon_amt_tpu_torch.ops.mel import MelFrontend
+    from nylon_amt_tpu_torch.tools import proof_corpus
+    from nylon_amt_tpu_torch.train.checkpoint import load_params
+    from nylon_amt_tpu_torch.utils.wavio import load_mono, save_wav
+
+    t_phase = time.perf_counter()
+    base = Config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, n_div_train=2))
+    m = cfg.model
+    dur, n_slice = 8.0, "4"
+    names = {"train": ["tr0", "tr1"], "valid": ["va0"], "test": ["te0"]}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        cfg_path = str(tmp / "config.json")
+        cfg.save(cfg_path)
+        # 1. the pieces and their lists
+        rng = np.random.default_rng(SEED + 19)
+        (tmp / "pairs").mkdir()
+        (tmp / "lists").mkdir()
+        for split, stems in names.items():
+            rows = []
+            for stem in stems:
+                wav, _ = proof_corpus.synth_rich_piece(
+                    rng, cfg, str(tmp / "pairs" / f"{stem}.mid"), dur=dur)
+                save_wav(str(tmp / "pairs" / f"{stem}.wav"), wav, SR)
+                rows.append(f"{stem}\t{tmp / 'pairs' / stem}.wav\t"
+                            f"{tmp / 'pairs' / stem}.mid\n")
+            (tmp / "lists" / f"{split}.tsv").write_text("".join(rows))
+
+        # 2. the corpus on the card and on the CPU
+        corpus_argv = ["corpus", "--config", cfg_path, "--lists",
+                       str(tmp / "lists"), "--refs", "--n-div-train", "2"]
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main([*corpus_argv, "--out", str(tmp / "corpus"),
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        if rc != 0 or counts != {"log_mel": 4}:
+            raise AssertionError(f"(w) corpus --device cuda: rc {rc}, "
+                                 f"launches {counts}, expected one log_mel "
+                                 f"a file (4)")
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main([*corpus_argv, "--out", str(tmp / "corpus_cpu"),
+                           "--device", "cpu"])
+        if rc != 0:
+            raise AssertionError(f"(w) corpus --device cpu: rc {rc}")
+        # every file's features bit for bit a direct call of the frontend
+        fe = MelFrontend(cfg.feature, "cuda")
+        for split, stems in names.items():
+            pieces = []
+            for stem in stems:
+                feat = fe(load_mono(str(tmp / "pairs" / f"{stem}.wav"),
+                                    SR)).cpu().numpy()
+                notes = midi2note(cfg, str(tmp / "pairs" / f"{stem}.mid"))
+                pieces.append((feat, note2label(cfg, notes)))
+            build_corpus_split(cfg, pieces, str(tmp / "want"), split,
+                               n_div=2 if split == "train" else 1)
+        arrays = sorted(p.name for p in (tmp / "corpus").glob("*.npy"))
+        if arrays != sorted(p.name for p in (tmp / "want").glob("*.npy")) \
+                or len(arrays) != 4 * 6:
+            raise AssertionError(f"(w) corpus arrays {arrays}")
+        bad = [n for n in arrays if (tmp / "corpus" / n).read_bytes() != (
+            tmp / ("want" if "_feature" in n else "corpus_cpu") / n
+        ).read_bytes()]
+        texts = sorted(p.relative_to(tmp / "corpus") for p in
+                       (tmp / "corpus").glob("*/*") if p.suffix in
+                       (".txt", ".tsv", ".list"))
+        bad += [str(p) for p in texts if (tmp / "corpus" / p).read_bytes()
+                != (tmp / "corpus_cpu" / p).read_bytes()]
+        n_refs = sum(1 for p in texts if p.parts[0] == "ref")
+        if bad or n_refs != 2 * 4:
+            raise AssertionError(f"(w) corpus files that differ: {bad} "
+                                 f"(features from a direct K1 call, the "
+                                 f"rest from --device cpu); {n_refs} ref "
+                                 f"texts")
+        # the steps of an epoch: the two train shards' windows
+        steps = sum(WindowDataset(SplitArrays.load(
+            str(tmp / "corpus"), "train", shard=d), cfg,
+            n_slice=int(n_slice)).steps_per_epoch for d in range(2))
+
+        # 3. train, with the test-split loss, the test pass and a trace
+        data_argv = ["train", "--config", cfg_path, "--dataset",
+                     str(tmp / "corpus"), "--n-slice", n_slice, "--device",
+                     "cuda"]
+        train_argv = [*data_argv, "--epochs", "2"]
+        run = tmp / "run"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main([*train_argv, "--out", str(run), "--valid-test",
+                           "--test-metrics", "--trace", str(tmp / "trace")])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        perf = json.loads((run / "performance.json").read_text())
+        scores = json.loads((run / "test_performance.json").read_text())
+        losses = perf["loss_train"] + perf["loss_valid"] + perf["loss_test"]
+        if rc != 0 or len(perf["loss_test"]) != 4 or not all(
+                map(math.isfinite, losses)) or set(scores) != {
+                "precision", "recall", "f1", "precision_no_offset",
+                "recall_no_offset", "f1_no_offset"}:
+            raise AssertionError(f"(w) train: rc {rc}, performance {perf}, "
+                                 f"test_performance {scores}")
+        per_step = {"hash_keep_mask": 4,
+                    "encoder_layer_train": m.enc_layer + m.dec_layer,
+                    "encoder_layer_train_bwd": m.enc_layer + m.dec_layer,
+                    "decoder_layer_zero_train": 1,
+                    "decoder_layer_zero_train_bwd": 1,
+                    "decoder_layer_train": m.dec_layer - 1,
+                    "decoder_layer_train_bwd": m.dec_layer - 1}
+        want = {k: v * 2 * steps for k, v in per_step.items()}
+        want.update(dict.fromkeys(MHA_SOURCES, 0))   # no per-site path
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"(w) train launches {got}, expected "
+                                 f"{want} ({steps} steps an epoch)")
+        trace = (tmp / "trace" / "trace.json").read_text()
+        names_in = {k: k in trace for k in ("gemm_res_ln", "attn_bwd",
+                                            "hash_mask_kernel")}
+        if not all(names_in.values()):
+            raise AssertionError(f"(w) kernels named in the trace: "
+                                 f"{names_in}")
+        trace_mb = len(trace) / 1e6
+        del trace
+
+        # 4. the same run in a child, uninterrupted; in another, preempted
+        # by SIGUSR1 in epoch 1, then resumed by --resume-auto in a third
+        pre, whole = tmp / "pre", tmp / "whole"
+        t0 = time.perf_counter()
+        rc, _ = _run_child([*train_argv, "--out", str(whole)],
+                           tmp / "whole.log")
+        if rc != 0:
+            raise AssertionError(f"(w) uninterrupted child: rc {rc}; log "
+                                 f"tail {(tmp / 'whole.log').read_text()[-2000:]}")
+        rc, sent = _run_child(
+            [*train_argv, "--out", str(pre)], tmp / "pre.log",
+            (pre / "checkpoints" / "model_000_001" / "host.json",
+             signal.SIGUSR1))
+        tags = sorted(p.parent.name for p in
+                      (pre / "checkpoints").glob("model_*/host.json"))
+        host = json.loads((pre / "checkpoints" / tags[-1] / "host.json")
+                          .read_text()) if tags else {}
+        if rc != 0 or not sent or not host.get("preempted") \
+                or not tags[-1].startswith("model_001_"):
+            raise AssertionError(
+                f"(w) preempted child: rc {rc}, signal sent {sent}, "
+                f"checkpoints {tags}, newest preempted "
+                f"{host.get('preempted')}; log tail "
+                f"{(tmp / 'pre.log').read_text()[-2000:]}")
+        rc, _ = _run_child([*train_argv, "--out", str(pre), "--resume-auto"],
+                           tmp / "resume.log")
+        preempt_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"(w) resumed child: rc {rc}; log tail "
+                                 f"{(tmp / 'resume.log').read_text()[-2000:]}")
+        got = load_params(str(pre / "checkpoints"), 1, 1)
+        want = load_params(str(whole / "checkpoints"), 1, 1)
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        loss_pre, loss_whole = (json.loads((d / "performance.json")
+                                           .read_text())["loss_train"]
+                                for d in (pre, whole))
+        if differ or got.keys() != want.keys() or loss_pre != loss_whole:
+            raise AssertionError(f"(w) preempted + resumed run against the "
+                                 f"uninterrupted one: tensors that differ "
+                                 f"{differ[:5]} of {len(want)}; loss_train "
+                                 f"{loss_pre} vs {loss_whole}")
+
+        # 5. warm start, and a checkpoint of another architecture
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main([*data_argv, "--epochs", "1", "--out",
+                           str(tmp / "warm"), "--init-from",
+                           str(run / "checkpoints")])
+        warm = tmp / "warm" / "checkpoints" / "model_000_001"
+        step = torch.load(warm / "optimizer.pt", weights_only=True)["step"]
+        start = load_params(str(run / "checkpoints"))      # the best
+        end = load_params(str(warm))
+        moved = sum(not torch.equal(start[k], end[k]) for k in start)
+        if rc != 0 or step != steps or moved < len(start) // 2:
+            raise AssertionError(f"(w) --init-from: rc {rc}, optimizer step "
+                                 f"{step} (expected {steps}), {moved} of "
+                                 f"{len(start)} tensors moved")
+        wide = dataclasses.replace(cfg, model=dataclasses.replace(
+            m, hid_dim=128))
+        wide.save(str(tmp / "wide.json"))
+        try:
+            cli_main(["train", "--config", str(tmp / "wide.json"),
+                      "--dataset", str(tmp / "corpus"), "--out",
+                      str(tmp / "wide"), "--init-from",
+                      str(run / "checkpoints"), "--device", "cuda"])
+            mismatch = "no error"
+        except SystemExit as e:
+            mismatch = str(e)
+        if "does not match this config's architecture" not in mismatch \
+                or (tmp / "wide" / "checkpoints" / "model_000_000").exists():
+            raise AssertionError(f"(w) --init-from into hid 128: {mismatch}")
+
+        # 6. transcribe the test split with the (1, 1) checkpoint, exact and
+        # int8, and score it
+        n_frames = 1 + int(dur * SR) // cfg.feature.hop_sample
+        n_batches = math.ceil(math.ceil(n_frames / cfg.input.num_frame)
+                              / BATCH)
+        runs = {}
+        for label, extra in (("exact", []), ("int8", ["--int8"])):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["transcribe", "--config", cfg_path,
+                               "--checkpoint", str(run / "checkpoints"),
+                               "--epoch", "1", "--div", "1", "--list",
+                               str(tmp / "lists"), "--split", "test", "--out",
+                               str(tmp / label), "--batch-windows",
+                               str(BATCH), *extra, "--device", "cuda"])
+            torch.cuda.synchronize()
+            t_counts = {k: v for k, v in kernels.launches.items() if v}
+            sfx = "_q8" if label == "int8" else ""
+            t_want = {"log_mel": 1, f"encoder_layer_with_stem{sfx}": n_batches,
+                      f"encoder_layer{sfx}": n_batches * (m.enc_layer - 1
+                                                          + m.dec_layer),
+                      f"decoder_layer_zero{sfx}": n_batches,
+                      f"decoder_layer{sfx}": n_batches * (m.dec_layer - 1)}
+            if label == "exact":
+                t_want.update({k: n_batches * v for k, v in
+                               f32_gemm_launches(m).items()})
+            if rc != 0 or t_counts != t_want:
+                raise AssertionError(f"(w) transcribe {label}: rc {rc}, "
+                                     f"launches {t_counts}, expected "
+                                     f"{t_want}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["evaluate", "--config", cfg_path, "--list",
+                               str(tmp / "lists"), "--split", "test",
+                               "--est-dir", str(tmp / label), "--out",
+                               str(tmp / f"scores_{label}.json")])
+            res = json.loads((tmp / f"scores_{label}.json").read_text())
+            if rc != 0 or "te0.notes.json" not in res["note"]["per_file"]:
+                raise AssertionError(f"(w) evaluate {label}: rc {rc}, {res}")
+            runs[label] = res["note"]["mean"].get("F-measure", float("nan"))
+    log(f"(w) workflow through the cli at the default widths (Config(): "
+        f"float32, hid {m.hid_dim}, 2 train shards), 4 rich pieces of "
+        f"{dur:.0f} s: corpus --device cuda {corpus_s:.2f} s, K1 once a "
+        f"file, features bit for bit a direct K1 call, labels, idx, lists "
+        f"and ref/ texts byte-identical to --device cpu; train 2 epochs x "
+        f"{steps} steps (--valid-test --test-metrics --trace) {train_s:.2f} "
+        f"s, loss_test {[round(x, 5) for x in perf['loss_test']]}, test "
+        f"note F1 {scores['f1']:.4f}, trace {trace_mb:.1f} MB naming "
+        f"gemm_res_ln, attn_bwd and hash_mask_kernel; SIGUSR1 in epoch 1 "
+        f"-> preempted at {tags[-1]} -> --resume-auto: model.dat and "
+        f"loss_train bit for bit the uninterrupted run's (three children "
+        f"under torch.use_deterministic_algorithms(True) and "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8, {preempt_s:.1f} s); --init-from: "
+        f"optimizer step {step}, {moved} of {len(start)} tensors moved; hid "
+        f"128 --init-from ends in the mismatch SystemExit; transcribe "
+        f"--epoch 1 --div 1 [--int8] + evaluate: launches exact, note F "
+        f"{runs['exact']:.4f} / int8 {runs['int8']:.4f}; "
+        f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5142,6 +5483,7 @@ def main() -> int:
                                                    reduce_step_segments)
     from nylon_amt_tpu_torch.utils.wavio import save_wav
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda:0")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -5548,6 +5890,9 @@ def main() -> int:
     results["reduce_rows"] = check_reduce_rows(dev, card, {
         "paper bf16 (j)": step_counts["reduce_rows"],
         "default f32 (n)": f32_counts["reduce_rows/default"]})
+
+    # (w) the training workflow through the CLI -----------------------------
+    check_workflow(card, cli_main)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -5718,6 +6063,8 @@ def main() -> int:
         "reduce_rows": ["layer_fused_train.cu"],
         "wgrad_f32": ["layer_fused_f32.cu", "layer_fused_train.cu"]}
     f32_sources["encoder_layer_with_stem_q8"].insert(0, "stem_embed.cu")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f}"
+        f" s (the kernels' build included)")
     log(card)  # name, power limit: nvidia-smi's own line
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,5 +1,17 @@
-"""Command-line interface of the PyTorch / CUDA port: ``train``,
-``transcribe`` and ``evaluate``.
+"""Command-line interface of the PyTorch / CUDA port: ``corpus``,
+``train``, ``transcribe`` and ``evaluate``.
+
+``corpus``: WAV+MIDI pairs -> log-mel features (K1 on ``--device cuda``,
+the plain version on ``--device cpu``), frame labels and windowable split
+arrays, as ``python -m nylon_amt_tpu.cli corpus`` writes them:
+
+    python -m nylon_amt_tpu_torch.cli corpus --lists lists/ --out corpus/ \
+        --refs --device cuda
+
+The pairs come from ``--lists DIR`` (``{split}.tsv``), ``--maestro-csv`` or
+``--maps-root``; ``--per-file`` writes one ``per_file/<name>.npz`` a piece
+instead of split arrays, ``--refs`` the mir_eval reference texts of the
+valid and test pieces under ``ref/``.
 
 ``train`` runs the (epoch, div) training recipe on split arrays written by
 the corpus step (``<split>_feature.npy``, ... as ``data/corpus.py`` saves
@@ -13,6 +25,14 @@ attention kernels):
 
 and writes ``parameter.json``, ``performance.json`` and
 ``checkpoints/model_EEE_DDD/model.dat`` (the reference's format).
+``--init-from`` warm-starts a fresh run (step 0, fresh Adam and scheduler)
+from a run's ``checkpoints/`` (its best checkpoint, or ``--init-epoch /
+--init-div``) or a ``.dat``; ``--resume`` / ``--resume-auto`` restore a run
+whole. SIGTERM or SIGUSR1 checkpoint the run at the next batch boundary
+and end it; ``--resume-auto`` re-runs the interrupted shard.
+``--valid-test`` records the test-split loss every (epoch, div),
+``--test-metrics`` writes ``test_performance.json`` after training and
+``--trace DIR`` writes a ``torch.profiler`` trace of the run.
 
 ``transcribe``: WAV -> posteriors -> note events -> MIDI (+ JSON), as
 ``python -m nylon_amt_tpu.cli transcribe`` does:
@@ -20,8 +40,10 @@ and writes ``parameter.json``, ``performance.json`` and
     python -m nylon_amt_tpu_torch.cli transcribe --checkpoint model.dat \\
         --config config.json --wav piece.wav --out out/ --device cuda
 
-``--checkpoint`` is a reference-format ``.dat`` (a ``torch.save`` dict with
-``model_dict``) or a bare ``state_dict`` with the reference's key names.
+``--checkpoint`` is a run's ``checkpoints/`` directory (its best
+checkpoint, or ``--epoch / --div``), a reference-format ``.dat`` (a
+``torch.save`` dict with ``model_dict``) or a bare ``state_dict`` with the
+reference's key names.
 Writes ``<stem>.mid``, ``<stem>.notes.json`` and one
 ``<stem>_{1st,2nd}.notes.json`` per head family; ``--tab`` adds
 ``<stem>.alphatex``, ``--sheet`` ``<stem>.musicxml`` and
@@ -57,23 +79,108 @@ from nylon_amt_tpu_torch.infer.transcribe import Transcriber
 from nylon_amt_tpu_torch.models.hft import build_model
 
 
-def load_model(path: str, config: Config, device: torch.device | str):
-    """Reference ``.dat`` / bare ``state_dict`` -> the config's model
-    (:func:`build_model`) on ``device`` (strict key match)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    sd = obj["model_dict"] if isinstance(obj, dict) and "model_dict" in obj \
-        else obj
+def load_model(path: str, config: Config, device: torch.device | str,
+               epoch: int | None = None, div: int | None = None):
+    """A checkpoint (:func:`~nylon_amt_tpu_torch.train.checkpoint.
+    load_params`: a run's ``checkpoints/``, a ``.dat`` or a bare
+    ``state_dict``) -> the config's model (:func:`build_model`) on
+    ``device`` (strict key match)."""
+    from nylon_amt_tpu_torch.train.checkpoint import load_params
+
     model = build_model(config, device)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(load_params(path, epoch, div), strict=True)
     return model.eval()
 
 
+def _load_config(path: str | None) -> Config:
+    return Config.load(path) if path else Config()
+
+
+def cmd_corpus(args) -> int:
+    from nylon_amt_tpu_torch.data.corpus import (build_corpus_split,
+                                                 write_manifest)
+    from nylon_amt_tpu_torch.data.lists import (CorpusList, make_list_maestro,
+                                                make_list_maps)
+    from nylon_amt_tpu_torch.labels import midi2note, note2label
+    from nylon_amt_tpu_torch.labels.note2ref import write_note_refs
+    from nylon_amt_tpu_torch.ops.mel import MelFrontend
+    from nylon_amt_tpu_torch.utils.wavio import load_mono
+
+    config = _load_config(args.config)
+    if args.maestro_csv:
+        cl = make_list_maestro(args.maestro_csv, args.root or
+                               os.path.dirname(args.maestro_csv))
+    elif args.maps_root:
+        cl = make_list_maps(args.maps_root)
+    else:
+        cl = CorpusList.load(args.lists)
+    os.makedirs(args.out, exist_ok=True)
+    cl.save(os.path.join(args.out, "lists"))
+
+    frontend = MelFrontend(config.feature, args.device)
+    n_div = {"train": args.n_div_train, "valid": args.n_div_valid,
+             "test": args.n_div_test}
+    for split in ("train", "valid", "test"):
+        entries = cl.entries[split]
+        if args.limit:
+            entries = entries[: args.limit]
+        pieces = []
+        for name, wav_path, midi_path in entries:
+            print(f"[{split}] {name}: {wav_path}", file=sys.stderr)
+            feat = frontend(load_mono(wav_path, config.feature.sr)
+                            ).cpu().numpy()
+            notes = midi2note(config, midi_path)
+            labels = note2label(config, notes,
+                                offset_duration_tolerance_flag=args
+                                .offset_duration_tolerance)
+            if args.per_file:
+                d = os.path.join(args.out, "per_file")
+                os.makedirs(d, exist_ok=True)
+                np.savez_compressed(os.path.join(d, name + ".npz"),
+                                    feature=feat, **labels)
+            if args.refs and split in ("valid", "test"):
+                # the reference's conv_note2ref.py texts, for the valid and
+                # test splits only (EXE-CORPUS-MAESTRO.sh:43-45)
+                d = os.path.join(args.out, "ref")
+                os.makedirs(d, exist_ok=True)
+                write_note_refs(notes, os.path.join(d, name))
+            pieces.append((feat, labels))
+        if pieces and not args.per_file:
+            build_corpus_split(config, pieces, args.out, split,
+                               n_div=n_div[split])
+    write_manifest(config, args.out)
+    print(f"corpus written to {args.out}")
+    return 0
+
+
+def warm_start(config: Config, path: str, epoch: int | None,
+               div: int | None, device):
+    """``--init-from``: a fresh train state (step 0, fresh Adam) with the
+    parameters of the checkpoint at ``path`` (:func:`~nylon_amt_tpu_torch.
+    train.checkpoint.load_params`), those it lacks at their fresh
+    initialisation; a checkpoint of another architecture ends the run."""
+    from nylon_amt_tpu_torch.train.checkpoint import load_params, merge_params
+    from nylon_amt_tpu_torch.train.step import create_train_state
+
+    state = create_train_state(config, config.train.seed, device)
+    loaded = load_params(path, epoch, div)
+    try:
+        merged = merge_params(state.model.state_dict(), loaded)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"--init-from {path}: parameter tree does "
+                         f"not match this config's architecture ({e})")
+    state.model.load_state_dict(merged)
+    return state
+
+
 def cmd_train(args) -> int:
+    import contextlib
+
     from nylon_amt_tpu_torch.data.corpus import SplitArrays
     from nylon_amt_tpu_torch.data.windows import WindowDataset
     from nylon_amt_tpu_torch.train.loop import Trainer
 
-    config = Config.load(args.config) if args.config else Config()
+    config = _load_config(args.config)
     overrides = {f: getattr(args, f) for f in
                  ("epochs", "batch_size", "lr", "n_slice", "seed",
                   "keep_checkpoints") if getattr(args, f) is not None}
@@ -92,18 +199,34 @@ def cmd_train(args) -> int:
                                   shard=div if n_div > 1 else None)
         return WindowDataset(arrays, config, n_slice=t.n_slice)
 
+    metrics_fn = None
+    if args.test_metrics:
+        from nylon_amt_tpu_torch.train.metrics import make_note_metrics_fn
+
+        metrics_fn = make_note_metrics_fn(config)
+    state = (warm_start(config, args.init_from, args.init_epoch,
+                        args.init_div, args.device)
+             if args.init_from else None)
     trainer = Trainer(config, args.out, device=args.device)
     resume = ("auto" if args.resume_auto
               else tuple(args.resume) if args.resume else None)
-    trainer.fit(provider, resume=resume)
+    ctx = contextlib.nullcontext()
+    if args.trace:
+        from nylon_amt_tpu_torch.utils.profiling import trace
+
+        ctx = trace(args.trace)
+    with ctx:
+        trainer.fit(provider, state=state, resume=resume,
+                    metrics_fn=metrics_fn, valid_test=args.valid_test)
     print(f"training done; best valid loss {trainer.best_loss_valid:.5f} "
           f"(epoch {trainer.best_epoch} div {trainer.best_div})")
     return 0
 
 
 def cmd_transcribe(args) -> int:
-    config = Config.load(args.config) if args.config else Config()
-    model = load_model(args.checkpoint, config, args.device)
+    config = _load_config(args.config)
+    model = load_model(args.checkpoint, config, args.device, args.epoch,
+                       args.div)
     tr = Transcriber(config, model, args.device,
                      batch_windows=args.batch_windows,
                      precision="int8" if args.int8 else None)
@@ -171,7 +294,7 @@ def cmd_evaluate(args) -> int:
         score_notes,
     )
 
-    config = Config.load(args.config) if args.config else Config()
+    config = _load_config(args.config)
     pairs = list(args.pair or [])
     if args.list:
         # every split entry's reference MIDI against the artifact that
@@ -230,6 +353,27 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nylon_amt_tpu_torch",
                                 description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+    c = sub.add_parser("corpus", help="build a windowable training corpus")
+    c.add_argument("--config", help="config JSON (default: Config())")
+    c.add_argument("--maestro-csv", help="maestro-v3.0.0.csv path")
+    c.add_argument("--maps-root", help="MAPS dataset root")
+    c.add_argument("--lists", help="directory with {split}.tsv lists")
+    c.add_argument("--root", help="dataset root for relative csv paths")
+    c.add_argument("--out", required=True)
+    c.add_argument("--n-div-train", type=int, default=1)
+    c.add_argument("--n-div-valid", type=int, default=1)
+    c.add_argument("--n-div-test", type=int, default=1)
+    c.add_argument("--limit", type=int, help="first N files per split")
+    c.add_argument("--offset-duration-tolerance", action="store_true")
+    c.add_argument("--per-file", action="store_true",
+                   help="write per-piece archives instead of split arrays")
+    c.add_argument("--refs", action="store_true",
+                   help="also write mir_eval reference txts for valid/test "
+                   "(conv_note2ref.py equivalents) under OUT/ref/")
+    c.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the log-mel kernel, cpu "
+                   "its plain version")
+    c.set_defaults(fn=cmd_corpus)
     t = sub.add_parser("train", help="train the hFT model")
     t.add_argument("--config", help="config JSON (default: Config())")
     t.add_argument("--dataset", required=True,
@@ -251,7 +395,23 @@ def build_parser() -> argparse.ArgumentParser:
                               metavar=("EPOCH", "DIV"))
     resume_group.add_argument("--resume-auto", action="store_true",
                               help="resume from the newest checkpoint on "
-                              "disk")
+                              "disk (crash / preemption recovery)")
+    t.add_argument("--init-from",
+                   help="warm-start (fine-tune) from pretrained params: a "
+                   "run's checkpoints/ dir or a reference .dat. Fresh "
+                   "optimizer / scheduler / epoch counters, unlike --resume, "
+                   "which restores the full training state")
+    t.add_argument("--init-epoch", type=int,
+                   help="with --init-from DIR: pick this (epoch, div)")
+    t.add_argument("--init-div", type=int)
+    t.add_argument("--trace",
+                   help="write a torch.profiler trace of the run to this "
+                   "dir (trace.json, Perfetto); for short profiling runs")
+    t.add_argument("--test-metrics", action="store_true",
+                   help="run the final test pass with note P/R/F1")
+    t.add_argument("--valid-test", action="store_true",
+                   help="also compute the test-split loss every (epoch, div) "
+                   "(reference -valid_test)")
     t.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the kernels, cpu the plain "
                    "versions")
@@ -259,7 +419,12 @@ def build_parser() -> argparse.ArgumentParser:
     r = sub.add_parser("transcribe", help="WAV -> MIDI")
     r.add_argument("--config", help="config JSON (default: Config())")
     r.add_argument("--checkpoint", required=True,
-                   help="reference .dat or state_dict file")
+                   help="a run's checkpoints/ dir, or a reference .dat or "
+                   "state_dict file")
+    r.add_argument("--epoch", type=int,
+                   help="with a checkpoints/ dir: this (epoch, div) instead "
+                   "of the best")
+    r.add_argument("--div", type=int)
     r.add_argument("--wav", nargs="+")
     r.add_argument("--list", help="lists dir ({split}.tsv): transcribe "
                    "every WAV of --split")

@@ -101,9 +101,10 @@ class MelFrontend:
         self.cos_w = torch.from_numpy(cos_w).to(self.device)   # [n_freqs, n_fft]
         self.sin_w = torch.from_numpy(sin_w).to(self.device)
         self.fb = torch.from_numpy(fb).to(self.device)         # [n_freqs, n_mels]
-        # the fused kernel's layout of the same constants (CUDA only)
+        # the fused kernel's layout of the same constants (off the CPU:
+        # every other device takes the kernel route)
         self.kernel_bases = (kernel_bases(cos_w, sin_w, fb, self.device)
-                             if self.device.type == "cuda" else None)
+                             if self.device.type != "cpu" else None)
 
     def frame(self, wav: torch.Tensor) -> torch.Tensor:
         """Centre-pad and cut into overlapping frames ``[n_frames, n_fft]``

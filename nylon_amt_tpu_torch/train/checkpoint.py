@@ -12,7 +12,9 @@ per (epoch, div), ``model_{epoch:03d}_{div:03d}/``, holding:
   its presence marks a complete checkpoint.
 
 ``best.json`` / ``best_epoch.txt`` beside the directories point at the
-best (epoch, div).
+best (epoch, div). :func:`load_params` reads a model's ``state_dict`` back
+for inference or a warm start, :func:`merge_params` overlays it on a fresh
+one.
 """
 
 from __future__ import annotations
@@ -132,6 +134,53 @@ class CheckpointManager:
             if name.startswith("model_") and name not in tags:
                 shutil.rmtree(os.path.join(self.directory, name),
                               ignore_errors=True)
+
+
+def merge_params(fresh: dict[str, torch.Tensor],
+                 loaded: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Overlay ``loaded`` onto ``fresh`` (two ``state_dict``s), keeping the
+    fresh tensors that ``loaded`` lacks.
+
+    The warm-start merge for architectures that EXTEND a pretrained one
+    (``nylon_amt_tpu.train.checkpoint.merge_params``): every shared tensor
+    comes from the checkpoint, the rest keep their fresh initialisation.
+    Raises ``KeyError`` on loaded keys absent from ``fresh`` and
+    ``ValueError`` on shape mismatches (a different architecture fails
+    loudly).
+    """
+    extra = set(loaded) - set(fresh)
+    if extra:
+        raise KeyError(f"checkpoint has parameters the model lacks: "
+                       f"{sorted(extra)[:5]}")
+    for k, v in loaded.items():
+        if tuple(v.shape) != tuple(fresh[k].shape):
+            raise ValueError(f"shape mismatch at {k}: checkpoint "
+                             f"{tuple(v.shape)} vs model "
+                             f"{tuple(fresh[k].shape)}")
+    return {k: loaded.get(k, v) for k, v in fresh.items()}
+
+
+def load_params(path: str, epoch: int | None = None,
+                div: int | None = None) -> dict[str, torch.Tensor]:
+    """A model's ``state_dict`` (CPU tensors) from ``path``: a run's
+    ``checkpoints/`` directory (the ``(epoch, div)`` checkpoint, or without
+    both the best one that ``best.json`` names), one ``model_EEE_DDD/``
+    directory, or a file: a reference-format ``.dat`` (``{"model_dict":
+    state_dict}``) or a bare ``state_dict``."""
+    if os.path.isdir(path):
+        if not os.path.isfile(os.path.join(path, MODEL_FILE)):
+            if epoch is None or div is None:
+                mgr = CheckpointManager(path)
+                tag = mgr.best_tag()
+                if tag is None:
+                    raise FileNotFoundError(f"no best checkpoint recorded in "
+                                            f"{path}")
+                epoch, div = tag
+            path = os.path.join(path, _tag(epoch, div))
+        path = os.path.join(path, MODEL_FILE)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return obj["model_dict"] if isinstance(obj, dict) and "model_dict" in obj \
+        else obj
 
 
 def rng_state_to_json(rng: np.random.Generator) -> dict:

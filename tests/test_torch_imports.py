@@ -47,7 +47,9 @@ def test_port_never_imports_jax():
                  "infer.sheet", "labels", "labels.midi2note", "metrics",
                  "metrics.transcription", "metrics.multipitch",
                  "metrics.harness", "models.hft", "models.ablation",
-                 "models.convert", "models.init"):
+                 "models.convert", "models.init", "labels.note2label",
+                 "labels.note2ref", "train.metrics", "utils.profiling",
+                 "tools.proof_corpus", "tools.learning_proof"):
         assert f"nylon_amt_tpu_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -235,6 +237,72 @@ def test_off_cpu_tensors_never_take_the_plain_path(dtype):
         else:
             assert kind == "RuntimeError", (name, kind, msg)
             assert "nvcc not found" in msg, (name, msg)
+
+
+# The child of test_cli_corpus_never_takes_the_plain_path: `cli corpus` on
+# --device cuda (no card here) and on --device meta, a meta tensor standing
+# in for a card's as above (device checks, guard and stream stubbed, no
+# nvcc).
+_CORPUS_CHILD = """
+import contextlib, json, os, sys, torch
+from pathlib import Path
+from nylon_amt_tpu_torch import cli, kernels
+kernels.BUILD_ROOT = Path(sys.argv[1])
+kernels.find_nvcc = lambda: None
+
+
+def check_cuda(name, t, dtype, ndim=None):
+    if t.device.type != 'meta' or t.dtype != dtype:
+        raise ValueError(f'{name}: expected a meta {dtype} tensor')
+
+
+kernels.check_cuda = check_cuda
+kernels.stream_of = lambda t: 0
+torch.cuda.device = lambda d: contextlib.nullcontext()
+out = {}
+for device in ('cuda', 'meta'):
+    d = os.path.join(sys.argv[3], device)
+    try:
+        rc = cli.main(['corpus', '--lists', sys.argv[2], '--out', d,
+                       '--device', device])
+        out[device] = ['returned', str(rc)]
+    except (RuntimeError, AssertionError, ValueError) as e:
+        out[device] = [type(e).__name__, str(e)]
+    out[device].append(sorted(f for f in os.listdir(d) if f.endswith('.npy'))
+                       if os.path.isdir(d) else [])
+out['launches'] = kernels.launches['log_mel']
+print(json.dumps(out))
+"""
+
+
+def test_cli_corpus_never_takes_the_plain_path(tmp_path):
+    """``cli corpus --device cuda`` without a card raises, and on a meta
+    device (a card's stand-in) the log-mel kernel's route reaches the
+    loader's "nvcc not found": no features are computed on the CPU instead
+    and no split array is written."""
+    import numpy as np
+
+    from nylon_amt_tpu_torch.midi.smf import write_notes
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    save_wav(str(tmp_path / "p.wav"),
+             0.3 * np.sin(np.arange(16000) * 0.1).astype(np.float32), 16000)
+    write_notes(str(tmp_path / "p.mid"), [{"pitch": 60, "onset": 0.1,
+                                           "offset": 0.5, "velocity": 80}])
+    (tmp_path / "lists").mkdir()
+    (tmp_path / "lists" / "train.tsv").write_text(
+        f"p\t{tmp_path / 'p.wav'}\t{tmp_path / 'p.mid'}\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CORPUS_CHILD, str(tmp_path / "build"),
+         str(tmp_path / "lists"), str(tmp_path / "out")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    out = _last_json(proc)
+    assert out["launches"] == 0
+    kind, msg, written = out["cuda"]
+    assert kind in ("RuntimeError", "AssertionError") and written == [], msg
+    assert out["meta"] == ["RuntimeError", out["meta"][1], []]
+    assert "nvcc not found" in out["meta"][1]
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
