@@ -275,7 +275,7 @@ non-zero and never prints the last line):
     the plain twin and ``parts.sum(0)`` of its segments; its JSON row:
     (j)'s launches summed, (n)'s beside them;
 (w) the training workflow of a user through ``cli.main`` at the default
-    ``Config()`` widths (float32, two train shards), on four 8 s rich
+    ``Config()`` widths (float32, two train shards), on four 6 s rich
     pieces of ``tools/proof_corpus.py`` (2 train, 1 valid, 1 test):
     ``corpus --refs --n-div-train 2 --device cuda`` with one K1 launch a
     file, every file's features bit for bit a direct
@@ -286,14 +286,35 @@ non-zero and never prints the last line):
     ``gemm_res_ln``, ``attn_bwd`` and ``hash_mask_kernel``, the training
     kernels' launches exact); the same run in a child interpreter, in
     another that gets SIGUSR1 once epoch 0 is saved, then
-    ``--resume-auto`` in a third (all three under PyTorch's deterministic
-    algorithms: without them two identical runs part in their first
-    epoch): the resumed run's (1, 1) ``model.dat`` and ``loss_train`` bit
+    ``--resume-auto`` in a third (all three at PyTorch's default
+    settings: no deterministic-algorithms mode, no cuBLAS workspace
+    setting): the resumed run's (1, 1) ``model.dat`` and ``loss_train`` bit
     for bit the uninterrupted child's; ``--init-from`` the traced run's
     checkpoints for one epoch (the optimizer's step one epoch's, the
     parameters moved) and into a hid-128 config (the mismatch
     ``SystemExit``); ``transcribe --checkpoint DIR --epoch 1 --div 1
-    --list`` and ``--int8``, then ``evaluate``, with exact launch counts.
+    --list`` and ``--int8``, then ``evaluate``, with exact launch counts;
+(x) streaming and serving (``infer/stream.py``, ``infer/serve.py``, ``cli
+    serve``): (x.1) a ``StreamingTranscriber`` at batch 1 on the paper
+    bf16 model, fed (b)'s 120 s audio in 100 ms chunks, then flushed: every
+    feature row bit for bit offline K1's, the emitted posteriors bit for
+    bit the batch-1 and the batch-32 offline transcripts', the popped
+    stable notes the offline decode's (pitch and velocity equal, times
+    within 1e-9 s), one K1 segment launch and one forward a block (the
+    one-copy block path in every feed, the two-call path only at the
+    flush), block wall p50 / p95, audio-s/s and ``latency_seconds``; K1's
+    segment entry alone at the steady state's segment, bit for bit its
+    whole-file entry on the same frames, against its plain version, timed
+    beside its bound; (x.2) a ``StreamServer`` (max_batch 8) with 8 sessions
+    of 30-120 s of other audio fed interleaved: every session's notes its
+    offline decode's, every pump one K1 launch per distinct pending
+    segment length and ceil(windows / 8) forwards, windows/s and the
+    pumps' wall p50 / p95; (x.3) ``serve --wav --midi --device cuda`` at
+    the default ``Config()`` on (w)'s (1, 1) checkpoint and on a seeded
+    random one (at least one note): rc 0, one JSON note a line, the notes
+    ``transcribe --batch-windows 1``'s of the same WAV; (x.4) the paper bf16 and the default f32 train step each run twice
+    from one saved state (``step_twice``) at PyTorch's default settings:
+    the loss and every gradient and parameter bit for bit.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
@@ -308,7 +329,8 @@ its own f32 references in ``full_f32``.
 Before the last line it prints the card's name and power limit and one JSON
 object with, per wrapper, the dtypes and head dims this run held against
 its plain version (``held``), its float32 sources and (n)'s f32 times
-(``f32``), and its launches (K1-K5 from (d), K6-K9 from (i), K13
+(``f32``), and its launches (K1-K5 from (d), K1's segment entry from
+(x.1)'s stream, K6-K9 from (i), K13
 from (k), K12 from (l)'s ``--remat`` training, K10 and K11 from its
 ``return_attention`` training, the f32 GEMMs from (n), the LayerNorm
 backward and the reduction from (j)), error, times and
@@ -332,6 +354,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5140,30 +5163,68 @@ def check_reduce_rows(dev, card: str, launches: dict) -> dict:
                     "launches", "ms", "plain_ms", "bound_ms", "library_ms")})
 
 
-# The CLI in a child interpreter with PyTorch's deterministic algorithms:
-# without them two identical training runs on the card part in their first
-# epoch (the library calls on the path that the mode changes are the stem's
-# cuDNN convolution, ops/layer_fused.py::fused_stem, and cuBLAS's
-# workspace; which of them varies is not measured)
-_DETERMINISTIC_CLI = ("import sys, torch; "
-                      "torch.use_deterministic_algorithms(True, "
-                      "warn_only=True); "
-                      "from nylon_amt_tpu_torch.cli import main; "
-                      "sys.exit(main(sys.argv[1:]))")
+def step_twice(cfg, batch_np, dev) -> dict:
+    """One train step of ``cfg`` on ``batch_np``, run twice from one saved
+    state (the model, Adam's moments after a first step, the dropout
+    seeds): the loss, every parameter's gradient and every parameter after
+    the update compared tensor by tensor, with PyTorch's default settings
+    (no deterministic-algorithms mode, no cuBLAS workspace setting).
+    Returns ``{"loss": [a, b], "grads": {name: max |a - b|} of the
+    gradients that differ, in the model's parameter order, "params": the
+    same for the parameters, "tensors": the count compared}``."""
+    import copy
+
+    from nylon_amt_tpu_torch.train import step as st
+
+    state = st.create_train_state(cfg, SEED, dev)
+    batch = st.to_device(batch_np, dev)
+    apply, draw = st.make_apply(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    st.train_step(cfg, state, batch, draw(cfg, gen), apply)  # Adam's moments
+    seeds = draw(cfg, gen)
+    model0 = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt0 = copy.deepcopy(state.optimizer.state_dict())
+
+    def run():
+        state.model.load_state_dict(model0)
+        state.optimizer.load_state_dict(copy.deepcopy(opt0))
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = st.loss_fn(cfg, apply, state.model, batch, seeds)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        state.optimizer.step()
+        params = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        torch.cuda.synchronize()
+        return loss.item(), grads, params
+
+    (loss_a, grads_a, params_a), (loss_b, grads_b, params_b) = run(), run()
+
+    def differ(a, b):
+        return {n: (a[n].float() - b[n].float()).abs().max().item()
+                for n in a if not torch.equal(a[n], b[n])}
+
+    return {"loss": [loss_a, loss_b], "grads": differ(grads_a, grads_b),
+            "params": differ(params_a, params_b), "tensors": len(params_a)}
 
 
 def _run_child(argv: list[str], log_path: Path, on_marker=None
                ) -> tuple[int, bool]:
-    """The CLI (``_DETERMINISTIC_CLI``) with ``argv`` in a child interpreter
-    (its output to ``log_path``). With ``on_marker = (path, signum)``, the
-    child gets ``signum`` once ``path`` exists, while it still runs.
-    Returns (exit code, whether the signal was sent); the child never
-    outlives the call."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT),
-               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    """The CLI (``python -m nylon_amt_tpu_torch.cli``) with ``argv`` in a
+    child interpreter (its output to ``log_path``), at PyTorch's default
+    settings: no deterministic-algorithms mode, no cuBLAS workspace
+    setting (the port's training is bit-reproducible without them). With
+    ``on_marker = (path, signum)``, the child gets ``signum`` once ``path``
+    exists, while it still runs. Returns (exit code, whether the signal was
+    sent); the child never outlives the call."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
     with open(log_path, "w") as out:
-        proc = subprocess.Popen([sys.executable, "-c", _DETERMINISTIC_CLI,
-                                 *argv], cwd=ROOT, env=env, stdout=out,
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "nylon_amt_tpu_torch.cli", *argv], cwd=ROOT,
+                                env=env, stdout=out,
                                 stderr=subprocess.STDOUT)
         sent = False
         try:
@@ -5182,14 +5243,17 @@ def _run_child(argv: list[str], log_path: Path, on_marker=None
     return rc, sent
 
 
-def check_workflow(card: str, cli_main) -> None:
+def check_workflow(card: str, cli_main, keep: Path) -> None:
     """(w): the training workflow of a user through ``cli.main`` at the
     default ``Config()`` widths (float32; two train shards): rich pieces
     of ``tools/proof_corpus.py`` -> ``corpus`` (K1) -> ``train --valid-test
     --test-metrics --trace`` -> a preempted and auto-resumed run, bit for
-    bit the uninterrupted one -> ``--init-from`` warm start (and its
-    mismatch error) -> ``transcribe --checkpoint DIR --epoch --div``
-    [``--int8``] -> ``evaluate``."""
+    bit the uninterrupted one (three children at PyTorch's default
+    settings) -> ``--init-from`` warm start (and its mismatch error) ->
+    ``transcribe --checkpoint DIR --epoch --div`` [``--int8``] ->
+    ``evaluate``. The run's ``checkpoints/`` and the test piece
+    (``te0.wav``) are copied into ``keep`` for (x.3)."""
+
     import signal
 
     from nylon_amt_tpu_torch import Config, kernels
@@ -5206,7 +5270,7 @@ def check_workflow(card: str, cli_main) -> None:
     cfg = dataclasses.replace(base, train=dataclasses.replace(
         base.train, n_div_train=2))
     m = cfg.model
-    dur, n_slice = 8.0, "4"
+    dur, n_slice = 6.0, "4"
     names = {"train": ["tr0", "tr1"], "valid": ["va0"], "test": ["te0"]}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -5441,6 +5505,8 @@ def check_workflow(card: str, cli_main) -> None:
             if rc != 0 or "te0.notes.json" not in res["note"]["per_file"]:
                 raise AssertionError(f"(w) evaluate {label}: rc {rc}, {res}")
             runs[label] = res["note"]["mean"].get("F-measure", float("nan"))
+        shutil.copytree(run / "checkpoints", keep / "checkpoints")
+        shutil.copy(tmp / "pairs" / "te0.wav", keep / "te0.wav")
     log(f"(w) workflow through the cli at the default widths (Config(): "
         f"float32, hid {m.hid_dim}, 2 train shards), 4 rich pieces of "
         f"{dur:.0f} s: corpus --device cuda {corpus_s:.2f} s, K1 once a "
@@ -5452,13 +5518,332 @@ def check_workflow(card: str, cli_main) -> None:
         f"gemm_res_ln, attn_bwd and hash_mask_kernel; SIGUSR1 in epoch 1 "
         f"-> preempted at {tags[-1]} -> --resume-auto: model.dat and "
         f"loss_train bit for bit the uninterrupted run's (three children "
-        f"under torch.use_deterministic_algorithms(True) and "
-        f"CUBLAS_WORKSPACE_CONFIG=:4096:8, {preempt_s:.1f} s); --init-from: "
+        f"at PyTorch's defaults: no deterministic-algorithms mode, no "
+        f"CUBLAS_WORKSPACE_CONFIG; {preempt_s:.1f} s); --init-from: "
         f"optimizer step {step}, {moved} of {len(start)} tensors moved; hid "
         f"128 --init-from ends in the mismatch SystemExit; transcribe "
         f"--epoch 1 --div 1 [--int8] + evaluate: launches exact, note F "
         f"{runs['exact']:.4f} / int8 {runs['int8']:.4f}; "
         f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+
+
+# (x) streaming and multi-stream serving ---------------------------------------
+
+STREAM_CHUNK_MS = 100.0      # the stream's chunks (cli serve's --chunk-ms)
+SERVE_SECONDS = (30.0, 43.0, 56.0, 69.0, 82.0, 95.0, 108.0, 120.0)
+SERVE_BATCH = 8              # the server's max_batch
+
+
+def _stream_run(st, audio, chunk: int) -> tuple[list, list, list, float]:
+    """Feed ``audio`` to ``st`` in ``chunk``-sample chunks, popping the
+    stable notes after every feed that emits blocks (which prunes the
+    stream's posteriors), then flush: returns (the emitted blocks, notes,
+    wall seconds of each feed that emitted blocks, total wall)."""
+    blocks, notes, block_s = [], [], []
+    t_all = time.perf_counter()
+    for i in range(0, audio.shape[0], chunk):
+        t0 = time.perf_counter()
+        out = st.feed(audio[i: i + chunk])
+        if out:
+            block_s.append(time.perf_counter() - t0)
+            blocks += out
+            notes += st.pop_stable_notes()
+    blocks += st.flush()
+    notes += st.pop_stable_notes(final=True)
+    return blocks, notes, block_s, time.perf_counter() - t_all
+
+
+def _notes_equal(got, want, tol: float = 1e-9) -> str | None:
+    """None when the notes agree (pitch and velocity equal, onset and offset
+    within ``tol`` s, both sorted by pitch, onset and offset: across
+    pitches equal onsets may swap by one float ulp), else what parts."""
+    order = lambda x: (x["pitch"], x["onset"], x["offset"])
+    got, want = sorted(got, key=order), sorted(want, key=order)
+    if len(got) != len(want):
+        return f"{len(got)} notes vs {len(want)}"
+    for i, (g, r) in enumerate(zip(got, want)):
+        if g["pitch"] != r["pitch"] or g["velocity"] != r["velocity"] or \
+                abs(g["onset"] - r["onset"]) >= tol or \
+                abs(g["offset"] - r["offset"]) >= tol:
+            return f"note {i}: {g} vs {r}"
+    return None
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else float("nan")
+
+
+def check_streaming(cfg, model, feat, audio, dev, card, cli_main,
+                    first_batch, serve_ckpt: Path) -> dict:
+    """(x): the streaming slice at the paper widths in bf16 (batch 1), the
+    multi-stream server, ``cli serve`` at the default ``Config()`` on a
+    checkpoint of (w), and the train step run twice from one state.
+    Returns the JSON row of K1's segment entry (``log_mel_segments``)."""
+    from nylon_amt_tpu_torch import Config, kernels
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.infer.serve import StreamServer
+    from nylon_amt_tpu_torch.infer.stream import StreamingTranscriber
+    from nylon_amt_tpu_torch.infer.transcribe import Transcriber
+    from nylon_amt_tpu_torch.models.hft import HFT
+    from nylon_amt_tpu_torch.models.init import reference_initialize
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+    from nylon_amt_tpu_torch.ops.spectrogram import (log_mel,
+                                                     log_mel_segments,
+                                                     log_mel_segments_plain)
+
+    t_phase = time.perf_counter()
+    m = cfg.model
+    n_frame = cfg.input.num_frame
+    chunk = int(SR * STREAM_CHUNK_MS / 1000)
+    feat_np = feat.cpu().numpy()
+    tr1 = Transcriber(cfg, model, dev, batch_windows=1)
+    tr32 = Transcriber(cfg, model, dev, batch_windows=BATCH)
+    keys = [f"{k}_{f}" for f in ("A", "B")
+            for k in ("onset", "offset", "mpe", "velocity")]
+
+    # (x.1) one stream at batch 1, fed in 100 ms chunks: every feature row
+    # bit for bit offline K1's, the posteriors bit for bit the batch-1 and
+    # the batch-32 offline transcripts', the popped notes the offline
+    # decode; one K1 segment launch and one forward a block
+    st = StreamingTranscriber(cfg, transcriber=tr1)
+    rows = []
+    accept = st._accept_features
+    st._accept_features = lambda f: (rows.append(f.copy()), accept(f))[1]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    blocks, notes, block_s, wall = _stream_run(st, audio, chunk)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    n_blocks = -(-feat_np.shape[0] // n_frame)
+    paths = dict(st.paths)
+    streamed = np.concatenate(rows)
+    if streamed.shape != feat_np.shape or not np.array_equal(streamed,
+                                                             feat_np):
+        raise AssertionError(
+            f"(x.1) streamed feature rows {streamed.shape} vs offline K1 "
+            f"{feat_np.shape}: not bit for bit")
+    want = {"log_mel_segments": paths["fused"] + 1,
+            "encoder_layer_with_stem": n_blocks,
+            "encoder_layer": n_blocks * (m.enc_layer - 1 + m.dec_layer),
+            "decoder_layer_zero": n_blocks,
+            "decoder_layer": n_blocks * (m.dec_layer - 1)}
+    want = {k: v for k, v in want.items() if v}
+    if launches != want or paths["windows"] > 2 or \
+            paths["fused"] + paths["windows"] != n_blocks or \
+            len(block_s) != paths["fused"]:
+        raise AssertionError(
+            f"(x.1) stream launches {launches}, expected {want}; block "
+            f"paths {paths} for {n_blocks} blocks (one-copy path in every "
+            f"feed, the two-call path only at the flush); {len(block_s)} "
+            f"feeds emitted blocks")
+    post = {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
+    off1 = tr1.transcript(feat_np)
+    off32 = tr32.transcript(feat_np)
+    differ = {k: [label for label, off in (("batch 1", off1),
+                                           ("batch 32", off32))
+                  if not np.array_equal(post[k], off[k])] for k in keys}
+    differ = {k: v for k, v in differ.items() if v}
+    if set(post) != set(keys) or differ:
+        raise AssertionError(f"(x.1) streamed posteriors against the "
+                             f"offline transcripts, keys not bit for bit: "
+                             f"{differ}")
+    ref = tr1.mpe2note(off1["onset_B"], off1["offset_B"], off1["mpe_B"],
+                       off1["velocity_B"])
+    bad = _notes_equal(notes, ref)
+    if bad:
+        raise AssertionError(f"(x.1) popped notes vs the offline decode: "
+                             f"{bad}")
+    block_ms = [s * 1e3 for s in block_s]
+    log(f"(x.1) stream, paper bf16, batch 1, {AUDIO_SEC:.0f} s in "
+        f"{STREAM_CHUNK_MS:.0f} ms chunks: {n_blocks} blocks ({paths['fused']} "
+        f"by the one-copy path, {paths['windows']} at the flush by the "
+        f"two-call path), launches {launches}; feature rows bit for bit "
+        f"offline K1's, posteriors bit for bit the batch-1 and the batch-32 "
+        f"offline transcripts', {len(notes)} popped notes equal to the "
+        f"offline decode; block wall p50 {_pct(block_ms, 0.5):.3f} ms, p95 "
+        f"{_pct(block_ms, 0.95):.3f} ms (host clock, the feed that emits a "
+        f"block), {AUDIO_SEC / wall:.1f} audio-s/s over the whole stream "
+        f"(the note pops included), latency_seconds {st.latency_seconds:.3f}"
+        f"; card {card}")
+
+    # K1's segment entry alone at the steady state's segment (one block's
+    # pending frames, bucketed): against the plain version, and timed
+    seg_frames = 2 * n_frame
+    seg_len = (seg_frames - 1) * cfg.feature.hop_sample + cfg.feature.fft_bins
+    fe = tr1.frontend
+    seg = torch.from_numpy(audio[:seg_len][None].copy()).to(dev)
+    got = log_mel_segments(seg, fe)
+    plain = log_mel_segments_plain(seg, fe)
+    # the same frames from the whole-file entry (its frame i + n_fft / hop
+    # / 2 starts at sample i hop of the segment)
+    whole = log_mel(seg[0], fe)[cfg.feature.fft_bins // 2
+                                // cfg.feature.hop_sample:][:seg_frames]
+    if not torch.equal(got[0], whole):
+        raise AssertionError("(x) K1's segment entry vs its whole-file "
+                             "entry on the same frames: not bit for bit")
+    held("log_mel_segments", torch.float32)
+    err = (got - plain).abs().max().item()
+    ms = cuda_ms(lambda: log_mel_segments(seg, fe), iters=50)
+    plain_ms = cuda_ms(lambda: log_mel_segments_plain(seg, fe), iters=50)
+    n_fft = cfg.feature.fft_bins
+    weighted = fe.fb != 0
+    rows_ = weighted.any(1).nonzero().flatten().tolist()
+    n_bins = rows_[-1] - rows_[0] + 1
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound(nbytes(seg, got, *fe.kernel_bases),
+                       f64_flops=2 * 2 * seg_frames * n_fft * n_bins,
+                       f32_flops=seg_frames * (3 * n_bins
+                                               + 2 * int(weighted.sum()))),
+               library_ms=None, launches=launches["log_mel_segments"],
+               gate="bit for bit the whole-file entry's frames and offline "
+                    "K1's rows in the stream; max_abs_err against the plain "
+                    "f32 version")
+    log(f"(x) K1 segment entry, 1 x {seg_len} samples -> [1, {seg_frames}, "
+        f"{cfg.feature.mel_bins}]: kernel {ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain f32 "
+        f"{plain_ms:.4f} ms, kernel vs plain {err:.3e}; card {card}")
+
+    # (x.2) the server: 8 sessions of 30-120 s of other audio, fed
+    # interleaved, pumped with max_batch 8; per pump one K1 launch per
+    # distinct pending segment length and ceil(windows / 8) forwards
+    srv = StreamServer(cfg, transcriber=Transcriber(
+        cfg, model, dev, batch_windows=SERVE_BATCH))
+    wavs = [synth_audio(sec, np.random.default_rng(SEED + 40 + i))
+            for i, sec in enumerate(SERVE_SECONDS)]
+    sids = [srv.open() for _ in wavs]
+    got_notes = {sid: [] for sid in sids}
+    pump_s, n_windows, bad_pumps = [], 0, []
+    pos = 0
+    while srv.session_ids:
+        for sid, w in zip(sids, wavs):
+            if sid in srv.session_ids and sid not in srv._closing:
+                srv.feed(sid, w[pos: pos + chunk])
+                if pos + chunk >= w.shape[0]:
+                    srv.close(sid)
+        pos += chunk
+        lengths, windows = set(), 0
+        for sid in srv.session_ids:
+            s = srv.session(sid)
+            blocks = s._ready_block_ids(final=sid in srv._closing)
+            n = s._next_frame - s._featurized_until
+            windows += len(blocks)
+            if blocks and n > 0:
+                lengths.add(-(-n // n_frame))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for sid, ns in srv.pump():
+            got_notes[sid] += ns
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (kernels.launches["log_mel_segments"],
+                  kernels.launches["encoder_layer_with_stem"])
+        if counts != (len(lengths), -(-windows // SERVE_BATCH)):
+            bad_pumps.append((counts, len(lengths), windows))
+        if windows:
+            pump_s.append(dt)
+            n_windows += windows
+    if bad_pumps:
+        raise AssertionError(f"(x.2) pumps whose (K1, forward) launches are "
+                             f"not (distinct lengths, ceil(windows / 8)): "
+                             f"{bad_pumps[:5]}")
+    for sid, w in zip(sids, wavs):
+        off = tr32.transcript(log_mel(torch.from_numpy(w).to(dev), fe)
+                              .cpu().numpy())
+        bad = _notes_equal(got_notes[sid], tr32.mpe2note(
+            off["onset_B"], off["offset_B"], off["mpe_B"], off["velocity_B"]))
+        if bad:
+            raise AssertionError(f"(x.2) session {sid} ({w.shape[0] / SR:.0f}"
+                                 f" s) vs its offline decode: {bad}")
+    pump_ms = [s * 1e3 for s in pump_s]
+    log(f"(x.2) server, {len(wavs)} sessions of {SERVE_SECONDS[0]:.0f}-"
+        f"{SERVE_SECONDS[-1]:.0f} s fed interleaved in {STREAM_CHUNK_MS:.0f} "
+        f"ms chunks, max_batch {SERVE_BATCH}: every session's notes equal "
+        f"its offline decode ({sum(map(len, got_notes.values()))} notes); "
+        f"every pump one K1 launch per distinct segment length and "
+        f"ceil(windows / 8) forwards; {n_windows} windows in {len(pump_s)} "
+        f"pumps, {n_windows / sum(pump_s):.1f} windows/s over the pumps' "
+        f"wall, pump wall p50 {_pct(pump_ms, 0.5):.3f} ms, p95 "
+        f"{_pct(pump_ms, 0.95):.3f} ms (host clock); card {card}")
+
+    # (x.3) cli serve --wav --midi at the default Config() (f32, hid 64)
+    # against cli transcribe at batch 1 on the same WAV and checkpoint: on
+    # (w)'s (1, 1) checkpoint and the test piece, and on a seeded random
+    # checkpoint (random posteriors sit near the thresholds: many notes)
+    # and 30 s of (b)'s audio
+    tmp = serve_ckpt
+    default = Config()
+    torch.save({"model_dict": reference_initialize(
+        HFT(default, "cpu"), torch.Generator().manual_seed(SEED + 50))
+        .state_dict()}, tmp / "random.dat")
+    save_wav(str(tmp / "piece.wav"), audio[: 30 * SR], SR)
+    served_n = {}
+    for label, ckpt, wav, at in (
+            ("(w)'s (1, 1)", str(tmp / "checkpoints"), "te0",
+             ["--epoch", "1", "--div", "1"]),
+            ("a seeded random", str(tmp / "random.dat"), "piece", [])):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(["serve", "--checkpoint", ckpt, *at, "--wav",
+                           str(tmp / f"{wav}.wav"), "--midi",
+                           str(tmp / f"{wav}.serve.mid"), "--device",
+                           "cuda"])
+        torch.cuda.synchronize()
+        serve_counts = {k: v for k, v in kernels.launches.items() if v}
+        served = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_t = cli_main(["transcribe", "--checkpoint", ckpt, *at,
+                             "--wav", str(tmp / f"{wav}.wav"), "--out",
+                             str(tmp / "out"), "--batch-windows", "1",
+                             "--device", "cuda"])
+        ref = json.loads((tmp / "out" / f"{wav}.notes.json").read_text())
+        bad = _notes_equal(served, ref)
+        if rc != 0 or rc_t != 0 or bad or \
+                not (tmp / f"{wav}.serve.mid").exists() or \
+                not serve_counts.get("log_mel_segments") or \
+                serve_counts.get("log_mel") or not all(
+                    set(n) >= {"pitch", "onset", "offset", "velocity"}
+                    for n in served) or (wav == "piece" and not served):
+            raise AssertionError(
+                f"(x.3) cli serve on {label} checkpoint: rc {rc}, "
+                f"transcribe rc {rc_t}, MIDI "
+                f"{(tmp / f'{wav}.serve.mid').exists()}, launches "
+                f"{serve_counts}, {len(served)} notes; vs transcribe's: "
+                f"{bad}")
+        served_n[label] = (len(served), serve_counts)
+    dm = default.model
+    log(f"(x.3) cli serve --wav --midi at the default Config() "
+        f"({dm.compute_dtype}, hid {dm.hid_dim}): rc 0, the JSON note lines "
+        f"equal to cli transcribe's notes of the same WAV and checkpoint, "
+        f"MIDI written: " + "; ".join(
+            f"{label} checkpoint {n} notes, launches {c}"
+            for label, (n, c) in served_n.items()))
+
+    # (x.4) one train step run twice from one saved state, at PyTorch's
+    # defaults: every gradient and parameter bit for bit
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        write_corpus(default, feat, Path(d) / "corpus")
+        f32_batch = next(WindowDataset(
+            SplitArrays.load(str(Path(d) / "corpus"), "train"), default,
+            n_slice=default.train.n_slice).batches(default.train.batch_size))
+    for label, c, b in (("paper bf16", cfg, first_batch),
+                        ("default f32", default, f32_batch)):
+        r = step_twice(c, b, dev)
+        if r["grads"] or r["params"] or r["loss"][0] != r["loss"][1]:
+            raise AssertionError(f"(x.4) {label} step twice from one state: "
+                                 f"loss {r['loss']}, gradients that differ "
+                                 f"{r['grads']}, parameters {r['params']}")
+        log(f"(x.4) {label} train step (batch {c.train.batch_size}) run "
+            f"twice from one state with no deterministic-algorithms mode: "
+            f"loss, {r['tensors']} gradients and parameters bit for bit")
+    log(f"(x) done in {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return row
 
 
 def main() -> int:
@@ -5892,7 +6277,14 @@ def main() -> int:
         "default f32 (n)": f32_counts["reduce_rows/default"]})
 
     # (w) the training workflow through the CLI -----------------------------
-    check_workflow(card, cli_main)
+    (ROOT / "build").mkdir(exist_ok=True)
+    serve_ckpt = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, serve_ckpt, ignore_errors=True)
+    check_workflow(card, cli_main, serve_ckpt)
+
+    # (x) streaming and multi-stream serving ---------------------------------
+    results["log_mel_segments"] = check_streaming(
+        cfg, model, feat, audio, dev, card, cli_main, first_batch, serve_ckpt)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()
@@ -5988,6 +6380,7 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: "
                              f"{loaded[:5]}")
+    counts["log_mel_segments"] = results["log_mel_segments"].pop("launches")
     counts.update({k: train_counts[k] for k in (
         "hash_keep_mask", "encoder_layer_train", "encoder_layer_train_bwd",
         "decoder_layer_zero_train", "decoder_layer_zero_train_bwd",
@@ -5995,6 +6388,8 @@ def main() -> int:
     train = "nylon_amt_tpu/ops/layer_fused_train.py"
     sources = {
         "log_mel": ("log_mel.cu", "nylon_amt_tpu/ops/spectrogram_pallas.py:124"),
+        "log_mel_segments": ("log_mel.cu",
+                             "nylon_amt_tpu/ops/spectrogram_pallas.py:124"),
         "encoder_layer_with_stem": ("stem_embed.cu",
                                     "nylon_amt_tpu/ops/layer_fused.py:376"),
         "encoder_layer": ("layer_fused.cu", "nylon_amt_tpu/ops/layer_fused.py:301"),
@@ -6047,7 +6442,7 @@ def main() -> int:
     layer32, train32 = ["layer_fused_f32.cu", "mha_f32.cu"], [
         "layer_fused_f32.cu", "layer_fused_train.cu", "mha_f32.cu"]
     f32_sources = {
-        "log_mel": ["log_mel.cu"],
+        "log_mel": ["log_mel.cu"], "log_mel_segments": ["log_mel.cu"],
         "encoder_layer_with_stem": ["stem_embed.cu", *layer32],
         "encoder_layer": layer32, "decoder_layer_zero": layer32,
         "decoder_layer": layer32, "hash_keep_mask": ["hash_mask.cu"],

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch / CUDA port: ``corpus``,
-``train``, ``transcribe`` and ``evaluate``.
+``train``, ``transcribe``, ``serve`` and ``evaluate``.
 
 ``corpus``: WAV+MIDI pairs -> log-mel features (K1 on ``--device cuda``,
 the plain version on ``--device cpu``), frame labels and windowable split
@@ -50,6 +50,14 @@ Writes ``<stem>.mid``, ``<stem>.notes.json`` and one
 ``--save-posteriors`` ``<stem>.post.npz``. ``--list DIR --split S``
 transcribes every WAV of a lists directory's split; ``--int8`` runs the
 W8A8 layers.
+
+``serve``: streaming transcription, one JSON line a note as soon as it is
+stable, from s16le PCM on stdin or a stream simulated from a WAV
+(``infer/stream.py``; K1 featurizes each emitted block's segment on the
+card):
+
+    python -m nylon_amt_tpu_torch.cli serve --checkpoint model.dat \
+        --config config.json --wav piece.wav --midi out.mid --device cuda
 
 ``evaluate``: note-level and frame-level scores of transcriptions against
 reference MIDI, as JSON (the reference's EXE-EVALUATION-MAESTRO flow):
@@ -285,6 +293,57 @@ def cmd_transcribe(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Streaming transcription: s16le PCM at the config's sample rate on
+    stdin (or a stream simulated from ``--wav``) fed to a
+    :class:`~nylon_amt_tpu_torch.infer.stream.StreamingTranscriber` in
+    ``--chunk-ms`` chunks; each note is printed as one JSON line as soon as
+    it is stable (it cannot change with more audio). A final flush emits
+    the tail; ``--midi`` also writes the whole result as a MIDI file."""
+    from nylon_amt_tpu_torch.infer.stream import StreamingTranscriber
+
+    config = _load_config(args.config)
+    model = load_model(args.checkpoint, config, args.device, args.epoch,
+                       args.div)
+    st = StreamingTranscriber(config, model, args.device,
+                              batch_windows=args.batch_windows)
+    sr = config.feature.sr
+    chunk = max(1, int(sr * args.chunk_ms / 1000))
+    all_notes: list[dict] = []
+
+    def emit(notes) -> None:
+        for n in notes:
+            all_notes.append(n)
+            print(json.dumps(n), flush=True)
+
+    # pop_stable_notes decodes a bounded tail and prunes consumed
+    # posteriors, so the service runs in bounded memory on endless streams
+    if args.wav:
+        from nylon_amt_tpu_torch.utils.wavio import load_mono
+
+        wav = load_mono(args.wav, sr)
+        for i in range(0, wav.shape[0], chunk):
+            if st.feed(wav[i: i + chunk]):
+                emit(st.pop_stable_notes())
+    else:
+        while True:
+            data = sys.stdin.buffer.read(chunk * 2)
+            if not data:
+                break
+            samples = np.frombuffer(data, "<i2").astype(np.float32) / 32768.0
+            if st.feed(samples):
+                emit(st.pop_stable_notes())
+    st.flush()
+    emit(st.pop_stable_notes(final=True))
+    if args.midi:
+        write_notes(args.midi, sorted(
+            sorted(all_notes, key=lambda x: x["pitch"]),
+            key=lambda x: x["onset"]))
+    print(f"# {len(all_notes)} notes, latency {st.latency_seconds:.2f}s",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_evaluate(args) -> int:
     from nylon_amt_tpu_torch.labels import midi2note
     from nylon_amt_tpu_torch.metrics.harness import (
@@ -456,6 +515,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: cuda runs the kernels, cpu the plain "
                    "versions")
     r.set_defaults(fn=cmd_transcribe)
+    v = sub.add_parser("serve", help="streaming transcription (s16le PCM "
+                       "on stdin, or a stream simulated from --wav) -> one "
+                       "JSON line a note")
+    v.add_argument("--config", help="config JSON (default: Config())")
+    v.add_argument("--checkpoint", required=True,
+                   help="a run's checkpoints/ dir, or a reference .dat or "
+                   "state_dict file")
+    v.add_argument("--epoch", type=int,
+                   help="with a checkpoints/ dir: this (epoch, div) instead "
+                   "of the best")
+    v.add_argument("--div", type=int)
+    v.add_argument("--wav", help="simulate a stream from this WAV (default: "
+                   "s16le PCM on stdin)")
+    v.add_argument("--chunk-ms", type=float, default=500.0)
+    v.add_argument("--batch-windows", type=int, default=1)
+    v.add_argument("--midi", help="also write the final MIDI here")
+    v.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the kernels, cpu the plain "
+                   "versions")
+    v.set_defaults(fn=cmd_serve)
     e = sub.add_parser("evaluate", help="score estimated vs reference notes")
     e.add_argument("--config", help="config JSON (default: Config())")
     e.add_argument("--pair", nargs="+",

@@ -51,6 +51,16 @@
 //    block's bins goes to shared memory and each mel bin gathers its own
 //    contiguous range of bins, in ascending order, with its f32 weights.
 //
+//  * Two entry points share the kernel: nylon_log_mel, the whole file with
+//    the centre padding (frame i starts at sample i hop - n_fft / 2), and
+//    nylon_log_mel_segments, S sample segments of one length in one launch
+//    (the grid's z is the segment; frame i of a segment starts at its
+//    sample i hop, no padding: the streaming featurizer's contract,
+//    nylon_amt_tpu/ops/mel.py::_compute_from_sample_blocks). Only the span
+//    start and the segment's base differ: a frame's arithmetic is the same
+//    wherever it sits, so a streamed frame has the bits of the same frame
+//    of the whole file.
+//
 // What changes from the TPU design: the Pallas kernel carried the mel sum
 // across a sequential grid axis over frequency blocks, and deinterleaved rows
 // and re-fetched a 16-row tail because BlockSpecs cannot overlap. CUDA blocks
@@ -193,8 +203,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const int* __restrict__ mel_tab,
                    const float* __restrict__ mel_w, float* __restrict__ out,
                    int n_frames, int n_fft, int hop, int n_mels,
-                   float log_offset) {
+                   float log_offset, int centre) {
   extern __shared__ uint8_t smem_raw[];
+  // segment blockIdx.z: its samples and its frames (one segment: the file)
+  wav += (size_t)blockIdx.z * n;
+  out += (size_t)blockIdx.z * n_frames * n_mels;
   const BasesRing ring(smem_raw);
   float* const Xs = reinterpret_cast<float*>(ring.base) + ring_words();
   float* const Ps = Xs + span_words(hop, n_fft);
@@ -204,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int mel_hi = groups[4 * blockIdx.y + 3];
   if (threadIdx.x == 0) ring.init();
   const int span = span_samples(hop, n_fft);
-  const long long s0 = (long long)f0 * hop - n_fft / 2;  // centre padding
+  const long long s0 = (long long)f0 * hop - centre;  // centre padding
   for (int e = threadIdx.x; e < span; e += kThreads) {
     const long long s = s0 + e;
     Xs[skew(e, hop)] = (s >= 0 && s < n) ? wav[s] : 0.f;
@@ -284,17 +297,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-}  // namespace
-
-extern "C" int nylon_log_mel(const void* wav, int n, const void* bases,
-                             int n_cols, const void* groups, int n_groups,
-                             const void* mel_tab, const void* mel_w,
-                             void* out, int n_frames, int n_fft, int hop,
-                             int n_mels, float log_offset, void* stream) {
+// Launch over `segs` segments of n samples each, `centre` samples of zero
+// padding before frame 0 (n_fft / 2 for a whole file, 0 for segments).
+int launch_log_mel(const void* wav, int n, int segs, const void* bases,
+                   int n_cols, const void* groups, int n_groups,
+                   const void* mel_tab, const void* mel_w, void* out,
+                   int n_frames, int n_fft, int hop, int n_mels,
+                   float log_offset, int centre, void* stream) {
   if (n <= 0 || hop <= 0 || hop % kBK || n_fft <= 0 || n_fft % kBK ||
-      n_mels <= 0 ||
-      n_groups <= 0 || n_groups > 65535 || n_cols <= 0 || n_cols % 8 ||
-      n_frames != 1 + n / hop)
+      n_mels <= 0 || segs <= 0 || segs > 65535 || n_frames <= 0 ||
+      n_groups <= 0 || n_groups > 65535 || n_cols <= 0 || n_cols % 8)
     return (int)cudaErrorInvalidValue;
   const size_t smem = log_mel_smem_bytes(hop, n_fft);
   if (smem > (size_t)sm::kSmemMax) return (int)cudaErrorInvalidValue;
@@ -304,10 +316,42 @@ extern "C" int nylon_log_mel(const void* wav, int n, const void* bases,
   const cudaError_t s = cudaFuncSetAttribute(
       log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (s != cudaSuccess) return (int)s;
-  const dim3 grid((n_frames + kFrames - 1) / kFrames, n_groups);
+  const dim3 grid((n_frames + kFrames - 1) / kFrames, n_groups, segs);
   log_mel_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       map, (const float*)wav, n, (const int*)groups, (const int*)mel_tab,
       (const float*)mel_w, (float*)out, n_frames, n_fft, hop, n_mels,
-      log_offset);
+      log_offset, centre);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The whole file wav [n] -> out [1 + n / hop, n_mels], centre-padded.
+extern "C" int nylon_log_mel(const void* wav, int n, const void* bases,
+                             int n_cols, const void* groups, int n_groups,
+                             const void* mel_tab, const void* mel_w,
+                             void* out, int n_frames, int n_fft, int hop,
+                             int n_mels, float log_offset, void* stream) {
+  if (n <= 0 || hop <= 0 || n_frames != 1 + n / hop)
+    return (int)cudaErrorInvalidValue;
+  return launch_log_mel(wav, n, 1, bases, n_cols, groups, n_groups, mel_tab,
+                        mel_w, out, n_frames, n_fft, hop, n_mels, log_offset,
+                        n_fft / 2, stream);
+}
+
+// S segments segs [S, seg_len] -> out [S, (seg_len - n_fft) / hop + 1,
+// n_mels]: frame i of a segment covers its samples [i hop, i hop + n_fft).
+extern "C" int nylon_log_mel_segments(const void* segs, int n_segs,
+                                      int seg_len, const void* bases,
+                                      int n_cols, const void* groups,
+                                      int n_groups, const void* mel_tab,
+                                      const void* mel_w, void* out,
+                                      int n_frames, int n_fft, int hop,
+                                      int n_mels, float log_offset,
+                                      void* stream) {
+  if (hop <= 0 || seg_len < n_fft || n_frames != (seg_len - n_fft) / hop + 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_log_mel(segs, seg_len, n_segs, bases, n_cols, groups,
+                        n_groups, mel_tab, mel_w, out, n_frames, n_fft, hop,
+                        n_mels, log_offset, 0, stream);
 }

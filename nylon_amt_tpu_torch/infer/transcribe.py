@@ -120,14 +120,15 @@ class Transcriber:
             pending.append((n, host))
         if pin:
             torch.cuda.synchronize(self.device)
-        keys = self._post_keys()
-        stacked = np.concatenate([h[:, :n].numpy() for n, h in pending],
-                                 axis=1)
-        result = {k: stacked[i] for i, k in enumerate(keys)}
-        for k in keys:
-            if k.startswith("velocity"):
-                result[k] = result[k].astype(np.int8)
-        return result
+        return self._post_dict(np.concatenate(
+            [h[:, :n].numpy() for n, h in pending], axis=1))
+
+    def _post_dict(self, stacked: np.ndarray) -> dict[str, np.ndarray]:
+        """Host posteriors stacked as :meth:`_run_batch` stacks them ->
+        ``{key: [N, num_frame, num_note]}`` (velocity as int8)."""
+        return {k: (stacked[i].astype(np.int8) if k.startswith("velocity")
+                    else stacked[i])
+                for i, k in enumerate(self._post_keys())}
 
     def transcript(self, feature: np.ndarray, mode: str = "combination"
                    ) -> dict[str, np.ndarray]:

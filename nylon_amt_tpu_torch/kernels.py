@@ -36,7 +36,8 @@ LIB_NAME = "libnylon_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# One counter per public wrapper: K1 log_mel, K2 encoder_layer_with_stem,
+# One counter per public wrapper: K1 log_mel (and log_mel_segments, its
+# batched un-centred entry for streamed segments), K2 encoder_layer_with_stem,
 # K3 encoder_layer, K4 decoder_layer_zero, K5 decoder_layer; K6
 # hash_keep_mask (its standalone kernel: the embedding-dropout site, or a
 # written mask), and the forward and backward of K7 encoder_layer_train, K8
@@ -50,7 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # backward (ln_bwd_kernel, bf16 and f32 alike) and the reduction of the dW
 # and dgamma / dbeta partials (reduce_rows_kernel: one launch a dW product
 # and one a layer's LayerNorm), one count a launch.
-launches: dict[str, int] = {"log_mel": 0, "encoder_layer_with_stem": 0,
+launches: dict[str, int] = {"log_mel": 0, "log_mel_segments": 0,
+                            "encoder_layer_with_stem": 0,
                             "encoder_layer": 0, "decoder_layer_zero": 0,
                             "decoder_layer": 0, "hash_keep_mask": 0,
                             "encoder_layer_train": 0,
@@ -80,6 +82,9 @@ _SIGNATURES = {
     # n_fft, hop, n_mels, log_offset, stream
     "nylon_log_mel": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F,
                       _P],
+    # segs, n_segs, seg_len, then nylon_log_mel's arguments from bases
+    "nylon_log_mel_segments": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I,
+                               _I, _I, _I, _F, _P],
     # spec_t, keff, beff, pos, out, batch, total, n_bin, n_frame, n_proc,
     # hid, sqrt_hid, stream
     "nylon_stem_embed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],

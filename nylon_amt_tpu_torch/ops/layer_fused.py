@@ -39,7 +39,6 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from nylon_amt_tpu_torch import kernels
 from nylon_amt_tpu_torch.ops.precision import full_f32
@@ -127,16 +126,25 @@ def sqrt_hid(hid: int, dt) -> torch.Tensor:
 def fused_stem(spec, k_eff, b_eff, dtype):
     """The 65-tap stem on ``spec [B, n_bin, total]`` -> ``[B, n_frame, n_bin,
     hid]`` embeddings in ``dtype`` (before the position embedding). The
-    convolution runs in IEEE f32 (cuDNN would default to TF32 on the card);
-    the result is rounded to ``dtype`` before the bias add."""
+    banded convolution runs as one IEEE f32 product of the 65-tap windows
+    (a strided view of ``spec``) with ``k_eff``; the result is rounded to
+    ``dtype`` before the bias add.
+
+    A product and not a cuDNN convolution: with the convolution, one
+    train step run twice from one state on the card gave ``conv.weight``
+    and ``tok_embedding_freq.weight`` gradients that differ (cuDNN's
+    weight-gradient algorithm; ``tools/step_ab.py --twice``), and two
+    identical training runs parted in their first epoch. cuBLAS's
+    products on one stream give the same bits from run to run, so
+    training is deterministic with no flag from the caller."""
     B, n_bin, total = spec.shape
     n_proc, hid = k_eff.shape
-    with full_f32():
-        emb = F.conv1d(spec.float().reshape(B * n_bin, 1, total),
-                       k_eff.t().unsqueeze(1))      # [B*n_bin, hid, n_frame]
-    emb = emb.to(dtype) + b_eff.to(dtype)[:, None]
     n_frame = total - n_proc + 1
-    return emb.reshape(B, n_bin, hid, n_frame).permute(0, 3, 1, 2)
+    windows = spec.float().reshape(B * n_bin, total).unfold(1, n_proc, 1)
+    with full_f32():
+        emb = torch.matmul(windows, k_eff)          # [B*n_bin, n_frame, hid]
+    emb = emb.to(dtype) + b_eff.to(dtype)
+    return emb.reshape(B, n_bin, n_frame, hid).transpose(1, 2)
 
 
 def stem_embed_plain(spec_t, keff, beff, pos, n_frame: int, dtype):

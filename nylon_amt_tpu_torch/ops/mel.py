@@ -11,7 +11,10 @@ normalisation, and the log.
 The plain version is three float32 matmuls (run in IEEE float32 on the card,
 see :func:`~nylon_amt_tpu_torch.ops.precision.full_f32`). On a CUDA device,
 ``__call__`` launches the fused log-mel kernel
-(:func:`nylon_amt_tpu_torch.ops.spectrogram.log_mel`) instead.
+(:func:`nylon_amt_tpu_torch.ops.spectrogram.log_mel`) instead, and the
+streaming entries (``features_from_sample_blocks``,
+``features_from_frames``) its segment entry
+(:func:`~nylon_amt_tpu_torch.ops.spectrogram.log_mel_segments`).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 
 from nylon_amt_tpu_torch.config import FeatureConfig
 from nylon_amt_tpu_torch.ops.precision import full_f32
-from nylon_amt_tpu_torch.ops.spectrogram import kernel_bases, log_mel
+from nylon_amt_tpu_torch.ops.spectrogram import (kernel_bases, log_mel,
+                                                  log_mel_segments)
 
 
 def _hz_to_mel_htk(f: np.ndarray | float) -> np.ndarray:
@@ -129,15 +133,19 @@ class MelFrontend:
     def features_from_frames(self, frames) -> torch.Tensor:
         """Explicit framing: ``[n, n_fft]`` sample frames -> ``[n, n_mels]``.
         Each output row depends only on its own frame (the streaming entry
-        of the reference package)."""
-        return self.compute_from_frames(self._tensor(frames))
+        of the reference package). Off the CPU each frame is a segment of
+        one frame for the kernel (:func:`log_mel_segments`)."""
+        frames = self._tensor(frames)
+        if frames.device.type == "cpu":
+            return self.compute_from_frames(frames)
+        return log_mel_segments(frames.contiguous(), self)[:, 0]
 
     def features_from_sample_blocks(self, segs) -> torch.Tensor:
         """``[S, seg_len]`` sample segments, frame ``i`` of a segment covering
-        samples ``[i*hop, i*hop + n_fft)`` -> ``[S, n_frames, n_mels]``."""
-        segs = self._tensor(segs)
-        frames = segs.unfold(1, self.cfg.fft_bins, self.cfg.hop_sample)
-        return self.compute_from_frames(frames)
+        samples ``[i*hop, i*hop + n_fft)`` -> ``[S, n_frames, n_mels]``: the
+        plain version on the CPU, the log-mel kernel's segment entry (one
+        launch) on any other device."""
+        return log_mel_segments(self._tensor(segs).contiguous(), self)
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):

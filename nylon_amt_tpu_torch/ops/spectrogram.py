@@ -1,10 +1,13 @@
-"""Fused log-mel spectrogram (K1): wrapper of ``csrc/log_mel.cu`` and its
-plain version.
+"""Fused log-mel spectrogram (K1): wrappers of ``csrc/log_mel.cu`` and
+their plain versions.
 
 Port of :func:`nylon_amt_tpu.ops.spectrogram_pallas.log_mel_pallas`. The
-kernel reads raw samples and writes ``[1 + n // hop, n_mels]`` float32
-log-mel; it does the centre padding, framing, windowed DFT, power, mel
-projection and log itself (design notes in the CUDA source).
+kernel reads raw samples and writes float32 log-mel; it does the framing,
+windowed DFT, power, mel projection and log itself (design notes in the
+CUDA source). :func:`log_mel` takes a whole file (``[1 + n // hop,
+n_mels]``, centre-padded); :func:`log_mel_segments` takes a batch of
+sample segments, un-centred (the streaming featurizer's entry), in one
+launch.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ BLOCK_BINS = 128   # bins a kernel block covers (kBins in csrc/log_mel.cu)
 MMA_N = 8          # the DFT mma's n: a group's first bin is a multiple of it
 KERNEL_MELS = 256  # the mel bins of the configurations the kernel is held at
 TAP_CHUNK = 32     # DFT taps per pipeline stage (kBK in csrc/log_mel.cu)
+MAX_SEGMENTS = 65535  # segments one launch takes (the grid's z)
 
 
 def mel_groups(fb: np.ndarray):
@@ -99,16 +103,11 @@ def log_mel_plain(wav: torch.Tensor, frontend) -> torch.Tensor:
     return frontend.compute_from_frames(frontend.frame(wav))
 
 
-def log_mel(wav: torch.Tensor, frontend) -> torch.Tensor:
-    """``wav [n]`` float32 -> log-mel ``[1 + n // hop, n_mels]``.
-
-    A CPU tensor takes the plain version; any other device launches the
-    fused kernel or raises.
-    """
-    if wav.device.type == "cpu":
-        return log_mel_plain(wav, frontend)
+def _check_kernel(name: str, x: torch.Tensor, ndim: int, frontend) -> None:
+    """Raise unless the kernel takes ``x`` (float32, on a CUDA device,
+    contiguous) and the frontend's geometry."""
     cfg = frontend.cfg
-    kernels.check_cuda("log_mel: wav", wav, torch.float32, ndim=1)
+    kernels.check_cuda(name, x, torch.float32, ndim=ndim)
     if cfg.pad_mode != "constant":
         raise ValueError("log-mel kernel: only pad_mode='constant' (zero "
                          "centre padding) is implemented")
@@ -119,9 +118,21 @@ def log_mel(wav: torch.Tensor, frontend) -> torch.Tensor:
                          f"0, got {cfg.mel_bins}, {cfg.fft_bins}, "
                          f"{cfg.hop_sample}")
     if (frontend.kernel_bases is None
-            or frontend.kernel_bases[0].device != wav.device):
+            or frontend.kernel_bases[0].device != x.device):
         raise ValueError(f"log-mel kernel: frontend lives on "
-                         f"{frontend.device}, wav on {wav.device}")
+                         f"{frontend.device}, input on {x.device}")
+
+
+def log_mel(wav: torch.Tensor, frontend) -> torch.Tensor:
+    """``wav [n]`` float32 -> log-mel ``[1 + n // hop, n_mels]``.
+
+    A CPU tensor takes the plain version; any other device launches the
+    fused kernel or raises.
+    """
+    if wav.device.type == "cpu":
+        return log_mel_plain(wav, frontend)
+    cfg = frontend.cfg
+    _check_kernel("log_mel: wav", wav, 1, frontend)
     bases, groups, mel_tab, mel_w = frontend.kernel_bases
     n = wav.shape[0]
     n_frames = 1 + n // cfg.hop_sample
@@ -134,4 +145,46 @@ def log_mel(wav: torch.Tensor, frontend) -> torch.Tensor:
                      n_frames, cfg.fft_bins, cfg.hop_sample, cfg.mel_bins,
                      cfg.log_offset, kernels.stream_of(wav))
     kernels.launches["log_mel"] += 1
+    return out
+
+
+def log_mel_segments_plain(segs: torch.Tensor, frontend) -> torch.Tensor:
+    """Plain version of :func:`log_mel_segments`: the segments' frames as a
+    strided view, then :meth:`MelFrontend.compute_from_frames`."""
+    cfg = frontend.cfg
+    return frontend.compute_from_frames(
+        segs.unfold(1, cfg.fft_bins, cfg.hop_sample))
+
+
+def log_mel_segments(segs: torch.Tensor, frontend) -> torch.Tensor:
+    """``segs [S, seg_len]`` float32 sample segments -> log-mel ``[S,
+    (seg_len - n_fft) // hop + 1, n_mels]``, frame ``i`` of a segment
+    covering its samples ``[i*hop, i*hop + n_fft)`` (no centre padding):
+    the streaming featurizer's contract, one launch for all S segments.
+
+    A CPU tensor takes the plain version; any other device launches the
+    fused kernel (its segment entry) or raises.
+    """
+    if segs.device.type == "cpu":
+        return log_mel_segments_plain(segs, frontend)
+    cfg = frontend.cfg
+    _check_kernel("log_mel_segments: segs", segs, 2, frontend)
+    n_segs, seg_len = segs.shape
+    if seg_len < cfg.fft_bins or not 0 < n_segs <= MAX_SEGMENTS:
+        raise ValueError(f"log_mel_segments: {n_segs} segments of "
+                         f"{seg_len} samples; the kernel takes 1 to "
+                         f"{MAX_SEGMENTS} of at least n_fft = "
+                         f"{cfg.fft_bins}")
+    bases, groups, mel_tab, mel_w = frontend.kernel_bases
+    n_frames = (seg_len - cfg.fft_bins) // cfg.hop_sample + 1
+    out = torch.empty((n_segs, n_frames, cfg.mel_bins), dtype=torch.float32,
+                      device=segs.device)
+    with torch.cuda.device(segs.device):
+        kernels.call("nylon_log_mel_segments", segs.data_ptr(), n_segs,
+                     seg_len, bases.data_ptr(), bases.shape[1],
+                     groups.data_ptr(), groups.shape[0], mel_tab.data_ptr(),
+                     mel_w.data_ptr(), out.data_ptr(), n_frames,
+                     cfg.fft_bins, cfg.hop_sample, cfg.mel_bins,
+                     cfg.log_offset, kernels.stream_of(segs))
+    kernels.launches["log_mel_segments"] += 1
     return out

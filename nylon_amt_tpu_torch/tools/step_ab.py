@@ -24,10 +24,15 @@ times:
   over ``--steps`` more steps, and ``idle`` = 1 - busy / wall.
 
 Each run prints a line ``STEP_AB {json}``; the summary gives each tree's
-median. Run from the root of a checkout on the card::
+median. With ``--twice`` each tree's step runs instead twice from one
+saved state (``chip_smoke.py``'s ``step_twice``, this checkout's), and
+the line names the gradients and parameters whose bits differ between
+the two runs. Run from the root of a checkout on the card::
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
     python -m nylon_amt_tpu_torch.tools.step_ab new=. old=build/parent
+    python -m nylon_amt_tpu_torch.tools.step_ab new=. old=build/parent \
+        --config paper --twice
 
 It prints the card's name and power limit first.
 """
@@ -70,6 +75,12 @@ with tempfile.TemporaryDirectory(dir=Path.cwd() / "build") as tmp:
     ds = WindowDataset(SplitArrays.load(str(Path(tmp) / "corpus"), "train"),
                        cfg, n_slice=cfg.train.n_slice)
     first = next(ds.batches(cfg.train.batch_size))
+if len(sys.argv) > 4:  # --twice: the step_twice of the given chip_smoke.py
+    import runpy
+    twice = runpy.run_path(sys.argv[4])["step_twice"](cfg, first, dev)
+    print("STEP_TWICE " + json.dumps(dict(twice, tree=str(Path.cwd()))),
+          flush=True)
+    sys.exit(0)
 state = st.create_train_state(cfg, cs.SEED, dev)
 batch = st.to_device(first, dev)
 gen = torch.Generator().manual_seed(cs.SEED)
@@ -125,18 +136,25 @@ CONFIGS = {"default": "default Config() f32 train step",
            "remat": "paper bf16 --remat per-site train step"}
 
 
-def run(tree: Path, steps: int, reps: int, which: str = "default") -> dict:
-    """One timed run of ``tree``'s step in a fresh interpreter."""
+# the chip_smoke.py whose step_twice --twice runs in every tree
+_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+
+
+def run(tree: Path, steps: int, reps: int, which: str = "default",
+        twice: bool = False) -> dict:
+    """One timed run of ``tree``'s step in a fresh interpreter (with
+    ``twice``, one ``step_twice`` of it instead)."""
     env = dict(os.environ, PYTHONPATH=str(tree))
+    tag = "STEP_TWICE " if twice else "STEP_AB "
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(steps),
-                           str(reps), which], cwd=tree, env=env,
-                          capture_output=True, text=True)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("STEP_AB ")]
+                           str(reps), which] + ([str(_SMOKE)] if twice
+                                                else []),
+                          cwd=tree, env=env, capture_output=True, text=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"{tree}: rc {proc.returncode}\n"
                            f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1][len("STEP_AB "):])
+    return json.loads(lines[-1][len(tag):])
 
 
 def main(argv=None) -> int:
@@ -147,10 +165,24 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--config", choices=tuple(CONFIGS), default="default")
+    ap.add_argument("--twice", action="store_true",
+                    help="instead of timing: run one step twice from one "
+                    "saved state in each tree (chip_smoke.py's step_twice) "
+                    "and print the tensors that differ")
     args = ap.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.trees)
     names = list(trees)
     print(_card(), flush=True)
+    if args.twice:
+        for name in names:
+            r = run(Path(trees[name]).resolve(), 0, 0, args.config, True)
+            print(f"STEP_TWICE {name} " + json.dumps(r), flush=True)
+            print(f"step_twice {name}: {CONFIGS[args.config]} (batch 8) "
+                  f"run twice from one state: loss {r['loss']}, "
+                  f"{len(r['grads'])} of {r['tensors']} gradients and "
+                  f"{len(r['params'])} parameters differ; gradients "
+                  f"{r['grads']}", flush=True)
+        return 0
     out = {n: [] for n in names}
     for letter in args.order:
         name = names[ord(letter) - ord("A")]

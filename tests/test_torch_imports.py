@@ -49,7 +49,8 @@ def test_port_never_imports_jax():
                  "metrics.harness", "models.hft", "models.ablation",
                  "models.convert", "models.init", "labels.note2label",
                  "labels.note2ref", "train.metrics", "utils.profiling",
-                 "tools.proof_corpus", "tools.learning_proof"):
+                 "tools.proof_corpus", "tools.learning_proof",
+                 "infer.stream", "infer.serve", "tools.stream_bench"):
         assert f"nylon_amt_tpu_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 
@@ -97,7 +98,7 @@ from nylon_amt_tpu_torch.ops import attention as att
 from nylon_amt_tpu_torch.ops import layer_fused_train as lt
 from nylon_amt_tpu_torch.ops import layer_fused_q8 as lq
 from nylon_amt_tpu_torch.ops.mel import MelFrontend
-from nylon_amt_tpu_torch.ops.spectrogram import log_mel
+from nylon_amt_tpu_torch.ops.spectrogram import log_mel, log_mel_segments
 kernels.BUILD_ROOT = Path('@BUILD@')
 kernels.find_nvcc = lambda: None
 
@@ -191,7 +192,9 @@ out = {}
 for dt_name in ('bfloat16', 'float32', 'float16'):
     dt = getattr(torch, dt_name)
     calls = {'log_mel': lambda: log_mel(f32(16000),
-                                        MelFrontend(Config().feature, 'cpu'))}
+                                        MelFrontend(Config().feature, 'cpu')),
+             'log_mel_segments': lambda: log_mel_segments(
+                 f32(3, 8192), MelFrontend(Config().feature, 'cpu'))}
     calls.update(geometry(dt, 256, 4, 512))  # head_dim 64, the paper widths
     calls.update(geometry(dt, 64, 2, 128))   # head_dim 32, the default widths
     res = {'cuda_tensor': cuda_tensor}
@@ -230,6 +233,7 @@ def test_off_cpu_tensors_never_take_the_plain_path(dtype):
     assert "fused_mha_dropout_bwd" in launches
     assert set(launches.values()) == {0}
     assert out.pop("log_mel")[0] in ("RuntimeError", "ValueError")
+    assert out.pop("log_mel_segments")[0] in ("RuntimeError", "ValueError")
     assert len(out) == 2 * 17, sorted(out)
     for name, (kind, msg) in out.items():
         if dtype == "float16":
