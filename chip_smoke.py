@@ -314,12 +314,39 @@ non-zero and never prints the last line):
     random one (at least one note): rc 0, one JSON note a line, the notes
     ``transcribe --batch-windows 1``'s of the same WAV; (x.4) the paper bf16 and the default f32 train step each run twice
     from one saved state (``step_twice``) at PyTorch's default settings:
-    the loss and every gradient and parameter bit for bit.
+    the loss and every gradient and parameter bit for bit;
+(y) the training input pipeline and the tablature head: (y.1) at the paper
+    bf16 widths and at the r5 recipe (hid 64), batch 8, dropout 0.1, 6
+    steps from one fresh state by the synchronous host path, the
+    prefetched host path and the device epoch (forced with
+    ``NYLON_DEVICE_DATASET=1``): the per-step losses, every parameter,
+    Adam's state, both generators and the launch counts bit for bit equal;
+    each path's steps/s over two 8-step epochs (A B C C B A), its
+    device-busy time (a profiled epoch) and the host's time a step split
+    into issuing the step's ops and the batch; the synchronous batch's
+    numpy gather and copy; the CLI provider's re-upload of a split of the
+    learning proof's size at every (epoch, div); (y.2) a tab-head model at
+    the paper widths: ``string_B`` of the batch-32 bf16 engine under (e)'s
+    gates, of the int8 engine under (k)'s (its class probabilities), of the
+    default ``Config()`` in f32 under (n.4)'s, launch counts exact; one
+    fused train step with the string term against its plain twin (the
+    training layers' plain versions on the card): losses within 1e-2,
+    every weight gradient from the f32 twin no further than twice the plain
+    bf16 twin + 1e-3 ((h)'s gate), the string head's also within (h)'s 2e-2
+    of max |plain|; ``transcribe
+    --tab --tab-head`` on the 120 s audio at batch 1 and 32: equal string
+    grids, and the alphaTex of the head's strings.
 
 Every profile ((e), (j), (k), (l), (m), (n)) also prints the device time
 and share of the attention kernels of ``csrc/mha.cu`` and
 ``csrc/mha_f32.cu``, of the layer GEMMs (bf16, f32 and int8), of K6's
-mask kernel and of the reduction.
+mask kernel and of the reduction. Its first call runs under the
+profiler's warm-up and is discarded (without it the profiler missed the
+kernels launched first, and a stem kernel that ran once a forward was
+printed as "x0"); launches a call are the profiler's count over the
+calls, a kernel that ran with fewer launches than calls raises, and the
+counts of the kernels that one wrapper counts launch by launch must
+equal the wrappers' ``kernels.launches``.
 
 PyTorch's global TF32 flags stay at their defaults: the port's own guards
 keep its f32 paths at f32 accuracy (IEEE f32; the f32 attention's PV
@@ -354,6 +381,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -486,33 +514,88 @@ def synth_audio(seconds: float, rng: np.random.Generator,
     return wav.astype(np.float32)
 
 
+# CUDA kernels that one wrapper counter counts launch by launch
+# (kernels.launches): profile_forward holds the profiler's count of each
+# against the counters' growth over the profiled calls
+PROFILE_COUNTERS = {
+    "stem_embed_kernel": ("encoder_layer_with_stem",
+                          "encoder_layer_with_stem_q8"),
+    "gemm_bias_ffma_kernel": ("gemm_bias_ffma_f32",),
+    "hash_mask_kernel": ("hash_keep_mask",),
+    "ln_bwd_kernel": ("ln_bwd",),
+    "reduce_rows_kernel": ("reduce_rows",),
+    "log_mel_kernel": ("log_mel", "log_mel_segments")}
+
+
 def profile_forward(fwd, iters: int = 10, phase: str = "e",
                     what: str = "forward", top: int = 12) -> list:
     """Device time per kernel over ``iters`` calls of ``fwd`` (forwards,
     or train steps), by torch.profiler, and the device-busy share of the
     profiled window. Returns (kernel name, ms, launches) per call of
-    ``fwd``, for every kernel that ran."""
+    ``fwd``, for every kernel that ran.
+
+    One call runs first under the profiler's warm-up and is discarded:
+    without it the kernels launched first after the profiler starts can be
+    missing from its records, and a kernel launched once a call then read
+    as fewer launches than calls (the stem layer's kernels, printed "x0").
+    Launches a call are the count over the calls (a fraction if they do not
+    divide), a kernel that ran is never printed with 0, and the counts of
+    the kernels in ``PROFILE_COUNTERS`` must equal their wrappers'."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nylon_amt_tpu_torch import kernels
 
     grad = torch.no_grad() if what == "forward" else contextlib.nullcontext()
     with grad, profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fwd()
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=iters,
+                                         repeat=1)) as prof:
+        fwd()                      # the warm-up call, traced and discarded
         torch.cuda.synchronize()
+        prof.step()
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fwd()
+            if i == iters - 1:
+                torch.cuda.synchronize()
+            prof.step()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
-                    e.count // iters) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+        grown = {k: v - before[k] for k, v in kernels.launches.items()}
+    counts = {}
+    for e in prof.key_averages():
+        # a device-side annotation (ProfilerStep*, Optimizer.step#...)
+        # spans kernels already counted: it is no kernel
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
+                and not e.is_user_annotation:
+            ms, n = counts.get(e.key, (0.0, 0))
+            counts[e.key] = (ms + e.self_device_time_total / 1e3 / iters,
+                             n + e.count)
+    rows = sorted(((key, ms, n // iters if n % iters == 0 else n / iters)
+                   for key, (ms, n) in counts.items()), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"({phase}) profile, {iters} {what}s: {wall:.3f} ms wall per "
-        f"{what}, {busy:.3f} ms device-busy ({busy / wall:.1%})")
+    log(f"({phase}) profile, {iters} {what}s (after one discarded): "
+        f"{wall:.3f} ms wall per {what}, {busy:.3f} ms device-busy "
+        f"({busy / wall:.1%})")
     for name, ms, calls in rows[:top]:
         log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
-            f"x{calls}")
+            f"x{calls:g}")
+    unseen = [f"{name[:60]} ({n} launches in {iters} {what}s)"
+              for name, (ms, n) in counts.items() if n < iters]
+
+    def profiled(k):
+        return sum(n for name, (_, n) in counts.items() if f"::{k}" in name)
+
+    wrong = [f"{k}: profiler {profiled(k)}, wrappers "
+             f"{sum(grown[c] for c in cs)}"
+             for k, cs in PROFILE_COUNTERS.items()
+             if profiled(k) != sum(grown[c] for c in cs)]
+    if unseen or wrong:
+        raise AssertionError(f"({phase}) profile: kernels that ran with "
+                             f"fewer launches than {what}s: {unseen}; "
+                             f"profiler counts against the wrappers' "
+                             f"counters: {wrong}")
     for dt, src, names in (
             ("bf16", "layer_fused.cu", ("gemm_bias_kernel",
                                         "gemm_res_ln_kernel")),
@@ -526,13 +609,15 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             ms = sum(r[0] for r in gemm)
             log(f"({phase})   {dt} layer GEMMs of csrc/{src} "
                 f"({', '.join(names)}): {ms:.3f} ms, {ms / busy:.1%} of "
-                f"device-busy, {sum(r[1] for r in gemm)} launches per {what}")
+                f"device-busy, {sum(r[1] for r in gemm):g} launches per "
+                f"{what}")
     for k in ("hash_mask_kernel", "reduce_rows_kernel"):
         hits = [(ms, calls) for name, ms, calls in rows if f"::{k}" in name]
         if hits:
             ms = sum(r[0] for r in hits)
             log(f"({phase})   {k}: {ms:.3f} ms, {ms / busy:.1%} of "
-                f"device-busy, {sum(r[1] for r in hits)} launches per {what}")
+                f"device-busy, {sum(r[1] for r in hits):g} launches per "
+                f"{what}")
     attn = [(name, ms, calls) for name, ms, calls in rows
             if "attn_fwd_" in name or "attn_bwd_" in name]
     if attn:
@@ -540,9 +625,9 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
         log(f"({phase})   attention kernels of csrc/mha.cu and "
             f"csrc/mha_f32.cu: {ms:.3f} ms, "
             f"{ms / busy:.1%} of device-busy, "
-            f"{sum(r[2] for r in attn)} launches per {what}: "
+            f"{sum(r[2] for r in attn):g} launches per {what}: "
             + "; ".join(f"{name.split('namespace)::', 1)[-1][:44]} "
-                        f"{ms_:.3f} ms {ms_ / busy:.1%} x{c}"
+                        f"{ms_:.3f} ms {ms_ / busy:.1%} x{c:g}"
                         for name, ms_, c in attn))
     return rows
 
@@ -5846,6 +5931,594 @@ def check_streaming(cfg, model, feat, audio, dev, card, cli_main,
     return row
 
 
+# (y) the training input pipeline and the tablature head --------------------
+
+Y_CHECK_WINDOWS = 45    # 6 steps of 8, the last a padded tail of 5
+Y_TIMED_STEPS = 8       # each timed epoch
+Y_PROFILED_STEPS = 6    # the profiled epoch
+# the reduced recipe (tools/learning_proof.py, JAX r5) beside the paper
+# widths: the hid >= 192 gate sends it to the device epoch by default
+R5_MODEL = dict(hid_dim=64, pf_dim=128, enc_layer=2, dec_layer=2,
+                enc_head=2, dec_head=2, dropout=RATE,
+                compute_dtype="bfloat16")
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str | None):
+    """``os.environ[name]`` set to ``value`` (None: unset) for the block."""
+    kept = os.environ.get(name)
+    try:
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+        yield
+    finally:
+        if kept is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = kept
+
+
+@contextlib.contextmanager
+def plain_train_layers():
+    """The training layers' CUDA routes swapped for their plain twins while
+    the block runs: the autograd Functions of ``ops/layer_fused_train.py``
+    then run the twins on the card's tensors (the fused step's plain
+    twin)."""
+    from nylon_amt_tpu_torch.ops import layer_fused_train as lt
+
+    names = ("encoder_layer_train_cuda", "encoder_layer_train_bwd_cuda",
+             "decoder_layer_train_cuda", "decoder_layer_train_bwd_cuda")
+    kept = {n: getattr(lt, n) for n in names}
+
+    def dec_plain(p, bwd: bool):
+        if isinstance(p, lt.DecLayerParams):
+            return (lt.decoder_layer_train_bwd_plain if bwd
+                    else lt.decoder_layer_train_plain)
+        return (lt.decoder_layer_zero_train_bwd_plain if bwd
+                else lt.decoder_layer_zero_train_plain)
+
+    plain = {
+        names[0]: lambda x, p, seed, heads, rate, emb_drop=False, w=None,
+        stem=False: lt.encoder_layer_train_plain(x, p, seed, heads, rate,
+                                                 emb_drop),
+        names[1]: lambda x, p, seed, dz, heads, rate, emb_drop=False, w=None,
+        tap=None, stem=False: lt.encoder_layer_train_bwd_plain(
+            x, p, seed, dz, heads, rate, emb_drop),
+        names[2]: lambda trg, enc, p, seed, heads, rate, w=None: dec_plain(
+            p, False)(trg, enc, p, seed, heads, rate),
+        names[3]: lambda trg, enc, p, seed, dz, heads, rate, w=None,
+        tap=None: dec_plain(p, True)(trg, enc, p, seed, dz, heads, rate)}
+    try:
+        for n, fn in plain.items():
+            setattr(lt, n, fn)
+        yield
+    finally:
+        for n, fn in kept.items():
+            setattr(lt, n, fn)
+
+
+def y_split(cfg, feat, n_frames: int, seed: int, strings: bool = False):
+    """One piece of the smoke's log-mel features with seeded random labels
+    (``string`` too with ``strings``), as split arrays."""
+    from nylon_amt_tpu_torch.data.corpus import assemble_split
+
+    rng = np.random.default_rng(seed)
+    n = n_frames
+    labels = {"onset": (rng.random((n, 88)) > 0.98).astype(np.float32),
+              "offset": (rng.random((n, 88)) > 0.98).astype(np.float32),
+              "mpe": rng.random((n, 88)) > 0.9,
+              "velocity": rng.integers(0, 128, (n, 88)).astype(np.int8)}
+    if strings:
+        labels["string"] = np.where(labels["velocity"] > 0,
+                                    rng.integers(1, 7, (n, 88)), 0
+                                    ).astype(np.int8)
+    return assemble_split(cfg, [feat.cpu().numpy()[:n]], [labels])
+
+
+def check_input_paths(tag: str, cfg, feat, dev, card, tmp: Path,
+                      model=None) -> dict:
+    """(y.1) at one width: 6 steps from one fresh state by the synchronous
+    host path (``prefetch_depth=0``), the prefetched host path and the
+    device epoch (``NYLON_DEVICE_DATASET=1``); the per-step losses, every
+    parameter, Adam's state, both generators and the launch counts bit for
+    bit equal across the three. Then each path's steps/s over a
+    ``Y_TIMED_STEPS``-step epoch (timed twice, in the order A B C C B A),
+    its device-busy time (torch.profiler), and the host's time a step split
+    into issuing the step's ops and the rest (the batch: gather + copy,
+    the wait on the prefetch queue, or the device gather's issue). The
+    state is ``model``'s weights, or a fresh one of ``cfg``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nylon_amt_tpu_torch import kernels
+    from nylon_amt_tpu_torch.data.device_windows import DeviceWindowDataset
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.models.hft import build_model
+    from nylon_amt_tpu_torch.train import step as st
+    from nylon_amt_tpu_torch.train.loop import Trainer
+
+    bs = cfg.train.batch_size
+    arrays = y_split(cfg, feat, 3000, SEED + 30)
+    if model is None:
+        model = st.create_train_state(cfg, SEED, dev).model
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh_state():
+        model = build_model(cfg, dev)
+        model.load_state_dict(init)
+        model.train()
+        return st.TrainState(model, st.make_optimizer(cfg,
+                                                      model.parameters()))
+
+    def shard(n):
+        ds = WindowDataset(arrays, cfg)
+        ds.idx = ds.idx[:: len(ds.idx) // n][:n]
+        return ds
+
+    def run(path, ds, profiled=False):
+        tr = Trainer(cfg, str(tmp / tag / path), device=dev,
+                     prefetch_depth=0 if path == "sync" else 2)
+        if path == "device":
+            with env_set("NYLON_DEVICE_DATASET", "1"):
+                ds = tr._wrap_ds(ds)
+            if not isinstance(ds, DeviceWindowDataset):
+                raise AssertionError(f"(y.1) {tag}: the split was not "
+                                     f"promoted")
+        state = fresh_state()
+        rng = np.random.default_rng(SEED)
+        gen = torch.Generator().manual_seed(SEED)
+        losses, issue = [], []
+        step = tr._step
+
+        def timed_step(*a):
+            t0 = time.perf_counter()
+            loss = step(*a)
+            issue.append(time.perf_counter() - t0)
+            losses.append(loss)
+            return loss
+
+        tr._step = timed_step
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        # the device's activity only: busy time needs no host events, and
+        # a step's thousands of them cost seconds to collect
+        prof = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            state, mean = tr.train_epoch(state, ds, rng, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = dict(state=state, mean=mean, losses=torch.stack(losses),
+                   launches=dict(kernels.launches), wall=wall,
+                   issue=sum(issue), steps=len(losses),
+                   rng=rng.bit_generator.state, gen=gen.get_state())
+        if profiled:
+            rows = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and e.self_device_time_total > 0
+                           and not e.is_user_annotation), reverse=True)
+            out["busy"] = sum(r[0] for r in rows) / out["steps"]
+            out["top"] = "; ".join(f"{k[:48]} {s * 1e3 / out['steps']:.3f} "
+                                   f"ms x{n / out['steps']:g}"
+                                   for s, n, k in rows[:4])
+        return out
+
+    paths = ("sync", "prefetch", "device")
+    t_start = time.perf_counter()
+    runs = {p: run(p, shard(Y_CHECK_WINDOWS)) for p in paths}
+    ref = runs["sync"]
+    failed = []
+    for p in paths[1:]:
+        r = runs[p]
+        if not (torch.equal(r["losses"], ref["losses"])
+                and r["mean"] == ref["mean"]):
+            failed.append(f"{p}: losses {r['losses'].tolist()} vs "
+                          f"{ref['losses'].tolist()}")
+        sa, sb = ref["state"], r["state"]
+        for (name, a), b in zip(sa.model.state_dict().items(),
+                                sb.model.state_dict().values()):
+            if not torch.equal(a, b):
+                failed.append(f"{p}: parameter {name}")
+        for pa, pb in zip(sa.model.parameters(), sb.model.parameters()):
+            oa, ob = sa.optimizer.state[pa], sb.optimizer.state[pb]
+            if not all(torch.equal(oa[k], ob[k])
+                       for k in ("exp_avg", "exp_avg_sq", "step")):
+                failed.append(f"{p}: Adam's state")
+                break
+        if r["launches"] != ref["launches"] or r["rng"] != ref["rng"] \
+                or not torch.equal(r["gen"], ref["gen"]) \
+                or r["steps"] != 6 or ref["steps"] != 6:
+            failed.append(f"{p}: launches {r['launches']} vs "
+                          f"{ref['launches']}, or the generators, or "
+                          f"{r['steps']} steps")
+    if failed:
+        raise AssertionError(f"(y.1) {tag}: the input paths differ: "
+                             + "; ".join(failed[:8]))
+    launches = {k: v for k, v in ref["launches"].items() if v}
+    log(f"(y.1) {tag}: {ref['steps']} steps from one state (the last a "
+        f"padded tail) by the synchronous host path, the prefetched host "
+        f"path and the device epoch: per-step losses, every parameter, "
+        f"Adam's state, both generators and the launches bit for bit equal "
+        f"({launches})")
+    del runs
+    t_checked = time.perf_counter()
+    timed = {p: [] for p in paths}
+    for p in (*paths, *reversed(paths)):
+        r = run(p, shard(Y_TIMED_STEPS * bs))
+        timed[p].append((r["wall"], r["issue"], r["steps"]))
+    t_timed = time.perf_counter()
+    profiled = {p: run(p, shard(Y_PROFILED_STEPS * bs), profiled=True)
+                for p in paths}
+    t_profiled = time.perf_counter()
+    busy = {p: r["busy"] for p, r in profiled.items()}
+    # the host batch alone: the numpy gather, then the copy to the card
+    ds = shard(Y_TIMED_STEPS * bs)
+    gather_s = copy_s = 0.0
+    for i in range(Y_TIMED_STEPS):
+        t0 = time.perf_counter()
+        b = ds.gather(np.arange(i * bs, (i + 1) * bs))
+        t1 = time.perf_counter()
+        st.to_device(b, dev)
+        torch.cuda.synchronize()
+        gather_s += t1 - t0
+        copy_s += time.perf_counter() - t1
+    out = {"gather_ms": gather_s / Y_TIMED_STEPS * 1e3,
+           "copy_ms": copy_s / Y_TIMED_STEPS * 1e3}
+    for p in paths:
+        walls = [w / n * 1e3 for w, _, n in timed[p]]
+        issues = [i / n * 1e3 for _, i, n in timed[p]]
+        out[p] = dict(steps_per_s=[1e3 / w for w in walls], wall_ms=walls,
+                      issue_ms=issues,
+                      other_ms=[w - i for w, i in zip(walls, issues)],
+                      busy_ms=busy[p] * 1e3)
+        log(f"(y.1) {tag} {p}: "
+            f"{', '.join(f'{x:.2f}' for x in out[p]['steps_per_s'])} steps/s "
+            f"(two epochs of {Y_TIMED_STEPS}); wall "
+            f"{', '.join(f'{x:.3f}' for x in walls)} ms a step, of which the "
+            f"host issues the step's ops "
+            f"{', '.join(f'{x:.3f}' for x in issues)} ms and spends "
+            f"{', '.join(f'{x:.3f}' for x in out[p]['other_ms'])} ms on the "
+            f"batch (fetch and waits); device-busy "
+            f"{out[p]['busy_ms']:.3f} ms a step (profiled epoch, "
+            f"{profiled[p]['wall'] / Y_PROFILED_STEPS * 1e3:.3f} ms wall a "
+            f"step "
+            f"under the profiler; top kernels a step: {profiled[p]['top']})")
+    log(f"(y.1) {tag}: the host batch of the synchronous path: numpy gather "
+        f"{out['gather_ms']:.3f} ms + copy to the card "
+        f"{out['copy_ms']:.3f} ms a step; card {card}; the check "
+        f"{t_checked - t_start:.1f} s, the timed epochs "
+        f"{t_timed - t_checked:.1f} s, the profiled ones "
+        f"{t_profiled - t_timed:.1f} s")
+    return out
+
+
+def check_reupload(cfg, dev, card, tmp: Path) -> dict:
+    """(y.1) The CLI's provider loads a new ``SplitArrays`` on every call,
+    and the trainer's cache keys on that object: each (epoch, div) uploads
+    its train split again. Timed here on a split of the learning proof's
+    size (56 pieces of 20 s) loaded from disk (memory-mapped) twice."""
+    from nylon_amt_tpu_torch.data.corpus import SplitArrays
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.train.loop import Trainer
+
+    frames = 56 * 1250
+    rng = np.random.default_rng(SEED + 32)
+    arrays = SplitArrays(
+        feature=rng.standard_normal((frames, 256), np.float32),
+        onset=(rng.random((frames, 88)) > 0.98).astype(np.float32),
+        offset=(rng.random((frames, 88)) > 0.98).astype(np.float32),
+        mpe=rng.random((frames, 88)) > 0.9,
+        velocity=rng.integers(0, 128, (frames, 88)).astype(np.int8),
+        idx=np.arange(32, frames - 160))
+    arrays.save(str(tmp / "big"), "train")
+    del arrays
+    tr = Trainer(cfg, str(tmp / "reupload"), device=dev)
+    for _ in range(2):       # two (epoch, div)s of the CLI's provider
+        ds = WindowDataset(SplitArrays.load(str(tmp / "big"), "train"), cfg,
+                           n_slice=cfg.train.n_slice)
+        tr._wrap_ds(ds)
+    if len(tr.uploads) != 2:
+        raise AssertionError(f"(y.1) re-upload: {tr.uploads}")
+    nb = tr.uploads[0][0]
+    log(f"(y.1) the CLI's provider at the learning proof's size "
+        f"({nb / 1e6:.1f} MB, memory-mapped): every (epoch, div) uploads the split again, "
+        f"{', '.join(f'{s * 1e3:.1f}' for _, s in tr.uploads)} ms (first "
+        f"read from the page cache: warm); card {card}")
+    return {"bytes": nb, "upload_ms": [s * 1e3 for _, s in tr.uploads]}
+
+
+def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
+                   tmp: Path) -> None:
+    """(y.2) the tablature head at the paper widths: the engine's
+    ``string_B`` in bf16 (batch 32) under (e)'s gates, in f32 (the default
+    ``Config()``) under (n.4)'s, in int8 under (k)'s (its string
+    probabilities within Q8_FORWARD_REL of the plain q8 forward's distance
+    from the bf16 forward), launch counts exact; one fused training step
+    with the string term against its plain twin (the training layers'
+    plain versions on the card): the losses within 1e-2; every weight
+    gradient (K's and V's grouped as the kernels pack them) no further from
+    the plain twin in f32 than twice the plain bf16 twin + 1e-3, (h)'s
+    gate; the string head's also within WGRAD_REL of its largest |plain|
+    (deeper gradients carry the whole chain's bf16 rounding: the plain
+    twin itself reads up to ~0.7 from the f32 twin there, so (h)'s
+    per-layer WGRAD_REL is printed, not held, for them); ``cli transcribe --tab --tab-head`` on the 120 s audio at batch 1
+    and 32: equal string grids, and an alphaTex whose strings are the
+    head's."""
+    from nylon_amt_tpu_torch import Config, ModelConfig, kernels
+    from nylon_amt_tpu_torch.data.windows import WindowDataset
+    from nylon_amt_tpu_torch.infer import engine
+    from nylon_amt_tpu_torch.infer.tab import annotate_strings, write_alphatex
+    from nylon_amt_tpu_torch.models.hft import HFT
+    from nylon_amt_tpu_torch.models.init import reference_initialize
+    from nylon_amt_tpu_torch.ops.precision import full_f32
+    from nylon_amt_tpu_torch.train import step as st
+    from nylon_amt_tpu_torch.utils.wavio import save_wav
+
+    rep = dataclasses.replace
+    tab = rep(cfg, model=rep(cfg.model, tab_head=True))
+    tab32 = rep(tab, model=rep(tab.model, compute_dtype="float32"))
+    m = tab.model
+    model = reference_initialize(HFT(tab, dev), torch.Generator().manual_seed(
+        SEED + 31)).eval()
+    model32 = HFT(tab32, dev)
+    model32.load_state_dict(model.state_dict())
+    model32.eval()
+    layers = {"encoder_layer_with_stem": 1,
+              "encoder_layer": m.enc_layer - 1 + m.dec_layer,
+              "decoder_layer_zero": 1, "decoder_layer": m.dec_layer - 1}
+
+    def counted(fn, want, what):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.launches.items() if v}
+        if got != want:
+            raise AssertionError(f"(y.2) {what}: launches {got}, expected "
+                                 f"{want}")
+        return out
+
+    t_part = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_part
+        log(f"(y.2) {what}: {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+
+    # bf16, batch 32, (e)'s gates on every head, string_B among them
+    packed = engine.pack_params(model, torch.bfloat16)
+    got = counted(lambda: engine.forward(packed, spec, tab), layers,
+                  "bf16 forward")
+    with torch.no_grad():
+        plain16 = model(spec)
+        with full_f32():
+            truth = model32(spec)
+    e_k, e_p = bf16_gate("(y.2) engine string_B", got["string_B"],
+                         plain16["string_B"], truth["string_B"])
+    gates = {}
+    for k in truth:
+        bf16_gate(f"(y.2) engine {k}", got[k], plain16[k], truth[k])
+        err, ulps = ulp_distance(got[k], plain16[k])
+        if not ulps <= ULPS_FORWARD[k[-1]]:
+            raise AssertionError(f"(y.2) engine {k}: {ulps:.1f} ulps from "
+                                 f"plain bf16 > {ULPS_FORWARD[k[-1]]}")
+        gates[k] = ulps
+    cls = (got["string_B"].argmax(-1) == plain16["string_B"].argmax(-1)
+           ).float().mean().item()
+    log(f"(y.2) batch-{BATCH} paper bf16 forward with the tab head: string_B "
+        f"engine err {e_k:.5f} vs plain bf16 err {e_p:.5f} (of the f32 "
+        f"truth), {gates['string_B']:.1f} ulps from plain bf16 (<= "
+        f"{ULPS_FORWARD['B']}); every head under (e)'s gates (ulps "
+        + ", ".join(f"{k} {v:.1f}" for k, v in gates.items())
+        + f"); string classes equal {cls:.4f}; launches {layers}")
+
+    lap("bf16 forward")
+    # int8: (k)'s gates, the string head by its class probabilities
+    packed8 = engine.pack_params(model, torch.bfloat16, precision="int8")
+    out8 = counted(lambda: engine.forward(packed8, spec, tab),
+                   {f"{k}_q8": v for k, v in layers.items()}, "int8 forward")
+    with plain_q8_layers():
+        outp = engine.forward(packed8, spec, tab)
+    worst, scheme, failed = {}, {}, []
+    for k in got:
+        if k.startswith("velocity"):
+            continue
+        prob = ((lambda x: torch.softmax(x.float(), -1))
+                if k == "string_B" else (lambda x: torch.sigmoid(x.float())))
+        p16 = prob(got[k])
+        worst[k] = (prob(out8[k]) - p16).abs().max().item()
+        scheme[k] = (prob(outp[k]) - p16).abs().max().item()
+        if not (worst[k] <= Q8_FORWARD_REL * scheme[k]
+                and (k.endswith("_B") or worst[k] <= Q8_POST)):
+            failed.append(f"{k}: {worst[k]:.4f} from the bf16 forward, the "
+                          f"plain q8 forward {scheme[k]:.4f}")
+    if failed:
+        raise AssertionError("(y.2) int8 forward: " + "; ".join(failed))
+    cls8 = (out8["string_B"].argmax(-1) == got["string_B"].argmax(-1)
+            ).float().mean().item()
+    log(f"(y.2) batch-{BATCH} paper int8 forward with the tab head, "
+        f"probabilities from the bf16 forward (plain q8 in brackets): "
+        + ", ".join(f"{k} {v:.4f} ({scheme[k]:.4f})" for k, v in worst.items())
+        + f"; (k)'s gates; string classes equal {cls8:.4f}")
+    del packed8, out8, outp, got, plain16, truth, model32
+    torch.cuda.empty_cache()
+
+    lap("int8 forward")
+    # f32: the default Config() with the head, (n.4)'s gates on every key
+    default = Config(model=ModelConfig(tab_head=True))
+    model_d = reference_initialize(HFT(default, dev),
+                                   torch.Generator().manual_seed(SEED + 33)
+                                   ).eval()
+    check_forward_f32(default, model_d, spec, dev, card,
+                      "default Config() + tab head", with_int8=False)
+    del model_d
+
+    lap("f32 forward")
+    # one fused train step with the string term against its plain twin,
+    # and the plain twin in f32 as the truth of (h)'s gate
+    arrays = y_split(tab, feat, 1000, SEED + 34, strings=True)
+    ds = WindowDataset(arrays, tab, n_slice=tab.train.n_slice)
+    batch = st.to_device(next(ds.batches(tab.train.batch_size)), dev)
+    state = st.create_train_state(tab, SEED, dev)
+    seeds = st.make_apply(tab)[1](tab, torch.Generator().manual_seed(SEED))
+
+    def step_grads(c, model_):
+        model_.zero_grad(set_to_none=True)
+        loss, metrics = st.loss_fn(c, st.make_apply(c)[0], model_, batch,
+                                   seeds)
+        loss.backward()
+        torch.cuda.synchronize()
+        return ({k: v.item() for k, v in metrics.items()},
+                {n: p.grad.detach().float().clone()
+                 for n, p in model_.named_parameters() if p.grad is not None})
+
+    per_step = {"hash_keep_mask": 4,
+                "encoder_layer_train": m.enc_layer + m.dec_layer,
+                "encoder_layer_train_bwd": m.enc_layer + m.dec_layer,
+                "decoder_layer_zero_train": 1,
+                "decoder_layer_zero_train_bwd": 1,
+                "decoder_layer_train": m.dec_layer - 1,
+                "decoder_layer_train_bwd": m.dec_layer - 1}
+    kernels.reset_launches()
+    k_metrics, k_grads = step_grads(tab, state.model)
+    got = {k: kernels.launches[k] for k in per_step}
+    if got != per_step:
+        raise AssertionError(f"(y.2) train step launches {got}, expected "
+                             f"{per_step}")
+    model32 = HFT(tab32, dev)
+    model32.load_state_dict(state.model.state_dict())
+    model32.train()
+    with plain_train_layers():
+        kernels.reset_launches()
+        p_metrics, p_grads = step_grads(tab, state.model)
+        if any(kernels.launches[k] for k in per_step
+               if k != "hash_keep_mask"):
+            raise AssertionError("(y.2) the plain twin step launched a "
+                                 "layer kernel")
+        with full_f32():
+            t_metrics, t_grads = step_grads(tab32, model32)
+    loss_rel = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k])
+                for k in ("loss", "loss_string_B")}
+
+    def grouped(grads):
+        # K's and V's projections as the kernels pack them (beside Q's in
+        # the self-attention's wqkv, as wkv in the cross attention): K's
+        # bias alone has a zero gradient (softmax ignores a shift shared by
+        # every key), so its relative error is noise over noise
+        out = {}
+        for n, g in grads.items():
+            out.setdefault(re.sub(r"\.fc_[kv]\.", ".fc_kv.", n), []).append(
+                g.flatten())
+        return {n: torch.cat(gs) for n, gs in out.items()}
+
+    k_g, p_g, t_g = grouped(k_grads), grouped(p_grads), grouped(t_grads)
+
+    def rel(a, b, scale):
+        return ((a - b).abs().max() / scale.abs().max().clamp_min(1e-30)
+                ).item()
+
+    wgrad = {n: rel(k_g[n], g, g) for n, g in p_g.items()}
+    gate = {n: (rel(k_g[n], t_g[n], t_g[n]), rel(g, t_g[n], t_g[n]))
+            for n, g in p_g.items()}
+    head = [n for n in p_g if "fc_string_time" in n]
+    bad = [f"{n}: from the f32 twin {e_k:.4f} vs plain bf16 {e_p:.4f}"
+           for n, (e_k, e_p) in gate.items() if not e_k <= 2.0 * e_p + 1e-3]
+    bad += [f"{n}: {wgrad[n]:.4f} of max |plain| (<= {WGRAD_REL})"
+            for n in head if not wgrad[n] <= WGRAD_REL]
+    worst = max(wgrad, key=wgrad.get)
+    log(f"(y.2) batch-{tab.train.batch_size} paper bf16 train step with the "
+        f"string term (dropout {m.dropout}): loss_string_B "
+        f"{k_metrics['loss_string_B']:.5f}, plain twin "
+        f"{p_metrics['loss_string_B']:.5f}, f32 twin "
+        f"{t_metrics['loss_string_B']:.5f}; losses within "
+        f"{max(loss_rel.values()):.2e} of the twin's (<= 1e-2); every "
+        f"weight gradient from the f32 twin <= 2 x the plain bf16 twin's + "
+        f"1e-3 ((h)'s gate; the head "
+        + ", ".join(f"{gate[n][0]:.4f} vs {gate[n][1]:.4f}" for n in head)
+        + "); the head within "
+        + ", ".join(f"{wgrad[n]:.4f}" for n in head)
+        + f" of max |plain| (<= {WGRAD_REL}); deepest reading "
+        f"{wgrad[worst]:.4f} at {worst}, where the plain twin itself is "
+        f"{gate[worst][1]:.4f} from the f32 twin; launches {per_step}")
+    if bad or max(loss_rel.values()) > 1e-2:
+        raise AssertionError(f"(y.2) the fused step with the string term vs "
+                             f"its plain twin: losses {loss_rel}; "
+                             + "; ".join(bad[:6]))
+    del state, model32, k_grads, p_grads, t_grads
+    torch.cuda.empty_cache()
+
+    lap("train step")
+    # cli transcribe --tab --tab-head, batch 1 and 32
+    d = tmp / "tab"
+    d.mkdir(parents=True, exist_ok=True)
+    tab.save(str(d / "config.json"))
+    torch.save({"model_dict": {k: v.cpu() for k, v in
+                               model.state_dict().items()}}, d / "model.dat")
+    save_wav(str(d / "piece.wav"), audio, SR)
+    n_frames = 1 + int(AUDIO_SEC * SR) // tab.feature.hop_sample
+    grids = {}
+    for bw in (1, BATCH):
+        n_batches = math.ceil(math.ceil(n_frames / tab.input.num_frame) / bw)
+        want = {"log_mel": 1, **{k: v * n_batches for k, v in layers.items()}}
+        what = f"cli transcribe --tab --tab-head --batch-windows {bw}"
+
+        def transcribe():
+            if cli_main(["transcribe", "--checkpoint", str(d / "model.dat"),
+                         "--config", str(d / "config.json"), "--wav",
+                         str(d / "piece.wav"), "--out", str(d / f"b{bw}"),
+                         "--batch-windows", str(bw), "--device", "cuda",
+                         "--tab", "--tab-head", "--save-posteriors"]) != 0:
+                raise AssertionError(f"(y.2) {what} failed")
+
+        counted(transcribe, want, what)
+        grids[bw] = np.load(d / f"b{bw}" / "piece.post.npz")["string_B"]
+    if not np.array_equal(grids[1], grids[BATCH]):
+        raise AssertionError("(y.2) the batch-1 and batch-32 string grids "
+                             "differ")
+    notes = json.loads((d / f"b{BATCH}" / "piece.notes.json").read_text())
+    annotated = annotate_strings(notes, grids[BATCH], tab)
+    write_alphatex(annotated, str(d / "want.alphatex"), title="piece")
+    if (d / f"b{BATCH}" / "piece.alphatex").read_text() != \
+            (d / "want.alphatex").read_text():
+        raise AssertionError("(y.2) the alphaTex is not the head's")
+    log(f"(y.2) cli transcribe --tab --tab-head on the {AUDIO_SEC:.0f} s "
+        f"audio: {len(notes)} notes, {sum('string' in n for n in annotated)} "
+        f"with a string from the head; the batch-1 and batch-{BATCH} string "
+        f"grids ({grids[1].shape}, int8) equal; the alphaTex is the head's; "
+        f"launches exact")
+    lap("cli transcribe")
+
+
+def check_pipeline_and_tab(cfg, model, spec, feat, audio, dev, card,
+                           cli_main) -> None:
+    """(y): the input paths at the paper (from ``model``'s weights) and the
+    reduced widths, the CLI's re-upload, the tablature head; the seconds of
+    each part."""
+    r5 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                            **R5_MODEL))
+    (ROOT / "build").mkdir(exist_ok=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        for part, run in (
+                ("y.1 paper", lambda: check_input_paths(
+                    "paper bf16", cfg, feat, dev, card, tmp, model)),
+                ("y.1 r5", lambda: check_input_paths(
+                    "r5 recipe (hid 64)", r5, feat, dev, card, tmp)),
+                ("re-upload", lambda: check_reupload(r5, dev, card, tmp)),
+                ("y.2", lambda: check_tab_head(cfg, spec, feat, audio, dev,
+                                               card, cli_main, tmp))):
+            t0 = time.perf_counter()
+            run()
+            seconds[part] = time.perf_counter() - t0
+    log(f"(y) {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6285,6 +6958,9 @@ def main() -> int:
     # (x) streaming and multi-stream serving ---------------------------------
     results["log_mel_segments"] = check_streaming(
         cfg, model, feat, audio, dev, card, cli_main, first_batch, serve_ckpt)
+
+    # (y) the training input pipeline and the tablature head ------------------
+    check_pipeline_and_tab(cfg, model, spec, feat, audio, dev, card, cli_main)
     if sass_proc is not None:  # (a)'s SASS check, run in the background
         sass = gemm_sass(sass_proc, kernels.build_dir() / kernels.LIB_NAME)
         bad = {k: v for k, v in sass.items()

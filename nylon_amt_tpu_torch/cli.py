@@ -46,7 +46,8 @@ checkpoint, or ``--epoch / --div``), a reference-format ``.dat`` (a
 reference's key names.
 Writes ``<stem>.mid``, ``<stem>.notes.json`` and one
 ``<stem>_{1st,2nd}.notes.json`` per head family; ``--tab`` adds
-``<stem>.alphatex``, ``--sheet`` ``<stem>.musicxml`` and
+``<stem>.alphatex`` (``--tab-head``: its strings from a tab-head model's
+``string_B``), ``--sheet`` ``<stem>.musicxml`` and
 ``--save-posteriors`` ``<stem>.post.npz``. ``--list DIR --split S``
 transcribes every WAV of a lists directory's split; ``--int8`` runs the
 W8A8 layers.
@@ -277,9 +278,18 @@ def cmd_transcribe(args) -> int:
         with open(os.path.join(out_dir, stem + ".notes.json"), "w") as f:
             json.dump(notes, f, indent=2)
         if args.tab:
-            from nylon_amt_tpu_torch.infer.tab import write_alphatex
+            from nylon_amt_tpu_torch.infer.tab import (annotate_strings,
+                                                       write_alphatex)
 
-            write_alphatex(notes, os.path.join(out_dir, stem + ".alphatex"),
+            tab_notes = notes
+            if args.tab_head and "string_B" in post:
+                # the learned tab head (ModelConfig.tab_head), opt-in as in
+                # the JAX CLI: it has not beaten the lowest-fret rule on the
+                # guitar proof corpus (PERF.md); infeasible cells fall back
+                # to the greedy assignment inside write_alphatex
+                tab_notes = annotate_strings(notes, post["string_B"], config)
+            write_alphatex(tab_notes,
+                           os.path.join(out_dir, stem + ".alphatex"),
                            title=stem)
         if args.sheet:
             from nylon_amt_tpu_torch.infer.sheet import write_musicxml
@@ -505,6 +515,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write <stem>.post.npz")
     r.add_argument("--tab", action="store_true",
                    help="also export guitar tablature (alphaTex)")
+    r.add_argument("--tab-head", action="store_true",
+                   help="with --tab: strings from the learned tab head "
+                   "(ModelConfig.tab_head) instead of the default "
+                   "lowest-fret rule; experimental (PERF.md)")
     r.add_argument("--sheet", action="store_true",
                    help="also export sheet music (MusicXML)")
     r.add_argument("--int8", action="store_true",

@@ -41,7 +41,8 @@ from typing import NamedTuple
 import torch
 
 from nylon_amt_tpu_torch.config import Config
-from nylon_amt_tpu_torch.models.hft import HFT, is_main
+from nylon_amt_tpu_torch.models.hft import (CLASS_HEADS, HFT, is_main,
+                                            time_heads)
 from nylon_amt_tpu_torch.ops.layer_fused import (
     CrossLayerParams,
     EncoderLayerParams,
@@ -84,7 +85,7 @@ class PackedHFT(NamedTuple):
     heads_a: dict[str, tuple[torch.Tensor, torch.Tensor]]
     pos_time: torch.Tensor | None        # [n_frame, hid]; None for cafreq
     time: list[EncoderLayerParams]
-    heads_b: dict[str, tuple[torch.Tensor, torch.Tensor]]
+    heads_b: dict[str, tuple[torch.Tensor, torch.Tensor]]   # + "string"
     precision: str | None = None
     # float32 on the card: the TF32 pairs of each layer's matrices, by group
     # ("enc", "dec_zero", "dec", "time") and layer (layer_fused.pack_tf32)
@@ -158,9 +159,11 @@ def pack_params(model: HFT, dtype: torch.dtype,
 
     enc, dec = model.encoder_spec2midi, model.decoder_spec2midi
     k_eff, b_eff = enc.stem_kernel(model.config)
-    heads = {s: {k: _lin(getattr(dec, f"fc_{k}_{t}"), dtype) for k in _KEYS}
-             for s, t in (("a", "freq"), ("b", "time"))
-             if s == "a" or dec.stage2}
+    heads = {"a": {k: _lin(getattr(dec, f"fc_{k}_freq"), dtype)
+                   for k in _KEYS}}
+    if dec.stage2:                   # with the tablature head, if any
+        heads["b"] = {k: _lin(getattr(dec, f"fc_{k}_time"), dtype)
+                      for k in time_heads(dec)}
     layers = dict(
         enc=[enc_pack(layer) for layer in enc.layers_freq],
         dec_zero=cross_pack(dec.layer_zero_freq),
@@ -268,8 +271,9 @@ def stage2(packed: PackedHFT, trg: torch.Tensor, B: int,
            config: Config) -> dict:
     """SAtime: the stage-1 tokens ``trg [B*n_frame, n_note, hid]`` (the last
     stage-1 layer's output) through the time layers (K3, or K13's int8
-    twin, per layer) and the B heads -> ``{"<head>_B": logits}``, the unit
-    class axis kept (``forward`` drops it)."""
+    twin, per layer) and the B heads (the tablature head's ``string_B``
+    too, where the pack has it) -> ``{"<head>_B": logits}``, the unit class
+    axis kept (``forward`` drops it)."""
     m = config.model
     n_frame, n_note, hid = (config.input.num_frame, config.midi.num_note,
                             m.hid_dim)
@@ -285,11 +289,13 @@ def stage2(packed: PackedHFT, trg: torch.Tensor, B: int,
         t, tc = _split(q8, enc_layer(t, p, m.dec_head,
                                      **_pack(packed, "time", i),
                                      **_codes(q8, more, x_codes=tc)), more)
-    return {f"{k}_B": _dense(t, packed.heads_b[k])
-            .reshape(B, n_note, n_frame, -1).transpose(1, 2) for k in _KEYS}
+    return {f"{k}_B": _dense(t, head)
+            .reshape(B, n_note, n_frame, -1).transpose(1, 2)
+            for k, head in packed.heads_b.items()}
 
 
 def _squeeze(out: dict) -> dict:
-    """Drop the unit class axis of the onset/offset/mpe heads."""
-    return {k: v if k.startswith("velocity") else v[..., 0]
+    """Drop the unit class axis of the onset/offset/mpe heads (velocity and
+    string keep their classes)."""
+    return {k: v if k.startswith(CLASS_HEADS) else v[..., 0]
             for k, v in out.items()}

@@ -18,8 +18,10 @@ a CUDA device every layer launches the port's kernels; on the CPU the same
 code runs the plain versions. ``precision="int8"`` runs the W8A8 layers
 (K13) instead of the exact ones, and needs the engine. Onset/offset/mpe
 posteriors are sigmoids of the logits and velocity is the argmax over the
-128 classes (int8); each batch's posteriors come back to the host in one
-copy.
+128 classes (int8); a tab-head model (``config.model.tab_head``) adds
+``string_B``, the argmax over the string classes (int8, 0 = no string),
+taken on the device. Each batch's posteriors come back to the host in one
+copy, and both stitching modes carry the string grid.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.midi.smf import write_notes
 from nylon_amt_tpu_torch.infer import engine
 from nylon_amt_tpu_torch.infer.decode import mpe2note
-from nylon_amt_tpu_torch.models.hft import ported
+from nylon_amt_tpu_torch.models.hft import CLASS_HEADS, ported
 from nylon_amt_tpu_torch.ops.mel import MelFrontend
 from nylon_amt_tpu_torch.utils.wavio import load_mono
 
@@ -62,6 +64,7 @@ class Transcriber:
         # Stage-1-only models ("cafreq" decoder) emit only A heads.
         self.families = (("A",) if config.model.dec_alg == "cafreq"
                          else ("A", "B"))
+        self.tab_head = config.model.tab_head
         self.frontend = MelFrontend(config.feature, self.device)
         self.packed = (engine.pack_params(model, model.dtype, precision)
                        if engine.supports(config) else None)
@@ -78,7 +81,9 @@ class Transcriber:
     def _run_batch(self, windows: torch.Tensor) -> torch.Tensor:
         """windows ``[N, n_bins, window_frames]`` -> posteriors stacked as
         one float32 tensor ``[n_keys, N, num_frame, num_note]`` (velocity
-        classes as exact small integers), in :meth:`_post_keys` order."""
+        and string classes as exact small integers: the argmax is taken
+        here, on the device, since the stack has no class axis), in
+        :meth:`_post_keys` order."""
         if self.packed is None:
             with torch.no_grad():
                 out = self.model.per_site(windows)
@@ -89,10 +94,13 @@ class Transcriber:
             for key in _POST_KEYS[:3]:
                 posts.append(torch.sigmoid(out[f"{key}_{fam}"]).float())
             posts.append(out[f"velocity_{fam}"].argmax(-1).float())
+        if self.tab_head:
+            posts.append(out["string_B"].argmax(-1).float())
         return torch.stack(posts)
 
     def _post_keys(self) -> list[str]:
-        return [f"{k}_{f}" for f in self.families for k in _POST_KEYS]
+        return [f"{k}_{f}" for f in self.families for k in _POST_KEYS] + \
+            (["string_B"] if self.tab_head else [])
 
     def _windows(self, feature: np.ndarray, starts: np.ndarray) -> np.ndarray:
         idx = starts[:, None] + np.arange(self.config.window_frames)
@@ -125,8 +133,9 @@ class Transcriber:
 
     def _post_dict(self, stacked: np.ndarray) -> dict[str, np.ndarray]:
         """Host posteriors stacked as :meth:`_run_batch` stacks them ->
-        ``{key: [N, num_frame, num_note]}`` (velocity as int8)."""
-        return {k: (stacked[i].astype(np.int8) if k.startswith("velocity")
+        ``{key: [N, num_frame, num_note]}`` (velocity and string as
+        int8)."""
+        return {k: (stacked[i].astype(np.int8) if k.startswith(CLASS_HEADS)
                     else stacked[i])
                 for i, k in enumerate(self._post_keys())}
 
@@ -147,10 +156,8 @@ class Transcriber:
         ])
         starts = np.arange(0, T, inp.num_frame)
         post = self._run_all(self._windows(padded, starts))
-        fams = ("A", "B") if mode == "combination" else ("A",)
-        return {f"{key}_{fam}": post[f"{key}_{fam}"].reshape(
-                    -1, cfg.midi.num_note)
-                for fam in fams for key in _POST_KEYS}
+        return {k: v.reshape(-1, cfg.midi.num_note)
+                for k, v in post.items() if k in self._keys(mode)}
 
     def transcript_stride(self, feature: np.ndarray, n_offset: int,
                           mode: str = "combination") -> dict[str, np.ndarray]:
@@ -171,11 +178,17 @@ class Transcriber:
         ])
         starts = np.arange(0, T, half)
         post = self._run_all(self._windows(padded, starts))
-        fams = ("A", "B") if mode == "combination" else ("A",)
-        return {f"{key}_{fam}": post[f"{key}_{fam}"][
-                    :, n_offset: n_offset + half, :].reshape(
+        return {k: v[:, n_offset: n_offset + half, :].reshape(
                     -1, cfg.midi.num_note)[: T + len_s]
-                for fam in fams for key in _POST_KEYS}
+                for k, v in post.items() if k in self._keys(mode)}
+
+    def _keys(self, mode: str) -> list[str]:
+        """The output keys of ``mode``: every head family in combination
+        mode (with ``string_B`` for a tab-head model), the A heads in
+        single mode."""
+        keys = self._post_keys()
+        return keys if mode == "combination" else \
+            [k for k in keys if k.endswith("_A")]
 
     # -- decode + emit ---------------------------------------------------------
 

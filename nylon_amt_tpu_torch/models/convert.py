@@ -34,10 +34,11 @@ def params_from_jax(params: Mapping[str, Any], config: Config,
                     ) -> dict[str, torch.Tensor]:
     """Nested flax params (numpy or array-likes), and the ``batch_stats``
     of a BatchNorm model, -> reference-named float32 ``state_dict``. Raises
-    ``KeyError`` for a leaf the rules do not cover (an architecture the
-    port does not carry, such as the tab head)."""
+    ``KeyError`` for a leaf the rules do not cover (a tree of another
+    architecture than ``config``'s)."""
     m = config.model
-    rules = build_rules(m.enc_layer, m.dec_layer, m.enc_alg, m.dec_alg)
+    rules = build_rules(m.enc_layer, m.dec_layer, m.enc_alg, m.dec_alg,
+                        tab_head=m.tab_head)
     trees = {"params": params, "batch_stats": batch_stats or {}}
     sd: dict[str, torch.Tensor] = {}
     used = {name: set() for name in trees}

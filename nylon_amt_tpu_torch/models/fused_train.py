@@ -29,7 +29,7 @@ import torch
 
 from nylon_amt_tpu_torch.config import Config
 from nylon_amt_tpu_torch.infer import engine
-from nylon_amt_tpu_torch.models.hft import DTYPES, HFT
+from nylon_amt_tpu_torch.models.hft import DTYPES, HFT, time_heads
 from nylon_amt_tpu_torch.ops.layer_fused import (
     EncoderLayerParams,
     fused_stem,
@@ -136,7 +136,7 @@ def train_forward(model: HFT, spec: torch.Tensor, seeds: Mapping[int, int],
     for i, layer in enumerate(dec.layers_time):
         t = encoder_layer_train(t, _pack_enc(layer), seeds[20 + i],
                                 m.dec_head, rate, emb_drop=i == 0)
-    for k in _KEYS:
+    for k in time_heads(dec):            # with the tab head's "string"
         out[f"{k}_B"] = (_dense(t, getattr(dec, f"fc_{k}_time"), dt)
                          .reshape(B, n_note, n_frame, -1).transpose(1, 2))
     return engine._squeeze(out)

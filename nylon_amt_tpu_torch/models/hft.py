@@ -42,8 +42,10 @@ is held against JAX with JAX's seed.
 
 :func:`build_model` builds :class:`HFT` for the main architecture and
 :class:`~nylon_amt_tpu_torch.models.ablation.AblationModel` for the other
-encoders and decoders of the ablation grid; the tablature head is not
-ported.
+encoders and decoders of the ablation grid. ``config.model.tab_head``
+adds the tablature head ``fc_string_time`` on the stage-2 tokens (both
+forwards): ``string_B [B, n_frame, n_note, n_strings + 1]`` class logits
+(0 = no string).
 """
 
 from __future__ import annotations
@@ -78,10 +80,11 @@ _ATTN_OUT, _FFN_MID, _FFN_OUT, _SA_OUT, _EMB = 1, 2, 3, 5, 6
 
 def ported(config: Config) -> bool:
     """:func:`build_model` builds this configuration: any encoder and
-    decoder of the ablation grid, without the tablature head."""
+    decoder of the ablation grid (the tablature head with the main
+    two-stage decoder, as ``ModelConfig.validate`` requires)."""
     m = config.model
     return (m.enc_alg in ENCODERS and m.dec_alg in DECODERS
-            and not m.tab_head and m.compute_dtype in DTYPES)
+            and m.compute_dtype in DTYPES)
 
 
 def is_main(config: Config) -> bool:
@@ -366,11 +369,23 @@ def stage1_heads(dec: nn.Module, trg, B: int, n_frame: int, dt) -> dict:
     return out
 
 
+# the heads whose logits keep their class axis
+CLASS_HEADS = ("velocity", "string")
+
+
+def time_heads(dec: nn.Module) -> tuple[str, ...]:
+    """The B heads ``fc_<k>_time`` of a two-stage decoder, in order; the
+    tablature head ``string`` last, where the decoder has it."""
+    heads = ("onset", "offset", "mpe", "velocity")
+    return heads + ("string",) if hasattr(dec, "fc_string_time") else heads
+
+
 def stage2(dec: nn.Module, trg, B: int, n_frame: int, dt, sites: Sites,
            out: dict) -> dict:
     """SAtime (ref ``:185-214``): the stage-1 tokens transposed to [note,
     time], the time position embedding, ``dec.layers_time``, the B heads
-    (``fc_*_time``) added to ``out``."""
+    (``fc_*_time``, and the tablature head ``fc_string_time`` where the
+    decoder has one) added to ``out``."""
     n, n_note, hid = trg.shape
     t = trg.reshape(B, n_frame, n_note, hid).transpose(1, 2)
     t = _embed(t.reshape(B * n_note, n_frame, hid),
@@ -378,10 +393,10 @@ def stage2(dec: nn.Module, trg, B: int, n_frame: int, dt, sites: Sites,
     for layer in dec.layers_time:
         t = layer(t, dt, sites)
     with full_f32():
-        for k in ("onset", "offset", "mpe", "velocity"):
+        for k in time_heads(dec):
             y = _linear(t, getattr(dec, f"fc_{k}_time"), dt)
             y = y.reshape(B, n_note, n_frame, -1).transpose(1, 2)
-            out[f"{k}_B"] = y[..., 0] if k != "velocity" else y
+            out[f"{k}_B"] = y if k in CLASS_HEADS else y[..., 0]
     return out
 
 
@@ -417,6 +432,8 @@ class Decoder(nn.Module):
             self.fc_offset_time = nn.Linear(hid, 1)
             self.fc_mpe_time = nn.Linear(hid, 1)
             self.fc_velocity_time = nn.Linear(hid, n_vel)
+            if m.tab_head:        # string class logits, 0 = no string
+                self.fc_string_time = nn.Linear(hid, m.n_strings + 1)
 
     def forward(self, enc, B, dt, sites: Sites):
         n, n_bin, hid = enc.shape

@@ -26,8 +26,8 @@ Both the final state and the best-validation checkpoint are scored; the run
 passes when the better mean held-out onset F1 reaches ``--pass-f1``. It
 also measures the training step on the device: a ``torch.profiler``
 window of 20 steps in the second epoch this process trains (device-busy
-time over the window's wall time) beside :class:`StepTimer`'s steps/s over
-the same steps. Run from the root of a checkout::
+time over the window's wall time, and the window's steps/s). Run from the
+root of a checkout::
 
     python -m nylon_amt_tpu_torch.tools.learning_proof --style rich \\
         --pieces 56 --held-out 8 --epochs 25 --dtype bfloat16 \\
@@ -101,67 +101,62 @@ def synth_piece(rng, sr=16000, dur=20.0, n_notes=40, pitch_lo=48,
 
 
 class ProfiledWindow:
-    """A train shard whose batches open a measured window: at step
-    ``WINDOW_START`` it synchronises the card and starts ``torch.profiler``
-    and the step timer, and after ``WINDOW_STEPS`` steps it synchronises
-    and stops both. The steps between two batches are the trainer's own, so
-    the window sees the training loop as it runs."""
+    """The measured window of one train shard, driven by the trainer's
+    ``step_hook`` (called on the main thread before every step with its
+    index in the epoch): before step ``WINDOW_START`` it synchronises the
+    card and starts ``torch.profiler``, and ``WINDOW_STEPS`` steps later it
+    synchronises and stops it. The steps between are the trainer's own, on
+    whichever input path the shard takes (the device epoch or prefetched
+    host batches)."""
 
-    def __init__(self, ds, device: torch.device):
-        self.ds = ds
+    def __init__(self, steps_per_epoch: int, device: torch.device):
         self.device = device
+        self.steps = min(WINDOW_STEPS, steps_per_epoch - 1)
+        self.start = min(WINDOW_START, steps_per_epoch - 1 - self.steps)
         self.result = None
+        self._prof = None
+        self._t0 = 0.0
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def batches(self, *args, **kwargs):
+    def __call__(self, i: int) -> None:
         from torch.autograd import DeviceType
 
-        from nylon_amt_tpu_torch.utils.profiling import StepTimer, activities
+        from nylon_amt_tpu_torch.utils.profiling import activities
 
-        n = self.ds.steps_per_epoch      # a short shard: a shorter window
-        steps = min(WINDOW_STEPS, n - 1)
-        start = min(WINDOW_START, n - 1 - steps)
-        end = start + steps
-        timer = StepTimer(warmup=0)
-        prof = torch.profiler.profile(activities=activities())
-        running = False
-        try:
-            for i, batch in enumerate(self.ds.batches(*args, **kwargs)):
-                if i == start and steps > 0:
-                    self._sync()
-                    prof.start()
-                    running = True
-                    t0 = time.perf_counter()
-                elif start < i <= end:
-                    if i == end:
-                        self._sync()
-                    timer.__exit__(None, None, None)
-                if i == end and running:
-                    wall = time.perf_counter() - t0
-                    prof.stop()
-                    running = False
-                    self.result = {
-                        "steps": len(timer.times), "first_step": start,
-                        "wall_s": wall,
-                        "steps_per_sec": timer.steps_per_sec(),
-                        "device_busy_s": None, "busy_share": None,
-                        "idle_share": None}
-                    if self.device.type == "cuda":
-                        busy = sum(e.self_device_time_total for e in
-                                   prof.key_averages()
-                                   if e.device_type == DeviceType.CUDA) / 1e6
-                        self.result.update(device_busy_s=busy,
-                                           busy_share=busy / wall,
-                                           idle_share=1.0 - busy / wall)
-                if start <= i < end:
-                    timer.__enter__()
-                yield batch
-        finally:
-            if running:           # the epoch ended early (a preemption)
-                prof.stop()
+        if i == self.start and self.steps > 0:
+            self._sync()
+            self._prof = torch.profiler.profile(activities=activities())
+            self._prof.start()
+            self._t0 = time.perf_counter()
+        elif i == self.start + self.steps and self._prof is not None:
+            self._sync()
+            wall = time.perf_counter() - self._t0
+            self._prof.stop()
+            self.result = {
+                "steps": self.steps, "first_step": self.start,
+                "wall_s": wall, "steps_per_sec": self.steps / wall,
+                "device_busy_s": None, "busy_share": None,
+                "idle_share": None}
+            if self.device.type == "cuda":
+                # device-side annotations (Optimizer.step#...) span
+                # kernels already counted
+                busy = sum(e.self_device_time_total for e in
+                           self._prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and not e.is_user_annotation) / 1e6
+                self.result.update(device_busy_s=busy,
+                                   busy_share=busy / wall,
+                                   idle_share=1.0 - busy / wall)
+            self._prof = None
+
+    def close(self) -> None:
+        """Stop a window that the epoch did not finish (a preemption)."""
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
 
 
 def build_config(args) -> Config:
@@ -279,8 +274,12 @@ def main(argv: list[str] | None = None) -> int:
         ds = WindowDataset(arrays, cfg, n_slice=cfg.train.n_slice)
         if split == "train":
             shards["train"] += 1
+            if "ds" in window:            # the measured epoch is over
+                window["ds"].close()
+                trainer.step_hook = None
             if shards["train"] == 2:
-                ds = window["ds"] = ProfiledWindow(ds, device)
+                window["ds"] = trainer.step_hook = ProfiledWindow(
+                    ds.steps_per_epoch, device)
         return ds
 
     state = None
@@ -364,7 +363,7 @@ def main(argv: list[str] | None = None) -> int:
     if w is not None and w["busy_share"] is not None:
         print(f"train step, {w['steps']} steps of this process's second "
               f"epoch (batch 8): "
-              f"{w['steps_per_sec']:.2f} steps/s (StepTimer), device-busy "
+              f"{w['steps_per_sec']:.2f} steps/s, device-busy "
               f"{w['busy_share']:.1%} of {w['wall_s'] * 1e3:.1f} ms wall, "
               f"idle {w['idle_share']:.1%} (torch.profiler); overall "
               f"{result['train']['steps_per_sec_overall']:.2f} steps/s "

@@ -52,12 +52,15 @@ def _head_rules(prefix_t: str, prefix_f: tuple, names: list[str]):
 
 def build_rules(enc_layers: int, dec_layers: int,
                 enc_alg: str = "cnntime_safreq",
-                dec_alg: str = "cafreq_satime") -> dict:
+                dec_alg: str = "cafreq_satime",
+                tab_head: bool = False) -> dict:
     """Full state_dict-key -> (flax path, transform) mapping.
 
     Covers the main model (``Model_SPEC2MIDI``) and the ablation grid
     (``model_spec2midi_ablation.py``); ablation models use the same
     ``encoder_spec2midi`` / ``decoder_spec2midi`` attribute names.
+    ``tab_head`` adds ``decoder_spec2midi.fc_string_time`` (the JAX table
+    has no such argument: its export drops the head).
     """
     r: dict[str, tuple] = {}
     e = "encoder_spec2midi"
@@ -131,4 +134,8 @@ def build_rules(enc_layers: int, dec_layers: int,
                                   ("decoder", f"layers_time_{i}"),
                                   has_self=True, has_cross=False))
         r.update(_head_rules(d, ("decoder",), time_heads))
+    if tab_head:
+        # the tablature head (ModelConfig.tab_head): no reference analog,
+        # so the JAX table leaves it out; the port's modules carry it
+        r.update(_head_rules(d, ("decoder",), ["fc_string_time"]))
     return r

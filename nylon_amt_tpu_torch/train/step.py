@@ -2,8 +2,9 @@
 
 Port of :mod:`nylon_amt_tpu.train.step`. The loss mirrors the reference
 (``training/train.py:141-153``): per head family (A = stage 1, B = stage
-2), BCE on onset/offset/mpe plus cross-entropy on the 128-class velocity,
-summed, then ``weight_A * loss_A + weight_B * loss_B``; the heads stay
+2), BCE on onset/offset/mpe plus cross-entropy on the 128-class velocity
+(and, for a tab-head model on a batch with ``string`` labels, on the string
+classes), summed, then ``weight_A * loss_A + weight_B * loss_B``; the heads stay
 logits (sigmoid-BCE-with-logits, the JAX package's documented divergence
 from the reference's BCELoss on sigmoids). A batch may carry a ``valid``
 row mask: masked rows add nothing and the mean divides by the valid count.
@@ -132,6 +133,13 @@ def loss_fn(config: Config, apply_fn: Callable, model, batch: dict,
         metrics.update({f"loss_onset_{fam}": l_on, f"loss_offset_{fam}": l_off,
                         f"loss_mpe_{fam}": l_mpe,
                         f"loss_velocity_{fam}": l_vel})
+        # the tab head (ModelConfig.tab_head): string-class CE over the same
+        # grid, trained only when the batch carries string labels (a tab
+        # model fine-tuning on piano data skips the term)
+        if f"string_{fam}" in out and "string" in batch:
+            l_str = ce(out[f"string_{fam}"], batch["string"])
+            totals[fam] = totals[fam] + l_str
+            metrics[f"loss_string_{fam}"] = l_str
     loss = config.train.weight_A * totals["A"]
     if "B" in totals:
         loss = loss + config.train.weight_B * totals["B"]

@@ -50,7 +50,9 @@ def test_port_never_imports_jax():
                  "models.convert", "models.init", "labels.note2label",
                  "labels.note2ref", "train.metrics", "utils.profiling",
                  "tools.proof_corpus", "tools.learning_proof",
-                 "infer.stream", "infer.serve", "tools.stream_bench"):
+                 "infer.stream", "infer.serve", "tools.stream_bench",
+                 "data.prefetch", "data.device_windows",
+                 "tools.guitar_proof"):
         assert f"nylon_amt_tpu_torch.{name}" in out["modules"], name
     assert out["loaded"] == []
 

@@ -120,11 +120,16 @@ def test_params_from_jax_keys_and_strict_load():
 
 
 def test_params_from_jax_rejects_uncovered_leaves():
+    """A tree with a leaf the config's rules do not cover (a tab-head tree
+    carried with a config without the head) raises; with the head in the
+    config, the same tree is carried."""
     cfg = small_config(tab_head=True)
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
                                     _shapes(cfg))
     assert "fc_string_time" in params["decoder"]
     with pytest.raises(KeyError, match="fc_string_time"):
+        params_from_jax(params, small_config())
+    assert "decoder_spec2midi.fc_string_time.weight" in \
         params_from_jax(params, cfg)
 
 
@@ -224,20 +229,20 @@ def test_stem_effective_kernel_matches_jax():
     dict(tab_head=True), dict(enc_alg="cnnblock_safreq"),
     dict(dec_alg="linear_satime"), dict(return_attention=True)])
 def test_supports_rejects_what_is_not_ported(model_kw):
-    """The tab head is not ported: nothing builds it. The ablation models
-    and the attention map are: ``build_model`` builds them, while the
-    engine and the fused training layers leave them to the per-site path,
-    as the JAX package's ``supports`` do."""
+    """The ablation models and the attention map are ported:
+    ``build_model`` builds them, while the engine and the fused training
+    layers leave them to the per-site path, as the JAX package's
+    ``supports`` do. The tab head is ported on every path: the engine and
+    the fused training layers take it, and ``build_model`` builds
+    :class:`HFT` with it."""
     cfg = small_config(**model_kw)
+    if model_kw.get("tab_head"):
+        assert ported(cfg)
+        assert tengine.supports(cfg) and fused_train.supports(cfg)
+        assert isinstance(t_build_model(cfg, "cpu"), HFT)
+        return
     assert not tengine.supports(cfg)
     assert not fused_train.supports(cfg)
-    if model_kw.get("tab_head"):
-        assert not ported(cfg)
-        with pytest.raises(ValueError):
-            t_build_model(cfg, "cpu")
-        with pytest.raises(ValueError):
-            HFT(cfg, "cpu")
-        return
     assert ported(cfg)
     model = t_build_model(cfg, "cpu")
     assert isinstance(model, HFT) == ("return_attention" in model_kw)
