@@ -321,11 +321,13 @@ non-zero and never prints the last line):
     prefetched host path and the device epoch (forced with
     ``NYLON_DEVICE_DATASET=1``): the per-step losses, every parameter,
     Adam's state, both generators and the launch counts bit for bit equal;
-    each path's steps/s over two 8-step epochs (A B C C B A), its
-    device-busy time (a profiled epoch) and the host's time a step split
-    into issuing the step's ops and the batch; the synchronous batch's
-    numpy gather and copy; the CLI provider's re-upload of a split of the
-    learning proof's size at every (epoch, div); (y.2) a tab-head model at
+    each path's steps/s and the host's time a step split into issuing the
+    step's ops and the batch (at the paper widths over one more 8-step
+    epoch a path, A B C, at r5 from the check's 6 steps); at the paper
+    widths the synchronous path's device-busy time (a profiled epoch) and
+    its batch's numpy gather and copy; the CLI provider's re-upload of a
+    split of the learning proof's size at every (epoch, div); (y.2) a
+    tab-head model at
     the paper widths: ``string_B`` of the batch-32 bf16 engine under (e)'s
     gates, of the int8 engine under (k)'s (its class probabilities), of the
     default ``Config()`` in f32 under (n.4)'s, launch counts exact; one
@@ -333,7 +335,9 @@ non-zero and never prints the last line):
     training layers' plain versions on the card): losses within 1e-2,
     every weight gradient from the f32 twin no further than twice the plain
     bf16 twin + 1e-3 ((h)'s gate), the string head's also within (h)'s 2e-2
-    of max |plain|; ``transcribe
+    of max |plain|; the same step in f32 against its plain f32 twin, the
+    losses within 1e-4 and every weight gradient within 1e-2 of its max
+    |plain f32|; ``transcribe
     --tab --tab-head`` on the 120 s audio at batch 1 and 32: equal string
     grids, and the alphaTex of the head's strings.
 
@@ -5938,6 +5942,16 @@ Y_TIMED_STEPS = 8       # each timed epoch
 Y_PROFILED_STEPS = 6    # the profiled epoch
 # the reduced recipe (tools/learning_proof.py, JAX r5) beside the paper
 # widths: the hid >= 192 gate sends it to the device epoch by default
+# (y.2) the fused f32 step with the string term against its plain f32 twin
+# (IEEE f32 matmuls): the losses, and every weight gradient as a share of
+# its largest |plain|. The layer kernels sum in other orders (3xTF32 GEMMs
+# and f32 FFMA), and a ReLU gate that flips on a pre-activation within an
+# f32 rounding of 0 moves one row's term of a dW sum of ~10^5 rows: (n.2)
+# holds each layer's dW within F32_GRAD_REL when nothing flips, and the
+# whole chain of 10 layers gets 100x that. A zero or mis-wired gradient
+# reads ~1.
+F32_STEP_LOSS_REL = 1e-4
+F32_STEP_WGRAD_REL = 1e-2
 R5_MODEL = dict(hid_dim=64, pf_dim=128, enc_layer=2, dec_layer=2,
                 enc_head=2, dec_head=2, dropout=RATE,
                 compute_dtype="bfloat16")
@@ -6018,17 +6032,21 @@ def y_split(cfg, feat, n_frames: int, seed: int, strings: bool = False):
 
 
 def check_input_paths(tag: str, cfg, feat, dev, card, tmp: Path,
-                      model=None) -> dict:
+                      model=None, timed: bool = True) -> dict:
     """(y.1) at one width: 6 steps from one fresh state by the synchronous
-    host path (``prefetch_depth=0``), the prefetched host path and the
-    device epoch (``NYLON_DEVICE_DATASET=1``); the per-step losses, every
-    parameter, Adam's state, both generators and the launch counts bit for
-    bit equal across the three. Then each path's steps/s over a
-    ``Y_TIMED_STEPS``-step epoch (timed twice, in the order A B C C B A),
-    its device-busy time (torch.profiler), and the host's time a step split
+    host path (the trainer's default, ``prefetch_depth=0``), the
+    prefetched host path (``prefetch_depth=2``) and the device epoch
+    (``NYLON_DEVICE_DATASET=1``); the per-step losses, every parameter,
+    Adam's state, both generators and the launch counts bit for bit equal
+    across the three. Each path's steps/s, and the host's time a step split
     into issuing the step's ops and the rest (the batch: gather + copy,
-    the wait on the prefetch queue, or the device gather's issue). The
-    state is ``model``'s weights, or a fresh one of ``cfg``."""
+    the wait on the prefetch queue, or the device gather's issue): with
+    ``timed``, over one further ``Y_TIMED_STEPS``-step epoch a path (in the
+    order A B C), with the synchronous path's device-busy time over a
+    profiled epoch (torch.profiler; the three paths run the same kernels)
+    and the host batch's gather and copy timed alone; otherwise from the
+    check's own 6 steps. The state is ``model``'s weights, or a fresh one
+    of ``cfg``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -6144,17 +6162,29 @@ def check_input_paths(tag: str, cfg, feat, dev, card, tmp: Path,
         f"path and the device epoch: per-step losses, every parameter, "
         f"Adam's state, both generators and the launches bit for bit equal "
         f"({launches})")
-    del runs
     t_checked = time.perf_counter()
-    timed = {p: [] for p in paths}
-    for p in (*paths, *reversed(paths)):
-        r = run(p, shard(Y_TIMED_STEPS * bs))
-        timed[p].append((r["wall"], r["issue"], r["steps"]))
+    if timed:
+        del runs
+        runs = {p: run(p, shard(Y_TIMED_STEPS * bs)) for p in paths}
     t_timed = time.perf_counter()
-    profiled = {p: run(p, shard(Y_PROFILED_STEPS * bs), profiled=True)
-                for p in paths}
+    out = {}
+    for p in paths:
+        r = runs[p]
+        wall = r["wall"] / r["steps"] * 1e3
+        issue = r["issue"] / r["steps"] * 1e3
+        out[p] = dict(steps_per_s=1e3 / wall, wall_ms=wall, issue_ms=issue,
+                      other_ms=wall - issue)
+        log(f"(y.1) {tag} {p}: {1e3 / wall:.2f} steps/s ({r['steps']} "
+            f"steps{'' if timed else ' of the check'}); wall {wall:.3f} ms a "
+            f"step, of which the host issues the step's ops {issue:.3f} ms "
+            f"and spends {wall - issue:.3f} ms on the batch (fetch and "
+            f"waits)")
+    if not timed:
+        log(f"(y.1) {tag}: card {card}; {t_checked - t_start:.1f} s")
+        return out
+    prof = run("sync", shard(Y_PROFILED_STEPS * bs), profiled=True)
     t_profiled = time.perf_counter()
-    busy = {p: r["busy"] for p, r in profiled.items()}
+    out["sync"]["busy_ms"] = prof["busy"] * 1e3
     # the host batch alone: the numpy gather, then the copy to the card
     ds = shard(Y_TIMED_STEPS * bs)
     gather_s = copy_s = 0.0
@@ -6166,32 +6196,17 @@ def check_input_paths(tag: str, cfg, feat, dev, card, tmp: Path,
         torch.cuda.synchronize()
         gather_s += t1 - t0
         copy_s += time.perf_counter() - t1
-    out = {"gather_ms": gather_s / Y_TIMED_STEPS * 1e3,
-           "copy_ms": copy_s / Y_TIMED_STEPS * 1e3}
-    for p in paths:
-        walls = [w / n * 1e3 for w, _, n in timed[p]]
-        issues = [i / n * 1e3 for _, i, n in timed[p]]
-        out[p] = dict(steps_per_s=[1e3 / w for w in walls], wall_ms=walls,
-                      issue_ms=issues,
-                      other_ms=[w - i for w, i in zip(walls, issues)],
-                      busy_ms=busy[p] * 1e3)
-        log(f"(y.1) {tag} {p}: "
-            f"{', '.join(f'{x:.2f}' for x in out[p]['steps_per_s'])} steps/s "
-            f"(two epochs of {Y_TIMED_STEPS}); wall "
-            f"{', '.join(f'{x:.3f}' for x in walls)} ms a step, of which the "
-            f"host issues the step's ops "
-            f"{', '.join(f'{x:.3f}' for x in issues)} ms and spends "
-            f"{', '.join(f'{x:.3f}' for x in out[p]['other_ms'])} ms on the "
-            f"batch (fetch and waits); device-busy "
-            f"{out[p]['busy_ms']:.3f} ms a step (profiled epoch, "
-            f"{profiled[p]['wall'] / Y_PROFILED_STEPS * 1e3:.3f} ms wall a "
-            f"step "
-            f"under the profiler; top kernels a step: {profiled[p]['top']})")
+    out["gather_ms"] = gather_s / Y_TIMED_STEPS * 1e3
+    out["copy_ms"] = copy_s / Y_TIMED_STEPS * 1e3
+    log(f"(y.1) {tag} sync: device-busy {prof['busy'] * 1e3:.3f} ms a step "
+        f"(profiled epoch of {Y_PROFILED_STEPS}, "
+        f"{prof['wall'] / prof['steps'] * 1e3:.3f} ms wall a step under the "
+        f"profiler; top kernels a step: {prof['top']})")
     log(f"(y.1) {tag}: the host batch of the synchronous path: numpy gather "
         f"{out['gather_ms']:.3f} ms + copy to the card "
         f"{out['copy_ms']:.3f} ms a step; card {card}; the check "
         f"{t_checked - t_start:.1f} s, the timed epochs "
-        f"{t_timed - t_checked:.1f} s, the profiled ones "
+        f"{t_timed - t_checked:.1f} s, the profiled one "
         f"{t_profiled - t_timed:.1f} s")
     return out
 
@@ -6245,8 +6260,11 @@ def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
     gate; the string head's also within WGRAD_REL of its largest |plain|
     (deeper gradients carry the whole chain's bf16 rounding: the plain
     twin itself reads up to ~0.7 from the f32 twin there, so (h)'s
-    per-layer WGRAD_REL is printed, not held, for them); ``cli transcribe --tab --tab-head`` on the 120 s audio at batch 1
-    and 32: equal string grids, and an alphaTex whose strings are the
+    per-layer WGRAD_REL is printed, not held, for them); the same step in
+    f32, where kernels and plain twin agree closely, with every weight
+    gradient held within F32_STEP_WGRAD_REL of its plain f32 twin's;
+    ``cli transcribe --tab --tab-head`` on the 120 s audio at batch 1 and
+    32: equal string grids, and an alphaTex whose strings are the
     head's."""
     from nylon_amt_tpu_torch import Config, ModelConfig, kernels
     from nylon_amt_tpu_torch.data.windows import WindowDataset
@@ -6401,8 +6419,19 @@ def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
                                  "layer kernel")
         with full_f32():
             t_metrics, t_grads = step_grads(tab32, model32)
+    # the same step in f32, kernels against the plain f32 twin: every
+    # gradient held, the deep ones too (a zero gradient reads 1)
+    kernels.reset_launches()
+    with full_f32():
+        k32_metrics, k32_grads = step_grads(tab32, model32)
+    got = {k: kernels.launches[k] for k in per_step}
+    if got != per_step:
+        raise AssertionError(f"(y.2) f32 train step launches {got}, "
+                             f"expected {per_step}")
     loss_rel = {k: abs(k_metrics[k] - p_metrics[k]) / abs(p_metrics[k])
                 for k in ("loss", "loss_string_B")}
+    loss32_rel = max(abs(k32_metrics[k] - t_metrics[k]) / abs(t_metrics[k])
+                     for k in ("loss", "loss_string_B"))
 
     def grouped(grads):
         # K's and V's projections as the kernels pack them (beside Q's in
@@ -6416,12 +6445,14 @@ def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
         return {n: torch.cat(gs) for n, gs in out.items()}
 
     k_g, p_g, t_g = grouped(k_grads), grouped(p_grads), grouped(t_grads)
+    k32_g = grouped(k32_grads)
 
     def rel(a, b, scale):
         return ((a - b).abs().max() / scale.abs().max().clamp_min(1e-30)
                 ).item()
 
     wgrad = {n: rel(k_g[n], g, g) for n, g in p_g.items()}
+    wgrad32 = {n: rel(k32_g[n], g, g) for n, g in t_g.items()}
     gate = {n: (rel(k_g[n], t_g[n], t_g[n]), rel(g, t_g[n], t_g[n]))
             for n, g in p_g.items()}
     head = [n for n in p_g if "fc_string_time" in n]
@@ -6429,7 +6460,13 @@ def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
            for n, (e_k, e_p) in gate.items() if not e_k <= 2.0 * e_p + 1e-3]
     bad += [f"{n}: {wgrad[n]:.4f} of max |plain| (<= {WGRAD_REL})"
             for n in head if not wgrad[n] <= WGRAD_REL]
+    bad += [f"f32 {n}: {v:.2e} of max |plain f32| (<= {F32_STEP_WGRAD_REL})"
+            for n, v in wgrad32.items() if not v <= F32_STEP_WGRAD_REL]
+    if set(wgrad32) != set(wgrad):
+        bad.append(f"f32 step: gradients of {sorted(set(wgrad) ^ set(wgrad32))}"
+                   f" on one side only")
     worst = max(wgrad, key=wgrad.get)
+    worst32 = max(wgrad32, key=wgrad32.get)
     log(f"(y.2) batch-{tab.train.batch_size} paper bf16 train step with the "
         f"string term (dropout {m.dropout}): loss_string_B "
         f"{k_metrics['loss_string_B']:.5f}, plain twin "
@@ -6444,11 +6481,18 @@ def check_tab_head(cfg, spec, feat, audio, dev, card, cli_main,
         + f" of max |plain| (<= {WGRAD_REL}); deepest reading "
         f"{wgrad[worst]:.4f} at {worst}, where the plain twin itself is "
         f"{gate[worst][1]:.4f} from the f32 twin; launches {per_step}")
-    if bad or max(loss_rel.values()) > 1e-2:
+    log(f"(y.2) the same step in f32 (kernels vs the plain f32 twin): "
+        f"losses within {loss32_rel:.2e} (<= {F32_STEP_LOSS_REL}); all "
+        f"{len(wgrad32)} weight gradients within {wgrad32[worst32]:.2e} of "
+        f"max |plain f32| (<= {F32_STEP_WGRAD_REL}; worst at {worst32}; the "
+        f"head " + ", ".join(f"{wgrad32[n]:.2e}" for n in head)
+        + f"; {worst} {wgrad32[worst]:.2e}); launches {per_step}")
+    if bad or max(loss_rel.values()) > 1e-2 or \
+            not loss32_rel <= F32_STEP_LOSS_REL:
         raise AssertionError(f"(y.2) the fused step with the string term vs "
-                             f"its plain twin: losses {loss_rel}; "
-                             + "; ".join(bad[:6]))
-    del state, model32, k_grads, p_grads, t_grads
+                             f"its plain twin: losses {loss_rel}, f32 "
+                             f"{loss32_rel:.2e}; " + "; ".join(bad[:6]))
+    del state, model32, k_grads, p_grads, t_grads, k32_grads
     torch.cuda.empty_cache()
 
     lap("train step")
@@ -6508,7 +6552,8 @@ def check_pipeline_and_tab(cfg, model, spec, feat, audio, dev, card,
                 ("y.1 paper", lambda: check_input_paths(
                     "paper bf16", cfg, feat, dev, card, tmp, model)),
                 ("y.1 r5", lambda: check_input_paths(
-                    "r5 recipe (hid 64)", r5, feat, dev, card, tmp)),
+                    "r5 recipe (hid 64)", r5, feat, dev, card, tmp,
+                    timed=False)),
                 ("re-upload", lambda: check_reupload(r5, dev, card, tmp)),
                 ("y.2", lambda: check_tab_head(cfg, spec, feat, audio, dev,
                                                card, cli_main, tmp))):

@@ -12,8 +12,8 @@ transpose and dtypes; ``spec`` contiguous, as the layer kernels read whole
 rows; ``mpe`` float32, ``velocity`` and ``string`` int32), held by
 ``tests/test_torch_device_windows.py``. The trainer
 (:class:`~nylon_amt_tpu_torch.train.loop.Trainer`) wraps a host split
-with :func:`as_device_dataset` and then runs the epoch on the card
-(``Trainer._train_epoch_device``).
+with :func:`as_device_dataset`, keeps it resident under its budget, and
+runs its epochs on the card (``Trainer._device_batches``).
 
 When a split is promoted (:func:`as_device_dataset`):
 
@@ -134,10 +134,16 @@ class DeviceWindowDataset(WindowDataset):
             batch["string"] = dev["string"][l_idx].int()
         return batch
 
+    @property
+    def resident(self) -> bool:
+        """Whether the split's arrays are on the device now."""
+        return bool(self._dev)
+
     def ensure_resident(self) -> None:
         """Upload again if the arrays were freed (the trainer's LRU can
-        evict a split that a caller still holds)."""
-        if not self._dev:
+        evict a split that a caller still holds; the trainer re-admits it
+        through its cache before it reads it again)."""
+        if not self.resident:
             self.refresh()
 
     def refresh(self) -> None:

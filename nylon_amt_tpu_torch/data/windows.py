@@ -1,6 +1,8 @@
 """Window sampling over assembled split arrays.
 
-A copy of ``nylon_amt_tpu/data/windows.py`` (numpy only) for the port.
+Port of ``nylon_amt_tpu/data/windows.py`` (numpy only), with the epoch's
+order and padding in :func:`epoch_plan`, which the trainer's device epoch
+shares.
 
 Equivalent of the reference's ``training/dataset.py`` (``MyDataset``), but
 batch-vectorized: a batch of window starts gathers ``spec [B, n_bins, 192]``
@@ -86,35 +88,48 @@ class WindowDataset:
                              f"{process_count} processes")
         local = batch_size // process_count
         lo, hi = process_index * local, (process_index + 1) * local
-        order = np.arange(len(self.idx))
-        if shuffle:
-            (rng or np.random.default_rng()).shuffle(order)
-        for i in range(0, len(order), batch_size):
-            pos = order[i : i + batch_size]
-            mask = None
-            if len(pos) < batch_size:
-                if drop_last:
-                    return
-                if pad_to_batch:
-                    n_valid = len(pos)
-                    pos = np.concatenate(
-                        [pos, np.resize(pos, batch_size - n_valid)])
-                    mask = np.zeros(batch_size, np.float32)
-                    mask[:n_valid] = 1.0
-                else:
-                    # ragged tail: only meaningful single-process (a global
-                    # array needs equal per-process rows)
-                    if process_count > 1:
-                        raise ValueError("multi-host iteration requires "
-                                         "pad_to_batch or drop_last")
-            if mask is None:
-                mask = np.ones(len(pos), np.float32)
+        for pos, mask in epoch_plan(len(self.idx), batch_size, shuffle, rng,
+                                    drop_last, pad_to_batch):
+            if len(pos) < batch_size and process_count > 1:
+                # ragged tail: only meaningful single-process (a global
+                # array needs equal per-process rows)
+                raise ValueError("multi-host iteration requires "
+                                 "pad_to_batch or drop_last")
             batch = self.gather(pos[lo:hi] if process_count > 1 else pos)
             batch["valid"] = mask[lo:hi] if process_count > 1 else mask
             yield batch
-            if len(mask) < batch_size or not mask.all():
-                return  # that was the (padded) tail batch
 
     @property
     def steps_per_epoch(self) -> int:
         return -(-len(self.idx) // self.config.train.batch_size)
+
+
+def epoch_plan(n: int, batch_size: int, shuffle: bool = False,
+               rng: np.random.Generator | None = None,
+               drop_last: bool = False, pad_to_batch: bool = False
+               ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """One epoch over ``n`` windows as ``(positions, valid)`` per batch.
+
+    The order is ``arange(n)``, shuffled in place by ``rng`` when
+    ``shuffle`` (one ``rng.shuffle`` an epoch: the generator's state after
+    it is what the checkpoints save). A short tail batch is dropped
+    (``drop_last``), padded to ``batch_size`` by repeating its own
+    positions with ``valid`` 0 on the repeats (``pad_to_batch``), or kept
+    ragged. :meth:`WindowDataset.batches` gathers these batches on the
+    host; the trainer's device epoch uploads them once.
+    """
+    order = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(order)
+    plan = []
+    for i in range(0, n, batch_size):
+        pos = order[i: i + batch_size]
+        mask = np.ones(len(pos), np.float32)
+        if len(pos) < batch_size:
+            if drop_last:
+                break
+            if pad_to_batch:
+                mask = (np.arange(batch_size) < len(pos)).astype(np.float32)
+                pos = np.resize(pos, batch_size)
+        plan.append((pos, mask))
+    return plan

@@ -106,8 +106,8 @@ class ProfiledWindow:
     index in the epoch): before step ``WINDOW_START`` it synchronises the
     card and starts ``torch.profiler``, and ``WINDOW_STEPS`` steps later it
     synchronises and stops it. The steps between are the trainer's own, on
-    whichever input path the shard takes (the device epoch or prefetched
-    host batches)."""
+    whichever input path the shard takes (the device epoch or host
+    batches)."""
 
     def __init__(self, steps_per_epoch: int, device: torch.device):
         self.device = device

@@ -9,8 +9,10 @@ loop; the trainer's cache; the hid >= 192 gate. Beside them: the gather bit
 for bit JAX's ``DeviceWindowDataset.gather`` (JAX on the CPU), the device
 epoch bit for bit the host loop (losses, parameters, Adam's moments and
 both generators' states after 3 steps, one a padded tail), the LRU under
-its budget, and ``NYLON_DEVICE_DATASET`` read at every call and a bad
-value raising.
+its budget, an evicted split admitted and counted again when it is read,
+validation of a resident split equal to the host's, the epoch plan that
+both paths share equal to JAX's batches, and ``NYLON_DEVICE_DATASET`` read
+at every call and a bad value raising.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from nylon_amt_tpu import config as jconfig
 from nylon_amt_tpu.data.corpus import assemble_split as j_assemble
+from nylon_amt_tpu.data.windows import WindowDataset as JWindowDataset
 from nylon_amt_tpu.data.device_windows import (
     DeviceWindowDataset as JDeviceWindowDataset,
     split_nbytes as j_split_nbytes,
@@ -32,14 +35,16 @@ from nylon_amt_tpu_torch.data.device_windows import (
     host_input_is_hidden,
     split_nbytes,
 )
-from nylon_amt_tpu_torch.data.windows import WindowDataset
+from nylon_amt_tpu_torch.data.windows import WindowDataset, epoch_plan
 from nylon_amt_tpu_torch.train import loop as tloop
 from nylon_amt_tpu_torch.train.loop import Trainer
-from nylon_amt_tpu_torch.train.step import create_train_state
+from nylon_amt_tpu_torch.train.step import create_train_state, eval_step
 
 from test_torch_ablation import one_thread  # noqa: F401 (autouse)
 
 FRAMES = 32     # windows of 32 + 64 frames keep the CPU's plain steps short
+TINY = dict(hid_dim=16, pf_dim=32, enc_layer=1, dec_layer=1, enc_head=2,
+            dec_head=2)
 
 
 def _pieces(n_pieces=2, frames=300, seed=0, string=False):
@@ -254,3 +259,98 @@ def test_host_input_hidden_heuristic():
         t = tconfig.Config(model=tconfig.ModelConfig(**m))
         j = jconfig.Config(model=jconfig.ModelConfig(**m))
         assert host_input_is_hidden(t) is j_hidden(j) is want
+
+
+def _promote_on_the_cpu(monkeypatch):
+    """``as_device_dataset`` promoting every split on the CPU, as it does
+    on the card."""
+    def promote(ds, config, device):
+        dev = DeviceWindowDataset(ds.arrays, config, device="cpu")
+        dev.idx = ds.idx
+        return dev
+
+    monkeypatch.setattr(tloop, "as_device_dataset", promote)
+
+
+def test_evicted_split_is_admitted_again_and_counted(tmp_path, monkeypatch):
+    """A split that the LRU evicted and that is read again (a validation
+    split after a train split took its room) is uploaded through the cache:
+    the other split is evicted, the resident bytes stay under the budget,
+    and the upload is counted and timed."""
+    cfg = tconfig.Config(input=tconfig.InputConfig(num_frame=FRAMES),
+                         model=tconfig.ModelConfig(**TINY),
+                         train=tconfig.TrainConfig(batch_size=2))
+    a1, a2 = (_arrays(cfg, n_pieces=1, frames=120, seed=s) for s in (1, 2))
+    _promote_on_the_cpu(monkeypatch)
+    budget = split_nbytes(a1) + 1
+    monkeypatch.setenv("NYLON_DEVICE_DATASET_TOTAL_BYTES", str(budget))
+    tr = Trainer(cfg, str(tmp_path), device="cpu")
+    assert tr.prefetch_depth == 0        # the step loop is the default
+    valid = tr._wrap_ds(WindowDataset(a1, cfg, n_slice=8))
+    train = tr._wrap_ds(WindowDataset(a2, cfg, n_slice=8))
+    assert not valid.resident and train.resident and len(tr.uploads) == 2
+    state = create_train_state(cfg, 0, "cpu")
+    loss, n = tr.valid_epoch(state, valid)
+    assert n > 0 and np.isfinite(loss)
+    assert valid.resident and not train.resident
+    assert list(tr._dev_cache) == [id(a1)]
+    assert tr._dev_cache_bytes == split_nbytes(a1) <= budget
+    assert [b for b, _ in tr.uploads] == [split_nbytes(a) for a in
+                                          (a1, a2, a1)]
+    tr.valid_epoch(state, valid)         # resident: no upload
+    assert len(tr.uploads) == 3
+
+
+def test_valid_epoch_of_a_resident_split_matches_host(tmp_path,
+                                                      monkeypatch):
+    """Validation of a resident split (the starts uploaded once, the
+    windows gathered per batch) gives the host path's summed loss and
+    batch count bit for bit, the padded tail included, and its batches are
+    the ones :func:`eval_step` is given on the host."""
+    cfg = tconfig.Config(input=tconfig.InputConfig(num_frame=FRAMES),
+                         model=tconfig.ModelConfig(**TINY),
+                         train=tconfig.TrainConfig(batch_size=2))
+    arrays = _arrays(cfg, n_pieces=1, frames=90, seed=4)
+    host = WindowDataset(arrays, cfg, n_slice=18)            # 5 windows
+    state = create_train_state(cfg, 0, "cpu")
+    want = Trainer(cfg, str(tmp_path / "h"), device="cpu").valid_epoch(
+        state, host)
+    _promote_on_the_cpu(monkeypatch)
+    tr = Trainer(cfg, str(tmp_path / "d"), device="cpu")
+    dev = tr._wrap_ds(host)
+    assert isinstance(dev, DeviceWindowDataset)
+    assert tr.valid_epoch(state, dev) == want and want[1] == 3
+    got = list(tr._batches(dev, shuffle=False))
+    ref = [{k: torch.as_tensor(v) for k, v in b.items()}
+           for b in host.batches(2, pad_to_batch=True)]
+    assert len(got) == len(ref) == 3
+    for a, b in zip(got, ref):
+        _equal(a, b)
+        assert torch.equal(eval_step(cfg, state, a)["loss"],
+                           eval_step(cfg, state, b)["loss"])
+
+
+@pytest.mark.parametrize("shuffle,drop_last,pad_to_batch", [
+    (True, False, True), (False, False, True), (True, True, False),
+    (True, False, False)])
+def test_epoch_plan_matches_jax_batches(shuffle, drop_last, pad_to_batch):
+    """The plan that the host batches and the device epoch share gives
+    JAX's ``WindowDataset.batches`` (the same windows in the same order,
+    the tail padded, dropped or ragged, the ``valid`` mask) and leaves the
+    shuffle generator in JAX's state."""
+    cfg = tconfig.Config(input=tconfig.InputConfig(num_frame=FRAMES))
+    jcfg = jconfig.Config(input=jconfig.InputConfig(num_frame=FRAMES))
+    host = WindowDataset(_arrays(cfg, n_pieces=1, frames=90, seed=5), cfg,
+                         n_slice=11)
+    jds = JWindowDataset(j_assemble(jcfg, *_pieces(n_pieces=1, frames=90,
+                                                   seed=5)), jcfg, 11)
+    assert len(host) == len(jds) and len(host) % 3
+    rng, jrng = np.random.default_rng(9), np.random.default_rng(9)
+    plan = epoch_plan(len(host), 3, shuffle, rng, drop_last, pad_to_batch)
+    want = list(jds.batches(3, shuffle=shuffle, rng=jrng, drop_last=drop_last,
+                            pad_to_batch=pad_to_batch))
+    assert len(plan) == len(want) > 1
+    for (pos, valid), b in zip(plan, want):
+        got = dict(host.gather(pos), valid=valid)
+        _equal(got, {k: np.asarray(v) for k, v in b.items()})
+    assert rng.bit_generator.state == jrng.bit_generator.state
