@@ -542,9 +542,15 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
     without it the kernels launched first after the profiler starts can be
     missing from its records, and a kernel launched once a call then read
     as fewer launches than calls (the stem layer's kernels, printed "x0").
-    Launches a call are the count over the calls (a fraction if they do not
-    divide), a kernel that ran is never printed with 0, and the counts of
-    the kernels in ``PROFILE_COUNTERS`` must equal their wrappers'."""
+    Even so the profiler can still lose a record now and then (a train
+    step's scalar host-to-device copy once read 2 in 3 steps), so its count
+    is a lower bound. The launches printed for a kernel in
+    ``PROFILE_COUNTERS`` are therefore its wrappers' count; for any other
+    kernel they are the profiler's count over the calls (a fraction if they
+    do not divide). The phase raises if a kernel with device time is
+    printed with 0 launches, or if the profiler saw more launches of a
+    wrapped kernel than its wrappers counted (a launch past the counter);
+    lost records are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -576,7 +582,27 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
             ms, n = counts.get(e.key, (0.0, 0))
             counts[e.key] = (ms + e.self_device_time_total / 1e3 / iters,
                              n + e.count)
-    rows = sorted(((key, ms, n // iters if n % iters == 0 else n / iters)
+
+    def wrapped(name):
+        return next((k for k in PROFILE_COUNTERS if f"::{k}" in name), None)
+
+    def profiled(k):
+        return sum(n for name, (_, n) in counts.items() if f"::{k}" in name)
+
+    def per_call(n):
+        return n // iters if n % iters == 0 else n / iters
+
+    def launches(name, n):
+        # a wrapped kernel's instantiations share its wrappers' count: each
+        # instantiation gets its share of the profiler's records
+        k = wrapped(name)
+        if k is None or profiled(k) == 0:
+            return per_call(n)
+        want = sum(grown[c] for c in PROFILE_COUNTERS[k])
+        return per_call(n) if profiled(k) == want else \
+            want / iters * n / profiled(k)
+
+    rows = sorted(((key, ms, launches(key, n))
                    for key, (ms, n) in counts.items()), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     log(f"({phase}) profile, {iters} {what}s (after one discarded): "
@@ -585,21 +611,24 @@ def profile_forward(fwd, iters: int = 10, phase: str = "e",
     for name, ms, calls in rows[:top]:
         log(f"({phase})   {name[:64]:<64} {ms:8.3f} ms {ms / busy:6.1%} "
             f"x{calls:g}")
-    unseen = [f"{name[:60]} ({n} launches in {iters} {what}s)"
-              for name, (ms, n) in counts.items() if n < iters]
-
-    def profiled(k):
-        return sum(n for name, (_, n) in counts.items() if f"::{k}" in name)
-
-    wrong = [f"{k}: profiler {profiled(k)}, wrappers "
-             f"{sum(grown[c] for c in cs)}"
-             for k, cs in PROFILE_COUNTERS.items()
-             if profiled(k) != sum(grown[c] for c in cs)]
-    if unseen or wrong:
-        raise AssertionError(f"({phase}) profile: kernels that ran with "
-                             f"fewer launches than {what}s: {unseen}; "
-                             f"profiler counts against the wrappers' "
-                             f"counters: {wrong}")
+    zero = [name[:60] for name, _, calls in rows if calls == 0]
+    past = [f"{k}: profiler {profiled(k)}, wrappers "
+            f"{sum(grown[c] for c in cs)}"
+            for k, cs in PROFILE_COUNTERS.items()
+            if profiled(k) > sum(grown[c] for c in cs)]
+    if zero or past:
+        raise AssertionError(f"({phase}) profile: kernels with device time "
+                             f"printed with 0 launches: {zero}; profiler "
+                             f"launches past the wrappers' counters: {past}")
+    lost = [f"{name[:60]} ({n} records in {iters} {what}s)"
+            for name, (_, n) in counts.items() if n < iters] + [
+        f"{k}: profiler {profiled(k)}, wrappers {sum(grown[c] for c in cs)}"
+        for k, cs in PROFILE_COUNTERS.items()
+        if profiled(k) < sum(grown[c] for c in cs)]
+    if lost:
+        log(f"({phase})   fewer profiler records than calls or than the "
+            f"wrappers' launches (a record lost, or a kernel that does not "
+            f"run every call; not held): {lost}")
     for dt, src, names in (
             ("bf16", "layer_fused.cu", ("gemm_bias_kernel",
                                         "gemm_res_ln_kernel")),
